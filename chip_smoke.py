@@ -4,12 +4,17 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases, each of which fails the run if it fails:
-  1. build every CUDA kernel of the serving path from m3p_tpu_torch/csrc/
-     (one nvcc per source, all started together);
+  1. build every CUDA kernel of the serving and training paths from
+     m3p_tpu_torch/csrc/ (one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, at
-     small odd shapes and at the shapes the serving path gives it;
+     small odd shapes and at the shapes the two paths give it: the packed
+     attention forward at dropout rates 0 and 0.1, the backward at 0 and
+     0.1, fp32 and bf16, with a batch row that has no valid key; then the
+     V = identity check that the forward, the backward and the plain
+     version draw one Philox dropout mask;
   3. time each kernel, its plain version and the one-call PyTorch
-     yardstick at the serving shapes, beside the least time the card needs;
+     yardstick (SDPA, the autograd backward of SDPA) at the paths' shapes,
+     beside the least time the card needs;
   4. serve the flagship width (12 blocks, 768d, 12 heads, 3 AoA refiner
      layers, 100 regions, 250002-word vocab, bf16 compute, random weights
      from the seed) over HTTP: /health, /v1/score with one and with 64
@@ -18,7 +23,14 @@ Phases, each of which fails the run if it fails:
      fp32 on the card with the CPU;
   5. measure score pairs/s and retrieve latency, then trace score and
      retrieve with torch.profiler: the device's idle share and its time by
-     kernel (the profiler's own host cost inflates the idle share).
+     kernel (the profiler's own host cost inflates the idle share);
+  6. train: the ITM retrieval fine-tune step at the flagship width (dropout
+     and attention dropout 0.1, BN = 80 = 20 groups x 4 candidates, fp32
+     parameters, clip 5.0 + adam_inverse_sqrt), 3 warm-up and 20 timed
+     steps: samples/s, step ms, peak memory, kernel launches per step;
+     fp32 gradients on the card against the CPU at depth 2 (rate 0); a
+     learning check at depth 2 (50 steps on one batch); a profile of one
+     training step.
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 card's name and power limit; before that one JSON line with the kernels.
@@ -30,6 +42,8 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import copy
+import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -41,16 +55,31 @@ import urllib.request
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-KERNELS = ["packed_attention"]
+KERNELS = ["packed_attention", "packed_attention_bwd"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense bf16 tensor rate
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
 # kernel vs plain version: fp32 differs only in summation order; in bf16 the
-# kernel and the plain version each round p and o to bf16 once
+# kernel and the plain version each round p and o (p, ds and the gradients
+# in the backward) to bf16 once
 TOL_FP32 = dict(rtol=1e-5, atol=1e-5)
 TOL_BF16 = dict(rtol=1.6e-2, atol=1e-2)
+# gradients in fp32: sums over up to 512 rows or keys in another order
+TOL_BWD_FP32 = dict(rtol=1e-4, atol=1e-5)
+# fp32 gradients of the whole step on the card against the CPU, per leaf
+# relative to the leaf's largest entry: 5 layers of fp32 GEMMs, attention
+# kernels and reductions summed in another order
+TOL_GRAD_FP32 = 1e-3
+RATE = 0.1
+SEED = 0x1234_5678_9ABC_DEF0
+# the training slice (bench.py's spec without fused=1 and bf16 moments,
+# which wait for the MCT pre-training slice)
+OPTIM_SPEC = "adam_inverse_sqrt,beta1=0.9,beta2=0.98,lr=0.00005"
+CLIP = 5.0
+GROUPS, SAMPLE_N, TEXT_LEN, REGIONS = 20, 4, 64, 100
+WARMUP_STEPS, TIMED_STEPS = 3, 20
 # a served score against the same pair scored in another batch (bf16 GEMMs
 # may pick other kernels for another batch size)
 TOL_SCORE_BF16 = 5e-2
@@ -156,6 +185,109 @@ def check_kernels(gen):
     return worst
 
 
+def _compare(got, want, tol, what):
+    """max |got - want| after checking finiteness and the tolerance."""
+    import torch
+
+    if not torch.isfinite(got).all():
+        fail(f"{what}: the kernel gave non-finite values")
+    err = (got.float() - want.float()).abs().max().item()
+    try:
+        torch.testing.assert_close(got, want, **tol)
+    except AssertionError as exc:
+        fail(f"{what}: kernel and plain version disagree: {exc}")
+    return err
+
+
+def check_dropout_and_backward(gen):
+    """#1 at rate 0.1 and #2 at rates 0 and 0.1 against their plain
+    versions: small odd shapes, the largest shape the kernels take, and the
+    training shapes (B = 80; encoder blocks at S = 164, the refiner at
+    S = 100), each with a batch row that has no valid key."""
+    import torch
+
+    from m3p_tpu_torch.ops.attention import (
+        attention_packed, attention_packed_bwd,
+        attention_packed_bwd_reference, attention_packed_reference)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (B, Sq, Sk, H, Dh, dtype, causal)
+        (2, 40, 40, 3, 16, f32, False),
+        (2, 40, 40, 3, 16, f32, True),
+        (2, 10, 37, 3, 16, f32, True),
+        (3, 24, 24, 2, 8, f32, False),
+        (2, 512, 512, 2, 128, f32, True),
+    ]
+    for s_ in (164, 100):
+        cases += [(80, s_, s_, 12, 64, f32, False),
+                  (80, s_, s_, 12, 64, bf16, False)]
+    worst = {"fwd": {}, "bwd": {}}
+
+    def note(kind, dt, err):
+        name = str(dt).replace("torch.", "")
+        worst[kind][name] = max(worst[kind].get(name, 0.0), err)
+
+    for b, sq, sk, h, dh, dt, causal in cases:
+        tol_f = TOL_FP32 if dt == f32 else TOL_BF16
+        tol_b = TOL_BWD_FP32 if dt == f32 else TOL_BF16
+        q, k, v, mask = attn_inputs(b, sq, sk, h, dh, dt, gen)
+        do = torch.randn(b, sq, h * dh, device="cuda", generator=gen).to(dt)
+        shape = f"B={b} Sq={sq} Sk={sk} H={h} Dh={dh} {dt} causal={causal}"
+        got = attention_packed(q, k, v, mask, h, causal=causal,
+                               dropout_rate=RATE, dropout_seed=SEED)
+        torch.cuda.synchronize()
+        want = attention_packed_reference(q, k, v, mask, h, causal=causal,
+                                          dropout_rate=RATE,
+                                          dropout_seed=SEED)
+        err = _compare(got, want, tol_f, f"forward rate {RATE} {shape}")
+        note("fwd", dt, err)
+        msg = [f"fwd rate {RATE} {err:.3e}"]
+        for rate in (0.0, RATE):
+            seed = SEED if rate else None
+            got = attention_packed_bwd(q, k, v, mask, do, h, causal, None,
+                                       rate, seed)
+            torch.cuda.synchronize()
+            want = attention_packed_bwd_reference(q, k, v, mask, do, h,
+                                                  causal, None, rate, seed)
+            errs = [_compare(g, w, tol_b, f"backward d{n} rate {rate} "
+                                          f"{shape}")
+                    for n, g, w in zip("qkv", got, want)]
+            note("bwd", dt, max(errs))
+            msg.append(f"bwd rate {rate} dq/dk/dv " + "/".join(
+                f"{e:.3e}" for e in errs))
+        log(f"[check] {shape}: max|kernel-plain| " + "; ".join(msg)
+            + f" (tolerance fwd {tol_f}, bwd {tol_b})")
+    # the comparison has teeth: dropout changes the output
+    q, k, v, mask = attn_inputs(2, 40, 40, 3, 16, f32, gen)
+    off = (attention_packed(q, k, v, mask, 3, dropout_rate=RATE,
+                            dropout_seed=SEED)
+           - attention_packed(q, k, v, mask, 3)).abs().max().item()
+    if off < 0.1:
+        fail(f"dropout does not change the output ({off}); check is vacuous")
+    return worst
+
+
+def check_mask_identity():
+    """V = identity on the card: the forward kernel's zeros are the plain
+    version's Philox mask, and the backward kernel's dv^T (dO = identity)
+    is the forward's output.  The check is the one the `gpu` tests run
+    (tests/test_torch_kernels.py, which imports no JAX)."""
+    import importlib.util
+
+    path = REPO / "tests" / "test_torch_kernels.py"
+    spec = importlib.util.spec_from_file_location("test_torch_kernels", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    rate = 0.25
+    try:
+        share = module.check_mask_identity("cuda", rate=rate)
+    except AssertionError as exc:
+        fail(f"V=I mask identity: {exc!r}")
+    log(f"[check] V=I mask identity at rate {rate}: forward == plain Philox "
+        f"mask, backward dv^T == forward output, keep share {share:.4f}")
+    return share
+
+
 def cuda_ms(fn, iters=50, warmup=5):
     import torch
 
@@ -209,6 +341,91 @@ def time_kernels(gen):
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
             f"ms, bound {out[label]['bound_ms']:.4f} ms "
             f"({out[label]['bound_by']})")
+    return out
+
+
+def in_turns(fn_a, fn_b):
+    """cuda_ms of two functions timed in the order a, b, b, a: the mean of
+    each one's two readings, so neither gains from going second."""
+    a1, b1, b2, a2 = (cuda_ms(f) for f in (fn_a, fn_b, fn_b, fn_a))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def time_training_kernels(gen):
+    """#1 and #2 at the training shapes (B = 80, bf16), each at rates 0 and
+    0.1 in turns: kernel, plain version, and for #2 the autograd backward of
+    SDPA with the same boolean mask at rate 0 (the same function; SDPA's own
+    dropout draws other bits)."""
+    import torch
+    import torch.nn.functional as F
+
+    from m3p_tpu_torch.ops.attention import (
+        attention_packed, attention_packed_bwd,
+        attention_packed_bwd_reference, attention_packed_reference)
+
+    out = {}
+    for label, s in (("blocks", 164), ("refiner", 100)):
+        b, h, dh = GROUPS * SAMPLE_N, 12, 64
+        q, k, v, mask = attn_inputs(b, s, s, h, dh, torch.bfloat16, gen,
+                                    empty_row=False)
+        do = torch.randn(b, s, h * dh, device="cuda",
+                         generator=gen).to(torch.bfloat16)
+        fwd0_ms, fwd_ms = in_turns(
+            lambda: attention_packed(q, k, v, mask, h),
+            lambda: attention_packed(q, k, v, mask, h, dropout_rate=RATE,
+                                     dropout_seed=SEED))
+        fwd_plain_ms = cuda_ms(lambda: attention_packed_reference(
+            q, k, v, mask, h, dropout_rate=RATE, dropout_seed=SEED))
+        ms, drop_ms = in_turns(
+            lambda: attention_packed_bwd(q, k, v, mask, do, h),
+            lambda: attention_packed_bwd(q, k, v, mask, do, h, False, None,
+                                         RATE, SEED))
+        plain_ms = cuda_ms(lambda: attention_packed_bwd_reference(
+            q, k, v, mask, do, h))
+        plain_drop_ms = cuda_ms(lambda: attention_packed_bwd_reference(
+            q, k, v, mask, do, h, False, None, RATE, SEED))
+        qh, kh, vh, doh = (t.view(b, s, h, dh).transpose(1, 2).contiguous()
+                           for t in (q, k, v, do))
+        for t in (qh, kh, vh):
+            t.requires_grad_(True)
+        sdpa = F.scaled_dot_product_attention(qh, kh, vh,
+                                              attn_mask=mask[:, None, None, :])
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            sdpa, (qh, kh, vh), doh, retain_graph=True))
+        elems = b * s * h * dh
+        bwd_bytes = 7 * elems * 2 + b * s     # q, k, v, dO in; dq, dk, dv out
+        bwd_flops = 10 * b * h * s * s * dh   # QK^T, dO V^T, P^T dO, dS^T Q, dS K
+        fwd_bytes = 4 * elems * 2 + b * s
+        fwd_flops = 4 * b * h * s * s * dh
+
+        def bound(n_bytes, flops):
+            by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            by_ops = flops / BF16_FLOPS_PER_S * 1e3
+            return (max(by_bytes, by_ops),
+                    "bytes" if by_bytes >= by_ops else "operations")
+
+        bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops)
+        fwd_bound, fwd_by = bound(fwd_bytes, fwd_flops)
+        out[label] = {
+            "shape": {"B": b, "Sq": s, "Sk": s, "H": h, "Dh": dh,
+                      "dtype": "bfloat16"},
+            "bwd": {"ms": ms, "ms_rate_0.1": drop_ms, "plain_ms": plain_ms,
+                    "plain_ms_rate_0.1": plain_drop_ms,
+                    "library_ms": library_ms, "bound_ms": bwd_bound,
+                    "bound_by": bwd_by, "bytes": bwd_bytes,
+                    "flops": bwd_flops},
+            "fwd_rate_0.1": {"ms": fwd_ms, "ms_rate_0": fwd0_ms,
+                             "plain_ms": fwd_plain_ms,
+                             "bound_ms": fwd_bound, "bound_by": fwd_by},
+        }
+        log(f"[time] packed_attention_bwd {label} B={b} S={s} bf16: kernel "
+            f"{ms:.4f} ms (rate 0.1: {drop_ms:.4f}; in turns), plain "
+            f"{plain_ms:.4f} "
+            f"(rate 0.1: {plain_drop_ms:.4f}), sdpa backward "
+            f"{library_ms:.4f}, bound {bwd_bound:.4f} ms ({bwd_by})")
+        log(f"[time] packed_attention_fwd rate 0.1 {label} B={b} S={s} "
+            f"bf16: kernel {fwd_ms:.4f} ms (rate 0: {fwd0_ms:.4f}; in turns), "
+            f"plain {fwd_plain_ms:.4f}, bound {fwd_bound:.4f} ms ({fwd_by})")
     return out
 
 
@@ -427,8 +644,14 @@ def measure_serving(engine, base, texts, imgs, queries, rng):
 
 def kernel_group(name: str) -> str:
     low = name.lower()
+    if "packed_attention_bwd" in low:
+        return "packed_attention_bwd"
     if "packed_attention" in low:
         return "packed_attention"
+    if "bernoulli" in low:
+        return "dropout masks"
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer (foreach)"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
@@ -441,7 +664,7 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_window(label, fn, reps=3):
+def profile_window(label, fn, reps=3) -> dict:
     """torch.profiler over ``reps`` calls of ``fn`` (after one untraced
     call): wall and device-busy ms per call, the device's idle share, and
     device time by kernel group and by kernel, logged on one line."""
@@ -464,7 +687,7 @@ def profile_window(label, fn, reps=3):
     if not events:
         log(f"[profile] {label}: the profiler recorded no device time; "
             f"not measured")
-        return
+        return {}
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
     groups = {}
     for e in events:
@@ -480,6 +703,7 @@ def profile_window(label, fn, reps=3):
                             "ms": e.self_device_time_total / 1e3 / reps}
                            for e in top]}
     log(f"[profile] {label} (per call, {reps} calls): {json.dumps(out)}")
+    return out
 
 
 def compare_fp32_with_cpu(seed, tokenizer):
@@ -504,6 +728,196 @@ def compare_fp32_with_cpu(seed, tokenizer):
     if not np.isfinite(on_gpu).all() or diff > TOL_SCORE_FP32:
         fail("fp32 scores on the card disagree with the CPU")
     return diff
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training slice
+# ---------------------------------------------------------------------------
+
+
+def train_config(n_layers=12, dtype="bfloat16", rate=RATE):
+    return dataclasses.replace(full_width_config(dtype), n_layers=n_layers,
+                               dropout=rate, attention_dropout=rate)
+
+
+def train_batch(seed, device, groups=GROUPS):
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.data.synthetic import make_retrieval_batch
+
+    batch = make_retrieval_batch(np.random.RandomState(seed), groups,
+                                 SAMPLE_N, TEXT_LEN, REGIONS, 250002)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def itm_step(deterministic=False, with_grad_norm=False):
+    from m3p_tpu_torch.train.steps import itm_finetune_loss, make_train_step
+
+    return make_train_step(functools.partial(
+        itm_finetune_loss, sample_n=SAMPLE_N, deterministic=deterministic),
+        with_grad_norm=with_grad_norm)
+
+
+def train_slice(seed):
+    """The ITM fine-tune step at the flagship width: 3 warm-up and 20 timed
+    steps, every attention call through the kernels in both directions."""
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.ops.attention import attention_packed
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    cfg = train_config()
+    t0 = time.time()
+    model = build_model(cfg, seed, "cuda")
+    tx, schedule = build_optimizer(OPTIM_SPEC, clip_grad_norm=CLIP)
+    state = create_train_state(model, tx)
+    step = itm_step(with_grad_norm=True)
+    gens = Generators.from_seed(seed, "cuda")
+    batch = train_batch(seed, "cuda")
+    bn = batch["tokens"].shape[0]
+    watched = {n: p.detach().clone() for n, p in model.named_parameters()
+               if n in ("block_0.attn.q_lin.weight", "itm_pooler.score.weight",
+                        "refiner.layer_0.aoa_attn.aoa.weight")}
+    log(f"[train] model, optimizer state and batch (BN={bn}) on the card in "
+        f"{time.time() - t0:.2f} s")
+    per_step = (cfg.n_layers + cfg.refine_layers, 2 * (cfg.n_layers
+                                                       + cfg.refine_layers))
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    metrics = []
+    # ---- the main path, counted ----
+    attention_packed.launches = 0
+    attention_packed.bwd_launches = 0
+    for i in range(n_steps):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            wall0 = time.perf_counter()
+            start.record()
+        state, m = step(state, batch, gens)
+        metrics.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - wall0
+    launches = (attention_packed.launches, attention_packed.bwd_launches)
+    # ---- checks ----
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack([m["loss"] for m in metrics]).float().cpu()
+    norms = torch.stack([m["grad_norm"] for m in metrics]).float().cpu()
+    if not torch.isfinite(losses).all() or not torch.isfinite(norms).all():
+        fail(f"non-finite training loss or gradient norm: {losses.tolist()}")
+    if launches != (per_step[0] * n_steps, per_step[1] * n_steps):
+        fail(f"{launches} forward/backward kernel launches in {n_steps} "
+             f"steps; expected {per_step} per step")
+    moved = {n: (p.detach() - watched[n]).abs().max().item()
+             for n, p in model.named_parameters() if n in watched}
+    if state.step != n_steps or not all(v > 0 for v in moved.values()):
+        fail(f"the parameters did not change: {moved}")
+    numbers = {
+        "samples_per_s": bn * TIMED_STEPS / (step_ms * TIMED_STEPS / 1e3),
+        "step_ms": step_ms, "wall_step_ms": wall_s * 1e3 / TIMED_STEPS,
+        "peak_memory_gb": peak_gb, "bn": bn,
+        "launches": {"fwd": launches[0], "bwd": launches[1]},
+        "launches_per_step": {"fwd": per_step[0], "bwd": per_step[1]},
+        "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+        "lr_last": schedule(state.step - 1),
+    }
+    log(f"[train] {n_steps} steps at BN={bn}, 12 blocks + 3 refiner layers, "
+        f"dropout {RATE}, attention dropout {RATE}: {step_ms:.2f} ms a step "
+        f"(CUDA events, {TIMED_STEPS} steps), {numbers['samples_per_s']:.1f} "
+        f"samples/s, host wall {numbers['wall_step_ms']:.2f} ms a step, peak "
+        f"memory {peak_gb:.2f} GB; kernel launches fwd {launches[0]} = "
+        f"{per_step[0]} x {n_steps}, bwd {launches[1]} = {per_step[1]} x "
+        f"{n_steps}; loss {losses[0].item():.4f} -> {losses[-1].item():.4f}; "
+        f"max |param change| {moved}")
+    numbers["profile"] = profile_window(
+        f"one training step BN={bn}", lambda: step(state, batch, gens),
+        reps=2)
+    return numbers
+
+
+def compare_grads_with_cpu(seed):
+    """fp32 gradients of the whole loss at depth 2 and full width, on the
+    card (kernels) and on the CPU (plain versions), at rate 0."""
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.train.steps import itm_finetune_loss
+
+    cfg = train_config(n_layers=2, dtype="float32", rate=0.0)
+    cpu_model = build_model(cfg, seed, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    losses = {}
+    for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
+        batch = train_batch(seed + 2, dev, groups=2)
+        loss, _ = itm_finetune_loss(model, batch, None, SAMPLE_N,
+                                    deterministic=True)
+        loss.backward()
+        losses[dev] = loss.item()
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    largest = max(g.abs().max().item() for g in cpu_grads.values()
+                  if g is not None)
+    worst, worst_name, leaves = 0.0, "", 0
+    for name, p in gpu_model.named_parameters():
+        want = cpu_grads[name]
+        if (p.grad is None) != (want is None):
+            fail(f"gradient of {name} on one side only")
+        if want is None:
+            continue
+        leaves += 1
+        diff = (p.grad.cpu() - want).abs().max().item()
+        # a key bias has zero gradient up to rounding (the softmax ignores
+        # a per-row shift): held against the model's largest gradient
+        scale = want.abs().max().item()
+        if name.endswith("k_lin.bias"):
+            scale = largest
+        err = diff / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    log(f"[fp32 grads] depth 2, BN={2 * SAMPLE_N}, rate 0: loss card "
+        f"{losses['cuda']:.6f} vs CPU {losses['cpu']:.6f}; {leaves} leaves, "
+        f"max relative |card - CPU| = {worst:.3e} ({worst_name}; tolerance "
+        f"{TOL_GRAD_FP32})")
+    if worst > TOL_GRAD_FP32 or abs(losses["cuda"] - losses["cpu"]) > 1e-4:
+        fail("fp32 gradients on the card disagree with the CPU")
+    return worst
+
+
+def learning_check(seed, steps=50):
+    """Depth 2 at full width, one fixed batch, "adam,lr=0.0001", dropout on:
+    the mean loss of the last 5 steps must be below that of the first 5."""
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    model = build_model(train_config(n_layers=2), seed + 3, "cuda")
+    tx, _ = build_optimizer("adam,lr=0.0001")
+    state = create_train_state(model, tx)
+    step = itm_step()
+    gens = Generators.from_seed(seed + 3, "cuda")
+    batch = train_batch(seed + 3, "cuda")
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, gens)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).float().cpu()
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    log(f"[learn] depth 2, BN={batch['tokens'].shape[0]}, {steps} steps of "
+        f"adam lr 1e-4 on one batch: mean loss of the first 5 steps "
+        f"{first:.4f}, of the last 5 {last:.4f}")
+    if not torch.isfinite(losses).all() or not last < first:
+        fail(f"the model did not learn: {losses.tolist()}")
+    return {"first5": first, "last5": last}
 
 
 def card_line():
@@ -542,7 +956,10 @@ def main() -> int:
     build_kernels()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = check_kernels(gen)
+    worst_train = check_dropout_and_backward(gen)
+    keep_share = check_mask_identity()
     times = time_kernels(gen)
+    train_times = time_training_kernels(gen)
 
     from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
 
@@ -555,27 +972,59 @@ def main() -> int:
     torch.cuda.empty_cache()
     fp32_diff = compare_fp32_with_cpu(args.seed, tokenizer)
 
+    training = train_slice(args.seed)
+    torch.cuda.empty_cache()
+    training["fp32_grad_card_vs_cpu_max_rel"] = compare_grads_with_cpu(
+        args.seed)
+    training["learning"] = learning_check(args.seed)
+
     blocks, refiner = times["blocks"], times["refiner"]
+    tblocks, trefiner = train_times["blocks"], train_times["refiner"]
     kernels = {"kernels": [{
         "name": "packed_attention_fwd",
         "route": "cuda",
         "source": "m3p_tpu_torch/csrc/packed_attention.cu",
         "replaces": "m3p_tpu/ops/attention.py:1016",
-        "launches": numbers["launches"],
+        "launches": numbers["launches"] + training["launches"]["fwd"],
+        "launches_by_path": {"serving": numbers["launches"],
+                             "training": training["launches"]["fwd"]},
         "launches_per_forward": numbers["launches_per_forward"],
-        "max_abs_err": worst["bfloat16"],
-        "max_abs_err_fp32": worst["float32"],
+        "max_abs_err": max(worst["bfloat16"],
+                           worst_train["fwd"]["bfloat16"]),
+        "max_abs_err_fp32": max(worst["float32"],
+                                worst_train["fwd"]["float32"]),
         "ms": blocks["ms"], "plain_ms": blocks["plain_ms"],
         "bound_ms": blocks["bound_ms"], "bound_by": blocks["bound_by"],
         "library_ms": blocks["library_ms"],
         "shape": blocks["shape"],
         "refiner": refiner,
+        "rate_0.1_training_shapes": {"blocks": tblocks["fwd_rate_0.1"],
+                                     "refiner": trefiner["fwd_rate_0.1"]},
+    }, {
+        "name": "packed_attention_bwd",
+        "route": "cuda",
+        "source": "m3p_tpu_torch/csrc/packed_attention_bwd.cu",
+        "replaces": "m3p_tpu/ops/attention.py:1036",
+        "launches": training["launches"]["bwd"],
+        "launches_per_step": training["launches_per_step"]["bwd"],
+        "max_abs_err": worst_train["bwd"]["bfloat16"],
+        "max_abs_err_fp32": worst_train["bwd"]["float32"],
+        "ms": tblocks["bwd"]["ms"], "plain_ms": tblocks["bwd"]["plain_ms"],
+        "bound_ms": tblocks["bwd"]["bound_ms"],
+        "bound_by": tblocks["bwd"]["bound_by"],
+        "library_ms": tblocks["bwd"]["library_ms"],
+        "ms_rate_0.1": tblocks["bwd"]["ms_rate_0.1"],
+        "plain_ms_rate_0.1": tblocks["bwd"]["plain_ms_rate_0.1"],
+        "shape": tblocks["shape"],
+        "refiner": trefiner["bwd"],
+        "mask_identity_keep_share": keep_share,
     }]}
     serving = {k: numbers[k] for k in ("score_pairs_per_s",
                                        "forward_ms_64x164",
                                        "retrieve_p50_ms", "retrieve_p99_ms")}
     serving["fp32_card_vs_cpu_max_diff"] = fp32_diff
     log(f"[serving] {json.dumps(serving)} on {card}")
+    log(f"[training] {json.dumps(training)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -5,6 +5,8 @@
   ``ln/scale`` / ``ln/bias`` -> ``weight`` / ``bias``, ``embedding`` ->
   ``weight``, ``bias`` -> ``bias``; module paths keep their names.
 * `params_to_jax` — the inverse, from a port model.
+* `grads_from_jax` — a JAX gradient tree (same structure as the parameter
+  tree) to the port's names and layouts, to hold gradients leaf by leaf.
 * `load_reference_state_dict` — a reference ``TransformerModel`` state dict
   (the names of `m3p_tpu/checkpoint.py:124-330`) to the port's names.  Both
   sides use torch's layouts, so only the names change.
@@ -54,6 +56,13 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unknown JAX parameter {'/'.join(path)}")
         sd[".".join(mods + [leaf])] = torch.tensor(arr)
     return sd
+
+
+def grads_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree -> ``{port parameter name: gradient}``, with the
+    name and transpose rules of `params_from_jax` (a gradient has its
+    parameter's layout)."""
+    return params_from_jax(tree)
 
 
 def params_to_jax(model: nn.Module) -> Dict[str, Any]:

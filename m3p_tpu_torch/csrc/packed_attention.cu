@@ -1,11 +1,17 @@
 // Packed-layout attention forward for Hopper (sm_90a).
 //
 // Replaces m3p_tpu/ops/attention.py::_packed_fwd_kernel (reached through
-// small_attention_packed) at dropout rate 0.  Per head h, a column slice
-// h*Dh:(h+1)*Dh of the (B, S, H*Dh) projections:
+// small_attention_packed).  Per head h, a column slice h*Dh:(h+1)*Dh of the
+// (B, S, H*Dh) projections:
 //
 //     o = softmax(scale * q k^T  masked by kv_mask and, if causal, by the
 //                 end-aligned triangle ki <= qi + (Sk - Sq)) . v
+//
+// With attention-weight dropout (a threshold > 0), p loses the entries that
+// the Philox keep mask of tile b * H + h drops (philox.cuh) before P.V, and
+// the output is scaled by inv = 1 / (1 - rate) in the epilogue, as the
+// Pallas kernel does.  Dropout is a template parameter: at rate 0 the
+// kernel compiles to the same code as without it.
 //
 // q/k/v are read in the projection layout through the row and batch strides
 // passed in, and o is written in the same layout: no head transpose and no
@@ -30,6 +36,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -75,7 +83,7 @@ size_t smem_bytes(int sk, int dh) {
          (kQTile * ld + kKTile * ld + static_cast<size_t>(kQTile) * sk);
 }
 
-template <typename T>
+template <typename T, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32)
 packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
@@ -84,7 +92,8 @@ packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             long long q_sb, long long q_ss, long long k_sb,
                             long long k_ss, long long v_sb, long long v_ss,
                             long long o_sb, long long o_ss, float scale,
-                            int causal) {
+                            int causal, float inv, uint32_t threshold,
+                            unsigned long long seed) {
   extern __shared__ float smem[];
   const int ld = dh + 1;  // odd row pitch: lanes reading one column of
                           // different rows fall into different banks
@@ -155,8 +164,24 @@ packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < sk; j += 32)
-      prow[j] = to_f(from_f<T>(prow[j] / sum));
+    if (kDropout) {
+      // a lane owns the four columns of one Philox counter
+      const int tile = b * gridDim.y + h;
+      for (int j4 = lane; 4 * j4 < sk; j4 += 32) {
+        const uint4 bits = m3p::keep_bits(seed, tile, q0 + r, j4);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int j = 4 * j4 + w;
+          if (j < sk)
+            prow[j] = m3p::word(bits, w) >= threshold
+                          ? to_f(from_f<T>(prow[j] / sum))
+                          : 0.f;
+        }
+      }
+    } else {
+      for (int j = lane; j < sk; j += 32)
+        prow[j] = to_f(from_f<T>(prow[j] / sum));
+    }
   }
   __syncwarp();
 
@@ -203,51 +228,74 @@ packed_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kDPerLane; ++c) {
       const int d = lane + 32 * c;
-      if (d < dh) ob[qi * o_ss + d] = from_f<T>(acc[rr][c]);
+      if (d < dh)
+        ob[qi * o_ss + d] = from_f<T>(kDropout ? acc[rr][c] * inv : acc[rr][c]);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* kv_mask, void* o, int b, int sq, int sk, int h,
                    int dh, long long q_sb, long long q_ss, long long k_sb,
                    long long k_ss, long long v_sb, long long v_ss,
                    long long o_sb, long long o_ss, float scale, int causal,
+                   float inv, uint32_t threshold, unsigned long long seed,
                    cudaStream_t stream) {
   const size_t smem = smem_bytes(sk, dh);
   cudaError_t err = cudaFuncSetAttribute(
-      packed_attention_fwd_kernel<T>,
+      packed_attention_fwd_kernel<T, kDropout>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kQTile - 1) / kQTile, h, b);
-  packed_attention_fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(kv_mask),
-      static_cast<T*>(o), sq, sk, dh, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-      o_sb, o_ss, scale, causal);
+  packed_attention_fwd_kernel<T, kDropout>
+      <<<grid, kWarps * 32, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const uint8_t*>(kv_mask),
+          static_cast<T*>(o), sq, sk, dh, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+          o_sb, o_ss, scale, causal, inv, threshold, seed);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* kv_mask, void* o, int b, int sq, int sk,
+                     int h, int dh, long long q_sb, long long q_ss,
+                     long long k_sb, long long k_ss, long long v_sb,
+                     long long v_ss, long long o_sb, long long o_ss,
+                     float scale, int causal, float inv, uint32_t threshold,
+                     unsigned long long seed, cudaStream_t stream) {
+  if (threshold == 0u)
+    return launch<T, false>(q, k, v, kv_mask, o, b, sq, sk, h, dh, q_sb,
+                            q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale,
+                            causal, inv, threshold, seed, stream);
+  return launch<T, true>(q, k, v, kv_mask, o, b, sq, sk, h, dh, q_sb, q_ss,
+                         k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, scale, causal,
+                         inv, threshold, seed, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  kv_mask: (B, Sk) bytes, 1 = attend, or
 // null.  Strides are in elements; the last dimension is contiguous.
+// Dropout: threshold 0 = off; otherwise a weight is kept when its Philox
+// word under `seed` is >= threshold, and inv = 1 / (1 - rate).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int m3p_packed_attention_fwd(
     int dtype, const void* q, const void* k, const void* v,
     const void* kv_mask, void* o, int b, int sq, int sk, int h, int dh,
     long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, long long o_sb, long long o_ss,
-    float scale, int causal, void* stream) {
+    float scale, int causal, float inv, unsigned int threshold,
+    unsigned long long seed, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(launch<float>(q, k, v, kv_mask, o, b, sq, sk, h,
-                                          dh, q_sb, q_ss, k_sb, k_ss, v_sb,
-                                          v_ss, o_sb, o_ss, scale, causal, s));
-  if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(
+    return static_cast<int>(dispatch<float>(
         q, k, v, kv_mask, o, b, sq, sk, h, dh, q_sb, q_ss, k_sb, k_ss, v_sb,
-        v_ss, o_sb, o_ss, scale, causal, s));
+        v_ss, o_sb, o_ss, scale, causal, inv, threshold, seed, s));
+  if (dtype == 1)
+    return static_cast<int>(dispatch<__nv_bfloat16>(
+        q, k, v, kv_mask, o, b, sq, sk, h, dh, q_sb, q_ss, k_sb, k_ss, v_sb,
+        v_ss, o_sb, o_ss, scale, causal, inv, threshold, seed, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

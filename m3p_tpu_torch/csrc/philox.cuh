@@ -1,0 +1,44 @@
+// Philox4x32-10 for the packed-attention kernels (sm_90a).
+//
+// The same generator as m3p_tpu_torch/ops/philox.py, which documents the
+// mask rule: key (seed_lo, seed_hi), counter (col / 4, row, tile, 0),
+// element (row, col) takes word col % 4, and is kept when its word is at or
+// above the threshold uint32(min(rate * 2^32, 2^32 - 1)).  The bits depend on
+// (seed, tile, row, col) only, so the forward, the backward and the plain
+// version all draw the same mask.
+
+#pragma once
+
+#include <cstdint>
+
+namespace m3p {
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const uint32_t lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
+    const uint32_t lo1 = 0xCD9E8D57u * c.z;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// The four words for columns 4 * col4 .. 4 * col4 + 3 of `row` in `tile`.
+__device__ __forceinline__ uint4 keep_bits(unsigned long long seed, int tile,
+                                           int row, int col4) {
+  return philox4x32_10(
+      make_uint4(static_cast<uint32_t>(col4), static_cast<uint32_t>(row),
+                 static_cast<uint32_t>(tile), 0u),
+      static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+}  // namespace m3p

@@ -1,0 +1,44 @@
+"""Synthetic batches shaped like the real pipeline's (a copy of
+`m3p_tpu/data/synthetic.py:18-71`: `_random_tokens`, `make_retrieval_batch`).
+
+numpy only, so the same ``RandomState`` gives the same batch here and in the
+JAX package.  Shapes follow the reference recipes: captions up to
+``max_len`` tokens, ``max_regions`` regions with 2048-d features and 5-d box
+geometry, candidate grids of ``sample_n``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from m3p_tpu_torch.config import BOS_IDX, EOS_IDX, PAD_IDX
+
+
+def _random_tokens(rng, b, s, n_words, min_len=5):
+    lengths = rng.randint(min_len, s + 1, size=b)
+    toks = np.full((b, s), PAD_IDX, np.int32)
+    toks[:, 0] = BOS_IDX
+    for i, l in enumerate(lengths):
+        if l > 2:
+            toks[i, 1:l - 1] = rng.randint(4, n_words - 1, size=l - 2)
+        toks[i, l - 1] = EOS_IDX
+    return toks, lengths.astype(np.int32)
+
+
+def make_retrieval_batch(rng, batch_size, sample_n, max_len, max_regions,
+                         n_words) -> Dict[str, np.ndarray]:
+    """An ITM fine-tune batch: ``batch_size`` groups of ``sample_n``
+    candidate pairs (BN = batch_size * sample_n rows) and the index of each
+    group's positive."""
+    bn = batch_size * sample_n
+    tokens, text_len = _random_tokens(rng, bn, max_len, n_words)
+    return {
+        "tokens": tokens,
+        "text_len": text_len,
+        "feats": rng.randn(bn, max_regions, 2048).astype(np.float32),
+        "locs": rng.rand(bn, max_regions, 5).astype(np.float32),
+        "img_len": np.full((bn,), max_regions, np.int32),
+        "pos_label": rng.randint(0, sample_n, (batch_size,)).astype(np.int32),
+    }

@@ -2,9 +2,11 @@
 `m3p_tpu/model/embeddings.py`).
 
 * text: word + learned (or sinusoidal) position + optional language
-  embeddings -> LN
-* image: Linear(2048 -> d) + Linear(5 -> d) summed -> LN; no positions
-* AoA refiner: pre-LN sublayers with a GLU-gated attention-on-attention
+  embeddings -> LN -> dropout
+* image: Linear(2048 -> d) + Linear(5 -> d) summed -> LN -> dropout; no
+  positions
+* AoA refiner: pre-LN sublayers with a GLU-gated attention-on-attention,
+  residual dropout
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from m3p_tpu_torch.model.layers import Dense, LayerNorm, TransformerFFN
+from m3p_tpu_torch.model.layers import (
+    Dense, Generators, LayerNorm, TransformerFFN, attention_dropout_args,
+    dropout)
 from m3p_tpu_torch.ops.attention import attention_packed
 
 
@@ -57,12 +61,14 @@ class SinusoidalPositions(nn.Module):
 
 
 class TextEmbeddings(nn.Module):
-    """Word + position + optional language embeddings, then ``ln_emb``."""
+    """Word + position + optional language embeddings, then ``ln_emb`` and
+    dropout."""
 
     def __init__(self, n_words: int, n_langs: int, dim: int,
                  max_positions: int, sinusoidal: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.word = Embedding(n_words, dim, dtype)
         if sinusoidal:
             self.position = SinusoidalPositions(max_positions, dim, dtype)
@@ -76,7 +82,9 @@ class TextEmbeddings(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                langs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                langs: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[Generators] = None) -> torch.Tensor:
         x = self.word(tokens)
         if positions is None:
             positions = torch.arange(tokens.shape[1],
@@ -84,73 +92,103 @@ class TextEmbeddings(nn.Module):
         x = x + self.position(positions)
         if langs is not None:
             x = x + self.lang(langs)
-        return self.ln_emb(x)
+        return dropout(self.ln_emb(x), self.dropout, deterministic,
+                       generator)
 
 
 class ImageEmbeddings(nn.Module):
-    """Region feature + box geometry projections, summed, then LN."""
+    """Region feature + box geometry projections, summed, then LN and
+    dropout."""
 
     def __init__(self, dim: int, feat_dim: int = 2048, loc_dim: int = 5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.img_proj = Dense(feat_dim, dim, dtype)
         self.loc_proj = Dense(loc_dim, dim, dtype)
         self.ln = LayerNorm(dim, dtype)
 
-    def forward(self, feats: torch.Tensor, locs: torch.Tensor) -> torch.Tensor:
-        return self.ln(self.img_proj(feats) + self.loc_proj(locs))
+    def forward(self, feats: torch.Tensor, locs: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[Generators] = None) -> torch.Tensor:
+        x = self.ln(self.img_proj(feats) + self.loc_proj(locs))
+        return dropout(x, self.dropout, deterministic, generator)
 
 
 class AoAAttention(nn.Module):
     """Attention whose context is concatenated with the query and GLU-gated
-    (``aoa``), in place of an output projection."""
+    (``aoa``), in place of an output projection.  ``attention_dropout``
+    drops attention weights inside the kernels; ``dropout_aoa`` drops the
+    gate's input (`m3p_tpu/model/embeddings.py:160-194`)."""
 
     def __init__(self, n_heads: int, dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout_aoa: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.dropout_aoa = dropout_aoa
+        self.attention_dropout = attention_dropout
         self.q_lin = Dense(dim, dim, dtype)
         self.k_lin = Dense(dim, dim, dtype)
         self.v_lin = Dense(dim, dim, dtype)
         self.aoa = Dense(2 * dim, 2 * dim, dtype)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[Generators] = None) -> torch.Tensor:
+        rate, seed = attention_dropout_args(self.attention_dropout,
+                                            deterministic, generator)
         ctx = attention_packed(self.q_lin(x), self.k_lin(x), self.v_lin(x),
-                               pad_mask, self.n_heads)
-        a, gate = self.aoa(torch.cat([ctx, x], dim=-1)).chunk(2, dim=-1)
+                               pad_mask, self.n_heads, dropout_rate=rate,
+                               dropout_seed=seed)
+        gate_in = dropout(torch.cat([ctx, x], dim=-1), self.dropout_aoa,
+                          deterministic, generator)
+        a, gate = self.aoa(gate_in).chunk(2, dim=-1)
         return a * torch.sigmoid(gate)
 
 
 class AoARefinerLayer(nn.Module):
-    """Pre-LN: x = x + aoa(LN(x)); x = x + ffn(LN(x))."""
+    """Pre-LN: x = x + drop(aoa(LN(x))); x = x + drop(ffn(LN(x))), the FFN
+    applying its own output dropout first, as in the JAX layer."""
 
     def __init__(self, n_heads: int, dim: int, ffn_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.ln_attn = LayerNorm(dim, dtype)
-        self.aoa_attn = AoAAttention(n_heads, dim, dtype)
+        self.aoa_attn = AoAAttention(n_heads, dim, dtype, dropout,
+                                     attention_dropout)
         self.ln_ffn = LayerNorm(dim, dtype)
-        self.ffn = TransformerFFN(dim, ffn_dim, True, dtype)
+        self.ffn = TransformerFFN(dim, ffn_dim, True, dtype, dropout)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.aoa_attn(self.ln_attn(x), pad_mask)
-        return x + self.ffn(self.ln_ffn(x))
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[Generators] = None) -> torch.Tensor:
+        h = self.aoa_attn(self.ln_attn(x), pad_mask, deterministic, generator)
+        x = x + dropout(h, self.dropout, deterministic, generator)
+        h = self.ffn(self.ln_ffn(x), deterministic, generator)
+        return x + dropout(h, self.dropout, deterministic, generator)
 
 
 class AoARefiner(nn.Module):
     """``n_layers`` refiner layers (``layer_<i>``) and a final ``ln_out``."""
 
     def __init__(self, n_heads: int, dim: int, ffn_dim: int, n_layers: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.layers = []
         for i in range(n_layers):
-            layer = AoARefinerLayer(n_heads, dim, ffn_dim, dtype)
+            layer = AoARefinerLayer(n_heads, dim, ffn_dim, dtype, dropout,
+                                    attention_dropout)
             self.add_module(f"layer_{i}", layer)
             self.layers.append(layer)
         self.ln_out = LayerNorm(dim, dtype)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                deterministic: bool = True,
+                generator: Optional[Generators] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, pad_mask)
+            x = layer(x, pad_mask, deterministic, generator)
         return self.ln_out(x)

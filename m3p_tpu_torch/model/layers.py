@@ -4,9 +4,15 @@ Dtype policy of the JAX package: parameters are stored in fp32; a Dense
 casts both its input and its weight to the compute dtype; LayerNorm runs in
 fp32 and returns the compute dtype.  Module names mirror the JAX parameter
 tree, so `m3p_tpu_torch.checkpoint.params_from_jax` maps it one to one.
+
+Training: every forward takes ``deterministic`` (True = no dropout, as in
+JAX) and, when it is False, the `Generators` that draw its randomness.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +22,55 @@ from m3p_tpu_torch.ops.activations import gelu_erf
 from m3p_tpu_torch.ops.attention import attention_packed
 
 LN_EPS = 1e-12
+
+
+@dataclass
+class Generators:
+    """The randomness of a training forward.  ``device`` draws the
+    elementwise dropout masks on the model's device; ``host`` draws the
+    per-call attention-dropout seeds on the CPU, so a seed never costs a
+    host-device sync."""
+
+    device: torch.Generator
+    host: torch.Generator
+
+    @classmethod
+    def from_seed(cls, seed: int, device: Union[str, torch.device]
+                  ) -> "Generators":
+        dev = torch.Generator(device=torch.device(device))
+        dev.manual_seed(seed)
+        host = torch.Generator()
+        host.manual_seed(seed + 1)
+        return cls(dev, host)
+
+    def attention_seed(self) -> int:
+        """A fresh 63-bit seed for one attention call's Philox mask."""
+        return int(torch.randint(0, 2 ** 63 - 1, (), generator=self.host))
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[Generators]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate); identity when deterministic."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs generators")
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate,
+                                          generator=generator.device)
+    return x * keep * (1.0 / (1.0 - rate))
+
+
+def attention_dropout_args(rate: float, deterministic: bool,
+                           generator: Optional[Generators]):
+    """(rate, seed) for `attention_packed`: a per-call seed drawn on the
+    host when dropout is on (`m3p_tpu/model/layers.py:286-292`)."""
+    if deterministic or rate == 0.0:
+        return 0.0, None
+    if generator is None:
+        raise ValueError("attention dropout with deterministic=False needs "
+                         "generators")
+    return rate, generator.attention_seed()
 
 
 class Dense(nn.Linear):
@@ -51,43 +106,56 @@ class MultiHeadAttention(nn.Module):
     """Self-attention over (B, S, D) on the no-cache path.
 
     Q/K/V stay in the projection layout (B, S, H*Dh) and go straight to
-    `attention_packed`; there is no head transpose.  The cross-attention and
-    KV-cache decode paths of the JAX module wait for the generation slice."""
+    `attention_packed`; there is no head transpose.  Attention-weight
+    dropout at ``dropout`` runs inside the kernels with a per-call seed.
+    The cross-attention and KV-cache decode paths of the JAX module wait for
+    the generation slice."""
 
     def __init__(self, n_heads: int, dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.dropout = dropout
         self.q_lin = Dense(dim, dim, dtype)
         self.k_lin = Dense(dim, dim, dtype)
         self.v_lin = Dense(dim, dim, dtype)
         self.out_lin = Dense(dim, dim, dtype)
 
     def forward(self, x: torch.Tensor, kv_mask: torch.Tensor,
-                causal: bool = False) -> torch.Tensor:
+                causal: bool = False, deterministic: bool = True,
+                generator: Optional[Generators] = None) -> torch.Tensor:
+        rate, seed = attention_dropout_args(self.dropout, deterministic,
+                                            generator)
         ctx = attention_packed(self.q_lin(x), self.k_lin(x), self.v_lin(x),
-                               kv_mask, self.n_heads, causal=causal)
+                               kv_mask, self.n_heads, causal=causal,
+                               dropout_rate=rate, dropout_seed=seed)
         return self.out_lin(ctx)
 
 
 class TransformerFFN(nn.Module):
-    """Two-layer MLP with erf-GELU (or ReLU)."""
+    """Two-layer MLP with erf-GELU (or ReLU), dropout after the output
+    projection."""
 
     def __init__(self, dim: int, hidden_dim: int, gelu_activation: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.lin1 = Dense(dim, hidden_dim, dtype)
         self.lin2 = Dense(hidden_dim, dim, dtype)
         self.gelu_activation = gelu_activation
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[Generators] = None) -> torch.Tensor:
         h = self.lin1(x)
         h = gelu_erf(h) if self.gelu_activation else F.relu(h)
-        return self.lin2(h)
+        return dropout(self.lin2(h), self.dropout, deterministic, generator)
 
 
 class EncoderBlock(nn.Module):
-    """Post-LN block: x = LN1(x + attn(x)); x = LN2(x + ffn(x)); x *= pad.
+    """Post-LN block: x = LN1(x + drop(attn(x))); x = LN2(x + ffn(x)), the
+    FFN applying its own output dropout; x *= pad.  This is the
+    ``use_fused_dropout=False`` path of the JAX block
+    (`m3p_tpu/model/layers.py:570-627`).
 
     Holds ``encoder_attn``/``ln15`` because every block of the JAX tree has
     them; this slice never calls them (no decoder path yet)."""
@@ -95,18 +163,25 @@ class EncoderBlock(nn.Module):
     def __init__(self, n_heads: int, dim: int, ffn_dim: int,
                  gelu_activation: bool = True,
                  has_cross_attention: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 attention_dropout: float = 0.0):
         super().__init__()
-        self.attn = MultiHeadAttention(n_heads, dim, dtype)
+        self.dropout = dropout
+        self.attn = MultiHeadAttention(n_heads, dim, dtype, attention_dropout)
         self.ln1 = LayerNorm(dim, dtype)
         if has_cross_attention:
-            self.encoder_attn = MultiHeadAttention(n_heads, dim, dtype)
+            self.encoder_attn = MultiHeadAttention(n_heads, dim, dtype,
+                                                   attention_dropout)
             self.ln15 = LayerNorm(dim, dtype)
-        self.ffn = TransformerFFN(dim, ffn_dim, gelu_activation, dtype)
+        self.ffn = TransformerFFN(dim, ffn_dim, gelu_activation, dtype,
+                                  dropout)
         self.ln2 = LayerNorm(dim, dtype)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
-                causal: bool = False) -> torch.Tensor:
-        x = self.ln1(x + self.attn(x, pad_mask, causal=causal))
-        x = self.ln2(x + self.ffn(x))
+                causal: bool = False, deterministic: bool = True,
+                generator: Optional[Generators] = None) -> torch.Tensor:
+        attn = self.attn(x, pad_mask, causal, deterministic, generator)
+        x = self.ln1(x + dropout(attn, self.dropout, deterministic,
+                                 generator))
+        x = self.ln2(x + self.ffn(x, deterministic, generator))
         return x * pad_mask[..., None].to(x.dtype)

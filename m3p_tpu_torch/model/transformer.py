@@ -1,12 +1,15 @@
 """The M3P model of the port (counterpart of `m3p_tpu/model/transformer.py`).
 
-This slice ports the single-stream joint topology (`encode_joint`) and the
-ITM head (`itm_score`), the path that serves pair scoring and retrieval.  The
-module tree mirrors the JAX parameter tree (``text_emb``, ``image_emb``,
-``refiner``, ``block_<i>``, the heads), so a JAX checkpoint loads strictly.
+The port has the single-stream joint topology (`encode_joint`) and the ITM
+head (`itm_score`): the path that serves pair scoring and retrieval and, in
+training mode, the ITM retrieval fine-tune step.  The module tree mirrors
+the JAX parameter tree (``text_emb``, ``image_emb``, ``refiner``,
+``block_<i>``, the heads), so a JAX checkpoint loads strictly.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -15,7 +18,7 @@ from m3p_tpu_torch.config import ModelConfig
 from m3p_tpu_torch.model.embeddings import (
     AoARefiner, ImageEmbeddings, TextEmbeddings)
 from m3p_tpu_torch.model.heads import MRFRHead, ObjPredLayer, Pooler, PredLayer
-from m3p_tpu_torch.model.layers import EncoderBlock
+from m3p_tpu_torch.model.layers import EncoderBlock, Generators, dropout
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -61,16 +64,20 @@ class M3PModel(nn.Module):
         d = cfg.emb_dim
         self.text_emb = TextEmbeddings(cfg.n_words, cfg.n_langs, d,
                                        cfg.max_positions,
-                                       cfg.sinusoidal_embeddings, dt)
+                                       cfg.sinusoidal_embeddings, dt,
+                                       cfg.dropout)
         self.image_emb = ImageEmbeddings(d, cfg.img_feat_dim, cfg.img_loc_dim,
-                                         dt)
+                                         dt, cfg.dropout)
         self.refiner = AoARefiner(cfg.n_heads, d, cfg.ffn_dim,
-                                  cfg.refine_layers, dt)
+                                  cfg.refine_layers, dt, cfg.dropout,
+                                  cfg.attention_dropout)
         self.blocks = []
         for i in range(cfg.n_layers):
             block = EncoderBlock(cfg.n_heads, d, cfg.ffn_dim,
                                  cfg.gelu_activation,
-                                 has_cross_attention=True, dtype=dt)
+                                 has_cross_attention=True, dtype=dt,
+                                 dropout=cfg.dropout,
+                                 attention_dropout=cfg.attention_dropout)
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
         self.pred_layer = PredLayer(cfg.n_words, d, cfg.share_inout_emb, dt)
@@ -81,23 +88,31 @@ class M3PModel(nn.Module):
 
     def encode_joint(self, tokens: torch.Tensor, text_mask: torch.Tensor,
                      feats: torch.Tensor, locs: torch.Tensor,
-                     img_mask: torch.Tensor,
-                     refine_image: bool = False) -> torch.Tensor:
+                     img_mask: torch.Tensor, refine_image: bool = False,
+                     deterministic: bool = True,
+                     generator: Optional[Generators] = None) -> torch.Tensor:
         """Single-stream fusion over the [img; text] concat: (B, R+S, D),
-        image part first.  Positions run over the whole concat."""
-        img = self.image_emb(feats, locs)
+        image part first.  Positions run over the whole concat.
+
+        ``deterministic=False`` turns dropout on (the training forward);
+        ``generator`` then draws every mask and attention seed."""
+        if not deterministic and generator is None:
+            raise ValueError("encode_joint(deterministic=False) needs "
+                             "generators")
+        rng = (deterministic, generator)
+        img = self.image_emb(feats, locs, *rng)
         img = img * img_mask[..., None].to(img.dtype)
         if refine_image:
-            img = self.refiner(img, img_mask)
+            img = self.refiner(img, img_mask, *rng)
         txt = self.text_emb.embed_tokens(tokens)
         x = torch.cat([img, txt.to(img.dtype)], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x = x + self.text_emb.position(positions)
         joint_mask = torch.cat([img_mask, text_mask], dim=1)
         x = x * joint_mask[..., None].to(x.dtype)
-        x = self.text_emb.ln_emb(x)
+        x = dropout(self.text_emb.ln_emb(x), self.cfg.dropout, *rng)
         for block in self.blocks:
-            x = block(x, joint_mask)
+            x = block(x, joint_mask, False, *rng)
         return x
 
     def itm_score(self, hidden: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,9 @@
 
 Each source under ``m3p_tpu_torch/csrc/`` has a plain C interface.  At first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library in the
-checkout's ``build/`` directory, named by a hash of the source (a changed
-source builds anew), and loaded with ``ctypes``.  Nothing here runs when the
-module is imported.
+checkout's ``build/`` directory, named by a hash of the source and the
+shared headers (a changed source builds anew), and loaded with ``ctypes``.
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -44,9 +44,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library's path, named by a hash of its source and of the shared
+    headers in ``csrc/``."""
+    digest = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -2,11 +2,15 @@
 
 * `mha_reference` — (B, H, S, D) attention with an fp32 softmax, the
   numerical ground truth of the JAX package.
-* `attention_packed_reference` — the plain PyTorch version of the packed
-  kernel: q/k/v/out in the projection layout (B, S, H*Dh).
-* `attention_packed` — the dispatching wrapper.  CPU tensors take the plain
-  version; CUDA tensors launch `csrc/packed_attention.cu`, which replaces the
-  Pallas kernel `_packed_fwd_kernel`.  Anything else raises.
+* `attention_packed_reference` / `attention_packed_bwd_reference` — the
+  plain PyTorch versions of the packed kernels: q/k/v/out in the projection
+  layout (B, S, H*Dh), attention-weight dropout from the Philox keep mask of
+  `ops/philox.py`.
+* `attention_packed` — the differentiable, dispatching wrapper, and
+  `attention_packed_bwd`, its dispatching backward.  CPU tensors take the
+  plain forward and backward; CUDA tensors launch `csrc/packed_attention.cu`
+  (replaces the Pallas `_packed_fwd_kernel`) and `csrc/packed_attention_bwd.cu`
+  (replaces `_packed_bwd_kernel`).  Anything else raises.
 
 Masking follows the JAX package: a masked score becomes the finite value
 -0.7 * float32 max, so a row with no valid key averages v instead of giving
@@ -16,30 +20,43 @@ NaN; ``causal`` aligns the diagonal at the end (q is the suffix of k).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from m3p_tpu_torch.ops.philox import keep_mask_tiles, keep_threshold, seed_key
+
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-MAX_SEQ = 512      # Sq, Sk limit of the packed kernel (single-pass softmax)
+MAX_SEQ = 512      # Sq, Sk limit of the packed kernels (single-pass softmax)
 MAX_HEAD_DIM = 128
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _attended(kv_mask: Optional[torch.Tensor], causal: bool, sq: int,
+              sk: int, device) -> Optional[torch.Tensor]:
+    """Bool (B or 1, 1, Sq, Sk), True where a query attends to a key, or
+    None when nothing is masked."""
+    valid = None
+    if kv_mask is not None:
+        valid = kv_mask.bool()[:, None, None, :]
+    if causal:
+        qi = torch.arange(sq, device=device)[:, None] + (sk - sq)
+        ki = torch.arange(sk, device=device)[None, :]
+        tri = (ki <= qi)[None, None]
+        valid = tri if valid is None else valid & tri
+    return valid
+
+
 def _masked_scores(scores: torch.Tensor, kv_mask: Optional[torch.Tensor],
                    causal: bool) -> torch.Tensor:
     """scores (B, H, Sq, Sk) fp32 -> scores with masked entries replaced."""
-    if kv_mask is not None:
-        scores = scores.masked_fill(~kv_mask.bool()[:, None, None, :],
-                                    DEFAULT_MASK_VALUE)
-    if causal:
-        sq, sk = scores.shape[-2], scores.shape[-1]
-        qi = torch.arange(sq, device=scores.device)[:, None] + (sk - sq)
-        ki = torch.arange(sk, device=scores.device)[None, :]
-        scores = scores.masked_fill(ki > qi, DEFAULT_MASK_VALUE)
-    return scores
+    valid = _attended(kv_mask, causal, scores.shape[-2], scores.shape[-1],
+                      scores.device)
+    if valid is None:
+        return scores
+    return scores.masked_fill(~valid, DEFAULT_MASK_VALUE)
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,25 +70,133 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
 
 
+def _check_dropout(dropout_rate: float, dropout_seed: Optional[int]) -> None:
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"attention dropout_rate {dropout_rate} outside "
+                         f"[0, 1)")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        # a default seed would draw the same mask on every call: dropout
+        # as a fixed sparsity pattern (`m3p_tpu/ops/attention.py:969`)
+        raise ValueError("attention dropout_rate > 0 requires an explicit "
+                         "dropout_seed (draw one per call from your "
+                         "generator; a missing seed would reuse one mask)")
+
+
+def _probs(q, k, kv_mask, n_heads, causal, scale):
+    """Packed q (B, Sq, H*Dh), k (B, Sk, H*Dh) -> fp32 softmax weights
+    (B, H, Sq, Sk)."""
+    b, sq, hd = q.shape
+    dh = hd // n_heads
+    qh = q.reshape(b, sq, n_heads, dh)
+    kh = k.reshape(b, k.shape[1], n_heads, dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * scale
+    return torch.softmax(_masked_scores(scores, kv_mask, causal), dim=-1)
+
+
+def _keep(dropout_seed, dropout_rate, b, n_heads, sq, sk, device):
+    """The kernels' keep mask of every (batch, head) tile: (B, H, Sq, Sk)."""
+    return keep_mask_tiles(dropout_seed, b * n_heads, sq, sk, dropout_rate,
+                           device).view(b, n_heads, sq, sk)
+
+
+def _scale(sm_scale: Optional[float], dh: int) -> float:
+    return sm_scale if sm_scale is not None else 1.0 / (dh ** 0.5)
+
+
 def attention_packed_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor,
                                kv_mask: Optional[torch.Tensor],
                                n_heads: int, causal: bool = False,
-                               sm_scale: Optional[float] = None
+                               sm_scale: Optional[float] = None,
+                               dropout_rate: float = 0.0,
+                               dropout_seed: Optional[int] = None
                                ) -> torch.Tensor:
-    """Plain version of the packed kernel: q (B, Sq, H*Dh), k/v
-    (B, Sk, H*Dh) -> (B, Sq, H*Dh); head h is columns h*Dh:(h+1)*Dh."""
+    """Plain version of the packed forward: q (B, Sq, H*Dh), k/v
+    (B, Sk, H*Dh) -> (B, Sq, H*Dh); head h is columns h*Dh:(h+1)*Dh.
+
+    With ``dropout_rate`` > 0 the weights of tile b*H + h lose the entries
+    the Philox mask drops and the output is scaled by 1/(1 - rate), as in
+    `_packed_fwd_kernel` (`m3p_tpu/ops/attention.py:1016-1033`)."""
+    _check_dropout(dropout_rate, dropout_seed)
     b, sq, hd = q.shape
     sk = k.shape[1]
     dh = hd // n_heads
-    scale = sm_scale if sm_scale is not None else 1.0 / (dh ** 0.5)
-    qh = q.reshape(b, sq, n_heads, dh)
-    kh = k.reshape(b, sk, n_heads, dh)
+    weights = _probs(q, k, kv_mask, n_heads, causal, _scale(sm_scale, dh))
+    if dropout_rate > 0.0:
+        keep = _keep(dropout_seed, dropout_rate, b, n_heads, sq, sk, q.device)
+        weights = weights.masked_fill(~keep, 0.0)
     vh = v.reshape(b, sk, n_heads, dh)
-    scores = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * scale
-    weights = torch.softmax(_masked_scores(scores, kv_mask, causal), dim=-1)
+    if dropout_rate > 0.0:
+        # fp32 sums and one rounding after the 1/(1 - rate) scale, as the
+        # Pallas kernel's dot with preferred_element_type=float32
+        out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(),
+                           vh.float()) * (1.0 / (1.0 - dropout_rate))
+        return out.to(v.dtype).reshape(b, sq, hd)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), vh)
     return out.reshape(b, sq, hd)
+
+
+def attention_packed_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor,
+                                   kv_mask: Optional[torch.Tensor],
+                                   do: torch.Tensor, n_heads: int,
+                                   causal: bool = False,
+                                   sm_scale: Optional[float] = None,
+                                   dropout_rate: float = 0.0,
+                                   dropout_seed: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the packed backward: (dq, dk, dv) in the layouts and
+    dtypes of q, k, v.  A transcription of `_packed_bwd_kernel`
+    (`m3p_tpu/ops/attention.py:1036-1081`): recompute p, then
+
+        dv = inv * (keep.p)^T dO           dp = dO V^T
+        r  = rowsum(keep.p.dp)             ds = p . (keep.dp - r)
+        dk = scale * inv * ds^T Q          dq = scale * inv * ds K
+
+    with inv = 1/(1 - rate); the products take operands rounded to the
+    input type and sum in fp32 (``preferred_element_type=float32``).
+    Masked scores get no gradient (ds = 0 there), as in the vjp of
+    `mha_reference`.  This differs from the Pallas kernel only on a row
+    with no valid key, where p is uniform: the Pallas kernel lets dq and dk
+    of that row through the masked scores (ROADMAP section 3)."""
+    _check_dropout(dropout_rate, dropout_seed)
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    dh = hd // n_heads
+    scale = _scale(sm_scale, dh)
+    inv = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0.0 else 1.0
+    p = _probs(q, k, kv_mask, n_heads, causal, scale)
+    qh, doh = (t.reshape(b, sq, n_heads, dh).float() for t in (q, do))
+    kh, vh = (t.reshape(b, sk, n_heads, dh).float() for t in (k, v))
+    dp = torch.einsum("bqhd,bkhd->bhqk", doh.to(v.dtype).float(), vh)
+    if dropout_rate > 0.0:
+        keep = _keep(dropout_seed, dropout_rate, b, n_heads, sq, sk, q.device)
+        pd = p.masked_fill(~keep, 0.0)
+        dpd = dp.masked_fill(~keep, 0.0)
+    else:
+        pd, dpd = p, dp
+    r = (pd * dp).sum(-1, keepdim=True)
+    ds = p * (dpd - r)
+    valid = _attended(kv_mask, causal, sq, sk, q.device)
+    if valid is not None:
+        ds = ds.masked_fill(~valid, 0.0)
+
+    def rounded(x, dtype):
+        return x.to(dtype).float()
+
+    dv = torch.einsum("bhqk,bqhd->bkhd", rounded(pd, do.dtype), doh) * inv
+    dk = torch.einsum("bhqk,bqhd->bkhd", rounded(ds, q.dtype), qh) \
+        * (scale * inv)
+    dq = torch.einsum("bhqk,bkhd->bqhd", rounded(ds, k.dtype), kh) \
+        * (scale * inv)
+    return (dq.reshape(b, sq, hd).to(q.dtype),
+            dk.reshape(b, sk, hd).to(k.dtype),
+            dv.reshape(b, sk, hd).to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
 
 
 def _check_kernel_args(q, k, v, kv_mask, n_heads):
@@ -109,22 +234,47 @@ def _check_kernel_args(q, k, v, kv_mask, n_heads):
                          f"{tuple(kv_mask.shape)} != {(b, sk)}")
 
 
-def _launch_kernel(q, k, v, kv_mask, n_heads, causal, scale) -> torch.Tensor:
+def _bind(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
     from m3p_tpu_torch.ops import _build
 
-    lib = _build.load("packed_attention")
-    fn = lib.m3p_packed_attention_fwd
+    fn = getattr(_build.load(lib_name), fn_name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes =([ctypes.c_int] + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = argtypes
+    return fn
+
+
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 14
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+
+
+def _kernel_mask(kv_mask):
+    return None if kv_mask is None else kv_mask.to(torch.bool).contiguous()
+
+
+def _dropout_args(dropout_rate, dropout_seed):
+    """(inv, threshold, seed) for the kernels; all zero at rate 0."""
+    if dropout_rate <= 0.0:
+        return 1.0, 0, 0
+    seed_key(dropout_seed)      # raises unless a 64-bit unsigned int
+    return (1.0 / (1.0 - dropout_rate), keep_threshold(dropout_rate),
+            int(dropout_seed))
+
+
+def _launch_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
+                dropout_seed) -> torch.Tensor:
+    fn = _bind("packed_attention", "m3p_packed_attention_fwd", _FWD_ARGTYPES)
     b, sq, hd = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
-    mask = None
-    if kv_mask is not None:
-        mask = kv_mask.to(torch.bool).contiguous()
+    mask = _kernel_mask(kv_mask)
+    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -132,39 +282,136 @@ def _launch_kernel(q, k, v, kv_mask, n_heads, causal, scale) -> torch.Tensor:
                  out.data_ptr(), b, sq, sk, n_heads, hd // n_heads,
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-                 float(scale), int(bool(causal)), stream)
+                 float(scale), int(bool(causal)), float(inv), threshold,
+                 seed, stream)
     if err != 0:
         raise RuntimeError(f"packed_attention kernel launch failed: CUDA "
                            f"error {err}")
+    attention_packed.launches += 1
     return out
+
+
+def _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale, dropout_rate,
+                dropout_seed) -> Tuple[torch.Tensor, ...]:
+    """Two launches: dq (and the per-row softmax statistics m, l, r into a
+    (B, H, Sq, 3) fp32 scratch), then dk/dv, which reads them."""
+    fn = _bind("packed_attention_bwd", "m3p_packed_attention_bwd",
+               _BWD_ARGTYPES)
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    stats = torch.empty((b, n_heads, sq, 3), dtype=torch.float32,
+                        device=q.device)
+    mask = _kernel_mask(kv_mask)
+    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            b, sq, sk, n_heads, hd // n_heads,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), do.stride(0), do.stride(1),
+            dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
+            dv.stride(0), dv.stride(1),
+            float(scale), int(bool(causal)), float(inv), threshold, seed)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        for phase in (0, 1):
+            err = fn(_KERNEL_DTYPES[q.dtype], phase, *args, stream)
+            if err != 0:
+                raise RuntimeError(f"packed_attention backward kernel "
+                                   f"(phase {phase}) launch failed: CUDA "
+                                   f"error {err}")
+            attention_packed.bwd_launches += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the differentiable wrapper
+# ---------------------------------------------------------------------------
+
+
+class _PackedAttention(torch.autograd.Function):
+    """The counterpart of the `jax.custom_vjp` at
+    `m3p_tpu/ops/attention.py:1196-1229`: saves q, k, v, the key mask and
+    the seed (never p), and the backward recomputes everything."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
+                dropout_seed):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.config = (n_heads, causal, scale, dropout_rate, dropout_seed)
+        if q.device.type == "cpu":
+            return attention_packed_reference(q, k, v, kv_mask, n_heads,
+                                              causal, scale, dropout_rate,
+                                              dropout_seed)
+        return _launch_fwd(q, k, v, kv_mask, n_heads, causal, scale,
+                           dropout_rate, dropout_seed)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask = ctx.saved_tensors
+        grads = attention_packed_bwd(q, k, v, kv_mask, do, *ctx.config)
+        return (*grads, None, None, None, None, None, None)
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_mask: Optional[torch.Tensor], n_heads: int,
                      causal: bool = False, sm_scale: Optional[float] = None,
-                     dropout_rate: float = 0.0) -> torch.Tensor:
+                     dropout_rate: float = 0.0,
+                     dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Packed-layout attention: q (B, Sq, H*Dh), k/v (B, Sk, H*Dh), kv_mask
-    (B, Sk) True = attend -> (B, Sq, H*Dh) in q's dtype.
+    (B, Sk) True = attend -> (B, Sq, H*Dh) in q's dtype; differentiable in
+    q, k and v.
 
-    CPU tensors go through `attention_packed_reference`; CUDA tensors launch
-    the hand-written kernel (and add one to ``attention_packed.launches``)
-    or raise.  There is no fallback from one to the other."""
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention_packed: attention-weight dropout waits for the "
-            "training slice (Philox dropout in the kernel)")
-    if q.device.type == "cpu":
-        return attention_packed_reference(q, k, v, kv_mask, n_heads,
-                                          causal=causal, sm_scale=sm_scale)
-    if q.device.type != "cuda":
+    ``dropout_rate`` > 0 drops attention weights with the Philox mask of
+    ``dropout_seed`` (a 64-bit int, required) and scales by 1/(1 - rate).
+    CPU tensors go through the plain forward and backward; CUDA tensors
+    launch the hand-written kernels, adding one to
+    ``attention_packed.launches`` per forward launch and to
+    ``attention_packed.bwd_launches`` per backward launch (two per
+    backward), or raise.  There is no fallback from one to the other."""
+    _check_dropout(dropout_rate, dropout_seed)
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_packed: no kernel for device "
                          f"{q.device}")
+    if q.device.type == "cuda":
+        _check_kernel_args(q, k, v, kv_mask, n_heads)
+    scale = _scale(sm_scale, q.shape[-1] // n_heads)
+    return _PackedAttention.apply(q, k, v, kv_mask, n_heads, bool(causal),
+                                  scale, float(dropout_rate), dropout_seed)
+
+
+def attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_mask: Optional[torch.Tensor], do: torch.Tensor,
+                         n_heads: int, causal: bool = False,
+                         sm_scale: Optional[float] = None,
+                         dropout_rate: float = 0.0,
+                         dropout_seed: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of `attention_packed` for the output gradient ``do``:
+    the plain backward for CPU tensors, the backward kernel (two launches)
+    for CUDA tensors, else raise."""
+    _check_dropout(dropout_rate, dropout_seed)
+    scale = _scale(sm_scale, q.shape[-1] // n_heads)
+    if q.device.type == "cpu":
+        return attention_packed_bwd_reference(q, k, v, kv_mask, do, n_heads,
+                                              causal, scale, dropout_rate,
+                                              dropout_seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_packed_bwd: no kernel for device "
+                         f"{q.device}")
     _check_kernel_args(q, k, v, kv_mask, n_heads)
-    dh = q.shape[-1] // n_heads
-    scale = sm_scale if sm_scale is not None else 1.0 / (dh ** 0.5)
-    out = _launch_kernel(q, k, v, kv_mask, n_heads, causal, scale)
-    attention_packed.launches += 1
-    return out
+    if do.shape != q.shape or do.device != q.device:
+        raise ValueError(f"attention_packed_bwd: do {tuple(do.shape)} on "
+                         f"{do.device} does not match q {tuple(q.shape)}")
+    do = do.to(q.dtype)
+    if do.stride(2) != 1:
+        do = do.contiguous()
+    return _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale,
+                       dropout_rate, dropout_seed)
 
 
 attention_packed.launches = 0
+attention_packed.bwd_launches = 0

@@ -1,0 +1,101 @@
+"""Philox4x32-10 and the attention-dropout keep mask of the port.
+
+The port's counterpart of `_small_keep` (`m3p_tpu/ops/attention.py:143`),
+which draws the keep mask of one (batch, head) tile from the TPU's hardware
+PRNG.  Hopper has no such generator, so the packed-attention kernels and
+their plain versions all draw from Philox4x32-10 (Salmon et al., "Parallel
+random numbers: as easy as 1, 2, 3", the Random123 generator):
+
+    key     = (seed mod 2^32, seed >> 32)
+    counter = (col // 4, row, tile, 0);  element (row, col) takes word col % 4
+    keep    = bits >= uint32(min(rate * 2^32, 2^32 - 1))   (the JAX rule)
+    tile    = b * H + h
+
+The mask is a function of (seed, tile, row, col) alone and never of how
+threads are laid out, so the forward kernel, the backward kernel and the
+plain version below draw the same bits.  Here the generator runs in int64
+torch arithmetic masked to 32 bits, on CPU and CUDA tensors alike; the
+32 x 32 -> 64-bit products are split into 16-bit halves so that no
+intermediate leaves int64.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+ROUNDS = 10
+MASK32 = 0xFFFFFFFF
+
+Word = Union[int, torch.Tensor]
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of the 64-bit product a * b, for a uint32
+    constant ``a`` and an int64 tensor ``b`` holding uint32 values."""
+    t1 = a * (b & 0xFFFF)                 # < 2^48
+    t2 = a * (b >> 16)                    # < 2^48; product = t2 * 2^16 + t1
+    low = t1 + ((t2 & 0xFFFF) << 16)      # < 2^49
+    return (t2 >> 16) + (low >> 32), low & MASK32
+
+
+def philox4x32(c0: Word, c1: Word, c2: Word, c3: Word, k0: int, k1: int
+               ) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 of the counter (c0, c1, c2, c3) under the key (k0, k1).
+
+    Counter words broadcast against each other (int64 tensors or ints, each
+    holding a uint32); returns the four output words as int64 tensors."""
+    device = next((c.device for c in (c0, c1, c2, c3)
+                   if isinstance(c, torch.Tensor)), torch.device("cpu"))
+    words = [torch.as_tensor(c, dtype=torch.int64, device=device)
+             for c in (c0, c1, c2, c3)]
+    c0, c1, c2, c3 = torch.broadcast_tensors(*words)
+    for _ in range(ROUNDS):
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + PHILOX_W0) & MASK32
+        k1 = (k1 + PHILOX_W1) & MASK32
+    return c0, c1, c2, c3
+
+
+def seed_key(seed: int) -> Tuple[int, int]:
+    """A 64-bit seed -> the Philox key (seed_lo, seed_hi)."""
+    seed = int(seed)
+    if not 0 <= seed < 2 ** 64:
+        raise ValueError(f"dropout seed {seed} is not a 64-bit unsigned int")
+    return seed & MASK32, seed >> 32
+
+
+def keep_threshold(rate: float) -> int:
+    """uint32(min(rate * 2^32, 2^32 - 1)): a draw at or above it is kept
+    (`m3p_tpu/ops/attention.py:156`)."""
+    return min(int(rate * (2 ** 32)), 2 ** 32 - 1)
+
+
+def keep_mask_tiles(seed: int, n_tiles: int, sq: int, sk: int, rate: float,
+                    device: Union[str, torch.device] = "cpu",
+                    first_tile: int = 0) -> torch.Tensor:
+    """Keep masks of the tiles first_tile .. first_tile + n_tiles - 1:
+    bool (n_tiles, sq, sk)."""
+    k0, k1 = seed_key(seed)
+    sk4 = -(-sk // 4)
+    col4 = torch.arange(sk4, device=device, dtype=torch.int64)[None, None, :]
+    row = torch.arange(sq, device=device, dtype=torch.int64)[None, :, None]
+    tile = torch.arange(first_tile, first_tile + n_tiles, device=device,
+                        dtype=torch.int64)[:, None, None]
+    words = philox4x32(col4, row, tile, 0, k0, k1)
+    bits = torch.stack(words, dim=-1).reshape(n_tiles, sq, 4 * sk4)[..., :sk]
+    return bits >= keep_threshold(rate)
+
+
+def keep_mask(seed: int, tile: int, sq: int, sk: int, rate: float,
+              device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """The keep mask of one (batch, head) tile, ``tile = b * H + h``: bool
+    (sq, sk)."""
+    return keep_mask_tiles(seed, 1, sq, sk, rate, device, first_tile=tile)[0]

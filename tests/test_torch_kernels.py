@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the packed-attention forward (rate 0 and with Philox dropout) and backward,
+and the mask identity of the two (V = identity).
 
 This file imports nothing of JAX, so it also runs where only PyTorch is
 installed; the `gpu` tests skip without a CUDA device.  On a machine with
@@ -13,13 +15,20 @@ import pytest
 import torch
 
 from m3p_tpu_torch.ops.attention import (
-    attention_packed, attention_packed_reference)
+    attention_packed, attention_packed_bwd_reference,
+    attention_packed_reference)
+from m3p_tpu_torch.ops.philox import keep_mask_tiles
 
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-# the kernel and the plain version each round p and o to bf16 once
+# gradients: fp32 sums over up to 512 rows or keys, taken in another order
+TOL_BWD = dict(rtol=1e-4, atol=1e-5)
+# the kernel and the plain version each round p and o (p, ds and the
+# gradients in the backward) to bf16 once
 TOL_BF16 = dict(rtol=1.6e-2, atol=1e-2)
+RATE = 0.1
+SEED = 0x1234_5678_9ABC_DEF0
 
 # (B, H, Dh, Sq, Sk, lengths of the key mask, causal); the CPU parity tests
 # against the JAX package use the same cases
@@ -45,6 +54,52 @@ def packed_inputs(b, h, dh, sq, sk, lens, seed=0):
     v = rng.randn(b, sk, h * dh).astype(np.float32)
     mask = np.arange(sk)[None, :] < np.asarray(lens)[:, None]
     return q, k, v, mask
+
+
+def output_grad(b, h, dh, sq, seed=1):
+    return np.random.RandomState(seed).randn(b, sq, h * dh).astype(
+        np.float32)
+
+
+def check_mask_identity(device, rate=0.25, seed=SEED):
+    """V = identity: with v = I per head the forward's output is
+    inv * keep . p, so its zeros are the keep mask; with dO = I the
+    backward's dv^T is the same matrix.  Checks both against the Philox
+    mask of the plain version, the keep rate and the 1/(1 - rate) scale,
+    through `attention_packed` on ``device``."""
+    b, h, s = 2, 2, 64
+    lens = (64, 40)
+    q, k, _, mask = packed_inputs(b, h, s, s, s, lens, seed=7)
+    eye = np.tile(np.eye(s, dtype=np.float32), (b, 1, h))   # (b, s, h*s)
+    q, k, v, do = (torch.from_numpy(a).to(device) for a in (q, k, eye, eye))
+    mask = torch.from_numpy(mask).to(device)
+    q.requires_grad_(True)
+    k.requires_grad_(True)
+    v.requires_grad_(True)
+    out = attention_packed(q, k, v, mask, h, dropout_rate=rate,
+                           dropout_seed=seed)
+    _, _, dv = torch.autograd.grad(out, (q, k, v), do)
+    with torch.no_grad():
+        plain = attention_packed(q, k, v, mask, h)
+    # (b, h, query, key)
+    out_h = out.detach().view(b, s, h, s).permute(0, 2, 1, 3)
+    dv_h = dv.view(b, s, h, s).permute(0, 2, 3, 1)
+    plain_h = plain.view(b, s, h, s).permute(0, 2, 1, 3)
+    keep = keep_mask_tiles(seed, b * h, s, s, rate, device).view(b, h, s, s)
+    attended = mask[:, None, None, :].expand(b, h, s, s)
+    kept = out_h != 0
+    assert torch.equal(kept, keep & attended)       # forward vs Philox
+    assert torch.equal(dv_h != 0, kept)             # backward vs forward
+    torch.testing.assert_close(dv_h, out_h, **TOL)
+    torch.testing.assert_close(out_h[kept], plain_h[kept] / (1.0 - rate),
+                               **TOL)
+    n = int(attended.sum())
+    share = float(kept.sum()) / n
+    sd = (rate * (1.0 - rate) / n) ** 0.5
+    assert abs(share - (1.0 - rate)) < 5 * sd, share
+    # each head draws its own mask
+    assert not torch.equal(kept[0, 0], kept[0, 1])
+    return share
 
 
 @pytest.fixture
@@ -84,3 +139,76 @@ def test_packed_attention_kernel_bf16_at_serving_shapes(cuda_device, b, h, dh,
     assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     want = attention_packed_reference(q, k, v, mask, h, causal=causal)
     torch.testing.assert_close(got, want, **TOL_BF16)
+
+
+def _grad_inputs(device, case, dtype):
+    b, h, dh, sq, sk, lens, causal = case
+    q, k, v, mask = _on(device, packed_inputs(b, h, dh, sq, sk, lens), dtype)
+    do = torch.from_numpy(output_grad(b, h, dh, sq)).to(device).to(dtype)
+    return q, k, v, mask, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,dh,sq,sk,lens,causal", CASES + SERVING_CASES)
+def test_packed_attention_kernel_with_dropout_matches_plain_version(
+        cuda_device, b, h, dh, sq, sk, lens, causal):
+    q, k, v, mask = _on(cuda_device, packed_inputs(b, h, dh, sq, sk, lens))
+    got = attention_packed(q, k, v, mask, h, causal=causal,
+                           dropout_rate=RATE, dropout_seed=SEED)
+    torch.cuda.synchronize()
+    want = attention_packed_reference(q, k, v, mask, h, causal=causal,
+                                      dropout_rate=RATE, dropout_seed=SEED)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", CASES + SERVING_CASES)
+def test_packed_attention_bwd_kernel_matches_plain_version(cuda_device, case,
+                                                           rate):
+    q, k, v, mask, do = _grad_inputs(cuda_device, case, torch.float32)
+    h, causal = case[1], case[-1]
+    seed = SEED if rate else None
+    q.requires_grad_(True)
+    k.requires_grad_(True)
+    v.requires_grad_(True)
+    out = attention_packed(q, k, v, mask, h, causal=causal,
+                           dropout_rate=rate, dropout_seed=seed)
+    before = attention_packed.bwd_launches
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert attention_packed.bwd_launches == before + 2
+    want = attention_packed_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                          mask, do, h, causal=causal,
+                                          dropout_rate=rate,
+                                          dropout_seed=seed)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL_BWD)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", SERVING_CASES)
+def test_packed_attention_bwd_kernel_bf16_at_training_shapes(cuda_device,
+                                                             case, rate):
+    q, k, v, mask, do = _grad_inputs(cuda_device, case, torch.bfloat16)
+    h = case[1]
+    seed = SEED if rate else None
+    got = attention_packed_bwd_reference(q, k, v, mask, do, h,
+                                         dropout_rate=rate,
+                                         dropout_seed=seed)
+    q.requires_grad_(True)
+    k.requires_grad_(True)
+    v.requires_grad_(True)
+    out = attention_packed(q, k, v, mask, h, dropout_rate=rate,
+                           dropout_seed=seed)
+    kernel = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    for g, w in zip(kernel, got):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **TOL_BF16)
+
+
+@pytest.mark.gpu
+def test_kernels_draw_the_plain_versions_mask(cuda_device):
+    check_mask_identity(cuda_device)

@@ -40,7 +40,9 @@ def test_forbidden_prefix_does_not_catch_the_port():
 
 def test_port_imports_no_jax_and_no_jax_package():
     modules = _port_modules()
-    assert "m3p_tpu_torch.serve.engine" in modules
+    for name in ("serve.engine", "ops.philox", "train.steps", "train.optim",
+                 "train.state", "data.synthetic"):
+        assert f"m3p_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for name in {modules!r}:\n"
