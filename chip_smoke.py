@@ -30,7 +30,18 @@ Phases, each of which fails the run if it fails:
      steps: samples/s, step ms, peak memory, kernel launches per step;
      fp32 gradients on the card against the CPU at depth 2 (rate 0); a
      learning check at depth 2 (50 steps on one batch); a profile of one
-     training step.
+     training step;
+  7. the long-context xMLM step (tools/bench_longseq.py's setup: B = 8
+     streams of S = 2048 tokens, 12 blocks, 768d, 12 heads, 250002 words,
+     dropout 0.1, attention dropout 0, FusedAdam with bf16 moments and an
+     fp32 master, clip 5.0), 2 warm-up and 10 timed steps through the
+     flash kernels: samples/s, tokens/s, step ms, peak memory, launches per
+     step (12 flash forward, 24 flash backward, no packed), a profile of
+     one step and an MFU reading; fp32 gradients on the card against the
+     CPU at depth 2 and S = 640; a learning check at depth 2.
+Phases 2 and 3 hold and time the flash kernels too (fp32 and bf16, rates 0
+and 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
+shape, V = identity).
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 card's name and power limit; before that one JSON line with the kernels.
@@ -55,7 +66,8 @@ import urllib.request
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-KERNELS = ["packed_attention", "packed_attention_bwd"]
+KERNELS = ["packed_attention", "packed_attention_bwd", "flash_attention",
+           "flash_attention_bwd"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense bf16 tensor rate
 HBM_BYTES_PER_S = 3.35e12
@@ -80,6 +92,13 @@ OPTIM_SPEC = "adam_inverse_sqrt,beta1=0.9,beta2=0.98,lr=0.00005"
 CLIP = 5.0
 GROUPS, SAMPLE_N, TEXT_LEN, REGIONS = 20, 4, 64, 100
 WARMUP_STEPS, TIMED_STEPS = 3, 20
+# the long-context slice (tools/bench_longseq.py)
+LONG_SPEC = ("adam_inverse_sqrt,beta1=0.9,beta2=0.98,lr=0.00005,fused=1,"
+             "mu_dtype=bfloat16,nu_dtype=bfloat16,master=1")
+LONG_B, LONG_S, LONG_MAX_PRED = 8, 2048, 256
+LONG_WARMUP, LONG_STEPS = 2, 10
+# the fp32 comparison and the learning check: S above the packed 512
+LONG_CHECK_S = 640
 # a served score against the same pair scored in another batch (bf16 GEMMs
 # may pick other kernels for another batch size)
 TOL_SCORE_BF16 = 5e-2
@@ -267,24 +286,31 @@ def check_dropout_and_backward(gen):
     return worst
 
 
-def check_mask_identity():
+def check_mask_identity(flash=False):
     """V = identity on the card: the forward kernel's zeros are the plain
     version's Philox mask, and the backward kernel's dv^T (dO = identity)
-    is the forward's output.  The check is the one the `gpu` tests run
-    (tests/test_torch_kernels.py, which imports no JAX)."""
+    is the forward's output; the packed kernels at S = 64, or the flash
+    kernels at S = 96 (two key tiles, the second ragged).  The check is
+    the one the `gpu` tests run (tests/test_torch_kernels.py, which imports
+    no JAX)."""
     import importlib.util
+
+    from m3p_tpu_torch.ops.attention import attention_flash
 
     path = REPO / "tests" / "test_torch_kernels.py"
     spec = importlib.util.spec_from_file_location("test_torch_kernels", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     rate = 0.25
+    kw = dict(attn=attention_flash, s=96) if flash else {}
+    name = "flash" if flash else "packed"
     try:
-        share = module.check_mask_identity("cuda", rate=rate)
+        share = module.check_mask_identity("cuda", rate=rate, **kw)
     except AssertionError as exc:
-        fail(f"V=I mask identity: {exc!r}")
-    log(f"[check] V=I mask identity at rate {rate}: forward == plain Philox "
-        f"mask, backward dv^T == forward output, keep share {share:.4f}")
+        fail(f"V=I mask identity ({name}): {exc!r}")
+    log(f"[check] V=I mask identity of the {name} kernels at rate {rate}: "
+        f"forward == plain Philox mask, backward dv^T == forward output, "
+        f"keep share {share:.4f}")
     return share
 
 
@@ -302,6 +328,14 @@ def cuda_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes, flops):
+    """(least ms, "bytes" or "operations") on the H100 SXM peaks."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def time_kernels(gen):
@@ -326,15 +360,12 @@ def time_kernels(gen):
             qh, kh, vh, attn_mask=sdpa_mask))
         n_bytes = (3 * b * s * h * dh + b * s * h * dh) * 2 + b * s
         flops = 4 * b * h * s * s * dh
-        bound_bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        bound_ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        bound_ms, bound_by = bound(n_bytes, flops)
         out[label] = {
             "shape": {"B": b, "Sq": s, "Sk": s, "H": h, "Dh": dh,
                       "dtype": "bfloat16"},
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                         else "operations"),
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "flops": flops,
         }
         log(f"[time] packed_attention {label} B={b} S={s} bf16: kernel "
@@ -397,13 +428,6 @@ def time_training_kernels(gen):
         bwd_flops = 10 * b * h * s * s * dh   # QK^T, dO V^T, P^T dO, dS^T Q, dS K
         fwd_bytes = 4 * elems * 2 + b * s
         fwd_flops = 4 * b * h * s * s * dh
-
-        def bound(n_bytes, flops):
-            by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-            by_ops = flops / BF16_FLOPS_PER_S * 1e3
-            return (max(by_bytes, by_ops),
-                    "bytes" if by_bytes >= by_ops else "operations")
-
         bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops)
         fwd_bound, fwd_by = bound(fwd_bytes, fwd_flops)
         out[label] = {
@@ -644,6 +668,10 @@ def measure_serving(engine, base, texts, imgs, queries, rng):
 
 def kernel_group(name: str) -> str:
     low = name.lower()
+    if "flash_attention_bwd" in low:
+        return "flash_attention_bwd"
+    if "flash_attention" in low:
+        return "flash_attention"
     if "packed_attention_bwd" in low:
         return "packed_attention_bwd"
     if "packed_attention" in low:
@@ -920,6 +948,418 @@ def learning_check(seed, steps=50):
     return {"first5": first, "last5": last}
 
 
+# ---------------------------------------------------------------------------
+# phases 2/3 for the flash kernels (#5, #6)
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(b, s_q, s_k, h, dh, dtype, gen, full=False):
+    """q, k, v, dO and a key mask: random lengths with batch row 1 empty,
+    or every key valid (``full``, the xMLM path's mask)."""
+    import torch
+
+    q, k, v, mask = attn_inputs(b, s_q, s_k, h, dh, dtype, gen,
+                                empty_row=not full)
+    if full:
+        mask = torch.ones_like(mask)
+    do = torch.randn(b, s_q, h * dh, device="cuda", generator=gen).to(dtype)
+    return q, k, v, mask, do
+
+
+def flash_grads_pair(q, k, v, mask, do, h, causal, rate, seed):
+    """(kernel dq/dk/dv, plain dq/dk/dv): the plain backward reads the
+    kernel forward's output, and the plain forward's statistics."""
+    import torch
+
+    from m3p_tpu_torch.ops.attention import (
+        attention_flash, attention_flash_bwd_reference,
+        attention_flash_reference)
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = attention_flash(*leaves, mask, h, causal, None, rate, seed)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    _, stats = attention_flash_reference(q, k, v, mask, h, causal, None,
+                                         rate, seed, return_stats=True)
+    want = attention_flash_bwd_reference(q, k, v, mask, out.detach(), stats,
+                                         do, h, causal, None, rate, seed)
+    return got, want
+
+
+def check_flash_kernels(gen):
+    """#5 and #6 against their plain versions at rates 0 and 0.1: small
+    odd shapes (several 64-row/64-key tiles, ragged last tiles, Sq != Sk
+    both ways with the causal offset, a row with no valid key, Dh 16, 64,
+    128) in fp32, and the long-context shape B = 8, S = 2048 in fp32 and
+    bf16."""
+    import torch
+
+    from m3p_tpu_torch.ops.attention import (
+        attention_flash, attention_flash_reference)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (B, Sq, Sk, H, Dh, dtype, causal, every key valid)
+        (2, 200, 200, 2, 16, f32, False, False),
+        (2, 200, 200, 2, 16, f32, True, False),
+        (2, 70, 300, 2, 16, f32, True, False),
+        (2, 300, 70, 2, 16, f32, True, False),
+        (2, 130, 577, 3, 64, f32, False, False),
+        (1, 96, 160, 2, 128, f32, True, False),
+        (2, 1030, 1030, 12, 64, bf16, False, False),
+        (LONG_B, LONG_S, LONG_S, 12, 64, f32, False, True),
+        (LONG_B, LONG_S, LONG_S, 12, 64, bf16, False, True),
+    ]
+    worst = {"fwd": {}, "bwd": {}}
+    for b, sq, sk, h, dh, dt, causal, full in cases:
+        tol_f = TOL_FP32 if dt == f32 else TOL_BF16
+        tol_b = TOL_BWD_FP32 if dt == f32 else TOL_BF16
+        q, k, v, mask, do = flash_inputs(b, sq, sk, h, dh, dt, gen, full)
+        name = str(dt).replace("torch.", "")
+        shape = (f"B={b} Sq={sq} Sk={sk} H={h} Dh={dh} {name} "
+                 f"causal={causal}")
+        msg = []
+        for rate in (0.0, RATE):
+            seed = SEED if rate else None
+            got = attention_flash(q, k, v, mask, h, causal, None, rate, seed)
+            torch.cuda.synchronize()
+            want = attention_flash_reference(q, k, v, mask, h, causal, None,
+                                             rate, seed)
+            err = _compare(got, want, tol_f, f"flash forward rate {rate} "
+                                             f"{shape}")
+            worst["fwd"][name] = max(worst["fwd"].get(name, 0.0), err)
+            got, want = flash_grads_pair(q, k, v, mask, do, h, causal, rate,
+                                         seed)
+            errs = [_compare(g, w, tol_b, f"flash backward d{n} rate {rate} "
+                                          f"{shape}")
+                    for n, g, w in zip("qkv", got, want)]
+            worst["bwd"][name] = max(worst["bwd"].get(name, 0.0), max(errs))
+            msg.append(f"rate {rate}: fwd {err:.3e}, dq/dk/dv "
+                       + "/".join(f"{e:.3e}" for e in errs))
+            del got, want
+        log(f"[check] flash {shape}: max|kernel-plain| " + "; ".join(msg)
+            + f" (tolerance fwd {tol_f}, bwd {tol_b})")
+        del q, k, v, mask, do
+        torch.cuda.empty_cache()
+    # the comparison has teeth: causal and dropout change the output
+    q, k, v, mask, _ = flash_inputs(2, 200, 200, 2, 16, f32, gen)
+    full_out = attention_flash(q, k, v, mask, 2)
+    off = min((attention_flash(q, k, v, mask, 2, True) - full_out)
+              .abs().max().item(),
+              (attention_flash(q, k, v, mask, 2, False, None, RATE, SEED)
+               - full_out).abs().max().item())
+    if off < 0.1:
+        fail(f"flash: causal or dropout leaves the output unchanged ({off}); "
+             f"check is vacuous")
+    return worst
+
+
+def time_flash_kernels(gen):
+    """#5 and #6 at the long-context shape (B = 8, S = 2048, H = 12,
+    Dh = 64, bf16, every key valid): rate 0 (the path's) and 0.1 in turns,
+    the plain versions, and SDPA's forward and its autograd backward on the
+    same inputs and mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from m3p_tpu_torch.ops.attention import (
+        attention_flash, attention_flash_bwd, attention_flash_bwd_reference,
+        attention_flash_reference)
+
+    b, s, h, dh = LONG_B, LONG_S, 12, 64
+    q, k, v, mask, do = flash_inputs(b, s, s, h, dh, torch.bfloat16, gen,
+                                     full=True)
+    ms, ms_drop = in_turns(
+        lambda: attention_flash(q, k, v, mask, h),
+        lambda: attention_flash(q, k, v, mask, h, False, None, RATE, SEED))
+    plain_ms = cuda_ms(lambda: attention_flash_reference(q, k, v, mask, h),
+                       iters=3, warmup=1)
+    out, stats = attention_flash_reference(q, k, v, mask, h,
+                                           return_stats=True)
+    bwd_ms, bwd_drop_ms = in_turns(
+        lambda: attention_flash_bwd(q, k, v, mask, out, stats, do, h),
+        lambda: attention_flash_bwd(q, k, v, mask, out, stats, do, h, False,
+                                    None, RATE, SEED))
+    bwd_plain_ms = cuda_ms(lambda: attention_flash_bwd_reference(
+        q, k, v, mask, out, stats, do, h), iters=3, warmup=1)
+    qh, kh, vh, doh = (t.view(b, s, h, dh).transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    sdpa_mask = mask[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=sdpa_mask))
+    for t in (qh, kh, vh):
+        t.requires_grad_(True)
+    sdpa = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=sdpa_mask)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa, (qh, kh, vh), doh, retain_graph=True))
+    elems = b * s * h * dh
+    stat_bytes = b * h * s * 2 * 4
+    # forward: q, k, v, mask in; o, (m, l) out; QK^T and PV
+    fwd_bytes = 4 * elems * 2 + b * s + stat_bytes
+    fwd_flops = 4 * b * h * s * s * dh
+    # backward: q, k, v, o, dO, mask, (m, l) in; dq, dk, dv out; QK^T,
+    # dO V^T, P^T dO, dS^T Q, dS K
+    bwd_bytes = 8 * elems * 2 + b * s + stat_bytes
+    bwd_flops = 10 * b * h * s * s * dh
+    fwd_bound, fwd_by = bound(fwd_bytes, fwd_flops)
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops)
+    shape = {"B": b, "Sq": s, "Sk": s, "H": h, "Dh": dh, "dtype": "bfloat16"}
+    fwd = {"ms": ms, "ms_rate_0.1": ms_drop, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+           "bytes": fwd_bytes, "flops": fwd_flops, "shape": shape,
+           "tflops_per_s": fwd_flops / ms / 1e9}
+    bwd = {"ms": bwd_ms, "ms_rate_0.1": bwd_drop_ms,
+           "plain_ms": bwd_plain_ms, "library_ms": lib_bwd_ms,
+           "bound_ms": bwd_bound, "bound_by": bwd_by, "bytes": bwd_bytes,
+           "flops": bwd_flops, "shape": shape,
+           "tflops_per_s": bwd_flops / bwd_ms / 1e9}
+    for name, t in (("flash_attention_fwd", fwd),
+                    ("flash_attention_bwd", bwd)):
+        log(f"[time] {name} B={b} S={s} bf16: kernel {t['ms']:.4f} ms "
+            f"(rate 0.1: {t['ms_rate_0.1']:.4f}; in turns, "
+            f"{t['tflops_per_s']:.2f} TFLOP/s), plain {t['plain_ms']:.4f}, "
+            f"sdpa {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})")
+    return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the long-context xMLM step
+# ---------------------------------------------------------------------------
+
+
+def long_config(n_layers=12, dtype="bfloat16", rate=0.1):
+    """tools/bench_longseq.py's ModelConfig: the ModelConfig defaults (768d,
+    12 heads, FFN 3072, 5 languages) with max_positions S + 2 and attention
+    dropout 0."""
+    from m3p_tpu_torch.config import ModelConfig
+
+    return ModelConfig(n_words=250002, mask_index=250001, n_layers=n_layers,
+                       emb_dim=768, n_heads=12, dropout=rate,
+                       attention_dropout=0.0, max_positions=LONG_S + 2,
+                       dtype=dtype)
+
+
+def long_mask_cfg():
+    from m3p_tpu_torch.data.masking import MaskingConfig
+
+    return MaskingConfig(max_pred=LONG_MAX_PRED, n_words=250002,
+                         mask_index=250001)
+
+
+def stream_batch(seed, b, s, device):
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.data.synthetic import make_stream_batch
+
+    batch = make_stream_batch(np.random.RandomState(seed), b, s, 250002)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def mlm_step(**kw):
+    from m3p_tpu_torch.train.steps import make_train_step, mlm_loss
+
+    return make_train_step(functools.partial(mlm_loss,
+                                             mask_cfg=long_mask_cfg(), **kw))
+
+
+def step_flops(cfg, b, s, n_slots):
+    """Model FLOPs of one training step, 3 x the forward's: per block the
+    Q/K/V/out and FFN GEMMs (2 (4 d^2 + 2 d f) per token) and the two
+    attention products (4 B H S^2 Dh); the tied head at the masked slots
+    (2 slots d V).  Embeddings, LayerNorm and softmax are left out."""
+    d, f = cfg.emb_dim, cfg.ffn_dim
+    per_block = 2 * (4 * d * d + 2 * d * f) * b * s + 4 * b * s * s * d
+    head = 2 * n_slots * d * cfg.n_words
+    return 3 * (cfg.n_layers * per_block + head)
+
+
+def long_context_slice(seed):
+    """The long-context xMLM step of tools/bench_longseq.py at its full
+    size: 2 warm-up and 10 timed steps, every self-attention through the
+    flash kernels in both directions."""
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.ops.attention import attention_flash, attention_packed
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    cfg = long_config()
+    t0 = time.time()
+    model = build_model(cfg, seed, "cuda")
+    tx, schedule = build_optimizer(LONG_SPEC, clip_grad_norm=CLIP)
+    state = create_train_state(model, tx)
+    step = mlm_step()
+    gens = Generators.from_seed(seed, "cuda")
+    batch = stream_batch(0, LONG_B, LONG_S, "cuda")
+    watched = {n: p.detach().clone() for n, p in model.named_parameters()
+               if n in ("block_0.attn.q_lin.weight", "text_emb.word.weight",
+                        "pred_layer.bias")}
+    log(f"[long] model ({sum(p.numel() for p in model.parameters())} "
+        f"parameters, stored in {next(model.parameters()).dtype}), "
+        f"FusedAdam state and batch (B={LONG_B}, S={LONG_S}) on the card in "
+        f"{time.time() - t0:.2f} s")
+    per_step = (cfg.n_layers, 2 * cfg.n_layers)
+    n_steps = LONG_WARMUP + LONG_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    metrics = []
+    # ---- the main path, counted ----
+    attention_flash.launches = 0
+    attention_flash.bwd_launches = 0
+    attention_packed.launches = 0
+    attention_packed.bwd_launches = 0
+    for i in range(n_steps):
+        if i == LONG_WARMUP:
+            torch.cuda.synchronize()
+            wall0 = time.perf_counter()
+            start.record()
+        state, m = step(state, batch, gens)
+        metrics.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - wall0
+    launches = (attention_flash.launches, attention_flash.bwd_launches)
+    packed = (attention_packed.launches, attention_packed.bwd_launches)
+    # ---- checks ----
+    step_ms = start.elapsed_time(end) / LONG_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack([m["mlm"] for m in metrics]).float().cpu()
+    if not torch.isfinite(losses).all():
+        fail(f"non-finite xMLM loss: {losses.tolist()}")
+    if launches != (per_step[0] * n_steps, per_step[1] * n_steps):
+        fail(f"{launches} flash forward/backward launches in {n_steps} "
+             f"steps; expected {per_step} per step")
+    if packed != (0, 0):
+        fail(f"{packed} packed launches on the long-context path")
+    moved = {n: (p.detach().float() - watched[n].float()).abs().max().item()
+             for n, p in model.named_parameters() if n in watched}
+    if state.step != n_steps or not all(v > 0 for v in moved.values()):
+        fail(f"the parameters did not change: {moved}")
+    flops = step_flops(cfg, LONG_B, LONG_S, LONG_B * LONG_MAX_PRED)
+    numbers = {
+        "samples_per_s": LONG_B / (step_ms / 1e3),
+        "tokens_per_s": LONG_B * LONG_S / (step_ms / 1e3),
+        "step_ms": step_ms, "wall_step_ms": wall_s * 1e3 / LONG_STEPS,
+        "peak_memory_gb": peak_gb, "b": LONG_B, "s": LONG_S,
+        "launches": {"fwd": launches[0], "bwd": launches[1],
+                     "packed": packed[0] + packed[1]},
+        "launches_per_step": {"fwd": per_step[0], "bwd": per_step[1]},
+        "flops_per_step": flops,
+        "mfu": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+        "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+        "lr_last": schedule(state.step - 1),
+    }
+    log(f"[long] {n_steps} xMLM steps at B={LONG_B}, S={LONG_S}, 12 blocks, "
+        f"dropout 0.1, FusedAdam bf16 moments + fp32 master: "
+        f"{step_ms:.2f} ms a step (CUDA events, {LONG_STEPS} steps), "
+        f"{numbers['samples_per_s']:.3f} samples/s, "
+        f"{numbers['tokens_per_s']:.1f} tokens/s, host wall "
+        f"{numbers['wall_step_ms']:.2f} ms a step, peak memory "
+        f"{peak_gb:.2f} GB; launches flash fwd {launches[0]} = "
+        f"{per_step[0]} x {n_steps}, bwd {launches[1]} = {per_step[1]} x "
+        f"{n_steps}, packed {packed}; {flops / 1e12:.3f} TFLOP a step, MFU "
+        f"{numbers['mfu']:.4f} of 989 TF/s; loss {losses[0].item():.4f} -> "
+        f"{losses[-1].item():.4f}; max |param change| {moved}")
+    numbers["profile"] = profile_window(
+        f"one xMLM step B={LONG_B} S={LONG_S}",
+        lambda: step(state, batch, gens), reps=1)
+    return numbers
+
+
+def compare_long_grads_with_cpu(seed):
+    """fp32 gradients of mlm_loss at depth 2 and full width, S = 640 (the
+    flash path), on the card (kernels) and on the CPU (plain versions), at
+    rate 0, with one masking fed to both."""
+    import torch
+
+    from m3p_tpu_torch.data.masking import mask_tokens
+    from m3p_tpu_torch.model import build_model, lengths_to_mask
+    from m3p_tpu_torch.train.steps import mlm_loss
+
+    cfg = long_config(n_layers=2, dtype="float32", rate=0.0)
+    cpu_model = build_model(cfg, seed, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = stream_batch(seed + 2, 2, LONG_CHECK_S, "cpu")
+    batch["lengths"][1] = LONG_CHECK_S - 100
+    tokens = batch["tokens"].long()
+    masking = mask_tokens(torch.Generator().manual_seed(seed), tokens,
+                          lengths_to_mask(batch["lengths"], tokens.shape[1]),
+                          long_mask_cfg())
+    losses = {}
+    for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
+        loss, _ = mlm_loss(model, {k: t.to(dev) for k, t in batch.items()},
+                           None, long_mask_cfg(), deterministic=True,
+                           masking=[t.to(dev) for t in masking])
+        loss.backward()
+        losses[dev] = loss.item()
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    largest = max(g.abs().max().item() for g in cpu_grads.values()
+                  if g is not None)
+    worst, worst_name, leaves = 0.0, "", 0
+    for name, p in gpu_model.named_parameters():
+        want = cpu_grads[name]
+        if (p.grad is None) != (want is None):
+            fail(f"gradient of {name} on one side only")
+        if want is None:
+            continue
+        leaves += 1
+        diff = (p.grad.cpu() - want).abs().max().item()
+        scale = largest if name.endswith("k_lin.bias") else \
+            want.abs().max().item()
+        err = diff / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    log(f"[fp32 grads long] depth 2, B=2, S={LONG_CHECK_S}, rate 0: loss "
+        f"card {losses['cuda']:.6f} vs CPU {losses['cpu']:.6f}; {leaves} "
+        f"leaves, max relative |card - CPU| = {worst:.3e} ({worst_name}; "
+        f"tolerance {TOL_GRAD_FP32})")
+    if worst > TOL_GRAD_FP32 or abs(losses["cuda"] - losses["cpu"]) > 1e-4:
+        fail("fp32 xMLM gradients on the card disagree with the CPU")
+    return worst
+
+
+def long_learning_check(seed, steps=30):
+    """Depth 2 at full width, B = 2, S = 1024, one fixed batch and masking,
+    FusedAdam (bf16 moments, fp32 master) at lr 1e-4, dropout on: the mean
+    loss of the last 5 steps must be below that of the first 5."""
+    import torch
+
+    from m3p_tpu_torch.data.masking import mask_tokens
+    from m3p_tpu_torch.model import build_model, lengths_to_mask
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    model = build_model(long_config(n_layers=2), seed + 3, "cuda")
+    tx, _ = build_optimizer("adam,lr=0.0001,fused=1,mu_dtype=bfloat16,"
+                            "nu_dtype=bfloat16,master=1")
+    state = create_train_state(model, tx)
+    gens = Generators.from_seed(seed + 3, "cuda")
+    batch = stream_batch(seed + 3, 2, 1024, "cuda")
+    tokens = batch["tokens"].long()
+    masking = mask_tokens(gens.device, tokens,
+                          lengths_to_mask(batch["lengths"], tokens.shape[1]),
+                          long_mask_cfg())
+    step = mlm_step(masking=masking)
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, gens)
+        losses.append(m["mlm"])
+    losses = torch.stack(losses).float().cpu()
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    log(f"[learn long] depth 2, B=2, S=1024, {steps} steps of FusedAdam lr "
+        f"1e-4 on one batch and masking: mean loss of the first 5 steps "
+        f"{first:.4f}, of the last 5 {last:.4f}")
+    if not torch.isfinite(losses).all() or not last < first:
+        fail(f"the xMLM model did not learn: {losses.tolist()}")
+    return {"first5": first, "last5": last}
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -958,8 +1398,12 @@ def main() -> int:
     worst = check_kernels(gen)
     worst_train = check_dropout_and_backward(gen)
     keep_share = check_mask_identity()
+    flash_worst = check_flash_kernels(gen)
+    flash_share = check_mask_identity(flash=True)
     times = time_kernels(gen)
     train_times = time_training_kernels(gen)
+    flash_fwd, flash_bwd = time_flash_kernels(gen)
+    torch.cuda.empty_cache()
 
     from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
 
@@ -977,6 +1421,13 @@ def main() -> int:
     training["fp32_grad_card_vs_cpu_max_rel"] = compare_grads_with_cpu(
         args.seed)
     training["learning"] = learning_check(args.seed)
+    torch.cuda.empty_cache()
+
+    long_ctx = long_context_slice(args.seed)
+    torch.cuda.empty_cache()
+    long_ctx["fp32_grad_card_vs_cpu_max_rel"] = compare_long_grads_with_cpu(
+        args.seed)
+    long_ctx["learning"] = long_learning_check(args.seed)
 
     blocks, refiner = times["blocks"], times["refiner"]
     tblocks, trefiner = train_times["blocks"], train_times["refiner"]
@@ -1018,6 +1469,36 @@ def main() -> int:
         "shape": tblocks["shape"],
         "refiner": trefiner["bwd"],
         "mask_identity_keep_share": keep_share,
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "m3p_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "m3p_tpu/ops/attention.py:177",
+        "launches": long_ctx["launches"]["fwd"],
+        "launches_per_step": long_ctx["launches_per_step"]["fwd"],
+        "max_abs_err": flash_worst["fwd"]["bfloat16"],
+        "max_abs_err_fp32": flash_worst["fwd"]["float32"],
+        "ms": flash_fwd["ms"], "plain_ms": flash_fwd["plain_ms"],
+        "bound_ms": flash_fwd["bound_ms"], "bound_by": flash_fwd["bound_by"],
+        "library_ms": flash_fwd["library_ms"],
+        "ms_rate_0.1": flash_fwd["ms_rate_0.1"],
+        "shape": flash_fwd["shape"],
+        "mask_identity_keep_share": flash_share,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "m3p_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "m3p_tpu/ops/attention.py:471",
+        "replaces_also": "m3p_tpu/ops/attention.py:512",
+        "launches": long_ctx["launches"]["bwd"],
+        "launches_per_step": long_ctx["launches_per_step"]["bwd"],
+        "max_abs_err": flash_worst["bwd"]["bfloat16"],
+        "max_abs_err_fp32": flash_worst["bwd"]["float32"],
+        "ms": flash_bwd["ms"], "plain_ms": flash_bwd["plain_ms"],
+        "bound_ms": flash_bwd["bound_ms"], "bound_by": flash_bwd["bound_by"],
+        "library_ms": flash_bwd["library_ms"],
+        "ms_rate_0.1": flash_bwd["ms_rate_0.1"],
+        "shape": flash_bwd["shape"],
     }]}
     serving = {k: numbers[k] for k in ("score_pairs_per_s",
                                        "forward_ms_64x164",
@@ -1025,6 +1506,7 @@ def main() -> int:
     serving["fp32_card_vs_cpu_max_diff"] = fp32_diff
     log(f"[serving] {json.dumps(serving)} on {card}")
     log(f"[training] {json.dumps(training)} on {card}")
+    log(f"[long_context] {json.dumps(long_ctx)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -1,0 +1,122 @@
+// Tile helpers shared by the flash-attention forward and backward kernels
+// (flash_attention.cu, flash_attention_bwd.cu), sm_90a.
+//
+// A block works on 64 x 64 (query x key) tiles with 256 threads laid out
+// 16 x 16: thread (ty, tx) = (tid / 16, tid % 16) owns query rows
+// ty + 16 i and keys (or head-dim columns) tx + 16 j, i, j < 4.  Operand
+// tiles sit in shared memory as fp32 with an odd row pitch (dh + 1), so the
+// 16 lanes that read one column of 16 different rows hit 16 banks.
+
+#pragma once
+
+#include <cfloat>
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "philox.cuh"
+
+namespace m3p {
+namespace flash {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 64;             // query rows and keys of a tile
+constexpr int kSub = 16;              // threads along each tile side
+constexpr int kPer = kTile / kSub;    // rows (keys) a thread owns: 4
+constexpr int kPitch = kTile + 1;     // row pitch of a (64, 64) fp32 tile
+constexpr float kMaskValue = -0.7f * FLT_MAX;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// x rounded to T and back: the operand of a product in the input type
+template <typename T>
+__device__ __forceinline__ float rounded(float x) {
+  return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// rows [row0, row0 + n) of a (S, H*Dh) slab (row stride `stride`, head
+// columns at src) into an fp32 (kTile, ld) tile; rows n .. kTile are zero
+template <typename T>
+__device__ void load_rows(float* dst, const T* src, long long stride,
+                          int row0, int n, int dh, int ld) {
+  for (int i = threadIdx.x; i < kTile * dh; i += kThreads) {
+    const int r = i / dh, d = i - r * dh;
+    dst[r * ld + d] = r < n ? to_f(src[(row0 + r) * stride + d]) : 0.f;
+  }
+}
+
+// does query qi attend to key kj (key mask and end-aligned causal triangle)
+__device__ __forceinline__ bool attends(const uint8_t* mb, int causal, int kj,
+                                        int qi, int q_offset) {
+  return (mb == nullptr || mb[kj] != 0) && !(causal && kj > qi + q_offset);
+}
+
+// acc[i][j] = a_s[row ty + 16 i] . b_s[row tx + 16 j] over d < dh, an fmaf
+// chain in d order (the forward and both backward passes score a (query,
+// key) pair with the same chain, so they see bitwise the same score)
+__device__ __forceinline__ void tile_dots(const float* a_s, const float* b_s,
+                                          int ld, int dh,
+                                          float (&acc)[kPer][kPer]) {
+  const int tx = threadIdx.x % kSub, ty = threadIdx.x / kSub;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) acc[i][j] = 0.f;
+  for (int d = 0; d < dh; ++d) {
+    float a[kPer], b[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) a[i] = a_s[(ty + kSub * i) * ld + d];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) b[j] = b_s[(tx + kSub * j) * ld + d];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// keep_s[r * kTile + c] = Philox keep bit of (row q0 + r, key k0 + c) in
+// `tile`, for the whole 64 x 64 tile (k0 is a multiple of 4)
+__device__ void fill_keep(uint8_t* keep_s, unsigned long long seed,
+                          uint32_t threshold, int tile, int q0, int k0) {
+  constexpr int kGroups = kTile / 4;
+  for (int i = threadIdx.x; i < kTile * kGroups; i += kThreads) {
+    const int r = i / kGroups, g = i - r * kGroups;
+    const uint4 bits = keep_bits(seed, tile, q0 + r, k0 / 4 + g);
+    uint8_t* out = keep_s + r * kTile + 4 * g;
+    out[0] = bits.x >= threshold;
+    out[1] = bits.y >= threshold;
+    out[2] = bits.z >= threshold;
+    out[3] = bits.w >= threshold;
+  }
+}
+
+}  // namespace flash
+}  // namespace m3p

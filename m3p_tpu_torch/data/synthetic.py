@@ -1,5 +1,6 @@
 """Synthetic batches shaped like the real pipeline's (a copy of
-`m3p_tpu/data/synthetic.py:18-71`: `_random_tokens`, `make_retrieval_batch`).
+`m3p_tpu/data/synthetic.py:18-97`: `_random_tokens`, `make_retrieval_batch`,
+`make_stream_batch`).
 
 numpy only, so the same ``RandomState`` gives the same batch here and in the
 JAX package.  Shapes follow the reference recipes: captions up to
@@ -41,4 +42,15 @@ def make_retrieval_batch(rng, batch_size, sample_n, max_len, max_regions,
         "locs": rng.rand(bn, max_regions, 5).astype(np.float32),
         "img_len": np.full((bn,), max_regions, np.int32),
         "pos_label": rng.randint(0, sample_n, (batch_size,)).astype(np.int32),
+    }
+
+
+def make_stream_batch(rng, batch_size, bptt, n_words) -> Dict[str, np.ndarray]:
+    """A text-stream batch for the MLM objectives: ``batch_size`` rows of
+    ``bptt`` random word ids, all full length (a copy of
+    `m3p_tpu/data/synthetic.py:93-97`)."""
+    return {
+        "tokens": rng.randint(4, n_words - 1,
+                              (batch_size, bptt)).astype(np.int32),
+        "lengths": np.full((batch_size,), bptt, np.int32),
     }

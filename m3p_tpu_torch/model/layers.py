@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from m3p_tpu_torch.ops.activations import gelu_erf
-from m3p_tpu_torch.ops.attention import attention_packed
+from m3p_tpu_torch.ops.attention import attention
 
 LN_EPS = 1e-12
 
@@ -63,7 +63,7 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
 
 def attention_dropout_args(rate: float, deterministic: bool,
                            generator: Optional[Generators]):
-    """(rate, seed) for `attention_packed`: a per-call seed drawn on the
+    """(rate, seed) for the attention kernels: a per-call seed drawn on the
     host when dropout is on (`m3p_tpu/model/layers.py:286-292`)."""
     if deterministic or rate == 0.0:
         return 0.0, None
@@ -106,8 +106,11 @@ class MultiHeadAttention(nn.Module):
     """Self-attention over (B, S, D) on the no-cache path.
 
     Q/K/V stay in the projection layout (B, S, H*Dh) and go straight to
-    `attention_packed`; there is no head transpose.  Attention-weight
-    dropout at ``dropout`` runs inside the kernels with a per-call seed.
+    `ops.attention.attention`, which takes the packed kernels when Sq and
+    Sk are at most 512 and the flash kernels above, as the JAX module
+    dispatches (`m3p_tpu/model/layers.py:266-308`); there is no head
+    transpose.  Attention-weight dropout at ``dropout`` runs inside the
+    kernels with a per-call seed.
     The cross-attention and KV-cache decode paths of the JAX module wait for
     the generation slice."""
 
@@ -126,9 +129,9 @@ class MultiHeadAttention(nn.Module):
                 generator: Optional[Generators] = None) -> torch.Tensor:
         rate, seed = attention_dropout_args(self.dropout, deterministic,
                                             generator)
-        ctx = attention_packed(self.q_lin(x), self.k_lin(x), self.v_lin(x),
-                               kv_mask, self.n_heads, causal=causal,
-                               dropout_rate=rate, dropout_seed=seed)
+        ctx = attention(self.q_lin(x), self.k_lin(x), self.v_lin(x),
+                        kv_mask, self.n_heads, causal=causal,
+                        dropout_rate=rate, dropout_seed=seed)
         return self.out_lin(ctx)
 
 

@@ -2,7 +2,9 @@
 
 The port has the single-stream joint topology (`encode_joint`) and the ITM
 head (`itm_score`): the path that serves pair scoring and retrieval and, in
-training mode, the ITM retrieval fine-tune step.  The module tree mirrors
+training mode, the ITM retrieval fine-tune step; and the text stream
+(`embed_text`, `encode_text` on the non-causal, no-cache path) with the
+tied word head (`word_logits`): the xMLM step.  The module tree mirrors
 the JAX parameter tree (``text_emb``, ``image_emb``, ``refiner``,
 ``block_<i>``, the heads), so a JAX checkpoint loads strictly.
 """
@@ -114,6 +116,46 @@ class M3PModel(nn.Module):
         for block in self.blocks:
             x = block(x, joint_mask, False, *rng)
         return x
+
+    def embed_text(self, tokens: torch.Tensor, text_mask: torch.Tensor,
+                   langs: Optional[torch.Tensor] = None,
+                   positions: Optional[torch.Tensor] = None,
+                   deterministic: bool = True,
+                   generator: Optional[Generators] = None) -> torch.Tensor:
+        """Word + position (+ language) embeddings, LN and dropout, then
+        the padding zeroed: the pre-block half of `encode_text`
+        (`m3p_tpu/model/transformer.py:147-167`, without the BiDAF image
+        fusion)."""
+        x = self.text_emb(tokens, positions, langs, deterministic, generator)
+        return x * text_mask[..., None].to(x.dtype)
+
+    def encode_text(self, tokens: torch.Tensor, text_mask: torch.Tensor,
+                    langs: Optional[torch.Tensor] = None,
+                    positions: Optional[torch.Tensor] = None,
+                    deterministic: bool = True,
+                    generator: Optional[Generators] = None) -> torch.Tensor:
+        """The text stream (`m3p_tpu/model/transformer.py:169-191`) on the
+        path `mlm_loss` takes: non-causal, no cache, no source encoding.
+        (B, S) tokens -> (B, S, D).  Self-attention takes the packed
+        kernels up to 512 tokens and the flash kernels above."""
+        if not deterministic and generator is None:
+            raise ValueError("encode_text(deterministic=False) needs "
+                             "generators")
+        x = self.embed_text(tokens, text_mask, langs, positions,
+                            deterministic, generator)
+        for block in self.blocks:
+            x = block(x, text_mask, False, deterministic, generator)
+        return x
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.text_emb.embed_tokens(tokens)
+
+    def word_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(..., D) -> (..., n_words) through the tied word table and the
+        per-word bias (`m3p_tpu/model/transformer.py:347-354`)."""
+        table = (self.text_emb.word.weight if self.cfg.share_inout_emb
+                 else None)
+        return self.pred_layer(hidden, embedding=table)
 
     def itm_score(self, hidden: torch.Tensor) -> torch.Tensor:
         """(B, S, D) -> (B, 1) image-text matching score (token 0 pooled)."""

@@ -2,15 +2,24 @@
 
 * `mha_reference` — (B, H, S, D) attention with an fp32 softmax, the
   numerical ground truth of the JAX package.
-* `attention_packed_reference` / `attention_packed_bwd_reference` — the
-  plain PyTorch versions of the packed kernels: q/k/v/out in the projection
-  layout (B, S, H*Dh), attention-weight dropout from the Philox keep mask of
-  `ops/philox.py`.
+* `attention_flash_reference` — the plain PyTorch forward of every
+  attention kernel (also named `attention_packed_reference`): q/k/v/out in
+  the projection layout (B, S, H*Dh), attention-weight dropout from the
+  Philox keep mask of `ops/philox.py`, query rows in chunks.
+* `attention_packed_bwd_reference` — the plain backward of the packed
+  kernel (recomputes the softmax), `attention_flash_bwd_reference` that of
+  the flash kernel (from the forward's output and row statistics).
 * `attention_packed` — the differentiable, dispatching wrapper, and
   `attention_packed_bwd`, its dispatching backward.  CPU tensors take the
   plain forward and backward; CUDA tensors launch `csrc/packed_attention.cu`
   (replaces the Pallas `_packed_fwd_kernel`) and `csrc/packed_attention_bwd.cu`
   (replaces `_packed_bwd_kernel`).  Anything else raises.
+* `attention_flash` / `attention_flash_bwd` — the dispatching wrappers over
+  `csrc/flash_attention.cu` (replaces the Pallas `_flash_kernel`) and
+  `csrc/flash_attention_bwd.cu` (replaces `_flash_bwd_dkv_kernel` and
+  `_flash_bwd_dq_kernel`).
+* `attention` — the model's entry: packed kernels up to MAX_SEQ, flash
+  kernels above, as the JAX module dispatches.
 
 Masking follows the JAX package: a masked score becomes the finite value
 -0.7 * float32 max, so a row with no valid key averages v instead of giving
@@ -35,14 +44,17 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _attended(kv_mask: Optional[torch.Tensor], causal: bool, sq: int,
-              sk: int, device) -> Optional[torch.Tensor]:
-    """Bool (B or 1, 1, Sq, Sk), True where a query attends to a key, or
-    None when nothing is masked."""
+              sk: int, device, r0: int = 0,
+              r1: Optional[int] = None) -> Optional[torch.Tensor]:
+    """Bool (B or 1, 1, r1 - r0, Sk), True where query rows r0 .. r1 - 1
+    (all Sq rows by default) attend to a key, or None when nothing is
+    masked."""
     valid = None
     if kv_mask is not None:
         valid = kv_mask.bool()[:, None, None, :]
     if causal:
-        qi = torch.arange(sq, device=device)[:, None] + (sk - sq)
+        r1 = sq if r1 is None else r1
+        qi = torch.arange(r0, r1, device=device)[:, None] + (sk - sq)
         ki = torch.arange(sk, device=device)[None, :]
         tri = (ki <= qi)[None, None]
         valid = tri if valid is None else valid & tri
@@ -103,37 +115,85 @@ def _scale(sm_scale: Optional[float], dh: int) -> float:
     return sm_scale if sm_scale is not None else 1.0 / (dh ** 0.5)
 
 
-def attention_packed_reference(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor,
-                               kv_mask: Optional[torch.Tensor],
-                               n_heads: int, causal: bool = False,
-                               sm_scale: Optional[float] = None,
-                               dropout_rate: float = 0.0,
-                               dropout_seed: Optional[int] = None
-                               ) -> torch.Tensor:
-    """Plain version of the packed forward: q (B, Sq, H*Dh), k/v
-    (B, Sk, H*Dh) -> (B, Sq, H*Dh); head h is columns h*Dh:(h+1)*Dh.
+# query rows per pass of the plain versions: bounds their (B, H, rows, Sk)
+# temporaries (fp32, and the int64 Philox words at rate > 0)
+FLASH_ROW_CHUNK = 512
 
-    With ``dropout_rate`` > 0 the weights of tile b*H + h lose the entries
-    the Philox mask drops and the output is scaled by 1/(1 - rate), as in
-    `_packed_fwd_kernel` (`m3p_tpu/ops/attention.py:1016-1033`)."""
+
+def _flash_scores(q, k, kv_mask, n_heads, causal, scale, r0, r1):
+    """Masked fp32 scores (B, H, r1 - r0, Sk) of query rows r0 .. r1 - 1
+    and the attend mask of those rows (or None)."""
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    dh = hd // n_heads
+    qh = q[:, r0:r1].reshape(b, r1 - r0, n_heads, dh)
+    kh = k.reshape(b, sk, n_heads, dh)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float()) * scale
+    valid = _attended(kv_mask, causal, sq, sk, q.device, r0, r1)
+    if valid is not None:
+        s = s.masked_fill(~valid, DEFAULT_MASK_VALUE)
+    return s, valid
+
+
+def _flash_keep(dropout_seed, dropout_rate, b, n_heads, r0, r1, sk, device):
+    """The Philox keep mask of rows r0 .. r1 - 1 of every (batch, head)
+    tile: (B, H, r1 - r0, Sk), the same bits the packed kernels draw."""
+    return keep_mask_tiles(dropout_seed, b * n_heads, r1 - r0, sk,
+                           dropout_rate, device, first_row=r0).view(
+        b, n_heads, r1 - r0, sk)
+
+
+def attention_flash_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              kv_mask: Optional[torch.Tensor], n_heads: int,
+                              causal: bool = False,
+                              sm_scale: Optional[float] = None,
+                              dropout_rate: float = 0.0,
+                              dropout_seed: Optional[int] = None,
+                              return_stats: bool = False):
+    """Plain version of the flash forward, in the packed layout: q
+    (B, Sq, H*Dh), k/v (B, Sk, H*Dh) -> (B, Sq, H*Dh) in v's dtype, any
+    lengths.  The math of `mha_reference` (masked scores take the finite
+    mask value, so a row without any valid key averages v over Sk) plus
+    the Philox keep mask of tile b*H + h over the global (row, col) with
+    the 1/(1 - rate) scale; the weights are rounded to v's dtype before
+    P.V, which sums in fp32.  Query rows go in chunks of FLASH_ROW_CHUNK.
+
+    ``return_stats`` also returns the per-row softmax statistics (B, H,
+    Sq, 2) fp32: the row max m and the sum l of exp(s - m), which
+    `attention_flash_bwd` reads (the (l, m) residuals of
+    `m3p_tpu/ops/attention.py:313`)."""
     _check_dropout(dropout_rate, dropout_seed)
     b, sq, hd = q.shape
     sk = k.shape[1]
     dh = hd // n_heads
-    weights = _probs(q, k, kv_mask, n_heads, causal, _scale(sm_scale, dh))
-    if dropout_rate > 0.0:
-        keep = _keep(dropout_seed, dropout_rate, b, n_heads, sq, sk, q.device)
-        weights = weights.masked_fill(~keep, 0.0)
-    vh = v.reshape(b, sk, n_heads, dh)
-    if dropout_rate > 0.0:
-        # fp32 sums and one rounding after the 1/(1 - rate) scale, as the
-        # Pallas kernel's dot with preferred_element_type=float32
-        out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(),
-                           vh.float()) * (1.0 / (1.0 - dropout_rate))
-        return out.to(v.dtype).reshape(b, sq, hd)
-    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), vh)
-    return out.reshape(b, sq, hd)
+    scale = _scale(sm_scale, dh)
+    inv = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0.0 else 1.0
+    vh = v.reshape(b, sk, n_heads, dh).float()
+    out = torch.empty((b, sq, hd), dtype=v.dtype, device=q.device)
+    stats = torch.empty((b, n_heads, sq, 2), dtype=torch.float32,
+                        device=q.device)
+    for r0 in range(0, sq, FLASH_ROW_CHUNK):
+        r1 = min(sq, r0 + FLASH_ROW_CHUNK)
+        s, _ = _flash_scores(q, k, kv_mask, n_heads, causal, scale, r0, r1)
+        m = s.amax(-1, keepdim=True)
+        e = torch.exp(s - m)
+        l = e.sum(-1, keepdim=True)
+        p = e / l
+        if dropout_rate > 0.0:
+            keep = _flash_keep(dropout_seed, dropout_rate, b, n_heads, r0, r1,
+                               sk, q.device)
+            p = p.masked_fill(~keep, 0.0)
+        o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vh) * inv
+        out[:, r0:r1] = o.reshape(b, r1 - r0, hd).to(v.dtype)
+        stats[:, :, r0:r1, 0] = m[..., 0]
+        stats[:, :, r0:r1, 1] = l[..., 0]
+    return (out, stats) if return_stats else out
+
+
+# The packed kernels compute the same function on shorter sequences: their
+# plain version is this one.
+attention_packed_reference = attention_flash_reference
 
 
 def attention_packed_bwd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -199,39 +259,42 @@ def attention_packed_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_kernel_args(q, k, v, kv_mask, n_heads):
+def _check_kernel_args(q, k, v, kv_mask, n_heads, max_seq=MAX_SEQ,
+                       what="attention_packed"):
+    """Raise on what the kernels do not take; ``max_seq`` None = any
+    length (the flash kernels)."""
     tensors = (q, k, v) if kv_mask is None else (q, k, v, kv_mask)
     if any(t.device != q.device for t in tensors):
-        raise ValueError("attention_packed: q, k, v and kv_mask must lie on "
-                         "one device")
+        raise ValueError(f"{what}: q, k, v and kv_mask must lie on one "
+                         f"device")
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
-        raise TypeError(f"attention_packed kernel takes float32 or bfloat16 "
-                        f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+        raise TypeError(f"{what} kernel takes float32 or bfloat16 q/k/v of "
+                        f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
-        raise ValueError(f"attention_packed: q (B, Sq, H*Dh) and k/v "
-                         f"(B, Sk, H*Dh) expected, got {tuple(q.shape)}, "
+        raise ValueError(f"{what}: q (B, Sq, H*Dh) and k/v (B, Sk, H*Dh) "
+                         f"expected, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, hd = q.shape
     sk = k.shape[1]
     if k.shape[0] != b or k.shape[2] != hd or hd % n_heads:
-        raise ValueError(f"attention_packed: shapes {tuple(q.shape)} / "
+        raise ValueError(f"{what}: shapes {tuple(q.shape)} / "
                          f"{tuple(k.shape)} do not fit {n_heads} heads")
     if hd // n_heads > MAX_HEAD_DIM:
-        raise ValueError(f"attention_packed kernel: head dim "
-                         f"{hd // n_heads} > {MAX_HEAD_DIM}")
-    if not (0 < sq <= MAX_SEQ and 0 < sk <= MAX_SEQ):
-        raise ValueError(f"attention_packed kernel: Sq={sq}, Sk={sk} outside "
-                         f"1..{MAX_SEQ}")
+        raise ValueError(f"{what} kernel: head dim {hd // n_heads} > "
+                         f"{MAX_HEAD_DIM}")
+    limit = max_seq if max_seq is not None else 2 ** 31 - 1
+    if not (0 < sq <= limit and 0 < sk <= limit):
+        raise ValueError(f"{what} kernel: Sq={sq}, Sk={sk} outside "
+                         f"1..{limit}")
     if b > 65535 or n_heads > 65535:
-        raise ValueError("attention_packed kernel: grid too large")
+        raise ValueError(f"{what} kernel: grid too large")
     if any(t.stride(2) != 1 for t in (q, k, v)):
-        raise ValueError("attention_packed kernel: the last dimension of "
-                         "q/k/v must be contiguous")
+        raise ValueError(f"{what} kernel: the last dimension of q/k/v must "
+                         f"be contiguous")
     if kv_mask is not None and tuple(kv_mask.shape) != (b, sk):
-        raise ValueError(f"attention_packed: kv_mask shape "
-                         f"{tuple(kv_mask.shape)} != {(b, sk)}")
+        raise ValueError(f"{what}: kv_mask shape {tuple(kv_mask.shape)} != "
+                         f"{(b, sk)}")
 
 
 def _bind(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
@@ -415,3 +478,269 @@ def attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 attention_packed.launches = 0
 attention_packed.bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention: any sequence length
+# ---------------------------------------------------------------------------
+
+def flash_row_dot(o: torch.Tensor, do: torch.Tensor,
+                  n_heads: int) -> torch.Tensor:
+    """di = rowsum(dO . O) per head, fp32 (B, Sq, H): the one torch op of
+    the flash backward (an XLA op outside the Pallas calls in
+    `m3p_tpu/ops/attention.py:573`)."""
+    b, sq, hd = o.shape
+    return (o.float() * do.float()).view(b, sq, n_heads,
+                                         hd // n_heads).sum(-1)
+
+
+def attention_flash_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  kv_mask: Optional[torch.Tensor],
+                                  o: torch.Tensor, stats: torch.Tensor,
+                                  do: torch.Tensor, n_heads: int,
+                                  causal: bool = False,
+                                  sm_scale: Optional[float] = None,
+                                  dropout_rate: float = 0.0,
+                                  dropout_seed: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the flash backward: (dq, dk, dv) in the layouts and
+    dtypes of q, k, v, from the forward's output ``o`` and ``stats``.  The
+    math of `_recompute_p_ds` and the dkv/dq kernels
+    (`m3p_tpu/ops/attention.py:424-542`), with inv = 1/(1 - rate):
+
+        p  = exp(s - m) / l          dp = dO V^T        di = rowsum(dO . O)
+        pd = keep . p . inv          ds = p . (keep . dp . inv - di)
+        dv = pd^T dO                 dk = scale ds^T q  dq = scale ds k
+
+    The products take operands rounded to the input type (pd and ds
+    included) and sum in fp32.  A masked score gets no gradient (ds = 0),
+    as in the vjp of `mha_reference`; query rows go in chunks."""
+    _check_dropout(dropout_rate, dropout_seed)
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    dh = hd // n_heads
+    scale = _scale(sm_scale, dh)
+    inv = 1.0 / (1.0 - dropout_rate) if dropout_rate > 0.0 else 1.0
+    kh, vh = (t.reshape(b, sk, n_heads, dh).float() for t in (k, v))
+    di_all = flash_row_dot(o, do, n_heads)
+    dq = torch.empty((b, sq, hd), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, sk, n_heads, dh), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.zeros_like(dk)
+
+    def rounded(x, dtype):
+        return x.to(dtype).float()
+
+    for r0 in range(0, sq, FLASH_ROW_CHUNK):
+        r1 = min(sq, r0 + FLASH_ROW_CHUNK)
+        n = r1 - r0
+        s, valid = _flash_scores(q, k, kv_mask, n_heads, causal, scale, r0,
+                                 r1)
+        st = stats[:, :, r0:r1]
+        p = torch.exp(s - st[..., 0:1]) / st[..., 1:2]
+        qh = q[:, r0:r1].reshape(b, n, n_heads, dh).float()
+        doh = do[:, r0:r1].reshape(b, n, n_heads, dh).to(v.dtype).float()
+        di = di_all[:, r0:r1].permute(0, 2, 1)[..., None]
+        dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
+        if dropout_rate > 0.0:
+            keep = _flash_keep(dropout_seed, dropout_rate, b, n_heads, r0, r1,
+                               sk, q.device)
+            pd = torch.where(keep, p * inv, 0.0)
+            dpd = torch.where(keep, dp * inv, 0.0)
+        else:
+            pd, dpd = p, dp
+        ds = p * (dpd - di)
+        if valid is not None:
+            ds = ds.masked_fill(~valid, 0.0)
+        dv += torch.einsum("bhqk,bqhd->bkhd", rounded(pd, do.dtype), doh)
+        dk += torch.einsum("bhqk,bqhd->bkhd", rounded(ds, q.dtype), qh) \
+            * scale
+        dq[:, r0:r1] = (torch.einsum("bhqk,bkhd->bqhd", rounded(ds, k.dtype),
+                                     kh) * scale).reshape(b, n, hd)
+    return (dq.to(q.dtype), dk.reshape(b, sk, hd).to(k.dtype),
+            dv.reshape(b, sk, hd).to(v.dtype))
+
+
+_FLASH_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+_FLASH_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 14
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+
+
+def _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
+                      dropout_seed) -> Tuple[torch.Tensor, torch.Tensor]:
+    fn = _bind("flash_attention", "m3p_flash_attention_fwd",
+               _FLASH_FWD_ARGTYPES)
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
+    stats = torch.empty((b, n_heads, sq, 2), dtype=torch.float32,
+                        device=q.device)
+    mask = _kernel_mask(kv_mask)
+    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), None if mask is None else mask.data_ptr(),
+                 out.data_ptr(), stats.data_ptr(), b, sq, sk, n_heads,
+                 hd // n_heads, q.stride(0), q.stride(1), k.stride(0),
+                 k.stride(1), v.stride(0), v.stride(1), out.stride(0),
+                 out.stride(1), float(scale), int(bool(causal)), float(inv),
+                 threshold, seed, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    attention_flash.launches += 1
+    return out, stats
+
+
+def _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal, scale,
+                      dropout_rate, dropout_seed) -> Tuple[torch.Tensor, ...]:
+    """di = rowsum(dO . O) as one torch op, then two launches: dk/dv (one
+    block per 64 keys), then dq (one block per 64 queries)."""
+    fn = _bind("flash_attention_bwd", "m3p_flash_attention_bwd",
+               _FLASH_BWD_ARGTYPES)
+    b, sq, hd = q.shape
+    sk = k.shape[1]
+    di = flash_row_dot(o, do, n_heads).contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    mask = _kernel_mask(kv_mask)
+    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), do.data_ptr(),
+            stats.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, sq, sk, n_heads, hd // n_heads,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), do.stride(0), do.stride(1),
+            dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
+            dv.stride(0), dv.stride(1),
+            float(scale), int(bool(causal)), float(inv), threshold, seed)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        for phase in (0, 1):
+            err = fn(_KERNEL_DTYPES[q.dtype], phase, *args, stream)
+            if err != 0:
+                raise RuntimeError(f"flash_attention backward kernel "
+                                   f"(phase {phase}) launch failed: CUDA "
+                                   f"error {err}")
+            attention_flash.bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the `jax.custom_vjp` at
+    `m3p_tpu/ops/attention.py:894-921`: saves q, k, v, the key mask, the
+    output and the (m, l) row statistics (never p or the mask); the
+    backward recomputes p from them and regenerates the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
+                dropout_seed):
+        if q.device.type == "cpu":
+            out, stats = attention_flash_reference(
+                q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
+                dropout_seed, return_stats=True)
+        else:
+            out, stats = _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal,
+                                           scale, dropout_rate, dropout_seed)
+        ctx.save_for_backward(q, k, v, kv_mask, out, stats)
+        ctx.config = (n_heads, causal, scale, dropout_rate, dropout_seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, out, stats = ctx.saved_tensors
+        grads = attention_flash_bwd(q, k, v, kv_mask, out, stats, do,
+                                    *ctx.config)
+        return (*grads, None, None, None, None, None, None)
+
+
+def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_mask: Optional[torch.Tensor], n_heads: int,
+                    causal: bool = False, sm_scale: Optional[float] = None,
+                    dropout_rate: float = 0.0,
+                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Flash attention in the packed layout, any lengths: q (B, Sq, H*Dh),
+    k/v (B, Sk, H*Dh), kv_mask (B, Sk) True = attend -> (B, Sq, H*Dh);
+    differentiable in q, k and v.  ``causal`` aligns the diagonal at the
+    end (key j attends to query i when j <= i + Sk - Sq).
+
+    CPU tensors go through the plain forward and backward; CUDA tensors
+    launch `csrc/flash_attention.cu` (replaces the Pallas `_flash_kernel`)
+    and `csrc/flash_attention_bwd.cu` (replaces `_flash_bwd_dkv_kernel`
+    and `_flash_bwd_dq_kernel`), adding one to ``attention_flash.launches``
+    per forward launch and to ``attention_flash.bwd_launches`` per
+    backward launch (two per backward), or raise."""
+    _check_dropout(dropout_rate, dropout_seed)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention_flash: no kernel for device {q.device}")
+    if q.device.type == "cuda":
+        _check_kernel_args(q, k, v, kv_mask, n_heads, None, "attention_flash")
+    scale = _scale(sm_scale, q.shape[-1] // n_heads)
+    return _FlashAttention.apply(q, k, v, kv_mask, n_heads, bool(causal),
+                                 scale, float(dropout_rate), dropout_seed)
+
+
+def attention_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor], o: torch.Tensor,
+                        stats: torch.Tensor, do: torch.Tensor, n_heads: int,
+                        causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of `attention_flash` from its output ``o`` and row
+    statistics ``stats``: the plain backward for CPU tensors, the backward
+    kernel (two launches) for CUDA tensors, else raise."""
+    _check_dropout(dropout_rate, dropout_seed)
+    scale = _scale(sm_scale, q.shape[-1] // n_heads)
+    if q.device.type == "cpu":
+        return attention_flash_bwd_reference(q, k, v, kv_mask, o, stats, do,
+                                             n_heads, causal, scale,
+                                             dropout_rate, dropout_seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_flash_bwd: no kernel for device "
+                         f"{q.device}")
+    _check_kernel_args(q, k, v, kv_mask, n_heads, None, "attention_flash")
+    b, sq, hd = q.shape
+    if do.shape != q.shape or o.shape != q.shape or do.device != q.device:
+        raise ValueError(f"attention_flash_bwd: do {tuple(do.shape)} / o "
+                         f"{tuple(o.shape)} do not match q {tuple(q.shape)}")
+    if stats.shape != (b, n_heads, sq, 2) or stats.dtype != torch.float32 \
+            or not stats.is_contiguous():
+        raise ValueError("attention_flash_bwd: stats must be a contiguous "
+                         "(B, H, Sq, 2) float32 tensor")
+    do = do.to(q.dtype)
+    if do.stride(2) != 1:
+        do = do.contiguous()
+    return _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal,
+                             scale, dropout_rate, dropout_seed)
+
+
+attention_flash.launches = 0
+attention_flash.bwd_launches = 0
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_mask: Optional[torch.Tensor], n_heads: int,
+              causal: bool = False, sm_scale: Optional[float] = None,
+              dropout_rate: float = 0.0,
+              dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """The model's attention entry in the packed layout, dispatching by
+    length as the JAX module does (`m3p_tpu/model/layers.py:266-308`,
+    `m3p_tpu/ops/attention.py:934-988`): the packed kernels when Sq and Sk
+    are at most MAX_SEQ, the flash kernels above, attention dropout inside
+    either."""
+    if q.shape[1] <= MAX_SEQ and k.shape[1] <= MAX_SEQ:
+        fn = attention_packed
+    else:
+        fn = attention_flash
+    return fn(q, k, v, kv_mask, n_heads, causal, sm_scale, dropout_rate,
+              dropout_seed)

@@ -80,13 +80,14 @@ def keep_threshold(rate: float) -> int:
 
 def keep_mask_tiles(seed: int, n_tiles: int, sq: int, sk: int, rate: float,
                     device: Union[str, torch.device] = "cpu",
-                    first_tile: int = 0) -> torch.Tensor:
-    """Keep masks of the tiles first_tile .. first_tile + n_tiles - 1:
-    bool (n_tiles, sq, sk)."""
+                    first_tile: int = 0, first_row: int = 0) -> torch.Tensor:
+    """Keep masks of the tiles first_tile .. first_tile + n_tiles - 1, rows
+    first_row .. first_row + sq - 1: bool (n_tiles, sq, sk)."""
     k0, k1 = seed_key(seed)
     sk4 = -(-sk // 4)
     col4 = torch.arange(sk4, device=device, dtype=torch.int64)[None, None, :]
-    row = torch.arange(sq, device=device, dtype=torch.int64)[None, :, None]
+    row = torch.arange(first_row, first_row + sq, device=device,
+                       dtype=torch.int64)[None, :, None]
     tile = torch.arange(first_tile, first_tile + n_tiles, device=device,
                         dtype=torch.int64)[:, None, None]
     words = philox4x32(col4, row, tile, 0, k0, k1)

@@ -11,16 +11,20 @@ with optax's semantics: moments ``mu = b1 mu + (1 - b1) g`` and ``nu = b2 nu
 square root, and the learning rate read at the pre-increment step count.
 The step count lives on the host, so the schedule costs no device sync.
 
-Not in the port yet (raise NotImplementedError): ``fused=1`` (`FusedAdam`,
-bf16 moments and the fp32 master wait for the MCT pre-training slice),
-``mu_dtype``/``nu_dtype``, weight decay, gradient accumulation and the
+``fused=1`` builds `FusedAdam` (`m3p_tpu/train/optim.py:114-201`), the same
+update in one elementwise pass per parameter, with ``mu_dtype``/
+``nu_dtype`` moment storage and, with ``master=1``, bf16 live parameters
+over an fp32 master copy in the optimizer state.
+
+Not in the port yet (raise NotImplementedError): ``mu_dtype``/``nu_dtype``
+without ``fused=1``, weight decay, gradient accumulation and the
 sgd/adagrad/rmsprop specs.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -101,6 +105,19 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
+def optax_global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``optax.global_norm`` in the gradients' own dtype, rounding where it
+    rounds: each leaf's squares in its dtype, their sum (taken in fp32)
+    rounded back, the leaves' sums added one by one in that dtype, the
+    square root in it.  With bf16 gradients this differs from the fp32 norm
+    by up to a bf16 step, which the JAX `FusedAdam` clip inherits."""
+    total = None
+    for g in grads:
+        leaf = (g * g).float().sum().to(g.dtype)
+        total = leaf if total is None else total + leaf
+    return torch.sqrt(total)
+
+
 class Adam:
     """clip_by_global_norm(clip_norm) -> adam(schedule, b1, b2, eps), as
     optax composes them; ``guard_nonfinite`` puts `skip_nonfinite` first."""
@@ -149,10 +166,113 @@ class Adam:
                             alpha=-self.schedule(step))
 
 
+class FusedAdam:
+    """clip_by_global_norm(clip_norm) -> adam(schedule, b1, b2, eps) in one
+    elementwise pass per parameter (`m3p_tpu/train/optim.py:114-201`):
+    each leaf reads its gradient, moments and parameter (or fp32 master)
+    once, computes in fp32, and writes them back, the moments rounded to
+    ``mu_dtype``/``nu_dtype`` (None = the parameter's dtype).
+
+    ``master=True``: `create_train_state` stores the live parameters in
+    bf16 (``param_store_dtype``), the fp32 master sits in the state, and
+    the update applies to the master and rounds it into the live
+    parameter, as the JAX class does.  The clip's global norm and scale
+    are taken in the gradients' dtype (bf16 under ``master``), as
+    ``optax.global_norm`` takes them (`optax_global_norm`)."""
+
+    def __init__(self, schedule: Callable[[int], float], beta1: float = 0.9,
+                 beta2: float = 0.999, eps: float = 1e-8,
+                 clip_norm: float = 0.0,
+                 mu_dtype: Optional[torch.dtype] = None,
+                 nu_dtype: Optional[torch.dtype] = None,
+                 master: bool = False):
+        self.schedule = schedule
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.eps = eps
+        self.clip_norm = clip_norm
+        self.mu_dtype = mu_dtype
+        self.nu_dtype = nu_dtype
+        self.master = master
+        self.param_store_dtype = torch.bfloat16 if master else None
+
+    def init(self, params: Sequence[torch.Tensor]) -> Dict[str, Any]:
+        state = {
+            "mu": [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                   for p in params],
+            "nu": [torch.zeros_like(p, dtype=self.nu_dtype or p.dtype)
+                   for p in params]}
+        if self.master:
+            state["master"] = [p.detach().float().clone() for p in params]
+        return state
+
+    @torch.no_grad()
+    def apply(self, params: Sequence[torch.Tensor],
+              grads: Sequence[torch.Tensor], state: Dict[str, Any],
+              step: int) -> None:
+        """Update ``params``, the moments and the master in place (the
+        JAX ``fused_apply``); ``step`` is the number of earlier updates:
+        the schedule reads it, bias correction uses t = step + 1."""
+        b1, b2 = self.beta1, self.beta2
+        t = step + 1
+        g32 = [g.float() for g in grads]
+        if self.clip_norm and self.clip_norm > 0:
+            norm = optax_global_norm(grads)
+            scale = torch.where(norm > self.clip_norm, self.clip_norm / norm,
+                                torch.ones_like(norm))
+            g32 = torch._foreach_mul(g32, scale.float())
+        m32 = torch._foreach_mul([m.float() for m in state["mu"]], b1)
+        torch._foreach_add_(m32, g32, alpha=1.0 - b1)
+        v32 = torch._foreach_mul([v.float() for v in state["nu"]], b2)
+        torch._foreach_addcmul_(v32, g32, g32, value=1.0 - b2)
+        denom = torch._foreach_div(v32, 1.0 - b2 ** t)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(m32, 1.0 - b1 ** t)
+        torch._foreach_mul_(upd, self.schedule(step))
+        torch._foreach_div_(upd, denom)
+        targets = state["master"] if self.master else list(params)
+        torch._foreach_sub_(targets, [u.to(p.dtype)
+                                      for u, p in zip(upd, targets)])
+        torch._foreach_copy_(state["mu"], m32)
+        torch._foreach_copy_(state["nu"], v32)
+        if self.master:
+            torch._foreach_copy_(list(params), targets)
+
+
+_MOMENT_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                  "float32": None, None: None}
+
+
+def _build_fused(name: str, kw: Dict[str, Any], lr: float, beta1: float,
+                 beta2: float, eps: float, clip_grad_norm: float
+                 ) -> Tuple[FusedAdam, Callable[[int], float]]:
+    """The ``fused=1`` branch of `m3p_tpu/train/optim.py:229-250`."""
+    if name == "adam_inverse_sqrt":
+        schedule = inverse_sqrt_schedule(
+            lr, warmup_updates=int(kw.pop("warmup_updates", 4000)),
+            warmup_init_lr=kw.pop("warmup_init_lr", 1e-7),
+            exp_factor=kw.pop("exp_factor", 0.5))
+    elif name == "adam_cosine":
+        schedule = cosine_schedule(
+            lr, warmup_updates=int(kw.pop("warmup_updates", 4000)),
+            warmup_init_lr=kw.pop("warmup_init_lr", 1e-7))
+    elif name == "adam":
+        schedule = lambda step: lr  # noqa: E731
+    else:
+        raise ValueError(f"fused=1 supports adam variants, not {name!r}")
+    tx = FusedAdam(schedule, beta1=beta1, beta2=beta2, eps=eps,
+                   clip_norm=clip_grad_norm,
+                   mu_dtype=_MOMENT_DTYPES[kw.pop("mu_dtype", None)],
+                   nu_dtype=_MOMENT_DTYPES[kw.pop("nu_dtype", None)],
+                   master=bool(kw.pop("master", 0)))
+    return tx, schedule
+
+
 def build_optimizer(spec: str, clip_grad_norm: float = 0.0,
                     accumulate_gradients: int = 1, weight_decay: float = 0.0,
                     guard_nonfinite: bool = False
-                    ) -> Tuple[Adam, Callable[[int], float]]:
+                    ) -> Tuple[Union[Adam, FusedAdam], Callable[[int], float]]:
     """The optimizer of a reference-style spec string and its learning-rate
     schedule (exposed for logging)."""
     name, kw = parse_optim_spec(spec)
@@ -160,8 +280,13 @@ def build_optimizer(spec: str, clip_grad_norm: float = 0.0,
     beta2 = kw.pop("beta2", 0.999)
     eps = kw.pop("eps", 1e-8)
     lr = kw.pop("lr", 1e-3)
-    unported = [key for key in ("fused", "mu_dtype", "nu_dtype", "master")
-                if key in kw]
+    if kw.pop("fused", 0):
+        if accumulate_gradients > 1 or kw.get("weight_decay", weight_decay) \
+                or guard_nonfinite:
+            raise ValueError("fused=1 composes with plain adam only (no "
+                             "accumulation, weight decay or guard)")
+        return _build_fused(name, kw, lr, beta1, beta2, eps, clip_grad_norm)
+    unported = [key for key in ("mu_dtype", "nu_dtype", "master") if key in kw]
     if kw.pop("weight_decay", weight_decay):
         unported.append("weight_decay")
     if accumulate_gradients > 1:
@@ -169,8 +294,7 @@ def build_optimizer(spec: str, clip_grad_norm: float = 0.0,
     if unported:
         raise NotImplementedError(
             f"the PyTorch port's optimizer does not support {unported} yet "
-            f"(FusedAdam and low-precision moments come with the MCT "
-            f"pre-training slice)")
+            f"(low-precision moments and the master copy need fused=1)")
     if name == "adam_inverse_sqrt":
         schedule = inverse_sqrt_schedule(
             lr, warmup_updates=int(kw.pop("warmup_updates", 4000)),

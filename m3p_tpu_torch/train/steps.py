@@ -1,20 +1,27 @@
 """Loss functions and the train step of the port (counterpart of
 `m3p_tpu/train/steps.py`).
 
-This slice ports the ITM retrieval fine-tune objective (``itm``, the
-reference `t2i_step`/`i2t_step`): CE over each ``sample_n`` candidate grid
-plus a binary CE on every pair's score, over `M3PModel.encode_joint` in
-training mode.  Batches are dicts of tensors on the model's device, shaped
-as `m3p_tpu_torch.data.synthetic.make_retrieval_batch` makes them.
+Ported objectives:
+* ``itm``, the ITM retrieval fine-tune (the reference `t2i_step`/
+  `i2t_step`): CE over each ``sample_n`` candidate grid plus a binary CE on
+  every pair's score, over `M3PModel.encode_joint` in training mode, on
+  batches shaped as `m3p_tpu_torch.data.synthetic.make_retrieval_batch`
+  makes them;
+* ``mlm``, xMLM on a text stream (the reference `mlm_step`): on-device
+  80/10/10 masking into fixed slots, `M3PModel.encode_text`, the tied word
+  head at the gathered slots and `masked_ce`, on batches shaped as
+  `make_stream_batch` makes them.
+Batches are dicts of tensors on the model's device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from m3p_tpu_torch.data.masking import MaskingConfig, mask_tokens
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel, lengths_to_mask
 from m3p_tpu_torch.train.optim import global_norm
@@ -88,6 +95,46 @@ def itm_finetune_loss(model: M3PModel, batch: Batch,
     acc = (grid.argmax(dim=1) == batch["pos_label"].long()).float().mean()
     return loss, {"loss": loss.detach(), "ce": ce.detach(),
                   "bce": bce.detach(), "acc": acc}
+
+
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
+              weights: torch.Tensor) -> torch.Tensor:
+    """Mean CE over the weighted slots, in fp32 (the reference's mean over
+    masked positions; `m3p_tpu/train/steps.py:78-84`)."""
+    ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                         labels.long().clamp_min(0).reshape(-1),
+                         reduction="none").view(labels.shape)
+    return (ce * weights).sum() / weights.sum().clamp_min(1.0)
+
+
+def mlm_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
+             mask_cfg: MaskingConfig, deterministic: bool = False,
+             mask_scores: Optional[torch.Tensor] = None,
+             masking: Optional[Sequence[torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, Metrics]:
+    """xMLM on a text stream (`m3p_tpu/train/steps.py:158-176`): mask the
+    tokens, encode them, score the vocabulary at the masked slots only.
+
+    ``masking`` = (masked tokens, positions, labels, weights) as
+    `mask_tokens` returns them; when None they are drawn on the device from
+    ``generator.device``.  Passing them in lets a caller hold the loss
+    against another implementation's masks."""
+    tokens = batch["tokens"].long()
+    text_mask = lengths_to_mask(batch["lengths"], tokens.shape[1])
+    if masking is None:
+        if generator is None:
+            raise ValueError("mlm_loss needs generators to draw its masking "
+                             "(or the masking passed in)")
+        masking = mask_tokens(generator.device, tokens, text_mask, mask_cfg,
+                              mask_scores)
+    masked, positions, labels, weights = masking
+    hidden = model.encode_text(masked.long(), text_mask, batch.get("langs"),
+                               deterministic=deterministic,
+                               generator=generator)
+    index = positions.long()[..., None].expand(-1, -1, hidden.shape[-1])
+    logits = model.word_logits(hidden.gather(1, index))
+    loss = masked_ce(logits, labels, weights)
+    return loss, {"mlm": loss.detach()}
 
 
 def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Metrics]],

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the packed-attention forward (rate 0 and with Philox dropout) and backward,
-and the mask identity of the two (V = identity).
+the flash-attention forward and backward (any length), and the mask
+identity of each forward/backward pair (V = identity).
 
 This file imports nothing of JAX, so it also runs where only PyTorch is
 installed; the `gpu` tests skip without a CUDA device.  On a machine with
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from m3p_tpu_torch.ops.attention import (
+    attention_flash, attention_flash_bwd_reference, attention_flash_reference,
     attention_packed, attention_packed_bwd_reference,
     attention_packed_reference)
 from m3p_tpu_torch.ops.philox import keep_mask_tiles
@@ -47,6 +49,21 @@ SERVING_CASES = [
 ]
 
 
+# flash cases: several 64-row/64-key tiles, ragged last tiles, Sq != Sk
+# (the causal diagonal offset both ways), a row with no valid key, Dh 16,
+# 64 and 128; the CPU parity tests against the JAX package use them too
+FLASH_CASES = [
+    (2, 2, 16, 200, 200, (200, 71), False),
+    (2, 2, 16, 200, 200, (200, 71), True),
+    (2, 2, 16, 70, 300, (300, 129), True),
+    (2, 2, 16, 300, 70, (70, 0), True),
+    (2, 3, 64, 130, 577, (577, 0), False),
+    (1, 2, 128, 96, 160, (160,), True),
+]
+# the long-context step: B = 8, S = 2048, 12 heads of 64, every key valid
+XMLM_CASE = (8, 12, 64, 2048, 2048, (2048,) * 8, False)
+
+
 def packed_inputs(b, h, dh, sq, sk, lens, seed=0):
     rng = np.random.RandomState(seed)
     q = rng.randn(b, sq, h * dh).astype(np.float32)
@@ -61,14 +78,16 @@ def output_grad(b, h, dh, sq, seed=1):
         np.float32)
 
 
-def check_mask_identity(device, rate=0.25, seed=SEED):
+def check_mask_identity(device, rate=0.25, seed=SEED, attn=attention_packed,
+                        s=64):
     """V = identity: with v = I per head the forward's output is
     inv * keep . p, so its zeros are the keep mask; with dO = I the
     backward's dv^T is the same matrix.  Checks both against the Philox
     mask of the plain version, the keep rate and the 1/(1 - rate) scale,
-    through `attention_packed` on ``device``."""
-    b, h, s = 2, 2, 64
-    lens = (64, 40)
+    through ``attn`` (`attention_packed` or `attention_flash`) on
+    ``device``, at S = ``s`` keys (at most 128)."""
+    b, h = 2, 2
+    lens = (s, s * 5 // 8)
     q, k, _, mask = packed_inputs(b, h, s, s, s, lens, seed=7)
     eye = np.tile(np.eye(s, dtype=np.float32), (b, 1, h))   # (b, s, h*s)
     q, k, v, do = (torch.from_numpy(a).to(device) for a in (q, k, eye, eye))
@@ -76,11 +95,10 @@ def check_mask_identity(device, rate=0.25, seed=SEED):
     q.requires_grad_(True)
     k.requires_grad_(True)
     v.requires_grad_(True)
-    out = attention_packed(q, k, v, mask, h, dropout_rate=rate,
-                           dropout_seed=seed)
+    out = attn(q, k, v, mask, h, dropout_rate=rate, dropout_seed=seed)
     _, _, dv = torch.autograd.grad(out, (q, k, v), do)
     with torch.no_grad():
-        plain = attention_packed(q, k, v, mask, h)
+        plain = attn(q, k, v, mask, h)
     # (b, h, query, key)
     out_h = out.detach().view(b, s, h, s).permute(0, 2, 1, 3)
     dv_h = dv.view(b, s, h, s).permute(0, 2, 3, 1)
@@ -212,3 +230,76 @@ def test_packed_attention_bwd_kernel_bf16_at_training_shapes(cuda_device,
 @pytest.mark.gpu
 def test_kernels_draw_the_plain_versions_mask(cuda_device):
     check_mask_identity(cuda_device)
+
+
+def _flash_grad_check(device, case, dtype, rate, tol):
+    """The flash backward kernel against the plain backward, fed the
+    kernel forward's own output and statistics."""
+    q, k, v, mask, do = _grad_inputs(device, case, dtype)
+    h, causal = case[1], case[-1]
+    seed = SEED if rate else None
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    out = attention_flash(q, k, v, mask, h, causal=causal,
+                          dropout_rate=rate, dropout_seed=seed)
+    before = attention_flash.bwd_launches
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert attention_flash.bwd_launches == before + 2
+    _, stats = attention_flash_reference(q.detach(), k.detach(), v.detach(),
+                                         mask, h, causal, None, rate, seed,
+                                         return_stats=True)
+    want = attention_flash_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                         mask, out.detach(), stats, do, h,
+                                         causal, None, rate, seed)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("b,h,dh,sq,sk,lens,causal", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_version(cuda_device, b, h, dh,
+                                                      sq, sk, lens, causal,
+                                                      rate):
+    q, k, v, mask = _on(cuda_device, packed_inputs(b, h, dh, sq, sk, lens))
+    seed = SEED if rate else None
+    before = attention_flash.launches
+    got = attention_flash(q, k, v, mask, h, causal=causal, dropout_rate=rate,
+                          dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert attention_flash.launches == before + 1
+    want = attention_flash_reference(q, k, v, mask, h, causal, None, rate,
+                                     seed)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_version(cuda_device, case,
+                                                          rate):
+    _flash_grad_check(cuda_device, case, torch.float32, rate, TOL_BWD)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, RATE])
+def test_flash_attention_kernels_bf16_at_the_long_context_shape(cuda_device,
+                                                                rate):
+    b, h, dh, sq, sk, lens, causal = XMLM_CASE
+    q, k, v, mask = _on(cuda_device, packed_inputs(b, h, dh, sq, sk, lens),
+                        torch.bfloat16)
+    seed = SEED if rate else None
+    got = attention_flash(q, k, v, mask, h, dropout_rate=rate,
+                          dropout_seed=seed)
+    torch.cuda.synchronize()
+    want = attention_flash_reference(q, k, v, mask, h, False, None, rate, seed)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL_BF16)
+    _flash_grad_check(cuda_device, XMLM_CASE, torch.bfloat16, rate, TOL_BF16)
+
+
+@pytest.mark.gpu
+def test_flash_kernels_draw_the_plain_versions_mask(cuda_device):
+    check_mask_identity(cuda_device, attn=attention_flash, s=96)

@@ -244,7 +244,7 @@ def test_optimizer_on_fixed_gradients_matches_optax(clip, guard):
 
 def test_optimizer_refuses_what_the_port_lacks():
     for spec, kw in [
-            ("adam,lr=0.1,fused=1", {}),
+            ("adam,lr=0.1,master=1", {}),
             ("adam,lr=0.1,mu_dtype=bfloat16", {}),
             ("adam,lr=0.1,weight_decay=0.01", {}),
             ("adam,lr=0.1", {"accumulate_gradients": 2}),
