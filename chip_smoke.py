@@ -38,10 +38,24 @@ Phases, each of which fails the run if it fails:
      flash kernels: samples/s, tokens/s, step ms, peak memory, launches per
      step (12 flash forward, 24 flash backward, no packed), a profile of
      one step and an MFU reading; fp32 gradients on the card against the
-     CPU at depth 2 and S = 640; a learning check at depth 2.
+     CPU at depth 2 and S = 640; a learning check at depth 2;
+  8. the MCT pre-training step (m3p_tpu_torch.bench's setup, bench.py's:
+     BN = 80 joint sequences of 100 regions + 64 tokens, 12 blocks, 768d,
+     250002 words, dropout and attention dropout 0.1, ITM + MC-MLM + MC-MRM
+     + MRFR, FusedAdam with bf16 moments and an fp32 master, clip 5.0),
+     3 warm-up and 20 timed steps in two configurations: A, bench.py's
+     (use_fused_dropout off), and B, every residual dropout through the
+     fused dropout kernels: samples/s, step ms, peak memory, launches per
+     step (15 packed forward, 30 packed backward, 24 + 24 fused dropout in
+     B, none in A), a profile of one step and an MFU reading; one step of B
+     with CLCM (launches doubled); fp32 gradients of the whole loss on the
+     card against the CPU at depth 2 with CLCM and fused dropout at 0.1
+     (the same seeds and masks on both sides); a learning check at depth 2.
 Phases 2 and 3 hold and time the flash kernels too (fp32 and bf16, rates 0
 and 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
-shape, V = identity).
+shape, V = identity), and the fused dropout kernels (bit for bit against
+their plain versions in fp32 and bf16 at rates 0.1 and 0.5, odd sizes, an
+unaligned view, the MCT shape; x = 1 mask identity).
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 card's name and power limit; before that one JSON line with the kernels.
@@ -57,7 +71,6 @@ import dataclasses
 import functools
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import threading
@@ -67,7 +80,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 KERNELS = ["packed_attention", "packed_attention_bwd", "flash_attention",
-           "flash_attention_bwd"]
+           "flash_attention_bwd", "fused_dropout"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense bf16 tensor rate
 HBM_BYTES_PER_S = 3.35e12
@@ -286,6 +299,17 @@ def check_dropout_and_backward(gen):
     return worst
 
 
+def kernel_tests():
+    """tests/test_torch_kernels.py (it imports no JAX), loaded by path."""
+    import importlib.util
+
+    path = REPO / "tests" / "test_torch_kernels.py"
+    spec = importlib.util.spec_from_file_location("test_torch_kernels", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def check_mask_identity(flash=False):
     """V = identity on the card: the forward kernel's zeros are the plain
     version's Philox mask, and the backward kernel's dv^T (dO = identity)
@@ -293,14 +317,9 @@ def check_mask_identity(flash=False):
     kernels at S = 96 (two key tiles, the second ragged).  The check is
     the one the `gpu` tests run (tests/test_torch_kernels.py, which imports
     no JAX)."""
-    import importlib.util
-
     from m3p_tpu_torch.ops.attention import attention_flash
 
-    path = REPO / "tests" / "test_torch_kernels.py"
-    spec = importlib.util.spec_from_file_location("test_torch_kernels", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
+    module = kernel_tests()
     rate = 0.25
     kw = dict(attn=attention_flash, s=96) if flash else {}
     name = "flash" if flash else "packed"
@@ -373,6 +392,45 @@ def time_kernels(gen):
             f"ms, bound {out[label]['bound_ms']:.4f} ms "
             f"({out[label]['bound_by']})")
     return out
+
+
+def device_ms(fn, iters=50, warmup=5):
+    """Device time per call of ``fn``: the summed device time of every
+    kernel it launches, from torch.profiler over ``iters`` calls.  Unlike
+    `cuda_ms` it does not read the host's pace, which sets the time of
+    back-to-back calls to kernels shorter than their launch cost."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    if total_us <= 0:
+        fail("torch.profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
+def host_us(fn, calls=200):
+    """Host microseconds per call of ``fn`` over ``calls`` calls queued
+    without a synchronize in between."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def in_turns(fn_a, fn_b):
@@ -668,6 +726,8 @@ def measure_serving(engine, base, texts, imgs, queries, rng):
 
 def kernel_group(name: str) -> str:
     low = name.lower()
+    if "fused_dropout" in low:
+        return "fused dropout"
     if "flash_attention_bwd" in low:
         return "flash_attention_bwd"
     if "flash_attention" in low:
@@ -1360,14 +1420,378 @@ def long_learning_check(seed, steps=30):
     return {"first5": first, "last5": last}
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0 or not out.stdout.strip():
-        fail(f"nvidia-smi failed: {out.stderr}")
-    return out.stdout.strip().splitlines()[0]
+# ---------------------------------------------------------------------------
+# phases 2/3 for the fused dropout kernels (#7, #8)
+# ---------------------------------------------------------------------------
+
+
+def check_fused_dropout(gen):
+    """#7 and #8 against their plain versions, bit for bit: fp32 and bf16,
+    rates 0.1 and 0.5, a non-zero residual, sizes that are not a multiple
+    of 4, of 128 or of a block, a view one element into its storage (the
+    scalar path), and the MCT step's residual (80, 164, 768)."""
+    import torch
+
+    from m3p_tpu_torch.ops.dropout import (
+        dropout_add, dropout_add_reference, dropout_scale,
+        dropout_scale_reference)
+
+    shapes = [(4, 33, 130), (1001,), (3, 7), (77, 131),
+              (GROUPS * SAMPLE_N, REGIONS + TEXT_LEN, 768)]
+    worst = {}
+    for shape in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            for rate in (RATE, 0.5):
+                x, res, g = (torch.randn(shape, device="cuda", generator=gen
+                                         ).to(dt) for _ in range(3))
+                x.requires_grad_(True)
+                out = dropout_add(x, res, SEED, rate)
+                (dx,) = torch.autograd.grad(out, (x,), g)
+                scaled = dropout_scale(g, SEED + 1, rate)
+                torch.cuda.synchronize()
+                pairs = (
+                    ("forward", out, dropout_add_reference(
+                        x.detach(), res, SEED, rate)),
+                    ("backward", dx, dropout_scale_reference(g, SEED, rate)),
+                    ("dropout_scale", scaled, dropout_scale_reference(
+                        g, SEED + 1, rate)))
+                for what, got, want in pairs:
+                    err = (got.float() - want.float()).abs().max().item()
+                    if not torch.equal(got, want):
+                        fail(f"fused dropout {what} {shape} {name} rate "
+                             f"{rate}: kernel and plain version differ "
+                             f"(max |diff| {err})")
+                    worst[name] = max(worst.get(name, 0.0), err)
+            log(f"[check] fused_dropout {shape} {name}: #7 forward, #8 "
+                f"backward and dropout_scale equal their plain versions bit "
+                f"for bit at rates {RATE} and 0.5")
+    base = torch.randn(2, 10_001, device="cuda", generator=gen)
+    x, res = base[0, 1:], base[1, 1:]
+    if not torch.equal(dropout_add(x, res, SEED, RATE),
+                       dropout_add_reference(x, res, SEED, RATE)):
+        fail("fused dropout on an unaligned view differs from the plain "
+             "version")
+    # the comparison has teeth: dropout changes the output
+    if torch.equal(dropout_add(x, res, SEED, RATE), res + x):
+        fail("fused dropout leaves residual + x unchanged; check is vacuous")
+    share = kernel_tests().check_fused_dropout_mask_identity("cuda")
+    log(f"[check] fused dropout mask identity (x = 1, residual = 0, rate "
+        f"0.25): forward and backward == plain Philox mask, keep share "
+        f"{share:.4f}")
+    return worst, share
+
+
+def time_fused_dropout(gen):
+    """#7 and #8 at the MCT step's residual (80, 164, 768) bf16, rate 0.1:
+    the kernels, their plain versions, and one library route each:
+    ``residual + F.dropout(x)`` and its autograd backward, each by its
+    device time (`device_ms`); beside it the time of back-to-back calls
+    (`cuda_ms`), which the host's cost per call bounds from below."""
+    import torch
+    import torch.nn.functional as F
+
+    from m3p_tpu_torch.ops.dropout import (
+        dropout_add, dropout_add_reference, dropout_scale,
+        dropout_scale_reference)
+
+    shape = (GROUPS * SAMPLE_N, REGIONS + TEXT_LEN, 768)
+    x, res, g = (torch.randn(shape, device="cuda", generator=gen).to(
+        torch.bfloat16) for _ in range(3))
+    n = x.numel()
+    xl = x.detach().clone().requires_grad_(True)
+    rl = res.detach().clone().requires_grad_(True)
+    lib_out = rl + F.dropout(xl, RATE)
+    calls = {
+        "fwd": lambda: dropout_add(x, res, SEED, RATE),
+        "bwd": lambda: dropout_scale(g, SEED, RATE),
+        "fwd_plain": lambda: dropout_add_reference(x, res, SEED, RATE),
+        "bwd_plain": lambda: dropout_scale_reference(g, SEED, RATE),
+        "fwd_lib": lambda: res + F.dropout(x, RATE),
+        "bwd_lib": lambda: torch.autograd.grad(lib_out, (xl, rl), g,
+                                               retain_graph=True)}
+    dev = {k: device_ms(f, **({"iters": 5, "warmup": 1} if "plain" in k
+                              else {}))
+           for k, f in calls.items()}
+    b2b = {k: cuda_ms(calls[k]) for k in ("fwd", "bwd", "fwd_lib",
+                                           "bwd_lib")}
+    # bytes: x and the residual read, the output written (#7); g read, dx
+    # written (#8); operations: a multiply and an add (#7), a multiply (#8)
+    fwd_bound, fwd_by = bound(3 * n * 2, 2 * n)
+    bwd_bound, bwd_by = bound(2 * n * 2, n)
+    # the host's cost of one wrapper call (the calls return before the
+    # kernels run, so this is host time while the host is the slower side)
+    fwd_host = host_us(lambda: dropout_add(x, res, SEED, RATE))
+    bwd_host = host_us(lambda: dropout_scale(g, SEED, RATE))
+    add_host = host_us(lambda: res + x)
+    dims = {"shape": list(shape), "dtype": "bfloat16", "rate": RATE}
+    fwd = {"ms": dev["fwd"], "plain_ms": dev["fwd_plain"],
+           "library_ms": dev["fwd_lib"], "bound_ms": fwd_bound,
+           "bound_by": fwd_by, "bytes": 3 * n * 2,
+           "ms_back_to_back": b2b["fwd"],
+           "library_ms_back_to_back": b2b["fwd_lib"],
+           "host_us_per_call": fwd_host, "host_us_residual_add": add_host,
+           **dims}
+    bwd = {"ms": dev["bwd"], "plain_ms": dev["bwd_plain"],
+           "library_ms": dev["bwd_lib"], "bound_ms": bwd_bound,
+           "bound_by": bwd_by, "bytes": 2 * n * 2,
+           "ms_back_to_back": b2b["bwd"],
+           "library_ms_back_to_back": b2b["bwd_lib"],
+           "host_us_per_call": bwd_host, **dims}
+    for name, t in (("fused_dropout_fwd (#7)", fwd),
+                    ("fused_dropout_bwd (#8)", bwd)):
+        log(f"[time] {name} {shape} bf16 rate {RATE}, device time: kernel "
+            f"{t['ms']:.4f} ms ({t['bytes'] / t['ms'] / 1e9:.2f} TB/s), "
+            f"plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); back to back "
+            f"(CUDA events) kernel {t['ms_back_to_back']:.4f}, library "
+            f"{t['library_ms_back_to_back']:.4f}; host "
+            f"{t['host_us_per_call']:.1f} us a call (res + x: "
+            f"{add_host:.1f})")
+    return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the MCT pre-training step
+# ---------------------------------------------------------------------------
+
+
+def zero_launch_counts():
+    from m3p_tpu_torch.ops.attention import attention_flash, attention_packed
+    from m3p_tpu_torch.ops.dropout import dropout_add
+
+    for fn in (attention_packed, attention_flash, dropout_add):
+        fn.launches = 0
+        fn.bwd_launches = 0
+
+
+def launch_counts():
+    from m3p_tpu_torch.ops.attention import attention_flash, attention_packed
+    from m3p_tpu_torch.ops.dropout import dropout_add
+
+    return {"packed_fwd": attention_packed.launches,
+            "packed_bwd": attention_packed.bwd_launches,
+            "flash_fwd": attention_flash.launches,
+            "flash_bwd": attention_flash.bwd_launches,
+            "dropout_fwd": dropout_add.launches,
+            "dropout_bwd": dropout_add.bwd_launches}
+
+
+def mct_per_step(cfg, encodes=1):
+    """Launches a step makes: per joint encode, one #1 and one #2 backward
+    (two launches) per block and refiner layer; with fused dropout one #7
+    and one #8 per residual (two a block)."""
+    layers = cfg.n_layers + cfg.refine_layers
+    fused = 2 * cfg.n_layers if cfg.use_fused_dropout else 0
+    return {"packed_fwd": layers * encodes, "packed_bwd": 2 * layers * encodes,
+            "flash_fwd": 0, "flash_bwd": 0, "dropout_fwd": fused * encodes,
+            "dropout_bwd": fused * encodes}
+
+
+def check_launches(what, counts, per_step, n_steps):
+    want = {k: v * n_steps for k, v in per_step.items()}
+    if counts != want:
+        fail(f"{what}: launches {counts} in {n_steps} step(s); expected "
+             f"{per_step} a step")
+
+
+def mct_slice(seed, fused):
+    """The MCT step of m3p_tpu_torch.bench at full size, configuration A
+    (``fused`` False, bench.py's) or B: 3 warm-up and 20 timed steps, the
+    launches of every kernel counted, a profile of one step; for B then one
+    step with CLCM pairs, its launches counted."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch import bench
+
+    label = "B (use_fused_dropout)" if fused else "A (bench.py's)"
+    cfg = bench.bench_config(fused_dropout=fused)
+    t0 = time.time()
+    state, step, gens = bench.setup(cfg, seed, "cuda")
+    batch = bench.make_batch(0, "cuda")
+    watched = {n: p.detach().clone() for n, p in state.model.named_parameters()
+               if n in ("block_0.attn.q_lin.weight", "obj_pred.proj.weight",
+                        "mrfr_head.dense.weight", "text_emb.word.weight")}
+    log(f"[mct {label}] model, FusedAdam state and batch (BN="
+        f"{batch['tokens'].shape[0]}) on the card in {time.time() - t0:.2f} s")
+    per_step = mct_per_step(cfg)
+    # ---- the main path, counted ----
+    zero_launch_counts()
+    numbers = bench.run(state, step, batch, gens)
+    counts = launch_counts()
+    n_steps = numbers["warmup"] + numbers["steps"]
+    # ---- checks ----
+    if not np.isfinite(numbers["losses"]).all():
+        fail(f"MCT {label}: non-finite loss {numbers['losses']}")
+    check_launches(f"MCT {label}", counts, per_step, n_steps)
+    moved = {n: (p.detach().float() - watched[n].float()).abs().max().item()
+             for n, p in state.model.named_parameters() if n in watched}
+    if state.step != n_steps or not all(v > 0 for v in moved.values()):
+        fail(f"MCT {label}: the parameters did not change: {moved}")
+    flops = bench.mct_step_flops(cfg, numbers["bn"])
+    numbers.update({
+        "launches": counts, "launches_per_step": per_step,
+        "flops_per_step": flops, "flops_per_sample": flops / numbers["bn"],
+        "mfu": flops / (numbers["step_ms"] / 1e3) / BF16_FLOPS_PER_S,
+        "loss_first": numbers["losses"][0],
+        "loss_last": numbers["losses"][-1]})
+    del numbers["losses"]
+    log(f"[mct {label}] {n_steps} steps at BN={numbers['bn']}: "
+        f"{numbers['step_ms']:.2f} ms a step (CUDA events, "
+        f"{numbers['steps']} steps), {numbers['samples_per_s']:.1f} "
+        f"samples/s, host wall {numbers['wall_step_ms']:.2f} ms a step, peak "
+        f"memory "
+        f"{numbers['peak_memory_gb']:.2f} GB; launches {counts} = "
+        f"{per_step} x {n_steps}; {flops / 1e12:.3f} TFLOP a step, MFU "
+        f"{numbers['mfu']:.4f} of 989 TF/s; loss "
+        f"{numbers['loss_first']:.4f} -> {numbers['loss_last']:.4f}; max "
+        f"|param change| {moved}")
+    prof = profile_window(f"one MCT step {label}",
+                          lambda: step(state, batch, gens), reps=2)
+    if prof:
+        prof["idle_share_vs_event_step"] = (
+            1.0 - prof["device_busy_ms"] / numbers["step_ms"])
+    numbers["profile"] = prof
+    if fused:
+        clcm = bench.make_batch(1, "cuda", with_clcm=True)
+        # ---- the CLCM variant, counted ----
+        zero_launch_counts()
+        state, m = step(state, clcm, gens)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        per_clcm = mct_per_step(cfg, encodes=2)
+        check_launches("MCT B with CLCM", counts, per_clcm, 1)
+        if not all(torch.isfinite(v).all() for v in m.values()):
+            fail(f"MCT B with CLCM: non-finite metrics {m}")
+        numbers["clcm_step"] = {"launches": counts,
+                                "metrics": {k: v.item()
+                                            for k, v in m.items()}}
+        log(f"[mct {label}] one step with CLCM pairs (S = 100 + 128): "
+            f"launches {counts} = {per_clcm}; metrics "
+            f"{numbers['clcm_step']['metrics']}")
+    return numbers
+
+
+def mct_in_turns(seed):
+    """A against B on one model and state, timed in the order A, B, B, A
+    (3 + 20 steps each, `use_fused_dropout` switched on the blocks between
+    windows): the mean of each one's two readings."""
+    from m3p_tpu_torch import bench
+
+    cfg = bench.bench_config(fused_dropout=True)
+    state, step, gens = bench.setup(cfg, seed, "cuda")
+    batch = bench.make_batch(0, "cuda")
+    readings = {"A": [], "B": []}
+    for label in ("A", "B", "B", "A"):
+        for block in state.model.blocks:
+            block.use_fused_dropout = label == "B"
+        out = bench.run(state, step, batch, gens)
+        readings[label].append({k: out[k] for k in ("step_ms",
+                                                     "peak_memory_gb")})
+    means = {k: sum(r["step_ms"] for r in v) / 2 for k, v in readings.items()}
+    log(f"[mct in turns] A, B, B, A on one model: A {means['A']:.2f} ms a "
+        f"step, B {means['B']:.2f} ms (B/A {means['B'] / means['A']:.4f}); "
+        f"readings {json.dumps(readings)}")
+    return {"step_ms": means, "readings": readings}
+
+
+def compare_mct_grads_with_cpu(seed):
+    """fp32 gradients of mct_pretrain_loss at depth 2 and full width, CLCM
+    on, use_fused_dropout with dropout and attention dropout 0.1, on the
+    card (kernels #1, #2, #7, #8) and on the CPU (plain versions): one coin
+    and masking fed to both, the elementwise masks of the embeddings and
+    the refiner drawn by CPU generators of one seed on both sides, the
+    Philox seeds from host generators of one seed."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.ops.dropout import dropout_add
+    from m3p_tpu_torch.train.steps import mct_draws, mct_pretrain_loss
+
+    cfg = bench.bench_config(fused_dropout=True, n_layers=2,
+                             dtype="float32")
+    cpu_model = build_model(cfg, seed, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = bench.make_batch(seed + 2, "cpu", groups=2, with_clcm=True)
+    draws = mct_draws(torch.Generator().manual_seed(seed), batch,
+                      bench.mask_config(cfg))
+    losses = []              # the card's, then the CPU's
+    dropout_add.launches = dropout_add.bwd_launches = 0
+    for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
+        gens = Generators(torch.Generator().manual_seed(seed + 5),
+                          torch.Generator().manual_seed(seed + 6))
+        moved = {k: ([t.to(dev) for t in v] if isinstance(v, (list, tuple))
+                     else v.to(dev)) for k, v in draws.items()}
+        loss, _ = mct_pretrain_loss(
+            model, {k: t.to(dev) for k, t in batch.items()}, gens,
+            bench.mask_config(cfg), bench.SAMPLE_N,
+            pack_ratio=bench.PACK_RATIO, **moved)
+        loss.backward()
+        losses.append(loss.item())
+    fused = (dropout_add.launches, dropout_add.bwd_launches)
+    if fused != (8, 8):
+        fail(f"the fp32 MCT check launched {fused} fused dropout kernels; "
+             f"expected 8 and 8 (2 blocks x 2 residuals x 2 encodes)")
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    largest = max(g.abs().max().item() for g in cpu_grads.values()
+                  if g is not None)
+    worst, worst_name, leaves = 0.0, "", 0
+    for name, p in gpu_model.named_parameters():
+        want = cpu_grads[name]
+        if (p.grad is None) != (want is None):
+            fail(f"gradient of {name} on one side only")
+        if want is None:
+            continue
+        leaves += 1
+        diff = (p.grad.cpu() - want).abs().max().item()
+        scale = largest if name.endswith("k_lin.bias") else \
+            want.abs().max().item()
+        err = diff / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    log(f"[fp32 grads mct] depth 2, BN={2 * SAMPLE_N}, CLCM on, fused "
+        f"dropout and attention dropout {RATE}: loss card "
+        f"{losses[0]:.6f} vs CPU {losses[1]:.6f}; {leaves} leaves, "
+        f"max relative |card - CPU| = {worst:.3e} ({worst_name}; tolerance "
+        f"{TOL_GRAD_FP32}); fused dropout launches on the card {fused}")
+    if worst > TOL_GRAD_FP32 or abs(losses[0] - losses[1]) > 1e-4:
+        fail("fp32 MCT gradients on the card disagree with the CPU")
+    return worst
+
+
+def mct_learning_check(seed, steps=40):
+    """Depth 2 at full width, BN = 80, one fixed batch, coin and masking,
+    fused dropout on, FusedAdam (bf16 moments, fp32 master) at lr 1e-4: the
+    mean loss of the last 5 steps must be below that of the first 5."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.train.steps import mct_draws
+
+    cfg = bench.bench_config(fused_dropout=True, n_layers=2)
+    state, _, gens = bench.setup(
+        cfg, seed + 3, "cuda", spec="adam,lr=0.0001,fused=1,"
+        "mu_dtype=bfloat16,nu_dtype=bfloat16,master=1")
+    batch = bench.make_batch(seed + 3, "cuda")
+    step = bench.make_step(cfg, **mct_draws(gens.device, batch,
+                                            bench.mask_config(cfg)))
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, gens)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).float().cpu()
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    log(f"[learn mct] depth 2, BN={batch['tokens'].shape[0]}, {steps} steps "
+        f"of FusedAdam lr 1e-4 on one batch and masking, fused dropout: mean "
+        f"loss of the first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+    if not torch.isfinite(losses).all() or not last < first:
+        fail(f"the MCT model did not learn: {losses.tolist()}")
+    return {"first5": first, "last5": last}
+
+
 
 
 def main() -> int:
@@ -1388,7 +1812,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    card = card_line()
+    from m3p_tpu_torch import bench
+
+    card = bench.card()
     log(f"[card] {name} ({card}); torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t_start = time.time()
@@ -1400,9 +1826,11 @@ def main() -> int:
     keep_share = check_mask_identity()
     flash_worst = check_flash_kernels(gen)
     flash_share = check_mask_identity(flash=True)
+    drop_worst, drop_share = check_fused_dropout(gen)
     times = time_kernels(gen)
     train_times = time_training_kernels(gen)
     flash_fwd, flash_bwd = time_flash_kernels(gen)
+    drop_fwd, drop_bwd = time_fused_dropout(gen)
     torch.cuda.empty_cache()
 
     from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
@@ -1428,6 +1856,19 @@ def main() -> int:
     long_ctx["fp32_grad_card_vs_cpu_max_rel"] = compare_long_grads_with_cpu(
         args.seed)
     long_ctx["learning"] = long_learning_check(args.seed)
+    torch.cuda.empty_cache()
+
+    mct = {"A": mct_slice(args.seed, fused=False)}
+    torch.cuda.empty_cache()
+    mct["B"] = mct_slice(args.seed, fused=True)
+    torch.cuda.empty_cache()
+    mct["in_turns"] = mct_in_turns(args.seed)
+    torch.cuda.empty_cache()
+    mct["fp32_grad_card_vs_cpu_max_rel"] = compare_mct_grads_with_cpu(
+        args.seed)
+    mct["learning"] = mct_learning_check(args.seed)
+    mct_a, mct_b = mct["A"]["launches"], mct["B"]["launches"]
+    mct_clcm = mct["B"]["clcm_step"]["launches"]
 
     blocks, refiner = times["blocks"], times["refiner"]
     tblocks, trefiner = train_times["blocks"], train_times["refiner"]
@@ -1436,9 +1877,13 @@ def main() -> int:
         "route": "cuda",
         "source": "m3p_tpu_torch/csrc/packed_attention.cu",
         "replaces": "m3p_tpu/ops/attention.py:1016",
-        "launches": numbers["launches"] + training["launches"]["fwd"],
+        "launches": (numbers["launches"] + training["launches"]["fwd"]
+                     + mct_a["packed_fwd"] + mct_b["packed_fwd"]),
         "launches_by_path": {"serving": numbers["launches"],
-                             "training": training["launches"]["fwd"]},
+                             "training": training["launches"]["fwd"],
+                             "mct_A": mct_a["packed_fwd"],
+                             "mct_B": mct_b["packed_fwd"],
+                             "mct_B_clcm_step": mct_clcm["packed_fwd"]},
         "launches_per_forward": numbers["launches_per_forward"],
         "max_abs_err": max(worst["bfloat16"],
                            worst_train["fwd"]["bfloat16"]),
@@ -1456,7 +1901,12 @@ def main() -> int:
         "route": "cuda",
         "source": "m3p_tpu_torch/csrc/packed_attention_bwd.cu",
         "replaces": "m3p_tpu/ops/attention.py:1036",
-        "launches": training["launches"]["bwd"],
+        "launches": (training["launches"]["bwd"] + mct_a["packed_bwd"]
+                     + mct_b["packed_bwd"]),
+        "launches_by_path": {"training": training["launches"]["bwd"],
+                             "mct_A": mct_a["packed_bwd"],
+                             "mct_B": mct_b["packed_bwd"],
+                             "mct_B_clcm_step": mct_clcm["packed_bwd"]},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "max_abs_err": worst_train["bwd"]["bfloat16"],
         "max_abs_err_fp32": worst_train["bwd"]["float32"],
@@ -1499,6 +1949,35 @@ def main() -> int:
         "library_ms": flash_bwd["library_ms"],
         "ms_rate_0.1": flash_bwd["ms_rate_0.1"],
         "shape": flash_bwd["shape"],
+    }, {
+        "name": "fused_dropout_fwd",
+        "route": "cuda",
+        "source": "m3p_tpu_torch/csrc/fused_dropout.cu",
+        "replaces": "m3p_tpu/ops/dropout.py:35",
+        "launches": mct_b["dropout_fwd"],
+        "launches_per_step": mct["B"]["launches_per_step"]["dropout_fwd"],
+        "launches_clcm_step": mct_clcm["dropout_fwd"],
+        "max_abs_err": drop_worst["bfloat16"],
+        "max_abs_err_fp32": drop_worst["float32"],
+        "ms": drop_fwd["ms"], "plain_ms": drop_fwd["plain_ms"],
+        "bound_ms": drop_fwd["bound_ms"], "bound_by": drop_fwd["bound_by"],
+        "library_ms": drop_fwd["library_ms"],
+        "shape": drop_fwd["shape"],
+        "mask_identity_keep_share": drop_share,
+    }, {
+        "name": "fused_dropout_bwd",
+        "route": "cuda",
+        "source": "m3p_tpu_torch/csrc/fused_dropout.cu",
+        "replaces": "m3p_tpu/ops/dropout.py:43",
+        "launches": mct_b["dropout_bwd"],
+        "launches_per_step": mct["B"]["launches_per_step"]["dropout_bwd"],
+        "launches_clcm_step": mct_clcm["dropout_bwd"],
+        "max_abs_err": drop_worst["bfloat16"],
+        "max_abs_err_fp32": drop_worst["float32"],
+        "ms": drop_bwd["ms"], "plain_ms": drop_bwd["plain_ms"],
+        "bound_ms": drop_bwd["bound_ms"], "bound_by": drop_bwd["bound_by"],
+        "library_ms": drop_bwd["library_ms"],
+        "shape": drop_bwd["shape"],
     }]}
     serving = {k: numbers[k] for k in ("score_pairs_per_s",
                                        "forward_ms_64x164",
@@ -1507,6 +1986,7 @@ def main() -> int:
     log(f"[serving] {json.dumps(serving)} on {card}")
     log(f"[training] {json.dumps(training)} on {card}")
     log(f"[long_context] {json.dumps(long_ctx)} on {card}")
+    log(f"[mct] {json.dumps(mct)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -1,11 +1,12 @@
-// Philox4x32-10 for the packed-attention kernels (sm_90a).
+// Philox4x32-10 for the port's kernels (sm_90a).
 //
 // The same generator as m3p_tpu_torch/ops/philox.py, which documents the
 // mask rule: key (seed_lo, seed_hi), counter (col / 4, row, tile, 0),
 // element (row, col) takes word col % 4, and is kept when its word is at or
 // above the threshold uint32(min(rate * 2^32, 2^32 - 1)).  The bits depend on
 // (seed, tile, row, col) only, so the forward, the backward and the plain
-// version all draw the same mask.
+// version all draw the same mask.  The fused residual dropout keys its mask
+// by the flat element index instead (flat_bits below).
 
 #pragma once
 
@@ -34,6 +35,17 @@ __device__ __forceinline__ uint4 keep_bits(unsigned long long seed, int tile,
   return philox4x32_10(
       make_uint4(static_cast<uint32_t>(col4), static_cast<uint32_t>(row),
                  static_cast<uint32_t>(tile), 0u),
+      static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
+}
+
+// The four words for the flat elements 4 * group .. 4 * group + 3 of the
+// elementwise mask (the fused residual dropout; keep_mask_flat in
+// m3p_tpu_torch/ops/philox.py): counter (group lo, group hi, 0, 0).
+__device__ __forceinline__ uint4 flat_bits(unsigned long long seed,
+                                           unsigned long long group) {
+  return philox4x32_10(
+      make_uint4(static_cast<uint32_t>(group),
+                 static_cast<uint32_t>(group >> 32), 0u, 0u),
       static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
 }
 

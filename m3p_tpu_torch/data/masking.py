@@ -1,6 +1,6 @@
-"""On-device word masking for the MLM objectives (counterpart of
-`m3p_tpu/data/masking.py:28-128`: `MaskingConfig`, `_select_fixed`,
-`mask_tokens`).
+"""On-device word and region masking for the MLM and MRM objectives
+(counterpart of `m3p_tpu/data/masking.py:28-155`: `MaskingConfig`,
+`_select_fixed`, `mask_tokens`, `mask_regions`).
 
 The 80/10/10 masking of the reference with a fixed number of prediction
 slots per sequence (``max_pred``) and a weight per slot marking the real
@@ -107,3 +107,35 @@ def mask_tokens(generator: torch.Generator, tokens: torch.Tensor,
     replaced = torch.where(weights > 0, replaced, labels)
     masked = tokens.clone().scatter_(1, positions, replaced)
     return masked, positions, labels, weights
+
+
+def mask_regions(generator: Optional[torch.Generator], feats: torch.Tensor,
+                 obj_labels: torch.Tensor, img_mask: torch.Tensor,
+                 cfg: MaskingConfig, max_pred: Optional[int] = None,
+                 selection: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """Object masking: zero the features of ~``obj_mask_ratio`` of the
+    valid regions, at most ``max_pred`` (default ``cfg.max_pred``) a row.
+
+    feats (B, R, F), obj_labels (B, R), img_mask (B, R) bool -> (masked
+    feats (B, R, F), positions (B, P), labels (B, P), weights (B, P),
+    target feats (B, P, F)); labels feed MC-MRM, targets MRFR.
+    ``selection`` = (positions, weights) skips the draw, so a caller can
+    apply another implementation's selection."""
+    if selection is None:
+        if generator is None:
+            raise ValueError("mask_regions needs a generator (or the "
+                             "selection passed in)")
+        p = max_pred if max_pred is not None else cfg.max_pred
+        selection = _select_fixed(generator, img_mask.bool(),
+                                  cfg.obj_mask_ratio, p)
+    positions, weights = selection
+    positions = positions.long()
+    labels = obj_labels.gather(1, positions)
+    index = positions[..., None].expand(-1, -1, feats.shape[-1])
+    target_feats = feats.gather(1, index)
+    zero_mask = torch.zeros(feats.shape[:2], dtype=feats.dtype,
+                            device=feats.device)
+    zero_mask = zero_mask.scatter(1, positions, weights.to(feats.dtype))
+    masked_feats = feats * (1.0 - zero_mask)[..., None]
+    return masked_feats, positions, labels, weights, target_feats

@@ -1,6 +1,6 @@
 """Synthetic batches shaped like the real pipeline's (a copy of
-`m3p_tpu/data/synthetic.py:18-97`: `_random_tokens`, `make_retrieval_batch`,
-`make_stream_batch`).
+`m3p_tpu/data/synthetic.py:18-97`: `_random_tokens`, `make_pretrain_batch`,
+`make_retrieval_batch`, `make_stream_batch`).
 
 numpy only, so the same ``RandomState`` gives the same batch here and in the
 JAX package.  Shapes follow the reference recipes: captions up to
@@ -10,7 +10,7 @@ geometry, candidate grids of ``sample_n``.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -26,6 +26,35 @@ def _random_tokens(rng, b, s, n_words, min_len=5):
             toks[i, 1:l - 1] = rng.randint(4, n_words - 1, size=l - 2)
         toks[i, l - 1] = EOS_IDX
     return toks, lengths.astype(np.int32)
+
+
+def make_pretrain_batch(rng, batch_size: int, sample_n: int, max_len: int,
+                        max_regions: int, n_words: int,
+                        with_clcm: bool = False,
+                        clcm_len: Optional[int] = None
+                        ) -> Dict[str, np.ndarray]:
+    """A grid-flattened MCT pre-training batch (BN = batch_size *
+    sample_n): captions, regions with object labels, the index of each
+    group's positive and, ``with_clcm``, concatenated-caption CLCM pairs of
+    ``clcm_len`` (default 2 * max_len) tokens with binary labels."""
+    bn = batch_size * sample_n
+    tokens, text_len = _random_tokens(rng, bn, max_len, n_words)
+    batch = {
+        "tokens": tokens,
+        "text_len": text_len,
+        "feats": rng.randn(bn, max_regions, 2048).astype(np.float32),
+        "locs": rng.rand(bn, max_regions, 5).astype(np.float32),
+        "obj_labels": rng.randint(0, 1600, (bn, max_regions)).astype(np.int32),
+        "img_len": np.full((bn,), max_regions, np.int32),
+        "pos_label": rng.randint(0, sample_n, (batch_size,)).astype(np.int32),
+    }
+    if with_clcm:
+        cl = clcm_len or 2 * max_len
+        ctok, clen = _random_tokens(rng, bn, cl, n_words)
+        batch["clcm_tokens"] = ctok
+        batch["clcm_len"] = clen
+        batch["clcm_labels"] = rng.randint(0, 2, (bn,)).astype(np.int32)
+    return batch
 
 
 def make_retrieval_batch(rng, batch_size, sample_n, max_len, max_regions,

@@ -20,6 +20,7 @@ from torch import nn
 
 from m3p_tpu_torch.ops.activations import gelu_erf
 from m3p_tpu_torch.ops.attention import attention
+from m3p_tpu_torch.ops.dropout import fused_dropout_add
 
 LN_EPS = 1e-12
 
@@ -28,8 +29,8 @@ LN_EPS = 1e-12
 class Generators:
     """The randomness of a training forward.  ``device`` draws the
     elementwise dropout masks on the model's device; ``host`` draws the
-    per-call attention-dropout seeds on the CPU, so a seed never costs a
-    host-device sync."""
+    per-call seeds of the attention and fused residual dropout on the CPU,
+    so a seed never costs a host-device sync."""
 
     device: torch.Generator
     host: torch.Generator
@@ -47,17 +48,29 @@ class Generators:
         """A fresh 63-bit seed for one attention call's Philox mask."""
         return int(torch.randint(0, 2 ** 63 - 1, (), generator=self.host))
 
+    def dropout_seed(self) -> int:
+        """A fresh 63-bit seed for one fused residual dropout's Philox mask
+        (the JAX block draws it from ``make_rng("dropout")``)."""
+        return int(torch.randint(0, 2 ** 63 - 1, (), generator=self.host))
+
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
             generator: Optional[Generators]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
-    scale the kept ones by 1 / (1 - rate); identity when deterministic."""
+    scale the kept ones by 1 / (1 - rate); identity when deterministic.
+    The mask is drawn on the device of ``generator.device``: a CPU
+    generator gives a CUDA forward the masks a CPU forward draws."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout with deterministic=False needs generators")
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate,
-                                          generator=generator.device)
+    gen = generator.device
+    if gen.device.type == x.device.type:
+        keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=gen)
+    else:
+        keep = torch.empty(x.shape, dtype=x.dtype, device=gen.device
+                           ).bernoulli_(1.0 - rate, generator=gen
+                                        ).to(x.device)
     return x * keep * (1.0 / (1.0 - rate))
 
 
@@ -137,7 +150,8 @@ class MultiHeadAttention(nn.Module):
 
 class TransformerFFN(nn.Module):
     """Two-layer MLP with erf-GELU (or ReLU), dropout after the output
-    projection."""
+    projection unless ``skip_dropout`` (the fused residual path applies it
+    with the residual add)."""
 
     def __init__(self, dim: int, hidden_dim: int, gelu_activation: bool = True,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
@@ -148,17 +162,26 @@ class TransformerFFN(nn.Module):
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
-                generator: Optional[Generators] = None) -> torch.Tensor:
+                generator: Optional[Generators] = None,
+                skip_dropout: bool = False) -> torch.Tensor:
         h = self.lin1(x)
         h = gelu_erf(h) if self.gelu_activation else F.relu(h)
-        return dropout(self.lin2(h), self.dropout, deterministic, generator)
+        h = self.lin2(h)
+        if skip_dropout:
+            return h
+        return dropout(h, self.dropout, deterministic, generator)
 
 
 class EncoderBlock(nn.Module):
     """Post-LN block: x = LN1(x + drop(attn(x))); x = LN2(x + ffn(x)), the
-    FFN applying its own output dropout; x *= pad.  This is the
-    ``use_fused_dropout=False`` path of the JAX block
+    FFN applying its own output dropout; x *= pad
     (`m3p_tpu/model/layers.py:570-627`).
+
+    With ``use_fused_dropout``, in a training forward at ``dropout`` > 0,
+    both residuals go through `ops.dropout.fused_dropout_add` (kernels #7
+    and #8 on CUDA, the plain version on the CPU) with a per-call seed
+    drawn on the host, and the FFN skips its own dropout.  The JAX block
+    takes that path on a TPU backend only (`:590-601`).
 
     Holds ``encoder_attn``/``ln15`` because every block of the JAX tree has
     them; this slice never calls them (no decoder path yet)."""
@@ -167,9 +190,11 @@ class EncoderBlock(nn.Module):
                  gelu_activation: bool = True,
                  has_cross_attention: bool = False,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 attention_dropout: float = 0.0):
+                 attention_dropout: float = 0.0,
+                 use_fused_dropout: bool = False):
         super().__init__()
         self.dropout = dropout
+        self.use_fused_dropout = use_fused_dropout
         self.attn = MultiHeadAttention(n_heads, dim, dtype, attention_dropout)
         self.ln1 = LayerNorm(dim, dtype)
         if has_cross_attention:
@@ -184,7 +209,17 @@ class EncoderBlock(nn.Module):
                 causal: bool = False, deterministic: bool = True,
                 generator: Optional[Generators] = None) -> torch.Tensor:
         attn = self.attn(x, pad_mask, causal, deterministic, generator)
-        x = self.ln1(x + dropout(attn, self.dropout, deterministic,
-                                 generator))
-        x = self.ln2(x + self.ffn(x, deterministic, generator))
+        if self.use_fused_dropout and not deterministic and self.dropout > 0:
+            if generator is None:
+                raise ValueError("fused dropout with deterministic=False "
+                                 "needs generators")
+            x = self.ln1(fused_dropout_add(attn, x, generator.dropout_seed(),
+                                           self.dropout))
+            h = self.ffn(x, deterministic, generator, skip_dropout=True)
+            x = self.ln2(fused_dropout_add(h, x, generator.dropout_seed(),
+                                           self.dropout))
+        else:
+            x = self.ln1(x + dropout(attn, self.dropout, deterministic,
+                                     generator))
+            x = self.ln2(x + self.ffn(x, deterministic, generator))
         return x * pad_mask[..., None].to(x.dtype)

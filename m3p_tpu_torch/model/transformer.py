@@ -2,9 +2,11 @@
 
 The port has the single-stream joint topology (`encode_joint`) and the ITM
 head (`itm_score`): the path that serves pair scoring and retrieval and, in
-training mode, the ITM retrieval fine-tune step; and the text stream
+training mode, the ITM retrieval fine-tune step; the text stream
 (`embed_text`, `encode_text` on the non-causal, no-cache path) with the
-tied word head (`word_logits`): the xMLM step.  The module tree mirrors
+tied word head (`word_logits`): the xMLM step; and the object, CLCM and
+MRFR heads (`obj_logits`, `clcm_score`, `mrfr_predict`): the MCT
+pre-training step (`m3p_tpu/model/transformer.py:347-367`).  The module tree mirrors
 the JAX parameter tree (``text_emb``, ``image_emb``, ``refiner``,
 ``block_<i>``, the heads), so a JAX checkpoint loads strictly.
 """
@@ -40,7 +42,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "seq_axis": cfg.seq_axis is not None,
         "ffn_quant": cfg.ffn_quant != "none",
         "head_quant": cfg.head_quant != "none",
-        "use_fused_dropout": cfg.use_fused_dropout,
     }
     used = [name for name, on in unsupported.items() if on]
     if used:
@@ -79,7 +80,8 @@ class M3PModel(nn.Module):
                                  cfg.gelu_activation,
                                  has_cross_attention=True, dtype=dt,
                                  dropout=cfg.dropout,
-                                 attention_dropout=cfg.attention_dropout)
+                                 attention_dropout=cfg.attention_dropout,
+                                 use_fused_dropout=cfg.use_fused_dropout)
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
         self.pred_layer = PredLayer(cfg.n_words, d, cfg.share_inout_emb, dt)
@@ -157,6 +159,19 @@ class M3PModel(nn.Module):
                  else None)
         return self.pred_layer(hidden, embedding=table)
 
+    def obj_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(..., D) -> (..., n_obj_classes): the MC-MRM object head."""
+        return self.obj_pred(hidden)
+
     def itm_score(self, hidden: torch.Tensor) -> torch.Tensor:
         """(B, S, D) -> (B, 1) image-text matching score (token 0 pooled)."""
         return self.itm_pooler(hidden)
+
+    def clcm_score(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(B, S, D) -> (B, 1) cross-lingual contrastive-match score (token
+        0 pooled)."""
+        return self.clcm_pooler(hidden)
+
+    def mrfr_predict(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(..., D) -> (..., img_feat_dim): the MRFR feature regression."""
+        return self.mrfr_head(hidden)

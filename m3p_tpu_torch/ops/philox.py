@@ -13,7 +13,18 @@ random numbers: as easy as 1, 2, 3", the Random123 generator):
 
 The mask is a function of (seed, tile, row, col) alone and never of how
 threads are laid out, so the forward kernel, the backward kernel and the
-plain version below draw the same bits.  Here the generator runs in int64
+plain version below draw the same bits.
+
+The residual dropout of `m3p_tpu_torch.ops.dropout` (the counterpart of
+`_mask_kernel_body`, `m3p_tpu/ops/dropout.py:27-32`, which seeds the TPU's
+PRNG per (seed, grid step of 512 x 128 elements) and cannot be reproduced)
+keys one mask over the flat tensor the same way:
+
+    counter = (i // 4 mod 2^32, i // 4 >> 32, 0, 0); element i takes word i % 4
+    keep    = bits >= keep_threshold(rate)
+
+so the mask is a function of (seed, i) alone: any block size, thread layout
+or chunking draws the same one.  Here the generator runs in int64
 torch arithmetic masked to 32 bits, on CPU and CUDA tensors alike; the
 32 x 32 -> 64-bit products are split into 16-bit halves so that no
 intermediate leaves int64.
@@ -100,3 +111,28 @@ def keep_mask(seed: int, tile: int, sq: int, sk: int, rate: float,
     """The keep mask of one (batch, head) tile, ``tile = b * H + h``: bool
     (sq, sk)."""
     return keep_mask_tiles(seed, 1, sq, sk, rate, device, first_tile=tile)[0]
+
+
+# elements per chunk of the plain flat mask: 2^22 elements keep each int64
+# temporary of the generator at 8 MB
+FLAT_CHUNK = 1 << 22
+
+
+def keep_mask_flat(seed: int, n: int, rate: float, first: int = 0,
+                   device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """The elementwise keep mask of the flat elements first .. first + n - 1:
+    bool (n,).  Drawn in chunks of `FLAT_CHUNK` elements, so a full-size
+    tensor never builds a large int64 temporary."""
+    k0, k1 = seed_key(seed)
+    threshold = keep_threshold(rate)
+    out = torch.empty(n, dtype=torch.bool, device=device)
+    for start in range(0, n, FLAT_CHUNK):
+        stop = min(start + FLAT_CHUNK, n)
+        lo, hi = first + start, first + stop        # element range
+        group = torch.arange(lo // 4, -(-hi // 4), device=device,
+                             dtype=torch.int64)
+        words = philox4x32(group & MASK32, group >> 32, 0, 0, k0, k1)
+        bits = torch.stack(words, dim=-1).reshape(-1)
+        skip = lo - 4 * (lo // 4)
+        out[start:stop] = bits[skip:skip + stop - start] >= threshold
+    return out

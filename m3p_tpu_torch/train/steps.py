@@ -10,7 +10,12 @@ Ported objectives:
 * ``mlm``, xMLM on a text stream (the reference `mlm_step`): on-device
   80/10/10 masking into fixed slots, `M3PModel.encode_text`, the tied word
   head at the gathered slots and `masked_ce`, on batches shaped as
-  `make_stream_batch` makes them.
+  `make_stream_batch` makes them;
+* ``mct``, the multitask pre-training step (the reference
+  `pretrain_under_step`): a word-or-object coin per row, MC-MLM over
+  packed slots, MC-MRM and MRFR over packed region slots, ITM over the
+  candidate grid and, with CLCM pairs in the batch, CLCM, on batches shaped
+  as `make_pretrain_batch` makes them.
 Batches are dicts of tensors on the model's device.
 """
 
@@ -21,7 +26,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from m3p_tpu_torch.data.masking import MaskingConfig, mask_tokens
+from m3p_tpu_torch.data.masking import (
+    MaskingConfig, mask_regions, mask_tokens)
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel, lengths_to_mask
 from m3p_tpu_torch.train.optim import global_norm
@@ -131,10 +137,169 @@ def mlm_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
     hidden = model.encode_text(masked.long(), text_mask, batch.get("langs"),
                                deterministic=deterministic,
                                generator=generator)
-    index = positions.long()[..., None].expand(-1, -1, hidden.shape[-1])
-    logits = model.word_logits(hidden.gather(1, index))
+    logits = model.word_logits(_gather_rows(hidden, positions))
     loss = masked_ce(logits, labels, weights)
     return loss, {"mlm": loss.detach()}
+
+
+def top_k(values: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the k largest of a 1-d tensor, their indices), equal values lower
+    index first, as `jax.lax.top_k` orders them (`torch.topk` gives no order
+    for ties on CUDA): the first k of a stable descending sort."""
+    vals, idx = torch.sort(values, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def _pack(rows: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """rows (B, P, ...) -> (B * P, ...)[index]."""
+    return rows.reshape((-1,) + tuple(rows.shape[2:]))[index]
+
+
+def _gather_rows(hidden: torch.Tensor, positions: torch.Tensor
+                 ) -> torch.Tensor:
+    """hidden (B, S, D) at positions (B, P) -> (B, P, D)."""
+    index = positions.long()[..., None].expand(-1, -1, hidden.shape[-1])
+    return hidden.gather(1, index)
+
+
+def mct_draws(generator: torch.Generator, batch: Batch,
+              mask_cfg: MaskingConfig,
+              mask_scores: Optional[torch.Tensor] = None
+              ) -> Dict[str, object]:
+    """The randomness of `mct_pretrain_loss` before its forward, drawn from
+    ``generator`` on the batch's device: ``coin`` (BN,) float, 1 = mask
+    the row's words, 0 = its objects (the reference's 50/50 choice), and
+    ``text_masking`` / ``region_masking`` as `mask_tokens` / `mask_regions`
+    return them."""
+    tokens = batch["tokens"].long()
+    bn, s = tokens.shape
+    img_mask = lengths_to_mask(batch["img_len"], batch["feats"].shape[1])
+    coin = (torch.rand((bn,), generator=generator, device=tokens.device)
+            < 0.5).float()
+    text = mask_tokens(generator, tokens,
+                       lengths_to_mask(batch["text_len"], s), mask_cfg,
+                       mask_scores)
+    regions = mask_regions(generator, batch["feats"], batch["obj_labels"],
+                           img_mask, mask_cfg)
+    return {"coin": coin, "text_masking": text, "region_masking": regions}
+
+
+def mct_pretrain_loss(model: M3PModel, batch: Batch,
+                      generator: Optional[Generators],
+                      mask_cfg: MaskingConfig, sample_n: int,
+                      lambda_rel=1.0, lambda_mlm=1.0, lambda_mrm=1.0,
+                      lambda_mrfr=1.0, lambda_clcm=1.0,
+                      refine_image: bool = True, deterministic: bool = False,
+                      text_delta: Optional[torch.Tensor] = None,
+                      img_delta: Optional[torch.Tensor] = None,
+                      mask_scores: Optional[torch.Tensor] = None,
+                      pack_ratio: float = 0.5,
+                      multi_cls_weight: float = 1.0,
+                      bin_cls_weight: float = 1.0,
+                      coin: Optional[torch.Tensor] = None,
+                      text_masking: Optional[Sequence[torch.Tensor]] = None,
+                      region_masking: Optional[Sequence[torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, Metrics]:
+    """The multitask pre-training loss (`m3p_tpu/train/steps.py:179-318`).
+
+    Batch (grid-flattened, BN = B * sample_n): tokens (BN, S), text_len,
+    feats (BN, R, 2048), locs (BN, R, 5), obj_labels (BN, R), img_len,
+    pos_label (B,), optionally raw_feats (the MRFR targets) and clcm_tokens
+    (BN, S2), clcm_len, clcm_labels (BN,).
+
+    ``coin``, ``text_masking`` and ``region_masking`` are as `mct_draws`
+    returns them; when any is None, `mct_draws` draws them on the device
+    from ``generator.device``.  Passing them in lets a caller hold the
+    loss against another implementation's draws.  The freeLB deltas belong
+    to ``train/freelb.py``, which the port does not have yet."""
+    if text_delta is not None or img_delta is not None:
+        raise NotImplementedError("freeLB (text_delta/img_delta) is not in "
+                                  "the PyTorch port yet")
+    tokens = batch["tokens"].long()
+    feats = batch["feats"]
+    bn, s = tokens.shape
+    r = feats.shape[1]
+    text_mask = lengths_to_mask(batch["text_len"], s)
+    img_mask = lengths_to_mask(batch["img_len"], r)
+    if coin is None or text_masking is None or region_masking is None:
+        if generator is None:
+            raise ValueError("mct_pretrain_loss needs generators to draw "
+                             "its coin and maskings (or all three passed "
+                             "in)")
+        drawn = mct_draws(generator.device, batch, mask_cfg, mask_scores)
+        coin = drawn["coin"] if coin is None else coin
+        if text_masking is None:
+            text_masking = drawn["text_masking"]
+        if region_masking is None:
+            region_masking = drawn["region_masking"]
+    coin = coin.float()
+    masked_tokens, pos_t, lab_t, w_t = text_masking
+    w_t = w_t * coin[:, None]
+    masked_tokens = torch.where(coin[:, None] > 0, masked_tokens.long(),
+                                tokens)
+    masked_feats, pos_r, lab_r, w_r, tgt_r = region_masking
+    if "raw_feats" in batch:
+        # MRFR regresses the original, un-normalized region features
+        tgt_r = _gather_rows(batch["raw_feats"], pos_r)
+    w_r = w_r * (1.0 - coin)[:, None]
+    masked_feats = torch.where((coin < 1)[:, None, None], masked_feats,
+                               feats)
+
+    hidden = model.encode_joint(masked_tokens, text_mask, masked_feats,
+                                batch["locs"], img_mask, refine_image,
+                                deterministic=deterministic,
+                                generator=generator)
+    img_out, text_out = hidden[:, :r], hidden[:, r:]
+
+    # MC-MLM: the active slots packed across the batch before the
+    # 250k-vocab head (zero-weight slots add nothing; on overflow the
+    # surplus drops, as in the JAX loss)
+    p_t = pos_t.shape[1]
+    k_pack = max(int(bn * p_t * pack_ratio), 1)
+    pack_w, pack_idx = top_k(w_t.reshape(-1), k_pack)
+    g_pack = _pack(_gather_rows(text_out, pos_t), pack_idx)
+    mlm = masked_ce(model.word_logits(g_pack),
+                    _pack(lab_t, pack_idx), pack_w)
+
+    # MC-MRM and MRFR: the same packing with a fixed 0.5 budget
+    p_r = pos_r.shape[1]
+    k_r = max((bn * p_r) // 2, 1)
+    packr_w, packr_idx = top_k(w_r.reshape(-1), k_r)
+    g_r_pack = _pack(_gather_rows(img_out, pos_r), packr_idx)
+    lab_r_pack = _pack(lab_r, packr_idx)
+    w_obj = packr_w * (lab_r_pack >= 0).float()
+    mrm = masked_ce(model.obj_logits(g_r_pack), lab_r_pack, w_obj)
+    tgt_r_pack = _pack(tgt_r, packr_idx)
+    pred_feats = model.mrfr_predict(g_r_pack).float()
+    se = ((pred_feats - tgt_r_pack.float()) ** 2).mean(dim=-1)
+    mrfr = (se * packr_w).sum() / packr_w.sum().clamp_min(1.0)
+
+    # ITM over the candidate grid
+    ce, bce = itm_grid_losses(model.itm_score(hidden), batch["pos_label"],
+                              sample_n)
+    rel = multi_cls_weight * ce + bin_cls_weight * bce
+
+    total = (lambda_rel * rel + lambda_mlm * mlm + lambda_mrm * mrm
+             + lambda_mrfr * mrfr)
+    metrics = {"rel": rel, "mlm": mlm, "mrm": mrm, "mrfr": mrfr}
+
+    # CLCM: concatenated-caption pairs with binary labels
+    if "clcm_tokens" in batch:
+        clcm_tokens = batch["clcm_tokens"].long()
+        clcm_mask = lengths_to_mask(batch["clcm_len"], clcm_tokens.shape[1])
+        hidden2 = model.encode_joint(clcm_tokens, clcm_mask, masked_feats,
+                                     batch["locs"], img_mask, refine_image,
+                                     deterministic=deterministic,
+                                     generator=generator)
+        s2 = model.clcm_score(hidden2).float()
+        clcm = F.binary_cross_entropy_with_logits(
+            s2[:, 0], batch["clcm_labels"].float())
+        total = total + lambda_clcm * clcm
+        metrics["clcm"] = clcm
+
+    metrics["loss"] = total
+    return total, {k: v.detach() for k, v in metrics.items()}
 
 
 def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Metrics]],

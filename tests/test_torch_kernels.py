@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the packed-attention forward (rate 0 and with Philox dropout) and backward,
-the flash-attention forward and backward (any length), and the mask
-identity of each forward/backward pair (V = identity).
+the flash-attention forward and backward (any length), the mask identity
+of each forward/backward pair (V = identity), and the fused residual
+dropout forward and backward, bit for bit, with its mask identity (x = 1,
+residual = 0).
 
 This file imports nothing of JAX, so it also runs where only PyTorch is
 installed; the `gpu` tests skip without a CUDA device.  On a machine with
@@ -19,7 +21,10 @@ from m3p_tpu_torch.ops.attention import (
     attention_flash, attention_flash_bwd_reference, attention_flash_reference,
     attention_packed, attention_packed_bwd_reference,
     attention_packed_reference)
-from m3p_tpu_torch.ops.philox import keep_mask_tiles
+from m3p_tpu_torch.ops.dropout import (
+    dropout_add, dropout_add_reference, dropout_scale,
+    dropout_scale_reference)
+from m3p_tpu_torch.ops.philox import keep_mask_flat, keep_mask_tiles
 
 torch.set_num_threads(1)
 
@@ -303,3 +308,74 @@ def test_flash_attention_kernels_bf16_at_the_long_context_shape(cuda_device,
 @pytest.mark.gpu
 def test_flash_kernels_draw_the_plain_versions_mask(cuda_device):
     check_mask_identity(cuda_device, attn=attention_flash, s=96)
+
+
+# fused residual dropout: odd sizes (not a multiple of 4, of 128 or of a
+# block), a tiny one, and the MCT step's residual (80 x 164 x 768)
+DROPOUT_SHAPES = [(4, 33, 130), (1001,), (3, 7), (80, 164, 768)]
+
+
+def check_fused_dropout_mask_identity(device, n=40_003, rate=0.25,
+                                      seed=SEED):
+    """x = 1 and residual = 0: the forward's output is the keep mask times
+    the scale, and the gradient of its sum by x (the backward kernel) is
+    the same; both equal the plain version's Philox mask.  Returns the keep
+    share."""
+    x = torch.ones(n, device=device, requires_grad=True)
+    res = torch.zeros(n, device=device)
+    out = dropout_add(x, res, seed, rate)
+    (dx,) = torch.autograd.grad(out.sum(), (x,))
+    keep = keep_mask_flat(seed, n, rate, device=device)
+    scale = torch.tensor(1.0 / (1.0 - rate)).item()
+    assert torch.equal(out.detach() != 0, keep)          # forward vs plain
+    assert torch.equal(dx != 0, keep)                    # backward vs plain
+    assert (out.detach()[keep] == scale).all() and (dx[keep] == scale).all()
+    share = float(keep.float().mean())
+    sd = (rate * (1.0 - rate) / n) ** 0.5
+    assert abs(share - (1.0 - rate)) < 5 * sd, share
+    return share
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [RATE, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DROPOUT_SHAPES)
+def test_fused_dropout_kernels_match_plain_version_bit_for_bit(
+        cuda_device, shape, dtype, rate):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    res = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    g = torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+    x.requires_grad_(True)
+    res.requires_grad_(True)
+    before = (dropout_add.launches, dropout_add.bwd_launches)
+    out = dropout_add(x, res, SEED, rate)
+    dx, dres = torch.autograd.grad(out, (x, res), g)
+    torch.cuda.synchronize()
+    assert (dropout_add.launches, dropout_add.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = dropout_add_reference(x.detach(), res.detach(), SEED, rate)
+    assert out.dtype == dtype and torch.equal(out, want)
+    assert torch.equal(dx, dropout_scale_reference(g, SEED, rate))
+    assert torch.equal(dres, g)
+    scaled = dropout_scale(x.detach(), SEED + 1, rate)
+    assert torch.equal(scaled,
+                       dropout_scale_reference(x.detach(), SEED + 1, rate))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_dropout_kernel_on_unaligned_views(cuda_device, dtype):
+    """Views one element into their storage take the scalar path."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    base = torch.randn(2, 10_001, device=cuda_device, generator=gen).to(dtype)
+    x, res = base[0, 1:], base[1, 1:]
+    assert x.data_ptr() % 16 != 0
+    got = dropout_add(x, res, SEED, RATE)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dropout_add_reference(x, res, SEED, RATE))
+
+
+@pytest.mark.gpu
+def test_fused_dropout_kernels_draw_the_plain_versions_mask(cuda_device):
+    check_fused_dropout_mask_identity(cuda_device)

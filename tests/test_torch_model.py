@@ -128,7 +128,10 @@ def test_build_model_is_seeded_and_refuses_unported_features():
                            c["block_0.attn.q_lin.weight"])
     for change in (dict(asm=True), dict(image_fusion=True),
                    dict(moe_experts=4), dict(seq_axis="seq"),
-                   dict(ffn_quant="int8"), dict(head_quant="int8_bwd"),
-                   dict(use_fused_dropout=True)):
+                   dict(ffn_quant="int8"), dict(head_quant="int8_bwd")):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(cfg, **change), 0, "cpu")
+    # the fused residual dropout is ported: every block takes the flag
+    fused = build_model(dataclasses.replace(cfg, use_fused_dropout=True), 5,
+                        "cpu")
+    assert all(block.use_fused_dropout for block in fused.blocks)
