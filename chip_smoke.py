@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed 0]
 
 Phases, each of which fails the run if it fails:
-  1. build every CUDA kernel of the serving and training paths from
-     m3p_tpu_torch/csrc/ (one nvcc per source, all started together);
+  1. build every CUDA kernel of the port from m3p_tpu_torch/csrc/ (one
+     nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card, at
      small odd shapes and at the shapes the two paths give it: the packed
      attention forward at dropout rates 0 and 0.1, the backward at 0 and
@@ -50,7 +50,24 @@ Phases, each of which fails the run if it fails:
      B, none in A), a profile of one step and an MFU reading; one step of B
      with CLCM (launches doubled); fp32 gradients of the whole loss on the
      card against the CPU at depth 2 with CLCM and fused dropout at 0.1
-     (the same seeds and masks on both sides); a learning check at depth 2.
+     (the same seeds and masks on both sides); a learning check at depth 2;
+  9. the head-major attention entry and the fused FFN tool path: #3/#4
+     (csrc/small_attention.cu) against their plain versions (fp32 and
+     bf16, rates 0 and 0.1, causal, Sq != Sk, a row with no valid key, odd
+     shapes, the single-tile edge S = 512 at Dh 64 and 128, the flagship
+     joint shape), the V = identity check, `attention_bhsd` against the
+     packed path on the same tensors and seed; the main path counted
+     (`attention_bhsd` forward and backward with dropout at (80, 12, 164,
+     64) bf16, three times, then S = 640 through the flash kernels and rate
+     0 through `mha_reference`); #3/#4 timed with CUDA events beside
+     #1/#2 on packed copies (in turns), their plain versions, SDPA and its
+     backward; #9 (csrc/fused_ffn.cu) against
+     its plain version (fp32 and bf16, M in {1, 70, 13120, 13121}, (D, H)
+     in {(64, 256), (768, 3072)}, ragged widths), against a flagship bf16
+     EncoderBlock's ln2(x + ffn(x)), and its main path counted:
+     `python -m m3p_tpu_torch.bench_fused_ffn` at M = 13120, D = 768,
+     H = 3072 in this process (kernel, plain version and the cuBLAS
+     yardstick with CUDA events).
 Phases 2 and 3 hold and time the flash kernels too (fp32 and bf16, rates 0
 and 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
 shape, V = identity), and the fused dropout kernels (bit for bit against
@@ -80,7 +97,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 KERNELS = ["packed_attention", "packed_attention_bwd", "flash_attention",
-           "flash_attention_bwd", "fused_dropout"]
+           "flash_attention_bwd", "fused_dropout", "small_attention",
+           "fused_ffn"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, dense bf16 tensor rate
 HBM_BYTES_PER_S = 3.35e12
@@ -394,11 +412,18 @@ def time_kernels(gen):
     return out
 
 
-def device_ms(fn, iters=50, warmup=5):
+def device_ms(fn, iters=50, warmup=5, launches=None, attempts=3):
     """Device time per call of ``fn``: the summed device time of every
     kernel it launches, from torch.profiler over ``iters`` calls.  Unlike
     `cuda_ms` it does not read the host's pace, which sets the time of
-    back-to-back calls to kernels shorter than their launch cost."""
+    back-to-back calls to kernels shorter than their launch cost.
+
+    Late in a long process the profiler has recorded no kernel at all, or
+    a third of them (#3 read 0.43 ms against 1.25 ms from CUDA events and
+    from the trace of a fresh process).  So with ``launches``
+    (kernels per call) the profile must hold iters x launches kernel
+    records; one that does not is taken again, up to ``attempts`` times,
+    and then fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -406,16 +431,22 @@ def device_ms(fn, iters=50, warmup=5):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
-        fail("torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        total_us = sum(e.self_device_time_total for e in kernels)
+        records = sum(e.count for e in kernels)
+        if total_us > 0 and (launches is None
+                             or records == iters * launches):
+            return total_us / 1e3 / iters
+        log(f"[profile] attempt {attempt + 1}: {records} kernel records "
+            f"for {iters} calls, {total_us:.1f} us; taken again")
+    fail("torch.profiler recorded an incomplete profile")
 
 
 def host_us(fn, calls=200):
@@ -1511,6 +1542,7 @@ def time_fused_dropout(gen):
         "bwd_lib": lambda: torch.autograd.grad(lib_out, (xl, rl), g,
                                                retain_graph=True)}
     dev = {k: device_ms(f, **({"iters": 5, "warmup": 1} if "plain" in k
+                              else {"launches": 1} if k in ("fwd", "bwd")
                               else {}))
            for k, f in calls.items()}
     b2b = {k: cuda_ms(calls[k]) for k in ("fwd", "bwd", "fwd_lib",
@@ -1557,24 +1589,33 @@ def time_fused_dropout(gen):
 
 
 def zero_launch_counts():
-    from m3p_tpu_torch.ops.attention import attention_flash, attention_packed
+    from m3p_tpu_torch.ops.attention import (
+        attention_flash, attention_packed, small_attention)
     from m3p_tpu_torch.ops.dropout import dropout_add
+    from m3p_tpu_torch.ops.fused_ffn import fused_ffn_ln
 
-    for fn in (attention_packed, attention_flash, dropout_add):
+    for fn in (attention_packed, attention_flash, dropout_add,
+               small_attention):
         fn.launches = 0
         fn.bwd_launches = 0
+    fused_ffn_ln.launches = 0
 
 
 def launch_counts():
-    from m3p_tpu_torch.ops.attention import attention_flash, attention_packed
+    from m3p_tpu_torch.ops.attention import (
+        attention_flash, attention_packed, small_attention)
     from m3p_tpu_torch.ops.dropout import dropout_add
+    from m3p_tpu_torch.ops.fused_ffn import fused_ffn_ln
 
     return {"packed_fwd": attention_packed.launches,
             "packed_bwd": attention_packed.bwd_launches,
             "flash_fwd": attention_flash.launches,
             "flash_bwd": attention_flash.bwd_launches,
             "dropout_fwd": dropout_add.launches,
-            "dropout_bwd": dropout_add.bwd_launches}
+            "dropout_bwd": dropout_add.bwd_launches,
+            "small_fwd": small_attention.launches,
+            "small_bwd": small_attention.bwd_launches,
+            "fused_ffn": fused_ffn_ln.launches}
 
 
 def mct_per_step(cfg, encodes=1):
@@ -1585,7 +1626,8 @@ def mct_per_step(cfg, encodes=1):
     fused = 2 * cfg.n_layers if cfg.use_fused_dropout else 0
     return {"packed_fwd": layers * encodes, "packed_bwd": 2 * layers * encodes,
             "flash_fwd": 0, "flash_bwd": 0, "dropout_fwd": fused * encodes,
-            "dropout_bwd": fused * encodes}
+            "dropout_bwd": fused * encodes, "small_fwd": 0, "small_bwd": 0,
+            "fused_ffn": 0}
 
 
 def check_launches(what, counts, per_step, n_steps):
@@ -1792,6 +1834,338 @@ def mct_learning_check(seed, steps=40):
     return {"first5": first, "last5": last}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the head-major attention entry (#3/#4) and the fused FFN tool
+# path (#9)
+# ---------------------------------------------------------------------------
+
+# the flagship joint shape: BN = 80 sequences of 100 regions + 64 tokens,
+# 12 heads of 64
+JOINT = (GROUPS * SAMPLE_N, 12, 64, REGIONS + TEXT_LEN)
+
+
+def check_small_attention():
+    """#3 and #4 against their plain versions (tests/test_torch_kernels.py's
+    SMALL_GPU_CASES: odd shapes, causal, Sq != Sk both ways, a batch row
+    with no valid key, the `_small_fits` edge at Dh 64 and 128, the
+    flagship joint shape), fp32 and bf16, rates 0 and 0.1; the V =
+    identity check; and the head-major entry against the packed path on
+    the same tensors and seed."""
+    import torch
+
+    from m3p_tpu_torch.ops.attention import (
+        attention_bhsd, attention_packed, small_attention,
+        small_attention_bwd_reference, small_attention_reference)
+
+    module = kernel_tests()
+    worst = {"fwd": {}, "bwd": {}}
+
+    def note(kind, dt, err):
+        name = str(dt).replace("torch.", "")
+        worst[kind][name] = max(worst[kind].get(name, 0.0), err)
+
+    for case in module.SMALL_GPU_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            tol_f = TOL_FP32 if dt == torch.float32 else TOL_BF16
+            tol_b = TOL_BWD_FP32 if dt == torch.float32 else TOL_BF16
+            msg = []
+            for rate in (0.0, RATE):
+                seed = SEED if rate else None
+                q, k, v, mask, do = module._small_on("cuda", case, dt)
+                causal = case[-1]
+                leaves = [t.requires_grad_(True) for t in (q, k, v)]
+                out = small_attention(*leaves, mask, causal, None, rate, seed)
+                grads = torch.autograd.grad(out, leaves, do)
+                torch.cuda.synchronize()
+                q, k, v = (t.detach() for t in leaves)
+                what = f"small_attention {case} {dt} rate {rate}"
+                err = _compare(out.detach(), small_attention_reference(
+                    q, k, v, mask, causal, None, rate, seed), tol_f,
+                    f"{what} forward")
+                note("fwd", dt, err)
+                errs = [_compare(g, w, tol_b, f"{what} d{n}")
+                        for n, g, w in zip("qkv", grads,
+                                           small_attention_bwd_reference(
+                                               q, k, v, mask, do, causal,
+                                               None, rate, seed))]
+                note("bwd", dt, max(errs))
+                msg.append(f"rate {rate}: fwd {err:.3e}, dq/dk/dv " +
+                           "/".join(f"{e:.3e}" for e in errs))
+            log(f"[check] small_attention (B, H, Dh, Sq, Sk, lens, causal) = "
+                f"{case[:5]} causal={case[-1]} {dt}: max|kernel-plain| "
+                + "; ".join(msg))
+    try:
+        share = module.check_mask_identity(
+            "cuda", attn=module.small_attention_packed_view)
+    except AssertionError as exc:
+        fail(f"V=I mask identity (small_attention): {exc!r}")
+    log(f"[check] V=I mask identity of #3/#4 at rate 0.25: forward == plain "
+        f"Philox mask, backward dv^T == forward output, keep share "
+        f"{share:.4f}")
+    # the head-major entry and the packed path on one set of tensors
+    layout = {}
+    for case, dt in ((module.SMALL_CASES[3], torch.float32),
+                     (module.SMALL_GPU_CASES[-1], torch.bfloat16)):
+        b, h, dh = case[:3]
+        q, k, v, mask, do = module._small_on("cuda", case, dt, seed=3)
+        causal = case[-1]
+
+        def packed(t):
+            return t.transpose(1, 2).reshape(b, t.shape[2], h * dh)
+
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = attention_bhsd(*leaves, mask, causal, None, RATE, SEED)
+        grads = torch.autograd.grad(out, leaves, do)
+        pleaves = [packed(t).requires_grad_(True) for t in (q, k, v)]
+        pout = attention_packed(*pleaves, mask, h, causal, None, RATE, SEED)
+        pgrads = torch.autograd.grad(pout, pleaves, packed(do))
+        torch.cuda.synchronize()
+        tol_f = TOL_FP32 if dt == torch.float32 else TOL_BF16
+        tol_b = TOL_BWD_FP32 if dt == torch.float32 else TOL_BF16
+        name = str(dt).replace("torch.", "")
+        layout[name] = [_compare(packed(out.detach()), pout.detach(), tol_f,
+                                 f"attention_bhsd vs packed {case} {dt}")] + [
+            _compare(packed(g), w, tol_b, f"attention_bhsd vs packed d{n}")
+            for n, g, w in zip("qkv", grads, pgrads)]
+        log(f"[check] attention_bhsd (#3/#4) vs attention_packed (#1/#2) on "
+            f"the packed view, {case[:5]} {name} rate {RATE}: max |diff| "
+            f"out/dq/dk/dv " + "/".join(f"{e:.3e}" for e in layout[name]))
+    # the comparison has teeth: dropout changes the output
+    q, k, v, mask, _ = module._small_on("cuda", module.SMALL_CASES[0],
+                                        torch.float32)
+    off = (small_attention(q, k, v, mask, False, None, RATE, SEED)
+           - small_attention(q, k, v, mask)).abs().max().item()
+    if off < 0.1:
+        fail(f"dropout does not change #3's output ({off}); check is vacuous")
+    return worst, share, layout
+
+
+def head_major_path():
+    """The main path of #3/#4, counted: `attention_bhsd` as a training
+    call makes it, forward and backward with dropout 0.1 at the flagship
+    joint shape in bf16, three times; then one call at S = 640 with
+    dropout (the flash kernels, through the packed layout) and one at rate
+    0 (`mha_reference`, no kernel)."""
+    import torch
+
+    from m3p_tpu_torch.ops.attention import attention_bhsd
+
+    module = kernel_tests()
+    b, h, dh, s = JOINT
+    case = (b, h, dh, s, s, (s, 0) + (100,) * (b - 2), False)
+    q, k, v, mask, do = module._small_on("cuda", case, torch.bfloat16)
+    long_case = (2, h, dh, 640, 640, (640, 333), False)
+    lq, lk, lv, lmask, ldo = module._small_on("cuda", long_case,
+                                              torch.bfloat16)
+    zero_launch_counts()
+    outs = []
+    for step in range(3):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = attention_bhsd(*leaves, mask, False, None, RATE, SEED + step)
+        outs.append((out, torch.autograd.grad(out, leaves, do)))
+    leaves = [t.clone().requires_grad_(True) for t in (lq, lk, lv)]
+    lout = attention_bhsd(*leaves, lmask, False, None, RATE, SEED)
+    lgrads = torch.autograd.grad(lout, leaves, ldo)
+    det = attention_bhsd(q, k, v, mask)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k_: 0 for k_ in counts}
+    want.update(small_fwd=3, small_bwd=6, flash_fwd=1, flash_bwd=2)
+    if counts != want:
+        fail(f"attention_bhsd: launches {counts}, expected {want}")
+    tensors = [lout, *lgrads, det] + [t for o, g in outs for t in (o, *g)]
+    if not all(torch.isfinite(t).all() for t in tensors):
+        fail("attention_bhsd gave non-finite values")
+    if torch.equal(outs[0][0], outs[1][0]):
+        fail("attention_bhsd: two seeds drew one mask")
+    log(f"[path] attention_bhsd, (B, H, S, Dh) = ({b}, {h}, {s}, {dh}) bf16 "
+        f"rate {RATE}: 3 forward + backward calls, then S = 640 with "
+        f"dropout and S = {s} at rate 0: launches {counts}")
+    return counts
+
+
+def time_small_attention():
+    """#3 and #4 at the flagship joint shape, bf16, rate 0.1 (and the
+    kernels at rate 0), with CUDA events (a call costs the host 0.08 ms,
+    the kernels over 0.4 ms): kernel, plain version, SDPA at rate 0 on the
+    same (B, H, S, D) tensors and its autograd backward, and #1/#2 (the
+    same tile code) on packed copies of the tensors, in turns with #3/#4."""
+    import torch
+    import torch.nn.functional as F
+
+    from m3p_tpu_torch.ops.attention import (
+        attention_packed, attention_packed_bwd, small_attention,
+        small_attention_bwd, small_attention_bwd_reference,
+        small_attention_reference)
+
+    module = kernel_tests()
+    b, h, dh, s = JOINT
+    case = (b, h, dh, s, s, (s,) * b, False)
+    q, k, v, mask, do = module._small_on("cuda", case, torch.bfloat16)
+    pq, pk, pv, pdo = (t.transpose(1, 2).reshape(b, s, h * dh)
+                       for t in (q, k, v, do))
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(ql, kl, vl,
+                                          attn_mask=mask[:, None, None, :])
+    dev = {}
+    dev["fwd"], dev["fwd_packed"] = in_turns(
+        lambda: small_attention(q, k, v, mask, False, None, RATE, SEED),
+        lambda: attention_packed(pq, pk, pv, mask, h, False, None, RATE,
+                                 SEED))
+    dev["bwd"], dev["bwd_packed"] = in_turns(
+        lambda: small_attention_bwd(q, k, v, mask, do, False, None, RATE,
+                                    SEED),
+        lambda: attention_packed_bwd(pq, pk, pv, mask, pdo, h, False, None,
+                                     RATE, SEED))
+    calls = {
+        "fwd_rate_0": lambda: small_attention(q, k, v, mask),
+        "fwd_lib": lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[:, None, None, :]),
+        "bwd_rate_0": lambda: small_attention_bwd(q, k, v, mask, do),
+        "bwd_lib": lambda: torch.autograd.grad(sdpa, (ql, kl, vl), do,
+                                               retain_graph=True)}
+    dev.update({k_: cuda_ms(f) for k_, f in calls.items()})
+    dev["fwd_plain"] = cuda_ms(lambda: small_attention_reference(
+        q, k, v, mask, False, None, RATE, SEED), iters=10, warmup=2)
+    dev["bwd_plain"] = cuda_ms(lambda: small_attention_bwd_reference(
+        q, k, v, mask, do, False, None, RATE, SEED), iters=10, warmup=2)
+    elems = b * h * s * dh
+    fwd_bound, fwd_by = bound(4 * elems * 2 + b * s, 4 * b * h * s * s * dh)
+    bwd_bound, bwd_by = bound(7 * elems * 2 + b * s, 10 * b * h * s * s * dh)
+    dims = {"B": b, "H": h, "Sq": s, "Sk": s, "Dh": dh, "dtype": "bfloat16",
+            "rate": RATE}
+    out = {}
+    for kind, bnd, by in (("fwd", fwd_bound, fwd_by),
+                          ("bwd", bwd_bound, bwd_by)):
+        out[kind] = {"ms": dev[kind], "ms_rate_0": dev[f"{kind}_rate_0"],
+                     "packed_layout_ms": dev[f"{kind}_packed"],
+                     "plain_ms": dev[f"{kind}_plain"],
+                     "library_ms": dev[f"{kind}_lib"], "bound_ms": bnd,
+                     "bound_by": by, "shape": dims}
+        log(f"[time] small_attention_{kind} (#{3 if kind == 'fwd' else 4}) "
+            f"{dims} CUDA events: kernel {dev[kind]:.4f} ms (rate 0: "
+            f"{dev[kind + '_rate_0']:.4f}; #{1 if kind == 'fwd' else 2} on "
+            f"packed copies, in turns {dev[kind + '_packed']:.4f}), plain "
+            f"{dev[kind + '_plain']:.4f}"
+            f", SDPA{' backward' if kind == 'bwd' else ''} "
+            f"{dev[kind + '_lib']:.4f}, bound {bnd:.4f} ms ({by})")
+    return out
+
+
+def check_fused_ffn():
+    """#9 against its plain version: fp32 and bf16, M in {1, 70, 13120,
+    13121}, (D, H) in {(64, 256), (768, 3072)}, nonzero biases and beta,
+    gamma away from 1 (tests/test_torch_kernels.py's inputs and
+    tolerances), then ragged widths."""
+    import torch
+
+    from m3p_tpu_torch.ops.fused_ffn import fused_ffn_ln, reference_ffn_ln
+
+    module = kernel_tests()
+    worst = {}
+    cases = [(m, d, h) for d, h in module.FFN_SHAPES for m in module.FFN_ROWS]
+    cases += [(45, 200, 100), (45, 1000, 70), (45, 1024, 64)]
+    for m, d, h in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            args = module.ffn_inputs("cuda", m, d, h, dt, seed=m)
+            got = fused_ffn_ln(*args)
+            torch.cuda.synchronize()
+            try:
+                err, mean = module.check_fused_ffn(got, reference_ffn_ln(
+                    *args))
+            except AssertionError as exc:
+                fail(f"fused_ffn_ln M={m} D={d} H={h} {dt}: kernel and "
+                     f"plain version disagree: {exc}")
+            name = str(dt).replace("torch.", "")
+            old = worst.get(name, (0.0, 0.0))
+            worst[name] = (max(old[0], err), max(old[1], mean))
+            log(f"[check] fused_ffn_ln M={m} D={d} H={h} {name}: "
+                f"max|kernel-plain| {err:.3e}, mean {mean:.3e}")
+    # the comparison has teeth: the FFN moves the output
+    args = module.ffn_inputs("cuda", 70, 768, 3072, torch.float32)
+    ln = torch.nn.functional.layer_norm(args[0], (768,), args[5], args[6],
+                                        1e-12)
+    off = (fused_ffn_ln(*args) - ln).abs().max().item()
+    if off < 0.05:
+        fail(f"fused_ffn_ln equals LN(x) ({off}); check is vacuous")
+    return worst
+
+
+# the block rounds the pre-GELU, the FFN output and the residual sum to
+# bf16, which the kernel keeps in fp32: a few bf16 ulps at |out| < 8
+TOL_FFN_BLOCK = dict(max_abs=0.125, mean_abs=5e-3)
+
+
+def ffn_model_check(seed):
+    """#9 against one bf16 EncoderBlock of the flagship configuration
+    (random weights from the seed, each representable in bf16): the
+    block's own ln2(x + ffn(x)) at deterministic=True on (80, 164, 768)."""
+    import torch
+
+    from m3p_tpu_torch.model.layers import EncoderBlock
+    from m3p_tpu_torch.ops.fused_ffn import fused_ffn_ln
+
+    torch.manual_seed(seed)
+    b, _, _, s = JOINT
+    blk = EncoderBlock(12, 768, 3072, dtype=torch.bfloat16).to("cuda")
+    d = blk.ln2.weight.numel()
+    with torch.no_grad():
+        blk.ln2.weight.normal_(1.0, 0.1)
+        blk.ln2.bias.normal_(0.0, 0.1)
+        for p in blk.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+        x = torch.randn(b, s, d, device="cuda").to(torch.bfloat16)
+        want = blk.ln2(x + blk.ffn(x, deterministic=True))
+
+        def bf16(t):
+            return t.detach().to(torch.bfloat16).contiguous()
+
+        got = fused_ffn_ln(x.view(-1, d), bf16(blk.ffn.lin1.weight.t()),
+                           bf16(blk.ffn.lin1.bias),
+                           bf16(blk.ffn.lin2.weight.t()),
+                           bf16(blk.ffn.lin2.bias), bf16(blk.ln2.weight),
+                           bf16(blk.ln2.bias)).view(b, s, d)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        off = (blk.ln2(x).float() - want.float()).abs().max().item()
+    res = {"max_abs": err.max().item(), "mean_abs": err.mean().item(),
+           "ffn_moves_ln_by": off}
+    log(f"[check] fused_ffn_ln vs a flagship bf16 EncoderBlock's "
+        f"ln2(x + ffn(x)) on ({b}, {s}, {d}): max |diff| "
+        f"{res['max_abs']:.3e}, mean {res['mean_abs']:.3e} (tolerance "
+        f"{TOL_FFN_BLOCK}); the FFN moves LN(x) by {off:.3f}")
+    if not torch.isfinite(got).all() or off < 0.05 \
+            or res["max_abs"] > TOL_FFN_BLOCK["max_abs"] \
+            or res["mean_abs"] > TOL_FFN_BLOCK["mean_abs"]:
+        fail(f"fused_ffn_ln disagrees with the EncoderBlock: {res}")
+    return res
+
+
+def fused_ffn_path():
+    """The main path of #9, counted: `python -m m3p_tpu_torch.bench_fused_ffn`
+    at the tool's shape, in this process: the kernel, its plain version and
+    the cuBLAS yardstick timed with CUDA events (a call costs the host far
+    less than the kernel's 2 ms)."""
+    from m3p_tpu_torch import bench_fused_ffn
+
+    iters = 30
+    zero_launch_counts()
+    out = bench_fused_ffn.run(iters=iters)
+    counts = launch_counts()
+    want = {k_: 0 for k_ in counts}
+    want["fused_ffn"] = 1 + 3 + iters      # the check, warm-up, timed calls
+    if counts != want or out["launches"] != want["fused_ffn"]:
+        fail(f"bench_fused_ffn: launches {counts}, expected {want}")
+    if not out["finite"] or out["max_abs_err"] > 0.0625 \
+            or out["mean_abs_err"] > kernel_tests().FFN_MEAN_BF16:
+        fail(f"bench_fused_ffn: the kernel disagrees with the plain "
+             f"version: {out}")
+    log(f"[path] python -m m3p_tpu_torch.bench_fused_ffn: {json.dumps(out)}")
+    log(f"[time] fused_ffn_ln (#9) {out['shape']} CUDA events: kernel "
+        f"{out['kernel_ms']:.4f} ms ({out['kernel_tflops']:.1f} TF/s), plain "
+        f"{out['plain_ms']:.4f}, cuBLAS yardstick {out['library_ms']:.4f}, "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
 
 
 def main() -> int:
@@ -1869,6 +2243,15 @@ def main() -> int:
     mct["learning"] = mct_learning_check(args.seed)
     mct_a, mct_b = mct["A"]["launches"], mct["B"]["launches"]
     mct_clcm = mct["B"]["clcm_step"]["launches"]
+    torch.cuda.empty_cache()
+
+    small_worst, small_share, layout = check_small_attention()
+    bhsd_counts = head_major_path()
+    small_times = time_small_attention()
+    torch.cuda.empty_cache()
+    ffn_worst = check_fused_ffn()
+    ffn_block = ffn_model_check(args.seed)
+    ffn = fused_ffn_path()
 
     blocks, refiner = times["blocks"], times["refiner"]
     tblocks, trefiner = train_times["blocks"], train_times["refiner"]
@@ -1978,6 +2361,55 @@ def main() -> int:
         "bound_ms": drop_bwd["bound_ms"], "bound_by": drop_bwd["bound_by"],
         "library_ms": drop_bwd["library_ms"],
         "shape": drop_bwd["shape"],
+    }, {
+        "name": "small_attention_fwd",
+        "route": "cuda",
+        "source": "m3p_tpu_torch/csrc/small_attention.cu",
+        "replaces": "m3p_tpu/ops/attention.py:696",
+        "launches": bhsd_counts["small_fwd"],
+        "launches_by_path": {"attention_bhsd": bhsd_counts},
+        "max_abs_err": small_worst["fwd"]["bfloat16"],
+        "max_abs_err_fp32": small_worst["fwd"]["float32"],
+        "ms": small_times["fwd"]["ms"],
+        "plain_ms": small_times["fwd"]["plain_ms"],
+        "bound_ms": small_times["fwd"]["bound_ms"],
+        "bound_by": small_times["fwd"]["bound_by"],
+        "library_ms": small_times["fwd"]["library_ms"],
+        "ms_rate_0": small_times["fwd"]["ms_rate_0"],
+        "packed_layout_ms": small_times["fwd"]["packed_layout_ms"],
+        "shape": small_times["fwd"]["shape"],
+        "mask_identity_keep_share": small_share,
+        "vs_packed_path_max_abs_diff": layout,
+    }, {
+        "name": "small_attention_bwd",
+        "route": "cuda",
+        "source": "m3p_tpu_torch/csrc/small_attention.cu",
+        "replaces": "m3p_tpu/ops/attention.py:713",
+        "launches": bhsd_counts["small_bwd"],
+        "max_abs_err": small_worst["bwd"]["bfloat16"],
+        "max_abs_err_fp32": small_worst["bwd"]["float32"],
+        "ms": small_times["bwd"]["ms"],
+        "plain_ms": small_times["bwd"]["plain_ms"],
+        "bound_ms": small_times["bwd"]["bound_ms"],
+        "bound_by": small_times["bwd"]["bound_by"],
+        "library_ms": small_times["bwd"]["library_ms"],
+        "ms_rate_0": small_times["bwd"]["ms_rate_0"],
+        "packed_layout_ms": small_times["bwd"]["packed_layout_ms"],
+        "shape": small_times["bwd"]["shape"],
+    }, {
+        "name": "fused_ffn_ln",
+        "route": "cuda",
+        "source": "m3p_tpu_torch/csrc/fused_ffn.cu",
+        "replaces": "m3p_tpu/ops/fused_ffn.py:35",
+        "launches": ffn["launches"],
+        "max_abs_err": ffn_worst["bfloat16"][0],
+        "mean_abs_err": ffn_worst["bfloat16"][1],
+        "max_abs_err_fp32": ffn_worst["float32"][0],
+        "max_abs_err_vs_encoder_block": ffn_block["max_abs"],
+        "ms": ffn["kernel_ms"], "plain_ms": ffn["plain_ms"],
+        "bound_ms": ffn["bound_ms"], "bound_by": ffn["bound_by"],
+        "library_ms": ffn["library_ms"],
+        "shape": ffn["shape"],
     }]}
     serving = {k: numbers[k] for k in ("score_pairs_per_s",
                                        "forward_ms_64x164",
@@ -1987,6 +2419,7 @@ def main() -> int:
     log(f"[training] {json.dumps(training)} on {card}")
     log(f"[long_context] {json.dumps(long_ctx)} on {card}")
     log(f"[mct] {json.dumps(mct)} on {card}")
+    log(f"[fused_ffn] {json.dumps(ffn)}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -57,9 +57,12 @@ class Generators:
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
             generator: Optional[Generators]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
-    scale the kept ones by 1 / (1 - rate); identity when deterministic.
-    The mask is drawn on the device of ``generator.device``: a CPU
-    generator gives a CUDA forward the masks a CPU forward draws."""
+    divide the kept ones by 1 - rate held in x's dtype (flax's
+    ``inputs / keep_prob`` with a weak Python float: bf16(0.9) = 0.8984375
+    in bf16), so the kept values equal flax's in fp32 and bf16; identity
+    when deterministic.  The mask is drawn on the device of
+    ``generator.device``: a CPU generator gives a CUDA forward the masks a
+    CPU forward draws."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
@@ -71,7 +74,8 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
         keep = torch.empty(x.shape, dtype=x.dtype, device=gen.device
                            ).bernoulli_(1.0 - rate, generator=gen
                                         ).to(x.device)
-    return x * keep * (1.0 / (1.0 - rate))
+    keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype)
+    return torch.where(keep.bool(), x / keep_prob, 0.0)
 
 
 def attention_dropout_args(rate: float, deterministic: bool,

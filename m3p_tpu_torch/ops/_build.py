@@ -82,3 +82,13 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+def bind(name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function ``fn_name`` of ``csrc/<name>.cu``, returning int (a
+    cudaError_t), with its argument types set."""
+    fn = getattr(load(name), fn_name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn

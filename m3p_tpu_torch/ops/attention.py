@@ -20,6 +20,15 @@
   `_flash_bwd_dq_kernel`).
 * `attention` — the model's entry: packed kernels up to MAX_SEQ, flash
   kernels above, as the JAX module dispatches.
+* `small_attention_reference` / `small_attention_bwd_reference` — the plain
+  forward and backward of the head-major single-tile kernels (q (B, H, Sq,
+  D), k/v (B, H, Sk, D)); `small_attention` / `small_attention_bwd` their
+  dispatching wrappers over `csrc/small_attention.cu` (replaces the Pallas
+  `_small_fwd_kernel` and `_small_bwd_kernel`).
+* `attention_bhsd` — the head-major entry (the JAX `attention`): with
+  dropout the single-tile kernels up to MAX_SEQ and the flash kernels above;
+  at rate 0 the flash kernels from a key length of PALLAS_MIN_KV_LEN and
+  `mha_reference` below it.
 
 Masking follows the JAX package: a masked score becomes the finite value
 -0.7 * float32 max, so a row with no valid key averages v instead of giving
@@ -33,6 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from m3p_tpu_torch.ops import _build
 from m3p_tpu_torch.ops.philox import keep_mask_tiles, keep_threshold, seed_key
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -259,10 +269,7 @@ def attention_packed_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_kernel_args(q, k, v, kv_mask, n_heads, max_seq=MAX_SEQ,
-                       what="attention_packed"):
-    """Raise on what the kernels do not take; ``max_seq`` None = any
-    length (the flash kernels)."""
+def _check_device_and_dtype(q, k, v, kv_mask, what):
     tensors = (q, k, v) if kv_mask is None else (q, k, v, kv_mask)
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{what}: q, k, v and kv_mask must lie on one "
@@ -271,6 +278,13 @@ def _check_kernel_args(q, k, v, kv_mask, n_heads, max_seq=MAX_SEQ,
             or v.dtype != q.dtype:
         raise TypeError(f"{what} kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _check_kernel_args(q, k, v, kv_mask, n_heads, max_seq=MAX_SEQ,
+                       what="attention_packed"):
+    """Raise on what the kernels do not take; ``max_seq`` None = any
+    length (the flash kernels)."""
+    _check_device_and_dtype(q, k, v, kv_mask, what)
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"{what}: q (B, Sq, H*Dh) and k/v (B, Sk, H*Dh) "
                          f"expected, got {tuple(q.shape)}, "
@@ -295,16 +309,6 @@ def _check_kernel_args(q, k, v, kv_mask, n_heads, max_seq=MAX_SEQ,
     if kv_mask is not None and tuple(kv_mask.shape) != (b, sk):
         raise ValueError(f"{what}: kv_mask shape {tuple(kv_mask.shape)} != "
                          f"{(b, sk)}")
-
-
-def _bind(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
-    from m3p_tpu_torch.ops import _build
-
-    fn = getattr(_build.load(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return fn
 
 
 _FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
@@ -332,7 +336,8 @@ def _dropout_args(dropout_rate, dropout_seed):
 
 def _launch_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
                 dropout_seed) -> torch.Tensor:
-    fn = _bind("packed_attention", "m3p_packed_attention_fwd", _FWD_ARGTYPES)
+    fn = _build.bind("packed_attention", "m3p_packed_attention_fwd",
+                     _FWD_ARGTYPES)
     b, sq, hd = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
@@ -358,8 +363,8 @@ def _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale, dropout_rate,
                 dropout_seed) -> Tuple[torch.Tensor, ...]:
     """Two launches: dq (and the per-row softmax statistics m, l, r into a
     (B, H, Sq, 3) fp32 scratch), then dk/dv, which reads them."""
-    fn = _bind("packed_attention_bwd", "m3p_packed_attention_bwd",
-               _BWD_ARGTYPES)
+    fn = _build.bind("packed_attention_bwd", "m3p_packed_attention_bwd",
+                     _BWD_ARGTYPES)
     b, sq, hd = q.shape
     sk = k.shape[1]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -574,8 +579,8 @@ _FLASH_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
 
 def _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
                       dropout_seed) -> Tuple[torch.Tensor, torch.Tensor]:
-    fn = _bind("flash_attention", "m3p_flash_attention_fwd",
-               _FLASH_FWD_ARGTYPES)
+    fn = _build.bind("flash_attention", "m3p_flash_attention_fwd",
+                     _FLASH_FWD_ARGTYPES)
     b, sq, hd = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
@@ -603,8 +608,8 @@ def _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal, scale,
                       dropout_rate, dropout_seed) -> Tuple[torch.Tensor, ...]:
     """di = rowsum(dO . O) as one torch op, then two launches: dk/dv (one
     block per 64 keys), then dq (one block per 64 queries)."""
-    fn = _bind("flash_attention_bwd", "m3p_flash_attention_bwd",
-               _FLASH_BWD_ARGTYPES)
+    fn = _build.bind("flash_attention_bwd", "m3p_flash_attention_bwd",
+                     _FLASH_BWD_ARGTYPES)
     b, sq, hd = q.shape
     sk = k.shape[1]
     di = flash_row_dot(o, do, n_heads).contiguous()
@@ -744,3 +749,311 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         fn = attention_flash
     return fn(q, k, v, kv_mask, n_heads, causal, sm_scale, dropout_rate,
               dropout_seed)
+
+
+# ---------------------------------------------------------------------------
+# head-major single-tile attention (#3/#4) and the head-major entry
+# ---------------------------------------------------------------------------
+
+# the JAX entry's rate-0 switch to the flash kernels
+# (`m3p_tpu/ops/attention.py:931`)
+PALLAS_MIN_KV_LEN = 512
+
+
+def _small_probs(q, k, kv_mask, causal, scale):
+    """fp32 softmax weights (B, H, Sq, Sk) of head-major q and k, as the
+    Pallas `_small_p` computes them: max, exp, sum, divide."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = _masked_scores(s, kv_mask, causal)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def small_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              kv_mask: Optional[torch.Tensor] = None,
+                              causal: bool = False,
+                              sm_scale: Optional[float] = None,
+                              dropout_rate: float = 0.0,
+                              dropout_seed: Optional[int] = None
+                              ) -> torch.Tensor:
+    """Plain version of the head-major forward: q (B, H, Sq, D), k/v
+    (B, H, Sk, D), kv_mask (B, Sk) True = attend -> (B, H, Sq, D) in q's
+    dtype.  Step for step `_small_fwd_kernel` (`m3p_tpu/ops/attention.py:
+    696-710`): fp32 softmax weights, then with dropout
+    ``where(keep, p * (1 / (1 - rate)), 0)`` in fp32 with the Philox mask
+    of tile b*H + h (the mask the packed kernels draw for that batch and
+    head), then p rounded to v's dtype before P.V, which sums in fp32.  A
+    row without any valid key averages v over Sk, as `mha_reference` does
+    (the Pallas kernel averages over the key length padded to 128)."""
+    _check_dropout(dropout_rate, dropout_seed)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    p = _small_probs(q, k, kv_mask, causal, _scale(sm_scale, d))
+    if dropout_rate > 0.0:
+        keep = _keep(dropout_seed, dropout_rate, b, h, sq, sk, q.device)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype)
+
+
+def small_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  kv_mask: Optional[torch.Tensor],
+                                  do: torch.Tensor, causal: bool = False,
+                                  sm_scale: Optional[float] = None,
+                                  dropout_rate: float = 0.0,
+                                  dropout_seed: Optional[int] = None
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the head-major backward: (dq, dk, dv) in the shapes
+    and dtypes of q, k, v.  Step for step `_small_bwd_kernel`
+    (`m3p_tpu/ops/attention.py:713-760`), with inv = 1/(1 - rate):
+
+        p    = softmax weights (fp32)     dp   = dO V^T
+        p_dv = keep ? p.inv : 0           dp_d = keep ? dp.inv : 0
+        di   = rowsum(p_dv . dp)          ds   = p . (dp_d - di)
+        dv = p_dv^T dO     dk = scale ds^T q     dq = scale ds k
+
+    each product's operands rounded to the input dtype, summed in fp32.  A
+    masked score gets no gradient (ds = 0), as in the vjp of
+    `mha_reference`; the Pallas kernel differs on a row without any valid
+    key, where it lets dq and dk through the masked scores."""
+    _check_dropout(dropout_rate, dropout_seed)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale = _scale(sm_scale, d)
+    p = _small_probs(q, k, kv_mask, causal, scale)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.to(v.dtype).float(), v.float())
+    if dropout_rate > 0.0:
+        inv = 1.0 / (1.0 - dropout_rate)
+        keep = _keep(dropout_seed, dropout_rate, b, h, sq, sk, q.device)
+        p_dv = torch.where(keep, p * inv, 0.0)
+        dp_d = torch.where(keep, dp * inv, 0.0)
+    else:
+        p_dv, dp_d = p, dp
+    di = (p_dv * dp).sum(-1, keepdim=True)
+    ds = p * (dp_d - di)
+    valid = _attended(kv_mask, causal, sq, sk, q.device)
+    if valid is not None:
+        ds = ds.masked_fill(~valid, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_dv.to(do.dtype).float(),
+                      do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.to(q.dtype).float(),
+                      q.float()) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds.to(k.dtype).float(),
+                      k.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_small_args(q, k, v, kv_mask, what="small_attention"):
+    """Raise on what the head-major kernels do not take."""
+    _check_device_and_dtype(q, k, v, kv_mask, what)
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"{what}: q (B, H, Sq, D) and k/v (B, H, Sk, D) "
+                         f"expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if d > MAX_HEAD_DIM or not (0 < sq <= MAX_SEQ and 0 < sk <= MAX_SEQ):
+        raise ValueError(f"{what} kernel: D={d} > {MAX_HEAD_DIM} or Sq={sq}, "
+                         f"Sk={sk} outside 1..{MAX_SEQ}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"{what} kernel: grid too large")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError(f"{what} kernel: the last dimension of q/k/v must "
+                         f"be contiguous")
+    if kv_mask is not None and tuple(kv_mask.shape) != (b, sk):
+        raise ValueError(f"{what}: kv_mask shape {tuple(kv_mask.shape)} != "
+                         f"{(b, sk)}")
+
+
+def _strides(*tensors):
+    """The batch, head and row strides of each (B, H, S, D) tensor."""
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+_SMALL_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+_SMALL_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 5
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+
+
+def _launch_small_fwd(q, k, v, kv_mask, causal, scale, dropout_rate,
+                      dropout_seed) -> torch.Tensor:
+    fn = _build.bind("small_attention", "m3p_small_attention_fwd",
+                     _SMALL_FWD_ARGTYPES)
+    b, h, sq, d = q.shape
+    out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    mask = _kernel_mask(kv_mask)
+    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), None if mask is None else mask.data_ptr(),
+                 out.data_ptr(), b, sq, k.shape[2], h, d,
+                 *_strides(q, k, v, out), float(scale), int(bool(causal)),
+                 float(inv), threshold, seed, stream)
+    if err != 0:
+        raise RuntimeError(f"small_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    small_attention.launches += 1
+    return out
+
+
+def _launch_small_bwd(q, k, v, kv_mask, do, causal, scale, dropout_rate,
+                      dropout_seed) -> Tuple[torch.Tensor, ...]:
+    """Two launches: dq (and the per-row statistics into a (B, H, Sq, 3)
+    fp32 scratch), then dk/dv, which reads them."""
+    fn = _build.bind("small_attention", "m3p_small_attention_bwd",
+                     _SMALL_BWD_ARGTYPES)
+    b, h, sq, d = q.shape
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    stats = torch.empty((b, h, sq, 3), dtype=torch.float32, device=q.device)
+    mask = _kernel_mask(kv_mask)
+    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    strides = (ctypes.c_longlong * 21)(*_strides(q, k, v, do, dq, dk, dv))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            b, sq, k.shape[2], h, d, strides, float(scale),
+            int(bool(causal)), float(inv), threshold, seed)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        for phase in (0, 1):
+            err = fn(_KERNEL_DTYPES[q.dtype], phase, *args, stream)
+            if err != 0:
+                raise RuntimeError(f"small_attention backward kernel "
+                                   f"(phase {phase}) launch failed: CUDA "
+                                   f"error {err}")
+            small_attention.bwd_launches += 1
+    return dq, dk, dv
+
+
+class _SmallAttention(torch.autograd.Function):
+    """The counterpart of the `jax.custom_vjp` `_attention_pallas_small`
+    (`m3p_tpu/ops/attention.py:852-877`): saves q, k, v, the key mask and
+    the seed; the backward recomputes p and regenerates the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, scale, dropout_rate,
+                dropout_seed):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.config = (causal, scale, dropout_rate, dropout_seed)
+        if q.device.type == "cpu":
+            return small_attention_reference(q, k, v, kv_mask, causal, scale,
+                                             dropout_rate, dropout_seed)
+        return _launch_small_fwd(q, k, v, kv_mask, causal, scale,
+                                 dropout_rate, dropout_seed)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask = ctx.saved_tensors
+        grads = small_attention_bwd(q, k, v, kv_mask, do, *ctx.config)
+        return (*grads, None, None, None, None, None)
+
+
+def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    causal: bool = False, sm_scale: Optional[float] = None,
+                    dropout_rate: float = 0.0,
+                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Head-major single-tile attention: q (B, H, Sq, D), k/v (B, H, Sk,
+    D), Sq, Sk <= MAX_SEQ, kv_mask (B, Sk) True = attend -> (B, H, Sq, D);
+    differentiable in q, k and v.  Any strides with a contiguous last
+    dimension.  CPU tensors go through the plain forward and backward;
+    CUDA tensors launch `csrc/small_attention.cu`, adding one to
+    ``small_attention.launches`` per forward launch and to
+    ``small_attention.bwd_launches`` per backward launch (two per
+    backward), or raise.  There is no fallback from one to the other."""
+    _check_dropout(dropout_rate, dropout_seed)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"small_attention: no kernel for device {q.device}")
+    if q.device.type == "cuda":
+        _check_small_args(q, k, v, kv_mask)
+    scale = _scale(sm_scale, q.shape[-1])
+    return _SmallAttention.apply(q, k, v, kv_mask, bool(causal), scale,
+                                 float(dropout_rate), dropout_seed)
+
+
+def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor], do: torch.Tensor,
+                        causal: bool = False,
+                        sm_scale: Optional[float] = None,
+                        dropout_rate: float = 0.0,
+                        dropout_seed: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of `small_attention` for the output gradient ``do``:
+    the plain backward for CPU tensors, the backward kernel (two launches)
+    for CUDA tensors, else raise."""
+    _check_dropout(dropout_rate, dropout_seed)
+    scale = _scale(sm_scale, q.shape[-1])
+    if q.device.type == "cpu":
+        return small_attention_bwd_reference(q, k, v, kv_mask, do, causal,
+                                             scale, dropout_rate,
+                                             dropout_seed)
+    if q.device.type != "cuda":
+        raise ValueError(f"small_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    _check_small_args(q, k, v, kv_mask)
+    if do.shape != q.shape or do.device != q.device:
+        raise ValueError(f"small_attention_bwd: do {tuple(do.shape)} on "
+                         f"{do.device} does not match q {tuple(q.shape)}")
+    do = do.to(q.dtype)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    return _launch_small_bwd(q, k, v, kv_mask, do, causal, scale,
+                             dropout_rate, dropout_seed)
+
+
+small_attention.launches = 0
+small_attention.bwd_launches = 0
+
+
+def _small_fits(q_shape, k_shape) -> bool:
+    """One (Sq, Sk) tile per head (`m3p_tpu/ops/attention.py:881`)."""
+    return q_shape[2] <= MAX_SEQ and k_shape[2] <= MAX_SEQ
+
+
+def _flash_bhsd(q, k, v, kv_mask, causal, scale, dropout_rate, dropout_seed):
+    """The flash kernels on head-major tensors, through a copy into the
+    packed layout and a view of the output back."""
+    b, h, sq, d = q.shape
+
+    def packed(t):
+        return t.transpose(1, 2).reshape(b, t.shape[2], h * d)
+
+    out = attention_flash(packed(q), packed(k), packed(v), kv_mask, h,
+                          causal, scale, dropout_rate, dropout_seed)
+    return out.view(b, sq, h, d).transpose(1, 2)
+
+
+def attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   kv_mask: Optional[torch.Tensor] = None,
+                   causal: bool = False, sm_scale: Optional[float] = None,
+                   dropout_rate: float = 0.0,
+                   dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Head-major attention, q (B, H, Sq, D), k/v (B, H, Sk, D) -> (B, H,
+    Sq, D), dispatching as the JAX entry `attention` does
+    (`m3p_tpu/ops/attention.py:934-988`): with dropout (which needs a seed)
+    the single-tile kernels #3/#4 when Sq, Sk <= MAX_SEQ, else the flash
+    kernels #5/#6; at rate 0 the flash kernels from a key length of
+    PALLAS_MIN_KV_LEN, else `mha_reference` (XLA's attention in JAX, no
+    Pallas kernel)."""
+    _check_dropout(dropout_rate, dropout_seed)
+    scale = _scale(sm_scale, q.shape[-1])
+    if dropout_rate > 0.0:
+        if _small_fits(q.shape, k.shape):
+            return small_attention(q, k, v, kv_mask, causal, scale,
+                                   dropout_rate, dropout_seed)
+        return _flash_bhsd(q, k, v, kv_mask, causal, scale, dropout_rate,
+                           dropout_seed)
+    if k.shape[2] >= PALLAS_MIN_KV_LEN:
+        return _flash_bhsd(q, k, v, kv_mask, causal, scale, 0.0, None)
+    return mha_reference(q, k, v, kv_mask, causal=causal, sm_scale=scale)

@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from m3p_tpu_torch.ops import _build
 from m3p_tpu_torch.ops.philox import keep_mask_flat, keep_threshold, seed_key
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,16 +82,6 @@ _SCALE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 2
                       ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
 
 
-def _bind(fn_name: str, argtypes) -> ctypes._CFuncPtr:
-    from m3p_tpu_torch.ops import _build
-
-    fn = getattr(_build.load("fused_dropout"), fn_name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return fn
-
-
 def _kernel_input(t: torch.Tensor, what: str) -> torch.Tensor:
     if t.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, got "
@@ -115,11 +106,13 @@ def _launch(x: torch.Tensor, residual, seed: int, rate: float
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if residual is None:
-            fn = _bind("m3p_fused_dropout_scale", _SCALE_ARGTYPES)
+            fn = _build.bind("fused_dropout", "m3p_fused_dropout_scale",
+                             _SCALE_ARGTYPES)
             err = fn(_KERNEL_DTYPES[x.dtype], x.data_ptr(), out.data_ptr(),
                      x.numel(), *args, stream)
         else:
-            fn = _bind("m3p_fused_dropout_add", _ADD_ARGTYPES)
+            fn = _build.bind("fused_dropout", "m3p_fused_dropout_add",
+                             _ADD_ARGTYPES)
             err = fn(_KERNEL_DTYPES[x.dtype], x.data_ptr(),
                      residual.data_ptr(), out.data_ptr(), x.numel(), *args,
                      stream)

@@ -106,6 +106,34 @@ def test_the_scale_is_rounded_to_the_dtype():
     assert vals.tolist() == [0.0, torch.tensor(1 / 0.9).item()]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_unfused_dropout_keeps_flax_values(dtype):
+    """The port's unfused `dropout` (flax ``nn.Dropout`` of the JAX model)
+    gives every value both sides keep exactly flax's value, in fp32 and
+    bf16 at rate 0.1: flax divides by 1 - rate held in x's dtype.  Flax's
+    mask is read from its nonzeros on an input with no zeros."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(200_000).astype(np.float32)
+    x[x == 0] = 1.0
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jx = jnp.asarray(x, jdt)
+    flax_out = nn.Dropout(RATE).apply({}, jx, deterministic=False,
+                                      rngs={"dropout": jax.random.key(0)})
+    flax_out = torch.from_numpy(np.array(flax_out.astype(jnp.float32)))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(dtype)
+    out = tlayers.dropout(tx, RATE, False, Generators.from_seed(5, "cpu"))
+    assert out.dtype == dtype
+    flax_kept, port_kept = flax_out != 0, out != 0
+    assert _share_ok(flax_kept, RATE) and _share_ok(port_kept, RATE)
+    both = flax_kept & port_kept
+    assert int(both.sum()) > 150_000
+    assert torch.equal(out.float()[both], flax_out[both])
+    assert torch.equal(out[~port_kept], torch.zeros_like(out[~port_kept]))
+    # the check has teeth: a product with 1 / (1 - rate) differs from flax
+    product = (tx * (1.0 / (1.0 - RATE))).float()
+    assert int((product[both] != flax_out[both]).sum()) > 1000
+
+
 @pytest.mark.parametrize("rate", [0.1, 0.5])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_dropout_add_keeps_at_the_rate_with_the_dtype_scale(dtype, rate):

@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the packed-attention forward (rate 0 and with Philox dropout) and backward,
-the flash-attention forward and backward (any length), the mask identity
-of each forward/backward pair (V = identity), and the fused residual
-dropout forward and backward, bit for bit, with its mask identity (x = 1,
-residual = 0).
+the flash-attention forward and backward (any length), the head-major
+single-tile attention forward and backward, the mask identity of each
+forward/backward pair (V = identity), the fused residual dropout forward
+and backward, bit for bit, with its mask identity (x = 1, residual = 0),
+and the fused FFN + LayerNorm.  Without a card, a failing launch of each
+new kernel is shown to raise (a launch stubbed to return a CUDA error).
 
 This file imports nothing of JAX, so it also runs where only PyTorch is
 installed; the `gpu` tests skip without a CUDA device.  On a machine with
@@ -13,17 +15,25 @@ the card (which has no JAX for `tests/conftest.py` to import):
         tests/test_torch_kernels.py
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
 
+from m3p_tpu_torch.ops import _build
+from m3p_tpu_torch.ops import attention as attention_ops
+from m3p_tpu_torch.ops import fused_ffn as fused_ffn_ops
 from m3p_tpu_torch.ops.attention import (
     attention_flash, attention_flash_bwd_reference, attention_flash_reference,
     attention_packed, attention_packed_bwd_reference,
-    attention_packed_reference)
+    attention_packed_reference, small_attention,
+    small_attention_bwd_reference, small_attention_reference)
 from m3p_tpu_torch.ops.dropout import (
     dropout_add, dropout_add_reference, dropout_scale,
     dropout_scale_reference)
+from m3p_tpu_torch.ops.fused_ffn import fused_ffn_ln, reference_ffn_ln
 from m3p_tpu_torch.ops.philox import keep_mask_flat, keep_mask_tiles
 
 torch.set_num_threads(1)
@@ -379,3 +389,208 @@ def test_fused_dropout_kernel_on_unaligned_views(cuda_device, dtype):
 @pytest.mark.gpu
 def test_fused_dropout_kernels_draw_the_plain_versions_mask(cuda_device):
     check_fused_dropout_mask_identity(cuda_device)
+
+
+# ---------------------------------------------------------------------------
+# head-major single-tile attention (#3/#4)
+# ---------------------------------------------------------------------------
+
+# (B, H, Dh, Sq, Sk, lengths, causal): CASES (no row without a valid key;
+# the CPU parity tests against the Pallas kernels use them), then a batch
+# row with no valid key and causal Sq > Sk (rows above the diagonal), the
+# `_small_fits` edge at Dh 64 and 128, and the flagship joint shape
+SMALL_CASES = CASES
+SMALL_GPU_CASES = CASES + [
+    (2, 2, 32, 37, 10, (10, 0), True),
+    (3, 5, 24, 77, 131, (131, 0, 60), False),
+    (2, 16, 64, 512, 512, (512, 300), False),
+    (2, 16, 128, 512, 512, (512, 300), True),
+    (80, 12, 64, 164, 164, (164, 0) + (100,) * 78, False),
+]
+
+
+def bhsd_inputs(b, h, dh, sq, sk, lens, seed=0):
+    """`packed_inputs` in the head-major layout: q (B, H, Sq, Dh), k/v
+    (B, H, Sk, Dh), the key mask (B, Sk)."""
+    q, k, v, mask = packed_inputs(b, h, dh, sq, sk, lens, seed)
+    return tuple(np.ascontiguousarray(
+        a.reshape(a.shape[0], a.shape[1], h, dh).transpose(0, 2, 1, 3))
+        for a in (q, k, v)) + (mask,)
+
+
+def small_attention_packed_view(q, k, v, kv_mask, n_heads, causal=False,
+                                sm_scale=None, dropout_rate=0.0,
+                                dropout_seed=None):
+    """`small_attention` on the head-major views (B, H, S, Dh) of packed
+    q, k, v (strided, the last dimension contiguous), its output back in
+    the packed layout: the signature of `attention_packed`, for
+    `check_mask_identity`."""
+    b, sq, hd = q.shape
+
+    def heads(t):
+        return t.view(b, t.shape[1], n_heads, hd // n_heads).transpose(1, 2)
+
+    out = small_attention(heads(q), heads(k), heads(v), kv_mask, causal,
+                          sm_scale, dropout_rate, dropout_seed)
+    return out.transpose(1, 2).reshape(b, sq, hd)
+
+
+def _small_on(device, case, dtype, seed=0):
+    b, h, dh, sq, sk, lens, _ = case
+    q, k, v, mask = (torch.from_numpy(a).to(device)
+                     for a in bhsd_inputs(b, h, dh, sq, sk, lens, seed))
+    do = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        b, h, sq, dh).astype(np.float32)).to(device)
+    return q.to(dtype), k.to(dtype), v.to(dtype), mask, do.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SMALL_GPU_CASES)
+def test_small_attention_kernels_match_plain_versions(cuda_device, case,
+                                                      dtype, rate):
+    q, k, v, mask, do = _small_on(cuda_device, case, dtype)
+    causal = case[-1]
+    seed = SEED if rate else None
+    tol_f = TOL if dtype == torch.float32 else TOL_BF16
+    tol_b = TOL_BWD if dtype == torch.float32 else TOL_BF16
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    before = (small_attention.launches, small_attention.bwd_launches)
+    out = small_attention(q, k, v, mask, causal, None, rate, seed)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (small_attention.launches, small_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 2)
+    q, k, v = (t.detach() for t in (q, k, v))
+    want = small_attention_reference(q, k, v, mask, causal, None, rate, seed)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    torch.testing.assert_close(out.detach(), want, **tol_f)
+    wants = small_attention_bwd_reference(q, k, v, mask, do, causal, None,
+                                          rate, seed)
+    for g, w in zip(got, wants):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **tol_b)
+
+
+@pytest.mark.gpu
+def test_small_attention_kernels_draw_the_plain_versions_mask(cuda_device):
+    check_mask_identity(cuda_device, attn=small_attention_packed_view)
+
+
+# ---------------------------------------------------------------------------
+# fused FFN + LayerNorm (#9)
+# ---------------------------------------------------------------------------
+
+# the kernel against its plain version: fp32 sums over D and H in another
+# order (on the tensor cores too in bf16), erff and rsqrtf within 2 ulp; in
+# bf16 each side rounds the hidden and the output once, so a value near a
+# rounding boundary may land one bf16 ulp apart (1.6e-2 relative at
+# |out| < 4)
+TOL_FFN_FP32 = dict(rtol=1e-5, atol=1e-4)
+FFN_MEAN_BF16 = 1e-3
+FFN_SHAPES = [(d, h) for d in (64, 768) for h in (4 * d,)]
+FFN_ROWS = [1, 70, 13120, 13121]
+
+
+def ffn_inputs(device, m, d, h, dtype, seed=0):
+    """x ~ N(0, 1), W ~ 0.02 N(0, 1) (the fused FFN tool's scale), nonzero
+    biases and beta, gamma away from 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, device=device, generator=gen) * scale
+                + shift).to(dtype)
+
+    return (randn(m, d), randn(d, h, scale=0.02), randn(h, scale=0.1),
+            randn(h, d, scale=0.02), randn(d, scale=0.1),
+            randn(d, scale=0.1, shift=1.0), randn(d, scale=0.1))
+
+
+def check_fused_ffn(got, want):
+    """Max and mean |kernel - plain| after the tolerance of the dtype."""
+    assert got.dtype == want.dtype and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL_FFN_FP32)
+    else:
+        torch.testing.assert_close(got, want, **TOL_BF16)
+        assert err.mean().item() <= FFN_MEAN_BF16, err.mean().item()
+    return err.max().item(), err.mean().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", FFN_ROWS)
+@pytest.mark.parametrize("d,h", FFN_SHAPES)
+def test_fused_ffn_kernel_matches_plain_version(cuda_device, d, h, m, dtype):
+    args = ffn_inputs(cuda_device, m, d, h, dtype)
+    before = fused_ffn_ln.launches
+    got = fused_ffn_ln(*args)
+    torch.cuda.synchronize()
+    assert fused_ffn_ln.launches == before + 1
+    check_fused_ffn(got, reference_ffn_ln(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h", [(1, 1), (200, 100), (1000, 70), (1024, 64),
+                                 (192, 136)])
+def test_fused_ffn_kernel_at_ragged_widths(cuda_device, d, h, dtype):
+    """D not a multiple of 32 or of a slab, H not a multiple of a chunk,
+    the largest D; in bf16 the CUDA-core kernel where D % 64 or H % 8 rule
+    out the tensor-core one."""
+    args = ffn_inputs(cuda_device, 45, d, h, dtype)
+    check_fused_ffn(fused_ffn_ln(*args), reference_ffn_ln(*args))
+
+
+@pytest.mark.gpu
+def test_fused_ffn_kernel_on_an_unaligned_x(cuda_device):
+    """x two bytes into its storage: bf16 takes the CUDA-core kernel."""
+    args = list(ffn_inputs(cuda_device, 70, 64, 256, torch.bfloat16))
+    x = torch.empty(70 * 64 + 1, device=cuda_device, dtype=torch.bfloat16)
+    x = x[1:].view(70, 64)
+    x.copy_(args[0])
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    args[0] = x
+    check_fused_ffn(fused_ffn_ln(*args), reference_ffn_ln(*args))
+
+
+# ---------------------------------------------------------------------------
+# a failing launch raises (runs without a card)
+# ---------------------------------------------------------------------------
+
+
+def _failing_launch(monkeypatch):
+    """Every C entry point returns CUDA error 700; no stream is needed."""
+    monkeypatch.setattr(_build, "bind", lambda *a: lambda *args: 700)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+
+
+def _launch_small(which):
+    q, k, v, mask, do = _small_on("cpu", CASES[0], torch.float32)
+    if which == "fwd":
+        return attention_ops._launch_small_fwd(q, k, v, mask, False, 0.25,
+                                               RATE, SEED)
+    return attention_ops._launch_small_bwd(q, k, v, mask, do, False, 0.25,
+                                           RATE, SEED)
+
+
+@pytest.mark.parametrize("which", ["small_fwd", "small_bwd", "fused_ffn"])
+def test_a_failing_launch_raises_and_counts_nothing(monkeypatch, which):
+    _failing_launch(monkeypatch)
+    before = (small_attention.launches, small_attention.bwd_launches,
+              fused_ffn_ln.launches)
+    with pytest.raises(RuntimeError, match="launch failed: CUDA error 700"):
+        if which == "fused_ffn":
+            fused_ffn_ops._launch(*ffn_inputs("cpu", 5, 8, 16,
+                                              torch.float32), 1e-12)
+        else:
+            _launch_small(which[6:])
+    assert (small_attention.launches, small_attention.bwd_launches,
+            fused_ffn_ln.launches) == before
