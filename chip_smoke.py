@@ -36,7 +36,8 @@ Phases, each of which fails the run if it fails:
      dropout 0.1, attention dropout 0, FusedAdam with bf16 moments and an
      fp32 master, clip 5.0), 2 warm-up and 10 timed steps through the
      flash kernels: samples/s, tokens/s, step ms, peak memory, launches per
-     step (12 flash forward, 24 flash backward, no packed), a profile of
+     step (12 flash forward, 24 flash backward, all on the tensor-core
+     design, no packed), a profile of
      one step and an MFU reading; fp32 gradients on the card against the
      CPU at depth 2 and S = 640; a learning check at depth 2;
   8. the MCT pre-training step (m3p_tpu_torch.bench's setup, bench.py's:
@@ -68,9 +69,12 @@ Phases, each of which fails the run if it fails:
      `python -m m3p_tpu_torch.bench_fused_ffn` at M = 13120, D = 768,
      H = 3072 in this process (kernel, plain version and the cuBLAS
      yardstick with CUDA events).
-Phases 2 and 3 hold and time the flash kernels too (fp32 and bf16, rates 0
-and 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
-shape, V = identity), and the fused dropout kernels (bit for bit against
+Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
+on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
+0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
+shape, V = identity in fp32 and bf16; each call's design read from the
+per-design launch counts; at the xMLM shape the two designs in turns on
+the same tensors), and the fused dropout kernels (bit for bit against
 their plain versions in fp32 and bf16 at rates 0.1 and 0.5, odd sizes, an
 unaligned view, the MCT shape; x = 1 mask identity).
 
@@ -328,23 +332,40 @@ def kernel_tests():
     return module
 
 
-def check_mask_identity(flash=False):
+def check_mask_identity(flash=False, dtype=None):
     """V = identity on the card: the forward kernel's zeros are the plain
     version's Philox mask, and the backward kernel's dv^T (dO = identity)
     is the forward's output; the packed kernels at S = 64, or the flash
-    kernels at S = 96 (two key tiles, the second ragged).  The check is
-    the one the `gpu` tests run (tests/test_torch_kernels.py, which imports
-    no JAX)."""
+    kernels at S = 96 (two key tiles, the second ragged), in fp32 or, for
+    the flash kernels, in bf16 through the tensor-core design.  The check
+    is the one the `gpu` tests run (tests/test_torch_kernels.py, which
+    imports no JAX)."""
+    import torch
+
     from m3p_tpu_torch.ops.attention import attention_flash
 
     module = kernel_tests()
     rate = 0.25
+    dtype = dtype or torch.float32
     kw = dict(attn=attention_flash, s=96) if flash else {}
-    name = "flash" if flash else "packed"
+    name = ("flash" if flash else "packed") + " " + str(dtype)[6:]
+    before = [dict(attention_flash.launches_by_design),
+              dict(attention_flash.bwd_launches_by_design)]
     try:
-        share = module.check_mask_identity("cuda", rate=rate, **kw)
+        share = module.check_mask_identity("cuda", rate=rate, dtype=dtype,
+                                           **kw)
     except AssertionError as exc:
         fail(f"V=I mask identity ({name}): {exc!r}")
+    if flash:   # two forward launches (with dropout, plain), one backward
+        design = module.flash_design(dtype, 96)
+        took = (launched_design(attention_flash.launches_by_design,
+                                before[0], 2),
+                launched_design(attention_flash.bwd_launches_by_design,
+                                before[1], 2))
+        if took != (design, design):
+            fail(f"V=I mask identity ({name}): took {took}, expected "
+                 f"{design}")
+        name += f", {design}"
     log(f"[check] V=I mask identity of the {name} kernels at rate {rate}: "
         f"forward == plain Philox mask, backward dv^T == forward output, "
         f"keep share {share:.4f}")
@@ -1058,8 +1079,9 @@ def flash_inputs(b, s_q, s_k, h, dh, dtype, gen, full=False):
 
 
 def flash_grads_pair(q, k, v, mask, do, h, causal, rate, seed):
-    """(kernel dq/dk/dv, plain dq/dk/dv): the plain backward reads the
-    kernel forward's output, and the plain forward's statistics."""
+    """(kernel dq/dk/dv, plain dq/dk/dv, the design the backward took): the
+    plain backward reads the kernel forward's output, and the plain
+    forward's statistics."""
     import torch
 
     from m3p_tpu_torch.ops.attention import (
@@ -1068,34 +1090,55 @@ def flash_grads_pair(q, k, v, mask, do, h, causal, rate, seed):
 
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     out = attention_flash(*leaves, mask, h, causal, None, rate, seed)
+    before = dict(attention_flash.bwd_launches_by_design)
     got = torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
+    design = launched_design(attention_flash.bwd_launches_by_design, before,
+                             2)
     _, stats = attention_flash_reference(q, k, v, mask, h, causal, None,
                                          rate, seed, return_stats=True)
     want = attention_flash_bwd_reference(q, k, v, mask, out.detach(), stats,
                                          do, h, causal, None, rate, seed)
-    return got, want
+    return got, want, design
+
+
+def launched_design(counts, before, n):
+    """The one design whose count rose, by ``n``, since ``before``."""
+    rose = {d: counts[d] - before[d] for d in counts if counts[d] != before[d]}
+    if len(rose) != 1 or list(rose.values()) != [n]:
+        fail(f"flash launches by design rose by {rose}; expected {n} "
+             f"launches of one design")
+    return next(iter(rose))
 
 
 def check_flash_kernels(gen):
-    """#5 and #6 against their plain versions at rates 0 and 0.1: small
-    odd shapes (several 64-row/64-key tiles, ragged last tiles, Sq != Sk
+    """#5 and #6 against their plain versions at rates 0 and 0.1, in both
+    designs: small odd shapes (several tiles, ragged last tiles, Sq != Sk
     both ways with the causal offset, a row with no valid key, Dh 16, 64,
-    128) in fp32, and the long-context shape B = 8, S = 2048 in fp32 and
-    bf16."""
+    128) in fp32 (CUDA cores) and bf16 (tensor cores), one bf16 shape the
+    CUDA-core design takes (Dh 24), and the long-context shape B = 8,
+    S = 2048 in fp32 and bf16.  Each call's design is read from the
+    per-design launch counts and held to the rule."""
     import torch
 
     from m3p_tpu_torch.ops.attention import (
         attention_flash, attention_flash_reference)
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # (B, Sq, Sk, H, Dh, dtype, causal, every key valid)
-        (2, 200, 200, 2, 16, f32, False, False),
-        (2, 200, 200, 2, 16, f32, True, False),
-        (2, 70, 300, 2, 16, f32, True, False),
-        (2, 300, 70, 2, 16, f32, True, False),
-        (2, 130, 577, 3, 64, f32, False, False),
-        (1, 96, 160, 2, 128, f32, True, False),
+    flash_design = kernel_tests().flash_design
+    odd = [  # (B, Sq, Sk, H, Dh, causal, every key valid)
+        (2, 200, 200, 2, 16, False, False),
+        (2, 200, 200, 2, 16, True, False),
+        (2, 70, 300, 2, 16, True, False),
+        (2, 300, 70, 2, 16, True, False),
+        (2, 130, 577, 3, 64, False, False),
+        (1, 96, 160, 2, 128, True, False),
+    ]
+    cases = [(b, sq, sk, h, dh, dt, causal, full)
+             for dt in (f32, bf16)
+             for b, sq, sk, h, dh, causal, full in odd]
+    cases += [
+        (2, 150, 260, 2, 24, bf16, True, False),     # CUDA cores in bf16
         (2, 1030, 1030, 12, 64, bf16, False, False),
         (LONG_B, LONG_S, LONG_S, 12, 64, f32, False, True),
         (LONG_B, LONG_S, LONG_S, 12, 64, bf16, False, True),
@@ -1105,71 +1148,100 @@ def check_flash_kernels(gen):
         tol_f = TOL_FP32 if dt == f32 else TOL_BF16
         tol_b = TOL_BWD_FP32 if dt == f32 else TOL_BF16
         q, k, v, mask, do = flash_inputs(b, sq, sk, h, dh, dt, gen, full)
+        design = flash_design(dt, dh)
         name = str(dt).replace("torch.", "")
+        key = name if dt == f32 else f"{name}_{design}"
         shape = (f"B={b} Sq={sq} Sk={sk} H={h} Dh={dh} {name} "
                  f"causal={causal}")
         msg = []
         for rate in (0.0, RATE):
             seed = SEED if rate else None
+            before = dict(attention_flash.launches_by_design)
             got = attention_flash(q, k, v, mask, h, causal, None, rate, seed)
             torch.cuda.synchronize()
+            took = launched_design(attention_flash.launches_by_design,
+                                   before, 1)
             want = attention_flash_reference(q, k, v, mask, h, causal, None,
                                              rate, seed)
             err = _compare(got, want, tol_f, f"flash forward rate {rate} "
                                              f"{shape}")
-            worst["fwd"][name] = max(worst["fwd"].get(name, 0.0), err)
-            got, want = flash_grads_pair(q, k, v, mask, do, h, causal, rate,
-                                         seed)
+            worst["fwd"][key] = max(worst["fwd"].get(key, 0.0), err)
+            got, want, took_bwd = flash_grads_pair(q, k, v, mask, do, h,
+                                                   causal, rate, seed)
+            if (took, took_bwd) != (design, design):
+                fail(f"flash {shape}: the forward took {took} and the "
+                     f"backward {took_bwd}; the rule names {design}")
             errs = [_compare(g, w, tol_b, f"flash backward d{n} rate {rate} "
                                           f"{shape}")
                     for n, g, w in zip("qkv", got, want)]
-            worst["bwd"][name] = max(worst["bwd"].get(name, 0.0), max(errs))
+            worst["bwd"][key] = max(worst["bwd"].get(key, 0.0), max(errs))
             msg.append(f"rate {rate}: fwd {err:.3e}, dq/dk/dv "
                        + "/".join(f"{e:.3e}" for e in errs))
             del got, want
-        log(f"[check] flash {shape}: max|kernel-plain| " + "; ".join(msg)
-            + f" (tolerance fwd {tol_f}, bwd {tol_b})")
+        log(f"[check] flash {shape} ({design}): max|kernel-plain| "
+            + "; ".join(msg) + f" (tolerance fwd {tol_f}, bwd {tol_b})")
         del q, k, v, mask, do
         torch.cuda.empty_cache()
     # the comparison has teeth: causal and dropout change the output
-    q, k, v, mask, _ = flash_inputs(2, 200, 200, 2, 16, f32, gen)
-    full_out = attention_flash(q, k, v, mask, 2)
-    off = min((attention_flash(q, k, v, mask, 2, True) - full_out)
-              .abs().max().item(),
-              (attention_flash(q, k, v, mask, 2, False, None, RATE, SEED)
-               - full_out).abs().max().item())
-    if off < 0.1:
-        fail(f"flash: causal or dropout leaves the output unchanged ({off}); "
-             f"check is vacuous")
+    for dt in (f32, bf16):
+        q, k, v, mask, _ = flash_inputs(2, 200, 200, 2, 16, dt, gen)
+        full_out = attention_flash(q, k, v, mask, 2)
+        off = min((attention_flash(q, k, v, mask, 2, True) - full_out)
+                  .abs().max().item(),
+                  (attention_flash(q, k, v, mask, 2, False, None, RATE, SEED)
+                   - full_out).abs().max().item())
+        if off < 0.1:
+            fail(f"flash {dt}: causal or dropout leaves the output "
+                 f"unchanged ({off}); check is vacuous")
     return worst
 
 
 def time_flash_kernels(gen):
     """#5 and #6 at the long-context shape (B = 8, S = 2048, H = 12,
-    Dh = 64, bf16, every key valid): rate 0 (the path's) and 0.1 in turns,
-    the plain versions, and SDPA's forward and its autograd backward on the
-    same inputs and mask."""
+    Dh = 64, bf16, every key valid): the tensor-core design (the path's)
+    and the CUDA-core design on the same tensors in turns, at rates 0 (the
+    path's) and 0.1; the plain versions; SDPA's forward and its autograd
+    backward on the same inputs and mask."""
     import torch
     import torch.nn.functional as F
 
+    from m3p_tpu_torch.ops import attention as ops
     from m3p_tpu_torch.ops.attention import (
-        attention_flash, attention_flash_bwd, attention_flash_bwd_reference,
-        attention_flash_reference)
+        attention_flash_bwd_reference, attention_flash_reference)
 
     b, s, h, dh = LONG_B, LONG_S, 12, 64
     q, k, v, mask, do = flash_inputs(b, s, s, h, dh, torch.bfloat16, gen,
                                      full=True)
-    ms, ms_drop = in_turns(
-        lambda: attention_flash(q, k, v, mask, h),
-        lambda: attention_flash(q, k, v, mask, h, False, None, RATE, SEED))
-    plain_ms = cuda_ms(lambda: attention_flash_reference(q, k, v, mask, h),
-                       iters=3, warmup=1)
+    scale = dh ** -0.5
     out, stats = attention_flash_reference(q, k, v, mask, h,
                                            return_stats=True)
-    bwd_ms, bwd_drop_ms = in_turns(
-        lambda: attention_flash_bwd(q, k, v, mask, out, stats, do, h),
-        lambda: attention_flash_bwd(q, k, v, mask, out, stats, do, h, False,
-                                    None, RATE, SEED))
+
+    def fwd(rate, design=None):
+        seed = SEED if rate else None
+        return lambda: ops._launch_flash_fwd(q, k, v, mask, h, False, scale,
+                                             rate, seed, design)
+
+    def bwd(rate, design=None):
+        seed = SEED if rate else None
+        return lambda: ops._launch_flash_bwd(q, k, v, mask, out, stats, do,
+                                             h, False, scale, rate, seed,
+                                             design)
+
+    for fn, counts, n in ((fwd(0.0), ops.attention_flash.launches_by_design,
+                           1),
+                          (bwd(0.0),
+                           ops.attention_flash.bwd_launches_by_design, 2)):
+        before = dict(counts)
+        fn()
+        torch.cuda.synchronize()
+        if launched_design(counts, before, n) != "tensor_cores":
+            fail("the xMLM shape does not take the tensor-core design")
+    ms, ms_cc = in_turns(fwd(0.0), fwd(0.0, "cuda_cores"))
+    ms_drop, ms_cc_drop = in_turns(fwd(RATE), fwd(RATE, "cuda_cores"))
+    plain_ms = cuda_ms(lambda: attention_flash_reference(q, k, v, mask, h),
+                       iters=3, warmup=1)
+    bwd_ms, bwd_cc = in_turns(bwd(0.0), bwd(0.0, "cuda_cores"))
+    bwd_drop_ms, bwd_cc_drop = in_turns(bwd(RATE), bwd(RATE, "cuda_cores"))
     bwd_plain_ms = cuda_ms(lambda: attention_flash_bwd_reference(
         q, k, v, mask, out, stats, do, h), iters=3, warmup=1)
     qh, kh, vh, doh = (t.view(b, s, h, dh).transpose(1, 2).contiguous()
@@ -1188,29 +1260,40 @@ def time_flash_kernels(gen):
     fwd_bytes = 4 * elems * 2 + b * s + stat_bytes
     fwd_flops = 4 * b * h * s * s * dh
     # backward: q, k, v, o, dO, mask, (m, l) in; dq, dk, dv out; QK^T,
-    # dO V^T, P^T dO, dS^T Q, dS K
+    # dO V^T, P^T dO, dS^T Q, dS K (the design does seven: QK^T and dO V^T
+    # again in the dq pass)
     bwd_bytes = 8 * elems * 2 + b * s + stat_bytes
     bwd_flops = 10 * b * h * s * s * dh
     fwd_bound, fwd_by = bound(fwd_bytes, fwd_flops)
     bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops)
     shape = {"B": b, "Sq": s, "Sk": s, "H": h, "Dh": dh, "dtype": "bfloat16"}
-    fwd = {"ms": ms, "ms_rate_0.1": ms_drop, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
-           "bytes": fwd_bytes, "flops": fwd_flops, "shape": shape,
-           "tflops_per_s": fwd_flops / ms / 1e9}
-    bwd = {"ms": bwd_ms, "ms_rate_0.1": bwd_drop_ms,
-           "plain_ms": bwd_plain_ms, "library_ms": lib_bwd_ms,
-           "bound_ms": bwd_bound, "bound_by": bwd_by, "bytes": bwd_bytes,
-           "flops": bwd_flops, "shape": shape,
-           "tflops_per_s": bwd_flops / bwd_ms / 1e9}
-    for name, t in (("flash_attention_fwd", fwd),
-                    ("flash_attention_bwd", bwd)):
-        log(f"[time] {name} B={b} S={s} bf16: kernel {t['ms']:.4f} ms "
-            f"(rate 0.1: {t['ms_rate_0.1']:.4f}; in turns, "
-            f"{t['tflops_per_s']:.2f} TFLOP/s), plain {t['plain_ms']:.4f}, "
-            f"sdpa {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']})")
-    return fwd, bwd
+    res = {}
+    for name, t in (("flash_attention_fwd", {
+            "ms": ms, "ms_rate_0.1": ms_drop, "ms_cuda_cores": ms_cc,
+            "ms_cuda_cores_rate_0.1": ms_cc_drop, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": fwd_bound, "bound_by": fwd_by,
+            "bytes": fwd_bytes, "flops": fwd_flops}),
+            ("flash_attention_bwd", {
+            "ms": bwd_ms, "ms_rate_0.1": bwd_drop_ms,
+            "ms_cuda_cores": bwd_cc, "ms_cuda_cores_rate_0.1": bwd_cc_drop,
+            "plain_ms": bwd_plain_ms, "library_ms": lib_bwd_ms,
+            "bound_ms": bwd_bound, "bound_by": bwd_by, "bytes": bwd_bytes,
+            "flops": bwd_flops})):
+        t.update(shape=shape, design="tensor_cores",
+                 tflops_per_s=t["flops"] / t["ms"] / 1e9,
+                 tflops_per_s_cuda_cores=t["flops"] / t["ms_cuda_cores"]
+                 / 1e9,
+                 speedup_over_cuda_cores=t["ms_cuda_cores"] / t["ms"])
+        res[name] = t
+        log(f"[time] {name} B={b} S={s} bf16, in turns (CUDA events): "
+            f"tensor cores {t['ms']:.4f} ms ({t['tflops_per_s']:.2f} "
+            f"TFLOP/s; rate 0.1: {t['ms_rate_0.1']:.4f}), CUDA cores "
+            f"{t['ms_cuda_cores']:.4f} ms ({t['tflops_per_s_cuda_cores']:.2f}"
+            f" TFLOP/s; rate 0.1: {t['ms_cuda_cores_rate_0.1']:.4f}), "
+            f"{t['speedup_over_cuda_cores']:.2f}x; plain "
+            f"{t['plain_ms']:.4f}, sdpa {t['library_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return res["flash_attention_fwd"], res["flash_attention_bwd"]
 
 
 # ---------------------------------------------------------------------------
@@ -1300,10 +1383,7 @@ def long_context_slice(seed):
     end = torch.cuda.Event(enable_timing=True)
     metrics = []
     # ---- the main path, counted ----
-    attention_flash.launches = 0
-    attention_flash.bwd_launches = 0
-    attention_packed.launches = 0
-    attention_packed.bwd_launches = 0
+    zero_launch_counts()
     for i in range(n_steps):
         if i == LONG_WARMUP:
             torch.cuda.synchronize()
@@ -1316,6 +1396,8 @@ def long_context_slice(seed):
     wall_s = time.perf_counter() - wall0
     launches = (attention_flash.launches, attention_flash.bwd_launches)
     packed = (attention_packed.launches, attention_packed.bwd_launches)
+    by_design = {"fwd": dict(attention_flash.launches_by_design),
+                 "bwd": dict(attention_flash.bwd_launches_by_design)}
     # ---- checks ----
     step_ms = start.elapsed_time(end) / LONG_STEPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1327,6 +1409,10 @@ def long_context_slice(seed):
              f"steps; expected {per_step} per step")
     if packed != (0, 0):
         fail(f"{packed} packed launches on the long-context path")
+    if (by_design["fwd"]["tensor_cores"], by_design["bwd"]["tensor_cores"]) \
+            != launches:
+        fail(f"flash launches by design {by_design}: not every launch of "
+             f"the xMLM step took the tensor-core design")
     moved = {n: (p.detach().float() - watched[n].float()).abs().max().item()
              for n, p in model.named_parameters() if n in watched}
     if state.step != n_steps or not all(v > 0 for v in moved.values()):
@@ -1339,6 +1425,7 @@ def long_context_slice(seed):
         "peak_memory_gb": peak_gb, "b": LONG_B, "s": LONG_S,
         "launches": {"fwd": launches[0], "bwd": launches[1],
                      "packed": packed[0] + packed[1]},
+        "launches_by_design": by_design,
         "launches_per_step": {"fwd": per_step[0], "bwd": per_step[1]},
         "flops_per_step": flops,
         "mfu": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
@@ -1353,7 +1440,8 @@ def long_context_slice(seed):
         f"{numbers['wall_step_ms']:.2f} ms a step, peak memory "
         f"{peak_gb:.2f} GB; launches flash fwd {launches[0]} = "
         f"{per_step[0]} x {n_steps}, bwd {launches[1]} = {per_step[1]} x "
-        f"{n_steps}, packed {packed}; {flops / 1e12:.3f} TFLOP a step, MFU "
+        f"{n_steps}, packed {packed}, by design {by_design}; "
+        f"{flops / 1e12:.3f} TFLOP a step, MFU "
         f"{numbers['mfu']:.4f} of 989 TF/s; loss {losses[0].item():.4f} -> "
         f"{losses[-1].item():.4f}; max |param change| {moved}")
     numbers["profile"] = profile_window(
@@ -1598,6 +1686,10 @@ def zero_launch_counts():
                small_attention):
         fn.launches = 0
         fn.bwd_launches = 0
+    for counts in (attention_flash.launches_by_design,
+                   attention_flash.bwd_launches_by_design):
+        for design in counts:
+            counts[design] = 0
     fused_ffn_ln.launches = 0
 
 
@@ -1611,6 +1703,10 @@ def launch_counts():
             "packed_bwd": attention_packed.bwd_launches,
             "flash_fwd": attention_flash.launches,
             "flash_bwd": attention_flash.bwd_launches,
+            "flash_fwd_tensor_cores":
+                attention_flash.launches_by_design["tensor_cores"],
+            "flash_bwd_tensor_cores":
+                attention_flash.bwd_launches_by_design["tensor_cores"],
             "dropout_fwd": dropout_add.launches,
             "dropout_bwd": dropout_add.bwd_launches,
             "small_fwd": small_attention.launches,
@@ -1625,7 +1721,8 @@ def mct_per_step(cfg, encodes=1):
     layers = cfg.n_layers + cfg.refine_layers
     fused = 2 * cfg.n_layers if cfg.use_fused_dropout else 0
     return {"packed_fwd": layers * encodes, "packed_bwd": 2 * layers * encodes,
-            "flash_fwd": 0, "flash_bwd": 0, "dropout_fwd": fused * encodes,
+            "flash_fwd": 0, "flash_bwd": 0, "flash_fwd_tensor_cores": 0,
+            "flash_bwd_tensor_cores": 0, "dropout_fwd": fused * encodes,
             "dropout_bwd": fused * encodes, "small_fwd": 0, "small_bwd": 0,
             "fused_ffn": 0}
 
@@ -1970,7 +2067,8 @@ def head_major_path():
     torch.cuda.synchronize()
     counts = launch_counts()
     want = {k_: 0 for k_ in counts}
-    want.update(small_fwd=3, small_bwd=6, flash_fwd=1, flash_bwd=2)
+    want.update(small_fwd=3, small_bwd=6, flash_fwd=1, flash_bwd=2,
+                flash_fwd_tensor_cores=1, flash_bwd_tensor_cores=2)
     if counts != want:
         fail(f"attention_bhsd: launches {counts}, expected {want}")
     tensors = [lout, *lgrads, det] + [t for o, g in outs for t in (o, *g)]
@@ -2200,6 +2298,7 @@ def main() -> int:
     keep_share = check_mask_identity()
     flash_worst = check_flash_kernels(gen)
     flash_share = check_mask_identity(flash=True)
+    flash_share_bf16 = check_mask_identity(flash=True, dtype=torch.bfloat16)
     drop_worst, drop_share = check_fused_dropout(gen)
     times = time_kernels(gen)
     train_times = time_training_kernels(gen)
@@ -2309,14 +2408,21 @@ def main() -> int:
         "replaces": "m3p_tpu/ops/attention.py:177",
         "launches": long_ctx["launches"]["fwd"],
         "launches_per_step": long_ctx["launches_per_step"]["fwd"],
-        "max_abs_err": flash_worst["fwd"]["bfloat16"],
+        "launches_by_design": long_ctx["launches_by_design"]["fwd"],
+        "design": flash_fwd["design"],
+        "max_abs_err": flash_worst["fwd"]["bfloat16_tensor_cores"],
+        "max_abs_err_cuda_cores": flash_worst["fwd"]["bfloat16_cuda_cores"],
         "max_abs_err_fp32": flash_worst["fwd"]["float32"],
         "ms": flash_fwd["ms"], "plain_ms": flash_fwd["plain_ms"],
         "bound_ms": flash_fwd["bound_ms"], "bound_by": flash_fwd["bound_by"],
         "library_ms": flash_fwd["library_ms"],
         "ms_rate_0.1": flash_fwd["ms_rate_0.1"],
+        "ms_cuda_cores": flash_fwd["ms_cuda_cores"],
+        "ms_cuda_cores_rate_0.1": flash_fwd["ms_cuda_cores_rate_0.1"],
+        "tflops_per_s": flash_fwd["tflops_per_s"],
         "shape": flash_fwd["shape"],
         "mask_identity_keep_share": flash_share,
+        "mask_identity_keep_share_bf16": flash_share_bf16,
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -2325,12 +2431,18 @@ def main() -> int:
         "replaces_also": "m3p_tpu/ops/attention.py:512",
         "launches": long_ctx["launches"]["bwd"],
         "launches_per_step": long_ctx["launches_per_step"]["bwd"],
-        "max_abs_err": flash_worst["bwd"]["bfloat16"],
+        "launches_by_design": long_ctx["launches_by_design"]["bwd"],
+        "design": flash_bwd["design"],
+        "max_abs_err": flash_worst["bwd"]["bfloat16_tensor_cores"],
+        "max_abs_err_cuda_cores": flash_worst["bwd"]["bfloat16_cuda_cores"],
         "max_abs_err_fp32": flash_worst["bwd"]["float32"],
         "ms": flash_bwd["ms"], "plain_ms": flash_bwd["plain_ms"],
         "bound_ms": flash_bwd["bound_ms"], "bound_by": flash_bwd["bound_by"],
         "library_ms": flash_bwd["library_ms"],
         "ms_rate_0.1": flash_bwd["ms_rate_0.1"],
+        "ms_cuda_cores": flash_bwd["ms_cuda_cores"],
+        "ms_cuda_cores_rate_0.1": flash_bwd["ms_cuda_cores_rate_0.1"],
+        "tflops_per_s": flash_bwd["tflops_per_s"],
         "shape": flash_bwd["shape"],
     }, {
         "name": "fused_dropout_fwd",

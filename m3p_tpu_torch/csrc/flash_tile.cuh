@@ -1,11 +1,15 @@
 // Tile helpers shared by the flash-attention forward and backward kernels
 // (flash_attention.cu, flash_attention_bwd.cu), sm_90a.
 //
-// A block works on 64 x 64 (query x key) tiles with 256 threads laid out
-// 16 x 16: thread (ty, tx) = (tid / 16, tid % 16) owns query rows
-// ty + 16 i and keys (or head-dim columns) tx + 16 j, i, j < 4.  Operand
-// tiles sit in shared memory as fp32 with an odd row pitch (dh + 1), so the
-// 16 lanes that read one column of 16 different rows hit 16 banks.
+// Each of the two files holds two designs of its kernel, and its C entry
+// point launches the one the caller names: bf16 on the tensor cores
+// (mma.sync, mma.cuh) where `tc_fits` holds, and on CUDA cores, fp32 and
+// bf16 at any shape.  Below, the CUDA-core design's tile: a block works
+// on 64 x 64 (query x key) tiles with 256 threads laid out 16 x 16: thread
+// (ty, tx) = (tid / 16, tid % 16) owns query rows ty + 16 i and keys (or
+// head-dim columns) tx + 16 j, i, j < 4.  Operand tiles sit in shared
+// memory as fp32 with an odd row pitch (dh + 1), so the 16 lanes that read
+// one column of 16 different rows hit 16 banks.
 
 #pragma once
 
@@ -15,6 +19,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace m3p {
@@ -102,20 +107,70 @@ __device__ __forceinline__ void tile_dots(const float* a_s, const float* b_s,
   }
 }
 
-// keep_s[r * kTile + c] = Philox keep bit of (row q0 + r, key k0 + c) in
-// `tile`, for the whole 64 x 64 tile (k0 is a multiple of 4)
+// keep_s[r * kCols + c] = Philox keep bit of (row q0 + r, key k0 + c) in
+// `tile`, for the whole kRows x kCols tile (k0 is a multiple of 4)
+template <int kRows = kTile, int kCols = kTile>
 __device__ void fill_keep(uint8_t* keep_s, unsigned long long seed,
                           uint32_t threshold, int tile, int q0, int k0) {
-  constexpr int kGroups = kTile / 4;
-  for (int i = threadIdx.x; i < kTile * kGroups; i += kThreads) {
+  constexpr int kGroups = kCols / 4;
+  for (int i = threadIdx.x; i < kRows * kGroups; i += kThreads) {
     const int r = i / kGroups, g = i - r * kGroups;
     const uint4 bits = keep_bits(seed, tile, q0 + r, k0 / 4 + g);
-    uint8_t* out = keep_s + r * kTile + 4 * g;
+    uint8_t* out = keep_s + r * kCols + 4 * g;
     out[0] = bits.x >= threshold;
     out[1] = bits.y >= threshold;
     out[2] = bits.z >= threshold;
     out[3] = bits.w >= threshold;
   }
+}
+
+// rows [row0, row0 + n) of a (S, H*Dh) bf16 slab (row stride `stride`,
+// head columns at src) into a (kRows, ld) shared tile, one 16-byte cp.async
+// per 8 columns; rows n .. kRows are zero-filled.  The caller commits.
+template <int kRows>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, int ld,
+                                                const __nv_bfloat16* src,
+                                                long long stride, int row0,
+                                                int n, int dh) {
+  const int vecs = dh >> 3;
+  for (int i = threadIdx.x; i < kRows * vecs; i += kThreads) {
+    const int r = i / vecs, c = (i - r * vecs) << 3;
+    const bool in = r < n;
+    mma::cp_async_16(dst + r * ld + c,
+                     in ? src + (row0 + r) * stride + c : src, in);
+  }
+}
+
+// Whether all kTile keys from k0 are attended by every query row at or
+// after r0, given limit = r0 + Sk - Sq (the causal diagonal of row r0): a
+// full tile (kn == kTile), no masked key, no key past that diagonal.
+// Warp-uniform: each lane reads kTile / 32 mask bytes, then a vote.
+__device__ __forceinline__ bool whole_tile(const uint8_t* mb, int causal,
+                                           int k0, int kn, int limit,
+                                           int lane) {
+  bool whole = kn == kTile && !(causal && k0 + kTile - 1 > limit);
+  if (whole && mb != nullptr) {
+#pragma unroll
+    for (int i = 0; i < kTile / 32; ++i)
+      whole = whole && mb[k0 + lane + 32 * i] != 0;
+  }
+  return __all_sync(0xffffffffu, whole);
+}
+
+// The tensor-core design takes bf16 tensors whose head dim is a multiple of
+// 16 up to 128, whose base pointers are 16-byte aligned and whose batch and
+// row strides are multiples of 8 elements, so that every head's row starts
+// on 16 bytes (cp.async, ldmatrix).  ops/attention.py::_flash_design applies
+// the same rule to choose the design; the C entry points refuse a tensor-core
+// launch that breaks it.
+inline bool tc_fits(int dh, const void* const* ptrs, int n_ptrs,
+                    const long long* strides, int n_strides) {
+  if (dh < 1 || dh > 128 || dh % 16 != 0) return false;
+  for (int i = 0; i < n_ptrs; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  for (int i = 0; i < n_strides; ++i)
+    if (strides[i] % 8 != 0) return false;
+  return true;
 }
 
 }  // namespace flash

@@ -27,7 +27,8 @@
 // once from L2, 3.9 GB over the tool's 410 blocks.
 //
 // bf16 (D % 64 == 0, H % 8 == 0, 16-byte aligned x, W1, W2) runs both
-// products on the tensor cores, mma.sync m16n8k16 with fp32 sums.  Each
+// products on the tensor cores, mma.sync m16n8k16 with fp32 sums (the
+// fragment helpers of mma.cuh).  Each
 // chunk of W1 (D, 64) and then of W2 (64, D) comes into shared memory
 // whole, four 16-byte loads in flight per thread.  x and the hidden chunk
 // are A fragments read from row-major shared tiles, W1 and W2 B fragments
@@ -60,6 +61,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -252,46 +255,13 @@ fused_ffn_ln_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 
 namespace tc {
 
+using m3p::mma::ldmatrix_x2_trans;
+using m3p::mma::load_a;
+using m3p::mma::mma_16816;
+using m3p::mma::pack_bf16x2;
+
 constexpr int kPad = 8;                    // bf16 padding of a shared row
 constexpr int kNPerWarp = kSlab / 8 / (kThreads / 32);  // n-tiles: 4
-
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the B fragment (k 16 x n 8) of a row-major (k, n) shared tile: lane l < 16
-// points at row l, column 0 of the tile
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(addr));
-}
-
-// the A fragment (m 16 x k 16) at s of a row-major shared tile of pitch ld
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* s, int ld,
-                                       int lane) {
-  const __nv_bfloat16* p = s + (lane >> 2) * ld + 2 * (lane & 3);
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
-          << 16);
-}
 
 // x (kRows, D + kPad), one chunk of W1 (D, kHc + kPad) or of W2
 // (kHc, D + kPad), the hidden chunk (kRows, kHc + kPad), and the row sums

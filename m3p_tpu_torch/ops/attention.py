@@ -17,7 +17,9 @@
 * `attention_flash` / `attention_flash_bwd` — the dispatching wrappers over
   `csrc/flash_attention.cu` (replaces the Pallas `_flash_kernel`) and
   `csrc/flash_attention_bwd.cu` (replaces `_flash_bwd_dkv_kernel` and
-  `_flash_bwd_dq_kernel`).
+  `_flash_bwd_dq_kernel`); each holds two designs, bf16 on the tensor cores
+  and any dtype on CUDA cores, and `_flash_design` names the one a call
+  takes.
 * `attention` — the model's entry: packed kernels up to MAX_SEQ, flash
   kernels above, as the JAX module dispatches.
 * `small_attention_reference` / `small_attention_bwd_reference` — the plain
@@ -567,18 +569,43 @@ def attention_flash_bwd_reference(q: torch.Tensor, k: torch.Tensor,
             dv.reshape(b, sk, hd).to(v.dtype))
 
 
-_FLASH_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+_FLASH_DESIGNS = ("cuda_cores", "tensor_cores")   # the C entries' codes
+
+
+def _flash_design(n_heads: int, *tensors: torch.Tensor) -> str:
+    """The design of the flash kernels that takes these tensors (q first;
+    every (B, S, H*Dh) tensor the kernel reads or writes): "tensor_cores"
+    for bf16 with a head dim that is a multiple of 16 up to 128, 16-byte
+    aligned data and batch and row strides that are multiples of 8
+    elements, else "cuda_cores".  The rule of `tc_fits` in
+    `csrc/flash_tile.cuh`, which refuses a tensor-core launch that breaks
+    it."""
+    q = tensors[0]
+    dh = q.shape[-1] // n_heads
+    if q.dtype != torch.bfloat16 or dh % 16 or dh > MAX_HEAD_DIM:
+        return "cuda_cores"
+    if all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
+           and t.stride(1) % 8 == 0 for t in tensors):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+_FLASH_FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
-_FLASH_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
+_FLASH_BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 14
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
 
 
 def _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
-                      dropout_seed) -> Tuple[torch.Tensor, torch.Tensor]:
+                      dropout_seed, _design=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the design `_flash_design` names; ``_design``
+    "cuda_cores" takes the CUDA-core design instead (for timing the two
+    designs on the same tensors; the model path never passes it)."""
     fn = _build.bind("flash_attention", "m3p_flash_attention_fwd",
                      _FLASH_FWD_ARGTYPES)
     b, sq, hd = q.shape
@@ -586,28 +613,33 @@ def _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
     out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
     stats = torch.empty((b, n_heads, sq, 2), dtype=torch.float32,
                         device=q.device)
+    design = _design or _flash_design(n_heads, q, k, v, out)
     mask = _kernel_mask(kv_mask)
     inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), None if mask is None else mask.data_ptr(),
+        err = fn(_KERNEL_DTYPES[q.dtype], _FLASH_DESIGNS.index(design),
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
                  out.data_ptr(), stats.data_ptr(), b, sq, sk, n_heads,
                  hd // n_heads, q.stride(0), q.stride(1), k.stride(0),
                  k.stride(1), v.stride(0), v.stride(1), out.stride(0),
                  out.stride(1), float(scale), int(bool(causal)), float(inv),
                  threshold, seed, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention kernel ({design}) launch "
+                           f"failed: CUDA error {err}")
     attention_flash.launches += 1
+    attention_flash.launches_by_design[design] += 1
     return out, stats
 
 
 def _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal, scale,
-                      dropout_rate, dropout_seed) -> Tuple[torch.Tensor, ...]:
-    """di = rowsum(dO . O) as one torch op, then two launches: dk/dv (one
-    block per 64 keys), then dq (one block per 64 queries)."""
+                      dropout_rate, dropout_seed, _design=None
+                      ) -> Tuple[torch.Tensor, ...]:
+    """di = rowsum(dO . O) as one torch op, then two launches of the
+    design `_flash_design` names (``_design`` as in `_launch_flash_fwd`):
+    dk/dv (one block per key tile), then dq (one block per query tile)."""
     fn = _build.bind("flash_attention_bwd", "m3p_flash_attention_bwd",
                      _FLASH_BWD_ARGTYPES)
     b, sq, hd = q.shape
@@ -616,6 +648,7 @@ def _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal, scale,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    design = _design or _flash_design(n_heads, q, k, v, do, dq, dk, dv)
     mask = _kernel_mask(kv_mask)
     inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -630,12 +663,14 @@ def _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal, scale,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for phase in (0, 1):
-            err = fn(_KERNEL_DTYPES[q.dtype], phase, *args, stream)
+            err = fn(_KERNEL_DTYPES[q.dtype], _FLASH_DESIGNS.index(design),
+                     phase, *args, stream)
             if err != 0:
                 raise RuntimeError(f"flash_attention backward kernel "
-                                   f"(phase {phase}) launch failed: CUDA "
-                                   f"error {err}")
+                                   f"({design}, phase {phase}) launch "
+                                   f"failed: CUDA error {err}")
             attention_flash.bwd_launches += 1
+            attention_flash.bwd_launches_by_design[design] += 1
     return dq, dk, dv
 
 
@@ -682,7 +717,9 @@ def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and `csrc/flash_attention_bwd.cu` (replaces `_flash_bwd_dkv_kernel`
     and `_flash_bwd_dq_kernel`), adding one to ``attention_flash.launches``
     per forward launch and to ``attention_flash.bwd_launches`` per
-    backward launch (two per backward), or raise."""
+    backward launch (two per backward), and the same to the design's entry
+    of ``attention_flash.launches_by_design`` /
+    ``.bwd_launches_by_design`` (`_flash_design`), or raise."""
     _check_dropout(dropout_rate, dropout_seed)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_flash: no kernel for device {q.device}")
@@ -731,6 +768,8 @@ def attention_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 attention_flash.launches = 0
 attention_flash.bwd_launches = 0
+attention_flash.launches_by_design = dict.fromkeys(_FLASH_DESIGNS, 0)
+attention_flash.bwd_launches_by_design = dict.fromkeys(_FLASH_DESIGNS, 0)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,9 +3,12 @@ package: the plain forward and backward against the Pallas flash kernels in
 interpret mode (several blocks, causal, the decode offset) and against
 mha_reference and its vjp, the backward with dropout against autograd
 through the plain forward, the dropout mask identity (V = identity), the
-wrapper on CPU tensors, and which kernel the model's attention takes at
-each length.  The CUDA kernels against the plain versions are in
+wrapper on CPU tensors, which kernel the model's attention takes at each
+length, and which design of the flash kernels a call takes.  The CUDA kernels against the plain versions are in
 test_torch_kernels.py."""
+
+import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -232,3 +235,94 @@ def test_multi_head_attention_takes_the_kernel_of_its_length(monkeypatch, s,
     x = torch.randn(1, s, 16)
     out = mha(x, torch.ones(1, s, dtype=torch.bool))
     assert calls == [route] and out.shape == x.shape
+
+
+def _design_layout(dtype, dh, layout, n_heads=2, b=2, s=24):
+    """(n_heads, q, k, v) in one of the layouts the design rule tells
+    apart, on the CPU (whose allocator aligns to 64 bytes)."""
+    hd = n_heads * dh
+    if layout == "xmlm_projection":
+        # the model's q_lin/k_lin/v_lin outputs: (B, S, 768), 12 heads of 64
+        x = torch.randn(b, s, 768, dtype=dtype)
+        w = torch.randn(768, 768, dtype=dtype)
+        return (12, *(torch.nn.functional.linear(x, w) for _ in range(3)))
+    if layout == "contiguous":
+        return (n_heads, *(torch.randn(b, s, hd, dtype=dtype)
+                           for _ in range(3)))
+    if layout == "misaligned_slice":     # starts one element (2 bytes) in
+        big = torch.randn(b, s, hd + 8, dtype=dtype)
+        q = big[..., 1:hd + 1]
+    elif layout == "row_stride_not_8":   # rows of hd + 4 elements
+        q = torch.randn(b, s, hd + 4, dtype=dtype)[..., :hd]
+    else:                                # batch_stride_not_8
+        q = torch.randn(b * s * hd + 4, dtype=dtype).as_strided(
+            (b, s, hd), (s * hd + 4, hd, 1))
+    return (n_heads, q, torch.randn(b, s, hd, dtype=dtype),
+            torch.randn(b, s, hd, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype,dh,layout,want", [
+    (torch.float32, 64, "contiguous", "cuda_cores"),
+    (torch.bfloat16, 16, "contiguous", "tensor_cores"),
+    (torch.bfloat16, 24, "contiguous", "cuda_cores"),
+    (torch.bfloat16, 64, "contiguous", "tensor_cores"),
+    (torch.bfloat16, 128, "contiguous", "tensor_cores"),
+    (torch.bfloat16, 144, "contiguous", "cuda_cores"),
+    (torch.bfloat16, 64, "misaligned_slice", "cuda_cores"),
+    (torch.bfloat16, 64, "row_stride_not_8", "cuda_cores"),
+    (torch.bfloat16, 64, "batch_stride_not_8", "cuda_cores"),
+    (torch.bfloat16, 64, "xmlm_projection", "tensor_cores"),
+    (torch.float32, 64, "xmlm_projection", "cuda_cores"),
+])
+def test_flash_design_follows_the_kernel_rule(dtype, dh, layout, want):
+    """`_flash_design`: the tensor cores take bf16 with Dh a multiple of 16
+    up to 128, 16-byte aligned data and batch and row strides that are
+    multiples of 8 elements (`tc_fits` in csrc/flash_tile.cuh); any tensor
+    of the call can send it to CUDA cores."""
+    n_heads, q, k, v = _design_layout(dtype, dh, layout)
+    assert ops._flash_design(n_heads, q, k, v) == want
+    # the rule looks at every tensor, not only q
+    assert ops._flash_design(n_heads, q.contiguous(), k, v, q) == want
+    if want == "tensor_cores":
+        odd = _design_layout(dtype, dh, "row_stride_not_8", n_heads)[1]
+        assert ops._flash_design(n_heads, q, k, v, odd) == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype,forced,code", [
+    (torch.bfloat16, None, 1), (torch.bfloat16, "cuda_cores", 0),
+    (torch.float32, None, 0)])
+def test_flash_launches_pass_the_design_and_count_it(monkeypatch, dtype,
+                                                     forced, code):
+    """Each launch hands the C entry the design's code (0 CUDA cores, 1
+    tensor cores) and adds one to that design's count; ``_design`` (the
+    private argument the timing uses) names the CUDA-core design."""
+    calls = []
+
+    def entry(*args):
+        calls.append(args[:3])
+        return 0
+
+    monkeypatch.setattr(ops._build, "bind", lambda *a: entry)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    q, k, v, mask = (torch.from_numpy(a) for a in
+                     _inputs(2, 2, 64, 70, 130, (130, 40)))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    design = ops._FLASH_DESIGNS[code]
+    before = (dict(attention_flash.launches_by_design),
+              dict(attention_flash.bwd_launches_by_design))
+    out, stats = ops._launch_flash_fwd(q, k, v, mask, 2, False, 0.125, 0.0,
+                                       None, forced)
+    ops._launch_flash_bwd(q, k, v, mask, out, stats, q, 2, False, 0.125,
+                          0.0, None, forced)
+    dtype_code = 1 if dtype == torch.bfloat16 else 0
+    assert calls == [(dtype_code, code, q.data_ptr()),
+                     (dtype_code, code, 0), (dtype_code, code, 1)]
+    for counts, old, n in zip((attention_flash.launches_by_design,
+                               attention_flash.bwd_launches_by_design),
+                              before, (1, 2)):
+        assert counts == {d: old[d] + (n if d == design else 0)
+                          for d in old}

@@ -77,6 +77,30 @@ FLASH_CASES = [
 ]
 # the long-context step: B = 8, S = 2048, 12 heads of 64, every key valid
 XMLM_CASE = (8, 12, 64, 2048, 2048, (2048,) * 8, False)
+# a bf16 shape the tensor-core design does not take (Dh 24)
+FLASH_CUDA_CORES_CASE = (2, 2, 24, 150, 260, (260, 90), True)
+
+
+def flash_design(dtype, dh):
+    """The design of the flash kernels a case's fresh, contiguous tensors
+    take: the tensor cores for bf16 with Dh a multiple of 16, else CUDA
+    cores."""
+    return ("tensor_cores" if dtype == torch.bfloat16 and dh % 16 == 0
+            else "cuda_cores")
+
+
+def _design_launches():
+    return (dict(attention_flash.launches_by_design),
+            dict(attention_flash.bwd_launches_by_design))
+
+
+def _assert_design_rose(before, design, fwd, bwd):
+    """Since ``before``, ``fwd`` forward and ``bwd`` backward launches, all
+    of ``design``."""
+    after = _design_launches()
+    want = [{d: c[d] + (n if d == design else 0) for d in c}
+            for c, n in zip(before, (fwd, bwd))]
+    assert list(after) == want, (after, want)
 
 
 def packed_inputs(b, h, dh, sq, sk, lens, seed=0):
@@ -94,18 +118,21 @@ def output_grad(b, h, dh, sq, seed=1):
 
 
 def check_mask_identity(device, rate=0.25, seed=SEED, attn=attention_packed,
-                        s=64):
+                        s=64, dtype=torch.float32):
     """V = identity: with v = I per head the forward's output is
     inv * keep . p, so its zeros are the keep mask; with dO = I the
     backward's dv^T is the same matrix.  Checks both against the Philox
     mask of the plain version, the keep rate and the 1/(1 - rate) scale,
     through ``attn`` (`attention_packed` or `attention_flash`) on
-    ``device``, at S = ``s`` keys (at most 128)."""
+    ``device``, at S = ``s`` keys (at most 128), in ``dtype`` (bf16 values
+    are held to TOL_BF16: the output and dv round p at other places)."""
+    tol = TOL if dtype == torch.float32 else TOL_BF16
     b, h = 2, 2
     lens = (s, s * 5 // 8)
     q, k, _, mask = packed_inputs(b, h, s, s, s, lens, seed=7)
     eye = np.tile(np.eye(s, dtype=np.float32), (b, 1, h))   # (b, s, h*s)
-    q, k, v, do = (torch.from_numpy(a).to(device) for a in (q, k, eye, eye))
+    q, k, v, do = (torch.from_numpy(a).to(device, dtype)
+                   for a in (q, k, eye, eye))
     mask = torch.from_numpy(mask).to(device)
     q.requires_grad_(True)
     k.requires_grad_(True)
@@ -123,9 +150,9 @@ def check_mask_identity(device, rate=0.25, seed=SEED, attn=attention_packed,
     kept = out_h != 0
     assert torch.equal(kept, keep & attended)       # forward vs Philox
     assert torch.equal(dv_h != 0, kept)             # backward vs forward
-    torch.testing.assert_close(dv_h, out_h, **TOL)
+    torch.testing.assert_close(dv_h, out_h, **tol)
     torch.testing.assert_close(out_h[kept], plain_h[kept] / (1.0 - rate),
-                               **TOL)
+                               **tol)
     n = int(attended.sum())
     share = float(kept.sum()) / n
     sd = (rate * (1.0 - rate) / n) ** 0.5
@@ -258,9 +285,11 @@ def _flash_grad_check(device, case, dtype, rate, tol):
     out = attention_flash(q, k, v, mask, h, causal=causal,
                           dropout_rate=rate, dropout_seed=seed)
     before = attention_flash.bwd_launches
+    by_design = _design_launches()
     got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert attention_flash.bwd_launches == before + 2
+    _assert_design_rose(by_design, flash_design(dtype, case[2]), 0, 2)
     _, stats = attention_flash_reference(q.detach(), k.detach(), v.detach(),
                                          mask, h, causal, None, rate, seed,
                                          return_stats=True)
@@ -273,29 +302,58 @@ def _flash_grad_check(device, case, dtype, rate, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, RATE])
 @pytest.mark.parametrize("b,h,dh,sq,sk,lens,causal", FLASH_CASES)
 def test_flash_attention_kernel_matches_plain_version(cuda_device, b, h, dh,
                                                       sq, sk, lens, causal,
-                                                      rate):
-    q, k, v, mask = _on(cuda_device, packed_inputs(b, h, dh, sq, sk, lens))
+                                                      rate, dtype):
+    q, k, v, mask = _on(cuda_device, packed_inputs(b, h, dh, sq, sk, lens),
+                        dtype)
     seed = SEED if rate else None
     before = attention_flash.launches
+    by_design = _design_launches()
     got = attention_flash(q, k, v, mask, h, causal=causal, dropout_rate=rate,
                           dropout_seed=seed)
     torch.cuda.synchronize()
     assert attention_flash.launches == before + 1
+    _assert_design_rose(by_design, flash_design(dtype, dh), 1, 0)
     want = attention_flash_reference(q, k, v, mask, h, causal, None, rate,
                                      seed)
-    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(got, want,
+                               **(TOL if dtype == torch.float32
+                                  else TOL_BF16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_version(cuda_device, case,
+                                                          rate, dtype):
+    _flash_grad_check(cuda_device, case, dtype, rate,
+                      TOL_BWD if dtype == torch.float32 else TOL_BF16)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, RATE])
-@pytest.mark.parametrize("case", FLASH_CASES)
-def test_flash_attention_bwd_kernel_matches_plain_version(cuda_device, case,
-                                                          rate):
-    _flash_grad_check(cuda_device, case, torch.float32, rate, TOL_BWD)
+def test_flash_attention_kernels_bf16_on_cuda_cores(cuda_device, rate):
+    """A bf16 head dim the tensor-core design does not take (24) runs the
+    CUDA-core design in both directions."""
+    b, h, dh, sq, sk, lens, causal = FLASH_CUDA_CORES_CASE
+    q, k, v, mask = _on(cuda_device, packed_inputs(b, h, dh, sq, sk, lens),
+                        torch.bfloat16)
+    seed = SEED if rate else None
+    by_design = _design_launches()
+    got = attention_flash(q, k, v, mask, h, causal=causal, dropout_rate=rate,
+                          dropout_seed=seed)
+    torch.cuda.synchronize()
+    _assert_design_rose(by_design, "cuda_cores", 1, 0)
+    want = attention_flash_reference(q, k, v, mask, h, causal, None, rate,
+                                     seed)
+    torch.testing.assert_close(got, want, **TOL_BF16)
+    _flash_grad_check(cuda_device, FLASH_CUDA_CORES_CASE, torch.bfloat16,
+                      rate, TOL_BF16)
 
 
 @pytest.mark.gpu
@@ -306,9 +364,11 @@ def test_flash_attention_kernels_bf16_at_the_long_context_shape(cuda_device,
     q, k, v, mask = _on(cuda_device, packed_inputs(b, h, dh, sq, sk, lens),
                         torch.bfloat16)
     seed = SEED if rate else None
+    by_design = _design_launches()
     got = attention_flash(q, k, v, mask, h, dropout_rate=rate,
                           dropout_seed=seed)
     torch.cuda.synchronize()
+    _assert_design_rose(by_design, "tensor_cores", 1, 0)
     want = attention_flash_reference(q, k, v, mask, h, False, None, rate, seed)
     assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL_BF16)
@@ -316,8 +376,11 @@ def test_flash_attention_kernels_bf16_at_the_long_context_shape(cuda_device,
 
 
 @pytest.mark.gpu
-def test_flash_kernels_draw_the_plain_versions_mask(cuda_device):
-    check_mask_identity(cuda_device, attn=attention_flash, s=96)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_draw_the_plain_versions_mask(cuda_device, dtype):
+    by_design = _design_launches()
+    check_mask_identity(cuda_device, attn=attention_flash, s=96, dtype=dtype)
+    _assert_design_rose(by_design, flash_design(dtype, 96), 2, 2)
 
 
 # fused residual dropout: odd sizes (not a multiple of 4, of 128 or of a
@@ -581,16 +644,34 @@ def _launch_small(which):
                                            RATE, SEED)
 
 
-@pytest.mark.parametrize("which", ["small_fwd", "small_bwd", "fused_ffn"])
+def _launch_flash(which):
+    """A bf16 case the tensor-core design takes."""
+    q, k, v, mask, do = _grad_inputs("cpu", FLASH_CASES[0], torch.bfloat16)
+    if which == "fwd":
+        return attention_ops._launch_flash_fwd(q, k, v, mask, 2, False, 0.25,
+                                               RATE, SEED)
+    stats = torch.zeros(2, 2, 200, 2)
+    return attention_ops._launch_flash_bwd(q, k, v, mask, q, stats, do, 2,
+                                           False, 0.25, RATE, SEED)
+
+
+def _all_launch_counts():
+    return (small_attention.launches, small_attention.bwd_launches,
+            fused_ffn_ln.launches, attention_flash.launches,
+            attention_flash.bwd_launches, _design_launches())
+
+
+@pytest.mark.parametrize("which", ["small_fwd", "small_bwd", "fused_ffn",
+                                   "flash_fwd", "flash_bwd"])
 def test_a_failing_launch_raises_and_counts_nothing(monkeypatch, which):
     _failing_launch(monkeypatch)
-    before = (small_attention.launches, small_attention.bwd_launches,
-              fused_ffn_ln.launches)
+    before = _all_launch_counts()
     with pytest.raises(RuntimeError, match="launch failed: CUDA error 700"):
         if which == "fused_ffn":
             fused_ffn_ops._launch(*ffn_inputs("cpu", 5, 8, 16,
                                               torch.float32), 1e-12)
+        elif which.startswith("flash"):
+            _launch_flash(which[6:])
         else:
             _launch_small(which[6:])
-    assert (small_attention.launches, small_attention.bwd_launches,
-            fused_ffn_ln.launches) == before
+    assert _all_launch_counts() == before
