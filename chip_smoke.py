@@ -9,12 +9,15 @@ Phases, each of which fails the run if it fails:
   2. hold each kernel against its plain PyTorch version on the card, at
      small odd shapes and at the shapes the two paths give it: the packed
      attention forward at dropout rates 0 and 0.1, the backward at 0 and
-     0.1, fp32 and bf16, with a batch row that has no valid key; then the
-     V = identity check that the forward, the backward and the plain
-     version draw one Philox dropout mask;
+     0.1, fp32 (CUDA cores) and bf16 in both designs (tensor cores, and
+     forced to CUDA cores), with a batch row that has no valid key; then
+     the V = identity check (fp32, and bf16 through the tensor cores) that
+     the forward, the backward and the plain version draw one Philox
+     dropout mask;
   3. time each kernel, its plain version and the one-call PyTorch
-     yardstick (SDPA, the autograd backward of SDPA) at the paths' shapes,
-     beside the least time the card needs;
+     yardstick (SDPA, the autograd backward of SDPA replayed from a CUDA
+     graph) at the paths' shapes, beside the least time the card needs;
+     the packed backward's two designs in turns on the same tensors;
   4. serve the flagship width (12 blocks, 768d, 12 heads, 3 AoA refiner
      layers, 100 regions, 250002-word vocab, bf16 compute, random weights
      from the seed) over HTTP: /health, /v1/score with one and with 64
@@ -27,7 +30,8 @@ Phases, each of which fails the run if it fails:
   6. train: the ITM retrieval fine-tune step at the flagship width (dropout
      and attention dropout 0.1, BN = 80 = 20 groups x 4 candidates, fp32
      parameters, clip 5.0 + adam_inverse_sqrt), 3 warm-up and 20 timed
-     steps: samples/s, step ms, peak memory, kernel launches per step;
+     steps: samples/s, step ms, peak memory, kernel launches per step
+     (every backward launch on the tensor-core design);
      fp32 gradients on the card against the CPU at depth 2 (rate 0); a
      learning check at depth 2 (50 steps on one batch); a profile of one
      training step;
@@ -47,8 +51,9 @@ Phases, each of which fails the run if it fails:
      3 warm-up and 20 timed steps in two configurations: A, bench.py's
      (use_fused_dropout off), and B, every residual dropout through the
      fused dropout kernels: samples/s, step ms, peak memory, launches per
-     step (15 packed forward, 30 packed backward, 24 + 24 fused dropout in
-     B, none in A), a profile of one step and an MFU reading; one step of B
+     step (15 packed forward, 30 packed backward all on the tensor cores,
+     24 + 24 fused dropout in B, none in A), a profile of one step and an
+     MFU reading; one step of B
      with CLCM (launches doubled); fp32 gradients of the whole loss on the
      card against the CPU at depth 2 with CLCM and fused dropout at 0.1
      (the same seeds and masks on both sides); a learning check at depth 2;
@@ -56,13 +61,14 @@ Phases, each of which fails the run if it fails:
      (csrc/small_attention.cu) against their plain versions (fp32 and
      bf16, rates 0 and 0.1, causal, Sq != Sk, a row with no valid key, odd
      shapes, the single-tile edge S = 512 at Dh 64 and 128, the flagship
-     joint shape), the V = identity check, `attention_bhsd` against the
+     joint shape; #4 in bf16 in both designs), the V = identity check,
+     `attention_bhsd` against the
      packed path on the same tensors and seed; the main path counted
      (`attention_bhsd` forward and backward with dropout at (80, 12, 164,
      64) bf16, three times, then S = 640 through the flash kernels and rate
      0 through `mha_reference`); #3/#4 timed with CUDA events beside
-     #1/#2 on packed copies (in turns), their plain versions, SDPA and its
-     backward; #9 (csrc/fused_ffn.cu) against
+     #1/#2 on packed copies (in turns), #4's two designs in turns, their
+     plain versions, SDPA and its backward; #9 (csrc/fused_ffn.cu) against
      its plain version (fp32 and bf16, M in {1, 70, 13120, 13121}, (D, H)
      in {(64, 256), (768, 3072)}, ragged widths), against a flagship bf16
      EncoderBlock's ln2(x + ffn(x)), and its main path counted:
@@ -255,30 +261,39 @@ def _compare(got, want, tol, what):
 
 def check_dropout_and_backward(gen):
     """#1 at rate 0.1 and #2 at rates 0 and 0.1 against their plain
-    versions: small odd shapes, the largest shape the kernels take, and the
-    training shapes (B = 80; encoder blocks at S = 164, the refiner at
-    S = 100), each with a batch row that has no valid key."""
+    versions: small odd shapes (causal, Sq != Sk both ways), the largest
+    shape the kernels take at Dh 64 and 128, and the training shapes
+    (B = 80; encoder blocks at S = 164, the refiner at S = 100), each with a
+    batch row that has no valid key.  #2 in fp32 (CUDA cores) and bf16 in
+    both designs: the one the rule names (the tensor cores at these shapes,
+    CUDA cores at Dh 8) and forced to CUDA cores, each call's design read
+    from the per-design launch counts."""
     import torch
 
+    from m3p_tpu_torch.ops import attention as ops
     from m3p_tpu_torch.ops.attention import (
         attention_packed, attention_packed_bwd,
         attention_packed_bwd_reference, attention_packed_reference)
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [  # (B, Sq, Sk, H, Dh, dtype, causal)
-        (2, 40, 40, 3, 16, f32, False),
-        (2, 40, 40, 3, 16, f32, True),
-        (2, 10, 37, 3, 16, f32, True),
-        (3, 24, 24, 2, 8, f32, False),
-        (2, 512, 512, 2, 128, f32, True),
+    flash_design = kernel_tests().flash_design
+    odd = [  # (B, Sq, Sk, H, Dh, causal)
+        (2, 40, 40, 3, 16, False),
+        (2, 40, 40, 3, 16, True),
+        (2, 10, 37, 3, 16, True),
+        (2, 37, 10, 2, 32, True),
+        (3, 24, 24, 2, 8, False),
+        (2, 512, 512, 2, 128, True),
+        (2, 512, 512, 4, 64, False),
     ]
+    cases = [(b, sq, sk, h, dh, dt, causal) for dt in (f32, bf16)
+             for b, sq, sk, h, dh, causal in odd]
     for s_ in (164, 100):
         cases += [(80, s_, s_, 12, 64, f32, False),
                   (80, s_, s_, 12, 64, bf16, False)]
     worst = {"fwd": {}, "bwd": {}}
 
-    def note(kind, dt, err):
-        name = str(dt).replace("torch.", "")
+    def note(kind, name, err):
         worst[kind][name] = max(worst[kind].get(name, 0.0), err)
 
     for b, sq, sk, h, dh, dt, causal in cases:
@@ -294,21 +309,35 @@ def check_dropout_and_backward(gen):
                                           dropout_rate=RATE,
                                           dropout_seed=SEED)
         err = _compare(got, want, tol_f, f"forward rate {RATE} {shape}")
-        note("fwd", dt, err)
+        name = str(dt).replace("torch.", "")
+        note("fwd", name, err)
         msg = [f"fwd rate {RATE} {err:.3e}"]
+        rule = flash_design(dt, dh)
         for rate in (0.0, RATE):
             seed = SEED if rate else None
-            got = attention_packed_bwd(q, k, v, mask, do, h, causal, None,
-                                       rate, seed)
-            torch.cuda.synchronize()
             want = attention_packed_bwd_reference(q, k, v, mask, do, h,
                                                   causal, None, rate, seed)
-            errs = [_compare(g, w, tol_b, f"backward d{n} rate {rate} "
-                                          f"{shape}")
-                    for n, g, w in zip("qkv", got, want)]
-            note("bwd", dt, max(errs))
-            msg.append(f"bwd rate {rate} dq/dk/dv " + "/".join(
-                f"{e:.3e}" for e in errs))
+            for design in ([None] if dt == f32 else [None, "cuda_cores"]):
+                before = dict(attention_packed.bwd_launches_by_design)
+                if design is None:
+                    got = attention_packed_bwd(q, k, v, mask, do, h, causal,
+                                               None, rate, seed)
+                else:
+                    got = ops._launch_bwd(q, k, v, mask, do, h, causal,
+                                          dh ** -0.5, rate, seed, design)
+                torch.cuda.synchronize()
+                took = launched_design(attention_packed.bwd_launches_by_design,
+                                       before, 2)
+                if took != (design or rule):
+                    fail(f"packed backward {shape}: took {took}, expected "
+                         f"{design or rule}")
+                errs = [_compare(g, w, tol_b, f"backward d{n} rate {rate} "
+                                              f"{took} {shape}")
+                        for n, g, w in zip("qkv", got, want)]
+                note("bwd", name if dt == f32 else f"{name}_{took}",
+                     max(errs))
+                msg.append(f"bwd rate {rate} {took} dq/dk/dv " + "/".join(
+                    f"{e:.3e}" for e in errs))
         log(f"[check] {shape}: max|kernel-plain| " + "; ".join(msg)
             + f" (tolerance fwd {tol_f}, bwd {tol_b})")
     # the comparison has teeth: dropout changes the output
@@ -336,13 +365,13 @@ def check_mask_identity(flash=False, dtype=None):
     """V = identity on the card: the forward kernel's zeros are the plain
     version's Philox mask, and the backward kernel's dv^T (dO = identity)
     is the forward's output; the packed kernels at S = 64, or the flash
-    kernels at S = 96 (two key tiles, the second ragged), in fp32 or, for
-    the flash kernels, in bf16 through the tensor-core design.  The check
-    is the one the `gpu` tests run (tests/test_torch_kernels.py, which
-    imports no JAX)."""
+    kernels at S = 96 (two key tiles, the second ragged), in fp32 or in
+    bf16 through the tensor-core design (the flash pair, the packed
+    backward).  The check is the one the `gpu` tests run
+    (tests/test_torch_kernels.py, which imports no JAX)."""
     import torch
 
-    from m3p_tpu_torch.ops.attention import attention_flash
+    from m3p_tpu_torch.ops.attention import attention_flash, attention_packed
 
     module = kernel_tests()
     rate = 0.25
@@ -350,22 +379,25 @@ def check_mask_identity(flash=False, dtype=None):
     kw = dict(attn=attention_flash, s=96) if flash else {}
     name = ("flash" if flash else "packed") + " " + str(dtype)[6:]
     before = [dict(attention_flash.launches_by_design),
-              dict(attention_flash.bwd_launches_by_design)]
+              dict(attention_flash.bwd_launches_by_design),
+              dict(attention_packed.bwd_launches_by_design)]
     try:
         share = module.check_mask_identity("cuda", rate=rate, dtype=dtype,
                                            **kw)
     except AssertionError as exc:
         fail(f"V=I mask identity ({name}): {exc!r}")
+    design = module.flash_design(dtype, 96 if flash else 64)
     if flash:   # two forward launches (with dropout, plain), one backward
-        design = module.flash_design(dtype, 96)
         took = (launched_design(attention_flash.launches_by_design,
                                 before[0], 2),
                 launched_design(attention_flash.bwd_launches_by_design,
                                 before[1], 2))
-        if took != (design, design):
-            fail(f"V=I mask identity ({name}): took {took}, expected "
-                 f"{design}")
-        name += f", {design}"
+    else:       # one backward: two launches of the packed backward
+        took = (launched_design(attention_packed.bwd_launches_by_design,
+                                before[2], 2),) * 2
+    if took != (design, design):
+        fail(f"V=I mask identity ({name}): took {took}, expected {design}")
+    name += f", {design}"
     log(f"[check] V=I mask identity of the {name} kernels at rate {rate}: "
         f"forward == plain Philox mask, backward dv^T == forward output, "
         f"keep share {share:.4f}")
@@ -492,17 +524,57 @@ def in_turns(fn_a, fn_b):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def time_training_kernels(gen):
-    """#1 and #2 at the training shapes (B = 80, bf16), each at rates 0 and
-    0.1 in turns: kernel, plain version, and for #2 the autograd backward of
-    SDPA with the same boolean mask at rate 0 (the same function; SDPA's own
-    dropout draws other bits)."""
+def sdpa_bwd_ms(q, k, v, mask, do):
+    """SDPA's autograd backward on head-major (B, H, S, D) q, k, v with the
+    boolean key mask and output gradient ``do``, rate 0: its ms replayed
+    from a CUDA graph, so that autograd's host cost per call (0.2-0.4 ms,
+    as long as the kernels at these shapes) does not pace the reading; the
+    same call timed with CUDA events as it is issued (host-paced where the
+    host is slower); and the backend PyTorch dispatches these inputs to (a
+    boolean mask rules out the flash one).  #2 and #4 are held to the
+    graph's reading.  Called after `time_fused_dropout`: in a run where an
+    earlier version of this helper (a CUDA graph and a CUDA-only
+    torch.profiler session) ran first, the profiler then lost one kernel
+    record of the 50 that `device_ms` demands there, in every attempt."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
+    attn_mask = mask[:, None, None, :]
+    backend = SDPBackend(torch._fused_sdp_choice(q, k, v, attn_mask)).name
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
+
+        def call():
+            return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+        for _ in range(3):
+            call()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    return {"library_ms": cuda_ms(graph.replay),
+            "library_ms_issued": cuda_ms(call), "backend": backend}
+
+
+def time_training_kernels(gen):
+    """#1 and #2 at the training shapes (B = 80, bf16): #1 at rates 0 and
+    0.1 in turns; #2's tensor-core design (the path's) and CUDA-core design
+    on the same tensors in turns, at rates 0 and 0.1; the plain versions;
+    for #2 the autograd backward of SDPA with the same boolean mask at rate
+    0 (the same function; SDPA's own dropout draws other bits), replayed
+    from a CUDA graph (`sdpa_bwd_ms`)."""
+    import torch
+
+    from m3p_tpu_torch.ops import attention as ops
     from m3p_tpu_torch.ops.attention import (
-        attention_packed, attention_packed_bwd,
-        attention_packed_bwd_reference, attention_packed_reference)
+        attention_packed, attention_packed_bwd_reference,
+        attention_packed_reference)
 
     out = {}
     for label, s in (("blocks", 164), ("refiner", 100)):
@@ -517,22 +589,29 @@ def time_training_kernels(gen):
                                      dropout_seed=SEED))
         fwd_plain_ms = cuda_ms(lambda: attention_packed_reference(
             q, k, v, mask, h, dropout_rate=RATE, dropout_seed=SEED))
-        ms, drop_ms = in_turns(
-            lambda: attention_packed_bwd(q, k, v, mask, do, h),
-            lambda: attention_packed_bwd(q, k, v, mask, do, h, False, None,
-                                         RATE, SEED))
+
+        def bwd(rate, design=None):
+            seed = SEED if rate else None
+            return lambda: ops._launch_bwd(q, k, v, mask, do, h, False,
+                                           dh ** -0.5, rate, seed, design)
+
+        before = dict(attention_packed.bwd_launches_by_design)
+        bwd(0.0)()
+        torch.cuda.synchronize()
+        if launched_design(attention_packed.bwd_launches_by_design, before,
+                           2) != "tensor_cores":
+            fail(f"packed backward {label}: the training shape does not "
+                 f"take the tensor-core design")
+        ms, ms_cc = in_turns(bwd(0.0), bwd(0.0, "cuda_cores"))
+        drop_ms, drop_cc = in_turns(bwd(RATE), bwd(RATE, "cuda_cores"))
         plain_ms = cuda_ms(lambda: attention_packed_bwd_reference(
             q, k, v, mask, do, h))
         plain_drop_ms = cuda_ms(lambda: attention_packed_bwd_reference(
             q, k, v, mask, do, h, False, None, RATE, SEED))
-        qh, kh, vh, doh = (t.view(b, s, h, dh).transpose(1, 2).contiguous()
-                           for t in (q, k, v, do))
-        for t in (qh, kh, vh):
-            t.requires_grad_(True)
-        sdpa = F.scaled_dot_product_attention(qh, kh, vh,
-                                              attn_mask=mask[:, None, None, :])
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            sdpa, (qh, kh, vh), doh, retain_graph=True))
+        lib = sdpa_bwd_ms(*(t.view(b, s, h, dh).transpose(1, 2).contiguous()
+                            for t in (q, k, v)), mask,
+                          do.view(b, s, h, dh).transpose(1, 2).contiguous())
+        library_ms = lib["library_ms"]
         elems = b * s * h * dh
         bwd_bytes = 7 * elems * 2 + b * s     # q, k, v, dO in; dq, dk, dv out
         bwd_flops = 10 * b * h * s * s * dh   # QK^T, dO V^T, P^T dO, dS^T Q, dS K
@@ -545,18 +624,29 @@ def time_training_kernels(gen):
                       "dtype": "bfloat16"},
             "bwd": {"ms": ms, "ms_rate_0.1": drop_ms, "plain_ms": plain_ms,
                     "plain_ms_rate_0.1": plain_drop_ms,
-                    "library_ms": library_ms, "bound_ms": bwd_bound,
+                    "design": "tensor_cores", "ms_cuda_cores": ms_cc,
+                    "ms_cuda_cores_rate_0.1": drop_cc,
+                    "speedup_over_cuda_cores": ms_cc / ms,
+                    "speedup_over_cuda_cores_rate_0.1": drop_cc / drop_ms,
+                    "tflops_per_s": bwd_flops / ms / 1e9,
+                    "library_ms": library_ms,
+                    "library_ms_issued": lib["library_ms_issued"],
+                    "library_backend": lib["backend"],
+                    "bound_ms": bwd_bound,
                     "bound_by": bwd_by, "bytes": bwd_bytes,
                     "flops": bwd_flops},
             "fwd_rate_0.1": {"ms": fwd_ms, "ms_rate_0": fwd0_ms,
                              "plain_ms": fwd_plain_ms,
                              "bound_ms": fwd_bound, "bound_by": fwd_by},
         }
-        log(f"[time] packed_attention_bwd {label} B={b} S={s} bf16: kernel "
-            f"{ms:.4f} ms (rate 0.1: {drop_ms:.4f}; in turns), plain "
-            f"{plain_ms:.4f} "
-            f"(rate 0.1: {plain_drop_ms:.4f}), sdpa backward "
-            f"{library_ms:.4f}, bound {bwd_bound:.4f} ms ({bwd_by})")
+        log(f"[time] packed_attention_bwd {label} B={b} S={s} bf16, in turns "
+            f"(CUDA events): tensor cores {ms:.4f} ms (rate 0.1: "
+            f"{drop_ms:.4f}), CUDA cores {ms_cc:.4f} (rate 0.1: "
+            f"{drop_cc:.4f}), {ms_cc / ms:.2f}x / {drop_cc / drop_ms:.2f}x; "
+            f"plain {plain_ms:.4f} (rate 0.1: {plain_drop_ms:.4f}), sdpa "
+            f"backward {library_ms:.4f} ({lib['backend']}, CUDA graph; "
+            f"{lib['library_ms_issued']:.4f} as issued), bound "
+            f"{bwd_bound:.4f} ms ({bwd_by})")
         log(f"[time] packed_attention_fwd rate 0.1 {label} B={b} S={s} "
             f"bf16: kernel {fwd_ms:.4f} ms (rate 0: {fwd0_ms:.4f}; in turns), "
             f"plain {fwd_plain_ms:.4f}, bound {fwd_bound:.4f} ms ({fwd_by})")
@@ -935,6 +1025,8 @@ def train_slice(seed):
     # ---- the main path, counted ----
     attention_packed.launches = 0
     attention_packed.bwd_launches = 0
+    for design in attention_packed.bwd_launches_by_design:
+        attention_packed.bwd_launches_by_design[design] = 0
     for i in range(n_steps):
         if i == WARMUP_STEPS:
             torch.cuda.synchronize()
@@ -946,6 +1038,7 @@ def train_slice(seed):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - wall0
     launches = (attention_packed.launches, attention_packed.bwd_launches)
+    by_design = dict(attention_packed.bwd_launches_by_design)
     # ---- checks ----
     step_ms = start.elapsed_time(end) / TIMED_STEPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -956,6 +1049,9 @@ def train_slice(seed):
     if launches != (per_step[0] * n_steps, per_step[1] * n_steps):
         fail(f"{launches} forward/backward kernel launches in {n_steps} "
              f"steps; expected {per_step} per step")
+    if by_design["tensor_cores"] != launches[1]:
+        fail(f"backward launches by design {by_design}: not every bf16 #2 "
+             f"launch took the tensor cores")
     moved = {n: (p.detach() - watched[n]).abs().max().item()
              for n, p in model.named_parameters() if n in watched}
     if state.step != n_steps or not all(v > 0 for v in moved.values()):
@@ -966,6 +1062,7 @@ def train_slice(seed):
         "peak_memory_gb": peak_gb, "bn": bn,
         "launches": {"fwd": launches[0], "bwd": launches[1]},
         "launches_per_step": {"fwd": per_step[0], "bwd": per_step[1]},
+        "bwd_launches_by_design": by_design,
         "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
         "lr_last": schedule(state.step - 1),
     }
@@ -975,7 +1072,8 @@ def train_slice(seed):
         f"samples/s, host wall {numbers['wall_step_ms']:.2f} ms a step, peak "
         f"memory {peak_gb:.2f} GB; kernel launches fwd {launches[0]} = "
         f"{per_step[0]} x {n_steps}, bwd {launches[1]} = {per_step[1]} x "
-        f"{n_steps}; loss {losses[0].item():.4f} -> {losses[-1].item():.4f}; "
+        f"{n_steps} (by design {by_design}); loss {losses[0].item():.4f} -> "
+        f"{losses[-1].item():.4f}; "
         f"max |param change| {moved}")
     numbers["profile"] = profile_window(
         f"one training step BN={bn}", lambda: step(state, batch, gens),
@@ -991,16 +1089,23 @@ def compare_grads_with_cpu(seed):
     from m3p_tpu_torch.model import build_model
     from m3p_tpu_torch.train.steps import itm_finetune_loss
 
+    from m3p_tpu_torch.ops.attention import attention_packed
+
     cfg = train_config(n_layers=2, dtype="float32", rate=0.0)
     cpu_model = build_model(cfg, seed, "cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     losses = {}
+    before = dict(attention_packed.bwd_launches_by_design)
     for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
         batch = train_batch(seed + 2, dev, groups=2)
         loss, _ = itm_finetune_loss(model, batch, None, SAMPLE_N,
                                     deterministic=True)
         loss.backward()
         losses[dev] = loss.item()
+    # fp32 exercises the CUDA-core design: 2 launches x 5 attention layers
+    if launched_design(attention_packed.bwd_launches_by_design, before,
+                       10) != "cuda_cores":
+        fail("the fp32 gradient check did not take the CUDA-core design")
     cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
     largest = max(g.abs().max().item() for g in cpu_grads.values()
                   if g is not None)
@@ -1106,8 +1211,8 @@ def launched_design(counts, before, n):
     """The one design whose count rose, by ``n``, since ``before``."""
     rose = {d: counts[d] - before[d] for d in counts if counts[d] != before[d]}
     if len(rose) != 1 or list(rose.values()) != [n]:
-        fail(f"flash launches by design rose by {rose}; expected {n} "
-             f"launches of one design")
+        fail(f"launches by design rose by {rose}; expected {n} launches of "
+             f"one design")
     return next(iter(rose))
 
 
@@ -1687,7 +1792,9 @@ def zero_launch_counts():
         fn.launches = 0
         fn.bwd_launches = 0
     for counts in (attention_flash.launches_by_design,
-                   attention_flash.bwd_launches_by_design):
+                   attention_flash.bwd_launches_by_design,
+                   attention_packed.bwd_launches_by_design,
+                   small_attention.bwd_launches_by_design):
         for design in counts:
             counts[design] = 0
     fused_ffn_ln.launches = 0
@@ -1701,6 +1808,8 @@ def launch_counts():
 
     return {"packed_fwd": attention_packed.launches,
             "packed_bwd": attention_packed.bwd_launches,
+            "packed_bwd_tensor_cores":
+                attention_packed.bwd_launches_by_design["tensor_cores"],
             "flash_fwd": attention_flash.launches,
             "flash_bwd": attention_flash.bwd_launches,
             "flash_fwd_tensor_cores":
@@ -1711,20 +1820,24 @@ def launch_counts():
             "dropout_bwd": dropout_add.bwd_launches,
             "small_fwd": small_attention.launches,
             "small_bwd": small_attention.bwd_launches,
+            "small_bwd_tensor_cores":
+                small_attention.bwd_launches_by_design["tensor_cores"],
             "fused_ffn": fused_ffn_ln.launches}
 
 
 def mct_per_step(cfg, encodes=1):
     """Launches a step makes: per joint encode, one #1 and one #2 backward
-    (two launches) per block and refiner layer; with fused dropout one #7
-    and one #8 per residual (two a block)."""
+    (two launches, both on the tensor cores in bf16) per block and refiner
+    layer; with fused dropout one #7 and one #8 per residual (two a
+    block)."""
     layers = cfg.n_layers + cfg.refine_layers
     fused = 2 * cfg.n_layers if cfg.use_fused_dropout else 0
     return {"packed_fwd": layers * encodes, "packed_bwd": 2 * layers * encodes,
+            "packed_bwd_tensor_cores": 2 * layers * encodes,
             "flash_fwd": 0, "flash_bwd": 0, "flash_fwd_tensor_cores": 0,
             "flash_bwd_tensor_cores": 0, "dropout_fwd": fused * encodes,
             "dropout_bwd": fused * encodes, "small_fwd": 0, "small_bwd": 0,
-            "fused_ffn": 0}
+            "small_bwd_tensor_cores": 0, "fused_ffn": 0}
 
 
 def check_launches(what, counts, per_step, n_steps):
@@ -1857,8 +1970,11 @@ def compare_mct_grads_with_cpu(seed):
     batch = bench.make_batch(seed + 2, "cpu", groups=2, with_clcm=True)
     draws = mct_draws(torch.Generator().manual_seed(seed), batch,
                       bench.mask_config(cfg))
+    from m3p_tpu_torch.ops.attention import attention_packed
+
     losses = []              # the card's, then the CPU's
     dropout_add.launches = dropout_add.bwd_launches = 0
+    before = dict(attention_packed.bwd_launches_by_design)
     for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
         gens = Generators(torch.Generator().manual_seed(seed + 5),
                           torch.Generator().manual_seed(seed + 6))
@@ -1874,6 +1990,10 @@ def compare_mct_grads_with_cpu(seed):
     if fused != (8, 8):
         fail(f"the fp32 MCT check launched {fused} fused dropout kernels; "
              f"expected 8 and 8 (2 blocks x 2 residuals x 2 encodes)")
+    # fp32 exercises the CUDA-core design: 2 launches x 5 layers x 2 encodes
+    if launched_design(attention_packed.bwd_launches_by_design, before,
+                       20) != "cuda_cores":
+        fail("the fp32 MCT check did not take the CUDA-core design")
     cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
     largest = max(g.abs().max().item() for g in cpu_grads.values()
                   if g is not None)
@@ -1945,20 +2065,23 @@ def check_small_attention():
     """#3 and #4 against their plain versions (tests/test_torch_kernels.py's
     SMALL_GPU_CASES: odd shapes, causal, Sq != Sk both ways, a batch row
     with no valid key, the `_small_fits` edge at Dh 64 and 128, the
-    flagship joint shape), fp32 and bf16, rates 0 and 0.1; the V =
-    identity check; and the head-major entry against the packed path on
-    the same tensors and seed."""
+    flagship joint shape), fp32 and bf16, rates 0 and 0.1, #4 in bf16 in
+    both designs (the rule's and forced to CUDA cores), each call's design
+    read from the per-design launch counts; the V = identity check in fp32
+    and bf16; and the head-major entry against the packed path on the same
+    tensors and seed."""
     import torch
 
+    from m3p_tpu_torch.ops import attention as ops
     from m3p_tpu_torch.ops.attention import (
         attention_bhsd, attention_packed, small_attention,
         small_attention_bwd_reference, small_attention_reference)
 
     module = kernel_tests()
     worst = {"fwd": {}, "bwd": {}}
+    counts = small_attention.bwd_launches_by_design
 
-    def note(kind, dt, err):
-        name = str(dt).replace("torch.", "")
+    def note(kind, name, err):
         worst[kind][name] = max(worst[kind].get(name, 0.0), err)
 
     for case in module.SMALL_GPU_CASES:
@@ -1971,34 +2094,60 @@ def check_small_attention():
                 q, k, v, mask, do = module._small_on("cuda", case, dt)
                 causal = case[-1]
                 leaves = [t.requires_grad_(True) for t in (q, k, v)]
+                before = dict(counts)
                 out = small_attention(*leaves, mask, causal, None, rate, seed)
                 grads = torch.autograd.grad(out, leaves, do)
                 torch.cuda.synchronize()
+                took = launched_design(counts, before, 2)
+                if took != module.flash_design(dt, case[2]):
+                    fail(f"small_attention {case} {dt}: the backward took "
+                         f"{took}")
                 q, k, v = (t.detach() for t in leaves)
                 what = f"small_attention {case} {dt} rate {rate}"
+                name = str(dt).replace("torch.", "")
                 err = _compare(out.detach(), small_attention_reference(
                     q, k, v, mask, causal, None, rate, seed), tol_f,
                     f"{what} forward")
-                note("fwd", dt, err)
-                errs = [_compare(g, w, tol_b, f"{what} d{n}")
-                        for n, g, w in zip("qkv", grads,
-                                           small_attention_bwd_reference(
-                                               q, k, v, mask, do, causal,
-                                               None, rate, seed))]
-                note("bwd", dt, max(errs))
-                msg.append(f"rate {rate}: fwd {err:.3e}, dq/dk/dv " +
-                           "/".join(f"{e:.3e}" for e in errs))
+                note("fwd", name, err)
+                want = small_attention_bwd_reference(q, k, v, mask, do,
+                                                     causal, None, rate, seed)
+                runs = [(took, grads)]
+                if dt == torch.bfloat16 and took == "tensor_cores":
+                    before = dict(counts)
+                    runs.append(("cuda_cores", ops._launch_small_bwd(
+                        q, k, v, mask, do, causal, case[2] ** -0.5, rate,
+                        seed, "cuda_cores")))
+                    torch.cuda.synchronize()
+                    launched_design(counts, before, 2)
+                part = [f"rate {rate}: fwd {err:.3e}"]
+                for design, got in runs:
+                    errs = [_compare(g, w, tol_b, f"{what} d{n} {design}")
+                            for n, g, w in zip("qkv", got, want)]
+                    note("bwd", name if dt == torch.float32
+                         else f"{name}_{design}", max(errs))
+                    part.append(f"{design} dq/dk/dv " +
+                                "/".join(f"{e:.3e}" for e in errs))
+                msg.append(", ".join(part))
             log(f"[check] small_attention (B, H, Dh, Sq, Sk, lens, causal) = "
                 f"{case[:5]} causal={case[-1]} {dt}: max|kernel-plain| "
                 + "; ".join(msg))
-    try:
-        share = module.check_mask_identity(
-            "cuda", attn=module.small_attention_packed_view)
-    except AssertionError as exc:
-        fail(f"V=I mask identity (small_attention): {exc!r}")
-    log(f"[check] V=I mask identity of #3/#4 at rate 0.25: forward == plain "
-        f"Philox mask, backward dv^T == forward output, keep share "
-        f"{share:.4f}")
+    shares = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        before = dict(counts)
+        try:
+            shares[name] = module.check_mask_identity(
+                "cuda", attn=module.small_attention_packed_view, dtype=dt)
+        except AssertionError as exc:
+            fail(f"V=I mask identity (small_attention {name}): {exc!r}")
+        took = launched_design(counts, before, 2)
+        if took != module.flash_design(dt, 64):
+            fail(f"V=I mask identity (small_attention {name}): the backward "
+                 f"took {took}")
+        log(f"[check] V=I mask identity of #3/#4 at rate 0.25, {name} (#4 "
+            f"on {took}): forward == plain Philox mask, backward dv^T == "
+            f"forward output, keep share {shares[name]:.4f}")
+    share = shares
     # the head-major entry and the packed path on one set of tensors
     layout = {}
     for case, dt in ((module.SMALL_CASES[3], torch.float32),
@@ -2067,8 +2216,9 @@ def head_major_path():
     torch.cuda.synchronize()
     counts = launch_counts()
     want = {k_: 0 for k_ in counts}
-    want.update(small_fwd=3, small_bwd=6, flash_fwd=1, flash_bwd=2,
-                flash_fwd_tensor_cores=1, flash_bwd_tensor_cores=2)
+    want.update(small_fwd=3, small_bwd=6, small_bwd_tensor_cores=6,
+                flash_fwd=1, flash_bwd=2, flash_fwd_tensor_cores=1,
+                flash_bwd_tensor_cores=2)
     if counts != want:
         fail(f"attention_bhsd: launches {counts}, expected {want}")
     tensors = [lout, *lgrads, det] + [t for o, g in outs for t in (o, *g)]
@@ -2085,12 +2235,16 @@ def head_major_path():
 def time_small_attention():
     """#3 and #4 at the flagship joint shape, bf16, rate 0.1 (and the
     kernels at rate 0), with CUDA events (a call costs the host 0.08 ms,
-    the kernels over 0.4 ms): kernel, plain version, SDPA at rate 0 on the
-    same (B, H, S, D) tensors and its autograd backward, and #1/#2 (the
-    same tile code) on packed copies of the tensors, in turns with #3/#4."""
+    the kernels over 0.1 ms): kernel, plain version, SDPA at rate 0 on the
+    same (B, H, S, D) tensors and its autograd backward (replayed from a
+    CUDA graph, `sdpa_bwd_ms`, as phase 3 times it for #2), #4's
+    tensor-core design (the path's) and CUDA-core design on the same
+    tensors in turns, and #1/#2 (the same tile code) on packed copies of
+    the tensors, in turns with #3/#4."""
     import torch
     import torch.nn.functional as F
 
+    from m3p_tpu_torch.ops import attention as ops
     from m3p_tpu_torch.ops.attention import (
         attention_packed, attention_packed_bwd, small_attention,
         small_attention_bwd, small_attention_bwd_reference,
@@ -2102,9 +2256,13 @@ def time_small_attention():
     q, k, v, mask, do = module._small_on("cuda", case, torch.bfloat16)
     pq, pk, pv, pdo = (t.transpose(1, 2).reshape(b, s, h * dh)
                        for t in (q, k, v, do))
-    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(ql, kl, vl,
-                                          attn_mask=mask[:, None, None, :])
+    before = dict(ops.small_attention.bwd_launches_by_design)
+    small_attention_bwd(q, k, v, mask, do, False, None, RATE, SEED)
+    torch.cuda.synchronize()
+    if launched_design(ops.small_attention.bwd_launches_by_design, before,
+                       2) != "tensor_cores":
+        fail("#4 at the flagship joint shape does not take the tensor-core "
+             "design")
     dev = {}
     dev["fwd"], dev["fwd_packed"] = in_turns(
         lambda: small_attention(q, k, v, mask, False, None, RATE, SEED),
@@ -2115,14 +2273,24 @@ def time_small_attention():
                                     SEED),
         lambda: attention_packed_bwd(pq, pk, pv, mask, pdo, h, False, None,
                                      RATE, SEED))
+
+    def bwd(rate, design=None):
+        seed = SEED if rate else None
+        return lambda: ops._launch_small_bwd(q, k, v, mask, do, False,
+                                             dh ** -0.5, rate, seed, design)
+
+    dev["bwd_turns"], dev["bwd_cuda_cores"] = in_turns(
+        bwd(RATE), bwd(RATE, "cuda_cores"))
+    dev["bwd_rate_0_turns"], dev["bwd_rate_0_cuda_cores"] = in_turns(
+        bwd(0.0), bwd(0.0, "cuda_cores"))
     calls = {
         "fwd_rate_0": lambda: small_attention(q, k, v, mask),
         "fwd_lib": lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask[:, None, None, :]),
-        "bwd_rate_0": lambda: small_attention_bwd(q, k, v, mask, do),
-        "bwd_lib": lambda: torch.autograd.grad(sdpa, (ql, kl, vl), do,
-                                               retain_graph=True)}
+        "bwd_rate_0": lambda: small_attention_bwd(q, k, v, mask, do)}
     dev.update({k_: cuda_ms(f) for k_, f in calls.items()})
+    lib = sdpa_bwd_ms(q, k, v, mask, do)
+    dev["bwd_lib"] = lib["library_ms"]
     dev["fwd_plain"] = cuda_ms(lambda: small_attention_reference(
         q, k, v, mask, False, None, RATE, SEED), iters=10, warmup=2)
     dev["bwd_plain"] = cuda_ms(lambda: small_attention_bwd_reference(
@@ -2147,6 +2315,21 @@ def time_small_attention():
             f"{dev[kind + '_plain']:.4f}"
             f", SDPA{' backward' if kind == 'bwd' else ''} "
             f"{dev[kind + '_lib']:.4f}, bound {bnd:.4f} ms ({by})")
+    out["bwd"].update(
+        design="tensor_cores", ms_turns=dev["bwd_turns"],
+        ms_cuda_cores=dev["bwd_cuda_cores"],
+        speedup_over_cuda_cores=dev["bwd_cuda_cores"] / dev["bwd_turns"],
+        ms_rate_0_turns=dev["bwd_rate_0_turns"],
+        ms_cuda_cores_rate_0=dev["bwd_rate_0_cuda_cores"],
+        library_ms_issued=lib["library_ms_issued"],
+        library_backend=lib["backend"])
+    log(f"[time] small_attention_bwd (#4) in turns: tensor cores "
+        f"{dev['bwd_turns']:.4f} ms, CUDA cores {dev['bwd_cuda_cores']:.4f} "
+        f"({out['bwd']['speedup_over_cuda_cores']:.2f}x) at rate {RATE}; "
+        f"rate 0 {dev['bwd_rate_0_turns']:.4f} / "
+        f"{dev['bwd_rate_0_cuda_cores']:.4f}; SDPA backward "
+        f"{lib['library_ms']:.4f} ({lib['backend']}, CUDA graph; "
+        f"{lib['library_ms_issued']:.4f} as issued)")
     return out
 
 
@@ -2296,14 +2479,15 @@ def main() -> int:
     worst = check_kernels(gen)
     worst_train = check_dropout_and_backward(gen)
     keep_share = check_mask_identity()
+    keep_share_bf16 = check_mask_identity(dtype=torch.bfloat16)
     flash_worst = check_flash_kernels(gen)
     flash_share = check_mask_identity(flash=True)
     flash_share_bf16 = check_mask_identity(flash=True, dtype=torch.bfloat16)
     drop_worst, drop_share = check_fused_dropout(gen)
     times = time_kernels(gen)
+    drop_fwd, drop_bwd = time_fused_dropout(gen)
     train_times = time_training_kernels(gen)
     flash_fwd, flash_bwd = time_flash_kernels(gen)
-    drop_fwd, drop_bwd = time_fused_dropout(gen)
     torch.cuda.empty_cache()
 
     from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
@@ -2390,17 +2574,28 @@ def main() -> int:
                              "mct_B": mct_b["packed_bwd"],
                              "mct_B_clcm_step": mct_clcm["packed_bwd"]},
         "launches_per_step": training["launches_per_step"]["bwd"],
-        "max_abs_err": worst_train["bwd"]["bfloat16"],
+        "launches_by_design": {
+            "training": training["bwd_launches_by_design"],
+            "mct_A_tensor_cores": mct_a["packed_bwd_tensor_cores"],
+            "mct_B_tensor_cores": mct_b["packed_bwd_tensor_cores"]},
+        "design": tblocks["bwd"]["design"],
+        "max_abs_err": worst_train["bwd"]["bfloat16_tensor_cores"],
+        "max_abs_err_cuda_cores": worst_train["bwd"]["bfloat16_cuda_cores"],
         "max_abs_err_fp32": worst_train["bwd"]["float32"],
         "ms": tblocks["bwd"]["ms"], "plain_ms": tblocks["bwd"]["plain_ms"],
         "bound_ms": tblocks["bwd"]["bound_ms"],
         "bound_by": tblocks["bwd"]["bound_by"],
         "library_ms": tblocks["bwd"]["library_ms"],
+        "library_backend": tblocks["bwd"]["library_backend"],
         "ms_rate_0.1": tblocks["bwd"]["ms_rate_0.1"],
+        "ms_cuda_cores": tblocks["bwd"]["ms_cuda_cores"],
+        "ms_cuda_cores_rate_0.1": tblocks["bwd"]["ms_cuda_cores_rate_0.1"],
+        "tflops_per_s": tblocks["bwd"]["tflops_per_s"],
         "plain_ms_rate_0.1": tblocks["bwd"]["plain_ms_rate_0.1"],
         "shape": tblocks["shape"],
         "refiner": trefiner["bwd"],
         "mask_identity_keep_share": keep_share,
+        "mask_identity_keep_share_bf16": keep_share_bf16,
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2490,7 +2685,7 @@ def main() -> int:
         "ms_rate_0": small_times["fwd"]["ms_rate_0"],
         "packed_layout_ms": small_times["fwd"]["packed_layout_ms"],
         "shape": small_times["fwd"]["shape"],
-        "mask_identity_keep_share": small_share,
+        "mask_identity_keep_share": small_share["float32"],
         "vs_packed_path_max_abs_diff": layout,
     }, {
         "name": "small_attention_bwd",
@@ -2498,14 +2693,23 @@ def main() -> int:
         "source": "m3p_tpu_torch/csrc/small_attention.cu",
         "replaces": "m3p_tpu/ops/attention.py:713",
         "launches": bhsd_counts["small_bwd"],
-        "max_abs_err": small_worst["bwd"]["bfloat16"],
+        "launches_by_design": {
+            "tensor_cores": bhsd_counts["small_bwd_tensor_cores"]},
+        "design": small_times["bwd"]["design"],
+        "max_abs_err": small_worst["bwd"]["bfloat16_tensor_cores"],
+        "max_abs_err_cuda_cores": small_worst["bwd"]["bfloat16_cuda_cores"],
         "max_abs_err_fp32": small_worst["bwd"]["float32"],
+        "mask_identity_keep_share_bf16": small_share["bfloat16"],
         "ms": small_times["bwd"]["ms"],
         "plain_ms": small_times["bwd"]["plain_ms"],
         "bound_ms": small_times["bwd"]["bound_ms"],
         "bound_by": small_times["bwd"]["bound_by"],
         "library_ms": small_times["bwd"]["library_ms"],
+        "library_backend": small_times["bwd"]["library_backend"],
         "ms_rate_0": small_times["bwd"]["ms_rate_0"],
+        "ms_turns": small_times["bwd"]["ms_turns"],
+        "ms_cuda_cores": small_times["bwd"]["ms_cuda_cores"],
+        "ms_cuda_cores_rate_0": small_times["bwd"]["ms_cuda_cores_rate_0"],
         "packed_layout_ms": small_times["bwd"]["packed_layout_ms"],
         "shape": small_times["bwd"]["shape"],
     }, {

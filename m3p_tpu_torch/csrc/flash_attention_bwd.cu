@@ -426,34 +426,6 @@ __device__ __forceinline__ void load_stats_async(float* st,
   cp_async_4(st + i, in ? src : p.stats, in);
 }
 
-// the A fragment of rows 16 w .. 16 w + 15, columns 16 ds .. of a shared
-// (rows, ld) tile
-__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4],
-                                            const bf16* s, int ld, int warp,
-                                            int ds, int lane) {
-  ldmatrix_x4(a, s + (16 * warp + (lane & 15)) * ld + 16 * ds +
-                     (lane >> 4) * 8);
-}
-
-// the B fragments of rows 8 j .. 8 j + 15 (two n-tiles), columns 16 ds ..
-// (the k side) of a shared (rows, ld) tile: b[0], b[1] of n-tile j, b[2],
-// b[3] of n-tile j + 1
-__device__ __forceinline__ void load_b_pair(uint32_t (&b)[4], const bf16* s,
-                                            int ld, int j, int ds,
-                                            int lane) {
-  ldmatrix_x4(b, s + (8 * j + (lane & 7) + (lane >> 4) * 8) * ld + 16 * ds +
-                     ((lane >> 3) & 1) * 8);
-}
-
-// the B fragments of rows 16 kk .. 16 kk + 15 (the k side), columns 8 n ..
-// 8 n + 15 (two n-tiles) of a shared (rows, ld) tile
-__device__ __forceinline__ void load_b_pair_trans(uint32_t (&b)[4],
-                                                  const bf16* s, int ld,
-                                                  int kk, int n, int lane) {
-  ldmatrix_x4_trans(b, s + (16 * kk + (lane & 15)) * ld + 8 * n +
-                           (lane >> 4) * 8);
-}
-
 // pd and ds of one (query, key) element, as grads_of_scores computes them
 // but for the division by l, a product with its reciprocal inv_l
 template <bool kDropout>

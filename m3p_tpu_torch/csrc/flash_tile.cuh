@@ -1,5 +1,7 @@
 // Tile helpers shared by the flash-attention forward and backward kernels
-// (flash_attention.cu, flash_attention_bwd.cu), sm_90a.
+// (flash_attention.cu, flash_attention_bwd.cu), sm_90a; the tensor-core
+// design of the packed backward (packed_tile_bwd.cuh) takes its rule
+// (tc_fits), its cp.async tile loads and its fragment loads from here too.
 //
 // Each of the two files holds two designs of its kernel, and its C entry
 // point launches the one the caller names: bf16 on the tensor cores
@@ -126,14 +128,15 @@ __device__ void fill_keep(uint8_t* keep_s, unsigned long long seed,
 
 // rows [row0, row0 + n) of a (S, H*Dh) bf16 slab (row stride `stride`,
 // head columns at src) into a (kRows, ld) shared tile, one 16-byte cp.async
-// per 8 columns; rows n .. kRows are zero-filled.  The caller commits.
-template <int kRows>
+// per 8 columns, by the kBlockThreads threads of the block; rows n .. kRows
+// are zero-filled.  The caller commits.
+template <int kRows, int kBlockThreads = kThreads>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, int ld,
                                                 const __nv_bfloat16* src,
                                                 long long stride, int row0,
                                                 int n, int dh) {
   const int vecs = dh >> 3;
-  for (int i = threadIdx.x; i < kRows * vecs; i += kThreads) {
+  for (int i = threadIdx.x; i < kRows * vecs; i += kBlockThreads) {
     const int r = i / vecs, c = (i - r * vecs) << 3;
     const bool in = r < n;
     mma::cp_async_16(dst + r * ld + c,
@@ -157,12 +160,42 @@ __device__ __forceinline__ bool whole_tile(const uint8_t* mb, int causal,
   return __all_sync(0xffffffffu, whole);
 }
 
+// the A fragment of rows 16 w .. 16 w + 15, columns 16 ds .. of a shared
+// (rows, ld) tile
+__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4],
+                                            const __nv_bfloat16* s, int ld,
+                                            int warp, int ds, int lane) {
+  mma::ldmatrix_x4(a, s + (16 * warp + (lane & 15)) * ld + 16 * ds +
+                          (lane >> 4) * 8);
+}
+
+// the B fragments of rows 8 j .. 8 j + 15 (two n-tiles), columns 16 ds ..
+// (the k side) of a shared (rows, ld) tile: b[0], b[1] of n-tile j, b[2],
+// b[3] of n-tile j + 1
+__device__ __forceinline__ void load_b_pair(uint32_t (&b)[4],
+                                            const __nv_bfloat16* s, int ld,
+                                            int j, int ds, int lane) {
+  mma::ldmatrix_x4(b, s + (8 * j + (lane & 7) + (lane >> 4) * 8) * ld +
+                          16 * ds + ((lane >> 3) & 1) * 8);
+}
+
+// the B fragments of rows 16 kk .. 16 kk + 15 (the k side), columns 8 n ..
+// 8 n + 15 (two n-tiles) of a shared (rows, ld) tile
+__device__ __forceinline__ void load_b_pair_trans(uint32_t (&b)[4],
+                                                  const __nv_bfloat16* s,
+                                                  int ld, int kk, int n,
+                                                  int lane) {
+  mma::ldmatrix_x4_trans(b, s + (16 * kk + (lane & 15)) * ld + 8 * n +
+                                (lane >> 4) * 8);
+}
+
 // The tensor-core design takes bf16 tensors whose head dim is a multiple of
-// 16 up to 128, whose base pointers are 16-byte aligned and whose batch and
-// row strides are multiples of 8 elements, so that every head's row starts
-// on 16 bytes (cp.async, ldmatrix).  ops/attention.py::_flash_design applies
-// the same rule to choose the design; the C entry points refuse a tensor-core
-// launch that breaks it.
+// 16 up to 128, whose base pointers are 16-byte aligned and whose strides
+// (batch and row; head too in the head-major layout) are multiples of 8
+// elements, so that every head's row starts on 16 bytes (cp.async,
+// ldmatrix).  ops/attention.py::_tensor_cores_fit applies the same rule to
+// choose the design (_flash_design, _packed_design, _small_design); the C
+// entry points refuse a tensor-core launch that breaks it.
 inline bool tc_fits(int dh, const void* const* ptrs, int n_ptrs,
                     const long long* strides, int n_strides) {
   if (dh < 1 || dh > 128 || dh % 16 != 0) return false;

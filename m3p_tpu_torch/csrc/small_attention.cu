@@ -19,7 +19,9 @@
 // Bound: device memory.  At the flagship joint shape (B = 80, H = 12,
 // S = 164, Dh = 64, bf16) the forward moves q, k, v and o, 80.6 MB, 24 us
 // at 3.35 TB/s (6.6 GFLOP, 7 us at 989 TF/s); the backward moves q, k, v,
-// dO, dq, dk, dv, 141 MB, 42 us (16.5 GFLOP, 17 us).
+// dO, dq, dk, dv, 141 MB, 42 us (16.5 GFLOP, 17 us).  The backward has
+// packed_tile_bwd.cuh's two designs: bf16 on the tensor cores, CUDA cores
+// otherwise.
 
 #include "packed_tile.cuh"
 #include "packed_tile_bwd.cuh"
@@ -47,20 +49,24 @@ extern "C" int m3p_small_attention_fwd(
       dtype, a, static_cast<cudaStream_t>(stream)));
 }
 
-// phase: 0 = dq and the row statistics, 1 = dk and dv (reads the
-// statistics; launch after phase 0 on one stream).  stats: (B, H, Sq, 3)
-// fp32 scratch.  strides: the batch, head and row strides of q, k, v, dO,
-// dq, dk and dv, in that order (21 values).  Otherwise as the forward.
+// design: 0 = CUDA cores (any shape), 1 = tensor cores (refused outside
+// the rule of packed_tile_bwd.cuh's dispatch).  phase: 0 = dq and the row
+// statistics, 1 = dk and dv (reads the statistics; launch after phase 0 of
+// the same design on one stream).  stats: (B, H, Sq, 3) fp32 scratch.
+// bits: with dropout on the tensor cores, a (B, H, Sq, ceil(Sk / 32))
+// 32-bit scratch, else null.  strides: the batch, head and row strides of
+// q, k, v, dO, dq, dk and dv, in that order (21 values).  Otherwise as the
+// forward.
 extern "C" int m3p_small_attention_bwd(
-    int dtype, int phase, const void* q, const void* k, const void* v,
-    const void* kv_mask, const void* dout, void* dq, void* dk, void* dv,
-    void* stats, int b, int sq, int sk, int h, int dh,
+    int dtype, int design, int phase, const void* q, const void* k,
+    const void* v, const void* kv_mask, const void* dout, void* dq, void* dk,
+    void* dv, void* stats, void* bits, int b, int sq, int sk, int h, int dh,
     const long long* strides, float scale, int causal, float inv,
     unsigned int threshold, unsigned long long seed, void* stream) {
   long long st[21];
   for (int i = 0; i < 21; ++i) st[i] = strides[i];
   return static_cast<int>(m3p::tile_bwd::dispatch<true>(
-      dtype, phase, q, k, v, kv_mask, dout, dq, dk, dv, stats, b, sq, sk, h,
-      dh, st, scale, causal, inv, threshold, seed,
+      dtype, design, phase, q, k, v, kv_mask, dout, dq, dk, dv, stats, bits,
+      b, sq, sk, h, dh, st, scale, causal, inv, threshold, seed,
       static_cast<cudaStream_t>(stream)));
 }

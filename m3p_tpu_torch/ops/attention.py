@@ -13,20 +13,22 @@
   `attention_packed_bwd`, its dispatching backward.  CPU tensors take the
   plain forward and backward; CUDA tensors launch `csrc/packed_attention.cu`
   (replaces the Pallas `_packed_fwd_kernel`) and `csrc/packed_attention_bwd.cu`
-  (replaces `_packed_bwd_kernel`).  Anything else raises.
+  (replaces `_packed_bwd_kernel`; two designs, bf16 on the tensor cores and
+  any dtype on CUDA cores, and `_packed_design` names the one a call
+  takes).  Anything else raises.
 * `attention_flash` / `attention_flash_bwd` — the dispatching wrappers over
   `csrc/flash_attention.cu` (replaces the Pallas `_flash_kernel`) and
   `csrc/flash_attention_bwd.cu` (replaces `_flash_bwd_dkv_kernel` and
-  `_flash_bwd_dq_kernel`); each holds two designs, bf16 on the tensor cores
-  and any dtype on CUDA cores, and `_flash_design` names the one a call
-  takes.
+  `_flash_bwd_dq_kernel`); each holds the two designs, and `_flash_design`
+  names the one a call takes.
 * `attention` — the model's entry: packed kernels up to MAX_SEQ, flash
   kernels above, as the JAX module dispatches.
 * `small_attention_reference` / `small_attention_bwd_reference` — the plain
   forward and backward of the head-major single-tile kernels (q (B, H, Sq,
   D), k/v (B, H, Sk, D)); `small_attention` / `small_attention_bwd` their
   dispatching wrappers over `csrc/small_attention.cu` (replaces the Pallas
-  `_small_fwd_kernel` and `_small_bwd_kernel`).
+  `_small_fwd_kernel` and `_small_bwd_kernel`; the backward in the packed
+  backward's two designs, `_small_design`).
 * `attention_bhsd` — the head-major entry (the JAX `attention`): with
   dropout the single-tile kernels up to MAX_SEQ and the flash kernels above;
   at rate 0 the flash kernels from a key length of PALLAS_MIN_KV_LEN and
@@ -53,6 +55,21 @@ MAX_SEQ = 512      # Sq, Sk limit of the packed kernels (single-pass softmax)
 MAX_HEAD_DIM = 128
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the designs of the kernels that have two, in the C entries' codes
+_DESIGNS = ("cuda_cores", "tensor_cores")
+
+
+def _tensor_cores_fit(dh: int, tensors, n_strides: int) -> bool:
+    """The rule of `tc_fits` in `csrc/flash_tile.cuh`: bf16 (q, the first
+    tensor), a head dim that is a multiple of 16 up to MAX_HEAD_DIM, and
+    for every tensor 16-byte aligned data and leading ``n_strides``
+    strides that are multiples of 8 elements, so that every head's row
+    starts on 16 bytes (cp.async, ldmatrix)."""
+    if tensors[0].dtype != torch.bfloat16 or dh % 16 or dh > MAX_HEAD_DIM:
+        return False
+    return all(t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:n_strides])
+               for t in tensors)
 
 
 def _attended(kv_mask: Optional[torch.Tensor], causal: bool, sq: int,
@@ -317,7 +334,7 @@ _FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                     ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+_BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
                  + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 14
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                     ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
@@ -361,10 +378,52 @@ def _launch_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
     return out
 
 
+def _packed_design(n_heads: int, *tensors: torch.Tensor) -> str:
+    """The design of the packed backward that takes these (B, S, H*Dh)
+    tensors (q first; every tensor the kernel reads or writes):
+    "tensor_cores" where `_flash_design` names them and every S is at most
+    MAX_SEQ, else "cuda_cores".  The rule of the C entry
+    (`csrc/packed_tile_bwd.cuh`), which refuses a tensor-core launch that
+    breaks it."""
+    if all(t.shape[1] <= MAX_SEQ for t in tensors):
+        return _flash_design(n_heads, *tensors)
+    return "cuda_cores"
+
+
+def _bwd_design(rule: str, forced: Optional[str], what: str) -> str:
+    """The design a backward launch takes: the rule's, or ``forced`` (the
+    private ``_design`` argument that times one design against the other),
+    which may not name the tensor cores where the rule does not."""
+    if forced is None:
+        return rule
+    if forced not in _DESIGNS or (forced == "tensor_cores"
+                                  and rule != "tensor_cores"):
+        raise ValueError(f"{what}: design {forced!r} does not take these "
+                         f"tensors (the rule names {rule!r})")
+    return forced
+
+
+def _bwd_scratch(q, sq, sk, n_heads, design, threshold):
+    """The backward's scratch: the (B, H, Sq, 3) fp32 row statistics and,
+    with dropout on the tensor cores, the (B, H, Sq, ceil(Sk / 32)) keep
+    words that phase 0 draws for phase 1 (else None)."""
+    b = q.shape[0]
+    stats = torch.empty((b, n_heads, sq, 3), dtype=torch.float32,
+                        device=q.device)
+    bits = None
+    if design == "tensor_cores" and threshold:
+        bits = torch.empty((b, n_heads, sq, (sk + 31) // 32),
+                           dtype=torch.int32, device=q.device)
+    return stats, bits
+
+
 def _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale, dropout_rate,
-                dropout_seed) -> Tuple[torch.Tensor, ...]:
-    """Two launches: dq (and the per-row softmax statistics m, l, r into a
-    (B, H, Sq, 3) fp32 scratch), then dk/dv, which reads them."""
+                dropout_seed, _design=None) -> Tuple[torch.Tensor, ...]:
+    """Two launches of the design `_packed_design` names: dq (and the
+    per-row softmax statistics m, l, r into a (B, H, Sq, 3) fp32
+    scratch), then dk/dv, which reads them.  ``_design`` "cuda_cores"
+    takes the CUDA-core design instead (for timing the two designs on the
+    same tensors; the model path never passes it)."""
     fn = _build.bind("packed_attention_bwd", "m3p_packed_attention_bwd",
                      _BWD_ARGTYPES)
     b, sq, hd = q.shape
@@ -372,13 +431,15 @@ def _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale, dropout_rate,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    stats = torch.empty((b, n_heads, sq, 3), dtype=torch.float32,
-                        device=q.device)
+    design = _bwd_design(_packed_design(n_heads, q, k, v, do, dq, dk, dv),
+                         _design, "attention_packed backward")
     mask = _kernel_mask(kv_mask)
     inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    stats, bits = _bwd_scratch(q, sq, sk, n_heads, design, threshold)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            None if bits is None else bits.data_ptr(),
             b, sq, sk, n_heads, hd // n_heads,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), do.stride(0), do.stride(1),
@@ -388,12 +449,14 @@ def _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale, dropout_rate,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for phase in (0, 1):
-            err = fn(_KERNEL_DTYPES[q.dtype], phase, *args, stream)
+            err = fn(_KERNEL_DTYPES[q.dtype], _DESIGNS.index(design), phase,
+                     *args, stream)
             if err != 0:
                 raise RuntimeError(f"packed_attention backward kernel "
-                                   f"(phase {phase}) launch failed: CUDA "
-                                   f"error {err}")
+                                   f"({design}, phase {phase}) launch "
+                                   f"failed: CUDA error {err}")
             attention_packed.bwd_launches += 1
+            attention_packed.bwd_launches_by_design[design] += 1
     return dq, dk, dv
 
 
@@ -441,7 +504,9 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch the hand-written kernels, adding one to
     ``attention_packed.launches`` per forward launch and to
     ``attention_packed.bwd_launches`` per backward launch (two per
-    backward), or raise.  There is no fallback from one to the other."""
+    backward) and to the design's entry of
+    ``attention_packed.bwd_launches_by_design`` (`_packed_design`), or
+    raise.  There is no fallback from one to the other."""
     _check_dropout(dropout_rate, dropout_seed)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_packed: no kernel for device "
@@ -485,6 +550,7 @@ def attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 attention_packed.launches = 0
 attention_packed.bwd_launches = 0
+attention_packed.bwd_launches_by_design = dict.fromkeys(_DESIGNS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -569,9 +635,6 @@ def attention_flash_bwd_reference(q: torch.Tensor, k: torch.Tensor,
             dv.reshape(b, sk, hd).to(v.dtype))
 
 
-_FLASH_DESIGNS = ("cuda_cores", "tensor_cores")   # the C entries' codes
-
-
 def _flash_design(n_heads: int, *tensors: torch.Tensor) -> str:
     """The design of the flash kernels that takes these tensors (q first;
     every (B, S, H*Dh) tensor the kernel reads or writes): "tensor_cores"
@@ -580,14 +643,9 @@ def _flash_design(n_heads: int, *tensors: torch.Tensor) -> str:
     elements, else "cuda_cores".  The rule of `tc_fits` in
     `csrc/flash_tile.cuh`, which refuses a tensor-core launch that breaks
     it."""
-    q = tensors[0]
-    dh = q.shape[-1] // n_heads
-    if q.dtype != torch.bfloat16 or dh % 16 or dh > MAX_HEAD_DIM:
-        return "cuda_cores"
-    if all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
-           and t.stride(1) % 8 == 0 for t in tensors):
-        return "tensor_cores"
-    return "cuda_cores"
+    dh = tensors[0].shape[-1] // n_heads
+    return ("tensor_cores" if _tensor_cores_fit(dh, tensors, 2)
+            else "cuda_cores")
 
 
 _FLASH_FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
@@ -618,7 +676,7 @@ def _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
     inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_KERNEL_DTYPES[q.dtype], _FLASH_DESIGNS.index(design),
+        err = fn(_KERNEL_DTYPES[q.dtype], _DESIGNS.index(design),
                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  None if mask is None else mask.data_ptr(),
                  out.data_ptr(), stats.data_ptr(), b, sq, sk, n_heads,
@@ -663,7 +721,7 @@ def _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal, scale,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for phase in (0, 1):
-            err = fn(_KERNEL_DTYPES[q.dtype], _FLASH_DESIGNS.index(design),
+            err = fn(_KERNEL_DTYPES[q.dtype], _DESIGNS.index(design),
                      phase, *args, stream)
             if err != 0:
                 raise RuntimeError(f"flash_attention backward kernel "
@@ -768,8 +826,8 @@ def attention_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 attention_flash.launches = 0
 attention_flash.bwd_launches = 0
-attention_flash.launches_by_design = dict.fromkeys(_FLASH_DESIGNS, 0)
-attention_flash.bwd_launches_by_design = dict.fromkeys(_FLASH_DESIGNS, 0)
+attention_flash.launches_by_design = dict.fromkeys(_DESIGNS, 0)
+attention_flash.bwd_launches_by_design = dict.fromkeys(_DESIGNS, 0)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -916,7 +974,7 @@ _SMALL_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
-_SMALL_BWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+_SMALL_BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
@@ -945,33 +1003,51 @@ def _launch_small_fwd(q, k, v, kv_mask, causal, scale, dropout_rate,
     return out
 
 
+def _small_design(*tensors: torch.Tensor) -> str:
+    """The design of the head-major backward that takes these (B, H, S, D)
+    tensors (q first; every tensor the kernel reads or writes): the packed
+    backward's rule (`_packed_design`) with batch, head and row strides
+    multiples of 8 elements."""
+    if all(t.shape[2] <= MAX_SEQ for t in tensors) \
+            and _tensor_cores_fit(tensors[0].shape[-1], tensors, 3):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _launch_small_bwd(q, k, v, kv_mask, do, causal, scale, dropout_rate,
-                      dropout_seed) -> Tuple[torch.Tensor, ...]:
-    """Two launches: dq (and the per-row statistics into a (B, H, Sq, 3)
+                      dropout_seed, _design=None) -> Tuple[torch.Tensor, ...]:
+    """Two launches of the design `_small_design` names (``_design`` as in
+    `_launch_bwd`): dq (and the per-row statistics into a (B, H, Sq, 3)
     fp32 scratch), then dk/dv, which reads them."""
     fn = _build.bind("small_attention", "m3p_small_attention_bwd",
                      _SMALL_BWD_ARGTYPES)
     b, h, sq, d = q.shape
+    sk = k.shape[2]
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
-    stats = torch.empty((b, h, sq, 3), dtype=torch.float32, device=q.device)
+    design = _bwd_design(_small_design(q, k, v, do, dq, dk, dv), _design,
+                         "small_attention backward")
     mask = _kernel_mask(kv_mask)
     inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    stats, bits = _bwd_scratch(q, sq, sk, h, design, threshold)
     strides = (ctypes.c_longlong * 21)(*_strides(q, k, v, do, dq, dk, dv))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            b, sq, k.shape[2], h, d, strides, float(scale),
+            None if bits is None else bits.data_ptr(),
+            b, sq, sk, h, d, strides, float(scale),
             int(bool(causal)), float(inv), threshold, seed)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for phase in (0, 1):
-            err = fn(_KERNEL_DTYPES[q.dtype], phase, *args, stream)
+            err = fn(_KERNEL_DTYPES[q.dtype], _DESIGNS.index(design), phase,
+                     *args, stream)
             if err != 0:
                 raise RuntimeError(f"small_attention backward kernel "
-                                   f"(phase {phase}) launch failed: CUDA "
-                                   f"error {err}")
+                                   f"({design}, phase {phase}) launch "
+                                   f"failed: CUDA error {err}")
             small_attention.bwd_launches += 1
+            small_attention.bwd_launches_by_design[design] += 1
     return dq, dk, dv
 
 
@@ -1010,7 +1086,9 @@ def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch `csrc/small_attention.cu`, adding one to
     ``small_attention.launches`` per forward launch and to
     ``small_attention.bwd_launches`` per backward launch (two per
-    backward), or raise.  There is no fallback from one to the other."""
+    backward) and to the design's entry of
+    ``small_attention.bwd_launches_by_design`` (`_small_design`), or
+    raise.  There is no fallback from one to the other."""
     _check_dropout(dropout_rate, dropout_seed)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"small_attention: no kernel for device {q.device}")
@@ -1053,6 +1131,7 @@ def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 small_attention.launches = 0
 small_attention.bwd_launches = 0
+small_attention.bwd_launches_by_design = dict.fromkeys(_DESIGNS, 0)
 
 
 def _small_fits(q_shape, k_shape) -> bool:

@@ -311,7 +311,7 @@ def test_flash_launches_pass_the_design_and_count_it(monkeypatch, dtype,
     q, k, v, mask = (torch.from_numpy(a) for a in
                      _inputs(2, 2, 64, 70, 130, (130, 40)))
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    design = ops._FLASH_DESIGNS[code]
+    design = ops._DESIGNS[code]
     before = (dict(attention_flash.launches_by_design),
               dict(attention_flash.bwd_launches_by_design))
     out, stats = ops._launch_flash_fwd(q, k, v, mask, 2, False, 0.125, 0.0,

@@ -1,11 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the packed-attention forward (rate 0 and with Philox dropout) and backward,
-the flash-attention forward and backward (any length), the head-major
-single-tile attention forward and backward, the mask identity of each
-forward/backward pair (V = identity), the fused residual dropout forward
-and backward, bit for bit, with its mask identity (x = 1, residual = 0),
-and the fused FFN + LayerNorm.  Without a card, a failing launch of each
-new kernel is shown to raise (a launch stubbed to return a CUDA error).
+the packed-attention forward (rate 0 and with Philox dropout) and backward
+(both designs in bf16: tensor cores and CUDA cores), the flash-attention
+forward and backward (any length), the head-major single-tile attention
+forward and backward, the mask identity of each forward/backward pair
+(V = identity), the fused residual dropout forward and backward, bit for
+bit, with its mask identity (x = 1, residual = 0), and the fused FFN +
+LayerNorm.  Without a card: a failing launch of each new kernel is shown
+to raise (a launch stubbed to return a CUDA error), and the packed and
+head-major backward follow their design rule, count launches by design and
+refuse a forced tensor-core launch the rule does not take.
 
 This file imports nothing of JAX, so it also runs where only PyTorch is
 installed; the `gpu` tests skip without a CUDA device.  On a machine with
@@ -82,9 +85,9 @@ FLASH_CUDA_CORES_CASE = (2, 2, 24, 150, 260, (260, 90), True)
 
 
 def flash_design(dtype, dh):
-    """The design of the flash kernels a case's fresh, contiguous tensors
-    take: the tensor cores for bf16 with Dh a multiple of 16, else CUDA
-    cores."""
+    """The design of the flash kernels, and of the packed and head-major
+    backward (S <= 512), that a case's fresh, contiguous tensors take: the
+    tensor cores for bf16 with Dh a multiple of 16, else CUDA cores."""
     return ("tensor_cores" if dtype == torch.bfloat16 and dh % 16 == 0
             else "cuda_cores")
 
@@ -235,9 +238,12 @@ def test_packed_attention_bwd_kernel_matches_plain_version(cuda_device, case,
     out = attention_packed(q, k, v, mask, h, causal=causal,
                            dropout_rate=rate, dropout_seed=seed)
     before = attention_packed.bwd_launches
+    by_design = dict(attention_packed.bwd_launches_by_design)
     got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert attention_packed.bwd_launches == before + 2
+    _assert_rose(attention_packed.bwd_launches_by_design, by_design,
+                 "cuda_cores", 2)
     want = attention_packed_bwd_reference(q.detach(), k.detach(), v.detach(),
                                           mask, do, h, causal=causal,
                                           dropout_rate=rate,
@@ -269,9 +275,87 @@ def test_packed_attention_bwd_kernel_bf16_at_training_shapes(cuda_device,
         torch.testing.assert_close(g, w, **TOL_BF16)
 
 
+# the packed and head-major backward in bf16, in both designs: the
+# training shapes (B = 80; encoder blocks at S = 164, the refiner at
+# S = 100) with a batch row that has no valid key, causal, Sq != Sk both
+# ways (the second with an empty row), the S = 512 edge at Dh 64 and 128,
+# Dh 128 with a ragged last tile
+BWD_BF16_CASES = [
+    (80, 12, 64, 164, 164, (164, 0) + (100,) * 78, False),
+    (80, 12, 64, 100, 100, (100, 0) + (55,) * 78, False),
+    (2, 3, 16, 40, 40, (40, 17), True),
+    (2, 3, 16, 10, 37, (37, 20), True),
+    (2, 2, 32, 37, 10, (10, 0), True),
+    (2, 4, 64, 512, 512, (512, 300), False),
+    (2, 4, 128, 512, 512, (512, 300), True),
+    (1, 2, 128, 96, 160, (160,), True),
+]
+
+
+def _assert_rose(counts, before, design, n):
+    """``counts`` rose by ``n``, all of ``design``, since ``before``."""
+    want = {d: before[d] + (n if d == design else 0) for d in before}
+    assert counts == want, (counts, want)
+
+
+def packed_bwd_pair(q, k, v, mask, do, h, causal, rate, design):
+    """(kernel dq/dk/dv, plain dq/dk/dv) of the packed backward: through
+    autograd (the design the rule names, asserted) or, with ``design``
+    "cuda_cores", the private launcher forced to it."""
+    seed = SEED if rate else None
+    want = attention_packed_bwd_reference(q, k, v, mask, do, h, causal, None,
+                                          rate, seed)
+    before = dict(attention_packed.bwd_launches_by_design)
+    if design is None:
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_packed(*leaves, mask, h, causal=causal,
+                               dropout_rate=rate, dropout_seed=seed)
+        got = torch.autograd.grad(out, leaves, do)
+    else:
+        got = attention_ops._launch_bwd(q, k, v, mask, do, h, causal,
+                                        (q.shape[-1] // h) ** -0.5, rate,
+                                        seed, design)
+    torch.cuda.synchronize()
+    _assert_rose(attention_packed.bwd_launches_by_design, before,
+                 design or flash_design(q.dtype, q.shape[-1] // h), 2)
+    return got, want
+
+
 @pytest.mark.gpu
-def test_kernels_draw_the_plain_versions_mask(cuda_device):
-    check_mask_identity(cuda_device)
+@pytest.mark.parametrize("design", [None, "cuda_cores"])
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", BWD_BF16_CASES)
+def test_packed_attention_bwd_kernel_bf16_in_both_designs(cuda_device, case,
+                                                          rate, design):
+    """bf16 through the design the rule names (the tensor cores at these
+    shapes) and forced to CUDA cores, each against the plain backward."""
+    q, k, v, mask, do = _grad_inputs(cuda_device, case, torch.bfloat16)
+    got, want = packed_bwd_pair(q, k, v, mask, do, case[1], case[-1], rate,
+                                design)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **TOL_BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, RATE])
+def test_packed_attention_bwd_tensor_cores_are_deterministic(cuda_device,
+                                                             rate):
+    """No atomics: two calls give bitwise the same dq, dk and dv."""
+    q, k, v, mask, do = _grad_inputs(cuda_device, BWD_BF16_CASES[0],
+                                     torch.bfloat16)
+    first, _ = packed_bwd_pair(q, k, v, mask, do, 12, False, rate, None)
+    second, _ = packed_bwd_pair(q, k, v, mask, do, 12, False, rate, None)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_draw_the_plain_versions_mask(cuda_device, dtype):
+    before = dict(attention_packed.bwd_launches_by_design)
+    check_mask_identity(cuda_device, dtype=dtype)
+    _assert_rose(attention_packed.bwd_launches_by_design, before,
+                 flash_design(dtype, 64), 2)
 
 
 def _flash_grad_check(device, case, dtype, rate, tol):
@@ -521,11 +605,14 @@ def test_small_attention_kernels_match_plain_versions(cuda_device, case,
     for t in (q, k, v):
         t.requires_grad_(True)
     before = (small_attention.launches, small_attention.bwd_launches)
+    by_design = dict(small_attention.bwd_launches_by_design)
     out = small_attention(q, k, v, mask, causal, None, rate, seed)
     got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert (small_attention.launches, small_attention.bwd_launches) == (
         before[0] + 1, before[1] + 2)
+    _assert_rose(small_attention.bwd_launches_by_design, by_design,
+                 flash_design(dtype, case[2]), 2)
     q, k, v = (t.detach() for t in (q, k, v))
     want = small_attention_reference(q, k, v, mask, causal, None, rate, seed)
     assert out.dtype == dtype and torch.isfinite(out).all()
@@ -537,9 +624,59 @@ def test_small_attention_kernels_match_plain_versions(cuda_device, case,
         torch.testing.assert_close(g, w, **tol_b)
 
 
+def small_bwd_pair(q, k, v, mask, do, causal, rate, design):
+    """`packed_bwd_pair` for the head-major backward (#4)."""
+    seed = SEED if rate else None
+    want = small_attention_bwd_reference(q, k, v, mask, do, causal, None,
+                                         rate, seed)
+    before = dict(small_attention.bwd_launches_by_design)
+    if design is None:
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = small_attention(*leaves, mask, causal, None, rate, seed)
+        got = torch.autograd.grad(out, leaves, do)
+    else:
+        got = attention_ops._launch_small_bwd(q, k, v, mask, do, causal,
+                                              q.shape[-1] ** -0.5, rate,
+                                              seed, design)
+    torch.cuda.synchronize()
+    _assert_rose(small_attention.bwd_launches_by_design, before,
+                 design or flash_design(q.dtype, q.shape[-1]), 2)
+    return got, want
+
+
 @pytest.mark.gpu
-def test_small_attention_kernels_draw_the_plain_versions_mask(cuda_device):
-    check_mask_identity(cuda_device, attn=small_attention_packed_view)
+@pytest.mark.parametrize("design", [None, "cuda_cores"])
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", BWD_BF16_CASES)
+def test_small_attention_bwd_kernel_bf16_in_both_designs(cuda_device, case,
+                                                         rate, design):
+    q, k, v, mask, do = _small_on(cuda_device, case, torch.bfloat16)
+    got, want = small_bwd_pair(q, k, v, mask, do, case[-1], rate, design)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **TOL_BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, RATE])
+def test_small_attention_bwd_tensor_cores_are_deterministic(cuda_device,
+                                                            rate):
+    q, k, v, mask, do = _small_on(cuda_device, BWD_BF16_CASES[0],
+                                  torch.bfloat16)
+    first, _ = small_bwd_pair(q, k, v, mask, do, False, rate, None)
+    second, _ = small_bwd_pair(q, k, v, mask, do, False, rate, None)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_attention_kernels_draw_the_plain_versions_mask(cuda_device,
+                                                              dtype):
+    before = dict(small_attention.bwd_launches_by_design)
+    check_mask_identity(cuda_device, attn=small_attention_packed_view,
+                        dtype=dtype)
+    _assert_rose(small_attention.bwd_launches_by_design, before,
+                 flash_design(dtype, 64), 2)
 
 
 # ---------------------------------------------------------------------------
@@ -636,12 +773,21 @@ def _failing_launch(monkeypatch):
 
 
 def _launch_small(which):
-    q, k, v, mask, do = _small_on("cpu", CASES[0], torch.float32)
+    """fp32 (CUDA cores), or bf16 on the tensor cores for "bwd_tc"."""
+    dtype = torch.bfloat16 if which.endswith("_tc") else torch.float32
+    q, k, v, mask, do = _small_on("cpu", CASES[0], dtype)
     if which == "fwd":
         return attention_ops._launch_small_fwd(q, k, v, mask, False, 0.25,
                                                RATE, SEED)
     return attention_ops._launch_small_bwd(q, k, v, mask, do, False, 0.25,
                                            RATE, SEED)
+
+
+def _launch_packed_bwd(which):
+    dtype = torch.bfloat16 if which.endswith("_tc") else torch.float32
+    q, k, v, mask, do = _grad_inputs("cpu", CASES[0], dtype)
+    return attention_ops._launch_bwd(q, k, v, mask, do, 3, False, 0.25, RATE,
+                                     SEED)
 
 
 def _launch_flash(which):
@@ -658,11 +804,15 @@ def _launch_flash(which):
 def _all_launch_counts():
     return (small_attention.launches, small_attention.bwd_launches,
             fused_ffn_ln.launches, attention_flash.launches,
-            attention_flash.bwd_launches, _design_launches())
+            attention_flash.bwd_launches, _design_launches(),
+            attention_packed.bwd_launches,
+            dict(attention_packed.bwd_launches_by_design),
+            dict(small_attention.bwd_launches_by_design))
 
 
-@pytest.mark.parametrize("which", ["small_fwd", "small_bwd", "fused_ffn",
-                                   "flash_fwd", "flash_bwd"])
+@pytest.mark.parametrize("which", ["small_fwd", "small_bwd", "small_bwd_tc",
+                                   "packed_bwd", "packed_bwd_tc",
+                                   "fused_ffn", "flash_fwd", "flash_bwd"])
 def test_a_failing_launch_raises_and_counts_nothing(monkeypatch, which):
     _failing_launch(monkeypatch)
     before = _all_launch_counts()
@@ -672,6 +822,172 @@ def test_a_failing_launch_raises_and_counts_nothing(monkeypatch, which):
                                               torch.float32), 1e-12)
         elif which.startswith("flash"):
             _launch_flash(which[6:])
+        elif which.startswith("packed"):
+            _launch_packed_bwd(which)
         else:
             _launch_small(which[6:])
     assert _all_launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the design rule of the packed and head-major backward (runs without a card)
+# ---------------------------------------------------------------------------
+
+
+def _rule_tensors(layout, dtype=torch.bfloat16, dh=64, n_heads=2, b=2,
+                  s=24):
+    """q, k, v in one of the layouts the rule tells apart, packed
+    (B, S, H*Dh), on the CPU (whose allocator aligns to 64 bytes)."""
+    hd = n_heads * dh
+    if layout == "misaligned_slice":     # starts one element (2 bytes) in
+        q = torch.randn(b, s, hd + 8, dtype=dtype)[..., 1:hd + 1]
+    elif layout == "row_stride_not_8":   # rows of hd + 4 elements
+        q = torch.randn(b, s, hd + 4, dtype=dtype)[..., :hd]
+    elif layout == "batch_stride_not_8":
+        q = torch.randn(b * s * hd + 4, dtype=dtype).as_strided(
+            (b, s, hd), (s * hd + 4, hd, 1))
+    elif layout == "longer_than_max_seq":
+        q = torch.randn(b, attention_ops.MAX_SEQ + 1, hd, dtype=dtype)
+    else:                                # contiguous
+        q = torch.randn(b, s, hd, dtype=dtype)
+    return q, torch.randn(b, s, hd, dtype=dtype), torch.randn(b, s, hd,
+                                                              dtype=dtype)
+
+
+def _head_major(t, n_heads):
+    """The (B, H, S, Dh) view of a packed tensor (strides kept)."""
+    return t.unflatten(2, (n_heads, -1)).transpose(1, 2)
+
+
+RULE_CASES = [
+    (torch.float32, 64, "contiguous", "cuda_cores"),
+    (torch.bfloat16, 16, "contiguous", "tensor_cores"),
+    (torch.bfloat16, 24, "contiguous", "cuda_cores"),
+    (torch.bfloat16, 64, "contiguous", "tensor_cores"),
+    (torch.bfloat16, 128, "contiguous", "tensor_cores"),
+    (torch.bfloat16, 144, "contiguous", "cuda_cores"),
+    (torch.bfloat16, 64, "misaligned_slice", "cuda_cores"),
+    (torch.bfloat16, 64, "row_stride_not_8", "cuda_cores"),
+    (torch.bfloat16, 64, "batch_stride_not_8", "cuda_cores"),
+    (torch.bfloat16, 64, "longer_than_max_seq", "cuda_cores"),
+]
+
+
+@pytest.mark.parametrize("dtype,dh,layout,want", RULE_CASES)
+def test_packed_bwd_design_follows_the_kernel_rule(dtype, dh, layout, want):
+    """`_packed_design`: the tensor cores take bf16 with Dh a multiple of
+    16 up to 128, S <= MAX_SEQ, 16-byte aligned data and batch and row
+    strides that are multiples of 8 elements (the C entry's rule); any
+    tensor of the call can send it to CUDA cores."""
+    q, k, v = _rule_tensors(layout, dtype, dh)
+    assert attention_ops._packed_design(2, q, k, v) == want
+    assert attention_ops._packed_design(2, q.contiguous(), k, v, q) == want
+    if want == "tensor_cores":
+        odd = _rule_tensors("row_stride_not_8", dtype, dh)[0]
+        assert attention_ops._packed_design(2, q, k, v, odd) == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype,dh,layout,want", RULE_CASES + [
+    (torch.bfloat16, 64, "head_stride_not_8", "cuda_cores")])
+def test_small_bwd_design_follows_the_kernel_rule(dtype, dh, layout, want):
+    """`_small_design`: the same rule on (B, H, S, Dh) tensors, with the
+    head stride a multiple of 8 elements too; the head-major views of
+    packed tensors (head stride Dh) qualify."""
+    if layout == "head_stride_not_8":    # heads of S * Dh + 4 elements
+        b, h, s = 2, 2, 24
+        q = torch.randn(b * h * (s * dh + 4), dtype=dtype).as_strided(
+            (b, h, s, dh), (h * (s * dh + 4), s * dh + 4, dh, 1))
+        k = v = torch.randn(b, h, s, dh, dtype=dtype)
+    else:
+        q, k, v = (_head_major(t, 2) for t in _rule_tensors(layout, dtype,
+                                                             dh))
+    assert attention_ops._small_design(q, k, v) == want
+    assert attention_ops._small_design(q.contiguous(), k, v, q) == want
+
+
+def _recording_entry(monkeypatch):
+    """A stub C entry that records (dtype, design, phase, bits pointer)
+    and succeeds."""
+    calls = []
+
+    def entry(*args):
+        calls.append((args[0], args[1], args[2], args[12]))
+        return 0
+
+    monkeypatch.setattr(_build, "bind", lambda *a: entry)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    return calls
+
+
+def _bwd_call(layout, dtype, rate, design):
+    """One private backward launch (two kernel launches) of a case both
+    designs take in bf16; returns the by-design counts it moves."""
+    seed = SEED if rate else None
+    if layout == "packed":
+        q, k, v, mask, do = _grad_inputs("cpu", CASES[0], dtype)
+        attention_ops._launch_bwd(q, k, v, mask, do, 3, False, 0.25, rate,
+                                  seed, design)
+        return attention_packed.bwd_launches_by_design
+    q, k, v, mask, do = _small_on("cpu", CASES[0], dtype)
+    attention_ops._launch_small_bwd(q, k, v, mask, do, False, 0.25, rate,
+                                    seed, design)
+    return small_attention.bwd_launches_by_design
+
+
+@pytest.mark.parametrize("layout", ["packed", "small"])
+@pytest.mark.parametrize("dtype,forced,code,rate", [
+    (torch.bfloat16, None, 1, 0.0), (torch.bfloat16, None, 1, RATE),
+    (torch.bfloat16, "cuda_cores", 0, RATE), (torch.float32, None, 0, RATE)])
+def test_bwd_launches_pass_the_design_and_count_it(monkeypatch, layout,
+                                                   dtype, forced, code,
+                                                   rate):
+    """Each launch hands the C entry the design's code (0 CUDA cores, 1
+    tensor cores), phase 0 then 1, and a keep-word scratch only with
+    dropout on the tensor cores; each adds one to that design's count.
+    ``_design`` (the private argument the timing uses) names the CUDA-core
+    design."""
+    calls = _recording_entry(monkeypatch)
+    design = attention_ops._DESIGNS[code]
+    counts = (attention_packed.bwd_launches_by_design if layout == "packed"
+              else small_attention.bwd_launches_by_design)
+    before = dict(counts)
+    _bwd_call(layout, dtype, rate, forced)
+    dtype_code = 1 if dtype == torch.bfloat16 else 0
+    assert [c[:3] for c in calls] == [(dtype_code, code, 0),
+                                      (dtype_code, code, 1)]
+    with_bits = design == "tensor_cores" and rate > 0
+    assert all((c[3] is not None) == with_bits for c in calls)
+    assert counts == {d: before[d] + (2 if d == design else 0)
+                      for d in before}
+
+
+@pytest.mark.parametrize("layout", ["packed", "small"])
+@pytest.mark.parametrize("why", ["float32", "misaligned", "too_long"])
+def test_forced_tensor_cores_outside_the_rule_raise(monkeypatch, layout,
+                                                    why):
+    """A forced ``_design="tensor_cores"`` on tensors the rule sends to CUDA
+    cores raises before any launch and does not run the CUDA-core design
+    instead."""
+    calls = _recording_entry(monkeypatch)
+    if why == "float32":
+        q, k, v = _rule_tensors("contiguous", torch.float32)
+    elif why == "misaligned":
+        q, k, v = _rule_tensors("misaligned_slice")
+    else:
+        q, k, v = _rule_tensors("longer_than_max_seq")
+        k = v = torch.randn(q.shape, dtype=q.dtype)
+    do = torch.randn(q.shape, dtype=q.dtype)
+    before = _all_launch_counts()
+    with pytest.raises(ValueError, match="does not take these tensors"):
+        if layout == "packed":
+            attention_ops._launch_bwd(q, k, v, None, do, 2, False, 0.125,
+                                      0.0, None, "tensor_cores")
+        else:
+            attention_ops._launch_small_bwd(
+                *(_head_major(t, 2) for t in (q, k, v)), None,
+                _head_major(do, 2), False, 0.125, 0.0, None, "tensor_cores")
+    assert calls == [] and _all_launch_counts() == before
