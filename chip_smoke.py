@@ -17,13 +17,14 @@ Phases, each of which fails the run if it fails:
   3. time each kernel, its plain version and the one-call PyTorch
      yardstick (SDPA, the autograd backward of SDPA replayed from a CUDA
      graph) at the paths' shapes, beside the least time the card needs;
-     the packed backward's two designs in turns on the same tensors;
+     the packed forward's and backward's two designs in turns on the same
+     tensors;
   4. serve the flagship width (12 blocks, 768d, 12 heads, 3 AoA refiner
      layers, 100 regions, 250002-word vocab, bf16 compute, random weights
      from the seed) over HTTP: /health, /v1/score with one and with 64
      pairs, a 1000-image gallery and /v1/retrieve; check the answers and
-     that every attention call went through the kernel; compare 4 pairs in
-     fp32 on the card with the CPU;
+     that every attention call went through the kernel, on its tensor-core
+     design; compare 4 pairs in fp32 on the card with the CPU;
   5. measure score pairs/s and retrieve latency, then trace score and
      retrieve with torch.profiler: the device's idle share and its time by
      kernel (the profiler's own host cost inflates the idle share);
@@ -31,7 +32,7 @@ Phases, each of which fails the run if it fails:
      and attention dropout 0.1, BN = 80 = 20 groups x 4 candidates, fp32
      parameters, clip 5.0 + adam_inverse_sqrt), 3 warm-up and 20 timed
      steps: samples/s, step ms, peak memory, kernel launches per step
-     (every backward launch on the tensor-core design);
+     (every forward and backward launch on the tensor-core design);
      fp32 gradients on the card against the CPU at depth 2 (rate 0); a
      learning check at depth 2 (50 steps on one batch); a profile of one
      training step;
@@ -51,8 +52,9 @@ Phases, each of which fails the run if it fails:
      3 warm-up and 20 timed steps in two configurations: A, bench.py's
      (use_fused_dropout off), and B, every residual dropout through the
      fused dropout kernels: samples/s, step ms, peak memory, launches per
-     step (15 packed forward, 30 packed backward all on the tensor cores,
-     24 + 24 fused dropout in B, none in A), a profile of one step and an
+     step (15 packed forward and 30 packed backward, all on the tensor
+     cores, 24 + 24 fused dropout in B, none in A), a profile of one step
+     and an
      MFU reading; one step of B
      with CLCM (launches doubled); fp32 gradients of the whole loss on the
      card against the CPU at depth 2 with CLCM and fused dropout at 0.1
@@ -61,13 +63,15 @@ Phases, each of which fails the run if it fails:
      (csrc/small_attention.cu) against their plain versions (fp32 and
      bf16, rates 0 and 0.1, causal, Sq != Sk, a row with no valid key, odd
      shapes, the single-tile edge S = 512 at Dh 64 and 128, the flagship
-     joint shape; #4 in bf16 in both designs), the V = identity check,
+     joint shape; #3 and #4 in bf16 in both designs), the V = identity
+     check,
      `attention_bhsd` against the
      packed path on the same tensors and seed; the main path counted
      (`attention_bhsd` forward and backward with dropout at (80, 12, 164,
      64) bf16, three times, then S = 640 through the flash kernels and rate
-     0 through `mha_reference`); #3/#4 timed with CUDA events beside
-     #1/#2 on packed copies (in turns), #4's two designs in turns, their
+     0 through `mha_reference`; every #3/#4 launch on the tensor cores);
+     #3/#4 timed with CUDA events beside #1/#2 on packed copies (in turns),
+     #3's and #4's two designs in turns, their
      plain versions, SDPA and its backward; #9 (csrc/fused_ffn.cu) against
      its plain version (fp32 and bf16, M in {1, 70, 13120, 13121}, (D, H)
      in {(64, 256), (768, 3072)}, ragged widths), against a flagship bf16
@@ -197,11 +201,18 @@ def attn_inputs(b, s_q, s_k, h, dh, dtype, gen, empty_row=True):
 
 
 def check_kernels(gen):
+    """#1 at rate 0 against its plain version: fp32 (CUDA cores) and bf16 in
+    both designs (the one the rule names, the tensor cores at these
+    shapes, and forced to CUDA cores), each call's design read from the
+    per-design launch counts."""
     import torch
 
+    from m3p_tpu_torch.ops import attention as ops
     from m3p_tpu_torch.ops.attention import (
         attention_packed, attention_packed_reference)
 
+    flash_design = kernel_tests().flash_design
+    counts = attention_packed.launches_by_design
     cases = [  # (B, Sq, Sk, H, Dh, dtype, causal, tolerance)
         (2, 40, 40, 3, 16, torch.float32, False, TOL_FP32),
         (2, 40, 40, 3, 16, torch.float32, True, TOL_FP32),
@@ -221,21 +232,30 @@ def check_kernels(gen):
     worst = {}
     for b, sq, sk, h, dh, dt, causal, tol in cases:
         q, k, v, mask = attn_inputs(b, sq, sk, h, dh, dt, gen)
-        got = attention_packed(q, k, v, mask, h, causal=causal)
-        torch.cuda.synchronize()
         want = attention_packed_reference(q, k, v, mask, h, causal=causal)
-        if not torch.isfinite(got).all():
-            fail(f"kernel gave non-finite values at {(b, sq, sk, h, dh)}")
-        err = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got, want, **tol)
+        rule = flash_design(dt, dh)
         name = str(dt).replace("torch.", "")
-        log(f"[check] packed_attention B={b} Sq={sq} Sk={sk} H={h} Dh={dh} "
-            f"{name} causal={causal}: max|kernel-plain| = {err:.3e} "
-            f"(rtol {tol['rtol']}, atol {tol['atol']})")
-        if dt == torch.bfloat16:
-            worst["bfloat16"] = max(worst.get("bfloat16", 0.0), err)
-        else:
-            worst["float32"] = max(worst.get("float32", 0.0), err)
+        for design in [None] + (["cuda_cores"] if rule == "tensor_cores"
+                                else []):
+            before = dict(counts)
+            if design is None:
+                got = attention_packed(q, k, v, mask, h, causal=causal)
+            else:
+                got = ops._launch_fwd(q, k, v, mask, h, causal, dh ** -0.5,
+                                      0.0, None, design)
+            torch.cuda.synchronize()
+            took = launched_design(counts, before, 1)
+            if took != (design or rule):
+                fail(f"packed forward {(b, sq, sk, h, dh)} {dt}: took "
+                     f"{took}, expected {design or rule}")
+            shape = (b, sq, sk, h, dh)
+            err = _compare(got, want, tol,
+                           f"packed forward {shape} {dt} {took}")
+            log(f"[check] packed_attention B={b} Sq={sq} Sk={sk} H={h} "
+                f"Dh={dh} {name} causal={causal} {took}: max|kernel-plain| "
+                f"= {err:.3e} (rtol {tol['rtol']}, atol {tol['atol']})")
+            key = name if dt == torch.float32 else f"{name}_{took}"
+            worst[key] = max(worst.get(key, 0.0), err)
     # the comparison has teeth: the causal kernel is far from a full one
     q, k, v, mask = attn_inputs(2, 40, 40, 3, 16, torch.float32, gen)
     off = (attention_packed(q, k, v, mask, 3, causal=True)
@@ -302,17 +322,30 @@ def check_dropout_and_backward(gen):
         q, k, v, mask = attn_inputs(b, sq, sk, h, dh, dt, gen)
         do = torch.randn(b, sq, h * dh, device="cuda", generator=gen).to(dt)
         shape = f"B={b} Sq={sq} Sk={sk} H={h} Dh={dh} {dt} causal={causal}"
-        got = attention_packed(q, k, v, mask, h, causal=causal,
-                               dropout_rate=RATE, dropout_seed=SEED)
-        torch.cuda.synchronize()
         want = attention_packed_reference(q, k, v, mask, h, causal=causal,
                                           dropout_rate=RATE,
                                           dropout_seed=SEED)
-        err = _compare(got, want, tol_f, f"forward rate {RATE} {shape}")
         name = str(dt).replace("torch.", "")
-        note("fwd", name, err)
-        msg = [f"fwd rate {RATE} {err:.3e}"]
         rule = flash_design(dt, dh)
+        msg = []
+        for design in ([None] if dt == f32 else [None, "cuda_cores"]):
+            before = dict(attention_packed.launches_by_design)
+            if design is None:
+                got = attention_packed(q, k, v, mask, h, causal=causal,
+                                       dropout_rate=RATE, dropout_seed=SEED)
+            else:
+                got = ops._launch_fwd(q, k, v, mask, h, causal, dh ** -0.5,
+                                      RATE, SEED, design)
+            torch.cuda.synchronize()
+            took = launched_design(attention_packed.launches_by_design,
+                                   before, 1)
+            if took != (design or rule):
+                fail(f"packed forward {shape}: took {took}, expected "
+                     f"{design or rule}")
+            err = _compare(got, want, tol_f,
+                           f"forward rate {RATE} {took} {shape}")
+            note("fwd", name if dt == f32 else f"{name}_{took}", err)
+            msg.append(f"fwd rate {RATE} {took} {err:.3e}")
         for rate in (0.0, RATE):
             seed = SEED if rate else None
             want = attention_packed_bwd_reference(q, k, v, mask, do, h,
@@ -380,6 +413,7 @@ def check_mask_identity(flash=False, dtype=None):
     name = ("flash" if flash else "packed") + " " + str(dtype)[6:]
     before = [dict(attention_flash.launches_by_design),
               dict(attention_flash.bwd_launches_by_design),
+              dict(attention_packed.launches_by_design),
               dict(attention_packed.bwd_launches_by_design)]
     try:
         share = module.check_mask_identity("cuda", rate=rate, dtype=dtype,
@@ -392,9 +426,11 @@ def check_mask_identity(flash=False, dtype=None):
                                 before[0], 2),
                 launched_design(attention_flash.bwd_launches_by_design,
                                 before[1], 2))
-    else:       # one backward: two launches of the packed backward
-        took = (launched_design(attention_packed.bwd_launches_by_design,
-                                before[2], 2),) * 2
+    else:       # the same with the packed kernels
+        took = (launched_design(attention_packed.launches_by_design,
+                                before[2], 2),
+                launched_design(attention_packed.bwd_launches_by_design,
+                                before[3], 2))
     if took != (design, design):
         fail(f"V=I mask identity ({name}): took {took}, expected {design}")
     name += f", {design}"
@@ -429,11 +465,15 @@ def bound(n_bytes, flops):
 
 
 def time_kernels(gen):
+    """#1 at the serving shapes (B = 64, S = 164 and 100, bf16, rate 0):
+    the tensor-core design (the path's) and the CUDA-core design on the
+    same tensors in turns, the plain version, SDPA with the same boolean
+    mask."""
     import torch
     import torch.nn.functional as F
 
-    from m3p_tpu_torch.ops.attention import (
-        attention_packed, attention_packed_reference)
+    from m3p_tpu_torch.ops import attention as ops
+    from m3p_tpu_torch.ops.attention import attention_packed_reference
 
     out = {}
     for label, s in (("blocks", 164), ("refiner", 100)):
@@ -443,7 +483,19 @@ def time_kernels(gen):
         qh, kh, vh = (t.view(b, s, h, dh).transpose(1, 2).contiguous()
                       for t in (q, k, v))
         sdpa_mask = mask[:, None, None, :]
-        ms = cuda_ms(lambda: attention_packed(q, k, v, mask, h))
+
+        def fwd(design=None):
+            return lambda: ops._launch_fwd(q, k, v, mask, h, False,
+                                           dh ** -0.5, 0.0, None, design)
+
+        before = dict(ops.attention_packed.launches_by_design)
+        fwd()()
+        torch.cuda.synchronize()
+        if launched_design(ops.attention_packed.launches_by_design, before,
+                           1) != "tensor_cores":
+            fail(f"packed forward {label}: the serving shape does not take "
+                 f"the tensor-core design")
+        ms, ms_cc = in_turns(fwd(), fwd("cuda_cores"))
         plain_ms = cuda_ms(lambda: attention_packed_reference(q, k, v, mask,
                                                               h))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -454,14 +506,17 @@ def time_kernels(gen):
         out[label] = {
             "shape": {"B": b, "Sq": s, "Sk": s, "H": h, "Dh": dh,
                       "dtype": "bfloat16"},
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "design": "tensor_cores", "ms": ms, "ms_cuda_cores": ms_cc,
+            "speedup_over_cuda_cores": ms_cc / ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": n_bytes, "flops": flops,
         }
-        log(f"[time] packed_attention {label} B={b} S={s} bf16: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
-            f"ms, bound {out[label]['bound_ms']:.4f} ms "
-            f"({out[label]['bound_by']})")
+        log(f"[time] packed_attention {label} B={b} S={s} bf16, in turns "
+            f"(CUDA events): tensor cores {ms:.4f} ms, CUDA cores "
+            f"{ms_cc:.4f} ms ({ms_cc / ms:.2f}x); plain {plain_ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
     return out
 
 
@@ -563,13 +618,15 @@ def sdpa_bwd_ms(q, k, v, mask, do):
 
 
 def time_training_kernels(gen):
-    """#1 and #2 at the training shapes (B = 80, bf16): #1 at rates 0 and
-    0.1 in turns; #2's tensor-core design (the path's) and CUDA-core design
-    on the same tensors in turns, at rates 0 and 0.1; the plain versions;
-    for #2 the autograd backward of SDPA with the same boolean mask at rate
-    0 (the same function; SDPA's own dropout draws other bits), replayed
-    from a CUDA graph (`sdpa_bwd_ms`)."""
+    """#1 and #2 at the training shapes (B = 80, bf16): each one's
+    tensor-core design (the path's) and CUDA-core design on the same
+    tensors in turns, #1 at rate 0.1 (and the path's design at rate 0), #2
+    at rates 0 and 0.1; the plain versions; SDPA with the same boolean
+    mask at rate 0 (the same function; SDPA's own dropout draws other
+    bits), for #2 its autograd backward replayed from a CUDA graph
+    (`sdpa_bwd_ms`)."""
     import torch
+    import torch.nn.functional as F
 
     from m3p_tpu_torch.ops import attention as ops
     from m3p_tpu_torch.ops.attention import (
@@ -583,12 +640,25 @@ def time_training_kernels(gen):
                                     empty_row=False)
         do = torch.randn(b, s, h * dh, device="cuda",
                          generator=gen).to(torch.bfloat16)
-        fwd0_ms, fwd_ms = in_turns(
-            lambda: attention_packed(q, k, v, mask, h),
-            lambda: attention_packed(q, k, v, mask, h, dropout_rate=RATE,
-                                     dropout_seed=SEED))
+        def fwd(rate, design=None):
+            seed = SEED if rate else None
+            return lambda: ops._launch_fwd(q, k, v, mask, h, False,
+                                           dh ** -0.5, rate, seed, design)
+
+        before = dict(attention_packed.launches_by_design)
+        fwd(RATE)()
+        torch.cuda.synchronize()
+        if launched_design(attention_packed.launches_by_design, before,
+                           1) != "tensor_cores":
+            fail(f"packed forward {label}: the training shape does not "
+                 f"take the tensor-core design")
+        fwd_ms, fwd_cc = in_turns(fwd(RATE), fwd(RATE, "cuda_cores"))
+        fwd0_ms = cuda_ms(fwd(0.0))
         fwd_plain_ms = cuda_ms(lambda: attention_packed_reference(
             q, k, v, mask, h, dropout_rate=RATE, dropout_seed=SEED))
+        fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *(t.view(b, s, h, dh).transpose(1, 2) for t in (q, k, v)),
+            attn_mask=mask[:, None, None, :]))
 
         def bwd(rate, design=None):
             seed = SEED if rate else None
@@ -636,7 +706,11 @@ def time_training_kernels(gen):
                     "bound_by": bwd_by, "bytes": bwd_bytes,
                     "flops": bwd_flops},
             "fwd_rate_0.1": {"ms": fwd_ms, "ms_rate_0": fwd0_ms,
+                             "design": "tensor_cores",
+                             "ms_cuda_cores": fwd_cc,
+                             "speedup_over_cuda_cores": fwd_cc / fwd_ms,
                              "plain_ms": fwd_plain_ms,
+                             "library_ms": fwd_lib_ms,
                              "bound_ms": fwd_bound, "bound_by": fwd_by},
         }
         log(f"[time] packed_attention_bwd {label} B={b} S={s} bf16, in turns "
@@ -648,8 +722,10 @@ def time_training_kernels(gen):
             f"{lib['library_ms_issued']:.4f} as issued), bound "
             f"{bwd_bound:.4f} ms ({bwd_by})")
         log(f"[time] packed_attention_fwd rate 0.1 {label} B={b} S={s} "
-            f"bf16: kernel {fwd_ms:.4f} ms (rate 0: {fwd0_ms:.4f}; in turns), "
-            f"plain {fwd_plain_ms:.4f}, bound {fwd_bound:.4f} ms ({fwd_by})")
+            f"bf16, in turns (CUDA events): tensor cores {fwd_ms:.4f} ms, "
+            f"CUDA cores {fwd_cc:.4f} ({fwd_cc / fwd_ms:.2f}x); rate 0 "
+            f"{fwd0_ms:.4f}; plain {fwd_plain_ms:.4f}, sdpa (rate 0) "
+            f"{fwd_lib_ms:.4f}, bound {fwd_bound:.4f} ms ({fwd_by})")
     return out
 
 
@@ -738,7 +814,7 @@ def serve_slice(seed, tokenizer):
     passes = 0
     try:
         # ---- the main path, counted ----
-        attention_packed.launches = 0
+        zero_launch_counts()
         health = post(base, "/health")
         if health.get("status") != "ok" or health["devices"] != ["cuda"]:
             fail(f"/health: {health}")
@@ -771,6 +847,7 @@ def serve_slice(seed, tokenizer):
                 "scores"])
             passes += 1
         launches = attention_packed.launches
+        by_design = dict(attention_packed.launches_by_design)
         # ---- checks ----
         if len(single) != 1 or len(multi) != 64:
             fail("wrong number of scores")
@@ -779,8 +856,11 @@ def serve_slice(seed, tokenizer):
         if launches != per_pass * passes:
             fail(f"{launches} kernel launches for {passes} forward passes; "
                  f"expected {per_pass} per pass")
+        if by_design["tensor_cores"] != launches:
+            fail(f"forward launches by design {by_design}: not every bf16 "
+                 f"#1 launch took the tensor cores")
         log(f"[serve] kernel launches {launches} = {per_pass} x {passes} "
-            f"forward passes")
+            f"forward passes, by design {by_design}")
         worst = 0.0
         for res, pw in zip(results, pairwise):
             vals = [r["score"] for r in res]
@@ -814,6 +894,7 @@ def serve_slice(seed, tokenizer):
     if thread.is_alive():
         fail("server thread did not stop")
     numbers["launches"] = launches
+    numbers["launches_by_design"] = by_design
     numbers["launches_per_forward"] = per_pass
     numbers["layers"] = layers
     return engine, numbers
@@ -1023,10 +1104,7 @@ def train_slice(seed):
     end = torch.cuda.Event(enable_timing=True)
     metrics = []
     # ---- the main path, counted ----
-    attention_packed.launches = 0
-    attention_packed.bwd_launches = 0
-    for design in attention_packed.bwd_launches_by_design:
-        attention_packed.bwd_launches_by_design[design] = 0
+    zero_launch_counts()
     for i in range(n_steps):
         if i == WARMUP_STEPS:
             torch.cuda.synchronize()
@@ -1038,6 +1116,7 @@ def train_slice(seed):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - wall0
     launches = (attention_packed.launches, attention_packed.bwd_launches)
+    fwd_by_design = dict(attention_packed.launches_by_design)
     by_design = dict(attention_packed.bwd_launches_by_design)
     # ---- checks ----
     step_ms = start.elapsed_time(end) / TIMED_STEPS
@@ -1052,6 +1131,9 @@ def train_slice(seed):
     if by_design["tensor_cores"] != launches[1]:
         fail(f"backward launches by design {by_design}: not every bf16 #2 "
              f"launch took the tensor cores")
+    if fwd_by_design["tensor_cores"] != launches[0]:
+        fail(f"forward launches by design {fwd_by_design}: not every bf16 "
+             f"#1 launch took the tensor cores")
     moved = {n: (p.detach() - watched[n]).abs().max().item()
              for n, p in model.named_parameters() if n in watched}
     if state.step != n_steps or not all(v > 0 for v in moved.values()):
@@ -1062,6 +1144,7 @@ def train_slice(seed):
         "peak_memory_gb": peak_gb, "bn": bn,
         "launches": {"fwd": launches[0], "bwd": launches[1]},
         "launches_per_step": {"fwd": per_step[0], "bwd": per_step[1]},
+        "fwd_launches_by_design": fwd_by_design,
         "bwd_launches_by_design": by_design,
         "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
         "lr_last": schedule(state.step - 1),
@@ -1072,7 +1155,8 @@ def train_slice(seed):
         f"samples/s, host wall {numbers['wall_step_ms']:.2f} ms a step, peak "
         f"memory {peak_gb:.2f} GB; kernel launches fwd {launches[0]} = "
         f"{per_step[0]} x {n_steps}, bwd {launches[1]} = {per_step[1]} x "
-        f"{n_steps} (by design {by_design}); loss {losses[0].item():.4f} -> "
+        f"{n_steps} (by design: fwd {fwd_by_design}, bwd {by_design}); loss "
+        f"{losses[0].item():.4f} -> "
         f"{losses[-1].item():.4f}; "
         f"max |param change| {moved}")
     numbers["profile"] = profile_window(
@@ -1095,16 +1179,19 @@ def compare_grads_with_cpu(seed):
     cpu_model = build_model(cfg, seed, "cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     losses = {}
-    before = dict(attention_packed.bwd_launches_by_design)
+    before = (dict(attention_packed.launches_by_design),
+              dict(attention_packed.bwd_launches_by_design))
     for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
         batch = train_batch(seed + 2, dev, groups=2)
         loss, _ = itm_finetune_loss(model, batch, None, SAMPLE_N,
                                     deterministic=True)
         loss.backward()
         losses[dev] = loss.item()
-    # fp32 exercises the CUDA-core design: 2 launches x 5 attention layers
-    if launched_design(attention_packed.bwd_launches_by_design, before,
-                       10) != "cuda_cores":
+    # fp32 exercises the CUDA-core designs: 5 attention layers, one forward
+    # and two backward launches each
+    if (launched_design(attention_packed.launches_by_design, before[0], 5),
+            launched_design(attention_packed.bwd_launches_by_design,
+                            before[1], 10)) != ("cuda_cores",) * 2:
         fail("the fp32 gradient check did not take the CUDA-core design")
     cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
     largest = max(g.abs().max().item() for g in cpu_grads.values()
@@ -1793,7 +1880,9 @@ def zero_launch_counts():
         fn.bwd_launches = 0
     for counts in (attention_flash.launches_by_design,
                    attention_flash.bwd_launches_by_design,
+                   attention_packed.launches_by_design,
                    attention_packed.bwd_launches_by_design,
+                   small_attention.launches_by_design,
                    small_attention.bwd_launches_by_design):
         for design in counts:
             counts[design] = 0
@@ -1807,6 +1896,8 @@ def launch_counts():
     from m3p_tpu_torch.ops.fused_ffn import fused_ffn_ln
 
     return {"packed_fwd": attention_packed.launches,
+            "packed_fwd_tensor_cores":
+                attention_packed.launches_by_design["tensor_cores"],
             "packed_bwd": attention_packed.bwd_launches,
             "packed_bwd_tensor_cores":
                 attention_packed.bwd_launches_by_design["tensor_cores"],
@@ -1819,6 +1910,8 @@ def launch_counts():
             "dropout_fwd": dropout_add.launches,
             "dropout_bwd": dropout_add.bwd_launches,
             "small_fwd": small_attention.launches,
+            "small_fwd_tensor_cores":
+                small_attention.launches_by_design["tensor_cores"],
             "small_bwd": small_attention.bwd_launches,
             "small_bwd_tensor_cores":
                 small_attention.bwd_launches_by_design["tensor_cores"],
@@ -1827,16 +1920,19 @@ def launch_counts():
 
 def mct_per_step(cfg, encodes=1):
     """Launches a step makes: per joint encode, one #1 and one #2 backward
-    (two launches, both on the tensor cores in bf16) per block and refiner
+    (two launches), all on the tensor cores in bf16, per block and refiner
     layer; with fused dropout one #7 and one #8 per residual (two a
     block)."""
     layers = cfg.n_layers + cfg.refine_layers
     fused = 2 * cfg.n_layers if cfg.use_fused_dropout else 0
-    return {"packed_fwd": layers * encodes, "packed_bwd": 2 * layers * encodes,
+    return {"packed_fwd": layers * encodes,
+            "packed_fwd_tensor_cores": layers * encodes,
+            "packed_bwd": 2 * layers * encodes,
             "packed_bwd_tensor_cores": 2 * layers * encodes,
             "flash_fwd": 0, "flash_bwd": 0, "flash_fwd_tensor_cores": 0,
             "flash_bwd_tensor_cores": 0, "dropout_fwd": fused * encodes,
-            "dropout_bwd": fused * encodes, "small_fwd": 0, "small_bwd": 0,
+            "dropout_bwd": fused * encodes, "small_fwd": 0,
+            "small_fwd_tensor_cores": 0, "small_bwd": 0,
             "small_bwd_tensor_cores": 0, "fused_ffn": 0}
 
 
@@ -1974,7 +2070,8 @@ def compare_mct_grads_with_cpu(seed):
 
     losses = []              # the card's, then the CPU's
     dropout_add.launches = dropout_add.bwd_launches = 0
-    before = dict(attention_packed.bwd_launches_by_design)
+    before = (dict(attention_packed.launches_by_design),
+              dict(attention_packed.bwd_launches_by_design))
     for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
         gens = Generators(torch.Generator().manual_seed(seed + 5),
                           torch.Generator().manual_seed(seed + 6))
@@ -1990,9 +2087,11 @@ def compare_mct_grads_with_cpu(seed):
     if fused != (8, 8):
         fail(f"the fp32 MCT check launched {fused} fused dropout kernels; "
              f"expected 8 and 8 (2 blocks x 2 residuals x 2 encodes)")
-    # fp32 exercises the CUDA-core design: 2 launches x 5 layers x 2 encodes
-    if launched_design(attention_packed.bwd_launches_by_design, before,
-                       20) != "cuda_cores":
+    # fp32 exercises the CUDA-core designs: 5 layers x 2 encodes, one
+    # forward and two backward launches each
+    if (launched_design(attention_packed.launches_by_design, before[0], 10),
+            launched_design(attention_packed.bwd_launches_by_design,
+                            before[1], 20)) != ("cuda_cores",) * 2:
         fail("the fp32 MCT check did not take the CUDA-core design")
     cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
     largest = max(g.abs().max().item() for g in cpu_grads.values()
@@ -2079,6 +2178,7 @@ def check_small_attention():
 
     module = kernel_tests()
     worst = {"fwd": {}, "bwd": {}}
+    fwd_counts = small_attention.launches_by_design
     counts = small_attention.bwd_launches_by_design
 
     def note(kind, name, err):
@@ -2094,21 +2194,35 @@ def check_small_attention():
                 q, k, v, mask, do = module._small_on("cuda", case, dt)
                 causal = case[-1]
                 leaves = [t.requires_grad_(True) for t in (q, k, v)]
-                before = dict(counts)
+                before = (dict(fwd_counts), dict(counts))
                 out = small_attention(*leaves, mask, causal, None, rate, seed)
                 grads = torch.autograd.grad(out, leaves, do)
                 torch.cuda.synchronize()
-                took = launched_design(counts, before, 2)
-                if took != module.flash_design(dt, case[2]):
-                    fail(f"small_attention {case} {dt}: the backward took "
-                         f"{took}")
+                took_fwd = launched_design(fwd_counts, before[0], 1)
+                took = launched_design(counts, before[1], 2)
+                if (took_fwd, took) != (module.flash_design(dt, case[2]),) * 2:
+                    fail(f"small_attention {case} {dt}: the forward took "
+                         f"{took_fwd} and the backward {took}")
                 q, k, v = (t.detach() for t in leaves)
                 what = f"small_attention {case} {dt} rate {rate}"
                 name = str(dt).replace("torch.", "")
-                err = _compare(out.detach(), small_attention_reference(
-                    q, k, v, mask, causal, None, rate, seed), tol_f,
-                    f"{what} forward")
-                note("fwd", name, err)
+                want = small_attention_reference(q, k, v, mask, causal, None,
+                                                 rate, seed)
+                outs = [(took, out.detach())]
+                if dt == torch.bfloat16 and took == "tensor_cores":
+                    before = dict(fwd_counts)
+                    outs.append(("cuda_cores", ops._launch_small_fwd(
+                        q, k, v, mask, causal, case[2] ** -0.5, rate, seed,
+                        "cuda_cores")))
+                    torch.cuda.synchronize()
+                    launched_design(fwd_counts, before, 1)
+                part = []
+                for design, got in outs:
+                    err = _compare(got, want, tol_f,
+                                   f"{what} forward {design}")
+                    note("fwd", name if dt == torch.float32
+                         else f"{name}_{design}", err)
+                    part.append(f"fwd {design} {err:.3e}")
                 want = small_attention_bwd_reference(q, k, v, mask, do,
                                                      causal, None, rate, seed)
                 runs = [(took, grads)]
@@ -2119,7 +2233,7 @@ def check_small_attention():
                         seed, "cuda_cores")))
                     torch.cuda.synchronize()
                     launched_design(counts, before, 2)
-                part = [f"rate {rate}: fwd {err:.3e}"]
+                part = [f"rate {rate}: " + ", ".join(part)]
                 for design, got in runs:
                     errs = [_compare(g, w, tol_b, f"{what} d{n} {design}")
                             for n, g, w in zip("qkv", got, want)]
@@ -2134,19 +2248,20 @@ def check_small_attention():
     shares = {}
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
-        before = dict(counts)
+        before = (dict(fwd_counts), dict(counts))
         try:
             shares[name] = module.check_mask_identity(
                 "cuda", attn=module.small_attention_packed_view, dtype=dt)
         except AssertionError as exc:
             fail(f"V=I mask identity (small_attention {name}): {exc!r}")
-        took = launched_design(counts, before, 2)
-        if took != module.flash_design(dt, 64):
-            fail(f"V=I mask identity (small_attention {name}): the backward "
-                 f"took {took}")
-        log(f"[check] V=I mask identity of #3/#4 at rate 0.25, {name} (#4 "
-            f"on {took}): forward == plain Philox mask, backward dv^T == "
-            f"forward output, keep share {shares[name]:.4f}")
+        took = (launched_design(fwd_counts, before[0], 2),
+                launched_design(counts, before[1], 2))
+        if took != (module.flash_design(dt, 64),) * 2:
+            fail(f"V=I mask identity (small_attention {name}): the forward "
+                 f"and backward took {took}")
+        log(f"[check] V=I mask identity of #3/#4 at rate 0.25, {name} (#3 "
+            f"and #4 on {took[0]}): forward == plain Philox mask, backward "
+            f"dv^T == forward output, keep share {shares[name]:.4f}")
     share = shares
     # the head-major entry and the packed path on one set of tensors
     layout = {}
@@ -2216,7 +2331,8 @@ def head_major_path():
     torch.cuda.synchronize()
     counts = launch_counts()
     want = {k_: 0 for k_ in counts}
-    want.update(small_fwd=3, small_bwd=6, small_bwd_tensor_cores=6,
+    want.update(small_fwd=3, small_fwd_tensor_cores=3, small_bwd=6,
+                small_bwd_tensor_cores=6,
                 flash_fwd=1, flash_bwd=2, flash_fwd_tensor_cores=1,
                 flash_bwd_tensor_cores=2)
     if counts != want:
@@ -2235,10 +2351,10 @@ def head_major_path():
 def time_small_attention():
     """#3 and #4 at the flagship joint shape, bf16, rate 0.1 (and the
     kernels at rate 0), with CUDA events (a call costs the host 0.08 ms,
-    the kernels over 0.1 ms): kernel, plain version, SDPA at rate 0 on the
+    the kernels 0.1-0.4 ms): kernel, plain version, SDPA at rate 0 on the
     same (B, H, S, D) tensors and its autograd backward (replayed from a
-    CUDA graph, `sdpa_bwd_ms`, as phase 3 times it for #2), #4's
-    tensor-core design (the path's) and CUDA-core design on the same
+    CUDA graph, `sdpa_bwd_ms`, as phase 3 times it for #2), #3's and #4's
+    tensor-core designs (the path's) and CUDA-core designs on the same
     tensors in turns, and #1/#2 (the same tile code) on packed copies of
     the tensors, in turns with #3/#4."""
     import torch
@@ -2256,12 +2372,16 @@ def time_small_attention():
     q, k, v, mask, do = module._small_on("cuda", case, torch.bfloat16)
     pq, pk, pv, pdo = (t.transpose(1, 2).reshape(b, s, h * dh)
                        for t in (q, k, v, do))
-    before = dict(ops.small_attention.bwd_launches_by_design)
+    before = (dict(ops.small_attention.launches_by_design),
+              dict(ops.small_attention.bwd_launches_by_design))
+    small_attention(q, k, v, mask, False, None, RATE, SEED)
     small_attention_bwd(q, k, v, mask, do, False, None, RATE, SEED)
     torch.cuda.synchronize()
-    if launched_design(ops.small_attention.bwd_launches_by_design, before,
-                       2) != "tensor_cores":
-        fail("#4 at the flagship joint shape does not take the tensor-core "
+    if (launched_design(ops.small_attention.launches_by_design, before[0],
+                        1),
+            launched_design(ops.small_attention.bwd_launches_by_design,
+                            before[1], 2)) != ("tensor_cores",) * 2:
+        fail("#3/#4 at the flagship joint shape do not take the tensor-core "
              "design")
     dev = {}
     dev["fwd"], dev["fwd_packed"] = in_turns(
@@ -2274,10 +2394,18 @@ def time_small_attention():
         lambda: attention_packed_bwd(pq, pk, pv, mask, pdo, h, False, None,
                                      RATE, SEED))
 
+    def fwd(rate, design=None):
+        seed = SEED if rate else None
+        return lambda: ops._launch_small_fwd(q, k, v, mask, False,
+                                             dh ** -0.5, rate, seed, design)
+
     def bwd(rate, design=None):
         seed = SEED if rate else None
         return lambda: ops._launch_small_bwd(q, k, v, mask, do, False,
                                              dh ** -0.5, rate, seed, design)
+
+    dev["fwd_turns"], dev["fwd_cuda_cores"] = in_turns(
+        fwd(RATE), fwd(RATE, "cuda_cores"))
 
     dev["bwd_turns"], dev["bwd_cuda_cores"] = in_turns(
         bwd(RATE), bwd(RATE, "cuda_cores"))
@@ -2315,6 +2443,13 @@ def time_small_attention():
             f"{dev[kind + '_plain']:.4f}"
             f", SDPA{' backward' if kind == 'bwd' else ''} "
             f"{dev[kind + '_lib']:.4f}, bound {bnd:.4f} ms ({by})")
+    out["fwd"].update(
+        design="tensor_cores", ms_turns=dev["fwd_turns"],
+        ms_cuda_cores=dev["fwd_cuda_cores"],
+        speedup_over_cuda_cores=dev["fwd_cuda_cores"] / dev["fwd_turns"])
+    log(f"[time] small_attention_fwd (#3) in turns: tensor cores "
+        f"{dev['fwd_turns']:.4f} ms, CUDA cores {dev['fwd_cuda_cores']:.4f} "
+        f"({out['fwd']['speedup_over_cuda_cores']:.2f}x) at rate {RATE}")
     out["bwd"].update(
         design="tensor_cores", ms_turns=dev["bwd_turns"],
         ms_cuda_cores=dev["bwd_cuda_cores"],
@@ -2551,13 +2686,24 @@ def main() -> int:
                              "mct_B": mct_b["packed_fwd"],
                              "mct_B_clcm_step": mct_clcm["packed_fwd"]},
         "launches_per_forward": numbers["launches_per_forward"],
-        "max_abs_err": max(worst["bfloat16"],
-                           worst_train["fwd"]["bfloat16"]),
+        "launches_by_design": {
+            "serving": numbers["launches_by_design"],
+            "training": training["fwd_launches_by_design"],
+            "mct_A_tensor_cores": mct_a["packed_fwd_tensor_cores"],
+            "mct_B_tensor_cores": mct_b["packed_fwd_tensor_cores"]},
+        "design": blocks["design"],
+        "max_abs_err": max(worst["bfloat16_tensor_cores"],
+                           worst_train["fwd"]["bfloat16_tensor_cores"]),
+        "max_abs_err_cuda_cores": max(
+            worst["bfloat16_cuda_cores"],
+            worst_train["fwd"]["bfloat16_cuda_cores"]),
         "max_abs_err_fp32": max(worst["float32"],
                                 worst_train["fwd"]["float32"]),
         "ms": blocks["ms"], "plain_ms": blocks["plain_ms"],
         "bound_ms": blocks["bound_ms"], "bound_by": blocks["bound_by"],
         "library_ms": blocks["library_ms"],
+        "ms_cuda_cores": blocks["ms_cuda_cores"],
+        "speedup_over_cuda_cores": blocks["speedup_over_cuda_cores"],
         "shape": blocks["shape"],
         "refiner": refiner,
         "rate_0.1_training_shapes": {"blocks": tblocks["fwd_rate_0.1"],
@@ -2675,7 +2821,11 @@ def main() -> int:
         "replaces": "m3p_tpu/ops/attention.py:696",
         "launches": bhsd_counts["small_fwd"],
         "launches_by_path": {"attention_bhsd": bhsd_counts},
-        "max_abs_err": small_worst["fwd"]["bfloat16"],
+        "launches_by_design": {
+            "tensor_cores": bhsd_counts["small_fwd_tensor_cores"]},
+        "design": small_times["fwd"]["design"],
+        "max_abs_err": small_worst["fwd"]["bfloat16_tensor_cores"],
+        "max_abs_err_cuda_cores": small_worst["fwd"]["bfloat16_cuda_cores"],
         "max_abs_err_fp32": small_worst["fwd"]["float32"],
         "ms": small_times["fwd"]["ms"],
         "plain_ms": small_times["fwd"]["plain_ms"],
@@ -2683,6 +2833,10 @@ def main() -> int:
         "bound_by": small_times["fwd"]["bound_by"],
         "library_ms": small_times["fwd"]["library_ms"],
         "ms_rate_0": small_times["fwd"]["ms_rate_0"],
+        "ms_turns": small_times["fwd"]["ms_turns"],
+        "ms_cuda_cores": small_times["fwd"]["ms_cuda_cores"],
+        "speedup_over_cuda_cores":
+            small_times["fwd"]["speedup_over_cuda_cores"],
         "packed_layout_ms": small_times["fwd"]["packed_layout_ms"],
         "shape": small_times["fwd"]["shape"],
         "mask_identity_keep_share": small_share["float32"],

@@ -1,7 +1,8 @@
 // Tile helpers shared by the flash-attention forward and backward kernels
 // (flash_attention.cu, flash_attention_bwd.cu), sm_90a; the tensor-core
-// design of the packed backward (packed_tile_bwd.cuh) takes its rule
-// (tc_fits), its cp.async tile loads and its fragment loads from here too.
+// designs of the single-tile forward and backward (packed_tile.cuh,
+// packed_tile_bwd.cuh) take their rule (tc_fits), their cp.async tile
+// loads, fragment loads and quad reductions from here too.
 //
 // Each of the two files holds two designs of its kernel, and its C entry
 // point launches the one the caller names: bf16 on the tensor cores
@@ -66,6 +67,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// max and sum over the quad of lanes that hold one row of an mma.sync C
+// fragment (lanes 4 g .. 4 g + 3)
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // rows [row0, row0 + n) of a (S, H*Dh) slab (row stride `stride`, head

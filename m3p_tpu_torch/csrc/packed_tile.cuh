@@ -20,25 +20,42 @@
 //
 // No (B, H, Sq, Sk) tensor reaches device memory.  Masked scores take the
 // finite value -0.7 * FLT_MAX, as mha_reference does, so a row without any
-// valid key gives the mean of v over Sk and never NaN.
+// valid key gives the mean of v over Sk and never NaN.  The softmax is
+// exact, not rescaled online: p = exp(s - m) / l over the whole row is
+// rounded to the input type before P.V, as the plain versions and the
+// Pallas kernels round it.
 //
-// The design is the simple one that is right: one block per (32-query
-// tile, head, batch); K and then V pass through shared memory in 64-key
-// tiles (fp32 at Sk = 512, Dh = 128 needs 115 KB); each warp owns four
-// query rows, keeps their Sk scores in shared memory and runs an exact
-// single-pass max/exp/sum softmax (Sk <= 512 needs no online rescaling)
-// before P.V with the accumulators in registers.  The probabilities are
-// rounded to the input type before P.V, as the Pallas kernels do.
-// Tensor-core mma/wgmma and TMA are left for later work.
+// Bound: device memory.  At the flagship joint shape (B = 80, H = 12,
+// S = 164, Dh = 64, bf16) q, k, v and o are 80.6 MB, 0.024 ms at 3.35 TB/s,
+// against 6.6 GFLOP, 0.007 ms at 989 TF/s.
+//
+// Two designs; the C entries launch the one the caller names
+// (ops/attention.py::_packed_design and _small_design) and refuse a
+// tensor-core launch outside its rule:
+//   tensor cores (namespace tc below; bf16, tc_fits of flash_tile.cuh and
+//     Sq, Sk <= 512, the model's paths): mma.sync m16n8k16 with fp32 sums,
+//     cp.async tile loads, 4-warp blocks of 64 queries, two passes over
+//     64-key tiles (the row statistics, then p and P.V);
+//   CUDA cores (fp32, and bf16 outside that rule): one block per (32-query
+//     tile, head, batch); K and then V pass through shared memory in 64-key
+//     tiles (fp32 at Sk = 512, Dh = 128 needs 115 KB); each warp owns four
+//     query rows, keeps their Sk scores in shared memory and runs a
+//     single-pass max/exp/sum softmax before P.V with the accumulators in
+//     registers.
+// Left for later work: wgmma and TMA, and one pass (the scores held in
+// registers) where Sk is small.
 
 #pragma once
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flash_tile.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace m3p {
@@ -264,10 +281,328 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16; dropout when a.threshold != 0
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync m16n8k16, fp32 sums
+// ---------------------------------------------------------------------------
+//
+// One block of 4 warps per (64-query tile, head, batch); warp w owns queries
+// 16 w .. 16 w + 15 in the M dimension (a lane rows g and g + 8, g = lane /
+// 4) and holds their q as A fragments in registers, loaded once.  K (and in
+// the second pass V) arrive in 64-key tiles, two stages deep by cp.async,
+// rows padded by 8 bf16 against ldmatrix bank conflicts.  The block walks
+// the key tiles twice:
+//   pass 1: s = q k^T, masked and scaled; the row max m and l = sum
+//     exp(s - m) online in registers (l rescaled when the running max
+//     grows), max over the quad of lanes that share a row by shuffles;
+//   pass 2: s again, the same products in the same order, so bitwise the
+//     same scores; p = exp(s - m) / l, the keep mask (Philox, once per
+//     element: lanes t and t ^ 1 share a group of four keys and each draws
+//     it for one of their two rows, as flash_attention.cu does) and inv
+//     with kScaleP, rounded to bf16 in the C-to-A fragment repack, then
+//     o += p v with V as B fragments by ldmatrix.trans.
+// Three products where the math needs two; the second read of K comes from
+// L2 (21 KB a head at S = 164).  Keys past Sk in a ragged last tile are
+// zero-filled and left out of m and l (score -FLT_MAX); a masked key inside
+// Sk counts at the mask value.  A tile whose every key the warp's rows
+// attend skips the per-element masking (a warp vote); a warp whose rows all
+// lie past Sq only helps stage the tiles.  o leaves through the warp's own
+// rows of the q tile, as 16-byte stores.  Dh 64 and 128 compile exact,
+// other multiples of 16 take the Dh <= 128 kernel.
+// Shared memory: q (64, Dh + 8) and two stages of K and V (64, Dh + 8),
+// 46,080 bytes at Dh 64, 87,040 at Dh 128.  Registers (nvcc -Xptxas -v,
+// sm_90a; #1's and #3's instantiations alike): 128 at Dh 64, with or
+// without dropout, held there by the launch bound so that four blocks
+// share an SM (one instantiation took 130 without it, and ran three);
+// 200 / 216 (Dh <= 128 / exact 128) without dropout and 217 / 218 with it;
+// no spills.
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace m3p::mma;
+
+constexpr int kWarps = 4;
+constexpr int kThreadsTc = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // queries of a block
+constexpr int kKT = 64;             // keys of a tile
+constexpr int kPad = 8;             // bf16 padding of a shared row
+constexpr int kMaxSeq = 512;        // Sq, Sk the design takes
+static_assert(kKT == flash::kTile, "whole_tile votes over flash::kTile keys");
+
+inline size_t smem_bytes(int dh) {
+  return sizeof(bf16) * static_cast<size_t>(kRows + 4 * kKT) * (dh + kPad);
+}
+
+// blocks an SM the registers must leave room for: four at Dh 64 (128
+// registers a thread; 46 KB of shared memory each)
+template <int kMaxDh>
+constexpr int kMinBlocks = kMaxDh <= 64 ? 4 : 1;
+
+template <bool kDropout, bool kScaleP, int kMaxDh, bool kExact>
+__global__ void __launch_bounds__(kThreadsTc, kMinBlocks<kMaxDh>)
+packed_attention_fwd_mma_kernel(Args a) {
+  constexpr int kDSteps = kMaxDh / 16, kDTiles = kMaxDh / 8;
+  constexpr int kKeyTiles = kKT / 8;
+  extern __shared__ float4 smem4[];
+  const int dh = kExact ? kMaxDh : a.dh, sq = a.sq, sk = a.sk;
+  const int ld = dh + kPad;
+  bf16* q_s = reinterpret_cast<bf16*>(smem4);
+  bf16* kv_s = q_s + kRows * ld;  // stage i: K at 2 i kKT ld, then V
+
+  const int q0 = blockIdx.x * kRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tile = b * gridDim.y + h;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q_offset = sk - sq;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const uint8_t* mb = a.kv_mask == nullptr
+                          ? nullptr
+                          : a.kv_mask + static_cast<long long>(b) * sk;
+  const int rows = min(kRows, sq - q0);
+  const int n_tiles = (sk + kKT - 1) / kKT;
+  const bool busy = 16 * warp < rows;  // warp-uniform: a row below Sq
+  const int row0 = q0 + 16 * warp + g;  // the lane's first row
+
+  flash::load_tile_async<kRows, kThreadsTc>(
+      q_s, ld, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh,
+      a.q_ss, q0, rows, dh);
+  flash::load_tile_async<kKT, kThreadsTc>(kv_s, ld, kb, a.k_ss, 0,
+                                          min(kKT, sk), dh);
+  cp_async_commit();
+
+  // the lane's rows row0 + 8 half: running max and the lane's share of l;
+  // from pass 2 on, l holds 1 / l of the whole row
+  float m[2] = {-FLT_MAX, -FLT_MAX}, l[2] = {0.f, 0.f};
+  uint32_t qa[kDSteps][4];
+  float o[kDTiles][4];
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int it = 0; it < 2 * n_tiles; ++it) {
+    const bool pass2 = it >= n_tiles;
+    const int k0 = (pass2 ? it - n_tiles : it) * kKT;
+    const int kn = min(kKT, sk - k0);
+    if (it + 1 < 2 * n_tiles) {
+      bf16* next = kv_s + ((it + 1) & 1) * 2 * kKT * ld;
+      const int nk0 = ((it + 1) % n_tiles) * kKT, nn = min(kKT, sk - nk0);
+      flash::load_tile_async<kKT, kThreadsTc>(next, ld, kb, a.k_ss, nk0, nn,
+                                              dh);
+      if (it + 1 >= n_tiles)
+        flash::load_tile_async<kKT, kThreadsTc>(next + kKT * ld, ld, vb,
+                                                a.v_ss, nk0, nn, dh);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const bf16* k_s = kv_s + (it & 1) * 2 * kKT * ld;
+    const bf16* v_s = k_s + kKT * ld;
+
+    if (busy) {
+      if (it == 0) {
+#pragma unroll
+        for (int ds = 0; ds < kDSteps; ++ds)
+          if (16 * ds < dh) flash::load_a_frag(qa[ds], q_s, ld, warp, ds, lane);
+      }
+      if (it == n_tiles) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          l[half] = 1.f / flash::quad_sum(l[half]);
+      }
+
+      // s = q k^T: the lane's rows, keys 8 j + 2 t + e
+      float s[kKeyTiles][4];
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int ds = 0; ds < kDSteps; ++ds)
+        if (16 * ds < dh) {
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; j += 2) {
+            uint32_t bb[4];
+            flash::load_b_pair(bb, k_s, ld, j, ds, lane);
+            mma_16816(s[j], qa[ds], bb[0], bb[1]);
+            mma_16816(s[j + 1], qa[ds], bb[2], bb[3]);
+          }
+        }
+
+      // the scores in place: scaled, the mask value where not attended,
+      // -FLT_MAX past Sk (a weight of exactly 0); a tile whose every key
+      // the warp's rows attend skips the masking (rows past Sq feed only
+      // their own results, which are not written)
+      auto score = [&](auto whole_tile) {
+        constexpr bool kWhole = decltype(whole_tile)::value;
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 8 * j + 2 * t + (e & 1);
+            const int qi = row0 + 8 * (e >> 1);
+            float& sc = s[j][e];
+            if (kWhole)
+              sc *= a.scale;
+            else if (c >= kn)
+              sc = -FLT_MAX;
+            else
+              sc = flash::attends(mb, a.causal, k0 + c, qi, q_offset)
+                       ? sc * a.scale
+                       : kMaskValue;
+          }
+      };
+      if (flash::whole_tile(mb, a.causal, k0, kn, q0 + 16 * warp + q_offset,
+                            lane))
+        score(std::true_type());
+      else
+        score(std::false_type());
+
+      if (!pass2) {
+        // pass 1: the online row statistics
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float mx = -FLT_MAX;
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; ++j)
+            mx = fmaxf(mx, fmaxf(s[j][2 * half], s[j][2 * half + 1]));
+          const float m_new = fmaxf(m[half], flash::quad_max(mx));
+          float ls = 0.f;
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; ++j)
+            ls += expf(s[j][2 * half] - m_new) +
+                  expf(s[j][2 * half + 1] - m_new);
+          l[half] = l[half] * expf(m[half] - m_new) + ls;
+          m[half] = m_new;
+        }
+      } else {
+        // pass 2: p = exp(s - m) / l, dropped and scaled, into s
+#pragma unroll
+        for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = expf(s[j][e] - m[e >> 1]) * l[e >> 1];
+        if (kDropout) {
+          // lanes t and t ^ 1 hold the same Philox group of 4 keys (8 j +
+          // 4 (t / 2) ..) for both rows: each draws it for one row (row0 +
+          // 8 (t & 1)) and hands the partner the two words of its keys
+          const int mine = 2 * (t & 1), theirs = 2 - mine;
+#pragma unroll
+          for (int j = 0; j < kKeyTiles; ++j) {
+            const uint4 w = keep_bits(a.seed, tile, row0 + 8 * (t & 1),
+                                      k0 / 4 + 2 * j + (t >> 1));
+            const uint32_t own0 = word(w, mine), own1 = word(w, mine + 1);
+            const uint32_t got0 =
+                __shfl_xor_sync(0xffffffffu, word(w, theirs), 1);
+            const uint32_t got1 =
+                __shfl_xor_sync(0xffffffffu, word(w, theirs + 1), 1);
+            // element e: row half e / 2, key 8 j + 2 t + e % 2
+            const uint32_t bits[4] = {(t & 1) ? got0 : own0,
+                                      (t & 1) ? got1 : own1,
+                                      (t & 1) ? own0 : got0,
+                                      (t & 1) ? own1 : got1};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[j][e] = bits[e] >= a.threshold
+                            ? (kScaleP ? s[j][e] * a.inv : s[j][e])
+                            : 0.f;
+          }
+        }
+        // o += p v, p rounded to bf16 in the A fragments
+#pragma unroll
+        for (int kk = 0; kk < kKT / 16; ++kk) {
+          uint32_t pa[4];
+          pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+          pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+          pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+          pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+          for (int n = 0; n < kDTiles; n += 2)
+            if (8 * n < dh) {
+              uint32_t bb[4];
+              flash::load_b_pair_trans(bb, v_s, ld, kk, n, lane);
+              mma_16816(o[n], pa, bb[0], bb[1]);
+              mma_16816(o[n + 1], pa, bb[2], bb[3]);
+            }
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed
+  }
+
+  if (!busy) return;
+  // o out through the warp's own 16 rows of the q tile (read only at the
+  // start), then 16 bytes a store
+  const float f = kDropout && !kScaleP ? a.inv : 1.f;
+  bf16* o_s = q_s + 16 * warp * ld;
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+    if (8 * n < dh) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<uint32_t*>(o_s + (g + 8 * half) * ld + 8 * n +
+                                     2 * t) =
+            pack_bf16x2(o[n][2 * half] * f, o[n][2 * half + 1] * f);
+    }
+  __syncwarp();
+  bf16* ob = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const int vecs = dh >> 3;
+  for (int i = lane; i < 16 * vecs; i += 32) {
+    const int r = i / vecs, c = (i - r * vecs) << 3;
+    const int qi = q0 + 16 * warp + r;
+    if (qi < sq)
+      *reinterpret_cast<uint4*>(ob + qi * a.o_ss + c) =
+          *reinterpret_cast<const uint4*>(o_s + r * ld + c);
+  }
+}
+
+template <bool kDropout, bool kScaleP, int kMaxDh, bool kExact>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.dh);
+  auto kernel =
+      packed_attention_fwd_mma_kernel<kDropout, kScaleP, kMaxDh, kExact>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + kRows - 1) / kRows, a.h, a.b);
+  kernel<<<grid, kThreadsTc, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Dh 64 and 128 exact; other multiples of 16 below 128 take the general
+// Dh <= 128 kernel
+template <bool kDropout, bool kScaleP>
+cudaError_t dispatch_dh(const Args& a, cudaStream_t stream) {
+  if (a.dh == 64) return launch<kDropout, kScaleP, 64, true>(a, stream);
+  if (a.dh == 128) return launch<kDropout, kScaleP, 128, true>(a, stream);
+  return launch<kDropout, kScaleP, 128, false>(a, stream);
+}
+
+}  // namespace tc
+
+// dtype: 0 = float32, 1 = bfloat16; design: 0 = CUDA cores (any shape), 1 =
+// tensor cores (bf16 where tc_fits holds for q, k, v and o and their batch,
+// head and row strides, and Sq, Sk <= tc::kMaxSeq; refused otherwise);
+// dropout when a.threshold != 0
 template <bool kScaleP>
-cudaError_t dispatch(int dtype, const Args& a, cudaStream_t stream) {
+cudaError_t dispatch(int dtype, int design, const Args& a,
+                     cudaStream_t stream) {
   const bool dropout = a.threshold != 0u;
+  if (a.dh < 1 || a.dh > kMaxDh || (design != 0 && design != 1))
+    return cudaErrorInvalidValue;
+  if (design == 1) {
+    const void* ptrs[4] = {a.q, a.k, a.v, a.o};
+    const long long st[12] = {a.q_sb, a.q_sh, a.q_ss, a.k_sb, a.k_sh, a.k_ss,
+                              a.v_sb, a.v_sh, a.v_ss, a.o_sb, a.o_sh, a.o_ss};
+    if (dtype != 1 || a.sq > tc::kMaxSeq || a.sk > tc::kMaxSeq ||
+        !flash::tc_fits(a.dh, ptrs, 4, st, 12))
+      return cudaErrorInvalidValue;
+    return dropout ? tc::dispatch_dh<true, kScaleP>(a, stream)
+                   : tc::dispatch_dh<false, kScaleP>(a, stream);
+  }
   if (dtype == 0)
     return dropout ? launch<float, true, kScaleP>(a, stream)
                    : launch<float, false, kScaleP>(a, stream);

@@ -595,16 +595,6 @@ __device__ __forceinline__ void load_rows_async(bf16* dst, int ld,
   flash::load_tile_async<kR, kThreadsTc>(dst, ld, src, stride, row0, n, dh);
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // dp as it enters r and ds: keep ? dp (times inv with kScaleP) : 0
 template <bool kDropout, bool kScaleP>
 __device__ __forceinline__ float kept_dp(const Params<bf16>& p, bool keep,
@@ -702,8 +692,8 @@ packed_attention_bwd_dq_mma_kernel(Params<bf16> p) {
         // pass A is done: the rows' 1 / l and r; (m, 1 / l, r) out
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const float lt = quad_sum(l[half]);
-          r[half] = quad_sum(r[half]) / lt;
+          const float lt = flash::quad_sum(l[half]);
+          r[half] = flash::quad_sum(r[half]) / lt;
           l[half] = 1.f / lt;
           const int qi = q0 + 16 * warp + g + 8 * half;
           if (t == 0 && qi < sq) {
@@ -783,7 +773,7 @@ packed_attention_bwd_dq_mma_kernel(Params<bf16> p) {
                            : kMaskValue;
                 mx = fmaxf(mx, sc);
               }
-            const float m_new = fmaxf(m[half], quad_max(mx));
+            const float m_new = fmaxf(m[half], flash::quad_max(mx));
             const float alpha = expf(m[half] - m_new);
             float ls = 0.f, rs = 0.f;
 #pragma unroll

@@ -13,9 +13,9 @@
   `attention_packed_bwd`, its dispatching backward.  CPU tensors take the
   plain forward and backward; CUDA tensors launch `csrc/packed_attention.cu`
   (replaces the Pallas `_packed_fwd_kernel`) and `csrc/packed_attention_bwd.cu`
-  (replaces `_packed_bwd_kernel`; two designs, bf16 on the tensor cores and
-  any dtype on CUDA cores, and `_packed_design` names the one a call
-  takes).  Anything else raises.
+  (replaces `_packed_bwd_kernel`); each has two designs, bf16 on the tensor
+  cores and any dtype on CUDA cores, and `_packed_design` names the one a
+  call takes.  Anything else raises.
 * `attention_flash` / `attention_flash_bwd` — the dispatching wrappers over
   `csrc/flash_attention.cu` (replaces the Pallas `_flash_kernel`) and
   `csrc/flash_attention_bwd.cu` (replaces `_flash_bwd_dkv_kernel` and
@@ -27,8 +27,8 @@
   forward and backward of the head-major single-tile kernels (q (B, H, Sq,
   D), k/v (B, H, Sk, D)); `small_attention` / `small_attention_bwd` their
   dispatching wrappers over `csrc/small_attention.cu` (replaces the Pallas
-  `_small_fwd_kernel` and `_small_bwd_kernel`; the backward in the packed
-  backward's two designs, `_small_design`).
+  `_small_fwd_kernel` and `_small_bwd_kernel`; both in the packed kernels'
+  two designs, `_small_design`).
 * `attention_bhsd` — the head-major entry (the JAX `attention`): with
   dropout the single-tile kernels up to MAX_SEQ and the flash kernels above;
   at rate 0 the flash kernels from a key length of PALLAS_MIN_KV_LEN and
@@ -330,7 +330,7 @@ def _check_kernel_args(q, k, v, kv_mask, n_heads, max_seq=MAX_SEQ,
                          f"{(b, sk)}")
 
 
-_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+_FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                     ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
@@ -354,46 +354,54 @@ def _dropout_args(dropout_rate, dropout_seed):
 
 
 def _launch_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
-                dropout_seed) -> torch.Tensor:
+                dropout_seed, _design=None) -> torch.Tensor:
+    """One launch of the design `_packed_design` names; ``_design``
+    "cuda_cores" takes the CUDA-core design instead (for timing the two
+    designs on the same tensors; the model path never passes it)."""
     fn = _build.bind("packed_attention", "m3p_packed_attention_fwd",
                      _FWD_ARGTYPES)
     b, sq, hd = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, hd), dtype=q.dtype, device=q.device)
+    design = _checked_design(_packed_design(n_heads, q, k, v, out), _design,
+                             "attention_packed")
     mask = _kernel_mask(kv_mask)
     inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), None if mask is None else mask.data_ptr(),
+        err = fn(_KERNEL_DTYPES[q.dtype], _DESIGNS.index(design),
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
                  out.data_ptr(), b, sq, sk, n_heads, hd // n_heads,
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), out.stride(0), out.stride(1),
                  float(scale), int(bool(causal)), float(inv), threshold,
                  seed, stream)
     if err != 0:
-        raise RuntimeError(f"packed_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"packed_attention kernel ({design}) launch "
+                           f"failed: CUDA error {err}")
     attention_packed.launches += 1
+    attention_packed.launches_by_design[design] += 1
     return out
 
 
 def _packed_design(n_heads: int, *tensors: torch.Tensor) -> str:
-    """The design of the packed backward that takes these (B, S, H*Dh)
-    tensors (q first; every tensor the kernel reads or writes):
-    "tensor_cores" where `_flash_design` names them and every S is at most
-    MAX_SEQ, else "cuda_cores".  The rule of the C entry
-    (`csrc/packed_tile_bwd.cuh`), which refuses a tensor-core launch that
-    breaks it."""
+    """The design of the packed forward and backward that takes these
+    (B, S, H*Dh) tensors (q first; every tensor the kernel reads or
+    writes): "tensor_cores" where `_flash_design` names them and every S is
+    at most MAX_SEQ, else "cuda_cores".  The rule of the C entries
+    (`csrc/packed_tile.cuh`, `csrc/packed_tile_bwd.cuh`), which refuse a
+    tensor-core launch that breaks it."""
     if all(t.shape[1] <= MAX_SEQ for t in tensors):
         return _flash_design(n_heads, *tensors)
     return "cuda_cores"
 
 
-def _bwd_design(rule: str, forced: Optional[str], what: str) -> str:
-    """The design a backward launch takes: the rule's, or ``forced`` (the
-    private ``_design`` argument that times one design against the other),
-    which may not name the tensor cores where the rule does not."""
+def _checked_design(rule: str, forced: Optional[str], what: str) -> str:
+    """The design a launch of the single-tile kernels takes: the rule's, or
+    ``forced`` (the private ``_design`` argument that times one design
+    against the other), which may not name the tensor cores where the rule
+    does not."""
     if forced is None:
         return rule
     if forced not in _DESIGNS or (forced == "tensor_cores"
@@ -431,8 +439,9 @@ def _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale, dropout_rate,
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    design = _bwd_design(_packed_design(n_heads, q, k, v, do, dq, dk, dv),
-                         _design, "attention_packed backward")
+    design = _checked_design(_packed_design(n_heads, q, k, v, do, dq, dk,
+                                            dv),
+                             _design, "attention_packed backward")
     mask = _kernel_mask(kv_mask)
     inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
     stats, bits = _bwd_scratch(q, sq, sk, n_heads, design, threshold)
@@ -504,9 +513,10 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launch the hand-written kernels, adding one to
     ``attention_packed.launches`` per forward launch and to
     ``attention_packed.bwd_launches`` per backward launch (two per
-    backward) and to the design's entry of
-    ``attention_packed.bwd_launches_by_design`` (`_packed_design`), or
-    raise.  There is no fallback from one to the other."""
+    backward), and to the design's entry of
+    ``attention_packed.launches_by_design`` /
+    ``.bwd_launches_by_design`` (`_packed_design`), or raise.  There is no
+    fallback from one to the other, nor from one design to the other."""
     _check_dropout(dropout_rate, dropout_seed)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention_packed: no kernel for device "
@@ -550,6 +560,7 @@ def attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 attention_packed.launches = 0
 attention_packed.bwd_launches = 0
+attention_packed.launches_by_design = dict.fromkeys(_DESIGNS, 0)
 attention_packed.bwd_launches_by_design = dict.fromkeys(_DESIGNS, 0)
 
 
@@ -970,7 +981,7 @@ def _strides(*tensors):
     return [s for t in tensors for s in t.stride()[:3]]
 
 
-_SMALL_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+_SMALL_FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                           ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
@@ -982,32 +993,38 @@ _SMALL_BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
 
 
 def _launch_small_fwd(q, k, v, kv_mask, causal, scale, dropout_rate,
-                      dropout_seed) -> torch.Tensor:
+                      dropout_seed, _design=None) -> torch.Tensor:
+    """One launch of the design `_small_design` names (``_design`` as in
+    `_launch_fwd`)."""
     fn = _build.bind("small_attention", "m3p_small_attention_fwd",
                      _SMALL_FWD_ARGTYPES)
     b, h, sq, d = q.shape
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    design = _checked_design(_small_design(q, k, v, out), _design,
+                             "small_attention")
     mask = _kernel_mask(kv_mask)
     inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), None if mask is None else mask.data_ptr(),
+        err = fn(_KERNEL_DTYPES[q.dtype], _DESIGNS.index(design),
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
                  out.data_ptr(), b, sq, k.shape[2], h, d,
                  *_strides(q, k, v, out), float(scale), int(bool(causal)),
                  float(inv), threshold, seed, stream)
     if err != 0:
-        raise RuntimeError(f"small_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"small_attention kernel ({design}) launch "
+                           f"failed: CUDA error {err}")
     small_attention.launches += 1
+    small_attention.launches_by_design[design] += 1
     return out
 
 
 def _small_design(*tensors: torch.Tensor) -> str:
-    """The design of the head-major backward that takes these (B, H, S, D)
-    tensors (q first; every tensor the kernel reads or writes): the packed
-    backward's rule (`_packed_design`) with batch, head and row strides
-    multiples of 8 elements."""
+    """The design of the head-major forward and backward that takes these
+    (B, H, S, D) tensors (q first; every tensor the kernel reads or
+    writes): the packed kernels' rule (`_packed_design`) with batch, head
+    and row strides multiples of 8 elements."""
     if all(t.shape[2] <= MAX_SEQ for t in tensors) \
             and _tensor_cores_fit(tensors[0].shape[-1], tensors, 3):
         return "tensor_cores"
@@ -1025,8 +1042,8 @@ def _launch_small_bwd(q, k, v, kv_mask, do, causal, scale, dropout_rate,
     sk = k.shape[2]
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
-    design = _bwd_design(_small_design(q, k, v, do, dq, dk, dv), _design,
-                         "small_attention backward")
+    design = _checked_design(_small_design(q, k, v, do, dq, dk, dv),
+                             _design, "small_attention backward")
     mask = _kernel_mask(kv_mask)
     inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
     stats, bits = _bwd_scratch(q, sq, sk, h, design, threshold)
@@ -1086,9 +1103,10 @@ def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch `csrc/small_attention.cu`, adding one to
     ``small_attention.launches`` per forward launch and to
     ``small_attention.bwd_launches`` per backward launch (two per
-    backward) and to the design's entry of
-    ``small_attention.bwd_launches_by_design`` (`_small_design`), or
-    raise.  There is no fallback from one to the other."""
+    backward), and to the design's entry of
+    ``small_attention.launches_by_design`` / ``.bwd_launches_by_design``
+    (`_small_design`), or raise.  There is no fallback from one to the
+    other, nor from one design to the other."""
     _check_dropout(dropout_rate, dropout_seed)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"small_attention: no kernel for device {q.device}")
@@ -1131,6 +1149,7 @@ def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 small_attention.launches = 0
 small_attention.bwd_launches = 0
+small_attention.launches_by_design = dict.fromkeys(_DESIGNS, 0)
 small_attention.bwd_launches_by_design = dict.fromkeys(_DESIGNS, 0)
 
 

@@ -1,14 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the packed-attention forward (rate 0 and with Philox dropout) and backward
-(both designs in bf16: tensor cores and CUDA cores), the flash-attention
-forward and backward (any length), the head-major single-tile attention
-forward and backward, the mask identity of each forward/backward pair
-(V = identity), the fused residual dropout forward and backward, bit for
-bit, with its mask identity (x = 1, residual = 0), and the fused FFN +
-LayerNorm.  Without a card: a failing launch of each new kernel is shown
-to raise (a launch stubbed to return a CUDA error), and the packed and
-head-major backward follow their design rule, count launches by design and
-refuse a forced tensor-core launch the rule does not take.
+(both in both designs in bf16: tensor cores and CUDA cores), the
+flash-attention forward and backward (any length), the head-major
+single-tile attention forward and backward (both designs too), the mask
+identity of each forward/backward pair (V = identity), the fused residual
+dropout forward and backward, bit for bit, with its mask identity (x = 1,
+residual = 0), and the fused FFN + LayerNorm.  Without a card: a failing
+launch of each new kernel is shown to raise (a launch stubbed to return a
+CUDA error), and the packed and head-major forward and backward follow
+their design rule, count launches by design and refuse a forced
+tensor-core launch the rule does not take.
 
 This file imports nothing of JAX, so it also runs where only PyTorch is
 installed; the `gpu` tests skip without a CUDA device.  On a machine with
@@ -19,6 +20,7 @@ the card (which has no JAX for `tests/conftest.py` to import):
 """
 
 import contextlib
+import functools
 import types
 
 import numpy as np
@@ -352,9 +354,15 @@ def test_packed_attention_bwd_tensor_cores_are_deterministic(cuda_device,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_draw_the_plain_versions_mask(cuda_device, dtype):
-    before = dict(attention_packed.bwd_launches_by_design)
+    """Through the design the rule names in both directions (the tensor
+    cores in bf16): two forward launches (with dropout, plain), one
+    backward."""
+    before = (dict(attention_packed.launches_by_design),
+              dict(attention_packed.bwd_launches_by_design))
     check_mask_identity(cuda_device, dtype=dtype)
-    _assert_rose(attention_packed.bwd_launches_by_design, before,
+    _assert_rose(attention_packed.launches_by_design, before[0],
+                 flash_design(dtype, 64), 2)
+    _assert_rose(attention_packed.bwd_launches_by_design, before[1],
                  flash_design(dtype, 64), 2)
 
 
@@ -672,11 +680,92 @@ def test_small_attention_bwd_tensor_cores_are_deterministic(cuda_device,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_small_attention_kernels_draw_the_plain_versions_mask(cuda_device,
                                                               dtype):
-    before = dict(small_attention.bwd_launches_by_design)
+    before = (dict(small_attention.launches_by_design),
+              dict(small_attention.bwd_launches_by_design))
     check_mask_identity(cuda_device, attn=small_attention_packed_view,
                         dtype=dtype)
-    _assert_rose(small_attention.bwd_launches_by_design, before,
+    _assert_rose(small_attention.launches_by_design, before[0],
                  flash_design(dtype, 64), 2)
+    _assert_rose(small_attention.bwd_launches_by_design, before[1],
+                 flash_design(dtype, 64), 2)
+
+
+# the packed and head-major forward in bf16, in both designs: the paths'
+# shapes (serving B = 64 at S = 164, 116 and 100; training B = 80), each
+# with a batch row that has no valid key, then the backward's odd cases
+# (causal, Sq != Sk both ways, S = 512 at Dh 64 and 128, Dh 128 with a
+# ragged tile) and Dh 48 (the tensor cores' general Dh <= 128 kernel)
+FWD_BF16_CASES = [
+    (64, 12, 64, s, s, (s, 0) + (s // 2,) * 62, False) for s in (164, 116,
+                                                                 100)
+] + BWD_BF16_CASES + [(3, 5, 48, 77, 131, (131, 0, 60), False)]
+
+
+@functools.lru_cache(maxsize=1)
+def _case_inputs(case):
+    """`packed_inputs` of a case, kept for the next call: the forward tests
+    walk each case's rates, designs and layouts in a row."""
+    return packed_inputs(*case[:6])
+
+
+def fwd_pair(layout, case, rate, design, device):
+    """(kernel output, plain output) of #1 (``layout`` "packed") or #3
+    ("small", on head-major copies of the same numbers) in bf16: through
+    the public entry (the design the rule names, asserted) or, with
+    ``design`` "cuda_cores", the private launcher forced to it."""
+    b, h, dh, sq, sk, lens, causal = case
+    seed = SEED if rate else None
+    q, k, v, mask = _on(device, _case_inputs(case), torch.bfloat16)
+    if layout == "packed":
+        counts = attention_packed.launches_by_design
+        want = attention_packed_reference(q, k, v, mask, h, causal, None,
+                                          rate, seed)
+        public = lambda: attention_packed(q, k, v, mask, h, causal, None,
+                                          rate, seed)
+        forced = lambda: attention_ops._launch_fwd(
+            q, k, v, mask, h, causal, dh ** -0.5, rate, seed, design)
+    else:
+        q, k, v = (t.view(b, t.shape[1], h, dh).transpose(1, 2).contiguous()
+                   for t in (q, k, v))
+        counts = small_attention.launches_by_design
+        want = small_attention_reference(q, k, v, mask, causal, None, rate,
+                                         seed)
+        public = lambda: small_attention(q, k, v, mask, causal, None, rate,
+                                         seed)
+        forced = lambda: attention_ops._launch_small_fwd(
+            q, k, v, mask, causal, dh ** -0.5, rate, seed, design)
+    before = dict(counts)
+    got = public() if design is None else forced()
+    torch.cuda.synchronize()
+    _assert_rose(counts, before, design or flash_design(q.dtype, dh), 1)
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["packed", "small"])
+@pytest.mark.parametrize("design", [None, "cuda_cores"])
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", FWD_BF16_CASES)
+def test_attention_fwd_kernel_bf16_in_both_designs(cuda_device, case, rate,
+                                                   design, layout):
+    """#1 and #3 in bf16 through the design the rule names (the tensor
+    cores at these shapes) and forced to CUDA cores, each against the
+    plain forward."""
+    got, want = fwd_pair(layout, case, rate, design, cuda_device)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL_BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["packed", "small"])
+@pytest.mark.parametrize("rate", [0.0, RATE])
+def test_attention_fwd_tensor_cores_are_deterministic(cuda_device, rate,
+                                                      layout):
+    """Two tensor-core calls give bitwise the same output."""
+    case = FWD_BF16_CASES[0]
+    first, _ = fwd_pair(layout, case, rate, None, cuda_device)
+    second, _ = fwd_pair(layout, case, rate, None, cuda_device)
+    assert torch.equal(first, second)
 
 
 # ---------------------------------------------------------------------------
@@ -773,19 +862,23 @@ def _failing_launch(monkeypatch):
 
 
 def _launch_small(which):
-    """fp32 (CUDA cores), or bf16 on the tensor cores for "bwd_tc"."""
+    """fp32 (CUDA cores), or bf16 on the tensor cores for "fwd_tc" and
+    "bwd_tc"."""
     dtype = torch.bfloat16 if which.endswith("_tc") else torch.float32
     q, k, v, mask, do = _small_on("cpu", CASES[0], dtype)
-    if which == "fwd":
+    if which.startswith("fwd"):
         return attention_ops._launch_small_fwd(q, k, v, mask, False, 0.25,
                                                RATE, SEED)
     return attention_ops._launch_small_bwd(q, k, v, mask, do, False, 0.25,
                                            RATE, SEED)
 
 
-def _launch_packed_bwd(which):
+def _launch_packed(which):
     dtype = torch.bfloat16 if which.endswith("_tc") else torch.float32
     q, k, v, mask, do = _grad_inputs("cpu", CASES[0], dtype)
+    if which.startswith("fwd"):
+        return attention_ops._launch_fwd(q, k, v, mask, 3, False, 0.25, RATE,
+                                         SEED)
     return attention_ops._launch_bwd(q, k, v, mask, do, 3, False, 0.25, RATE,
                                      SEED)
 
@@ -805,14 +898,18 @@ def _all_launch_counts():
     return (small_attention.launches, small_attention.bwd_launches,
             fused_ffn_ln.launches, attention_flash.launches,
             attention_flash.bwd_launches, _design_launches(),
-            attention_packed.bwd_launches,
+            attention_packed.launches, attention_packed.bwd_launches,
+            dict(attention_packed.launches_by_design),
             dict(attention_packed.bwd_launches_by_design),
+            dict(small_attention.launches_by_design),
             dict(small_attention.bwd_launches_by_design))
 
 
 @pytest.mark.parametrize("which", ["small_fwd", "small_bwd", "small_bwd_tc",
                                    "packed_bwd", "packed_bwd_tc",
-                                   "fused_ffn", "flash_fwd", "flash_bwd"])
+                                   "fused_ffn", "flash_fwd", "flash_bwd",
+                                   "packed_fwd", "packed_fwd_tc",
+                                   "small_fwd_tc"])
 def test_a_failing_launch_raises_and_counts_nothing(monkeypatch, which):
     _failing_launch(monkeypatch)
     before = _all_launch_counts()
@@ -823,14 +920,15 @@ def test_a_failing_launch_raises_and_counts_nothing(monkeypatch, which):
         elif which.startswith("flash"):
             _launch_flash(which[6:])
         elif which.startswith("packed"):
-            _launch_packed_bwd(which)
+            _launch_packed(which[7:])
         else:
             _launch_small(which[6:])
     assert _all_launch_counts() == before
 
 
 # ---------------------------------------------------------------------------
-# the design rule of the packed and head-major backward (runs without a card)
+# the design rule of the packed and head-major forward and backward (runs
+# without a card)
 # ---------------------------------------------------------------------------
 
 
@@ -894,15 +992,53 @@ def test_small_bwd_design_follows_the_kernel_rule(dtype, dh, layout, want):
     head stride a multiple of 8 elements too; the head-major views of
     packed tensors (head stride Dh) qualify."""
     if layout == "head_stride_not_8":    # heads of S * Dh + 4 elements
-        b, h, s = 2, 2, 24
-        q = torch.randn(b * h * (s * dh + 4), dtype=dtype).as_strided(
-            (b, h, s, dh), (h * (s * dh + 4), s * dh + 4, dh, 1))
-        k = v = torch.randn(b, h, s, dh, dtype=dtype)
+        q, k, v = _head_stride_not_8(dtype, dh)
     else:
         q, k, v = (_head_major(t, 2) for t in _rule_tensors(layout, dtype,
                                                              dh))
     assert attention_ops._small_design(q, k, v) == want
     assert attention_ops._small_design(q.contiguous(), k, v, q) == want
+
+
+def _head_stride_not_8(dtype, dh):
+    """Head-major q whose heads lie S * Dh + 4 elements apart, k and v
+    contiguous."""
+    b, h, s = 2, 2, 24
+    q = torch.randn(b * h * (s * dh + 4), dtype=dtype).as_strided(
+        (b, h, s, dh), (h * (s * dh + 4), s * dh + 4, dh, 1))
+    return q, torch.randn(b, h, s, dh, dtype=dtype), torch.randn(
+        b, h, s, dh, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,dh,layout,want", RULE_CASES)
+def test_packed_fwd_design_follows_the_kernel_rule(monkeypatch, dtype, dh,
+                                                   layout, want):
+    """`_launch_fwd` hands the C entry the design `_packed_design` names
+    for q, k, v and its output (the backward's rule) and counts it."""
+    calls = _recording_entry(monkeypatch)
+    q, k, v = _rule_tensors(layout, dtype, dh)
+    before = dict(attention_packed.launches_by_design)
+    attention_ops._launch_fwd(q, k, v, None, 2, False, 0.125, 0.0, None)
+    assert [c[1] for c in calls] == [attention_ops._DESIGNS.index(want)]
+    _assert_rose(attention_packed.launches_by_design, before, want, 1)
+
+
+@pytest.mark.parametrize("dtype,dh,layout,want", RULE_CASES + [
+    (torch.bfloat16, 64, "head_stride_not_8", "cuda_cores")])
+def test_small_fwd_design_follows_the_kernel_rule(monkeypatch, dtype, dh,
+                                                  layout, want):
+    """`_launch_small_fwd` the same on (B, H, S, Dh) tensors, the head
+    stride a multiple of 8 elements too."""
+    calls = _recording_entry(monkeypatch)
+    if layout == "head_stride_not_8":
+        q, k, v = _head_stride_not_8(dtype, dh)
+    else:
+        q, k, v = (_head_major(t, 2) for t in _rule_tensors(layout, dtype,
+                                                             dh))
+    before = dict(small_attention.launches_by_design)
+    attention_ops._launch_small_fwd(q, k, v, None, False, 0.125, 0.0, None)
+    assert [c[1] for c in calls] == [attention_ops._DESIGNS.index(want)]
+    _assert_rose(small_attention.launches_by_design, before, want, 1)
 
 
 def _recording_entry(monkeypatch):
@@ -966,12 +1102,42 @@ def test_bwd_launches_pass_the_design_and_count_it(monkeypatch, layout,
 
 
 @pytest.mark.parametrize("layout", ["packed", "small"])
+@pytest.mark.parametrize("dtype,forced,code,rate", [
+    (torch.bfloat16, None, 1, 0.0), (torch.bfloat16, None, 1, RATE),
+    (torch.bfloat16, "cuda_cores", 0, RATE), (torch.float32, None, 0, RATE)])
+def test_fwd_launches_pass_the_design_and_count_it(monkeypatch, layout,
+                                                   dtype, forced, code,
+                                                   rate):
+    """Each forward launch hands the C entry the dtype and the design's
+    code (0 CUDA cores, 1 tensor cores) and adds one to that design's
+    count; ``_design`` names the CUDA-core design."""
+    calls = _recording_entry(monkeypatch)
+    seed = SEED if rate else None
+    if layout == "packed":
+        q, k, v, mask = _on("cpu", packed_inputs(*CASES[0][:6]), dtype)
+        counts = attention_packed.launches_by_design
+        before = dict(counts)
+        attention_ops._launch_fwd(q, k, v, mask, 3, False, 0.25, rate, seed,
+                                  forced)
+    else:
+        q, k, v, mask, _ = _small_on("cpu", CASES[0], dtype)
+        counts = small_attention.launches_by_design
+        before = dict(counts)
+        attention_ops._launch_small_fwd(q, k, v, mask, False, 0.25, rate,
+                                        seed, forced)
+    dtype_code = 1 if dtype == torch.bfloat16 else 0
+    assert [c[:2] for c in calls] == [(dtype_code, code)]
+    _assert_rose(counts, before, attention_ops._DESIGNS[code], 1)
+
+
+@pytest.mark.parametrize("layout", ["packed", "small", "packed_fwd",
+                                    "small_fwd"])
 @pytest.mark.parametrize("why", ["float32", "misaligned", "too_long"])
 def test_forced_tensor_cores_outside_the_rule_raise(monkeypatch, layout,
                                                     why):
     """A forced ``_design="tensor_cores"`` on tensors the rule sends to CUDA
-    cores raises before any launch and does not run the CUDA-core design
-    instead."""
+    cores raises before any launch, backward or forward, and does not run
+    the CUDA-core design instead."""
     calls = _recording_entry(monkeypatch)
     if why == "float32":
         q, k, v = _rule_tensors("contiguous", torch.float32)
@@ -986,6 +1152,13 @@ def test_forced_tensor_cores_outside_the_rule_raise(monkeypatch, layout,
         if layout == "packed":
             attention_ops._launch_bwd(q, k, v, None, do, 2, False, 0.125,
                                       0.0, None, "tensor_cores")
+        elif layout == "packed_fwd":
+            attention_ops._launch_fwd(q, k, v, None, 2, False, 0.125, 0.0,
+                                      None, "tensor_cores")
+        elif layout == "small_fwd":
+            attention_ops._launch_small_fwd(
+                *(_head_major(t, 2) for t in (q, k, v)), None, False, 0.125,
+                0.0, None, "tensor_cores")
         else:
             attention_ops._launch_small_bwd(
                 *(_head_major(t, 2) for t in (q, k, v)), None,
