@@ -53,8 +53,8 @@ Phases, each of which fails the run if it fails:
      (use_fused_dropout off), and B, every residual dropout through the
      fused dropout kernels: samples/s, step ms, peak memory, launches per
      step (15 packed forward and 30 packed backward, all on the tensor
-     cores, 24 + 24 fused dropout in B, none in A), a profile of one step
-     and an
+     cores, 24 + 24 fused dropout in B, all "wide", none in A), a profile
+     of one step and an
      MFU reading; one step of B
      with CLCM (launches doubled); fp32 gradients of the whole loss on the
      card against the CPU at depth 2 with CLCM and fused dropout at 0.1
@@ -73,20 +73,24 @@ Phases, each of which fails the run if it fails:
      #3/#4 timed with CUDA events beside #1/#2 on packed copies (in turns),
      #3's and #4's two designs in turns, their
      plain versions, SDPA and its backward; #9 (csrc/fused_ffn.cu) against
-     its plain version (fp32 and bf16, M in {1, 70, 13120, 13121}, (D, H)
-     in {(64, 256), (768, 3072)}, ragged widths), against a flagship bf16
-     EncoderBlock's ln2(x + ffn(x)), and its main path counted:
-     `python -m m3p_tpu_torch.bench_fused_ffn` at M = 13120, D = 768,
-     H = 3072 in this process (kernel, plain version and the cuBLAS
-     yardstick with CUDA events).
+     its plain version in every design each case reaches (fp32 and bf16,
+     M in {1, 70, 13120, 13121}, (D, H) in {(64, 256), (768, 3072)},
+     ragged widths, the "cluster" rule's edges M = 1, 63, 64, 65, 13121
+     and D = 128, 256), against a flagship bf16 EncoderBlock's
+     ln2(x + ffn(x)), and its main path counted: `python -m
+     m3p_tpu_torch.bench_fused_ffn` at M = 13120, D = 768, H = 3072 in
+     this process (kernel, plain version and the cuBLAS yardstick with
+     CUDA events; all 34 launches "cluster"), then "cluster" and "tile32"
+     in turns.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
 shape, V = identity in fp32 and bf16; each call's design read from the
 per-design launch counts; at the xMLM shape the two designs in turns on
 the same tensors), and the fused dropout kernels (bit for bit against
-their plain versions in fp32 and bf16 at rates 0.1 and 0.5, odd sizes, an
-unaligned view, the MCT shape; x = 1 mask identity).
+their plain versions in fp32 and bf16 at rates 0.1 and 0.5, odd sizes,
+unaligned views, the MCT shape, in the "wide" and the "narrow" design;
+x = 1 mask identity; the two designs timed in turns).
 
 The last line is {"ok": true, "device": {...}}; the line before it the
 card's name and power limit; before that one JSON line with the kernels.
@@ -1739,10 +1743,13 @@ def long_learning_check(seed, steps=30):
 def check_fused_dropout(gen):
     """#7 and #8 against their plain versions, bit for bit: fp32 and bf16,
     rates 0.1 and 0.5, a non-zero residual, sizes that are not a multiple
-    of 4, of 128 or of a block, a view one element into its storage (the
-    scalar path), and the MCT step's residual (80, 164, 768)."""
+    of 4, of 128 or of a block, and the MCT step's residual (80, 164, 768),
+    each in the "wide" design (the rule's on these aligned tensors) and in
+    "narrow" forced on the same tensors; bf16 views 8 bytes into their
+    storage ("narrow" by the rule) and one element in ("scalar")."""
     import torch
 
+    from m3p_tpu_torch.ops import dropout as ops
     from m3p_tpu_torch.ops.dropout import (
         dropout_add, dropout_add_reference, dropout_scale,
         dropout_scale_reference)
@@ -1767,6 +1774,19 @@ def check_fused_dropout(gen):
                     ("backward", dx, dropout_scale_reference(g, SEED, rate)),
                     ("dropout_scale", scaled, dropout_scale_reference(
                         g, SEED + 1, rate)))
+                before = (dict(dropout_add.launches_by_design),
+                          dict(dropout_add.bwd_launches_by_design))
+                narrow = (ops._launch(x.detach(), res, SEED, rate, "narrow"),
+                          ops._launch(g, None, SEED, rate, "narrow"))
+                torch.cuda.synchronize()
+                for counts, old in zip((dropout_add.launches_by_design,
+                                        dropout_add.bwd_launches_by_design),
+                                       before):
+                    if launched_design(counts, old, 1) != "narrow":
+                        fail("fused dropout: a forced narrow launch took "
+                             "another design")
+                pairs += (("forward narrow", narrow[0], pairs[0][2]),
+                          ("backward narrow", narrow[1], pairs[1][2]))
                 for what, got, want in pairs:
                     err = (got.float() - want.float()).abs().max().item()
                     if not torch.equal(got, want):
@@ -1775,14 +1795,27 @@ def check_fused_dropout(gen):
                              f"(max |diff| {err})")
                     worst[name] = max(worst.get(name, 0.0), err)
             log(f"[check] fused_dropout {shape} {name}: #7 forward, #8 "
-                f"backward and dropout_scale equal their plain versions bit "
-                f"for bit at rates {RATE} and 0.5")
+                f"backward and dropout_scale (wide) and #7/#8 narrow equal "
+                f"their plain versions bit for bit at rates {RATE} and 0.5")
     base = torch.randn(2, 10_001, device="cuda", generator=gen)
     x, res = base[0, 1:], base[1, 1:]
     if not torch.equal(dropout_add(x, res, SEED, RATE),
                        dropout_add_reference(x, res, SEED, RATE)):
         fail("fused dropout on an unaligned view differs from the plain "
              "version")
+    views = torch.randn(2, 40_016, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    for offset, design in ((4, "narrow"), (1, "scalar")):
+        x, res = views[0, offset:offset + 40_003], views[1, offset:offset +
+                                                         40_003]
+        before = dict(dropout_add.launches_by_design)
+        got = dropout_add(x, res, SEED, RATE)
+        torch.cuda.synchronize()
+        if launched_design(dropout_add.launches_by_design, before,
+                           1) != design or not torch.equal(
+                got, dropout_add_reference(x, res, SEED, RATE)):
+            fail(f"fused dropout on a bf16 view {2 * offset} bytes in: not "
+                 f"{design}, or not the plain version's bits")
     # the comparison has teeth: dropout changes the output
     if torch.equal(dropout_add(x, res, SEED, RATE), res + x):
         fail("fused dropout leaves residual + x unchanged; check is vacuous")
@@ -1797,11 +1830,13 @@ def time_fused_dropout(gen):
     """#7 and #8 at the MCT step's residual (80, 164, 768) bf16, rate 0.1:
     the kernels, their plain versions, and one library route each:
     ``residual + F.dropout(x)`` and its autograd backward, each by its
-    device time (`device_ms`); beside it the time of back-to-back calls
+    device time (`device_ms`); the "wide" design (the path's) and "narrow"
+    on the same tensors in turns; beside it the time of back-to-back calls
     (`cuda_ms`), which the host's cost per call bounds from below."""
     import torch
     import torch.nn.functional as F
 
+    from m3p_tpu_torch.ops import dropout as ops
     from m3p_tpu_torch.ops.dropout import (
         dropout_add, dropout_add_reference, dropout_scale,
         dropout_scale_reference)
@@ -1825,6 +1860,15 @@ def time_fused_dropout(gen):
                               else {"launches": 1} if k in ("fwd", "bwd")
                               else {}))
            for k, f in calls.items()}
+    # "wide" (the rule's) and "narrow" on the same tensors, in turns
+    turns = {}
+    for k, narrow in (("fwd", lambda: ops._launch(x, res, SEED, RATE,
+                                                  "narrow")),
+                      ("bwd", lambda: ops._launch(g, None, SEED, RATE,
+                                                  "narrow"))):
+        a1, b1, b2, a2 = (device_ms(f, launches=1) for f in
+                          (calls[k], narrow, narrow, calls[k]))
+        turns[k] = ((a1 + a2) / 2, (b1 + b2) / 2)
     b2b = {k: cuda_ms(calls[k]) for k in ("fwd", "bwd", "fwd_lib",
                                            "bwd_lib")}
     # bytes: x and the residual read, the output written (#7); g read, dx
@@ -1838,6 +1882,9 @@ def time_fused_dropout(gen):
     add_host = host_us(lambda: res + x)
     dims = {"shape": list(shape), "dtype": "bfloat16", "rate": RATE}
     fwd = {"ms": dev["fwd"], "plain_ms": dev["fwd_plain"],
+           "design": "wide", "ms_turns": turns["fwd"][0],
+           "ms_narrow": turns["fwd"][1],
+           "speedup_over_narrow": turns["fwd"][1] / turns["fwd"][0],
            "library_ms": dev["fwd_lib"], "bound_ms": fwd_bound,
            "bound_by": fwd_by, "bytes": 3 * n * 2,
            "ms_back_to_back": b2b["fwd"],
@@ -1845,6 +1892,9 @@ def time_fused_dropout(gen):
            "host_us_per_call": fwd_host, "host_us_residual_add": add_host,
            **dims}
     bwd = {"ms": dev["bwd"], "plain_ms": dev["bwd_plain"],
+           "design": "wide", "ms_turns": turns["bwd"][0],
+           "ms_narrow": turns["bwd"][1],
+           "speedup_over_narrow": turns["bwd"][1] / turns["bwd"][0],
            "library_ms": dev["bwd_lib"], "bound_ms": bwd_bound,
            "bound_by": bwd_by, "bytes": 2 * n * 2,
            "ms_back_to_back": b2b["bwd"],
@@ -1853,7 +1903,9 @@ def time_fused_dropout(gen):
     for name, t in (("fused_dropout_fwd (#7)", fwd),
                     ("fused_dropout_bwd (#8)", bwd)):
         log(f"[time] {name} {shape} bf16 rate {RATE}, device time: kernel "
-            f"{t['ms']:.4f} ms ({t['bytes'] / t['ms'] / 1e9:.2f} TB/s), "
+            f"{t['ms']:.4f} ms ({t['bytes'] / t['ms'] / 1e9:.2f} TB/s; in "
+            f"turns wide {t['ms_turns']:.4f} vs narrow {t['ms_narrow']:.4f}, "
+            f"{t['speedup_over_narrow']:.2f}x), "
             f"plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); back to back "
             f"(CUDA events) kernel {t['ms_back_to_back']:.4f}, library "
@@ -1883,7 +1935,10 @@ def zero_launch_counts():
                    attention_packed.launches_by_design,
                    attention_packed.bwd_launches_by_design,
                    small_attention.launches_by_design,
-                   small_attention.bwd_launches_by_design):
+                   small_attention.bwd_launches_by_design,
+                   dropout_add.launches_by_design,
+                   dropout_add.bwd_launches_by_design,
+                   fused_ffn_ln.launches_by_design):
         for design in counts:
             counts[design] = 0
     fused_ffn_ln.launches = 0
@@ -1909,20 +1964,23 @@ def launch_counts():
                 attention_flash.bwd_launches_by_design["tensor_cores"],
             "dropout_fwd": dropout_add.launches,
             "dropout_bwd": dropout_add.bwd_launches,
+            "dropout_fwd_wide": dropout_add.launches_by_design["wide"],
+            "dropout_bwd_wide": dropout_add.bwd_launches_by_design["wide"],
             "small_fwd": small_attention.launches,
             "small_fwd_tensor_cores":
                 small_attention.launches_by_design["tensor_cores"],
             "small_bwd": small_attention.bwd_launches,
             "small_bwd_tensor_cores":
                 small_attention.bwd_launches_by_design["tensor_cores"],
-            "fused_ffn": fused_ffn_ln.launches}
+            "fused_ffn": fused_ffn_ln.launches,
+            "fused_ffn_cluster": fused_ffn_ln.launches_by_design["cluster"]}
 
 
 def mct_per_step(cfg, encodes=1):
     """Launches a step makes: per joint encode, one #1 and one #2 backward
     (two launches), all on the tensor cores in bf16, per block and refiner
     layer; with fused dropout one #7 and one #8 per residual (two a
-    block)."""
+    block), all in the "wide" design."""
     layers = cfg.n_layers + cfg.refine_layers
     fused = 2 * cfg.n_layers if cfg.use_fused_dropout else 0
     return {"packed_fwd": layers * encodes,
@@ -1931,9 +1989,12 @@ def mct_per_step(cfg, encodes=1):
             "packed_bwd_tensor_cores": 2 * layers * encodes,
             "flash_fwd": 0, "flash_bwd": 0, "flash_fwd_tensor_cores": 0,
             "flash_bwd_tensor_cores": 0, "dropout_fwd": fused * encodes,
-            "dropout_bwd": fused * encodes, "small_fwd": 0,
+            "dropout_bwd": fused * encodes,
+            "dropout_fwd_wide": fused * encodes,
+            "dropout_bwd_wide": fused * encodes, "small_fwd": 0,
             "small_fwd_tensor_cores": 0, "small_bwd": 0,
-            "small_bwd_tensor_cores": 0, "fused_ffn": 0}
+            "small_bwd_tensor_cores": 0, "fused_ffn": 0,
+            "fused_ffn_cluster": 0}
 
 
 def check_launches(what, counts, per_step, n_steps):
@@ -2468,35 +2529,70 @@ def time_small_attention():
     return out
 
 
+def ffn_designs_reached(args):
+    """The designs a case's tensors reach: the rule's, then each one below
+    it (`_design` forced), in the kernel's order cluster, tile32,
+    cuda_cores."""
+    from m3p_tpu_torch.ops import fused_ffn as ops
+
+    x, w1, _, w2 = args[:4]
+    rule = ops._ffn_design(x, w1, w2, x)
+    return list(reversed(ops._DESIGNS[:ops._DESIGNS.index(rule) + 1]))
+
+
 def check_fused_ffn():
-    """#9 against its plain version: fp32 and bf16, M in {1, 70, 13120,
-    13121}, (D, H) in {(64, 256), (768, 3072)}, nonzero biases and beta,
-    gamma away from 1 (tests/test_torch_kernels.py's inputs and
-    tolerances), then ragged widths."""
+    """#9 against its plain version in every design each case reaches:
+    fp32 and bf16, M in {1, 70, 13120, 13121}, (D, H) in {(64, 256),
+    (768, 3072)}, nonzero biases and beta, gamma away from 1
+    (tests/test_torch_kernels.py's inputs and tolerances), ragged widths,
+    then the "cluster" rule's edges in bf16 (M = 1, 63, 64, 65, 13121 at
+    D = 768, D = 128 and 256 at H = 4D); each call's design read from
+    `launches_by_design`.  Returns the worst errors by dtype and design."""
     import torch
 
+    from m3p_tpu_torch.ops import fused_ffn as ops
     from m3p_tpu_torch.ops.fused_ffn import fused_ffn_ln, reference_ffn_ln
 
     module = kernel_tests()
     worst = {}
-    cases = [(m, d, h) for d, h in module.FFN_SHAPES for m in module.FFN_ROWS]
-    cases += [(45, 200, 100), (45, 1000, 70), (45, 1024, 64)]
-    for m, d, h in cases:
-        for dt in (torch.float32, torch.bfloat16):
-            args = module.ffn_inputs("cuda", m, d, h, dt, seed=m)
-            got = fused_ffn_ln(*args)
+    cases = [(m, d, h, dt) for d, h in module.FFN_SHAPES
+             for m in module.FFN_ROWS
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(45, d, h, dt) for d, h in ((200, 100), (1000, 70), (1024, 64))
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [(m, d, h, torch.bfloat16)
+              for m, d, h in module.FFN_CLUSTER_CASES]
+    for m, d, h, dt in cases:
+        args = module.ffn_inputs("cuda", m, d, h, dt, seed=m)
+        want = reference_ffn_ln(*args)
+        name = str(dt).replace("torch.", "")
+        for design in ffn_designs_reached(args):
+            before = dict(fused_ffn_ln.launches_by_design)
+            got = ops._launch(*args, 1e-12, _design=design)
             torch.cuda.synchronize()
+            took = launched_design(fused_ffn_ln.launches_by_design, before, 1)
+            if took != design:
+                fail(f"fused_ffn_ln M={m} D={d} H={h} {name}: asked for "
+                     f"{design}, launched {took}")
             try:
-                err, mean = module.check_fused_ffn(got, reference_ffn_ln(
-                    *args))
+                err, mean = module.check_fused_ffn(got, want)
             except AssertionError as exc:
-                fail(f"fused_ffn_ln M={m} D={d} H={h} {dt}: kernel and "
-                     f"plain version disagree: {exc}")
-            name = str(dt).replace("torch.", "")
-            old = worst.get(name, (0.0, 0.0))
-            worst[name] = (max(old[0], err), max(old[1], mean))
-            log(f"[check] fused_ffn_ln M={m} D={d} H={h} {name}: "
+                fail(f"fused_ffn_ln M={m} D={d} H={h} {name} {design}: "
+                     f"kernel and plain version disagree: {exc}")
+            key = f"{name}_{design}"
+            old = worst.get(key, (0.0, 0.0))
+            worst[key] = (max(old[0], err), max(old[1], mean))
+            log(f"[check] fused_ffn_ln M={m} D={d} H={h} {name} {design}: "
                 f"max|kernel-plain| {err:.3e}, mean {mean:.3e}")
+    # the rule's own pick at the tool's width, and two calls bitwise equal
+    args = module.ffn_inputs("cuda", 65, 768, 3072, torch.bfloat16)
+    before = dict(fused_ffn_ln.launches_by_design)
+    first, second = fused_ffn_ln(*args), fused_ffn_ln(*args)
+    torch.cuda.synchronize()
+    if launched_design(fused_ffn_ln.launches_by_design, before,
+                       2) != "cluster" or not torch.equal(first, second):
+        fail("fused_ffn_ln: bf16 at D = 768 did not take the cluster design "
+             "twice with bitwise equal results")
     # the comparison has teeth: the FFN moves the output
     args = module.ffn_inputs("cuda", 70, 768, 3072, torch.float32)
     ln = torch.nn.functional.layer_norm(args[0], (768,), args[5], args[6],
@@ -2561,26 +2657,43 @@ def fused_ffn_path():
     """The main path of #9, counted: `python -m m3p_tpu_torch.bench_fused_ffn`
     at the tool's shape, in this process: the kernel, its plain version and
     the cuBLAS yardstick timed with CUDA events (a call costs the host far
-    less than the kernel's 2 ms)."""
+    less than the kernel); every one of its 34 launches must take the
+    "cluster" design.  Then, outside the counted run, "cluster" and
+    "tile32" in turns on the tool's tensors, and the clusters the card
+    holds at once."""
     from m3p_tpu_torch import bench_fused_ffn
+    from m3p_tpu_torch.ops import fused_ffn as ops
 
     iters = 30
     zero_launch_counts()
     out = bench_fused_ffn.run(iters=iters)
     counts = launch_counts()
     want = {k_: 0 for k_ in counts}
-    want["fused_ffn"] = 1 + 3 + iters      # the check, warm-up, timed calls
-    if counts != want or out["launches"] != want["fused_ffn"]:
-        fail(f"bench_fused_ffn: launches {counts}, expected {want}")
+    want["fused_ffn"] = want["fused_ffn_cluster"] = 1 + 3 + iters
+    if counts != want or out["launches"] != want["fused_ffn"] \
+            or out["launches_by_design"]["cluster"] != want["fused_ffn"]:
+        fail(f"bench_fused_ffn: launches {counts} "
+             f"({out['launches_by_design']}), expected {want}")
     if not out["finite"] or out["max_abs_err"] > 0.0625 \
             or out["mean_abs_err"] > kernel_tests().FFN_MEAN_BF16:
         fail(f"bench_fused_ffn: the kernel disagrees with the plain "
              f"version: {out}")
+    shape = out["shape"]
+    args = bench_fused_ffn.tool_inputs(shape["M"], shape["D"], shape["H"])
+    ms, ms_tile32 = in_turns(lambda: ops._launch(*args, 1e-12),
+                             lambda: ops._launch(*args, 1e-12,
+                                                 _design="tile32"))
+    out.update({"design": "cluster", "ms_turns": ms,
+                "ms_tile32": ms_tile32,
+                "speedup_over_tile32": ms_tile32 / ms,
+                "clusters_at_once": ops.cluster_occupancy(shape["D"])})
     log(f"[path] python -m m3p_tpu_torch.bench_fused_ffn: {json.dumps(out)}")
-    log(f"[time] fused_ffn_ln (#9) {out['shape']} CUDA events: kernel "
-        f"{out['kernel_ms']:.4f} ms ({out['kernel_tflops']:.1f} TF/s), plain "
-        f"{out['plain_ms']:.4f}, cuBLAS yardstick {out['library_ms']:.4f}, "
-        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    log(f"[time] fused_ffn_ln (#9) {shape} CUDA events: kernel "
+        f"{out['kernel_ms']:.4f} ms ({out['kernel_tflops']:.1f} TF/s), "
+        f"in turns cluster {ms:.4f} vs tile32 {ms_tile32:.4f} "
+        f"({ms_tile32 / ms:.2f}x), plain {out['plain_ms']:.4f}, cuBLAS "
+        f"yardstick {out['library_ms']:.4f}, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}); {out['clusters_at_once']} clusters at once")
     return out
 
 
@@ -2793,6 +2906,13 @@ def main() -> int:
         "launches": mct_b["dropout_fwd"],
         "launches_per_step": mct["B"]["launches_per_step"]["dropout_fwd"],
         "launches_clcm_step": mct_clcm["dropout_fwd"],
+        "design": drop_fwd["design"],
+        "launches_by_design": {"mct_B_wide": mct_b["dropout_fwd_wide"],
+                               "mct_B_clcm_step_wide":
+                                   mct_clcm["dropout_fwd_wide"]},
+        "ms_narrow": drop_fwd["ms_narrow"],
+        "ms_turns": drop_fwd["ms_turns"],
+        "speedup_over_narrow": drop_fwd["speedup_over_narrow"],
         "max_abs_err": drop_worst["bfloat16"],
         "max_abs_err_fp32": drop_worst["float32"],
         "ms": drop_fwd["ms"], "plain_ms": drop_fwd["plain_ms"],
@@ -2808,6 +2928,13 @@ def main() -> int:
         "launches": mct_b["dropout_bwd"],
         "launches_per_step": mct["B"]["launches_per_step"]["dropout_bwd"],
         "launches_clcm_step": mct_clcm["dropout_bwd"],
+        "design": drop_bwd["design"],
+        "launches_by_design": {"mct_B_wide": mct_b["dropout_bwd_wide"],
+                               "mct_B_clcm_step_wide":
+                                   mct_clcm["dropout_bwd_wide"]},
+        "ms_narrow": drop_bwd["ms_narrow"],
+        "ms_turns": drop_bwd["ms_turns"],
+        "speedup_over_narrow": drop_bwd["speedup_over_narrow"],
         "max_abs_err": drop_worst["bfloat16"],
         "max_abs_err_fp32": drop_worst["float32"],
         "ms": drop_bwd["ms"], "plain_ms": drop_bwd["plain_ms"],
@@ -2872,13 +2999,20 @@ def main() -> int:
         "source": "m3p_tpu_torch/csrc/fused_ffn.cu",
         "replaces": "m3p_tpu/ops/fused_ffn.py:35",
         "launches": ffn["launches"],
-        "max_abs_err": ffn_worst["bfloat16"][0],
-        "mean_abs_err": ffn_worst["bfloat16"][1],
-        "max_abs_err_fp32": ffn_worst["float32"][0],
+        "launches_by_design": ffn["launches_by_design"],
+        "design": ffn["design"],
+        "max_abs_err": ffn_worst["bfloat16_cluster"][0],
+        "mean_abs_err": ffn_worst["bfloat16_cluster"][1],
+        "max_abs_err_tile32": ffn_worst["bfloat16_tile32"][0],
+        "max_abs_err_cuda_cores": ffn_worst["bfloat16_cuda_cores"][0],
+        "max_abs_err_fp32": ffn_worst["float32_cuda_cores"][0],
         "max_abs_err_vs_encoder_block": ffn_block["max_abs"],
         "ms": ffn["kernel_ms"], "plain_ms": ffn["plain_ms"],
         "bound_ms": ffn["bound_ms"], "bound_by": ffn["bound_by"],
         "library_ms": ffn["library_ms"],
+        "ms_turns": ffn["ms_turns"], "ms_tile32": ffn["ms_tile32"],
+        "speedup_over_tile32": ffn["speedup_over_tile32"],
+        "clusters_at_once": ffn["clusters_at_once"],
         "shape": ffn["shape"],
     }]}
     serving = {k: numbers[k] for k in ("score_pairs_per_s",

@@ -18,8 +18,8 @@ gamma, zero beta), it times with CUDA events, after a warm-up:
 and prints one JSON line: the times, the kernel's TF/s, the least time the
 card needs (the larger of 4 M D H operations at 989 TF/s and x, out, W1,
 W2 and the vectors at 3.35 TB/s), the kernel's max and mean |error|
-against the plain version, its launches, and the card's name and power
-limit.  Runs on a CUDA device or exits non-zero.
+against the plain version, its launches (by design), and the card's name
+and power limit.  Runs on a CUDA device or exits non-zero.
 """
 
 from __future__ import annotations
@@ -86,6 +86,8 @@ def run(m: int = 13120, d: int = 768, h: int = 3072, iters: int = 30
                             eps=1e-12)
 
     fused_ffn_ln.launches = 0
+    for design in fused_ffn_ln.launches_by_design:
+        fused_ffn_ln.launches_by_design[design] = 0
     got = fused_ffn_ln(*args)
     want = reference_ffn_ln(*args)
     torch.cuda.synchronize()
@@ -104,6 +106,7 @@ def run(m: int = 13120, d: int = 768, h: int = 3072, iters: int = 30
         "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
         "finite": bool(torch.isfinite(got).all()),
         "launches": fused_ffn_ln.launches,
+        "launches_by_design": dict(fused_ffn_ln.launches_by_design),
         "card": card(), "device": torch.cuda.get_device_name(0),
     }
 

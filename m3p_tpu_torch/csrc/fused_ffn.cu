@@ -14,46 +14,67 @@
 // H = 3072, bf16) the two products are 4 M D H = 123.8 GFLOP, 0.125 ms at
 // 989 TF/s, against 49.7 MB of x, out, W1 and W2, 0.015 ms at 3.35 TB/s;
 // in fp32 the same work is 1.85 ms at the 67 TF/s of the CUDA cores.
+// W1 and W2 (9.4 MB in bf16) cannot stay on chip, so each row tile reads
+// them again (from L2); the row tile sets how many bytes a product needs.
 //
-// Two kernels, one block of 256 threads per 32-row tile each, both with
-// the same walk: the tile of x stays in shared memory for the block's
-// life, and the block goes over H in chunks of 64 hidden units:
-//   A. the (32, 64) hidden chunk = x . W1[:, chunk], W1 streamed from L2
-//      through shared memory; then b1, GELU (erff), the rounding to T, and
-//      the chunk into shared memory;
-//   B. acc += hidden chunk . W2[chunk, :], W2 streamed the same way; the
-//      (32, D) fp32 accumulator lives in registers.
-// W1 and W2 (9.4 MB in bf16) cannot stay on chip; each block reads them
-// once from L2, 3.9 GB over the tool's 410 blocks.
+// Three designs; ops/fused_ffn.py::_ffn_design names the one a call takes
+// and the C entry refuses a design outside its rule.  All three walk H in
+// chunks of 64 hidden units: A, the hidden chunk = x . W1[:, chunk], then
+// b1, GELU (erff) and the rounding to T; B, acc += hidden chunk .
+// W2[chunk, :], the fp32 accumulator in registers.
 //
-// bf16 (D % 64 == 0, H % 8 == 0, 16-byte aligned x, W1, W2) runs both
-// products on the tensor cores, mma.sync m16n8k16 with fp32 sums (the
-// fragment helpers of mma.cuh).  Each
-// chunk of W1 (D, 64) and then of W2 (64, D) comes into shared memory
+// "cluster" (bf16, D % 128 == 0, D <= 768, H % 64 == 0, x, W1, W2 and out
+// 16-byte aligned; namespace cl): a thread block cluster of two blocks on
+// neighbouring SMs per 64-row tile.  Block rank r owns the output columns
+// [r D / 2, (r + 1) D / 2), so each keeps a (64, D / 2) fp32 accumulator
+// (96 registers a thread at D = 768), and computes hidden units
+// [32 r, 32 r + 32) of each chunk from the W1 columns it alone reads; it
+// stores its half of the rounded hidden chunk into both blocks' shared
+// memory (distributed shared memory), and a split cluster barrier
+// (arrive after A(c), wait after B(c - 1)) hands each block its peer's
+// half.  W1 and W2 stream through two cp.async stages ((384, 32) of W1
+// and the chunk's (64, D / 2) of W2: 30 and 49 KB at D = 768), one
+// __syncthreads a stage, the next stage in flight while one multiplies.
+// Stages are as large as shared memory allows: each costs a block barrier
+// and the wait for its load; smaller stages in a deeper ring ran slower
+// on the H100 (python -m m3p_tpu_torch.probe_fused_ffn times them).  One
+// tile's W1 and W2 are read once between the two blocks: 1.93 GB at the
+// tool's shape (205 tiles x 9.44 MB, a count), half of "tile32"'s.  The
+// epilogue exchanges each row's two partial sums (mean, then squared
+// deviations) with the peer.  x (97 KB) and the two stages (98 KB) fill
+// the block's shared memory (230,400 bytes at D = 768), so D stops at 768.
+//
+// "tile32" (bf16, D % 64 == 0, H % 8 == 0, 16-byte aligned x, W1, W2, out
+// 4-byte aligned; namespace tc): one block of 256 threads per 32-row tile;
+// each chunk of W1 (D, 64) and then of W2 (64, D) comes into shared memory
 // whole, four 16-byte loads in flight per thread.  x and the hidden chunk
 // are A fragments read from row-major shared tiles, W1 and W2 B fragments
 // loaded with ldmatrix.trans from their row-major (k, n) tiles; warp w
 // computes hidden units 8w .. 8w + 7 in A and owns four 8-column n-tiles
-// of every 256 columns in B.  Rows padded by 8 bf16 keep the fragment
-// loads free of bank conflicts.  The epilogue reduces each row over the 4
-// lanes of a quad with shuffles and over the 8 warps through shared
-// memory.
+// of every 256 columns in B.  Each block reads W1 and W2 whole, 3.9 GB
+// over the tool's 410 blocks.  Rows padded by 8 bf16 keep the fragment
+// loads free of bank conflicts in both tensor-core designs.
 //
-// fp32 (and bf16 outside those shapes) runs on CUDA cores in fp32: no
-// TF32, so fp32 keeps its parity with the plain version.  x sits in
-// shared memory in fp32, transposed (D, 32); W1 comes in (64, 64) slices
-// and W2 in (64, 256) slabs; warp w owns rows 4w .. 4w + 3: in A lane l
-// computes hidden units l and l + 32, one broadcast float4 of x and two
-// loads of W1 feeding 8 FMAs; in B lane l owns the columns l + 32 c, one
-// broadcast float4 of the hidden and 8 loads of W2 feeding 32 FMAs; each
-// row's D sums lie in one warp for the epilogue.
+// "cuda_cores" (fp32, and bf16 outside both rules) runs in fp32 on CUDA
+// cores: no TF32, so fp32 keeps its parity with the plain version.  x sits
+// in shared memory in fp32, transposed (D, 32); W1 comes in (64, 64)
+// slices and W2 in (64, 256) slabs; warp w owns rows 4w .. 4w + 3: in A
+// lane l computes hidden units l and l + 32, one broadcast float4 of x and
+// two loads of W1 feeding 8 FMAs; in B lane l owns the columns l + 32 c,
+// one broadcast float4 of the hidden and 8 loads of W2 feeding 32 FMAs;
+// each row's D sums lie in one warp for the epilogue.
 //
-// wgmma, TMA and a larger row tile (fewer passes over W1 and W2) are left
-// for later work.
+// "cluster" runs at 9x its bound and 6x its time at the mma.sync ceiling;
+// without its W1/W2 loads it still takes 71 % of its time, so the
+// products' own path binds first (PERF.md sections 6 and 7).
+// wgmma (operands read from shared memory by the tensor cores), TMA and
+// multicast over a 2 x 2 cluster (fewer passes over W1 and W2) are left for
+// later work.
 //
-// Registers (nvcc -Xptxas -v, sm_90a), no spills: tensor-core kernel 96,
-// 133, 193, 249 and CUDA-core kernel 123, 132, 167, 228 at D <= 256, 512,
-// 768, 1024.
+// Registers (nvcc -Xptxas -v, sm_90a), no spills: "cluster" 110, 103,
+// 129, 139, 160, 175 at D = 128 .. 768; "tile32" 96, 133, 193, 249 and
+// "cuda_cores" 123, 132, 167, 228 (bf16 229 at D <= 1024) at D <= 256,
+// 512, 768, 1024.
 
 #include <algorithm>
 #include <cstdint>
@@ -492,6 +513,450 @@ fused_ffn_ln_mma_kernel(const __nv_bfloat16* __restrict__ x,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// bf16 on a cluster of two blocks: mma.sync, a cp.async ring, and the
+// hidden chunk shared through distributed shared memory
+// ---------------------------------------------------------------------------
+
+namespace cl {
+
+using m3p::mma::cluster_arrive;
+using m3p::mma::cluster_rank;
+using m3p::mma::cluster_wait;
+using m3p::mma::cp_async_16;
+using m3p::mma::cp_async_commit;
+using m3p::mma::cp_async_wait;
+using m3p::mma::ldmatrix_x2_trans;
+using m3p::mma::ldmatrix_x4;
+using m3p::mma::ldmatrix_x4_trans;
+using m3p::mma::map_rank;
+using m3p::mma::mma_16816;
+using m3p::mma::pack_bf16x2;
+
+constexpr int kRows = 64;         // rows of x per cluster
+constexpr int kHc = 64;           // hidden units per chunk, 32 per block
+constexpr int kHalf = kHc / 2;
+constexpr int kPad = 8;           // bf16 padding of a shared row
+constexpr int kStages = 2;        // slots of the ring
+constexpr int kW2Rows = kHc;      // a W2 stage is the chunk's (64, D / 2)
+constexpr int kHBufs = 3;         // hidden chunk buffers
+constexpr int kLdw1 = kHalf + kPad;
+constexpr int kLdh = kHc + kPad;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxD = 768;        // shared memory (Shape<768>::bytes)
+
+template <int kD>
+struct Shape {
+  static constexpr int ldx = kD + kPad;
+  static constexpr int ldw2 = kD / 2 + kPad;
+  // rows (k) of a W1 stage (w1_rows, 32)
+  static constexpr int w1_rows = kD % 384 == 0   ? 384
+                                 : kD % 256 == 0 ? 256
+                                                 : 128;
+  static constexpr int slot = w1_rows * kLdw1 > kW2Rows * ldw2
+                                  ? w1_rows * kLdw1
+                                  : kW2Rows * ldw2;
+  static constexpr int kA = kD / w1_rows;   // W1 stages per chunk
+  static constexpr int kB = kHc / kW2Rows;  // W2 stages per chunk
+  // x (kRows, ldx), the ring, the hidden buffers (kRows, kLdh) in bf16;
+  // the epilogue's row sums (kRows, kWarps) and the row sums exchanged
+  // ([pass][rank][row]) in fp32: 230,400 bytes at D = 768
+  static constexpr size_t bytes =
+      2 * (static_cast<size_t>(kRows) * ldx +
+           static_cast<size_t>(kStages) * slot + kHBufs * kRows * kLdh) +
+      4 * (kRows * kWarps + 2 * 2 * kRows);
+};
+
+// Stage i of a block's sequence: chunk 0's kA W1 stages, then for each
+// chunk c >= 1 its kA W1 stages followed by chunk c - 1's kB W2 stages,
+// then the last chunk's W2 stages.  Returns true for a W2 stage.
+template <int kA, int kB>
+__device__ __forceinline__ bool stage_of(int i, int nc, int& chunk,
+                                         int& slice) {
+  if (i < kA) {
+    chunk = 0;
+    slice = i;
+    return false;
+  }
+  i -= kA;
+  const int c = i / (kA + kB) + 1, j = i - (c - 1) * (kA + kB);
+  if (c == nc) {
+    chunk = nc - 1;
+    slice = j;
+    return true;
+  }
+  if (j < kA) {
+    chunk = c;
+    slice = j;
+    return false;
+  }
+  chunk = c - 1;
+  slice = j - kA;
+  return true;
+}
+
+// A cluster of two blocks of 256 threads per 64-row tile; block rank r owns
+// output columns [r D / 2, (r + 1) D / 2) and hidden units [32 r, 32 r + 32)
+// of every 64-unit chunk.  Both keep the whole (64, D) tile of x in shared
+// memory and stream their own W1 columns and W2 block through two
+// cp.async stages (one in flight while the other multiplies), in the order
+// A(0), A(1), B(0), A(2), B(1), ...:
+//   A(c): the block's (64, 32) half of hidden chunk c = x . W1[:, cols];
+//         warp w computes the (16, 16) tile of rows 16 (w % 4) .. and units
+//         16 (w / 4) ..; then b1, GELU, the rounding to bf16, and the tile
+//         is stored into both blocks' hidden buffer c % 3 (the peer's
+//         through distributed shared memory); then the cluster barrier's
+//         arrive;
+//   B(c): acc (64, D / 2) += hidden chunk c . W2[chunk rows, own columns];
+//         warp w owns kNt 8-column n-tiles, all 64 rows (4 kNt fragments);
+//         after B(c - 1) the barrier's wait for chunk c, so a block waits
+//         for its peer's half while it works on the chunk before.
+// Three hidden buffers: the peer writes buffer (c + 1) % 3 only after this
+// block has arrived for chunk c, which it does after B(c - 2).
+// The epilogue sums each row over the block's D / 2 columns (mean, then
+// squared deviations), exchanges the two partial sums through distributed
+// shared memory, and both blocks normalise their own columns.
+// Needs bf16, D = 128 kNt, H % 64 == 0, x, W1, W2 and out 16-byte aligned.
+template <int kNt>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+fused_ffn_ln_cluster_kernel(const __nv_bfloat16* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ w1,
+                            const __nv_bfloat16* __restrict__ b1,
+                            const __nv_bfloat16* __restrict__ w2,
+                            const __nv_bfloat16* __restrict__ b2,
+                            const __nv_bfloat16* __restrict__ gamma,
+                            const __nv_bfloat16* __restrict__ beta,
+                            __nv_bfloat16* __restrict__ out, int m, int h,
+                            float eps) {
+  constexpr int kD = 128 * kNt, kDh = kD / 2;
+  using S = Shape<kD>;
+  constexpr int ldx = S::ldx, ldw2 = S::ldw2, kA = S::kA, kB = S::kB;
+  constexpr int kW1Rows = S::w1_rows;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* ring = x_s + kRows * ldx;
+  __nv_bfloat16* h_s = ring + kStages * S::slot;
+  float* red_e = reinterpret_cast<float*>(h_s + kHBufs * kRows * kLdh);
+  float* xchg = red_e + kRows * kWarps;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t rank = cluster_rank(), peer = rank ^ 1u;
+  const long long m0 = static_cast<long long>(blockIdx.x >> 1) * kRows;
+  const int nc = h / kHc, total = nc * (kA + kB);
+
+  const int g = lane >> 2, t = lane & 3;
+  // phase A's (16, 16) tile of this warp: rows arow .., units 16 np ..
+  const int arow = 16 * (warp & 3), np = warp >> 2;
+  for (int v = tid; v < kRows * (kD / 8); v += kThreads) {
+    const int r = v / (kD / 8), c = (v - r * (kD / 8)) * 8;
+    const bool ok = m0 + r < m;
+    cp_async_16(x_s + r * ldx + c, x + (ok ? (m0 + r) * kD + c : 0), ok);
+  }
+  cp_async_commit();
+
+  const auto load_stage = [&](int i) {
+    if (i >= total) return;
+    int chunk, slice;
+    __nv_bfloat16* dst = ring + (i % kStages) * S::slot;
+    if (!stage_of<kA, kB>(i, nc, chunk, slice)) {
+      const __nv_bfloat16* src =
+          w1 + static_cast<long long>(slice) * kW1Rows * h + chunk * kHc +
+          rank * kHalf;
+      for (int v = tid; v < kW1Rows * (kHalf / 8); v += kThreads) {
+        const int r = v >> 2, c = (v & 3) * 8;
+        cp_async_16(dst + r * kLdw1 + c,
+                    src + static_cast<long long>(r) * h + c, true);
+      }
+    } else {
+      const __nv_bfloat16* src =
+          w2 + static_cast<long long>(chunk * kHc + slice * kW2Rows) * kD +
+          rank * kDh;
+      for (int v = tid; v < kW2Rows * (kDh / 8); v += kThreads) {
+        const int r = v / (kDh / 8), c = (v - r * (kDh / 8)) * 8;
+        cp_async_16(dst + r * ldw2 + c, src + r * kD + c, true);
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    load_stage(s);
+    cp_async_commit();
+  }
+  cluster_arrive();  // the peer has started once the matching wait passes
+
+  float acc[4][kNt][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+  float hacc[2][4];
+  __nv_bfloat16 bias[2][2];  // b1 of this lane's four hidden units in A(c)
+  // the hidden units of this lane within the chunk: col + 8 nt, + 1
+  const int col = rank * kHalf + 16 * np + 2 * t;
+
+#pragma unroll 1
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage i landed; slot (i - 1) % kStages is free
+    load_stage(i + kStages - 1);
+    cp_async_commit();
+    int chunk, slice;
+    const bool is_w2 = stage_of<kA, kB>(i, nc, chunk, slice);
+    const __nv_bfloat16* ws = ring + (i % kStages) * S::slot;
+    if (!is_w2) {
+      // ---- A: this warp's (16, 16) tile of the block's hidden half ----
+      if (slice == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hacc[nt][e] = 0.f;
+          bias[nt][0] = b1[chunk * kHc + col + 8 * nt];
+          bias[nt][1] = b1[chunk * kHc + col + 8 * nt + 1];
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kW1Rows / 16; ++s) {
+        uint32_t a[4], b[4];
+        ldmatrix_x4(a, x_s + (arow + (lane & 15)) * ldx +
+                           slice * kW1Rows + 16 * s + 8 * (lane >> 4));
+        ldmatrix_x4_trans(b, ws + (16 * s + (lane & 15)) * kLdw1 + 16 * np +
+                                 8 * (lane >> 4));
+        mma_16816(hacc[0], a, b[0], b[1]);
+        mma_16816(hacc[1], a, b[2], b[3]);
+      }
+      if (slice == kA - 1) {
+        if (chunk == 0) cluster_wait();  // the peer runs: its memory is ours
+        __nv_bfloat16* hb = h_s + (chunk % kHBufs) * kRows * kLdh;
+        __nv_bfloat16* hb_peer = map_rank(hb, peer);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int row = arow + g + 8 * half;
+            const uint32_t packed = pack_bf16x2(
+                gelu_erf(hacc[nt][2 * half] + __bfloat162float(bias[nt][0])),
+                gelu_erf(hacc[nt][2 * half + 1] +
+                         __bfloat162float(bias[nt][1])));
+            const int at = row * kLdh + col + 8 * nt;
+            *reinterpret_cast<uint32_t*>(hb + at) = packed;
+            *reinterpret_cast<uint32_t*>(hb_peer + at) = packed;
+          }
+        cluster_arrive();                // this block's half of chunk c
+        if (chunk == 0) cluster_wait();  // B(0) follows at once
+      }
+    } else {
+      // ---- B: acc += hidden chunk . W2[chunk rows, own columns] ----
+      const __nv_bfloat16* hb = h_s + (chunk % kHBufs) * kRows * kLdh;
+#pragma unroll
+      for (int ks = 0; ks < kW2Rows / 16; ++ks) {
+        const int kk = slice * kW2Rows + 16 * ks;
+        uint32_t a[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          ldmatrix_x4(a[mt], hb + (16 * mt + (lane & 15)) * kLdh + kk +
+                                 8 * (lane >> 4));
+        const __nv_bfloat16* wrow = ws + (16 * ks + (lane & 15)) * ldw2 +
+                                    warp * kNt * 8 + 8 * (lane >> 4);
+#pragma unroll
+        for (int p = 0; p < kNt / 2; ++p) {
+          uint32_t bb[4];
+          ldmatrix_x4_trans(bb, wrow + 16 * p);
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            mma_16816(acc[mt][2 * p], a[mt], bb[0], bb[1]);
+            mma_16816(acc[mt][2 * p + 1], a[mt], bb[2], bb[3]);
+          }
+        }
+        if constexpr (kNt % 2 == 1) {
+          uint32_t b0, b1v;
+          ldmatrix_x2_trans(b0, b1v, ws + (16 * ks + (lane & 15)) * ldw2 +
+                                         warp * kNt * 8 + 8 * (kNt - 1));
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+            mma_16816(acc[mt][kNt - 1], a[mt], b0, b1v);
+        }
+      }
+      // the peer's half of chunk c + 1, while this block worked on chunk c
+      if (slice == kB - 1 && chunk + 1 < nc) cluster_wait();
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- epilogue: + b2 + x, LayerNorm over the row, one rounding ----
+  // lane (g, t) of warp w holds rows 16 mt + g + 8 half and columns
+  // rank D / 2 + 8 (kNt w + n) + 2t, + 1; a row's D / 2 columns lie in the
+  // 4 lanes of a quad in all 8 warps, the other D / 2 in the peer
+  const int c0 = rank * kDh + warp * kNt * 8 + 2 * t;
+  float part[4][2];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * mt + g + 8 * half;
+      float s = 0.f;
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * n + e;
+          float& v = acc[mt][n][2 * half + e];
+          v = v + __bfloat162float(b2[c]) +
+              __bfloat162float(x_s[r * ldx + c]);
+          s += v;
+        }
+      part[mt][half] = s;
+    }
+  float mu[4][2], rstd[4][2];
+  float* xchg_peer = map_rank(xchg, peer);
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v = part[mt][half];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0) red_e[(16 * mt + g + 8 * half) * kWarps + warp] = v;
+      }
+    __syncthreads();
+    if (tid < kRows) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += red_e[tid * kWarps + w];
+      const int at = (2 * pass + static_cast<int>(rank)) * kRows + tid;
+      xchg[at] = s;
+      xchg_peer[at] = s;
+    }
+    cluster_arrive();  // both blocks' row sums of this pass are in place;
+    cluster_wait();    // red_e is free again
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * mt + g + 8 * half;
+        const float sum = xchg[2 * pass * kRows + r] +
+                          xchg[(2 * pass + 1) * kRows + r];
+        if (pass == 0)
+          mu[mt][half] = sum / static_cast<float>(kD);
+        else
+          rstd[mt][half] = rsqrtf(sum / static_cast<float>(kD) + eps);
+      }
+    if (pass == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float s = 0.f;
+#pragma unroll
+          for (int n = 0; n < kNt; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float dv = acc[mt][n][2 * half + e] - mu[mt][half];
+              s += dv * dv;
+            }
+          part[mt][half] = s;
+        }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long row = m0 + 16 * mt + g + 8 * half;
+      if (row >= m) continue;
+#pragma unroll
+      for (int n = 0; n < kNt; ++n) {
+        const int c = c0 + 8 * n;
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          o[e] = (acc[mt][n][2 * half + e] - mu[mt][half]) * rstd[mt][half] *
+                     __bfloat162float(gamma[c + e]) +
+                 __bfloat162float(beta[c + e]);
+        *reinterpret_cast<uint32_t*>(out + row * kD + c) =
+            pack_bf16x2(o[0], o[1]);
+      }
+    }
+}
+
+template <int kNt>
+cudaError_t launch(const __nv_bfloat16* x, const __nv_bfloat16* w1,
+                   const __nv_bfloat16* b1, const __nv_bfloat16* w2,
+                   const __nv_bfloat16* b2, const __nv_bfloat16* gamma,
+                   const __nv_bfloat16* beta, __nv_bfloat16* out, int m,
+                   int h, float eps, cudaStream_t stream) {
+  const auto kernel = fused_ffn_ln_cluster_kernel<kNt>;
+  const size_t smem = Shape<128 * kNt>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long tiles = (static_cast<long long>(m) + kRows - 1) / kRows;
+  kernel<<<static_cast<unsigned>(2 * tiles), kThreads, smem, stream>>>(
+      x, w1, b1, w2, b2, gamma, beta, out, m, h, eps);
+  return cudaGetLastError();
+}
+
+template <int kNt>
+cudaError_t occupancy(int* clusters) {
+  const auto kernel = fused_ffn_ln_cluster_kernel<kNt>;
+  const size_t smem = Shape<128 * kNt>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(2 * 1024, 1, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 2;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &config);
+}
+
+// D = 128 kNt for kNt = d / 128 in 1 .. kMaxD / 128
+template <typename F>
+cudaError_t with_nt(int d, F&& f) {
+  switch (d / 128) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 6: return f(std::integral_constant<int, 6>());
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace cl
+
+enum Design { kCudaCores = 0, kTile32 = 1, kCluster = 2 };
+
+bool aligned(const void* p, uintptr_t n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
+}
+
+// the rule of each bf16 design (ops/fused_ffn.py::_ffn_design)
+bool tile32_fits(const void* x, const void* w1, const void* w2,
+                 const void* out, int d, int h) {
+  return d % 64 == 0 && h % 8 == 0 && aligned(x, 16) && aligned(w1, 16) &&
+         aligned(w2, 16) && aligned(out, 4);
+}
+
+bool cluster_fits(const void* x, const void* w1, const void* w2,
+                  const void* out, int d, int h) {
+  return d % 128 == 0 && d <= cl::kMaxD && h % 64 == 0 && aligned(x, 16) &&
+         aligned(w1, 16) && aligned(w2, 16) && aligned(out, 16);
+}
+
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, size_t smem, int m, cudaStream_t stream,
                    Args... args) {
@@ -503,19 +968,15 @@ cudaError_t launch(Kernel kernel, size_t smem, int m, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// the kernel for D <= 256 kSlabs: the tensor-core one for bf16 at D % 64 ==
-// 0, H % 8 == 0 and 16-byte aligned x, W1, W2 (and 4-byte aligned out),
-// else the CUDA-core one
+// the 32-row kernels for D <= 256 kSlabs: the tensor-core one (design
+// kTile32, bf16) or the CUDA-core one
 template <typename T, int kSlabs>
-cudaError_t launch_for(const T* x, const T* w1, const T* b1, const T* w2,
-                       const T* b2, const T* gamma, const T* beta, T* out,
-                       int m, int d, int h, float eps, cudaStream_t stream) {
-  const auto aligned = [](const void* p, uintptr_t n) {
-    return reinterpret_cast<uintptr_t>(p) % n == 0;
-  };
+cudaError_t launch_for(int design, const T* x, const T* w1, const T* b1,
+                       const T* w2, const T* b2, const T* gamma,
+                       const T* beta, T* out, int m, int d, int h, float eps,
+                       cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    if (d % 64 == 0 && h % 8 == 0 && aligned(x, 16) && aligned(w1, 16) &&
-        aligned(w2, 16) && aligned(out, 4))
+    if (design == kTile32)
       return launch(tc::fused_ffn_ln_mma_kernel<kSlabs>, tc::smem_bytes(d), m,
                     stream, x, w1, b1, w2, b2, gamma, beta, out, m, d, h, eps);
   }
@@ -524,13 +985,13 @@ cudaError_t launch_for(const T* x, const T* w1, const T* b1, const T* w2,
 }
 
 template <typename T>
-cudaError_t dispatch(const void* x, const void* w1, const void* b1,
-                     const void* w2, const void* b2, const void* gamma,
-                     const void* beta, void* out, int m, int d, int h,
-                     float eps, cudaStream_t stream) {
+cudaError_t dispatch(int design, const void* x, const void* w1,
+                     const void* b1, const void* w2, const void* b2,
+                     const void* gamma, const void* beta, void* out, int m,
+                     int d, int h, float eps, cudaStream_t stream) {
   const auto args = [&](auto slabs) {
     return launch_for<T, decltype(slabs)::value>(
-        static_cast<const T*>(x), static_cast<const T*>(w1),
+        design, static_cast<const T*>(x), static_cast<const T*>(w1),
         static_cast<const T*>(b1), static_cast<const T*>(w2),
         static_cast<const T*>(b2), static_cast<const T*>(gamma),
         static_cast<const T*>(beta), static_cast<T*>(out), m, d, h, eps,
@@ -552,23 +1013,52 @@ cudaError_t dispatch(const void* x, const void* w1, const void* b1,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; every tensor contiguous and of that
-// type: x and out (M, D), w1 (D, H), b1 (H), w2 (H, D), b2, gamma, beta (D).
-// 1 <= D <= 1024, H >= 1, M >= 1.  Returns the cudaError_t of the launch
-// (0 on success).
-extern "C" int m3p_fused_ffn_ln(int dtype, const void* x, const void* w1,
-                                const void* b1, const void* w2,
-                                const void* b2, const void* gamma,
-                                const void* beta, void* out, int m, int d,
-                                int h, float eps, void* stream) {
-  if (m < 1 || d < 1 || d > 4 * kSlab || h < 1)
+// dtype: 0 = float32, 1 = bfloat16; design: 0 = CUDA cores, 1 = the 32-row
+// tensor-core kernel ("tile32"), 2 = the two-block cluster; every tensor
+// contiguous and of that type: x and out (M, D), w1 (D, H), b1 (H), w2
+// (H, D), b2, gamma, beta (D).  1 <= D <= 1024, H >= 1, M >= 1; designs 1
+// and 2 take bf16 within their rule (tile32_fits, cluster_fits) alone.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int m3p_fused_ffn_ln(int dtype, int design, const void* x,
+                                const void* w1, const void* b1,
+                                const void* w2, const void* b2,
+                                const void* gamma, const void* beta,
+                                void* out, int m, int d, int h, float eps,
+                                void* stream) {
+  if (m < 1 || d < 1 || d > 4 * kSlab || h < 1 || design < kCudaCores ||
+      design > kCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == kCluster) {
+    if (dtype != 1 || !cluster_fits(x, w1, w2, out, d, h))
+      return static_cast<int>(cudaErrorInvalidValue);
+    using B = __nv_bfloat16;
+    return static_cast<int>(cl::with_nt(d, [&](auto nt) {
+      return cl::launch<decltype(nt)::value>(
+          static_cast<const B*>(x), static_cast<const B*>(w1),
+          static_cast<const B*>(b1), static_cast<const B*>(w2),
+          static_cast<const B*>(b2), static_cast<const B*>(gamma),
+          static_cast<const B*>(beta), static_cast<B*>(out), m, h, eps, s);
+    }));
+  }
+  if (design == kTile32 &&
+      (dtype != 1 || !tile32_fits(x, w1, w2, out, d, h)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return static_cast<int>(dispatch<float>(x, w1, b1, w2, b2, gamma, beta,
-                                            out, m, d, h, eps, s));
+    return static_cast<int>(dispatch<float>(design, x, w1, b1, w2, b2, gamma,
+                                            beta, out, m, d, h, eps, s));
   if (dtype == 1)
     return static_cast<int>(dispatch<__nv_bfloat16>(
-        x, w1, b1, w2, b2, gamma, beta, out, m, d, h, eps, s));
+        design, x, w1, b1, w2, b2, gamma, beta, out, m, d, h, eps, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The most clusters of the cluster design at width d that the card runs at
+// once (cudaOccupancyMaxActiveClusters), into *clusters.
+extern "C" int m3p_fused_ffn_ln_cluster_occupancy(int d, int* clusters) {
+  if (d % 128 != 0 || d > cl::kMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cl::with_nt(d, [&](auto nt) {
+    return cl::occupancy<decltype(nt)::value>(clusters);
+  }));
 }

@@ -1,6 +1,6 @@
-// Warp-level tensor-core and asynchronous-copy helpers shared by the port's
-// tensor-core kernels (fused_ffn.cu, flash_attention.cu,
-// flash_attention_bwd.cu), sm_90a.
+// Warp-level tensor-core, asynchronous-copy and cluster helpers shared by
+// the port's tensor-core kernels (fused_ffn.cu, flash_attention.cu,
+// flash_attention_bwd.cu, packed_tile*.cuh), sm_90a.
 //
 // Fragments follow the PTX layouts of mma.sync m16n8k16 with bf16 operands
 // and fp32 sums.  With g = lane / 4 and t = lane % 4:
@@ -12,9 +12,10 @@
 // So the C fragments of two neighbouring n-tiles, rounded and packed in
 // pairs, are the A fragment of a product over those 16 columns.
 //
-// Every function here is a warp-wide instruction or a copy; this header is
-// the one place the kernels reach the hardware's matrix and async-copy
-// units, so a CPU emulation of the kernels replaces it alone.
+// Every function here is a warp-wide instruction, a copy or a cluster
+// primitive; this header is the one place the kernels reach the hardware's
+// matrix, async-copy and cluster units, so a CPU emulation of the kernels
+// replaces it alone.
 
 #pragma once
 
@@ -127,6 +128,38 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" : : "n"(kPending) : "memory");
+}
+
+// ---- thread block clusters (fused_ffn.cu's cluster design) ----
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the address of p (in this block's shared memory) in the shared memory of
+// the cluster's block `rank`, usable by generic loads and stores
+template <typename T>
+__device__ __forceinline__ T* map_rank(T* p, uint32_t rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out)
+               : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+
+// the split cluster barrier: every thread of every block of the cluster
+// arrives (releasing its earlier stores, to shared memory of any block of
+// the cluster included) and later waits (acquiring the others'); a thread
+// alternates the two
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" : : : "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" : : : "memory");
 }
 
 }  // namespace mma

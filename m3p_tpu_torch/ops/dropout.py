@@ -16,9 +16,11 @@ of Philox4x32-10 at counter (i // 4 lo, i // 4 hi, 0, 0), kept at or above
 
 Kernels (`csrc/fused_dropout.cu`): #7 ``fused_dropout_add_kernel`` for the
 forward of `dropout_add`, #8 ``fused_dropout_scale_kernel`` for its backward
-and both directions of `dropout_scale`.  CPU tensors take the plain
-versions below, which round at the same places, so kernel and plain version
-agree bit for bit; CUDA tensors launch the kernels or raise.
+and both directions of `dropout_scale`, each in the design
+`_dropout_design` names by the pointers' alignment ("wide", "narrow",
+"scalar").  CPU tensors take the plain versions below, which round at the
+same places, so kernel and plain version agree bit for bit; CUDA tensors
+launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from m3p_tpu_torch.ops import _build
 from m3p_tpu_torch.ops.philox import keep_mask_flat, keep_threshold, seed_key
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' designs in the C entry's width codes, each rule a subset of
+# the one before it
+_DESIGNS = ("scalar", "narrow", "wide")
 
 
 def _check_rate(rate: float) -> None:
@@ -89,20 +94,42 @@ def _kernel_input(t: torch.Tensor, what: str) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(x: torch.Tensor, residual, seed: int, rate: float
-            ) -> torch.Tensor:
-    """#7 when ``residual`` is a tensor, #8 when it is None; adds one to
-    ``dropout_add.launches`` or ``dropout_add.bwd_launches``."""
+def _dropout_design(*tensors: torch.Tensor) -> str:
+    """The design that takes these tensors (every one the kernel reads or
+    writes), by the alignment of their data: "wide" when every pointer is
+    16-byte aligned, "narrow" when every one is aligned to 4 elements (in
+    bf16 8 bytes; in fp32 that is 16 bytes, so "wide" takes it), else
+    "scalar".  The rule of the C entry, which refuses a width the pointers
+    do not allow."""
+    if all(t.data_ptr() % 16 == 0 for t in tensors):
+        return "wide"
+    if all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors):
+        return "narrow"
+    return "scalar"
+
+
+def _launch(x: torch.Tensor, residual, seed: int, rate: float,
+            _design=None) -> torch.Tensor:
+    """#7 when ``residual`` is a tensor, #8 when it is None, in the design
+    `_dropout_design` names; adds one to ``dropout_add.launches`` or
+    ``dropout_add.bwd_launches`` and to that design's entry of
+    ``dropout_add.launches_by_design`` or ``.bwd_launches_by_design``.
+    ``_design`` names a narrower design the pointers allow (for timing the
+    designs on the same tensors; the model path never passes it)."""
     what = "dropout_add" if residual is not None else "dropout_scale"
     x = _kernel_input(x, what)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     tensors = [x, out] if residual is None else [x, residual, out]
-    width = 4 * x.element_size()
-    vec = int(all(t.data_ptr() % width == 0 for t in tensors))
+    rule = _dropout_design(*tensors)
+    design = rule if _design is None else _design
+    if design not in _DESIGNS or _DESIGNS.index(design) > _DESIGNS.index(
+            rule):
+        raise ValueError(f"{what}: design {design!r} does not take these "
+                         f"tensors (the rule names {rule!r})")
     args = (float(_scale(rate, x.dtype)), keep_threshold(rate), int(seed),
-            vec)
+            _DESIGNS.index(design))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if residual is None:
@@ -117,11 +144,14 @@ def _launch(x: torch.Tensor, residual, seed: int, rate: float
                      residual.data_ptr(), out.data_ptr(), x.numel(), *args,
                      stream)
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{what} kernel ({design}) launch failed: CUDA "
+                           f"error {err}")
     if residual is None:
         dropout_add.bwd_launches += 1
+        dropout_add.bwd_launches_by_design[design] += 1
     else:
         dropout_add.launches += 1
+        dropout_add.launches_by_design[design] += 1
     return out
 
 
@@ -185,7 +215,8 @@ def dropout_add(x: torch.Tensor, residual: torch.Tensor, seed: int,
     64-bit int); differentiable in x and residual.  CPU tensors take the
     plain version; CUDA tensors launch #7 (forward) and #8 (backward),
     adding one to ``dropout_add.launches`` per #7 launch and to
-    ``dropout_add.bwd_launches`` per #8 launch, or raise."""
+    ``dropout_add.bwd_launches`` per #8 launch (and to the design's entry
+    of ``.launches_by_design`` / ``.bwd_launches_by_design``), or raise."""
     _check_args(x, seed, rate)
     _check_pair(x, residual)
     return _DropoutAdd.apply(x, residual, int(seed), float(rate))
@@ -213,4 +244,6 @@ def fused_dropout_add(x: torch.Tensor, residual: torch.Tensor, seed: int,
 
 dropout_add.launches = 0
 dropout_add.bwd_launches = 0
+dropout_add.launches_by_design = dict.fromkeys(_DESIGNS, 0)
+dropout_add.bwd_launches_by_design = dict.fromkeys(_DESIGNS, 0)
 

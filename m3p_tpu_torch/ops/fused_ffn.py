@@ -9,8 +9,8 @@ forward only.
   b2 and x added in fp32, a two-pass fp32 mean and variance, eps 1e-12,
   gamma and beta in fp32, one rounding to x's dtype.
 * `fused_ffn_ln` — the dispatcher: CPU tensors take the plain version, CUDA
-  tensors launch `csrc/fused_ffn.cu` (replaces the Pallas `_kernel`) or
-  raise, any other device raises.
+  tensors launch `csrc/fused_ffn.cu` (replaces the Pallas `_kernel`) in the
+  design `_ffn_design` names, or raise; any other device raises.
 
 The arguments keep the JAX order and layouts: x (M, D), W1 (D, H), b1 (H,),
 W2 (H, D), b2, gamma, beta (D,), all in x's dtype (float32 or bfloat16).
@@ -27,6 +27,10 @@ from m3p_tpu_torch.ops.activations import gelu_erf
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 1024     # the kernel's (rows, D) fp32 accumulator lives in registers
+# the kernel's designs in the C entry's codes, each rule a subset of the
+# one before it
+_DESIGNS = ("cuda_cores", "tile32", "cluster")
+CLUSTER_MAX_D = 768   # shared memory of a cluster block
 
 
 def reference_ffn_ln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -73,25 +77,80 @@ def _check_args(x, w1, b1, w2, b2, gamma, beta) -> None:
         raise ValueError("fused_ffn_ln: every argument must be contiguous")
 
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+def _aligned(t: torch.Tensor, n: int) -> bool:
+    return t.data_ptr() % n == 0
+
+
+def _ffn_design(x, w1, w2, out) -> str:
+    """The design that takes these tensors (the rule of the C entry's
+    `cluster_fits` / `tile32_fits`, which refuse a launch outside it):
+    "cluster" for bf16 with D % 128 == 0, D <= CLUSTER_MAX_D, H % 64 == 0
+    and x, W1, W2 and out 16-byte aligned; else "tile32" for bf16 with
+    D % 64 == 0, H % 8 == 0, x, W1, W2 16-byte and out 4-byte aligned;
+    else "cuda_cores"."""
+    if x.dtype != torch.bfloat16:
+        return "cuda_cores"
+    d, h = w1.shape
+    if (d % 128 == 0 and d <= CLUSTER_MAX_D and h % 64 == 0
+            and all(_aligned(t, 16) for t in (x, w1, w2, out))):
+        return "cluster"
+    if (d % 64 == 0 and h % 8 == 0 and _aligned(out, 4)
+            and all(_aligned(t, 16) for t in (x, w1, w2))):
+        return "tile32"
+    return "cuda_cores"
+
+
+def _checked_design(rule: str, forced) -> str:
+    """The rule's design, or ``forced`` (the private ``_design`` argument
+    that times one design against another), which may not name a design
+    whose rule these tensors break."""
+    if forced is None:
+        return rule
+    if forced not in _DESIGNS or _DESIGNS.index(forced) > _DESIGNS.index(
+            rule):
+        raise ValueError(f"fused_ffn_ln: design {forced!r} does not take "
+                         f"these tensors (the rule names {rule!r})")
+    return forced
+
+
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
              + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _launch(x, w1, b1, w2, b2, gamma, beta, eps) -> torch.Tensor:
+def _launch(x, w1, b1, w2, b2, gamma, beta, eps, _design=None
+            ) -> torch.Tensor:
+    """One launch of the design `_ffn_design` names; ``_design`` names
+    another design whose rule the tensors meet (for timing the designs on
+    the same tensors; the model path never passes it)."""
     fn = _build.bind("fused_ffn", "m3p_fused_ffn_ln", _ARGTYPES)
     m, d = x.shape
     out = torch.empty_like(x)
+    design = _checked_design(_ffn_design(x, w1, w2, out), _design)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_KERNEL_DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(),
-                 b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), m, d,
-                 w1.shape[1], float(eps), stream)
+        err = fn(_KERNEL_DTYPES[x.dtype], _DESIGNS.index(design),
+                 x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                 out.data_ptr(), m, d, w1.shape[1], float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"fused_ffn_ln kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"fused_ffn_ln kernel ({design}) launch failed: "
+                           f"CUDA error {err}")
     fused_ffn_ln.launches += 1
+    fused_ffn_ln.launches_by_design[design] += 1
     return out
+
+
+def cluster_occupancy(d: int) -> int:
+    """The most two-block clusters of the "cluster" design at width ``d``
+    that the current card runs at once (cudaOccupancyMaxActiveClusters)."""
+    fn = _build.bind("fused_ffn", "m3p_fused_ffn_ln_cluster_occupancy",
+                     [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(0)
+    err = fn(d, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cluster occupancy query failed: CUDA error "
+                           f"{err}")
+    return n.value
 
 
 def fused_ffn_ln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -99,10 +158,11 @@ def fused_ffn_ln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                  beta: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """``LN(x + b2 + gelu_erf(x W1 + b1) W2)``, (M, D) in x's dtype; forward
     only.  CPU tensors take `reference_ffn_ln`; CUDA tensors launch the
-    kernel, adding one to ``fused_ffn_ln.launches``, or raise; other
-    devices raise.  The JAX function's row tile ``tm`` has no counterpart:
-    the kernel picks its own.  M = 0 returns an empty tensor without a
-    launch."""
+    kernel in the design `_ffn_design` names, adding one to
+    ``fused_ffn_ln.launches`` and to that design's entry of
+    ``fused_ffn_ln.launches_by_design``, or raise; other devices raise.
+    The JAX function's row tile ``tm`` has no counterpart: each design
+    has its own.  M = 0 returns an empty tensor without a launch."""
     _check_args(x, w1, b1, w2, b2, gamma, beta)
     if x.device.type == "cpu":
         return reference_ffn_ln(x, w1, b1, w2, b2, gamma, beta, eps)
@@ -114,3 +174,4 @@ def fused_ffn_ln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 fused_ffn_ln.launches = 0
+fused_ffn_ln.launches_by_design = dict.fromkeys(_DESIGNS, 0)

@@ -5,11 +5,13 @@ flash-attention forward and backward (any length), the head-major
 single-tile attention forward and backward (both designs too), the mask
 identity of each forward/backward pair (V = identity), the fused residual
 dropout forward and backward, bit for bit, with its mask identity (x = 1,
-residual = 0), and the fused FFN + LayerNorm.  Without a card: a failing
-launch of each new kernel is shown to raise (a launch stubbed to return a
-CUDA error), and the packed and head-major forward and backward follow
-their design rule, count launches by design and refuse a forced
-tensor-core launch the rule does not take.
+residual = 0), its "wide" and "narrow" designs bit for bit with each
+other, and the fused FFN + LayerNorm in its "cluster" and "tile32"
+designs.  Without a card: a failing launch of each new kernel is shown to
+raise (a launch stubbed to return a CUDA error), and the packed and
+head-major forward and backward, the fused FFN and the fused dropout
+follow their design rule, count launches by design and refuse a forced
+design the rule does not take.
 
 This file imports nothing of JAX, so it also runs where only PyTorch is
 installed; the `gpu` tests skip without a CUDA device.  On a machine with
@@ -29,6 +31,7 @@ import torch
 
 from m3p_tpu_torch.ops import _build
 from m3p_tpu_torch.ops import attention as attention_ops
+from m3p_tpu_torch.ops import dropout as dropout_ops
 from m3p_tpu_torch.ops import fused_ffn as fused_ffn_ops
 from m3p_tpu_torch.ops.attention import (
     attention_flash, attention_flash_bwd_reference, attention_flash_reference,
@@ -546,6 +549,55 @@ def test_fused_dropout_kernels_draw_the_plain_versions_mask(cuda_device):
     check_fused_dropout_mask_identity(cuda_device)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DROPOUT_SHAPES)
+def test_fused_dropout_wide_design_equals_narrow_and_plain(cuda_device,
+                                                           shape, dtype):
+    """On aligned tensors #7 and #8 take "wide"; forced "narrow" on the same
+    tensors, and the plain versions, give the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x, res = (torch.randn(shape, device=cuda_device, generator=gen).to(dtype)
+              for _ in range(2))
+    for residual, counts, want in (
+            (res, dropout_add.launches_by_design,
+             dropout_add_reference(x, res, SEED, RATE)),
+            (None, dropout_add.bwd_launches_by_design,
+             dropout_scale_reference(x, SEED, RATE))):
+        before = dict(counts)
+        wide = dropout_ops._launch(x, residual, SEED, RATE)
+        narrow = dropout_ops._launch(x, residual, SEED, RATE, "narrow")
+        torch.cuda.synchronize()
+        assert counts == {"scalar": before["scalar"],
+                          "narrow": before["narrow"] + 1,
+                          "wide": before["wide"] + 1}
+        assert torch.equal(wide, want) and torch.equal(narrow, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset,design", [(4, "narrow"), (8, "wide")])
+def test_fused_dropout_on_8_byte_aligned_views(cuda_device, offset, design):
+    """bf16 views 8 bytes into a 16-byte row take "narrow" (and 16 bytes in,
+    "wide"); both, and "scalar" forced on the same view, equal the plain
+    versions bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    base = torch.randn(2, 40_016, device=cuda_device, generator=gen).to(
+        torch.bfloat16)
+    x, res = base[0, offset:offset + 40_003], base[1, offset:offset + 40_003]
+    assert x.data_ptr() % 16 == 2 * offset % 16
+    before = dict(dropout_add.launches_by_design)
+    got = dropout_add(x, res, SEED, RATE)
+    scalar = dropout_ops._launch(x, res, SEED, RATE, "scalar")
+    scaled = dropout_scale(x, SEED, RATE)
+    torch.cuda.synchronize()
+    want = dropout_add_reference(x, res, SEED, RATE)
+    assert torch.equal(got, want) and torch.equal(scalar, want)
+    assert torch.equal(scaled, dropout_scale_reference(x, SEED, RATE))
+    assert dropout_add.launches_by_design == {
+        d: before[d] + (d == design) + (d == "scalar")
+        for d in before}
+
+
 # ---------------------------------------------------------------------------
 # head-major single-tile attention (#3/#4)
 # ---------------------------------------------------------------------------
@@ -846,6 +898,33 @@ def test_fused_ffn_kernel_on_an_unaligned_x(cuda_device):
     check_fused_ffn(fused_ffn_ln(*args), reference_ffn_ln(*args))
 
 
+# the "cluster" design's edges: rows around its 64-row tile and past the
+# tool's M, and its two narrowest widths
+FFN_CLUSTER_CASES = ([(m, 768, 3072) for m in (1, 63, 64, 65, 13121)]
+                     + [(65, d, 4 * d) for d in (128, 256)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d,h", FFN_CLUSTER_CASES)
+def test_fused_ffn_cluster_design_matches_plain_version(cuda_device, m, d,
+                                                        h):
+    """bf16 at D % 128 == 0 takes "cluster": within the tolerance of the
+    plain version, two calls bitwise equal, and "tile32" forced on the same
+    tensors within TOL_BF16 of it."""
+    args = ffn_inputs(cuda_device, m, d, h, torch.bfloat16, seed=m)
+    before = dict(fused_ffn_ln.launches_by_design)
+    got = fused_ffn_ln(*args)
+    again = fused_ffn_ln(*args)
+    tile32 = fused_ffn_ops._launch(*args, 1e-12, _design="tile32")
+    torch.cuda.synchronize()
+    assert fused_ffn_ln.launches_by_design == {
+        "cuda_cores": before["cuda_cores"], "tile32": before["tile32"] + 1,
+        "cluster": before["cluster"] + 2}
+    check_fused_ffn(got, reference_ffn_ln(*args))
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, tile32, **TOL_BF16)
+
+
 # ---------------------------------------------------------------------------
 # a failing launch raises (runs without a card)
 # ---------------------------------------------------------------------------
@@ -896,7 +975,11 @@ def _launch_flash(which):
 
 def _all_launch_counts():
     return (small_attention.launches, small_attention.bwd_launches,
-            fused_ffn_ln.launches, attention_flash.launches,
+            fused_ffn_ln.launches, dict(fused_ffn_ln.launches_by_design),
+            dropout_add.launches, dropout_add.bwd_launches,
+            dict(dropout_add.launches_by_design),
+            dict(dropout_add.bwd_launches_by_design),
+            attention_flash.launches,
             attention_flash.bwd_launches, _design_launches(),
             attention_packed.launches, attention_packed.bwd_launches,
             dict(attention_packed.launches_by_design),
@@ -909,7 +992,10 @@ def _all_launch_counts():
                                    "packed_bwd", "packed_bwd_tc",
                                    "fused_ffn", "flash_fwd", "flash_bwd",
                                    "packed_fwd", "packed_fwd_tc",
-                                   "small_fwd_tc"])
+                                   "small_fwd_tc", "fused_ffn_tile32",
+                                   "fused_ffn_cluster", "dropout_wide",
+                                   "dropout_narrow", "dropout_scalar",
+                                   "dropout_scale_wide"])
 def test_a_failing_launch_raises_and_counts_nothing(monkeypatch, which):
     _failing_launch(monkeypatch)
     before = _all_launch_counts()
@@ -917,6 +1003,16 @@ def test_a_failing_launch_raises_and_counts_nothing(monkeypatch, which):
         if which == "fused_ffn":
             fused_ffn_ops._launch(*ffn_inputs("cpu", 5, 8, 16,
                                               torch.float32), 1e-12)
+        elif which.startswith("fused_ffn"):    # bf16 at D 64 or 128
+            d = 64 if which.endswith("tile32") else 128
+            args = ffn_inputs("cpu", 5, d, 4 * d, torch.bfloat16)
+            assert fused_ffn_ops._ffn_design(
+                args[0], args[1], args[3], args[0]) == which[10:]
+            fused_ffn_ops._launch(*args, 1e-12)
+        elif which.startswith("dropout"):
+            x, res = _dropout_view(torch.bfloat16, which.split("_")[-1])
+            dropout_ops._launch(x, None if "scale" in which else res, SEED,
+                                RATE)
         elif which.startswith("flash"):
             _launch_flash(which[6:])
         elif which.startswith("packed"):
@@ -1041,6 +1137,20 @@ def test_small_fwd_design_follows_the_kernel_rule(monkeypatch, dtype, dh,
     _assert_rose(small_attention.launches_by_design, before, want, 1)
 
 
+def _keep_counts(monkeypatch):
+    """Give every kernel counter a copy for this test, restored after it,
+    so that launches through a stub C entry leave no count behind for
+    tests that read the counters later in the same process."""
+    for fn in (attention_packed, attention_flash, small_attention,
+               dropout_add, fused_ffn_ln):
+        for name in ("launches", "bwd_launches", "launches_by_design",
+                     "bwd_launches_by_design"):
+            if hasattr(fn, name):
+                value = getattr(fn, name)
+                monkeypatch.setattr(fn, name, dict(value)
+                                    if isinstance(value, dict) else value)
+
+
 def _recording_entry(monkeypatch):
     """A stub C entry that records (dtype, design, phase, bits pointer)
     and succeeds."""
@@ -1056,6 +1166,7 @@ def _recording_entry(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=None))
+    _keep_counts(monkeypatch)
     return calls
 
 
@@ -1164,3 +1275,182 @@ def test_forced_tensor_cores_outside_the_rule_raise(monkeypatch, layout,
                 *(_head_major(t, 2) for t in (q, k, v)), None,
                 _head_major(do, 2), False, 0.125, 0.0, None, "tensor_cores")
     assert calls == [] and _all_launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the design rules of the fused FFN and the fused dropout (run without a
+# card)
+# ---------------------------------------------------------------------------
+
+
+def _offset(t, elems):
+    """A copy of ``t`` whose data starts ``elems`` elements into a
+    64-byte-aligned allocation (the CPU allocator aligns to 64)."""
+    flat = torch.empty(t.numel() + elems, dtype=t.dtype)
+    view = flat[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# (dtype, D, H, tensor shifted by 2 bytes, design): D % 128, D above
+# CLUSTER_MAX_D, H % 64 and every tensor's alignment can each send bf16
+# from "cluster" to "tile32" or further
+FFN_RULE_CASES = [
+    (torch.bfloat16, 768, 3072, None, "cluster"),
+    (torch.bfloat16, 128, 512, None, "cluster"),
+    (torch.float32, 768, 3072, None, "cuda_cores"),
+    (torch.bfloat16, 192, 768, None, "tile32"),      # D % 128 != 0
+    (torch.bfloat16, 896, 3584, None, "tile32"),     # D > CLUSTER_MAX_D
+    (torch.bfloat16, 768, 3064, None, "tile32"),     # H % 64 != 0
+    (torch.bfloat16, 768, 3068, None, "cuda_cores"), # H % 8 != 0
+    (torch.bfloat16, 200, 800, None, "cuda_cores"),  # D % 64 != 0
+    (torch.bfloat16, 128, 512, "x", "cuda_cores"),
+    (torch.bfloat16, 128, 512, "w1", "cuda_cores"),
+    (torch.bfloat16, 128, 512, "w2", "cuda_cores"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,h,shifted,want", FFN_RULE_CASES)
+def test_ffn_design_follows_the_kernel_rule(monkeypatch, dtype, d, h,
+                                            shifted, want):
+    """`_launch` hands the C entry the design `_ffn_design` names (codes 0
+    CUDA cores, 1 "tile32", 2 "cluster") and counts it."""
+    calls = _recording_entry(monkeypatch)
+    x, w1, b1, w2, b2, gamma, beta = ffn_inputs("cpu", 3, d, h, dtype)
+    if shifted == "x":
+        x = _offset(x, 1)
+    elif shifted == "w1":
+        w1 = _offset(w1, 1)
+    elif shifted == "w2":
+        w2 = _offset(w2, 1)
+    before = dict(fused_ffn_ln.launches_by_design)
+    fused_ffn_ops._launch(x, w1, b1, w2, b2, gamma, beta, 1e-12)
+    assert [c[:2] for c in calls] == [
+        (1 if dtype == torch.bfloat16 else 0,
+         fused_ffn_ops._DESIGNS.index(want))]
+    _assert_rose(fused_ffn_ln.launches_by_design, before, want, 1)
+
+
+@pytest.mark.parametrize("shift,want", [(0, "cluster"), (2, "tile32"),
+                                        (1, "cuda_cores")])
+def test_ffn_design_follows_the_output_alignment(shift, want):
+    """The output must be 16-byte aligned for "cluster" and 4-byte aligned
+    for "tile32" (it is allocated fresh on the model path)."""
+    x, w1, _, w2, *_ = ffn_inputs("cpu", 3, 128, 512, torch.bfloat16)
+    out = _offset(x, shift)
+    assert fused_ffn_ops._ffn_design(x, w1, w2, out) == want
+
+
+@pytest.mark.parametrize("d,h,forced", [
+    (192, 768, "cluster"), (768, 3064, "cluster"), (200, 800, "tile32"),
+    (768, 3072, "fp32_cluster"), (768, 3072, "fp32_tile32"),
+    (128, 512, "unknown")])
+def test_forced_ffn_design_outside_the_rule_raises(monkeypatch, d, h,
+                                                   forced):
+    """A forced ``_design`` whose rule these tensors break raises before any
+    launch and counts nothing."""
+    calls = _recording_entry(monkeypatch)
+    dtype = torch.float32 if forced.startswith("fp32") else torch.bfloat16
+    args = ffn_inputs("cpu", 3, d, h, dtype)
+    before = _all_launch_counts()
+    with pytest.raises(ValueError, match="does not take these tensors"):
+        fused_ffn_ops._launch(*args, 1e-12,
+                              _design=forced.replace("fp32_", ""))
+    assert calls == [] and _all_launch_counts() == before
+
+
+def test_forced_ffn_designs_inside_the_rule_launch_them(monkeypatch):
+    """On tensors "cluster" takes, ``_design`` "tile32" and "cuda_cores"
+    launch those designs (the timing in turns)."""
+    calls = _recording_entry(monkeypatch)
+    args = ffn_inputs("cpu", 3, 128, 512, torch.bfloat16)
+    before = dict(fused_ffn_ln.launches_by_design)
+    for forced in (None, "tile32", "cuda_cores"):
+        fused_ffn_ops._launch(*args, 1e-12, _design=forced)
+    assert [c[1] for c in calls] == [2, 1, 0]
+    assert fused_ffn_ln.launches_by_design == {
+        d: before[d] + 1 for d in before}
+
+
+def _dropout_view(dtype, design, n=1003):
+    """x and a residual of ``n`` elements whose data lie where
+    `_dropout_design` names ``design``: 16-byte aligned ("wide"), 8 bytes in
+    (bf16 "narrow"), one element in ("scalar")."""
+    elems = {"wide": 0, "narrow": 4, "scalar": 1}[design]
+    return (_offset(torch.randn(n).to(dtype), elems),
+            _offset(torch.randn(n).to(dtype), elems))
+
+
+def _recording_dropout_entry(monkeypatch):
+    """A stub C entry of the fused dropout recording (dtype, width code) and
+    succeeding."""
+    calls = []
+
+    def entry(*args):
+        # add: (dtype, x, res, out, n, ...); scale: (dtype, x, out, n, ...)
+        calls.append((args[0], args[-2]))
+        return 0
+
+    monkeypatch.setattr(_build, "bind", lambda *a: entry)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=None))
+    _keep_counts(monkeypatch)
+    return calls
+
+
+@pytest.mark.parametrize("dtype,layout,want", [
+    (torch.bfloat16, "wide", "wide"), (torch.bfloat16, "narrow", "narrow"),
+    (torch.bfloat16, "scalar", "scalar"), (torch.float32, "wide", "wide"),
+    (torch.float32, "scalar", "scalar")])
+@pytest.mark.parametrize("residual", [True, False])
+def test_dropout_width_follows_the_alignment(monkeypatch, dtype, layout,
+                                             want, residual):
+    """`_launch` hands the C entry the width code of the design the
+    pointers allow (2 "wide": all 16-byte aligned, 1 "narrow": all aligned
+    to 4 elements, 0 "scalar") and counts it under #7 or #8."""
+    calls = _recording_dropout_entry(monkeypatch)
+    x, res = _dropout_view(dtype, layout)
+    counts = (dropout_add.launches_by_design if residual
+              else dropout_add.bwd_launches_by_design)
+    before = dict(counts)
+    dropout_ops._launch(x, res if residual else None, SEED, RATE)
+    assert calls == [(dropout_ops._KERNEL_DTYPES[dtype],
+                      dropout_ops._DESIGNS.index(want))]
+    _assert_rose(counts, before, want, 1)
+
+
+def test_dropout_width_follows_the_residual_too(monkeypatch):
+    """An aligned x with a residual 8 bytes in takes "narrow"."""
+    calls = _recording_dropout_entry(monkeypatch)
+    x, _ = _dropout_view(torch.bfloat16, "wide")
+    _, res = _dropout_view(torch.bfloat16, "narrow")
+    dropout_ops._launch(x, res, SEED, RATE)
+    assert calls == [(1, 1)]
+
+
+@pytest.mark.parametrize("layout,forced", [
+    ("narrow", "wide"), ("scalar", "narrow"), ("scalar", "wide"),
+    ("wide", "unknown")])
+def test_forced_dropout_design_outside_the_rule_raises(monkeypatch, layout,
+                                                       forced):
+    """A forced ``_design`` wider than the pointers allow raises before any
+    launch and counts nothing."""
+    calls = _recording_dropout_entry(monkeypatch)
+    x, res = _dropout_view(torch.bfloat16, layout)
+    before = _all_launch_counts()
+    with pytest.raises(ValueError, match="does not take these tensors"):
+        dropout_ops._launch(x, res, SEED, RATE, forced)
+    assert calls == [] and _all_launch_counts() == before
+
+
+def test_forced_narrow_dropout_on_aligned_tensors_launches_it(monkeypatch):
+    """The timing in turns: "narrow" and "scalar" forced on tensors "wide"
+    takes pass their width codes."""
+    calls = _recording_dropout_entry(monkeypatch)
+    x, res = _dropout_view(torch.bfloat16, "wide")
+    for forced in (None, "narrow", "scalar"):
+        dropout_ops._launch(x, res, SEED, RATE, forced)
+    assert [c[1] for c in calls] == [2, 1, 0]
