@@ -10,15 +10,20 @@ Phases, each of which fails the run if it fails:
      small odd shapes and at the shapes the two paths give it: the packed
      attention forward at dropout rates 0 and 0.1, the backward at 0 and
      0.1, fp32 (CUDA cores) and bf16 in both designs (tensor cores, and
-     forced to CUDA cores), with a batch row that has no valid key; then
-     the V = identity check (fp32, and bf16 through the tensor cores) that
-     the forward, the backward and the plain version draw one Philox
-     dropout mask;
+     forced to CUDA cores), with a batch row that has no valid key, and at
+     the decoder shapes (B = 4, H = 12, Dh = 64: causal (63, 63) and
+     (100, 100), cross-attention (63, 100), (63, 164) and (100, 64)); then
+     the V = identity check (fp32, and bf16 through the tensor cores, also
+     causal at the decoder's S = 63) that the forward, the backward and the
+     plain version draw one Philox dropout mask;
   3. time each kernel, its plain version and the one-call PyTorch
      yardstick (SDPA, the autograd backward of SDPA replayed from a CUDA
      graph) at the paths' shapes, beside the least time the card needs;
      the packed forward's and backward's two designs in turns on the same
-     tensors;
+     tensors, at the caption decoder's two shapes (B = 24: causal
+     (63, 63), cross (63, 100)) beside SDPA with ``is_causal``; at small
+     shapes, where a call as issued reads the host's pace, the kernels and
+     SDPA also replayed from CUDA graphs;
   4. serve the flagship width (12 blocks, 768d, 12 heads, 3 AoA refiner
      layers, 100 regions, 250002-word vocab, bf16 compute, random weights
      from the seed) over HTTP: /health, /v1/score with one and with 64
@@ -81,7 +86,20 @@ Phases, each of which fails the run if it fails:
      m3p_tpu_torch.bench_fused_ffn` at M = 13120, D = 768, H = 3072 in
      this process (kernel, plain version and the cuBLAS yardstick with
      CUDA events; all 34 launches "cluster"), then "cluster" and "tile32"
-     in turns.
+     in turns;
+ 10. decoder training at the flagship width (dropout and attention dropout
+     0.1, bf16, fp32 parameters, clip 5.0 + adam_inverse_sqrt): the caption
+     step (`caption_loss`, 24 images of 100 regions, captions of 64 tokens,
+     T = 63 decoder positions, the refiner on), 3 warm-up and 20 timed
+     steps: samples/s, target tokens/s, step ms, peak memory, an MFU
+     reading, a profile of one step, launches per step (39 #1 and 78 #2,
+     all on the tensor cores, no flash launch); one step each of
+     `caption_loss(refine_encoder=True)`, `mt_loss`, `mt_caption_loss`,
+     `tifg_loss`, `slide_loss` and, on its own model, `clm_loss` at B = 2
+     streams of 2048 tokens (12 #5 and 24 #6, no packed launch), each
+     step's launches checked; one caption step with `use_fused_dropout`
+     (60 #7 and 60 #8, all "wide"); fp32 gradients of `caption_loss` on
+     the card against the CPU at depth 2; a learning check at depth 2.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -233,6 +251,20 @@ def check_kernels(gen):
             cases.append((64, s, s, 12, 64, dt, False, tol))
     cases += [(8, 164, 164, 12, 64, torch.bfloat16, False, TOL_BF16),
               (1, 100, 100, 12, 64, torch.bfloat16, False, TOL_BF16)]
+    # the decoder shapes (phase 10's): causal self-attention over T = 63
+    # and TIFG's 100 regions, cross-attention over 100 regions, the
+    # 164-token joint encoding and a 64-token caption
+    for sq, sk, causal in decoder_shapes():
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
+                                                    TOL_BF16)):
+            cases.append((4, sq, sk, 12, 64, dt, causal, tol))
+    # the caption step's two decoder shapes at its B = 24, as phase 3 times
+    # them and phase 10 runs them
+    for sk, causal in caption_kv_shapes():
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
+                                                    TOL_BF16)):
+            cases.append((CAPTION_B, CAPTION_LEN - 1, sk, 12, 64, dt,
+                          causal, tol))
     worst = {}
     for b, sq, sk, h, dh, dt, causal, tol in cases:
         q, k, v, mask = attn_inputs(b, sq, sk, h, dh, dt, gen)
@@ -286,9 +318,10 @@ def _compare(got, want, tol, what):
 def check_dropout_and_backward(gen):
     """#1 at rate 0.1 and #2 at rates 0 and 0.1 against their plain
     versions: small odd shapes (causal, Sq != Sk both ways), the largest
-    shape the kernels take at Dh 64 and 128, and the training shapes
-    (B = 80; encoder blocks at S = 164, the refiner at S = 100), each with a
-    batch row that has no valid key.  #2 in fp32 (CUDA cores) and bf16 in
+    shape the kernels take at Dh 64 and 128, the decoder shapes at B = 4,
+    and the training shapes (B = 80; encoder blocks at S = 164, the refiner
+    at S = 100; the caption step's B = 24, causal (63, 63) and cross
+    (63, 100)), each with a batch row that has no valid key.  #2 in fp32 (CUDA cores) and bf16 in
     both designs: the one the rule names (the tensor cores at these shapes,
     CUDA cores at Dh 8) and forced to CUDA cores, each call's design read
     from the per-design launch counts."""
@@ -309,12 +342,15 @@ def check_dropout_and_backward(gen):
         (3, 24, 24, 2, 8, False),
         (2, 512, 512, 2, 128, True),
         (2, 512, 512, 4, 64, False),
-    ]
+    ] + [(4, sq, sk, 12, 64, causal) for sq, sk, causal in decoder_shapes()]
     cases = [(b, sq, sk, h, dh, dt, causal) for dt in (f32, bf16)
              for b, sq, sk, h, dh, causal in odd]
     for s_ in (164, 100):
         cases += [(80, s_, s_, 12, 64, f32, False),
                   (80, s_, s_, 12, 64, bf16, False)]
+    for sk, causal in caption_kv_shapes():   # the caption step's, B = 24
+        cases += [(CAPTION_B, CAPTION_LEN - 1, sk, 12, 64, dt, causal)
+                  for dt in (f32, bf16)]
     worst = {"fwd": {}, "bwd": {}}
 
     def note(kind, name, err):
@@ -398,14 +434,28 @@ def kernel_tests():
     return module
 
 
-def check_mask_identity(flash=False, dtype=None):
+def decoder_shapes():
+    """(Sq, Sk, causal) of the decoder paths' attention, as the `gpu` tests
+    hold them (`DECODER_CASES`)."""
+    return [(sq, sk, causal)
+            for _, _, _, sq, sk, _, causal in kernel_tests().DECODER_CASES]
+
+
+def caption_kv_shapes():
+    """(Sk, causal) of the caption step's decoder attention over its
+    T = 63 positions: causal self-attention, cross-attention over the 100
+    regions."""
+    return [(CAPTION_LEN - 1, True), (REGIONS, False)]
+
+
+def check_mask_identity(flash=False, dtype=None, causal_t63=False):
     """V = identity on the card: the forward kernel's zeros are the plain
     version's Philox mask, and the backward kernel's dv^T (dO = identity)
-    is the forward's output; the packed kernels at S = 64, or the flash
-    kernels at S = 96 (two key tiles, the second ragged), in fp32 or in
-    bf16 through the tensor-core design (the flash pair, the packed
-    backward).  The check is the one the `gpu` tests run
-    (tests/test_torch_kernels.py, which imports no JAX)."""
+    is the forward's output; the packed kernels at S = 64 (with
+    ``causal_t63`` causal at the decoder's S = 63, 64-wide heads), or the
+    flash kernels at S = 96 (two key tiles, the second ragged), in fp32 or
+    in bf16 through the tensor-core design.  The check is the one the `gpu`
+    tests run (tests/test_torch_kernels.py, which imports no JAX)."""
     import torch
 
     from m3p_tpu_torch.ops.attention import attention_flash, attention_packed
@@ -414,7 +464,10 @@ def check_mask_identity(flash=False, dtype=None):
     rate = 0.25
     dtype = dtype or torch.float32
     kw = dict(attn=attention_flash, s=96) if flash else {}
-    name = ("flash" if flash else "packed") + " " + str(dtype)[6:]
+    if causal_t63:
+        kw = dict(s=63, dh=64, causal=True)
+    name = ("flash" if flash else "packed") + " " + str(dtype)[6:] + (
+        " causal S=63" if causal_t63 else "")
     before = [dict(attention_flash.launches_by_design),
               dict(attention_flash.bwd_launches_by_design),
               dict(attention_packed.launches_by_design),
@@ -583,9 +636,10 @@ def in_turns(fn_a, fn_b):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def sdpa_bwd_ms(q, k, v, mask, do):
+def sdpa_bwd_ms(q, k, v, mask, do, causal=False):
     """SDPA's autograd backward on head-major (B, H, S, D) q, k, v with the
-    boolean key mask and output gradient ``do``, rate 0: its ms replayed
+    boolean key mask (None: every key valid) and output gradient ``do``,
+    rate 0, ``causal`` as SDPA's ``is_causal``: its ms replayed
     from a CUDA graph, so that autograd's host cost per call (0.2-0.4 ms,
     as long as the kernels at these shapes) does not pace the reading; the
     same call timed with CUDA events as it is issued (host-paced where the
@@ -599,13 +653,15 @@ def sdpa_bwd_ms(q, k, v, mask, do):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
 
-    attn_mask = mask[:, None, None, :]
-    backend = SDPBackend(torch._fused_sdp_choice(q, k, v, attn_mask)).name
+    attn_mask = None if mask is None else mask[:, None, None, :]
+    backend = SDPBackend(torch._fused_sdp_choice(
+        q, k, v, attn_mask, is_causal=causal)).name
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask)
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask,
+                                             is_causal=causal)
 
         def call():
             return torch.autograd.grad(out, leaves, do, retain_graph=True)
@@ -621,14 +677,48 @@ def sdpa_bwd_ms(q, k, v, mask, do):
             "library_ms_issued": cuda_ms(call), "backend": backend}
 
 
-def time_training_kernels(gen):
-    """#1 and #2 at the training shapes (B = 80, bf16): each one's
+def graph_ms(fn):
+    """ms a call of ``fn`` (stream work only, no autograd) takes replayed
+    from a CUDA graph after three calls on a side stream: the device's
+    pace, where issuing the call from Python takes longer than its
+    kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay)
+
+
+def attended_pairs(b, sq, sk, causal):
+    """The (query, key) pairs the products cover for every head: all of
+    them, or under an end-aligned causal diagonal those with key <= query +
+    Sk - Sq."""
+    if not causal:
+        return b * sq * sk
+    return b * sum(min(sk, i + sk - sq + 1) for i in range(sq))
+
+
+def time_packed_pair(label, b, sq, sk, causal, gen, full_mask=False):
+    """#1 and #2 on one bf16 shape (H = 12, Dh = 64): each one's
     tensor-core design (the path's) and CUDA-core design on the same
     tensors in turns, #1 at rate 0.1 (and the path's design at rate 0), #2
-    at rates 0 and 0.1; the plain versions; SDPA with the same boolean
-    mask at rate 0 (the same function; SDPA's own dropout draws other
-    bits), for #2 its autograd backward replayed from a CUDA graph
-    (`sdpa_bwd_ms`)."""
+    at rates 0 and 0.1; the plain versions; SDPA on the same inputs at rate
+    0 (the same function; SDPA's own dropout draws other bits) with the
+    boolean key mask, or with ``full_mask`` every key valid and no mask
+    (``is_causal`` for a causal shape), for #2 its autograd backward
+    replayed from a CUDA graph (`sdpa_bwd_ms`); the kernels' calls and
+    SDPA's forward replayed from CUDA graphs too (`graph_ms`): where a call
+    as issued takes longer than its kernels, the times as issued read the
+    host's pace.  Bounds from the pairs the products cover
+    (`attended_pairs`)."""
     import torch
     import torch.nn.functional as F
 
@@ -637,100 +727,140 @@ def time_training_kernels(gen):
         attention_packed, attention_packed_bwd_reference,
         attention_packed_reference)
 
-    out = {}
-    for label, s in (("blocks", 164), ("refiner", 100)):
-        b, h, dh = GROUPS * SAMPLE_N, 12, 64
-        q, k, v, mask = attn_inputs(b, s, s, h, dh, torch.bfloat16, gen,
-                                    empty_row=False)
-        do = torch.randn(b, s, h * dh, device="cuda",
-                         generator=gen).to(torch.bfloat16)
-        def fwd(rate, design=None):
-            seed = SEED if rate else None
-            return lambda: ops._launch_fwd(q, k, v, mask, h, False,
-                                           dh ** -0.5, rate, seed, design)
+    h, dh = 12, 64
+    q, k, v, mask = attn_inputs(b, sq, sk, h, dh, torch.bfloat16, gen,
+                                empty_row=False)
+    if full_mask:
+        mask = torch.ones_like(mask)
+    do = torch.randn(b, sq, h * dh, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    heads = [t.view(b, t.shape[1], h, dh).transpose(1, 2).contiguous()
+             for t in (q, k, v, do)]
+    lib_mask = None if full_mask else mask
+    lib_causal = causal and full_mask
 
-        before = dict(attention_packed.launches_by_design)
-        fwd(RATE)()
-        torch.cuda.synchronize()
-        if launched_design(attention_packed.launches_by_design, before,
-                           1) != "tensor_cores":
-            fail(f"packed forward {label}: the training shape does not "
-                 f"take the tensor-core design")
-        fwd_ms, fwd_cc = in_turns(fwd(RATE), fwd(RATE, "cuda_cores"))
-        fwd0_ms = cuda_ms(fwd(0.0))
-        fwd_plain_ms = cuda_ms(lambda: attention_packed_reference(
-            q, k, v, mask, h, dropout_rate=RATE, dropout_seed=SEED))
-        fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            *(t.view(b, s, h, dh).transpose(1, 2) for t in (q, k, v)),
-            attn_mask=mask[:, None, None, :]))
+    def fwd(rate, design=None):
+        seed = SEED if rate else None
+        return lambda: ops._launch_fwd(q, k, v, mask, h, causal,
+                                       dh ** -0.5, rate, seed, design)
 
-        def bwd(rate, design=None):
-            seed = SEED if rate else None
-            return lambda: ops._launch_bwd(q, k, v, mask, do, h, False,
-                                           dh ** -0.5, rate, seed, design)
+    def bwd(rate, design=None):
+        seed = SEED if rate else None
+        return lambda: ops._launch_bwd(q, k, v, mask, do, h, causal,
+                                       dh ** -0.5, rate, seed, design)
 
-        before = dict(attention_packed.bwd_launches_by_design)
-        bwd(0.0)()
-        torch.cuda.synchronize()
-        if launched_design(attention_packed.bwd_launches_by_design, before,
-                           2) != "tensor_cores":
-            fail(f"packed backward {label}: the training shape does not "
-                 f"take the tensor-core design")
-        ms, ms_cc = in_turns(bwd(0.0), bwd(0.0, "cuda_cores"))
-        drop_ms, drop_cc = in_turns(bwd(RATE), bwd(RATE, "cuda_cores"))
-        plain_ms = cuda_ms(lambda: attention_packed_bwd_reference(
-            q, k, v, mask, do, h))
-        plain_drop_ms = cuda_ms(lambda: attention_packed_bwd_reference(
-            q, k, v, mask, do, h, False, None, RATE, SEED))
-        lib = sdpa_bwd_ms(*(t.view(b, s, h, dh).transpose(1, 2).contiguous()
-                            for t in (q, k, v)), mask,
-                          do.view(b, s, h, dh).transpose(1, 2).contiguous())
-        library_ms = lib["library_ms"]
-        elems = b * s * h * dh
-        bwd_bytes = 7 * elems * 2 + b * s     # q, k, v, dO in; dq, dk, dv out
-        bwd_flops = 10 * b * h * s * s * dh   # QK^T, dO V^T, P^T dO, dS^T Q, dS K
-        fwd_bytes = 4 * elems * 2 + b * s
-        fwd_flops = 4 * b * h * s * s * dh
-        bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops)
-        fwd_bound, fwd_by = bound(fwd_bytes, fwd_flops)
-        out[label] = {
-            "shape": {"B": b, "Sq": s, "Sk": s, "H": h, "Dh": dh,
-                      "dtype": "bfloat16"},
-            "bwd": {"ms": ms, "ms_rate_0.1": drop_ms, "plain_ms": plain_ms,
-                    "plain_ms_rate_0.1": plain_drop_ms,
-                    "design": "tensor_cores", "ms_cuda_cores": ms_cc,
-                    "ms_cuda_cores_rate_0.1": drop_cc,
-                    "speedup_over_cuda_cores": ms_cc / ms,
-                    "speedup_over_cuda_cores_rate_0.1": drop_cc / drop_ms,
-                    "tflops_per_s": bwd_flops / ms / 1e9,
-                    "library_ms": library_ms,
-                    "library_ms_issued": lib["library_ms_issued"],
-                    "library_backend": lib["backend"],
-                    "bound_ms": bwd_bound,
-                    "bound_by": bwd_by, "bytes": bwd_bytes,
-                    "flops": bwd_flops},
-            "fwd_rate_0.1": {"ms": fwd_ms, "ms_rate_0": fwd0_ms,
-                             "design": "tensor_cores",
-                             "ms_cuda_cores": fwd_cc,
-                             "speedup_over_cuda_cores": fwd_cc / fwd_ms,
-                             "plain_ms": fwd_plain_ms,
-                             "library_ms": fwd_lib_ms,
-                             "bound_ms": fwd_bound, "bound_by": fwd_by},
-        }
-        log(f"[time] packed_attention_bwd {label} B={b} S={s} bf16, in turns "
-            f"(CUDA events): tensor cores {ms:.4f} ms (rate 0.1: "
-            f"{drop_ms:.4f}), CUDA cores {ms_cc:.4f} (rate 0.1: "
-            f"{drop_cc:.4f}), {ms_cc / ms:.2f}x / {drop_cc / drop_ms:.2f}x; "
-            f"plain {plain_ms:.4f} (rate 0.1: {plain_drop_ms:.4f}), sdpa "
-            f"backward {library_ms:.4f} ({lib['backend']}, CUDA graph; "
-            f"{lib['library_ms_issued']:.4f} as issued), bound "
-            f"{bwd_bound:.4f} ms ({bwd_by})")
-        log(f"[time] packed_attention_fwd rate 0.1 {label} B={b} S={s} "
-            f"bf16, in turns (CUDA events): tensor cores {fwd_ms:.4f} ms, "
-            f"CUDA cores {fwd_cc:.4f} ({fwd_cc / fwd_ms:.2f}x); rate 0 "
-            f"{fwd0_ms:.4f}; plain {fwd_plain_ms:.4f}, sdpa (rate 0) "
-            f"{fwd_lib_ms:.4f}, bound {fwd_bound:.4f} ms ({fwd_by})")
+    before = (dict(attention_packed.launches_by_design),
+              dict(attention_packed.bwd_launches_by_design))
+    fwd(RATE)()
+    bwd(0.0)()
+    torch.cuda.synchronize()
+    if (launched_design(attention_packed.launches_by_design, before[0], 1),
+            launched_design(attention_packed.bwd_launches_by_design,
+                            before[1], 2)) != ("tensor_cores",) * 2:
+        fail(f"packed kernels {label}: the shape does not take the "
+             f"tensor-core design")
+    fwd_ms, fwd_cc = in_turns(fwd(RATE), fwd(RATE, "cuda_cores"))
+    fwd0_ms = cuda_ms(fwd(0.0))
+    fwd_plain_ms = cuda_ms(lambda: attention_packed_reference(
+        q, k, v, mask, h, causal, dropout_rate=RATE, dropout_seed=SEED))
+    fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        *(t.view(b, t.shape[1], h, dh).transpose(1, 2) for t in (q, k, v)),
+        attn_mask=None if lib_mask is None else lib_mask[:, None, None, :],
+        is_causal=lib_causal))
+    ms, ms_cc = in_turns(bwd(0.0), bwd(0.0, "cuda_cores"))
+    drop_ms, drop_cc = in_turns(bwd(RATE), bwd(RATE, "cuda_cores"))
+    plain_ms = cuda_ms(lambda: attention_packed_bwd_reference(
+        q, k, v, mask, do, h, causal))
+    plain_drop_ms = cuda_ms(lambda: attention_packed_bwd_reference(
+        q, k, v, mask, do, h, causal, None, RATE, SEED))
+    lib = sdpa_bwd_ms(*heads[:3], lib_mask, heads[3], lib_causal)
+    library_ms = lib["library_ms"]
+    fwd_graph = {"ms_graph": graph_ms(fwd(RATE)),
+                 "ms_rate_0_graph": graph_ms(fwd(0.0)),
+                 "library_ms_graph": graph_ms(
+                     lambda: F.scaled_dot_product_attention(
+                         *heads[:3], attn_mask=None if lib_mask is None
+                         else lib_mask[:, None, None, :],
+                         is_causal=lib_causal))}
+    bwd_graph = {"ms_graph": graph_ms(bwd(0.0)),
+                 "ms_rate_0.1_graph": graph_ms(bwd(RATE)),
+                 "ms_cuda_cores_graph": graph_ms(bwd(0.0, "cuda_cores"))}
+    q_elems, k_elems = b * sq * h * dh, b * sk * h * dh
+    pairs = attended_pairs(b, sq, sk, causal) * h
+    # q, k, v, dO in; dq, dk, dv out; the mask
+    bwd_bytes = (3 * q_elems + 4 * k_elems) * 2 + b * sk
+    bwd_flops = 10 * pairs * dh   # QK^T, dO V^T, P^T dO, dS^T Q, dS K
+    fwd_bytes = (2 * q_elems + 2 * k_elems) * 2 + b * sk
+    fwd_flops = 4 * pairs * dh
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_flops)
+    fwd_bound, fwd_by = bound(fwd_bytes, fwd_flops)
+    out = {
+        "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "Dh": dh,
+                  "causal": causal, "dtype": "bfloat16",
+                  "every_key_valid": full_mask},
+        "bwd": {"ms": ms, "ms_rate_0.1": drop_ms, "plain_ms": plain_ms,
+                "plain_ms_rate_0.1": plain_drop_ms,
+                "design": "tensor_cores", "ms_cuda_cores": ms_cc,
+                "ms_cuda_cores_rate_0.1": drop_cc,
+                "speedup_over_cuda_cores": ms_cc / ms,
+                "speedup_over_cuda_cores_rate_0.1": drop_cc / drop_ms,
+                "tflops_per_s": bwd_flops / ms / 1e9,
+                "library_ms": library_ms,
+                "library_ms_issued": lib["library_ms_issued"],
+                "library_backend": lib["backend"],
+                "bound_ms": bwd_bound,
+                "bound_by": bwd_by, "bytes": bwd_bytes,
+                "flops": bwd_flops, **bwd_graph},
+        "fwd_rate_0.1": {"ms": fwd_ms, "ms_rate_0": fwd0_ms,
+                         "design": "tensor_cores",
+                         "ms_cuda_cores": fwd_cc,
+                         "speedup_over_cuda_cores": fwd_cc / fwd_ms,
+                         "plain_ms": fwd_plain_ms,
+                         "library_ms": fwd_lib_ms,
+                         "bound_ms": fwd_bound, "bound_by": fwd_by,
+                         "bytes": fwd_bytes, "flops": fwd_flops,
+                         **fwd_graph},
+    }
+    shape = f"B={b} Sq={sq} Sk={sk} causal={causal} bf16"
+    log(f"[time] packed_attention_bwd {label} {shape}, in turns "
+        f"(CUDA events): tensor cores {ms:.4f} ms (rate 0.1: "
+        f"{drop_ms:.4f}), CUDA cores {ms_cc:.4f} (rate 0.1: "
+        f"{drop_cc:.4f}), {ms_cc / ms:.2f}x / {drop_cc / drop_ms:.2f}x; "
+        f"plain {plain_ms:.4f} (rate 0.1: {plain_drop_ms:.4f}), sdpa "
+        f"backward {library_ms:.4f} ({lib['backend']}, CUDA graph; "
+        f"{lib['library_ms_issued']:.4f} as issued), bound "
+        f"{bwd_bound:.4f} ms ({bwd_by})")
+    log(f"[time] packed_attention_fwd rate 0.1 {label} {shape}, in turns "
+        f"(CUDA events): tensor cores {fwd_ms:.4f} ms, "
+        f"CUDA cores {fwd_cc:.4f} ({fwd_cc / fwd_ms:.2f}x); rate 0 "
+        f"{fwd0_ms:.4f}; plain {fwd_plain_ms:.4f}, sdpa (rate 0) "
+        f"{fwd_lib_ms:.4f}, bound {fwd_bound:.4f} ms ({fwd_by})")
+    log(f"[time] packed_attention {label} {shape}, replayed from CUDA "
+        f"graphs: fwd rate 0.1 {json.dumps(fwd_graph)}, bwd "
+        f"{json.dumps(bwd_graph)}")
     return out
+
+
+def time_training_kernels(gen):
+    """#1 and #2 at the ITM and MCT steps' shapes (B = 80, bf16; the 12
+    encoder blocks at S = 164, the refiner at S = 100), random key
+    lengths (`time_packed_pair`)."""
+    b = GROUPS * SAMPLE_N
+    return {label: time_packed_pair(label, b, s, s, False, gen)
+            for label, s in (("blocks", 164), ("refiner", 100))}
+
+
+def time_decoder_kernels(gen):
+    """#1 and #2 at the caption step's two decoder shapes (B = 24, T = 63
+    positions): causal self-attention (63, 63) and cross-attention over the
+    100 regions (63, 100), every key valid as in the timed step's batch
+    (all 100 regions; the self shape beside SDPA's ``is_causal``)
+    (`time_packed_pair`)."""
+    return {label: time_packed_pair(f"decoder {label}", CAPTION_B,
+                                    CAPTION_LEN - 1, sk, causal, gen,
+                                    full_mask=True)
+            for label, (sk, causal) in zip(("self", "cross"),
+                                           caption_kv_shapes())}
 
 
 # ---------------------------------------------------------------------------
@@ -1169,6 +1299,31 @@ def train_slice(seed):
     return numbers
 
 
+def worst_grad_diff(gpu_model, cpu_model):
+    """(worst relative |card - CPU| over the gradient leaves, its leaf,
+    leaves compared): each leaf against its largest entry; a key bias,
+    whose gradient is zero up to rounding (the softmax ignores a per-row
+    shift), against the model's largest gradient."""
+    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
+    largest = max(g.abs().max().item() for g in cpu_grads.values()
+                  if g is not None)
+    worst, worst_name, leaves = 0.0, "", 0
+    for name, p in gpu_model.named_parameters():
+        want = cpu_grads[name]
+        if (p.grad is None) != (want is None):
+            fail(f"gradient of {name} on one side only")
+        if want is None:
+            continue
+        leaves += 1
+        diff = (p.grad.cpu() - want).abs().max().item()
+        scale = largest if name.endswith("k_lin.bias") else \
+            want.abs().max().item()
+        err = diff / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name, leaves
+
+
 def compare_grads_with_cpu(seed):
     """fp32 gradients of the whole loss at depth 2 and full width, on the
     card (kernels) and on the CPU (plain versions), at rate 0."""
@@ -1197,26 +1352,7 @@ def compare_grads_with_cpu(seed):
             launched_design(attention_packed.bwd_launches_by_design,
                             before[1], 10)) != ("cuda_cores",) * 2:
         fail("the fp32 gradient check did not take the CUDA-core design")
-    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
-    largest = max(g.abs().max().item() for g in cpu_grads.values()
-                  if g is not None)
-    worst, worst_name, leaves = 0.0, "", 0
-    for name, p in gpu_model.named_parameters():
-        want = cpu_grads[name]
-        if (p.grad is None) != (want is None):
-            fail(f"gradient of {name} on one side only")
-        if want is None:
-            continue
-        leaves += 1
-        diff = (p.grad.cpu() - want).abs().max().item()
-        # a key bias has zero gradient up to rounding (the softmax ignores
-        # a per-row shift): held against the model's largest gradient
-        scale = want.abs().max().item()
-        if name.endswith("k_lin.bias"):
-            scale = largest
-        err = diff / max(scale, 1e-30)
-        if err > worst:
-            worst, worst_name = err, name
+    worst, worst_name, leaves = worst_grad_diff(gpu_model, cpu_model)
     log(f"[fp32 grads] depth 2, BN={2 * SAMPLE_N}, rate 0: loss card "
         f"{losses['cuda']:.6f} vs CPU {losses['cpu']:.6f}; {leaves} leaves, "
         f"max relative |card - CPU| = {worst:.3e} ({worst_name}; tolerance "
@@ -1312,8 +1448,9 @@ def check_flash_kernels(gen):
     designs: small odd shapes (several tiles, ragged last tiles, Sq != Sk
     both ways with the causal offset, a row with no valid key, Dh 16, 64,
     128) in fp32 (CUDA cores) and bf16 (tensor cores), one bf16 shape the
-    CUDA-core design takes (Dh 24), and the long-context shape B = 8,
-    S = 2048 in fp32 and bf16.  Each call's design is read from the
+    CUDA-core design takes (Dh 24), the long-context shape B = 8,
+    S = 2048 in fp32 and bf16, and phase 10's causal CLM shape B = 2,
+    S = 2047 in fp32 and bf16.  Each call's design is read from the
     per-design launch counts and held to the rule."""
     import torch
 
@@ -1338,6 +1475,12 @@ def check_flash_kernels(gen):
         (2, 1030, 1030, 12, 64, bf16, False, False),
         (LONG_B, LONG_S, LONG_S, 12, 64, f32, False, True),
         (LONG_B, LONG_S, LONG_S, 12, 64, bf16, False, True),
+        # phase 10's CLM: S - 1 = 2047 causal positions, the last key
+        # tile ragged and crossed by the diagonal; every key valid as on
+        # the path, and in bf16 random lengths with an empty row too
+        (CLM_B, LONG_S - 1, LONG_S - 1, 12, 64, f32, True, True),
+        (CLM_B, LONG_S - 1, LONG_S - 1, 12, 64, bf16, True, True),
+        (CLM_B, LONG_S - 1, LONG_S - 1, 12, 64, bf16, True, False),
     ]
     worst = {"fwd": {}, "bwd": {}}
     for b, sq, sk, h, dh, dt, causal, full in cases:
@@ -1672,23 +1815,7 @@ def compare_long_grads_with_cpu(seed):
                            masking=[t.to(dev) for t in masking])
         loss.backward()
         losses[dev] = loss.item()
-    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
-    largest = max(g.abs().max().item() for g in cpu_grads.values()
-                  if g is not None)
-    worst, worst_name, leaves = 0.0, "", 0
-    for name, p in gpu_model.named_parameters():
-        want = cpu_grads[name]
-        if (p.grad is None) != (want is None):
-            fail(f"gradient of {name} on one side only")
-        if want is None:
-            continue
-        leaves += 1
-        diff = (p.grad.cpu() - want).abs().max().item()
-        scale = largest if name.endswith("k_lin.bias") else \
-            want.abs().max().item()
-        err = diff / max(scale, 1e-30)
-        if err > worst:
-            worst, worst_name = err, name
+    worst, worst_name, leaves = worst_grad_diff(gpu_model, cpu_model)
     log(f"[fp32 grads long] depth 2, B=2, S={LONG_CHECK_S}, rate 0: loss "
         f"card {losses['cuda']:.6f} vs CPU {losses['cpu']:.6f}; {leaves} "
         f"leaves, max relative |card - CPU| = {worst:.3e} ({worst_name}; "
@@ -1976,6 +2103,22 @@ def launch_counts():
             "fused_ffn_cluster": fused_ffn_ln.launches_by_design["cluster"]}
 
 
+def expected_launches(packed=(0, 0), flash=(0, 0), dropout=0):
+    """The `launch_counts` dict of a step that makes ``packed`` (forward,
+    backward) #1/#2 launches and ``flash`` #5/#6 launches, all on the
+    tensor cores, and ``dropout`` #7 and #8 launches each, all "wide"."""
+    return {"packed_fwd": packed[0], "packed_fwd_tensor_cores": packed[0],
+            "packed_bwd": packed[1], "packed_bwd_tensor_cores": packed[1],
+            "flash_fwd": flash[0], "flash_bwd": flash[1],
+            "flash_fwd_tensor_cores": flash[0],
+            "flash_bwd_tensor_cores": flash[1], "dropout_fwd": dropout,
+            "dropout_bwd": dropout, "dropout_fwd_wide": dropout,
+            "dropout_bwd_wide": dropout, "small_fwd": 0,
+            "small_fwd_tensor_cores": 0, "small_bwd": 0,
+            "small_bwd_tensor_cores": 0, "fused_ffn": 0,
+            "fused_ffn_cluster": 0}
+
+
 def mct_per_step(cfg, encodes=1):
     """Launches a step makes: per joint encode, one #1 and one #2 backward
     (two launches), all on the tensor cores in bf16, per block and refiner
@@ -1983,18 +2126,8 @@ def mct_per_step(cfg, encodes=1):
     block), all in the "wide" design."""
     layers = cfg.n_layers + cfg.refine_layers
     fused = 2 * cfg.n_layers if cfg.use_fused_dropout else 0
-    return {"packed_fwd": layers * encodes,
-            "packed_fwd_tensor_cores": layers * encodes,
-            "packed_bwd": 2 * layers * encodes,
-            "packed_bwd_tensor_cores": 2 * layers * encodes,
-            "flash_fwd": 0, "flash_bwd": 0, "flash_fwd_tensor_cores": 0,
-            "flash_bwd_tensor_cores": 0, "dropout_fwd": fused * encodes,
-            "dropout_bwd": fused * encodes,
-            "dropout_fwd_wide": fused * encodes,
-            "dropout_bwd_wide": fused * encodes, "small_fwd": 0,
-            "small_fwd_tensor_cores": 0, "small_bwd": 0,
-            "small_bwd_tensor_cores": 0, "fused_ffn": 0,
-            "fused_ffn_cluster": 0}
+    return expected_launches((layers * encodes, 2 * layers * encodes),
+                             dropout=fused * encodes)
 
 
 def check_launches(what, counts, per_step, n_steps):
@@ -2154,23 +2287,7 @@ def compare_mct_grads_with_cpu(seed):
             launched_design(attention_packed.bwd_launches_by_design,
                             before[1], 20)) != ("cuda_cores",) * 2:
         fail("the fp32 MCT check did not take the CUDA-core design")
-    cpu_grads = {n: p.grad for n, p in cpu_model.named_parameters()}
-    largest = max(g.abs().max().item() for g in cpu_grads.values()
-                  if g is not None)
-    worst, worst_name, leaves = 0.0, "", 0
-    for name, p in gpu_model.named_parameters():
-        want = cpu_grads[name]
-        if (p.grad is None) != (want is None):
-            fail(f"gradient of {name} on one side only")
-        if want is None:
-            continue
-        leaves += 1
-        diff = (p.grad.cpu() - want).abs().max().item()
-        scale = largest if name.endswith("k_lin.bias") else \
-            want.abs().max().item()
-        err = diff / max(scale, 1e-30)
-        if err > worst:
-            worst, worst_name = err, name
+    worst, worst_name, leaves = worst_grad_diff(gpu_model, cpu_model)
     log(f"[fp32 grads mct] depth 2, BN={2 * SAMPLE_N}, CLCM on, fused "
         f"dropout and attention dropout {RATE}: loss card "
         f"{losses[0]:.6f} vs CPU {losses[1]:.6f}; {leaves} leaves, "
@@ -2697,6 +2814,321 @@ def fused_ffn_path():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: decoder training
+# ---------------------------------------------------------------------------
+
+# the DataConfig defaults (m3p_tpu/config.py): 24 images of 100 regions,
+# captions of max_len 64, so T = 63 decoder positions
+CAPTION_B, CAPTION_LEN = 24, 64
+# CLM at phase 7's stream length; B = 2, since CLM takes full-vocabulary
+# logits at every position (at B = 8 4.1e9 of them, 16.4 GB in fp32)
+CLM_B = 2
+# the losses of the phase: (loss in train/steps.py, batch, loss arguments)
+DECODER_PATHS = {
+    "caption": ("caption_loss", "caption", {}),
+    "caption_refine_encoder": ("caption_loss", "caption",
+                               {"refine_encoder": True}),
+    "mt": ("mt_loss", "mt", {}),
+    "mt_caption": ("mt_caption_loss", "mt_caption", {}),
+    "tifg": ("tifg_loss", "caption", {}),
+    "slide": ("slide_loss", "slide", {}),
+    "clm": ("clm_loss", "clm", {}),
+}
+
+
+def decoder_config(n_layers=12, dtype="bfloat16", rate=RATE, fused=False,
+                   max_positions=None):
+    """The flagship width (`train_config`), dropout and attention dropout
+    ``rate``; ``max_positions`` for CLM's streams."""
+    cfg = dataclasses.replace(train_config(n_layers, dtype, rate),
+                              use_fused_dropout=fused)
+    if max_positions:
+        cfg = dataclasses.replace(cfg, max_positions=max_positions)
+    return cfg
+
+
+def decoder_batch(kind, seed, device, b=CAPTION_B):
+    """A batch of ``kind`` from `m3p_tpu_torch.data.synthetic` at the
+    DataConfig sizes (CLM: ``CLM_B`` streams of phase 7's length)."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.data import synthetic
+
+    rng = np.random.RandomState(seed)
+    if kind == "caption":
+        batch = synthetic.make_caption_batch(rng, b, CAPTION_LEN, REGIONS,
+                                             250002)
+    elif kind == "mt":
+        batch = synthetic.make_mt_batch(rng, b, CAPTION_LEN, 250002)
+    elif kind == "mt_caption":
+        batch = synthetic.make_mt_batch(rng, b, CAPTION_LEN, 250002)
+        images = synthetic.make_caption_batch(rng, b, CAPTION_LEN, REGIONS,
+                                              250002)
+        batch.update({k: images[k] for k in ("feats", "locs", "img_len")})
+    elif kind == "slide":
+        batch = synthetic.make_slide_batch(rng, b, CAPTION_LEN, REGIONS,
+                                           250002)
+    else:
+        batch = synthetic.make_stream_batch(rng, CLM_B, LONG_S, 250002)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def decoder_step(path, with_grad_norm=False, **kw):
+    from m3p_tpu_torch.train import steps
+
+    name, _, loss_kw = DECODER_PATHS[path]
+    return steps.make_train_step(functools.partial(
+        getattr(steps, name), **loss_kw, **kw), with_grad_norm=with_grad_norm)
+
+
+def decoder_per_step(cfg, path):
+    """Launches a step of ``path`` makes: one #1 and two #2 per attention
+    layer (the refiner's R, the encoder's L, the decoder's 2 L: causal
+    self-attention and cross-attention), none in the backward for TIFG's
+    detached target (its refiner); CLM's L causal self-attentions through
+    #5/#6; with fused dropout one #7 and one #8 per residual of a block
+    (two in the encoder, three in the decoder)."""
+    L, R = cfg.n_layers, cfg.refine_layers
+    encoder_only = path in ("clm", "slide")
+    fused = (2 if encoder_only else 5) * L if cfg.use_fused_dropout else 0
+    if path == "clm":
+        return expected_launches(flash=(L, 2 * L), dropout=fused)
+    fwd = {"caption": R + 3 * L, "caption_refine_encoder": 2 * R + 3 * L,
+           "mt": 3 * L, "mt_caption": R + 3 * L, "tifg": R + 3 * L,
+           "slide": R + L}[path]
+    bwd = 2 * (fwd - R) if path == "tifg" else 2 * fwd
+    return expected_launches((fwd, bwd), dropout=fused)
+
+
+def caption_step_flops(cfg, b, t, regions=REGIONS):
+    """Model FLOPs of one caption step, 3 x the forward's products (as
+    `bench.mct_step_flops` counts them): per image the region projection,
+    2 R (2048 + 5) d; each refiner layer, 2 (7 d^2 + 2 d f) R + 4 R^2 d;
+    each encoder block, 2 (4 d^2 + 2 d f) R + 4 R^2 d; each decoder block
+    over T positions, 2 (4 d^2 + 2 d f) T + 4 T^2 d (the causal products
+    counted whole, as the kernels compute them), and its cross-attention,
+    2 (2 d^2) (T + R) + 4 T R d; the tied word head at every position,
+    2 T d V."""
+    d, f = cfg.emb_dim, cfg.ffn_dim
+    image = 2 * regions * (cfg.img_feat_dim + cfg.img_loc_dim) * d
+    refiner = cfg.refine_layers * (2 * (7 * d * d + 2 * d * f) * regions
+                                   + 4 * regions * regions * d)
+    encoder = cfg.n_layers * (2 * (4 * d * d + 2 * d * f) * regions
+                              + 4 * regions * regions * d)
+    decoder = cfg.n_layers * (2 * (4 * d * d + 2 * d * f) * t
+                              + 4 * t * t * d + 4 * d * d * (t + regions)
+                              + 4 * t * regions * d)
+    head = 2 * t * d * cfg.n_words
+    return 3 * b * (image + refiner + encoder + decoder + head)
+
+
+def one_step(what, state, step, batch, gens, per_step):
+    """One counted step of the main path: launches checked against
+    ``per_step``, every metric finite."""
+    import torch
+
+    # ---- the main path, counted ----
+    zero_launch_counts()
+    state, m = step(state, batch, gens)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # ---- checks ----
+    check_launches(what, counts, per_step, 1)
+    if not all(torch.isfinite(v).all() for v in m.values()):
+        fail(f"{what}: non-finite metrics {m}")
+    metrics = {k: v.item() for k, v in m.items()}
+    log(f"[decoder] one {what} step: launches {counts}; metrics {metrics}")
+    return state, {"launches": counts, "metrics": metrics}
+
+
+def decoder_slice(seed):
+    """The caption step at the flagship width (3 warm-up and 20 timed
+    steps, a profile of one), then one step of each other loss, one caption
+    step with fused dropout, and one CLM step on its own model; the
+    launches of each counted and checked."""
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    t0 = time.time()
+    cfg = decoder_config()
+    model = build_model(cfg, seed, "cuda")
+    tx, schedule = build_optimizer(OPTIM_SPEC, clip_grad_norm=CLIP)
+    state = create_train_state(model, tx)
+    step = decoder_step("caption", with_grad_norm=True)
+    gens = Generators.from_seed(seed, "cuda")
+    batch = decoder_batch("caption", seed, "cuda")
+    b, t = batch["tokens"].shape[0], batch["tokens"].shape[1] - 1
+    watched = {n: p.detach().clone() for n, p in model.named_parameters()
+               if n in ("block_0.encoder_attn.q_lin.weight",
+                        "block_0.attn.q_lin.weight", "text_emb.word.weight",
+                        "refiner.layer_0.aoa_attn.aoa.weight")}
+    per_step = decoder_per_step(cfg, "caption")
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    metrics = []
+    # ---- the main path, counted ----
+    zero_launch_counts()
+    for i in range(n_steps):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            wall0 = time.perf_counter()
+            start.record()
+        state, m = step(state, batch, gens)
+        metrics.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - wall0
+    counts = launch_counts()
+    # ---- checks ----
+    check_launches("caption", counts, per_step, n_steps)
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack([m["ce"] for m in metrics]).float().cpu()
+    norms = torch.stack([m["grad_norm"] for m in metrics]).float().cpu()
+    if not torch.isfinite(losses).all() or not torch.isfinite(norms).all():
+        fail(f"caption: non-finite loss or gradient norm {losses.tolist()}")
+    moved = {n: (p.detach() - watched[n]).abs().max().item()
+             for n, p in model.named_parameters() if n in watched}
+    if state.step != n_steps or not all(v > 0 for v in moved.values()):
+        fail(f"caption: the parameters did not change: {moved}")
+    n_words = metrics[-1]["n_words"].item()
+    flops = caption_step_flops(cfg, b, t)
+    numbers = {
+        "samples_per_s": b / (step_ms / 1e3),
+        "target_tokens_per_s": n_words / (step_ms / 1e3),
+        "step_ms": step_ms, "wall_step_ms": wall_s * 1e3 / TIMED_STEPS,
+        "peak_memory_gb": peak_gb, "b": b, "t": t, "regions": REGIONS,
+        "target_tokens_per_step": n_words,
+        "launches": counts, "launches_per_step": per_step,
+        "flops_per_step": flops,
+        "mfu": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+        "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+        "lr_last": schedule(state.step - 1),
+    }
+    log(f"[decoder] {n_steps} caption steps at B={b} images x {REGIONS} "
+        f"regions, T={t}, 12 + 12 blocks + 3 refiner layers, dropout {RATE}, "
+        f"attention dropout {RATE}: {step_ms:.2f} ms a step (CUDA events, "
+        f"{TIMED_STEPS} steps), {numbers['samples_per_s']:.1f} samples/s, "
+        f"{numbers['target_tokens_per_s']:.0f} target tokens/s, host wall "
+        f"{numbers['wall_step_ms']:.2f} ms a step, peak memory "
+        f"{peak_gb:.2f} GB; launches {counts} = {per_step} x {n_steps}; "
+        f"{flops / 1e12:.3f} TFLOP a step, MFU {numbers['mfu']:.4f} of 989 "
+        f"TF/s; loss {losses[0].item():.4f} -> {losses[-1].item():.4f}; max "
+        f"|param change| {moved}")
+    prof = profile_window(f"one caption step B={b}",
+                          lambda: step(state, batch, gens), reps=2)
+    if prof:
+        prof["idle_share_vs_event_step"] = 1.0 - prof["device_busy_ms"] / \
+            step_ms
+    numbers["profile"] = prof
+
+    # ---- one step of each other loss, counted ----
+    numbers["paths"] = {}
+    for path in ("caption_refine_encoder", "mt", "mt_caption", "tifg",
+                 "slide"):
+        kind = DECODER_PATHS[path][1]
+        state, numbers["paths"][path] = one_step(
+            path, state, decoder_step(path), decoder_batch(kind, seed + 1,
+                                                           "cuda"),
+            gens, decoder_per_step(cfg, path))
+    for block in model.blocks:
+        block.use_fused_dropout = True
+    state, numbers["paths"]["caption_fused"] = one_step(
+        "caption with use_fused_dropout", state, decoder_step("caption"),
+        batch, gens, decoder_per_step(dataclasses.replace(
+            cfg, use_fused_dropout=True), "caption"))
+    del state, model, step
+    torch.cuda.empty_cache()
+
+    clm_cfg = decoder_config(max_positions=LONG_S + 2)
+    model = build_model(clm_cfg, seed, "cuda")
+    tx, _ = build_optimizer(OPTIM_SPEC, clip_grad_norm=CLIP)
+    _, numbers["paths"]["clm"] = one_step(
+        f"CLM (B={CLM_B}, S={LONG_S})", create_train_state(model, tx),
+        decoder_step("clm"), decoder_batch("clm", seed, "cuda"), gens,
+        decoder_per_step(clm_cfg, "clm"))
+    del model
+    torch.cuda.empty_cache()
+    numbers["phase_s"] = time.time() - t0
+    return numbers
+
+
+def compare_decoder_grads_with_cpu(seed):
+    """fp32 gradients of caption_loss at depth 2 and full width, on the
+    card (the CUDA-core designs of #1/#2) and on the CPU (plain versions),
+    at rate 0, the same weights and batch on both sides."""
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.ops.attention import attention_packed
+    from m3p_tpu_torch.train.steps import caption_loss
+
+    cfg = decoder_config(n_layers=2, dtype="float32", rate=0.0)
+    cpu_model = build_model(cfg, seed, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = decoder_batch("caption", seed + 2, "cpu", b=2)
+    losses = {}
+    before = (dict(attention_packed.launches_by_design),
+              dict(attention_packed.bwd_launches_by_design))
+    for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
+        loss, _ = caption_loss(model, {k: t.to(dev) for k, t in batch.items()},
+                               None, deterministic=True)
+        loss.backward()
+        losses[dev] = loss.item()
+    # 3 refiner + 2 encoder + 4 decoder attention layers
+    n = cfg.refine_layers + 3 * cfg.n_layers
+    if (launched_design(attention_packed.launches_by_design, before[0], n),
+            launched_design(attention_packed.bwd_launches_by_design,
+                            before[1], 2 * n)) != ("cuda_cores",) * 2:
+        fail("the fp32 caption check did not take the CUDA-core design")
+    worst, worst_name, leaves = worst_grad_diff(gpu_model, cpu_model)
+    log(f"[fp32 grads decoder] caption_loss, depth 2, B=2, rate 0: loss "
+        f"card {losses['cuda']:.6f} vs CPU {losses['cpu']:.6f}; {leaves} "
+        f"leaves, max relative |card - CPU| = {worst:.3e} ({worst_name}; "
+        f"tolerance {TOL_GRAD_FP32})")
+    if worst > TOL_GRAD_FP32 or abs(losses["cuda"] - losses["cpu"]) > 1e-4:
+        fail("fp32 caption gradients on the card disagree with the CPU")
+    return worst
+
+
+def decoder_learning_check(seed, steps=40):
+    """Depth 2 at full width, one fixed caption batch (B = 24), "adam,lr=
+    0.0001", dropout on: the mean loss of the last 5 steps must be below
+    that of the first 5."""
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    model = build_model(decoder_config(n_layers=2), seed + 3, "cuda")
+    tx, _ = build_optimizer("adam,lr=0.0001")
+    state = create_train_state(model, tx)
+    step = decoder_step("caption")
+    gens = Generators.from_seed(seed + 3, "cuda")
+    batch = decoder_batch("caption", seed + 3, "cuda")
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, gens)
+        losses.append(m["ce"])
+    losses = torch.stack(losses).float().cpu()
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    log(f"[learn decoder] depth 2, B={batch['tokens'].shape[0]}, {steps} "
+        f"caption steps of adam lr 1e-4 on one batch: mean loss of the "
+        f"first 5 steps {first:.4f}, of the last 5 {last:.4f}")
+    if not torch.isfinite(losses).all() or not last < first:
+        fail(f"the caption model did not learn: {losses.tolist()}")
+    return {"first5": first, "last5": last}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2728,6 +3160,8 @@ def main() -> int:
     worst_train = check_dropout_and_backward(gen)
     keep_share = check_mask_identity()
     keep_share_bf16 = check_mask_identity(dtype=torch.bfloat16)
+    keep_share_causal = check_mask_identity(dtype=torch.bfloat16,
+                                            causal_t63=True)
     flash_worst = check_flash_kernels(gen)
     flash_share = check_mask_identity(flash=True)
     flash_share_bf16 = check_mask_identity(flash=True, dtype=torch.bfloat16)
@@ -2735,6 +3169,7 @@ def main() -> int:
     times = time_kernels(gen)
     drop_fwd, drop_bwd = time_fused_dropout(gen)
     train_times = time_training_kernels(gen)
+    decoder_times = time_decoder_kernels(gen)
     flash_fwd, flash_bwd = time_flash_kernels(gen)
     torch.cuda.empty_cache()
 
@@ -2783,8 +3218,19 @@ def main() -> int:
     ffn_worst = check_fused_ffn()
     ffn_block = ffn_model_check(args.seed)
     ffn = fused_ffn_path()
+    torch.cuda.empty_cache()
+
+    decoder = decoder_slice(args.seed)
+    decoder["fp32_grad_card_vs_cpu_max_rel"] = \
+        compare_decoder_grads_with_cpu(args.seed)
+    decoder["learning"] = decoder_learning_check(args.seed)
+    decoder["kernel_times"] = decoder_times
+    dec_runs = {"caption": decoder["launches"], **{
+        path: out["launches"] for path, out in decoder["paths"].items()}}
+    dec_packed = [p for p in dec_runs if p != "clm"]
 
     blocks, refiner = times["blocks"], times["refiner"]
+    dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
     tblocks, trefiner = train_times["blocks"], train_times["refiner"]
     kernels = {"kernels": [{
         "name": "packed_attention_fwd",
@@ -2792,18 +3238,23 @@ def main() -> int:
         "source": "m3p_tpu_torch/csrc/packed_attention.cu",
         "replaces": "m3p_tpu/ops/attention.py:1016",
         "launches": (numbers["launches"] + training["launches"]["fwd"]
-                     + mct_a["packed_fwd"] + mct_b["packed_fwd"]),
+                     + mct_a["packed_fwd"] + mct_b["packed_fwd"]
+                     + sum(dec_runs[p]["packed_fwd"] for p in dec_packed)),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
                              "mct_B": mct_b["packed_fwd"],
-                             "mct_B_clcm_step": mct_clcm["packed_fwd"]},
+                             "mct_B_clcm_step": mct_clcm["packed_fwd"],
+                             **{p: dec_runs[p]["packed_fwd"]
+                                for p in dec_packed}},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
             "training": training["fwd_launches_by_design"],
             "mct_A_tensor_cores": mct_a["packed_fwd_tensor_cores"],
-            "mct_B_tensor_cores": mct_b["packed_fwd_tensor_cores"]},
+            "mct_B_tensor_cores": mct_b["packed_fwd_tensor_cores"],
+            **{f"{p}_tensor_cores": dec_runs[p]["packed_fwd_tensor_cores"]
+               for p in dec_packed}},
         "design": blocks["design"],
         "max_abs_err": max(worst["bfloat16_tensor_cores"],
                            worst_train["fwd"]["bfloat16_tensor_cores"]),
@@ -2821,22 +3272,29 @@ def main() -> int:
         "refiner": refiner,
         "rate_0.1_training_shapes": {"blocks": tblocks["fwd_rate_0.1"],
                                      "refiner": trefiner["fwd_rate_0.1"]},
+        "rate_0.1_decoder_shapes": {"self": dself["fwd_rate_0.1"],
+                                    "cross": dcross["fwd_rate_0.1"]},
     }, {
         "name": "packed_attention_bwd",
         "route": "cuda",
         "source": "m3p_tpu_torch/csrc/packed_attention_bwd.cu",
         "replaces": "m3p_tpu/ops/attention.py:1036",
         "launches": (training["launches"]["bwd"] + mct_a["packed_bwd"]
-                     + mct_b["packed_bwd"]),
+                     + mct_b["packed_bwd"]
+                     + sum(dec_runs[p]["packed_bwd"] for p in dec_packed)),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
-                             "mct_B_clcm_step": mct_clcm["packed_bwd"]},
+                             "mct_B_clcm_step": mct_clcm["packed_bwd"],
+                             **{p: dec_runs[p]["packed_bwd"]
+                                for p in dec_packed}},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],
             "mct_A_tensor_cores": mct_a["packed_bwd_tensor_cores"],
-            "mct_B_tensor_cores": mct_b["packed_bwd_tensor_cores"]},
+            "mct_B_tensor_cores": mct_b["packed_bwd_tensor_cores"],
+            **{f"{p}_tensor_cores": dec_runs[p]["packed_bwd_tensor_cores"]
+               for p in dec_packed}},
         "design": tblocks["bwd"]["design"],
         "max_abs_err": worst_train["bwd"]["bfloat16_tensor_cores"],
         "max_abs_err_cuda_cores": worst_train["bwd"]["bfloat16_cuda_cores"],
@@ -2853,14 +3311,19 @@ def main() -> int:
         "plain_ms_rate_0.1": tblocks["bwd"]["plain_ms_rate_0.1"],
         "shape": tblocks["shape"],
         "refiner": trefiner["bwd"],
+        "decoder_shapes": {"self": dself["bwd"], "cross": dcross["bwd"]},
         "mask_identity_keep_share": keep_share,
         "mask_identity_keep_share_bf16": keep_share_bf16,
+        "mask_identity_keep_share_causal_t63": keep_share_causal,
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "m3p_tpu_torch/csrc/flash_attention.cu",
         "replaces": "m3p_tpu/ops/attention.py:177",
-        "launches": long_ctx["launches"]["fwd"],
+        "launches": (long_ctx["launches"]["fwd"]
+                     + dec_runs["clm"]["flash_fwd"]),
+        "launches_by_path": {"xmlm": long_ctx["launches"]["fwd"],
+                             "clm": dec_runs["clm"]["flash_fwd"]},
         "launches_per_step": long_ctx["launches_per_step"]["fwd"],
         "launches_by_design": long_ctx["launches_by_design"]["fwd"],
         "design": flash_fwd["design"],
@@ -2883,7 +3346,10 @@ def main() -> int:
         "source": "m3p_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "m3p_tpu/ops/attention.py:471",
         "replaces_also": "m3p_tpu/ops/attention.py:512",
-        "launches": long_ctx["launches"]["bwd"],
+        "launches": (long_ctx["launches"]["bwd"]
+                     + dec_runs["clm"]["flash_bwd"]),
+        "launches_by_path": {"xmlm": long_ctx["launches"]["bwd"],
+                             "clm": dec_runs["clm"]["flash_bwd"]},
         "launches_per_step": long_ctx["launches_per_step"]["bwd"],
         "launches_by_design": long_ctx["launches_by_design"]["bwd"],
         "design": flash_bwd["design"],
@@ -2903,13 +3369,20 @@ def main() -> int:
         "route": "cuda",
         "source": "m3p_tpu_torch/csrc/fused_dropout.cu",
         "replaces": "m3p_tpu/ops/dropout.py:35",
-        "launches": mct_b["dropout_fwd"],
+        "launches": (mct_b["dropout_fwd"]
+                     + dec_runs["caption_fused"]["dropout_fwd"]),
+        "launches_by_path": {
+            "mct_B": mct_b["dropout_fwd"],
+            "caption_fused": dec_runs["caption_fused"]["dropout_fwd"]},
         "launches_per_step": mct["B"]["launches_per_step"]["dropout_fwd"],
         "launches_clcm_step": mct_clcm["dropout_fwd"],
         "design": drop_fwd["design"],
         "launches_by_design": {"mct_B_wide": mct_b["dropout_fwd_wide"],
                                "mct_B_clcm_step_wide":
-                                   mct_clcm["dropout_fwd_wide"]},
+                                   mct_clcm["dropout_fwd_wide"],
+                               "caption_fused_wide":
+                                   dec_runs["caption_fused"][
+                                       "dropout_fwd_wide"]},
         "ms_narrow": drop_fwd["ms_narrow"],
         "ms_turns": drop_fwd["ms_turns"],
         "speedup_over_narrow": drop_fwd["speedup_over_narrow"],
@@ -2925,13 +3398,20 @@ def main() -> int:
         "route": "cuda",
         "source": "m3p_tpu_torch/csrc/fused_dropout.cu",
         "replaces": "m3p_tpu/ops/dropout.py:43",
-        "launches": mct_b["dropout_bwd"],
+        "launches": (mct_b["dropout_bwd"]
+                     + dec_runs["caption_fused"]["dropout_bwd"]),
+        "launches_by_path": {
+            "mct_B": mct_b["dropout_bwd"],
+            "caption_fused": dec_runs["caption_fused"]["dropout_bwd"]},
         "launches_per_step": mct["B"]["launches_per_step"]["dropout_bwd"],
         "launches_clcm_step": mct_clcm["dropout_bwd"],
         "design": drop_bwd["design"],
         "launches_by_design": {"mct_B_wide": mct_b["dropout_bwd_wide"],
                                "mct_B_clcm_step_wide":
-                                   mct_clcm["dropout_bwd_wide"]},
+                                   mct_clcm["dropout_bwd_wide"],
+                               "caption_fused_wide":
+                                   dec_runs["caption_fused"][
+                                       "dropout_bwd_wide"]},
         "ms_narrow": drop_bwd["ms_narrow"],
         "ms_turns": drop_bwd["ms_turns"],
         "speedup_over_narrow": drop_bwd["speedup_over_narrow"],
@@ -3024,6 +3504,7 @@ def main() -> int:
     log(f"[long_context] {json.dumps(long_ctx)} on {card}")
     log(f"[mct] {json.dumps(mct)} on {card}")
     log(f"[fused_ffn] {json.dumps(ffn)}")
+    log(f"[decoder] {json.dumps(decoder)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -93,6 +93,9 @@ struct Params {
   float inv;
   uint32_t threshold;
   unsigned long long seed;
+  // the debug instantiation only (kDump, M3P_SCORE_DUMP): (B, H, Sq, Sk)
+  // fp32, the unscaled scores q.k
+  float* scores;
 };
 
 size_t smem_bytes(int dh) {
@@ -292,7 +295,7 @@ size_t smem_bytes(int dh) {
 // cp.async while this one is used.  kExact: Dh == kMaxDh, known to the
 // compiler (the xMLM path's 64); else Dh <= kMaxDh and the steps past Dh
 // are skipped.
-template <bool kDropout, int kMaxDh, bool kExact>
+template <bool kDropout, int kMaxDh, bool kExact, bool kDump = false>
 __global__ void __launch_bounds__(kThreads, kMaxDh <= 64 ? 2 : 1)
 flash_attention_fwd_mma_kernel(Params<bf16> p) {
   constexpr int kDSteps = kMaxDh / 16;  // k-steps of q k^T
@@ -372,6 +375,18 @@ flash_attention_fwd_mma_kernel(Params<bf16> p) {
           mma_16816(s[j], qf[ds], b[0], b[1]);
           mma_16816(s[j + 1], qf[ds], b[2], b[3]);
         }
+    if constexpr (kDump) {
+      // the debug instantiation: each score in range to p.scores
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = row0 + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+          if (qi < sq && c < kn)
+            p.scores[(static_cast<long long>(tile) * sq + qi) * sk + k0 + c] =
+                s[j][e];
+        }
+    }
 
     // scale and mask; masked scores take kMaskValue, keys past Sk -inf.  A
     // tile whose every key the warp's rows attend (no ragged end, no masked
@@ -503,10 +518,11 @@ flash_attention_fwd_mma_kernel(Params<bf16> p) {
   }
 }
 
-template <bool kDropout, int kMaxDh, bool kExact>
+template <bool kDropout, int kMaxDh, bool kExact, bool kDump = false>
 cudaError_t launch(const Params<bf16>& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.dh);
-  auto kernel = flash_attention_fwd_mma_kernel<kDropout, kMaxDh, kExact>;
+  auto kernel = flash_attention_fwd_mma_kernel<kDropout, kMaxDh, kExact,
+                                               kDump>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -537,7 +553,8 @@ cudaError_t run(const void* q, const void* k, const void* v,
                 const void* kv_mask, void* o, void* stats, int b, int sq,
                 int sk, int h, int dh, const long long* strides, float scale,
                 int causal, float inv, unsigned int threshold,
-                unsigned long long seed, int design, cudaStream_t stream) {
+                unsigned long long seed, int design, cudaStream_t stream,
+                float* scores = nullptr) {
   Params<T> p;
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
@@ -563,7 +580,11 @@ cudaError_t run(const void* q, const void* k, const void* v,
   p.inv = inv;
   p.threshold = threshold;
   p.seed = seed;
+  p.scores = scores;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#ifdef M3P_SCORE_DUMP
+    if (scores != nullptr) return tc::launch<false, 64, true, true>(p, stream);
+#endif
     if (design == 1) return tc::dispatch(p, stream);
   }
   return dispatch<T>(p, stream);
@@ -603,3 +624,27 @@ extern "C" int m3p_flash_attention_fwd(
         inv, threshold, seed, design, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef M3P_SCORE_DUMP
+// The debug build's entry (nvcc -DM3P_SCORE_DUMP; the `gpu` test of
+// tests/test_torch_kernels.py that compares the forward's scores with the
+// backward's): bf16 on the tensor cores at Dh 64 without dropout, the
+// arguments of m3p_flash_attention_fwd less dtype, design and dropout; the
+// kernel also writes every unscaled score q.k in range to ``scores`` (B, H,
+// Sq, Sk) fp32.
+extern "C" int m3p_flash_attention_fwd_scores(
+    const void* q, const void* k, const void* v, const void* kv_mask,
+    void* o, void* stats, int b, int sq, int sk, int h, int dh,
+    long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+    long long v_sb, long long v_ss, long long o_sb, long long o_ss,
+    float scale, int causal, float* scores, void* stream) {
+  const long long strides[8] = {q_sb, q_ss, k_sb, k_ss,
+                                v_sb, v_ss, o_sb, o_ss};
+  const void* ptrs[4] = {q, k, v, o};
+  if (dh != 64 || scores == nullptr || !tc_fits(dh, ptrs, 4, strides, 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run<__nv_bfloat16>(
+      q, k, v, kv_mask, o, stats, b, sq, sk, h, dh, strides, scale, causal,
+      1.f, 0u, 0ull, 1, static_cast<cudaStream_t>(stream), scores));
+}
+#endif

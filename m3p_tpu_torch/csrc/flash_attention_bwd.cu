@@ -63,8 +63,10 @@
 //   A, k as B, the same k-steps in the same order), so they see the same
 //   fp32 score bit for bit; phase 0 computes s^T = k q^T, the same products
 //   summed over the same k-steps with the operands' roles swapped, which
-//   PTX does not promise to round identically.  The checks hold dk and dv
-//   to the unchanged bf16 tolerance either way.
+//   PTX does not promise to round identically.  On an H100 the debug build
+//   (kDump) shows phase 0's scores bitwise equal to the forward's at a
+//   causal S = 600 (tests/test_torch_kernels.py).  The checks hold dk and
+//   dv to the unchanged bf16 tolerance either way.
 //
 // CUDA cores (fp32, and bf16 outside those shapes): 64 x 64 tiles on CUDA
 // cores out of shared memory with 4 x 4 register tiles (flash_tile.cuh),
@@ -104,6 +106,9 @@ struct Params {
   float inv;
   uint32_t threshold;
   unsigned long long seed;
+  // the debug instantiation only (kDump, M3P_SCORE_DUMP): (B, H, Sq, Sk)
+  // fp32, the unscaled scores q.k of the dk/dv pass
+  float* scores;
 };
 
 // both phases: q, dO, K, V tiles (kTile, ld); two (kTile, kPitch) tiles;
@@ -451,7 +456,7 @@ __device__ __forceinline__ void grad_of_score(const Params<bf16>& p,
 // arriving by cp.async while this one is used.  Keys are the M side:
 // s^T = k q^T and dp^T = v dO^T, then dv += pd^T dO and dk += ds^T q with
 // pd^T and ds^T passed from C to A fragments in registers.
-template <bool kDropout, int kMaxDh, bool kExact>
+template <bool kDropout, int kMaxDh, bool kExact, bool kDump = false>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bwd_dkdv_mma_kernel(Params<bf16> p) {
   constexpr int kQT = kQTileOf<kMaxDh>;
@@ -551,6 +556,18 @@ flash_attention_bwd_dkdv_mma_kernel(Params<bf16> p) {
         }
       }
 
+    if constexpr (kDump) {
+      // the debug instantiation: each score in range to p.scores
+#pragma unroll
+      for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + 8 * j + 2 * t + (e & 1);
+          if (qi < sq && key_in[e >> 1])
+            p.scores[(static_cast<long long>(tile) * sq + qi) * sk + k0 +
+                     16 * warp + g + 8 * (e >> 1)] = s[j][e];
+        }
+    }
     // pd^T into s, ds^T into dp; a tile whose every (query, key) pair of
     // the warp is in range and attended skips the masking
     auto to_grads = [&](auto whole_tile) {
@@ -797,14 +814,15 @@ flash_attention_bwd_dq_mma_kernel(Params<bf16> p) {
   }
 }
 
-template <bool kDropout, int kMaxDh, bool kExact>
+template <bool kDropout, int kMaxDh, bool kExact, bool kDump = false>
 cudaError_t launch(int phase, const Params<bf16>& p, cudaStream_t stream) {
   const size_t smem = phase == 0
                           ? smem_bytes_dkdv(p.dh, kQTileOf<kMaxDh>)
                           : smem_bytes_dq(p.dh);
   auto kernel =
       phase == 0
-          ? flash_attention_bwd_dkdv_mma_kernel<kDropout, kMaxDh, kExact>
+          ? flash_attention_bwd_dkdv_mma_kernel<kDropout, kMaxDh, kExact,
+                                                kDump>
           : flash_attention_bwd_dq_mma_kernel<kDropout, kMaxDh, kExact>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -836,7 +854,8 @@ template <typename T>
 cudaError_t run(int phase, const void* const* ptrs, int b, int sq, int sk,
                 int h, int dh, const long long* strides, float scale,
                 int causal, float inv, unsigned int threshold,
-                unsigned long long seed, int design, cudaStream_t stream) {
+                unsigned long long seed, int design, cudaStream_t stream,
+                float* scores = nullptr) {
   Params<T> p;
   p.q = static_cast<const T*>(ptrs[0]);
   p.k = static_cast<const T*>(ptrs[1]);
@@ -862,7 +881,12 @@ cudaError_t run(int phase, const void* const* ptrs, int b, int sq, int sk,
   p.inv = inv;
   p.threshold = threshold;
   p.seed = seed;
+  p.scores = scores;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+#ifdef M3P_SCORE_DUMP
+    if (scores != nullptr)
+      return tc::launch<false, 64, true, true>(phase, p, stream);
+#endif
     if (design == 1) return tc::dispatch(phase, p, stream);
   }
   return dispatch<T>(phase, p, stream);
@@ -909,3 +933,33 @@ extern "C" int m3p_flash_attention_bwd(
                                                s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef M3P_SCORE_DUMP
+// The debug build's entry (nvcc -DM3P_SCORE_DUMP; the `gpu` test of
+// tests/test_torch_kernels.py that compares the forward's scores with the
+// backward's): bf16 on the tensor cores at Dh 64 without dropout, the
+// arguments of m3p_flash_attention_bwd less dtype, design and dropout; the
+// dk/dv pass (phase 0) also writes every unscaled score q.k in range to
+// ``scores`` (B, H, Sq, Sk) fp32.
+extern "C" int m3p_flash_attention_bwd_scores(
+    int phase, const void* q, const void* k, const void* v,
+    const void* kv_mask, const void* dout, const void* stats, const void* di,
+    void* dq, void* dk, void* dv, int b, int sq, int sk, int h, int dh,
+    long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+    long long v_sb, long long v_ss, long long do_sb, long long do_ss,
+    long long dq_sb, long long dq_ss, long long dk_sb, long long dk_ss,
+    long long dv_sb, long long dv_ss, float scale, int causal,
+    float* scores, void* stream) {
+  const void* ptrs[10] = {q, k, v, kv_mask, dout, stats, di, dq, dk, dv};
+  const long long strides[14] = {q_sb,  q_ss,  k_sb,  k_ss,  v_sb,
+                                 v_ss,  do_sb, do_ss, dq_sb, dq_ss,
+                                 dk_sb, dk_ss, dv_sb, dv_ss};
+  const void* tc_ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  if (dh != 64 || (phase != 0 && phase != 1) || scores == nullptr ||
+      !tc_fits(dh, tc_ptrs, 7, strides, 14))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run<__nv_bfloat16>(
+      phase, ptrs, b, sq, sk, h, dh, strides, scale, causal, 1.f, 0u, 0ull, 1,
+      static_cast<cudaStream_t>(stream), scores));
+}
+#endif

@@ -46,3 +46,29 @@ extern "C" int m3p_packed_attention_bwd(
       b, sq, sk, h, dh, st, scale, causal, inv, threshold, seed,
       static_cast<cudaStream_t>(stream)));
 }
+
+#ifdef M3P_SCORE_DUMP
+// The debug build's entry (nvcc -DM3P_SCORE_DUMP; the `gpu` test of
+// tests/test_torch_kernels.py that compares the two phases' scores): bf16
+// on the tensor cores at Dh 64 without dropout, the arguments of
+// m3p_packed_attention_bwd less design, dropout and bits; each phase writes
+// the scores q.k and the p it computes to ``scores`` (4, B, H, Sq, Sk) fp32:
+// slots 0 and 1 the scores of phases 0 and 1 at every (query, key) in range,
+// slots 2 and 3 their p where the pair is attended.
+extern "C" int m3p_packed_attention_bwd_scores(
+    int phase, const void* q, const void* k, const void* v,
+    const void* kv_mask, const void* dout, void* dq, void* dk, void* dv,
+    void* stats, int b, int sq, int sk, int h, int dh, long long q_sb,
+    long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+    long long v_ss, long long do_sb, long long do_ss, long long dq_sb,
+    long long dq_ss, long long dk_sb, long long dk_ss, long long dv_sb,
+    long long dv_ss, float scale, int causal, float* scores, void* stream) {
+  const long long st[21] = {q_sb,  dh, q_ss,  k_sb,  dh, k_ss,
+                            v_sb,  dh, v_ss,  do_sb, dh, do_ss,
+                            dq_sb, dh, dq_ss, dk_sb, dh, dk_ss,
+                            dv_sb, dh, dv_ss};
+  return static_cast<int>(m3p::tile_bwd::dump_scores<false>(
+      phase, q, k, v, kv_mask, dout, dq, dk, dv, stats, b, sq, sk, h, dh, st,
+      scale, causal, scores, static_cast<cudaStream_t>(stream)));
+}
+#endif

@@ -133,6 +133,9 @@ struct Params {
   float inv;
   uint32_t threshold;
   unsigned long long seed;
+  // the debug instantiation only (kDump, M3P_SCORE_DUMP): (4, B, H, Sq, Sk)
+  // fp32, phase 0's and phase 1's scores q.k, then their p
+  float* scores;
 };
 
 __host__ __device__ inline int odd_pitch(int n) { return n | 1; }
@@ -506,7 +509,7 @@ Params<T> make_params(const void* q, const void* k, const void* v,
                    st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                    st[8], st[9], st[10], st[11], st[12], st[13], st[14],
                    st[15], st[16], st[17], st[18], st[19], st[20],
-                   scale, causal, inv, threshold, seed};
+                   scale, causal, inv, threshold, seed, nullptr};
 }
 
 // ---------------------------------------------------------------------------
@@ -543,7 +546,9 @@ Params<T> make_params(const void* q, const void* k, const void* v,
 // phase 1 four, nine against the five of the math.  Phase 1 scores
 // s^T = k q^T, the same products as phase 0's s = q k^T summed over the
 // same k-steps with the operands' roles swapped, which PTX does not promise
-// to round identically: the two phases may see p one fp32 ulp apart.
+// to round identically.  On an H100 the debug build (kDump) shows them
+// equal: the two phases write bitwise the same scores and p at causal
+// (63, 63) and cross (63, 100) (tests/test_torch_kernels.py).
 // Shared memory at Dh 64: 59,392 bytes (phase 0), 57,856 (phase 1); at
 // Dh 128: 108,544 / 108,032.  Registers (nvcc -Xptxas -v, sm_90a; without /
 // with dropout; #2's and #4's instantiations within 4 of each other):
@@ -626,7 +631,18 @@ __device__ inline void fill_bits(uint32_t* bits_s, const Params<bf16>& p,
   }
 }
 
-template <bool kDropout, bool kScaleP, int kMaxDh, bool kExact>
+// The debug instantiation (kDump) writes entry (qi, kj) of what a phase
+// computes to slot `which` of p.scores: 0 / 1 the unscaled score q.k of
+// phase 0 / 1, 2 / 3 their p
+__device__ __forceinline__ void dump(const Params<bf16>& p, int which,
+                                     int tile, int qi, int kj, float x) {
+  const long long n = static_cast<long long>(p.b) * p.h * p.sq * p.sk;
+  p.scores[which * n + (static_cast<long long>(tile) * p.sq + qi) * p.sk +
+           kj] = x;
+}
+
+template <bool kDropout, bool kScaleP, int kMaxDh, bool kExact,
+          bool kDump = false>
 __global__ void __launch_bounds__(kThreadsTc)
 packed_attention_bwd_dq_mma_kernel(Params<bf16> p) {
   constexpr int kDSteps = kMaxDh / 16, kDTiles = kMaxDh / 8;
@@ -749,6 +765,19 @@ packed_attention_bwd_dq_mma_kernel(Params<bf16> p) {
       const bool whole = flash::whole_tile(mb, p.causal, k0, kn,
                                            q0 + 16 * warp + q_offset, lane);
       if (!pass_b) {
+        if constexpr (kDump) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int qi = q0 + 16 * warp + g + 8 * half;
+                const int c = 8 * j + 2 * t + e;
+                if (qi < sq && c < kn)
+                  dump(p, 0, tile, qi, k0 + c, s[j][2 * half + e]);
+              }
+        }
         // pass A: scores into s (-FLT_MAX past Sk, the mask value where
         // not attended), then the online statistics
         auto stats_of = [&](auto whole_tile) {
@@ -813,6 +842,8 @@ packed_attention_bwd_dq_mma_kernel(Params<bf16> p) {
                 if (valid) {
                   const float pr =
                       expf(s[j][2 * half + e] * p.scale - m[half]) * l[half];
+                  if constexpr (kDump)
+                    if (qi < sq) dump(p, 2, tile, qi, k0 + c, pr);
                   dsv = pr * (kept_dp<kDropout, kScaleP>(
                                   p, keep(half, j, e), dp[j][2 * half + e]) -
                               r[half]);
@@ -884,7 +915,8 @@ __device__ __forceinline__ void load_row_data_async(float* st, uint32_t* bw,
   }
 }
 
-template <bool kDropout, bool kScaleP, int kMaxDh, bool kExact>
+template <bool kDropout, bool kScaleP, int kMaxDh, bool kExact,
+          bool kDump = false>
 __global__ void __launch_bounds__(kThreadsTc)
 packed_attention_bwd_dkdv_mma_kernel(Params<bf16> p) {
   constexpr int kQT = kQTileOf<kMaxDh>;
@@ -982,6 +1014,19 @@ packed_attention_bwd_dkdv_mma_kernel(Params<bf16> p) {
           }
         }
 
+      if constexpr (kDump) {
+#pragma unroll
+        for (int j = 0; j < kQTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int qi = q0 + 8 * j + 2 * t + e;
+              if (qi < sq && key_in[half])
+                dump(p, 1, tile, qi, k0 + 16 * warp + g + 8 * half,
+                     s[j][2 * half + e]);
+            }
+      }
       // pd^T into s, ds^T into dp; a tile whose every (query, key) pair of
       // the warp is in range and attended skips the masking
       auto to_grads = [&](auto whole_tile) {
@@ -1005,6 +1050,8 @@ packed_attention_bwd_dkdv_mma_kernel(Params<bf16> p) {
                 const float sc =
                     valid ? s[j][2 * half + e] * p.scale : kMaskValue;
                 const float pr = expf(sc - mx) * inv_l;
+                if constexpr (kDump)
+                  if (valid) dump(p, 3, tile, qi, kj, pr);
                 const bool kept =
                     !kDropout ||
                     ((word >> (16 * (warp & 1) + g + 8 * half)) & 1u) != 0u;
@@ -1076,16 +1123,17 @@ packed_attention_bwd_dkdv_mma_kernel(Params<bf16> p) {
   }
 }
 
-template <bool kDropout, bool kScaleP, int kMaxDh, bool kExact>
+template <bool kDropout, bool kScaleP, int kMaxDh, bool kExact,
+          bool kDump = false>
 cudaError_t launch(int phase, const Params<bf16>& p, cudaStream_t stream) {
   const size_t smem = phase == 0 ? smem_bytes_dq(p.dh)
                                  : smem_bytes_dkdv(p.dh, kQTileOf<kMaxDh>);
   auto kernel =
       phase == 0
           ? packed_attention_bwd_dq_mma_kernel<kDropout, kScaleP, kMaxDh,
-                                               kExact>
+                                               kExact, kDump>
           : packed_attention_bwd_dkdv_mma_kernel<kDropout, kScaleP, kMaxDh,
-                                                 kExact>;
+                                                 kExact, kDump>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1161,6 +1209,30 @@ cudaError_t dispatch(int dtype, int design, int phase, const void* q,
         stream);
   return cudaErrorInvalidValue;
 }
+
+#ifdef M3P_SCORE_DUMP
+// The debug instantiation: the tensor-core design at Dh 64 without
+// dropout, each phase writing what it computes to ``scores`` (Params); built
+// only with -DM3P_SCORE_DUMP, which no model path's library has.
+template <bool kScaleP>
+cudaError_t dump_scores(int phase, const void* q, const void* k,
+                        const void* v, const void* kv_mask, const void* dout,
+                        void* dq, void* dk, void* dv, void* stats, int b,
+                        int sq, int sk, int h, int dh,
+                        const long long (&st)[21], float scale, int causal,
+                        float* scores, cudaStream_t stream) {
+  const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+  if (dh != 64 || (phase != 0 && phase != 1) || sq > tc::kMaxSeq ||
+      sk > tc::kMaxSeq || !flash::tc_fits(dh, ptrs, 7, st, 21) ||
+      scores == nullptr)
+    return cudaErrorInvalidValue;
+  Params<__nv_bfloat16> p = make_params<__nv_bfloat16>(
+      q, k, v, kv_mask, dout, dq, dk, dv, stats, nullptr, b, sq, sk, h, dh,
+      st, scale, causal, 1.f, 0u, 0ull);
+  p.scores = scores;
+  return tc::launch<false, kScaleP, 64, true, true>(phase, p, stream);
+}
+#endif
 
 }  // namespace tile_bwd
 }  // namespace m3p

@@ -1,6 +1,7 @@
 """Synthetic batches shaped like the real pipeline's (a copy of
-`m3p_tpu/data/synthetic.py:18-97`: `_random_tokens`, `make_pretrain_batch`,
-`make_retrieval_batch`, `make_stream_batch`).
+`m3p_tpu/data/synthetic.py:18-111`: `_random_tokens`, `make_pretrain_batch`,
+`make_retrieval_batch`, `make_caption_batch`, `make_mt_batch`,
+`make_stream_batch`, `make_slide_batch`).
 
 numpy only, so the same ``RandomState`` gives the same batch here and in the
 JAX package.  Shapes follow the reference recipes: captions up to
@@ -74,6 +75,29 @@ def make_retrieval_batch(rng, batch_size, sample_n, max_len, max_regions,
     }
 
 
+def make_caption_batch(rng, batch_size, max_len, max_regions,
+                       n_words) -> Dict[str, np.ndarray]:
+    """A captioning batch: ``batch_size`` images of ``max_regions`` regions
+    and a caption of up to ``max_len`` tokens each."""
+    tokens, tgt_len = _random_tokens(rng, batch_size, max_len, n_words)
+    return {
+        "tokens": tokens,
+        "tgt_len": tgt_len,
+        "feats": rng.randn(batch_size, max_regions, 2048).astype(np.float32),
+        "locs": rng.rand(batch_size, max_regions, 5).astype(np.float32),
+        "img_len": np.full((batch_size,), max_regions, np.int32),
+    }
+
+
+def make_mt_batch(rng, batch_size, max_len, n_words) -> Dict[str, np.ndarray]:
+    """A translation batch: source and target sentences of up to
+    ``max_len`` tokens."""
+    src, src_len = _random_tokens(rng, batch_size, max_len, n_words)
+    tgt, tgt_len = _random_tokens(rng, batch_size, max_len, n_words)
+    return {"src_tokens": src, "src_len": src_len,
+            "tgt_tokens": tgt, "tgt_len": tgt_len}
+
+
 def make_stream_batch(rng, batch_size, bptt, n_words) -> Dict[str, np.ndarray]:
     """A text-stream batch for the MLM objectives: ``batch_size`` rows of
     ``bptt`` random word ids, all full length (a copy of
@@ -82,4 +106,19 @@ def make_stream_batch(rng, batch_size, bptt, n_words) -> Dict[str, np.ndarray]:
         "tokens": rng.randint(4, n_words - 1,
                               (batch_size, bptt)).astype(np.int32),
         "lengths": np.full((batch_size,), bptt, np.int32),
+    }
+
+
+def make_slide_batch(rng, batch_size, max_len, max_regions,
+                     n_words) -> Dict[str, np.ndarray]:
+    """A slide-text matching batch: captions, regions and a binary label
+    per pair."""
+    tokens, text_len = _random_tokens(rng, batch_size, max_len, n_words)
+    return {
+        "tokens": tokens,
+        "text_len": text_len,
+        "feats": rng.randn(batch_size, max_regions, 2048).astype(np.float32),
+        "locs": rng.rand(batch_size, max_regions, 5).astype(np.float32),
+        "img_len": np.full((batch_size,), max_regions, np.int32),
+        "labels": rng.randint(0, 2, (batch_size,)).astype(np.int32),
     }

@@ -120,16 +120,20 @@ class LayerNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention over (B, S, D) on the no-cache path.
+    """Attention over (B, Sq, D) queries on the no-cache path: self-attention,
+    or with ``kv`` (B, Sk, D) cross-attention, whose keys and values are
+    projected from ``kv`` (`m3p_tpu/model/layers.py:205-216`).
 
     Q/K/V stay in the projection layout (B, S, H*Dh) and go straight to
     `ops.attention.attention`, which takes the packed kernels when Sq and
     Sk are at most 512 and the flash kernels above, as the JAX module
-    dispatches (`m3p_tpu/model/layers.py:266-308`); there is no head
-    transpose.  Attention-weight dropout at ``dropout`` runs inside the
+    dispatches (`:266-308`); there is no head transpose.  Causal
+    self-attention and training-time cross-attention (Sq != Sk) take the
+    same kernels.  Attention-weight dropout at ``dropout`` runs inside the
     kernels with a per-call seed.
-    The cross-attention and KV-cache decode paths of the JAX module wait for
-    the generation slice."""
+    The KV-cache branch of the JAX module (incremental decoding, the
+    beam-folded cross-attention) is not ported: it belongs to
+    generation."""
 
     def __init__(self, n_heads: int, dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
@@ -143,10 +147,14 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, kv_mask: torch.Tensor,
                 causal: bool = False, deterministic: bool = True,
-                generator: Optional[Generators] = None) -> torch.Tensor:
+                generator: Optional[Generators] = None, *,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``kv_mask`` (B, Sk) masks the keys: of ``x`` for self-attention,
+        of ``kv`` for cross-attention."""
         rate, seed = attention_dropout_args(self.dropout, deterministic,
                                             generator)
-        ctx = attention(self.q_lin(x), self.k_lin(x), self.v_lin(x),
+        src = x if kv is None else kv
+        ctx = attention(self.q_lin(x), self.k_lin(src), self.v_lin(src),
                         kv_mask, self.n_heads, causal=causal,
                         dropout_rate=rate, dropout_seed=seed)
         return self.out_lin(ctx)
@@ -177,18 +185,22 @@ class TransformerFFN(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    """Post-LN block: x = LN1(x + drop(attn(x))); x = LN2(x + ffn(x)), the
+    """Post-LN block: x = LN1(x + drop(attn(x))); with a source encoding
+    x = LN15(x + drop(encoder_attn(x, src_enc))); x = LN2(x + ffn(x)), the
     FFN applying its own output dropout; x *= pad
-    (`m3p_tpu/model/layers.py:570-627`).
+    (`m3p_tpu/model/layers.py:570-627`).  Causal self-attention with
+    cross-attention over ``src_enc`` is the decoder block; without
+    ``src_enc`` the block is the encoder's.
 
     With ``use_fused_dropout``, in a training forward at ``dropout`` > 0,
-    both residuals go through `ops.dropout.fused_dropout_add` (kernels #7
-    and #8 on CUDA, the plain version on the CPU) with a per-call seed
-    drawn on the host, and the FFN skips its own dropout.  The JAX block
-    takes that path on a TPU backend only (`:590-601`).
+    every residual (two, three with ``src_enc``) goes through
+    `ops.dropout.fused_dropout_add` (kernels #7 and #8 on CUDA, the plain
+    version on the CPU) with its own seed drawn on the host, and the FFN
+    skips its own dropout.  The JAX block takes that path on a TPU backend
+    only (`:590-601`).
 
-    Holds ``encoder_attn``/``ln15`` because every block of the JAX tree has
-    them; this slice never calls them (no decoder path yet)."""
+    Every block holds ``encoder_attn``/``ln15``, as in the JAX tree; they
+    run when ``src_enc`` is given."""
 
     def __init__(self, n_heads: int, dim: int, ffn_dim: int,
                  gelu_activation: bool = True,
@@ -199,6 +211,7 @@ class EncoderBlock(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.use_fused_dropout = use_fused_dropout
+        self.has_cross_attention = has_cross_attention
         self.attn = MultiHeadAttention(n_heads, dim, dtype, attention_dropout)
         self.ln1 = LayerNorm(dim, dtype)
         if has_cross_attention:
@@ -211,19 +224,35 @@ class EncoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 causal: bool = False, deterministic: bool = True,
-                generator: Optional[Generators] = None) -> torch.Tensor:
-        attn = self.attn(x, pad_mask, causal, deterministic, generator)
-        if self.use_fused_dropout and not deterministic and self.dropout > 0:
-            if generator is None:
-                raise ValueError("fused dropout with deterministic=False "
-                                 "needs generators")
-            x = self.ln1(fused_dropout_add(attn, x, generator.dropout_seed(),
-                                           self.dropout))
+                generator: Optional[Generators] = None, *,
+                src_enc: Optional[torch.Tensor] = None,
+                src_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``src_enc`` (B, Ss, D) with its mask ``src_mask`` (B, Ss) adds the
+        cross-attention step."""
+        fused = (self.use_fused_dropout and not deterministic
+                 and self.dropout > 0)
+        if fused and generator is None:
+            raise ValueError("fused dropout with deterministic=False needs "
+                             "generators")
+
+        def residual(branch, res):
+            if fused:
+                return fused_dropout_add(branch, res,
+                                         generator.dropout_seed(),
+                                         self.dropout)
+            return res + dropout(branch, self.dropout, deterministic,
+                                 generator)
+
+        x = self.ln1(residual(
+            self.attn(x, pad_mask, causal, deterministic, generator), x))
+        if self.has_cross_attention and src_enc is not None:
+            x = self.ln15(residual(
+                self.encoder_attn(x, src_mask, False, deterministic,
+                                  generator, kv=src_enc), x))
+        if fused:
             h = self.ffn(x, deterministic, generator, skip_dropout=True)
-            x = self.ln2(fused_dropout_add(h, x, generator.dropout_seed(),
-                                           self.dropout))
+            x = self.ln2(residual(h, x))
         else:
-            x = self.ln1(x + dropout(attn, self.dropout, deterministic,
-                                     generator))
+            # the FFN applied its own output dropout (the reference layout)
             x = self.ln2(x + self.ffn(x, deterministic, generator))
         return x * pad_mask[..., None].to(x.dtype)

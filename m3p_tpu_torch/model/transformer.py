@@ -1,14 +1,27 @@
 """The M3P model of the port (counterpart of `m3p_tpu/model/transformer.py`).
 
-The port has the single-stream joint topology (`encode_joint`) and the ITM
-head (`itm_score`): the path that serves pair scoring and retrieval and, in
-training mode, the ITM retrieval fine-tune step; the text stream
-(`embed_text`, `encode_text` on the non-causal, no-cache path) with the
-tied word head (`word_logits`): the xMLM step; and the object, CLCM and
-MRFR heads (`obj_logits`, `clcm_score`, `mrfr_predict`): the MCT
-pre-training step (`m3p_tpu/model/transformer.py:347-367`).  The module tree mirrors
-the JAX parameter tree (``text_emb``, ``image_emb``, ``refiner``,
-``block_<i>``, the heads), so a JAX checkpoint loads strictly.
+The forward topologies, each over the one shared stack of post-LN blocks
+(`_run_blocks`):
+
+* ``encode_joint`` -- single-stream fusion over the [img; text] concat:
+  serving's pair scoring and retrieval, the ITM fine-tune, MCT
+  pre-training, slide matching, the multimodal-MT encoder;
+* ``encode_text`` -- the text stream (``embed_text`` + the stack): xMLM
+  non-causal; causal for CLM; causal with cross-attention over a source
+  encoding (``src_enc``) for the teacher-forced decoders of captioning and
+  translation;
+* ``encode_image`` -- the image stream (region embeddings, the optional AoA
+  refiner before and after the stack): the captioning encoder;
+* ``embed_image_regions`` -- region embeddings and the refiner without the
+  stack: the TIFG target;
+* ``decode_image`` -- a causal image stream with cross-attention over a
+  text encoding: the TIFG generator.
+
+Heads: the tied word head (`word_logits`), the object, ITM, CLCM and MRFR
+heads.  No KV cache: incremental decoding belongs to generation, which the
+port does not have yet.  The module tree mirrors the JAX parameter tree
+(``text_emb``, ``image_emb``, ``refiner``, ``block_<i>``, the heads), so a
+JAX checkpoint loads strictly.
 """
 
 from __future__ import annotations
@@ -50,6 +63,12 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.param_dtype != "float32":
         raise NotImplementedError("the PyTorch port stores parameters in "
                                   "float32 only")
+
+
+def _check_generators(what: str, deterministic: bool,
+                      generator: Optional[Generators]) -> None:
+    if not deterministic and generator is None:
+        raise ValueError(f"{what}(deterministic=False) needs generators")
 
 
 def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -100,9 +119,7 @@ class M3PModel(nn.Module):
 
         ``deterministic=False`` turns dropout on (the training forward);
         ``generator`` then draws every mask and attention seed."""
-        if not deterministic and generator is None:
-            raise ValueError("encode_joint(deterministic=False) needs "
-                             "generators")
+        _check_generators("encode_joint", deterministic, generator)
         rng = (deterministic, generator)
         img = self.image_emb(feats, locs, *rng)
         img = img * img_mask[..., None].to(img.dtype)
@@ -115,8 +132,17 @@ class M3PModel(nn.Module):
         joint_mask = torch.cat([img_mask, text_mask], dim=1)
         x = x * joint_mask[..., None].to(x.dtype)
         x = dropout(self.text_emb.ln_emb(x), self.cfg.dropout, *rng)
+        return self._run_blocks(x, joint_mask, False, None, None, *rng)
+
+    def _run_blocks(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                    causal: bool, src_enc: Optional[torch.Tensor],
+                    src_mask: Optional[torch.Tensor], deterministic: bool,
+                    generator: Optional[Generators]) -> torch.Tensor:
+        """The stack of blocks (`m3p_tpu/model/transformer.py:136-145`
+        without the cache)."""
         for block in self.blocks:
-            x = block(x, joint_mask, False, *rng)
+            x = block(x, pad_mask, causal, deterministic, generator,
+                      src_enc=src_enc, src_mask=src_mask)
         return x
 
     def embed_text(self, tokens: torch.Tensor, text_mask: torch.Tensor,
@@ -135,19 +161,67 @@ class M3PModel(nn.Module):
                     langs: Optional[torch.Tensor] = None,
                     positions: Optional[torch.Tensor] = None,
                     deterministic: bool = True,
-                    generator: Optional[Generators] = None) -> torch.Tensor:
-        """The text stream (`m3p_tpu/model/transformer.py:169-191`) on the
-        path `mlm_loss` takes: non-causal, no cache, no source encoding.
-        (B, S) tokens -> (B, S, D).  Self-attention takes the packed
-        kernels up to 512 tokens and the flash kernels above."""
-        if not deterministic and generator is None:
-            raise ValueError("encode_text(deterministic=False) needs "
-                             "generators")
+                    generator: Optional[Generators] = None,
+                    causal: bool = False,
+                    src_enc: Optional[torch.Tensor] = None,
+                    src_mask: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """The text stream (`m3p_tpu/model/transformer.py:169-191`, no
+        cache): (B, S) tokens -> (B, S, D).  ``causal`` masks the future;
+        ``src_enc`` (B, Ss, D) with ``src_mask`` adds cross-attention in
+        every block (the teacher-forced decoder).  Attention takes the
+        packed kernels up to 512 tokens and the flash kernels above."""
+        _check_generators("encode_text", deterministic, generator)
         x = self.embed_text(tokens, text_mask, langs, positions,
                             deterministic, generator)
-        for block in self.blocks:
-            x = block(x, text_mask, False, deterministic, generator)
+        return self._run_blocks(x, text_mask, causal, src_enc, src_mask,
+                                deterministic, generator)
+
+    def encode_image(self, feats: torch.Tensor, locs: torch.Tensor,
+                     img_mask: torch.Tensor, refine_image: bool = False,
+                     deterministic: bool = True,
+                     generator: Optional[Generators] = None,
+                     refine_encoder: bool = False) -> torch.Tensor:
+        """The image stream (`m3p_tpu/model/transformer.py:193-218`):
+        region embeddings (no positions, no embedding LN), the AoA refiner
+        if ``refine_image``, the stack, and with ``refine_encoder`` the same
+        refiner again after it.  (B, R, 2048) -> (B, R, D)."""
+        _check_generators("encode_image", deterministic, generator)
+        rng = (deterministic, generator)
+        x = self.embed_image_regions(feats, locs, img_mask, refine_image,
+                                     *rng)
+        x = self._run_blocks(x, img_mask, False, None, None, *rng)
+        if refine_encoder:
+            x = self.refiner(x, img_mask, *rng)
         return x
+
+    def embed_image_regions(self, feats: torch.Tensor, locs: torch.Tensor,
+                            img_mask: torch.Tensor, refine_image: bool = True,
+                            deterministic: bool = True,
+                            generator: Optional[Generators] = None
+                            ) -> torch.Tensor:
+        """Region embeddings, the padding zeroed, and the AoA refiner if
+        ``refine_image``, without the stack
+        (`m3p_tpu/model/transformer.py:220-235`)."""
+        _check_generators("embed_image_regions", deterministic, generator)
+        x = self.image_emb(feats, locs, deterministic, generator)
+        x = x * img_mask[..., None].to(x.dtype)
+        if refine_image:
+            x = self.refiner(x, img_mask, deterministic, generator)
+        return x
+
+    def decode_image(self, feats: torch.Tensor, locs: torch.Tensor,
+                     img_mask: torch.Tensor, src_enc: torch.Tensor,
+                     src_mask: torch.Tensor, deterministic: bool = True,
+                     generator: Optional[Generators] = None) -> torch.Tensor:
+        """A causal image stream with cross-attention over a text encoding
+        ``src_enc`` (`m3p_tpu/model/transformer.py:324-345`): the TIFG
+        generator."""
+        _check_generators("decode_image", deterministic, generator)
+        x = self.embed_image_regions(feats, locs, img_mask, False,
+                                     deterministic, generator)
+        return self._run_blocks(x, img_mask, True, src_enc, src_mask,
+                                deterministic, generator)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.text_emb.embed_tokens(tokens)

@@ -4,6 +4,8 @@ Each source under ``m3p_tpu_torch/csrc/`` has a plain C interface.  At first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library in the
 checkout's ``build/`` directory, named by a hash of the source and the
 shared headers (a changed source builds anew), and loaded with ``ctypes``.
+``defines`` build another library from the same source with those
+preprocessor macros set (a debug instantiation that no model path loads).
 Nothing here runs when the module is imported.
 """
 
@@ -17,14 +19,14 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -43,26 +45,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
-    """The library's path, named by a hash of its source and of the shared
-    headers in ``csrc/``."""
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+    """The library's path, named by the macros and by a hash of its source
+    and of the shared headers in ``csrc/``."""
     digest = hashlib.sha256()
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    tag = "".join(f"_{d}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}_{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this source exists;
-    returns its path.  The output is written under a temporary name and
-    renamed into place, so concurrent builders never load a partial file."""
-    out = library_path(name)
+def build(name: str, defines: Sequence[str] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` each of ``defines``) unless
+    the library for this source exists; returns its path.  The output is
+    written under a temporary name and renamed into place, so concurrent
+    builders never load a partial file."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+           tmp, str(CSRC / f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -74,20 +79,22 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(build(name, defines)))
+            _libs[key] = lib
         return lib
 
 
-def bind(name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
+def bind(name: str, fn_name: str, argtypes,
+         defines: Sequence[str] = ()) -> ctypes._CFuncPtr:
     """The C function ``fn_name`` of ``csrc/<name>.cu``, returning int (a
     cudaError_t), with its argument types set."""
-    fn = getattr(load(name), fn_name)
+    fn = getattr(load(name, defines), fn_name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes

@@ -15,7 +15,17 @@ Ported objectives:
   `pretrain_under_step`): a word-or-object coin per row, MC-MLM over
   packed slots, MC-MRM and MRFR over packed region slots, ITM over the
   candidate grid and, with CLCM pairs in the batch, CLCM, on batches shaped
-  as `make_pretrain_batch` makes them.
+  as `make_pretrain_batch` makes them;
+* the decoder objectives, teacher-forced next-token CE through the causal
+  text stream with cross-attention over a source encoding
+  (`seq2seq_ce`): ``caption`` (the reference `ic_step`; image stream
+  encoder, `make_caption_batch`), ``mt`` / ``ntg`` (`mt_step`,
+  `ntg_step`; text encoder, `make_mt_batch`) and ``mt_caption``
+  (`mt_ic_step`; the joint [img; src] encoder);
+* ``clm``, causal LM on a text stream (`make_stream_batch`); ``tifg``,
+  text-to-image-feature generation (`tifg_step`; the causal image stream
+  regressing the refined region embeddings); ``slide``, binary
+  slide-text matching over `encode_joint` (`make_slide_batch`).
 Batches are dicts of tensors on the model's device.
 """
 
@@ -140,6 +150,155 @@ def mlm_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
     logits = model.word_logits(_gather_rows(hidden, positions))
     loss = masked_ce(logits, labels, weights)
     return loss, {"mlm": loss.detach()}
+
+
+def _next_token_ce(logits: torch.Tensor, y: torch.Tensor,
+                   y_mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean CE over the weighted positions in fp32, accuracy of the argmax,
+    number of weighted positions) of logits (B, T, V) against labels y
+    (B, T)."""
+    y = y.long()
+    ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                         y.reshape(-1), reduction="none").view(y.shape)
+    n_words = y_mask.sum()
+    denom = n_words.clamp_min(1.0)
+    loss = (ce * y_mask).sum() / denom
+    hits = (logits.detach().argmax(dim=-1) == y).float()
+    return loss, (hits * y_mask).sum() / denom, n_words
+
+
+def seq2seq_ce(model: M3PModel, src_enc: torch.Tensor,
+               src_mask: torch.Tensor, tgt_tokens: torch.Tensor,
+               tgt_mask: torch.Tensor, langs: Optional[torch.Tensor] = None,
+               generator: Optional[Generators] = None,
+               deterministic: bool = True) -> Tuple[torch.Tensor, Metrics]:
+    """Teacher-forced next-token CE through the causal text stream with
+    cross-attention over ``src_enc`` (`m3p_tpu/train/steps.py:101-121`):
+    ``tgt_tokens[:, :-1]`` predict ``tgt_tokens[:, 1:]``."""
+    tgt_tokens = tgt_tokens.long()
+    x, y = tgt_tokens[:, :-1], tgt_tokens[:, 1:]
+    dec = model.encode_text(x, tgt_mask[:, :-1],
+                            None if langs is None else langs[:, :-1].long(),
+                            None, deterministic, generator, causal=True,
+                            src_enc=src_enc, src_mask=src_mask)
+    loss, acc, n_words = _next_token_ce(model.word_logits(dec), y,
+                                        tgt_mask[:, 1:].float())
+    return loss, {"ce": loss.detach(), "acc": acc, "n_words": n_words}
+
+
+def caption_loss(model: M3PModel, batch: Batch,
+                 generator: Optional[Generators], refine_image: bool = True,
+                 deterministic: bool = False, refine_encoder: bool = False
+                 ) -> Tuple[torch.Tensor, Metrics]:
+    """Image captioning (`m3p_tpu/train/steps.py:345-362`): the regions
+    through the image stream (``refine_encoder`` refines again after the
+    stack), the caption decoded over them."""
+    img_mask = lengths_to_mask(batch["img_len"], batch["feats"].shape[1])
+    src_enc = model.encode_image(batch["feats"], batch["locs"], img_mask,
+                                 refine_image, deterministic, generator,
+                                 refine_encoder)
+    tokens = batch["tokens"]
+    tgt_mask = lengths_to_mask(batch["tgt_len"], tokens.shape[1])
+    return seq2seq_ce(model, src_enc, img_mask, tokens, tgt_mask,
+                      batch.get("langs"), generator, deterministic)
+
+
+def mt_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
+            deterministic: bool = False) -> Tuple[torch.Tensor, Metrics]:
+    """Text seq2seq (`m3p_tpu/train/steps.py:365-377`, the reference
+    `mt_step` / `ntg_step`)."""
+    src = batch["src_tokens"].long()
+    src_mask = lengths_to_mask(batch["src_len"], src.shape[1])
+    src_langs = batch.get("src_langs")
+    src_enc = model.encode_text(
+        src, src_mask, None if src_langs is None else src_langs.long(),
+        None, deterministic, generator)
+    tgt = batch["tgt_tokens"]
+    tgt_mask = lengths_to_mask(batch["tgt_len"], tgt.shape[1])
+    return seq2seq_ce(model, src_enc, src_mask, tgt, tgt_mask,
+                      batch.get("tgt_langs"), generator, deterministic)
+
+
+def mt_caption_loss(model: M3PModel, batch: Batch,
+                    generator: Optional[Generators],
+                    refine_image: bool = True, deterministic: bool = False
+                    ) -> Tuple[torch.Tensor, Metrics]:
+    """Multimodal MT (`m3p_tpu/train/steps.py:380-397`): the joint [img;
+    src] encoder, the target decoded over the whole joint encoding."""
+    src = batch["src_tokens"].long()
+    src_mask = lengths_to_mask(batch["src_len"], src.shape[1])
+    img_mask = lengths_to_mask(batch["img_len"], batch["feats"].shape[1])
+    joint = model.encode_joint(src, src_mask, batch["feats"], batch["locs"],
+                               img_mask, refine_image, deterministic,
+                               generator)
+    joint_mask = torch.cat([img_mask, src_mask], dim=1)
+    tgt = batch["tgt_tokens"]
+    tgt_mask = lengths_to_mask(batch["tgt_len"], tgt.shape[1])
+    return seq2seq_ce(model, joint, joint_mask, tgt, tgt_mask,
+                      batch.get("tgt_langs"), generator, deterministic)
+
+
+def clm_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
+             deterministic: bool = False, context_size: int = 0
+             ) -> Tuple[torch.Tensor, Metrics]:
+    """Causal LM on a text stream (`m3p_tpu/train/steps.py:129-155`):
+    causal self-attention, next-token CE at every position, the first
+    ``context_size`` predictions left out."""
+    tokens = batch["tokens"].long()
+    text_mask = lengths_to_mask(batch["lengths"], tokens.shape[1])
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    y_mask = text_mask[:, 1:].float()
+    if context_size > 0:
+        keep = torch.arange(y.shape[1], device=y.device) >= context_size
+        y_mask = y_mask * keep.float()
+    langs = batch.get("langs")
+    hidden = model.encode_text(
+        x, text_mask[:, :-1], None if langs is None else langs[:, :-1].long(),
+        None, deterministic, generator, causal=True)
+    loss, acc, _ = _next_token_ce(model.word_logits(hidden), y, y_mask)
+    return loss, {"clm": loss.detach(), "acc": acc}
+
+
+def tifg_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
+              refine_image: bool = True, deterministic: bool = False
+              ) -> Tuple[torch.Tensor, Metrics]:
+    """Text-to-image-feature generation (`m3p_tpu/train/steps.py:400-426`):
+    encode the caption, decode the image stream causally over it, and
+    regress the (refined) region embeddings, held fixed, with the MSE."""
+    tokens = batch["tokens"].long()
+    text_len = batch["text_len"] if "text_len" in batch else batch["tgt_len"]
+    text_mask = lengths_to_mask(text_len, tokens.shape[1])
+    feats, locs = batch["feats"], batch["locs"]
+    img_mask = lengths_to_mask(batch["img_len"], feats.shape[1])
+    target = model.embed_image_regions(feats, locs, img_mask, refine_image,
+                                       deterministic, generator).detach()
+    enc = model.encode_text(tokens, text_mask, None, None, deterministic,
+                            generator)
+    dec = model.decode_image(feats, locs, img_mask, enc, text_mask,
+                             deterministic, generator)
+    w = img_mask[..., None].float()
+    se = (dec.float() - target.float()) ** 2
+    loss = (se * w).sum() / (w.sum() * dec.shape[-1]).clamp_min(1.0)
+    return loss, {"tifg": loss.detach()}
+
+
+def slide_loss(model: M3PModel, batch: Batch,
+               generator: Optional[Generators], refine_image: bool = True,
+               deterministic: bool = False) -> Tuple[torch.Tensor, Metrics]:
+    """Slide-text matching (`m3p_tpu/train/steps.py:479-501`): the joint
+    forward and a binary CE on the ITM score."""
+    tokens = batch["tokens"].long()
+    text_mask = lengths_to_mask(batch["text_len"], tokens.shape[1])
+    img_mask = lengths_to_mask(batch["img_len"], batch["feats"].shape[1])
+    hidden = model.encode_joint(tokens, text_mask, batch["feats"],
+                                batch["locs"], img_mask, refine_image,
+                                deterministic, generator)
+    scores = model.itm_score(hidden).float()[:, 0]
+    labels = batch["labels"].float()
+    loss = F.binary_cross_entropy_with_logits(scores, labels)
+    acc = ((scores.detach() > 0) == (labels > 0)).float().mean()
+    return loss, {"loss": loss.detach(), "acc": acc}
 
 
 def top_k(values: torch.Tensor, k: int

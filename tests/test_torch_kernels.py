@@ -22,7 +22,9 @@ the card (which has no JAX for `tests/conftest.py` to import):
 """
 
 import contextlib
+import ctypes
 import functools
+import re
 import types
 
 import numpy as np
@@ -126,35 +128,44 @@ def output_grad(b, h, dh, sq, seed=1):
 
 
 def check_mask_identity(device, rate=0.25, seed=SEED, attn=attention_packed,
-                        s=64, dtype=torch.float32):
+                        s=64, dtype=torch.float32, causal=False, dh=None):
     """V = identity: with v = I per head the forward's output is
     inv * keep . p, so its zeros are the keep mask; with dO = I the
     backward's dv^T is the same matrix.  Checks both against the Philox
     mask of the plain version, the keep rate and the 1/(1 - rate) scale,
     through ``attn`` (`attention_packed` or `attention_flash`) on
-    ``device``, at S = ``s`` keys (at most 128), in ``dtype`` (bf16 values
-    are held to TOL_BF16: the output and dv round p at other places)."""
+    ``device``, at S = ``s`` keys (at most 128), ``causal`` or not, in
+    ``dtype`` (bf16 values are held to TOL_BF16: the output and dv round p
+    at other places).  The head dim is ``dh`` (default S; at least S): the
+    identity fills a head's first S columns and the rest are zero."""
     tol = TOL if dtype == torch.float32 else TOL_BF16
     b, h = 2, 2
+    dh = dh or s
     lens = (s, s * 5 // 8)
-    q, k, _, mask = packed_inputs(b, h, s, s, s, lens, seed=7)
-    eye = np.tile(np.eye(s, dtype=np.float32), (b, 1, h))   # (b, s, h*s)
+    q, k, _, mask = packed_inputs(b, h, dh, s, s, lens, seed=7)
+    eye = np.zeros((b, s, h, dh), np.float32)
+    eye[:, np.arange(s), :, np.arange(s)] = 1.0
+    eye = eye.reshape(b, s, h * dh)
     q, k, v, do = (torch.from_numpy(a).to(device, dtype)
                    for a in (q, k, eye, eye))
     mask = torch.from_numpy(mask).to(device)
     q.requires_grad_(True)
     k.requires_grad_(True)
     v.requires_grad_(True)
-    out = attn(q, k, v, mask, h, dropout_rate=rate, dropout_seed=seed)
+    out = attn(q, k, v, mask, h, causal=causal, dropout_rate=rate,
+               dropout_seed=seed)
     _, _, dv = torch.autograd.grad(out, (q, k, v), do)
     with torch.no_grad():
-        plain = attn(q, k, v, mask, h)
+        plain = attn(q, k, v, mask, h, causal=causal)
     # (b, h, query, key)
-    out_h = out.detach().view(b, s, h, s).permute(0, 2, 1, 3)
-    dv_h = dv.view(b, s, h, s).permute(0, 2, 3, 1)
-    plain_h = plain.view(b, s, h, s).permute(0, 2, 1, 3)
+    out_h = out.detach().view(b, s, h, dh)[..., :s].permute(0, 2, 1, 3)
+    dv_h = dv.view(b, s, h, dh)[..., :s].permute(0, 2, 3, 1)
+    plain_h = plain.view(b, s, h, dh)[..., :s].permute(0, 2, 1, 3)
     keep = keep_mask_tiles(seed, b * h, s, s, rate, device).view(b, h, s, s)
     attended = mask[:, None, None, :].expand(b, h, s, s)
+    if causal:
+        tri = torch.ones(s, s, dtype=torch.bool, device=device).tril()
+        attended = attended & tri
     kept = out_h != 0
     assert torch.equal(kept, keep & attended)       # forward vs Philox
     assert torch.equal(dv_h != 0, kept)             # backward vs forward
@@ -818,6 +829,268 @@ def test_attention_fwd_tensor_cores_are_deterministic(cuda_device, rate,
     first, _ = fwd_pair(layout, case, rate, None, cuda_device)
     second, _ = fwd_pair(layout, case, rate, None, cuda_device)
     assert torch.equal(first, second)
+
+
+# ---------------------------------------------------------------------------
+# the decoder shapes of #1/#2, and the scores each pass computes
+# ---------------------------------------------------------------------------
+
+# (B, H, Dh, Sq, Sk, lengths, causal) at the flagship width: the caption and
+# MT decoders' causal self-attention over T = 63 positions (the first
+# 64-row tile ragged, the diagonal inside it) and their cross-attention
+# over 100 regions and the 164-token joint [img; src] encoding; TIFG's
+# causal image stream over 100 regions and its cross-attention over a
+# 64-token caption; key masks with padded rows
+DECODER_CASES = [
+    (4, 12, 64, 63, 63, (63, 40, 63, 7), True),
+    (4, 12, 64, 63, 100, (100, 71, 100, 9), False),
+    (4, 12, 64, 63, 164, (164, 120, 164, 101), False),
+    (4, 12, 64, 100, 100, (100, 55, 100, 1), True),
+    (4, 12, 64, 100, 64, (64, 30, 64, 5), False),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", DECODER_CASES)
+def test_packed_attention_kernels_fp32_at_the_decoder_shapes(cuda_device,
+                                                             case, rate):
+    """#1 and #2 in fp32 (CUDA cores) against their plain versions."""
+    q, k, v, mask, do = _grad_inputs(cuda_device, case, torch.float32)
+    h, causal = case[1], case[-1]
+    seed = SEED if rate else None
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = (dict(attention_packed.launches_by_design),
+              dict(attention_packed.bwd_launches_by_design))
+    out = attention_packed(*leaves, mask, h, causal, None, rate, seed)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    _assert_rose(attention_packed.launches_by_design, before[0],
+                 "cuda_cores", 1)
+    _assert_rose(attention_packed.bwd_launches_by_design, before[1],
+                 "cuda_cores", 2)
+    want = attention_packed_reference(q, k, v, mask, h, causal, None, rate,
+                                      seed)
+    torch.testing.assert_close(out.detach(), want, **TOL)
+    wants = attention_packed_bwd_reference(q, k, v, mask, do, h, causal, None,
+                                           rate, seed)
+    for g, w in zip(got, wants):
+        torch.testing.assert_close(g, w, **TOL_BWD)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", [None, "cuda_cores"])
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", DECODER_CASES)
+def test_packed_attention_fwd_bf16_at_the_decoder_shapes(cuda_device, case,
+                                                         rate, design):
+    """#1 in bf16 through the design the rule names (the tensor cores) and
+    forced to CUDA cores."""
+    got, want = fwd_pair("packed", case, rate, design, cuda_device)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL_BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", [None, "cuda_cores"])
+@pytest.mark.parametrize("rate", [0.0, RATE])
+@pytest.mark.parametrize("case", DECODER_CASES)
+def test_packed_attention_bwd_bf16_at_the_decoder_shapes(cuda_device, case,
+                                                         rate, design):
+    """#2 in bf16 through the design the rule names (the tensor cores) and
+    forced to CUDA cores."""
+    q, k, v, mask, do = _grad_inputs(cuda_device, case, torch.bfloat16)
+    got, want = packed_bwd_pair(q, k, v, mask, do, case[1], case[-1], rate,
+                                design)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **TOL_BF16)
+
+
+@pytest.mark.gpu
+def test_kernels_draw_the_plain_versions_mask_causal_at_t_63(cuda_device):
+    """V = identity at the decoder's causal (63, 63) with 64-wide heads, in
+    bf16 through the tensor cores in both directions."""
+    before = (dict(attention_packed.launches_by_design),
+              dict(attention_packed.bwd_launches_by_design))
+    check_mask_identity(cuda_device, s=63, dh=64, causal=True,
+                        dtype=torch.bfloat16)
+    _assert_rose(attention_packed.launches_by_design, before[0],
+                 "tensor_cores", 2)
+    _assert_rose(attention_packed.bwd_launches_by_design, before[1],
+                 "tensor_cores", 2)
+
+
+# The debug builds (-DM3P_SCORE_DUMP) of #2 and of #5/#6: their tensor-core
+# kernels at Dh 64 without dropout also write the fp32 scores q.k they
+# compute (and #2 its p) to a scratch; no model path loads these libraries
+SCORE_DUMP = ("M3P_SCORE_DUMP",)
+_SCORES_PACKED_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                           + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 14
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_void_p])
+_SCORES_FLASH_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                              + [ctypes.c_longlong] * 8
+                              + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p])
+_SCORES_FLASH_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                              + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 14
+                              + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p])
+
+
+def _strides(*tensors):
+    return [st for t in tensors for st in t.stride()[:2]]
+
+
+def _ulps(a, b):
+    """Largest distance in fp32 units in the last place between two fp32
+    tensors of one sign pattern (int32 views)."""
+    ia, ib = (t.contiguous().view(torch.int32).long() for t in (a, b))
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def _score_report(what, a, b):
+    return (f"{what}: {int((a != b).sum())} of {a.numel()} differ, max "
+            f"|diff| {float((a - b).abs().max()):.3e}, {_ulps(a, b)} ulp")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [DECODER_CASES[0], DECODER_CASES[1]])
+def test_packed_bwd_phases_see_bitwise_the_same_scores(cuda_device, case):
+    """#2's phase 0 (s = q k^T, queries on the M side) and phase 1 (s^T =
+    k q^T, keys on the M side) on the tensor cores: the same fp32 score at
+    every (query, key) in range, and the same p wherever the pair is
+    attended, bit for bit."""
+    b, h, dh, sq, sk, _, causal = case
+    q, k, v, mask, do = _grad_inputs(cuda_device, case, torch.bfloat16)
+    fn = _build.bind("packed_attention_bwd", "m3p_packed_attention_bwd_scores",
+                     _SCORES_PACKED_ARGTYPES, defines=SCORE_DUMP)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty((b, h, sq, 3), dtype=torch.float32,
+                        device=cuda_device)
+    scores = torch.full((4, b, h, sq, sk), float("nan"), device=cuda_device)
+    mask8 = mask.to(torch.bool).contiguous()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    for phase in (0, 1):
+        err = fn(phase, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 mask8.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, sq, sk, h,
+                 dh, *_strides(q, k, v, do, dq, dk, dv), dh ** -0.5,
+                 int(causal), scores.data_ptr(), stream)
+        assert err == 0, err
+    torch.cuda.synchronize()
+    # the debug build computes what the shipped one does
+    want = attention_packed_bwd_reference(q, k, v, mask, do, h, causal)
+    for g, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(g, w, **TOL_BF16)
+    attended = mask[:, None, None, :].expand(b, h, sq, sk)
+    if causal:
+        tri = torch.ones(sq, sk, dtype=torch.bool,
+                         device=cuda_device).tril(sk - sq)
+        attended = attended & tri
+    assert not scores[:2].isnan().any()
+    s0, s1 = scores[0], scores[1]
+    p0, p1 = scores[2][attended], scores[3][attended]
+    assert not p0.isnan().any() and not p1.isnan().any()
+    report = "; ".join([_score_report("scores", s0, s1),
+                        _score_report("p", p0, p1)])
+    print(report)
+    assert torch.equal(s0, s1) and torch.equal(p0, p1), report
+
+
+@pytest.mark.gpu
+def test_flash_bwd_dkdv_pass_sees_bitwise_the_forwards_scores(cuda_device):
+    """#6's dk/dv pass (s^T = k q^T over 128-key blocks) and #5 (s = q k^T
+    over 128-query blocks) on the tensor cores, causal at S = 600 (ragged
+    last tiles): the same fp32 score at every (query, key) in range, bit
+    for bit."""
+    case = (2, 4, 64, 600, 600, (600, 377), True)
+    b, h, dh, sq, sk, _, causal = case
+    q, k, v, mask, do = _grad_inputs(cuda_device, case, torch.bfloat16)
+    mask8 = mask.to(torch.bool).contiguous()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    scores = torch.full((2, b, h, sq, sk), float("nan"), device=cuda_device)
+    fwd = _build.bind("flash_attention", "m3p_flash_attention_fwd_scores",
+                      _SCORES_FLASH_FWD_ARGTYPES, defines=SCORE_DUMP)
+    o = torch.empty_like(q)
+    stats = torch.empty((b, h, sq, 2), dtype=torch.float32,
+                        device=cuda_device)
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask8.data_ptr(),
+              o.data_ptr(), stats.data_ptr(), b, sq, sk, h, dh,
+              *_strides(q, k, v, o), dh ** -0.5, int(causal),
+              scores[0].data_ptr(), stream)
+    assert err == 0, err
+    bwd = _build.bind("flash_attention_bwd", "m3p_flash_attention_bwd_scores",
+                      _SCORES_FLASH_BWD_ARGTYPES, defines=SCORE_DUMP)
+    di = attention_ops.flash_row_dot(o, do, h).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    for phase in (0, 1):
+        err = bwd(phase, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  mask8.data_ptr(), do.data_ptr(), stats.data_ptr(),
+                  di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  b, sq, sk, h, dh, *_strides(q, k, v, do, dq, dk, dv),
+                  dh ** -0.5, int(causal), scores[1].data_ptr(), stream)
+        assert err == 0, err
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, attention_flash_reference(
+        q, k, v, mask, h, causal), **TOL_BF16)
+    want = attention_flash_bwd_reference(q, k, v, mask, o, stats, do, h,
+                                         causal)
+    for g, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(g, w, **TOL_BF16)
+    assert not scores.isnan().any()
+    report = _score_report("scores", scores[0], scores[1])
+    print(report)
+    assert torch.equal(scores[0], scores[1]), report
+
+
+def test_score_dump_build_is_a_library_of_its_own(monkeypatch, tmp_path):
+    """The debug build has its own library name and passes the macro to
+    nvcc; the shipped build passes none."""
+    commands = []
+
+    def fake_nvcc(cmd, **kw):
+        commands.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return types.SimpleNamespace(returncode=0, stderr="")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_nvcc)
+    shipped = _build.build("packed_attention_bwd")
+    debug = _build.build("packed_attention_bwd", SCORE_DUMP)
+    assert shipped != debug and shipped.exists() and debug.exists()
+    assert "M3P_SCORE_DUMP" in debug.name
+    assert [c for c in commands[0] if c.startswith("-D")] == []
+    assert [c for c in commands[1] if c.startswith("-D")] == [
+        "-DM3P_SCORE_DUMP"]
+    assert _build.build("packed_attention_bwd", SCORE_DUMP) == debug
+    assert len(commands) == 2       # built once
+
+
+@pytest.mark.parametrize("source", ["packed_attention_bwd.cu",
+                                    "packed_tile_bwd.cuh",
+                                    "flash_attention.cu",
+                                    "flash_attention_bwd.cu"])
+def test_score_dump_code_is_behind_the_macro(source):
+    """Every call of a kernel with the dump flag set, and every C entry of
+    the debug build, lies inside ``#ifdef M3P_SCORE_DUMP``: the shipped
+    libraries hold no instantiation that writes scores."""
+    inside, depth = [], 0
+    for line in (_build.CSRC / source).read_text().splitlines():
+        if line.startswith("#ifdef M3P_SCORE_DUMP"):
+            depth += 1
+        elif line.startswith("#endif") and depth:
+            depth -= 1
+        inside.append(depth > 0)
+    lines = (_build.CSRC / source).read_text().splitlines()
+    flagged = [i for i, line in enumerate(lines)
+               if re.search(r"true, true>|\bm3p_\w+_scores\(|\bdump_scores\(",
+                            line)]
+    assert flagged, source
+    assert all(inside[i] for i in flagged), [lines[i] for i in flagged
+                                             if not inside[i]]
 
 
 # ---------------------------------------------------------------------------
