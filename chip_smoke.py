@@ -10,9 +10,11 @@ Phases, each of which fails the run if it fails:
      small odd shapes and at the shapes the two paths give it: the packed
      attention forward at dropout rates 0 and 0.1, the backward at 0 and
      0.1, fp32 (CUDA cores) and bf16 in both designs (tensor cores, and
-     forced to CUDA cores), with a batch row that has no valid key, and at
+     forced to CUDA cores), with a batch row that has no valid key, at
      the decoder shapes (B = 4, H = 12, Dh = 64: causal (63, 63) and
-     (100, 100), cross-attention (63, 100), (63, 164) and (100, 64)); then
+     (100, 100), cross-attention (63, 100), (63, 164) and (100, 64)), and
+     at phase 11's source encodings (the batch buckets of its calls over
+     100 regions and over the 32-token text bucket); then
      the V = identity check (fp32, and bf16 through the tensor cores, also
      causal at the decoder's S = 63) that the forward, the backward and the
      plain version draw one Philox dropout mask;
@@ -99,13 +101,35 @@ Phases, each of which fails the run if it fails:
      streams of 2048 tokens (12 #5 and 24 #6, no packed launch), each
      step's launches checked; one caption step with `use_fused_dropout`
      (60 #7 and 60 #8, all "wide"); fp32 gradients of `caption_loss` on
-     the card against the CPU at depth 2; a learning check at depth 2.
+     the card against the CPU at depth 2; a learning check at depth 2;
+ 11. generation at the flagship width, bf16 (random weights, a generated
+     vocab of 250002 ids): `InferenceEngine.caption` (16 images of 10-100
+     regions, the refiner on) and `.translate` (16 sentences of the
+     32-token bucket), greedy and beam 5 at max_gen_len 20, and
+     /v1/caption (through the batcher and the custom path) and
+     /v1/translate over HTTP, each call's launches checked (15 #1 a
+     caption call, 12 a translation, no kernel in the decode steps, whose
+     attention takes `mha_reference` below 512 keys); the EOS rule of
+     greedy lengths; caption and translate throughput (CUDA events over
+     10 calls after 3, and 5 after 1), one call at the 64-image bucket with its
+     peak memory, /v1/caption p50 / p99 over 40 requests, a profile of a
+     beam-5 call, the decode step's parts (blocks, word head, stable
+     top-k, self-cache gather); the beam-5 call and the step's parts again
+     in a new process (``--caption_timing``), before and after one
+     profiler session; a beam-5 call at max_len 514 on a depth-2
+     model, whose self-attention over the 514-position cache takes #5 in
+     every step (2 x 513 launches, all on the tensor cores); #5 at that
+     decode shape timed as issued and from a CUDA graph beside SDPA and
+     the bound; fp32 greedy on the card, its tokens teacher-forced through
+     the cached decoder on the card and the CPU, the logits compared.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
 shape, V = identity in fp32 and bf16; each call's design read from the
 per-design launch counts; at the xMLM shape the two designs in turns on
-the same tensors), and the fused dropout kernels (bit for bit against
+the same tensors; #5 at phase 11's decode shape, one query over 514 keys
+at B = 80, the mask filled to 1, 64, 513 and 514 keys, also through
+`attention_bhsd`), and the fused dropout kernels (bit for bit against
 their plain versions in fp32 and bf16 at rates 0.1 and 0.5, odd sizes,
 unaligned views, the MCT shape, in the "wide" and the "narrow" design;
 x = 1 mask identity; the two designs timed in turns).
@@ -124,6 +148,7 @@ import dataclasses
 import functools
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import threading
@@ -265,6 +290,12 @@ def check_kernels(gen):
                                                     TOL_BF16)):
             cases.append((CAPTION_B, CAPTION_LEN - 1, sk, 12, 64, dt,
                           causal, tol))
+    # phase 11's source encoder (image regions, text bucket) at the batch
+    # buckets of its calls, keys padded as the engine pads them
+    for b, s in generation_source_shapes():
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
+                                                    TOL_BF16)):
+            cases.append((b, s, s, 12, 64, dt, False, tol))
     worst = {}
     for b, sq, sk, h, dh, dt, causal, tol in cases:
         q, k, v, mask = attn_inputs(b, sq, sk, h, dh, dt, gen)
@@ -868,11 +899,14 @@ def time_decoder_kernels(gen):
 # ---------------------------------------------------------------------------
 
 
-def write_vocab(path: str) -> None:
-    """A small unigram TSV vocab: one piece per word, then letters."""
+def write_vocab(path: str, n_pieces: int = 0) -> None:
+    """A small unigram TSV vocab: one piece per word, then letters; with
+    ``n_pieces``, numbered pieces up to that many (no text of `WORDS`
+    contains a digit, so the words encode as before)."""
     pieces = [("▁" + w, -4.0) for w in WORDS]
     pieces += [(c, -9.0) for c in "abcdefghijklmnopqrstuvwxyz"]
     pieces += [("▁", -8.0)]
+    pieces += [(f"▁{i}", -20.0) for i in range(n_pieces - len(pieces))]
     with open(path, "w", encoding="utf-8") as f:
         for piece, score in pieces:
             f.write(f"{piece}\t{score}\n")
@@ -1095,6 +1129,10 @@ def kernel_group(name: str) -> str:
         return "packed_attention"
     if "bernoulli" in low:
         return "dropout masks"
+    if "sort" in low:
+        return "sort"
+    if "indexselect" in low.replace("_", ""):
+        return "index_select"
     if "foreach" in low or "multi_tensor" in low:
         return "optimizer (foreach)"
     if "memcpy" in low or "memset" in low:
@@ -1521,6 +1559,7 @@ def check_flash_kernels(gen):
             + "; ".join(msg) + f" (tolerance fwd {tol_f}, bwd {tol_b})")
         del q, k, v, mask, do
         torch.cuda.empty_cache()
+    worst["decode"] = check_flash_decode_shape(gen)
     # the comparison has teeth: causal and dropout change the output
     for dt in (f32, bf16):
         q, k, v, mask, _ = flash_inputs(2, 200, 200, 2, 16, dt, gen)
@@ -1532,6 +1571,72 @@ def check_flash_kernels(gen):
         if off < 0.1:
             fail(f"flash {dt}: causal or dropout leaves the output "
                  f"unchanged ({off}); check is vacuous")
+    return worst
+
+
+# a beam-5 decode step of 16 images over a cache of 514 positions: one
+# query against S_max keys (two past the last full 64-key tile); the key
+# mask ends after the filled positions pos + 1
+DECODE_SHAPE = (80, 1, 514, 12, 64)
+DECODE_FILLED = (1, 64, 513, 514)
+
+
+def decode_inputs(filled, dtype, gen):
+    """q (B, 1, H*Dh), k/v (B, S_max, H*Dh) and the cache's key mask, the
+    first ``filled`` positions valid in every row."""
+    import torch
+
+    b, sq, sk, h, dh = DECODE_SHAPE
+    q, k, v, _ = attn_inputs(b, sq, sk, h, dh, dtype, gen)
+    mask = (torch.arange(sk, device="cuda") < filled).expand(b, sk)
+    return q, k, v, mask
+
+
+def check_flash_decode_shape(gen):
+    """#5 at the decode shape against its plain version at rate 0 (decoding
+    is deterministic): fp32 (CUDA cores) and bf16 (tensor cores), the mask
+    filled to 1, 64, 513 and 514 positions, in the packed layout and
+    through `attention_bhsd`, the head-major entry the decode cache branch
+    calls, which takes #5 from 512 keys."""
+    import torch
+
+    from m3p_tpu_torch.ops.attention import (
+        attention_bhsd, attention_flash, attention_flash_reference)
+
+    b, sq, sk, h, dh = DECODE_SHAPE
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        tol = TOL_FP32 if dt == torch.float32 else TOL_BF16
+        design = kernel_tests().flash_design(dt, dh)
+        errs = []
+        for filled in DECODE_FILLED:
+            q, k, v, mask = decode_inputs(filled, dt, gen)
+            want = attention_flash_reference(q, k, v, mask, h)
+            before = dict(attention_flash.launches_by_design)
+            got = attention_flash(q, k, v, mask, h)
+            torch.cuda.synchronize()
+            took = launched_design(attention_flash.launches_by_design,
+                                   before, 1)
+            what = f"flash decode shape {name} filled {filled}"
+            errs.append(_compare(got, want, tol, what))
+            qh, kh, vh = (t.view(b, t.shape[1], h, dh).transpose(1, 2)
+                          for t in (q, k, v))
+            before = dict(attention_flash.launches_by_design)
+            got = attention_bhsd(qh, kh.contiguous(), vh.contiguous(), mask)
+            torch.cuda.synchronize()
+            took_h = launched_design(attention_flash.launches_by_design,
+                                     before, 1)
+            if (took, took_h) != (design, design):
+                fail(f"{what}: the launches took {took} / {took_h}; the "
+                     f"rule names {design}")
+            errs.append(_compare(got.transpose(1, 2).reshape(b, sq, h * dh),
+                                 want, tol, f"{what} (attention_bhsd)"))
+        worst[f"{name}_{design}"] = max(errs)
+        log(f"[check] flash decode shape B={b} Sq={sq} Sk={sk} H={h} "
+            f"Dh={dh} {name} ({design}), mask filled to {DECODE_FILLED}, "
+            f"packed and head-major: max|kernel-plain| {max(errs):.3e} "
+            f"(tolerance {tol})")
     return worst
 
 
@@ -3129,9 +3234,559 @@ def decoder_learning_check(seed, steps=40):
     return {"first5": first, "last5": last}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: generation
+# ---------------------------------------------------------------------------
+
+# the engine's defaults (`m3p_tpu/serve/engine.py:57-59`); 16 images of
+# 100 regions or 16 sentences of the 32-token bucket a throughput call
+GEN_B, GEN_BEAM, GEN_LEN, GEN_PENALTY = 16, 5, 20, 1.0
+# the other calls of the phase: the 64-image bucket, two images on the
+# custom /v1/caption path (one on the batcher's) and three sentences on
+# /v1/translate
+GEN_BIG_B, GEN_HTTP_IMAGES, GEN_HTTP_TEXTS = 64, 2, 3
+GEN_TEXT_BUCKET = 32
+GEN_WARM, GEN_TIMED = 3, 10
+# the cache length from which the self-attention takes #5 (PALLAS_MIN_KV_LEN
+# keys), and the longest the positions allow
+LONG_DECODE = 514
+# fp32 logits of the full-width decoder on the card against the CPU: 12
+# blocks of fp32 GEMMs and the 768-long dot products of the word head,
+# summed in another order (TOL_SCORE_FP32's reason)
+TOL_LOGIT_FP32 = 1e-3
+GEN_LANGS = {"en": 0, "de": 1}
+
+
+def generation_source_shapes():
+    """(B, S) of each source encoding on phase 11's path, B the engine's
+    batch bucket of the call: captions over the regions, translations over
+    the text bucket."""
+    from m3p_tpu_torch.serve.engine import DEFAULT_BATCH_BUCKETS, _bucket
+
+    regions = full_width_config("bfloat16").max_region_num
+    caps = (GEN_B, 1, GEN_HTTP_IMAGES, GEN_BIG_B)
+    texts = (GEN_B, GEN_HTTP_TEXTS)
+    return sorted({(_bucket(n, DEFAULT_BATCH_BUCKETS), s)
+                   for ns, s in ((caps, regions), (texts, GEN_TEXT_BUCKET))
+                   for n in ns})
+
+
+def generation_calls(cfg, what, max_len=GEN_LEN):
+    """Launches one engine call of ``what`` makes: the source encoder's
+    attention layers through #1 (the refiner's and the blocks' for a
+    caption, the blocks' for a translation), all on the tensor cores in
+    bf16, and none in the decode steps below LONG_DECODE - 2 = 512 cached
+    keys (`mha_reference`, no kernel); from there one #5 a block and a
+    step, all on the tensor cores."""
+    layers = cfg.n_layers + (cfg.refine_layers if what == "caption" else 0)
+    steps = max_len - 1
+    flash = cfg.n_layers * steps if max_len >= 512 else 0
+    return expected_launches((layers, 0), (flash, 0))
+
+
+def counted_call(what, fn, per_call):
+    """One call of the main path, its launches counted and checked."""
+    import torch
+
+    zero_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_launches(what, counts, per_call, 1)
+    return out, counts
+
+
+def gen_images(rng, n):
+    return [image(rng, int(rng.randint(10, 101))) for _ in range(n)]
+
+
+def gen_texts(rng, n):
+    """Sentences of 20-28 one-piece words: 22-30 ids with the specials,
+    the 32-token bucket."""
+    return [sentence(rng, int(rng.randint(20, 29))) for _ in range(n)]
+
+
+def check_eos_rule(toks, lens, max_len, what):
+    """lengths = first generated EOS + 2 (max_len without one), PAD after
+    the EOS; -> the number of rows that ended with an EOS."""
+    from m3p_tpu_torch.config import EOS_IDX, PAD_IDX
+
+    ended = 0
+    for row, n in zip(toks.tolist(), lens.tolist()):
+        gen = row[1:]
+        want = gen.index(EOS_IDX) + 2 if EOS_IDX in gen else max_len
+        if n != want or any(t != PAD_IDX for t in row[want:]):
+            fail(f"{what}: a row of length {n} breaks the EOS rule: {row}")
+        ended += EOS_IDX in gen
+    return ended
+
+
+def greedy_sanity(engine, imgs):
+    """Learning-free: greedy lengths obey the EOS rule and rows after their
+    EOS hold PAD.  A random 250,002-word model hardly emits EOS, so the
+    check runs twice: as it is, and with the word head's EOS bias raised
+    for one call to the median of the first step's gaps between a row's
+    top logit and its EOS logit, so that about half the rows end at once
+    and the others go on."""
+    import torch
+
+    from m3p_tpu_torch.config import EOS_IDX
+    from m3p_tpu_torch.model.generation import _decode_step, greedy_generate
+
+    model = engine.model
+    feats, locs, mask = engine.image_batch(imgs)
+    with torch.inference_mode():
+        enc = model.encode_image(feats, locs, mask, True)
+        toks, lens = greedy_generate(model, enc, mask, GEN_LEN)
+        plain = check_eos_rule(toks, lens, GEN_LEN, "greedy")
+        cache = model.init_decode_cache(enc, 2)
+        start = torch.zeros((feats.shape[0], 1), dtype=torch.long,
+                            device=enc.device)
+        logits = _decode_step(model, start, start, None, enc, mask, cache)
+        gap = logits.max(dim=-1).values - logits[:, EOS_IDX]
+        bias = model.pred_layer.bias
+        saved = bias[EOS_IDX].item()
+        bias[EOS_IDX] += gap.median().item()
+        try:
+            toks, lens = greedy_generate(model, enc, mask, GEN_LEN)
+        finally:
+            bias[EOS_IDX] = saved
+        ended = check_eos_rule(toks, lens, GEN_LEN, "greedy, EOS raised")
+    if not 0 < ended:
+        fail("greedy with the EOS bias raised: no row ended; the EOS rule "
+             "went unchecked")
+    log(f"[generation] EOS rule held: {plain} of {len(imgs)} rows ended "
+        f"with the model as it is, {ended} with the EOS bias raised by "
+        f"{gap.median().item():.4f} (lengths {lens.tolist()})")
+    return {"rows": len(imgs), "ended": plain, "ended_eos_raised": ended}
+
+
+def teacher_forced_logits(model, enc, mask, toks):
+    """fp32 logits (steps, B, V) of the cached decoder fed ``toks``."""
+    import torch
+
+    from m3p_tpu_torch.model.generation import _decode_step
+
+    b, n = toks.shape
+    cache = model.init_decode_cache(enc, n)
+    out = []
+    with torch.inference_mode():
+        for t in range(n - 1):
+            pos = torch.full((b, 1), t, device=enc.device)
+            out.append(_decode_step(model, toks[:, t:t + 1], pos, None, enc,
+                                    mask, cache))
+    return torch.stack(out)
+
+
+def compare_generation_with_cpu(seed, tokenizer):
+    """fp32 at full width: greedy on the card (`mha_reference` in the
+    decode steps, #1's CUDA-core design in the encoder), then the card's
+    tokens teacher-forced through the cached decoder on the card and on the
+    CPU: the largest logit difference of each step, each card token within
+    TOL_LOGIT_FP32 of the CPU's top logit, and the card's own teacher-forced
+    argmax equal to its greedy tokens."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.generation import greedy_generate
+    from m3p_tpu_torch.ops.attention import attention_packed
+    from m3p_tpu_torch.serve.engine import InferenceEngine
+
+    t0 = time.time()
+    rng = np.random.RandomState(seed + 11)
+    cfg = full_width_config("float32")
+    # drawn on the card, where the initialisation is fast; the CPU gets a
+    # copy of the same weights
+    gpu_model = build_model(cfg, seed, "cuda")
+    cpu_model = copy.deepcopy(gpu_model).to("cpu")
+    imgs = [image(rng, n) for n in (100, 37)]
+    logits, toks = {}, None
+    before = dict(attention_packed.launches_by_design)
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        engine = InferenceEngine(model, tokenizer, device=dev)
+        feats, locs, mask = engine.image_batch(imgs)
+        with torch.inference_mode():
+            enc = model.encode_image(feats, locs, mask, True)
+            if toks is None:
+                toks, _ = greedy_generate(model, enc, mask, GEN_LEN)
+            logits[dev] = teacher_forced_logits(model, enc, mask,
+                                                toks.to(dev)).float().cpu()
+    took = launched_design(attention_packed.launches_by_design, before,
+                           cfg.n_layers + cfg.refine_layers)
+    from m3p_tpu_torch.config import EOS_IDX
+
+    toks = toks.cpu()
+    gpu, cpu = logits["cuda"], logits["cpu"]
+    per_step = (gpu - cpu).abs().amax(dim=(1, 2)).tolist()
+    gen = toks[:, 1:].T                               # (steps, B)
+    # a row's steps up to its first EOS (after it, it emits PAD)
+    live = torch.cumsum((gen == EOS_IDX).long(), 0) - (gen == EOS_IDX).long()
+    live = live == 0
+    slack = (cpu.max(dim=-1).values
+             - cpu.gather(2, gen[..., None])[..., 0])[live].max()
+    own = (gpu.argmax(dim=-1) == gen)[live]
+    log(f"[fp32 generation] 2 images, greedy at max_len {GEN_LEN} on the "
+        f"card ({took} in the encoder), teacher-forced card vs CPU: max "
+        f"|logit diff| by step {[f'{d:.2e}' for d in per_step]} (tolerance "
+        f"{TOL_LOGIT_FP32}); the CPU's top logit above the card token's by "
+        f"at most {slack.item():.3e}; tokens {toks.tolist()}")
+    if took != "cuda_cores" or max(per_step) > TOL_LOGIT_FP32 \
+            or slack.item() > TOL_LOGIT_FP32 or not own.all():
+        fail("fp32 generation on the card disagrees with the CPU")
+    return {"max_logit_diff": max(per_step),
+            "max_logit_diff_by_step": per_step,
+            "cpu_top_minus_card_token_max": slack.item(),
+            "check_s": time.time() - t0}
+
+
+def time_decode_step(engine, imgs):
+    """The parts of one beam-5 decode step at B * K = 80 rows and a cache of
+    GEN_LEN positions, CUDA events over 50 calls each: the blocks (the
+    embeddings and 12 blocks at one position), the word head (the tied
+    250,002-word table and its fp32 cast), the stable top-2K with the
+    logsumexp over (80, 250002) fp32 logits, and the self-cache gather of
+    the surviving beams."""
+    import torch
+
+    from m3p_tpu_torch.ops.topk import top_k
+
+    model = engine.model
+    feats, locs, mask = engine.image_batch(imgs)
+    bk = feats.shape[0] * GEN_BEAM
+    dev = feats.device
+    with torch.inference_mode():
+        enc = model.encode_image(feats, locs, mask, True)
+        cache = model.init_decode_cache(enc, GEN_LEN, bk)
+        tok = torch.full((bk, 1), 5, device=dev)
+        pos = torch.full((bk, 1), 5, device=dev)
+        step_mask = torch.ones((bk, 1), dtype=torch.bool, device=dev)
+
+        def blocks():
+            cache.pos = 5
+            return model.encode_text(tok, step_mask, None, pos, causal=True,
+                                     src_enc=enc, src_mask=mask, cache=cache)
+
+        hidden = blocks()
+        logits = model.word_logits(hidden[:, 0]).float()
+        rows = torch.arange(bk, device=dev).flip(0)
+        parts = {
+            "blocks": cuda_ms(blocks),
+            "word_head": cuda_ms(
+                lambda: model.word_logits(hidden[:, 0]).float()),
+            "top_k_and_lse": cuda_ms(
+                lambda: (top_k(logits, 2 * GEN_BEAM),
+                         torch.logsumexp(logits, dim=-1))),
+            "self_cache_gather": cuda_ms(lambda: cache.select(rows)),
+        }
+    kv = cache.layers[0].self_kv.k
+    # k and v of every block read and written once
+    gather_bytes = 2 * 2 * kv.numel() * kv.element_size() * len(cache.layers)
+    return {"ms": parts, "rows": bk, "self_cache_gather_bytes": gather_bytes}
+
+
+def time_flash_decode_shape(gen):
+    """#5 at the decode shape (B * K = 80, Sq = 1, Sk = 514, H = 12,
+    Dh = 64, bf16, every cached key valid): as issued and replayed from a
+    CUDA graph, beside its plain version, SDPA on head-major copies with
+    the same boolean mask (one call each way), `attention_bhsd` with its
+    copy of the cache into the packed layout, and the bound: q, k, v and
+    the mask read once and o written once (the cache is read once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from m3p_tpu_torch.ops import attention as ops
+
+    b, sq, sk, h, dh = DECODE_SHAPE
+    q, k, v, mask = decode_inputs(sk, torch.bfloat16, gen)
+    scale = dh ** -0.5
+    before = dict(ops.attention_flash.launches_by_design)
+    ops._launch_flash_fwd(q, k, v, mask, h, False, scale, 0.0, None)
+    torch.cuda.synchronize()
+    if launched_design(ops.attention_flash.launches_by_design, before,
+                       1) != "tensor_cores":
+        fail("the decode shape does not take the tensor-core design")
+    mask_c = mask.contiguous()
+
+    def kernel():
+        return ops._launch_flash_fwd(q, k, v, mask_c, h, False, scale, 0.0,
+                                     None)
+
+    qh, kh, vh = (t.view(b, t.shape[1], h, dh).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    sdpa_mask = mask_c[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=sdpa_mask)
+
+    ms = cuda_ms(kernel)
+    ms_graph = graph_ms(kernel)
+    lib_ms = cuda_ms(sdpa)
+    lib_graph = graph_ms(sdpa)
+    route_ms = cuda_ms(lambda: ops.attention_bhsd(qh, kh, vh, mask_c))
+    plain_ms = cuda_ms(lambda: ops.attention_flash_reference(q, k, v, mask_c,
+                                                             h),
+                       iters=10, warmup=2)
+    n_bytes = (2 * b * sq + 2 * b * sk) * h * dh * 2 + b * sk
+    flops = 4 * b * h * sq * sk * dh
+    bound_ms, bound_by = bound(n_bytes, flops)
+    out = {"ms": ms, "ms_graph": ms_graph, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_ms_graph": lib_graph,
+           "attention_bhsd_ms": route_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": n_bytes, "flops": flops,
+           "design": "tensor_cores",
+           "shape": {"B": b, "Sq": sq, "Sk": sk, "H": h, "Dh": dh,
+                     "dtype": "bfloat16"}}
+    log(f"[time] flash_attention_fwd at the decode shape B={b} Sq={sq} "
+        f"Sk={sk} bf16: {ms:.4f} ms as issued, {ms_graph:.4f} from a CUDA "
+        f"graph; plain {plain_ms:.4f}; sdpa {lib_ms:.4f} ({lib_graph:.4f} "
+        f"from a graph); attention_bhsd with the packed copy {route_ms:.4f}; "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+    return out
+
+
+def full_vocab_tokenizer():
+    """A tokenizer of 250,002 ids: 250,000 pieces with the four specials
+    and <mask>, so that every id a random full-width model emits decodes
+    (``decode`` raises on an id past the vocab)."""
+    from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = os.path.join(tmp, "vocab.tsv")
+        write_vocab(vocab, 250000)
+        tokenizer = XLMRTokenizer(vocab)
+    if tokenizer.vocab_size != 250002:
+        fail(f"the generated vocab has {tokenizer.vocab_size} ids")
+    return tokenizer
+
+
+def generation_setup(seed, tokenizer):
+    """Phase 11's engine (the flagship width in bf16, its weights from
+    ``seed``) and inputs: -> (cfg, engine, rng, GEN_B images, GEN_B
+    sentences)."""
+    import numpy as np
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.serve.engine import InferenceEngine
+
+    rng = np.random.RandomState(seed + 10)
+    cfg = full_width_config("bfloat16")
+    engine = InferenceEngine(build_model(cfg, seed, "cuda"), tokenizer,
+                             device="cuda", max_regions=cfg.max_region_num,
+                             beam_size=GEN_BEAM, max_gen_len=GEN_LEN,
+                             length_penalty=GEN_PENALTY, lang2id=GEN_LANGS)
+    return cfg, engine, rng, gen_images(rng, GEN_B), gen_texts(rng, GEN_B)
+
+
+def caption_timing(seed):
+    """Phase 11's beam-5 caption call of GEN_B images (GEN_WARM + GEN_TIMED
+    calls, CUDA events) and the decode step's parts, timed in this process
+    before and after one profiler session of the call.  `main` runs it in
+    a new process (``--caption_timing``), so that the first reading has
+    no earlier phase and no profiler session behind it."""
+    _, engine, _, imgs, _ = generation_setup(seed, full_vocab_tokenizer())
+    out = {}
+    for when in ("before_profile", "after_profile"):
+        out[when] = {
+            "caption_beam_ms": cuda_ms(lambda: engine.caption(imgs),
+                                       iters=GEN_TIMED, warmup=GEN_WARM),
+            "decode_step_parts_ms": time_decode_step(engine, imgs)["ms"]}
+        if when == "before_profile":
+            out["profile_beam"] = profile_window(
+                f"caption beam {GEN_BEAM}, {GEN_B} images, new process",
+                lambda: engine.caption(imgs), reps=2)
+    return out
+
+
+def fresh_caption_timing(seed):
+    """`caption_timing` in a new process on the same card (the libraries
+    are built by then); its log lines are passed on."""
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+         "--caption_timing"], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  [new process] {line}")
+    if proc.returncode != 0 or not lines:
+        fail(f"the caption timing in a new process exited "
+             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def generation_slice(seed, tokenizer, gen):
+    """Phase 11: captions and translations at the flagship width, bf16,
+    through the engine and over HTTP, each call's launches counted; the
+    EOS rule; throughput, the 64-image bucket, /v1/caption latency, a
+    profile of a beam-5 call, the decode step's parts; then a beam-5
+    caption call at max_len 514 on a depth-2 model, whose self-attention
+    takes #5 from the first step."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.serve.engine import InferenceEngine
+    from m3p_tpu_torch.serve.server import make_server
+
+    t0 = time.time()
+    cfg, engine, rng, imgs, texts = generation_setup(seed, tokenizer)
+    ids = tokenizer.encode_batch(texts, max_ids=62)
+    if not all(GEN_TEXT_BUCKET // 2 < len(s) + 2 <= GEN_TEXT_BUCKET
+               for s in ids):
+        fail("the translation texts do not fall in the 32-token bucket")
+    cap_calls = generation_calls(cfg, "caption")
+    mt_calls = generation_calls(cfg, "translate")
+    runs = {}
+    server, app = make_server(engine, host="127.0.0.1", port=0,
+                              max_body_bytes=512 * 1024 * 1024)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        # ---- the main path, counted call by call ----
+        caps = {}
+        for name, beam in (("greedy", 1), ("beam", GEN_BEAM)):
+            caps[name], runs[f"caption_{name}"] = counted_call(
+                f"caption {name}", lambda: engine.caption(
+                    imgs, beam_size=beam), cap_calls)
+            _, runs[f"translate_{name}"] = counted_call(
+                f"translate {name}", lambda: engine.translate(
+                    texts, "de", "en", beam_size=beam), mt_calls)
+        one = as_json(imgs[0])
+        http, runs["http_caption"] = counted_call(
+            "/v1/caption (batcher)",
+            lambda: post(base, "/v1/caption", {"images": [one]}), cap_calls)
+        custom, runs["http_caption_custom"] = counted_call(
+            "/v1/caption (custom)",
+            lambda: post(base, "/v1/caption", {
+                "images": [one] * GEN_HTTP_IMAGES, "beam_size": GEN_BEAM}),
+            cap_calls)
+        mt_http, runs["http_translate"] = counted_call(
+            "/v1/translate", lambda: post(base, "/v1/translate", {
+                "texts": texts[:GEN_HTTP_TEXTS], "src_lang": "en",
+                "tgt_lang": "de"}),
+            mt_calls)
+        # ---- checks ----
+        for name, out in caps.items():
+            if len(out) != GEN_B or not all(isinstance(c, str) and c
+                                            for c in out):
+                fail(f"caption {name}: {out}")
+        if http["captions"] != custom["captions"][:1] \
+                or custom["captions"][0] != custom["captions"][1]:
+            fail(f"/v1/caption: the batcher {http} and the custom path "
+                 f"{custom} disagree")
+        if len(mt_http["translations"]) != GEN_HTTP_TEXTS:
+            fail(f"/v1/translate: {mt_http}")
+        engine_one = engine.caption(imgs[:1])
+        if http["captions"] != engine_one:
+            fail(f"/v1/caption {http} vs engine.caption {engine_one}")
+        log(f"[generation] launches per call {json.dumps(runs)}; caption "
+            f"(beam 5) {caps['beam'][0][:60]!r}, /v1/caption "
+            f"{http['captions'][0][:60]!r}")
+        sanity = greedy_sanity(engine, imgs)
+
+        # ---- numbers ----
+        feats, locs, mask = engine.image_batch(imgs)
+        with torch.inference_mode():
+            encode_ms = cuda_ms(lambda: engine.model.encode_image(
+                feats, locs, mask, True), iters=10, warmup=2)
+        numbers = {"encode_image_ms": encode_ms}
+        # caption 3 + 10 calls, translate 1 + 5 (to keep the phase short)
+        for name, beam in (("greedy", 1), ("beam", GEN_BEAM)):
+            ms = cuda_ms(lambda: engine.caption(imgs, beam_size=beam),
+                         iters=GEN_TIMED, warmup=GEN_WARM)
+            numbers[f"caption_{name}"] = {
+                "ms": ms, "images_per_s": GEN_B / (ms / 1e3),
+                "decode_tokens_per_s": GEN_B * (GEN_LEN - 1) / (ms / 1e3),
+                "ms_per_decode_step": (ms - encode_ms) / (GEN_LEN - 1)}
+            ms = cuda_ms(lambda: engine.translate(texts, "de", "en",
+                                                  beam_size=beam),
+                         iters=5, warmup=1)
+            numbers[f"translate_{name}"] = {
+                "ms": ms, "sentences_per_s": GEN_B / (ms / 1e3),
+                "decode_tokens_per_s": GEN_B * (GEN_LEN - 1) / (ms / 1e3)}
+        big = gen_images(rng, GEN_BIG_B)
+        engine.caption(big)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: engine.caption(big), iters=1, warmup=0)
+        numbers["caption_beam_64"] = {
+            "ms": ms, "images_per_s": GEN_BIG_B / (ms / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        post(base, "/v1/caption", {"images": [one]})
+        lat = []
+        for i in range(40):
+            body = {"images": [as_json(imgs[i % GEN_B])]}
+            t1 = time.perf_counter()
+            post(base, "/v1/caption", body)
+            lat.append((time.perf_counter() - t1) * 1e3)
+        p50, p99 = (float(x) for x in np.percentile(lat, [50, 99]))
+        numbers["http_caption_p50_ms"] = p50
+        numbers["http_caption_p99_ms"] = p99
+        numbers["decode_step_parts"] = time_decode_step(engine, imgs)
+        numbers["profile_beam"] = profile_window(
+            f"caption beam {GEN_BEAM}, {GEN_B} images",
+            lambda: engine.caption(imgs), reps=2)
+    finally:
+        server.shutdown()
+        server.server_close()
+        app.close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        fail("server thread did not stop")
+    numbers["main_path_and_numbers_s"] = time.time() - t0
+    log(f"[perf] generation at {GEN_B} images / sentences, max_gen_len "
+        f"{GEN_LEN}: {json.dumps(numbers)}")
+    del engine, app, server
+    torch.cuda.empty_cache()
+
+    # ---- the same beam-5 call in a process with no history ----
+    # host-paced: set against this process's reading, after phases 1-10
+    # and their profiler sessions, it says what that history costs; set
+    # against its own second reading, what one profiler session costs
+    fresh = fresh_caption_timing(seed)
+    numbers["caption_beam_new_process"] = fresh
+    log(f"[generation] beam-{GEN_BEAM} caption call of {GEN_B} images: "
+        f"{numbers['caption_beam']['ms']:.2f} ms in this process after "
+        f"phases 1-10; in a new process "
+        f"{fresh['before_profile']['caption_beam_ms']:.2f} ms, "
+        f"{fresh['after_profile']['caption_beam_ms']:.2f} after one "
+        f"profiler session; the 12 blocks of a step "
+        f"{numbers['decode_step_parts']['ms']['blocks']:.2f} / "
+        f"{fresh['before_profile']['decode_step_parts_ms']['blocks']:.2f} / "
+        f"{fresh['after_profile']['decode_step_parts_ms']['blocks']:.2f} ms")
+
+    # ---- the long decode: #5 in every step, counted ----
+    long_cfg = dataclasses.replace(cfg, n_layers=2)
+    engine = InferenceEngine(build_model(long_cfg, seed, "cuda"), tokenizer,
+                             device="cuda", max_regions=cfg.max_region_num,
+                             lang2id=GEN_LANGS)
+    per_call = generation_calls(long_cfg, "caption", LONG_DECODE)
+    t1 = time.perf_counter()
+    long_caps, runs["long_decode"] = counted_call(
+        f"caption beam {GEN_BEAM} at max_len {LONG_DECODE}, depth 2",
+        lambda: engine.caption(imgs, beam_size=GEN_BEAM,
+                               max_len=LONG_DECODE), per_call)
+    long_s = time.perf_counter() - t1
+    if len(long_caps) != GEN_B:
+        fail(f"long decode: {len(long_caps)} captions")
+    log(f"[generation] beam {GEN_BEAM} at max_len {LONG_DECODE}, depth 2, "
+        f"{GEN_B} images: {long_s:.2f} s, launches {runs['long_decode']} = "
+        f"{per_call}")
+    del engine
+    torch.cuda.empty_cache()
+    numbers.update(launches=runs, sanity=sanity, long_decode_s=long_s,
+                   flash_decode_shape=time_flash_decode_shape(gen),
+                   phase_s=time.time() - t0)
+    return numbers
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--caption_timing", action="store_true",
+                   help="only time phase 11's beam-5 caption call before "
+                        "and after a profiler session (one JSON line)")
     args = p.parse_args()
     if not (REPO / "m3p_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: m3p_tpu_torch is not beside this script; run it "
@@ -3146,6 +3801,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.caption_timing:
+        print(json.dumps(caption_timing(args.seed)), flush=True)
+        return 0
     name = torch.cuda.get_device_name(0)
     from m3p_tpu_torch import bench
 
@@ -3228,6 +3886,24 @@ def main() -> int:
     dec_runs = {"caption": decoder["launches"], **{
         path: out["launches"] for path, out in decoder["paths"].items()}}
     dec_packed = [p for p in dec_runs if p != "clm"]
+    torch.cuda.empty_cache()
+
+    full_tokenizer = full_vocab_tokenizer()
+    generation = generation_slice(args.seed, full_tokenizer, gen)
+    generation["fp32_card_vs_cpu"] = compare_generation_with_cpu(
+        args.seed, full_tokenizer)
+    gen_runs = generation["launches"]
+    gen_paths = {
+        path: [r for name, r in gen_runs.items()
+               if path in name and name != "long_decode"]
+        for path in ("caption", "translate")}
+    gen_packed = {f"generation_{path}": sum(r["packed_fwd"] for r in runs)
+                  for path, runs in gen_paths.items()}
+    gen_packed["generation_long_decode"] = \
+        gen_runs["long_decode"]["packed_fwd"]
+    gen_packed_tc = sum(r["packed_fwd_tensor_cores"]
+                        for r in gen_runs.values())
+    long_flash = gen_runs["long_decode"]["flash_fwd"]
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -3239,14 +3915,16 @@ def main() -> int:
         "replaces": "m3p_tpu/ops/attention.py:1016",
         "launches": (numbers["launches"] + training["launches"]["fwd"]
                      + mct_a["packed_fwd"] + mct_b["packed_fwd"]
-                     + sum(dec_runs[p]["packed_fwd"] for p in dec_packed)),
+                     + sum(dec_runs[p]["packed_fwd"] for p in dec_packed)
+                     + sum(gen_packed.values())),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
                              "mct_B": mct_b["packed_fwd"],
                              "mct_B_clcm_step": mct_clcm["packed_fwd"],
                              **{p: dec_runs[p]["packed_fwd"]
-                                for p in dec_packed}},
+                                for p in dec_packed},
+                             **gen_packed},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -3254,7 +3932,8 @@ def main() -> int:
             "mct_A_tensor_cores": mct_a["packed_fwd_tensor_cores"],
             "mct_B_tensor_cores": mct_b["packed_fwd_tensor_cores"],
             **{f"{p}_tensor_cores": dec_runs[p]["packed_fwd_tensor_cores"]
-               for p in dec_packed}},
+               for p in dec_packed},
+            "generation_tensor_cores": gen_packed_tc},
         "design": blocks["design"],
         "max_abs_err": max(worst["bfloat16_tensor_cores"],
                            worst_train["fwd"]["bfloat16_tensor_cores"]),
@@ -3321,12 +4000,18 @@ def main() -> int:
         "source": "m3p_tpu_torch/csrc/flash_attention.cu",
         "replaces": "m3p_tpu/ops/attention.py:177",
         "launches": (long_ctx["launches"]["fwd"]
-                     + dec_runs["clm"]["flash_fwd"]),
+                     + dec_runs["clm"]["flash_fwd"] + long_flash),
         "launches_by_path": {"xmlm": long_ctx["launches"]["fwd"],
-                             "clm": dec_runs["clm"]["flash_fwd"]},
+                             "clm": dec_runs["clm"]["flash_fwd"],
+                             "generation_long_decode": long_flash},
         "launches_per_step": long_ctx["launches_per_step"]["fwd"],
-        "launches_by_design": long_ctx["launches_by_design"]["fwd"],
+        "launches_by_design": {
+            **long_ctx["launches_by_design"]["fwd"],
+            "generation_long_decode_tensor_cores":
+                gen_runs["long_decode"]["flash_fwd_tensor_cores"]},
         "design": flash_fwd["design"],
+        "decode_shape": generation["flash_decode_shape"],
+        "max_abs_err_decode_shape": flash_worst["decode"],
         "max_abs_err": flash_worst["fwd"]["bfloat16_tensor_cores"],
         "max_abs_err_cuda_cores": flash_worst["fwd"]["bfloat16_cuda_cores"],
         "max_abs_err_fp32": flash_worst["fwd"]["float32"],
@@ -3505,6 +4190,7 @@ def main() -> int:
     log(f"[mct] {json.dumps(mct)} on {card}")
     log(f"[fused_ffn] {json.dumps(ffn)}")
     log(f"[decoder] {json.dumps(decoder)} on {card}")
+    log(f"[generation] {json.dumps(generation)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

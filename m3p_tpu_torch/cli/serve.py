@@ -1,17 +1,24 @@
-"""Model server CLI of the port: load a checkpoint and serve ITM scoring and
-retrieval over HTTP (counterpart of `m3p_tpu/cli/serve.py`)::
+"""Model server CLI of the port: load a checkpoint and serve ITM scoring,
+retrieval, captioning and translation over HTTP (counterpart of
+`m3p_tpu/cli/serve.py`)::
 
     python -m m3p_tpu_torch.cli.serve --reload_model model.pth \\
-        --vocab_path vocab.tsv --device cuda --port 8470
+        --vocab_path vocab.tsv --lgs en-de --device cuda --port 8470 \\
+        --beam_size 5 --max_gen_len 20 --length_penalty 1.0
 
     curl -s localhost:8470/health
     curl -s -X POST localhost:8470/v1/score \\
         -d '{"pairs": [{"text": "a dog", "feats": [[...]], "locs": [[...]]}]}'
+    curl -s -X POST localhost:8470/v1/caption \\
+        -d '{"images": [{"feats": [[...]], "locs": [[...]]}]}'
+    curl -s -X POST localhost:8470/v1/translate \\
+        -d '{"texts": ["a dog"], "src_lang": "en", "tgt_lang": "de"}'
 
-The JAX CLI's captioning flags (``--beam_size``, ``--max_gen_len``,
-``--length_penalty``), its feature store (``--features_path``,
-``--load_gallery``), ``--quant`` and ``--platform`` wait for the slices that
-port those features; ``--device`` picks the torch device.
+The decoding flags set the engine's defaults; a /v1/caption or
+/v1/translate request may override ``beam_size`` and ``max_len``.  The JAX
+CLI's feature store (``--features_path``, ``--load_gallery``),
+``--quant`` and ``--platform`` wait for the slices that port those
+features; ``--device`` picks the torch device.
 """
 
 from __future__ import annotations
@@ -40,6 +47,10 @@ def get_parser() -> argparse.ArgumentParser:
                    help="language list, e.g. en-de-fr (order fixes lang ids)")
     p.add_argument("--dtype", type=str, default="bfloat16",
                    help="compute dtype: bfloat16 or float32")
+    # decoding defaults
+    p.add_argument("--beam_size", type=int, default=5)
+    p.add_argument("--max_gen_len", type=int, default=20)
+    p.add_argument("--length_penalty", type=float, default=1.0)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the plain versions of the "
                         "kernels")
@@ -74,7 +85,9 @@ def main(argv=None) -> None:
         refine_layers=args.refine_layers, dtype=args.dtype)
     engine = InferenceEngine.from_checkpoint(
         args.reload_model, cfg, tokenizer=tokenizer, device=args.device,
-        refine_image=args.refine_image, lang2id=lang2id)
+        refine_image=args.refine_image, beam_size=args.beam_size,
+        max_gen_len=args.max_gen_len, length_penalty=args.length_penalty,
+        lang2id=lang2id)
     if args.warmup:
         engine.warmup()
     serve_forever(engine, args.host, args.port, max_batch=args.max_batch,

@@ -7,6 +7,10 @@ tree, so `m3p_tpu_torch.checkpoint.params_from_jax` maps it one to one.
 
 Training: every forward takes ``deterministic`` (True = no dropout, as in
 JAX) and, when it is False, the `Generators` that draw its randomness.
+
+Decoding: `EncoderBlock` takes a `LayerCache` and `MultiHeadAttention` a
+`KVCache`, the head-major keys and values of incremental decoding
+(`m3p_tpu/model/layers.py:170-336`, `:603-617`).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from m3p_tpu_torch.ops.activations import gelu_erf
-from m3p_tpu_torch.ops.attention import attention
+from m3p_tpu_torch.ops.attention import attention, attention_bhsd
 from m3p_tpu_torch.ops.dropout import fused_dropout_add
 
 LN_EPS = 1e-12
@@ -90,6 +94,26 @@ def attention_dropout_args(rate: float, deterministic: bool,
     return rate, generator.attention_seed()
 
 
+@dataclass
+class KVCache:
+    """One attention layer's keys and values, head-major (B, H, S, Dh)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+@dataclass
+class LayerCache:
+    """A block's decode cache: ``self_kv`` holds the self-attention keys
+    and values of every position so far in a fixed (B, H, S_max, Dh)
+    buffer, written in place at each step's position; ``cross_kv`` the
+    cross-attention keys and values over the source encoding, projected
+    once (None: projected at every step)."""
+
+    self_kv: KVCache
+    cross_kv: Optional[KVCache] = None
+
+
 class Dense(nn.Linear):
     """nn.Linear that computes in ``dtype`` (flax ``nn.Dense(dtype=...)``)."""
 
@@ -131,9 +155,17 @@ class MultiHeadAttention(nn.Module):
     self-attention and training-time cross-attention (Sq != Sk) take the
     same kernels.  Attention-weight dropout at ``dropout`` runs inside the
     kernels with a per-call seed.
-    The KV-cache branch of the JAX module (incremental decoding, the
-    beam-folded cross-attention) is not ported: it belongs to
-    generation."""
+
+    With a ``cache`` (incremental decoding, `:198-264`) Q/K/V go head-major
+    (B, H, S, Dh) and through `ops.attention.attention_bhsd` at rate 0, as
+    the JAX cache branch calls `attention` (`:326-328`): `mha_reference`
+    below 512 keys, the flash kernel #5 from 512.  Self-attention writes
+    the step's keys and values into the cache at ``pos`` and attends to
+    the positions before ``pos + Sq``; cross-attention reads the cached
+    source keys and values.  When those have fewer rows than the queries
+    (beam search over an unreplicated source), the beams of a row fold
+    into its query length, so each row's keys and values are read once,
+    not once per beam."""
 
     def __init__(self, n_heads: int, dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
@@ -145,12 +177,19 @@ class MultiHeadAttention(nn.Module):
         self.v_lin = Dense(dim, dim, dtype)
         self.out_lin = Dense(dim, dim, dtype)
 
-    def forward(self, x: torch.Tensor, kv_mask: torch.Tensor,
+    def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor],
                 causal: bool = False, deterministic: bool = True,
                 generator: Optional[Generators] = None, *,
-                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None,
+                pos: int = 0) -> torch.Tensor:
         """``kv_mask`` (B, Sk) masks the keys: of ``x`` for self-attention,
-        of ``kv`` for cross-attention."""
+        of ``kv`` for cross-attention.  With ``cache`` (deterministic
+        only): for self-attention the buffer written at ``pos`` (the mask
+        is then the cache's own), for cross-attention (``kv`` given) the
+        source's projected keys and values, which stand in for ``kv``."""
+        if cache is not None:
+            return self._cached(x, kv_mask, kv is not None, cache, pos)
         rate, seed = attention_dropout_args(self.dropout, deterministic,
                                             generator)
         src = x if kv is None else kv
@@ -158,6 +197,56 @@ class MultiHeadAttention(nn.Module):
                         kv_mask, self.n_heads, causal=causal,
                         dropout_rate=rate, dropout_seed=seed)
         return self.out_lin(ctx)
+
+    def _split(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, H*Dh) -> (B, H, S, Dh), a view."""
+        b, s, hd = x.shape
+        return x.view(b, s, self.n_heads, hd // self.n_heads).transpose(1, 2)
+
+    @staticmethod
+    def _merge(x: torch.Tensor) -> torch.Tensor:
+        """(B, H, S, Dh) -> (B, S, H*Dh)."""
+        b, h, s, dh = x.shape
+        return x.transpose(1, 2).reshape(b, s, h * dh)
+
+    def project_kv(self, src: torch.Tensor) -> KVCache:
+        """The keys and values of ``src`` (B, Ss, D), head-major: a
+        cross-attention cache (`m3p_tpu/model/transformer.py:405-410`)."""
+        return KVCache(self._split(self.k_lin(src)),
+                       self._split(self.v_lin(src)))
+
+    def _cached(self, x, kv_mask, cross, cache, pos):
+        q = self._split(self.q_lin(x))
+        b, _, sq, _ = q.shape
+        if cross:
+            k, v = cache.k, cache.v
+        else:
+            s_max = cache.k.shape[2]
+            if pos + sq > s_max:
+                raise ValueError(f"decode position {pos} + {sq} passes the "
+                                 f"cache's {s_max} positions")
+            cache.k[:, :, pos:pos + sq] = self._split(self.k_lin(x))
+            cache.v[:, :, pos:pos + sq] = self._split(self.v_lin(x))
+            k, v = cache.k, cache.v
+            # the filled part of the cache; the query pad mask does not
+            # apply to keys, and the cache mask already ends at the step
+            kv_mask = (torch.arange(s_max, device=x.device)
+                       < pos + sq).expand(b, s_max)
+        fold = b // k.shape[0]
+        if fold * k.shape[0] != b:
+            raise ValueError(f"{b} query rows over {k.shape[0]} cached rows")
+        if fold > 1:
+            # the K beams of a row share its source keys and values: fold
+            # them into the query length (`m3p_tpu/model/layers.py:248-264`)
+            bkv, h, dh = k.shape[0], q.shape[1], q.shape[3]
+            q = (q.reshape(bkv, fold, h, sq, dh).transpose(1, 2)
+                 .reshape(bkv, h, fold * sq, dh))
+        ctx = attention_bhsd(q, k, v, kv_mask)
+        if fold > 1:
+            bkv, h, _, dh = ctx.shape
+            ctx = (ctx.reshape(bkv, h, fold, sq, dh).transpose(1, 2)
+                   .reshape(b, h, sq, dh))
+        return self.out_lin(self._merge(ctx))
 
 
 class TransformerFFN(nn.Module):
@@ -200,7 +289,12 @@ class EncoderBlock(nn.Module):
     only (`:590-601`).
 
     Every block holds ``encoder_attn``/``ln15``, as in the JAX tree; they
-    run when ``src_enc`` is given."""
+    run when ``src_enc`` is given.
+
+    With a `LayerCache` the block takes one decode step (deterministic,
+    `:603-617`): the self cache goes to ``attn`` (written at ``pos``), the
+    cross cache to ``encoder_attn`` (without one it projects ``src_enc``
+    at every step)."""
 
     def __init__(self, n_heads: int, dim: int, ffn_dim: int,
                  gelu_activation: bool = True,
@@ -226,9 +320,14 @@ class EncoderBlock(nn.Module):
                 causal: bool = False, deterministic: bool = True,
                 generator: Optional[Generators] = None, *,
                 src_enc: Optional[torch.Tensor] = None,
-                src_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                src_mask: Optional[torch.Tensor] = None,
+                cache: Optional[LayerCache] = None,
+                pos: int = 0) -> torch.Tensor:
         """``src_enc`` (B, Ss, D) with its mask ``src_mask`` (B, Ss) adds the
-        cross-attention step."""
+        cross-attention step; ``cache`` and ``pos`` make it a decode step
+        over the positions before ``pos`` + S."""
+        if cache is not None and not deterministic:
+            raise ValueError("a decode step with a cache is deterministic")
         fused = (self.use_fused_dropout and not deterministic
                  and self.dropout > 0)
         if fused and generator is None:
@@ -243,12 +342,16 @@ class EncoderBlock(nn.Module):
             return res + dropout(branch, self.dropout, deterministic,
                                  generator)
 
+        self_kv = cache.self_kv if cache is not None else None
+        cross_kv = cache.cross_kv if cache is not None else None
         x = self.ln1(residual(
-            self.attn(x, pad_mask, causal, deterministic, generator), x))
+            self.attn(x, pad_mask, causal, deterministic, generator,
+                      cache=self_kv, pos=pos), x))
         if self.has_cross_attention and src_enc is not None:
             x = self.ln15(residual(
                 self.encoder_attn(x, src_mask, False, deterministic,
-                                  generator, kv=src_enc), x))
+                                  generator, kv=src_enc, cache=cross_kv),
+                x))
         if fused:
             h = self.ffn(x, deterministic, generator, skip_dropout=True)
             x = self.ln2(residual(h, x))

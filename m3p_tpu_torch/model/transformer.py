@@ -18,15 +18,19 @@ The forward topologies, each over the one shared stack of post-LN blocks
   text encoding: the TIFG generator.
 
 Heads: the tied word head (`word_logits`), the object, ITM, CLCM and MRFR
-heads.  No KV cache: incremental decoding belongs to generation, which the
-port does not have yet.  The module tree mirrors the JAX parameter tree
+heads.  Incremental decoding (`model/generation.py`) runs ``encode_text``
+with a `DecodeCache` (`init_cache`, `init_decode_cache`): per-block
+self-attention keys and values written in place and the source's
+cross-attention keys and values projected once.  The module tree mirrors
+the JAX parameter tree
 (``text_emb``, ``image_emb``, ``refiner``, ``block_<i>``, the heads), so a
 JAX checkpoint loads strictly.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -35,7 +39,8 @@ from m3p_tpu_torch.config import ModelConfig
 from m3p_tpu_torch.model.embeddings import (
     AoARefiner, ImageEmbeddings, TextEmbeddings)
 from m3p_tpu_torch.model.heads import MRFRHead, ObjPredLayer, Pooler, PredLayer
-from m3p_tpu_torch.model.layers import EncoderBlock, Generators, dropout
+from m3p_tpu_torch.model.layers import (
+    EncoderBlock, Generators, KVCache, LayerCache, dropout)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -75,6 +80,31 @@ def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """(B,) lengths -> (B, max_len) bool validity mask."""
     return (torch.arange(max_len, device=lengths.device)[None, :]
             < lengths[:, None])
+
+
+@dataclass
+class DecodeCache:
+    """The decode cache of the block stack
+    (`m3p_tpu/model/transformer.py:376-411`): one `LayerCache` per block
+    and the one position ``pos`` of the next step, a Python int so that
+    reading it never waits for the device.  `M3PModel.encode_text` writes
+    the step's keys and values at ``pos`` in every block, then advances
+    ``pos`` once by the step's length (every JAX layer carries its own
+    ``pos``; all of them move together)."""
+
+    layers: List[LayerCache]
+    pos: int = 0
+
+    def select(self, rows: torch.Tensor) -> None:
+        """Keep the self-attention rows ``rows`` (B') of every block: a
+        beam search's gather of its surviving beams
+        (`m3p_tpu/model/generation.py:117-144`, `index_select` for the
+        one-hot einsum, bitwise the same values).  The cross caches are
+        shared by a row's beams and stay as they are."""
+        for layer in self.layers:
+            kv = layer.self_kv
+            layer.self_kv = KVCache(kv.k.index_select(0, rows),
+                                    kv.v.index_select(0, rows))
 
 
 class M3PModel(nn.Module):
@@ -137,12 +167,20 @@ class M3PModel(nn.Module):
     def _run_blocks(self, x: torch.Tensor, pad_mask: torch.Tensor,
                     causal: bool, src_enc: Optional[torch.Tensor],
                     src_mask: Optional[torch.Tensor], deterministic: bool,
-                    generator: Optional[Generators]) -> torch.Tensor:
-        """The stack of blocks (`m3p_tpu/model/transformer.py:136-145`
-        without the cache)."""
-        for block in self.blocks:
+                    generator: Optional[Generators],
+                    cache: Optional[DecodeCache] = None) -> torch.Tensor:
+        """The stack of blocks (`m3p_tpu/model/transformer.py:136-145`).
+        With ``cache``, one decode step at ``cache.pos``, which then
+        advances by the step's length."""
+        layers = cache.layers if cache is not None else [None] * len(
+            self.blocks)
+        pos = cache.pos if cache is not None else 0
+        for block, layer in zip(self.blocks, layers, strict=True):
             x = block(x, pad_mask, causal, deterministic, generator,
-                      src_enc=src_enc, src_mask=src_mask)
+                      src_enc=src_enc, src_mask=src_mask, cache=layer,
+                      pos=pos)
+        if cache is not None:
+            cache.pos += x.shape[1]
         return x
 
     def embed_text(self, tokens: torch.Tensor, text_mask: torch.Tensor,
@@ -164,18 +202,23 @@ class M3PModel(nn.Module):
                     generator: Optional[Generators] = None,
                     causal: bool = False,
                     src_enc: Optional[torch.Tensor] = None,
-                    src_mask: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-        """The text stream (`m3p_tpu/model/transformer.py:169-191`, no
-        cache): (B, S) tokens -> (B, S, D).  ``causal`` masks the future;
-        ``src_enc`` (B, Ss, D) with ``src_mask`` adds cross-attention in
-        every block (the teacher-forced decoder).  Attention takes the
-        packed kernels up to 512 tokens and the flash kernels above."""
+                    src_mask: Optional[torch.Tensor] = None,
+                    cache: Optional[DecodeCache] = None) -> torch.Tensor:
+        """The text stream (`m3p_tpu/model/transformer.py:169-191`): (B, S)
+        tokens -> (B, S, D).  ``causal`` masks the future; ``src_enc``
+        (B, Ss, D) with ``src_mask`` adds cross-attention in every block
+        (the teacher-forced decoder).  Attention takes the packed kernels
+        up to 512 tokens and the flash kernels above.
+
+        ``cache`` makes it one incremental decode step at ``cache.pos``
+        (deterministic; ``causal`` then has no effect, the cache mask ends
+        at the step), updating the cache in place; attention goes
+        head-major through `ops.attention.attention_bhsd`."""
         _check_generators("encode_text", deterministic, generator)
         x = self.embed_text(tokens, text_mask, langs, positions,
                             deterministic, generator)
         return self._run_blocks(x, text_mask, causal, src_enc, src_mask,
-                                deterministic, generator)
+                                deterministic, generator, cache)
 
     def encode_image(self, feats: torch.Tensor, locs: torch.Tensor,
                      img_mask: torch.Tensor, refine_image: bool = False,
@@ -225,6 +268,36 @@ class M3PModel(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.text_emb.embed_tokens(tokens)
+
+    def init_cache(self, batch_size: int, max_len: int) -> DecodeCache:
+        """A decode cache of ``batch_size`` rows and ``max_len`` positions:
+        self-attention keys and values of zeros in the compute dtype, no
+        cross cache (cross-attention then projects the source at every
+        step), ``pos`` 0 (`m3p_tpu/model/transformer.py:376-390`)."""
+        cfg = self.cfg
+        shape = (batch_size, cfg.n_heads, max_len, cfg.head_dim)
+        dev = self.text_emb.word.weight.device
+        dt = torch_dtype(cfg.dtype)
+        return DecodeCache([
+            LayerCache(KVCache(torch.zeros(shape, dtype=dt, device=dev),
+                               torch.zeros(shape, dtype=dt, device=dev)))
+            for _ in self.blocks])
+
+    @torch.no_grad()
+    def init_decode_cache(self, src_enc: torch.Tensor, max_len: int,
+                          batch_size: Optional[int] = None) -> DecodeCache:
+        """`init_cache` plus each block's cross-attention keys and values
+        over ``src_enc`` (B, Ss, D), projected once here rather than at
+        every step (`m3p_tpu/model/transformer.py:392-411`).
+        ``batch_size`` (default B) sizes the self cache: beam search passes
+        B * K and keeps ``src_enc`` unreplicated, and cross-attention folds
+        the beams of a row into its query length.  Decoding takes no
+        gradient: the cache holds none."""
+        b = batch_size if batch_size is not None else src_enc.shape[0]
+        cache = self.init_cache(b, max_len)
+        for block, layer in zip(self.blocks, cache.layers, strict=True):
+            layer.cross_kv = block.encoder_attn.project_kv(src_enc)
+        return cache
 
     def word_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """(..., D) -> (..., n_words) through the tied word table and the

@@ -8,9 +8,12 @@
 * A retrieval gallery is staged on the device once; a query ships only its
   tokens, and each chunk of the gallery is gathered there with
   ``index_select``.
+* Captioning and translation decode with the generation module
+  (`model/generation.py`: beam search by default, greedy at beam 1) over
+  `encode_image` (the refiner when ``refine_image``) or `encode_text`, in
+  the same batch buckets as the JAX engine.
 
-Captioning and translation wait for the generation slice, and ``image_id``
-payloads for the h5 feature store.
+``image_id`` payloads wait for the h5 feature store.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from m3p_tpu_torch.config import PAD_IDX
 from m3p_tpu_torch.data.features import l2_normalize, norm_boxes
 from m3p_tpu_torch.model import lengths_to_mask, resolve_device
+from m3p_tpu_torch.model.generation import beam_search, greedy_generate
 from m3p_tpu_torch.tokenization.tokenizer import batch_sentences
 
 logger = logging.getLogger("m3p_tpu_torch")
@@ -42,7 +46,8 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 class InferenceEngine:
-    """Batched ITM scoring and retrieval over an M3P model."""
+    """Batched ITM scoring, retrieval, captioning and translation over an
+    M3P model."""
 
     def __init__(self, model, tokenizer=None, *,
                  device: Union[str, torch.device] = "cuda",
@@ -50,6 +55,9 @@ class InferenceEngine:
                  text_buckets: Sequence[int] = DEFAULT_TEXT_BUCKETS,
                  batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
                  refine_image: bool = True,
+                 beam_size: int = 5,
+                 max_gen_len: int = 20,
+                 length_penalty: float = 1.0,
                  lang2id: Optional[Dict[str, int]] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -59,6 +67,9 @@ class InferenceEngine:
         self.text_buckets = tuple(sorted(text_buckets))
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.refine_image = refine_image
+        self.beam_size = int(beam_size)
+        self.max_gen_len = int(max_gen_len)
+        self.length_penalty = float(length_penalty)
         self.lang2id = dict(lang2id or {})
         self._gallery: Optional[Dict[str, Any]] = None
         self._lock = threading.Lock()
@@ -125,6 +136,14 @@ class InferenceEngine:
                      self.text_buckets)
         toks, lens, _ = batch_sentences(ids, max_len=sl)
         return toks, lens, sl
+
+    def lang_id(self, lang: Optional[str]) -> Optional[int]:
+        if lang is None:
+            return None
+        if lang not in self.lang2id:
+            raise ValueError(f"unknown language {lang!r}; "
+                             f"known: {sorted(self.lang2id)}")
+        return self.lang2id[lang]
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device, non_blocking=True)
@@ -225,13 +244,115 @@ class InferenceEngine:
         order = np.argsort(-host, kind="stable")[:top_k]
         return [{"id": ids[i], "score": float(host[i])} for i in order]
 
-    def caption(self, images, **kw):
-        raise NotImplementedError("captioning waits for the generation slice "
-                                  "of the PyTorch port")
+    def _generate(self, src_enc: torch.Tensor, src_mask: torch.Tensor,
+                  beam_size: int, max_len: int, lang_id: Optional[int]
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """(tokens, lengths) on the host: beam search above beam 1, greedy
+        at 1 (`m3p_tpu/serve/engine.py:226-277`)."""
+        if beam_size > 1:
+            toks, lens = beam_search(self.model, src_enc, src_mask,
+                                     beam_size, max_len, tgt_lang_id=lang_id,
+                                     length_penalty=self.length_penalty)
+        else:
+            toks, lens = greedy_generate(self.model, src_enc, src_mask,
+                                         max_len, tgt_lang_id=lang_id)
+        return toks.cpu().numpy(), lens.cpu().numpy()
 
-    def translate(self, texts, tgt_lang, **kw):
-        raise NotImplementedError("translation waits for the generation "
-                                  "slice of the PyTorch port")
+    def _decode(self, toks: np.ndarray, lens: np.ndarray, n: int
+                ) -> List[str]:
+        """The first ``n`` rows as text, the start token and the EOS cut."""
+        return [self.tokenizer.decode(toks[i, 1:lens[i]]) for i in range(n)]
+
+    def _generation_args(self, beam_size, max_len):
+        if self.tokenizer is None:
+            raise ValueError("this engine has no tokenizer (pass one to the "
+                             "constructor for text endpoints)")
+        beam_size = self.beam_size if beam_size is None else int(beam_size)
+        max_len = self.max_gen_len if max_len is None else int(max_len)
+        # decode step t reads position t < max_positions, and the last step
+        # is t = max_len - 2: a longer request would index past the table
+        # (on CUDA a device-side assert that breaks every later request)
+        limit = self.model.cfg.max_positions + 1
+        if not 1 <= max_len <= limit:
+            raise ValueError(f"max_len {max_len} must lie in [1, {limit}]")
+        if beam_size < 1:
+            raise ValueError(f"beam_size {beam_size} must be at least 1")
+        return beam_size, max_len
+
+    def image_batch(self, images: Sequence[Dict[str, Any]]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(feats, locs, mask) of at most the largest batch bucket of
+        images, on the device, padded to their bucket: a padding row keeps
+        one region (`m3p_tpu/serve/engine.py:415-422`)."""
+        sb = _bucket(len(images), self.batch_buckets)
+        feats = np.zeros((sb, self.max_regions, self.feat_dim), np.float32)
+        locs = np.zeros((sb, self.max_regions, 5), np.float32)
+        img_len = np.ones((sb,), np.int64)
+        for i, o in enumerate(images):
+            f, l, n = self.resolve_image(o)
+            feats[i], locs[i], img_len[i] = f, l, max(n, 1)
+        return (self._to_device(feats), self._to_device(locs),
+                lengths_to_mask(self._to_device(img_len), self.max_regions))
+
+    def caption(self, images: Sequence[Dict[str, Any]],
+                lang: Optional[str] = None,
+                beam_size: Optional[int] = None,
+                max_len: Optional[int] = None) -> List[str]:
+        """A caption per image (beam search by default): the images padded
+        to a batch bucket (a padding row keeps one region), encoded by
+        `encode_image`, decoded (`m3p_tpu/serve/engine.py:399-431`)."""
+        if not images:
+            return []
+        beam_size, max_len = self._generation_args(beam_size, max_len)
+        lang_id = self.lang_id(lang)
+        out: List[str] = []
+        cap = self.batch_buckets[-1]
+        for start in range(0, len(images), cap):
+            im = images[start:start + cap]
+            feats, locs, img_mask = self.image_batch(im)
+            with self._lock, torch.inference_mode():
+                src_enc = self.model.encode_image(feats, locs, img_mask,
+                                                  self.refine_image)
+                toks, lens = self._generate(src_enc, img_mask, beam_size,
+                                            max_len, lang_id)
+            out.extend(self._decode(toks, lens, len(im)))
+        return out
+
+    def translate(self, texts: Sequence[str], tgt_lang: Optional[str],
+                  src_lang: Optional[str] = None,
+                  beam_size: Optional[int] = None,
+                  max_len: Optional[int] = None) -> List[str]:
+        """Sequence-to-sequence generation against the text encoder, the
+        source's language embedding when ``src_lang`` is given
+        (`m3p_tpu/serve/engine.py:433-468`)."""
+        if not texts:
+            return []
+        beam_size, max_len = self._generation_args(beam_size, max_len)
+        tgt_id = self.lang_id(tgt_lang)
+        src_id = self.lang_id(src_lang)
+        out: List[str] = []
+        cap = self.batch_buckets[-1]
+        for start in range(0, len(texts), cap):
+            t = texts[start:start + cap]
+            sb = _bucket(len(t), self.batch_buckets)
+            tokens, lengths, sl = self._tokenize_bucketed(t)
+            toks = np.full((sb, sl), PAD_IDX, np.int64)
+            tl = np.full((sb,), 2, np.int64)
+            toks[: len(t)] = tokens
+            tl[: len(t)] = lengths
+            langs = None
+            if src_id is not None:
+                langs = np.zeros((sb, sl), np.int64)
+                langs[: len(t)] = src_id
+            with self._lock, torch.inference_mode():
+                src_mask = lengths_to_mask(self._to_device(tl), sl)
+                src_enc = self.model.encode_text(
+                    self._to_device(toks), src_mask,
+                    None if langs is None else self._to_device(langs))
+                otoks, olens = self._generate(src_enc, src_mask, beam_size,
+                                              max_len, tgt_id)
+            out.extend(self._decode(otoks, olens, len(t)))
+        return out
 
     # -- ops ------------------------------------------------------------
 
@@ -260,4 +381,8 @@ class InferenceEngine:
                             if self.device.type == "cuda" else "cpu"),
             "gallery_size": int(g["feats"].shape[0]) if g else 0,
             "languages": sorted(self.lang2id),
+            "endpoints": ["score", "retrieve", "caption", "translate"],
+            "generation": {"beam_size": self.beam_size,
+                           "max_gen_len": self.max_gen_len,
+                           "length_penalty": self.length_penalty},
         }

@@ -7,13 +7,18 @@ Endpoints (POST bodies and responses are JSON):
                       -> {"scores": [float, ...]}
   POST /v1/retrieve   {"text": ..., "top_k": 10}
                       -> {"results": [{"id": ..., "score": ...}, ...]}
-  POST /v1/caption, /v1/translate -> 501 until generation is ported
+  POST /v1/caption    {"images": [<image payload>, ...], "lang": "en",
+                       "beam_size": 5, "max_len": 20}
+                      -> {"captions": [str, ...]}
+  POST /v1/translate  {"texts": [...], "src_lang": "en", "tgt_lang": "de"}
+                      -> {"translations": [str, ...]}
 
 An image payload is inline {"feats": [[...]], "locs": [[...]]} or
 {"features": ..., "boxes": ..., "wh": [h, w]} arrays.
 
-Single-pair /v1/score requests are coalesced across concurrent clients by a
-`MicroBatcher`; multi-pair and retrieval requests run on a serial
+Single-pair /v1/score and single-image default-config /v1/caption requests
+are coalesced across concurrent clients by a `MicroBatcher`; multi-item,
+custom-config, translation and retrieval requests run on a serial
 direct-runner under the same max_pending/timeout admission control (429 /
 503).
 """
@@ -53,6 +58,10 @@ class ServeApp:
         self._score_batcher = MicroBatcher(
             self._score_handler, max_batch=max_batch, max_wait_s=max_wait_s,
             name="score-batcher", max_pending=max_pending)
+        self._caption_batcher = MicroBatcher(
+            self._caption_handler, max_batch=max_batch,
+            max_wait_s=max_wait_s, name="caption-batcher",
+            max_pending=max_pending)
         # multi-item and custom-config requests are already device batches;
         # they run through this serial thunk runner so the SAME max_pending
         # (429) and request_timeout_s (503) admission control covers them —
@@ -67,6 +76,7 @@ class ServeApp:
 
     def close(self) -> None:
         self._score_batcher.stop()
+        self._caption_batcher.stop()
         self._direct_runner.stop()
 
     # -- batched handlers (run on the batcher threads) --------------------
@@ -76,6 +86,9 @@ class ServeApp:
         images = [{k: v for k, v in it.items() if k != "text"}
                   for it in items]
         return self.engine.score(texts, images)
+
+    def _caption_handler(self, items: List[Dict[str, Any]]) -> List[str]:
+        return self.engine.caption(items)
 
     # -- routes ------------------------------------------------------------
 
@@ -101,9 +114,26 @@ class ServeApp:
                 return 200, {"results": self._direct(
                     lambda: self.engine.retrieve(
                         body["text"], top_k=int(body.get("top_k", 10))))}
-            if path in ("/v1/caption", "/v1/translate"):
-                return 501, {"error": f"{path} is not ported to PyTorch yet "
-                                      "(it waits for the generation slice)"}
+            if path == "/v1/caption":
+                images = body["images"]
+                custom = ("lang" in body or "beam_size" in body
+                          or "max_len" in body)
+                if len(images) == 1 and not custom:
+                    cap = self._caption_batcher(
+                        images[0], timeout=self.request_timeout_s)
+                    return 200, {"captions": [cap]}
+                return 200, {"captions": self._direct(
+                    lambda: self.engine.caption(
+                        images, lang=body.get("lang"),
+                        beam_size=body.get("beam_size"),
+                        max_len=body.get("max_len")))}
+            if path == "/v1/translate":
+                return 200, {"translations": self._direct(
+                    lambda: self.engine.translate(
+                        body["texts"], tgt_lang=body["tgt_lang"],
+                        src_lang=body.get("src_lang"),
+                        beam_size=body.get("beam_size"),
+                        max_len=body.get("max_len")))}
             return 404, {"error": f"no route {method} {path}"}
         except QueueFull as e:
             return 429, {"error": f"overloaded: {e}"}

@@ -40,6 +40,7 @@ from m3p_tpu_torch.data.masking import (
     MaskingConfig, mask_regions, mask_tokens)
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel, lengths_to_mask
+from m3p_tpu_torch.ops.topk import top_k
 from m3p_tpu_torch.train.optim import global_norm
 from m3p_tpu_torch.train.state import TrainState
 
@@ -299,15 +300,6 @@ def slide_loss(model: M3PModel, batch: Batch,
     loss = F.binary_cross_entropy_with_logits(scores, labels)
     acc = ((scores.detach() > 0) == (labels > 0)).float().mean()
     return loss, {"loss": loss.detach(), "acc": acc}
-
-
-def top_k(values: torch.Tensor, k: int
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(the k largest of a 1-d tensor, their indices), equal values lower
-    index first, as `jax.lax.top_k` orders them (`torch.topk` gives no order
-    for ties on CUDA): the first k of a stable descending sort."""
-    vals, idx = torch.sort(values, descending=True, stable=True)
-    return vals[:k], idx[:k]
 
 
 def _pack(rows: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,7 @@ from m3p_tpu_torch.ops import fused_ffn as fused_ffn_ops
 from m3p_tpu_torch.ops.attention import (
     attention_flash, attention_flash_bwd_reference, attention_flash_reference,
     attention_packed, attention_packed_bwd_reference,
-    attention_packed_reference, small_attention,
+    attention_bhsd, attention_packed_reference, small_attention,
     small_attention_bwd_reference, small_attention_reference)
 from m3p_tpu_torch.ops.dropout import (
     dropout_add, dropout_add_reference, dropout_scale,
@@ -89,6 +89,12 @@ FLASH_CASES = [
 XMLM_CASE = (8, 12, 64, 2048, 2048, (2048,) * 8, False)
 # a bf16 shape the tensor-core design does not take (Dh 24)
 FLASH_CUDA_CORES_CASE = (2, 2, 24, 150, 260, (260, 90), True)
+# a decode step's self-attention over its cache: B * K = 80 rows of one
+# query against S_max = 514 cached positions (two past the last full
+# 64-key tile), the key mask ending after the filled positions: one valid
+# key, a block edge, the ragged last block, all of them
+DECODE_CASE = (80, 12, 64, 1, 514)
+DECODE_FILLED = [1, 64, 513, 514]
 
 
 def flash_design(dtype, dh):
@@ -479,6 +485,36 @@ def test_flash_attention_kernels_bf16_at_the_long_context_shape(cuda_device,
     assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL_BF16)
     _flash_grad_check(cuda_device, XMLM_CASE, torch.bfloat16, rate, TOL_BF16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("filled", DECODE_FILLED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_the_decode_shape(cuda_device, dtype,
+                                                    filled):
+    """#5 at Sq = 1 against the plain version, in the packed layout and
+    through the head-major entry the decode cache branch calls
+    (`attention_bhsd` at rate 0 takes the flash kernel from 512 keys):
+    fp32 on CUDA cores, bf16 on the tensor cores."""
+    b, h, dh, sq, sk = DECODE_CASE
+    q, k, v, mask = _on(cuda_device,
+                        packed_inputs(b, h, dh, sq, sk, (filled,) * b), dtype)
+    by_design = _design_launches()
+    got = attention_flash(q, k, v, mask, h)
+    torch.cuda.synchronize()
+    _assert_design_rose(by_design, flash_design(dtype, dh), 1, 0)
+    want = attention_flash_reference(q, k, v, mask, h)
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **tol)
+    qh, kh, vh = (t.view(b, t.shape[1], h, dh).transpose(1, 2)
+                  for t in (q, k, v))
+    by_design = _design_launches()
+    got_h = attention_bhsd(qh, kh.contiguous(), vh.contiguous(), mask)
+    torch.cuda.synchronize()
+    _assert_design_rose(by_design, flash_design(dtype, dh), 1, 0)
+    torch.testing.assert_close(got_h.transpose(1, 2).reshape(b, sq, h * dh),
+                               want, **tol)
 
 
 @pytest.mark.gpu

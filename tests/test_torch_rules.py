@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     modules = _port_modules()
     for name in ("serve.engine", "ops.philox", "train.steps", "train.optim",
                  "train.state", "data.synthetic", "data.masking",
-                 "ops.fused_ffn", "bench_fused_ffn"):
+                 "ops.fused_ffn", "bench_fused_ffn", "model.generation",
+                 "ops.topk"):
         assert f"m3p_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

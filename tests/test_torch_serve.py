@@ -1,6 +1,7 @@
 """The port's serving stack against the JAX engine: tokenizer ids, ITM
-scores and retrieval on the same vocab and weights (to 1e-4), padding
-invariance, and the HTTP contract of the port's server."""
+scores and retrieval on the same vocab and weights (to 1e-4), captions
+and translations (the same strings), padding invariance, the HTTP
+contract of the port's server, and the CLI's flags."""
 
 import dataclasses
 import http.client
@@ -21,6 +22,7 @@ from m3p_tpu.serve.engine import InferenceEngine as JaxEngine
 from m3p_tpu.tokenization.tokenizer import XLMRTokenizer as JaxTokenizer
 from m3p_tpu.tokenization.unigram import train_unigram
 from m3p_tpu_torch.checkpoint import params_from_jax
+from m3p_tpu_torch.cli.serve import get_parser
 from m3p_tpu_torch.config import ModelConfig
 from m3p_tpu_torch.model import build_model
 from m3p_tpu_torch.serve.engine import InferenceEngine, _bucket
@@ -42,6 +44,7 @@ D = 2048
 TOL = 1e-4
 TEXTS = ["a dog runs on the beach", "two cats sleep", "a man rides",
          "zebra quokka", " ".join(["very"] * 12)]
+GEN_LEN = 8
 
 
 def _image(rng, n=R):
@@ -61,7 +64,7 @@ def engines(tmp_path_factory):
         dtype="float32", use_pallas_attention=False)
     jmodel, params = jax_build_model(jcfg, jax.random.PRNGKey(0))
     kw = dict(max_regions=R, text_buckets=(8, 16), batch_buckets=(1, 2, 4),
-              lang2id={"en": 0, "de": 1})
+              beam_size=3, max_gen_len=GEN_LEN, lang2id={"en": 0, "de": 1})
     jeng = JaxEngine(jmodel, params, tokenizer=jtok, **kw)
     model = build_model(ModelConfig(**dataclasses.asdict(jcfg)), 0, "cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)),
@@ -147,8 +150,53 @@ def test_payload_errors(engines):
          "wh": [100.0, 100.0]})
     assert n == 2 and feats.shape == (R, D) and locs.shape == (R, 5)
     assert np.allclose(np.linalg.norm(feats[:2], axis=-1), 1.0, atol=1e-5)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         teng.caption([{}])
+    with pytest.raises(ValueError):
+        teng.translate(["a dog"], tgt_lang="xx")
+    # the position table has max_positions rows: the last step of a
+    # max_len decode reads row max_len - 2
+    limit = teng.model.cfg.max_positions + 1
+    img = _image(np.random.RandomState(0), 1)
+    for kw in ({"max_len": limit + 1}, {"max_len": 0}, {"beam_size": 0}):
+        with pytest.raises(ValueError):
+            teng.caption([img], **kw)
+    with pytest.raises(ValueError):
+        teng.translate(["a dog"], tgt_lang="de", max_len=limit + 1)
+
+
+@pytest.mark.parametrize("beam", [1, 3])
+def test_caption_matches_jax(engines, beam):
+    """Greedy and beam captions of images with 1-4 regions, six images
+    over the batch buckets (4 + 2 padded to 2): the JAX engine's
+    strings."""
+    jeng, teng = engines
+    rng = np.random.RandomState(4)
+    images = [_image(rng, n) for n in (4, 1, 3, 2, 4, 3)]
+    got = teng.caption(images, beam_size=beam)
+    assert got == jeng.caption(images, beam_size=beam)
+    assert len(got) == 6 and all(isinstance(c, str) for c in got)
+    assert teng.caption(images[:1], beam_size=beam) == got[:1]
+
+
+@pytest.mark.parametrize("src_lang", [None, "en"])
+def test_translate_matches_jax(engines, src_lang):
+    jeng, teng = engines
+    got = teng.translate(TEXTS, tgt_lang="de", src_lang=src_lang)
+    assert got == jeng.translate(TEXTS, tgt_lang="de", src_lang=src_lang)
+    assert len(got) == len(TEXTS)
+
+
+def test_cli_parses_the_generation_flags():
+    base = ["--reload_model", "m.pth", "--vocab_path", "v.tsv"]
+    args = get_parser().parse_args(base)
+    assert (args.beam_size, args.max_gen_len, args.length_penalty) == (
+        5, 20, 1.0)
+    args = get_parser().parse_args(base + [
+        "--beam_size", "3", "--max_gen_len", "12", "--length_penalty",
+        "0.6"])
+    assert (args.beam_size, args.max_gen_len, args.length_penalty) == (
+        3, 12, 0.6)
 
 
 def _request(url, body=None, data=None):
@@ -212,9 +260,39 @@ def test_http_endpoints(engines):
         resp = conn.getresponse()
         assert resp.status == 413 and b"exceeds" in resp.read()
         conn.close()
-        for path in ("/v1/caption", "/v1/translate"):
-            status, out = _request(base + path, {"images": []})
-            assert status == 501, out
+        im = _image(rng)
+        img = {"feats": im["feats"].tolist(), "locs": im["locs"].tolist()}
+        status, out = _request(base + "/v1/caption", {"images": [img]})
+        assert status == 200 and len(out["captions"]) == 1, out
+        status, custom = _request(base + "/v1/caption",
+                                  {"images": [img], "beam_size": 3})
+        assert status == 200 and custom == out
+        assert out["captions"] == teng.caption([img])
+        status, out = _request(base + "/v1/caption",
+                               {"images": [img, img], "max_len": 5})
+        assert status == 200 and len(out["captions"]) == 2
+        status, out = _request(base + "/v1/translate",
+                               {"texts": TEXTS[:2], "src_lang": "en",
+                                "tgt_lang": "de"})
+        assert status == 200, out
+        assert out["translations"] == teng.translate(TEXTS[:2], "de", "en")
+        for body in ({"texts": TEXTS[:1], "tgt_lang": "xx"},
+                     {"texts": TEXTS[:1]},
+                     {"texts": TEXTS[:1], "tgt_lang": "de",
+                      "src_lang": "xx"}):
+            status, out = _request(base + "/v1/translate", body)
+            assert status == 400, out
+        status, out = _request(base + "/v1/caption",
+                               {"images": [{"locs": [[0.0] * 5]}]})
+        assert status == 400, out
+        for body in ({"images": [img], "max_len": 10000},
+                     {"images": [img], "beam_size": 0}):
+            status, out = _request(base + "/v1/caption", body)
+            assert status == 400, out
+        status, out = _request(base + "/v1/translate",
+                               {"texts": TEXTS[:1], "tgt_lang": "de",
+                                "max_len": 10000})
+        assert status == 400, out
         status, _ = _request(base + "/nope", {})
         assert status == 404
     finally:
