@@ -14,7 +14,10 @@ Phases, each of which fails the run if it fails:
      the decoder shapes (B = 4, H = 12, Dh = 64: causal (63, 63) and
      (100, 100), cross-attention (63, 100), (63, 164) and (100, 64)), and
      at phase 11's source encodings (the batch buckets of its calls over
-     100 regions and over the 32-token text bucket); then
+     100 regions and over the 32-token text bucket), and at phase 12's
+     batch (B = 24: MASS's decoder, causal (64, 64) and cross (64, 128);
+     BART's and AE's, causal (127, 127) and cross (127, 128); the stream
+     encoder (128, 128); the PC pair (127, 127)); then
      the V = identity check (fp32, and bf16 through the tensor cores, also
      causal at the decoder's S = 63) that the forward, the backward and the
      plain version draw one Philox dropout mask;
@@ -121,7 +124,27 @@ Phases, each of which fails the run if it fails:
      every step (2 x 513 launches, all on the tensor cores); #5 at that
      decode shape timed as issued and from a CUDA graph beside SDPA and
      the bound; fp32 greedy on the card, its tokens teacher-forced through
-     the cached decoder on the card and the CPU, the logits compared.
+     the cached decoder on the card and the CPU, the logits compared;
+ 12. the denoising and adversarial objectives at the flagship width, FreeLB
+     at the trainer's settings (K = 3 passes, adv_lr 1e-3, l2, no
+     projection, text and image deltas): the FreeLB MCT step
+     (`train/freelb.py::make_freelb_pretrain_step` over phase 8's model,
+     batch and optimizer) in configurations A and B, 2 warm-up and 10
+     timed steps: samples/s, step ms, peak memory, an MFU reading over K x
+     the MCT step's FLOPs, launches per step (K x phase 8's), a profile of
+     one step with the deltas' ascent as its own span; the trainer's
+     is_freelb pair (the plain MCT step, then FreeLB) on B's model,
+     counted; one step with adv_max_norm 1e-2 (every delta finite and
+     inside the ball, which it reaches); the FreeLB ITM step over phase
+     6's batch and the FreeLB caption step over phase 10's (deterministic,
+     as in the JAX package; 1 warm-up and 5 timed steps each; the ITM
+     step leaves the word table unmoved); one counted step each of MASS,
+     BART (with --use_noise) and AE over one stream batch of 24 x 128
+     through `data/loader.py`'s transforms, IDA (`caption_loss` over
+     Poisson-noised regions) and PC (`concat_batches` pairs, width 127);
+     fp32 gradients after the K passes on the card against the CPU at
+     depth 2 (rate 0, one coin, masking and pair of initial deltas fed to
+     both); a learning check at depth 2 (30 steps, one generator seed).
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -296,6 +319,11 @@ def check_kernels(gen):
         for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
                                                     TOL_BF16)):
             cases.append((b, s, s, 12, 64, dt, False, tol))
+    # phase 12's MASS, BART / AE, stream encoder and PC shapes at its batch
+    for sq, sk, causal in checked_denoising_shapes():
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
+                                                    TOL_BF16)):
+            cases.append((STREAM_B, sq, sk, 12, 64, dt, causal, tol))
     worst = {}
     for b, sq, sk, h, dh, dt, causal, tol in cases:
         q, k, v, mask = attn_inputs(b, sq, sk, h, dh, dt, gen)
@@ -352,8 +380,9 @@ def check_dropout_and_backward(gen):
     shape the kernels take at Dh 64 and 128, the decoder shapes at B = 4,
     and the training shapes (B = 80; encoder blocks at S = 164, the refiner
     at S = 100; the caption step's B = 24, causal (63, 63) and cross
-    (63, 100)), each with a batch row that has no valid key.  #2 in fp32 (CUDA cores) and bf16 in
-    both designs: the one the rule names (the tensor cores at these shapes,
+    (63, 100); phase 12's `denoising_shapes` at B = 24), each with a batch
+    row that has no valid key.  #2 in fp32 (CUDA cores) and bf16 in both
+    designs: the one the rule names (the tensor cores at these shapes,
     CUDA cores at Dh 8) and forced to CUDA cores, each call's design read
     from the per-design launch counts."""
     import torch
@@ -381,6 +410,9 @@ def check_dropout_and_backward(gen):
                   (80, s_, s_, 12, 64, bf16, False)]
     for sk, causal in caption_kv_shapes():   # the caption step's, B = 24
         cases += [(CAPTION_B, CAPTION_LEN - 1, sk, 12, 64, dt, causal)
+                  for dt in (f32, bf16)]
+    for sq, sk, causal in checked_denoising_shapes():   # phase 12's
+        cases += [(STREAM_B, sq, sk, 12, 64, dt, causal)
                   for dt in (f32, bf16)]
     worst = {"fwd": {}, "bwd": {}}
 
@@ -470,6 +502,17 @@ def decoder_shapes():
     hold them (`DECODER_CASES`)."""
     return [(sq, sk, causal)
             for _, _, _, sq, sk, _, causal in kernel_tests().DECODER_CASES]
+
+
+def checked_denoising_shapes():
+    """`denoising_shapes`, after checking that the `gpu` tests hold the
+    same ones (`DENOISING_CASES`, at B = STREAM_B, 12 heads of 64)."""
+    shapes = denoising_shapes()
+    cases = kernel_tests().DENOISING_CASES
+    held = [(sq, sk, causal) for _, _, _, sq, sk, _, causal in cases]
+    if held != shapes or {c[:3] for c in cases} != {(STREAM_B, 12, 64)}:
+        fail(f"DENOISING_CASES {held} are not phase 12's shapes {shapes}")
+    return shapes
 
 
 def caption_kv_shapes():
@@ -1147,10 +1190,13 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_window(label, fn, reps=3) -> dict:
+def profile_window(label, fn, reps=3, spans=()) -> dict:
     """torch.profiler over ``reps`` calls of ``fn`` (after one untraced
     call): wall and device-busy ms per call, the device's idle share, and
-    device time by kernel group and by kernel, logged on one line."""
+    device time by kernel group and by kernel, logged on one line.  Each
+    name in ``spans``, a `torch.profiler.record_function` range of the
+    path, reports the device time of the kernels launched inside it (its
+    kernels stay in their groups too)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1164,9 +1210,10 @@ def profile_window(label, fn, reps=3) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
+              and e.self_device_time_total > 0 and e.key not in spans]
     if not events:
         log(f"[profile] {label}: the profiler recorded no device time; "
             f"not measured")
@@ -1185,8 +1232,30 @@ def profile_window(label, fn, reps=3) -> dict:
            "top_kernels": [{"name": e.key[:90], "calls": e.count // reps,
                             "ms": e.self_device_time_total / 1e3 / reps}
                            for e in top]}
+    if spans:
+        spent = {name: span_device_ms(averages, name) for name in spans}
+        out["spans_ms"] = {name: None if ms is None else ms / reps
+                           for name, ms in spent.items()}
     log(f"[profile] {label} (per call, {reps} calls): {json.dumps(out)}")
     return out
+
+
+def span_device_ms(averages, name):
+    """Device ms of the kernels launched inside the record_function range
+    ``name``: the range's own device-side record where the profiler makes
+    one, else the device time its host-side record collects from the
+    operators inside it; None when neither holds any."""
+    from torch.autograd import DeviceType
+
+    for e in averages:
+        if e.key == name and e.device_type == DeviceType.CUDA:
+            return e.self_device_time_total / 1e3
+    for e in averages:
+        if e.key == name and e.device_type == DeviceType.CPU:
+            total = getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0))
+            return total / 1e3 if total else None
+    return None
 
 
 def compare_fp32_with_cpu(seed, tokenizer):
@@ -3781,6 +3850,482 @@ def generation_slice(seed, tokenizer, gen):
     return numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the denoising and adversarial objectives
+# ---------------------------------------------------------------------------
+
+# FreeLB at the trainer's settings (m3p_tpu/config.py:351-356, passed by
+# m3p_tpu/train/trainer.py:256-260; adv_init_mag at FreeLBConfig's 1e-4,
+# which the trainer does not set)
+FREELB = dict(adv_steps=3, adv_lr=1e-3, adv_max_norm=0.0, norm_type="l2",
+              free_text=True, free_img=True)
+FREELB_WARMUP, FREELB_STEPS = 2, 10
+FREELB_SHORT_WARMUP, FREELB_SHORT_STEPS = 1, 5
+# the MCT loss of the FreeLB step packs its MLM slots at
+# mct_pretrain_loss's default, which the JAX FreeLB step keeps; the
+# trainer's plain step at DataConfig.mlm_pack_ratio, the same 0.5
+FREELB_PACK = 0.5
+# the stream objectives: DataConfig's batch_size x bptt (m3p_tpu/config.py:
+# 189, 227) and --word_mass 0.5 (:346); the word noise of --use_noise and
+# of AE at XLM's settings (--word_shuffle 3 --word_dropout 0.1
+# --word_blank 0.1)
+STREAM_B, BPTT, WORD_MASS = 24, 128, 0.5
+WORD_NOISE = (3.0, 0.1, 0.1)
+# the projection check: a step long enough for the ball to bite
+PROJECT_MAX_NORM, PROJECT_LR = 1e-2, 1e-2
+
+
+def denoising_shapes():
+    """(Sq, Sk, causal) of phase 12's attention at B = STREAM_B (the
+    `gpu` tests hold them as `DENOISING_CASES`): MASS's decoder, causal
+    over its span of round(BPTT * WORD_MASS) positions and across over the
+    BPTT-token stream; BART's and AE's decoder, causal over BPTT - 1
+    positions and across over the BPTT-token source; the stream encoder;
+    the PC pair of two CAPTION_LEN-token sides joined on one EOS."""
+    span = max(int(round(BPTT * WORD_MASS)), 1)
+    pair = 2 * CAPTION_LEN - 1
+    return [(span, span, True), (span, BPTT, False),
+            (BPTT - 1, BPTT - 1, True), (BPTT - 1, BPTT, False),
+            (BPTT, BPTT, False), (pair, pair, False)]
+
+
+def freelb_config(**kw):
+    from m3p_tpu_torch.train.freelb import FreeLBConfig
+
+    return FreeLBConfig(**{**FREELB, **kw})
+
+
+def times(per_step, n):
+    return {k: v * n for k, v in per_step.items()}
+
+
+def freelb_mct_slice(seed, fused):
+    """The FreeLB MCT step at the flagship width (`m3p_tpu_torch.bench`'s
+    model, batch and optimizer; configuration A or B): 2 warm-up and 10
+    timed steps, the launches counted, a profile of one step with the
+    deltas' ascent as its own span.  Returns (numbers, state, gens,
+    batch)."""
+    import numpy as np
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.train.freelb import (
+        ASCENT_SPAN, make_freelb_pretrain_step)
+
+    label = "B (use_fused_dropout)" if fused else "A"
+    cfg = bench.bench_config(fused_dropout=fused)
+    state, _, gens = bench.setup(cfg, seed, "cuda")
+    step = make_freelb_pretrain_step(state.model, bench.SAMPLE_N,
+                                     bench.mask_config(cfg), freelb_config())
+    batch = bench.make_batch(0, "cuda")
+    watched = {n: p.detach().clone()
+               for n, p in state.model.named_parameters()
+               if n in ("block_0.attn.q_lin.weight", "text_emb.word.weight",
+                        "obj_pred.proj.weight")}
+    per_step = times(mct_per_step(cfg), FREELB["adv_steps"])
+    # ---- the main path, counted ----
+    zero_launch_counts()
+    numbers = bench.run(state, step, batch, gens, FREELB_WARMUP,
+                        FREELB_STEPS)
+    counts = launch_counts()
+    # ---- checks ----
+    n_steps = FREELB_WARMUP + FREELB_STEPS
+    if not np.isfinite(numbers["losses"]).all():
+        fail(f"FreeLB MCT {label}: non-finite loss {numbers['losses']}")
+    check_launches(f"FreeLB MCT {label}", counts, per_step, n_steps)
+    moved = {n: (p.detach().float() - watched[n].float()).abs().max().item()
+             for n, p in state.model.named_parameters() if n in watched}
+    if state.step != n_steps or not all(v > 0 for v in moved.values()):
+        fail(f"FreeLB MCT {label}: the parameters did not change: {moved}")
+    flops = FREELB["adv_steps"] * bench.mct_step_flops(
+        cfg, numbers["bn"], pack_ratio=FREELB_PACK)
+    numbers.update({
+        "launches": counts, "launches_per_step": per_step,
+        "flops_per_step": flops,
+        "mfu": flops / (numbers["step_ms"] / 1e3) / BF16_FLOPS_PER_S,
+        "loss_first": numbers["losses"][0],
+        "loss_last": numbers["losses"][-1]})
+    del numbers["losses"]
+    log(f"[freelb mct {label}] {n_steps} steps of K = "
+        f"{FREELB['adv_steps']} passes at BN={numbers['bn']}: "
+        f"{numbers['step_ms']:.2f} ms a step (CUDA events, "
+        f"{numbers['steps']} steps), {numbers['samples_per_s']:.1f} "
+        f"samples/s, host wall {numbers['wall_step_ms']:.2f} ms a step, "
+        f"peak memory {numbers['peak_memory_gb']:.2f} GB; launches "
+        f"{counts} = {per_step} x {n_steps}; {flops / 1e12:.3f} TFLOP a "
+        f"step, MFU {numbers['mfu']:.4f} of 989 TF/s; loss "
+        f"{numbers['loss_first']:.4f} -> {numbers['loss_last']:.4f}; max "
+        f"|param change| {moved}")
+    prof = profile_window(f"one FreeLB MCT step {label}",
+                          lambda: step(state, batch, gens), reps=2,
+                          spans=(ASCENT_SPAN,))
+    if prof:
+        prof["idle_share_vs_event_step"] = (
+            1.0 - prof["device_busy_ms"] / numbers["step_ms"])
+    numbers["profile"] = prof
+    return numbers, state, gens, batch
+
+
+def trainer_pair(state, gens, batch):
+    """The trainer's ``is_freelb`` dispatch for ``pretrain_rel``
+    (`m3p_tpu/train/trainer.py:249-287`): the plain MCT step, then the
+    FreeLB step, on one batch; the launches of the pair counted."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.train.freelb import make_freelb_pretrain_step
+
+    cfg = state.model.cfg
+    plain = bench.make_step(cfg, pack_ratio=FREELB_PACK)
+    adv = make_freelb_pretrain_step(state.model, bench.SAMPLE_N,
+                                    bench.mask_config(cfg), freelb_config())
+
+    def combined(st, b, g):
+        st, m = plain(st, b, g)
+        st, m_adv = adv(st, b, g)
+        return st, dict(m, adv_loss=m_adv["loss"])
+
+    per_pair = times(mct_per_step(cfg), 1 + FREELB["adv_steps"])
+    # ---- the main path, counted ----
+    zero_launch_counts()
+    state, m = combined(state, batch, gens)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # ---- checks ----
+    check_launches("the trainer's is_freelb pair", counts, per_pair, 1)
+    if not all(torch.isfinite(v).all() for v in m.values()):
+        fail(f"the trainer's is_freelb pair: non-finite metrics {m}")
+    metrics = {k: v.item() for k, v in m.items()}
+    log(f"[freelb] the trainer's is_freelb pair (plain MCT step, then "
+        f"FreeLB) on one batch: launches {counts} = {per_pair}; metrics "
+        f"{metrics}")
+    return state, {"launches": counts, "metrics": metrics}
+
+
+def freelb_projection_check(state, gens, batch):
+    """One FreeLB MCT step with adv_max_norm = PROJECT_MAX_NORM and
+    adv_lr = PROJECT_LR: every delta after every ascent finite and inside
+    the ball, and the ball reached (so the projection ran)."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.train import freelb
+
+    adv = freelb_config(adv_max_norm=PROJECT_MAX_NORM, adv_lr=PROJECT_LR)
+    step = freelb.make_freelb_pretrain_step(
+        state.model, bench.SAMPLE_N, bench.mask_config(state.model.cfg), adv)
+    seen = []
+    ascend = freelb._ascend
+
+    def recording(*args, **kw):
+        out = ascend(*args, **kw)
+        seen.append(out.detach())
+        return out
+
+    freelb._ascend = recording
+    try:
+        state, m = step(state, batch, gens)
+    finally:
+        freelb._ascend = ascend
+    norms = [torch.linalg.vector_norm(d.reshape(d.shape[0], -1).double(),
+                                      dim=1) for d in seen]
+    largest = max(n.max().item() for n in norms)
+    finite = all(torch.isfinite(d).all().item() for d in seen)
+    log(f"[freelb] projection: {len(seen)} deltas after ascent (K = "
+        f"{adv.adv_steps}, text and image), adv_max_norm "
+        f"{PROJECT_MAX_NORM}, adv_lr {PROJECT_LR}: finite {finite}, largest "
+        f"row norm {largest:.9f}; loss {m['loss'].item():.4f}")
+    if len(seen) != 2 * adv.adv_steps or not finite:
+        fail(f"FreeLB projection: {len(seen)} deltas, finite {finite}")
+    if not PROJECT_MAX_NORM * 0.999 <= largest <= PROJECT_MAX_NORM * (
+            1 + 1e-5):
+        fail(f"FreeLB projection: largest row norm {largest}, ball "
+             f"{PROJECT_MAX_NORM}")
+    return state, {"deltas": len(seen), "largest_row_norm": largest}
+
+
+def timed_steps(what, state, step, batch, gens, per_step):
+    """FREELB_SHORT_WARMUP + FREELB_SHORT_STEPS steps of a FreeLB step
+    (`bench.run`), the launches counted and checked."""
+    import numpy as np
+
+    from m3p_tpu_torch import bench
+
+    # ---- the main path, counted ----
+    zero_launch_counts()
+    out = bench.run(state, step, batch, gens, FREELB_SHORT_WARMUP,
+                    FREELB_SHORT_STEPS)
+    counts = launch_counts()
+    # ---- checks ----
+    n_steps = FREELB_SHORT_WARMUP + FREELB_SHORT_STEPS
+    check_launches(what, counts, per_step, n_steps)
+    if not np.isfinite(out["losses"]).all():
+        fail(f"{what}: non-finite loss {out['losses']}")
+    out.update(launches=counts, launches_per_step=per_step,
+               loss_first=out["losses"][0], loss_last=out["losses"][-1])
+    del out["losses"]
+    log(f"[freelb] {what}: {n_steps} steps, {out['step_ms']:.2f} ms a step "
+        f"(CUDA events, {FREELB_SHORT_STEPS} steps), "
+        f"{out['samples_per_s']:.1f} samples/s, host wall "
+        f"{out['wall_step_ms']:.2f} ms, peak memory "
+        f"{out['peak_memory_gb']:.2f} GB; launches {counts} = {per_step} x "
+        f"{n_steps}; loss {out['loss_first']:.4f} -> {out['loss_last']:.4f}")
+    return out
+
+
+def freelb_itm_and_caption(seed):
+    """The FreeLB ITM step over phase 6's batch and the FreeLB caption step
+    over phase 10's, each at the flagship width, timed and counted."""
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train.freelb import (
+        make_freelb_ic_step, make_freelb_itm_step)
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    out = {}
+    k = FREELB["adv_steps"]
+    for kind in ("itm", "caption"):
+        cfg = train_config() if kind == "itm" else decoder_config()
+        model = build_model(cfg, seed, "cuda")
+        tx, _ = build_optimizer(OPTIM_SPEC, clip_grad_norm=CLIP)
+        state = create_train_state(model, tx)
+        gens = Generators.from_seed(seed, "cuda")
+        word = model.text_emb.word.weight.detach().clone()
+        if kind == "itm":
+            step = make_freelb_itm_step(model, SAMPLE_N, freelb_config())
+            batch = train_batch(seed, "cuda")
+            per_step = times(mct_per_step(cfg), k)
+        else:
+            step = make_freelb_ic_step(model, freelb_config())
+            batch = decoder_batch("caption", seed, "cuda")
+            per_step = times(decoder_per_step(cfg, "caption"), k)
+        out[kind] = timed_steps(f"FreeLB {kind}", state, step, batch, gens,
+                                per_step)
+        # the ITM step takes the word embeddings outside the passes: the
+        # word table gets no gradient and does not move
+        still = torch.equal(model.text_emb.word.weight, word)
+        if still != (kind == "itm"):
+            fail(f"FreeLB {kind}: the word table moved: {not still}")
+        del state, model, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def denoising_batches(seed, mask_index, n_words):
+    """The batches of the denoising rows, from ``RandomState(seed)``: MASS,
+    BART (with --use_noise) and AE over one stream batch of STREAM_B x
+    BPTT, IDA over phase 10's caption batch with Poisson region noise, PC
+    pairs of two CAPTION_LEN-token sides (half the labels 0: the target of
+    another row), each checked against `denoising_shapes`."""
+    import numpy as np
+
+    from m3p_tpu_torch.data import loader, synthetic
+    from m3p_tpu_torch.data.noise import concat_batches
+    from m3p_tpu_torch.data.span_masking import poisson_region_noise
+
+    rng = np.random.RandomState(seed)
+    stream = synthetic.make_stream_batch(rng, STREAM_B, BPTT, n_words)
+    out = {
+        "mass": loader.make_mass_transform(WORD_MASS, mask_index, n_words)(
+            rng, dict(stream), 0),
+        "bart": loader.make_bart_transform(mask_index, WORD_NOISE)(
+            rng, dict(stream), 0),
+        "ae": loader.make_ae_transform(*WORD_NOISE, mask_index)(
+            rng, dict(stream), 0)}
+    cap = synthetic.make_caption_batch(rng, CAPTION_B, CAPTION_LEN, REGIONS,
+                                       n_words)
+    cap["feats"] = poisson_region_noise(rng, cap["feats"], cap["img_len"])
+    out["ida"] = cap
+    pairs = synthetic.make_mt_batch(rng, STREAM_B, CAPTION_LEN, n_words)
+    labels = (np.arange(STREAM_B) % 2).astype(np.int32)
+    other = np.roll(np.arange(STREAM_B), 1)
+    tgt = np.where(labels[:, None] > 0, pairs["tgt_tokens"],
+                   pairs["tgt_tokens"][other])
+    tgt_len = np.where(labels > 0, pairs["tgt_len"], pairs["tgt_len"][other])
+    toks, lens, pos, langs = concat_batches(
+        pairs["src_tokens"], pairs["src_len"], 0, tgt, tgt_len, 1)
+    width = 2 * CAPTION_LEN - 1
+    pad = width - toks.shape[1]
+    out["pc"] = {"tokens": np.pad(toks, ((0, 0), (0, pad)),
+                                  constant_values=1),
+                 "lengths": lens,
+                 "positions": np.pad(pos, ((0, 0), (0, pad))),
+                 "langs": np.pad(langs, ((0, 0), (0, pad))),
+                 "labels": labels}
+    got = [(STREAM_B,) + out["mass"]["dec_tokens"].shape[1:],
+           out["mass"]["enc_tokens"].shape,
+           (STREAM_B, out["bart"]["tgt_tokens"].shape[1] - 1),
+           out["bart"]["src_tokens"].shape, out["ae"]["src_tokens"].shape,
+           out["pc"]["tokens"].shape]
+    shapes = denoising_shapes()
+    want = [(STREAM_B, shapes[i][j]) for i, j in ((0, 0), (1, 1), (2, 0),
+                                                   (3, 1), (4, 0), (5, 0))]
+    if [tuple(g) for g in got] != want:
+        fail(f"phase 12's batches {got} are not at the shapes phase 2 "
+             f"held (`denoising_shapes`: {want})")
+    return out
+
+
+def denoising_steps(seed):
+    """One counted step each of MASS, BART, AE, IDA and PC at the flagship
+    width (dropout and attention dropout 0.1, phase 10's optimizer), on
+    one model."""
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train import steps
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    cfg = decoder_config()
+    model = build_model(cfg, seed, "cuda")
+    tx, _ = build_optimizer(OPTIM_SPEC, clip_grad_norm=CLIP)
+    state = create_train_state(model, tx)
+    gens = Generators.from_seed(seed, "cuda")
+    batches = denoising_batches(seed + 4, cfg.mask_index, cfg.n_words)
+    L = cfg.n_layers
+    rows = {  # loss, batch, launches a step
+        "mass": (steps.mass_loss, "mass", expected_launches((3 * L, 6 * L))),
+        "bart": (steps.mt_loss, "bart", decoder_per_step(cfg, "mt")),
+        "ae": (steps.mt_loss, "ae", decoder_per_step(cfg, "mt")),
+        "ida": (steps.caption_loss, "ida", decoder_per_step(cfg,
+                                                           "caption")),
+        "pc": (steps.pc_loss, "pc", expected_launches((L, 2 * L))),
+    }
+    out = {}
+    for name, (loss, kind, per_step) in rows.items():
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in batches[kind].items()}
+        state, out[name] = one_step(name, state,
+                                    steps.make_train_step(loss), batch, gens,
+                                    per_step)
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_freelb_grads_with_cpu(seed):
+    """fp32 parameter gradients after the K passes of the FreeLB MCT step
+    at depth 2 and full width, rate 0, on the card (the CUDA-core designs
+    of #1/#2) and on the CPU (plain versions): one coin, masking and pair
+    of initial deltas fed to both."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.ops.attention import attention_packed
+    from m3p_tpu_torch.train.freelb import (
+        _init_delta, make_freelb_pretrain_step)
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+    from m3p_tpu_torch.train.steps import mct_draws
+
+    cfg = bench.bench_config(n_layers=2, dtype="float32", rate=0.0)
+    adv = freelb_config()
+    cpu_model = build_model(cfg, seed, "cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = bench.make_batch(seed + 2, "cpu", groups=2)
+    mask_cfg = bench.mask_config(cfg)
+    draws = mct_draws(torch.Generator().manual_seed(seed), batch, mask_cfg)
+    gen = torch.Generator().manual_seed(seed + 1)
+    bn, s = batch["tokens"].shape
+    deltas = (_init_delta(gen, (bn, s, cfg.emb_dim), batch["text_len"],
+                          cfg.emb_dim, adv.adv_init_mag, adv.norm_type),
+              _init_delta(gen, batch["feats"].shape, torch.ones(bn),
+                          cfg.img_feat_dim, adv.adv_init_mag,
+                          adv.norm_type))
+    losses = {}
+    before = (dict(attention_packed.launches_by_design),
+              dict(attention_packed.bwd_launches_by_design))
+    for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
+        state = create_train_state(model, build_optimizer("adam,lr=0.0")[0])
+        step = make_freelb_pretrain_step(model, bench.SAMPLE_N, mask_cfg,
+                                         adv)
+        moved = {k: ([t.to(dev) for t in v] if isinstance(v, (list, tuple))
+                     else v.to(dev)) for k, v in draws.items()}
+        _, m = step(state, {k: t.to(dev) for k, t in batch.items()}, None,
+                    deltas=tuple(d.to(dev) for d in deltas),
+                    deterministic=True, **moved)
+        losses[dev] = m["loss"].item()
+    # 5 layers a pass, K passes: one forward and two backward launches each
+    n = (cfg.n_layers + cfg.refine_layers) * adv.adv_steps
+    if (launched_design(attention_packed.launches_by_design, before[0], n),
+            launched_design(attention_packed.bwd_launches_by_design,
+                            before[1], 2 * n)) != ("cuda_cores",) * 2:
+        fail("the fp32 FreeLB check did not take the CUDA-core design")
+    worst, worst_name, leaves = worst_grad_diff(gpu_model, cpu_model)
+    log(f"[fp32 grads freelb] FreeLB MCT, K = {adv.adv_steps}, depth 2, "
+        f"BN={bn}, rate 0: mean loss card {losses['cuda']:.6f} vs CPU "
+        f"{losses['cpu']:.6f}; {leaves} leaves, max relative |card - CPU| "
+        f"= {worst:.3e} ({worst_name}; tolerance {TOL_GRAD_FP32})")
+    if worst > TOL_GRAD_FP32 or abs(losses["cuda"] - losses["cpu"]) > 1e-4:
+        fail("fp32 FreeLB gradients on the card disagree with the CPU")
+    return worst
+
+
+def freelb_learning_check(seed, steps=30):
+    """Depth 2 at full width, BN = 80, fused dropout, FusedAdam (bf16
+    moments, fp32 master) at lr 1e-4, one batch, and every step from
+    generators of one seed (the same coin, maskings, initial deltas and
+    dropout masks, as the JAX test holds its PRNG key): the mean loss of
+    the last 5 steps must be below that of the first 5."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train.freelb import make_freelb_pretrain_step
+
+    cfg = bench.bench_config(fused_dropout=True, n_layers=2)
+    state, _, _ = bench.setup(
+        cfg, seed + 3, "cuda", spec="adam,lr=0.0001,fused=1,"
+        "mu_dtype=bfloat16,nu_dtype=bfloat16,master=1")
+    step = make_freelb_pretrain_step(state.model, bench.SAMPLE_N,
+                                     bench.mask_config(cfg), freelb_config())
+    batch = bench.make_batch(seed + 3, "cuda")
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, Generators.from_seed(seed + 3, "cuda"))
+        losses.append(m["loss"])
+    losses = torch.stack(losses).float().cpu()
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    log(f"[learn freelb] depth 2, BN={batch['tokens'].shape[0]}, {steps} "
+        f"FreeLB MCT steps (K = {FREELB['adv_steps']}) of FusedAdam lr 1e-4 "
+        f"on one batch and one generator seed: mean loss of the first 5 "
+        f"steps {first:.4f}, of the last 5 {last:.4f}")
+    if not torch.isfinite(losses).all() or not last < first:
+        fail(f"the FreeLB MCT model did not learn: {losses.tolist()}")
+    return {"first5": first, "last5": last}
+
+
+def freelb_slice(seed):
+    """Phase 12: the FreeLB MCT step in configurations A and B (timed,
+    counted, profiled), the trainer's is_freelb pair and the projection
+    check on B's model, the FreeLB ITM and caption steps, one step of each
+    denoising row; then the fp32 gradient check and the learning check."""
+    import torch
+
+    t0 = time.time()
+    out = {}
+    for label, fused in (("A", False), ("B", True)):
+        out[label], state, gens, batch = freelb_mct_slice(seed, fused)
+        if fused:
+            state, out["pair_B"] = trainer_pair(state, gens, batch)
+            state, out["projection"] = freelb_projection_check(state, gens,
+                                                               batch)
+        del state
+        torch.cuda.empty_cache()
+    out.update(freelb_itm_and_caption(seed))
+    out["denoising"] = denoising_steps(seed)
+    out["phase_s"] = time.time() - t0
+    out["fp32_grad_card_vs_cpu_max_rel"] = compare_freelb_grads_with_cpu(
+        seed)
+    out["learning"] = freelb_learning_check(seed)
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3904,6 +4449,17 @@ def main() -> int:
     gen_packed_tc = sum(r["packed_fwd_tensor_cores"]
                         for r in gen_runs.values())
     long_flash = gen_runs["long_decode"]["flash_fwd"]
+    torch.cuda.empty_cache()
+
+    freelb = freelb_slice(args.seed)
+    fl_runs = {"freelb_mct_A": freelb["A"]["launches"],
+               "freelb_mct_B": freelb["B"]["launches"],
+               "freelb_pair_B": freelb["pair_B"]["launches"],
+               "freelb_itm": freelb["itm"]["launches"],
+               "freelb_caption": freelb["caption"]["launches"],
+               **{name: r["launches"]
+                  for name, r in freelb["denoising"].items()}}
+    fl_fused = ("freelb_mct_B", "freelb_pair_B")
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -3916,7 +4472,8 @@ def main() -> int:
         "launches": (numbers["launches"] + training["launches"]["fwd"]
                      + mct_a["packed_fwd"] + mct_b["packed_fwd"]
                      + sum(dec_runs[p]["packed_fwd"] for p in dec_packed)
-                     + sum(gen_packed.values())),
+                     + sum(gen_packed.values())
+                     + sum(r["packed_fwd"] for r in fl_runs.values())),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
@@ -3924,7 +4481,9 @@ def main() -> int:
                              "mct_B_clcm_step": mct_clcm["packed_fwd"],
                              **{p: dec_runs[p]["packed_fwd"]
                                 for p in dec_packed},
-                             **gen_packed},
+                             **gen_packed,
+                             **{p: r["packed_fwd"]
+                                for p, r in fl_runs.items()}},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -3933,7 +4492,9 @@ def main() -> int:
             "mct_B_tensor_cores": mct_b["packed_fwd_tensor_cores"],
             **{f"{p}_tensor_cores": dec_runs[p]["packed_fwd_tensor_cores"]
                for p in dec_packed},
-            "generation_tensor_cores": gen_packed_tc},
+            "generation_tensor_cores": gen_packed_tc,
+            **{f"{p}_tensor_cores": r["packed_fwd_tensor_cores"]
+               for p, r in fl_runs.items()}},
         "design": blocks["design"],
         "max_abs_err": max(worst["bfloat16_tensor_cores"],
                            worst_train["fwd"]["bfloat16_tensor_cores"]),
@@ -3960,20 +4521,25 @@ def main() -> int:
         "replaces": "m3p_tpu/ops/attention.py:1036",
         "launches": (training["launches"]["bwd"] + mct_a["packed_bwd"]
                      + mct_b["packed_bwd"]
-                     + sum(dec_runs[p]["packed_bwd"] for p in dec_packed)),
+                     + sum(dec_runs[p]["packed_bwd"] for p in dec_packed)
+                     + sum(r["packed_bwd"] for r in fl_runs.values())),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
                              "mct_B_clcm_step": mct_clcm["packed_bwd"],
                              **{p: dec_runs[p]["packed_bwd"]
-                                for p in dec_packed}},
+                                for p in dec_packed},
+                             **{p: r["packed_bwd"]
+                                for p, r in fl_runs.items()}},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],
             "mct_A_tensor_cores": mct_a["packed_bwd_tensor_cores"],
             "mct_B_tensor_cores": mct_b["packed_bwd_tensor_cores"],
             **{f"{p}_tensor_cores": dec_runs[p]["packed_bwd_tensor_cores"]
-               for p in dec_packed}},
+               for p in dec_packed},
+            **{f"{p}_tensor_cores": r["packed_bwd_tensor_cores"]
+               for p, r in fl_runs.items()}},
         "design": tblocks["bwd"]["design"],
         "max_abs_err": worst_train["bwd"]["bfloat16_tensor_cores"],
         "max_abs_err_cuda_cores": worst_train["bwd"]["bfloat16_cuda_cores"],
@@ -4055,10 +4621,12 @@ def main() -> int:
         "source": "m3p_tpu_torch/csrc/fused_dropout.cu",
         "replaces": "m3p_tpu/ops/dropout.py:35",
         "launches": (mct_b["dropout_fwd"]
-                     + dec_runs["caption_fused"]["dropout_fwd"]),
+                     + dec_runs["caption_fused"]["dropout_fwd"]
+                     + sum(fl_runs[p]["dropout_fwd"] for p in fl_fused)),
         "launches_by_path": {
             "mct_B": mct_b["dropout_fwd"],
-            "caption_fused": dec_runs["caption_fused"]["dropout_fwd"]},
+            "caption_fused": dec_runs["caption_fused"]["dropout_fwd"],
+            **{p: fl_runs[p]["dropout_fwd"] for p in fl_fused}},
         "launches_per_step": mct["B"]["launches_per_step"]["dropout_fwd"],
         "launches_clcm_step": mct_clcm["dropout_fwd"],
         "design": drop_fwd["design"],
@@ -4067,7 +4635,10 @@ def main() -> int:
                                    mct_clcm["dropout_fwd_wide"],
                                "caption_fused_wide":
                                    dec_runs["caption_fused"][
-                                       "dropout_fwd_wide"]},
+                                       "dropout_fwd_wide"],
+                               **{f"{p}_wide":
+                                  fl_runs[p]["dropout_fwd_wide"]
+                                  for p in fl_fused}},
         "ms_narrow": drop_fwd["ms_narrow"],
         "ms_turns": drop_fwd["ms_turns"],
         "speedup_over_narrow": drop_fwd["speedup_over_narrow"],
@@ -4084,10 +4655,12 @@ def main() -> int:
         "source": "m3p_tpu_torch/csrc/fused_dropout.cu",
         "replaces": "m3p_tpu/ops/dropout.py:43",
         "launches": (mct_b["dropout_bwd"]
-                     + dec_runs["caption_fused"]["dropout_bwd"]),
+                     + dec_runs["caption_fused"]["dropout_bwd"]
+                     + sum(fl_runs[p]["dropout_bwd"] for p in fl_fused)),
         "launches_by_path": {
             "mct_B": mct_b["dropout_bwd"],
-            "caption_fused": dec_runs["caption_fused"]["dropout_bwd"]},
+            "caption_fused": dec_runs["caption_fused"]["dropout_bwd"],
+            **{p: fl_runs[p]["dropout_bwd"] for p in fl_fused}},
         "launches_per_step": mct["B"]["launches_per_step"]["dropout_bwd"],
         "launches_clcm_step": mct_clcm["dropout_bwd"],
         "design": drop_bwd["design"],
@@ -4096,7 +4669,10 @@ def main() -> int:
                                    mct_clcm["dropout_bwd_wide"],
                                "caption_fused_wide":
                                    dec_runs["caption_fused"][
-                                       "dropout_bwd_wide"]},
+                                       "dropout_bwd_wide"],
+                               **{f"{p}_wide":
+                                  fl_runs[p]["dropout_bwd_wide"]
+                                  for p in fl_fused}},
         "ms_narrow": drop_bwd["ms_narrow"],
         "ms_turns": drop_bwd["ms_turns"],
         "speedup_over_narrow": drop_bwd["speedup_over_narrow"],
@@ -4191,6 +4767,7 @@ def main() -> int:
     log(f"[fused_ffn] {json.dumps(ffn)}")
     log(f"[decoder] {json.dumps(decoder)} on {card}")
     log(f"[generation] {json.dumps(generation)} on {card}")
+    log(f"[freelb] {json.dumps(freelb)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -113,19 +113,21 @@ def setup(cfg: ModelConfig, seed: int = 0,
     return state, make_step(cfg), Generators.from_seed(seed, device)
 
 
-def packed_slots(bn: int) -> Dict[str, int]:
+def packed_slots(bn: int, pack_ratio: float = PACK_RATIO) -> Dict[str, int]:
     """The MLM and region slots the loss packs (its ``top_k`` budgets)."""
     p = min(MAX_PRED, MAX_LEN)
-    return {"text": max(int(bn * p * PACK_RATIO), 1),
+    return {"text": max(int(bn * p * pack_ratio), 1),
             "regions": max((bn * min(MAX_PRED, MAX_REGIONS)) // 2, 1)}
 
 
 def mct_step_flops(cfg: ModelConfig, bn: int, text_len: int = MAX_LEN,
                    regions: int = MAX_REGIONS,
-                   clcm_len: Optional[int] = None) -> int:
-    """Model FLOPs of one training step (the module docstring's count)."""
+                   clcm_len: Optional[int] = None,
+                   pack_ratio: float = PACK_RATIO) -> int:
+    """Model FLOPs of one training step (the module docstring's count),
+    the MLM slots packed at ``pack_ratio``."""
     d, f = cfg.emb_dim, cfg.ffn_dim
-    slots = packed_slots(bn)
+    slots = packed_slots(bn, pack_ratio)
 
     def encode(s):
         image = 2 * regions * (cfg.img_feat_dim + cfg.img_loc_dim) * d

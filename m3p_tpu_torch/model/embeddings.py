@@ -84,8 +84,12 @@ class TextEmbeddings(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 langs: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
-                generator: Optional[Generators] = None) -> torch.Tensor:
-        x = self.word(tokens)
+                generator: Optional[Generators] = None,
+                token_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``token_embeds`` (B, S, D), when given, replaces the word
+        lookup (freeLB's perturbed embeddings; `m3p_tpu/model/
+        embeddings.py:83-99`)."""
+        x = self.word(tokens) if token_embeds is None else token_embeds
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]

@@ -143,19 +143,24 @@ class M3PModel(nn.Module):
                      feats: torch.Tensor, locs: torch.Tensor,
                      img_mask: torch.Tensor, refine_image: bool = False,
                      deterministic: bool = True,
-                     generator: Optional[Generators] = None) -> torch.Tensor:
+                     generator: Optional[Generators] = None,
+                     token_embeds: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
         """Single-stream fusion over the [img; text] concat: (B, R+S, D),
         image part first.  Positions run over the whole concat.
 
         ``deterministic=False`` turns dropout on (the training forward);
-        ``generator`` then draws every mask and attention seed."""
+        ``generator`` then draws every mask and attention seed.
+        ``token_embeds`` (B, S, D) replaces the word lookup of ``tokens``
+        (freeLB)."""
         _check_generators("encode_joint", deterministic, generator)
         rng = (deterministic, generator)
         img = self.image_emb(feats, locs, *rng)
         img = img * img_mask[..., None].to(img.dtype)
         if refine_image:
             img = self.refiner(img, img_mask, *rng)
-        txt = self.text_emb.embed_tokens(tokens)
+        txt = (self.text_emb.embed_tokens(tokens) if token_embeds is None
+               else token_embeds)
         x = torch.cat([img, txt.to(img.dtype)], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x = x + self.text_emb.position(positions)
@@ -187,12 +192,15 @@ class M3PModel(nn.Module):
                    langs: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
                    deterministic: bool = True,
-                   generator: Optional[Generators] = None) -> torch.Tensor:
+                   generator: Optional[Generators] = None,
+                   token_embeds: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
         """Word + position (+ language) embeddings, LN and dropout, then
         the padding zeroed: the pre-block half of `encode_text`
         (`m3p_tpu/model/transformer.py:147-167`, without the BiDAF image
-        fusion)."""
-        x = self.text_emb(tokens, positions, langs, deterministic, generator)
+        fusion).  ``token_embeds`` replaces the word lookup (freeLB)."""
+        x = self.text_emb(tokens, positions, langs, deterministic, generator,
+                          token_embeds)
         return x * text_mask[..., None].to(x.dtype)
 
     def encode_text(self, tokens: torch.Tensor, text_mask: torch.Tensor,
@@ -203,7 +211,9 @@ class M3PModel(nn.Module):
                     causal: bool = False,
                     src_enc: Optional[torch.Tensor] = None,
                     src_mask: Optional[torch.Tensor] = None,
-                    cache: Optional[DecodeCache] = None) -> torch.Tensor:
+                    cache: Optional[DecodeCache] = None,
+                    token_embeds: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
         """The text stream (`m3p_tpu/model/transformer.py:169-191`): (B, S)
         tokens -> (B, S, D).  ``causal`` masks the future; ``src_enc``
         (B, Ss, D) with ``src_mask`` adds cross-attention in every block
@@ -213,10 +223,11 @@ class M3PModel(nn.Module):
         ``cache`` makes it one incremental decode step at ``cache.pos``
         (deterministic; ``causal`` then has no effect, the cache mask ends
         at the step), updating the cache in place; attention goes
-        head-major through `ops.attention.attention_bhsd`."""
+        head-major through `ops.attention.attention_bhsd`.
+        ``token_embeds`` (B, S, D) replaces the word lookup (freeLB)."""
         _check_generators("encode_text", deterministic, generator)
         x = self.embed_text(tokens, text_mask, langs, positions,
-                            deterministic, generator)
+                            deterministic, generator, token_embeds)
         return self._run_blocks(x, text_mask, causal, src_enc, src_mask,
                                 deterministic, generator, cache)
 

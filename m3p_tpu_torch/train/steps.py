@@ -25,8 +25,16 @@ Ported objectives:
 * ``clm``, causal LM on a text stream (`make_stream_batch`); ``tifg``,
   text-to-image-feature generation (`tifg_step`; the causal image stream
   regressing the refined region embeddings); ``slide``, binary
-  slide-text matching over `encode_joint` (`make_slide_batch`).
-Batches are dicts of tensors on the model's device.
+  slide-text matching over `encode_joint` (`make_slide_batch`);
+* ``pc``, parallel classification (`pc_step`) over sentence pairs joined
+  by `data.noise.concat_batches`; ``mass``, MASS segment-masked seq2seq
+  (`bart_mass_step`) over `data.span_masking.mass_mask`'s batches.  BART
+  and the denoising auto-encoder are ``mt`` over the batches of
+  `data.loader.make_bart_transform` / `make_ae_transform`, IDA
+  (``bart_img``) is ``caption`` over `poisson_region_noise`'s regions.
+The freeLB adversarial steps around ``mct``, ``itm`` and ``caption`` are
+in `train/freelb.py`.  Batches are dicts of tensors on the model's
+device.
 """
 
 from __future__ import annotations
@@ -302,6 +310,57 @@ def slide_loss(model: M3PModel, batch: Batch,
     return loss, {"loss": loss.detach(), "acc": acc}
 
 
+def pc_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
+            clf_ids: Tuple[int, int] = (8, 9), deterministic: bool = False
+            ) -> Tuple[torch.Tensor, Metrics]:
+    """Parallel classification (`m3p_tpu/train/steps.py:429-450`): is a
+    concatenated sentence pair a translation pair?  The binary classifier
+    reuses two rows of the word table, row ``clf_ids[0]`` as its weight and
+    the first entry of row ``clf_ids[1]`` as its bias, read in fp32.
+
+    Batch from `data.noise.concat_batches`: tokens (B, L), lengths, langs,
+    positions, labels (B,)."""
+    tokens = batch["tokens"].long()
+    text_mask = lengths_to_mask(batch["lengths"], tokens.shape[1])
+    langs, positions = batch.get("langs"), batch.get("positions")
+    hidden = model.encode_text(
+        tokens, text_mask, None if langs is None else langs.long(),
+        None if positions is None else positions.long(), deterministic,
+        generator)
+    h0 = hidden[:, 0].float()
+    emb = model.text_emb.word.weight.float()
+    logits = h0 @ emb[clf_ids[0]] + emb[clf_ids[1], 0]
+    labels = batch["labels"].float()
+    loss = F.binary_cross_entropy_with_logits(logits, labels)
+    acc = ((logits.detach() > 0) == (labels > 0)).float().mean()
+    return loss, {"pc": loss.detach(), "acc": acc}
+
+
+def mass_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
+              deterministic: bool = False) -> Tuple[torch.Tensor, Metrics]:
+    """MASS segment-masked seq2seq (`m3p_tpu/train/steps.py:453-476`):
+    encode the span-masked sentence, decode the masked span causally from
+    its previous tokens at the span's source positions, with
+    cross-attention over the encoding.
+
+    Batch from `data.span_masking.mass_mask`: enc_tokens (B, S), enc_len,
+    dec_tokens / dec_pos / targets / target_mask (B, M), langs (B, S)."""
+    enc = batch["enc_tokens"].long()
+    enc_mask = lengths_to_mask(batch["enc_len"], enc.shape[1])
+    langs = batch.get("langs")
+    src_enc = model.encode_text(
+        enc, enc_mask, None if langs is None else langs.long(), None,
+        deterministic, generator)
+    tgt_mask = batch["target_mask"].float()
+    dec = model.encode_text(batch["dec_tokens"].long(), tgt_mask > 0, None,
+                            batch["dec_pos"].long(), deterministic,
+                            generator, causal=True, src_enc=src_enc,
+                            src_mask=enc_mask)
+    loss, _, _ = _next_token_ce(model.word_logits(dec), batch["targets"],
+                                tgt_mask)
+    return loss, {"mass": loss.detach()}
+
+
 def _pack(rows: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """rows (B, P, ...) -> (B * P, ...)[index]."""
     return rows.reshape((-1,) + tuple(rows.shape[2:]))[index]
@@ -362,11 +421,12 @@ def mct_pretrain_loss(model: M3PModel, batch: Batch,
     ``coin``, ``text_masking`` and ``region_masking`` are as `mct_draws`
     returns them; when any is None, `mct_draws` draws them on the device
     from ``generator.device``.  Passing them in lets a caller hold the
-    loss against another implementation's draws.  The freeLB deltas belong
-    to ``train/freelb.py``, which the port does not have yet."""
-    if text_delta is not None or img_delta is not None:
-        raise NotImplementedError("freeLB (text_delta/img_delta) is not in "
-                                  "the PyTorch port yet")
+    loss against another implementation's draws.
+
+    ``text_delta`` (BN, S, D) and ``img_delta`` (BN, R, 2048) are freeLB's
+    adversarial perturbations (`train/freelb.py`): the first is added to
+    the masked tokens' word embeddings, the second to the masked region
+    features in their dtype (the CLCM encode sees them too)."""
     tokens = batch["tokens"].long()
     feats = batch["feats"]
     bn, s = tokens.shape
@@ -396,11 +456,17 @@ def mct_pretrain_loss(model: M3PModel, batch: Batch,
     w_r = w_r * (1.0 - coin)[:, None]
     masked_feats = torch.where((coin < 1)[:, None, None], masked_feats,
                                feats)
+    token_embeds = None
+    if text_delta is not None:
+        token_embeds = model.embed_tokens(masked_tokens) + text_delta
+    if img_delta is not None:
+        masked_feats = masked_feats + img_delta.to(masked_feats.dtype)
 
     hidden = model.encode_joint(masked_tokens, text_mask, masked_feats,
                                 batch["locs"], img_mask, refine_image,
                                 deterministic=deterministic,
-                                generator=generator)
+                                generator=generator,
+                                token_embeds=token_embeds)
     img_out, text_out = hidden[:, :r], hidden[:, r:]
 
     # MC-MLM: the active slots packed across the batch before the

@@ -886,9 +886,25 @@ DECODER_CASES = [
 ]
 
 
+def _padded_lengths(sk, b=24):
+    """``b`` key lengths: full, a row with no valid key, then padded."""
+    return (sk, 0) + tuple(sk - 1 - (5 * i) % sk for i in range(b - 2))
+
+
+# the denoising objectives at their batch (B = 24 rows): MASS's decoder,
+# causal over its 64-token span and across over the 128-token stream;
+# BART's and AE's decoder, causal over 127 positions and across over the
+# 128-token source; the stream encoder; the 127-token PC pair
+DENOISING_CASES = [
+    (24, 12, 64, sq, sk, _padded_lengths(sk), causal)
+    for sq, sk, causal in ((64, 64, True), (64, 128, False),
+                           (127, 127, True), (127, 128, False),
+                           (128, 128, False), (127, 127, False))]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, RATE])
-@pytest.mark.parametrize("case", DECODER_CASES)
+@pytest.mark.parametrize("case", DECODER_CASES + DENOISING_CASES)
 def test_packed_attention_kernels_fp32_at_the_decoder_shapes(cuda_device,
                                                              case, rate):
     """#1 and #2 in fp32 (CUDA cores) against their plain versions."""
@@ -917,7 +933,7 @@ def test_packed_attention_kernels_fp32_at_the_decoder_shapes(cuda_device,
 @pytest.mark.gpu
 @pytest.mark.parametrize("design", [None, "cuda_cores"])
 @pytest.mark.parametrize("rate", [0.0, RATE])
-@pytest.mark.parametrize("case", DECODER_CASES)
+@pytest.mark.parametrize("case", DECODER_CASES + DENOISING_CASES)
 def test_packed_attention_fwd_bf16_at_the_decoder_shapes(cuda_device, case,
                                                          rate, design):
     """#1 in bf16 through the design the rule names (the tensor cores) and
@@ -930,7 +946,7 @@ def test_packed_attention_fwd_bf16_at_the_decoder_shapes(cuda_device, case,
 @pytest.mark.gpu
 @pytest.mark.parametrize("design", [None, "cuda_cores"])
 @pytest.mark.parametrize("rate", [0.0, RATE])
-@pytest.mark.parametrize("case", DECODER_CASES)
+@pytest.mark.parametrize("case", DECODER_CASES + DENOISING_CASES)
 def test_packed_attention_bwd_bf16_at_the_decoder_shapes(cuda_device, case,
                                                          rate, design):
     """#2 in bf16 through the design the rule names (the tensor cores) and

@@ -268,7 +268,10 @@ def test_mct_loss_and_every_gradient_leaf_match_jax(small, with_clcm):
     assert reached >= 60
 
 
-def test_mct_loss_draws_from_the_generators_and_refuses_freelb(small):
+def test_mct_loss_draws_from_the_generators_and_takes_freelb_deltas(small):
+    """The same seed gives the same loss, another seed another, no
+    generators raise; zero freeLB deltas give the loss of no deltas, a
+    nonzero image delta changes it."""
     jcfg, _, params = small
     model = _port(jcfg, params, dropout=0.1, use_fused_dropout=True)
     tb = _torch_batch(_batch(True, False))
@@ -282,8 +285,12 @@ def test_mct_loss_draws_from_the_generators_and_refuses_freelb(small):
     assert loss(7) == loss(7) and loss(7) != loss(8)
     with pytest.raises(ValueError, match="generators"):
         mct_pretrain_loss(model, tb, None, _mask_cfg(), SAMPLE_N)
-    with pytest.raises(NotImplementedError, match="freeLB"):
-        loss(7, text_delta=torch.zeros(1))
+    bn, s = tb["tokens"].shape
+    zero_text = torch.zeros(bn, s, jcfg.emb_dim)
+    zero_img = torch.zeros_like(tb["feats"])
+    assert loss(7, text_delta=zero_text, img_delta=zero_img) == loss(7)
+    img_delta = 0.5 * torch.ones_like(tb["feats"])
+    assert loss(7, text_delta=zero_text, img_delta=img_delta) != loss(7)
 
 
 def test_three_train_steps_match_jax(small):

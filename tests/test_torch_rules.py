@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("serve.engine", "ops.philox", "train.steps", "train.optim",
                  "train.state", "data.synthetic", "data.masking",
                  "ops.fused_ffn", "bench_fused_ffn", "model.generation",
-                 "ops.topk"):
+                 "ops.topk", "train.freelb", "data.noise",
+                 "data.span_masking", "data.loader"):
         assert f"m3p_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
