@@ -14,7 +14,10 @@ Phases, each of which fails the run if it fails:
      the decoder shapes (B = 4, H = 12, Dh = 64: causal (63, 63) and
      (100, 100), cross-attention (63, 100), (63, 164) and (100, 64)), and
      at phase 11's source encodings (the batch buckets of its calls over
-     100 regions and over the 32-token text bucket), and at phase 12's
+     100 regions and over the 32-token text bucket), at phase 13's
+     (`eval_shapes`: the grid's 512-pair chunks at joint widths 100, 116,
+     132 and 164, the eval losses at B = 24 and 80, the generation
+     sources at B = 64), and at phase 12's
      batch (B = 24: MASS's decoder, causal (64, 64) and cross (64, 128);
      BART's and AE's, causal (127, 127) and cross (127, 128); the stream
      encoder (128, 128); the PC pair (127, 127)); then
@@ -144,7 +147,26 @@ Phases, each of which fails the run if it fails:
      Poisson-noised regions) and PC (`concat_batches` pairs, width 127);
      fp32 gradients after the K passes on the card against the CPU at
      depth 2 (rate 0, one coin, masking and pair of initial deltas fed to
-     both); a learning check at depth 2 (30 steps, one generator seed).
+     both); a learning check at depth 2 (30 steps, one generator seed);
+ 13. evaluation at the flagship width, bf16 (random weights, phase 11's
+     vocab): the full-grid retrieval test at tools/bench_eval_grid.py's
+     shape (100 images of 100 regions x 500 captions of 8-20 tokens,
+     chunk 512: 98 chunks, 15 #1 launches each, all on the tensor cores)
+     through `Evaluator.run_all_evals` (R@k, the score matrix and
+     inference.log), then with and without length buckets in turns
+     (pairs/s, MFU over `bench.joint_forward_flops`, the bucketed scores'
+     largest difference and R@k), a profile of 3 chunks; the loss families
+     (retrieval valid as (t2i, i2t) tuples of phase 6's grid, captioning,
+     MT, NTG, multimodal MT, slide at B = 24, MLM and MASS over 24 streams
+     of 128) through `run_all_evals`, counted, then again, bitwise equal;
+     caption, MT and multimodal-MT generation evals at EvalConfig's
+     defaults (beam 4, max_gen_len 40) over 64-row batches, MT and
+     multimodal MT again greedy, the caption JSON artifact and the four
+     caption metrics' host time; every #1 launch of the phase at a shape
+     phase 2 held (`eval_shapes`); fp32 at depth 2 on the card against the
+     CPU (one batch of 2 a loss family and a small grid within rtol 1e-4,
+     the grid within 1e-4, beam and greedy hypotheses of one row a family
+     at max_gen_len 16 equal).
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -166,6 +188,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -270,6 +293,10 @@ def attn_inputs(b, s_q, s_k, h, dh, dtype, gen, empty_row=True):
     return q, k, v, mask
 
 
+# (B, Sq, Sk, causal, dtype) of every #1 case phase 2 held
+HELD_FWD_SHAPES = set()
+
+
 def check_kernels(gen):
     """#1 at rate 0 against its plain version: fp32 (CUDA cores) and bf16 in
     both designs (the one the rule names, the tensor cores at these
@@ -324,8 +351,17 @@ def check_kernels(gen):
         for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
                                                     TOL_BF16)):
             cases.append((STREAM_B, sq, sk, 12, 64, dt, causal, tol))
+    # phase 13's shapes (`eval_shapes`): the grid's chunks, the loss
+    # families and the generation source encoders
+    for b, sq, sk, causal in eval_shapes():
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
+                                                    TOL_BF16)):
+            if (b, sq, sk, 12, 64, dt, causal, tol) not in cases:
+                cases.append((b, sq, sk, 12, 64, dt, causal, tol))
     worst = {}
     for b, sq, sk, h, dh, dt, causal, tol in cases:
+        HELD_FWD_SHAPES.add((b, sq, sk, causal,
+                             str(dt).replace("torch.", "")))
         q, k, v, mask = attn_inputs(b, sq, sk, h, dh, dt, gen)
         want = attention_packed_reference(q, k, v, mask, h, causal=causal)
         rule = flash_design(dt, dh)
@@ -4326,6 +4362,682 @@ def freelb_slice(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: evaluation
+# ---------------------------------------------------------------------------
+
+# tools/bench_eval_grid.py's default grid: 100 images of 100 regions, 500
+# captions of 8-20 tokens at width 64 (DataConfig.seq_per_img = 5 captions
+# an image), chunk 512; Multi30K's test grid (1000 x 5000) cut by 100
+EVAL_GRID = (100, 500, 512)
+EVAL_SEQ_PER_IMG = 5
+# the profile of a few chunks: 6 images x 256 captions, 3 chunks
+EVAL_PROFILE_GRID = (6, 256)
+# two batches a loss family (the DataConfig sizes of phases 6, 10 and 12);
+# the generation evals at EvalConfig's eval_batch_size, two caption
+# batches, one of sentences of the 32-token bucket
+EVAL_BATCHES = 2
+EVAL_GEN_B = 64
+EVAL_GEN_CAPTION_BATCHES = 2
+EVAL_COCO = "Bleu,METEOR,ROUGE_L,CIDEr"
+# fp32 on the card against the CPU at depth 2: the same families, one batch
+# each at B = 2 (2 groups of the retrieval grid), a 4 x 20 grid at chunk
+# 32, one image and one sentence a family to decode at max_gen_len 16 (on
+# the H100 machine's host CPU the CPU side took 123.8 s at two batches of
+# 4 and two rows decoded to 40 tokens: the word head and the stable sort of
+# 250,002 logits a row and step)
+EVAL_FP32_B, EVAL_FP32_GROUPS, EVAL_FP32_BATCHES = 2, 2, 1
+EVAL_FP32_GEN_B, EVAL_FP32_GEN_LEN = 1, 16
+EVAL_FP32_GRID = (4, 20, 32)
+# fp32 losses, accuracies and recalls on the card against the CPU, and the
+# grid scores: 2 layers of fp32 GEMMs and reductions in another order
+TOL_EVAL_FP32 = dict(rtol=1e-4, atol=0.0)
+TOL_EVAL_GRID_FP32 = 1e-4
+# the families of phase 13's loss evals -> #1 launches a batch (below)
+EVAL_LOSS_KEYS = ("caption_batches", "mass_batches", "mlm_batches",
+                  "mmt_batches", "mt_batches", "ntg_batches",
+                  "retrieval_valid_batches", "slide_batches")
+
+
+def eval_config(model_cfg, eval_path="", **eval_kw):
+    """A TrainConfig for the Evaluator: ``model_cfg``, phase 6's candidate
+    grid, EvalConfig's defaults (beam 4, max_gen_len 40, length penalty
+    1.0, no early stopping) with all four caption metrics and
+    ``eval_path``."""
+    from m3p_tpu_torch.config import DataConfig, EvalConfig, TrainConfig
+
+    return TrainConfig(model=model_cfg, data=DataConfig(sample_n=SAMPLE_N),
+                       eval=EvalConfig(coco_method=EVAL_COCO,
+                                       eval_path=eval_path, **eval_kw))
+
+
+def eval_loss_data(seed, n_words, mask_index, b=STREAM_B, groups=GROUPS,
+                   batches=EVAL_BATCHES):
+    """The loss families of phase 13, ``batches`` batches each, from
+    ``RandomState(seed)``: retrieval valid as (t2i, i2t) tuples of phase
+    6's grid (``groups`` x SAMPLE_N pairs of TEXT_LEN tokens and REGIONS
+    regions), captioning (``b`` images, captions of CAPTION_LEN), MT and
+    NTG (``b`` pairs of CAPTION_LEN), multimodal MT (MT with images),
+    slide, MLM on ``b`` streams of BPTT and MASS over such streams."""
+    import numpy as np
+
+    from m3p_tpu_torch.data import loader, synthetic
+
+    rng = np.random.RandomState(seed)
+    mass = loader.make_mass_transform(WORD_MASS, mask_index, n_words)
+
+    def n(fn):
+        return [fn() for _ in range(batches)]
+
+    def grid():
+        return synthetic.make_retrieval_batch(rng, groups, SAMPLE_N,
+                                              TEXT_LEN, REGIONS, n_words)
+
+    def mmt():
+        batch = synthetic.make_mt_batch(rng, b, CAPTION_LEN, n_words)
+        images = synthetic.make_caption_batch(rng, b, CAPTION_LEN, REGIONS,
+                                              n_words)
+        batch.update({k: images[k] for k in ("feats", "locs", "img_len")})
+        return batch
+
+    return {
+        "retrieval_valid_batches": n(lambda: (grid(), grid())),
+        "caption_batches": n(lambda: synthetic.make_caption_batch(
+            rng, b, CAPTION_LEN, REGIONS, n_words)),
+        "mt_batches": n(lambda: synthetic.make_mt_batch(
+            rng, b, CAPTION_LEN, n_words)),
+        "ntg_batches": n(lambda: synthetic.make_mt_batch(
+            rng, b, CAPTION_LEN, n_words)),
+        "mmt_batches": n(mmt),
+        "slide_batches": n(lambda: synthetic.make_slide_batch(
+            rng, b, CAPTION_LEN, REGIONS, n_words)),
+        "mlm_batches": n(lambda: synthetic.make_stream_batch(
+            rng, b, BPTT, n_words)),
+        "mass_batches": n(lambda: mass(rng, synthetic.make_stream_batch(
+            rng, b, BPTT, n_words), 0)),
+    }
+
+
+def eval_loss_launches(cfg, data):
+    """#1 launches of `run_all_evals` over ``data``'s loss families: a
+    joint encode (the refiner and the blocks) per retrieval-valid or slide
+    batch, the blocks per MLM batch, and for the seq2seq losses the source
+    encoder plus the decoder's causal self-attention and cross-attention in
+    every block (`decoder_per_step`'s forward counts); MASS encodes and
+    decodes as MT."""
+    L, R = cfg.n_layers, cfg.refine_layers
+    per_batch = {"retrieval_valid_batches": 2 * (R + L),
+                 "caption_batches": R + 3 * L, "mt_batches": 3 * L,
+                 "ntg_batches": 3 * L, "mmt_batches": R + 3 * L,
+                 "slide_batches": R + L, "mlm_batches": L,
+                 "mass_batches": 3 * L}
+    return sum(per_batch[k] * len(data[k]) for k in data)
+
+
+def eval_sentences(rng, n, n_words, width=GEN_TEXT_BUCKET):
+    """``n`` source sentences of the 32-token bucket: BOS, 20-28 random
+    ids, EOS (22-30 tokens), padded to ``width``."""
+    import numpy as np
+
+    from m3p_tpu_torch.config import BOS_IDX, EOS_IDX, PAD_IDX
+
+    lens = rng.randint(22, 31, n)
+    toks = np.full((n, width), PAD_IDX, np.int64)
+    for i, length in enumerate(lens):
+        toks[i, 0] = BOS_IDX
+        toks[i, 1:length - 1] = rng.randint(4, n_words - 1, length - 2)
+        toks[i, length - 1] = EOS_IDX
+    return toks, lens.astype(np.int64)
+
+
+def eval_images(rng, n):
+    """``n`` images of 10-100 regions (L2-normalized features, boxes as
+    `data.features.norm_boxes` gives them), padded to REGIONS."""
+    import numpy as np
+
+    from m3p_tpu_torch.data.features import l2_normalize, norm_boxes
+
+    feats = np.zeros((n, REGIONS, 2048), np.float32)
+    locs = np.zeros((n, REGIONS, 5), np.float32)
+    lens = rng.randint(10, REGIONS + 1, n)
+    for i, r in enumerate(lens):
+        img = image(rng, int(r))
+        feats[i, :r] = l2_normalize(img["features"])
+        locs[i, :r] = norm_boxes(img["boxes"], *img["wh"])
+    return {"feats": feats, "locs": locs, "img_len": lens.astype(np.int64)}
+
+
+def eval_gen_data(seed, tokenizer, n_words, b=EVAL_GEN_B,
+                  caption_batches=EVAL_GEN_CAPTION_BATCHES):
+    """The generation families: ``caption_batches`` batches of ``b``
+    images to caption (image ids for the artifact), ``b`` sentences to
+    translate and ``b`` sentences with images for multimodal MT, each
+    with 5 (captions) or 1 (translations) references of `WORDS`."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    caps = [eval_images(rng, b) for _ in range(caption_batches)]
+    n_caps = b * caption_batches
+    src, src_len = eval_sentences(rng, b, n_words)
+    msrc, msrc_len = eval_sentences(rng, b, n_words)
+
+    def refs(n, k):
+        return [[sentence(rng, int(rng.randint(8, 15))) for _ in range(k)]
+                for _ in range(n)]
+
+    return {
+        "caption_gen": {"batches": caps, "references": refs(n_caps, 5),
+                        "tokenizer": tokenizer, "lang_id": 0,
+                        "image_ids": [f"img{i}" for i in range(n_caps)]},
+        "mt_gen": {"batches": [{"src_tokens": src, "src_len": src_len}],
+                   "references": refs(b, 1), "tokenizer": tokenizer,
+                   "lang_id": 1, "name": "mt"},
+        "mmt_gen": {"batches": [{"src_tokens": msrc, "src_len": msrc_len,
+                                 **eval_images(rng, b)}],
+                    "references": refs(b, 1), "tokenizer": tokenizer,
+                    "lang_id": 1, "name": "mmt"},
+    }
+
+
+def eval_gen_launches(cfg, data, keys):
+    """#1 launches of the generation families ``keys``: the source
+    encoder of each batch (the refiner and the blocks over the regions for
+    a caption, the blocks for a translation, both over the joint sequence
+    for multimodal MT), none in the decode steps (`mha_reference` below
+    512 cached keys)."""
+    L, R = cfg.n_layers, cfg.refine_layers
+    per = {"caption_gen": R + L, "mt_gen": L, "mmt_gen": R + L}
+    return sum(per[k] * len(data[k]["batches"]) for k in keys)
+
+
+def eval_shapes():
+    """(B, Sq, Sk, causal) of every #1 launch of phase 13's bf16 path: the
+    grid's chunks (the refiner over the regions, the blocks over the joint
+    sequence at the full 64-token width and at the 16- and 32-token
+    buckets), retrieval valid at phase 6's BN, the loss families at
+    STREAM_B (image or text encoders, the decoders' causal self-attention
+    and cross-attention), and the generation source encoders at
+    EVAL_GEN_B.  Phase 2 holds #1 at each; phase 13 fails if it launches #1
+    at any other."""
+    chunk, r = EVAL_GRID[2], REGIONS
+    b, t = STREAM_B, CAPTION_LEN - 1
+    span = max(int(round(BPTT * WORD_MASS)), 1)
+    shapes = [(chunk, s, s, False) for s in (r, r + TEXT_LEN, r + 16,
+                                             r + 32)]
+    bn = GROUPS * SAMPLE_N
+    shapes += [(bn, r, r, False), (bn, r + TEXT_LEN, r + TEXT_LEN, False)]
+    shapes += [(b, r, r, False), (b, r + TEXT_LEN, r + TEXT_LEN, False),
+               (b, CAPTION_LEN, CAPTION_LEN, False), (b, t, t, True),
+               (b, t, r, False), (b, t, CAPTION_LEN, False),
+               (b, t, r + TEXT_LEN, False), (b, BPTT, BPTT, False),
+               (b, span, span, True), (b, span, BPTT, False)]
+    g = EVAL_GEN_B
+    shapes += [(g, r, r, False), (g, GEN_TEXT_BUCKET, GEN_TEXT_BUCKET, False),
+               (g, r + GEN_TEXT_BUCKET, r + GEN_TEXT_BUCKET, False)]
+    return sorted(set(shapes))
+
+
+@contextlib.contextmanager
+def recorded_fwd_shapes(shapes):
+    """Within the block, record (B, Sq, Sk, causal) of every #1 launch
+    (`ops.attention._launch_fwd`) into ``shapes``; the launches and their
+    counts are untouched."""
+    from m3p_tpu_torch.ops import attention as ops
+
+    launch = ops._launch_fwd
+
+    def recorded(q, k, v, kv_mask, n_heads, causal, *args, **kw):
+        shapes.add((q.shape[0], q.shape[1], k.shape[1], bool(causal)))
+        return launch(q, k, v, kv_mask, n_heads, causal, *args, **kw)
+
+    ops._launch_fwd = recorded
+    try:
+        yield shapes
+    finally:
+        ops._launch_fwd = launch
+
+
+def check_eval_shapes(recorded):
+    held = {s[:4] for s in HELD_FWD_SHAPES if s[4] == "bfloat16"}
+    missed = sorted(recorded - held)
+    if missed:
+        fail(f"phase 13 launched #1 at shapes phase 2 did not hold: "
+             f"{missed}")
+    return sorted(recorded)
+
+
+def eval_grid(model, ev, tmp):
+    """The full-grid retrieval test at the tool's shape: the counted pass
+    through `Evaluator.run_all_evals` (R@k, the score matrix and
+    inference.log in ``tmp``), then bucketed and unbucketed passes in
+    turns, each timed and counted; a profile of a few chunks."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.bench_eval_grid import grid_flops, grid_pool
+    from m3p_tpu_torch.eval.retrieval import (
+        _tasks, recall_at_k, retrieval_grid_scores)
+
+    cfg = model.cfg
+    n_img, n_cap, chunk = EVAL_GRID
+    pool = grid_pool(n_img, n_cap, n_words=cfg.n_words)
+    cap_to_img = np.arange(n_cap) // EVAL_SEQ_PER_IMG
+    n_chunks = {bucket: len(_tasks(pool[1], n_img, TEXT_LEN, chunk, bucket,
+                                   16)) for bucket in (False, True)}
+    widths = sorted({w for w, _, _ in _tasks(pool[1], n_img, TEXT_LEN,
+                                             chunk, True, 16)})
+    flops = {bucket: grid_flops(cfg, pool[1], n_img, chunk, bucket)
+             for bucket in (False, True)}
+
+    def grid(bucket):
+        return retrieval_grid_scores(model, *pool, chunk_size=chunk,
+                                     length_bucket=bucket)
+
+    per_chunk = cfg.n_layers + cfg.refine_layers
+
+    def timed(bucket):
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = grid(bucket)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check_launches(f"eval grid, length_bucket={bucket}", launch_counts(),
+                       expected_launches((per_chunk, 0)), n_chunks[bucket])
+        return secs, scores
+
+    # ---- the main path, counted ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    recall = ev.run_all_evals({"retrieval_test": (
+        pool[0], pool[1], cap_to_img, *pool[2:], chunk)})
+    torch.cuda.synchronize()
+    evaluator_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # ---- checks ----
+    check_launches("eval grid", counts,
+                   expected_launches((per_chunk, 0)), n_chunks[False])
+    scores = np.load(os.path.join(tmp, "score_test_rank0.npy"))
+    with open(os.path.join(tmp, "inference.log")) as f:
+        logged = f.read().split()
+    if scores.shape != (n_img, n_cap) or scores.dtype != np.float32 \
+            or not np.isfinite(scores).all():
+        fail(f"eval grid: scores {scores.shape} {scores.dtype}, finite "
+             f"{bool(np.isfinite(scores).all())}")
+    if recall != recall_at_k(scores, cap_to_img) or \
+            [float(x) for x in logged] != [recall[f"i2t_r{k}"]
+                                           for k in (1, 5, 10)]:
+        fail(f"eval grid: R@k {recall} against the saved matrix, "
+             f"inference.log {logged}")
+    # ---- bucketing in turns ----
+    turns = {False: [], True: []}
+    bucket_scores = None
+    for bucket in (True, False, True, False):
+        secs, got = timed(bucket)
+        turns[bucket].append(secs)
+        if bucket:
+            bucket_scores = got
+    bucket_diff = float(np.abs(bucket_scores - scores).max())
+    bucket_recall = recall_at_k(bucket_scores, cap_to_img)
+    pairs = n_img * n_cap
+    secs = min(turns[False])
+    out = {
+        "grid": [n_img, n_cap], "chunk": chunk, "chunks": n_chunks[False],
+        "pairs": pairs, "launches": counts,
+        "evaluator_pass_s": evaluator_s,
+        "pairs_per_s": pairs / secs, "pairs_per_s_turns":
+            [pairs / s for s in turns[False]],
+        "ms_per_chunk": secs * 1e3 / n_chunks[False],
+        "flops": flops[False], "gflop_per_pair": flops[False] / pairs / 1e9,
+        "mfu_vs_bf16_peak": flops[False] / secs / BF16_FLOPS_PER_S,
+        "peak_memory_gb": peak_gb, "recall": recall,
+        "bucketed": {"widths": widths, "chunks": n_chunks[True],
+                     "pairs_per_s": pairs / min(turns[True]),
+                     "pairs_per_s_turns": [pairs / s for s in turns[True]],
+                     "mfu_vs_bf16_peak": flops[True] / min(turns[True])
+                     / BF16_FLOPS_PER_S,
+                     "max_abs_diff_vs_unbucketed": bucket_diff,
+                     "recall": bucket_recall,
+                     "recall_changed": bucket_recall != recall}}
+    p_img, p_cap = EVAL_PROFILE_GRID
+    small = (pool[0][:p_cap], pool[1][:p_cap], pool[2][:p_img],
+             pool[3][:p_img], pool[4][:p_img])
+    out["profile"] = profile_window(
+        f"eval grid {p_img} x {p_cap}, chunk {chunk}",
+        lambda: retrieval_grid_scores(model, *small, chunk_size=chunk),
+        reps=2)
+    log(f"[eval grid] {n_img} x {n_cap} at chunk {chunk}: "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'profile'})}")
+    return out
+
+
+def eval_losses(ev, data, cfg):
+    """`run_all_evals` over the loss families, counted; again, bitwise the
+    same dict; each family alone, timed."""
+    import numpy as np
+    import torch
+
+    # ---- the main path, counted ----
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    scores = ev.run_all_evals(data)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = launch_counts()
+    # ---- checks ----
+    check_launches("eval losses", counts,
+                   expected_launches((eval_loss_launches(cfg, data), 0)), 1)
+    want = {"T2I_acc", "I2T_acc", "retrieval_acc", "ic_ppl", "ic_acc",
+            "mt_ppl", "mt_acc", "ntg_ppl", "ntg_acc", "mmt_ppl", "mmt_acc",
+            "slide_acc", "mlm_ppl", "mlm_loss", "mass_ppl"}
+    if set(scores) != want or not all(np.isfinite(v)
+                                      for v in scores.values()):
+        fail(f"eval losses: keys {sorted(scores)} (expected "
+             f"{sorted(want)}), values {scores}")
+    again = ev.run_all_evals(data)
+    if again != scores:
+        fail(f"eval losses: a second run_all_evals differs: {scores} then "
+             f"{again}")
+    family_s = {}
+    for key in sorted(data):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ev.run_all_evals({key: data[key]})
+        family_s[key] = time.perf_counter() - t1
+    out = {"scores": scores, "repeat_bitwise_equal": True,
+           "launches": counts, "run_all_evals_s": total_s,
+           "family_s": family_s}
+    log(f"[eval losses] {json.dumps(out)}")
+    return out
+
+
+def eval_generation(ev, ev_greedy, data, cfg, tmp):
+    """The generation families through `run_all_evals` at beam 4 (counted;
+    the caption artifact checked), MT and multimodal MT again greedy
+    (counted); images/s and sentences/s; the four caption metrics' host
+    seconds on the decoded captions."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.eval.bleu import corpus_bleu
+    from m3p_tpu_torch.eval.caption_metrics import meteor_score, rouge_l_score
+    from m3p_tpu_torch.eval.cider import cider_score
+
+    out = {"family_s": {}}
+    scores = {}
+    for name, evaluator, keys in (
+            ("beam", ev, ("caption_gen", "mt_gen", "mmt_gen")),
+            ("greedy", ev_greedy, ("mt_gen", "mmt_gen"))):
+        # ---- the main path, counted ----
+        zero_launch_counts()
+        for key in keys:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = evaluator.run_all_evals({key: data[key]})
+            out["family_s"][f"{key}_{name}"] = time.perf_counter() - t0
+            scores.update({f"{k}_{name}": v for k, v in got.items()})
+        counts = launch_counts()
+        # ---- checks ----
+        check_launches(f"eval generation ({name})", counts, expected_launches(
+            (eval_gen_launches(cfg, data, keys), 0)), 1)
+        out[f"launches_{name}"] = counts
+    if not all(np.isfinite(v) for v in scores.values()) or len(scores) != 8:
+        fail(f"eval generation: scores {scores}")
+    artifact = os.path.join(tmp, "caption_translate.xx.json")
+    with open(artifact) as f:
+        captions = json.load(f)
+    ids = data["caption_gen"]["image_ids"]
+    if [c["image_id"] for c in captions] != ids or not all(
+            isinstance(c["caption"], str) for c in captions):
+        fail(f"eval generation: {artifact} holds {captions[:2]}...")
+    hyps = [c["caption"] for c in captions]
+    refs = data["caption_gen"]["references"]
+    metric_s = {}
+    for metric, fn in (("bleu", corpus_bleu), ("cider", cider_score),
+                       ("meteor", meteor_score), ("rouge_l", rouge_l_score)):
+        t0 = time.perf_counter()
+        value = fn(hyps, refs)
+        metric_s[metric] = time.perf_counter() - t0
+        if value != scores[f"caption_{metric}_beam"]:
+            fail(f"eval generation: {metric} of the artifact's captions "
+                 f"{value} != {scores[f'caption_{metric}_beam']}")
+    n_caps = len(ids)
+    n_src = len(data["mt_gen"]["references"])
+    fs = out["family_s"]
+    out.update(scores=scores, metric_host_s=metric_s,
+               caption_images_per_s=n_caps / fs["caption_gen_beam"],
+               mt_sentences_per_s={n: n_src / fs[f"mt_gen_{n}"]
+                                   for n in ("beam", "greedy")},
+               mmt_sentences_per_s={n: n_src / fs[f"mmt_gen_{n}"]
+                                    for n in ("beam", "greedy")},
+               artifacts=sorted(os.listdir(tmp)),
+               mean_caption_words=float(np.mean([len(h.split())
+                                                 for h in hyps])))
+    log(f"[eval generation] {json.dumps(out)}")
+    return out
+
+
+def eval_slice(seed, tokenizer):
+    """Phase 13: the evaluation layer at the flagship width, bf16, random
+    weights from ``seed``: the full-grid retrieval test, the loss families
+    through `run_all_evals` (and the bitwise repeat), the generation
+    families at beam 4 and greedy, every #1 launch at a shape phase 2
+    held."""
+    import torch
+
+    from m3p_tpu_torch.eval.evaluator import Evaluator
+    from m3p_tpu_torch.model import build_model
+
+    t0 = time.time()
+    cfg = full_width_config("bfloat16")
+    model = build_model(cfg, seed, "cuda")
+    shapes = set()
+    out = {}
+    part_s = {}
+    with tempfile.TemporaryDirectory() as tmp, recorded_fwd_shapes(shapes):
+        ev = Evaluator(model, eval_config(cfg, tmp))
+        out["grid"] = eval_grid(model, ev, tmp)
+        torch.cuda.empty_cache()
+        part_s["grid"] = time.time() - t0
+        loss_data = eval_loss_data(seed + 13, cfg.n_words, cfg.mask_index)
+        out["losses"] = eval_losses(ev, loss_data, cfg)
+        part_s["losses"] = time.time() - t0 - sum(part_s.values())
+        gen_data = eval_gen_data(seed + 14, tokenizer, cfg.n_words)
+        greedy = Evaluator(model, eval_config(cfg, tmp, beam_size=1))
+        out["generation"] = eval_generation(ev, greedy, gen_data, cfg, tmp)
+        part_s["generation"] = time.time() - t0 - sum(part_s.values())
+        if sorted(os.listdir(tmp)) != ["caption_translate.xx.json",
+                                       "inference.log",
+                                       "score_test_rank0.npy"]:
+            fail(f"eval artifacts: {sorted(os.listdir(tmp))}")
+    out["shapes"] = check_eval_shapes(shapes)
+    out["main_path_s"] = time.time() - t0
+    del model, ev, greedy
+    torch.cuda.empty_cache()
+    out["fp32_card_vs_cpu"] = compare_eval_with_cpu(seed, tokenizer)
+    part_s["fp32_card_vs_cpu"] = out["fp32_card_vs_cpu"]["check_s"]
+    out["part_s"] = part_s
+    out["phase_s"] = time.time() - t0
+    log(f"[eval] phase 13 in {out['phase_s']:.1f} s: {json.dumps(part_s)}")
+    return out
+
+
+def eval_source(ev, batch):
+    """The source encoding and mask of a generation batch, as the
+    Evaluator's `generate_captions` / `generate_translations` make them."""
+    import torch
+
+    from m3p_tpu_torch.model.transformer import lengths_to_mask
+
+    b, model = ev._batch(batch), ev.model
+    if "src_tokens" not in b:
+        mask = lengths_to_mask(b["img_len"], b["feats"].shape[1])
+        return model.encode_image(b["feats"], b["locs"], mask, True), mask
+    mask = lengths_to_mask(b["src_len"], b["src_tokens"].shape[1])
+    if "feats" not in b:
+        return model.encode_text(b["src_tokens"], mask), mask
+    img = lengths_to_mask(b["img_len"], b["feats"].shape[1])
+    enc = model.encode_joint(b["src_tokens"], mask, b["feats"], b["locs"],
+                             img, True)
+    return enc, torch.cat([img, mask], 1)
+
+
+def tie_margins(cpu_ev, batch, lang_id, row, toks):
+    """The smallest top-2 logit margin (fp32, on the CPU) along the token
+    sequence ``toks`` of ``row``, teacher-forced through the cached
+    decoder: where a card and a CPU hypothesis part, the margin that
+    decided it."""
+    import torch
+
+    from m3p_tpu_torch.model.generation import _decode_step
+
+    model = cpu_ev.model
+    with torch.inference_mode():
+        enc, mask = eval_source(cpu_ev, batch)
+        enc, mask = enc[row:row + 1], mask[row:row + 1]
+        toks = torch.as_tensor(toks)[None, :]
+        cache = model.init_decode_cache(enc, toks.shape[1])
+        margins = []
+        for t in range(toks.shape[1] - 1):
+            pos = torch.full((1, 1), t)
+            langs = None if lang_id is None else torch.full((1, 1), lang_id)
+            logits = _decode_step(model, toks[:, t:t + 1], pos, langs, enc,
+                                  mask, cache)
+            top = torch.topk(logits[0], 2).values
+            margins.append(float(top[0] - top[1]))
+    return min(margins) if margins else None
+
+
+def flip_margins(evs, gen, key, beam, rows):
+    """For each flipped row of generation family ``key``: the card's and
+    the CPU's token sequences and the smallest top-2 margin along each."""
+    import torch
+
+    fam = key.rsplit("_", 1)[0]
+    batch, lang_id = gen[fam]["batches"][0], gen[fam]["lang_id"]
+    toks = {}
+    for dev, ev in evs.items():
+        with torch.inference_mode():
+            enc, mask = eval_source(ev, batch)
+            toks[dev], lens = ev._decode(enc, mask, beam,
+                                         ev.cfg.eval.max_gen_len, lang_id)
+            toks[dev] = [t[:n].tolist() for t, n in zip(toks[dev], lens)]
+    return [{"row": row, **{f"{dev}_tokens": toks[dev][row] for dev in toks},
+             **{f"{dev}_path_min_top2_margin": tie_margins(
+                 evs["cpu"], batch, lang_id, row, toks[dev][row])
+                for dev in toks}} for row in rows]
+
+
+@contextlib.contextmanager
+def cpu_drawn_masking():
+    """Within the block, `train.steps.mlm_loss` masks its tokens with draws
+    from a fresh CPU generator of the eval seed, moved to the tokens'
+    device: the card and the CPU then score the same masks (a CUDA
+    generator draws other numbers than a CPU one of the same seed)."""
+    import torch
+
+    from m3p_tpu_torch.eval.evaluator import EVAL_SEED
+    from m3p_tpu_torch.train import steps
+
+    draw = steps.mask_tokens
+
+    def drawn(generator, tokens, valid_mask, cfg, mask_scores=None):
+        cpu = torch.Generator().manual_seed(EVAL_SEED)
+        out = draw(cpu, tokens.cpu(), valid_mask.cpu(), cfg,
+                   None if mask_scores is None else mask_scores.cpu())
+        return [t.to(tokens.device) for t in out]
+
+    steps.mask_tokens = drawn
+    try:
+        yield
+    finally:
+        steps.mask_tokens = draw
+
+
+def compare_eval_with_cpu(seed, tokenizer):
+    """fp32 at depth 2, the same families on the card and on the CPU:
+    `run_all_evals` over the loss families (MLM's masks drawn on the CPU
+    for both, `cpu_drawn_masking`) and a small grid within TOL_EVAL_FP32
+    (R@k equal), the grid's scores within
+    TOL_EVAL_GRID_FP32, and the beam and greedy hypotheses of the
+    generation families equal string for string (a mismatch is shown with
+    both token sequences and the smallest top-2 logit margin along each,
+    and fails)."""
+    import numpy as np
+
+    from m3p_tpu_torch.bench_eval_grid import grid_pool
+    from m3p_tpu_torch.eval.evaluator import Evaluator
+    from m3p_tpu_torch.eval.retrieval import retrieval_grid_scores
+    from m3p_tpu_torch.model import build_model
+
+    t0 = time.time()
+    cfg = dataclasses.replace(full_width_config("float32"), n_layers=2)
+    # drawn on the card, where the initialisation is fast; the CPU gets a
+    # copy of the same weights
+    gpu_model = build_model(cfg, seed, "cuda")
+    cpu_model = copy.deepcopy(gpu_model).to("cpu")
+    losses = eval_loss_data(seed + 15, cfg.n_words, cfg.mask_index,
+                            b=EVAL_FP32_B, groups=EVAL_FP32_GROUPS,
+                            batches=EVAL_FP32_BATCHES)
+    gen = eval_gen_data(seed + 16, tokenizer, cfg.n_words,
+                        b=EVAL_FP32_GEN_B, caption_batches=1)
+    n_img, n_cap, chunk = EVAL_FP32_GRID
+    pool = grid_pool(n_img, n_cap, n_words=cfg.n_words)
+    test = (pool[0], pool[1], np.arange(n_cap) // EVAL_SEQ_PER_IMG,
+            *pool[2:], chunk)
+    got, evs, secs = {}, {}, {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        t1 = time.time()
+        ev = evs[dev] = Evaluator(model, eval_config(
+            cfg, max_gen_len=EVAL_FP32_GEN_LEN))
+        greedy = Evaluator(model, eval_config(
+            cfg, beam_size=1, max_gen_len=EVAL_FP32_GEN_LEN))
+        with cpu_drawn_masking():
+            scores = ev.run_all_evals({**losses, "retrieval_test": test})
+        grid = retrieval_grid_scores(model, *pool, chunk_size=chunk)
+        hyps = {}
+        for name, e in (("beam", ev), ("greedy", greedy)):
+            hyps[f"caption_gen_{name}"] = e.generate_captions(
+                gen["caption_gen"]["batches"], tokenizer, 0)
+            for key in ("mt_gen", "mmt_gen"):
+                hyps[f"{key}_{name}"] = e.generate_translations(
+                    gen[key]["batches"], tokenizer, 1)
+        got[dev] = (scores, grid, hyps)
+        secs[dev] = time.time() - t1
+    (gs, gg, gh), (cs, cg, ch) = got["cuda"], got["cpu"]
+    rel = {k: abs(gs[k] - cs[k]) / max(abs(cs[k]), 1e-30)
+           for k in cs if k in gs}
+    grid_diff = float(np.abs(gg - cg).max())
+    flips = {k: [i for i, (a, b) in enumerate(zip(gh[k], ch[k])) if a != b]
+             for k in ch}
+    flips = {k: rows for k, rows in flips.items() if rows}
+    out = {"max_rel_diff": max(rel.values()), "rel_diff": rel,
+           "grid_max_abs_diff": grid_diff,
+           "hypotheses_equal": gh == ch and not flips,
+           "hypotheses": sum(len(v) for v in ch.values()),
+           "scores_card": gs, "scores_cpu": cs, "secs": secs}
+    if flips:
+        out["flips"] = {k: flip_margins(evs, gen, k, 1 if k.endswith(
+            "greedy") else evs["cpu"].cfg.eval.beam_size, rows)
+            for k, rows in flips.items()}
+    log(f"[fp32 eval] depth 2, card vs CPU: {json.dumps(out)} (tolerance "
+        f"{TOL_EVAL_FP32}, grid {TOL_EVAL_GRID_FP32})")
+    if set(gs) != set(cs) or any(not np.isclose(gs[k], cs[k],
+                                                **TOL_EVAL_FP32)
+                                 for k in cs):
+        fail("fp32 eval scores on the card disagree with the CPU")
+    if grid_diff > TOL_EVAL_GRID_FP32:
+        fail("fp32 eval grid on the card disagrees with the CPU")
+    if not out["hypotheses_equal"]:
+        fail("fp32 generated hypotheses on the card differ from the CPU's "
+             "(tokens and margins above)")
+    out["check_s"] = time.time() - t0
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4460,6 +5172,15 @@ def main() -> int:
                **{name: r["launches"]
                   for name, r in freelb["denoising"].items()}}
     fl_fused = ("freelb_mct_B", "freelb_pair_B")
+    torch.cuda.empty_cache()
+
+    evaluation = eval_slice(args.seed, full_tokenizer)
+    ev_gen = [evaluation["generation"][f"launches_{n}"]
+              for n in ("beam", "greedy")]
+    ev_runs = {"eval_grid": evaluation["grid"]["launches"],
+               "eval_losses": evaluation["losses"]["launches"],
+               "eval_generation": {k: sum(r[k] for r in ev_gen)
+                                   for k in ev_gen[0]}}
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -4473,7 +5194,8 @@ def main() -> int:
                      + mct_a["packed_fwd"] + mct_b["packed_fwd"]
                      + sum(dec_runs[p]["packed_fwd"] for p in dec_packed)
                      + sum(gen_packed.values())
-                     + sum(r["packed_fwd"] for r in fl_runs.values())),
+                     + sum(r["packed_fwd"] for r in fl_runs.values())
+                     + sum(r["packed_fwd"] for r in ev_runs.values())),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
@@ -4483,7 +5205,9 @@ def main() -> int:
                                 for p in dec_packed},
                              **gen_packed,
                              **{p: r["packed_fwd"]
-                                for p, r in fl_runs.items()}},
+                                for p, r in fl_runs.items()},
+                             **{p: r["packed_fwd"]
+                                for p, r in ev_runs.items()}},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -4494,7 +5218,9 @@ def main() -> int:
                for p in dec_packed},
             "generation_tensor_cores": gen_packed_tc,
             **{f"{p}_tensor_cores": r["packed_fwd_tensor_cores"]
-               for p, r in fl_runs.items()}},
+               for p, r in fl_runs.items()},
+            **{f"{p}_tensor_cores": r["packed_fwd_tensor_cores"]
+               for p, r in ev_runs.items()}},
         "design": blocks["design"],
         "max_abs_err": max(worst["bfloat16_tensor_cores"],
                            worst_train["fwd"]["bfloat16_tensor_cores"]),
@@ -4768,6 +5494,7 @@ def main() -> int:
     log(f"[decoder] {json.dumps(decoder)} on {card}")
     log(f"[generation] {json.dumps(generation)} on {card}")
     log(f"[freelb] {json.dumps(freelb)} on {card}")
+    log(f"[eval] {json.dumps(evaluation)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

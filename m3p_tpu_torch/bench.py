@@ -120,23 +120,31 @@ def packed_slots(bn: int, pack_ratio: float = PACK_RATIO) -> Dict[str, int]:
             "regions": max((bn * min(MAX_PRED, MAX_REGIONS)) // 2, 1)}
 
 
+def joint_forward_flops(cfg: ModelConfig, s: int,
+                        regions: int = MAX_REGIONS) -> int:
+    """Forward FLOPs of one joint sequence of ``s`` tokens over ``regions``
+    regions with the ITM pooler (the module docstring's count): the
+    region projection, the refiner, the blocks and the pooler."""
+    d, f = cfg.emb_dim, cfg.ffn_dim
+    image = 2 * regions * (cfg.img_feat_dim + cfg.img_loc_dim) * d
+    refiner = cfg.refine_layers * (2 * (7 * d * d + 2 * d * f) * regions
+                                   + 4 * regions * regions * d)
+    blocks = cfg.n_layers * (2 * (4 * d * d + 2 * d * f) * s + 4 * s * s * d)
+    pooler = 2 * (d * d + d)
+    return image + refiner + blocks + pooler
+
+
 def mct_step_flops(cfg: ModelConfig, bn: int, text_len: int = MAX_LEN,
                    regions: int = MAX_REGIONS,
                    clcm_len: Optional[int] = None,
                    pack_ratio: float = PACK_RATIO) -> int:
     """Model FLOPs of one training step (the module docstring's count),
     the MLM slots packed at ``pack_ratio``."""
-    d, f = cfg.emb_dim, cfg.ffn_dim
+    d = cfg.emb_dim
     slots = packed_slots(bn, pack_ratio)
 
     def encode(s):
-        image = 2 * regions * (cfg.img_feat_dim + cfg.img_loc_dim) * d
-        refiner = cfg.refine_layers * (2 * (7 * d * d + 2 * d * f) * regions
-                                       + 4 * regions * regions * d)
-        blocks = cfg.n_layers * (2 * (4 * d * d + 2 * d * f) * s
-                                 + 4 * s * s * d)
-        pooler = 2 * (d * d + d)
-        return bn * (image + refiner + blocks + pooler)
+        return bn * joint_forward_flops(cfg, s, regions)
 
     forward = encode(regions + text_len)
     forward += 2 * slots["text"] * d * cfg.n_words

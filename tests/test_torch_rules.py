@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "train.state", "data.synthetic", "data.masking",
                  "ops.fused_ffn", "bench_fused_ffn", "model.generation",
                  "ops.topk", "train.freelb", "data.noise",
-                 "data.span_masking", "data.loader"):
+                 "data.span_masking", "data.loader", "config", "eval",
+                 "eval.retrieval", "eval.evaluator", "eval.bleu",
+                 "eval.cider", "eval.caption_metrics", "bench_eval_grid"):
         assert f"m3p_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
