@@ -166,7 +166,28 @@ Phases, each of which fails the run if it fails:
      phase 2 held (`eval_shapes`); fp32 at depth 2 on the card against the
      CPU (one batch of 2 a loss family and a small grid within rtol 1e-4,
      the grid within 1e-4, beam and greedy hypotheses of one row a family
-     at max_gen_len 16 equal).
+     at max_gen_len 16 equal);
+ 14. the trainer (`python -m m3p_tpu_torch.cli.train_x`'s path: Trainer,
+     the steps, Evaluator, checkpoints): (a) the reference MSCOCO
+     fine-tune recipe (bf16, dropout 0.1, accumulation 4, refine_image
+     off) with captioning beside retrieval through `train_x.main(argv,
+     data=...)` at the flagship width, 2 epochs of 16 steps over
+     in-memory batches (24 groups x 4 candidates, 24 captions), reloading
+     a reference .pth written at one language more (the language table
+     keeps its initial value): each step's #1/#2 launches (rel 24/48 a
+     (t2i, i2t) pair, ic 36/72, all on the tensor cores), one update per
+     4 micro-steps (parameters bitwise still in between), the logged lr at
+     the applied update, ms a micro-step and samples/s beside phase 6's
+     bare step, eval seconds an epoch, each checkpoint's bytes and save
+     seconds, the final checkpoint restored bit for bit and timed, peak
+     memory, the dump directory; (b) at depth 2: SIGTERM between
+     micro-steps, the checkpoint at the next step boundary, a fresh
+     Trainer reloading every tensor bit for bit, 8 micro-steps from it and
+     from the uninterrupted run (losses within TOL_BF16, bitwise or not),
+     SIGTERM's disposition restored; a FusedAdam state (bf16 moments, fp32
+     master) bit for bit; (c) fp32 at depth 2: 8 micro-steps with
+     accumulation 2 and weight decay on the card and on the CPU, the
+     parameters' change per leaf within TOL_TRAINER_FP32.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -294,7 +315,9 @@ def attn_inputs(b, s_q, s_k, h, dh, dtype, gen, empty_row=True):
 
 
 # (B, Sq, Sk, causal, dtype) of every #1 case phase 2 held
-HELD_FWD_SHAPES = set()
+# (kernel "fwd" / "bwd", B, Sq, Sk, causal, dtype, dropout on) of every
+# case phase 2 holds against the plain version
+HELD_SHAPES = set()
 
 
 def check_kernels(gen):
@@ -358,10 +381,16 @@ def check_kernels(gen):
                                                     TOL_BF16)):
             if (b, sq, sk, 12, 64, dt, causal, tol) not in cases:
                 cases.append((b, sq, sk, 12, 64, dt, causal, tol))
+    # phase 14's (`trainer_shapes`): the trainer's steps and its evals
+    for b, sq, sk, causal in trainer_shapes()["fwd"]:
+        for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
+                                                    TOL_BF16)):
+            if (b, sq, sk, 12, 64, dt, causal, tol) not in cases:
+                cases.append((b, sq, sk, 12, 64, dt, causal, tol))
     worst = {}
     for b, sq, sk, h, dh, dt, causal, tol in cases:
-        HELD_FWD_SHAPES.add((b, sq, sk, causal,
-                             str(dt).replace("torch.", "")))
+        HELD_SHAPES.add(("fwd", b, sq, sk, causal,
+                         str(dt).replace("torch.", ""), False))
         q, k, v, mask = attn_inputs(b, sq, sk, h, dh, dt, gen)
         want = attention_packed_reference(q, k, v, mask, h, causal=causal)
         rule = flash_design(dt, dh)
@@ -416,8 +445,8 @@ def check_dropout_and_backward(gen):
     shape the kernels take at Dh 64 and 128, the decoder shapes at B = 4,
     and the training shapes (B = 80; encoder blocks at S = 164, the refiner
     at S = 100; the caption step's B = 24, causal (63, 63) and cross
-    (63, 100); phase 12's `denoising_shapes` at B = 24), each with a batch
-    row that has no valid key.  #2 in fp32 (CUDA cores) and bf16 in both
+    (63, 100); phase 12's `denoising_shapes` at B = 24; phase 14's
+    `trainer_shapes`), each with a batch row that has no valid key.  #2 in fp32 (CUDA cores) and bf16 in both
     designs: the one the rule names (the tensor cores at these shapes,
     CUDA cores at Dh 8) and forced to CUDA cores, each call's design read
     from the per-design launch counts."""
@@ -450,6 +479,9 @@ def check_dropout_and_backward(gen):
     for sq, sk, causal in checked_denoising_shapes():   # phase 12's
         cases += [(STREAM_B, sq, sk, 12, 64, dt, causal)
                   for dt in (f32, bf16)]
+    for b, sq, sk, causal in trainer_shapes()["bwd"]:   # phase 14's
+        cases += [(b, sq, sk, 12, 64, dt, causal) for dt in (f32, bf16)
+                  if (b, sq, sk, 12, 64, dt, causal) not in cases]
     worst = {"fwd": {}, "bwd": {}}
 
     def note(kind, name, err):
@@ -465,6 +497,9 @@ def check_dropout_and_backward(gen):
                                           dropout_rate=RATE,
                                           dropout_seed=SEED)
         name = str(dt).replace("torch.", "")
+        HELD_SHAPES.update([("fwd", b, sq, sk, causal, name, True),
+                            ("bwd", b, sq, sk, causal, name, False),
+                            ("bwd", b, sq, sk, causal, name, True)])
         rule = flash_design(dt, dh)
         msg = []
         for design in ([None] if dt == f32 else [None, "cuda_cores"]):
@@ -4578,31 +4613,43 @@ def eval_shapes():
 
 
 @contextlib.contextmanager
-def recorded_fwd_shapes(shapes):
-    """Within the block, record (B, Sq, Sk, causal) of every #1 launch
-    (`ops.attention._launch_fwd`) into ``shapes``; the launches and their
-    counts are untouched."""
+def recorded_launch_shapes(shapes):
+    """Within the block, record ("fwd" / "bwd", B, Sq, Sk, causal, dtype,
+    dropout on) of every #1 and #2 launch (`ops.attention._launch_fwd`,
+    `_launch_bwd`) into ``shapes``; the launches and their counts are
+    untouched."""
     from m3p_tpu_torch.ops import attention as ops
 
-    launch = ops._launch_fwd
+    launch_fwd, launch_bwd = ops._launch_fwd, ops._launch_bwd
 
-    def recorded(q, k, v, kv_mask, n_heads, causal, *args, **kw):
-        shapes.add((q.shape[0], q.shape[1], k.shape[1], bool(causal)))
-        return launch(q, k, v, kv_mask, n_heads, causal, *args, **kw)
+    def note(kind, q, k, causal, rate):
+        shapes.add((kind, q.shape[0], q.shape[1], k.shape[1], bool(causal),
+                    str(q.dtype).replace("torch.", ""), rate > 0))
 
-    ops._launch_fwd = recorded
+    def fwd(q, k, v, kv_mask, n_heads, causal, scale, rate, *args, **kw):
+        note("fwd", q, k, causal, rate)
+        return launch_fwd(q, k, v, kv_mask, n_heads, causal, scale, rate,
+                          *args, **kw)
+
+    def bwd(q, k, v, kv_mask, do, n_heads, causal, scale, rate, *args,
+            **kw):
+        note("bwd", q, k, causal, rate)
+        return launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale,
+                          rate, *args, **kw)
+
+    ops._launch_fwd, ops._launch_bwd = fwd, bwd
     try:
         yield shapes
     finally:
-        ops._launch_fwd = launch
+        ops._launch_fwd, ops._launch_bwd = launch_fwd, launch_bwd
 
 
-def check_eval_shapes(recorded):
-    held = {s[:4] for s in HELD_FWD_SHAPES if s[4] == "bfloat16"}
-    missed = sorted(recorded - held)
+def check_held_shapes(what, recorded):
+    """Fail unless phase 2 held each recorded (kernel, shape, dtype,
+    dropout) against the plain version."""
+    missed = sorted(recorded - HELD_SHAPES)
     if missed:
-        fail(f"phase 13 launched #1 at shapes phase 2 did not hold: "
-             f"{missed}")
+        fail(f"{what} launched at shapes phase 2 did not hold: {missed}")
     return sorted(recorded)
 
 
@@ -4837,7 +4884,8 @@ def eval_slice(seed, tokenizer):
     shapes = set()
     out = {}
     part_s = {}
-    with tempfile.TemporaryDirectory() as tmp, recorded_fwd_shapes(shapes):
+    with tempfile.TemporaryDirectory() as tmp, \
+            recorded_launch_shapes(shapes):
         ev = Evaluator(model, eval_config(cfg, tmp))
         out["grid"] = eval_grid(model, ev, tmp)
         torch.cuda.empty_cache()
@@ -4853,7 +4901,7 @@ def eval_slice(seed, tokenizer):
                                        "inference.log",
                                        "score_test_rank0.npy"]:
             fail(f"eval artifacts: {sorted(os.listdir(tmp))}")
-    out["shapes"] = check_eval_shapes(shapes)
+    out["shapes"] = check_held_shapes("phase 13", shapes)
     out["main_path_s"] = time.time() - t0
     del model, ev, greedy
     torch.cuda.empty_cache()
@@ -5038,6 +5086,757 @@ def compare_eval_with_cpu(seed, tokenizer):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the trainer
+# ---------------------------------------------------------------------------
+
+# the reference MSCOCO fine-tune recipe (tests/test_cli.py:489-518) without
+# its paths; captioning beside retrieval (--cross_modal_steps, the
+# recipe's cross_ic_steps), one validation metric with early stopping on
+# it, and each epoch cut to TRAINER_STEPS trainer steps
+TRAINER_STEPS = 16
+TRAINER_B = 24
+TRAINER_ARGV = [
+    "--exp_name", "phase14", "--batch_size", str(TRAINER_B),
+    "--emb_dim", "768",
+    "--n_layers", "12", "--n_heads", "12", "--n_dec_layers", "-1",
+    "--dropout", "0.1", "--attention_dropout", "0.1",
+    "--gelu_activation", "True", "--optimizer", OPTIM_SPEC,
+    "--lgs", "en-de-fr", "--cross_rel_steps", "coco-img",
+    "--cross_modal_steps", "coco-img", "--mlm_steps", "",
+    "--epoch_size", str(TRAINER_B * TRAINER_STEPS), "--max_epoch", "2",
+    "--bptt", "128", "--max_len", "64", "--fp16", "True",
+    "--validation_metrics", "valid_I2T_acc",
+    "--stopping_criterion", "valid_I2T_acc,5",
+    "--max_region_num", "100", "--accumulate_gradients", "4",
+    "--amp", "1", "--refine_image", "False", "--refine_encoder", "False",
+    "--save_every_epoch", "5", "--is_generation", "False",
+    "--is_understanding", "True", "--is_pretrain", "False",
+    "--use_new_fea", "True", "--t2i_flag", "True", "--i2t_flag", "True",
+    "--eval_n", "50", "--sent_ratio", "0.8", "--word_ratio", "0.8",
+    "--seq_per_img", "5", "--eval_images", "-1", "--sample_n", "4",
+    "--multi_cls_loss_weight", "0", "--bin_cls_loss_weight", "1",
+    "--num_workers", "4", "--ft_lgs", "en", "--src_lgs", "en",
+    "--ag_lgs", "", "--eval_only", "False", "--is_freelb", "False",
+]
+TRAINER_K = 4
+# the eval grid of the recipe run: 10 images x 50 captions, one chunk
+TRAINER_GRID = (10, 50)
+# the checkpoints of the recipe run (the state 5.4 GB: fp32 parameters,
+# Adam's two moments, the accumulation buffer), a temporary sibling while
+# one is written, the old one until the new one is in, and the .pth
+TRAINER_DISK_GB = 24
+# fp32 at depth 2, card against CPU: the recipe with accumulation 2, weight
+# decay and Adam's eps at 1e-3, which keeps an update smooth in a gradient
+# that is zero up to rounding (the key biases': the softmax ignores a
+# per-row shift), 2 groups x 4 candidates and 2 captions a batch
+TRAINER_FP32_SPEC = ("adam_inverse_sqrt,beta1=0.9,beta2=0.98,lr=0.001,"
+                     "warmup_updates=2,eps=0.001,weight_decay=0.01")
+TRAINER_FP32_GROUPS, TRAINER_FP32_B = 2, 2
+# and a 32,002-word vocabulary (mask id 32,001): the CPU's Adam over the
+# 250,002 x 768 word table was most of the check's time; the word head at
+# the full vocabulary is held card vs CPU by phases 10 and 13
+TRAINER_FP32_WORDS = 32002
+# the parameters' change after 8 micro-steps (4 updates), card against CPU,
+# per leaf relative to the leaf's largest change; a leaf whose largest
+# change is under 1e-3 of the model's largest (the key biases) relative to
+# the model's largest: fp32 GEMMs and reductions in another order through
+# 2 blocks, the word head and Adam
+TOL_TRAINER_FP32 = 1e-3
+# the micro-steps after the resume (rel, ic, rel, ic, ic, ic)
+RESUME_STEPS = ("rel", "ic", "rel", "ic", "ic", "ic")
+# the fp32 check's 8 micro-steps: windows of 2 that mix the kinds, two
+# caption steps (the CPU's 250002-word head is most of its time)
+FP32_STEPS = ("rel", "ic", "rel", "rel", "ic")
+
+
+class CycledBatches:
+    """An in-memory dataset: ``epoch_iterator`` yields its ready-made
+    batches in turn, ``repeat`` times, whatever the epoch (numpy makes one
+    96-row batch's 79 MB of features slower than a step runs)."""
+
+    def __init__(self, batches, repeat=8):
+        self.batches = batches
+        self.repeat = repeat
+
+    def epoch_iterator(self, batch_size, epoch=0):
+        for _ in range(self.repeat):
+            yield from self.batches
+
+
+def trainer_shapes():
+    """(B, Sq, Sk, causal) of phase 14's attention: "bwd" those of its
+    steps (#1 and #2), "fwd" those and its evals' (#1 only).  The ITM
+    micro-step's blocks over the joint sequence at BN = TRAINER_B x
+    SAMPLE_N (no refiner: refine_image False); the caption micro-step at
+    TRAINER_B images (the encoder over the regions, the decoder's causal
+    self-attention and its cross-attention); valid_I2T_acc's pair at the
+    same BN, refined (the Evaluator's ITM loss refines), the grid's one
+    chunk and the caption loss's own shapes.  Phase 2 holds both kernels at
+    each; phase 14 fails if it launches one at any other."""
+    bn, r, t = TRAINER_B * SAMPLE_N, REGIONS, CAPTION_LEN - 1
+    joint = REGIONS + TEXT_LEN
+    steps = [(bn, joint, joint, False), (TRAINER_B, r, r, False),
+             (TRAINER_B, t, t, True), (TRAINER_B, t, r, False)]
+    evals = [(bn, r, r, False), (EVAL_GRID[2], joint, joint, False)]
+    return {"bwd": sorted(set(steps)), "fwd": sorted(set(steps + evals))}
+
+
+def trainer_data(seed, groups=TRAINER_B, caption_b=TRAINER_B,
+                 n_words=250002):
+    """LoadedData for the recipe: two (t2i, i2t) pairs of ``groups`` x
+    SAMPLE_N candidates (TEXT_LEN tokens, REGIONS regions) and two caption
+    batches of ``caption_b`` images, token ids below ``n_words``; eval
+    data: one pair for valid_I2T_acc, a TRAINER_GRID retrieval grid, one
+    caption batch."""
+    import numpy as np
+
+    from m3p_tpu_torch.bench_eval_grid import grid_pool
+    from m3p_tpu_torch.data import synthetic
+    from m3p_tpu_torch.data.loader import LoadedData
+
+    rng = np.random.RandomState(seed)
+
+    def pair():
+        return tuple(synthetic.make_retrieval_batch(
+            rng, groups, SAMPLE_N, TEXT_LEN, REGIONS, n_words)
+            for _ in range(2))
+
+    def caption():
+        return synthetic.make_caption_batch(rng, caption_b, CAPTION_LEN,
+                                            REGIONS, n_words)
+
+    n_img, n_cap = TRAINER_GRID
+    tok, lens, feats, locs, img_len = grid_pool(n_img, n_cap)
+    cap_to_img = np.arange(n_cap) // (n_cap // n_img)
+    return LoadedData(
+        train_datasets={("rel", "coco"): CycledBatches([pair(), pair()]),
+                        ("ic", "coco"): CycledBatches([caption(),
+                                                       caption()])},
+        eval_data={"retrieval_valid_batches": [pair()],
+                   "retrieval_test": (tok, lens, cap_to_img, feats, locs,
+                                      img_len),
+                   "caption_batches": [caption()]})
+
+
+@contextlib.contextmanager
+def patched(obj, name, make):
+    """``obj.name`` replaced by ``make(original)`` inside the block."""
+    original = getattr(obj, name)
+    setattr(obj, name, make(original))
+    try:
+        yield original
+    finally:
+        setattr(obj, name, original)
+
+
+def tensor_tree(tree, prefix=""):
+    """(path, leaf) of a state: tensors and counters of nested dicts and
+    lists."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tensor_tree(tree[k], f"{prefix}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tensor_tree(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def state_copy(state):
+    """A copy of a train state's tensors (model, optimizer) and step."""
+    import torch
+
+    def copy_leaf(v):
+        return v.detach().clone() if isinstance(v, torch.Tensor) else v
+
+    return {"step": state.step,
+            "model": {k: v.detach().clone()
+                      for k, v in state.model.state_dict().items()},
+            "opt": [(p, copy_leaf(v)) for p, v in
+                    tensor_tree(state.opt_state)]}
+
+
+def bitwise_equal(state, saved):
+    """Paths where ``state`` differs from `state_copy` ``saved`` (dtype or
+    a bit), and the number of tensors compared."""
+    import torch
+
+    now = state_copy(state)
+    bad, n = [], 0
+    if now["step"] != saved["step"]:
+        bad.append(f"step {now['step']} != {saved['step']}")
+    pairs = [(f"model.{k}", v, saved["model"].get(k))
+             for k, v in now["model"].items()]
+    if [p for p, _ in now["opt"]] != [p for p, _ in saved["opt"]]:
+        bad.append("optimizer state layout")
+    pairs += [(f"opt{p}", v, w) for (p, v), (_, w) in
+              zip(now["opt"], saved["opt"])]
+    for path, v, w in pairs:
+        if isinstance(v, torch.Tensor):
+            n += 1
+            if not (isinstance(w, torch.Tensor) and v.dtype == w.dtype
+                    and torch.equal(v, w)):
+                bad.append(path)
+        elif v != w:
+            bad.append(path)
+    return bad, n
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def trainer_launches(cfg, kind):
+    """#1/#2 launches of one trainer step: a (t2i, i2t) pair of ITM
+    micro-steps (the refiner's layers when refine_image, the blocks) or a
+    caption micro-step (the refiner, the encoder, the decoder's causal
+    self-attention and cross-attention), all on the tensor cores."""
+    m = cfg.model
+    refine = m.refine_layers if cfg.refine_image else 0
+    fwd = 2 * (refine + m.n_layers) if kind == "rel" else \
+        refine + 3 * m.n_layers
+    return expected_launches((fwd, 2 * fwd))
+
+
+def trainer_recipe(seed, data, tmp):
+    """(a) The recipe through `train_x.main(argv, data=...)` at the
+    flagship width: counted, each step's launches checked, one update per
+    TRAINER_K micro-steps, the logged lr, the reload's kept language
+    table, the epochs, evals and checkpoints timed, the final checkpoint
+    restored bit for bit; then the trainer's steps in turns with the bare
+    steps (`trainer_in_turns`)."""
+    import re
+
+    import torch
+
+    from m3p_tpu_torch import checkpoint as ckpt
+    from m3p_tpu_torch.cli import train_x
+    from m3p_tpu_torch.eval.evaluator import Evaluator
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.train import trainer as trainer_mod
+    from m3p_tpu_torch.train.state import TrainState
+
+    dump_root = os.path.join(tmp, "dump")
+    argv = TRAINER_ARGV + ["--dump_path", dump_root, "--exp_id", "a"]
+    cfg = train_x.args_to_config(train_x.get_parser().parse_args(argv))
+    # the pre-trained .pth: another random model at one language more
+    t0 = time.time()
+    ref_cfg = dataclasses.replace(cfg.model, n_langs=cfg.model.n_langs + 1)
+    ref = build_model(ref_cfg, seed + 1, "cuda")
+    pth = os.path.join(tmp, "pretrained.pth")
+    ckpt.save_reference_checkpoint(pth, ref, ref_cfg.n_layers,
+                                   ref_cfg.refine_layers)
+    ref_q = ref.state_dict()["block_0.attn.q_lin.weight"].clone()
+    del ref
+    init_lang = build_model(cfg.model, cfg.seed, "cuda").state_dict()[
+        "text_emb.lang.weight"].clone()
+    pth_s = time.time() - t0
+    watched = ("block_0.attn.q_lin.weight",
+               f"block_{cfg.model.n_layers - 1}.ffn.lin2.weight",
+               "text_emb.ln_emb.weight")
+    rec = {"steps": [], "micro": [], "epochs": [], "evals": [],
+           "saves": []}
+
+    def on_init(orig):
+        def init(self, *a, **kw):
+            orig(self, *a, **kw)
+            p = dict(self.model.named_parameters())
+            rec["initial"] = [p[n].detach().clone() for n in watched]
+            rec["lang"] = p["text_emb.lang.weight"].detach().clone()
+            rec["q"] = p["block_0.attn.q_lin.weight"].detach().clone()
+        return init
+
+    def on_step(orig):
+        def step_once(self, kind, task):
+            before = launch_counts()
+            t = time.perf_counter()
+            orig(self, kind, task)
+            host_ms = (time.perf_counter() - t) * 1e3
+            after = launch_counts()
+            rec["steps"].append((kind, {k: after[k] - before[k]
+                                        for k in after}, host_ms))
+        return step_once
+
+    def on_apply(orig):
+        def apply(self):
+            out = orig(self)
+            if len(rec["micro"]) < 2 * TRAINER_K:
+                p = dict(self.model.named_parameters())
+                rec["micro"].append((self.step,
+                                     self.opt_state["mini_step"],
+                                     [p[n].detach().clone()
+                                      for n in watched]))
+            return out
+        return apply
+
+    def timed(key, orig):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            n0, t = len(rec["steps"]), time.perf_counter()
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+            rec[key].append((time.perf_counter() - t, rec["steps"][n0:]))
+            return out
+        return run
+
+    def on_save(orig):
+        def save(path, state, extra=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            orig(path, state, extra)
+            rec["saves"].append({"name": os.path.basename(path),
+                                 "s": time.perf_counter() - t,
+                                 "bytes": dir_bytes(path)})
+        return save
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(trainer_mod.Trainer, "__init__",
+                                    on_init))
+        stack.enter_context(patched(trainer_mod.Trainer, "step_once",
+                                    on_step))
+        stack.enter_context(patched(TrainState, "apply_gradients",
+                                    on_apply))
+        stack.enter_context(patched(trainer_mod.Trainer, "train_epoch",
+                                    lambda o: timed("epochs", o)))
+        stack.enter_context(patched(Evaluator, "run_all_evals",
+                                    lambda o: timed("evals", o)))
+        stack.enter_context(patched(ckpt, "save_checkpoint", on_save))
+        shapes = stack.enter_context(recorded_launch_shapes(set()))
+        # ---- the main path, counted ----
+        zero_launch_counts()
+        t0 = time.time()
+        trainer = train_x.main(argv + ["--reload_model", pth], data=data)
+        torch.cuda.synchronize()
+        main_s = time.time() - t0
+        counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dump = trainer.cfg.dump_path
+    listing = sorted(os.listdir(dump))
+    # ---- checks ----
+    shapes = check_held_shapes("phase 14's train_x.main", shapes)
+    for kind, got, _ in rec["steps"]:
+        if got != trainer_launches(trainer.cfg, kind):
+            fail(f"trainer: a {kind} step launched {got}; expected "
+                 f"{trainer_launches(trainer.cfg, kind)}")
+    if len(rec["epochs"]) != 2 or trainer.epoch != 2:
+        fail(f"trainer: {len(rec['epochs'])} epochs ran, epoch "
+             f"{trainer.epoch}; expected 2")
+    start = rec["initial"]
+    for i, (step, mini, params) in enumerate(rec["micro"]):
+        emitted = (i + 1) % TRAINER_K == 0
+        if step != (i + 1) // TRAINER_K or mini != (i + 1) % TRAINER_K:
+            fail(f"trainer: after micro-step {i + 1} step {step}, mini-step "
+                 f"{mini}; expected {(i + 1) // TRAINER_K}, "
+                 f"{(i + 1) % TRAINER_K}")
+        same = all(torch.equal(a, b) for a, b in zip(params, start))
+        if emitted == same:
+            fail(f"trainer: micro-step {i + 1} "
+                 f"{'left the parameters unmoved' if same else 'moved them'}"
+                 f" (an update every {TRAINER_K} micro-steps)")
+        if emitted:
+            start = params
+    if not torch.equal(rec["lang"], init_lang):
+        fail("trainer: the reload changed the language table, whose shape "
+             "the .pth does not share")
+    if not torch.equal(rec["q"], ref_q):
+        fail("trainer: the reload did not load block_0.attn.q_lin.weight")
+    with open(os.path.join(dump, "train.log")) as f:
+        log_text = f.read()
+    lr_lines = re.findall(r"iter (\d+) - (.*) - [\d.]+ sent/s - \d+ words/s"
+                          r" - lr ([0-9.e+-]+)", log_text)
+    if not lr_lines:
+        fail("trainer: no stats line in train.log")
+    for n, stats, lr in lr_lines:
+        want = f"{trainer.lr_schedule(int(n) // TRAINER_K):.3e}"
+        if lr != want:
+            fail(f"trainer: iter {n} logged lr {lr}; the schedule at update "
+                 f"{int(n) // TRAINER_K} is {want}")
+        values = [float(v) for v in re.findall(r": *([-+0-9.naife]+)",
+                                                stats)]
+        if not values or not all(v == v and abs(v) < 1e30 for v in values):
+            fail(f"trainer: stats {stats!r}")
+    if not {"checkpoint", "best-I2T_acc", "params.json",
+            "train.log"} <= set(listing):
+        fail(f"trainer: dump directory {listing}")
+    # the final checkpoint is the live state: restore it in place, timed
+    saved = state_copy(trainer.state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.restore_checkpoint(os.path.join(dump, "checkpoint"), trainer.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    bad, n_tensors = bitwise_equal(trainer.state, saved)
+    if bad:
+        fail(f"trainer: restore differs at {bad[:5]}")
+    del saved
+    turns = trainer_in_turns(trainer, data)
+    epoch_s, steps = rec["epochs"][-1]
+    micro = sum(2 if kind == "rel" else 1 for kind, _, _ in steps)
+    rows = sum(2 * TRAINER_B * SAMPLE_N if kind == "rel" else TRAINER_B
+               for kind, _, _ in steps)
+    # the host's time a step, launch to launch (the step is host-paced:
+    # nothing waits for the card inside an epoch but the stats line)
+    host_ms = {k: sorted(ms for kind, _, ms in steps if kind == k)
+               for k in ("rel", "ic")}
+    host_ms = {k: v[len(v) // 2] for k, v in host_ms.items() if v}
+    m = trainer.cfg.model
+    state_count = {"parameters": sum(p.numel()
+                                     for p in trainer.model.parameters()),
+                   "fp32_bytes_params_moments_acc":
+                       4 * 4 * sum(p.numel()
+                                   for p in trainer.model.parameters())}
+    numbers = {
+        "main_s": main_s, "pth_write_s": pth_s,
+        "epochs_s": [s for s, _ in rec["epochs"]],
+        "steps_per_epoch": [len(s) for _, s in rec["epochs"]],
+        "micro_steps_per_epoch": micro,
+        "ms_per_micro_step": epoch_s * 1e3 / micro,
+        "samples_per_s": rows / epoch_s,
+        "ms_per_micro_step_first_epoch":
+            rec["epochs"][0][0] * 1e3 / micro,
+        "host_ms_per_step_median": host_ms,
+        "in_turns_with_bare_steps": turns,
+        "launch_shapes": [list(x) for x in shapes],
+        "eval_s_per_epoch": [s for s, _ in rec["evals"]],
+        "checkpoints": rec["saves"], "restore_s": restore_s,
+        "restore_tensors_bitwise": n_tensors, "state_count": state_count,
+        "peak_memory_gb": peak_gb, "dump": listing,
+        "launches": counts,
+        "launches_per_step": {k: trainer_launches(trainer.cfg, k)[
+            "packed_fwd"] for k in ("rel", "ic")},
+        "lr_logged": [(int(n), lr) for n, _, lr in lr_lines],
+        "update_every": TRAINER_K, "best_metrics": trainer.best_metrics,
+        "refine_image": trainer.cfg.refine_image, "n_layers": m.n_layers,
+    }
+    log(f"[trainer] the recipe through train_x.main at {m.n_layers} x "
+        f"{m.emb_dim}d, bf16, "
+        f"dropout 0.1, accumulation {TRAINER_K}, refine_image "
+        f"{trainer.cfg.refine_image}: {len(rec['epochs'])} epochs of "
+        f"{numbers['steps_per_epoch']} steps ({micro} micro-steps) in "
+        f"{numbers['epochs_s']} s; {numbers['ms_per_micro_step']:.2f} ms a "
+        f"micro-step, {numbers['samples_per_s']:.1f} samples/s, host ms a "
+        f"step (median) {host_ms}; #1/#2 a step: rel {trainer_launches(trainer.cfg, 'rel')['packed_fwd']}/"
+        f"{trainer_launches(trainer.cfg, 'rel')['packed_bwd']}, ic "
+        f"{trainer_launches(trainer.cfg, 'ic')['packed_fwd']}/"
+        f"{trainer_launches(trainer.cfg, 'ic')['packed_bwd']}, all on the "
+        f"tensor cores; main path {counts['packed_fwd']} #1, "
+        f"{counts['packed_bwd']} #2; eval {numbers['eval_s_per_epoch']} s "
+        f"an epoch; checkpoints {rec['saves']}; restore {restore_s:.2f} s, "
+        f"{n_tensors} tensors bitwise; peak {peak_gb:.2f} GB; lr logged "
+        f"{numbers['lr_logged']}; dump {listing}; every launch at a shape "
+        f"phase 2 held: {shapes}")
+    return numbers
+
+
+def trainer_in_turns(trainer, data, n=TRAINER_K):
+    """`Trainer.step_once` beside the bare `make_train_step` step of the
+    same kind at the trainer's own batch, in one process and in turns
+    (bare, trainer, trainer, bare; each block n steps of the kind, the
+    host's clock around a synchronised block): the ITM (t2i, i2t) pair and
+    the caption step, both on the trainer's model and optimizer state (the
+    accumulation in both, a block of n steps holding the same number of
+    updates either way).  The difference is what the trainer adds: the
+    staging thread, the lambdas, the seeds and the stats."""
+    import torch
+
+    from m3p_tpu_torch.data.pipeline import prefetch_to_device
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train import steps as S
+
+    dev = trainer.device
+    out = {}
+    for kind in ("rel", "ic"):
+        task = (kind, "coco")
+        staging = prefetch_to_device(
+            iter(data.train_datasets[task].batches[:1]), device=dev)
+        batch = next(staging)
+        staging.close()
+        halves = batch if isinstance(batch, tuple) else (batch,)
+        step = S.make_train_step(trainer._loss_fn(kind))
+        seed = [trainer.cfg.seed]
+
+        def bare():
+            for b in halves:
+                trainer.state, _ = step(trainer.state, b,
+                                        Generators.from_seed(seed[0], dev))
+            seed[0] += 977
+
+        def through_trainer():
+            trainer.step_once(kind, task)
+
+        def block(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / n
+
+        through_trainer()   # the kind's staging thread started
+        bare()
+        b1, t1, t2, b2 = (block(f) for f in (bare, through_trainer,
+                                             through_trainer, bare))
+        rows = len(halves) * (TRAINER_B * SAMPLE_N if kind == "rel"
+                              else TRAINER_B)
+        bare_ms, trainer_ms = (b1 + b2) / 2, (t1 + t2) / 2
+        out[kind] = {"steps_a_block": n, "micro_steps_a_step": len(halves),
+                     "bare_ms_a_step": bare_ms,
+                     "trainer_ms_a_step": trainer_ms,
+                     "readings_bare_trainer_trainer_bare": [b1, t1, t2, b2],
+                     "bare_samples_per_s": rows * 1e3 / bare_ms,
+                     "trainer_samples_per_s": rows * 1e3 / trainer_ms,
+                     "trainer_minus_bare_ms": trainer_ms - bare_ms}
+    trainer._close_iterators()
+    log(f"[trainer] in turns at the trainer's batch (bare, trainer, trainer,"
+        f" bare; {n} steps a block): " + "; ".join(
+            f"{k} bare {v['bare_ms_a_step']:.2f} ms a step "
+            f"({v['bare_samples_per_s']:.1f} samples/s), trainer "
+            f"{v['trainer_ms_a_step']:.2f} ms ({v['trainer_samples_per_s']:.1f}"
+            f" samples/s), difference {v['trainer_minus_bare_ms']:+.2f} ms, "
+            f"readings {[round(x, 2) for x in v['readings_bare_trainer_trainer_bare']]}"
+            for k, v in out.items()))
+    return out
+
+
+def trainer_preemption(seed, data, tmp):
+    """(b) SIGTERM between micro-steps at depth 2, bf16: the checkpoint at
+    the next step boundary, a fresh model and Trainer reloading it bit for
+    bit, the next micro-steps from both, the handler's restore; and a
+    FusedAdam state (bf16 moments, fp32 master) saved and restored bit for
+    bit."""
+    import signal
+
+    import torch
+
+    from m3p_tpu_torch import checkpoint as ckpt
+    from m3p_tpu_torch.cli import train_x
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+    from m3p_tpu_torch.train.trainer import Trainer
+
+    argv = TRAINER_ARGV + ["--n_layers", "2"]
+    cfg = train_x.args_to_config(train_x.get_parser().parse_args(argv))
+    cfg.dump_path = os.path.join(tmp, "preempt")
+    os.makedirs(cfg.dump_path)
+    before = signal.getsignal(signal.SIGTERM)
+    trainer = Trainer(cfg, build_model(cfg.model, seed, "cuda"),
+                      data.train_datasets)
+    trainer.install_preemption_handler()
+    at_save = {}
+    micro = [0]
+    apply0 = trainer.state.apply_gradients
+
+    def apply():
+        out = apply0()
+        micro[0] += 1
+        if micro[0] == TRAINER_K + 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+            at_save["pending_at_once"] = trainer._pending_save
+        return out
+
+    trainer.state.apply_gradients = apply
+
+    def on_save(orig):
+        def save(path, state, extra=None):
+            at_save.update(state=state_copy(state), extra=dict(extra),
+                           micro=micro[0])
+            orig(path, state, extra)
+            # the uninterrupted run pauses here: the epoch's budget is spent
+            trainer.n_sentences = cfg.epoch_size
+        return save
+
+    try:
+        with patched(ckpt, "save_checkpoint", on_save):
+            trainer.train_epoch()
+        if "state" not in at_save:
+            fail("trainer: SIGTERM scheduled no checkpoint")
+        if not at_save["pending_at_once"]:
+            fail("trainer: the SIGTERM handler did not run at once")
+        saved = at_save["state"]
+        if saved["step"] != 1:
+            fail(f"trainer: SIGTERM's checkpoint at update {saved['step']}")
+        mini = dict(saved["opt"])[".mini_step"]
+        if mini == 0 or at_save["extra"]["n_total_iter"] != \
+                trainer.n_total_iter:
+            fail(f"trainer: SIGTERM's checkpoint at mini-step {mini}, "
+                 f"n_total_iter {at_save['extra']['n_total_iter']} (the "
+                 f"run at {trainer.n_total_iter})")
+        resumed = Trainer(cfg, build_model(cfg.model, seed + 7, "cuda"),
+                          data.train_datasets)
+        t0 = time.perf_counter()
+        if not resumed.reload_checkpoint():
+            fail("trainer: no checkpoint to resume from")
+        reload_s = time.perf_counter() - t0
+        bad, n_tensors = bitwise_equal(resumed.state, saved)
+        if bad or resumed.n_total_iter != trainer.n_total_iter:
+            fail(f"trainer: the resumed state differs at {bad[:5]}")
+        # the next micro-steps from both, on the same batches and seeds
+        trainer._close_iterators()
+        trainer.stats.flush()
+        losses = {"uninterrupted": [], "resumed": []}
+        for kind in RESUME_STEPS:
+            for name, t in (("uninterrupted", trainer),
+                            ("resumed", resumed)):
+                t.step_once(kind, (kind, "coco"))
+                losses[name].append(t.stats.flush()[f"{kind}-coco"])
+        a = torch.tensor(losses["uninterrupted"])
+        b = torch.tensor(losses["resumed"])
+        if not torch.allclose(b, a, **TOL_BF16) or not torch.isfinite(a).all():
+            fail(f"trainer: losses after the resume {losses}")
+        bitwise = bool(torch.equal(a, b))
+        if resumed.state.step != trainer.state.step:
+            fail(f"trainer: {resumed.state.step} updates after the resume, "
+                 f"{trainer.state.step} without")
+    finally:
+        trainer.uninstall_preemption_handler()
+    if signal.getsignal(signal.SIGTERM) != before:
+        fail("trainer: SIGTERM's disposition was not restored")
+    resumed._close_iterators()
+    trainer._close_iterators()
+    micro_steps = sum(2 if k == "rel" else 1 for k in RESUME_STEPS)
+    # FusedAdam: bf16 moments and an fp32 master
+    tx, _ = build_optimizer(LONG_SPEC, clip_grad_norm=CLIP)
+    state = create_train_state(build_model(cfg.model, seed, "cuda"), tx)
+    state, _ = itm_step()(state, train_batch(seed, "cuda"),
+                          Generators.from_seed(seed, "cuda"))
+    path = os.path.join(tmp, "fused")
+    ckpt.save_checkpoint(path, state, {"epoch": 0})
+    fused_saved = state_copy(state)
+    fresh = create_train_state(build_model(cfg.model, seed + 3, "cuda"),
+                               build_optimizer(LONG_SPEC,
+                                               clip_grad_norm=CLIP)[0])
+    ckpt.restore_checkpoint(path, fresh)
+    fused_bad, fused_n = bitwise_equal(fresh, fused_saved)
+    if fused_bad or "master" not in fresh.opt_state:
+        fail(f"trainer: the FusedAdam state differs at {fused_bad[:5]}")
+    numbers = {"sigterm_after_micro_step": TRAINER_K + 1,
+               "checkpoint_at_micro_step": at_save["micro"],
+               "checkpoint_update": saved["step"],
+               "checkpoint_mini_step": mini,
+               "checkpoint_n_total_iter": at_save["extra"]["n_total_iter"],
+               "resume_tensors_bitwise": n_tensors, "reload_s": reload_s,
+               "micro_steps_after_resume": micro_steps,
+               "losses_after_resume": losses,
+               "losses_bitwise_equal": bitwise,
+               "fused_master_tensors_bitwise": fused_n}
+    log(f"[trainer] preemption at depth 2: SIGTERM after micro-step "
+        f"{TRAINER_K + 1}, checkpoint at the step boundary after micro-step "
+        f"{at_save['micro']} (update {saved['step']}, mini-step {mini}); a "
+        f"fresh Trainer reloaded {n_tensors} tensors bit for bit in "
+        f"{reload_s:.2f} s; {micro_steps} micro-steps after: losses "
+        f"{'bitwise equal' if bitwise else 'within TOL_BF16, not bitwise'} "
+        f"{losses}; the handler restored; FusedAdam (bf16 moments, fp32 "
+        f"master) {fused_n} tensors bit for bit")
+    return numbers
+
+
+def trainer_fp32_vs_cpu(seed):
+    """(c) 8 trainer micro-steps of rel + ic at depth 2, fp32, rate 0,
+    accumulation 2 and weight decay, a TRAINER_FP32_WORDS vocabulary, on
+    the card and on the CPU from the same weights and batches: the
+    parameters' change per leaf."""
+    import torch
+
+    from m3p_tpu_torch.cli import train_x
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.train.trainer import Trainer
+
+    argv = TRAINER_ARGV + [
+        "--n_layers", "2", "--fp16", "False", "--dropout", "0",
+        "--attention_dropout", "0", "--accumulate_gradients", "2",
+        "--optimizer", TRAINER_FP32_SPEC]
+    cfg = train_x.args_to_config(train_x.get_parser().parse_args(argv))
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, n_words=TRAINER_FP32_WORDS,
+        mask_index=TRAINER_FP32_WORDS - 1))
+    data = trainer_data(seed + 5, TRAINER_FP32_GROUPS, TRAINER_FP32_B,
+                        TRAINER_FP32_WORDS)
+    cpu_model = build_model(cfg.model, seed, "cpu")
+    start = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    gpu_model = build_model(cfg.model, seed, "cuda")
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    t0 = time.time()
+    trainers = {side: Trainer(cfg, m, data.train_datasets)
+                for side, m in (("card", gpu_model), ("host", cpu_model))}
+    zero_launch_counts()
+    for kind in FP32_STEPS:
+        for t in trainers.values():
+            t.step_once(kind, (kind, "coco"))
+    counts = launch_counts()
+    for t in trainers.values():
+        t._close_iterators()
+    if trainers["card"].state.step != 4 or trainers["host"].state.step != 4:
+        fail("trainer fp32: not 4 updates in 8 micro-steps")
+    if counts["packed_fwd"] == 0 or counts["packed_fwd_tensor_cores"]:
+        fail(f"trainer fp32: launches {counts} (fp32 takes the CUDA-core "
+             f"designs)")
+    change = {k: v.cpu() - start[k]
+              for k, v in gpu_model.state_dict().items()}
+    want = {k: v - start[k] for k, v in cpu_model.state_dict().items()}
+    largest = max(v.abs().max().item() for v in want.values())
+    worst, worst_name = 0.0, ""
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        if scale < 1e-3 * largest:
+            scale = largest
+        err = (change[name] - w).abs().max().item() / max(scale, 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    if not worst <= TOL_TRAINER_FP32:
+        fail(f"trainer fp32: parameter change card vs CPU {worst:.3e} at "
+             f"{worst_name} (tolerance {TOL_TRAINER_FP32})")
+    log(f"[trainer] fp32 at depth 2, card vs CPU, 8 micro-steps (4 updates,"
+        f" weight decay 0.01): worst change difference {worst:.3e} at "
+        f"{worst_name} (tolerance {TOL_TRAINER_FP32}, relative to the leaf's"
+        f" largest change); largest change {largest:.3e}; "
+        f"{time.time() - t0:.1f} s")
+    return {"worst_rel": worst, "leaf": worst_name, "largest_change": largest,
+            "tolerance": TOL_TRAINER_FP32, "s": time.time() - t0}
+
+
+def trainer_slice(seed):
+    """Phase 14: the trainer path (train_x -> Trainer -> the steps ->
+    Evaluator -> checkpoints) in three parts; the dump directory removed
+    at the end."""
+    import logging
+    import shutil
+
+    import torch
+
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="m3p_trainer_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        if free_gb < TRAINER_DISK_GB:
+            fail(f"trainer: {free_gb:.1f} GB free under {tmp}; the phase "
+                 f"writes flagship checkpoints and needs {TRAINER_DISK_GB} "
+                 f"GB")
+        data = trainer_data(seed)
+        data_s = time.time() - t0
+        out = {"data_s": data_s, "disk_free_gb": free_gb}
+        out["recipe"] = trainer_recipe(seed, data, tmp)
+        torch.cuda.empty_cache()
+        out["preemption"] = trainer_preemption(seed, data, tmp)
+        torch.cuda.empty_cache()
+        out["fp32_card_vs_cpu"] = trainer_fp32_vs_cpu(seed)
+    finally:
+        logger = logging.getLogger("m3p_tpu_torch")
+        for handler in list(logger.handlers):
+            logger.removeHandler(handler)
+            handler.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t0
+    log(f"[trainer] phase 14: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5181,6 +5980,10 @@ def main() -> int:
                "eval_losses": evaluation["losses"]["launches"],
                "eval_generation": {k: sum(r[k] for r in ev_gen)
                                    for k in ev_gen[0]}}
+    torch.cuda.empty_cache()
+
+    trainer = trainer_slice(args.seed)
+    ev_runs["trainer"] = trainer["recipe"]["launches"]
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -5248,7 +6051,8 @@ def main() -> int:
         "launches": (training["launches"]["bwd"] + mct_a["packed_bwd"]
                      + mct_b["packed_bwd"]
                      + sum(dec_runs[p]["packed_bwd"] for p in dec_packed)
-                     + sum(r["packed_bwd"] for r in fl_runs.values())),
+                     + sum(r["packed_bwd"] for r in fl_runs.values())
+                     + ev_runs["trainer"]["packed_bwd"]),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
@@ -5256,7 +6060,8 @@ def main() -> int:
                              **{p: dec_runs[p]["packed_bwd"]
                                 for p in dec_packed},
                              **{p: r["packed_bwd"]
-                                for p, r in fl_runs.items()}},
+                                for p, r in fl_runs.items()},
+                             "trainer": ev_runs["trainer"]["packed_bwd"]},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],
@@ -5265,7 +6070,9 @@ def main() -> int:
             **{f"{p}_tensor_cores": dec_runs[p]["packed_bwd_tensor_cores"]
                for p in dec_packed},
             **{f"{p}_tensor_cores": r["packed_bwd_tensor_cores"]
-               for p, r in fl_runs.items()}},
+               for p, r in fl_runs.items()},
+            "trainer_tensor_cores":
+                ev_runs["trainer"]["packed_bwd_tensor_cores"]},
         "design": tblocks["bwd"]["design"],
         "max_abs_err": worst_train["bwd"]["bfloat16_tensor_cores"],
         "max_abs_err_cuda_cores": worst_train["bwd"]["bfloat16_cuda_cores"],
@@ -5495,6 +6302,7 @@ def main() -> int:
     log(f"[generation] {json.dumps(generation)} on {card}")
     log(f"[freelb] {json.dumps(freelb)} on {card}")
     log(f"[eval] {json.dumps(evaluation)} on {card}")
+    log(f"[trainer] {json.dumps(trainer)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

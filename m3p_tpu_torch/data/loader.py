@@ -1,4 +1,6 @@
-"""Host noise transforms of the generation objectives (a copy of
+"""The data loader of the port (counterpart of `m3p_tpu/data/loader.py`):
+`LoadedData`, what `cli/train_x.py` trains and evaluates on, and the host
+noise transforms of the generation objectives (a copy of
 `m3p_tpu/data/loader.py:67-122`: `make_mass_transform`,
 `make_bart_transform`, `make_ae_transform`).
 
@@ -9,18 +11,42 @@ denoising auto-encoder for `train.steps.mt_loss`.  A transform is called
 as ``transform(rng, batch, lang_id)`` with a ``np.random.RandomState``;
 with ``lang_id`` it adds the language-id arrays.
 
-The rest of the JAX loader (the datasets, the task DSLs, the eval data)
-is not ported yet.
+`load_data`, which builds the datasets, the eval data and the tokenizer
+from a data directory, is item 13 of ROADMAP.md: until it lands, callers
+pass a `LoadedData` of their own datasets (any object with
+``epoch_iterator(batch_size, epoch)``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
 from m3p_tpu_torch.data.noise import add_noise
 from m3p_tpu_torch.data.span_masking import bart_infill, mass_mask
+
+
+@dataclass
+class LoadedData:
+    """The training datasets by ``(task, name)`` key, the eval data by
+    family key (`eval.evaluator.Evaluator.run_all_evals`) and the
+    tokenizer (`m3p_tpu/data/loader.py:56-60`)."""
+
+    train_datasets: Dict[Tuple[str, str], Any] = field(default_factory=dict)
+    eval_data: Dict[str, Any] = field(default_factory=dict)
+    tokenizer: Any = None
+
+
+def load_data(cfg, dataset_paths: Optional[Dict[str, str]] = None
+              ) -> LoadedData:
+    """The datasets of a data directory (`m3p_tpu/data/loader.py`'s
+    ``load_data``): not ported yet."""
+    raise NotImplementedError(
+        "loading datasets from a data directory (data/datasets.py, the "
+        "feature store, the grain loader) is item 13 of ROADMAP.md; pass "
+        "data=LoadedData(...) to cli.train_x.main meanwhile")
 
 
 def make_mass_transform(word_mass: float, mask_index: int,

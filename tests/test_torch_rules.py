@@ -46,7 +46,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "ops.topk", "train.freelb", "data.noise",
                  "data.span_masking", "data.loader", "config", "eval",
                  "eval.retrieval", "eval.evaluator", "eval.bleu",
-                 "eval.cider", "eval.caption_metrics", "bench_eval_grid"):
+                 "eval.cider", "eval.caption_metrics", "bench_eval_grid",
+                 "checkpoint", "data.pipeline", "train.trainer",
+                 "cli.train_x", "utils.schedules", "utils.sampling",
+                 "utils.metrics", "utils.logging", "utils.profiling"):
         assert f"m3p_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -73,7 +76,8 @@ def _imported_names(path: Path):
 
 def test_port_sources_and_chip_smoke_name_no_forbidden_import():
     # the kernel tests run on the card's machine, which has no JAX
-    paths = [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels.py"]
+    paths = [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels.py",
+             REPO / "tests" / "test_torch_pipeline.py"]
     paths += sorted((REPO / "m3p_tpu_torch").rglob("*.py"))
     for path in paths:
         bad = [n for n in _imported_names(path) if _forbidden(n)]
