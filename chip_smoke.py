@@ -163,8 +163,8 @@ Phases, each of which fails the run if it fails:
      defaults (beam 4, max_gen_len 40) over 64-row batches, MT and
      multimodal MT again greedy, the caption JSON artifact and the four
      caption metrics' host time; every #1 launch of the phase at a shape
-     phase 2 held (`eval_shapes`); fp32 at depth 2 on the card against the
-     CPU (one batch of 2 a loss family and a small grid within rtol 1e-4,
+     phase 2 held (`eval_shapes`); fp32 at depth 2 with a 32,002-word
+     vocabulary on the card against the CPU (one batch of 2 a loss family and a small grid within rtol 1e-4,
      the grid within 1e-4, beam and greedy hypotheses of one row a family
      at max_gen_len 16 equal);
  14. the trainer (`python -m m3p_tpu_torch.cli.train_x`'s path: Trainer,
@@ -187,7 +187,28 @@ Phases, each of which fails the run if it fails:
      SIGTERM's disposition restored; a FusedAdam state (bf16 moments, fp32
      master) bit for bit; (c) fp32 at depth 2: 8 micro-steps with
      accumulation 2 and weight decay on the card and on the CPU, the
-     parameters' change per leaf within TOL_TRAINER_FP32.
+     parameters' change per leaf within TOL_TRAINER_FP32;
+ 15. the datasets and the input pipeline: (a) `train_x.main(argv)` with no
+     ``data=`` over a data directory the phase writes (phase 11's vocab,
+     an English token stream, en-de parallel text): xMLM at bptt 256 and
+     MT at 64 tokens, B = 24, the flagship width at depth 2, bf16, through
+     the row loader (`data/row_pipeline.py`, 2 read threads); one epoch
+     uninterrupted, the same run with SIGTERM after step 4 whose
+     checkpoint ends the process, and a fresh `main` resuming it
+     mid-epoch: each task's batches and the losses bitwise the
+     uninterrupted run's, the loader positions in the checkpoint those of
+     the batches the steps took, "resumed MID-EPOCH" in the log, each
+     step's #1/#2 launches (xMLM 2/4, MT 6/12, all tensor cores); (b)
+     phase 14's recipe with its batches from the ported `RetrievalDataset`
+     and `CaptionDataset` over an in-memory store (400 images of 100
+     regions x 2048) through the row loader: ms a micro-step over epochs
+     in turns with the recipe's 4 read threads, with 1, and with the
+     datasets' ready-made batches in memory (phase 14's way), beside phase
+     14's figure, the loader's records/s alone beside the records/s the
+     steps consumed,
+     the process's RSS, each step's launches; at depth 2, a checkpoint
+     mid-epoch and a fresh Trainer taking the next batches bitwise.  Every
+     #1/#2 launch of phases 14 and 15 at a shape phase 2 held.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -213,6 +234,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -381,8 +403,10 @@ def check_kernels(gen):
                                                     TOL_BF16)):
             if (b, sq, sk, 12, 64, dt, causal, tol) not in cases:
                 cases.append((b, sq, sk, 12, 64, dt, causal, tol))
-    # phase 14's (`trainer_shapes`): the trainer's steps and its evals
-    for b, sq, sk, causal in trainer_shapes()["fwd"]:
+    # phase 14's (`trainer_shapes`): the trainer's steps and its evals;
+    # phase 15's (`dataset_shapes`)
+    for b, sq, sk, causal in trainer_shapes()["fwd"] + \
+            dataset_shapes()["fwd"]:
         for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
                                                     TOL_BF16)):
             if (b, sq, sk, 12, 64, dt, causal, tol) not in cases:
@@ -416,8 +440,11 @@ def check_kernels(gen):
                 f"= {err:.3e} (rtol {tol['rtol']}, atol {tol['atol']})")
             key = name if dt == torch.float32 else f"{name}_{took}"
             worst[key] = max(worst.get(key, 0.0), err)
-    # the comparison has teeth: the causal kernel is far from a full one
+    # the comparison has teeth: the causal kernel is far from a full one,
+    # every key valid (a draw of one valid key in the first row and none
+    # in the second would make the two agree)
     q, k, v, mask = attn_inputs(2, 40, 40, 3, 16, torch.float32, gen)
+    mask = torch.ones_like(mask)
     off = (attention_packed(q, k, v, mask, 3, causal=True)
            - attention_packed_reference(q, k, v, mask, 3)).abs().max().item()
     if off < 0.1:
@@ -479,7 +506,8 @@ def check_dropout_and_backward(gen):
     for sq, sk, causal in checked_denoising_shapes():   # phase 12's
         cases += [(STREAM_B, sq, sk, 12, 64, dt, causal)
                   for dt in (f32, bf16)]
-    for b, sq, sk, causal in trainer_shapes()["bwd"]:   # phase 14's
+    for b, sq, sk, causal in trainer_shapes()["bwd"] + \
+            dataset_shapes()["bwd"]:                    # phases 14, 15
         cases += [(b, sq, sk, 12, 64, dt, causal) for dt in (f32, bf16)
                   if (b, sq, sk, 12, 64, dt, causal) not in cases]
     worst = {"fwd": {}, "bwd": {}}
@@ -3685,17 +3713,18 @@ def time_flash_decode_shape(gen):
     return out
 
 
-def full_vocab_tokenizer():
-    """A tokenizer of 250,002 ids: 250,000 pieces with the four specials
-    and <mask>, so that every id a random full-width model emits decodes
-    (``decode`` raises on an id past the vocab)."""
+def full_vocab_tokenizer(n_ids=250002):
+    """A tokenizer of ``n_ids`` ids (250,002: the flagship's): n_ids - 2
+    pieces with the four specials and <mask>, so that every id a random
+    model of that vocabulary emits decodes (``decode`` raises on an id
+    past the vocab)."""
     from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
 
     with tempfile.TemporaryDirectory() as tmp:
         vocab = os.path.join(tmp, "vocab.tsv")
-        write_vocab(vocab, 250000)
+        write_vocab(vocab, n_ids - 2)
         tokenizer = XLMRTokenizer(vocab)
-    if tokenizer.vocab_size != 250002:
+    if tokenizer.vocab_size != n_ids:
         fail(f"the generated vocab has {tokenizer.vocab_size} ids")
     return tokenizer
 
@@ -4424,6 +4453,10 @@ EVAL_COCO = "Bleu,METEOR,ROUGE_L,CIDEr"
 EVAL_FP32_B, EVAL_FP32_GROUPS, EVAL_FP32_BATCHES = 2, 2, 1
 EVAL_FP32_GEN_B, EVAL_FP32_GEN_LEN = 1, 16
 EVAL_FP32_GRID = (4, 20, 32)
+# and a 32,002-id vocabulary (mask id 32,001), on both sides: the CPU's
+# word head over 250,002 ids was most of the check's time; phases 10 and
+# 11 hold the full vocabulary's head card vs CPU
+EVAL_FP32_WORDS = 32002
 # fp32 losses, accuracies and recalls on the card against the CPU, and the
 # grid scores: 2 layers of fp32 GEMMs and reductions in another order
 TOL_EVAL_FP32 = dict(rtol=1e-4, atol=0.0)
@@ -4905,7 +4938,7 @@ def eval_slice(seed, tokenizer):
     out["main_path_s"] = time.time() - t0
     del model, ev, greedy
     torch.cuda.empty_cache()
-    out["fp32_card_vs_cpu"] = compare_eval_with_cpu(seed, tokenizer)
+    out["fp32_card_vs_cpu"] = compare_eval_with_cpu(seed)
     part_s["fp32_card_vs_cpu"] = out["fp32_card_vs_cpu"]["check_s"]
     out["part_s"] = part_s
     out["phase_s"] = time.time() - t0
@@ -5005,8 +5038,9 @@ def cpu_drawn_masking():
         steps.mask_tokens = draw
 
 
-def compare_eval_with_cpu(seed, tokenizer):
-    """fp32 at depth 2, the same families on the card and on the CPU:
+def compare_eval_with_cpu(seed):
+    """fp32 at depth 2 and EVAL_FP32_WORDS words (a tokenizer of as many
+    ids), the same families on the card and on the CPU:
     `run_all_evals` over the loss families (MLM's masks drawn on the CPU
     for both, `cpu_drawn_masking`) and a small grid within TOL_EVAL_FP32
     (R@k equal), the grid's scores within
@@ -5022,7 +5056,10 @@ def compare_eval_with_cpu(seed, tokenizer):
     from m3p_tpu_torch.model import build_model
 
     t0 = time.time()
-    cfg = dataclasses.replace(full_width_config("float32"), n_layers=2)
+    cfg = dataclasses.replace(full_width_config("float32"), n_layers=2,
+                              n_words=EVAL_FP32_WORDS,
+                              mask_index=EVAL_FP32_WORDS - 1)
+    tokenizer = full_vocab_tokenizer(EVAL_FP32_WORDS)
     # drawn on the card, where the initialisation is fast; the CPU gets a
     # copy of the same weights
     gpu_model = build_model(cfg, seed, "cuda")
@@ -5837,6 +5874,574 @@ def trainer_slice(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the datasets and the input pipeline
+# ---------------------------------------------------------------------------
+
+# (a) `train_x.main` from a data directory, no data=: the flagship width at
+# depth 2 (phase 14 times the full-depth step), a token stream (xMLM, bptt
+# 256) and parallel text (MT en-de, 64 tokens) at B = 24 through the row
+# loader with 2 read threads, one epoch of DATASET_STEPS steps; evals:
+# MLM, the MT loss and greedy MT (EvalConfig's max_gen_len 40), one batch
+# each
+DATASET_B, DATASET_BPTT, DATASET_STEPS = 24, 256, 12
+DATASET_ARGV = [
+    "--exp_name", "phase15", "--batch_size", str(DATASET_B),
+    "--emb_dim", "768", "--n_layers", "2", "--n_dec_layers", "2",
+    "--n_heads", "12", "--dropout", "0.1", "--attention_dropout", "0.1",
+    "--gelu_activation", "True", "--optimizer", OPTIM_SPEC,
+    "--lgs", "en-de", "--mt_steps", "en-de", "--mlm_steps", "en",
+    "--bptt", str(DATASET_BPTT), "--max_len", str(CAPTION_LEN),
+    "--fp16", "True", "--epoch_size", str(DATASET_B * DATASET_STEPS),
+    "--max_epoch", "1", "--use_grain", "True", "--num_workers", "2",
+    "--eval_n", str(DATASET_B), "--beam_size", "1", "--device", "cuda"]
+# SIGTERM after this step, the end of a round of the two tasks: the
+# checkpoint lands at the step boundary right after it
+DATASET_SIGTERM_AT = 4
+# the directory: train / valid token counts of the stream, sentence pairs
+DATASET_STREAM = (120_000, 2 * DATASET_B * DATASET_BPTT)
+DATASET_PAIRS = (480, 2 * DATASET_B)
+# (b) phase 14's recipe over the ported RetrievalDataset and CaptionDataset
+# over an in-memory store of DATASET_IMAGES images (100 regions x 2048, 328
+# MB), DATASET_CAPTIONS captions each; the loader alone over this many
+# batches of each dataset
+DATASET_IMAGES, DATASET_CAPTIONS, LOADER_BATCHES = 400, 5, 6
+# its timed epochs in turns: the row loader with the recipe's read threads
+# (None) and with 1, and the datasets' ready-made batches cycled in memory
+# as phase 14 steps them
+DATASET_TURNS = (("row_loader", None), ("in_memory", None),
+                 ("row_loader", 1), ("row_loader", 1), ("in_memory", None),
+                 ("row_loader", None))
+
+
+class InMemoryStore:
+    """`data.features.RegionFeatureStore`'s methods (`get`, `get_into`,
+    `index_of`, `image_ids`, `feat_dim`, ``max_region_num``) over arrays
+    in host memory, the chip machine having no h5py: ``n`` images of
+    ``max_region_num`` regions x 2048 random non-negative features, 10 to
+    all of them valid, boxes in a 600 x 600 image, object classes."""
+
+    def __init__(self, seed, n, max_region_num=REGIONS):
+        import numpy as np
+
+        from m3p_tpu_torch.data.features import norm_boxes
+
+        rng = np.random.default_rng(seed)
+        r = self.max_region_num = max_region_num
+        self.raw = rng.standard_normal((n, r, 2048), dtype=np.float32)
+        np.maximum(self.raw, 0, out=self.raw)
+        boxes = np.sort(rng.random((n, r, 2, 2)) * 600, axis=2)
+        self.locs = np.stack([norm_boxes(b.reshape(r, 4), 600.0, 600.0)
+                              for b in boxes])
+        self.objects = rng.integers(0, 1600, (n, r)).astype(np.int32)
+        self.num_boxes = rng.integers(10, r + 1, n)
+        self._ids = np.array([f"img{i}" for i in range(n)])
+        self._index = {str(i): k for k, i in enumerate(self._ids)}
+
+    def __len__(self):
+        return len(self._ids)
+
+    @property
+    def feat_dim(self):
+        return self.raw.shape[-1]
+
+    @property
+    def image_ids(self):
+        return self._ids
+
+    def index_of(self, image_id):
+        return self._index[str(image_id)]
+
+    def get(self, index, normalize=True):
+        import numpy as np
+
+        from m3p_tpu_torch.data.features import l2_normalize
+
+        n = int(self.num_boxes[index])
+        mask = np.zeros((self.max_region_num,), np.int32)
+        mask[:n] = 1
+        raw = self.raw[index]
+        return {"feats": l2_normalize(raw) if normalize else raw.copy(),
+                "raw_feats": raw.copy(), "locs": self.locs[index].copy(),
+                "mask": mask, "objects": self.objects[index].copy(),
+                "num_boxes": np.int32(n)}
+
+    def get_into(self, index, raw_out, locs_out, objects_out):
+        raw_out[:] = self.raw[index]
+        locs_out[:] = self.locs[index]
+        objects_out[:] = self.objects[index]
+        return int(self.num_boxes[index])
+
+
+def dataset_shapes():
+    """(B, Sq, Sk, causal) of phase 15(a)'s attention, steps and evals
+    alike: the stream encoder over DATASET_BPTT tokens; MT's encoder over
+    CAPTION_LEN source tokens, its decoder causal over CAPTION_LEN - 1
+    positions and across over the source.  Phase 15(b) runs phase 14's
+    (`trainer_shapes`).  Phase 2 holds both kernels at each; phase 15
+    fails if it launches one at any other."""
+    b, s, t = DATASET_B, CAPTION_LEN, CAPTION_LEN - 1
+    steps = sorted({(b, DATASET_BPTT, DATASET_BPTT, False), (b, s, s, False),
+                    (b, t, t, True), (b, t, s, False)})
+    return {"bwd": steps, "fwd": steps}
+
+
+def dataset_launches(cfg, kind):
+    """#1/#2 launches of one step of phase 15(a): the stream encoder's L
+    self-attentions (xMLM) or MT's 3 L (`decoder_per_step`), all on the
+    tensor cores."""
+    if kind == "mlm":
+        n = cfg.model.n_layers
+        return expected_launches((n, 2 * n))
+    return decoder_per_step(cfg.model, "mt")
+
+
+def write_data_dir(root, seed):
+    """A data directory `load_data` reads for DATASET_ARGV: phase 11's
+    250,002-id vocab, an English token stream (`train.en.npy`,
+    `valid.en.npy`) and en-de parallel text of 5-60 words a sentence."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    write_vocab(os.path.join(root, "vocab.tsv"), 250000)
+    for split, n in zip(("train", "valid"), DATASET_STREAM):
+        np.save(os.path.join(root, f"{split}.en.npy"),
+                rng.randint(4, 250001, n).astype(np.int32))
+    for split, n in zip(("train", "valid"), DATASET_PAIRS):
+        for side in ("en", "de"):
+            with open(os.path.join(root, f"{split}.en-de.{side}.txt"), "w",
+                      encoding="utf-8") as f:
+                f.writelines(sentence(rng, int(rng.randint(5, 61))) + "\n"
+                             for _ in range(n))
+
+
+def same_batches(a, b):
+    """Whether two staged batches (a dict of tensors, or a tuple of such)
+    are equal bit for bit."""
+    import torch
+
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(same_batches, a, b))
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+
+
+def dataset_cli(seed, tmp):
+    """(a) Three runs of `train_x.main(argv)` over a data directory, no
+    ``data=``: one epoch uninterrupted; the same run with SIGTERM after
+    step DATASET_SIGTERM_AT, whose checkpoint at the next step boundary
+    ends the process (an exception out of `main`); a fresh `main` that
+    resumes it mid-epoch.  The task order's RandomState is no part of a
+    checkpoint (nor in the JAX trainer): the resumed run is handed the
+    preempted one's, so that both runs take the same steps.  Each task's
+    batches (before the checkpoint and after the resume) are bitwise the
+    uninterrupted run's, and so are the losses; each step's #1/#2
+    launches are counted, every launch at a shape phase 2 held."""
+    import json as _json
+    import signal
+
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.cli import train_x
+    from m3p_tpu_torch.eval.evaluator import Evaluator
+    from m3p_tpu_torch.train import trainer as trainer_mod
+
+    data = os.path.join(tmp, "data")
+    os.makedirs(data)
+    t0 = time.time()
+    write_data_dir(data, seed)
+    write_s = time.time() - t0
+    argv = DATASET_ARGV + ["--data_path", data, "--vocab_path",
+                           os.path.join(data, "vocab.tsv"), "--dump_path",
+                           os.path.join(tmp, "dump"), "--seed", str(seed)]
+    runs = {name: {"batches": {}, "losses": [], "steps": [], "scores": []}
+            for name in ("whole", "cut", "resumed")}
+    now = {"run": None, "rng": None}
+
+    class Preempted(Exception):
+        pass
+
+    def on_init(orig):
+        def init(self, *a, **kw):
+            orig(self, *a, **kw)
+            rec = runs[now["run"]]
+            add = self.stats.add
+            self.stats.add = lambda key, v: (rec["losses"].append((key, v)),
+                                             add(key, v))[1]
+            if now["run"] == "resumed":
+                self.rng.set_state(now["rng"])
+        return init
+
+    def on_batch(orig):
+        def get_batch(self, task):
+            batch = orig(self, task)
+            runs[now["run"]]["batches"].setdefault(task, []).append(batch)
+            return batch
+        return get_batch
+
+    def on_step(orig):
+        def step_once(self, kind, task):
+            before = launch_counts()
+            orig(self, kind, task)
+            after = launch_counts()
+            runs[now["run"]]["steps"].append(
+                (kind, {k: after[k] - before[k] for k in after}))
+            if now["run"] == "cut" and self.n_total_iter == \
+                    DATASET_SIGTERM_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return step_once
+
+    def on_save(orig):
+        def save(self, name="checkpoint"):
+            orig(self, name)
+            if now["run"] == "cut" and \
+                    self.n_sentences < self.cfg.epoch_size:
+                now["rng"] = self.rng.get_state()
+                now["saved_at"] = self.n_total_iter
+                raise Preempted
+        return save
+
+    def on_eval(orig):
+        def run(self, eval_data):
+            scores = orig(self, eval_data)
+            runs[now["run"]]["scores"].append(scores)
+            return scores
+        return run
+
+    main_s = {}
+    cut_dump = os.path.join(tmp, "dump", "phase15", "cut")
+    with contextlib.ExitStack() as stack:
+        for name, make in (("__init__", on_init), ("_get_batch", on_batch),
+                           ("step_once", on_step),
+                           ("save_checkpoint", on_save)):
+            stack.enter_context(patched(trainer_mod.Trainer, name, make))
+        stack.enter_context(patched(Evaluator, "run_all_evals", on_eval))
+        shapes = stack.enter_context(recorded_launch_shapes(set()))
+        # ---- the main path, counted ----
+        zero_launch_counts()
+        for name, exp in (("whole", "whole"), ("cut", "cut"),
+                          ("resumed", "cut")):
+            now["run"] = name
+            t = time.time()
+            try:
+                trainer = train_x.main(argv + ["--exp_id", exp])
+            except Preempted:
+                trainer = None
+                if name != "cut":
+                    raise
+            torch.cuda.synchronize()
+            main_s[name] = time.time() - t
+            if name == "cut":
+                if trainer is not None:
+                    fail("datasets: the SIGTERM checkpoint did not end the "
+                         "run")
+                # the resumed run's epoch-end checkpoint replaces this one
+                with open(os.path.join(cut_dump, "checkpoint",
+                                       "loader_state.0.json")) as f:
+                    states = {k: _json.loads(v)["next_batch"]
+                              for k, v in _json.load(f).items()}
+            if name != "cut" and (trainer.epoch != 1 or
+                                  trainer.n_total_iter != DATASET_STEPS):
+                fail(f"datasets: the {name} run ended at epoch "
+                     f"{trainer.epoch}, iter {trainer.n_total_iter}")
+        counts = launch_counts()
+    # ---- checks ----
+    shapes = check_held_shapes("phase 15(a)'s train_x.main", shapes)
+    cfg = trainer.cfg
+    if sorted(trainer.datasets) != [("mlm", "en"), ("mt", "en")]:
+        fail(f"datasets: load_data gave {sorted(trainer.datasets)}")
+    for name, rec in runs.items():
+        for kind, got in rec["steps"]:
+            if got != dataset_launches(cfg, kind):
+                fail(f"datasets: a {kind} step of the {name} run launched "
+                     f"{got}; expected {dataset_launches(cfg, kind)}")
+    if now.get("saved_at") != DATASET_SIGTERM_AT:
+        fail(f"datasets: SIGTERM after step {DATASET_SIGTERM_AT}, the "
+             f"checkpoint after step {now.get('saved_at')}")
+    taken = {"|".join(k): len(v) for k, v in runs["cut"]["batches"].items()}
+    if states != taken:
+        fail(f"datasets: the checkpoint's loader positions {states}, the "
+             f"steps took {taken}")
+    with open(os.path.join(cut_dump, "train.log")) as f:
+        log_text = f.read()
+    if "resumed MID-EPOCH" not in log_text:
+        fail("datasets: the log does not report a mid-epoch resume")
+    batches_equal = {}
+    for task, want in runs["whole"]["batches"].items():
+        got = runs["cut"]["batches"].get(task, []) + \
+            runs["resumed"]["batches"].get(task, [])
+        batches_equal["|".join(task)] = len(want)
+        if len(got) != len(want) or not all(map(same_batches, got, want)):
+            fail(f"datasets: {task}'s batches before the checkpoint and "
+                 f"after the resume are not the uninterrupted run's")
+    losses = {name: [(k, float(v)) for k, v in rec["losses"]]
+              for name, rec in runs.items()}
+    a = losses["whole"]
+    b = losses["cut"] + losses["resumed"]
+    if [k for k, _ in a] != [k for k, _ in b]:
+        fail(f"datasets: the resumed run took other steps {b} than the "
+             f"uninterrupted run {a}")
+    la, lb = torch.tensor([v for _, v in a]), torch.tensor([v for _, v in b])
+    if not torch.isfinite(la).all() or not torch.allclose(lb, la,
+                                                          **TOL_BF16):
+        fail(f"datasets: losses {a} uninterrupted, {b} preempted and "
+             f"resumed")
+    for name, rec in runs.items():
+        for scores in rec["scores"]:
+            if not scores or not all(np.isfinite(v) for v in
+                                     scores.values()):
+                fail(f"datasets: the {name} run's eval scores {scores}")
+    n_fwd = counts["packed_fwd"]
+    if counts["packed_fwd_tensor_cores"] != n_fwd or \
+            counts["packed_bwd_tensor_cores"] != counts["packed_bwd"] or \
+            counts["flash_fwd"] or counts["small_fwd"]:
+        fail(f"datasets: main path launches {counts}")
+    out = {"write_data_s": write_s, "main_s": main_s,
+           "steps": {n: len(r["steps"]) for n, r in runs.items()},
+           "launches": counts,
+           "launches_per_step": {k: dataset_launches(cfg, k)["packed_fwd"]
+                                 for k in ("mlm", "mt")},
+           "checkpoint_after_step": now["saved_at"],
+           "loader_positions": states, "batches_compared": batches_equal,
+           "losses_bitwise_equal": bool(torch.equal(la, lb)),
+           "losses": {"uninterrupted": a, "preempted_then_resumed": b},
+           "eval_scores": runs["whole"]["scores"],
+           "launch_shapes": [list(x) for x in shapes]}
+    log(f"[datasets] (a) train_x.main from a data directory at "
+        f"{cfg.model.n_layers} x {cfg.model.emb_dim}d bf16, mlm (bptt "
+        f"{DATASET_BPTT}) + mt en-de at B = {DATASET_B} through the row "
+        f"loader: runs {main_s} s; SIGTERM after step {DATASET_SIGTERM_AT}, "
+        f"checkpoint after step {now['saved_at']} at loader positions "
+        f"{states}; the resume took each task's next batches bitwise "
+        f"({batches_equal} compared), losses "
+        f"{'bitwise equal' if out['losses_bitwise_equal'] else 'within TOL_BF16'}"
+        f" {a}; #1/#2 a step {out['launches_per_step']} / twice that, "
+        f"main path {counts['packed_fwd']} #1, {counts['packed_bwd']} #2, "
+        f"all tensor cores; eval {runs['whole']['scores']}; every launch at "
+        f"a shape phase 2 held: {shapes}")
+    return out
+
+
+def rss_mb():
+    """(resident, peak resident) memory of this process in MB: the pages of
+    /proc/self/statm, and getrusage's ru_maxrss (KB on Linux)."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        resident = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return resident / 2 ** 20, peak / 1024
+
+
+def loader_records_per_s(dataset, cfg, workers):
+    """Records a second of `make_row_loader` alone at the trainer's batch,
+    LOADER_BATCHES batches after one (the first waits for the threads to
+    start)."""
+    from m3p_tpu_torch.data.row_pipeline import make_row_loader
+
+    it = iter(make_row_loader(dataset, cfg.data.batch_size, seed=cfg.seed,
+                              epoch=7, num_epochs=None,
+                              worker_count=workers))
+    next(it)
+    t = time.perf_counter()
+    for _ in range(LOADER_BATCHES):
+        next(it)
+    secs = time.perf_counter() - t
+    it.close()
+    return LOADER_BATCHES * cfg.data.batch_size / secs
+
+
+def dataset_recipe(seed, tokenizer, phase14_ms, tmp):
+    """(b) Phase 14's recipe (rel + ic, accumulation 4, BN = 24 x 4, 100
+    regions, captions of 64 tokens, bf16 at the flagship width) with its
+    in-memory batches replaced by the ported `RetrievalDataset` and
+    `CaptionDataset` over an `InMemoryStore`, through the row loader: a
+    warm-up epoch, then DATASET_TURNS' epochs in turns (the recipe's 4 read
+    threads, 1 read thread, the datasets' ready-made batches in memory),
+    timed and counted (each step's launches checked, every launch at a
+    held shape); the loader alone (4 read threads and 1) beside the
+    records the steps consumed; the process's RSS; at depth 2, a checkpoint after 5 steps
+    and a fresh Trainer resuming it: the next 3 batches of each task
+    bitwise."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.cli import train_x
+    from m3p_tpu_torch.data.datasets import CaptionDataset, RetrievalDataset
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.train.trainer import Trainer
+
+    def config(extra):
+        cfg = train_x.args_to_config(train_x.get_parser().parse_args(
+            TRAINER_ARGV + extra))
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, n_words=tokenizer.vocab_size,
+            mask_index=tokenizer.mask_token_id))
+        cfg.dump_path = os.path.join(tmp, "recipe" + "_".join(extra))
+        os.makedirs(cfg.dump_path)
+        return cfg
+
+    rss_before = rss_mb()
+    t0 = time.time()
+    cfg = config([])
+    store = InMemoryStore(seed, DATASET_IMAGES)
+    rng = np.random.RandomState(seed)
+    captions = {i: [sentence(rng, int(rng.randint(8, 21)))
+                    for _ in range(DATASET_CAPTIONS)]
+                for i in store.image_ids}
+
+    def datasets():
+        return {("rel", "coco"): RetrievalDataset(
+                    captions, store, tokenizer, lang="en",
+                    sample_n=cfg.data.sample_n, max_len=cfg.data.max_len,
+                    seed=cfg.seed),
+                ("ic", "coco"): CaptionDataset(
+                    captions, store, tokenizer, lang="en",
+                    max_len=cfg.data.max_len, seed=cfg.seed,
+                    lang_id=cfg.lang2id.get("en"))}
+
+    loaded = datasets()
+    # the in-memory batches phase 14 steps: ready-made batches of the same
+    # datasets, cycled
+    memory = {task: CycledBatches(list(itertools.islice(
+        ds.epoch_iterator(cfg.data.batch_size, 0), 2)))
+        for task, ds in loaded.items()}
+    build_s = time.time() - t0
+    workers = cfg.data.num_workers
+    trainer = Trainer(cfg, build_model(cfg.model, seed, "cuda"), loaded)
+    steps, readings = [], []
+
+    def on_step(orig):
+        def step_once(kind, task):
+            before = launch_counts()
+            orig(kind, task)
+            after = launch_counts()
+            steps.append((kind, {k: after[k] - before[k] for k in after}))
+        return step_once
+
+    def epoch(source, threads):
+        trainer.datasets = memory if source == "in_memory" else loaded
+        trainer.cfg = trainer.cfg.replace(data=dataclasses.replace(
+            trainer.cfg.data, num_workers=threads))
+        n0 = len(steps)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_epoch()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        trainer.epoch += 1
+        trainer._close_iterators()
+        done = steps[n0:]
+        readings.append({"source": source,
+                         "threads": threads if source == "row_loader"
+                         else None, "s": secs,
+                         "steps": len(done),
+                         "micro_steps": sum(2 if k == "rel" else 1
+                                            for k, _ in done)})
+
+    with patched(trainer, "step_once", on_step):
+        epoch("row_loader", workers)        # warm-up
+        steps.clear()
+        readings.clear()
+        with recorded_launch_shapes(set()) as shapes:
+            # ---- the main path, counted: epochs in turns ----
+            zero_launch_counts()
+            for source, threads in DATASET_TURNS:
+                epoch(source, threads or workers)
+            counts = launch_counts()
+    rss_after = rss_mb()
+    shapes = check_held_shapes("phase 15(b)'s trainer", shapes)
+    for kind, got in steps:
+        if got != trainer_launches(cfg, kind):
+            fail(f"datasets recipe: a {kind} step launched {got}; expected "
+                 f"{trainer_launches(cfg, kind)}")
+    by_mode = {}
+    for r in readings:
+        key = f"{r['source']}_{r['threads']}" if r["source"] == \
+            "row_loader" else r["source"]
+        by_mode.setdefault(key, []).append(r)
+    ms = {k: sum(r["s"] for r in v) * 1e3 / sum(r["micro_steps"] for r in v)
+          for k, v in by_mode.items()}
+    consumed = {k: sum(r["steps"] for r in v) * cfg.data.batch_size
+                / sum(r["s"] for r in v) for k, v in by_mode.items()}
+    alone = {f"{task[0]}_{w}_threads": loader_records_per_s(loaded[task],
+                                                            cfg, w)
+             for task in sorted(loaded) for w in (workers, 1)}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # one resume mid-epoch at depth 2, over new datasets of the same data
+    small = config(["--n_layers", "2"])
+    tasks = [("rel", "coco"), ("ic", "coco")]
+    ta = Trainer(small, build_model(small.model, seed, "cuda"), datasets())
+    for kind in ("rel", "ic", "rel", "ic", "ic"):
+        ta.step_once(kind, (kind, "coco"))
+    ta.save_checkpoint()
+    nxt = {task: [ta._get_batch(task) for _ in range(3)] for task in tasks}
+    tb = Trainer(small, build_model(small.model, seed + 7, "cuda"),
+                 datasets())
+    if not tb.reload_checkpoint() or tb._resume_sentences != \
+            5 * small.data.batch_size:
+        fail("datasets recipe: no mid-epoch resume")
+    for task in tasks:
+        got = [tb._get_batch(task) for _ in range(3)]
+        if not all(map(same_batches, got, nxt[task])):
+            fail(f"datasets recipe: {task}'s batches after the resume are "
+                 f"not the uninterrupted run's")
+    ta._close_iterators()
+    tb._close_iterators()
+    out = {"build_s": build_s, "epochs_in_turns": readings,
+           "ms_per_micro_step": ms,
+           "phase14_in_memory_ms_per_micro_step": phase14_ms,
+           "records_consumed_per_s": consumed,
+           "loader_alone_records_per_s": alone,
+           "rss_mb_before_after": [rss_before[0], rss_after[0]],
+           "peak_rss_mb_process": rss_after[1],
+           "store_mb": store.raw.nbytes / 2 ** 20,
+           "launches": counts, "launch_shapes": [list(x) for x in shapes],
+           "resume_batches_bitwise": 3 * len(tasks)}
+    log(f"[datasets] (b) phase 14's recipe over RetrievalDataset + "
+        f"CaptionDataset of {DATASET_IMAGES} in-memory images, epochs in "
+        f"turns {[(r['source'], r['threads'], round(r['s'], 3)) for r in readings]}"
+        f": ms a micro-step {json.dumps(ms)} (phase 14's in-memory batches "
+        f"{phase14_ms:.2f} ms); the steps consumed {json.dumps(consumed)} "
+        f"records/s, the loader alone {json.dumps(alone)} records/s; RSS "
+        f"{rss_before[0]:.0f} -> {rss_after[0]:.0f} MB, the process's peak "
+        f"{rss_after[1]:.0f} MB; #1/#2 {counts['packed_fwd']} / "
+        f"{counts['packed_bwd']}, all tensor cores, at held shapes "
+        f"{shapes}; a depth-2 resume mid-epoch took each task's next 3 "
+        f"batches bitwise")
+    return out
+
+
+def dataset_slice(seed, tokenizer, phase14_ms):
+    """Phase 15: (a) `train_x.main` from a data directory with a mid-epoch
+    resume, (b) phase 14's recipe over the ported datasets; the temporary
+    directory removed at the end."""
+    import logging
+    import shutil
+
+    import torch
+
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="m3p_datasets_")
+    try:
+        out = {"cli": dataset_cli(seed, tmp)}
+        torch.cuda.empty_cache()
+        out["recipe"] = dataset_recipe(seed, tokenizer, phase14_ms, tmp)
+    finally:
+        logger = logging.getLogger("m3p_tpu_torch")
+        for handler in list(logger.handlers):
+            logger.removeHandler(handler)
+            handler.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t0
+    log(f"[datasets] phase 15: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5984,6 +6589,13 @@ def main() -> int:
 
     trainer = trainer_slice(args.seed)
     ev_runs["trainer"] = trainer["recipe"]["launches"]
+    torch.cuda.empty_cache()
+
+    datasets = dataset_slice(args.seed, full_tokenizer,
+                             trainer["recipe"]["ms_per_micro_step"])
+    ev_runs["datasets_cli"] = datasets["cli"]["launches"]
+    ev_runs["datasets_recipe"] = datasets["recipe"]["launches"]
+    data_runs = ("datasets_cli", "datasets_recipe")
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -6052,7 +6664,8 @@ def main() -> int:
                      + mct_b["packed_bwd"]
                      + sum(dec_runs[p]["packed_bwd"] for p in dec_packed)
                      + sum(r["packed_bwd"] for r in fl_runs.values())
-                     + ev_runs["trainer"]["packed_bwd"]),
+                     + sum(ev_runs[p]["packed_bwd"]
+                           for p in ("trainer",) + data_runs)),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
@@ -6061,7 +6674,8 @@ def main() -> int:
                                 for p in dec_packed},
                              **{p: r["packed_bwd"]
                                 for p, r in fl_runs.items()},
-                             "trainer": ev_runs["trainer"]["packed_bwd"]},
+                             **{p: ev_runs[p]["packed_bwd"]
+                                for p in ("trainer",) + data_runs}},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],
@@ -6071,8 +6685,8 @@ def main() -> int:
                for p in dec_packed},
             **{f"{p}_tensor_cores": r["packed_bwd_tensor_cores"]
                for p, r in fl_runs.items()},
-            "trainer_tensor_cores":
-                ev_runs["trainer"]["packed_bwd_tensor_cores"]},
+            **{f"{p}_tensor_cores": ev_runs[p]["packed_bwd_tensor_cores"]
+               for p in ("trainer",) + data_runs}},
         "design": tblocks["bwd"]["design"],
         "max_abs_err": worst_train["bwd"]["bfloat16_tensor_cores"],
         "max_abs_err_cuda_cores": worst_train["bwd"]["bfloat16_cuda_cores"],
@@ -6303,6 +6917,7 @@ def main() -> int:
     log(f"[freelb] {json.dumps(freelb)} on {card}")
     log(f"[eval] {json.dumps(evaluation)} on {card}")
     log(f"[trainer] {json.dumps(trainer)} on {card}")
+    log(f"[datasets] {json.dumps(datasets)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

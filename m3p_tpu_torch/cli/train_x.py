@@ -8,12 +8,18 @@ the model on the device, ``--reload_model`` / ``--multi_reload_model``,
 the `Trainer` with its SIGTERM checkpoint, ``--reload_checkpoint`` or the
 automatic resume, the `Evaluator`, ``--eval_only`` and the epoch loop.
 
-Loading a data directory is item 13 of ROADMAP.md: until then `main`
-takes the data as ``data=LoadedData(...)`` (`data/loader.py`):
+`main` loads ``--data_path`` with `data/loader.py::load_data` (the
+layout is in that module's docstring; ``--coco_path`` and the other
+dataset path flags, ``--input_fea_dir``, ``--vocab_path``,
+``--cross_lingual_path``, ``--train_order_path``):
 
-    from m3p_tpu_torch.cli.train_x import main
-    main(["--lgs", "en", "--cross_rel_steps", "coco-img", ...],
-         data=LoadedData(train_datasets={("rel", "coco"): ds}, ...))
+    python -m m3p_tpu_torch.cli.train_x --data_path DIR --vocab_path V \
+        --lgs en-de --mt_steps en-de --mlm_steps en ...
+
+A caller with datasets of its own passes them as ``data=LoadedData(...)``
+(any object with ``epoch_iterator(batch_size, epoch)``):
+
+    main([...], data=LoadedData(train_datasets={("rel", "coco"): ds}, ...))
 
 Several cards (a mesh, DP/FSDP/TP, sequence or pipeline parallelism) are
 item 16: with more than one visible card and a batch that would shard,
@@ -446,8 +452,7 @@ def _reload_weights(args, cfg, model, logger) -> None:
 
 def main(argv=None, data=None):
     """Run a recipe (`m3p_tpu/cli/train_x.py:401-531`); returns the
-    `Trainer`.  ``data``: a `LoadedData`; None loads ``--data_path``
-    (item 13, not ported yet)."""
+    `Trainer`.  ``data``: a `LoadedData`; None loads ``--data_path``."""
     import torch
 
     from m3p_tpu_torch import checkpoint as ckpt

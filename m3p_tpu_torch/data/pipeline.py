@@ -14,7 +14,9 @@ hand its memory to the side stream's next copy while the step still reads
 it.  For the CPU the tensors share the arrays' memory.
 
 Several processes, each staging its slice of a global batch, are item 16
-of ROADMAP.md; the checkpointable loader is item 13.
+of ROADMAP.md.  The checkpointable row loader is `data/row_pipeline.py`:
+the thread here runs ahead of the steps, so the `Trainer` counts the
+batches its steps took to know the loader's position.
 """
 
 from __future__ import annotations

@@ -10,11 +10,17 @@ the device until they are logged, the shuffled task dispatch
 `data/pipeline.py::prefetch_to_device`, checkpoint save and reload with
 best-metric tracking and early stopping, and the SIGTERM checkpoint.
 
+Under ``--use_grain`` (the default), a dataset of a family that
+`data/row_pipeline.py` takes goes through its checkpointable row loader,
+and a checkpoint holds each loader's position: a run preempted mid-epoch
+resumes with the batches it had not taken, none repeated or skipped.  The
+staging thread runs ahead of the steps, so the position saved is that of
+the batches the steps took, not of those the thread staged.  Other
+datasets go through their ``epoch_iterator``, and a resume starts them at
+the epoch's head.
+
 Not ported (each raises NotImplementedError): a device mesh, sequence and
-pipeline parallelism, and several processes (item 16 of ROADMAP.md).  The
-checkpointable grain loader is item 13: the port's iterators keep no
-state, so a checkpoint's ``loader_state`` is empty and a resume starts the
-next epoch, as the JAX trainer does without a loader state.
+pipeline parallelism, and several processes (item 16 of ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import torch
 from m3p_tpu_torch import checkpoint as ckpt
 from m3p_tpu_torch.data.masking import MaskingConfig
 from m3p_tpu_torch.data.pipeline import prefetch_to_device
+from m3p_tpu_torch.data.row_pipeline import (
+    make_row_loader, restore_loader_state, save_loader_state, supports_grain)
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel
 from m3p_tpu_torch.train import steps as S
@@ -117,6 +125,10 @@ class Trainer:
         self.should_stop = False
         self._steps: Dict[str, Callable] = {}
         self._iterators: Dict[Tuple[str, str], Iterator] = {}
+        # the row loaders of the tasks that have one, and the batches the
+        # steps took from each since it was made or restored
+        self._loaders: Dict[Tuple[str, str], Any] = {}
+        self._taken: Dict[Tuple[str, str], int] = {}
         self._resume_sentences = 0
         self._pending_save = False
 
@@ -254,31 +266,56 @@ class Trainer:
         if it is None:
             it = self._make_iterator(task)
         try:
-            return next(it)
+            batch = next(it)
         except StopIteration:
-            it.close()
-            self._iterators[task] = self._make_iterator(task)
+            self._close_iterator(task)
             try:
-                return next(self._iterators[task])
+                batch = next(self._make_iterator(task))
             except StopIteration:
                 raise ValueError(
                     f"dataset for {task} yields no batches (fewer records "
                     "than one batch?)") from None
+        if task in self._taken:
+            self._taken[task] += 1
+        return batch
 
     def _with_clcm(self) -> bool:
         """CLCM rides pretrain i2t batches only when --cross_clcm_steps is
         non-empty (`xtrainer.py:2380`)."""
         return self.cfg.is_pretrain and bool(self.cfg.cross_clcm_steps)
 
-    def _make_iterator(self, task: Tuple[str, str]):
+    def _uses_row_loader(self, task: Tuple[str, str]) -> bool:
+        return self.cfg.data.use_grain and supports_grain(self.datasets[task])
+
+    def _make_iterator(self, task: Tuple[str, str],
+                       loader_state: Optional[str] = None):
         """The task's dataset iterator for this epoch, staged on the
-        device.  CLCM pairs are asked for where the dataset's
-        ``epoch_iterator`` takes ``with_clcm`` (the pre-training datasets;
-        the JAX trainer tests for its ``PretrainDataset``)."""
+        device: the row loader's (`m3p_tpu/train/trainer.py:332-341`),
+        sought to ``loader_state`` when one is given and readable, or the
+        dataset's ``epoch_iterator``.  CLCM pairs are asked for where the
+        dataset's ``epoch_iterator`` takes ``with_clcm`` (the pre-training
+        datasets; the JAX trainer tests for its ``PretrainDataset``)."""
         _refuse_processes("sharding the batch")
         dataset = self.datasets[task]
         bs = self.cfg.data.batch_size
-        if self._with_clcm() and "with_clcm" in inspect.signature(
+        if self._uses_row_loader(task):
+            raw = iter(make_row_loader(
+                dataset, bs, seed=self.cfg.seed, epoch=self.epoch,
+                with_clcm=self._with_clcm(),
+                worker_count=self.cfg.data.num_workers))
+            if loader_state is not None:
+                try:
+                    restore_loader_state(raw, loader_state)
+                except ValueError as e:
+                    # a position this loader cannot read (another format,
+                    # dataset or batch size): only the position is lost
+                    logger.warning(
+                        "loader state for %s not restorable (%s) - "
+                        "restarting that iterator from the epoch head",
+                        task, e)
+            self._loaders[task] = raw
+            self._taken[task] = 0
+        elif self._with_clcm() and "with_clcm" in inspect.signature(
                 dataset.epoch_iterator).parameters:
             raw = dataset.epoch_iterator(bs, self.epoch, with_clcm=True)
         else:
@@ -287,10 +324,19 @@ class Trainer:
         self._iterators[task] = it
         return it
 
-    def _close_iterators(self) -> None:
-        for it in self._iterators.values():
+    def _close_iterator(self, task: Tuple[str, str]) -> None:
+        """Stop the task's staging thread, then its loader's read threads."""
+        it = self._iterators.pop(task, None)
+        if it is not None:
             it.close()
-        self._iterators.clear()
+        loader = self._loaders.pop(task, None)
+        if loader is not None:
+            loader.close()
+        self._taken.pop(task, None)
+
+    def _close_iterators(self) -> None:
+        for task in list(self._iterators):
+            self._close_iterator(task)
 
     # ------------------------------------------------------------------
     # the loop
@@ -467,20 +513,24 @@ class Trainer:
     def save_checkpoint(self, name: str = "checkpoint") -> None:
         logger.info("checkpointing at iter %d (%d sentences)",
                     self.n_total_iter, self.n_sentences)
-        # the port's iterators keep no state (the grain loader is item 13)
+        # each row loader's position after the batches the steps took
+        loader_state = {"|".join(map(str, task)): save_loader_state(
+            loader, consumed=self._taken[task])
+            for task, loader in self._loaders.items()}
         extra = {"epoch": self.epoch, "n_total_iter": self.n_total_iter,
                  "best_metrics": self.best_metrics,
                  "n_sentences": self.n_sentences,
-                 "loader_state": {}}
+                 "loader_state": loader_state}
         ckpt.save_checkpoint(self.checkpoint_path(name), self.state, extra)
         logger.info("saved checkpoint %s (epoch %d)", name, self.epoch)
 
     def reload_checkpoint(self, name: str = "checkpoint") -> bool:
-        """Restore ``dump_path/<name>`` if it exists.  Without a loader
-        state, the run goes on at the next epoch; a loader state (which the
-        port does not write yet) keeps the epoch and its sentence budget,
-        the iterators starting again at the epoch's head, as the JAX
-        trainer does for a state it cannot restore."""
+        """Restore ``dump_path/<name>`` if it exists.  A checkpoint taken
+        mid-epoch with loader states keeps the epoch and its sentence
+        budget, and seeks each task's row loader to its saved position
+        (`m3p_tpu/train/trainer.py:613-638`); a state that cannot be
+        restored starts that iterator at the epoch's head.  Otherwise the
+        run goes on at the next epoch."""
         path = self.checkpoint_path(name)
         if ckpt.committed_checkpoint(path) is None:
             return False
@@ -492,10 +542,18 @@ class Trainer:
         if 0 < n_sent < self.cfg.epoch_size and loader_state:
             self.epoch = int(extra.get("epoch", 0))
             self._resume_sentences = n_sent
-            logger.warning(
-                "loader states for %s not restorable by the port's "
-                "iterators (item 13) - restarting them from the epoch head",
-                sorted(loader_state))
+            self._close_iterators()
+            for key_str, st in loader_state.items():
+                task = tuple(key_str.split("|"))
+                if task not in self.datasets:
+                    continue
+                if self._uses_row_loader(task):
+                    self._make_iterator(task, st)
+                else:
+                    logger.warning(
+                        "loader state for %s not restorable (the task has "
+                        "no row loader) - restarting that iterator from "
+                        "the epoch head", task)
             logger.info("resumed MID-EPOCH from %s (epoch %d, %d sentences, "
                         "%d loader states)", path, self.epoch, n_sent,
                         len(loader_state))

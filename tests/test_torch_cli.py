@@ -4,8 +4,10 @@ package's: the parser and `args_to_config` over the reference recipes, then
 evaluate, checkpoint, resume with ``--eval_only``), the weight reloads, and
 what `main` refuses."""
 
+import json
 import os
 import pickle
+import signal
 
 import numpy as np
 import pytest
@@ -101,8 +103,8 @@ def test_parser_has_every_jax_flag_and_default():
 @pytest.fixture(scope="module")
 def coco(tmp_path_factory):
     """A data directory as `tests/test_cli.py::test_train_x_main_end_to_end`
-    writes it, loaded by the JAX loader: the port has no loader yet
-    (item 13), so `main` takes its datasets."""
+    writes it, loaded by the JAX loader: `main` takes those datasets as
+    ``data=``, the run held against the JAX package's."""
     tmp = tmp_path_factory.mktemp("cli")
     vocab = str(tmp / "vocab.tsv")
     train_unigram(["red cat dog runs blue tree house"] * 30,
@@ -214,8 +216,9 @@ def test_main_reloads_weights(coco):
 
 def test_main_refuses_what_is_not_ported(coco, monkeypatch):
     argv = coco["argv"] + ["--exp_id", "refuse"]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_x.main(argv + ["--device", "cpu"])
+    # a data directory is no longer refused: without data=, main loads it
+    t = train_x.main(argv + ["--device", "cpu", "--max_epoch", "0"])
+    assert sorted(t.datasets) == [("rel", "coco")]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_x.main(argv, data=coco["data"])
@@ -251,3 +254,127 @@ def test_main_says_when_one_of_several_cards_runs(coco, monkeypatch):
         text = f.read()
     assert "batch_size 3 not divisible by data*fsdp=2" in text
     assert "running on one card of 2" in text
+
+
+def _data_dir(tmp):
+    """A directory `load_data` reads: the coco retrieval shard and pkls of
+    `coco`, a vocab, and an English token stream."""
+    vocab = str(tmp / "vocab.tsv")
+    train_unigram(["red cat dog runs blue tree house"] * 30,
+                  vocab_size=80).save(vocab)
+    rng = np.random.RandomState(1)
+    root = tmp / "coco"
+    root.mkdir()
+    n, r = 8, 4
+    write_feature_shard(
+        str(root / "train.h5"),
+        features=rng.randn(n, r, 2048).astype(np.float32),
+        boxes=np.abs(rng.rand(n, r, 4)).astype(np.float32) * 50,
+        num_boxes=np.full(n, r, np.int64), wh=np.full((n, 2), 100, np.float32),
+        image_ids=[f"i{k}" for k in range(n)],
+        objects=rng.randint(0, 1600, (n, r)))
+    words = ["red", "cat", "dog", "runs", "blue", "tree", "house"]
+    for split in ("train", "test"):
+        with open(root / f"{split}.en.pkl", "wb") as f:
+            pickle.dump({f"i{k}": [" ".join(rng.choice(words, 4))
+                                   for _ in range(2)] for k in range(n)}, f)
+    n_words = XLMRTokenizer(vocab).vocab_size
+    for split, size in (("train", 600), ("valid", 200)):
+        np.save(tmp / f"{split}.en.npy",
+                rng.randint(4, n_words - 1, size).astype(np.int32))
+    return [
+        "--data_path", str(tmp), "--vocab_path", vocab, "--lgs", "en",
+        "--cross_rel_steps", "coco-img", "--mlm_steps", "en",
+        "--max_region_num", str(r), "--sample_n", "2", "--batch_size", "2",
+        "--max_len", "12", "--bptt", "12", "--emb_dim", "32",
+        "--n_layers", "1", "--n_dec_layers", "1", "--n_heads", "2",
+        "--refine_layers", "1", "--dropout", "0.1",
+        "--attention_dropout", "0.1", "--fp16", "False",
+        "--epoch_size", "16", "--max_epoch", "1", "--num_workers", "2",
+        "--dump_path", str(tmp / "dump"), "--exp_name", "dir",
+        "--device", "cpu"]
+
+
+def test_main_trains_from_a_data_directory_and_resumes_mid_epoch(
+        tmp_path, monkeypatch):
+    """`main` without ``data=`` over a data directory, through the row
+    loader: an uninterrupted epoch; the same run preempted by SIGTERM
+    after its third step (the checkpoint at the next step boundary, then
+    the process dies); a fresh `main` resuming it mid-epoch.  Each task's
+    batches, before the checkpoint and after the resume, are bitwise the
+    uninterrupted run's."""
+    from m3p_tpu_torch.train.trainer import Trainer
+
+    argv = _data_dir(tmp_path)
+    taken = []
+    get_batch = Trainer._get_batch
+
+    def recorded(self, task):
+        batch = get_batch(self, task)
+        taken.append((task, batch))
+        return batch
+
+    monkeypatch.setattr(Trainer, "_get_batch", recorded)
+
+    def per_task():
+        out = {}
+        for task, batch in taken:
+            out.setdefault(task, []).append(batch)
+        taken.clear()
+        return out
+
+    whole = train_x.main(argv + ["--exp_id", "whole"])
+    assert sorted(whole.datasets) == [("mlm", "en"), ("rel", "coco")]
+    assert whole.epoch == 1 and whole.n_total_iter == 8
+    want = per_task()
+
+    class Preempted(Exception):
+        pass
+
+    step_once, save = Trainer.step_once, Trainer.save_checkpoint
+
+    def sigterm_after_the_third(self, kind, task):
+        step_once(self, kind, task)
+        if self.n_total_iter == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def save_then_die(self, name="checkpoint"):
+        save(self, name)
+        if self.n_sentences < self.cfg.epoch_size:
+            raise Preempted
+
+    with monkeypatch.context() as m:
+        m.setattr(Trainer, "step_once", sigterm_after_the_third)
+        m.setattr(Trainer, "save_checkpoint", save_then_die)
+        with pytest.raises(Preempted):
+            train_x.main(argv + ["--exp_id", "cut"])
+    before = per_task()
+    assert sum(len(v) for v in before.values()) == 3
+    dump = tmp_path / "dump" / "dir" / "cut"
+    with open(dump / "checkpoint" / "extra.json") as f:
+        assert json.load(f)["n_sentences"] == 6
+    # the positions after the batches the steps took: the staging thread
+    # had run ahead of them
+    with open(dump / "checkpoint" / "loader_state.0.json") as f:
+        states = {k: json.loads(v)["next_batch"]
+                  for k, v in json.load(f).items()}
+    assert states == {"|".join(k): len(v) for k, v in before.items()}
+
+    resumed = train_x.main(argv + ["--exp_id", "cut"])
+    after = per_task()
+    with open(dump / "train.log") as f:
+        log = f.read()
+    assert "resumed MID-EPOCH" in log and "6 sentences" in log
+    assert resumed.epoch == 1 and resumed.n_total_iter == 8
+    assert sum(len(v) for v in after.values()) == 5
+    for task in want:
+        got = before.get(task, []) + after.get(task, [])
+        n = min(len(got), len(want[task]))
+        assert n > len(before.get(task, [])) or not after.get(task)
+        for i in range(n):
+            g, w = got[i], want[task][i]
+            pairs = zip(g, w) if isinstance(w, tuple) else [(g, w)]
+            for gb, wb in pairs:
+                assert gb.keys() == wb.keys()
+                for k in wb:
+                    assert torch.equal(gb[k], wb[k]), (task, i, k)

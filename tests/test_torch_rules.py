@@ -1,6 +1,7 @@
-"""Rules of the PyTorch port: it imports nothing of JAX, flax or the JAX
-package (nor does chip_smoke.py), and its entry points run on CUDA unless
-the caller asks for the CPU."""
+"""Rules of the PyTorch port: it imports nothing of JAX, flax, grain, lmdb
+or the JAX package (nor does chip_smoke.py), importing it does not import
+h5py (the chip machine has none of them), and its entry points run on CUDA
+unless the caller asks for the CPU."""
 
 import ast
 import dataclasses
@@ -21,7 +22,8 @@ from m3p_tpu_torch.model import build_model
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "m3p_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "m3p_tpu", "grain",
+             "lmdb")
 
 
 def _forbidden(name: str) -> bool:
@@ -49,7 +51,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "eval.cider", "eval.caption_metrics", "bench_eval_grid",
                  "checkpoint", "data.pipeline", "train.trainer",
                  "cli.train_x", "utils.schedules", "utils.sampling",
-                 "utils.metrics", "utils.logging", "utils.profiling"):
+                 "utils.metrics", "utils.logging", "utils.profiling",
+                 "data.features", "data.clag", "data.datasets",
+                 "data.row_pipeline"):
         assert f"m3p_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -64,6 +68,8 @@ def test_port_imports_no_jax_and_no_jax_package():
 
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert [m for m in loaded if _forbidden(m)] == []
+    # h5py is imported where a shard is opened, never at import
+    assert [m for m in loaded if m == "h5py" or m.startswith("h5py.")] == []
 
 
 def _imported_names(path: Path):

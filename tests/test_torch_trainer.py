@@ -214,8 +214,8 @@ def test_reload_resumes_the_next_epoch(world):
         (1, 5, {"I2T_acc": 50.0})
     for name, p in fresh.model.state_dict().items():
         assert torch.equal(p, pt.model.state_dict()[name]), name
-    # a checkpoint with a loader state (none the port writes yet) keeps the
-    # epoch and its sentence budget
+    # a checkpoint with a loader state keeps the epoch and its sentence
+    # budget (a task without a row loader restarts at the epoch's head)
     save_checkpoint(pt.checkpoint_path("mid"), pt.state,
                     {"epoch": 3, "n_total_iter": 9, "best_metrics": {},
                      "n_sentences": 4, "loader_state": {"rel|coco": {}}})
@@ -467,3 +467,71 @@ def test_clcm_rides_the_pretrain_batches_where_the_dataset_takes_it(
         next(pt._make_iterator(task))
     pt._close_iterators()
     assert sorted(calls) == [("plain", None), ("with", True)]
+
+
+def test_row_loader_resumes_mid_epoch_with_bitwise_batches_and_losses(
+        tmp_path):
+    """The counterpart of `tests/test_checkpoint.py::
+    test_grain_mid_epoch_resume`: a port `Trainer` over a port
+    `RetrievalDataset` through the row loader (2 read threads, the staging
+    thread ahead of the steps) at depth 2 with dropout 0.1, a checkpoint
+    after 2 steps, a fresh `Trainer` and model reloading it: the next
+    steps' batches and losses are bitwise the uninterrupted run's, and the
+    run does not rewind to the epoch's head."""
+    from m3p_tpu_torch.data.datasets import RetrievalDataset as PortRetrieval
+    from test_torch_datasets import make_world
+
+    w = make_world(tmp_path)
+    tok, store = w["port"]["tok"], w["port"]["stores"][0]
+    cfg = C.small_test_config(
+        cross_rel_steps="coco-img", epoch_size=1000,
+        dump_path=str(tmp_path / "dump"), n_words=tok.vocab_size,
+        mask_index=tok.mask_token_id, dropout=0.1, attention_dropout=0.1,
+        batch_size=2, max_len=12, num_workers=2)
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, max_region_num=4,
+                                  img_feat_dim=store.feat_dim),
+        data=dataclasses.replace(cfg.data, max_region_num=4))
+    assert cfg.data.use_grain
+    os.makedirs(cfg.dump_path)
+    task = ("rel", "coco")
+
+    def trainer(seed):
+        ds = PortRetrieval(w["captions"][0], store, tok, sample_n=2,
+                           max_len=12, seed=cfg.seed)
+        t = Trainer(cfg, build_model(cfg.model, seed, "cpu"), {task: ds})
+        seen = []
+        get_batch = t._get_batch
+
+        def recorded(key):
+            seen.append(get_batch(key))
+            return seen[-1]
+
+        t._get_batch = recorded
+        return t, seen
+
+    def steps(t, n):
+        losses = []
+        for _ in range(n):
+            t.step_once("rel", task)
+            losses.append(t.stats.flush()["rel-coco"])
+        return losses
+
+    ta, seen_a = trainer(0)
+    steps(ta, 2)
+    ta.save_checkpoint()
+    assert ta._taken[task] == 2
+    losses_a = steps(ta, 3)
+    tb, seen_b = trainer(7)
+    assert tb.reload_checkpoint()
+    assert (tb.epoch, tb._resume_sentences) == (ta.epoch, 4)
+    losses_b = steps(tb, 3)
+    assert losses_b == losses_a
+    for a, b in zip(seen_a[2:], seen_b):
+        for half_a, half_b in zip(a, b):
+            assert half_a.keys() == half_b.keys()
+            for k in half_a:
+                assert torch.equal(half_a[k], half_b[k]), k
+    assert not torch.equal(seen_b[0][0]["tokens"], seen_a[0][0]["tokens"])
+    ta._close_iterators()
+    tb._close_iterators()
