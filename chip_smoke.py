@@ -208,7 +208,28 @@ Phases, each of which fails the run if it fails:
      steps consumed,
      the process's RSS, each step's launches; at depth 2, a checkpoint
      mid-epoch and a fresh Trainer taking the next batches bitwise.  Every
-     #1/#2 launch of phases 14 and 15 at a shape phase 2 held.
+     #1/#2 launch of phases 14 and 15 at a shape phase 2 held;
+ 16. the rest of serving, flagship width, bf16: (a) the native tokenizer
+     (built from the checkout by the host compiler in phase 1) against
+     the pure-Python model over sentences of phase 15's generator, ids
+     equal, encode_batch sentences/s in turns; phase 15(b)'s recipe with
+     its datasets tokenizing natively and in Python, one epoch each in
+     turns, and the loader alone; (b) `cli.preprocess` train-vocab native
+     == python, spm-to-tsv and binarize round-tripping a write_spm file;
+     (c) `cli.serve --quant int8 --load_gallery` through its own parser
+     over an in-memory feature store and a saved checkpoint: /v1/score of
+     1, 16 and 32 pairs (under and over the 2048-row int8 gate, each
+     call's gate decisions and int8 GEMM routes checked), /v1/retrieve and
+     a beam-5 /v1/caption over HTTP, 15 #1 launches per encode, every one
+     at a held shape; the q8 capture's seconds and bytes; (d) the same
+     checkpoint without --quant: retrieval top-1 and score differences
+     (at the engine's chunk, above the gate, and at 16, int8), the share
+     of caption tokens that agree, ms per score and caption call in
+     turns, a decode step's device ms from a profile; (e) the int8 model
+     in fp32 at depth 2, card vs CPU, each CPU GEMM handed the card's
+     quantized activations: the int32 accumulators equal, the outputs
+     within TOL_INT8_FP32 (and, running free, the share of activations
+     quantized alike); (f) a caption eval with ``eval.quant="int8"``.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -307,14 +328,21 @@ def fail(msg: str) -> None:
 
 
 def build_kernels():
+    """Every CUDA source with nvcc and the native tokenizer with the host
+    compiler, all started together."""
     from m3p_tpu_torch.ops import _build
+    from m3p_tpu_torch.tokenization import native
 
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        host = pool.submit(_build.build_host, "m3ptok", native.SOURCES)
         paths = list(pool.map(_build.build, KERNELS))
+        host_path = host.result()
     for name in KERNELS:
         _build.load(name)
-    log(f"[build] {len(paths)} kernel(s) built and loaded in "
+    native.load_library()
+    log(f"[build] {len(paths)} kernel(s) and the native tokenizer "
+        f"({host_path.name}, {_build.cxx_path()}) built and loaded in "
         f"{time.time() - t0:.2f} s: {[p.name for p in paths]}")
 
 
@@ -404,9 +432,9 @@ def check_kernels(gen):
             if (b, sq, sk, 12, 64, dt, causal, tol) not in cases:
                 cases.append((b, sq, sk, 12, 64, dt, causal, tol))
     # phase 14's (`trainer_shapes`): the trainer's steps and its evals;
-    # phase 15's (`dataset_shapes`)
+    # phase 15's (`dataset_shapes`); phase 16's (`quant_shapes`)
     for b, sq, sk, causal in trainer_shapes()["fwd"] + \
-            dataset_shapes()["fwd"]:
+            dataset_shapes()["fwd"] + quant_shapes():
         for dt, tol in ((torch.float32, TOL_FP32), (torch.bfloat16,
                                                     TOL_BF16)):
             if (b, sq, sk, 12, 64, dt, causal, tol) not in cases:
@@ -5003,7 +5031,7 @@ def flip_margins(evs, gen, key, beam, rows):
     for dev, ev in evs.items():
         with torch.inference_mode():
             enc, mask = eval_source(ev, batch)
-            toks[dev], lens = ev._decode(enc, mask, beam,
+            toks[dev], lens = ev._decode(ev.model, enc, mask, beam,
                                          ev.cfg.eval.max_gen_len, lang_id)
             toks[dev] = [t[:n].tolist() for t, n in zip(toks[dev], lens)]
     return [{"row": row, **{f"{dev}_tokens": toks[dev][row] for dev in toks},
@@ -6252,6 +6280,46 @@ def loader_records_per_s(dataset, cfg, workers):
     return LOADER_BATCHES * cfg.data.batch_size / secs
 
 
+def recipe_config(tokenizer, tmp, extra=()):
+    """Phase 14's recipe config (`TRAINER_ARGV` + ``extra``) over
+    ``tokenizer``'s vocabulary, dumping into a new directory of ``tmp``."""
+    from m3p_tpu_torch.cli import train_x
+
+    cfg = train_x.args_to_config(train_x.get_parser().parse_args(
+        TRAINER_ARGV + list(extra)))
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, n_words=tokenizer.vocab_size,
+        mask_index=tokenizer.mask_token_id))
+    cfg.dump_path = tempfile.mkdtemp(prefix="recipe", dir=tmp)
+    return cfg
+
+
+def recipe_captions(seed, store):
+    """DATASET_CAPTIONS captions of 8-20 words for each image of
+    ``store``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {i: [sentence(rng, int(rng.randint(8, 21)))
+                for _ in range(DATASET_CAPTIONS)]
+            for i in store.image_ids}
+
+
+def recipe_datasets(cfg, store, captions, tokenizer):
+    """Phase 15(b)'s datasets: rel and ic over ``store``, tokenized by
+    ``tokenizer``."""
+    from m3p_tpu_torch.data.datasets import CaptionDataset, RetrievalDataset
+
+    return {("rel", "coco"): RetrievalDataset(
+                captions, store, tokenizer, lang="en",
+                sample_n=cfg.data.sample_n, max_len=cfg.data.max_len,
+                seed=cfg.seed),
+            ("ic", "coco"): CaptionDataset(
+                captions, store, tokenizer, lang="en",
+                max_len=cfg.data.max_len, seed=cfg.seed,
+                lang_id=cfg.lang2id.get("en"))}
+
+
 def dataset_recipe(seed, tokenizer, phase14_ms, tmp):
     """(b) Phase 14's recipe (rel + ic, accumulation 4, BN = 24 x 4, 100
     regions, captions of 64 tokens, bf16 at the flagship width) with its
@@ -6264,42 +6332,22 @@ def dataset_recipe(seed, tokenizer, phase14_ms, tmp):
     records the steps consumed; the process's RSS; at depth 2, a checkpoint after 5 steps
     and a fresh Trainer resuming it: the next 3 batches of each task
     bitwise."""
-    import numpy as np
     import torch
 
-    from m3p_tpu_torch.cli import train_x
-    from m3p_tpu_torch.data.datasets import CaptionDataset, RetrievalDataset
     from m3p_tpu_torch.model import build_model
     from m3p_tpu_torch.train.trainer import Trainer
 
     def config(extra):
-        cfg = train_x.args_to_config(train_x.get_parser().parse_args(
-            TRAINER_ARGV + extra))
-        cfg = cfg.replace(model=dataclasses.replace(
-            cfg.model, n_words=tokenizer.vocab_size,
-            mask_index=tokenizer.mask_token_id))
-        cfg.dump_path = os.path.join(tmp, "recipe" + "_".join(extra))
-        os.makedirs(cfg.dump_path)
-        return cfg
+        return recipe_config(tokenizer, tmp, extra)
 
     rss_before = rss_mb()
     t0 = time.time()
     cfg = config([])
     store = InMemoryStore(seed, DATASET_IMAGES)
-    rng = np.random.RandomState(seed)
-    captions = {i: [sentence(rng, int(rng.randint(8, 21)))
-                    for _ in range(DATASET_CAPTIONS)]
-                for i in store.image_ids}
+    captions = recipe_captions(seed, store)
 
     def datasets():
-        return {("rel", "coco"): RetrievalDataset(
-                    captions, store, tokenizer, lang="en",
-                    sample_n=cfg.data.sample_n, max_len=cfg.data.max_len,
-                    seed=cfg.seed),
-                ("ic", "coco"): CaptionDataset(
-                    captions, store, tokenizer, lang="en",
-                    max_len=cfg.data.max_len, seed=cfg.seed,
-                    lang_id=cfg.lang2id.get("en"))}
+        return recipe_datasets(cfg, store, captions, tokenizer)
 
     loaded = datasets()
     # the in-memory batches phase 14 steps: ready-made batches of the same
@@ -6439,6 +6487,685 @@ def dataset_slice(seed, tokenizer, phase14_ms):
     torch.cuda.empty_cache()
     out["phase_s"] = time.time() - t0
     log(f"[datasets] phase 15: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the rest of serving -- the native tokenizer, the preprocessing
+# CLI, the store-backed gallery and frozen-weight int8 serving
+# ---------------------------------------------------------------------------
+
+# (a) sentences of phase 15's generator held native against Python, and
+# timed through each encoder's encode_batch in turns
+QUANT_SENTENCES = 2000
+# (c) /v1/score at these pair counts over the 16-token text bucket (S =
+# 100 + 16): 1 and 16 pairs are 116 and 1856 rows, under the 2048-row gate
+# (int8), 32 pairs 3712 rows, above it (the plain GEMMs); the gallery the
+# CLI stages from the store; the images of a beam-5 caption call
+QUANT_SCORE_PAIRS = (1, 16, 32)
+QUANT_TEXT_BUCKET = 16
+QUANT_GALLERY = 200
+QUANT_CAPTION_IMAGES = 16
+# (d) the gallery bucket at which retrieval engages int8: 16 x 116 rows
+QUANT_INT8_CHUNK = 16
+# (e) the int8 model in fp32 on the card against the CPU, depth 2, B = 2,
+# each CPU GEMM handed the card's quantized activations: the integer parts
+# equal, the float parts sum in another order (TOL_SCORE_FP32's reason)
+QUANT_FP32_B = 2
+TOL_INT8_FP32 = 1e-3
+# the int8 GEMMs of one block's encode through the gate: the fused QKV, the
+# out projection, the FFN's two
+INT8_GEMMS_PER_BLOCK = 4
+
+
+def quant_shapes():
+    """(B, Sq, Sk, causal) of every #1 launch of phase 16: the refiner over
+    the regions and the blocks over regions + the 16-token bucket at each
+    /v1/score pair count's batch bucket, at the retrieval chunks (64, the
+    engine's, and QUANT_INT8_CHUNK), the caption call's source encoder,
+    (e)'s fp32 encode at B = 2 and (f)'s caption eval at B = 16."""
+    from m3p_tpu_torch.serve.engine import DEFAULT_BATCH_BUCKETS, _bucket
+
+    r, s = REGIONS, REGIONS + QUANT_TEXT_BUCKET
+    bs = {_bucket(n, DEFAULT_BATCH_BUCKETS) for n in QUANT_SCORE_PAIRS}
+    bs |= {DEFAULT_BATCH_BUCKETS[-1], QUANT_INT8_CHUNK, QUANT_FP32_B}
+    shapes = [(b, w, w, False) for b in sorted(bs) for w in (r, s)]
+    shapes.append((_bucket(QUANT_CAPTION_IMAGES, DEFAULT_BATCH_BUCKETS), r,
+                   r, False))
+    return sorted(set(shapes))
+
+
+def quant_counts():
+    from m3p_tpu_torch.ops import quant
+
+    return {"gate": dict(quant.GATE_COUNTS),
+            "int8_matmul_pre": dict(quant.int8_matmul_pre.calls_by_route),
+            "int8_matmul_nt_pre": dict(
+                quant.int8_matmul_nt_pre.calls_by_route)}
+
+
+def tokenizer_slice(seed, tmp):
+    """16(a), first half: the full vocabulary's native and Python
+    tokenizers give the same ids over QUANT_SENTENCES sentences of phase
+    15's generator and as many of letters that need the Viterbi, and their
+    encode_batch sentences/s in turns (native, Python, Python, native).
+    -> (numbers, native tokenizer, Python tokenizer)."""
+    import numpy as np
+
+    from m3p_tpu_torch.ops import _build
+    from m3p_tpu_torch.tokenization import native
+    from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
+
+    vocab = os.path.join(tmp, "vocab.tsv")
+    write_vocab(vocab, full_width_config("bfloat16").n_words - 2)
+    t0 = time.perf_counter()
+    nat = XLMRTokenizer(vocab)
+    load_native_s = time.perf_counter() - t0
+    py = XLMRTokenizer(vocab, use_native=False)
+    lib = _build.host_library_path("m3ptok", native.SOURCES)
+    if nat._native is None or not lib.exists():
+        fail("the native tokenizer was not built into build/")
+    rng = np.random.RandomState(seed + 16)
+    texts = [sentence(rng, int(rng.randint(5, 61)))
+             for _ in range(QUANT_SENTENCES)]
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    texts += [" ".join("".join(rng.choice(letters, rng.randint(1, 12)))
+                       for _ in range(rng.randint(1, 30)))
+              for _ in range(QUANT_SENTENCES)]
+    for t in texts[:200]:
+        if nat.encode(t) != py.encode(t):
+            fail(f"native and Python encode differ on {t!r}")
+    got, want = (tok.encode_batch(texts, max_ids=256) for tok in (nat, py))
+    if got != want:
+        bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        fail(f"native and Python encode_batch differ on {texts[bad]!r}")
+    turns = []
+    nat.encode_batch(texts[:500], max_ids=256)     # untimed, each once
+    py.encode_batch(texts[:500], max_ids=256)
+    for name, tok in (("native", nat), ("python", py), ("python", py),
+                      ("native", nat)):
+        t0 = time.perf_counter()
+        tok.encode_batch(texts, max_ids=256)
+        turns.append((name, len(texts) / (time.perf_counter() - t0)))
+    rate = {name: float(np.mean([r for n, r in turns if n == name]))
+            for name in ("native", "python")}
+    out = {"sentences_held": len(texts), "ids": sum(map(len, got)),
+           "library": lib.name, "native_load_s": load_native_s,
+           "encode_batch_sentences_per_s": rate,
+           "encode_batch_turns": turns,
+           "native_over_python": rate["native"] / rate["python"]}
+    log(f"[tokenizer] native ({lib.name}, built by "
+        f"{_build.cxx_path()}) and Python: the same ids over {len(texts)} "
+        f"sentences ({out['ids']} ids); encode_batch sentences/s in turns "
+        f"{[(n, round(r, 1)) for n, r in turns]}: native "
+        f"{rate['native']:.1f}, Python {rate['python']:.1f} "
+        f"({out['native_over_python']:.2f}x)")
+    return out, nat, py
+
+
+def tokenizer_recipe_turns(seed, tokenizers, tmp):
+    """16(a), second half: phase 15(b)'s recipe (phase 14's, at the full
+    depth, over RetrievalDataset + CaptionDataset of an InMemoryStore
+    through the row loader, the recipe's read threads) with the datasets
+    tokenizing natively and in Python: a warm-up epoch, then one epoch
+    each in turns, ms a micro-step; and the loader alone, records/s."""
+    import torch
+
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.train.trainer import Trainer
+
+    native_tok = tokenizers["native"]
+    cfg = recipe_config(native_tok, tmp)
+    store = InMemoryStore(seed, DATASET_IMAGES)
+    captions = recipe_captions(seed, store)
+    loaded = {name: recipe_datasets(cfg, store, captions, tok)
+              for name, tok in tokenizers.items()}
+    workers = cfg.data.num_workers
+    trainer = Trainer(cfg, build_model(cfg.model, seed, "cuda"),
+                      loaded["native"])
+    readings = []
+    micro = []
+
+    def on_step(orig):
+        def step_once(kind, task):
+            orig(kind, task)
+            micro.append(2 if kind == "rel" else 1)
+        return step_once
+
+    def epoch(name):
+        trainer.datasets = loaded[name]
+        n0 = len(micro)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_epoch()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        trainer.epoch += 1
+        trainer._close_iterators()
+        readings.append({"tokenizer": name, "s": secs,
+                         "micro_steps": sum(micro[n0:])})
+
+    with patched(trainer, "step_once", on_step):
+        epoch("native")     # warm-up
+        readings.clear()
+        for name in ("native", "python"):
+            epoch(name)
+    ms = {r["tokenizer"]: r["s"] * 1e3 / r["micro_steps"] for r in readings}
+    alone = {f"{task[0]}_{name}": loader_records_per_s(ds[task], cfg,
+                                                       workers)
+             for name, ds in loaded.items() for task in sorted(ds)}
+    del trainer
+    torch.cuda.empty_cache()
+    out = {"ms_per_micro_step": ms, "epochs_in_turns": readings,
+           "loader_alone_records_per_s": alone, "read_threads": workers}
+    log(f"[tokenizer] phase 15(b)'s recipe, one epoch each in turns "
+        f"{[(r['tokenizer'], round(r['s'], 3)) for r in readings]}: ms a "
+        f"micro-step {json.dumps(ms)}; the loader alone "
+        f"{json.dumps(alone)} records/s ({workers} read threads)")
+    return out
+
+
+def preprocess_slice(tmp):
+    """16(b): `cli.preprocess` on the card's machine: train-vocab native and
+    python give the same model (pieces, and scores to the last bit);
+    spm-to-tsv and binarize round-trip a `write_spm` file."""
+    import numpy as np
+
+    from m3p_tpu_torch.cli import preprocess
+    from m3p_tpu_torch.tokenization.spm_reader import (
+        TYPE_CONTROL, TYPE_NORMAL, TYPE_UNKNOWN, write_spm)
+    from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
+    from m3p_tpu_torch.tokenization.unigram import UnigramModel
+
+    rng = np.random.RandomState(16)
+    corpus = os.path.join(tmp, "corpus.txt")
+    with open(corpus, "w", encoding="utf-8") as f:
+        f.write("\n".join(sentence(rng, int(rng.randint(4, 20)))
+                          for _ in range(400)))
+    t0 = time.perf_counter()
+    models = {}
+    for impl in ("native", "python"):
+        out = os.path.join(tmp, f"{impl}.tsv")
+        preprocess.main(["train-vocab", corpus, "--out", out, "--size",
+                         "300", "--impl", impl])
+        models[impl] = UnigramModel.load(out)
+    a, b = models["native"], models["python"]
+    if a.pieces != b.pieces or a.scores != b.scores:
+        fail("train-vocab native and python trained different models")
+    pieces = ["<unk>", "<s>", "</s>"] + b.pieces
+    types = [TYPE_UNKNOWN, TYPE_CONTROL, TYPE_CONTROL] + \
+        [TYPE_NORMAL] * len(b.pieces)
+    spm = os.path.join(tmp, "vocab.spm")
+    write_spm(spm, pieces, [0.0] * 3 + b.scores, types)
+    tsv = os.path.join(tmp, "from_spm.tsv")
+    preprocess.main(["spm-to-tsv", spm, "--out", tsv])
+    back, direct = UnigramModel.load(tsv), UnigramModel.load(spm)
+    if (back.pieces, back.scores, back.types) != (
+            direct.pieces, direct.scores, direct.types):
+        fail("spm-to-tsv did not round-trip the write_spm file")
+    stream = os.path.join(tmp, "stream.npy")
+    preprocess.main(["binarize", corpus, "--vocab", tsv, "--out", stream])
+    tok = XLMRTokenizer(spm)
+    with open(corpus, encoding="utf-8") as f:
+        want = [i for line in f for i in tok.encode(line.rstrip("\n"))[:512]
+                + [2]]
+    got = np.load(stream)
+    if got.dtype != np.int32 or got.tolist() != want:
+        fail("binarize over the converted TSV is not the .spm tokenizer's "
+             "stream")
+    out = {"pieces": len(a), "stream_ids": int(got.size),
+           "s": time.perf_counter() - t0}
+    log(f"[preprocess] train-vocab native == python ({len(a)} pieces, "
+        f"scores to the bit); spm-to-tsv and binarize round-trip a "
+        f"write_spm file ({got.size} ids); {out['s']:.2f} s")
+    return out
+
+
+def quant_cli_engine(argv, store, what):
+    """`cli.serve.main(argv, store=..., serve=False)`, timed."""
+    from m3p_tpu_torch.cli import serve
+
+    t0 = time.perf_counter()
+    engine = serve.main(argv, store=store, serve=False)
+    log(f"[quant] {what}: the CLI built the engine in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return engine
+
+
+def counted_quant_call(what, fn, want_gate=None, per_call=None):
+    """One call of phase 16's main path with its #1 launches and int8
+    counts zeroed before and read after; fails unless #1 ran ``per_call``
+    launches, all on the tensor cores, and (with ``want_gate``) the gate
+    decided as given."""
+    import torch
+
+    from m3p_tpu_torch.ops import quant
+
+    zero_launch_counts()
+    quant.zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts, q = launch_counts(), quant_counts()
+    if per_call is not None:
+        check_launches(what, counts, expected_launches((per_call, 0)), 1)
+    if want_gate is not None and q["gate"] != want_gate:
+        fail(f"{what}: the int8 gate decided {q['gate']}; expected "
+             f"{want_gate}")
+    return out, {"packed_fwd": counts["packed_fwd"], **q}
+
+
+def quant_serve_slice(seed, tokenizer, tmp):
+    """16(c) and (d): `cli.serve --quant int8 --load_gallery N` over an
+    InMemoryStore at the flagship width, bf16, random weights from
+    ``seed`` saved as a checkpoint; /v1/score on both sides of the gate,
+    /v1/retrieve and /v1/caption over HTTP, every call's #1 launches and
+    int8 routes counted and each #1 launch at a held shape; the q8
+    capture; then the same checkpoint without --quant: retrieval and
+    caption agreement, ms in turns, the device ms of a decode step."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.model import build_model, capture_q8
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.serve.server import make_server
+
+    cfg = full_width_config("bfloat16")
+    vocab = os.path.join(tmp, "serve_vocab.tsv")
+    write_vocab(vocab, cfg.n_words - 2)
+    ckpt = os.path.join(tmp, "flagship.pt")
+    model = build_model(cfg, seed, "cuda")
+    torch.save(model.state_dict(), ckpt)
+    del model
+    store = InMemoryStore(seed + 16, QUANT_GALLERY)
+    # the CLI's model is the checkpoint's: one language (n_langs 2), the
+    # flagship's widths, FFN 4 x 768
+    argv = ["--reload_model", ckpt, "--vocab_path", vocab,
+            "--emb_dim", str(cfg.emb_dim), "--n_layers", str(cfg.n_layers),
+            "--n_heads", str(cfg.n_heads),
+            "--refine_layers", str(cfg.refine_layers),
+            "--max_region_num", str(cfg.max_region_num), "--lgs", "en",
+            "--beam_size", str(GEN_BEAM), "--max_gen_len", str(GEN_LEN),
+            "--warmup", "true", "--load_gallery", str(QUANT_GALLERY)]
+    engine = quant_cli_engine(argv + ["--quant", "int8"], store,
+                              "--quant int8 --load_gallery")
+    if engine.device.type != "cuda" or engine.model.cfg.ffn_quant != \
+            "int8_infer" or engine.stats()["gallery_size"] != QUANT_GALLERY:
+        fail(f"the int8 CLI engine: {engine.stats()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q8_bytes = capture_q8(engine.model)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    head = engine.model.pred_layer.q8_emb
+    head_bytes = head.wq.nbytes + head.sw.nbytes
+    log(f"[quant] q8 capture {capture_s:.3f} s, {q8_bytes} bytes on the "
+        f"card ({head_bytes} the vocab table, {q8_bytes - head_bytes} the "
+        f"{cfg.n_layers} blocks')")
+
+    rng = np.random.RandomState(seed + 17)
+    per_pass = cfg.n_layers + cfg.refine_layers
+    int8_gemms = INT8_GEMMS_PER_BLOCK * cfg.n_layers
+    calls = {}
+    shapes = set()
+    server, app = make_server(engine, host="127.0.0.1", port=0,
+                              max_body_bytes=512 * 1024 * 1024)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with recorded_launch_shapes(shapes):
+            # ---- the main path, counted call by call ----
+            for n in QUANT_SCORE_PAIRS:
+                texts = [sentence(rng, int(rng.randint(4, 12)))
+                         for _ in range(n)]
+                ids = [f"img{int(i)}" for i in rng.randint(0, 50, n)]
+                rows = max(n, 1) * (REGIONS + QUANT_TEXT_BUCKET)
+                want = ({"int8": int8_gemms, "plain": 0}
+                        if rows <= quant.PREQUANT_MAX_M
+                        else {"int8": 0, "plain": int8_gemms})
+                scores, calls[f"score_{n}"] = counted_quant_call(
+                    f"/v1/score {n} pair(s)", lambda: post(
+                        base, "/v1/score", {"pairs": [
+                            {"text": t, "image_id": i}
+                            for t, i in zip(texts, ids)]})["scores"],
+                    want, per_pass)
+                if len(scores) != n or not np.isfinite(scores).all():
+                    fail(f"/v1/score {n}: {scores}")
+            query = sentence(rng, 6)
+            res, calls["retrieve"] = counted_quant_call(
+                "/v1/retrieve", lambda: post(base, "/v1/retrieve", {
+                    "text": query, "top_k": 5})["results"],
+                {"int8": 0, "plain": int8_gemms * -(-QUANT_GALLERY // 64)},
+                per_pass * -(-QUANT_GALLERY // 64))
+            vals = [r["score"] for r in res]
+            if len(res) != 5 or vals != sorted(vals, reverse=True):
+                fail(f"/v1/retrieve: {res}")
+            imgs = [{"image_id": f"img{i}"}
+                    for i in range(QUANT_CAPTION_IMAGES)]
+            caps, calls["caption"] = counted_quant_call(
+                f"/v1/caption beam {GEN_BEAM}", lambda: post(
+                    base, "/v1/caption", {"images": imgs, "beam_size":
+                                          GEN_BEAM})["captions"],
+                None, per_pass)
+            if len(caps) != QUANT_CAPTION_IMAGES:
+                fail(f"/v1/caption: {len(caps)} captions")
+            if calls["caption"]["int8_matmul_nt_pre"]["int8"] < 1:
+                fail(f"the caption call's word head took no int8 GEMM: "
+                     f"{calls['caption']}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        app.close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        fail("server thread did not stop")
+    held = check_held_shapes("phase 16(c)", shapes)
+    log(f"[quant] the main path call by call (#1 launches, the gate, the "
+        f"int8 GEMM routes): {json.dumps(calls)}")
+
+    # ---- (d) int8 against bf16, the same checkpoint ----
+    plain = quant_cli_engine(argv, store, "without --quant")
+    if plain.q8_bytes or plain.model.cfg.ffn_quant != "none":
+        fail("the plain CLI engine holds int8 tables")
+    compare = quant_vs_bf16(engine, plain, rng)
+    server_numbers = {"q8_capture_s": capture_s, "q8_bytes": q8_bytes,
+                      "q8_vocab_table_bytes": head_bytes, "calls": calls,
+                      "launch_shapes": [list(s) for s in held]}
+    return {**server_numbers, **compare}, engine, plain
+
+
+def decode_step_fn(engine, imgs):
+    """One beam-5 decode step at GEN_LEN cached positions over
+    ``imgs``' source encoding: the blocks, the word head and the top-2K
+    with the logsumexp (`time_decode_step`'s parts)."""
+    import torch
+
+    from m3p_tpu_torch.ops.topk import top_k
+
+    model = engine.model
+    feats, locs, mask = engine.image_batch(imgs)
+    bk = feats.shape[0] * GEN_BEAM
+    dev = feats.device
+    with torch.inference_mode():
+        enc = model.encode_image(feats, locs, mask, True)
+        cache = model.init_decode_cache(enc, GEN_LEN, bk)
+    tok = torch.full((bk, 1), 5, device=dev)
+    pos = torch.full((bk, 1), 5, device=dev)
+    step_mask = torch.ones((bk, 1), dtype=torch.bool, device=dev)
+
+    def step():
+        with torch.inference_mode():
+            cache.pos = 5
+            hidden = model.encode_text(tok, step_mask, None, pos,
+                                       causal=True, src_enc=enc,
+                                       src_mask=mask, cache=cache)
+            logits = model.word_logits(hidden[:, 0]).float()
+            return top_k(logits, 2 * GEN_BEAM), torch.logsumexp(logits, -1)
+    return step
+
+
+def quant_vs_bf16(q8, plain, rng):
+    """16(d): retrieval top-1 and the largest score difference as a share
+    of the score range, at the engine's chunk (above the gate: the same
+    GEMMs) and at QUANT_INT8_CHUNK (int8); the share of caption tokens
+    that agree; ms per /v1/score of 16 pairs and per caption call, int8
+    and bf16 in turns; the device ms of one beam-5 decode step from a
+    profile, each engine."""
+    import numpy as np
+    import torch
+
+    queries = [sentence(rng, int(rng.randint(4, 12))) for _ in range(4)]
+    retrieval = {}
+    for chunk in (None, QUANT_INT8_CHUNK):
+        saved = (q8.batch_buckets, plain.batch_buckets)
+        if chunk is not None:
+            q8.batch_buckets = plain.batch_buckets = tuple(
+                b for b in saved[0] if b <= chunk)
+        top1, worst, worst_abs, spans = 0, 0.0, 0.0, []
+        for q in queries:
+            a = {r["id"]: r["score"] for r in q8.retrieve(q, QUANT_GALLERY)}
+            b = {r["id"]: r["score"] for r in plain.retrieve(q,
+                                                             QUANT_GALLERY)}
+            span = max(b.values()) - min(b.values())
+            diff = max(abs(a[k] - b[k]) for k in b)
+            top1 += max(a, key=a.get) == max(b, key=b.get)
+            worst, worst_abs = max(worst, diff / span), max(worst_abs, diff)
+            spans.append(span)
+        q8.batch_buckets, plain.batch_buckets = saved
+        retrieval["engine_chunk" if chunk is None else
+                  f"chunk_{chunk}"] = {"top1_agree": top1,
+                                       "queries": len(queries),
+                                       "max_diff_share_of_range": worst,
+                                       "max_abs_diff": worst_abs,
+                                       "score_ranges": spans}
+    if retrieval["engine_chunk"]["max_diff_share_of_range"] != 0.0:
+        fail("retrieval above the gate differs between int8 and bf16")
+    if retrieval[f"chunk_{QUANT_INT8_CHUNK}"]["top1_agree"] != len(queries):
+        fail(f"int8 retrieval changed a query's best image: {retrieval}")
+    imgs = [{"image_id": f"img{i}"} for i in range(QUANT_CAPTION_IMAGES)]
+    toks, lens = {}, {}
+    for name, e in (("int8", q8), ("bf16", plain)):
+        with torch.inference_mode():
+            feats, locs, mask = e.image_batch(imgs)
+            enc = e.model.encode_image(feats, locs, mask, True)
+            toks[name], lens[name] = e._generate(enc, mask, GEN_BEAM,
+                                                 GEN_LEN, None)
+    # the tokens after the start token, up to the longer caption of a row
+    span = np.maximum(lens["int8"], lens["bf16"])
+    pos = np.arange(toks["int8"].shape[1])[None, :]
+    live = (pos >= 1) & (pos < span[:, None])
+    agree = float((toks["int8"] == toks["bf16"])[live].mean())
+    texts = [sentence(rng, int(rng.randint(4, 12))) for _ in range(16)]
+    pairs = [{"image_id": f"img{i}"} for i in range(16)]
+    turns = []
+    for name, e in (("int8", q8), ("bf16", plain), ("bf16", plain),
+                    ("int8", q8)):
+        score_ms = cuda_ms(lambda: e.score(texts, pairs), iters=10,
+                           warmup=2)
+        caption_ms = cuda_ms(lambda: e.caption(imgs), iters=2, warmup=1)
+        turns.append({"engine": name, "score_16_ms": score_ms,
+                      "caption_ms": caption_ms})
+    ms = {name: {k: float(np.mean([t[k] for t in turns
+                                   if t["engine"] == name]))
+                 for k in ("score_16_ms", "caption_ms")}
+          for name in ("int8", "bf16")}
+    step = {name: profile_window(f"a beam-{GEN_BEAM} decode step, {name}",
+                                 decode_step_fn(e, imgs), reps=5)
+            for name, e in (("int8", q8), ("bf16", plain))}
+    out = {"retrieval": retrieval, "caption_token_agreement": agree,
+           "ms_in_turns": turns, "ms": ms,
+           "decode_step_device_ms": {n: s.get("device_busy_ms")
+                                     for n, s in step.items()},
+           "decode_step_groups_ms": {n: s.get("groups_ms")
+                                     for n, s in step.items()}}
+    log(f"[quant] int8 vs bf16: retrieval {json.dumps(retrieval)}; caption "
+        f"tokens agree {agree:.4f}; ms {json.dumps(ms)}; a decode step's "
+        f"device ms {json.dumps(out['decode_step_device_ms'])}")
+    return out
+
+
+def quant_fp32_vs_cpu(seed, tokenizer):
+    """16(e): the int8 model in fp32 at depth 2 on the card against the
+    CPU: `encode_joint` of QUANT_FP32_B pairs and `word_logits` of their
+    first tokens.  Each int8 GEMM's quantized activations and int32
+    accumulators are recorded on the card.  The CPU runs twice: free (the
+    share of activations quantized alike, GEMM by GEMM, and the outputs'
+    distance: a float sum in another order moves an activation across a
+    rounding boundary of its int8 step now and then, and the moved step
+    moves every later activation) and with each GEMM handed the card's
+    quantized activations, where its accumulators must equal the card's
+    bit for bit and the outputs agree within TOL_INT8_FP32."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.model import build_model, capture_q8
+    from m3p_tpu_torch.model.transformer import lengths_to_mask
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.tokenization.tokenizer import batch_sentences
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(full_width_config("float32"), n_layers=2,
+                              ffn_quant="int8_infer",
+                              head_quant="int8_infer")
+    cpu = build_model(cfg, seed, "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    capture_q8(cpu)
+    capture_q8(card)
+    rng = np.random.RandomState(seed + 18)
+    ids = tokenizer.encode_batch([sentence(rng, n) for n in (5, 11)],
+                                 max_ids=QUANT_TEXT_BUCKET - 2)
+    toks, lens, _ = batch_sentences(ids, max_len=QUANT_TEXT_BUCKET)
+    imgs = eval_images(rng, QUANT_FP32_B)
+    gemm = quant._int_gemm
+
+    def run(model, dev, forced=None):
+        rec = []
+
+        def recording(xq, wq, entry):
+            if forced is not None:
+                given = forced[len(rec)][0]
+                if given.shape != xq.shape:
+                    fail(f"int8 GEMM {len(rec)}: activations {xq.shape} on "
+                         f"the CPU, {given.shape} on the card")
+                xq = given.to(xq.device)
+            acc = gemm(xq, wq, entry)
+            rec.append((xq.cpu(), acc.cpu()))
+            return acc
+
+        t = torch.from_numpy(toks).long().to(dev)
+        tmask = lengths_to_mask(torch.from_numpy(lens).long().to(dev),
+                                toks.shape[1])
+        f = torch.from_numpy(imgs["feats"]).to(dev)
+        lo = torch.from_numpy(imgs["locs"]).to(dev)
+        im = lengths_to_mask(torch.from_numpy(imgs["img_len"]).to(dev),
+                             REGIONS)
+        quant._int_gemm = recording
+        try:
+            with torch.inference_mode():
+                h = model.encode_joint(t, tmask, f, lo, im, True)
+                logits = model.word_logits(h[:, 0])
+        finally:
+            quant._int_gemm = gemm
+        return h.cpu(), logits.cpu(), rec
+
+    quant.zero_counts()
+    with recorded_launch_shapes(set()) as shapes:
+        h_card, l_card, rec_card = run(card, "cuda")
+    check_held_shapes("phase 16(e)", shapes)
+    routes = dict(quant.int8_matmul_pre.calls_by_route)
+    head_routes = dict(quant.int8_matmul_nt_pre.calls_by_route)
+    h_free, l_free, rec_free = run(cpu, "cpu")
+    h_cpu, l_cpu, rec_cpu = run(cpu, "cpu", forced=rec_card)
+    if not rec_card or not len(rec_card) == len(rec_free) == len(rec_cpu):
+        fail(f"int8 GEMMs: {len(rec_card)} on the card, {len(rec_free)} / "
+             f"{len(rec_cpu)} on the CPU")
+    for i, ((_, acc_d), (_, acc_c)) in enumerate(zip(rec_card, rec_cpu)):
+        if not torch.equal(acc_d, acc_c):
+            fail(f"int8 GEMM {i}: the card's int32 accumulators are not the "
+                 f"CPU's over the same quantized activations")
+    alike = [float((a == b).float().mean())
+             for (a, _), (b, _) in zip(rec_card, rec_free)]
+    h_diff = float((h_card - h_cpu).abs().max())
+    l_diff = float((l_card - l_cpu).abs().max())
+    out = {"int8_gemms": len(rec_card), "accumulators_equal": True,
+           "free_run_activations_alike_by_gemm": alike,
+           "free_run_hidden_max_abs_diff": float(
+               (h_card - h_free).abs().max()),
+           "free_run_logits_max_abs_diff": float(
+               (l_card - l_free).abs().max()),
+           "hidden_max_abs_diff": h_diff, "logits_max_abs_diff": l_diff,
+           "tolerance": TOL_INT8_FP32, "routes": routes,
+           "head_routes": head_routes, "s": time.perf_counter() - t0}
+    log(f"[quant] fp32 depth 2, card vs CPU: {len(rec_card)} int8 GEMMs; "
+        f"with the card's quantized activations the CPU's accumulators "
+        f"equal the card's and the outputs differ by {h_diff:.3e} (hidden) "
+        f"/ {l_diff:.3e} (logits), tolerance {TOL_INT8_FP32}; free, the "
+        f"activations quantized alike GEMM by GEMM "
+        f"{[round(a, 6) for a in alike]}, outputs "
+        f"{out['free_run_hidden_max_abs_diff']:.3e} / "
+        f"{out['free_run_logits_max_abs_diff']:.3e}; routes {routes}, head "
+        f"{head_routes}")
+    if not (torch.isfinite(h_card).all() and torch.isfinite(l_card).all()):
+        fail("the int8 fp32 model gave non-finite values on the card")
+    if max(h_diff, l_diff) > TOL_INT8_FP32:
+        fail("the int8 fp32 model on the card disagrees with the CPU")
+    return out
+
+
+def quant_eval_slice(seed, model, tokenizer, tmp):
+    """16(f): one caption-eval family through `Evaluator` with
+    ``eval.quant="int8"`` over the flagship bf16 model: the generation
+    model holds int8 tables, its int8 GEMMs run, #1 launches 15 a batch."""
+    import torch
+
+    from m3p_tpu_torch.eval.evaluator import Evaluator
+
+    cfg = model.cfg
+    data = eval_gen_data(seed + 19, tokenizer, cfg.n_words,
+                         b=QUANT_CAPTION_IMAGES, caption_batches=1)
+    ev = Evaluator(model, eval_config(cfg, tmp, quant="int8"))
+    t0 = time.perf_counter()
+    with recorded_launch_shapes(set()) as shapes:
+        scores, counts = counted_quant_call(
+            "caption eval, eval.quant int8",
+            lambda: ev.run_all_evals({"caption_gen": data["caption_gen"]}),
+            None, cfg.n_layers + cfg.refine_layers)
+    secs = time.perf_counter() - t0
+    check_held_shapes("phase 16(f)", shapes)
+    if ev.gen_model is ev.model or counts["gate"]["int8"] == 0 or \
+            counts["int8_matmul_nt_pre"]["int8"] == 0:
+        fail(f"the int8 caption eval ran no int8 GEMM: {counts}")
+    if "caption_bleu" not in scores:
+        fail(f"int8 caption eval: {scores}")
+    del ev
+    torch.cuda.empty_cache()
+    log(f"[quant] caption eval with eval.quant int8: {json.dumps(scores)} "
+        f"in {secs:.2f} s; {json.dumps(counts)}")
+    return {"scores": scores, "s": secs, "counts": counts}
+
+
+def quant_slice(seed, tokenizer):
+    """Phase 16: (a) the native tokenizer, (b) `cli.preprocess`, (c) and
+    (d) `cli.serve --quant int8` over a store against bf16, (e) the int8
+    fp32 model card vs CPU, (f) an int8 caption eval; the temporary
+    directory removed at the end."""
+    import shutil
+
+    import torch
+
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="m3p_quant_")
+    out = {}
+    part_s = {}
+
+    def lap(name):
+        part_s[name] = time.time() - t0 - sum(part_s.values())
+
+    try:
+        out["tokenizer"], nat, py = tokenizer_slice(seed, tmp)
+        lap("tokenizer")
+        out["tokenizer"]["recipe"] = tokenizer_recipe_turns(
+            seed, {"native": nat, "python": py}, tmp)
+        torch.cuda.empty_cache()
+        lap("recipe_in_turns")
+        out["preprocess"] = preprocess_slice(tmp)
+        lap("preprocess")
+        out["serve"], q8, plain = quant_serve_slice(seed, tokenizer, tmp)
+        del q8
+        torch.cuda.empty_cache()
+        lap("serve")
+        out["eval"] = quant_eval_slice(seed, plain.model, tokenizer, tmp)
+        del plain
+        torch.cuda.empty_cache()
+        lap("eval")
+        out["fp32_card_vs_cpu"] = quant_fp32_vs_cpu(seed, tokenizer)
+        lap("fp32_card_vs_cpu")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["part_s"] = part_s
+    out["phase_s"] = time.time() - t0
+    log(f"[quant] phase 16: {out['phase_s']:.1f} s: {json.dumps(part_s)}")
     return out
 
 
@@ -6596,6 +7323,13 @@ def main() -> int:
     ev_runs["datasets_cli"] = datasets["cli"]["launches"]
     ev_runs["datasets_recipe"] = datasets["recipe"]["launches"]
     data_runs = ("datasets_cli", "datasets_recipe")
+    torch.cuda.empty_cache()
+
+    quant = quant_slice(args.seed, full_tokenizer)
+    quant_calls = {**quant["serve"]["calls"],
+                   "eval_int8": quant["eval"]["counts"]}
+    quant_packed = {f"quant_{name}": c["packed_fwd"]
+                    for name, c in quant_calls.items()}
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -6610,7 +7344,8 @@ def main() -> int:
                      + sum(dec_runs[p]["packed_fwd"] for p in dec_packed)
                      + sum(gen_packed.values())
                      + sum(r["packed_fwd"] for r in fl_runs.values())
-                     + sum(r["packed_fwd"] for r in ev_runs.values())),
+                     + sum(r["packed_fwd"] for r in ev_runs.values())
+                     + sum(quant_packed.values())),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
@@ -6622,7 +7357,8 @@ def main() -> int:
                              **{p: r["packed_fwd"]
                                 for p, r in fl_runs.items()},
                              **{p: r["packed_fwd"]
-                                for p, r in ev_runs.items()}},
+                                for p, r in ev_runs.items()},
+                             **quant_packed},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -6918,6 +7654,7 @@ def main() -> int:
     log(f"[eval] {json.dumps(evaluation)} on {card}")
     log(f"[trainer] {json.dumps(trainer)} on {card}")
     log(f"[datasets] {json.dumps(datasets)} on {card}")
+    log(f"[quant] {json.dumps(quant)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

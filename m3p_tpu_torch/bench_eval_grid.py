@@ -19,10 +19,15 @@ bucket, caplen, secs, pairs_per_s, the #1 launches of the timed pass, the
 model FLOPs (`bench.joint_forward_flops` of each pair at its chunk's joint
 width) and the MFU against 989 TFLOP/s, and the card's name and power limit.
 
+``--q8`` scores through the frozen-weight int8 model
+(`model.quantized_inference_model`, its tables captured once; the line
+adds ``q8_capture_secs``).  At the tool's chunks every block GEMM has more
+than `ops.quant.PREQUANT_MAX_M` rows and takes the plain GEMM, as in JAX.
+
 It runs on the card and exits non-zero without one.  ``--device cpu``,
 ``--n_layers`` and ``--n_words`` exist for the tests (a cut model on the
-CPU).  ``--int8`` / ``--q8`` (the JAX tool's int8 modes) are item 15 of
-ROADMAP.md and exit non-zero.
+CPU).  ``--int8`` (the JAX tool's dynamic int8 training GEMMs) is item 15b
+of ROADMAP.md and exits non-zero.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ import torch
 from m3p_tpu_torch.bench import BF16_PEAK_FLOPS, card, joint_forward_flops
 from m3p_tpu_torch.config import ModelConfig
 from m3p_tpu_torch.eval.retrieval import _tasks, retrieval_grid_scores
-from m3p_tpu_torch.model import build_model
+from m3p_tpu_torch.model import (
+    build_model, capture_q8, quantized_inference_model)
 from m3p_tpu_torch.ops.attention import attention_packed
 
 TEXT_WIDTH, REGIONS = 64, 100
@@ -123,9 +129,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--int8", action="store_true")
     p.add_argument("--q8", action="store_true")
     args = p.parse_args(argv)
-    if args.int8 or args.q8:
-        print("bench_eval_grid: --int8 / --q8 (int8 evaluation) is item 15 "
-              "of ROADMAP.md, not ported yet", file=sys.stderr)
+    if args.int8:
+        print("bench_eval_grid: --int8 (the dynamic int8 training GEMMs) is "
+              "item 15b of ROADMAP.md, not ported yet", file=sys.stderr)
         return 2
     sizes = list(args.sizes) + [100, 500, 512][len(args.sizes):]
     n_img, n_cap, chunk = sizes[:3]
@@ -137,6 +143,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"bench_eval_grid: {exc}", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    q8_secs = None
+    if args.q8:
+        model = quantized_inference_model(model)
+        t0 = time.perf_counter()
+        capture_q8(model)
+        if model.text_emb.word.weight.device.type == "cuda":
+            torch.cuda.synchronize()
+        q8_secs = time.perf_counter() - t0
     pool = grid_pool(n_img, n_cap, lo, hi, args.n_words)
     out = run(model, pool, chunk, args.bucket, args.once)
     scores = out.pop("scores")
@@ -149,6 +163,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     on_cuda = model.text_emb.word.weight.device.type == "cuda"
     print(json.dumps({
         "pairs": pairs, "chunk": chunk, "bucket": args.bucket,
+        "q8": args.q8, "q8_capture_secs": q8_secs,
         "caplen": f"{lo}:{hi}", "secs": out["secs"],
         "pairs_per_s": pairs / out["secs"],
         "first_pass_secs": out.get("first_pass_secs"),

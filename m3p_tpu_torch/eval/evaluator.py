@@ -17,6 +17,14 @@ The model holds its weights, so no method takes parameters.  Batches
 arrive as dicts of numpy arrays and move to the model's device; every
 method runs under ``torch.inference_mode()``, and a family's numbers come
 to the host once, after its last batch.
+
+With ``cfg.eval.quant == "int8"`` the generation families encode and
+decode through a frozen-weight int8 copy of the model that shares its
+parameters (`model.quantized_inference_model`); its tables are captured
+again whenever a parameter changed since the last capture (each
+parameter's in-place version counter), so evals between training epochs
+see the current weights.  The loss and grid families stay exact
+(`m3p_tpu/eval/evaluator.py:44-65`).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from m3p_tpu_torch.eval.bleu import corpus_bleu
 from m3p_tpu_torch.eval.caption_metrics import meteor_score, rouge_l_score
 from m3p_tpu_torch.eval.cider import cider_score
 from m3p_tpu_torch.eval.retrieval import recall_at_k, retrieval_grid_scores
+from m3p_tpu_torch.model import capture_q8, quantized_inference_model
 from m3p_tpu_torch.model.generation import beam_search, greedy_generate
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel, lengths_to_mask
@@ -72,11 +81,14 @@ def _pct(values: List[float]) -> float:
 class Evaluator:
     def __init__(self, model: M3PModel, cfg,
                  mask_cfg: Optional[MaskingConfig] = None):
-        if getattr(getattr(cfg, "eval", None), "quant", "none") == "int8":
-            raise NotImplementedError(
-                "eval.quant='int8' (frozen-weight int8 generation evals) is "
-                "item 15 of ROADMAP.md, not ported yet")
+        quant = getattr(getattr(cfg, "eval", None), "quant", "none")
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown eval quant mode {quant!r}; known: "
+                             f"'none', 'int8'")
         self.model = model
+        self.gen_model = (quantized_inference_model(model) if quant == "int8"
+                          else model)
+        self._q8_versions: Optional[tuple] = None
         self.cfg = cfg
         self.device = next(model.parameters()).device
         self.mask_cfg = mask_cfg or MaskingConfig(
@@ -101,19 +113,32 @@ class Evaluator:
     def _refine_image(self) -> bool:
         return getattr(self.cfg, "refine_image", True)
 
-    def _decode(self, src_enc: torch.Tensor, src_mask: torch.Tensor,
-                beam_size: int, max_len: int, tgt_lang_id: Optional[int]):
+    def _generation_model(self) -> M3PModel:
+        """The model the generation families run: the int8 copy under
+        ``eval.quant="int8"``, its tables captured again if a parameter
+        changed since the last capture."""
+        if self.gen_model is self.model:
+            return self.model
+        versions = tuple(p._version for p in self.model.parameters())
+        if versions != self._q8_versions:
+            capture_q8(self.gen_model)
+            self._q8_versions = versions
+        return self.gen_model
+
+    def _decode(self, model: M3PModel, src_enc: torch.Tensor,
+                src_mask: torch.Tensor, beam_size: int, max_len: int,
+                tgt_lang_id: Optional[int]):
         """(tokens, lengths) on the host: beam search above beam 1, greedy
         at 1, with the `EvalConfig` settings."""
         ev = self.cfg.eval
         if beam_size > 1:
             toks, lens = beam_search(
-                self.model, src_enc, src_mask, beam_size, max_len,
+                model, src_enc, src_mask, beam_size, max_len,
                 tgt_lang_id=tgt_lang_id, length_penalty=ev.length_penalty,
                 early_stopping=ev.early_stopping,
                 fast_topk=bool(getattr(ev, "fast_beam", False)))
         else:
-            toks, lens = greedy_generate(self.model, src_enc, src_mask,
+            toks, lens = greedy_generate(model, src_enc, src_mask,
                                          max_len, tgt_lang_id=tgt_lang_id)
         return toks.cpu().numpy(), lens.cpu().numpy()
 
@@ -242,6 +267,7 @@ class Evaluator:
         beam_size = beam_size or self.cfg.eval.beam_size
         max_len = max_len or self.cfg.eval.max_gen_len
         hyps: List[str] = []
+        model = self._generation_model()
         for b in batches:
             b = self._batch(b)
             feats = b["feats"]
@@ -249,10 +275,10 @@ class Evaluator:
             # the reference eval honors params.refine_image but never
             # applies refine_encoder (`xevaluator.py:845-1044` — a
             # train/eval asymmetry mirrored deliberately)
-            src_enc = self.model.encode_image(feats, b["locs"], img_mask,
-                                              self._refine_image())
-            toks, lens = self._decode(src_enc, img_mask, beam_size, max_len,
-                                      tgt_lang_id)
+            src_enc = model.encode_image(feats, b["locs"], img_mask,
+                                         self._refine_image())
+            toks, lens = self._decode(model, src_enc, img_mask, beam_size,
+                                      max_len, tgt_lang_id)
             for i in range(toks.shape[0]):
                 hyps.append(tokenizer.decode(toks[i, 1:lens[i]]))
         return hyps
@@ -267,6 +293,7 @@ class Evaluator:
         beam_size = beam_size or self.cfg.eval.beam_size
         max_len = max_len or self.cfg.eval.max_gen_len
         hyps: List[str] = []
+        model = self._generation_model()
         for b in batches:
             b = self._batch(b)
             src = b["src_tokens"]
@@ -276,15 +303,15 @@ class Evaluator:
                 # encoding (`mt_ic` eval, `xevaluator.py:903-1117`)
                 feats = b["feats"]
                 img_mask = lengths_to_mask(b["img_len"], feats.shape[1])
-                src_enc = self.model.encode_joint(
+                src_enc = model.encode_joint(
                     src, src_mask, feats, b["locs"], img_mask,
                     self._refine_image())
                 src_mask = torch.cat([img_mask, src_mask], dim=1)
             else:
-                src_enc = self.model.encode_text(src, src_mask,
-                                                 b.get("src_langs"))
-            toks, lens = self._decode(src_enc, src_mask, beam_size, max_len,
-                                      tgt_lang_id)
+                src_enc = model.encode_text(src, src_mask,
+                                            b.get("src_langs"))
+            toks, lens = self._decode(model, src_enc, src_mask, beam_size,
+                                      max_len, tgt_lang_id)
             for i in range(toks.shape[0]):
                 hyps.append(tokenizer.decode(toks[i, 1:lens[i]]))
         return hyps

@@ -1,9 +1,12 @@
-"""Model construction (counterpart of `m3p_tpu/model/__init__.py`)."""
+"""Model construction (counterpart of `m3p_tpu/model/__init__.py`), and the
+frozen-weight int8 tables of inference (`capture_q8`,
+`quantized_inference_model`)."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Union
+from typing import Dict, Union
 
 import torch
 from torch import nn
@@ -13,9 +16,12 @@ from m3p_tpu_torch.model.embeddings import (
     Embedding, SinusoidalPositions, sinusoidal_table)
 from m3p_tpu_torch.model.heads import PredLayer
 from m3p_tpu_torch.model.layers import Dense, LayerNorm
-from m3p_tpu_torch.model.transformer import M3PModel, lengths_to_mask
+from m3p_tpu_torch.model.transformer import (
+    M3PModel, lengths_to_mask, torch_dtype)
+from m3p_tpu_torch.ops.quant import Q8Table
 
-__all__ = ["M3PModel", "build_model", "lengths_to_mask", "resolve_device"]
+__all__ = ["M3PModel", "build_model", "capture_q8", "lengths_to_mask",
+           "q8_collection", "quantized_inference_model", "resolve_device"]
 
 # flax lecun_normal: a normal truncated at +-2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -73,3 +79,76 @@ def build_model(cfg: ModelConfig, seed: int = 0,
     generator.manual_seed(seed)
     init_parameters(model, generator)
     return model.eval()
+
+
+@torch.no_grad()
+def capture_q8(model: M3PModel) -> int:
+    """Quantize the weights of every GEMM the ``int8_infer`` modes route
+    through int8 into the modules' tables, from the weights as they are
+    now; returns the tables' bytes.  Under ``ffn_quant="int8_infer"`` every
+    block's fused self-attention Q/K/V, its self- and cross-attention
+    output projections and both FFN GEMMs; under ``head_quant=
+    "int8_infer"`` the tied vocab table.  The refiner stays unquantized.
+    These are the tables the JAX `capture_q8` pass writes into its "q8"
+    collection (`q8_collection` names them so); the port quantizes the
+    weights directly instead of running a dummy pass.  Call it again after
+    the weights change."""
+    cfg = model.cfg
+    dt = torch_dtype(cfg.dtype)
+    if cfg.ffn_quant == "int8_infer":
+        for block in model.blocks:
+            block.attn.capture_q8(dt, self_attention=True)
+            block.encoder_attn.capture_q8(dt, self_attention=False)
+            block.ffn.capture_q8(dt)
+    if cfg.head_quant == "int8_infer":
+        model.pred_layer.capture_q8(
+            model.text_emb.word.weight if cfg.share_inout_emb
+            else model.pred_layer.weight)
+    return sum(t.wq.nbytes + t.sw.nbytes for t in model.modules()
+               if isinstance(t, Q8Table))
+
+
+def quantized_inference_model(model: M3PModel) -> M3PModel:
+    """The ``int8_infer`` variant of ``model`` (`m3p_tpu/model/__init__.py:
+    89-100`): the same configuration with ``ffn_quant`` and ``head_quant``
+    at "int8_infer", sharing ``model``'s parameters and buffers (so it
+    follows every update of them) and holding its own int8 tables, none
+    until `capture_q8`."""
+    cfg = dataclasses.replace(model.cfg, ffn_quant="int8_infer",
+                              head_quant="int8_infer")
+    with torch.device("meta"):
+        quant = M3PModel(cfg)
+    source = dict(model.named_modules())
+    for name, module in quant.named_modules():
+        module._parameters.update(source[name]._parameters)
+        module._buffers.update(source[name]._buffers)
+    return quant.train(model.training)
+
+
+def q8_collection(model: M3PModel) -> Dict[str, torch.Tensor]:
+    """The model's int8 tables under the names and in the layouts of the
+    JAX "q8" collection, flattened with "/": ``block_<i>/attn/qkv_wq``
+    (D, 3D) and ``qkv_sw`` (1, 3D), ``block_<i>/attn/out_wq``,
+    ``block_<i>/encoder_attn/out_wq``, ``block_<i>/ffn/lin1/wq`` and ``sw``,
+    ``pred_layer/emb_wq`` (V, D) and ``emb_sw`` (V, 1)."""
+    out: Dict[str, torch.Tensor] = {}
+    for i, block in enumerate(model.blocks):
+        for attn_name in ("attn", "encoder_attn"):
+            attn = getattr(block, attn_name)
+            for kind in ("qkv", "out"):
+                table = getattr(attn, f"q8_{kind}")
+                if table is not None:
+                    wq, sw = table.jax_layout()
+                    out[f"block_{i}/{attn_name}/{kind}_wq"] = wq
+                    out[f"block_{i}/{attn_name}/{kind}_sw"] = sw
+        for lin in ("lin1", "lin2"):
+            table = getattr(block.ffn, f"q8_{lin}")
+            if table is not None:
+                wq, sw = table.jax_layout()
+                out[f"block_{i}/ffn/{lin}/wq"] = wq
+                out[f"block_{i}/ffn/{lin}/sw"] = sw
+    table = model.pred_layer.q8_emb
+    if table is not None:
+        out["pred_layer/emb_wq"] = table.wq[:table.n]
+        out["pred_layer/emb_sw"] = table.sw[:, :table.n].t()
+    return out

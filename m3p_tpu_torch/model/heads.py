@@ -15,11 +15,18 @@ from torch import nn
 
 from m3p_tpu_torch.model.layers import Dense, LayerNorm
 from m3p_tpu_torch.ops.activations import gelu_erf
+from m3p_tpu_torch.ops.quant import Q8Table, int8_matmul_nt_pre
 
 
 class PredLayer(nn.Module):
     """Vocab logits through the tied word table (or an own ``weight`` when
-    untied) plus a per-word bias."""
+    untied) plus a per-word bias.
+
+    With an int8 table ``q8_emb`` (frozen-weight int8 inference,
+    `m3p_tpu/model/heads.py:94-126`) the GEMM runs through
+    `int8_matmul_nt_pre` at every row count; the table's rows are padded
+    to a multiple of 8 (the CUDA GEMM's rule for N) and the logits cut
+    back to ``n_words``."""
 
     def __init__(self, n_words: int, dim: int, tied: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -28,10 +35,22 @@ class PredLayer(nn.Module):
         if not tied:
             self.weight = nn.Parameter(torch.empty(n_words, dim))
         self.compute_dtype = dtype
+        self.q8_emb: Optional[Q8Table] = None
+
+    def capture_q8(self, table: torch.Tensor) -> None:
+        """Quantize the (n_words, D) table (the tied word embedding or the
+        own weight) into ``q8_emb``."""
+        n = table.shape[0]
+        self.q8_emb = Q8Table(table, self.compute_dtype, -(-n // 8) * 8)
 
     def forward(self, x: torch.Tensor,
                 embedding: Optional[torch.Tensor] = None) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.q8_emb is not None:
+            q8 = self.q8_emb
+            x2d = x.reshape(-1, x.shape[-1]).to(dt)
+            logits = int8_matmul_nt_pre(x2d, q8.wq, q8.sw.t())[:, :q8.n]
+            return (logits + self.bias.to(dt)).reshape(*x.shape[:-1], q8.n)
         table = self.weight if embedding is None else embedding
         return F.linear(x.to(dt), table.to(dt), self.bias.to(dt))
 

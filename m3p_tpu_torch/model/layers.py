@@ -11,6 +11,11 @@ JAX) and, when it is False, the `Generators` that draw its randomness.
 Decoding: `EncoderBlock` takes a `LayerCache` and `MultiHeadAttention` a
 `KVCache`, the head-major keys and values of incremental decoding
 (`m3p_tpu/model/layers.py:170-336`, `:603-617`).
+
+Frozen-weight int8 inference (``int8_infer``): `MultiHeadAttention` and
+`TransformerFFN` hold optional `ops.quant.Q8Table`s (``q8_qkv``,
+``q8_out``, ``q8_lin1``, ``q8_lin2``) that `model.capture_q8` fills; a
+module without tables computes its plain GEMMs.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from torch import nn
 from m3p_tpu_torch.ops.activations import gelu_erf
 from m3p_tpu_torch.ops.attention import attention, attention_bhsd
 from m3p_tpu_torch.ops.dropout import fused_dropout_add
+from m3p_tpu_torch.ops.quant import (
+    GATE_COUNTS, PREQUANT_MAX_M, Q8Table, gated_linear)
 
 LN_EPS = 1e-12
 
@@ -165,7 +172,13 @@ class MultiHeadAttention(nn.Module):
     source keys and values.  When those have fewer rows than the queries
     (beam search over an unreplicated source), the beams of a row fold
     into its query length, so each row's keys and values are read once,
-    not once per beam."""
+    not once per beam.
+
+    With int8 tables (`m3p_tpu/model/layers.py:109-196`): self-attention
+    without a cache at B * S <= `PREQUANT_MAX_M` rows projects Q, K and V as
+    one int8 GEMM over ``q8_qkv`` (the (3D, D) concatenation of the three
+    weights); the output projection takes ``q8_out`` at up to
+    `PREQUANT_MAX_M` rows, decode steps and cross-attention included."""
 
     def __init__(self, n_heads: int, dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
@@ -176,6 +189,8 @@ class MultiHeadAttention(nn.Module):
         self.k_lin = Dense(dim, dim, dtype)
         self.v_lin = Dense(dim, dim, dtype)
         self.out_lin = Dense(dim, dim, dtype)
+        self.q8_qkv: Optional[Q8Table] = None
+        self.q8_out: Optional[Q8Table] = None
 
     def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor],
                 causal: bool = False, deterministic: bool = True,
@@ -192,11 +207,36 @@ class MultiHeadAttention(nn.Module):
             return self._cached(x, kv_mask, kv is not None, cache, pos)
         rate, seed = attention_dropout_args(self.dropout, deterministic,
                                             generator)
-        src = x if kv is None else kv
-        ctx = attention(self.q_lin(x), self.k_lin(src), self.v_lin(src),
-                        kv_mask, self.n_heads, causal=causal,
+        q8 = self.q8_qkv if kv is None else None
+        if q8 is not None and x.shape[0] * x.shape[1] <= PREQUANT_MAX_M:
+            GATE_COUNTS["int8"] += 1
+            bias = torch.cat([self.q_lin.bias, self.k_lin.bias,
+                              self.v_lin.bias]).to(q8.dtype)
+            q, k, v = (q8(x) + bias).chunk(3, dim=-1)
+        else:
+            if q8 is not None:
+                GATE_COUNTS["plain"] += 1
+            src = x if kv is None else kv
+            q, k, v = self.q_lin(x), self.k_lin(src), self.v_lin(src)
+        ctx = attention(q, k, v, kv_mask, self.n_heads, causal=causal,
                         dropout_rate=rate, dropout_seed=seed)
-        return self.out_lin(ctx)
+        return self._project_out(ctx)
+
+    def _project_out(self, ctx: torch.Tensor) -> torch.Tensor:
+        """The output projection; int8 over ``q8_out`` at up to
+        `PREQUANT_MAX_M` rows."""
+        return gated_linear(ctx, self.q8_out, self.out_lin,
+                            self.out_lin.bias)
+
+    def capture_q8(self, dtype: torch.dtype, self_attention: bool) -> None:
+        """Quantize the output projection's weight (and with
+        ``self_attention`` the concatenated Q/K/V weights) into int8
+        tables."""
+        if self_attention:
+            self.q8_qkv = Q8Table(torch.cat([
+                self.q_lin.weight, self.k_lin.weight, self.v_lin.weight]),
+                dtype)
+        self.q8_out = Q8Table(self.out_lin.weight, dtype)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, H*Dh) -> (B, H, S, Dh), a view."""
@@ -246,13 +286,16 @@ class MultiHeadAttention(nn.Module):
             bkv, h, _, dh = ctx.shape
             ctx = (ctx.reshape(bkv, h, fold, sq, dh).transpose(1, 2)
                    .reshape(b, h, sq, dh))
-        return self.out_lin(self._merge(ctx))
+        return self._project_out(self._merge(ctx))
 
 
 class TransformerFFN(nn.Module):
     """Two-layer MLP with erf-GELU (or ReLU), dropout after the output
     projection unless ``skip_dropout`` (the fused residual path applies it
-    with the residual add)."""
+    with the residual add).  With int8 tables ``q8_lin1`` / ``q8_lin2``
+    each GEMM takes int8 at up to `PREQUANT_MAX_M` rows, the plain GEMM
+    above (the JAX ``QuantDense`` prequant branch,
+    `m3p_tpu/model/layers.py:370-395`)."""
 
     def __init__(self, dim: int, hidden_dim: int, gelu_activation: bool = True,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
@@ -261,13 +304,20 @@ class TransformerFFN(nn.Module):
         self.lin2 = Dense(hidden_dim, dim, dtype)
         self.gelu_activation = gelu_activation
         self.dropout = dropout
+        self.q8_lin1: Optional[Q8Table] = None
+        self.q8_lin2: Optional[Q8Table] = None
+
+    def capture_q8(self, dtype: torch.dtype) -> None:
+        """Quantize both weights into int8 tables."""
+        self.q8_lin1 = Q8Table(self.lin1.weight, dtype)
+        self.q8_lin2 = Q8Table(self.lin2.weight, dtype)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[Generators] = None,
                 skip_dropout: bool = False) -> torch.Tensor:
-        h = self.lin1(x)
+        h = gated_linear(x, self.q8_lin1, self.lin1, self.lin1.bias)
         h = gelu_erf(h) if self.gelu_activation else F.relu(h)
-        h = self.lin2(h)
+        h = gated_linear(h, self.q8_lin2, self.lin2, self.lin2.bias)
         if skip_dropout:
             return h
         return dropout(h, self.dropout, deterministic, generator)

@@ -12,13 +12,19 @@
   (`model/generation.py`: beam search by default, greedy at beam 1) over
   `encode_image` (the refiner when ``refine_image``) or `encode_text`, in
   the same batch buckets as the JAX engine.
-
-``image_id`` payloads wait for the h5 feature store.
+* ``image_id`` payloads are read from an attached feature store
+  (`attach_store`: an h5 `data.features.RegionFeatureStore`, or any object
+  with its ``get``, ``index_of`` and ``image_ids``, set as ``engine.store``);
+  `load_gallery_from_store` stages its first images as the gallery.
+* A model built with ``int8_infer`` (``from_checkpoint(quant="int8")``)
+  has its frozen-weight int8 tables captured once at construction
+  (`model.capture_q8`); the same checkpoint serves either way.
 """
 
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import logging
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -28,7 +34,7 @@ import torch
 
 from m3p_tpu_torch.config import PAD_IDX
 from m3p_tpu_torch.data.features import l2_normalize, norm_boxes
-from m3p_tpu_torch.model import lengths_to_mask, resolve_device
+from m3p_tpu_torch.model import capture_q8, lengths_to_mask, resolve_device
 from m3p_tpu_torch.model.generation import beam_search, greedy_generate
 from m3p_tpu_torch.tokenization.tokenizer import batch_sentences
 
@@ -71,37 +77,69 @@ class InferenceEngine:
         self.max_gen_len = int(max_gen_len)
         self.length_penalty = float(length_penalty)
         self.lang2id = dict(lang2id or {})
+        self.store = None   # a RegionFeatureStore for image_id payloads
         self._gallery: Optional[Dict[str, Any]] = None
         self._lock = threading.Lock()
+        self.q8_bytes = 0
+        if "int8_infer" in (model.cfg.ffn_quant, model.cfg.head_quant):
+            self.q8_bytes = capture_q8(self.model)
+            logger.info("serve: frozen-weight int8 tables captured (%d "
+                        "bytes)", self.q8_bytes)
 
     @classmethod
     def from_checkpoint(cls, path: str, model_cfg, tokenizer=None, *,
+                        quant: str = "none",
                         device: Union[str, torch.device] = "cuda",
                         **kw) -> "InferenceEngine":
         """Build the model on ``device`` and load a reference ``.pth`` or a
         ``.pt`` saved by the port (`checkpoint.load_weights`); keys a
-        ``.pth`` lacks keep the seed-0 initial values."""
+        ``.pth`` lacks keep the seed-0 initial values.  ``quant="int8"``
+        serves the same checkpoint through the frozen-weight int8 path
+        (the model in ``int8_infer`` mode, its tables captured at
+        construction)."""
         from m3p_tpu_torch.checkpoint import load_weights
         from m3p_tpu_torch.model import build_model
 
+        if quant == "int8":
+            model_cfg = dataclasses.replace(
+                model_cfg, ffn_quant="int8_infer", head_quant="int8_infer")
+        elif quant != "none":
+            raise ValueError(f"unknown quant mode {quant!r}; known: "
+                             f"'none', 'int8'")
         model = build_model(model_cfg, 0, device)
         load_weights(model, path)
         return cls(model, tokenizer, device=device,
                    max_regions=model_cfg.max_region_num, **kw)
+
+    def attach_store(self, path: str) -> None:
+        """Serve image payloads by ``image_id`` out of a reference-layout h5
+        shard (`data/features.py`)."""
+        from m3p_tpu_torch.data.features import RegionFeatureStore
+
+        self.store = RegionFeatureStore(path, self.max_regions)
 
     # -- payload handling ----------------------------------------------------
 
     def resolve_image(self, obj: Dict[str, Any]
                       ) -> Tuple[np.ndarray, np.ndarray, int]:
         """-> (feats (R, 2048) L2-normalized, locs (R, 5), num_boxes) from
-        inline {"feats", "locs"} or {"features", "boxes", "wh": [h, w]}."""
+        {"image_id": ...} (an attached store), inline {"feats", "locs"} or
+        {"features", "boxes", "wh": [h, w]}."""
         if "image_id" in obj:
-            raise ValueError("image_id payloads need the h5 feature store, "
-                             "which the PyTorch port does not have yet; "
-                             "send inline feats/locs")
+            if self.store is None:
+                raise ValueError("image_id payloads need an attached feature "
+                                 "store (attach_store)")
+            try:
+                index = self.store.index_of(obj["image_id"])
+            except KeyError:
+                raise ValueError(f"unknown image_id {obj['image_id']!r}"
+                                 ) from None
+            got = self.store.get(index)
+            return got["feats"], got["locs"], int(got["num_boxes"])
         raw = obj.get("feats", obj.get("features"))
         if raw is None:
-            raise ValueError("image payload needs a feats/features array")
+            raise ValueError("image payload needs image_id or a "
+                             "feats/features array")
         feats = np.asarray(raw, np.float32)
         if feats.ndim != 2 or feats.shape[1] != self.feat_dim:
             raise ValueError(f"feats must be 2-d (r, {self.feat_dim}), "
@@ -210,6 +248,15 @@ class InferenceEngine:
         with self._lock:
             self._gallery = gallery
         return len(resolved)
+
+    def load_gallery_from_store(self, limit: Optional[int] = None) -> int:
+        """Stage the attached store's first ``limit`` images (all without a
+        limit) as the gallery, keyed by their image ids."""
+        if self.store is None:
+            raise ValueError("no feature store attached")
+        n = len(self.store) if limit is None else min(limit, len(self.store))
+        ids = [str(i) for i in self.store.image_ids[:n]]
+        return self.load_gallery([{"image_id": i} for i in ids], ids)
 
     def retrieve(self, text: str, top_k: int = 10) -> List[Dict[str, Any]]:
         """Rank the loaded gallery for one query; -> [{id, score}] best-first.

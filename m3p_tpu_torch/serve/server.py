@@ -14,7 +14,8 @@ Endpoints (POST bodies and responses are JSON):
                       -> {"translations": [str, ...]}
 
 An image payload is inline {"feats": [[...]], "locs": [[...]]} or
-{"features": ..., "boxes": ..., "wh": [h, w]} arrays.
+{"features": ..., "boxes": ..., "wh": [h, w]} arrays, or {"image_id": ...}
+when the engine has a feature store.
 
 Single-pair /v1/score and single-image default-config /v1/caption requests
 are coalesced across concurrent clients by a `MicroBatcher`; multi-item,

@@ -1,4 +1,4 @@
-"""SentencePiece ``.spm``/``.model`` protobuf reader (a copy of the reader in
+"""SentencePiece ``.spm``/``.model`` protobuf reader and writer (a copy of
 `m3p_tpu/tokenization/spm_reader.py`; the port imports nothing of the JAX
 package).
 
@@ -133,3 +133,40 @@ def looks_like_spm(path: str) -> bool:
     except UnicodeDecodeError:
         return True
     return b"\t" not in head.split(b"\n", 1)[0]
+
+
+# ---------------------------------------------------------------------------
+# writer (test fixtures; lets the trainer export .spm files)
+# ---------------------------------------------------------------------------
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def serialize_spm(pieces: List[str], scores: List[float],
+                  types: List[int]) -> bytes:
+    """``ModelProto`` bytes holding only the pieces (piece, score, type)."""
+    out = bytearray()
+    for p, s, t in zip(pieces, scores, types):
+        body = bytearray()
+        pb = p.encode("utf-8")
+        body += b"\x0a" + _varint(len(pb)) + pb          # field 1: piece
+        body += b"\x15" + struct.pack("<f", s)            # field 2: score
+        body += b"\x18" + _varint(t)                      # field 3: type
+        out += b"\x0a" + _varint(len(body)) + bytes(body)  # ModelProto.pieces
+    return bytes(out)
+
+
+def write_spm(path: str, pieces: List[str], scores: List[float],
+              types: List[int]) -> None:
+    with open(path, "wb") as f:
+        f.write(serialize_spm(pieces, scores, types))

@@ -48,7 +48,7 @@ from m3p_tpu_torch.eval import retrieval as R
 from m3p_tpu_torch.eval.bleu import corpus_bleu as tbleu
 from m3p_tpu_torch.eval.cider import cider_score as tcider
 from m3p_tpu_torch.eval.evaluator import EVAL_SEED, Evaluator
-from m3p_tpu_torch.model import build_model
+from m3p_tpu_torch.model import build_model, q8_collection
 from m3p_tpu_torch.train import steps as tsteps
 from test_eval import GOLDEN_HYPS, GOLDEN_REFS
 
@@ -528,10 +528,74 @@ def test_coco_method_choice_and_fallback_match_jax(small, tmp_path,
 
 
 def test_int8_eval_is_refused(small):
+    """Only the exact and the frozen-weight int8 modes exist: another
+    ``eval.quant`` is refused; "int8" builds the int8 copy of the model,
+    sharing its parameters."""
     cfg = small["tcfg"]
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="int4"):
         Evaluator(small["model"], cfg.replace(
-            eval=dataclasses.replace(cfg.eval, quant="int8")))
+            eval=dataclasses.replace(cfg.eval, quant="int4")))
+    ev = Evaluator(small["model"], cfg.replace(
+        eval=dataclasses.replace(cfg.eval, quant="int8")))
+    assert ev.gen_model is not ev.model
+    assert ev.gen_model.cfg.ffn_quant == "int8_infer"
+    assert all(a is b for a, b in zip(ev.gen_model.parameters(),
+                                      small["model"].parameters()))
+    assert small["tev"].gen_model is small["tev"].model
+
+
+@pytest.mark.parametrize("kind,beam", [("caption", 3), ("caption", 1),
+                                       ("mt", 3), ("mmt", 3)])
+def test_int8_generation_evals_equal_jax(small, tmp_path, kind, beam):
+    """``eval.quant="int8"``: the generation families encode and decode
+    through the int8 model in both frameworks, the same strings."""
+    jev, tev, _, _ = _evaluators(small, tmp_path, quant="int8")
+    batches = _gen_batches(kind, small["tcfg"].model.n_words)
+    if kind == "caption":
+        want = jev.generate_captions(small["params"], batches,
+                                     small["jtok"], 1, beam)
+        got = tev.generate_captions(batches, small["ttok"], 1, beam)
+    else:
+        want = jev.generate_translations(small["params"], batches,
+                                         small["jtok"], 1, beam)
+        got = tev.generate_translations(batches, small["ttok"], 1, beam)
+    assert got == want and len(got) == 5
+
+
+def test_int8_eval_recaptures_after_an_optimizer_step(small, tmp_path):
+    """The int8 tables follow the weights: a training step between two
+    evals (in-place updates, so no parameter is a new object) makes the
+    second eval capture again, and it decodes as a fresh evaluator over
+    the updated weights does; an eval with no change in between keeps the
+    tables."""
+    cfg = small["tcfg"]
+    model = build_model(cfg.model, 0, "cpu")
+    model.load_state_dict(small["model"].state_dict())
+    qcfg = cfg.replace(eval=dataclasses.replace(cfg.eval, quant="int8"))
+    ev = Evaluator(model, qcfg)
+    batches = _gen_batches("caption", cfg.model.n_words)
+    ev.generate_captions(batches, small["ttok"], 1, 3)
+    table = ev.gen_model.blocks[0].ffn.q8_lin1
+    ev.generate_captions(batches, small["ttok"], 1, 3)
+    assert ev.gen_model.blocks[0].ffn.q8_lin1 is table
+    before = {k: v.clone() for k, v in q8_collection(ev.gen_model).items()}
+
+    batch = ev._batch(_family_data("caption", cfg.model.n_words,
+                                   cfg.model.mask_index)[0])
+    loss, _ = tsteps.caption_loss(model, batch, ev._generators(),
+                                  deterministic=True)
+    loss.backward()
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.grad is not None:
+                p.sub_(0.5 * p.grad / (p.grad.abs().max() + 1e-12))
+    got = ev.generate_captions(batches, small["ttok"], 1, 3)
+    after = q8_collection(ev.gen_model)
+    assert any(not torch.equal(before[k], after[k]) for k in before)
+    fresh = Evaluator(model, qcfg)
+    assert got == fresh.generate_captions(batches, small["ttok"], 1, 3)
+    for k, v in q8_collection(fresh.gen_model).items():
+        assert torch.equal(v, after[k]), k
 
 
 # ---------------------------------------------------------------------------
@@ -552,8 +616,21 @@ def test_bench_eval_grid_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag", ["--int8", "--q8"])
 def test_bench_eval_grid_refuses_int8(flag, capsys):
-    assert bench_eval_grid.main([flag, "--device", "cpu"]) != 0
-    assert "item 15" in capsys.readouterr().err
+    """The dynamic int8 GEMMs (``--int8``) are item 15b: refused, also
+    beside ``--q8``."""
+    argv = ["--int8", "--device", "cpu"] + ([flag] if flag != "--int8"
+                                             else [])
+    assert bench_eval_grid.main(argv) != 0
+    assert "item 15b" in capsys.readouterr().err
+
+
+def test_bench_eval_grid_q8_on_the_cpu(capsys):
+    rc = bench_eval_grid.main(["2", "5", "4", "--device", "cpu",
+                               "--n_layers", "1", "--n_words", "300",
+                               "--q8"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["q8"] and out["q8_capture_secs"] > 0 and out["pairs"] == 10
 
 
 def test_bench_eval_grid_pool_is_the_tools():

@@ -6,8 +6,9 @@ single-tile attention forward and backward (both designs too), the mask
 identity of each forward/backward pair (V = identity), the fused residual
 dropout forward and backward, bit for bit, with its mask identity (x = 1,
 residual = 0), its "wide" and "narrow" designs bit for bit with each
-other, and the fused FFN + LayerNorm in its "cluster" and "tile32"
-designs.  Without a card: a failing launch of each new kernel is shown to
+other, the fused FFN + LayerNorm in its "cluster" and "tile32"
+designs, and the frozen-weight int8 GEMMs (cuBLASLt's ``torch._int_mm``)
+bit for bit with the CPU.  Without a card: a failing launch of each new kernel is shown to
 raise (a launch stubbed to return a CUDA error), and the packed and
 head-major forward and backward, the fused FFN and the fused dropout
 follow their design rule, count launches by design and refuse a forced
@@ -35,6 +36,7 @@ from m3p_tpu_torch.ops import _build
 from m3p_tpu_torch.ops import attention as attention_ops
 from m3p_tpu_torch.ops import dropout as dropout_ops
 from m3p_tpu_torch.ops import fused_ffn as fused_ffn_ops
+from m3p_tpu_torch.ops import quant as quant_ops
 from m3p_tpu_torch.ops.attention import (
     attention_flash, attention_flash_bwd_reference, attention_flash_reference,
     attention_packed, attention_packed_bwd_reference,
@@ -1779,3 +1781,75 @@ def test_forced_narrow_dropout_on_aligned_tensors_launches_it(monkeypatch):
     for forced in (None, "narrow", "scalar"):
         dropout_ops._launch(x, res, SEED, RATE, forced)
     assert [c[1] for c in calls] == [2, 1, 0]
+
+
+# ---------------------------------------------------------------------------
+# the frozen-weight int8 GEMMs (ops/quant.py): cuBLASLt's torch._int_mm on
+# the card against the same call on the CPU, bit for bit (integer
+# accumulation; the quantization and the scaling are elementwise IEEE fp32)
+# ---------------------------------------------------------------------------
+
+INT8_ROWS = (1, 5, 17, 2048, 2049)
+# the flagship's tied vocab table, padded to a multiple of 8 rows
+HEAD_WORDS, HEAD_DIM = 250002, 768
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_head_table():
+    gen = torch.Generator().manual_seed(7)
+    weight = torch.randn(HEAD_WORDS, HEAD_DIM, generator=gen) * 0.05
+    return quant_ops.Q8Table(weight, torch.bfloat16, -(-HEAD_WORDS // 8) * 8)
+
+
+def _int8_input(m, k, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(m, k, generator=gen) * 3).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", INT8_ROWS)
+@pytest.mark.parametrize("n,k", [(3072, 768), (768, 3072), (2304, 768)])
+def test_int8_gemm_on_the_card_equals_the_cpu(cuda_device, m, n, k, dtype):
+    """`int8_matmul_pre` through a `Q8Table` (the FFN's and the fused
+    QKV's shapes) at 1-2049 rows: the card's output equals the CPU's bit
+    for bit; fewer than 17 rows take the padded route."""
+    weight = _int8_input(n, k, torch.float32, 1) * 0.05
+    table = quant_ops.Q8Table(weight, dtype)
+    x = _int8_input(m, k, dtype, 2)
+    want = table(x)
+    before = dict(quant_ops.int8_matmul_pre.calls_by_route)
+    got = table.to(cuda_device)(x.to(cuda_device))
+    torch.cuda.synchronize()
+    route = "int8_row_pad" if m < quant_ops.CUDA_MIN_ROWS else "int8"
+    assert quant_ops.int8_matmul_pre.calls_by_route[route] == before[route] + 1
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", INT8_ROWS)
+def test_int8_vocab_head_on_the_card_equals_the_cpu(cuda_device, m):
+    """`int8_matmul_nt_pre` over the (250,008, 768) padded head table in
+    bf16: card and CPU bit for bit."""
+    table = _int8_head_table()
+    x = _int8_input(m, HEAD_DIM, torch.bfloat16, 3)
+    want = quant_ops.int8_matmul_nt_pre(x, table.wq, table.sw.t())
+    got = quant_ops.int8_matmul_nt_pre(x.to(cuda_device),
+                                       table.wq.to(cuda_device),
+                                       table.sw.t().to(cuda_device))
+    torch.cuda.synchronize()
+    assert got.shape == (m, table.wq.shape[0])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_int8_gemm_refuses_k_or_n_off_the_rule_on_the_card(cuda_device):
+    """The CUDA GEMM takes K and N that are multiples of 8: another shape
+    raises and never falls back to a float GEMM."""
+    x = torch.randn(32, 20, device=cuda_device)
+    table = quant_ops.Q8Table(torch.randn(24, 20), torch.float32).to(
+        cuda_device)
+    before = quant_ops.int8_matmul_pre.calls
+    with pytest.raises(ValueError, match="multiples of 8"):
+        table(x)
+    assert quant_ops.int8_matmul_pre.calls == before

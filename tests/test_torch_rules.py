@@ -53,7 +53,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "cli.train_x", "utils.schedules", "utils.sampling",
                  "utils.metrics", "utils.logging", "utils.profiling",
                  "data.features", "data.clag", "data.datasets",
-                 "data.row_pipeline"):
+                 "data.row_pipeline", "ops.quant", "tokenization.native",
+                 "tokenization.dictionary", "cli.preprocess"):
         assert f"m3p_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -24,6 +24,7 @@ from m3p_tpu.tokenization.unigram import train_unigram
 from m3p_tpu_torch.checkpoint import params_from_jax
 from m3p_tpu_torch.cli.serve import get_parser
 from m3p_tpu_torch.config import ModelConfig
+from m3p_tpu_torch.data.features import write_feature_shard
 from m3p_tpu_torch.model import build_model
 from m3p_tpu_torch.serve.engine import InferenceEngine, _bucket
 from m3p_tpu_torch.serve.server import make_server
@@ -301,3 +302,165 @@ def test_http_endpoints(engines):
         app.close()
         thread.join(timeout=10)
     assert not thread.is_alive()
+
+
+# ---------------------------------------------------------------------------
+# the store-backed gallery
+# ---------------------------------------------------------------------------
+
+
+def _shard(path, n, seed=5):
+    rng = np.random.RandomState(seed)
+    boxes = np.sort(rng.rand(n, R, 2, 2) * 20, axis=2).reshape(n, R, 4)
+    write_feature_shard(
+        path, features=rng.randn(n, R, D).astype(np.float32),
+        boxes=boxes.astype(np.float32),
+        num_boxes=rng.randint(1, R + 1, n).astype(np.int64),
+        wh=np.tile(np.array([[20, 20]], np.float32), (n, 1)),
+        image_ids=[f"im{i}" for i in range(n)])
+
+
+def test_store_image_id_and_gallery_match_jax(engines, tmp_path):
+    """``image_id`` payloads and `load_gallery_from_store` over an h5
+    shard (`tests/test_serve.py:132`), against the JAX engine on the same
+    shard."""
+    jeng, teng = engines
+    path = str(tmp_path / "feats.h5")
+    _shard(path, 5)
+    jeng.attach_store(path)
+    teng.attach_store(path)
+    try:
+        for i in range(5):
+            got, want = (e.resolve_image({"image_id": f"im{i}"})
+                         for e in (teng, jeng))
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+        texts = [TEXTS[0], TEXTS[2]]
+        images = [{"image_id": "im1"}, {"image_id": "im4"}]
+        np.testing.assert_allclose(teng.score(texts, images),
+                                   jeng.score(texts, images), rtol=TOL,
+                                   atol=TOL)
+        with pytest.raises(ValueError, match="unknown image_id"):
+            teng.score(["a dog"], [{"image_id": "nope"}])
+        assert teng.load_gallery_from_store(limit=3) == 3
+        assert jeng.load_gallery_from_store(limit=3) == 3
+        got = teng.retrieve(TEXTS[1], top_k=3)
+        want = {r["id"]: r["score"] for r in jeng.retrieve(TEXTS[1],
+                                                           top_k=3)}
+        assert sorted(r["id"] for r in got) == sorted(want) == [
+            "im0", "im1", "im2"]
+        for r in got:
+            assert abs(r["score"] - want[r["id"]]) < TOL
+        assert teng.load_gallery_from_store() == 5
+        assert teng.stats()["gallery_size"] == 5
+    finally:
+        for e in (jeng, teng):
+            e.store, e._gallery = None, None
+    with pytest.raises(ValueError, match="no feature store"):
+        teng.load_gallery_from_store()
+
+
+# ---------------------------------------------------------------------------
+# frozen-weight int8 serving
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def int8_engines(engines):
+    """The port's int8 engine over the fixture's weights (fp32 compute, as
+    in the JAX test), the plain port engine, and the JAX int8 engine."""
+    from m3p_tpu.model import quantized_inference_model as jax_quantized
+
+    from m3p_tpu_torch.model import quantized_inference_model
+
+    jeng, teng = engines
+    kw = dict(max_regions=R, text_buckets=(8,), batch_buckets=(1, 2, 4, 8),
+              beam_size=1, max_gen_len=4, lang2id={"en": 0})
+    fp = InferenceEngine(teng.model, teng.tokenizer, device="cpu", **kw)
+    q8 = InferenceEngine(quantized_inference_model(teng.model),
+                         teng.tokenizer, device="cpu", **kw)
+    jq8 = JaxEngine(jax_quantized(jeng.model.cfg), jeng.params,
+                    tokenizer=jeng.tokenizer, **kw)
+    return fp, q8, jq8
+
+
+def test_int8_vs_fp_score_ranking_invariance(int8_engines):
+    """`tests/test_serve.py:458` on the port: int8 serving keeps the fp
+    engine's top-1 and its ranking up to near-ties, scores within 15 % of
+    the range; and the int8 scores equal the JAX int8 engine's within
+    ``TOL``."""
+    fp, q8, jq8 = int8_engines
+    assert q8.q8_bytes > 0 and fp.q8_bytes == 0
+    rng = np.random.RandomState(7)
+    gallery = [_image(rng) for _ in range(8)]
+    ids = [f"img{i}" for i in range(8)]
+    for e in (fp, q8, jq8):
+        e.load_gallery(gallery, ids)
+    for text in ("a dog runs on the beach", "two cats sleep",
+                 "a red car on the street"):
+        r_fp, r_q8 = fp.retrieve(text, top_k=8), q8.retrieve(text, top_k=8)
+        s_fp = {r["id"]: r["score"] for r in r_fp}
+        s_q8 = {r["id"]: r["score"] for r in r_q8}
+        s_jq8 = {r["id"]: r["score"] for r in jq8.retrieve(text, top_k=8)}
+        span = max(s_fp.values()) - min(s_fp.values()) + 1e-6
+        for k in s_fp:
+            assert abs(s_fp[k] - s_q8[k]) < 0.15 * span, (k, s_fp, s_q8)
+            assert abs(s_q8[k] - s_jq8[k]) < TOL, (k, s_q8, s_jq8)
+        assert r_fp[0]["id"] == r_q8[0]["id"], (r_fp, r_q8)
+        for a, b in zip([r["id"] for r in r_fp], [r["id"] for r in r_q8]):
+            if a != b:
+                assert abs(s_fp[a] - s_fp[b]) < 0.05 * span
+    assert q8.caption(gallery[:2]) == jq8.caption(gallery[:2])
+
+
+def test_cli_parses_the_store_and_quant_flags():
+    base = ["--reload_model", "m.pth", "--vocab_path", "v.tsv"]
+    args = get_parser().parse_args(base)
+    assert (args.quant, args.features_path, args.load_gallery) == (
+        "none", "", 0)
+    args = get_parser().parse_args(base + [
+        "--quant", "int8", "--features_path", "f.h5", "--load_gallery",
+        "7"])
+    assert (args.quant, args.features_path, args.load_gallery) == (
+        "int8", "f.h5", 7)
+
+
+def test_cli_main_builds_the_int8_engine_over_a_store(engines, tmp_path):
+    """`main(argv, store=..., serve=False)`: the CLI's own parsing and
+    engine construction over a store object, stopping before the server;
+    ``--features_path`` over an h5 shard; an unknown ``--quant`` raises."""
+    from m3p_tpu_torch.cli.serve import main
+    from m3p_tpu_torch.data.features import RegionFeatureStore
+
+    _, teng = engines
+    ckpt = str(tmp_path / "model.pt")
+    torch.save(teng.model.state_dict(), ckpt)
+    vocab = teng.tokenizer._model_path
+    cfg = teng.model.cfg
+    argv = ["--reload_model", ckpt, "--vocab_path", vocab,
+            "--emb_dim", str(cfg.emb_dim), "--n_layers", str(cfg.n_layers),
+            "--n_heads", str(cfg.n_heads), "--max_region_num", str(R),
+            "--refine_layers", str(cfg.refine_layers), "--lgs", "en-de",
+            "--dtype", "float32", "--device", "cpu", "--warmup", "false",
+            "--beam_size", "3", "--max_gen_len", str(GEN_LEN)]
+    path = str(tmp_path / "feats.h5")
+    _shard(path, 6, seed=9)
+    store = RegionFeatureStore(path, R)
+    engine = main(argv + ["--quant", "int8", "--load_gallery", "4"],
+                  store=store, serve=False)
+    assert engine.device.type == "cpu" and engine.store is store
+    assert engine.model.cfg.ffn_quant == "int8_infer"
+    assert engine.q8_bytes > 0 and engine.stats()["gallery_size"] == 4
+    assert [r["id"] for r in engine.retrieve(TEXTS[0], top_k=4)] != []
+    plain = main(argv + ["--features_path", path, "--load_gallery", "6"],
+                 serve=False)
+    assert plain.q8_bytes == 0 and plain.stats()["gallery_size"] == 6
+    got = store.get(2)
+    n = int(got["num_boxes"])
+    np.testing.assert_allclose(
+        plain.score([TEXTS[0]], [{"image_id": "im2"}]),
+        teng.score([TEXTS[0]], [{"feats": got["feats"][:n],
+                                 "locs": got["locs"][:n]}]),
+        rtol=TOL, atol=TOL)
+    with pytest.raises(ValueError, match="unknown quant mode"):
+        main(argv + ["--quant", "int4"], serve=False)
