@@ -229,7 +229,31 @@ Phases, each of which fails the run if it fails:
      in fp32 at depth 2, card vs CPU, each CPU GEMM handed the card's
      quantized activations: the int32 accumulators equal, the outputs
      within TOL_INT8_FP32 (and, running free, the share of activations
-     quantized alike); (f) a caption eval with ``eval.quant="int8"``.
+     quantized alike); (f) a caption eval with ``eval.quant="int8"``;
+ 17. the int8 training modes and the single-card model variants: (a)
+     `int8_matmul_qbwd`, `int8_matmul` and `int8_matmul_nt` forward and
+     backward in bf16 on the card and the CPU at the MCT FFN's shapes
+     (13120 x 768 x 3072 and back), 16 rows, 1001 tokens (a wgrad
+     contraction off the multiple of 8) and the tied 250,002-word head at
+     320 rows: each CPU GEMM's quantized operands equal the card's, a share
+     of its int32 accumulator recomputed from them equal, the outputs and
+     int8 gradients bit for bit, the straight-through ones within
+     TOL_BF16; (b) `m3p_tpu_torch.bench`'s MCT step under bench.py's
+     ``int8_bwd`` and with the float FFN in turns on one model (none,
+     int8, int8, none; 2 + 10 steps each), configurations A and B:
+     samples/s, step ms, MFU, peak memory, launches and int8 GEMMs by
+     route a step (24 forward and 48 backward an encode), a profile of a
+     step of each; a learning check at depth 2 (30 steps); (c) one step
+     each under ``ffn_quant`` "int8" and "int8_all" (the fused int8 QKV
+     feeding #1/#2 on the tensor cores) and ``head_quant="int8_bwd"``;
+     (d) the MCT step with 4 experts on every 2nd block (step ms, peak
+     memory), a causal call refused, fp32 card vs CPU at depth 2 with the
+     card's expert choices handed to the CPU; (e) the MCT step with the
+     adaptive softmax head, a greedy caption call through it, its
+     logsumexp about 0, fp32 card vs CPU at depth 2; (f) ``encode_text``
+     with ``image_enc`` forward and backward, `CrossAlignMatrix`,
+     `VaeEncoder` and `LatentDecoder` in fp32 card vs CPU; (g)
+     `bench_eval_grid` bf16 and ``--int8`` in turns on 16 x 64 pairs.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -1309,6 +1333,8 @@ def kernel_group(name: str) -> str:
         return "copies"
     if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
                               "cublas")):
+        if any(s in low for s in ("_s8", "i8", "imma", "int8")):
+            return "gemm (int8)"
         return "gemm"
     if "layer_norm" in low:
         return "layer_norm"
@@ -2420,6 +2446,15 @@ def expected_launches(packed=(0, 0), flash=(0, 0), dropout=0):
             "fused_ffn_cluster": 0}
 
 
+def float_mct_config(**kw):
+    """`bench.bench_config` with the FFNs' float GEMMs: phases 8 and 12
+    measure the step as their slices did; phase 17 runs bench.py's
+    ``int8_bwd`` beside it."""
+    from m3p_tpu_torch import bench
+
+    return bench.bench_config(ffn_quant="none", **kw)
+
+
 def mct_per_step(cfg, encodes=1):
     """Launches a step makes: per joint encode, one #1 and one #2 backward
     (two launches), all on the tensor cores in bf16, per block and refiner
@@ -2449,7 +2484,7 @@ def mct_slice(seed, fused):
     from m3p_tpu_torch import bench
 
     label = "B (use_fused_dropout)" if fused else "A (bench.py's)"
-    cfg = bench.bench_config(fused_dropout=fused)
+    cfg = float_mct_config(fused_dropout=fused)
     t0 = time.time()
     state, step, gens = bench.setup(cfg, seed, "cuda")
     batch = bench.make_batch(0, "cuda")
@@ -2522,7 +2557,7 @@ def mct_in_turns(seed):
     windows): the mean of each one's two readings."""
     from m3p_tpu_torch import bench
 
-    cfg = bench.bench_config(fused_dropout=True)
+    cfg = float_mct_config(fused_dropout=True)
     state, step, gens = bench.setup(cfg, seed, "cuda")
     batch = bench.make_batch(0, "cuda")
     readings = {"A": [], "B": []}
@@ -2554,8 +2589,8 @@ def compare_mct_grads_with_cpu(seed):
     from m3p_tpu_torch.ops.dropout import dropout_add
     from m3p_tpu_torch.train.steps import mct_draws, mct_pretrain_loss
 
-    cfg = bench.bench_config(fused_dropout=True, n_layers=2,
-                             dtype="float32")
+    cfg = float_mct_config(fused_dropout=True, n_layers=2,
+                           dtype="float32")
     cpu_model = build_model(cfg, seed, "cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = bench.make_batch(seed + 2, "cpu", groups=2, with_clcm=True)
@@ -2608,7 +2643,7 @@ def mct_learning_check(seed, steps=40):
     from m3p_tpu_torch import bench
     from m3p_tpu_torch.train.steps import mct_draws
 
-    cfg = bench.bench_config(fused_dropout=True, n_layers=2)
+    cfg = float_mct_config(fused_dropout=True, n_layers=2)
     state, _, gens = bench.setup(
         cfg, seed + 3, "cuda", spec="adam,lr=0.0001,fused=1,"
         "mu_dtype=bfloat16,nu_dtype=bfloat16,master=1")
@@ -4040,7 +4075,7 @@ def freelb_mct_slice(seed, fused):
         ASCENT_SPAN, make_freelb_pretrain_step)
 
     label = "B (use_fused_dropout)" if fused else "A"
-    cfg = bench.bench_config(fused_dropout=fused)
+    cfg = float_mct_config(fused_dropout=fused)
     state, _, gens = bench.setup(cfg, seed, "cuda")
     step = make_freelb_pretrain_step(state.model, bench.SAMPLE_N,
                                      bench.mask_config(cfg), freelb_config())
@@ -4351,7 +4386,7 @@ def compare_freelb_grads_with_cpu(seed):
     from m3p_tpu_torch.train.state import create_train_state
     from m3p_tpu_torch.train.steps import mct_draws
 
-    cfg = bench.bench_config(n_layers=2, dtype="float32", rate=0.0)
+    cfg = float_mct_config(n_layers=2, dtype="float32", rate=0.0)
     adv = freelb_config()
     cpu_model = build_model(cfg, seed, "cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
@@ -4406,7 +4441,7 @@ def freelb_learning_check(seed, steps=30):
     from m3p_tpu_torch.model.layers import Generators
     from m3p_tpu_torch.train.freelb import make_freelb_pretrain_step
 
-    cfg = bench.bench_config(fused_dropout=True, n_layers=2)
+    cfg = float_mct_config(fused_dropout=True, n_layers=2)
     state, _, _ = bench.setup(
         cfg, seed + 3, "cuda", spec="adam,lr=0.0001,fused=1,"
         "mu_dtype=bfloat16,nu_dtype=bfloat16,master=1")
@@ -7169,6 +7204,679 @@ def quant_slice(seed, tokenizer):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the int8 training modes and the single-card model variants
+# ---------------------------------------------------------------------------
+
+# (a) the training GEMMs on the card against the CPU, bf16: (function, M,
+# K, N), x (M, K) and w (K, N), or (N, K) for the nt head.  13120 is the
+# MCT step's BN x S tokens, 320 its packed MLM slots; 16 rows take the
+# CUDA rule's row padding, 1001 tokens a wgrad contraction off the
+# multiple of 8, the 250,002 words a head whose dgrad contracts over V
+TRAIN_GEMM_CASES = (
+    ("int8_matmul_qbwd", 13120, 768, 3072),
+    ("int8_matmul_qbwd", 13120, 3072, 768),
+    ("int8_matmul_qbwd", 16, 768, 3072),
+    ("int8_matmul_qbwd", 1001, 768, 3072),
+    ("int8_matmul", 1001, 768, 3072),
+    ("int8_matmul_nt", 320, 768, 250002),
+)
+# the CPU recomputes about this many multiply-adds of each GEMM's int32
+# accumulator from the card's quantized operands (at least 16 rows, at
+# most 256): its int8 GEMM runs about 10 GMAC/s, the whole set would take
+# about 40 s
+TRAIN_GEMM_CHECK_MACS = 2e9
+# (b) windows of the MCT step in turns: warm-up and timed steps each
+INT8_TURN_STEPS = (2, 10)
+# the int8 GEMMs an encode makes: 12 blocks x 2 FFN GEMMs forward, two
+# each backward
+INT8_FFN_FWD, INT8_FFN_BWD = 24, 48
+# (d) the MoE variant: 4 experts (tests/test_moe.py::test_moe_model_trains)
+# on every 2nd block at capacity factor 2.0 (the CLI's defaults)
+MOE = dict(moe_experts=4, moe_interval=2, moe_capacity_factor=2.0)
+# (e) the asm head's log-probabilities come back in bf16: each rounds by up
+# to 2^-9 of its size (about 12 at 250,002 words), so their logsumexp
+# lies within this of 0; in fp32 within TOL_ASM_FP32
+TOL_ASM_BF16 = 0.05
+TOL_ASM_FP32 = 1e-4
+# (f) the latent modules at the flagship width in fp32, card vs CPU
+LATENT_SHAPE = (4, 164, 768)
+ZERO_GRAD_CROSS_ALIGN = ("att_weight_c.weight", "att_weight_c.bias",
+                         "att_weight_q.bias")
+# (g) the grid tool's pool: 16 images x 64 captions, two 512-pair chunks
+P17_GRID = ("16", "64", "512")
+
+
+def p17_counts():
+    """The #1/#2 launch counts and the training int8 GEMM counts."""
+    from m3p_tpu_torch.ops import quant
+
+    return {**launch_counts(), **{
+        name: {"calls_by_pass": dict(getattr(quant, name).calls_by_pass),
+               "calls_by_route": dict(getattr(quant, name).calls_by_route)}
+        for name in ("int8_matmul", "int8_matmul_qbwd", "int8_matmul_nt")}}
+
+
+def zero_p17_counts():
+    from m3p_tpu_torch.ops import quant
+
+    zero_launch_counts()
+    quant.zero_counts()
+
+
+def check_int8_calls(what, counts, want, n_steps=1):
+    """``want`` {function: (forward, backward) GEMMs a step}: each call
+    counted so, none on the CPU route."""
+    for name in ("int8_matmul", "int8_matmul_qbwd", "int8_matmul_nt"):
+        fwd, bwd = want.get(name, (0, 0))
+        got = counts[name]
+        if got["calls_by_pass"] != {"fwd": fwd * n_steps,
+                                    "bwd": bwd * n_steps}:
+            fail(f"{what}: {name} made {got['calls_by_pass']} int8 GEMMs in "
+                 f"{n_steps} step(s); expected ({fwd}, {bwd}) a step")
+        if got["calls_by_route"]["cpu"]:
+            fail(f"{what}: {name} ran an int8 GEMM on the CPU route")
+
+
+def train_gemms_vs_cpu(seed):
+    """17(a): each training GEMM forward and backward on the card, then on
+    the CPU from the same bf16 inputs.  Each CPU GEMM checks that its
+    quantized operands equal the card's (bitwise), recomputes a share of
+    the card's int32 accumulator from them (`TRAIN_GEMM_CHECK_MACS`) and
+    must find it equal, then carries on with the card's accumulator; the
+    outputs and the int8 gradients must then equal the card's bit for bit,
+    the straight-through float gradients within TOL_BF16."""
+    import torch
+
+    from m3p_tpu_torch.ops import quant
+
+    gemm = quant._gemm_nt
+    out = {}
+    t0 = time.time()
+    for name, m, k, n in TRAIN_GEMM_CASES:
+        fn = getattr(quant, name)
+        gen = torch.Generator().manual_seed(seed + m + n)
+        x = (torch.randn(m, k, generator=gen) * 2).to(torch.bfloat16)
+        w = (torch.randn(*((n, k) if name == "int8_matmul_nt" else (k, n)),
+                         generator=gen) * 0.05).to(torch.bfloat16)
+        g = torch.randn(m, n, generator=gen).to(torch.bfloat16)
+        card_ops = []
+        checked = []
+
+        def on_card(qa, qb, entry, padded, pass_):
+            acc = gemm(qa, qb, entry, padded, pass_)
+            card_ops.append((qa, qb, acc))
+            return acc
+
+        def on_cpu(qa, qb, entry, padded, pass_):
+            i = len(checked)
+            cqa, cqb, cacc = card_ops[i]
+            if not (torch.equal(qa, cqa.cpu()) and torch.equal(qb,
+                                                               cqb.cpu())):
+                fail(f"17(a) {name} {m}x{k}x{n}: int8 GEMM {i}'s quantized "
+                     f"operands differ between the card and the CPU")
+            r = max(16, min(256, int(TRAIN_GEMM_CHECK_MACS
+                                     / (qa.shape[1] * qb.shape[0]))))
+            rows = torch.unique(torch.linspace(0, qa.shape[0] - 1, r)
+                                .round().long())
+            acc = cacc.cpu()
+            if not torch.equal(torch._int_mm(qa[rows], qb.t()), acc[rows]):
+                fail(f"17(a) {name} {m}x{k}x{n}: int8 GEMM {i}'s int32 "
+                     f"accumulators differ between the card and the CPU")
+            checked.append(len(rows))
+            entry.calls += 1
+            entry.calls_by_route["cpu"] += 1
+            entry.calls_by_pass[pass_] += 1
+            return acc
+
+        results = []
+        for dev, wrapper in (("cuda", on_card), ("cpu", on_cpu)):
+            xd = x.to(dev).requires_grad_()
+            wd = w.to(dev).requires_grad_()
+            quant.zero_counts()
+            quant._gemm_nt = wrapper
+            try:
+                y = fn(xd, wd)
+                y.backward(g.to(dev))
+            finally:
+                quant._gemm_nt = gemm
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                routes = dict(fn.calls_by_route)
+            results.append([t.detach().cpu() for t in (y, xd.grad, wd.grad)])
+        (y_d, dx_d, dw_d), (y_c, dx_c, dw_c) = results
+        if not torch.equal(y_d, y_c):
+            fail(f"17(a) {name} {m}x{k}x{n}: the outputs differ")
+        if name == "int8_matmul":
+            for a, b in ((dx_d, dx_c), (dw_d, dw_c)):
+                _compare(a.float(), b.float(), TOL_BF16,
+                         f"17(a) {name} straight-through gradient")
+        elif not (torch.equal(dx_d, dx_c) and torch.equal(dw_d, dw_c)):
+            fail(f"17(a) {name} {m}x{k}x{n}: the int8 gradients differ")
+        if routes["cpu"] or routes["int8"] + routes["int8_pad"] != len(
+                card_ops):
+            fail(f"17(a) {name}: routes {routes} for {len(card_ops)} GEMMs")
+        key = f"{name}_{m}x{k}x{n}"
+        out[key] = {"gemms": len(card_ops), "routes": routes,
+                    "accumulator_rows_checked": checked,
+                    "st_dx_max_abs_diff": float((dx_d.float()
+                                                 - dx_c.float()).abs().max())}
+        log(f"[int8 train] 17(a) {key}: {len(card_ops)} int8 GEMMs on the "
+            f"card, routes {routes}; operands equal, accumulators equal on "
+            f"{checked} rows, outputs bit for bit, gradients "
+            + ("within TOL_BF16" if name == "int8_matmul"
+               else "bit for bit"))
+        del card_ops
+        torch.cuda.empty_cache()
+    out["s"] = time.time() - t0
+    return out
+
+
+def mct_int8_turns(seed, fused):
+    """17(b): `m3p_tpu_torch.bench`'s MCT step under bench.py's
+    ``int8_bwd`` and with the float FFN (``none``, a `shared_variant` over
+    the same parameters and optimizer state) in turns none, int8, int8,
+    none (`INT8_TURN_STEPS` each), configuration A or B (``fused``):
+    samples/s, step ms, MFU, peak memory; #1/#2 (#7/#8) launches and int8
+    GEMMs by route per step; a profile of one step of each.  Returns
+    (numbers, state, gens, batch) for 17(c)."""
+    import numpy as np
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.model import shared_variant
+
+    label = "B" if fused else "A"
+    cfg = bench.bench_config(fused_dropout=fused)
+    state, step, gens = bench.setup(cfg, seed, "cuda")
+    batch = bench.make_batch(0, "cuda")
+    models = {"int8_bwd": state.model,
+              "none": shared_variant(state.model, ffn_quant="none")}
+    per_step = mct_per_step(cfg)
+    warmup, steps = INT8_TURN_STEPS
+    n_steps = warmup + steps
+    readings = {"none": [], "int8_bwd": []}
+    counts = {}
+    launches = dict.fromkeys(per_step, 0)
+    for mode in ("none", "int8_bwd", "int8_bwd", "none"):
+        state.model = models[mode]
+        zero_p17_counts()
+        r = bench.run(state, step, batch, gens, warmup, steps)
+        c = p17_counts()
+        check_launches(f"MCT {label} {mode}", {k: c[k] for k in per_step},
+                       per_step, n_steps)
+        want = ({"int8_matmul_qbwd": (INT8_FFN_FWD, INT8_FFN_BWD)}
+                if mode == "int8_bwd" else {})
+        check_int8_calls(f"MCT {label} {mode}", c, want, n_steps)
+        if not np.isfinite(r["losses"]).all():
+            fail(f"MCT {label} {mode}: non-finite loss {r['losses']}")
+        readings[mode].append({k: r[k] for k in ("step_ms", "peak_memory_gb",
+                                                 "wall_step_ms")})
+        counts[mode] = c
+        for k in launches:
+            launches[k] += c[k]
+    flops = bench.mct_step_flops(cfg, r["bn"])
+    numbers = {}
+    for mode, rs in readings.items():
+        ms = sum(x["step_ms"] for x in rs) / len(rs)
+        numbers[mode] = {
+            "step_ms": ms, "samples_per_s": r["bn"] / (ms / 1e3),
+            "mfu": flops / (ms / 1e3) / BF16_FLOPS_PER_S,
+            "peak_memory_gb": max(x["peak_memory_gb"] for x in rs),
+            "readings": rs,
+            "int8_gemms_per_step": {
+                "fwd": counts[mode]["int8_matmul_qbwd"]["calls_by_pass"][
+                    "fwd"] / n_steps,
+                "bwd": counts[mode]["int8_matmul_qbwd"]["calls_by_pass"][
+                    "bwd"] / n_steps,
+                "routes": {k: v / n_steps for k, v in counts[mode][
+                    "int8_matmul_qbwd"]["calls_by_route"].items()}},
+            "packed_per_step": {k: counts[mode][k] / n_steps
+                                for k in ("packed_fwd", "packed_bwd")}}
+        state.model = models[mode]
+        numbers[mode]["profile"] = profile_window(
+            f"one MCT step {label} {mode}", lambda: step(state, batch, gens),
+            reps=2)
+    numbers["int8_over_none_step_ms"] = (numbers["int8_bwd"]["step_ms"]
+                                         / numbers["none"]["step_ms"])
+    numbers["flops_per_step"] = flops
+    numbers["launches"] = launches
+    log(f"[int8 train] 17(b) MCT {label} at BN={r['bn']}, none / int8_bwd "
+        f"in turns: {numbers['none']['step_ms']:.2f} / "
+        f"{numbers['int8_bwd']['step_ms']:.2f} ms a step (int8/none "
+        f"{numbers['int8_over_none_step_ms']:.4f}), "
+        f"{numbers['none']['samples_per_s']:.1f} / "
+        f"{numbers['int8_bwd']['samples_per_s']:.1f} samples/s, MFU "
+        f"{numbers['none']['mfu']:.4f} / {numbers['int8_bwd']['mfu']:.4f}, "
+        f"peak {numbers['none']['peak_memory_gb']:.2f} / "
+        f"{numbers['int8_bwd']['peak_memory_gb']:.2f} GB; int8 GEMMs a step "
+        f"{numbers['int8_bwd']['int8_gemms_per_step']}; #1/#2 a step "
+        f"{numbers['int8_bwd']['packed_per_step']}")
+    state.model = models["int8_bwd"]
+    return numbers, state, gens, batch
+
+
+def int8_modes_steps(state, gens, batch):
+    """17(c): one counted MCT step each under ``ffn_quant="int8"``,
+    ``"int8_all"`` and ``head_quant="int8_bwd"`` on 17(b)'s model and
+    state (`shared_variant`s): routes and launches; under "int8_all" each
+    block's self-attention projects through the fused int8 QKV (one more
+    int8 GEMM forward and two backward a block) and still feeds #1/#2 on
+    the tensor cores."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.model import shared_variant
+
+    base = state.model
+    cfg = base.cfg
+    per_step = mct_per_step(cfg)
+    blocks = cfg.n_layers
+    modes = {
+        "int8": (dict(ffn_quant="int8"), {"int8_matmul": (INT8_FFN_FWD, 0)}),
+        "int8_all": (dict(ffn_quant="int8_all"), {"int8_matmul_qbwd": (
+            INT8_FFN_FWD + blocks, INT8_FFN_BWD + 2 * blocks)}),
+        "head_int8_bwd": (dict(head_quant="int8_bwd"), {
+            "int8_matmul_qbwd": (INT8_FFN_FWD, INT8_FFN_BWD),
+            "int8_matmul_nt": (1, 2)}),
+    }
+    out = {}
+    for mode, (change, want) in modes.items():
+        state.model = shared_variant(base, **change)
+        step = bench.make_step(state.model.cfg)
+        zero_p17_counts()
+        state, m = step(state, batch, gens)
+        torch.cuda.synchronize()
+        c = p17_counts()
+        check_launches(f"MCT {mode}", {k: c[k] for k in per_step}, per_step,
+                       1)
+        check_int8_calls(f"MCT {mode}", c, want)
+        if not torch.isfinite(m["loss"]):
+            fail(f"MCT {mode}: non-finite loss")
+        out[mode] = {"loss": m["loss"].item(),
+                     "packed": {k: c[k] for k in ("packed_fwd",
+                                                  "packed_fwd_tensor_cores",
+                                                  "packed_bwd",
+                                                  "packed_bwd_tensor_cores")},
+                     **{name: c[name] for name in want}}
+        log(f"[int8 train] 17(c) one MCT step {mode}: "
+            f"{json.dumps(out[mode])}")
+    state.model = base
+    return out
+
+
+def int8_learning_check(seed, steps=30):
+    """17(b): depth 2 at full width under ``int8_bwd``, BN = 80, one batch,
+    coin and masking, FusedAdam at lr 1e-4: the mean loss of the last 5
+    steps below that of the first 5."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.train.steps import mct_draws
+
+    cfg = bench.bench_config(fused_dropout=True, n_layers=2)
+    state, _, gens = bench.setup(
+        cfg, seed + 3, "cuda", spec="adam,lr=0.0001,fused=1,"
+        "mu_dtype=bfloat16,nu_dtype=bfloat16,master=1")
+    batch = bench.make_batch(seed + 3, "cuda")
+    step = bench.make_step(cfg, **mct_draws(gens.device, batch,
+                                            bench.mask_config(cfg)))
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, gens)
+        losses.append(m["loss"])
+    losses = torch.stack(losses).float().cpu()
+    first, last = losses[:5].mean().item(), losses[-5:].mean().item()
+    log(f"[int8 train] 17(b) learning, depth 2, int8_bwd, {steps} steps: "
+        f"mean loss of the first 5 {first:.4f}, of the last 5 {last:.4f}")
+    if not torch.isfinite(losses).all() or not last < first:
+        fail(f"the int8_bwd MCT model did not learn: {losses.tolist()}")
+    return {"first5": first, "last5": last}
+
+
+def timed_variant_steps(what, cfg, seed, n=(2, 5)):
+    """`bench.run` of ``n`` (warm-up, timed) MCT steps of ``cfg`` at BN =
+    80, its launches checked (15 #1, 30 #2 a step): (numbers, state,
+    gens)."""
+    import numpy as np
+
+    from m3p_tpu_torch import bench
+
+    state, step, gens = bench.setup(cfg, seed, "cuda")
+    batch = bench.make_batch(0, "cuda")
+    per_step = mct_per_step(cfg)
+    zero_p17_counts()
+    r = bench.run(state, step, batch, gens, *n)
+    c = p17_counts()
+    check_launches(what, {k: c[k] for k in per_step}, per_step, sum(n))
+    if not np.isfinite(r["losses"]).all():
+        fail(f"{what}: non-finite loss {r['losses']}")
+    numbers = {k: r[k] for k in ("step_ms", "samples_per_s", "wall_step_ms",
+                                 "peak_memory_gb")}
+    numbers["launches"] = {k: c[k] for k in per_step}
+    numbers["loss_last"] = r["losses"][-1]
+    log(f"[variants] {what}: {numbers['step_ms']:.2f} ms a step, "
+        f"{numbers['samples_per_s']:.1f} samples/s, peak "
+        f"{numbers['peak_memory_gb']:.2f} GB, launches {numbers['launches']}")
+    return numbers, state, gens
+
+
+def variant_fp32_vs_cpu(seed, what, **change):
+    """``mct_pretrain_loss`` and its gradients in fp32 at depth 2 and full
+    width, dropout 0, on the card and on the CPU with one coin and
+    masking: the loss within 1e-4, every leaf within TOL_GRAD_FP32 of its
+    largest entry.  Under MoE the CPU takes the card's expert choices
+    (`ops.topk.top_k`'s indices, handed over as 16(e) hands over the int8
+    activations); a free CPU run reports how many choices differ."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model import layers
+    from m3p_tpu_torch.train.steps import mct_draws, mct_pretrain_loss
+
+    cfg = bench.bench_config(n_layers=2, dtype="float32", rate=0.0,
+                             ffn_quant="none")
+    cfg = dataclasses.replace(cfg, **change)
+    cpu = build_model(cfg, seed, "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = bench.make_batch(seed + 2, "cpu", groups=2)
+    draws = mct_draws(torch.Generator().manual_seed(seed), batch,
+                      bench.mask_config(cfg))
+    top_k = layers.top_k
+
+    def run(model, dev, forced=None):
+        chosen = []
+
+        def choosing(values, k):
+            vals, idx = top_k(values, k)
+            if forced is not None:
+                idx = forced[len(chosen)].to(idx.device)
+                vals = values.gather(-1, idx)
+            chosen.append(idx.cpu())
+            return vals, idx
+
+        model.zero_grad(set_to_none=True)
+        moved = {key: ([t.to(dev) for t in v] if isinstance(v, (list, tuple))
+                       else v.to(dev)) for key, v in draws.items()}
+        layers.top_k = choosing
+        try:
+            loss, _ = mct_pretrain_loss(
+                model, {key: t.to(dev) for key, t in batch.items()}, None,
+                bench.mask_config(cfg), bench.SAMPLE_N, deterministic=True,
+                pack_ratio=bench.PACK_RATIO, **moved)
+            loss.backward()
+        finally:
+            layers.top_k = top_k
+        return loss.item(), chosen
+
+    loss_d, chosen_d = run(card, "cuda")
+    _, chosen_free = run(cpu, "cpu")
+    differ = sum(int((a.sort(-1).values != b.sort(-1).values).sum())
+                 for a, b in zip(chosen_d, chosen_free))
+    loss_c, _ = run(cpu, "cpu", forced=chosen_d)
+    worst, worst_name, leaves = worst_grad_diff(card, cpu)
+    log(f"[variants] {what} fp32 depth 2: loss card {loss_d:.6f} vs CPU "
+        f"{loss_c:.6f}; {leaves} leaves, max relative |card - CPU| "
+        f"{worst:.3e} ({worst_name}; tolerance {TOL_GRAD_FP32}); expert "
+        f"choices differing in a free CPU run: {differ} of "
+        f"{sum(c.numel() for c in chosen_d)}")
+    if worst > TOL_GRAD_FP32 or abs(loss_d - loss_c) > 1e-4:
+        fail(f"{what}: fp32 gradients on the card disagree with the CPU")
+    return {"loss_card": loss_d, "loss_cpu": loss_c, "worst_rel": worst,
+            "worst_leaf": worst_name, "leaves": leaves,
+            "free_run_choices_differing": differ}
+
+
+def moe_slice(seed):
+    """17(d): the MCT step with MoE blocks (`MOE`) at the flagship width,
+    bench.py's configuration otherwise: step ms, peak memory, launches; a
+    causal call refused; fp32 card vs CPU at depth 2."""
+    import torch
+
+    from m3p_tpu_torch import bench
+
+    cfg = dataclasses.replace(bench.bench_config(), **MOE)
+    out, state, _ = timed_variant_steps("17(d) MCT with MoE", cfg, seed)
+    model = state.model
+    if sum(b.moe_ffn is not None for b in model.blocks) != \
+            cfg.n_layers // cfg.moe_interval:
+        fail("17(d): the MoE blocks are not every 2nd block")
+    toks = torch.zeros(2, 8, dtype=torch.long, device="cuda")
+    try:
+        model.encode_text(toks, torch.ones_like(toks, dtype=torch.bool),
+                          causal=True)
+    except ValueError as exc:
+        out["causal_refused"] = str(exc)
+    else:
+        fail("17(d): a causal call through MoE blocks did not raise")
+    del state, model
+    torch.cuda.empty_cache()
+    out["fp32_card_vs_cpu"] = variant_fp32_vs_cpu(seed, "17(d) MoE", **MOE)
+    return out
+
+
+def asm_slice(seed):
+    """17(e): the MCT step with the adaptive softmax head (``asm``, the
+    default cutoffs 8000 / 20000), one greedy caption call through it, the
+    log-probabilities' logsumexp about 0 on the card; fp32 card vs CPU at
+    depth 2."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.model.generation import greedy_generate
+    from m3p_tpu_torch.model.transformer import lengths_to_mask
+
+    cfg = dataclasses.replace(bench.bench_config(), asm=True)
+    out, state, _ = timed_variant_steps("17(e) MCT with asm", cfg, seed)
+    model = state.model.eval()
+    rng = np.random.RandomState(seed + 17)
+    imgs = eval_images(rng, 16)
+    feats = torch.from_numpy(imgs["feats"]).cuda()
+    locs = torch.from_numpy(imgs["locs"]).cuda()
+    mask = lengths_to_mask(torch.from_numpy(imgs["img_len"]).cuda(), REGIONS)
+    zero_p17_counts()
+    with torch.inference_mode():
+        enc = model.encode_image(feats, locs, mask, refine_image=True)
+        toks, lens = greedy_generate(model, enc, mask, 20)
+        lp = model.word_logits(enc[:, :4])
+    torch.cuda.synchronize()
+    c = launch_counts()
+    lse = torch.logsumexp(lp.float(), dim=-1)
+    out["caption"] = {"tokens_shape": list(toks.shape),
+                      "mean_length": lens.float().mean().item(),
+                      "packed_fwd": c["packed_fwd"],
+                      "logsumexp_max_abs": lse.abs().max().item()}
+    log(f"[variants] 17(e) greedy caption of 16 images through the asm "
+        f"head: {out['caption']}")
+    if (c["packed_fwd"] != c["packed_fwd_tensor_cores"]
+            or c["packed_fwd"] != model.cfg.n_layers + model.cfg.refine_layers):
+        fail(f"17(e): the caption call's #1 launches {c}")
+    if not torch.isfinite(lp).all() or out["caption"][
+            "logsumexp_max_abs"] > TOL_ASM_BF16:
+        fail("17(e): the asm log-probabilities are not normalized")
+    del state, model
+    torch.cuda.empty_cache()
+    out["fp32_card_vs_cpu"] = variant_fp32_vs_cpu(seed, "17(e) asm",
+                                                  asm=True)
+    return out
+
+
+def fusion_and_latent_slice(seed):
+    """17(f): ``encode_text`` with ``image_enc`` (the flagship width, bf16,
+    dropout 0.1) forward and backward on the card; `CrossAlignMatrix`,
+    `VaeEncoder` (both branches, the noise from one CPU generator on both
+    sides) and `LatentDecoder` in fp32 on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.model.misc import (
+        CrossAlignMatrix, LatentDecoder, VaeEncoder)
+    from m3p_tpu_torch.model.transformer import lengths_to_mask
+
+    cfg = dataclasses.replace(bench.bench_config(), image_fusion=True)
+    model = build_model(cfg, seed, "cuda").train()
+    rng = np.random.RandomState(seed + 19)
+    imgs = eval_images(rng, 16)
+    feats = torch.from_numpy(imgs["feats"]).cuda()
+    locs = torch.from_numpy(imgs["locs"]).cuda()
+    img_mask = lengths_to_mask(torch.from_numpy(imgs["img_len"]).cuda(),
+                               REGIONS)
+    toks = torch.from_numpy(rng.randint(5, cfg.n_words, (16, TEXT_LEN))
+                            ).cuda()
+    text_mask = lengths_to_mask(torch.from_numpy(
+        rng.randint(8, TEXT_LEN, 16)).cuda(), TEXT_LEN)
+    gens = Generators.from_seed(seed, "cuda")
+    zero_p17_counts()
+    enc = model.encode_image(feats, locs, img_mask, True, False, gens)
+    hidden = model.encode_text(toks, text_mask, deterministic=False,
+                               generator=gens, image_enc=enc,
+                               image_mask=img_mask)
+    hidden.float().square().mean().backward()
+    torch.cuda.synchronize()
+    c = launch_counts()
+    layers = 2 * cfg.n_layers + cfg.refine_layers
+    if (c["packed_fwd"], c["packed_bwd"]) != (layers, 2 * layers) or (
+            c["packed_fwd_tensor_cores"], c["packed_bwd_tensor_cores"]) != (
+            layers, 2 * layers):
+        fail(f"17(f): launches {c}")
+    grad = model.cross_align.align_output.weight.grad
+    if not (torch.isfinite(hidden).all() and grad is not None
+            and grad.abs().max().item() > 0):
+        fail("17(f): the image fusion gave no finite output or gradient")
+    out = {"launches": {k: c[k] for k in ("packed_fwd", "packed_bwd")},
+           "cross_align_grad_max": grad.abs().max().item()}
+    del model, enc, hidden
+    torch.cuda.empty_cache()
+    b, s, d = LATENT_SHAPE
+    gen = torch.Generator().manual_seed(seed + 23)
+    x = torch.randn(b, s, d, generator=gen)
+    c = torch.randn(b, s, d, generator=gen)
+    q = torch.randn(b, REGIONS, d, generator=gen)
+    q_mask = torch.rand(b, REGIONS, generator=gen) > 0.2
+    worst = {}
+    for name, make, args in (
+            ("cross_align", lambda: CrossAlignMatrix(d), (x, q, q_mask)),
+            ("latent_decoder", lambda: LatentDecoder(d), (x,)),
+            ("vae_deterministic", lambda: VaeEncoder(d), (x, c)),
+            ("vae_stochastic", lambda: VaeEncoder(d), (x, c))):
+        torch.manual_seed(seed)
+        cpu_mod = make()
+        for p in cpu_mod.parameters():
+            p.data.normal_(0, d ** -0.5, generator=gen)
+        card_mod = copy.deepcopy(cpu_mod).cuda()
+        results = []
+        for mod, dev in ((card_mod, "cuda"), (cpu_mod, "cpu")):
+            targs = [a.detach().clone().to(dev) for a in args]
+            targs[0].requires_grad_()
+            extra = ((torch.Generator().manual_seed(seed), False)
+                     if name == "vae_stochastic" else ())
+            y = mod(*targs, *extra)
+            if isinstance(y, tuple):
+                y = y[0] if y[1] is None else y[0].sum(-1) + y[1]
+            y.float().square().mean().backward()
+            results.append({"out": y.detach().cpu(),
+                            "input_grad": targs[0].grad.cpu(),
+                            **{n: p.grad.cpu()
+                               for n, p in mod.named_parameters()
+                               if p.grad is not None}})
+        largest = max(v.abs().max().item() for k, v in results[1].items()
+                      if k != "out")
+        errs = {}
+        for key, want in results[1].items():
+            # w_c . c_i and w_q's bias shift a row of the image softmax
+            # alike: their gradients are zero up to rounding, held against
+            # the module's largest gradient
+            scale = (largest if key in ZERO_GRAD_CROSS_ALIGN
+                     else want.abs().max().item())
+            errs[key] = ((results[0][key] - want).abs().max().item()
+                         / max(scale, 1e-30))
+        worst[name] = max(errs.values())
+        if worst[name] > TOL_GRAD_FP32:
+            fail(f"17(f) {name}: fp32 card vs CPU relative difference "
+                 f"{worst[name]:.3e} (tolerance {TOL_GRAD_FP32})")
+    out["fp32_card_vs_cpu_max_rel"] = worst
+    log(f"[variants] 17(f) image fusion {out['launches']}; fp32 card vs CPU, "
+        f"outputs and gradients, max relative {worst}")
+    return out
+
+
+def grid_int8_slice():
+    """17(g): `python -m m3p_tpu_torch.bench_eval_grid` on a small pool
+    (`P17_GRID`), bf16 then ``--int8``, in this process: pairs/s of each
+    and the int8 FFN GEMMs of the timed pass."""
+    import io
+
+    from m3p_tpu_torch import bench_eval_grid
+    from m3p_tpu_torch.ops import quant
+
+    out = {}
+    for flag in ((), ("--int8",), ("--int8",), ()):
+        buf = io.StringIO()
+        quant.zero_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_eval_grid.main(list(P17_GRID) + list(flag))
+        if rc != 0:
+            fail(f"17(g): bench_eval_grid {' '.join(flag)} exited {rc}")
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        key = "int8" if flag else "bf16"
+        out.setdefault(key, []).append(line["pairs_per_s"])
+        if flag and quant.int8_matmul_qbwd.calls_by_route["cpu"]:
+            fail("17(g): an int8 GEMM ran on the CPU route")
+        out[f"{key}_packed_fwd_launches"] = line["packed_fwd_launches"]
+        out[f"{key}_int8_gemms"] = quant.int8_matmul_qbwd.calls
+    out["pairs_per_s"] = {k: sum(out[k]) / 2 for k in ("bf16", "int8")}
+    log(f"[variants] 17(g) bench_eval_grid {' x '.join(P17_GRID)}: pairs/s "
+        f"bf16 {out['pairs_per_s']['bf16']:.1f}, --int8 "
+        f"{out['pairs_per_s']['int8']:.1f} (in turns {out['bf16']} / "
+        f"{out['int8']})")
+    return out
+
+
+def int8_variants_slice(seed):
+    """Phase 17: (a) the training GEMMs against the CPU, (b) the MCT step
+    under ``int8_bwd`` in turns with the float FFN, A and B, and a
+    learning check, (c) one step each of the other int8 modes, (d) MoE,
+    (e) the adaptive softmax, (f) image fusion and the latent modules,
+    (g) the grid tool's ``--int8``."""
+    import torch
+
+    t0 = time.time()
+    out, part_s = {}, {}
+
+    def lap(name):
+        part_s[name] = time.time() - t0 - sum(part_s.values())
+        torch.cuda.empty_cache()
+
+    out["gemms"] = train_gemms_vs_cpu(seed)
+    lap("gemms")
+    out["mct_B"], state, gens, batch = mct_int8_turns(seed, fused=True)
+    del state
+    lap("mct_B")
+    out["mct_A"], state, gens, batch = mct_int8_turns(seed, fused=False)
+    out["modes"] = int8_modes_steps(state, gens, batch)
+    del state, gens, batch
+    lap("mct_A_and_modes")
+    out["learning"] = int8_learning_check(seed)
+    lap("learning")
+    out["moe"] = moe_slice(seed)
+    lap("moe")
+    out["asm"] = asm_slice(seed)
+    lap("asm")
+    out["fusion"] = fusion_and_latent_slice(seed)
+    lap("fusion")
+    out["grid"] = grid_int8_slice()
+    lap("grid")
+    out["part_s"] = part_s
+    out["phase_s"] = time.time() - t0
+    log(f"[int8 train] phase 17: {out['phase_s']:.1f} s: "
+        f"{json.dumps(part_s)}")
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -7330,6 +8038,19 @@ def main() -> int:
                    "eval_int8": quant["eval"]["counts"]}
     quant_packed = {f"quant_{name}": c["packed_fwd"]
                     for name, c in quant_calls.items()}
+    torch.cuda.empty_cache()
+
+    variants = int8_variants_slice(args.seed)
+    p17_runs = {"int8_mct_A": variants["mct_A"]["launches"],
+                "int8_mct_B": variants["mct_B"]["launches"],
+                **{f"int8_mct_{mode}": r["packed"]
+                   for mode, r in variants["modes"].items()},
+                "moe_mct": variants["moe"]["launches"],
+                "asm_mct": variants["asm"]["launches"],
+                "fusion": variants["fusion"]["launches"]}
+    p17_fwd = {**{p: r["packed_fwd"] for p, r in p17_runs.items()},
+               "asm_caption": variants["asm"]["caption"]["packed_fwd"],
+               "grid_int8": variants["grid"]["int8_packed_fwd_launches"]}
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -7345,7 +8066,7 @@ def main() -> int:
                      + sum(gen_packed.values())
                      + sum(r["packed_fwd"] for r in fl_runs.values())
                      + sum(r["packed_fwd"] for r in ev_runs.values())
-                     + sum(quant_packed.values())),
+                     + sum(quant_packed.values()) + sum(p17_fwd.values())),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
@@ -7358,7 +8079,7 @@ def main() -> int:
                                 for p, r in fl_runs.items()},
                              **{p: r["packed_fwd"]
                                 for p, r in ev_runs.items()},
-                             **quant_packed},
+                             **quant_packed, **p17_fwd},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -7401,7 +8122,8 @@ def main() -> int:
                      + sum(dec_runs[p]["packed_bwd"] for p in dec_packed)
                      + sum(r["packed_bwd"] for r in fl_runs.values())
                      + sum(ev_runs[p]["packed_bwd"]
-                           for p in ("trainer",) + data_runs)),
+                           for p in ("trainer",) + data_runs)
+                     + sum(r["packed_bwd"] for r in p17_runs.values())),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
@@ -7411,7 +8133,9 @@ def main() -> int:
                              **{p: r["packed_bwd"]
                                 for p, r in fl_runs.items()},
                              **{p: ev_runs[p]["packed_bwd"]
-                                for p in ("trainer",) + data_runs}},
+                                for p in ("trainer",) + data_runs},
+                             **{p: r["packed_bwd"]
+                                for p, r in p17_runs.items()}},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],
@@ -7505,11 +8229,13 @@ def main() -> int:
         "replaces": "m3p_tpu/ops/dropout.py:35",
         "launches": (mct_b["dropout_fwd"]
                      + dec_runs["caption_fused"]["dropout_fwd"]
-                     + sum(fl_runs[p]["dropout_fwd"] for p in fl_fused)),
+                     + sum(fl_runs[p]["dropout_fwd"] for p in fl_fused)
+                     + p17_runs["int8_mct_B"]["dropout_fwd"]),
         "launches_by_path": {
             "mct_B": mct_b["dropout_fwd"],
             "caption_fused": dec_runs["caption_fused"]["dropout_fwd"],
-            **{p: fl_runs[p]["dropout_fwd"] for p in fl_fused}},
+            **{p: fl_runs[p]["dropout_fwd"] for p in fl_fused},
+            "int8_mct_B": p17_runs["int8_mct_B"]["dropout_fwd"]},
         "launches_per_step": mct["B"]["launches_per_step"]["dropout_fwd"],
         "launches_clcm_step": mct_clcm["dropout_fwd"],
         "design": drop_fwd["design"],
@@ -7539,11 +8265,13 @@ def main() -> int:
         "replaces": "m3p_tpu/ops/dropout.py:43",
         "launches": (mct_b["dropout_bwd"]
                      + dec_runs["caption_fused"]["dropout_bwd"]
-                     + sum(fl_runs[p]["dropout_bwd"] for p in fl_fused)),
+                     + sum(fl_runs[p]["dropout_bwd"] for p in fl_fused)
+                     + p17_runs["int8_mct_B"]["dropout_bwd"]),
         "launches_by_path": {
             "mct_B": mct_b["dropout_bwd"],
             "caption_fused": dec_runs["caption_fused"]["dropout_bwd"],
-            **{p: fl_runs[p]["dropout_bwd"] for p in fl_fused}},
+            **{p: fl_runs[p]["dropout_bwd"] for p in fl_fused},
+            "int8_mct_B": p17_runs["int8_mct_B"]["dropout_bwd"]},
         "launches_per_step": mct["B"]["launches_per_step"]["dropout_bwd"],
         "launches_clcm_step": mct_clcm["dropout_bwd"],
         "design": drop_bwd["design"],
@@ -7655,6 +8383,7 @@ def main() -> int:
     log(f"[trainer] {json.dumps(trainer)} on {card}")
     log(f"[datasets] {json.dumps(datasets)} on {card}")
     log(f"[quant] {json.dumps(quant)} on {card}")
+    log(f"[int8 train and variants] {json.dumps(variants)} on {card}")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -1,12 +1,15 @@
 """MCT pre-training throughput of the port on one GPU (the counterpart of
 the repo's ``bench.py``).
 
-    python -m m3p_tpu_torch.bench [--fused_dropout] [--seed 0]
+    python -m m3p_tpu_torch.bench [--fused_dropout] [--ffn_quant MODE]
+        [--seed 0]
 
 Runs the full multitask pre-training step -- 12 blocks, 768d, 12 heads,
 250002 words, the joint [100 regions; 64 tokens] encoder with the 3-layer
 AoA refiner, ITM + MC-MLM + MC-MRM + MRFR, on-device word and region
-masking, dropout and attention dropout 0.1, bf16 compute -- on a synthetic
+masking, dropout and attention dropout 0.1, bf16 compute, the FFNs through
+the int8 GEMMs with int8 backward passes (``ffn_quant="int8_bwd"``) -- on a
+synthetic
 batch of 20 groups x 4 candidates (BN = 80 joint sequences of 164 tokens,
 `make_pretrain_batch`), with ``MaskingConfig(max_pred=16)``, all lambdas
 1.0, the MLM slots packed at ``pack_ratio=0.25``, and bench.py's optimizer:
@@ -14,10 +17,8 @@ batch of 20 groups x 4 candidates (BN = 80 joint sequences of 164 tokens,
 mu_dtype=bfloat16,nu_dtype=bfloat16,master=1`` with clip 5.0.  3 warm-up
 and 20 timed steps, timed with CUDA events.  ``--fused_dropout`` sets
 ``use_fused_dropout``: every residual dropout of the encoder through the
-fused kernels.
-
-One cut against bench.py: ``ffn_quant="none"`` (the `ModelConfig`
-default) in place of bench.py's ``int8_bwd``; the int8 FFN is not ported.
+fused kernels.  This is bench.py's configuration with no cut;
+``--ffn_quant none`` runs the FFNs' float GEMMs for a comparison.
 
 FLOPs: `mct_step_flops` counts 3 x the forward's matrix products from the
 shapes (the backward is twice the forward): per joint sequence of S
@@ -29,7 +30,9 @@ slots, 2 slots d V; the object head (2 (d^2 + 1600 d)) and MRFR head
 (2 (2048 d)) over the packed region slots; the ITM pooler; and with CLCM a
 second joint encode.  Embedding gathers, LayerNorm, softmax, GELU and the
 optimizer are left out.  MFU is against 989 TFLOP/s, the H100 SXM dense
-bf16 peak.  The JSON line has no baseline ratio: no TPU or V100 figure is a
+bf16 peak.  The count and the peak are the same under ``int8_bwd``: its
+integer GEMMs do the same products, so its MFU compares with the float
+step's.  The JSON line has no baseline ratio: no TPU or V100 figure is a
 baseline for the port.
 """
 
@@ -62,17 +65,18 @@ OPTIM_SPEC = ("adam_inverse_sqrt,beta1=0.9,beta2=0.98,lr=0.00005,fused=1,"
               "mu_dtype=bfloat16,nu_dtype=bfloat16,master=1")
 CLIP = 5.0
 BF16_PEAK_FLOPS = 989e12
-CUT = ("ffn_quant none (bench.py runs int8_bwd; the int8 FFN is not "
-       "ported)")
+FFN_QUANT = "int8_bwd"
 
 
 def bench_config(fused_dropout: bool = False, n_layers: int = 12,
-                 dtype: str = "bfloat16", rate: float = 0.1) -> ModelConfig:
-    """bench.py's ModelConfig, with ``ffn_quant`` at its default."""
+                 dtype: str = "bfloat16", rate: float = 0.1,
+                 ffn_quant: str = FFN_QUANT) -> ModelConfig:
+    """bench.py's ModelConfig (`bench.py:56`, `:88`)."""
     return ModelConfig(n_words=250002, mask_index=250001, n_layers=n_layers,
                        emb_dim=768, n_heads=12, dropout=rate,
                        attention_dropout=rate, max_region_num=MAX_REGIONS,
-                       dtype=dtype, use_fused_dropout=fused_dropout)
+                       dtype=dtype, use_fused_dropout=fused_dropout,
+                       ffn_quant=ffn_quant)
 
 
 def mask_config(cfg: ModelConfig) -> MaskingConfig:
@@ -199,10 +203,15 @@ def main() -> None:
     p.add_argument("--fused_dropout", action="store_true",
                    help="use_fused_dropout: residual dropout through the "
                         "fused kernels")
+    p.add_argument("--ffn_quant", default=FFN_QUANT,
+                   choices=("int8_bwd", "none"),
+                   help="the FFNs' GEMMs: bench.py's int8 (default) or "
+                        "float, for a comparison")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = bench_config(fused_dropout=args.fused_dropout)
+    cfg = bench_config(fused_dropout=args.fused_dropout,
+                       ffn_quant=args.ffn_quant)
     state, step, gens = setup(cfg, args.seed, "cuda")
     batch = make_batch(0, "cuda")
     out = run(state, step, batch, gens)
@@ -226,9 +235,9 @@ def main() -> None:
                    "layers": cfg.n_layers, "dim": cfg.emb_dim,
                    "joint_seq": MAX_LEN + MAX_REGIONS,
                    "use_fused_dropout": cfg.use_fused_dropout,
+                   "ffn_quant": cfg.ffn_quant,
                    "optimizer": OPTIM_SPEC, "pack_ratio": PACK_RATIO,
-                   "warmup": out["warmup"], "steps": out["steps"],
-                   "cut": CUT},
+                   "warmup": out["warmup"], "steps": out["steps"]},
     }))
 
 

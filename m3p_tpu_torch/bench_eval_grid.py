@@ -3,7 +3,7 @@
 `m3p_tpu_torch.eval.retrieval.retrieval_grid_scores`.
 
     python -m m3p_tpu_torch.bench_eval_grid [n_img n_cap chunk] [--bucket]
-        [--once] [--caplen LO:HI] [--seed 0]
+        [--once] [--caplen LO:HI] [--int8] [--q8] [--seed 0]
 
 The flagship model (12 blocks, 768d, 12 heads, 3 AoA refiner layers,
 250002 words, bf16, random weights from ``--seed`` through `build_model`)
@@ -24,10 +24,14 @@ width) and the MFU against 989 TFLOP/s, and the card's name and power limit.
 adds ``q8_capture_secs``).  At the tool's chunks every block GEMM has more
 than `ops.quant.PREQUANT_MAX_M` rows and takes the plain GEMM, as in JAX.
 
+``--int8`` builds the model with ``ffn_quant="int8_bwd"``: every FFN
+GEMM through the dynamic int8 GEMM (`ops.quant.int8_matmul_qbwd`), as the
+JAX tool's flag does.  With ``--q8`` as well, ``--q8`` wins: the int8
+inference model replaces ``ffn_quant``, as in JAX.
+
 It runs on the card and exits non-zero without one.  ``--device cpu``,
 ``--n_layers`` and ``--n_words`` exist for the tests (a cut model on the
-CPU).  ``--int8`` (the JAX tool's dynamic int8 training GEMMs) is item 15b
-of ROADMAP.md and exits non-zero.
+CPU).
 """
 
 from __future__ import annotations
@@ -51,12 +55,14 @@ from m3p_tpu_torch.ops.attention import attention_packed
 TEXT_WIDTH, REGIONS = 64, 100
 
 
-def grid_config(n_layers: int = 12, n_words: int = 250002) -> ModelConfig:
+def grid_config(n_layers: int = 12, n_words: int = 250002,
+                ffn_quant: str = "none") -> ModelConfig:
     """The tool's model: the flagship width in bf16 (dropout 0.1 and
     attention dropout 0 as the JAX tool sets them; evaluation runs
     deterministic)."""
     return ModelConfig(n_words=n_words, mask_index=n_words - 1,
                        n_layers=n_layers, emb_dim=768, n_heads=12,
+                       ffn_quant=ffn_quant,
                        dropout=0.1, attention_dropout=0.0,
                        max_region_num=REGIONS, dtype="bfloat16")
 
@@ -129,16 +135,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--int8", action="store_true")
     p.add_argument("--q8", action="store_true")
     args = p.parse_args(argv)
-    if args.int8:
-        print("bench_eval_grid: --int8 (the dynamic int8 training GEMMs) is "
-              "item 15b of ROADMAP.md, not ported yet", file=sys.stderr)
-        return 2
     sizes = list(args.sizes) + [100, 500, 512][len(args.sizes):]
     n_img, n_cap, chunk = sizes[:3]
     lo, hi = (int(x) for x in args.caplen.split(":"))
     try:
-        model = build_model(grid_config(args.n_layers, args.n_words),
-                            args.seed, args.device)
+        model = build_model(
+            grid_config(args.n_layers, args.n_words,
+                        "int8_bwd" if args.int8 else "none"),
+            args.seed, args.device)
     except RuntimeError as exc:
         print(f"bench_eval_grid: {exc}", file=sys.stderr)
         return 2
@@ -163,7 +167,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     on_cuda = model.text_emb.word.weight.device.type == "cuda"
     print(json.dumps({
         "pairs": pairs, "chunk": chunk, "bucket": args.bucket,
-        "q8": args.q8, "q8_capture_secs": q8_secs,
+        "q8": args.q8, "ffn_quant": model.cfg.ffn_quant, "q8_capture_secs": q8_secs,
         "caplen": f"{lo}:{hi}", "secs": out["secs"],
         "pairs_per_s": pairs / out["secs"],
         "first_pass_secs": out.get("first_pass_secs"),

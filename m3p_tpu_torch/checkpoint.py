@@ -18,7 +18,10 @@ The weights bridge:
 * `params_from_jax` — a JAX parameter tree (nested dicts of numpy arrays)
   to the port's ``state_dict``: ``kernel`` -> ``weight`` transposed,
   ``ln/scale`` / ``ln/bias`` -> ``weight`` / ``bias``, ``embedding`` ->
-  ``weight``, ``bias`` -> ``bias``; module paths keep their names.
+  ``weight``, ``bias`` -> ``bias``; the raw arrays of ``moe_ffn``
+  (``router``, ``w1``, ``b1``, ``w2``, ``b2``) and ``cross_align``'s
+  ``cq_weight`` keep their names and layouts, none transposed; module
+  paths keep their names.
 * `params_to_jax` — the inverse, from a port model.
 * `grads_from_jax` — a JAX gradient tree (same structure as the parameter
   tree) to the port's names and layouts, to hold gradients leaf by leaf.
@@ -59,6 +62,20 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (key,), value
 
 
+# parameters that are raw arrays in JAX (not a Dense, LayerNorm or
+# Embedding): the port stores them under their JAX names in the JAX layout
+_RAW_PARAMS = {"moe_ffn": ("router", "w1", "b1", "w2", "b2"),
+               "cross_align": ("cq_weight",)}
+
+
+def _raw(mods: List[str], leaf: str) -> bool:
+    """A raw array of a module that holds them (or of such a module's own
+    tree, with no module path)."""
+    if mods:
+        return leaf in _RAW_PARAMS.get(mods[-1], ())
+    return any(leaf in names for names in _RAW_PARAMS.values())
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX parameter tree -> the port's state dict (fp32 CPU tensors)."""
     sd: Dict[str, torch.Tensor] = {}
@@ -73,7 +90,7 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         elif leaf == "embedding":
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf != "bias" and not _raw(mods, leaf):
             raise KeyError(f"unknown JAX parameter {'/'.join(path)}")
         sd[".".join(mods + [leaf])] = torch.tensor(arr)
     return sd

@@ -1,6 +1,7 @@
 """Model construction (counterpart of `m3p_tpu/model/__init__.py`), and the
 frozen-weight int8 tables of inference (`capture_q8`,
-`quantized_inference_model`)."""
+`quantized_inference_model`).  `shared_variant` builds a model of another
+configuration over the same parameters."""
 
 from __future__ import annotations
 
@@ -15,13 +16,15 @@ from m3p_tpu_torch.config import ModelConfig
 from m3p_tpu_torch.model.embeddings import (
     Embedding, SinusoidalPositions, sinusoidal_table)
 from m3p_tpu_torch.model.heads import PredLayer
-from m3p_tpu_torch.model.layers import Dense, LayerNorm
+from m3p_tpu_torch.model.layers import Dense, LayerNorm, MoEFFN
+from m3p_tpu_torch.model.misc import CrossAlignMatrix
 from m3p_tpu_torch.model.transformer import (
     M3PModel, lengths_to_mask, torch_dtype)
 from m3p_tpu_torch.ops.quant import Q8Table
 
 __all__ = ["M3PModel", "build_model", "capture_q8", "lengths_to_mask",
-           "q8_collection", "quantized_inference_model", "resolve_device"]
+           "q8_collection", "quantized_inference_model", "resolve_device",
+           "shared_variant"]
 
 # flax lecun_normal: a normal truncated at +-2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -38,19 +41,33 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return dev
 
 
+def _lecun_normal_(weight: torch.Tensor, fan_in: int,
+                   generator: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers, drawn from ``generator`` in module
-    order: lecun-normal Dense kernels, zero biases, N(0, dim^-0.5)
-    embeddings, unit LayerNorm scales; the fixed sinusoidal table is
-    filled in again."""
+    order: lecun-normal Dense kernels and raw kernels (fan-in: every
+    dimension but the last, as flax counts it), zero biases, N(0,
+    dim^-0.5) embeddings, unit LayerNorm scales; the fixed sinusoidal
+    table is filled in again."""
     for module in model.modules():
         if isinstance(module, Dense):
-            std = math.sqrt(1.0 / module.in_features) / _TRUNC_STD
-            nn.init.trunc_normal_(module.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=generator)
+            _lecun_normal_(module.weight, module.in_features, generator)
             if module.bias is not None:
                 module.bias.zero_()
+        elif isinstance(module, MoEFFN):
+            for w in (module.router, module.w1, module.w2):
+                _lecun_normal_(w, w.numel() // w.shape[-1], generator)
+            module.b1.zero_()
+            module.b2.zero_()
+        elif isinstance(module, CrossAlignMatrix):
+            _lecun_normal_(module.cq_weight, module.cq_weight.shape[0],
+                           generator)
         elif isinstance(module, Embedding):
             module.weight.normal_(0.0, module.embedding_dim ** -0.5,
                                   generator=generator)
@@ -62,15 +79,15 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(module, PredLayer):
             module.bias.zero_()
             if hasattr(module, "weight"):
-                std = math.sqrt(1.0 / module.weight.shape[1]) / _TRUNC_STD
-                nn.init.trunc_normal_(module.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=generator)
+                _lecun_normal_(module.weight, module.weight.shape[1],
+                               generator)
 
 
 def build_model(cfg: ModelConfig, seed: int = 0,
                 device: Union[str, torch.device] = "cuda") -> M3PModel:
     """Create the model on ``device`` with random weights drawn from
-    ``seed``.  Raises NotImplementedError for features outside the slice."""
+    ``seed``.  Raises NotImplementedError for features the port lacks
+    (`model.transformer.check_supported`)."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = M3PModel(cfg)
@@ -87,8 +104,10 @@ def capture_q8(model: M3PModel) -> int:
     through int8 into the modules' tables, from the weights as they are
     now; returns the tables' bytes.  Under ``ffn_quant="int8_infer"`` every
     block's fused self-attention Q/K/V, its self- and cross-attention
-    output projections and both FFN GEMMs; under ``head_quant=
-    "int8_infer"`` the tied vocab table.  The refiner stays unquantized.
+    output projections and both FFN GEMMs (an MoE block's experts stay
+    float, as in JAX); under ``head_quant="int8_infer"`` the tied vocab
+    table (none under ``asm``, whose head is the adaptive softmax).  The
+    refiner stays unquantized.
     These are the tables the JAX `capture_q8` pass writes into its "q8"
     collection (`q8_collection` names them so); the port quantizes the
     weights directly instead of running a dummy pass.  Call it again after
@@ -99,8 +118,9 @@ def capture_q8(model: M3PModel) -> int:
         for block in model.blocks:
             block.attn.capture_q8(dt, self_attention=True)
             block.encoder_attn.capture_q8(dt, self_attention=False)
-            block.ffn.capture_q8(dt)
-    if cfg.head_quant == "int8_infer":
+            if block.ffn is not None:
+                block.ffn.capture_q8(dt)
+    if cfg.head_quant == "int8_infer" and not cfg.asm:
         model.pred_layer.capture_q8(
             model.text_emb.word.weight if cfg.share_inout_emb
             else model.pred_layer.weight)
@@ -108,21 +128,28 @@ def capture_q8(model: M3PModel) -> int:
                if isinstance(t, Q8Table))
 
 
-def quantized_inference_model(model: M3PModel) -> M3PModel:
-    """The ``int8_infer`` variant of ``model`` (`m3p_tpu/model/__init__.py:
-    89-100`): the same configuration with ``ffn_quant`` and ``head_quant``
-    at "int8_infer", sharing ``model``'s parameters and buffers (so it
-    follows every update of them) and holding its own int8 tables, none
-    until `capture_q8`."""
-    cfg = dataclasses.replace(model.cfg, ffn_quant="int8_infer",
-                              head_quant="int8_infer")
+def shared_variant(model: M3PModel, **changes) -> M3PModel:
+    """A model of ``model``'s configuration with ``changes`` (fields of
+    `ModelConfig` that keep the parameter tree, such as ``ffn_quant``)
+    that shares ``model``'s parameters and buffers, so it follows every
+    update of them; the parameters come in the same order."""
     with torch.device("meta"):
-        quant = M3PModel(cfg)
+        variant = M3PModel(dataclasses.replace(model.cfg, **changes))
     source = dict(model.named_modules())
-    for name, module in quant.named_modules():
+    for name, module in variant.named_modules():
         module._parameters.update(source[name]._parameters)
         module._buffers.update(source[name]._buffers)
-    return quant.train(model.training)
+    return variant.train(model.training)
+
+
+def quantized_inference_model(model: M3PModel) -> M3PModel:
+    """The ``int8_infer`` variant of ``model`` (`m3p_tpu/model/__init__.py:
+    89-100`): the same configuration with ``ffn_quant`` at "int8_infer"
+    and ``head_quant`` too unless ``asm`` (which keeps its own), sharing
+    ``model``'s parameters and buffers (`shared_variant`) and holding its
+    own int8 tables, none until `capture_q8`."""
+    head = model.cfg.head_quant if model.cfg.asm else "int8_infer"
+    return shared_variant(model, ffn_quant="int8_infer", head_quant=head)
 
 
 def q8_collection(model: M3PModel) -> Dict[str, torch.Tensor]:
@@ -141,13 +168,13 @@ def q8_collection(model: M3PModel) -> Dict[str, torch.Tensor]:
                     wq, sw = table.jax_layout()
                     out[f"block_{i}/{attn_name}/{kind}_wq"] = wq
                     out[f"block_{i}/{attn_name}/{kind}_sw"] = sw
-        for lin in ("lin1", "lin2"):
+        for lin in ("lin1", "lin2") if block.ffn is not None else ():
             table = getattr(block.ffn, f"q8_{lin}")
             if table is not None:
                 wq, sw = table.jax_layout()
                 out[f"block_{i}/ffn/{lin}/wq"] = wq
                 out[f"block_{i}/ffn/{lin}/sw"] = sw
-    table = model.pred_layer.q8_emb
+    table = None if model.cfg.asm else model.pred_layer.q8_emb
     if table is not None:
         out["pred_layer/emb_wq"] = table.wq[:table.n]
         out["pred_layer/emb_sw"] = table.sw[:, :table.n].t()

@@ -19,7 +19,7 @@ from torch import nn
 
 from m3p_tpu_torch.model.layers import (
     Dense, Generators, LayerNorm, TransformerFFN, attention_dropout_args,
-    dropout)
+    dropout, quant_dense)
 from m3p_tpu_torch.ops.attention import attention_packed
 
 
@@ -123,11 +123,13 @@ class AoAAttention(nn.Module):
     """Attention whose context is concatenated with the query and GLU-gated
     (``aoa``), in place of an output projection.  ``attention_dropout``
     drops attention weights inside the kernels; ``dropout_aoa`` drops the
-    gate's input (`m3p_tpu/model/embeddings.py:160-194`)."""
+    gate's input (`m3p_tpu/model/embeddings.py:160-194`).  ``quant``
+    "int8", "int8_bwd" or "int8_all" routes the gate's GEMM through the
+    dynamic int8 GEMMs (`:195-200`)."""
 
     def __init__(self, n_heads: int, dim: int,
                  dtype: torch.dtype = torch.float32, dropout_aoa: float = 0.0,
-                 attention_dropout: float = 0.0):
+                 attention_dropout: float = 0.0, quant: str = "none"):
         super().__init__()
         self.n_heads = n_heads
         self.dropout_aoa = dropout_aoa
@@ -135,7 +137,7 @@ class AoAAttention(nn.Module):
         self.q_lin = Dense(dim, dim, dtype)
         self.k_lin = Dense(dim, dim, dtype)
         self.v_lin = Dense(dim, dim, dtype)
-        self.aoa = Dense(2 * dim, 2 * dim, dtype)
+        self.aoa = quant_dense(2 * dim, 2 * dim, dtype, quant)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 deterministic: bool = True,
@@ -153,18 +155,21 @@ class AoAAttention(nn.Module):
 
 class AoARefinerLayer(nn.Module):
     """Pre-LN: x = x + drop(aoa(LN(x))); x = x + drop(ffn(LN(x))), the FFN
-    applying its own output dropout first, as in the JAX layer."""
+    applying its own output dropout first, as in the JAX layer.  ``quant``
+    goes to the FFN only, as the JAX layer passes it
+    (`m3p_tpu/model/embeddings.py:218-242`); the model builds its refiner
+    without it (`m3p_tpu/model/transformer.py:70-75`)."""
 
     def __init__(self, n_heads: int, dim: int, ffn_dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 attention_dropout: float = 0.0):
+                 attention_dropout: float = 0.0, quant: str = "none"):
         super().__init__()
         self.dropout = dropout
         self.ln_attn = LayerNorm(dim, dtype)
         self.aoa_attn = AoAAttention(n_heads, dim, dtype, dropout,
                                      attention_dropout)
         self.ln_ffn = LayerNorm(dim, dtype)
-        self.ffn = TransformerFFN(dim, ffn_dim, True, dtype, dropout)
+        self.ffn = TransformerFFN(dim, ffn_dim, True, dtype, dropout, quant)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
                 deterministic: bool = True,
@@ -176,16 +181,17 @@ class AoARefinerLayer(nn.Module):
 
 
 class AoARefiner(nn.Module):
-    """``n_layers`` refiner layers (``layer_<i>``) and a final ``ln_out``."""
+    """``n_layers`` refiner layers (``layer_<i>``) and a final ``ln_out``;
+    ``quant`` goes to every layer."""
 
     def __init__(self, n_heads: int, dim: int, ffn_dim: int, n_layers: int = 3,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 attention_dropout: float = 0.0):
+                 attention_dropout: float = 0.0, quant: str = "none"):
         super().__init__()
         self.layers = []
         for i in range(n_layers):
             layer = AoARefinerLayer(n_heads, dim, ffn_dim, dtype, dropout,
-                                    attention_dropout)
+                                    attention_dropout, quant)
             self.add_module(f"layer_{i}", layer)
             self.layers.append(layer)
         self.ln_out = LayerNorm(dim, dtype)

@@ -1,13 +1,13 @@
 """Prediction heads (counterpart of `m3p_tpu/model/heads.py`).
 
-The serving slice calls only the ITM `Pooler`; the other heads are here so
-that every parameter of the JAX tree loads strictly.  `AdaptiveSoftmax`
-waits for a later slice.
+`PredLayer` is the word head (tied, or with its own weight), in float,
+frozen-weight int8 or dynamic int8 (``head_quant="int8_bwd"``);
+`AdaptiveSoftmax` the ``asm`` head in its place.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -15,7 +15,45 @@ from torch import nn
 
 from m3p_tpu_torch.model.layers import Dense, LayerNorm
 from m3p_tpu_torch.ops.activations import gelu_erf
-from m3p_tpu_torch.ops.quant import Q8Table, int8_matmul_nt_pre
+from m3p_tpu_torch.ops.quant import (
+    Q8Table, int8_matmul, int8_matmul_nt, int8_matmul_nt_pre)
+
+
+class AdaptiveSoftmax(nn.Module):
+    """The adaptive softmax (`m3p_tpu/model/heads.py:28-68`): the ``head``
+    scores the ``cutoffs[0]`` most frequent words plus one slot per tail
+    cluster; tail cluster i projects down to max(int(dim / div^(i+1)), 1)
+    (``tail_<i>_proj``) and scores its word range (``tail_<i>_out``).
+    Returns the full normalized log-probabilities (..., n_words) in the
+    compute dtype: their logsumexp is 0, so they stand in for the word
+    head's logits in the losses and in generation."""
+
+    def __init__(self, n_words: int, dim: int,
+                 cutoffs: Tuple[int, ...] = (8000, 20000),
+                 div_value: float = 4.0, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.edges = list(cutoffs) + [n_words]
+        self.compute_dtype = dtype
+        n_clusters = len(self.edges) - 1
+        self.head = Dense(dim, self.edges[0] + n_clusters, dtype)
+        self.tails = []
+        for i in range(n_clusters):
+            proj_dim = max(int(dim / div_value ** (i + 1)), 1)
+            proj = Dense(dim, proj_dim, dtype, bias=False)
+            out = Dense(proj_dim, self.edges[i + 1] - self.edges[i], dtype,
+                        bias=False)
+            self.add_module(f"tail_{i}_proj", proj)
+            self.add_module(f"tail_{i}_out", out)
+            self.tails.append((proj, out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        head_lp = torch.log_softmax(self.head(x).float(), dim=-1)
+        cut = self.edges[0]
+        parts = [head_lp[..., :cut]]
+        for i, (proj, out) in enumerate(self.tails):
+            tail_lp = torch.log_softmax(out(proj(x)).float(), dim=-1)
+            parts.append(head_lp[..., cut + i:cut + i + 1] + tail_lp)
+        return torch.cat(parts, dim=-1).to(self.compute_dtype)
 
 
 class PredLayer(nn.Module):
@@ -26,15 +64,21 @@ class PredLayer(nn.Module):
     `m3p_tpu/model/heads.py:94-126`) the GEMM runs through
     `int8_matmul_nt_pre` at every row count; the table's rows are padded
     to a multiple of 8 (the CUDA GEMM's rule for N) and the logits cut
-    back to ``n_words``."""
+    back to ``n_words``.
+
+    ``quant="int8_bwd"`` (`:127-139`) routes the GEMM through the dynamic
+    int8 GEMMs, forward and backward: tied through `int8_matmul_nt` over
+    the (V, D) table, untied through `int8_matmul` over the (D, V)
+    kernel."""
 
     def __init__(self, n_words: int, dim: int, tied: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant: str = "none"):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(n_words))
         if not tied:
             self.weight = nn.Parameter(torch.empty(n_words, dim))
         self.compute_dtype = dtype
+        self.quant = quant
         self.q8_emb: Optional[Q8Table] = None
 
     def capture_q8(self, table: torch.Tensor) -> None:
@@ -52,6 +96,14 @@ class PredLayer(nn.Module):
             logits = int8_matmul_nt_pre(x2d, q8.wq, q8.sw.t())[:, :q8.n]
             return (logits + self.bias.to(dt)).reshape(*x.shape[:-1], q8.n)
         table = self.weight if embedding is None else embedding
+        if self.quant == "int8_bwd":
+            x2d = x.reshape(-1, x.shape[-1])
+            if embedding is None:
+                logits = int8_matmul(x2d, table.to(dt).t())
+            else:
+                logits = int8_matmul_nt(x2d, table.to(dt))
+            n = table.shape[0]
+            return logits.reshape(*x.shape[:-1], n) + self.bias.to(dt)
         return F.linear(x.to(dt), table.to(dt), self.bias.to(dt))
 
 

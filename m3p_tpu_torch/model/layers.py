@@ -16,6 +16,12 @@ Frozen-weight int8 inference (``int8_infer``): `MultiHeadAttention` and
 `TransformerFFN` hold optional `ops.quant.Q8Table`s (``q8_qkv``,
 ``q8_out``, ``q8_lin1``, ``q8_lin2``) that `model.capture_q8` fills; a
 module without tables computes its plain GEMMs.
+
+Dynamic int8 training (``ffn_quant`` "int8", "int8_bwd", "int8_all"):
+`QuantDense` routes a Dense GEMM through `ops.quant.int8_matmul` or
+`int8_matmul_qbwd`; under "int8_all" self-attention projects Q, K and V
+as one `int8_matmul_qbwd` GEMM.  `MoEFFN` is the expert-choice
+mixture-of-experts FFN of ``moe_experts``.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from m3p_tpu_torch.ops.activations import gelu_erf
 from m3p_tpu_torch.ops.attention import attention, attention_bhsd
 from m3p_tpu_torch.ops.dropout import fused_dropout_add
 from m3p_tpu_torch.ops.quant import (
-    GATE_COUNTS, PREQUANT_MAX_M, Q8Table, gated_linear)
+    GATE_COUNTS, PREQUANT_MAX_M, Q8Table, gated_linear, int8_matmul,
+    int8_matmul_qbwd)
+from m3p_tpu_torch.ops.topk import top_k
 
 LN_EPS = 1e-12
 
@@ -135,6 +143,40 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+class QuantDense(Dense):
+    """A `Dense` whose GEMM runs through the dynamic int8 GEMMs, with the
+    Dense's parameters (`m3p_tpu/model/layers.py:339-394`): ``quant_bwd``
+    False is `int8_matmul` (straight-through backward), True
+    `int8_matmul_qbwd` over the flattened rows (int8 dgrad and wgrad).
+    The bias is added after the GEMM in the compute dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32, quant_bwd: bool = False):
+        super().__init__(in_features, out_features, dtype)
+        self.quant_bwd = quant_bwd
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        xc, kernel = x.to(dt), self.weight.to(dt).t()
+        if self.quant_bwd:
+            y = int8_matmul_qbwd(xc.reshape(-1, xc.shape[-1]), kernel)
+            y = y.reshape(*xc.shape[:-1], self.out_features)
+        else:
+            y = int8_matmul(xc, kernel)
+        return y + self.bias.to(dt)
+
+
+def quant_dense(in_features: int, out_features: int, dtype: torch.dtype,
+                quant: str) -> Dense:
+    """The Dense of a dynamic int8 mode (`m3p_tpu/model/layers.py:
+    416-422`): `QuantDense` under "int8" (straight-through) and "int8_bwd"
+    / "int8_all" (int8 backward), a plain `Dense` under any other mode."""
+    if quant in ("int8", "int8_bwd", "int8_all"):
+        return QuantDense(in_features, out_features, dtype,
+                          quant_bwd=quant != "int8")
+    return Dense(in_features, out_features, dtype)
+
+
 class LayerNorm(nn.Module):
     """fp32 LayerNorm (eps 1e-12) returning the compute dtype."""
 
@@ -178,13 +220,21 @@ class MultiHeadAttention(nn.Module):
     without a cache at B * S <= `PREQUANT_MAX_M` rows projects Q, K and V as
     one int8 GEMM over ``q8_qkv`` (the (3D, D) concatenation of the three
     weights); the output projection takes ``q8_out`` at up to
-    `PREQUANT_MAX_M` rows, decode steps and cross-attention included."""
+    `PREQUANT_MAX_M` rows, decode steps and cross-attention included.
+
+    ``quant="int8_bwd"`` (`:92-109`, `:184-196`): self-attention without
+    a cache projects Q, K and V as one `int8_matmul_qbwd` GEMM over the
+    concatenated weights, int8 in the backward too; its three projections
+    feed the packed kernels as the plain ones do.  Cross-attention, the
+    cache branch and the output projection keep the float GEMMs."""
 
     def __init__(self, n_heads: int, dim: int,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 quant: str = "none"):
         super().__init__()
         self.n_heads = n_heads
         self.dropout = dropout
+        self.quant = quant
         self.q_lin = Dense(dim, dim, dtype)
         self.k_lin = Dense(dim, dim, dtype)
         self.v_lin = Dense(dim, dim, dtype)
@@ -208,7 +258,9 @@ class MultiHeadAttention(nn.Module):
         rate, seed = attention_dropout_args(self.dropout, deterministic,
                                             generator)
         q8 = self.q8_qkv if kv is None else None
-        if q8 is not None and x.shape[0] * x.shape[1] <= PREQUANT_MAX_M:
+        if self.quant == "int8_bwd" and kv is None:
+            q, k, v = self._fused_int8_qkv(x)
+        elif q8 is not None and x.shape[0] * x.shape[1] <= PREQUANT_MAX_M:
             GATE_COUNTS["int8"] += 1
             bias = torch.cat([self.q_lin.bias, self.k_lin.bias,
                               self.v_lin.bias]).to(q8.dtype)
@@ -221,6 +273,18 @@ class MultiHeadAttention(nn.Module):
         ctx = attention(q, k, v, kv_mask, self.n_heads, causal=causal,
                         dropout_rate=rate, dropout_seed=seed)
         return self._project_out(ctx)
+
+    def _fused_int8_qkv(self, x: torch.Tensor):
+        """Q, K and V of self-attention as one int8 GEMM against the (D, 3D)
+        concatenation of the three kernels, the activations quantized once
+        (`m3p_tpu/model/layers.py:92-109`)."""
+        dt = self.q_lin.compute_dtype
+        lins = (self.q_lin, self.k_lin, self.v_lin)
+        kernel = torch.cat([lin.weight for lin in lins]).to(dt).t()
+        bias = torch.cat([lin.bias for lin in lins]).to(dt)
+        b, s, d = x.shape
+        out = int8_matmul_qbwd(x.reshape(-1, d).to(dt), kernel)
+        return (out.reshape(b, s, 3 * d) + bias).chunk(3, dim=-1)
 
     def _project_out(self, ctx: torch.Tensor) -> torch.Tensor:
         """The output projection; int8 over ``q8_out`` at up to
@@ -295,13 +359,15 @@ class TransformerFFN(nn.Module):
     with the residual add).  With int8 tables ``q8_lin1`` / ``q8_lin2``
     each GEMM takes int8 at up to `PREQUANT_MAX_M` rows, the plain GEMM
     above (the JAX ``QuantDense`` prequant branch,
-    `m3p_tpu/model/layers.py:370-395`)."""
+    `m3p_tpu/model/layers.py:370-395`).  ``quant`` "int8", "int8_bwd" or
+    "int8_all" makes ``lin1`` and ``lin2`` `QuantDense`s (`:397-432`)."""
 
     def __init__(self, dim: int, hidden_dim: int, gelu_activation: bool = True,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 quant: str = "none"):
         super().__init__()
-        self.lin1 = Dense(dim, hidden_dim, dtype)
-        self.lin2 = Dense(hidden_dim, dim, dtype)
+        self.lin1 = quant_dense(dim, hidden_dim, dtype, quant)
+        self.lin2 = quant_dense(hidden_dim, dim, dtype, quant)
         self.gelu_activation = gelu_activation
         self.dropout = dropout
         self.q8_lin1: Optional[Q8Table] = None
@@ -321,6 +387,62 @@ class TransformerFFN(nn.Module):
         if skip_dropout:
             return h
         return dropout(h, self.dropout, deterministic, generator)
+
+
+class MoEFFN(nn.Module):
+    """Mixture-of-experts FFN with expert-choice routing
+    (`m3p_tpu/model/layers.py:435-519`): an fp32 softmax over the experts'
+    router logits; each expert takes its top C = min(T, max(1, int(cf * T
+    / E))) of the T tokens by affinity (the stable `ops.topk.top_k`, in
+    `lax.top_k`'s order of ties), runs them through its GELU (or ReLU)
+    MLP, weights the outputs by their affinities and adds them back to
+    their tokens; a token no expert took outputs zero.  Dropout after, as
+    the dense FFN, unless ``skip_dropout``.
+
+    The parameters are the JAX module's raw arrays in its layouts, none
+    transposed: ``router`` (D, E) fp32, ``w1`` (E, D, H), ``b1`` (E, H),
+    ``w2`` (E, H, D), ``b2`` (E, D).  The expert GEMMs are batched
+    products (`torch.bmm`), the return an `index_add_`."""
+
+    def __init__(self, dim: int, hidden_dim: int, n_experts: int,
+                 capacity_factor: float = 2.0, gelu_activation: bool = True,
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__()
+        e = n_experts
+        self.n_experts = e
+        self.capacity_factor = capacity_factor
+        self.gelu_activation = gelu_activation
+        self.compute_dtype = dtype
+        self.dropout = dropout
+        self.router = nn.Parameter(torch.empty(dim, e))
+        self.w1 = nn.Parameter(torch.empty(e, dim, hidden_dim))
+        self.b1 = nn.Parameter(torch.zeros(e, hidden_dim))
+        self.w2 = nn.Parameter(torch.empty(e, hidden_dim, dim))
+        self.b2 = nn.Parameter(torch.zeros(e, dim))
+
+    def capacity(self, tokens: int) -> int:
+        """C, the tokens each expert takes out of ``tokens``."""
+        return min(tokens, max(1, int(self.capacity_factor * tokens
+                                      / self.n_experts)))
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[Generators] = None,
+                skip_dropout: bool = False) -> torch.Tensor:
+        b, s, d = x.shape
+        dt = self.compute_dtype
+        xt = x.reshape(b * s, d)
+        affinity = torch.softmax(xt.float() @ self.router.float(), dim=-1)
+        gates, idx = top_k(affinity.t(), self.capacity(b * s))   # (E, C)
+        xe = xt[idx]                                              # (E, C, D)
+        h = torch.bmm(xe.to(dt), self.w1.to(dt)) + self.b1[:, None].to(dt)
+        h = gelu_erf(h) if self.gelu_activation else F.relu(h)
+        ye = torch.bmm(h, self.w2.to(dt)) + self.b2[:, None].to(dt)
+        ye = ye * gates[..., None].to(dt)
+        y = xt.new_zeros((b * s, d), dtype=dt).index_add(
+            0, idx.reshape(-1), ye.reshape(-1, d)).reshape(b, s, d)
+        if skip_dropout:
+            return y
+        return dropout(y, self.dropout, deterministic, generator)
 
 
 class EncoderBlock(nn.Module):
@@ -344,26 +466,42 @@ class EncoderBlock(nn.Module):
     With a `LayerCache` the block takes one decode step (deterministic,
     `:603-617`): the self cache goes to ``attn`` (written at ``pos``), the
     cross cache to ``encoder_attn`` (without one it projects ``src_enc``
-    at every step)."""
+    at every step).
+
+    ``ffn_quant`` goes to the FFN; under "int8_all" both attentions take
+    ``quant="int8_bwd"`` (`:543-549`).  ``moe_experts`` > 0 puts a
+    `MoEFFN` (``moe_ffn``) in place of the dense ``ffn`` (`:555-562`); such
+    a block refuses a causal call, since expert-choice routing picks
+    tokens over the whole sequence."""
 
     def __init__(self, n_heads: int, dim: int, ffn_dim: int,
                  gelu_activation: bool = True,
                  has_cross_attention: bool = False,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
                  attention_dropout: float = 0.0,
-                 use_fused_dropout: bool = False):
+                 use_fused_dropout: bool = False, ffn_quant: str = "none",
+                 moe_experts: int = 0, moe_capacity_factor: float = 2.0):
         super().__init__()
         self.dropout = dropout
         self.use_fused_dropout = use_fused_dropout
         self.has_cross_attention = has_cross_attention
-        self.attn = MultiHeadAttention(n_heads, dim, dtype, attention_dropout)
+        attn_quant = "int8_bwd" if ffn_quant == "int8_all" else "none"
+        self.attn = MultiHeadAttention(n_heads, dim, dtype, attention_dropout,
+                                       attn_quant)
         self.ln1 = LayerNorm(dim, dtype)
         if has_cross_attention:
-            self.encoder_attn = MultiHeadAttention(n_heads, dim, dtype,
-                                                   attention_dropout)
+            self.encoder_attn = MultiHeadAttention(
+                n_heads, dim, dtype, attention_dropout, attn_quant)
             self.ln15 = LayerNorm(dim, dtype)
-        self.ffn = TransformerFFN(dim, ffn_dim, gelu_activation, dtype,
-                                  dropout)
+        if moe_experts > 0:
+            self.moe_ffn = MoEFFN(dim, ffn_dim, moe_experts,
+                                  moe_capacity_factor, gelu_activation,
+                                  dtype, dropout)
+            self.ffn = None
+        else:
+            self.ffn = TransformerFFN(dim, ffn_dim, gelu_activation, dtype,
+                                      dropout, ffn_quant)
+            self.moe_ffn = None
         self.ln2 = LayerNorm(dim, dtype)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
@@ -378,6 +516,10 @@ class EncoderBlock(nn.Module):
         over the positions before ``pos`` + S."""
         if cache is not None and not deterministic:
             raise ValueError("a decode step with a cache is deterministic")
+        if causal and self.moe_ffn is not None:
+            raise ValueError("MoE (expert-choice) blocks do not support "
+                             "causal decoding")
+        ffn = self.ffn if self.moe_ffn is None else self.moe_ffn
         fused = (self.use_fused_dropout and not deterministic
                  and self.dropout > 0)
         if fused and generator is None:
@@ -403,9 +545,9 @@ class EncoderBlock(nn.Module):
                                   generator, kv=src_enc, cache=cross_kv),
                 x))
         if fused:
-            h = self.ffn(x, deterministic, generator, skip_dropout=True)
+            h = ffn(x, deterministic, generator, skip_dropout=True)
             x = self.ln2(residual(h, x))
         else:
             # the FFN applied its own output dropout (the reference layout)
-            x = self.ln2(x + self.ffn(x, deterministic, generator))
+            x = self.ln2(x + ffn(x, deterministic, generator))
         return x * pad_mask[..., None].to(x.dtype)

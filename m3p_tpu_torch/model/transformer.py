@@ -17,9 +17,14 @@ The forward topologies, each over the one shared stack of post-LN blocks
 * ``decode_image`` -- a causal image stream with cross-attention over a
   text encoding: the TIFG generator.
 
-Heads: the tied word head (`word_logits`), the object, ITM, CLCM and MRFR
-heads.  Incremental decoding (`model/generation.py`) runs ``encode_text``
-with a `DecodeCache` (`init_cache`, `init_decode_cache`): per-block
+Heads: the tied word head (`word_logits`; the adaptive softmax
+``pred_layer_asm`` under ``asm``), the object, ITM, CLCM and MRFR heads.
+The variants of the configuration: the dynamic int8 modes (``ffn_quant``
+"int8", "int8_bwd", "int8_all"; ``head_quant="int8_bwd"``), an
+expert-choice MoE FFN on every ``moe_interval``-th block, and the BiDAF
+image fusion ``cross_align`` under ``image_fusion``.  Incremental
+decoding (`model/generation.py`) runs ``encode_text`` with a
+`DecodeCache` (`init_cache`, `init_decode_cache`): per-block
 self-attention keys and values written in place and the source's
 cross-attention keys and values projected once.  The module tree mirrors
 the JAX parameter tree
@@ -38,9 +43,11 @@ from torch import nn
 from m3p_tpu_torch.config import ModelConfig
 from m3p_tpu_torch.model.embeddings import (
     AoARefiner, ImageEmbeddings, TextEmbeddings)
-from m3p_tpu_torch.model.heads import MRFRHead, ObjPredLayer, Pooler, PredLayer
+from m3p_tpu_torch.model.heads import (
+    AdaptiveSoftmax, MRFRHead, ObjPredLayer, Pooler, PredLayer)
 from m3p_tpu_torch.model.layers import (
     EncoderBlock, Generators, KVCache, LayerCache, dropout)
+from m3p_tpu_torch.model.misc import CrossAlignMatrix
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -51,31 +58,24 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-QUANT_MODES = ("none", "int8_infer")
+FFN_QUANT_MODES = ("none", "int8", "int8_bwd", "int8_all", "int8_infer")
+HEAD_QUANT_MODES = ("none", "int8_bwd", "int8_infer")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for config features the port lacks.  Of
-    the quantized modes only the frozen-weight ``int8_infer`` is ported;
-    the training modes (``int8``, ``int8_bwd``, ``int8_all``) are item 15b
-    of ROADMAP.md."""
-    unsupported = {
-        "asm": cfg.asm,
-        "image_fusion": cfg.image_fusion,
-        "moe_experts": cfg.moe_experts > 0,
-        "seq_axis": cfg.seq_axis is not None,
-    }
-    used = [name for name, on in unsupported.items() if on]
-    if used:
+    """Raise for config features the port lacks: sequence parallelism
+    (``seq_axis``, item 16 of ROADMAP.md) and a ``param_dtype`` other than
+    fp32 (NotImplementedError); an unknown quantization mode
+    (ValueError)."""
+    if cfg.seq_axis is not None:
         raise NotImplementedError(
-            f"the PyTorch port does not support {', '.join(used)} yet")
-    for name in ("ffn_quant", "head_quant"):
-        mode = getattr(cfg, name)
-        if mode not in QUANT_MODES:
-            raise NotImplementedError(
-                f"{name}={mode!r}: the port runs {QUANT_MODES}; the int8 "
-                f"training modes (int8, int8_bwd, int8_all) are item 15b of "
-                f"ROADMAP.md, not ported yet")
+            "the PyTorch port does not support seq_axis (sequence "
+            "parallelism) yet")
+    for name, modes in (("ffn_quant", FFN_QUANT_MODES),
+                        ("head_quant", HEAD_QUANT_MODES)):
+        if getattr(cfg, name) not in modes:
+            raise ValueError(f"unknown {name} {getattr(cfg, name)!r}; "
+                             f"known: {modes}")
     if cfg.param_dtype != "float32":
         raise NotImplementedError("the PyTorch port stores parameters in "
                                   "float32 only")
@@ -141,14 +141,33 @@ class M3PModel(nn.Module):
                                  has_cross_attention=True, dtype=dt,
                                  dropout=cfg.dropout,
                                  attention_dropout=cfg.attention_dropout,
-                                 use_fused_dropout=cfg.use_fused_dropout)
+                                 use_fused_dropout=cfg.use_fused_dropout,
+                                 ffn_quant=cfg.ffn_quant,
+                                 moe_experts=self._moe(i),
+                                 moe_capacity_factor=cfg.moe_capacity_factor)
             self.add_module(f"block_{i}", block)
             self.blocks.append(block)
-        self.pred_layer = PredLayer(cfg.n_words, d, cfg.share_inout_emb, dt)
+        if cfg.asm:
+            self.pred_layer_asm = AdaptiveSoftmax(
+                cfg.n_words, d, tuple(cfg.asm_cutoffs), cfg.asm_div_value,
+                dt)
+        else:
+            self.pred_layer = PredLayer(cfg.n_words, d, cfg.share_inout_emb,
+                                        dt, cfg.head_quant)
+        if cfg.image_fusion:
+            self.cross_align = CrossAlignMatrix(d, dt)
         self.obj_pred = ObjPredLayer(cfg.n_obj_classes, d, dt)
         self.itm_pooler = Pooler(d, dt)
         self.clcm_pooler = Pooler(d, dt)
         self.mrfr_head = MRFRHead(d, cfg.img_feat_dim, dt)
+
+    def _moe(self, i: int) -> int:
+        """The experts of block ``i``: every ``moe_interval``-th block
+        carries the MoE FFN (`m3p_tpu/model/transformer.py:81-85`)."""
+        cfg = self.cfg
+        if cfg.moe_experts > 0 and (i + 1) % cfg.moe_interval == 0:
+            return cfg.moe_experts
+        return 0
 
     def encode_joint(self, tokens: torch.Tensor, text_mask: torch.Tensor,
                      feats: torch.Tensor, locs: torch.Tensor,
@@ -204,15 +223,25 @@ class M3PModel(nn.Module):
                    positions: Optional[torch.Tensor] = None,
                    deterministic: bool = True,
                    generator: Optional[Generators] = None,
-                   token_embeds: Optional[torch.Tensor] = None
+                   token_embeds: Optional[torch.Tensor] = None,
+                   image_enc: Optional[torch.Tensor] = None,
+                   image_mask: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
         """Word + position (+ language) embeddings, LN and dropout, then
         the padding zeroed: the pre-block half of `encode_text`
-        (`m3p_tpu/model/transformer.py:147-167`, without the BiDAF image
-        fusion).  ``token_embeds`` replaces the word lookup (freeLB)."""
+        (`m3p_tpu/model/transformer.py:147-167`).  ``token_embeds``
+        replaces the word lookup (freeLB).  ``image_enc`` (B, R, D) with
+        ``image_mask`` (B, R) fuses an image encoding into the text
+        through ``cross_align`` (``image_fusion`` models only)."""
         x = self.text_emb(tokens, positions, langs, deterministic, generator,
                           token_embeds)
-        return x * text_mask[..., None].to(x.dtype)
+        x = x * text_mask[..., None].to(x.dtype)
+        if image_enc is not None and image_mask is not None:
+            if not self.cfg.image_fusion:
+                raise ValueError("image_enc needs a model built with "
+                                 "image_fusion=True")
+            x = self.cross_align(x, image_enc, image_mask)
+        return x
 
     def encode_text(self, tokens: torch.Tensor, text_mask: torch.Tensor,
                     langs: Optional[torch.Tensor] = None,
@@ -223,7 +252,9 @@ class M3PModel(nn.Module):
                     src_enc: Optional[torch.Tensor] = None,
                     src_mask: Optional[torch.Tensor] = None,
                     cache: Optional[DecodeCache] = None,
-                    token_embeds: Optional[torch.Tensor] = None
+                    token_embeds: Optional[torch.Tensor] = None,
+                    image_enc: Optional[torch.Tensor] = None,
+                    image_mask: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
         """The text stream (`m3p_tpu/model/transformer.py:169-191`): (B, S)
         tokens -> (B, S, D).  ``causal`` masks the future; ``src_enc``
@@ -235,10 +266,13 @@ class M3PModel(nn.Module):
         (deterministic; ``causal`` then has no effect, the cache mask ends
         at the step), updating the cache in place; attention goes
         head-major through `ops.attention.attention_bhsd`.
-        ``token_embeds`` (B, S, D) replaces the word lookup (freeLB)."""
+        ``token_embeds`` (B, S, D) replaces the word lookup (freeLB);
+        ``image_enc`` / ``image_mask`` the BiDAF image fusion (see
+        `embed_text`)."""
         _check_generators("encode_text", deterministic, generator)
         x = self.embed_text(tokens, text_mask, langs, positions,
-                            deterministic, generator, token_embeds)
+                            deterministic, generator, token_embeds,
+                            image_enc, image_mask)
         return self._run_blocks(x, text_mask, causal, src_enc, src_mask,
                                 deterministic, generator, cache)
 
@@ -323,7 +357,10 @@ class M3PModel(nn.Module):
 
     def word_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """(..., D) -> (..., n_words) through the tied word table and the
-        per-word bias (`m3p_tpu/model/transformer.py:347-354`)."""
+        per-word bias, or under ``asm`` the adaptive softmax's normalized
+        log-probabilities (`m3p_tpu/model/transformer.py:346-353`)."""
+        if self.cfg.asm:
+            return self.pred_layer_asm(hidden)
         table = (self.text_emb.word.weight if self.cfg.share_inout_emb
                  else None)
         return self.pred_layer(hidden, embedding=table)

@@ -1,28 +1,46 @@
-"""Frozen-weight int8 GEMMs for inference (counterpart of the inference half
-of `m3p_tpu/ops/quant.py`).
+"""int8 GEMMs of the port (counterpart of `m3p_tpu/ops/quant.py`): the
+dynamic training GEMMs and the frozen-weight inference GEMMs.
 
-At inference the weights never change, so their quantization happens
-once (`prequantize_nn`, `prequantize_nt`) and a GEMM pays only for its
-activations: symmetric per-row int8 with an fp32 scale, an int32
-accumulation, and the output ``(acc * sx) * sw`` in the activation's dtype.
-The arithmetic follows the JAX functions step for step as XLA compiles
-them under ``jit`` (amax in fp32, scale = max(amax, 1e-6) / 127 computed
-as the product with the fp32 reciprocal of 127, which XLA folds the
-division by a constant into; round half to even; clip to +-127), so on the
-CPU `int8_matmul_pre` and `int8_matmul_nt_pre` equal the jitted JAX
-functions bit for bit, and the tables equal the JAX `capture_q8`'s.
+Quantization is symmetric int8 with an fp32 scale along one axis, an
+int32 accumulation, and the output ``(acc * s_a) * s_b`` in the
+activation's dtype.  The arithmetic follows the JAX functions step for
+step as XLA compiles them under ``jit`` (amax in fp32, scale = max(amax,
+1e-6) / 127 computed as the product with the fp32 reciprocal of 127, which
+XLA folds the division by a constant into; round half to even; clip to
++-127), so on the CPU every function here equals the jitted JAX function
+bit for bit, and the captured tables equal the JAX `capture_q8`'s.
+
+Training (`m3p_tpu/ops/quant.py:39-163`), each a `torch.autograd.Function`:
+* `int8_matmul` -- x (..., K) @ w (K, N), int8 forward, straight-through
+  backward in full precision (dx = g w^T, dw = x^T g in fp32, cast back);
+* `int8_matmul_qbwd` -- 2-D x, int8 forward and int8 dgrad / wgrad;
+* `int8_matmul_nt` -- x (M, K) @ w (N, K)^T, int8 forward, dgrad and
+  wgrad: the tied vocab head.
+Inference: `prequantize_nn` / `prequantize_nt` quantize a frozen weight
+once, and `int8_matmul_pre` / `int8_matmul_nt_pre` pay only for their
+activations.
 
 These are XLA dots in JAX, not Pallas kernels: the integer GEMM is
 ``torch._int_mm`` (cuBLASLt on CUDA).  On CUDA it takes more than 16 rows
-and K and N that are multiples of 8: fewer rows are padded with zero rows
-(exact under integer accumulation), and a K or N off the rule raises; the
-vocab head pads its table's rows once when it is captured
-(`model/heads.py`).  A refusal never gives way to a float GEMM.
+and K and N that are multiples of 8.  The training GEMMs lay out both
+operands with the contraction dimension last and contiguous (the TN layout
+the inference GEMMs proved on the card), quantizing straight into a
+buffer that carries zero rows and columns up to the rule (exact under
+integer accumulation): the token count of a wgrad and the vocabulary of
+the head's dgrad are contractions too.  They lay out and pad alike on
+every device, so the CPU runs the code the card runs.  The inference
+GEMMs pad fewer than 17 rows on CUDA; the vocab head pads its table's rows once
+when it is captured (`model/heads.py`).  A refusal never gives way to a
+float GEMM.
 
-Each call adds one to ``int8_matmul_pre.calls`` (or ``int8_matmul_nt_pre``)
-and to its route in ``.calls_by_route``: "int8" (the GEMM as given),
-"int8_row_pad" (rows padded to `CUDA_MIN_ROWS`), "cpu".  The modules'
-gate (`PREQUANT_MAX_M`) counts its decisions in `GATE_COUNTS`.
+Each integer GEMM adds one to its entry's ``.calls`` (the function a
+module called: `int8_matmul_pre`, `int8_matmul_nt_pre`, `int8_matmul`,
+`int8_matmul_qbwd`, `int8_matmul_nt`) and to its route in
+``.calls_by_route``: "int8" (the GEMM as given), "int8_row_pad" (rows
+padded to `CUDA_MIN_ROWS`; inference), "int8_pad" (zero rows or columns
+added to meet the rule; training), "cpu".  The training entries also count
+``.calls_by_pass`` ("fwd", "bwd").  The modules' gate (`PREQUANT_MAX_M`)
+counts its decisions in `GATE_COUNTS`.
 """
 
 from __future__ import annotations
@@ -43,19 +61,26 @@ CUDA_MIN_ROWS = 17
 GATE_COUNTS = {"int8": 0, "plain": 0}
 
 _ROUTES = ("int8", "int8_row_pad", "cpu")
+_TRAIN_ROUTES = ("int8", "int8_pad", "cpu")
+# torch._int_mm on CUDA takes K and N that are multiples of this
+CUDA_ALIGN = 8
 # XLA computes x / 127.0 as x * (1 / 127.0) in fp32
 _INV_127 = 1.0 / 127.0
 
 
-def _quantize_axis(x: torch.Tensor, axis: int
+def _quantize_axis(x: torch.Tensor, axis: int,
+                   out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 along ``axis``: (int8 values, fp32 scale with
-    ``axis`` kept as size 1)."""
+    ``axis`` kept as size 1).  ``out`` (int8, x's shape, any strides)
+    takes the values in place of a new tensor."""
     xf = x.float()
     amax = xf.abs().amax(dim=axis, keepdim=True)
     scale = torch.clamp_min(amax, 1e-6) * _INV_127
     q = torch.clamp(torch.round(xf / scale), -127, 127)
-    return q.to(torch.int8), scale
+    if out is None:
+        return q.to(torch.int8), scale
+    return out.copy_(q), scale
 
 
 def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,17 +152,193 @@ def int8_matmul_nt_pre(x: torch.Tensor, wq: torch.Tensor,
     return ((acc.float() * sx) * sw.t()).to(x.dtype)
 
 
-for _entry in (int8_matmul_pre, int8_matmul_nt_pre):
-    _entry.calls = 0
-    _entry.calls_by_route = dict.fromkeys(_ROUTES, 0)
+# ---------------------------------------------------------------------------
+# the training GEMMs
+# ---------------------------------------------------------------------------
+
+
+def _round_up(n: int) -> int:
+    return -(-n // CUDA_ALIGN) * CUDA_ALIGN
+
+
+def _operand(x: torch.Tensor, axis: int, contract: int, rows: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (2-D) quantized along ``axis`` into a GEMM operand: int8 (R, Kp)
+    with x's dimension ``contract`` (K long) last and contiguous, zero
+    columns up to Kp = K rounded up to `CUDA_ALIGN` and zero rows up to
+    ``rows`` (R = max(rows, x's other dimension)); and the scale."""
+    r, k = x.shape[1 - contract], x.shape[contract]
+    buf = torch.empty((max(rows, r), _round_up(k)), dtype=torch.int8,
+                      device=x.device)
+    buf[r:].zero_()
+    buf[:r, k:].zero_()
+    view = buf[:r, :k] if contract == 1 else buf[:r, :k].t()
+    return buf, _quantize_axis(x, axis, out=view)[1]
+
+
+def _int8_product(a: torch.Tensor, a_axis: int, a_contract: int,
+                  b: torch.Tensor, b_axis: int, b_contract: int,
+                  entry, pass_: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int32 product of two float matrices, each quantized along its
+    ``*_axis``, over their dimensions ``*_contract``: (acc (M, N), the
+    scale of a, the scale of b), M and N their other dimensions.  Counted
+    on ``entry`` under ``pass_``."""
+    m, n = a.shape[1 - a_contract], b.shape[1 - b_contract]
+    qa, sa = _operand(a, a_axis, a_contract, CUDA_MIN_ROWS)
+    qb, sb = _operand(b, b_axis, b_contract, _round_up(n))
+    k = a.shape[a_contract]
+    padded = qa.shape != (m, k) or qb.shape != (n, k)
+    acc = _gemm_nt(qa, qb, entry, padded, pass_)
+    return acc[:m, :n], sa, sb
+
+
+def _gemm_nt(qa: torch.Tensor, qb: torch.Tensor, entry, padded: bool,
+             pass_: str) -> torch.Tensor:
+    """qa (M, K) @ qb (N, K)^T -> int32 (M, N), both int8 and contiguous
+    (the contraction last), counted on ``entry``.  On CUDA, M must exceed
+    16 and K and N be multiples of 8 (the callers pad); anything else
+    raises before the GEMM."""
+    if qa.device.type == "cpu":
+        route = "cpu"
+    elif qa.device.type == "cuda":
+        m, k = qa.shape
+        n = qb.shape[0]
+        if m < CUDA_MIN_ROWS or k % CUDA_ALIGN or n % CUDA_ALIGN:
+            raise ValueError(
+                f"the CUDA int8 GEMM takes more than 16 rows and K and N "
+                f"that are multiples of 8, got M={m}, K={k}, N={n}")
+        route = "int8_pad" if padded else "int8"
+    else:
+        raise ValueError(f"no int8 GEMM on device {qa.device}")
+    acc = torch._int_mm(qa, qb.t())
+    entry.calls += 1
+    entry.calls_by_route[route] += 1
+    entry.calls_by_pass[pass_] += 1
+    return acc
+
+
+def _int8_forward(x2d: torch.Tensor, w: torch.Tensor, entry
+                  ) -> torch.Tensor:
+    """x2d (M, K) @ w (K, N): x per row, w per column, ``(acc * sx) *
+    sw`` in x's dtype (`m3p_tpu/ops/quant.py:45-51`)."""
+    acc, sx, sw = _int8_product(x2d, 1, 1, w, 0, 0, entry, "fwd")
+    return ((acc.float() * sx) * sw).to(x2d.dtype)
+
+
+class _Int8Matmul(torch.autograd.Function):
+    """int8 forward, straight-through backward in fp32
+    (`m3p_tpu/ops/quant.py:39-69`)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2d = x.reshape(-1, x.shape[-1])
+        out = _int8_forward(x2d, w, int8_matmul)
+        return out.reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        g2d = g.reshape(-1, g.shape[-1]).float()
+        if ctx.needs_input_grad[0]:
+            dx = (g2d @ w.float().t()).to(x.dtype).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            x2d = x.reshape(-1, x.shape[-1]).float()
+            dw = (x2d.t() @ g2d).to(w.dtype)
+        return dx, dw
+
+
+class _Int8MatmulQbwd(torch.autograd.Function):
+    """int8 forward, int8 dgrad and wgrad, straight-through w.r.t. the
+    quantizers (`m3p_tpu/ops/quant.py:82-114`)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _int8_forward(x, w, int8_matmul_qbwd)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        entry = int8_matmul_qbwd
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx[m, k] = sum_n g[m, n] w[k, n]: g per row, w per row
+            acc, sg, sw = _int8_product(g, 1, 1, w, 1, 1, entry, "bwd")
+            dx = ((acc.float() * sg) * sw.t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            # dw[k, n] = sum_m x[m, k] g[m, n], computed as its transpose
+            # (N, K): both along the tokens
+            acc, sg, sx = _int8_product(g, 0, 0, x, 0, 0, entry, "bwd")
+            dw = ((acc.float() * sx) * sg.t()).t().to(w.dtype)
+        return dx, dw
+
+
+class _Int8MatmulNT(torch.autograd.Function):
+    """x (M, K) @ w (N, K)^T: int8 forward, dgrad and wgrad
+    (`m3p_tpu/ops/quant.py:123-160`)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        acc, sx, sw = _int8_product(x, 1, 1, w, 1, 1, int8_matmul_nt, "fwd")
+        return ((acc.float() * sx) * sw.t()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        entry = int8_matmul_nt
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx[m, k] = sum_n g[m, n] w[n, k]: g per row, w per column
+            acc, sg, sw = _int8_product(g, 1, 1, w, 0, 0, entry, "bwd")
+            dx = ((acc.float() * sg) * sw).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            # dw[n, k] = sum_m g[m, n] x[m, k]: both along the tokens
+            acc, sg, sx = _int8_product(g, 0, 0, x, 0, 0, entry, "bwd")
+            dw = ((acc.float() * sg.t()) * sx).to(w.dtype)
+        return dx, dw
+
+
+def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) through the int8 GEMM, returning x's dtype;
+    straight-through gradients (g w^T and x^T g in fp32)."""
+    return _Int8Matmul.apply(x, w)
+
+
+def int8_matmul_qbwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N) with the int8 forward and int8 dgrad / wgrad;
+    x must be 2-D (callers flatten leading dimensions)."""
+    if x.dim() != 2:
+        raise ValueError(f"int8_matmul_qbwd takes a 2-D x, got {x.shape}")
+    return _Int8MatmulQbwd.apply(x, w)
+
+
+def int8_matmul_nt(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (N, K)^T -> (M, N) with the int8 forward and int8
+    dgrad / wgrad: the tied vocab head over the (V, D) word table."""
+    return _Int8MatmulNT.apply(x, w)
+
+
+_INFER_ENTRIES = (int8_matmul_pre, int8_matmul_nt_pre)
+_TRAIN_ENTRIES = (int8_matmul, int8_matmul_qbwd, int8_matmul_nt)
 
 
 def zero_counts() -> None:
     """Set every call and gate count of this module to 0."""
-    for entry in (int8_matmul_pre, int8_matmul_nt_pre):
+    for entry in _INFER_ENTRIES:
         entry.calls = 0
-        entry.calls_by_route.update(dict.fromkeys(_ROUTES, 0))
+        entry.calls_by_route = dict.fromkeys(_ROUTES, 0)
+    for entry in _TRAIN_ENTRIES:
+        entry.calls = 0
+        entry.calls_by_route = dict.fromkeys(_TRAIN_ROUTES, 0)
+        entry.calls_by_pass = {"fwd": 0, "bwd": 0}
     GATE_COUNTS.update(dict.fromkeys(GATE_COUNTS, 0))
+
+
+zero_counts()
 
 
 def gated_linear(x: torch.Tensor, table: Optional["Q8Table"], linear,

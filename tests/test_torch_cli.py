@@ -214,6 +214,25 @@ def test_main_reloads_weights(coco):
         assert torch.equal(p, got[name]), name
 
 
+def test_main_trains_an_moe_model_with_the_adaptive_softmax(coco):
+    """``--moe_experts 2 --asm true`` build and train through the Trainer
+    (an MoE FFN on every block, the ``pred_layer_asm`` head) and the
+    checkpoint resumes."""
+    argv = coco["argv"] + ["--exp_id", "moe_asm", "--device", "cpu",
+                           "--moe_experts", "2", "--moe_interval", "1",
+                           "--asm", "true", "--asm_cutoffs", "8,16"]
+    trainer = train_x.main(argv, data=coco["data"])
+    model = trainer.model
+    assert trainer.state.step == 2 and model.cfg.asm
+    assert model.blocks[0].moe_ffn is not None and model.blocks[0].ffn is None
+    assert hasattr(model, "pred_layer_asm")
+    init = build_model(model.cfg, trainer.cfg.seed, "cpu").state_dict()
+    moved = model.state_dict()["block_0.moe_ffn.w1"]
+    assert not torch.equal(moved, init["block_0.moe_ffn.w1"])
+    again = train_x.main(argv + ["--eval_only", "True"], data=coco["data"])
+    assert torch.equal(again.model.state_dict()["block_0.moe_ffn.w1"], moved)
+
+
 def test_main_refuses_what_is_not_ported(coco, monkeypatch):
     argv = coco["argv"] + ["--exp_id", "refuse"]
     # a data directory is no longer refused: without data=, main loads it

@@ -616,12 +616,27 @@ def test_bench_eval_grid_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag", ["--int8", "--q8"])
 def test_bench_eval_grid_refuses_int8(flag, capsys):
-    """The dynamic int8 GEMMs (``--int8``) are item 15b: refused, also
-    beside ``--q8``."""
-    argv = ["--int8", "--device", "cpu"] + ([flag] if flag != "--int8"
-                                             else [])
-    assert bench_eval_grid.main(argv) != 0
-    assert "item 15b" in capsys.readouterr().err
+    """``--int8`` (the dynamic int8 GEMMs, no longer refused) scores
+    through ``ffn_quant="int8_bwd"``; beside ``--q8`` the int8 inference
+    model wins, as in the JAX tool.  The scores equal the same model's
+    grid scored directly."""
+    from m3p_tpu_torch.ops import quant as quant_ops
+
+    argv = ["2", "5", "4", "--device", "cpu", "--n_layers", "1",
+            "--n_words", "300", "--int8"] + ([flag] if flag != "--int8"
+                                              else [])
+    quant_ops.zero_counts()
+    assert bench_eval_grid.main(argv) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["pairs"] == 10 and out["pairs_per_s"] > 0
+    if flag == "--q8":
+        assert out["q8"] and out["ffn_quant"] == "int8_infer"
+        assert quant_ops.int8_matmul_qbwd.calls == 0
+    else:
+        assert not out["q8"] and out["ffn_quant"] == "int8_bwd"
+        # both FFN GEMMs of each joint forward: two passes of 3 chunks
+        assert quant_ops.int8_matmul_qbwd.calls_by_pass == {"fwd": 12,
+                                                            "bwd": 0}
 
 
 def test_bench_eval_grid_q8_on_the_cpu(capsys):

@@ -1853,3 +1853,74 @@ def test_int8_gemm_refuses_k_or_n_off_the_rule_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="multiples of 8"):
         table(x)
     assert quant_ops.int8_matmul_pre.calls == before
+
+
+# ---------------------------------------------------------------------------
+# the dynamic int8 training GEMMs (ops/quant.py): forward and backward on
+# the card against the CPU at the shapes where the CUDA rule bites -- the
+# MCT step's FFN (13120 tokens), 16 rows, a token count that is not a
+# multiple of 8 (a wgrad's contraction), the tied 250,002-word head (the
+# head's dgrad contracts over V)
+# ---------------------------------------------------------------------------
+
+# (function, M, K, N): x (M, K); w (K, N), or (N, K) for the nt head
+INT8_TRAIN_CASES = [
+    ("int8_matmul_qbwd", 13120, 768, 3072),
+    ("int8_matmul_qbwd", 13120, 3072, 768),
+    ("int8_matmul_qbwd", 16, 768, 3072),
+    ("int8_matmul_qbwd", 1001, 768, 2304),
+    ("int8_matmul_nt", 37, HEAD_DIM, HEAD_WORDS),
+    ("int8_matmul_nt", 320, HEAD_DIM, HEAD_WORDS),
+    ("int8_matmul", 1001, 768, 3072),
+    ("int8_matmul", 16, 768, HEAD_WORDS),
+]
+
+
+def _train_gemm_pair(name, m, k, n, dtype, device):
+    """(output, dx, dw, routes) of one call with its backward on
+    ``device``, from the same seeded inputs."""
+    fn = getattr(quant_ops, name)
+    x = _int8_input(m, k, dtype, 11).to(device).requires_grad_()
+    w_shape = (n, k) if name == "int8_matmul_nt" else (k, n)
+    w = (_int8_input(*w_shape, dtype, 12) * 0.05).to(device)
+    w.requires_grad_()
+    g = _int8_input(m, n, dtype, 13).to(device)
+    quant_ops.zero_counts()
+    out = fn(x, w)
+    out.backward(g)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return (out.detach().cpu(), x.grad.cpu(), w.grad.cpu(),
+            dict(fn.calls_by_route), dict(fn.calls_by_pass))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16])
+@pytest.mark.parametrize("case", INT8_TRAIN_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_int8_training_gemm_on_the_card_equals_the_cpu(cuda_device, case,
+                                                       dtype):
+    """The forward and the int8 dgrad / wgrad bit for bit with the CPU;
+    the straight-through backward of `int8_matmul` (bf16 operands summed
+    in fp32 in another order, then rounded to bf16) within one bf16
+    rounding.  Every GEMM takes the card's int8 route, padded where the
+    rule needs it, and none falls back to a float GEMM."""
+    name, m, k, n = case
+    got = _train_gemm_pair(name, m, k, n, dtype, cuda_device)
+    want = _train_gemm_pair(name, m, k, n, dtype, torch.device("cpu"))
+    assert got[0].dtype == dtype and torch.equal(got[0], want[0])
+    if name == "int8_matmul":
+        for a, b in zip(got[1:3], want[1:3]):
+            torch.testing.assert_close(a.float(), b.float(), rtol=1.6e-2,
+                                       atol=1e-2)
+    else:
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    routes, passes = got[3], got[4]
+    n_gemms = 1 if name == "int8_matmul" else 3
+    assert passes == {"fwd": 1, "bwd": n_gemms - 1}
+    assert routes["cpu"] == 0 and routes["int8"] + routes["int8_pad"] == \
+        n_gemms
+    # rows below 17, or a width or (in an int8 wgrad) a token count off
+    # the multiple of 8
+    odd = m < 17 or n % 8 or (m % 8 and name != "int8_matmul")
+    assert (routes["int8_pad"] > 0) == bool(odd)

@@ -126,11 +126,18 @@ def test_build_model_is_seeded_and_refuses_unported_features():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["block_0.attn.q_lin.weight"],
                            c["block_0.attn.q_lin.weight"])
-    for change in (dict(asm=True), dict(image_fusion=True),
-                   dict(moe_experts=4), dict(seq_axis="seq"),
-                   dict(ffn_quant="int8"), dict(head_quant="int8_bwd")):
+    # sequence parallelism (item 16) and non-fp32 parameters are refused;
+    # the int8 training modes, MoE, asm and image fusion build
+    for change in (dict(seq_axis="seq"), dict(param_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(cfg, **change), 0, "cpu")
+    for change in (dict(asm=True, asm_cutoffs=(64, 256)),
+                   dict(image_fusion=True), dict(moe_experts=4),
+                   dict(ffn_quant="int8"), dict(ffn_quant="int8_bwd"),
+                   dict(ffn_quant="int8_all"), dict(head_quant="int8_bwd")):
+        build_model(dataclasses.replace(cfg, **change), 0, "cpu")
+    with pytest.raises(ValueError, match="ffn_quant"):
+        build_model(dataclasses.replace(cfg, ffn_quant="int4"), 0, "cpu")
     # the fused residual dropout is ported: every block takes the flag
     fused = build_model(dataclasses.replace(cfg, use_fused_dropout=True), 5,
                         "cpu")

@@ -54,7 +54,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "utils.metrics", "utils.logging", "utils.profiling",
                  "data.features", "data.clag", "data.datasets",
                  "data.row_pipeline", "ops.quant", "tokenization.native",
-                 "tokenization.dictionary", "cli.preprocess"):
+                 "tokenization.dictionary", "cli.preprocess", "model.misc"):
         assert f"m3p_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
