@@ -43,7 +43,7 @@ Phases, each of which fails the run if it fails:
      kernel (the profiler's own host cost inflates the idle share);
   6. train: the ITM retrieval fine-tune step at the flagship width (dropout
      and attention dropout 0.1, BN = 80 = 20 groups x 4 candidates, fp32
-     parameters, clip 5.0 + adam_inverse_sqrt), 3 warm-up and 20 timed
+     parameters, clip 5.0 + adam_inverse_sqrt), 2 warm-up and 8 timed
      steps: samples/s, step ms, peak memory, kernel launches per step
      (every forward and backward launch on the tensor-core design);
      fp32 gradients on the card against the CPU at depth 2 (rate 0); a
@@ -52,7 +52,7 @@ Phases, each of which fails the run if it fails:
   7. the long-context xMLM step (tools/bench_longseq.py's setup: B = 8
      streams of S = 2048 tokens, 12 blocks, 768d, 12 heads, 250002 words,
      dropout 0.1, attention dropout 0, FusedAdam with bf16 moments and an
-     fp32 master, clip 5.0), 2 warm-up and 10 timed steps through the
+     fp32 master, clip 5.0), 1 warm-up and 5 timed steps through the
      flash kernels: samples/s, tokens/s, step ms, peak memory, launches per
      step (12 flash forward, 24 flash backward, all on the tensor-core
      design, no packed), a profile of
@@ -62,7 +62,7 @@ Phases, each of which fails the run if it fails:
      BN = 80 joint sequences of 100 regions + 64 tokens, 12 blocks, 768d,
      250002 words, dropout and attention dropout 0.1, ITM + MC-MLM + MC-MRM
      + MRFR, FusedAdam with bf16 moments and an fp32 master, clip 5.0),
-     3 warm-up and 20 timed steps in two configurations: A, bench.py's
+     2 warm-up and 8 timed steps in two configurations: A, bench.py's
      (use_fused_dropout off), and B, every residual dropout through the
      fused dropout kernels: samples/s, step ms, peak memory, launches per
      step (15 packed forward and 30 packed backward, all on the tensor
@@ -98,7 +98,7 @@ Phases, each of which fails the run if it fails:
  10. decoder training at the flagship width (dropout and attention dropout
      0.1, bf16, fp32 parameters, clip 5.0 + adam_inverse_sqrt): the caption
      step (`caption_loss`, 24 images of 100 regions, captions of 64 tokens,
-     T = 63 decoder positions, the refiner on), 3 warm-up and 20 timed
+     T = 63 decoder positions, the refiner on), 2 warm-up and 8 timed
      steps: samples/s, target tokens/s, step ms, peak memory, an MFU
      reading, a profile of one step, launches per step (39 #1 and 78 #2,
      all on the tensor cores, no flash launch); one step each of
@@ -117,12 +117,10 @@ Phases, each of which fails the run if it fails:
      caption call, 12 a translation, no kernel in the decode steps, whose
      attention takes `mha_reference` below 512 keys); the EOS rule of
      greedy lengths; caption and translate throughput (CUDA events over
-     10 calls after 3, and 5 after 1), one call at the 64-image bucket with its
-     peak memory, /v1/caption p50 / p99 over 40 requests, a profile of a
+     5 calls after 2, and 5 after 1), one call at the 64-image bucket with its
+     peak memory, /v1/caption p50 / p99 over 12 requests, a profile of a
      beam-5 call, the decode step's parts (blocks, word head, stable
-     top-k, self-cache gather); the beam-5 call and the step's parts again
-     in a new process (``--caption_timing``), before and after one
-     profiler session; a beam-5 call at max_len 514 on a depth-2
+     top-k, self-cache gather); a beam-5 call at max_len 514 on a depth-2
      model, whose self-attention over the 514-position cache takes #5 in
      every step (2 x 513 launches, all on the tensor cores); #5 at that
      decode shape timed as issued and from a CUDA graph beside SDPA and
@@ -132,7 +130,7 @@ Phases, each of which fails the run if it fails:
      at the trainer's settings (K = 3 passes, adv_lr 1e-3, l2, no
      projection, text and image deltas): the FreeLB MCT step
      (`train/freelb.py::make_freelb_pretrain_step` over phase 8's model,
-     batch and optimizer) in configurations A and B, 2 warm-up and 10
+     batch and optimizer) in configurations A and B, 1 warm-up and 4
      timed steps: samples/s, step ms, peak memory, an MFU reading over K x
      the MCT step's FLOPs, launches per step (K x phase 8's), a profile of
      one step with the deltas' ascent as its own span; the trainer's
@@ -140,7 +138,7 @@ Phases, each of which fails the run if it fails:
      counted; one step with adv_max_norm 1e-2 (every delta finite and
      inside the ball, which it reaches); the FreeLB ITM step over phase
      6's batch and the FreeLB caption step over phase 10's (deterministic,
-     as in the JAX package; 1 warm-up and 5 timed steps each; the ITM
+     as in the JAX package; 1 warm-up and 2 timed steps each; the ITM
      step leaves the word table unmoved); one counted step each of MASS,
      BART (with --use_noise) and AE over one stream batch of 24 x 128
      through `data/loader.py`'s transforms, IDA (`caption_loss` over
@@ -153,7 +151,7 @@ Phases, each of which fails the run if it fails:
      shape (100 images of 100 regions x 500 captions of 8-20 tokens,
      chunk 512: 98 chunks, 15 #1 launches each, all on the tensor cores)
      through `Evaluator.run_all_evals` (R@k, the score matrix and
-     inference.log), then with and without length buckets in turns
+     inference.log), then once with and once without length buckets
      (pairs/s, MFU over `bench.joint_forward_flops`, the bucketed scores'
      largest difference and R@k), a profile of 3 chunks; the loss families
      (retrieval valid as (t2i, i2t) tuples of phase 6's grid, captioning,
@@ -163,7 +161,7 @@ Phases, each of which fails the run if it fails:
      defaults (beam 4, max_gen_len 40) over 64-row batches, MT and
      multimodal MT again greedy, the caption JSON artifact and the four
      caption metrics' host time; every #1 launch of the phase at a shape
-     phase 2 held (`eval_shapes`); fp32 at depth 2 with a 32,002-word
+     phase 2 held (`eval_shapes`); fp32 at depth 1 with a 32,002-word
      vocabulary on the card against the CPU (one batch of 2 a loss family and a small grid within rtol 1e-4,
      the grid within 1e-4, beam and greedy hypotheses of one row a family
      at max_gen_len 16 equal);
@@ -171,7 +169,7 @@ Phases, each of which fails the run if it fails:
      the steps, Evaluator, checkpoints): (a) the reference MSCOCO
      fine-tune recipe (bf16, dropout 0.1, accumulation 4, refine_image
      off) with captioning beside retrieval through `train_x.main(argv,
-     data=...)` at the flagship width, 2 epochs of 16 steps over
+     data=...)` at the flagship width, one epoch of 20 steps over
      in-memory batches (24 groups x 4 candidates, 24 captions), reloading
      a reference .pth written at one language more (the language table
      keeps its initial value): each step's #1/#2 launches (rel 24/48 a
@@ -185,7 +183,7 @@ Phases, each of which fails the run if it fails:
      Trainer reloading every tensor bit for bit, 8 micro-steps from it and
      from the uninterrupted run (losses within TOL_BF16, bitwise or not),
      SIGTERM's disposition restored; a FusedAdam state (bf16 moments, fp32
-     master) bit for bit; (c) fp32 at depth 2: 8 micro-steps with
+     master) bit for bit; (c) fp32 at depth 2: 4 micro-steps with
      accumulation 2 and weight decay on the card and on the CPU, the
      parameters' change per leaf within TOL_TRAINER_FP32;
  15. the datasets and the input pipeline: (a) `train_x.main(argv)` with no
@@ -201,8 +199,8 @@ Phases, each of which fails the run if it fails:
      step's #1/#2 launches (xMLM 2/4, MT 6/12, all tensor cores); (b)
      phase 14's recipe with its batches from the ported `RetrievalDataset`
      and `CaptionDataset` over an in-memory store (400 images of 100
-     regions x 2048) through the row loader: ms a micro-step over epochs
-     in turns with the recipe's 4 read threads, with 1, and with the
+     regions x 2048) through the row loader: ms a micro-step over one
+     epoch each with the recipe's 4 read threads, with 1, and with the
      datasets' ready-made batches in memory (phase 14's way), beside phase
      14's figure, the loader's records/s alone beside the records/s the
      steps consumed,
@@ -240,7 +238,7 @@ Phases, each of which fails the run if it fails:
      int8 gradients bit for bit, the straight-through ones within
      TOL_BF16; (b) `m3p_tpu_torch.bench`'s MCT step under bench.py's
      ``int8_bwd`` and with the float FFN in turns on one model (none,
-     int8, int8, none; 2 + 10 steps each), configurations A and B:
+     int8, int8, none; 1 + 2 steps each), configurations A and B:
      samples/s, step ms, MFU, peak memory, launches and int8 GEMMs by
      route a step (24 forward and 48 backward an encode), a profile of a
      step of each; a learning check at depth 2 (30 steps); (c) one step
@@ -254,6 +252,27 @@ Phases, each of which fails the run if it fails:
      with ``image_enc`` forward and backward, `CrossAlignMatrix`,
      `VaeEncoder` and `LatentDecoder` in fp32 card vs CPU; (g)
      `bench_eval_grid` bf16 and ``--int8`` in turns on 16 x 64 pairs.
+ 18. several processes, each phase's ranks launched with `python -m
+     torch.distributed.run --standalone --nproc_per_node N chip_smoke.py
+     --p18 <config>`, sharing this card over gloo (the backend rule of
+     `parallel.mesh.choose_backend`; gloo takes the collectives' CUDA
+     tensors, and the ring's point-to-point stages through pinned host
+     memory): (a) data parallelism, phase 14's recipe through
+     `train_x.main` on 2 ranks with ``--mesh_data 2`` (phase 15(b)'s
+     datasets over InMemoryStore, dropout 0): the loss and Adam's first
+     moment in bf16 at the flagship width and the losses and parameters
+     in fp32 at depth 2 (32,002 words) against one process on the same
+     global batches,
+     SIGTERM on both ranks of the fp32 run after a micro-step and the
+     resume bitwise the uninterrupted run (batches, losses, parameters),
+     the gradient bytes
+     all-reduced, #1/#2 launches and ms a micro-step per rank; (b)
+     sequence parallelism, the long_context_config model over 4 ranks of
+     a ``seq`` axis, the xMLM step at B = 8, S = 4096 through `SPModel`
+     and ring attention (no #5/#6 inside), its ring bytes and ms a step;
+     the fp32 depth-2 loss and every gradient against one process, whose
+     attention takes #5/#6.  Times of ranks sharing one card are the cost
+     of the path, not a parallel speed.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -317,12 +336,12 @@ SEED = 0x1234_5678_9ABC_DEF0
 OPTIM_SPEC = "adam_inverse_sqrt,beta1=0.9,beta2=0.98,lr=0.00005"
 CLIP = 5.0
 GROUPS, SAMPLE_N, TEXT_LEN, REGIONS = 20, 4, 64, 100
-WARMUP_STEPS, TIMED_STEPS = 3, 20
+WARMUP_STEPS, TIMED_STEPS = 2, 8
 # the long-context slice (tools/bench_longseq.py)
 LONG_SPEC = ("adam_inverse_sqrt,beta1=0.9,beta2=0.98,lr=0.00005,fused=1,"
              "mu_dtype=bfloat16,nu_dtype=bfloat16,master=1")
 LONG_B, LONG_S, LONG_MAX_PRED = 8, 2048, 256
-LONG_WARMUP, LONG_STEPS = 2, 10
+LONG_WARMUP, LONG_STEPS = 1, 5
 # the fp32 comparison and the learning check: S above the packed 512
 LONG_CHECK_S = 640
 # a served score against the same pair scored in another batch (bf16 GEMMs
@@ -340,6 +359,30 @@ WORDS = ("a dog cat man woman child runs sits on the beach street sofa red "
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# seconds of each part of the run, from the end of the part before it;
+# the parts of a phase ("sub") from the end of the sub-part before it; the
+# seconds inside `profile_window` (sessions and their tables)
+CLOCK = {"t": None, "sub": None, "laps": {}, "profile_s": 0.0,
+         "profiles": 0}
+
+
+def lap(name: str) -> None:
+    """Log the seconds since the last lap (or the run's start) as
+    ``name``'s, and keep them for the run's closing [clock] line."""
+    now = time.time()
+    CLOCK["laps"][name] = round(now - CLOCK["t"], 1)
+    CLOCK["t"] = CLOCK["sub"] = now
+    log(f"[clock] {name}: {CLOCK['laps'][name]} s")
+
+
+def sublap(name: str) -> None:
+    """Log the seconds since the last lap or sub-lap as ``name``'s, a part
+    of the phase that the next `lap` closes."""
+    now = time.time()
+    log(f"[clock]   {name}: {now - CLOCK['sub']:.1f} s")
+    CLOCK["sub"] = now
 
 
 def fail(msg: str) -> None:
@@ -1143,6 +1186,16 @@ def full_width_config(dtype):
                        attention_dropout=0.0, dtype=dtype)
 
 
+def cpu_model_from_card(cfg, seed):
+    """``build_model(cfg, seed)`` drawn on the card and moved to the CPU:
+    the CPU's truncated normal over a 250,002 x 768 word table takes
+    seconds, the card's no time.  A card-vs-CPU check holds both sides on
+    the same weights, whichever device drew them."""
+    from m3p_tpu_torch.model import build_model
+
+    return build_model(cfg, seed, "cuda").to("cpu")
+
+
 def serve_slice(seed, tokenizer):
     import numpy as np
     import torch
@@ -1262,6 +1315,10 @@ def serve_slice(seed, tokenizer):
     return engine, numbers
 
 
+# /v1/retrieve requests timed one after another
+SERVE_RETRIEVES = 12
+
+
 def measure_serving(engine, base, texts, imgs, queries, rng):
     import numpy as np
     import torch
@@ -1294,7 +1351,7 @@ def measure_serving(engine, base, texts, imgs, queries, rng):
 
     post(base, "/v1/retrieve", {"text": queries[0], "top_k": 5})
     lat = []
-    for i in range(40):
+    for i in range(SERVE_RETRIEVES):
         qtext = queries[i % len(queries)]
         t0 = time.perf_counter()
         post(base, "/v1/retrieve", {"text": qtext, "top_k": 5})
@@ -1303,7 +1360,8 @@ def measure_serving(engine, base, texts, imgs, queries, rng):
     log(f"[perf] score: {pairs_per_s:.1f} pairs/s at 64 pairs x text "
         f"bucket 64 (engine.score, host prep included); one 64 x 164 "
         f"forward on the device: {forward_ms:.3f} ms")
-    log(f"[perf] retrieve over 1000 images (HTTP, 40 queries): p50 "
+    log(f"[perf] retrieve over 1000 images (HTTP, {SERVE_RETRIEVES} "
+        f"queries): p50 "
         f"{p50:.1f} ms, p99 {p99:.1f} ms")
     return {"score_pairs_per_s": pairs_per_s, "forward_ms_64x164": forward_ms,
             "retrieve_p50_ms": p50, "retrieve_p99_ms": p99}
@@ -1343,21 +1401,34 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_window(label, fn, reps=3, spans=()) -> dict:
+def profile_window(label, fn, reps=1, spans=()) -> dict:
     """torch.profiler over ``reps`` calls of ``fn`` (after one untraced
     call): wall and device-busy ms per call, the device's idle share, and
     device time by kernel group and by kernel, logged on one line.  Each
     name in ``spans``, a `torch.profiler.record_function` range of the
     path, reports the device time of the kernels launched inside it (its
     kernels stay in their groups too)."""
+    entered = time.time()
+    try:
+        return _profile_window(label, fn, reps, spans)
+    finally:
+        CLOCK["profile_s"] += time.time() - entered
+        CLOCK["profiles"] += 1
+
+
+def _profile_window(label, fn, reps, spans):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone unless a span needs the host's ranges: a
+    # host-paced call traced op by op runs slower and its trace takes
+    # seconds to read
+    activities = ([ProfilerActivity.CPU] if spans else []) + [
+        ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1379,6 +1450,7 @@ def profile_window(label, fn, reps=3, spans=()) -> dict:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / wall_ms,
+           "traced": [a.name for a in activities],
            "groups_ms": {g: groups[g] for g in sorted(groups,
                                                       key=groups.get,
                                                       reverse=True)},
@@ -1414,12 +1486,11 @@ def span_device_ms(averages, name):
 def compare_fp32_with_cpu(seed, tokenizer):
     import numpy as np
 
-    from m3p_tpu_torch.model import build_model
     from m3p_tpu_torch.serve.engine import InferenceEngine
 
     rng = np.random.RandomState(seed + 1)
     cfg = full_width_config("float32")
-    cpu_model = build_model(cfg, seed, "cpu")
+    cpu_model = cpu_model_from_card(cfg, seed)
     gpu_model = copy.deepcopy(cpu_model)
     texts = [sentence(rng, n) for n in (3, 9, 20, 40)]
     imgs = [image(rng, n) for n in (100, 36, 10, 64)]
@@ -1465,7 +1536,7 @@ def itm_step(deterministic=False, with_grad_norm=False):
 
 
 def train_slice(seed):
-    """The ITM fine-tune step at the flagship width: 3 warm-up and 20 timed
+    """The ITM fine-tune step at the flagship width: 2 warm-up and 8 timed
     steps, every attention call through the kernels in both directions."""
     import torch
 
@@ -1555,7 +1626,7 @@ def train_slice(seed):
         f"max |param change| {moved}")
     numbers["profile"] = profile_window(
         f"one training step BN={bn}", lambda: step(state, batch, gens),
-        reps=2)
+        reps=1)
     return numbers
 
 
@@ -1589,13 +1660,12 @@ def compare_grads_with_cpu(seed):
     card (kernels) and on the CPU (plain versions), at rate 0."""
     import torch
 
-    from m3p_tpu_torch.model import build_model
     from m3p_tpu_torch.train.steps import itm_finetune_loss
 
     from m3p_tpu_torch.ops.attention import attention_packed
 
     cfg = train_config(n_layers=2, dtype="float32", rate=0.0)
-    cpu_model = build_model(cfg, seed, "cpu")
+    cpu_model = cpu_model_from_card(cfg, seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     losses = {}
     before = (dict(attention_packed.launches_by_design),
@@ -2016,7 +2086,7 @@ def step_flops(cfg, b, s, n_slots):
 
 def long_context_slice(seed):
     """The long-context xMLM step of tools/bench_longseq.py at its full
-    size: 2 warm-up and 10 timed steps, every self-attention through the
+    size: 1 warm-up and 5 timed steps, every self-attention through the
     flash kernels in both directions."""
     import torch
 
@@ -2123,11 +2193,11 @@ def compare_long_grads_with_cpu(seed):
     import torch
 
     from m3p_tpu_torch.data.masking import mask_tokens
-    from m3p_tpu_torch.model import build_model, lengths_to_mask
+    from m3p_tpu_torch.model import lengths_to_mask
     from m3p_tpu_torch.train.steps import mlm_loss
 
     cfg = long_config(n_layers=2, dtype="float32", rate=0.0)
-    cpu_model = build_model(cfg, seed, "cpu")
+    cpu_model = cpu_model_from_card(cfg, seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = stream_batch(seed + 2, 2, LONG_CHECK_S, "cpu")
     batch["lengths"][1] = LONG_CHECK_S - 100
@@ -2475,7 +2545,7 @@ def check_launches(what, counts, per_step, n_steps):
 
 def mct_slice(seed, fused):
     """The MCT step of m3p_tpu_torch.bench at full size, configuration A
-    (``fused`` False, bench.py's) or B: 3 warm-up and 20 timed steps, the
+    (``fused`` False, bench.py's) or B: 2 warm-up and 8 timed steps, the
     launches of every kernel counted, a profile of one step; for B then one
     step with CLCM pairs, its launches counted."""
     import numpy as np
@@ -2496,7 +2566,7 @@ def mct_slice(seed, fused):
     per_step = mct_per_step(cfg)
     # ---- the main path, counted ----
     zero_launch_counts()
-    numbers = bench.run(state, step, batch, gens)
+    numbers = bench.run(state, step, batch, gens, WARMUP_STEPS, TIMED_STEPS)
     counts = launch_counts()
     n_steps = numbers["warmup"] + numbers["steps"]
     # ---- checks ----
@@ -2526,7 +2596,7 @@ def mct_slice(seed, fused):
         f"{numbers['loss_first']:.4f} -> {numbers['loss_last']:.4f}; max "
         f"|param change| {moved}")
     prof = profile_window(f"one MCT step {label}",
-                          lambda: step(state, batch, gens), reps=2)
+                          lambda: step(state, batch, gens), reps=1)
     if prof:
         prof["idle_share_vs_event_step"] = (
             1.0 - prof["device_busy_ms"] / numbers["step_ms"])
@@ -2551,9 +2621,13 @@ def mct_slice(seed, fused):
     return numbers
 
 
+# (warm-up, timed) steps of each window of A and B in turns
+MCT_TURN_STEPS = (1, 5)
+
+
 def mct_in_turns(seed):
     """A against B on one model and state, timed in the order A, B, B, A
-    (3 + 20 steps each, `use_fused_dropout` switched on the blocks between
+    (1 + 5 steps each, `use_fused_dropout` switched on the blocks between
     windows): the mean of each one's two readings."""
     from m3p_tpu_torch import bench
 
@@ -2564,7 +2638,7 @@ def mct_in_turns(seed):
     for label in ("A", "B", "B", "A"):
         for block in state.model.blocks:
             block.use_fused_dropout = label == "B"
-        out = bench.run(state, step, batch, gens)
+        out = bench.run(state, step, batch, gens, *MCT_TURN_STEPS)
         readings[label].append({k: out[k] for k in ("step_ms",
                                                      "peak_memory_gb")})
     means = {k: sum(r["step_ms"] for r in v) / 2 for k, v in readings.items()}
@@ -2584,14 +2658,13 @@ def compare_mct_grads_with_cpu(seed):
     import torch
 
     from m3p_tpu_torch import bench
-    from m3p_tpu_torch.model import build_model
     from m3p_tpu_torch.model.layers import Generators
     from m3p_tpu_torch.ops.dropout import dropout_add
     from m3p_tpu_torch.train.steps import mct_draws, mct_pretrain_loss
 
     cfg = float_mct_config(fused_dropout=True, n_layers=2,
                            dtype="float32")
-    cpu_model = build_model(cfg, seed, "cpu")
+    cpu_model = cpu_model_from_card(cfg, seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = bench.make_batch(seed + 2, "cpu", groups=2, with_clcm=True)
     draws = mct_draws(torch.Generator().manual_seed(seed), batch,
@@ -3280,7 +3353,7 @@ def one_step(what, state, step, batch, gens, per_step):
 
 
 def decoder_slice(seed):
-    """The caption step at the flagship width (3 warm-up and 20 timed
+    """The caption step at the flagship width (2 warm-up and 8 timed
     steps, a profile of one), then one step of each other loss, one caption
     step with fused dropout, and one CLM step on its own model; the
     launches of each counted and checked."""
@@ -3361,7 +3434,7 @@ def decoder_slice(seed):
         f"TF/s; loss {losses[0].item():.4f} -> {losses[-1].item():.4f}; max "
         f"|param change| {moved}")
     prof = profile_window(f"one caption step B={b}",
-                          lambda: step(state, batch, gens), reps=2)
+                          lambda: step(state, batch, gens), reps=1)
     if prof:
         prof["idle_share_vs_event_step"] = 1.0 - prof["device_busy_ms"] / \
             step_ms
@@ -3402,12 +3475,11 @@ def compare_decoder_grads_with_cpu(seed):
     """fp32 gradients of caption_loss at depth 2 and full width, on the
     card (the CUDA-core designs of #1/#2) and on the CPU (plain versions),
     at rate 0, the same weights and batch on both sides."""
-    from m3p_tpu_torch.model import build_model
     from m3p_tpu_torch.ops.attention import attention_packed
     from m3p_tpu_torch.train.steps import caption_loss
 
     cfg = decoder_config(n_layers=2, dtype="float32", rate=0.0)
-    cpu_model = build_model(cfg, seed, "cpu")
+    cpu_model = cpu_model_from_card(cfg, seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = decoder_batch("caption", seed + 2, "cpu", b=2)
     losses = {}
@@ -3477,7 +3549,9 @@ GEN_B, GEN_BEAM, GEN_LEN, GEN_PENALTY = 16, 5, 20, 1.0
 # /v1/translate
 GEN_BIG_B, GEN_HTTP_IMAGES, GEN_HTTP_TEXTS = 64, 2, 3
 GEN_TEXT_BUCKET = 32
-GEN_WARM, GEN_TIMED = 3, 10
+GEN_WARM, GEN_TIMED = 2, 5
+# /v1/caption requests of one image timed one after another
+GEN_HTTP_REQUESTS = 12
 # the cache length from which the self-attention takes #5 (PALLAS_MIN_KV_LEN
 # keys), and the longest the positions allow
 LONG_DECODE = 514
@@ -3810,42 +3884,6 @@ def generation_setup(seed, tokenizer):
     return cfg, engine, rng, gen_images(rng, GEN_B), gen_texts(rng, GEN_B)
 
 
-def caption_timing(seed):
-    """Phase 11's beam-5 caption call of GEN_B images (GEN_WARM + GEN_TIMED
-    calls, CUDA events) and the decode step's parts, timed in this process
-    before and after one profiler session of the call.  `main` runs it in
-    a new process (``--caption_timing``), so that the first reading has
-    no earlier phase and no profiler session behind it."""
-    _, engine, _, imgs, _ = generation_setup(seed, full_vocab_tokenizer())
-    out = {}
-    for when in ("before_profile", "after_profile"):
-        out[when] = {
-            "caption_beam_ms": cuda_ms(lambda: engine.caption(imgs),
-                                       iters=GEN_TIMED, warmup=GEN_WARM),
-            "decode_step_parts_ms": time_decode_step(engine, imgs)["ms"]}
-        if when == "before_profile":
-            out["profile_beam"] = profile_window(
-                f"caption beam {GEN_BEAM}, {GEN_B} images, new process",
-                lambda: engine.caption(imgs), reps=2)
-    return out
-
-
-def fresh_caption_timing(seed):
-    """`caption_timing` in a new process on the same card (the libraries
-    are built by then); its log lines are passed on."""
-    proc = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
-         "--caption_timing"], cwd=REPO, capture_output=True, text=True,
-        timeout=300)
-    lines = proc.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        log(f"  [new process] {line}")
-    if proc.returncode != 0 or not lines:
-        fail(f"the caption timing in a new process exited "
-             f"{proc.returncode}: {proc.stderr[-3000:]}")
-    return json.loads(lines[-1])
-
-
 def generation_slice(seed, tokenizer, gen):
     """Phase 11: captions and translations at the flagship width, bf16,
     through the engine and over HTTP, each call's launches counted; the
@@ -3912,6 +3950,7 @@ def generation_slice(seed, tokenizer, gen):
         engine_one = engine.caption(imgs[:1])
         if http["captions"] != engine_one:
             fail(f"/v1/caption {http} vs engine.caption {engine_one}")
+        sublap("p11_main_path")
         log(f"[generation] launches per call {json.dumps(runs)}; caption "
             f"(beam 5) {caps['beam'][0][:60]!r}, /v1/caption "
             f"{http['captions'][0][:60]!r}")
@@ -3923,7 +3962,7 @@ def generation_slice(seed, tokenizer, gen):
             encode_ms = cuda_ms(lambda: engine.model.encode_image(
                 feats, locs, mask, True), iters=10, warmup=2)
         numbers = {"encode_image_ms": encode_ms}
-        # caption 3 + 10 calls, translate 1 + 5 (to keep the phase short)
+        # caption 2 + 5 calls, translate 1 + 5 (to keep the phase short)
         for name, beam in (("greedy", 1), ("beam", GEN_BEAM)):
             ms = cuda_ms(lambda: engine.caption(imgs, beam_size=beam),
                          iters=GEN_TIMED, warmup=GEN_WARM)
@@ -3947,7 +3986,7 @@ def generation_slice(seed, tokenizer, gen):
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
         post(base, "/v1/caption", {"images": [one]})
         lat = []
-        for i in range(40):
+        for i in range(GEN_HTTP_REQUESTS):
             body = {"images": [as_json(imgs[i % GEN_B])]}
             t1 = time.perf_counter()
             post(base, "/v1/caption", body)
@@ -3958,7 +3997,7 @@ def generation_slice(seed, tokenizer, gen):
         numbers["decode_step_parts"] = time_decode_step(engine, imgs)
         numbers["profile_beam"] = profile_window(
             f"caption beam {GEN_BEAM}, {GEN_B} images",
-            lambda: engine.caption(imgs), reps=2)
+            lambda: engine.caption(imgs), reps=1)
     finally:
         server.shutdown()
         server.server_close()
@@ -3966,27 +4005,12 @@ def generation_slice(seed, tokenizer, gen):
         thread.join(timeout=30)
     if thread.is_alive():
         fail("server thread did not stop")
+    sublap("p11_main_path_and_numbers")
     numbers["main_path_and_numbers_s"] = time.time() - t0
     log(f"[perf] generation at {GEN_B} images / sentences, max_gen_len "
         f"{GEN_LEN}: {json.dumps(numbers)}")
     del engine, app, server
     torch.cuda.empty_cache()
-
-    # ---- the same beam-5 call in a process with no history ----
-    # host-paced: set against this process's reading, after phases 1-10
-    # and their profiler sessions, it says what that history costs; set
-    # against its own second reading, what one profiler session costs
-    fresh = fresh_caption_timing(seed)
-    numbers["caption_beam_new_process"] = fresh
-    log(f"[generation] beam-{GEN_BEAM} caption call of {GEN_B} images: "
-        f"{numbers['caption_beam']['ms']:.2f} ms in this process after "
-        f"phases 1-10; in a new process "
-        f"{fresh['before_profile']['caption_beam_ms']:.2f} ms, "
-        f"{fresh['after_profile']['caption_beam_ms']:.2f} after one "
-        f"profiler session; the 12 blocks of a step "
-        f"{numbers['decode_step_parts']['ms']['blocks']:.2f} / "
-        f"{fresh['before_profile']['decode_step_parts_ms']['blocks']:.2f} / "
-        f"{fresh['after_profile']['decode_step_parts_ms']['blocks']:.2f} ms")
 
     # ---- the long decode: #5 in every step, counted ----
     long_cfg = dataclasses.replace(cfg, n_layers=2)
@@ -4022,8 +4046,8 @@ def generation_slice(seed, tokenizer, gen):
 # which the trainer does not set)
 FREELB = dict(adv_steps=3, adv_lr=1e-3, adv_max_norm=0.0, norm_type="l2",
               free_text=True, free_img=True)
-FREELB_WARMUP, FREELB_STEPS = 2, 10
-FREELB_SHORT_WARMUP, FREELB_SHORT_STEPS = 1, 5
+FREELB_WARMUP, FREELB_STEPS = 1, 4
+FREELB_SHORT_WARMUP, FREELB_SHORT_STEPS = 1, 2
 # the MCT loss of the FreeLB step packs its MLM slots at
 # mct_pretrain_loss's default, which the JAX FreeLB step keeps; the
 # trainer's plain step at DataConfig.mlm_pack_ratio, the same 0.5
@@ -4064,7 +4088,7 @@ def times(per_step, n):
 
 def freelb_mct_slice(seed, fused):
     """The FreeLB MCT step at the flagship width (`m3p_tpu_torch.bench`'s
-    model, batch and optimizer; configuration A or B): 2 warm-up and 10
+    model, batch and optimizer; configuration A or B): 1 warm-up and 4
     timed steps, the launches counted, a profile of one step with the
     deltas' ascent as its own span.  Returns (numbers, state, gens,
     batch)."""
@@ -4119,7 +4143,7 @@ def freelb_mct_slice(seed, fused):
         f"{numbers['loss_first']:.4f} -> {numbers['loss_last']:.4f}; max "
         f"|param change| {moved}")
     prof = profile_window(f"one FreeLB MCT step {label}",
-                          lambda: step(state, batch, gens), reps=2,
+                          lambda: step(state, batch, gens), reps=1,
                           spans=(ASCENT_SPAN,))
     if prof:
         prof["idle_share_vs_event_step"] = (
@@ -4378,7 +4402,6 @@ def compare_freelb_grads_with_cpu(seed):
     import torch
 
     from m3p_tpu_torch import bench
-    from m3p_tpu_torch.model import build_model
     from m3p_tpu_torch.ops.attention import attention_packed
     from m3p_tpu_torch.train.freelb import (
         _init_delta, make_freelb_pretrain_step)
@@ -4388,7 +4411,7 @@ def compare_freelb_grads_with_cpu(seed):
 
     cfg = float_mct_config(n_layers=2, dtype="float32", rate=0.0)
     adv = freelb_config()
-    cpu_model = build_model(cfg, seed, "cpu")
+    cpu_model = cpu_model_from_card(cfg, seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = bench.make_batch(seed + 2, "cpu", groups=2)
     mask_cfg = bench.mask_config(cfg)
@@ -4474,18 +4497,22 @@ def freelb_slice(seed):
     out = {}
     for label, fused in (("A", False), ("B", True)):
         out[label], state, gens, batch = freelb_mct_slice(seed, fused)
+        sublap(f"p12_mct_{label}")
         if fused:
             state, out["pair_B"] = trainer_pair(state, gens, batch)
             state, out["projection"] = freelb_projection_check(state, gens,
                                                                batch)
+            sublap("p12_pair_and_projection")
         del state
         torch.cuda.empty_cache()
     out.update(freelb_itm_and_caption(seed))
+    sublap("p12_itm_and_caption")
     out["denoising"] = denoising_steps(seed)
+    sublap("p12_denoising")
     out["phase_s"] = time.time() - t0
     out["fp32_grad_card_vs_cpu_max_rel"] = compare_freelb_grads_with_cpu(
         seed)
-    out["learning"] = freelb_learning_check(seed)
+    sublap("p12_vs_cpu")
     return out
 
 
@@ -4507,7 +4534,9 @@ EVAL_BATCHES = 2
 EVAL_GEN_B = 64
 EVAL_GEN_CAPTION_BATCHES = 2
 EVAL_COCO = "Bleu,METEOR,ROUGE_L,CIDEr"
-# fp32 on the card against the CPU at depth 2: the same families, one batch
+# fp32 on the card against the CPU at depth EVAL_FP32_LAYERS (1, to leave
+# room for phase 18: depth 2 took 33.6 s of phase 13 on an H100 80GB HBM3
+# at 700 W): the same families, one batch
 # each at B = 2 (2 groups of the retrieval grid), a 4 x 20 grid at chunk
 # 32, one image and one sentence a family to decode at max_gen_len 16 (on
 # the H100 machine's host CPU the CPU side took 123.8 s at two batches of
@@ -4520,6 +4549,7 @@ EVAL_FP32_GRID = (4, 20, 32)
 # word head over 250,002 ids was most of the check's time; phases 10 and
 # 11 hold the full vocabulary's head card vs CPU
 EVAL_FP32_WORDS = 32002
+EVAL_FP32_LAYERS = 1
 # fp32 losses, accuracies and recalls on the card against the CPU, and the
 # grid scores: 2 layers of fp32 GEMMs and reductions in another order
 TOL_EVAL_FP32 = dict(rtol=1e-4, atol=0.0)
@@ -4815,10 +4845,10 @@ def eval_grid(model, ev, tmp):
                                            for k in (1, 5, 10)]:
         fail(f"eval grid: R@k {recall} against the saved matrix, "
              f"inference.log {logged}")
-    # ---- bucketing in turns ----
+    # ---- one pass with length buckets, one without ----
     turns = {False: [], True: []}
     bucket_scores = None
-    for bucket in (True, False, True, False):
+    for bucket in (True, False):
         secs, got = timed(bucket)
         turns[bucket].append(secs)
         if bucket:
@@ -4851,7 +4881,7 @@ def eval_grid(model, ev, tmp):
     out["profile"] = profile_window(
         f"eval grid {p_img} x {p_cap}, chunk {chunk}",
         lambda: retrieval_grid_scores(model, *small, chunk_size=chunk),
-        reps=2)
+        reps=1)
     log(f"[eval grid] {n_img} x {n_cap} at chunk {chunk}: "
         f"{json.dumps({k: v for k, v in out.items() if k != 'profile'})}")
     return out
@@ -5102,7 +5132,7 @@ def cpu_drawn_masking():
 
 
 def compare_eval_with_cpu(seed):
-    """fp32 at depth 2 and EVAL_FP32_WORDS words (a tokenizer of as many
+    """fp32 at depth EVAL_FP32_LAYERS and EVAL_FP32_WORDS words (a tokenizer of as many
     ids), the same families on the card and on the CPU:
     `run_all_evals` over the loss families (MLM's masks drawn on the CPU
     for both, `cpu_drawn_masking`) and a small grid within TOL_EVAL_FP32
@@ -5119,7 +5149,7 @@ def compare_eval_with_cpu(seed):
     from m3p_tpu_torch.model import build_model
 
     t0 = time.time()
-    cfg = dataclasses.replace(full_width_config("float32"), n_layers=2,
+    cfg = dataclasses.replace(full_width_config("float32"), n_layers=EVAL_FP32_LAYERS,
                               n_words=EVAL_FP32_WORDS,
                               mask_index=EVAL_FP32_WORDS - 1)
     tokenizer = full_vocab_tokenizer(EVAL_FP32_WORDS)
@@ -5171,7 +5201,8 @@ def compare_eval_with_cpu(seed):
         out["flips"] = {k: flip_margins(evs, gen, k, 1 if k.endswith(
             "greedy") else evs["cpu"].cfg.eval.beam_size, rows)
             for k, rows in flips.items()}
-    log(f"[fp32 eval] depth 2, card vs CPU: {json.dumps(out)} (tolerance "
+    log(f"[fp32 eval] depth {EVAL_FP32_LAYERS}, card vs CPU: "
+        f"{json.dumps(out)} (tolerance "
         f"{TOL_EVAL_FP32}, grid {TOL_EVAL_GRID_FP32})")
     if set(gs) != set(cs) or any(not np.isclose(gs[k], cs[k],
                                                 **TOL_EVAL_FP32)
@@ -5220,6 +5251,10 @@ TRAINER_ARGV = [
     "--ag_lgs", "", "--eval_only", "False", "--is_freelb", "False",
 ]
 TRAINER_K = 4
+# the recipe run: one epoch (`TRAINER_ARGV` says 2 of TRAINER_STEPS, as the
+# recipe does: a second epoch repeats the first and its 5.4 GB checkpoint)
+# of 20 steps, where the trainer writes its first stats line
+TRAINER_EPOCHS, TRAINER_RECIPE_STEPS = 1, 20
 # the eval grid of the recipe run: 10 images x 50 captions, one chunk
 TRAINER_GRID = (10, 50)
 # the checkpoints of the recipe run (the state 5.4 GB: fp32 parameters,
@@ -5237,7 +5272,7 @@ TRAINER_FP32_GROUPS, TRAINER_FP32_B = 2, 2
 # 250,002 x 768 word table was most of the check's time; the word head at
 # the full vocabulary is held card vs CPU by phases 10 and 13
 TRAINER_FP32_WORDS = 32002
-# the parameters' change after 8 micro-steps (4 updates), card against CPU,
+# the parameters' change after 4 micro-steps (2 updates), card against CPU,
 # per leaf relative to the leaf's largest change; a leaf whose largest
 # change is under 1e-3 of the model's largest (the key biases) relative to
 # the model's largest: fp32 GEMMs and reductions in another order through
@@ -5245,9 +5280,9 @@ TRAINER_FP32_WORDS = 32002
 TOL_TRAINER_FP32 = 1e-3
 # the micro-steps after the resume (rel, ic, rel, ic, ic, ic)
 RESUME_STEPS = ("rel", "ic", "rel", "ic", "ic", "ic")
-# the fp32 check's 8 micro-steps: windows of 2 that mix the kinds, two
-# caption steps (the CPU's 250002-word head is most of its time)
-FP32_STEPS = ("rel", "ic", "rel", "rel", "ic")
+# the fp32 check's 4 micro-steps: two windows of 2 that mix the kinds
+FP32_STEPS = ("ic", "rel", "ic")
+FP32_UPDATES = 2
 
 
 class CycledBatches:
@@ -5419,7 +5454,10 @@ def trainer_recipe(seed, data, tmp):
     from m3p_tpu_torch.train.state import TrainState
 
     dump_root = os.path.join(tmp, "dump")
-    argv = TRAINER_ARGV + ["--dump_path", dump_root, "--exp_id", "a"]
+    argv = TRAINER_ARGV + [
+        "--dump_path", dump_root, "--exp_id", "a",
+        "--max_epoch", str(TRAINER_EPOCHS),
+        "--epoch_size", str(TRAINER_B * TRAINER_RECIPE_STEPS)]
     cfg = train_x.args_to_config(train_x.get_parser().parse_args(argv))
     # the pre-trained .pth: another random model at one language more
     t0 = time.time()
@@ -5522,9 +5560,10 @@ def trainer_recipe(seed, data, tmp):
         if got != trainer_launches(trainer.cfg, kind):
             fail(f"trainer: a {kind} step launched {got}; expected "
                  f"{trainer_launches(trainer.cfg, kind)}")
-    if len(rec["epochs"]) != 2 or trainer.epoch != 2:
+    if len(rec["epochs"]) != TRAINER_EPOCHS or \
+            trainer.epoch != TRAINER_EPOCHS:
         fail(f"trainer: {len(rec['epochs'])} epochs ran, epoch "
-             f"{trainer.epoch}; expected 2")
+             f"{trainer.epoch}; expected {TRAINER_EPOCHS}")
     start = rec["initial"]
     for i, (step, mini, params) in enumerate(rec["micro"]):
         emitted = (i + 1) % TRAINER_K == 0
@@ -5837,7 +5876,7 @@ def trainer_preemption(seed, data, tmp):
 
 
 def trainer_fp32_vs_cpu(seed):
-    """(c) 8 trainer micro-steps of rel + ic at depth 2, fp32, rate 0,
+    """(c) 4 trainer micro-steps of rel + ic at depth 2, fp32, rate 0,
     accumulation 2 and weight decay, a TRAINER_FP32_WORDS vocabulary, on
     the card and on the CPU from the same weights and batches: the
     parameters' change per leaf."""
@@ -5857,7 +5896,7 @@ def trainer_fp32_vs_cpu(seed):
         mask_index=TRAINER_FP32_WORDS - 1))
     data = trainer_data(seed + 5, TRAINER_FP32_GROUPS, TRAINER_FP32_B,
                         TRAINER_FP32_WORDS)
-    cpu_model = build_model(cfg.model, seed, "cpu")
+    cpu_model = cpu_model_from_card(cfg.model, seed)
     start = {k: v.clone() for k, v in cpu_model.state_dict().items()}
     gpu_model = build_model(cfg.model, seed, "cuda")
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -5871,8 +5910,10 @@ def trainer_fp32_vs_cpu(seed):
     counts = launch_counts()
     for t in trainers.values():
         t._close_iterators()
-    if trainers["card"].state.step != 4 or trainers["host"].state.step != 4:
-        fail("trainer fp32: not 4 updates in 8 micro-steps")
+    if trainers["card"].state.step != FP32_UPDATES or \
+            trainers["host"].state.step != FP32_UPDATES:
+        fail(f"trainer fp32: not {FP32_UPDATES} updates in "
+             f"{2 * FP32_UPDATES} micro-steps")
     if counts["packed_fwd"] == 0 or counts["packed_fwd_tensor_cores"]:
         fail(f"trainer fp32: launches {counts} (fp32 takes the CUDA-core "
              f"designs)")
@@ -5891,8 +5932,8 @@ def trainer_fp32_vs_cpu(seed):
     if not worst <= TOL_TRAINER_FP32:
         fail(f"trainer fp32: parameter change card vs CPU {worst:.3e} at "
              f"{worst_name} (tolerance {TOL_TRAINER_FP32})")
-    log(f"[trainer] fp32 at depth 2, card vs CPU, 8 micro-steps (4 updates,"
-        f" weight decay 0.01): worst change difference {worst:.3e} at "
+    log(f"[trainer] fp32 at depth 2, card vs CPU, {2 * FP32_UPDATES} "
+        f"micro-steps ({FP32_UPDATES} updates, weight decay 0.01): worst change difference {worst:.3e} at "
         f"{worst_name} (tolerance {TOL_TRAINER_FP32}, relative to the leaf's"
         f" largest change); largest change {largest:.3e}; "
         f"{time.time() - t0:.1f} s")
@@ -5920,10 +5961,13 @@ def trainer_slice(seed):
         data = trainer_data(seed)
         data_s = time.time() - t0
         out = {"data_s": data_s, "disk_free_gb": free_gb}
+        sublap("p14_data")
         out["recipe"] = trainer_recipe(seed, data, tmp)
         torch.cuda.empty_cache()
+        sublap("p14a_recipe")
         out["preemption"] = trainer_preemption(seed, data, tmp)
         torch.cuda.empty_cache()
+        sublap("p14b_preemption")
         out["fp32_card_vs_cpu"] = trainer_fp32_vs_cpu(seed)
     finally:
         logger = logging.getLogger("m3p_tpu_torch")
@@ -5969,12 +6013,11 @@ DATASET_PAIRS = (480, 2 * DATASET_B)
 # MB), DATASET_CAPTIONS captions each; the loader alone over this many
 # batches of each dataset
 DATASET_IMAGES, DATASET_CAPTIONS, LOADER_BATCHES = 400, 5, 6
-# its timed epochs in turns: the row loader with the recipe's read threads
-# (None) and with 1, and the datasets' ready-made batches cycled in memory
-# as phase 14 steps them
+# its timed epochs, one each after a warm-up epoch: the row loader with the
+# recipe's read threads (None), the datasets' ready-made batches cycled in
+# memory as phase 14 steps them, and the row loader with 1 read thread
 DATASET_TURNS = (("row_loader", None), ("in_memory", None),
-                 ("row_loader", 1), ("row_loader", 1), ("in_memory", None),
-                 ("row_loader", None))
+                 ("row_loader", 1))
 
 
 class InMemoryStore:
@@ -6360,7 +6403,7 @@ def dataset_recipe(seed, tokenizer, phase14_ms, tmp):
     regions, captions of 64 tokens, bf16 at the flagship width) with its
     in-memory batches replaced by the ported `RetrievalDataset` and
     `CaptionDataset` over an `InMemoryStore`, through the row loader: a
-    warm-up epoch, then DATASET_TURNS' epochs in turns (the recipe's 4 read
+    warm-up epoch, then DATASET_TURNS' epochs, one each (the recipe's 4 read
     threads, 1 read thread, the datasets' ready-made batches in memory),
     timed and counted (each step's launches checked, every launch at a
     held shape); the loader alone (4 read threads and 1) beside the
@@ -6428,7 +6471,7 @@ def dataset_recipe(seed, tokenizer, phase14_ms, tmp):
         steps.clear()
         readings.clear()
         with recorded_launch_shapes(set()) as shapes:
-            # ---- the main path, counted: epochs in turns ----
+            # ---- the main path, counted: one epoch each ----
             zero_launch_counts()
             for source, threads in DATASET_TURNS:
                 epoch(source, threads or workers)
@@ -6512,7 +6555,9 @@ def dataset_slice(seed, tokenizer, phase14_ms):
     try:
         out = {"cli": dataset_cli(seed, tmp)}
         torch.cuda.empty_cache()
+        sublap("p15a_cli")
         out["recipe"] = dataset_recipe(seed, tokenizer, phase14_ms, tmp)
+        sublap("p15b_recipe")
     finally:
         logger = logging.getLogger("m3p_tpu_torch")
         for handler in list(logger.handlers):
@@ -7005,7 +7050,7 @@ def quant_vs_bf16(q8, plain, rng):
                  for k in ("score_16_ms", "caption_ms")}
           for name in ("int8", "bf16")}
     step = {name: profile_window(f"a beam-{GEN_BEAM} decode step, {name}",
-                                 decode_step_fn(e, imgs), reps=5)
+                                 decode_step_fn(e, imgs), reps=2)
             for name, e in (("int8", q8), ("bf16", plain))}
     out = {"retrieval": retrieval, "caption_token_agreement": agree,
            "ms_in_turns": turns, "ms": ms,
@@ -7033,7 +7078,7 @@ def quant_fp32_vs_cpu(seed, tokenizer):
     import numpy as np
     import torch
 
-    from m3p_tpu_torch.model import build_model, capture_q8
+    from m3p_tpu_torch.model import capture_q8
     from m3p_tpu_torch.model.transformer import lengths_to_mask
     from m3p_tpu_torch.ops import quant
     from m3p_tpu_torch.tokenization.tokenizer import batch_sentences
@@ -7042,7 +7087,7 @@ def quant_fp32_vs_cpu(seed, tokenizer):
     cfg = dataclasses.replace(full_width_config("float32"), n_layers=2,
                               ffn_quant="int8_infer",
                               head_quant="int8_infer")
-    cpu = build_model(cfg, seed, "cpu")
+    cpu = cpu_model_from_card(cfg, seed)
     card = copy.deepcopy(cpu).to("cuda")
     capture_q8(cpu)
     capture_q8(card)
@@ -7227,7 +7272,9 @@ TRAIN_GEMM_CASES = (
 # about 40 s
 TRAIN_GEMM_CHECK_MACS = 2e9
 # (b) windows of the MCT step in turns: warm-up and timed steps each
-INT8_TURN_STEPS = (2, 10)
+# (half of (2, 10), whose windows took 64 s on an H100 80GB HBM3 at 700 W,
+# to leave room for phase 18)
+INT8_TURN_STEPS = (1, 2)
 # the int8 GEMMs an encode makes: 12 blocks x 2 FFN GEMMs forward, two
 # each backward
 INT8_FFN_FWD, INT8_FFN_BWD = 24, 48
@@ -7435,7 +7482,7 @@ def mct_int8_turns(seed, fused):
         state.model = models[mode]
         numbers[mode]["profile"] = profile_window(
             f"one MCT step {label} {mode}", lambda: step(state, batch, gens),
-            reps=2)
+            reps=1)
     numbers["int8_over_none_step_ms"] = (numbers["int8_bwd"]["step_ms"]
                                          / numbers["none"]["step_ms"])
     numbers["flops_per_step"] = flops
@@ -7533,7 +7580,7 @@ def int8_learning_check(seed, steps=30):
     return {"first5": first, "last5": last}
 
 
-def timed_variant_steps(what, cfg, seed, n=(2, 5)):
+def timed_variant_steps(what, cfg, seed, n=(1, 2)):
     """`bench.run` of ``n`` (warm-up, timed) MCT steps of ``cfg`` at BN =
     80, its launches checked (15 #1, 30 #2 a step): (numbers, state,
     gens)."""
@@ -7570,14 +7617,13 @@ def variant_fp32_vs_cpu(seed, what, **change):
     import torch
 
     from m3p_tpu_torch import bench
-    from m3p_tpu_torch.model import build_model
     from m3p_tpu_torch.model import layers
     from m3p_tpu_torch.train.steps import mct_draws, mct_pretrain_loss
 
     cfg = bench.bench_config(n_layers=2, dtype="float32", rate=0.0,
                              ffn_quant="none")
     cfg = dataclasses.replace(cfg, **change)
-    cpu = build_model(cfg, seed, "cpu")
+    cpu = cpu_model_from_card(cfg, seed)
     card = copy.deepcopy(cpu).to("cuda")
     batch = bench.make_batch(seed + 2, "cpu", groups=2)
     draws = mct_draws(torch.Generator().manual_seed(seed), batch,
@@ -7877,12 +7923,821 @@ def int8_variants_slice(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: several processes -- data parallelism and sequence parallelism
+# ---------------------------------------------------------------------------
+
+# Each part launches its ranks with `python -m torch.distributed.run
+# --standalone --nproc_per_node N chip_smoke.py --p18 <config>`; the ranks
+# share this card, so `parallel.mesh.choose_backend` picks gloo: its
+# collectives take the CUDA tensors and copy them through host memory, and
+# the ring's point-to-point stages through pinned host buffers
+# (`parallel.mesh.exchange`).  Ranks sharing one card over gloo say nothing
+# of data-parallel speed: their times are the cost of the path, not a
+# speed-up.
+#
+# (a) phase 14's recipe (rel + ic, accumulation 4, BN = 24 x 4, bf16 at the
+# flagship width) through `train_x.main` on each of 2 ranks, --mesh_data 2,
+# its batches from phase 15(b)'s ported datasets over InMemoryStore (the
+# card's machine has no h5py: the COCO family cannot come from a data
+# directory there).
+# Dropout 0, so that one process on the same global batches (each rank's
+# row-loader batch, concatenated: `ShardsAsOne`) is comparable.
+P18_DP_RANKS = 2
+P18_DP_STEPS = 4                 # micro-steps: one update at accumulation 4
+# fp32 at depth 2: 4 micro-steps (rel, ic, ...) without accumulation, 4
+# updates, over phase 14's TRAINER_FP32_WORDS vocabulary (the all-reduce
+# and the checkpoint of the 250,002-row table were most of the run)
+P18_FP32_STEPS = 4
+# that run takes SIGTERM on both ranks after micro-step 1, the flags
+# checked every 2 micro-steps: the checkpoint at 2, mid-epoch; the run goes
+# on to its end, and a resume from that checkpoint must take its last 2
+# micro-steps bitwise (at depth 2: the flagship's 5.4 GB checkpoint, saved
+# and read back, took 20 s of the phase on an H100 80GB HBM3 host)
+P18_SIGTERM_AT, P18_SAVE_EVERY = 1, 2
+# images of the in-memory store: a rank's strided half holds the 5 row
+# batches of 12 its steps take
+P18_IMAGES = 96
+# bf16 at the flagship width, one process against 2 ranks on the same
+# global batches: GEMMs over 12 rows a rank against 24 may pick other
+# kernels, so the losses agree to bf16's rounding through 12 layers (1.72e-4
+# read on an H100 80GB HBM3 at 700 W), and Adam's first moment (the
+# window's mean gradient x 0.1, each gradient of bf16 precision: 2 ranks'
+# average rounded once against one sum over 24 rows) per leaf to a share of
+# the leaf's largest entry (3.2e-2 to 3.9e-2 read there)
+TOL_P18_LOSS_BF16 = 1e-3
+TOL_P18_MU_BF16 = 6e-2
+# fp32 at depth 2: the losses, and every parameter after the 2 updates per
+# leaf relative to its largest entry, or to 1e-2 of the model's largest
+# (the LayerNorm scales, 1) for a leaf that is still its 2 updates from a
+# zero start (against the leaf alone: 6.0e-6 at such a bias on the H100)
+TOL_P18_FP32 = 1e-5
+P18_PARAM_FLOOR = 1e-2
+# (b) the long_context_config model (12 x 768, 250,002 words, 8192
+# positions, bf16) over 4 ranks of a seq axis: the non-causal xMLM step at
+# B = 8, S = 4096 through `parallel.sp.SPModel`, FusedAdam as in phase 7
+P18_SP_RANKS = 4
+P18_SP_B, P18_SP_S = 8, 4096
+# one step, timed from its start (its pinned buffers' allocation included:
+# 7.12 s a step after a warm-up step against 9.3-11.0 s on an H100 80GB
+# HBM3 at 700 W)
+P18_SP_WARMUP, P18_SP_STEPS = 0, 1
+# fp32 at depth 2 (a 32,002-word vocabulary: the comparison is of the
+# stack, not of the 250,002-row table), the SP step's loss and every
+# gradient against one process, whose attention takes #5/#6; per leaf
+# relative to the leaf's largest entry, a leaf whose largest entry is under
+# 1e-3 of the model's largest (the key biases: a per-row shift the softmax
+# ignores) relative to the model's largest
+P18_SP_FP32_WORDS = 32002
+TOL_P18_SP_GRAD = 1e-4
+P18_TIMEOUT_S = 600
+
+
+class ShardsAsOne:
+    """The global batches of ``count`` batch shards in one process: each
+    shard's row-loader batch (`make_row_loader` with ``shard``, as the
+    trainer of each rank makes it), concatenated in shard order."""
+
+    def __init__(self, dataset, count, seed, workers):
+        self.dataset, self.count = dataset, count
+        self.seed, self.workers = seed, workers
+
+    def epoch_iterator(self, batch_size, epoch=0):
+        import numpy as np
+
+        from m3p_tpu_torch.data.row_pipeline import make_row_loader
+
+        loaders = [iter(make_row_loader(
+            self.dataset, batch_size // self.count, seed=self.seed,
+            epoch=epoch, worker_count=self.workers, shard=(r, self.count)))
+            for r in range(self.count)]
+        try:
+            for parts in zip(*loaders):
+                if isinstance(parts[0], tuple):
+                    yield tuple({k: np.concatenate([p[i][k] for p in parts])
+                                 for k in parts[0][i]}
+                                for i in range(len(parts[0])))
+                else:
+                    yield {k: np.concatenate([p[k] for p in parts])
+                           for k in parts[0]}
+        finally:
+            for it in loaders:
+                it.close()
+
+
+def p18_dp_argv(seed, dump, extra=()):
+    return TRAINER_ARGV + [
+        "--dropout", "0", "--attention_dropout", "0",
+        "--epoch_size", str(TRAINER_B * P18_DP_STEPS), "--max_epoch", "1",
+        "--save_check_every", str(P18_SAVE_EVERY), "--dump_path", dump,
+        "--seed", str(seed)] + list(extra)
+
+
+def p18_recipe_data(seed, vocab, tmp, shards=None):
+    """Phase 15(b)'s rel and ic datasets over InMemoryStore (seeded alike
+    on every rank), as `LoadedData`; with ``shards`` each wrapped in
+    `ShardsAsOne`."""
+    from m3p_tpu_torch.data.loader import LoadedData
+    from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
+
+    tok = XLMRTokenizer(vocab)
+    store = InMemoryStore(seed, P18_IMAGES)
+    cfg = recipe_config(tok, tmp)
+    datasets = recipe_datasets(cfg, store, recipe_captions(seed, store), tok)
+    if shards:
+        # the trainer's row loaders draw with the run's --seed
+        datasets = {k: ShardsAsOne(d, shards, seed, cfg.data.num_workers)
+                    for k, d in datasets.items()}
+    return LoadedData(train_datasets=datasets, tokenizer=tok)
+
+
+def p18_run_main(argv, data, rec, on_step=None, on_save=None, rng=None,
+                 save=True):
+    """`train_x.main(argv, data=...)` recording into ``rec`` each micro-step's
+    kind, loss, #1/#2 launches, ms (host clock to a synchronize) and staged
+    batch; ``on_save(trainer)`` runs after each checkpoint (one that returns
+    True ends the run); ``save`` False writes none (a reference run).
+    Returns (trainer or None if ``on_save`` ended it, seconds)."""
+    import torch
+
+    from m3p_tpu_torch.cli import train_x
+    from m3p_tpu_torch.train import trainer as trainer_mod
+
+    class Ended(Exception):
+        pass
+
+    def wrap_init(orig):
+        def init(self, *a, **kw):
+            orig(self, *a, **kw)
+            add = self.stats.add
+            self.stats.add = lambda key, v: (rec["losses"].append(
+                (key, float(v))), add(key, v))[1]
+            if rng is not None:
+                self.rng.set_state(rng)
+        return init
+
+    def wrap_batch(orig):
+        def get_batch(self, task):
+            batch = orig(self, task)
+            rec["batches"].append(batch)
+            return batch
+        return get_batch
+
+    def wrap_step(orig):
+        def step_once(self, kind, task):
+            torch.cuda.synchronize()
+            before = launch_counts()
+            t = time.perf_counter()
+            orig(self, kind, task)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            after = launch_counts()
+            rec["steps"].append((kind, {k: after[k] - before[k]
+                                        for k in ("packed_fwd", "packed_bwd",
+                                                  "flash_fwd", "flash_bwd")}))
+            if on_step is not None:
+                on_step(self)
+        return step_once
+
+    def wrap_save(orig):
+        def save_(self, name="checkpoint"):
+            if save:
+                orig(self, name)
+            if on_save is not None and on_save(self):
+                raise Ended
+        return save_
+
+    t0 = time.time()
+    with contextlib.ExitStack() as stack:
+        for name, make in (("__init__", wrap_init),
+                           ("_get_batch", wrap_batch),
+                           ("step_once", wrap_step),
+                           ("save_checkpoint", wrap_save)):
+            stack.enter_context(patched(trainer_mod.Trainer, name, make))
+        try:
+            trainer = train_x.main(argv, data=data)
+        except Ended:
+            trainer = None
+    torch.cuda.synchronize()
+    return trainer, time.time() - t0
+
+
+def p18_dp_rank(cfg):
+    """18(a) on one rank: the whole bf16 run at the flagship width (rank 0
+    writes Adam's first moment at its end), then the fp32 run at depth 2,
+    cut by SIGTERM after micro-step P18_SIGTERM_AT, going on to its end, and
+    resumed from its mid-epoch checkpoint (the resume's batches, losses and
+    final parameters bitwise the whole run's)."""
+    import signal
+
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.parallel import data_parallel as DP
+    from m3p_tpu_torch.parallel.mesh import HOST_STAGED_BYTES
+
+    seed, tmp = cfg["seed"], cfg["tmp"]
+    data = p18_recipe_data(seed, cfg["vocab"], tmp)
+    data32 = p18_recipe_data(seed, cfg["vocab32"], tmp)
+    dump = os.path.join(tmp, "dump")
+    mesh_args = ["--mesh_data", str(P18_DP_RANKS)]
+    out = {"rank": None}
+
+    def new_rec():
+        return {"losses": [], "batches": [], "ms": [], "steps": []}
+
+    def write_mu(trainer):
+        # the end of the epoch: rank 0's Adam first moment, in place of the
+        # 5.4 GB checkpoint that would hold it
+        if dist.get_rank() == 0:
+            opt = trainer.state.opt_state
+            torch.save([t.cpu() for t in opt.get("inner", opt)["mu"]],
+                       os.path.join(tmp, "dp_mu.pt"))
+        return False
+
+    whole = new_rec()
+    # ---- the main path, counted ----
+    zero_launch_counts()
+    DP.REDUCED_BYTES.update(gradients=0, steps=0)
+    HOST_STAGED_BYTES.update(to_host=0, to_device=0)
+    torch.cuda.reset_peak_memory_stats()
+    trainer, secs = p18_run_main(
+        p18_dp_argv(seed, dump, mesh_args + ["--exp_id", "whole"]), data,
+        whole, on_save=write_mu, save=False)
+    counts = launch_counts()
+    out["rank"] = dist.get_rank()
+    out["whole"] = {
+        "seconds": secs, "n_total_iter": trainer.n_total_iter,
+        "losses": whole["losses"], "ms": whole["ms"],
+        "steps": whole["steps"],
+        "launches": {k: counts[k] for k in ("packed_fwd", "packed_bwd",
+                                            "flash_fwd", "flash_bwd")},
+        "reduced_bytes": dict(DP.REDUCED_BYTES),
+        "host_staged_bytes": dict(HOST_STAGED_BYTES),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "mesh": dict(trainer.mesh.shape), "backend": trainer.mesh.backend,
+        "shard": [trainer.shard_index, trainer.shard_count]}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- fp32 at depth 2, SIGTERM after micro-step P18_SIGTERM_AT ----
+    # the mid-epoch checkpoint is linked aside (the end of the epoch saves
+    # over it) for the resume, and the run goes on to its end: the
+    # uninterrupted run
+    fp32_args = ["--fp16", "False", "--n_layers", "2",
+                 "--optimizer", TRAINER_FP32_SPEC, "--accumulate_gradients",
+                 "1", "--epoch_size", str(TRAINER_B * P18_FP32_STEPS)]
+    state = {}
+    cut = os.path.join(dump, "phase14", "cut", "checkpoint")
+
+    def kill(trainer):
+        if trainer.n_total_iter == P18_SIGTERM_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def keep(trainer):
+        if trainer.n_sentences < trainer.cfg.epoch_size:
+            state["rng"] = trainer.rng.get_state()
+            state["saved_at"] = trainer.n_total_iter
+            state["losses_at"] = len(fp32["losses"])
+            if dist.get_rank() == 0:
+                src = trainer.checkpoint_path()
+                os.makedirs(cut)
+                for name in os.listdir(src):
+                    os.link(os.path.join(src, name), os.path.join(cut, name))
+            dist.barrier()
+        return False
+
+    fp32 = new_rec()
+    trainer, secs = p18_run_main(p18_dp_argv(seed, dump, mesh_args + [
+        "--exp_id", "fp32"] + fp32_args), data32, fp32, on_step=kill,
+        on_save=keep)
+    if "saved_at" not in state:
+        fail(f"phase 18(a) rank {out['rank']}: SIGTERM made no checkpoint "
+             "mid-epoch")
+    out["fp32"] = {"seconds": secs, "losses": fp32["losses"]}
+    final = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ---- the resume from the SIGTERM checkpoint ----
+    resumed = new_rec()
+    trainer, resumed_s = p18_run_main(p18_dp_argv(seed, dump, mesh_args + [
+        "--exp_id", "cut"] + fp32_args), data32, resumed, rng=state["rng"],
+        save=False)
+    at = state["saved_at"]
+    later = fp32["batches"][at:]
+    out["resume"] = {
+        "saved_at": at, "resumed_seconds": resumed_s,
+        "steps_after": len(resumed["batches"]),
+        "batches_bitwise": (len(resumed["batches"]) == len(later) > 0
+                            and all(map(same_batches, resumed["batches"],
+                                        later))),
+        "losses_bitwise": resumed["losses"] == fp32["losses"][
+            state["losses_at"]:],
+        "params_bitwise": all(torch.equal(p, final[n]) for n, p in
+                              trainer.model.named_parameters())}
+    with open(f"{cfg['out']}.{out['rank']}.json", "w") as f:
+        json.dump(out, f)
+
+
+def p18_launch(part, n, cfg):
+    """``n`` ranks of this script under torchrun for ``part``: (rc, seconds,
+    output tail, per-rank results)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    path = os.path.join(cfg["tmp"], f"{part}.json")
+    cfg = dict(cfg, part=part, out=os.path.join(cfg["tmp"], f"{part}.out"))
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), str(Path(__file__).resolve()), "--p18",
+           path]
+    t0 = time.time()
+    try:
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=P18_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        fail(f"phase 18 {part}: the ranks did not end in {P18_TIMEOUT_S} s: "
+             f"{str(e.stdout)[-3000:]}")
+    secs = time.time() - t0
+    tail = (proc.stdout[-4000:] + proc.stderr[-4000:])
+    if proc.returncode != 0:
+        fail(f"phase 18 {part}: a rank failed (rc {proc.returncode}):\n{tail}")
+    results = []
+    for r in range(n):
+        with open(f"{cfg['out']}.{r}.json") as f:
+            results.append(json.load(f))
+    return secs, results
+
+
+def p18_one_process(seed, vocab, tmp, extra):
+    """18(a)'s recipe in this process on the ranks' global batches over
+    ``vocab``: the trainer and its record, whose ``"fault"`` is
+    `p18_fault_reading` at the first caption step."""
+    data = p18_recipe_data(seed, vocab, tmp, shards=P18_DP_RANKS)
+    rec = {"losses": [], "batches": [], "ms": [], "steps": []}
+
+    def read_fault(trainer):
+        if rec["steps"][-1][0] == "ic" and "fault" not in rec:
+            rec["fault"] = p18_fault_reading(trainer, rec["batches"][-1])
+
+    trainer, secs = p18_run_main(
+        p18_dp_argv(seed, os.path.join(tmp, "one"), extra), data, rec,
+        on_step=read_fault, save=False)
+    return trainer, rec
+
+
+def p18_fault_reading(trainer, batch):
+    """What a planted fault would read: the caption loss as the mean of the
+    ranks' own per-token means (each shard's sum over its own count) against
+    the global-count loss, on one global batch at the trainer's parameters;
+    ``before_update`` says whether no update has been applied yet (the
+    parameters are then the step's own)."""
+    import torch
+
+    from m3p_tpu_torch.train import steps as S
+
+    cfg = trainer.cfg
+    b = S.expand_compact_batch(batch)
+    rows = b["tokens"].shape[0]
+    half = rows // P18_DP_RANKS
+
+    def loss(part):
+        return float(S.caption_loss(
+            trainer.model, part, None, refine_image=cfg.refine_image,
+            deterministic=True, refine_encoder=cfg.refine_encoder)[0])
+
+    with torch.no_grad():
+        whole = loss(b)
+        shards = [loss({k: v[r * half:(r + 1) * half]
+                        if torch.is_tensor(v) and v.dim() and
+                        v.shape[0] == rows else v for k, v in b.items()})
+                  for r in range(P18_DP_RANKS)]
+    fault = sum(shards) / len(shards)
+    return {"global": whole, "per_rank_mean": fault,
+            "rel": abs(fault - whole) / abs(whole),
+            "before_update": trainer.state.step == 0}
+
+
+def leaf_rel_diff(got, want, floor=1e-3):
+    """(max over leaves of max |got - want| over the leaf's largest |want|,
+    the leaf): a leaf whose largest is under ``floor`` of the model's
+    largest is taken over that share of the model's largest."""
+    top = max(float(w.abs().max()) for w in want.values())
+    worst, where = 0.0, None
+    for name, w in want.items():
+        scale = max(float(w.abs().max()), floor * top)
+        d = float((got[name].to(w.device).float()
+                   - w.float()).abs().max()) / scale
+        if d > worst:
+            worst, where = d, name
+    return worst, where
+
+
+def dp_slice(seed, tmp):
+    """18(a): the ranks' runs (`p18_dp_rank`), then one process on the same
+    global batches, bf16 at full width and fp32 at depth 2."""
+    import numpy as np
+    import torch
+
+    vocab = os.path.join(tmp, "vocab.tsv")
+    write_vocab(vocab, 250000)
+    vocab32 = os.path.join(tmp, "vocab32.tsv")
+    write_vocab(vocab32, TRAINER_FP32_WORDS - 2)
+    cfg = {"seed": seed, "vocab": vocab, "vocab32": vocab32, "tmp": tmp}
+    secs, ranks = p18_launch("dp", P18_DP_RANKS, cfg)
+    r0 = ranks[0]
+    t0 = time.time()
+    for r in ranks:
+        if r["whole"]["backend"] != "gloo" or r["whole"]["mesh"]["data"] != 2:
+            fail(f"phase 18(a): rank {r['rank']} ran {r['whole']['mesh']} "
+                 f"over {r['whole']['backend']}")
+        if r["whole"]["n_total_iter"] != P18_DP_STEPS:
+            fail(f"phase 18(a): rank {r['rank']} took "
+                 f"{r['whole']['n_total_iter']} micro-steps")
+        bad = [k for k, v in r["resume"].items()
+               if k.endswith("bitwise") and not v]
+        if bad:
+            fail(f"phase 18(a) rank {r['rank']}: the resume is not bitwise "
+                 f"the uninterrupted run's: {bad} {r['resume']}")
+        if r["whole"]["losses"] != r0["whole"]["losses"]:
+            fail("phase 18(a): the ranks log different (reduced) losses")
+
+    # ---- one process on the same global batches ----
+    one, rec = p18_one_process(seed, vocab, tmp, ["--exp_id", "one"])
+    got = np.array([v for _, v in r0["whole"]["losses"]])
+    want = np.array([v for _, v in rec["losses"]])
+    loss_rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if [k for k, _ in rec["losses"]] != [k for k, _ in r0["whole"]["losses"]]:
+        fail("phase 18(a): one process took other steps than the ranks")
+    if loss_rel > TOL_P18_LOSS_BF16:
+        fail(f"phase 18(a): bf16 losses of 2 ranks against one process "
+             f"differ by {loss_rel} > {TOL_P18_LOSS_BF16}")
+    # rank 0's Adam first moment at the end of the epoch
+    mu = torch.load(os.path.join(tmp, "dp_mu.pt"), map_location="cpu",
+                    weights_only=True)
+    opt = one.state.opt_state
+    names = [n for n, _ in one.model.named_parameters()]
+    mu_rel = leaf_rel_diff(dict(zip(names, mu)),
+                           dict(zip(names, opt.get("inner", opt)["mu"])))
+    one_steps = rec["steps"]
+    fault = rec.get("fault")
+    del mu, one
+    torch.cuda.empty_cache()
+    one_s = {"bf16": time.time() - t0}
+    if mu_rel[0] > TOL_P18_MU_BF16:
+        fail(f"phase 18(a): Adam's first moment of 2 ranks against one "
+             f"process differs by {mu_rel} > {TOL_P18_MU_BF16}")
+    for r in ranks:
+        if [s for s in r["whole"]["steps"]] != [list(s) for s in one_steps]:
+            fail(f"phase 18(a): rank {r['rank']}'s #1/#2 launches a step "
+                 f"{r['whole']['steps']} are not one process's {one_steps}")
+        if r["whole"]["launches"]["packed_fwd"] == 0 or \
+                r["whole"]["launches"]["packed_bwd"] == 0:
+            fail(f"phase 18(a): rank {r['rank']} launched no #1/#2")
+
+    # ---- fp32 at depth 2 ----
+    one, rec32 = p18_one_process(seed, vocab32, tmp, [
+        "--exp_id", "one32", "--fp16", "False", "--n_layers", "2",
+        "--optimizer", TRAINER_FP32_SPEC, "--accumulate_gradients", "1",
+        "--epoch_size", str(TRAINER_B * P18_FP32_STEPS)])
+    fault32 = rec32.get("fault")
+    got = np.array([v for _, v in r0["fp32"]["losses"]])
+    want = np.array([v for _, v in rec32["losses"]])
+    loss32 = float(np.max(np.abs(got - want) / np.abs(want)))
+    blob = torch.load(os.path.join(tmp, "dump", "phase14", "fp32",
+                                   "checkpoint", "state.pt"),
+                      map_location="cpu", weights_only=True, mmap=True)
+    param32 = leaf_rel_diff(
+        blob["model"], {n: p.detach() for n, p in one.model.named_parameters()},
+        floor=P18_PARAM_FLOOR)
+    del blob, one
+    torch.cuda.empty_cache()
+    one_s["fp32"] = time.time() - t0 - one_s["bf16"]
+    if loss32 > TOL_P18_FP32 or param32[0] > TOL_P18_FP32:
+        fail(f"phase 18(a): fp32 depth 2, 2 ranks against one process: "
+             f"losses {loss32}, parameters {param32} > {TOL_P18_FP32}")
+    # the fp32 check's teeth: a per-rank-mean caption loss would read above
+    # its limit (the bf16 limits are bf16's rounding, and may not see it)
+    if fault32 is None or fault32["rel"] <= TOL_P18_FP32:
+        fail(f"phase 18(a): a per-rank-mean caption loss reads {fault32} "
+             f"against the global-count one, within the fp32 limit "
+             f"{TOL_P18_FP32}: the check would not see it")
+
+    n_steps = P18_DP_STEPS
+    out = {
+        "launch_s": secs, "ranks": P18_DP_RANKS, "backend": "gloo",
+        "rank0_s": {"whole": r0["whole"]["seconds"],
+                    "resume": r0["resume"]["resumed_seconds"],
+                    "fp32": r0["fp32"]["seconds"]},
+        "one_process_s": one_s,
+        "micro_steps": n_steps,
+        "grad_bytes_all_reduced_per_micro_step":
+            r0["whole"]["reduced_bytes"]["gradients"]
+            / r0["whole"]["reduced_bytes"]["steps"],
+        "host_staged_bytes_per_micro_step": {
+            k: v / n_steps for k, v in
+            r0["whole"]["host_staged_bytes"].items()},
+        "launches_per_rank": {r["rank"]: r["whole"]["launches"]
+                              for r in ranks},
+        "launches_per_micro_step_by_kind": {
+            kind: c for kind, c in dict(
+                (k, c) for k, c in r0["whole"]["steps"]).items()},
+        # the first micro-step of each rank builds its loaders and warms up
+        "ms_per_micro_step_per_rank": {
+            r["rank"]: float(np.mean(r["whole"]["ms"][1:])) for r in ranks},
+        "ms_per_micro_step_one_process": float(np.mean(rec["ms"][1:])),
+        "peak_memory_gb_per_rank": {r["rank"]: r["whole"]["peak_memory_gb"]
+                                    for r in ranks},
+        "bf16_loss_max_rel_vs_one_process": loss_rel,
+        "bf16_adam_mu_max_rel_vs_one_process": mu_rel,
+        "tolerances": {"bf16_loss": TOL_P18_LOSS_BF16,
+                       "bf16_mu": TOL_P18_MU_BF16, "fp32": TOL_P18_FP32},
+        # a per-rank-mean caption loss in place of the global-count one
+        "planted_per_rank_mean_loss_bf16": fault,
+        "planted_per_rank_mean_loss_fp32_depth2": fault32,
+        "fp32_depth2_loss_max_rel": loss32,
+        "fp32_depth2_param_max_rel": param32,
+        "resume": {r["rank"]: r["resume"] for r in ranks},
+        "speed_note": ("2 ranks sharing one card over gloo, whose "
+                       "collectives go through host memory: the cost of "
+                       "the path, not a data-parallel speed")}
+    log(f"[parallel] 18(a) data parallelism: {json.dumps(out)}")
+    return out
+
+
+def p18_sp_config(n_layers=12, dtype="bfloat16", n_words=250002):
+    """long_context_config's model: 8192 positions; its ``seq_axis`` names
+    the mesh axis `SPModel` shards the stack over."""
+    from m3p_tpu_torch.config import long_context_config
+
+    m = long_context_config().model
+    return dataclasses.replace(m, n_layers=n_layers, dtype=dtype,
+                               n_words=n_words, mask_index=n_words - 1)
+
+
+def p18_sp_batch(seed, n_words, device):
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.data.synthetic import make_stream_batch
+
+    batch = make_stream_batch(np.random.RandomState(seed), P18_SP_B,
+                              P18_SP_S, n_words)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def p18_sp_masking(seed, batch, n_words):
+    """The xMLM masking of ``batch`` drawn on the CPU from ``seed``."""
+    import torch
+
+    from m3p_tpu_torch.config import long_context_config
+    from m3p_tpu_torch.data.masking import MaskingConfig, mask_tokens
+    from m3p_tpu_torch.model.transformer import lengths_to_mask
+
+    data = long_context_config().data
+    cfg = MaskingConfig(max_pred=data.max_pred_per_seq, n_words=n_words,
+                        mask_index=n_words - 1)
+    tokens = batch["tokens"].long().cpu()
+    mask = lengths_to_mask(batch["lengths"].cpu(), tokens.shape[1])
+    gen = torch.Generator().manual_seed(seed)
+    return [t.to(batch["tokens"].device)
+            for t in mask_tokens(gen, tokens, mask, cfg)]
+
+
+def p18_sp_rank(cfg):
+    """18(b) on one rank: the bf16 SP step at full width (launches, ring
+    bytes, ms), then the fp32 depth-2 step's loss and gradients (rank 0
+    writes them)."""
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.config import MeshConfig, long_context_config
+    from m3p_tpu_torch.data.masking import MaskingConfig
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.ops.ring_attention import RING_BYTES
+    from m3p_tpu_torch.parallel.data_parallel import batch_reduction
+    from m3p_tpu_torch.parallel.mesh import (
+        HOST_STAGED_BYTES, auto_init_distributed, make_mesh)
+    from m3p_tpu_torch.parallel.sp import SPModel
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+    from m3p_tpu_torch.train.steps import make_train_step, mlm_loss
+    from m3p_tpu_torch.train.trainer import broadcast_parameters
+
+    seed = cfg["seed"]
+    t0 = time.time()
+    auto_init_distributed("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(MeshConfig(data=1, seq=P18_SP_RANKS), dev)
+    rank = dist.get_rank()
+    out = {"rank": rank, "backend": mesh.backend, "mesh": dict(mesh.shape)}
+
+    mcfg = p18_sp_config()
+    data = long_context_config().data
+    model = build_model(mcfg, seed, dev)
+    broadcast_parameters(model, mesh)
+    tx, _ = build_optimizer(LONG_SPEC, clip_grad_norm=CLIP)
+    state = create_train_state(model, tx, mesh)
+    sp = SPModel(model, mesh)
+    mask_cfg = MaskingConfig(max_pred=data.max_pred_per_seq,
+                             n_words=mcfg.n_words, mask_index=mcfg.mask_index)
+    step = make_train_step(lambda _m, b, g: mlm_loss(sp, b, g, mask_cfg))
+    batch = p18_sp_batch(seed, mcfg.n_words, dev)
+    gens = Generators.from_seed(seed, dev)
+    for _ in range(P18_SP_WARMUP):
+        state, m = step(state, batch, gens)
+    torch.cuda.synchronize()
+    dist.barrier()
+    # ---- the main path, counted ----
+    zero_launch_counts()
+    RING_BYTES.update(forward=0, backward=0, rotations=0)
+    HOST_STAGED_BYTES.update(to_host=0, to_device=0)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    losses = []
+    for _ in range(P18_SP_STEPS):
+        state, m = step(state, batch, gens)
+        losses.append(float(m["mlm"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / P18_SP_STEPS
+    counts = launch_counts()
+    out["bf16"] = {
+        "ms_per_step": ms, "losses": losses,
+        "launches": {k: counts[k] for k in ("packed_fwd", "packed_bwd",
+                                            "flash_fwd", "flash_bwd")},
+        "ring_bytes_per_step": {k: v / P18_SP_STEPS
+                                for k, v in RING_BYTES.items()},
+        "host_staged_bytes_per_step": {
+            k: v / P18_SP_STEPS for k, v in HOST_STAGED_BYTES.items()},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "n_params": sum(p.numel() for p in model.parameters())}
+    del state, model, sp, step, batch
+    torch.cuda.empty_cache()
+
+    t1 = time.time()
+    # ---- fp32 at depth 2: the loss and every gradient ----
+    mcfg = p18_sp_config(2, "float32", P18_SP_FP32_WORDS)
+    model = build_model(mcfg, seed + 1, dev)
+    broadcast_parameters(model, mesh)
+    tx, _ = build_optimizer("sgd,lr=0.1")
+    state = create_train_state(model, tx, mesh)
+    batch = p18_sp_batch(seed + 1, mcfg.n_words, dev)
+    masking = p18_sp_masking(seed + 1, batch, mcfg.n_words)
+    sp = SPModel(model, mesh)
+    # the step's loss and its gradients as the optimizer would take them
+    with batch_reduction(state.mesh):
+        loss, m = mlm_loss(sp, batch, None, mask_cfg, deterministic=True,
+                           masking=masking)
+    loss.backward()
+    m = state.sync_gradients(dict(m))
+    out["fp32"] = {"loss": float(m["mlm"])}
+    out["seconds"] = {"bf16": t1 - t0, "fp32": time.time() - t1}
+    if rank == 0:
+        torch.save({n: p.grad.cpu() for n, p in model.named_parameters()
+                    if p.grad is not None}, f"{cfg['out']}.grads.pt")
+    with open(f"{cfg['out']}.{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def sp_slice(seed, tmp):
+    """18(b): the ranks' SP steps (`p18_sp_rank`), then one process's fp32
+    depth-2 step on the same batch and masking (#5/#6)."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.config import long_context_config
+    from m3p_tpu_torch.data.masking import MaskingConfig
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.train.steps import mlm_loss
+
+    cfg = {"seed": seed, "tmp": tmp}
+    secs, ranks = p18_launch("sp", P18_SP_RANKS, cfg)
+    for r in ranks:
+        c = r["bf16"]["launches"]
+        if r["backend"] != "gloo" or r["mesh"]["seq"] != P18_SP_RANKS:
+            fail(f"phase 18(b): rank {r['rank']} ran {r['mesh']} over "
+                 f"{r['backend']}")
+        if any(c.values()):
+            fail(f"phase 18(b): rank {r['rank']} launched attention kernels "
+                 f"inside the SP step: {c}")
+        if not np.isfinite(r["bf16"]["losses"]).all():
+            fail(f"phase 18(b): non-finite loss {r['bf16']['losses']}")
+        if r["bf16"]["losses"] != ranks[0]["bf16"]["losses"]:
+            fail("phase 18(b): the ranks' losses differ")
+    # one process, the same model outside the SP path: its whole sequence
+    # through #5/#6
+    mcfg = p18_sp_config(2, "float32", P18_SP_FP32_WORDS)
+    data = long_context_config().data
+    mask_cfg = MaskingConfig(max_pred=data.max_pred_per_seq,
+                             n_words=mcfg.n_words, mask_index=mcfg.mask_index)
+    model = build_model(mcfg, seed + 1, "cuda")
+    batch = p18_sp_batch(seed + 1, mcfg.n_words, "cuda")
+    masking = p18_sp_masking(seed + 1, batch, mcfg.n_words)
+    # ---- the one-process reference, counted ----
+    zero_launch_counts()
+    loss, _ = mlm_loss(model, batch, None, mask_cfg, deterministic=True,
+                       masking=masking)
+    loss.backward()
+    torch.cuda.synchronize()
+    ref_launches = {k: v for k, v in launch_counts().items()
+                    if k in ("flash_fwd", "flash_bwd", "packed_fwd",
+                             "packed_bwd")}
+    if ref_launches["flash_fwd"] != mcfg.n_layers or \
+            ref_launches["flash_bwd"] != 2 * mcfg.n_layers:
+        fail(f"phase 18(b): the one-process step launched {ref_launches}")
+    grads = torch.load(os.path.join(tmp, "sp.out.grads.pt"),
+                       map_location="cuda", weights_only=True)
+    want = {n: p.grad for n, p in model.named_parameters()
+            if p.grad is not None}
+    got = {n: grads.get(n, torch.zeros_like(w)) for n, w in want.items()}
+    grad_rel = leaf_rel_diff(got, want)
+    loss = float(loss.detach())
+    loss_rel = abs(ranks[0]["fp32"]["loss"] - loss) / abs(loss)
+    del model, grads, want, got
+    torch.cuda.empty_cache()
+    if loss_rel > TOL_P18_FP32 or grad_rel[0] > TOL_P18_SP_GRAD:
+        fail(f"phase 18(b): fp32 depth 2, SP over {P18_SP_RANKS} ranks "
+             f"against one process: loss {loss_rel} (tolerance "
+             f"{TOL_P18_FP32}), gradients {grad_rel} (tolerance "
+             f"{TOL_P18_SP_GRAD})")
+    r0 = ranks[0]["bf16"]
+    full = p18_sp_config()
+    # one of K and V of one layer, bf16: B x H x S_local x Dh x 2 bytes
+    kv = P18_SP_B * full.emb_dim * (P18_SP_S // P18_SP_RANKS) * 2
+    out = {
+        "launch_s": secs, "ranks": P18_SP_RANKS, "backend": "gloo",
+        "rank0_s": ranks[0]["seconds"],
+        "shape": {"B": P18_SP_B, "S": P18_SP_S,
+                  "S_local": P18_SP_S // P18_SP_RANKS},
+        "n_params": r0["n_params"],
+        "ms_per_step_per_rank": {r["rank"]: r["bf16"]["ms_per_step"]
+                                 for r in ranks},
+        "losses": r0["losses"],
+        "launches_in_sp_step_per_rank": {r["rank"]: r["bf16"]["launches"]
+                                         for r in ranks},
+        "ring_bytes_per_step_rank0": r0["ring_bytes_per_step"],
+        "ring_bytes_predicted": {
+            "kv_block_each_of_k_v": kv,
+            "forward": (P18_SP_RANKS - 1) * 2 * kv * full.n_layers,
+            "backward": ((P18_SP_RANKS - 1) * 2 * kv
+                         + P18_SP_RANKS * 2 * kv) * full.n_layers,
+            "note": "forward: 3 rotations of K and V a layer; backward: K "
+                    "and V again and 4 hops of their dK/dV, bf16"},
+        "host_staged_bytes_per_step_rank0": r0["host_staged_bytes_per_step"],
+        "peak_memory_gb_per_rank": {r["rank"]: r["bf16"]["peak_memory_gb"]
+                                    for r in ranks},
+        "fp32_depth2_loss_rel_vs_one_process": loss_rel,
+        "fp32_depth2_grad_max_rel_vs_one_process": grad_rel,
+        "one_process_launches": ref_launches,
+        "speed_note": ("4 ranks sharing one card over gloo, the ring "
+                       "staged through pinned host memory: "
+                       "the cost of the path, not a sequence-parallel "
+                       "speed")}
+    log(f"[parallel] 18(b) sequence parallelism: {json.dumps(out)}")
+    return out
+
+
+def parallel_slice(seed):
+    """Phase 18: (a) data parallelism through train_x.main over 2 ranks,
+    (b) sequence parallelism with ring attention over 4."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"dp": dp_slice(seed, tmp)}
+        out["sp"] = sp_slice(seed, tmp)
+    out["phase_s"] = time.time() - t0
+    log(f"[parallel] phase 18 in {out['phase_s']:.1f} s")
+    return out
+
+
+def p18_rank(path):
+    """A rank of phase 18 under torchrun (``--p18 <config>``)."""
+    import torch
+
+    from m3p_tpu_torch.parallel.mesh import auto_init_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(path) as f:
+        cfg = json.load(f)
+    if cfg["part"] == "dp":
+        auto_init_distributed("cuda")
+        p18_dp_rank(cfg)
+    else:
+        p18_sp_rank(cfg)
+    return 0
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--caption_timing", action="store_true",
-                   help="only time phase 11's beam-5 caption call before "
-                        "and after a profiler session (one JSON line)")
+    p.add_argument("--p18", default=None,
+                   help="run as a rank of phase 18 (under torchrun) with "
+                        "this JSON config")
     args = p.parse_args()
     if not (REPO / "m3p_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: m3p_tpu_torch is not beside this script; run it "
@@ -7897,18 +8752,18 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.caption_timing:
-        print(json.dumps(caption_timing(args.seed)), flush=True)
-        return 0
+    if args.p18:
+        return p18_rank(args.p18)
     name = torch.cuda.get_device_name(0)
     from m3p_tpu_torch import bench
 
     card = bench.card()
     log(f"[card] {name} ({card}); torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
-    t_start = time.time()
+    t_start = CLOCK["t"] = CLOCK["sub"] = time.time()
 
     build_kernels()
+    lap("build")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     worst = check_kernels(gen)
     worst_train = check_dropout_and_backward(gen)
@@ -7920,12 +8775,18 @@ def main() -> int:
     flash_share = check_mask_identity(flash=True)
     flash_share_bf16 = check_mask_identity(flash=True, dtype=torch.bfloat16)
     drop_worst, drop_share = check_fused_dropout(gen)
+    lap("p2_checks")
     times = time_kernels(gen)
+    lap("p3_time_kernels")
     drop_fwd, drop_bwd = time_fused_dropout(gen)
+    sublap("p3_fused_dropout")
     train_times = time_training_kernels(gen)
+    sublap("p3_training_kernels")
     decoder_times = time_decoder_kernels(gen)
+    sublap("p3_decoder_kernels")
     flash_fwd, flash_bwd = time_flash_kernels(gen)
     torch.cuda.empty_cache()
+    lap("p3_time_rest")
 
     from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
 
@@ -7933,51 +8794,71 @@ def main() -> int:
         vocab = os.path.join(tmp, "vocab.tsv")
         write_vocab(vocab)
         tokenizer = XLMRTokenizer(vocab)
+    sublap("p4_tokenizer")
     engine, numbers = serve_slice(args.seed, tokenizer)
     del engine
     torch.cuda.empty_cache()
+    lap("p4_5_serve")
     fp32_diff = compare_fp32_with_cpu(args.seed, tokenizer)
+    lap("p4_fp32_vs_cpu")
 
     training = train_slice(args.seed)
     torch.cuda.empty_cache()
+    lap("p6_train")
     training["fp32_grad_card_vs_cpu_max_rel"] = compare_grads_with_cpu(
         args.seed)
+    lap("p6_vs_cpu")
     training["learning"] = learning_check(args.seed)
+    lap("p6_learning")
     torch.cuda.empty_cache()
 
     long_ctx = long_context_slice(args.seed)
     torch.cuda.empty_cache()
+    lap("p7_xmlm")
     long_ctx["fp32_grad_card_vs_cpu_max_rel"] = compare_long_grads_with_cpu(
         args.seed)
+    lap("p7_vs_cpu")
     long_ctx["learning"] = long_learning_check(args.seed)
+    lap("p7_learning")
     torch.cuda.empty_cache()
 
     mct = {"A": mct_slice(args.seed, fused=False)}
     torch.cuda.empty_cache()
+    sublap("p8_mct_A")
     mct["B"] = mct_slice(args.seed, fused=True)
     torch.cuda.empty_cache()
+    lap("p8_mct_A_B")
     mct["in_turns"] = mct_in_turns(args.seed)
+    lap("p8_in_turns")
     torch.cuda.empty_cache()
     mct["fp32_grad_card_vs_cpu_max_rel"] = compare_mct_grads_with_cpu(
         args.seed)
+    lap("p8_vs_cpu")
     mct["learning"] = mct_learning_check(args.seed)
+    lap("p8_learning")
     mct_a, mct_b = mct["A"]["launches"], mct["B"]["launches"]
     mct_clcm = mct["B"]["clcm_step"]["launches"]
     torch.cuda.empty_cache()
 
     small_worst, small_share, layout = check_small_attention()
+    lap("p9_small_checks")
     bhsd_counts = head_major_path()
     small_times = time_small_attention()
     torch.cuda.empty_cache()
+    lap("p9_small_path_and_times")
     ffn_worst = check_fused_ffn()
     ffn_block = ffn_model_check(args.seed)
     ffn = fused_ffn_path()
     torch.cuda.empty_cache()
+    lap("p9_ffn")
 
     decoder = decoder_slice(args.seed)
+    lap("p10_decoder")
     decoder["fp32_grad_card_vs_cpu_max_rel"] = \
         compare_decoder_grads_with_cpu(args.seed)
+    lap("p10_vs_cpu")
     decoder["learning"] = decoder_learning_check(args.seed)
+    lap("p10_learning")
     decoder["kernel_times"] = decoder_times
     dec_runs = {"caption": decoder["launches"], **{
         path: out["launches"] for path, out in decoder["paths"].items()}}
@@ -7985,10 +8866,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     full_tokenizer = full_vocab_tokenizer()
+    sublap("p11_tokenizer")
     generation = generation_slice(args.seed, full_tokenizer, gen)
+    lap("p11_generation")
     generation["fp32_card_vs_cpu"] = compare_generation_with_cpu(
         args.seed, full_tokenizer)
     gen_runs = generation["launches"]
+    lap("p11_vs_cpu")
     gen_paths = {
         path: [r for name, r in gen_runs.items()
                if path in name and name != "long_decode"]
@@ -8003,6 +8887,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     freelb = freelb_slice(args.seed)
+    lap("p12_freelb")
     fl_runs = {"freelb_mct_A": freelb["A"]["launches"],
                "freelb_mct_B": freelb["B"]["launches"],
                "freelb_pair_B": freelb["pair_B"]["launches"],
@@ -8014,6 +8899,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     evaluation = eval_slice(args.seed, full_tokenizer)
+    lap("p13_eval")
     ev_gen = [evaluation["generation"][f"launches_{n}"]
               for n in ("beam", "greedy")]
     ev_runs = {"eval_grid": evaluation["grid"]["launches"],
@@ -8023,17 +8909,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     trainer = trainer_slice(args.seed)
+    lap("p14_trainer")
     ev_runs["trainer"] = trainer["recipe"]["launches"]
     torch.cuda.empty_cache()
 
     datasets = dataset_slice(args.seed, full_tokenizer,
                              trainer["recipe"]["ms_per_micro_step"])
+    lap("p15_datasets")
     ev_runs["datasets_cli"] = datasets["cli"]["launches"]
     ev_runs["datasets_recipe"] = datasets["recipe"]["launches"]
     data_runs = ("datasets_cli", "datasets_recipe")
     torch.cuda.empty_cache()
 
     quant = quant_slice(args.seed, full_tokenizer)
+    lap("p16_quant")
     quant_calls = {**quant["serve"]["calls"],
                    "eval_int8": quant["eval"]["counts"]}
     quant_packed = {f"quant_{name}": c["packed_fwd"]
@@ -8041,6 +8930,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     variants = int8_variants_slice(args.seed)
+    lap("p17_int8_variants")
     p17_runs = {"int8_mct_A": variants["mct_A"]["launches"],
                 "int8_mct_B": variants["mct_B"]["launches"],
                 **{f"int8_mct_{mode}": r["packed"]
@@ -8051,6 +8941,14 @@ def main() -> int:
     p17_fwd = {**{p: r["packed_fwd"] for p, r in p17_runs.items()},
                "asm_caption": variants["asm"]["caption"]["packed_fwd"],
                "grid_int8": variants["grid"]["int8_packed_fwd_launches"]}
+    torch.cuda.empty_cache()
+
+    parallel = parallel_slice(args.seed)
+    lap("p18_parallel")
+    dp_launches = parallel["dp"]["launches_per_rank"]
+    p18_packed = {k: sum(c[k] for c in dp_launches.values())
+                  for k in ("packed_fwd", "packed_bwd")}
+    sp_flash = parallel["sp"]["one_process_launches"]
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -8066,7 +8964,8 @@ def main() -> int:
                      + sum(gen_packed.values())
                      + sum(r["packed_fwd"] for r in fl_runs.values())
                      + sum(r["packed_fwd"] for r in ev_runs.values())
-                     + sum(quant_packed.values()) + sum(p17_fwd.values())),
+                     + sum(quant_packed.values()) + sum(p17_fwd.values())
+                     + p18_packed["packed_fwd"]),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
@@ -8079,7 +8978,8 @@ def main() -> int:
                                 for p, r in fl_runs.items()},
                              **{p: r["packed_fwd"]
                                 for p, r in ev_runs.items()},
-                             **quant_packed, **p17_fwd},
+                             **quant_packed, **p17_fwd,
+                             "dp_ranks": p18_packed["packed_fwd"]},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -8123,7 +9023,8 @@ def main() -> int:
                      + sum(r["packed_bwd"] for r in fl_runs.values())
                      + sum(ev_runs[p]["packed_bwd"]
                            for p in ("trainer",) + data_runs)
-                     + sum(r["packed_bwd"] for r in p17_runs.values())),
+                     + sum(r["packed_bwd"] for r in p17_runs.values())
+                     + p18_packed["packed_bwd"]),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
@@ -8135,7 +9036,8 @@ def main() -> int:
                              **{p: ev_runs[p]["packed_bwd"]
                                 for p in ("trainer",) + data_runs},
                              **{p: r["packed_bwd"]
-                                for p, r in p17_runs.items()}},
+                                for p, r in p17_runs.items()},
+                             "dp_ranks": p18_packed["packed_bwd"]},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],
@@ -8173,10 +9075,12 @@ def main() -> int:
         "source": "m3p_tpu_torch/csrc/flash_attention.cu",
         "replaces": "m3p_tpu/ops/attention.py:177",
         "launches": (long_ctx["launches"]["fwd"]
-                     + dec_runs["clm"]["flash_fwd"] + long_flash),
+                     + dec_runs["clm"]["flash_fwd"] + long_flash
+                     + sp_flash["flash_fwd"]),
         "launches_by_path": {"xmlm": long_ctx["launches"]["fwd"],
                              "clm": dec_runs["clm"]["flash_fwd"],
-                             "generation_long_decode": long_flash},
+                             "generation_long_decode": long_flash,
+                             "sp_one_process": sp_flash["flash_fwd"]},
         "launches_per_step": long_ctx["launches_per_step"]["fwd"],
         "launches_by_design": {
             **long_ctx["launches_by_design"]["fwd"],
@@ -8205,9 +9109,10 @@ def main() -> int:
         "replaces": "m3p_tpu/ops/attention.py:471",
         "replaces_also": "m3p_tpu/ops/attention.py:512",
         "launches": (long_ctx["launches"]["bwd"]
-                     + dec_runs["clm"]["flash_bwd"]),
+                     + dec_runs["clm"]["flash_bwd"] + sp_flash["flash_bwd"]),
         "launches_by_path": {"xmlm": long_ctx["launches"]["bwd"],
-                             "clm": dec_runs["clm"]["flash_bwd"]},
+                             "clm": dec_runs["clm"]["flash_bwd"],
+                             "sp_one_process": sp_flash["flash_bwd"]},
         "launches_per_step": long_ctx["launches_per_step"]["bwd"],
         "launches_by_design": long_ctx["launches_by_design"]["bwd"],
         "design": flash_bwd["design"],
@@ -8384,6 +9289,9 @@ def main() -> int:
     log(f"[datasets] {json.dumps(datasets)} on {card}")
     log(f"[quant] {json.dumps(quant)} on {card}")
     log(f"[int8 train and variants] {json.dumps(variants)} on {card}")
+    log(f"[parallel] {json.dumps(parallel)} on {card}")
+    log(f"[clock] {json.dumps(CLOCK['laps'])}; in {CLOCK['profiles']} "
+        f"profiler windows {CLOCK['profile_s']:.1f} s")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -176,6 +176,8 @@ def _reference_names(n_layers: int, refine_layers: int
         ]
     pairs += [
         ("refine_embeddings.norm", "refiner.ln_out"),
+        ("image_embeddings.image_distbution_embeddings",
+         "image_emb.dist_proj"),
         ("pooled_layer.dense", "itm_pooler.dense"),
         ("seq_relationship", "itm_pooler.score"),
         ("pooled_layer2.dense", "clcm_pooler.dense"),
@@ -193,9 +195,10 @@ def load_reference_state_dict(state_dict: Mapping[str, Any], n_layers: int,
                               ) -> Dict[str, torch.Tensor]:
     """Reference ``TransformerModel`` state dict -> the port's names.
 
-    Keys the table does not name (the tied ``pred_layer.proj.weight``, the
-    unused distribution projection) are skipped, as the JAX converter
-    skips them."""
+    Keys the table does not name (the tied ``pred_layer.proj.weight``) are
+    skipped, as the JAX converter skips them; the class-distribution
+    projection maps to ``image_emb.dist_proj``
+    (`m3p_tpu/checkpoint.py:187-189`)."""
     sd = {re.sub(r"^module\.", "", k): v for k, v in state_dict.items()}
     out: Dict[str, torch.Tensor] = {}
     for src, dst in _reference_names(n_layers, refine_layers):
@@ -304,6 +307,9 @@ def load_weights(model: nn.Module, path: str) -> None:
     value, as in the JAX package's reload."""
     if path.endswith(".pt"):
         sd = torch.load(path, map_location="cpu", weights_only=True)
+        dist_w = sd.get("image_emb.dist_proj.weight")
+        if dist_w is not None and model.image_emb.dist_proj is None:
+            model.image_emb.add_dist_proj(dist_w.shape[1])
         model.load_state_dict(sd, strict=True)
         return
     if not path.endswith(".pth"):
@@ -312,6 +318,11 @@ def load_weights(model: nn.Module, path: str) -> None:
             f"own .pt; Orbax checkpoint directories need JAX")
     cfg = model.cfg
     converted = load_reference_file(path, cfg.n_layers, cfg.refine_layers)
+    dist_w = converted.get("image_emb.dist_proj.weight")
+    if dist_w is not None and model.image_emb.dist_proj is None:
+        # the checkpoint's class-distribution projection, for encode_image's
+        # ``dist`` input
+        model.image_emb.add_dist_proj(dist_w.shape[1])
     missing = [k for k in model.state_dict() if k not in converted]
     merge_params(model, converted)
     if missing:
@@ -368,27 +379,52 @@ def save_checkpoint(path: str, state, extra: Optional[Dict[str, Any]] = None
     The files go to a temporary sibling first, which then replaces
     ``path``: the old directory moves aside to ``<path>.previous``, the new
     one moves in, the old one is deleted.  A kill at any point leaves one
-    whole checkpoint for `committed_checkpoint` to find."""
+    whole checkpoint for `committed_checkpoint` to find.
+
+    In a process group of several ranks the save is collective (every rank
+    calls it): rank 0 writes the state (the same on every rank) and
+    ``extra.json``, every rank its own ``loader_state.<rank>.json`` into
+    the temporary directory, and rank 0 moves it into place; barriers keep
+    the ranks in step."""
     path = os.path.abspath(path)
-    tmp = f"{path}.tmp-{os.getpid()}"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
+    dist = torch.distributed
+    ranks = (dist.is_available() and dist.is_initialized()
+             and dist.get_world_size() > 1)
+    rank = _rank()
+    tmp = f"{path}.tmp-save" if ranks else f"{path}.tmp-{os.getpid()}"
+    write_extra = bool(extra)
+    extra = dict(extra or {})
+    loader_state = extra.pop("loader_state", None)
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    if ranks:
+        dist.barrier()
     try:
-        torch.save({"model": state.model.state_dict(),
-                    "opt_state": state.opt_state, "step": state.step},
-                   os.path.join(tmp, STATE_FILE))
-        if extra:
-            extra = dict(extra)
-            loader_state = extra.pop("loader_state", None)
-            with open(os.path.join(tmp, "extra.json"), "w") as f:
-                json.dump(extra, f, default=str)
-            if loader_state:
-                with open(os.path.join(tmp, f"loader_state.{_rank()}.json"),
-                          "w") as f:
-                    json.dump(loader_state, f, default=str)
+        if rank == 0:
+            torch.save({"model": state.model.state_dict(),
+                        "opt_state": state.opt_state, "step": state.step},
+                       os.path.join(tmp, STATE_FILE))
+            if write_extra:
+                with open(os.path.join(tmp, "extra.json"), "w") as f:
+                    json.dump(extra, f, default=str)
+        if loader_state:
+            with open(os.path.join(tmp, f"loader_state.{rank}.json"),
+                      "w") as f:
+                json.dump(loader_state, f, default=str)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    if ranks:
+        dist.barrier()
+    if rank == 0:
+        _commit(tmp, path)
+    if ranks:
+        dist.barrier()
+
+
+def _commit(tmp: str, path: str) -> None:
+    """Move the whole checkpoint ``tmp`` into ``path``."""
     previous = _previous(path)
     if os.path.isdir(path):
         shutil.rmtree(previous, ignore_errors=True)

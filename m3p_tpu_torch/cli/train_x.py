@@ -21,10 +21,15 @@ A caller with datasets of its own passes them as ``data=LoadedData(...)``
 
     main([...], data=LoadedData(train_datasets={("rel", "coco"): ds}, ...))
 
-Several cards (a mesh, DP/FSDP/TP, sequence or pipeline parallelism) are
-item 16: with more than one visible card and a batch that would shard,
-`main` raises instead of training on one card; with a batch that would
-not shard, it trains on one card and logs a warning, as the JAX CLI does.
+Several cards: one process per card under a launcher, each a rank of the
+mesh of ``--mesh_*`` (data and sequence parallelism; `main`'s docstring):
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m m3p_tpu_torch.cli.train_x ... --mesh_data 2
+
+One process that sees several cards and a batch that would shard over
+them raises and names the launcher; with a batch that would not shard, it
+trains on one card and logs a warning, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -50,7 +55,7 @@ def get_parser() -> argparse.ArgumentParser:
     package's parser flag for flag, plus ``--device``.
 
     Accepted-but-inert flags (drop-in compatibility): GPU/launcher plumbing
-    that has no TPU analog (--amp, --local_rank, --master_port,
+    that has no TPU analog (--amp, --master_port,
     --debug_slurm — JAX is single-controller; bf16 needs no loss scaling),
     reference dead code (--is_latent /--kld_alpha /--rec_alpha,
     --use_memory, --use_enc_att: the latent/GAN/memory paths are commented
@@ -450,22 +455,66 @@ def _reload_weights(args, cfg, model, logger) -> None:
     logger.info("reloaded model weights from %s", args.reload_model)
 
 
+def _join_process_group(args, device):
+    """Join the launcher's process group (torchrun, SLURM, or
+    ``torch.distributed.launch``'s ``--local_rank``) and make the mesh of
+    ``--mesh_*`` over its ranks (`m3p_tpu/cli/train_x.py:407,466-495`);
+    (None, device) on one process.  Each rank drives card ``LOCAL_RANK %
+    device_count``."""
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.parallel.mesh import auto_init_distributed, make_mesh
+
+    if args.local_rank >= 0 and "LOCAL_RANK" not in os.environ:
+        os.environ["LOCAL_RANK"] = str(args.local_rank)
+    if not auto_init_distributed(device.type):
+        return None, device
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(args_to_config(args).mesh, device)
+    if not args.exp_id:
+        # one dump directory for every rank: rank 0's random id
+        from m3p_tpu_torch.utils.logging import get_dump_path
+
+        box = [os.path.basename(get_dump_path(
+            args.dump_path, args.exp_name)) if dist.get_rank() == 0
+            else None]
+        dist.broadcast_object_list(box, src=0)
+        args.exp_id = box[0]
+    return mesh, device
+
+
 def main(argv=None, data=None):
     """Run a recipe (`m3p_tpu/cli/train_x.py:401-531`); returns the
-    `Trainer`.  ``data``: a `LoadedData`; None loads ``--data_path``."""
+    `Trainer`.  ``data``: a `LoadedData`; None loads ``--data_path``.
+
+    Under a launcher (``python -m torch.distributed.run --nproc_per_node N
+    -m m3p_tpu_torch.cli.train_x ... --mesh_data D --mesh_seq S``) each
+    process is a rank of the mesh: data parallelism over ``data``,
+    sequence parallelism over ``seq``; ``--mesh_fsdp`` / ``--mesh_tensor``
+    / ``--mesh_expert`` / ``--pp_stages`` above 1 raise (items 16b and
+    16c of ROADMAP.md)."""
     import torch
 
     from m3p_tpu_torch import checkpoint as ckpt
     from m3p_tpu_torch.data.loader import load_data
     from m3p_tpu_torch.eval.evaluator import Evaluator
     from m3p_tpu_torch.model import build_model, resolve_device
+    from m3p_tpu_torch.parallel.sharding import check_mesh_supported
     from m3p_tpu_torch.train.trainer import Trainer
     from m3p_tpu_torch.utils.logging import initialize_exp
 
     args = get_parser().parse_args(argv)
     device = resolve_device(args.device)
+    check_mesh_supported(dataclasses.asdict(args_to_config(args).mesh))
+    mesh, device = _join_process_group(args, device)
     cfg = args_to_config(args)
-    logger = initialize_exp(cfg)
+    logger = initialize_exp(cfg, mesh.rank if mesh is not None else 0)
+    if mesh is not None:
+        logger.info("device mesh: %s over %d ranks, backend %s, %s", {
+            k: v for k, v in mesh.shape.items() if v > 1}, mesh.size,
+            mesh.backend, device)
 
     if data is None:
         data = load_data(cfg, dataset_paths={
@@ -480,14 +529,18 @@ def main(argv=None, data=None):
             cfg.model, n_words=data.tokenizer.vocab_size,
             mask_index=data.tokenizer.mask_token_id))
 
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
+    if (mesh is None and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
         dp = _data_parallel_width(cfg.mesh, torch.cuda.device_count())
         if cfg.data.batch_size % dp == 0:
-            raise NotImplementedError(
-                f"{torch.cuda.device_count()} visible cards and a batch of "
-                f"{cfg.data.batch_size} that shards over data x fsdp = {dp}: "
-                f"training over several cards is item 16 of ROADMAP.md; "
-                f"show the run one card (CUDA_VISIBLE_DEVICES)")
+            n = torch.cuda.device_count()
+            raise RuntimeError(
+                f"{n} visible cards and a batch of {cfg.data.batch_size} "
+                f"that shards over data x fsdp = {dp}, in one process: a "
+                f"process of the port drives one card.  Launch a rank per "
+                f"card: python -m torch.distributed.run --nproc_per_node {n} "
+                f"-m m3p_tpu_torch.cli.train_x ... (or show this process "
+                f"one card with CUDA_VISIBLE_DEVICES)")
         logger.warning(
             "batch_size %d not divisible by data*fsdp=%d — running on one "
             "card of %d; adjust --batch_size or --mesh_*",
@@ -497,7 +550,7 @@ def main(argv=None, data=None):
     if args.reload_model:
         _reload_weights(args, cfg, model, logger)
     trainer = Trainer(cfg, model, data.train_datasets,
-                      tokenizer=data.tokenizer)
+                      tokenizer=data.tokenizer, mesh=mesh)
     trainer.install_preemption_handler()
     try:
         # resume from dump_path/checkpoint when it exists; an explicit

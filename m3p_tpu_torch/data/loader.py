@@ -37,8 +37,10 @@ Missing data for a requested task raises `FileNotFoundError` at load time
 
 A shard is read with ``h5py``, imported when the first one is opened: on a
 machine without it, the text families load and the image families need a
-`LoadedData` over an in-memory store.  One process only: several processes,
-each with its slice of the data, are item 16 of ROADMAP.md.
+`LoadedData` over an in-memory store.  Over several processes
+``--split_data`` (without the row loader) splits the mono streams by feeder
+and ``--ft_all`` gives each process one language, by the process's batch
+shard (`parallel.mesh.batch_shards`).
 """
 
 from __future__ import annotations
@@ -138,13 +140,13 @@ def make_ae_transform(shuffle_k: float, dropout_p: float, blank_p: float,
 
 
 def _process() -> Tuple[int, int]:
-    """(rank, world size) of this process in ``torch.distributed``; (0, 1)
-    outside a process group."""
-    import torch.distributed as dist
+    """(index, count) of this process's batch shard, the JAX loader's
+    (process_index, process_count): from the current mesh (ranks that
+    differ only in ``seq`` feed the same data), else the process group's
+    (rank, world size), else (0, 1)."""
+    from m3p_tpu_torch.parallel.mesh import batch_shards
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+    return batch_shards()
 
 
 def _data_missing(cfg: TrainConfig, what: str, path: str) -> None:

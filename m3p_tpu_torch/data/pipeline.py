@@ -13,8 +13,9 @@ used by that stream (``record_stream``), so the caching allocator does not
 hand its memory to the side stream's next copy while the step still reads
 it.  For the CPU the tensors share the arrays' memory.
 
-Several processes, each staging its slice of a global batch, are item 16
-of ROADMAP.md.  The checkpointable row loader is `data/row_pipeline.py`:
+Over several processes each stages its own shard of a global batch (the
+`Trainer` makes the shard).  The checkpointable row loader is
+`data/row_pipeline.py`:
 the thread here runs ahead of the steps, so the `Trainer` counts the
 batches its steps took to know the loader's position.
 """

@@ -25,9 +25,11 @@ records ahead of the consumer (numpy's big copies, h5py and the
 tokenizer's Python code interleave); they change when a record is built,
 never which records a batch holds.
 
-One process: every record goes to this process's batches.  A
-per-process slice of the records is item 16 of ROADMAP.md; the `Trainer`
-refuses a process group before it makes a loader.
+Several batch shards (``shard=(index, count)``): the records are sliced
+before the shuffle, ``index, index + count, ...``, as the JAX loader slices
+them by process (`m3p_tpu/data/grain_pipeline.py:278-282`): disjoint, and
+balanced to within one record.  With ``count`` 1 every record goes to this
+process's batches.
 """
 
 from __future__ import annotations
@@ -185,6 +187,25 @@ class RowSource:
         # a saved position is restored only into a loader over this source
         return (f"RowSource(n={self._n}, seed={self._seed}, "
                 f"row={getattr(self._row_fn, '__qualname__', 'row')})")
+
+
+class StridedSource:
+    """Records ``index, index + count, ...`` of a source: grain's
+    ``MapDataset.slice(slice(index, None, count))``."""
+
+    def __init__(self, source: RowSource, index: int, count: int):
+        if not 0 <= index < count:
+            raise ValueError(f"shard {index} of {count}")
+        self.source, self.index, self.count = source, index, count
+
+    def __len__(self) -> int:
+        return len(range(self.index, len(self.source), self.count))
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        return self.source[self.index + i * self.count]
+
+    def __repr__(self) -> str:
+        return f"{self.source!r}[{self.index}::{self.count}]"
 
 
 def _stack_batch(rows):
@@ -467,9 +488,11 @@ class RowIterator:
 def make_row_loader(dataset, batch_size: int, seed: int = 0, epoch: int = 0,
                     with_clcm: bool = False,
                     num_epochs: Optional[int] = 1,
-                    worker_count: int = 1) -> RowLoader:
+                    worker_count: int = 1,
+                    shard: Tuple[int, int] = (0, 1)) -> RowLoader:
     """The row loader of any supported dataset family (`make_grain_loader`
-    of the JAX package, one process).
+    of the JAX package); ``shard`` = (index, count) takes the strided
+    slice of the records of batch shard ``index`` (module docstring).
 
     Grid datasets (retrieval / pretrain / MILD) yield (t2i, i2t) batch
     pairs of BN = batch_size * sample_n rows; row datasets yield batch
@@ -498,6 +521,8 @@ def make_row_loader(dataset, batch_size: int, seed: int = 0, epoch: int = 0,
         source = _stream_source(dataset, row_seed)
     else:
         raise TypeError(f"no row source for {type(dataset).__name__}")
+    if shard[1] > 1:
+        source = StridedSource(source, *shard)
     if worker_count > 4:
         logger.warning(
             "worker_count=%d read threads: past 4, the threads mostly "

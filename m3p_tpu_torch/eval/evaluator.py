@@ -32,7 +32,7 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +41,8 @@ from m3p_tpu_torch.data.masking import MaskingConfig
 from m3p_tpu_torch.eval.bleu import corpus_bleu
 from m3p_tpu_torch.eval.caption_metrics import meteor_score, rouge_l_score
 from m3p_tpu_torch.eval.cider import cider_score
-from m3p_tpu_torch.eval.retrieval import recall_at_k, retrieval_grid_scores
+from m3p_tpu_torch.eval.retrieval import (
+    merge_process_scores, recall_at_k, retrieval_grid_scores)
 from m3p_tpu_torch.model import capture_q8, quantized_inference_model
 from m3p_tpu_torch.model.generation import beam_search, greedy_generate
 from m3p_tpu_torch.model.layers import Generators
@@ -53,10 +54,11 @@ logger = logging.getLogger("m3p_tpu_torch")
 EVAL_SEED = 0  # fixed eval RNG (reference `np.random.RandomState(0)`)
 
 
-def _rank() -> int:
+def _rank_world() -> Tuple[int, int]:
     dist = torch.distributed
-    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
-            else 0)
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def _host(values: List[torch.Tensor]) -> List[float]:
@@ -240,18 +242,25 @@ class Evaluator:
                                 img_feats, img_locs, img_len,
                                 chunk_size: int = 512,
                                 prefix: str = "") -> Dict[str, float]:
-        scores = retrieval_grid_scores(
+        rank, world = _rank_world()
+        # each rank scores every world-th chunk; the partials sum to the
+        # whole matrix, from which alone the metrics come
+        part = retrieval_grid_scores(
             self.model, cap_tokens, cap_len, img_feats, img_locs, img_len,
-            chunk_size=chunk_size, refine_image=self._refine_image())
+            chunk_size=chunk_size, refine_image=self._refine_image(),
+            process_index=rank, process_count=world)
+        scores = merge_process_scores(part)
         r = recall_at_k(scores, cap_to_img)
         eval_path = getattr(self.cfg.eval, "eval_path", "")
         if eval_path:
             # reference eval artifacts (`xevaluator.py:258-259,1616-1619`):
-            # the raw image x caption score matrix and an R@k append log
+            # each rank's image x caption score matrix (its partial one over
+            # several ranks) and, from rank 0, an R@k append log
             os.makedirs(eval_path, exist_ok=True)
             np.save(os.path.join(
-                eval_path, f"score_{prefix or 'test'}_rank{_rank()}.npy"),
-                np.asarray(scores))
+                eval_path, f"score_{prefix or 'test'}_rank{rank}.npy"),
+                np.asarray(part))
+        if eval_path and rank == 0:
             with open(os.path.join(eval_path, "inference.log"), "a") as f:
                 f.write(" ".join(str(r[k]) for k in
                                  ("i2t_r1", "i2t_r5", "i2t_r10")) + "\n")

@@ -104,13 +104,14 @@ def retrieval_grid_scores(
     padded joint sequence.  Padding is masked, so the scores agree with
     the unbucketed ones up to summation order.  Off by default.
 
-    ``batch_sharding`` is the JAX package's mesh argument; sharding a
-    chunk over devices is item 16 of ROADMAP.md, and anything but None
-    raises."""
+    ``batch_sharding`` (`parallel.sharding.batch_sharding`): a port
+    process drives one card, so the chunks, not a chunk's rows, are shared
+    out over the mesh's batch shards: it stands for ``process_index`` /
+    ``process_count`` = its (index, count), and the partial matrices of the
+    shards sum to the whole."""
     if batch_sharding is not None:
-        raise NotImplementedError(
-            "retrieval_grid_scores: batch_sharding (a chunk sharded over "
-            "devices) is item 16 of ROADMAP.md, not ported yet; pass None")
+        process_index, process_count = (batch_sharding.index,
+                                        batch_sharding.count)
     n_cap, width = cap_tokens.shape
     n_img = img_feats.shape[0]
     dev = next(model.parameters()).device
@@ -182,17 +183,20 @@ def retrieval_grid_scores(
 
 
 def merge_process_scores(scores: np.ndarray) -> np.ndarray:
-    """Merge per-process partial score matrices: the identity in one
-    process.  Summing them across ranks (the JAX package's allgather) is
-    item 16 of ROADMAP.md: with ``torch.distributed`` initialised over
-    more than one rank this raises rather than return a partial matrix."""
+    """Merge per-process partial score matrices (unscored entries 0) by
+    summing them over every rank of the process group
+    (`m3p_tpu/eval/retrieval.py:168-178`, the reference's per-rank dumps
+    merged in process); the identity in one process.  Over NCCL the sum
+    runs on this rank's card."""
     dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
+    if not (dist.is_available() and dist.is_initialized()
             and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "merge_process_scores across ranks is item 16 of ROADMAP.md, "
-            "not ported yet; this rank's matrix is partial")
-    return scores
+        return scores
+    t = torch.tensor(scores, dtype=torch.float32)    # a copy
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t.cpu().numpy()
 
 
 def recall_at_k(

@@ -101,8 +101,14 @@ class TextEmbeddings(nn.Module):
 
 
 class ImageEmbeddings(nn.Module):
-    """Region feature + box geometry projections, summed, then LN and
-    dropout."""
+    """Region feature + box geometry [+ class distribution] projections,
+    summed, then LN and dropout (`m3p_tpu/model/embeddings.py:101-124`).
+
+    The distribution projection ``dist_proj`` exists, as in the JAX tree,
+    only where its weights were made or loaded: a model is built without it
+    (the JAX init passes no ``dist``), `add_dist_proj` adds it (a reference
+    ``.pth`` that holds it, `checkpoint.load_weights`), and a forward given
+    ``dist`` without it raises."""
 
     def __init__(self, dim: int, feat_dim: int = 2048, loc_dim: int = 5,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
@@ -110,12 +116,33 @@ class ImageEmbeddings(nn.Module):
         self.dropout = dropout
         self.img_proj = Dense(feat_dim, dim, dtype)
         self.loc_proj = Dense(loc_dim, dim, dtype)
+        self.dist_proj: Optional[Dense] = None
         self.ln = LayerNorm(dim, dtype)
 
+    def add_dist_proj(self, dist_dim: int = 1600) -> Dense:
+        """Add the (dist_dim -> dim) projection of the class distribution,
+        zero-initialised, on the module's device."""
+        ref = self.img_proj
+        proj = Dense(dist_dim, ref.out_features, ref.compute_dtype).to(
+            ref.weight.device)
+        with torch.no_grad():
+            proj.weight.zero_()
+            proj.bias.zero_()
+        self.dist_proj = proj
+        return proj
+
     def forward(self, feats: torch.Tensor, locs: torch.Tensor,
+                dist: Optional[torch.Tensor] = None,
                 deterministic: bool = True,
                 generator: Optional[Generators] = None) -> torch.Tensor:
-        x = self.ln(self.img_proj(feats) + self.loc_proj(locs))
+        x = self.img_proj(feats) + self.loc_proj(locs)
+        if dist is not None:
+            if self.dist_proj is None:
+                raise ValueError("a class distribution needs the dist_proj "
+                                 "weights (ImageEmbeddings.add_dist_proj, or "
+                                 "a checkpoint that holds them)")
+            x = x + self.dist_proj(dist)
+        x = self.ln(x)
         return dropout(x, self.dropout, deterministic, generator)
 
 

@@ -39,7 +39,9 @@ from m3p_tpu_torch.ops.dropout import fused_dropout_add
 from m3p_tpu_torch.ops.quant import (
     GATE_COUNTS, PREQUANT_MAX_M, Q8Table, gated_linear, int8_matmul,
     int8_matmul_qbwd)
+from m3p_tpu_torch.ops.ring_attention import ring_attention
 from m3p_tpu_torch.ops.topk import top_k
+from m3p_tpu_torch.parallel.mesh import bound_seq_axis
 
 LN_EPS = 1e-12
 
@@ -55,13 +57,24 @@ class Generators:
     host: torch.Generator
 
     @classmethod
-    def from_seed(cls, seed: int, device: Union[str, torch.device]
-                  ) -> "Generators":
+    def from_seed(cls, seed: int, device: Union[str, torch.device],
+                  fold: int = 0) -> "Generators":
+        """Generators of ``seed`` with ``fold`` (a rank's batch shard, 0 on
+        one process) folded in, so no two shards draw the same masks."""
+        seed = fold_seed(seed, fold)
         dev = torch.Generator(device=torch.device(device))
         dev.manual_seed(seed)
         host = torch.Generator()
         host.manual_seed(seed + 1)
         return cls(dev, host)
+
+    def fold_in(self, index: int) -> "Generators":
+        """New generators for shard ``index`` of a sharded computation: one
+        seed drawn from ``host`` (the same draw on every shard) with the
+        index folded in, as the JAX sequence-parallel stack folds the shard
+        index into its dropout key (`m3p_tpu/parallel/sp.py:84-86`)."""
+        seed = int(torch.randint(0, 2 ** 62, (), generator=self.host))
+        return Generators.from_seed(seed, self.device.device, index + 1)
 
     def attention_seed(self) -> int:
         """A fresh 63-bit seed for one attention call's Philox mask."""
@@ -71,6 +84,12 @@ class Generators:
         """A fresh 63-bit seed for one fused residual dropout's Philox mask
         (the JAX block draws it from ``make_rng("dropout")``)."""
         return int(torch.randint(0, 2 ** 63 - 1, (), generator=self.host))
+
+
+def fold_seed(seed: int, fold: int) -> int:
+    """``seed`` with ``fold`` folded in: ``seed`` itself at fold 0, else a
+    golden-ratio stride away, within torch's 64-bit seed range."""
+    return (seed + fold * 0x9E3779B97F4A7C15) % 2 ** 63 if fold else seed
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
@@ -226,7 +245,14 @@ class MultiHeadAttention(nn.Module):
     a cache projects Q, K and V as one `int8_matmul_qbwd` GEMM over the
     concatenated weights, int8 in the backward too; its three projections
     feed the packed kernels as the plain ones do.  Cross-attention, the
-    cache branch and the output projection keep the float GEMMs."""
+    cache branch and the output projection keep the float GEMMs.
+
+    Inside `parallel.mesh.bind_axes` (the sequence-parallel stack of
+    `parallel.sp`), self-attention without a cache runs over a sequence
+    sharded along the bound mesh axis, through
+    `ops.ring_attention.ring_attention` (`m3p_tpu/model/layers.py:239-246`).
+    As there, the ring drops no attention weights, whatever ``dropout``
+    says (divergence 11 of ROADMAP.md)."""
 
     def __init__(self, n_heads: int, dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
@@ -255,6 +281,9 @@ class MultiHeadAttention(nn.Module):
         source's projected keys and values, which stand in for ``kv``."""
         if cache is not None:
             return self._cached(x, kv_mask, kv is not None, cache, pos)
+        bound = bound_seq_axis() if kv is None else None
+        if bound is not None:
+            return self._ring(x, kv_mask, causal, *bound)
         rate, seed = attention_dropout_args(self.dropout, deterministic,
                                             generator)
         q8 = self.q8_qkv if kv is None else None
@@ -273,6 +302,18 @@ class MultiHeadAttention(nn.Module):
         ctx = attention(q, k, v, kv_mask, self.n_heads, causal=causal,
                         dropout_rate=rate, dropout_seed=seed)
         return self._project_out(ctx)
+
+    def _ring(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor],
+              causal: bool, mesh, axis: str) -> torch.Tensor:
+        """Self-attention over a sequence sharded along ``mesh``'s
+        ``axis``: the local rows' Q, K and V head-major through the ring."""
+        if self.quant == "int8_bwd":
+            q, k, v = self._fused_int8_qkv(x)
+        else:
+            q, k, v = self.q_lin(x), self.k_lin(x), self.v_lin(x)
+        ctx = ring_attention(self._split(q), self._split(k), self._split(v),
+                             kv_mask, mesh, axis, causal=causal)
+        return self._project_out(self._merge(ctx))
 
     def _fused_int8_qkv(self, x: torch.Tensor):
         """Q, K and V of self-attention as one int8 GEMM against the (D, 3D)

@@ -63,14 +63,11 @@ HEAD_QUANT_MODES = ("none", "int8_bwd", "int8_infer")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for config features the port lacks: sequence parallelism
-    (``seq_axis``, item 16 of ROADMAP.md) and a ``param_dtype`` other than
-    fp32 (NotImplementedError); an unknown quantization mode
-    (ValueError)."""
-    if cfg.seq_axis is not None:
-        raise NotImplementedError(
-            "the PyTorch port does not support seq_axis (sequence "
-            "parallelism) yet")
+    """Raise for config features the port lacks: a ``param_dtype`` other
+    than fp32 (NotImplementedError); an unknown quantization mode
+    (ValueError).  ``seq_axis`` builds: it names the mesh axis the
+    sequence-parallel path (`parallel.sp.SPModel`) shards the stack over;
+    the model alone runs the whole sequence."""
     for name, modes in (("ffn_quant", FFN_QUANT_MODES),
                         ("head_quant", HEAD_QUANT_MODES)):
         if getattr(cfg, name) not in modes:
@@ -184,8 +181,25 @@ class M3PModel(nn.Module):
         ``token_embeds`` (B, S, D) replaces the word lookup of ``tokens``
         (freeLB)."""
         _check_generators("encode_joint", deterministic, generator)
+        x, joint_mask = self.embed_joint(tokens, text_mask, feats, locs,
+                                         img_mask, refine_image,
+                                         deterministic, generator,
+                                         token_embeds)
+        return self._run_blocks(x, joint_mask, False, None, None,
+                                deterministic, generator)
+
+    def embed_joint(self, tokens: torch.Tensor, text_mask: torch.Tensor,
+                    feats: torch.Tensor, locs: torch.Tensor,
+                    img_mask: torch.Tensor, refine_image: bool = False,
+                    deterministic: bool = True,
+                    generator: Optional[Generators] = None,
+                    token_embeds: Optional[torch.Tensor] = None):
+        """The half of `encode_joint` before the stack: ((B, R+S, D)
+        embeddings, (B, R+S) joint mask)
+        (`m3p_tpu/model/transformer.py:284-315`).  The sequence-parallel
+        path shards them over the ``seq`` axis and runs `run_blocks_only`."""
         rng = (deterministic, generator)
-        img = self.image_emb(feats, locs, *rng)
+        img = self.image_emb(feats, locs, None, *rng)
         img = img * img_mask[..., None].to(img.dtype)
         if refine_image:
             img = self.refiner(img, img_mask, *rng)
@@ -197,7 +211,17 @@ class M3PModel(nn.Module):
         joint_mask = torch.cat([img_mask, text_mask], dim=1)
         x = x * joint_mask[..., None].to(x.dtype)
         x = dropout(self.text_emb.ln_emb(x), self.cfg.dropout, *rng)
-        return self._run_blocks(x, joint_mask, False, None, None, *rng)
+        return x, joint_mask
+
+    def run_blocks_only(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                        deterministic: bool = True,
+                        generator: Optional[Generators] = None
+                        ) -> torch.Tensor:
+        """The stack without a cache, non-causal: the body the
+        sequence-parallel path runs on each shard inside
+        `parallel.mesh.bind_axes` (`m3p_tpu/model/transformer.py:317-322`)."""
+        return self._run_blocks(x, pad_mask, False, None, None,
+                                deterministic, generator)
 
     def _run_blocks(self, x: torch.Tensor, pad_mask: torch.Tensor,
                     causal: bool, src_enc: Optional[torch.Tensor],
@@ -297,13 +321,15 @@ class M3PModel(nn.Module):
     def embed_image_regions(self, feats: torch.Tensor, locs: torch.Tensor,
                             img_mask: torch.Tensor, refine_image: bool = True,
                             deterministic: bool = True,
-                            generator: Optional[Generators] = None
+                            generator: Optional[Generators] = None,
+                            dist: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
         """Region embeddings, the padding zeroed, and the AoA refiner if
         ``refine_image``, without the stack
-        (`m3p_tpu/model/transformer.py:220-235`)."""
+        (`m3p_tpu/model/transformer.py:220-235`).  ``dist`` (B, R, 1600) adds
+        the class-distribution projection (`ImageEmbeddings`)."""
         _check_generators("embed_image_regions", deterministic, generator)
-        x = self.image_emb(feats, locs, deterministic, generator)
+        x = self.image_emb(feats, locs, dist, deterministic, generator)
         x = x * img_mask[..., None].to(x.dtype)
         if refine_image:
             x = self.refiner(x, img_mask, deterministic, generator)

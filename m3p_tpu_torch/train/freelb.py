@@ -35,6 +35,7 @@ import torch
 
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel, lengths_to_mask
+from m3p_tpu_torch.parallel.data_parallel import batch_reduction
 from m3p_tpu_torch.train.optim import global_norm
 from m3p_tpu_torch.train.state import TrainState
 from m3p_tpu_torch.train.steps import (
@@ -143,7 +144,8 @@ def _free_passes(state: TrainState, adv: FreeLBConfig,
             replay()
         d_t = d_text.detach().requires_grad_(adv.free_text)
         d_i = d_img.detach().requires_grad_(adv.free_img)
-        loss = loss_fn(d_t, d_i)
+        with batch_reduction(state.mesh):
+            loss = loss_fn(d_t, d_i)
         loss.backward()
         mean = mean + loss.detach().float() / k_steps
         with torch.no_grad(), torch.profiler.record_function(ASCENT_SPAN):
@@ -211,8 +213,9 @@ def make_freelb_itm_step(model: M3PModel, sample_n: int, adv: FreeLBConfig,
                                         model.cfg.emb_dim, feats)
         mean = _free_passes(state, adv, loss_fn, d_text,
                             d_img.to(feats.dtype))
+        metrics = state.sync_gradients({"loss": mean})
         grads = [p.grad for p in model.parameters() if p.grad is not None]
-        metrics = {"loss": mean, "grad_norm": global_norm(grads)}
+        metrics["grad_norm"] = global_norm(grads)
         return state.apply_gradients(), metrics
 
     return step
@@ -255,7 +258,8 @@ def make_freelb_pretrain_step(model: M3PModel, sample_n: int, mask_cfg,
                                         batch["text_len"], dim, feats)
         mean = _free_passes(state, adv, loss_fn, d_text, d_img,
                             _rewinder(generator))
-        return state.apply_gradients(), {"loss": mean}
+        metrics = state.sync_gradients({"loss": mean})
+        return state.apply_gradients(), metrics
 
     return step
 
@@ -301,6 +305,7 @@ def make_freelb_ic_step(model: M3PModel, adv: FreeLBConfig,
             generator, deltas, adv, (*x_toks.shape, model.cfg.emb_dim),
             (batch["tgt_len"] - 1).clamp_min(1), model.cfg.emb_dim, feats)
         mean = _free_passes(state, adv, loss_fn, d_text, d_img)
-        return state.apply_gradients(), {"loss": mean}
+        metrics = state.sync_gradients({"loss": mean})
+        return state.apply_gradients(), metrics
 
     return step

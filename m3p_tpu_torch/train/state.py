@@ -9,12 +9,17 @@ Under ``accumulate_gradients = k`` the optimizer is a `MultiSteps`: its
 state holds the accumulation buffer and the micro-step count of the window
 (optax keeps both in ``opt_state``), so a checkpoint of the state holds
 them, and ``step`` counts the updates made, one per k micro-steps, as the
-inner count of optax's schedule and Adam does."""
+inner count of optax's schedule and Adam does.
+
+Under data or sequence parallelism ``mesh`` is the `parallel.mesh.Mesh`
+the gradients are averaged over (`sync_gradients`, before the clip), and
+the losses' counts reduce over its batch shards
+(`parallel.data_parallel.batch_reduction`)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -28,6 +33,18 @@ class TrainState:
     model: nn.Module
     tx: Optimizer
     opt_state: Dict[str, Any]
+    mesh: Optional[Any] = None
+
+    def sync_gradients(self, metrics: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Optional[Dict[str, torch.Tensor]]:
+        """Average every ``.grad`` and ``metrics`` over the ranks of
+        ``mesh`` (one all-reduce); the identity on one rank."""
+        if self.mesh is None or self.mesh.size == 1:
+            return metrics
+        from m3p_tpu_torch.parallel.data_parallel import average_over_ranks
+
+        return average_over_ranks(self.mesh, self.model.parameters(),
+                                  metrics)
 
     def apply_gradients(self) -> "TrainState":
         """One micro-step of the optimizer from the parameters' ``.grad``
@@ -42,7 +59,8 @@ class TrainState:
         return self
 
 
-def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
+def create_train_state(model: nn.Module, tx: Optimizer,
+                       mesh: Optional[Any] = None) -> TrainState:
     """The state at step 0.  Under ``FusedAdam(master=True)`` the fp32
     master is taken first and the live parameters are then stored in the
     optimizer's ``param_store_dtype`` (bf16), so the GEMMs read bf16
@@ -54,4 +72,5 @@ def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
     if store is not None:
         for p in params:
             p.data = p.data.to(store)
-    return TrainState(step=0, model=model, tx=tx, opt_state=opt_state)
+    return TrainState(step=0, model=model, tx=tx, opt_state=opt_state,
+                      mesh=mesh)

@@ -49,6 +49,9 @@ from m3p_tpu_torch.data.masking import (
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel, lengths_to_mask
 from m3p_tpu_torch.ops.topk import top_k
+from m3p_tpu_torch.parallel.data_parallel import (
+    batch_reduction, gather_batch, shard_denominator, shard_position,
+    shard_scale)
 from m3p_tpu_torch.train.optim import global_norm
 from m3p_tpu_torch.train.state import TrainState
 
@@ -125,11 +128,13 @@ def itm_finetune_loss(model: M3PModel, batch: Batch,
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
               weights: torch.Tensor) -> torch.Tensor:
     """Mean CE over the weighted slots, in fp32 (the reference's mean over
-    masked positions; `m3p_tpu/train/steps.py:78-84`)."""
+    masked positions; `m3p_tpu/train/steps.py:78-84`).  Under data
+    parallelism the count is the global batch's
+    (`parallel.data_parallel.shard_denominator`)."""
     ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                          labels.long().clamp_min(0).reshape(-1),
                          reduction="none").view(labels.shape)
-    return (ce * weights).sum() / weights.sum().clamp_min(1.0)
+    return (ce * weights).sum() / shard_denominator(weights.sum())
 
 
 def mlm_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
@@ -166,15 +171,17 @@ def _next_token_ce(logits: torch.Tensor, y: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean CE over the weighted positions in fp32, accuracy of the argmax,
     number of weighted positions) of logits (B, T, V) against labels y
-    (B, T)."""
+    (B, T).  Under data parallelism the means are over the global batch's
+    positions and the number is scaled so that its mean over the batch
+    shards is the global count."""
     y = y.long()
     ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
                          y.reshape(-1), reduction="none").view(y.shape)
     n_words = y_mask.sum()
-    denom = n_words.clamp_min(1.0)
+    denom = shard_denominator(n_words)
     loss = (ce * y_mask).sum() / denom
     hits = (logits.detach().argmax(dim=-1) == y).float()
-    return loss, (hits * y_mask).sum() / denom, n_words
+    return loss, (hits * y_mask).sum() / denom, n_words * shard_scale()
 
 
 def seq2seq_ce(model: M3PModel, src_enc: torch.Tensor,
@@ -288,7 +295,7 @@ def tifg_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
                              deterministic, generator)
     w = img_mask[..., None].float()
     se = (dec.float() - target.float()) ** 2
-    loss = (se * w).sum() / (w.sum() * dec.shape[-1]).clamp_min(1.0)
+    loss = (se * w).sum() / shard_denominator(w.sum() * dec.shape[-1])
     return loss, {"tifg": loss.detach()}
 
 
@@ -364,6 +371,23 @@ def mass_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
 def _pack(rows: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """rows (B, P, ...) -> (B * P, ...)[index]."""
     return rows.reshape((-1,) + tuple(rows.shape[2:]))[index]
+
+
+def _global_top_k(w: torch.Tensor, budget: Callable[[int], int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``top_k(w, budget(w.numel()))``, over the global batch under data
+    parallelism: the flat weights of every batch shard are gathered, the
+    global top k taken (the JAX packing over the global batch), and this
+    shard keeps the selected entries that are its own, as (values, local
+    indices) in the global order."""
+    index, count = shard_position()
+    if count == 1:
+        return top_k(w, budget(w.numel()))
+    every = gather_batch(w)
+    values, idx = top_k(every, budget(every.numel()))
+    lo = index * w.numel()
+    mine = (idx >= lo) & (idx < lo + w.numel())
+    return values[mine], idx[mine] - lo
 
 
 def _gather_rows(hidden: torch.Tensor, positions: torch.Tensor
@@ -472,17 +496,15 @@ def mct_pretrain_loss(model: M3PModel, batch: Batch,
     # MC-MLM: the active slots packed across the batch before the
     # 250k-vocab head (zero-weight slots add nothing; on overflow the
     # surplus drops, as in the JAX loss)
-    p_t = pos_t.shape[1]
-    k_pack = max(int(bn * p_t * pack_ratio), 1)
-    pack_w, pack_idx = top_k(w_t.reshape(-1), k_pack)
+    pack_w, pack_idx = _global_top_k(
+        w_t.reshape(-1), lambda n: max(int(n * pack_ratio), 1))
     g_pack = _pack(_gather_rows(text_out, pos_t), pack_idx)
     mlm = masked_ce(model.word_logits(g_pack),
                     _pack(lab_t, pack_idx), pack_w)
 
     # MC-MRM and MRFR: the same packing with a fixed 0.5 budget
-    p_r = pos_r.shape[1]
-    k_r = max((bn * p_r) // 2, 1)
-    packr_w, packr_idx = top_k(w_r.reshape(-1), k_r)
+    packr_w, packr_idx = _global_top_k(w_r.reshape(-1),
+                                       lambda n: max(n // 2, 1))
     g_r_pack = _pack(_gather_rows(img_out, pos_r), packr_idx)
     lab_r_pack = _pack(lab_r, packr_idx)
     w_obj = packr_w * (lab_r_pack >= 0).float()
@@ -490,7 +512,7 @@ def mct_pretrain_loss(model: M3PModel, batch: Batch,
     tgt_r_pack = _pack(tgt_r, packr_idx)
     pred_feats = model.mrfr_predict(g_r_pack).float()
     se = ((pred_feats - tgt_r_pack.float()) ** 2).mean(dim=-1)
-    mrfr = (se * packr_w).sum() / packr_w.sum().clamp_min(1.0)
+    mrfr = (se * packr_w).sum() / shard_denominator(packr_w.sum())
 
     # ITM over the candidate grid
     ce, bce = itm_grid_losses(model.itm_score(hidden), batch["pos_label"],
@@ -525,16 +547,21 @@ def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Metrics]],
     (state, batch, generator, **kw) -> (state, metrics) step: loss,
     backward, one optimizer update (`m3p_tpu/train/steps.py:504-538`).
     ``with_grad_norm`` adds the global gradient norm to the metrics.  The
-    state is updated in place and returned; nothing waits for the device."""
+    state is updated in place and returned; nothing waits for the device
+    on one rank.  With a ``state.mesh`` of several ranks the batch is this
+    rank's shard: the losses' counts reduce over the shards, and the
+    gradients and metrics are averaged over the ranks before the norm and
+    the update (`TrainState.sync_gradients`)."""
 
     def step(state: TrainState, batch: Batch,
              generator: Optional[Generators], **kw
              ) -> Tuple[TrainState, Metrics]:
         batch = expand_compact_batch(batch)
         state.model.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.model, batch, generator, **kw)
+        with batch_reduction(state.mesh):
+            loss, metrics = loss_fn(state.model, batch, generator, **kw)
         loss.backward()
-        metrics = dict(metrics)
+        metrics = dict(state.sync_gradients(dict(metrics)))
         if with_grad_norm:
             metrics["grad_norm"] = global_norm(
                 [p.grad for p in state.model.parameters()

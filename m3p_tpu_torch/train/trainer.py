@@ -19,13 +19,24 @@ the batches the steps took, not of those the thread staged.  Other
 datasets go through their ``epoch_iterator``, and a resume starts them at
 the epoch's head.
 
-Not ported (each raises NotImplementedError): a device mesh, sequence and
-pipeline parallelism, and several processes (item 16 of ROADMAP.md).
+Several processes (`parallel.mesh.Mesh`, `m3p_tpu/train/trainer.py:
+55-104,323-361,559-583`): rank 0's parameters are broadcast once (and
+checked) before the optimizer state is made; each rank takes its shard of
+every global batch (``batch_size / (data x fsdp)`` rows: the row loader's
+strided slice of the records, or every count-th batch of an iterator seeded
+alike on every rank); its generators fold in the shard index; the gradients
+are averaged over the ranks before the clip (`TrainState.sync_gradients`).
+With ``seq > 1`` the steps run through `parallel.sp.SPModel`.  The save
+decision is collective every ``save_check_every`` steps; rank 0 writes the
+model, every rank its own loader state.  Parameter sharding (fsdp, tensor,
+expert) and the pipeline are items 16b and 16c of ROADMAP.md and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
+import itertools
 import logging
 import os
 import signal
@@ -42,6 +53,7 @@ from m3p_tpu_torch.data.row_pipeline import (
     make_row_loader, restore_loader_state, save_loader_state, supports_grain)
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel
+from m3p_tpu_torch.parallel.sharding import check_mesh_supported
 from m3p_tpu_torch.train import steps as S
 from m3p_tpu_torch.train.optim import build_optimizer
 from m3p_tpu_torch.train.state import create_train_state
@@ -51,41 +63,36 @@ from m3p_tpu_torch.utils.schedules import parse_lambda_config, update_lambdas
 
 logger = logging.getLogger("m3p_tpu_torch")
 
-_ITEM_16 = "item 16 of ROADMAP.md (parallelism)"
-
-
-def _world_size() -> int:
-    dist = torch.distributed
-    return (dist.get_world_size()
-            if dist.is_available() and dist.is_initialized() else 1)
-
-
-def _refuse_processes(what: str) -> None:
-    if _world_size() > 1:
-        raise NotImplementedError(
-            f"{what} over {_world_size()} processes is {_ITEM_16}")
-
-
 class Trainer:
     def __init__(self, cfg, model: M3PModel,
                  datasets: Optional[Dict[Tuple[str, str], Any]] = None,
                  tokenizer=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(f"a device mesh is {_ITEM_16}")
-        if cfg.mesh.seq > 1 or cfg.mesh.pp > 1:
-            raise NotImplementedError(
-                f"sequence (--mesh_seq {cfg.mesh.seq}) and pipeline "
-                f"(--pp_stages {cfg.mesh.pp}) parallelism are {_ITEM_16}")
+        check_mesh_supported(dataclasses.asdict(cfg.mesh))
         self.cfg = cfg
         self.model = model
         self.device = next(model.parameters()).device
         self.datasets = datasets or {}
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # the model the losses see: sequence parallelism swaps the handle so
+        # every objective's non-causal stack runs sharded
+        self.loss_model = model
+        if self.mesh is not None:
+            check_mesh_supported(self.mesh.shape)
+            broadcast_parameters(model, self.mesh)
+            if self.mesh.shape["seq"] > 1:
+                from m3p_tpu_torch.parallel.sp import SPModel
+
+                self.loss_model = SPModel(model, self.mesh)
+                logger.info("sequence parallelism ON: seq=%d (ring "
+                            "attention)", self.mesh.shape["seq"])
+        self.shard_index, self.shard_count = (
+            self.mesh.batch_shards if self.mesh is not None else (0, 1))
 
         tx, self.lr_schedule = build_optimizer(
             cfg.optim.spec, clip_grad_norm=cfg.optim.clip_grad_norm,
             accumulate_gradients=cfg.optim.accumulate_gradients,
             weight_decay=cfg.optim.weight_decay)
-        self.state = create_train_state(model, tx)
+        self.state = create_train_state(model, tx, self.mesh)
 
         self.mask_cfg = MaskingConfig(
             word_pred=cfg.data.word_pred,
@@ -212,11 +219,15 @@ class Trainer:
         shares one key (`m3p_tpu/train/trainer.py:249-288`)."""
         if kind in self._steps:
             return self._steps[kind]
-        cfg, model, device = self.cfg, self.model, self.device
-        plain = S.make_train_step(self._loss_fn(kind))
+        cfg, model, device = self.cfg, self.loss_model, self.device
+        fold = self.shard_index
+        loss_fn = self._loss_fn(kind)
+        plain = S.make_train_step(
+            lambda _model, b, gen, **lam: loss_fn(model, b, gen, **lam))
 
         def step(state, b, seed, **lam):
-            return plain(state, b, Generators.from_seed(seed, device), **lam)
+            return plain(state, b, Generators.from_seed(seed, device, fold),
+                         **lam)
 
         if cfg.is_freelb and kind in ("rel", "pretrain_rel", "ic"):
             from m3p_tpu_torch.train.freelb import (
@@ -246,7 +257,8 @@ class Trainer:
             def combined(state, b, seed, **lam):
                 state, m = step(state, b, seed, **lam)
                 state, m_adv = adv(state, b,
-                                   Generators.from_seed(seed, device), **lam)
+                                   Generators.from_seed(seed, device, fold),
+                                   **lam)
                 m = dict(m)
                 m["adv_loss"] = m_adv["loss"]
                 return state, m
@@ -294,15 +306,26 @@ class Trainer:
         sought to ``loader_state`` when one is given and readable, or the
         dataset's ``epoch_iterator``.  CLCM pairs are asked for where the
         dataset's ``epoch_iterator`` takes ``with_clcm`` (the pre-training
-        datasets; the JAX trainer tests for its ``PretrainDataset``)."""
-        _refuse_processes("sharding the batch")
+        datasets; the JAX trainer tests for its ``PretrainDataset``).
+
+        Over several batch shards each rank builds its shard of the global
+        batch (``batch_size / count`` rows): the row loader from its
+        strided slice of the records; a dataset iterator, seeded alike on
+        every rank, gives every count-th batch from the shard's index,
+        unless its records are split by feeder already (``n_feeders``)."""
         dataset = self.datasets[task]
         bs = self.cfg.data.batch_size
+        count = self.shard_count
+        if bs % count:
+            raise ValueError(f"batch_size {bs} does not split over {count} "
+                             "batch shards (data x fsdp)")
+        bs //= count
         if self._uses_row_loader(task):
             raw = iter(make_row_loader(
                 dataset, bs, seed=self.cfg.seed, epoch=self.epoch,
                 with_clcm=self._with_clcm(),
-                worker_count=self.cfg.data.num_workers))
+                worker_count=self.cfg.data.num_workers,
+                shard=(self.shard_index, count)))
             if loader_state is not None:
                 try:
                     restore_loader_state(raw, loader_state)
@@ -315,11 +338,14 @@ class Trainer:
                         task, e)
             self._loaders[task] = raw
             self._taken[task] = 0
-        elif self._with_clcm() and "with_clcm" in inspect.signature(
-                dataset.epoch_iterator).parameters:
-            raw = dataset.epoch_iterator(bs, self.epoch, with_clcm=True)
         else:
-            raw = dataset.epoch_iterator(bs, self.epoch)
+            if self._with_clcm() and "with_clcm" in inspect.signature(
+                    dataset.epoch_iterator).parameters:
+                raw = dataset.epoch_iterator(bs, self.epoch, with_clcm=True)
+            else:
+                raw = dataset.epoch_iterator(bs, self.epoch)
+            if count > 1 and getattr(dataset, "n_feeders", 1) <= 1:
+                raw = itertools.islice(raw, self.shard_index, None, count)
         it = prefetch_to_device(raw, device=self.device)
         self._iterators[task] = it
         return it
@@ -504,11 +530,23 @@ class Trainer:
         return os.path.join(self.cfg.dump_path, name)
 
     def _should_save_now(self) -> bool:
-        """Whether to checkpoint at this step boundary: the SIGTERM flag.
-        Several processes would have to agree on the boundary first (the
-        JAX trainer's all-gather every ``save_check_every`` steps)."""
-        _refuse_processes("the preemption-save decision")
-        return self._pending_save
+        """Whether to checkpoint at this step boundary
+        (`m3p_tpu/train/trainer.py:559-583`).  One process: the SIGTERM
+        flag.  Several: the save is collective, so every rank must decide
+        alike at the same boundary; a one-float all-reduce of the flags
+        every ``save_check_every`` boundaries (``n_total_iter`` advances
+        alike on every rank), and no save in between, whatever the local
+        flag says (a rank saving alone would wait for the others forever)."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is None or mesh.size == 1:
+            return self._pending_save
+        every = max(int(getattr(self.cfg, "save_check_every", 1)), 1)
+        if self.n_total_iter % every != 0:
+            return False
+        from m3p_tpu_torch.parallel.mesh import all_reduce_sum
+
+        flag = torch.tensor([float(self._pending_save)], device=mesh.device)
+        return bool(all_reduce_sum(flag, mesh).item() > 0)
 
     def save_checkpoint(self, name: str = "checkpoint") -> None:
         logger.info("checkpointing at iter %d (%d sentences)",
@@ -639,6 +677,35 @@ class Trainer:
         self.epoch += 1
         # the datasets open their next epoch
         self._close_iterators()
+
+
+@torch.no_grad()
+def broadcast_parameters(model: torch.nn.Module, mesh) -> None:
+    """Rank 0's parameters and buffers on every rank (one broadcast of a
+    flat buffer per dtype), then a check that they arrived: each rank's
+    fp64 sum of every tensor's sum, gathered, must equal rank 0's."""
+    from m3p_tpu_torch.parallel.mesh import all_reduce_sum, broadcast_
+
+    tensors = list(model.parameters()) + list(model.buffers())
+    for dtype in sorted({t.dtype for t in tensors}, key=str):
+        group = [t for t in tensors if t.dtype == dtype]
+        flat = broadcast_(torch.cat([t.detach().reshape(-1) for t in group]),
+                          mesh, src=0)
+        offset = 0
+        for t in group:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+    sums = torch.stack([t.detach().double().sum() for t in tensors])
+    mine = torch.zeros(mesh.size, len(tensors), dtype=torch.float64,
+                       device=sums.device)
+    mine[mesh.rank] = sums
+    every = all_reduce_sum(mine, mesh)
+    if not torch.equal(every, every[:1].expand_as(every)):
+        bad = (every != every[0]).any(dim=1).nonzero().flatten().tolist()
+        raise RuntimeError(f"parameters differ from rank 0's after the "
+                           f"broadcast on rank(s) {bad}")
+    logger.info("parameters broadcast from rank 0 to %d ranks and checked",
+                mesh.size)
 
 
 def _mct_lambdas(lam: Dict[str, float]) -> Dict[str, float]:

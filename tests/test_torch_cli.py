@@ -241,13 +241,21 @@ def test_main_refuses_what_is_not_ported(coco, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_x.main(argv, data=coco["data"])
-    # two visible cards and a batch that shards over them
+    # parameter sharding and the pipeline are items 16b and 16c
+    for flag, item in (("--mesh_fsdp", "16b"), ("--mesh_tensor", "16b"),
+                       ("--mesh_expert", "16b"), ("--pp_stages", "16c")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            train_x.main(argv + ["--device", "cpu", flag, "2"],
+                         data=coco["data"])
+    # two visible cards and a batch that shards over them, in one process:
+    # the port drives a card per process, and the error names the launcher
     import m3p_tpu_torch.model as model_mod
 
     monkeypatch.setattr(model_mod, "resolve_device",
                         lambda device: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run "
+                       "--nproc_per_node 2"):
         train_x.main(argv, data=coco["data"])
 
 

@@ -245,9 +245,19 @@ def test_retrieval_grid_scores_match_jax(small, case):
 
 
 def test_retrieval_grid_refuses_a_mesh_argument(small):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        R.retrieval_grid_scores(small["model"], *_pool(2),
-                                batch_sharding=object())
+    """A batch sharding is taken, no longer refused: a port process drives
+    one card, so it shares the chunks out over the batch shards, as
+    ``process_index`` / ``process_count`` do."""
+    from m3p_tpu_torch.parallel.sharding import BatchSharding
+
+    pool = _pool(2)
+    for index in range(2):
+        got = R.retrieval_grid_scores(small["model"], *pool, chunk_size=16,
+                                      batch_sharding=BatchSharding(index, 2))
+        want = R.retrieval_grid_scores(small["model"], *pool, chunk_size=16,
+                                       process_index=index, process_count=2)
+        np.testing.assert_array_equal(got, want)
+        assert 0 < np.count_nonzero(got) < got.size
 
 
 def test_retrieval_grid_progress_logging(small, monkeypatch):
@@ -285,14 +295,20 @@ def test_retrieval_grid_progress_logging(small, monkeypatch):
 
 
 def test_merge_process_scores(monkeypatch):
+    """The identity in one process; over several ranks the all-reduced sum
+    of the partial matrices (a fake second rank holding the same partial
+    here; `tests/test_torch_parallel.py` runs two real ranks)."""
     scores = np.arange(6, dtype=np.float32).reshape(2, 3)
     assert R.merge_process_scores(scores) is scores
     dist = torch.distributed
     monkeypatch.setattr(dist, "is_available", lambda: True)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        R.merge_process_scores(scores)
+    monkeypatch.setattr(dist, "get_backend", lambda: "gloo")
+    monkeypatch.setattr(dist, "all_reduce",
+                        lambda t, op=None: t.mul_(2))
+    np.testing.assert_array_equal(R.merge_process_scores(scores),
+                                  2 * scores)
 
 
 # ---------------------------------------------------------------------------

@@ -126,11 +126,22 @@ def test_build_model_is_seeded_and_refuses_unported_features():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["block_0.attn.q_lin.weight"],
                            c["block_0.attn.q_lin.weight"])
-    # sequence parallelism (item 16) and non-fp32 parameters are refused;
-    # the int8 training modes, MoE, asm and image fusion build
-    for change in (dict(seq_axis="seq"), dict(param_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
-            build_model(dataclasses.replace(cfg, **change), 0, "cpu")
+    # non-fp32 parameters are refused; sequence parallelism builds (the
+    # ring runs only where parallel.sp binds the axis: alone, the model runs
+    # the whole sequence, causal decoding included), as do the int8
+    # training modes, MoE, asm and image fusion
+    with pytest.raises(NotImplementedError):
+        build_model(dataclasses.replace(cfg, param_dtype="bfloat16"), 0,
+                    "cpu")
+    sp = build_model(dataclasses.replace(cfg, seq_axis="seq"), 5, "cpu")
+    plain = build_model(cfg, 5, "cpu")
+    tokens = torch.randint(4, 100, (1, 6))
+    text_mask = torch.ones(1, 6, dtype=torch.bool)
+    with torch.no_grad():
+        for causal in (False, True):
+            assert torch.equal(
+                sp.encode_text(tokens, text_mask, causal=causal),
+                plain.encode_text(tokens, text_mask, causal=causal))
     for change in (dict(asm=True, asm_cutoffs=(64, 256)),
                    dict(image_fusion=True), dict(moe_experts=4),
                    dict(ffn_quant="int8"), dict(ffn_quant="int8_bwd"),

@@ -1,0 +1,383 @@
+"""Rank workers for the port's multi-process CPU tests (no tests here).
+
+`RankPool` starts ``world`` processes, each a gloo rank of one process
+group on the CPU, running this file as a script.  They serve tasks until
+stopped: the test process writes ``task_<i>.pt`` (a function name of this
+module and its keyword arguments) into the pool's directory; every rank
+runs ``fn(**kwargs)`` and writes ``result_<i>_<rank>.pt``.  One
+process group serves every task of a test module, so a task costs no
+torch import.  Nothing here imports JAX or the JAX package: the tests hold
+the results against JAX in the test process.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+import time
+import traceback
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class RankPool:
+    """``world`` gloo ranks serving tasks (module docstring)."""
+
+    def __init__(self, world: int, workdir: str, timeout_s: float = 300.0):
+        self.world = world
+        self.dir = workdir
+        self.timeout_s = timeout_s
+        self.n = 0
+        os.makedirs(workdir, exist_ok=True)
+        port = _free_port()
+        self.procs = []
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       OMP_NUM_THREADS="1",
+                       PYTHONPATH=os.pathsep.join(
+                           [REPO, os.environ.get("PYTHONPATH", "")]))
+            log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), workdir],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
+
+    def run(self, fn: str, **kwargs) -> List[Any]:
+        """Every rank's result of ``fn(**kwargs)``; raises with the
+        ranks' tracebacks if one failed."""
+        i = self.n
+        self.n += 1
+        tmp = os.path.join(self.dir, f".task_{i}.pt")
+        torch.save({"fn": fn, "kwargs": kwargs}, tmp)
+        os.replace(tmp, os.path.join(self.dir, f"task_{i}.pt"))
+        paths = [os.path.join(self.dir, f"result_{i}_{r}.pt")
+                 for r in range(self.world)]
+        deadline = time.time() + self.timeout_s
+        while not all(os.path.exists(p) for p in paths):
+            dead = [r for r, p in enumerate(self.procs)
+                    if p.poll() is not None]
+            if dead or time.time() > deadline:
+                self.close()
+                raise RuntimeError(
+                    f"task {fn}: rank(s) {dead or 'all'} "
+                    f"{'exited' if dead else 'timed out'}:\n" + self.logs())
+            time.sleep(0.02)
+        results = [torch.load(p, weights_only=False) for p in paths]
+        errors = [r["error"] for r in results if "error" in r]
+        if errors:
+            raise RuntimeError(f"task {fn} failed:\n" + "\n".join(errors))
+        return [r["value"] for r in results]
+
+    def logs(self) -> str:
+        out = []
+        for r in range(self.world):
+            with open(os.path.join(self.dir, f"rank{r}.log")) as f:
+                out.append(f"--- rank {r} ---\n{f.read()[-4000:]}")
+        return "\n".join(out)
+
+    def close(self) -> None:
+        stop = os.path.join(self.dir, f"task_{self.n}.pt")
+        torch.save({"fn": None}, stop + ".tmp")
+        os.replace(stop + ".tmp", stop)
+        for p in self.procs:
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def _serve(workdir: str) -> None:
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.parallel.mesh import auto_init_distributed
+
+    torch.set_num_threads(1)
+    auto_init_distributed("cpu", timeout_s=240)
+    rank = dist.get_rank()
+    i = 0
+    while True:
+        task_path = os.path.join(workdir, f"task_{i}.pt")
+        while not os.path.exists(task_path):
+            time.sleep(0.01)
+        task = torch.load(task_path, weights_only=False)
+        if task["fn"] is None:
+            break
+        try:
+            out = {"value": globals()[task["fn"]](**task["kwargs"])}
+        except Exception:
+            out = {"error": f"rank {rank}: {traceback.format_exc()}"}
+        tmp = os.path.join(workdir, f".result_{i}_{rank}.pt")
+        torch.save(out, tmp)
+        os.replace(tmp, os.path.join(workdir, f"result_{i}_{rank}.pt"))
+        if "error" in out:
+            break
+        i += 1
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# tasks: fn(**kwargs) on every rank
+# ---------------------------------------------------------------------------
+
+
+def _mesh(**axes):
+    from m3p_tpu_torch.config import MeshConfig
+    from m3p_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(MeshConfig(**{"data": 1, **axes}))
+
+
+def ring(q, k, v, mask, causal: bool) -> Dict[str, np.ndarray]:
+    """Ring attention over the world as one ``seq`` axis: each rank's output
+    block and its q/k/v gradient blocks under a fixed upstream gradient."""
+    from m3p_tpu_torch.ops.ring_attention import ring_attention
+
+    import torch.distributed as dist
+
+    mesh = _mesh(seq=dist.get_world_size())
+    n, i = mesh.shape["seq"], mesh.index("seq")
+    w = q.shape[2] // n
+    sl = slice(i * w, (i + 1) * w)
+    qb, kb, vb = (torch.tensor(a[:, :, sl]).requires_grad_()
+                  for a in (q, k, v))
+    out = ring_attention(qb, kb, vb, torch.tensor(mask[:, sl]), mesh, "seq",
+                         causal=causal)
+    g = torch.tensor(np.cos(np.arange(out.numel(), dtype=np.float32)
+                            ).reshape(out.shape))
+    out.backward(g)
+    return {"out": out.detach().numpy(), "dq": qb.grad.numpy(),
+            "dk": kb.grad.numpy(), "dv": vb.grad.numpy(), "index": i}
+
+
+def _model(cfg_dict, state):
+    from m3p_tpu_torch.config import ModelConfig
+    from m3p_tpu_torch.model import build_model
+
+    model = build_model(ModelConfig(**cfg_dict), 0, "cpu")
+    model.load_state_dict({k: torch.tensor(v) for k, v in state.items()},
+                          strict=True)
+    return model
+
+
+def sp_encode_joint(cfg_dict, state, batch, seq: int) -> np.ndarray:
+    """`parallel.sp.seq_parallel_encode_joint` over a ``seq`` mesh."""
+    from m3p_tpu_torch.parallel.sp import seq_parallel_encode_joint
+
+    model = _model(cfg_dict, state)
+    mesh = _mesh(seq=seq)
+    t = {k: torch.tensor(v) for k, v in batch.items()}
+    with torch.no_grad():
+        out = seq_parallel_encode_joint(model, t["tokens"], t["text_mask"],
+                                        t["feats"], t["locs"], t["img_mask"],
+                                        mesh)
+    return out.numpy()
+
+
+def sp_itm_step(cfg_dict, state, batch, sample_n: int) -> Dict[str, Any]:
+    """One `make_sp_itm_train_step` step over a ``seq`` mesh of the world
+    (plain SGD at lr 1, so the update is the averaged gradient): the loss
+    and every parameter's gradient."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.parallel.sp import make_sp_itm_train_step
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    model = _model(cfg_dict, state)
+    mesh = _mesh(seq=dist.get_world_size())
+    tx, _ = build_optimizer("sgd,lr=1.0", clip_grad_norm=0.0)
+    st = create_train_state(model, tx)
+    step = make_sp_itm_train_step(model, mesh, sample_n)
+    _, metrics = step(st, {k: torch.tensor(v) for k, v in batch.items()})
+    return {"loss": float(metrics["loss"]),
+            "grads": {n: p.grad.numpy() for n, p in model.named_parameters()
+                      if p.grad is not None}}
+
+
+def sp_attention_dropout(cfg_dict, state, batch, rates) -> List[np.ndarray]:
+    """`SPModel.encode_joint` in a training forward at each attention
+    dropout rate (residual dropout 0) from the same generators."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.parallel.sp import SPModel
+
+    outs = []
+    mesh = _mesh(seq=dist.get_world_size())
+    t = {k: torch.tensor(v) for k, v in batch.items()}
+    for rate in rates:
+        cfg = dict(cfg_dict, attention_dropout=rate)
+        model = SPModel(_model(cfg, state), mesh)
+        gen = Generators.from_seed(7, "cpu")
+        with torch.no_grad():
+            outs.append(model.encode_joint(
+                t["tokens"], t["text_mask"], t["feats"], t["locs"],
+                t["img_mask"], False, False, gen).numpy())
+    return outs
+
+
+def dropout_masks(seed: int, shape) -> Dict[str, np.ndarray]:
+    """This rank's masks: the data-parallel generators (rank folded in)
+    and, inside a sharded stack, the shard's (`Generators.fold_in`)."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.model.layers import Generators, dropout
+
+    rank = dist.get_rank()
+    x = torch.ones(shape)
+    gen = Generators.from_seed(seed, "cpu", rank)
+    dp = dropout(x, 0.5, False, gen).numpy()
+    shared = Generators.from_seed(seed, "cpu")
+    sp = dropout(x, 0.5, False, shared.fold_in(rank)).numpy()
+    return {"dp": dp, "sp": sp,
+            "seeds": (gen.attention_seed(), shared.fold_in(rank)
+                      .dropout_seed())}
+
+
+def dp_step(cfg_dict, state, kind: str, batch, spec: str, clip: float,
+            masking=None, mesh_axes=None, sample_n: int = 2
+            ) -> Dict[str, Any]:
+    """One data-parallel step: this rank's shard of the global ``batch``
+    through `make_train_step` with ``state.mesh`` set.  ``kind`` "mlm"
+    (with the global ``masking`` sharded alike) or "itm".  Returns the loss,
+    the grad norm and the updated parameters."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.data.masking import MaskingConfig
+    from m3p_tpu_torch.parallel.sharding import batch_sharding, shard_batch
+    from m3p_tpu_torch.train import steps as S
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    model = _model(cfg_dict, state)
+    mesh = _mesh(**(mesh_axes or {"data": dist.get_world_size()}))
+    sh = batch_sharding(mesh)
+    local = shard_batch({k: torch.tensor(v) for k, v in batch.items()}, sh)
+    tx, _ = build_optimizer(spec, clip_grad_norm=clip)
+    st = create_train_state(model, tx, mesh)
+    if kind == "mlm":
+        m = tuple(shard_batch(torch.tensor(a), sh) for a in masking)
+        mask_cfg = MaskingConfig(n_words=cfg_dict["n_words"],
+                                 mask_index=cfg_dict["mask_index"])
+
+        def loss_fn(model_, b, gen):
+            return S.mlm_loss(model_, b, None, mask_cfg, deterministic=True,
+                              masking=m)
+    else:
+        def loss_fn(model_, b, gen):
+            return S.itm_finetune_loss(model_, b, None, sample_n,
+                                       deterministic=True)
+    if mesh.shape["seq"] > 1:
+        from m3p_tpu_torch.parallel.sp import SPModel
+
+        handle = SPModel(model, mesh)
+        inner = loss_fn
+
+        def loss_fn(model_, b, gen):  # noqa: F811
+            return inner(handle, b, gen)
+    step = S.make_train_step(loss_fn, with_grad_norm=True)
+    _, metrics = step(st, local, None)
+    return {"loss": float(metrics["loss" if "loss" in metrics else "mlm"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in model.named_parameters()}}
+
+
+class RecordRetrieval:
+    """Retrieval groups (or, with ``caption``, captioned images) that are
+    each a pure function of (seed, key): a batch of n groups is the
+    concatenation of its groups, so the halves a 2-rank run takes (every
+    other half batch of a seeded order) make up the batches one process
+    takes at twice the size."""
+
+    def __init__(self, n: int, sample_n: int, text_len: int, regions: int,
+                 n_words: int, seed: int = 0, caption: bool = False):
+        self.n, self.seed, self.caption = n, seed, caption
+        self.shape = (sample_n, text_len, regions, n_words)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def _group(self, key: int) -> Dict[str, np.ndarray]:
+        from m3p_tpu_torch.data.synthetic import (make_caption_batch,
+                                                  make_retrieval_batch)
+
+        sample_n, text_len, regions, n_words = self.shape
+        rng = np.random.RandomState(self.seed * 7919 + key)
+        if self.caption:
+            return make_caption_batch(rng, 1, text_len, regions, n_words)
+        return make_retrieval_batch(rng, 1, sample_n, text_len, regions,
+                                    n_words)
+
+    def epoch_iterator(self, batch_size: int, epoch: int = 0):
+        order = np.random.RandomState(self.seed + epoch).permutation(self.n)
+        for start in range(0, self.n - batch_size + 1, batch_size):
+            groups = [self._group(int(k))
+                      for k in order[start:start + batch_size]]
+            yield {k: np.concatenate([g[k] for g in groups])
+                   for k in groups[0]}
+
+
+def record_data(vocab: str, n_groups: int, caption: bool = False):
+    """`LoadedData` of one `RecordRetrieval` task (and, with ``caption``, a
+    captioning task of 5-region images) and the vocab's tokenizer."""
+    from m3p_tpu_torch.data.loader import LoadedData
+    from m3p_tpu_torch.tokenization.tokenizer import XLMRTokenizer
+
+    tok = XLMRTokenizer(vocab)
+    datasets = {("rel", "coco"): RecordRetrieval(n_groups, 2, 9, 4,
+                                                 tok.vocab_size - 1)}
+    if caption:
+        datasets[("ic", "coco")] = RecordRetrieval(
+            n_groups, 1, 9, 5, tok.vocab_size - 1, seed=1, caption=True)
+    return LoadedData(train_datasets=datasets, tokenizer=tok)
+
+
+def train_main(argv, vocab: str, n_groups: int, caption: bool = False
+               ) -> Dict[str, Any]:
+    """`cli.train_x.main` on this rank (the process group is the pool's):
+    the trained parameters and the trainer's counters."""
+    from m3p_tpu_torch.cli import train_x
+
+    trainer = train_x.main(argv + ["--device", "cpu"],
+                           data=record_data(vocab, n_groups, caption))
+    return {"params": {n: p.detach().numpy().copy()
+                       for n, p in trainer.model.named_parameters()},
+            "n_total_iter": trainer.n_total_iter,
+            "shards": (trainer.shard_index, trainer.shard_count),
+            "mesh": dict(trainer.mesh.shape),
+            "sp": type(trainer.loss_model).__name__}
+
+
+def merge_scores(n_img: int, n_cap: int) -> np.ndarray:
+    """`eval.retrieval.merge_process_scores` of this rank's partial matrix
+    (its own entries of a known whole)."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.eval.retrieval import merge_process_scores
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    whole = np.arange(n_img * n_cap, dtype=np.float32).reshape(n_img, n_cap)
+    part = np.where(np.arange(n_img * n_cap).reshape(n_img, n_cap)
+                    % world == rank, whole, 0).astype(np.float32)
+    return merge_process_scores(part)
+
+
+
+if __name__ == "__main__":
+    _serve(sys.argv[1])

@@ -54,7 +54,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "utils.metrics", "utils.logging", "utils.profiling",
                  "data.features", "data.clag", "data.datasets",
                  "data.row_pipeline", "ops.quant", "tokenization.native",
-                 "tokenization.dictionary", "cli.preprocess", "model.misc"):
+                 "tokenization.dictionary", "cli.preprocess", "model.misc",
+                 "parallel", "parallel.mesh", "parallel.sharding",
+                 "parallel.data_parallel", "parallel.sp",
+                 "ops.ring_attention"):
         assert f"m3p_tpu_torch.{name}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -83,8 +86,10 @@ def _imported_names(path: Path):
 
 def test_port_sources_and_chip_smoke_name_no_forbidden_import():
     # the kernel tests run on the card's machine, which has no JAX
+    # so do the ranks of the multi-process tests
     paths = [REPO / "chip_smoke.py", REPO / "tests" / "test_torch_kernels.py",
-             REPO / "tests" / "test_torch_pipeline.py"]
+             REPO / "tests" / "test_torch_pipeline.py",
+             REPO / "tests" / "test_torch_ranks.py"]
     paths += sorted((REPO / "m3p_tpu_torch").rglob("*.py"))
     for path in paths:
         bad = [n for n in _imported_names(path) if _forbidden(n)]
@@ -119,3 +124,34 @@ def test_serve_cli_defaults_to_cuda(tmp_path):
     assert args.device == "cuda" and args.dtype == "bfloat16"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(argv)
+
+
+def test_the_launcher_path_needs_an_explicit_cpu_request_too(monkeypatch):
+    """Under torchrun's environment `train_x.main` still defaults to CUDA
+    and refuses without a card before it joins a process group; a rank
+    asking for CUDA without a card is told to pass --device cpu; the
+    backend rule: gloo on the CPU, nccl with a card per rank, gloo when
+    ranks share a card, and nccl asked for on shared cards raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the default device is usable")
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.cli import train_x
+    from m3p_tpu_torch.parallel import mesh as M
+
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "2"),
+                       ("LOCAL_RANK", "0"), ("LOCAL_WORLD_SIZE", "2"),
+                       ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(key, value)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_x.main(["--exp_name", "x", "--mesh_data", "2"])
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        M.auto_init_distributed("cuda")
+    assert M.launch_env() == {"rank": 0, "world_size": 2, "local_rank": 0,
+                              "local_world_size": 2}
+    assert M.choose_backend("cpu", 4, 0) == "gloo"
+    assert M.choose_backend("cuda", 4, 4) == "nccl"
+    assert M.choose_backend("cuda", 4, 1) == "gloo"
+    with pytest.raises(ValueError, match="NCCL needs a card per rank"):
+        M.choose_backend("cuda", 2, 1, requested="nccl")

@@ -332,13 +332,23 @@ def test_active_tasks_from_the_step_flags_match_jax():
 
 
 def test_trainer_refuses_what_item_16_brings(tmp_path):
+    """A mesh is taken (one rank here: the trainer runs as without one;
+    `tests/test_torch_parallel.py` runs several); ``seq`` in the config
+    without a mesh runs unsharded, as in JAX; parameter sharding (item 16b)
+    and the pipeline (item 16c) still raise."""
+    from m3p_tpu_torch.parallel.mesh import make_mesh
+
     cfg = C.small_test_config(dump_path=str(tmp_path))
     model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Trainer(cfg, model, mesh=object())
-    for axis in ("seq", "pp"):
+    trainer = Trainer(cfg, model, mesh=make_mesh(cfg.mesh))
+    assert trainer.mesh is None and trainer.state.mesh is None
+    assert (trainer.shard_index, trainer.shard_count) == (0, 1)
+    seq = cfg.replace(mesh=dataclasses.replace(cfg.mesh, seq=2))
+    assert Trainer(seq, model).loss_model is model
+    for axis, item in (("fsdp", "16b"), ("tensor", "16b"),
+                       ("expert", "16b"), ("pp", "16c")):
         bad = cfg.replace(mesh=dataclasses.replace(cfg.mesh, **{axis: 2}))
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             Trainer(bad, model)
 
 
