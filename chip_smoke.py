@@ -268,11 +268,27 @@ Phases, each of which fails the run if it fails:
      the gradient bytes
      all-reduced, #1/#2 launches and ms a micro-step per rank; (b)
      sequence parallelism, the long_context_config model over 4 ranks of
-     a ``seq`` axis, the xMLM step at B = 8, S = 4096 through `SPModel`
+     a ``seq`` axis, the xMLM step at B = 4, S = 4096 through `SPModel`
      and ring attention (no #5/#6 inside), its ring bytes and ms a step;
      the fp32 depth-2 loss and every gradient against one process, whose
      attention takes #5/#6.  Times of ranks sharing one card are the cost
      of the path, not a parallel speed.
+ 19. parameter sharding, one launch of 4 ranks over gloo as in 18: (a) the
+     scale-up preset (24 x 768, 12 heads, 250,002 words, 101 languages,
+     bf16, remat) through `train_x.main` with ``--mesh_fsdp 2
+     --mesh_tensor 2``, the MCT step, one warm-up and one timed
+     micro-step: ms a step per rank, bytes all-gathered, reduce-scattered
+     and all-reduced a step, each rank's bytes of parameters, gradients
+     and optimizer state against one process's, peak memory, #1/#2
+     launches per rank at 6 local heads; (b) at fp32 and depth 2 the MCT
+     step on fsdp 2 x tensor 2 against one process (loss and parameters
+     within 1e-5), a planted fault (the row-parallel all-reduce skipped)
+     seen, tensor 2 alone at dropout and attention dropout 0.1 against one
+     process; (c) MoE on data 2 x expert 2 against one process; (d) the
+     checkpoint round trip sharded -> one process -> sharded, bitwise.  In
+     this process: kernels #1-#6 over heads 6-11 of 12 (the Philox head
+     offset) against the slice of the call over all 12, and the preset's
+     step peak memory with remat against without.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -300,6 +316,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2666,7 +2683,8 @@ def compare_mct_grads_with_cpu(seed):
                            dtype="float32")
     cpu_model = cpu_model_from_card(cfg, seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    batch = bench.make_batch(seed + 2, "cpu", groups=2, with_clcm=True)
+    # one group: the CPU's pass at two was most of the phase
+    batch = bench.make_batch(seed + 2, "cpu", groups=1, with_clcm=True)
     draws = mct_draws(torch.Generator().manual_seed(seed), batch,
                       bench.mask_config(cfg))
     from m3p_tpu_torch.ops.attention import attention_packed
@@ -4413,7 +4431,9 @@ def compare_freelb_grads_with_cpu(seed):
     adv = freelb_config()
     cpu_model = cpu_model_from_card(cfg, seed)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    batch = bench.make_batch(seed + 2, "cpu", groups=2)
+    # one group: the CPU's K = 3 passes over two were the phase's largest
+    # part
+    batch = bench.make_batch(seed + 2, "cpu", groups=1)
     mask_cfg = bench.mask_config(cfg)
     draws = mct_draws(torch.Generator().manual_seed(seed), batch, mask_cfg)
     gen = torch.Generator().manual_seed(seed + 1)
@@ -7975,9 +7995,11 @@ TOL_P18_FP32 = 1e-5
 P18_PARAM_FLOOR = 1e-2
 # (b) the long_context_config model (12 x 768, 250,002 words, 8192
 # positions, bf16) over 4 ranks of a seq axis: the non-causal xMLM step at
-# B = 8, S = 4096 through `parallel.sp.SPModel`, FusedAdam as in phase 7
+# B = 4, S = 4096 through `parallel.sp.SPModel`, FusedAdam as in phase 7
 P18_SP_RANKS = 4
-P18_SP_B, P18_SP_S = 8, 4096
+# B = 4: the preset's remat runs each layer's forward ring twice, and the
+# script's time limit holds phase 19 too
+P18_SP_B, P18_SP_S = 4, 4096
 # one step, timed from its start (its pinned buffers' allocation included:
 # 7.12 s a step after a warm-up step against 9.3-11.0 s on an H100 80GB
 # HBM3 at 700 W)
@@ -8647,7 +8669,9 @@ def sp_slice(seed, tmp):
     ref_launches = {k: v for k, v in launch_counts().items()
                     if k in ("flash_fwd", "flash_bwd", "packed_fwd",
                              "packed_bwd")}
-    if ref_launches["flash_fwd"] != mcfg.n_layers or \
+    # remat (the preset's) runs each layer's forward again in the backward
+    forwards = (2 if mcfg.remat else 1) * mcfg.n_layers
+    if ref_launches["flash_fwd"] != forwards or \
             ref_launches["flash_bwd"] != 2 * mcfg.n_layers:
         fail(f"phase 18(b): the one-process step launched {ref_launches}")
     grads = torch.load(os.path.join(tmp, "sp.out.grads.pt"),
@@ -8683,11 +8707,13 @@ def sp_slice(seed, tmp):
         "ring_bytes_per_step_rank0": r0["ring_bytes_per_step"],
         "ring_bytes_predicted": {
             "kv_block_each_of_k_v": kv,
-            "forward": (P18_SP_RANKS - 1) * 2 * kv * full.n_layers,
+            "forward": ((2 if full.remat else 1) * (P18_SP_RANKS - 1) * 2
+                        * kv * full.n_layers),
             "backward": ((P18_SP_RANKS - 1) * 2 * kv
                          + P18_SP_RANKS * 2 * kv) * full.n_layers,
-            "note": "forward: 3 rotations of K and V a layer; backward: K "
-                    "and V again and 4 hops of their dK/dV, bf16"},
+            "note": "forward: 3 rotations of K and V a layer, twice under "
+                    "remat (the recompute); backward: K and V again and 4 "
+                    "hops of their dK/dV, bf16"},
         "host_staged_bytes_per_step_rank0": r0["host_staged_bytes_per_step"],
         "peak_memory_gb_per_rank": {r["rank"]: r["bf16"]["peak_memory_gb"]
                                     for r in ranks},
@@ -8714,8 +8740,598 @@ def parallel_slice(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: parameter sharding -- FSDP, tensor and expert parallelism
+# ---------------------------------------------------------------------------
+
+# One torchrun launch of 4 ranks sharing this card over gloo
+# (`parallel.mesh.choose_backend`): its collectives take the CUDA tensors
+# (torch 2.11's gloo runs all_reduce, all_gather_into_tensor and
+# reduce_scatter_tensor on them: `parallel.probe_gloo`).  One card shared by
+# 4 ranks says nothing of FSDP's or TP's speed; what it shows is each rank's
+# share of the state and the global step computed shard by shard.
+#
+# (a) the scale-up preset (`config.scale_up_config`: 24 layers, 768 wide,
+# 12 heads, 250,002 words, 101 languages, bf16, remat) through
+# `train_x.main` as fsdp 2 x tensor 2: the MCT step, one warm-up and
+# P19_TIMED timed micro-steps, the preset's batch (8 groups of 4) at 32
+# tokens and 36 regions; its checkpoint is not written (`p18_run_main`
+# save=False: the 4.7 GB state).
+P19_RANKS = 4
+P19_TIMED = 1
+P19_B, P19_SAMPLE_N, P19_TEXT, P19_REGIONS = 8, 4, 32, 36
+P19_LGS = "-".join(f"l{i}" for i in range(100))
+P19_ARGV = [
+    "--lgs", P19_LGS, "--emb_dim", "768", "--n_layers", "24", "--n_heads",
+    "12", "--fp16", "True", "--remat", "True", "--is_pretrain", "True",
+    "--cross_rel_steps", "coco-img", "--batch_size", str(P19_B),
+    "--sample_n", str(P19_SAMPLE_N), "--max_len", str(P19_TEXT),
+    "--max_region_num", str(P19_REGIONS),
+    "--epoch_size", str(P19_B * (1 + P19_TIMED)), "--max_epoch", "1",
+    "--use_grain", "False", "--optimizer",
+    "adam_inverse_sqrt,lr=0.0001,warmup_updates=100",
+    "--clip_grad_norm", "5.0", "--dropout", "0.1", "--attention_dropout",
+    "0.1", "--mesh_fsdp", "2", "--mesh_tensor", "2", "--device", "cuda",
+    "--exp_name", "p19", "--exp_id", "a"]
+# (b)-(d) at fp32, depth 2, full width, a 32,002-word vocabulary (the
+# comparison is of the sharded step, not of the 250,002-row table): the MCT
+# step on fsdp 2 x tensor 2 against one process on the same global batch
+# (rank 0 runs it); a planted fault (the row-parallel all-reduce skipped)
+# must break the equality; tensor 2 alone (each data line of a data 2 x
+# tensor 2 mesh runs the whole batch) at dropout and attention dropout 0.1
+# with the fused residual dropout (#7/#8) against one process; MoE (4
+# experts on every second block) on data 2 x expert 2 against one process;
+# the checkpoint round trip, sharded -> one process -> sharded, bitwise.
+# Per leaf relative to its largest entry or to P18_PARAM_FLOOR, as phase
+# 18(a) holds its fp32 run.
+P19_FP32_WORDS = 32002
+P19_SPEC = "adam,lr=0.001,eps=0.001"
+TOL_P19_FP32 = 1e-5
+
+
+class PretrainRows:
+    """MCT batches of `data.synthetic.make_pretrain_batch`, a stream seeded
+    alike on every rank (the trainer takes every count-th batch of it on
+    each batch shard)."""
+
+    def __init__(self, seed, n_words):
+        self.seed, self.n_words = seed, n_words
+
+    def __len__(self):
+        return 1 << 20
+
+    def epoch_iterator(self, batch_size, epoch=0):
+        import numpy as np
+
+        from m3p_tpu_torch.data.synthetic import make_pretrain_batch
+
+        rng = np.random.RandomState(self.seed + epoch)
+        while True:
+            yield make_pretrain_batch(rng, batch_size, P19_SAMPLE_N,
+                                      P19_TEXT, P19_REGIONS, self.n_words)
+
+
+def state_bytes(state):
+    """This rank's bytes of parameters, gradients and optimizer state, and
+    one process's (the whole shapes of the sharded leaves)."""
+    import numpy as np
+    import torch
+
+    from m3p_tpu_torch.parallel.sharding import train_state_shardings
+    from m3p_tpu_torch.parallel.tensor_parallel import shard_of
+
+    params = list(state.model.parameters())
+
+    def whole(t, spec):
+        n = int(np.prod(spec.shape)) if spec is not None else t.numel()
+        return n * t.element_size()
+
+    out = {"params": [sum(p.numel() * p.element_size() for p in params),
+                      sum(whole(p, shard_of(p)) for p in params)],
+           "grads": [sum(p.grad.numel() * p.grad.element_size()
+                         for p in params if p.grad is not None),
+                     sum(whole(p.grad, shard_of(p)) for p in params
+                         if p.grad is not None)]}
+    specs = train_state_shardings(state)["opt_state"]
+    local = whole_b = 0
+
+    def walk(tree, spec):
+        nonlocal local, whole_b
+        if isinstance(tree, torch.Tensor):
+            local += tree.numel() * tree.element_size()
+            whole_b += whole(tree, spec)
+        elif isinstance(tree, dict):
+            for k in tree:
+                walk(tree[k], spec[k] if isinstance(spec, dict) else None)
+        elif isinstance(tree, (list, tuple)):
+            for i, t in enumerate(tree):
+                walk(t, spec[i] if isinstance(spec, (list, tuple))
+                     else None)
+
+    walk(state.opt_state, specs)
+    out["optimizer"] = [local, whole_b]
+    return out
+
+
+def p19_preset(cfg):
+    """19(a) on one rank: the preset's MCT steps through train_x.main."""
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.data.loader import LoadedData
+    from m3p_tpu_torch.parallel import data_parallel as DP
+    from m3p_tpu_torch.parallel.mesh import COLLECTIVE_BYTES
+
+    seed, tmp = cfg["seed"], cfg["tmp"]
+    data = LoadedData(train_datasets={("rel", "coco"): PretrainRows(
+        seed, 250002)}, tokenizer=None)
+    rec = {"losses": [], "batches": [], "ms": [], "steps": []}
+    snaps = []
+
+    def on_step(trainer):
+        snaps.append({"collective": dict(COLLECTIVE_BYTES),
+                      "reduced": dict(DP.REDUCED_BYTES),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if len(snaps) == 1:           # after the warm-up
+            torch.cuda.reset_peak_memory_stats()
+        rec["batches"].clear()        # keep no batch on the card
+
+    zero_launch_counts()
+    COLLECTIVE_BYTES.update(all_reduce=0, all_gather=0, reduce_scatter=0)
+    DP.REDUCED_BYTES.update(gradients=0, steps=0)
+    trainer, secs = p18_run_main(P19_ARGV + [
+        "--dump_path", os.path.join(tmp, "dump"), "--seed", str(seed)],
+        data, rec, on_step=on_step, save=False)
+    attn = trainer.model.blocks[0].attn
+    timed = snaps[-1]
+    per_step = {k: (timed["collective"][k] - snaps[0]["collective"][k])
+                / P19_TIMED for k in COLLECTIVE_BYTES}
+    per_step["gradient_all_reduce"] = (
+        timed["reduced"]["gradients"] - snaps[0]["reduced"]["gradients"]
+    ) / P19_TIMED
+    out = {"rank": dist.get_rank(), "seconds": secs,
+           "mesh": {k: v for k, v in trainer.mesh.shape.items() if v > 1},
+           "backend": trainer.mesh.backend,
+           "n_total_iter": trainer.n_total_iter,
+           "losses": [v for _, v in rec["losses"]],
+           "ms": rec["ms"], "steps": rec["steps"],
+           "bytes_per_step": per_step,
+           "state_bytes": state_bytes(trainer.state),
+           "peak_memory_gb": timed["peak_gb"],
+           "local_heads": [attn.n_heads, attn.head_base, attn.heads_total],
+           "n_layers": trainer.cfg.model.n_layers,
+           "remat": trainer.cfg.model.remat,
+           "dtype": trainer.cfg.model.dtype}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def p19_model(seed, **kw):
+    from m3p_tpu_torch.config import ModelConfig
+    from m3p_tpu_torch.model import build_model
+
+    cfg = ModelConfig(n_words=P19_FP32_WORDS, mask_index=P19_FP32_WORDS - 1,
+                      n_langs=3, emb_dim=768, n_layers=2, n_heads=12,
+                      max_region_num=P19_REGIONS, dtype="float32",
+                      **{"dropout": 0.0, "attention_dropout": 0.0, **kw})
+    return build_model(cfg, seed, "cuda")
+
+
+def p19_batch(seed, n_words):
+    import numpy as np
+
+    from m3p_tpu_torch.data.synthetic import make_pretrain_batch
+
+    return make_pretrain_batch(np.random.RandomState(seed), 4, 2, 24,
+                               P19_REGIONS, n_words)
+
+
+def leaf_gap(got, want):
+    """The largest of each leaf's max |got - want| relative to its largest
+    entry or to P18_PARAM_FLOOR."""
+    worst, name = 0.0, None
+    for n, w in want.items():
+        scale = max(float(w.abs().max()), P18_PARAM_FLOOR)
+        gap = float((got[n].float() - w.float()).abs().max()) / scale
+        if gap > worst:
+            worst, name = gap, n
+    return worst, name
+
+
+def p19_step(model, mesh, kind, batch, draws=None, gens=None, spec=P19_SPEC,
+             shard_rows=True, reduce=True):
+    """One step of ``kind`` ("mct" or "itm") over ``mesh`` (None: one
+    process); ``shard_rows`` takes this rank's batch shard, ``reduce`` sets
+    the state's mesh (the gradient reduction over the batch shards).
+    Returns (loss, the whole parameters after the update, the state)."""
+    import torch
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.parallel.sharding import (
+        batch_sharding, gather_train_state, model_is_sharded, shard_batch)
+    from m3p_tpu_torch.train import steps as S
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    tb = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    d = dict(draws or {})
+    if mesh is not None and shard_rows:
+        sh = batch_sharding(mesh)
+        tb = shard_batch(tb, sh)
+        d = {k: (shard_batch(v, sh) if torch.is_tensor(v)
+                 else [shard_batch(t, sh) for t in v]) for k, v in d.items()}
+    tx, _ = build_optimizer(spec, clip_grad_norm=CLIP)
+    state = create_train_state(model, tx, mesh if reduce else None)
+    mask_cfg = bench.mask_config(model.cfg)
+    det = gens is None
+
+    def loss_fn(m, b, g):
+        if kind == "mct":
+            return S.mct_pretrain_loss(m, b, g, mask_cfg, 2, pack_ratio=0.5,
+                                       deterministic=det, **d)
+        return S.itm_finetune_loss(m, b, g, 2, deterministic=det)
+
+    step = S.make_train_step(loss_fn)
+    state, metrics = step(state, tb, gens)
+    params = (gather_train_state(state)["model"]
+              if model_is_sharded(model) else
+              {n: p.detach() for n, p in model.named_parameters()})
+    return float(metrics["loss"]), params, state
+
+
+def p19_checks(cfg):
+    """19(b)-(d) on one rank; rank 0 runs each one-process reference."""
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch import checkpoint as ckpt
+    from m3p_tpu_torch.config import MeshConfig
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.parallel import tensor_parallel as TP
+    from m3p_tpu_torch.parallel.mesh import make_mesh
+    from m3p_tpu_torch.parallel.sharding import (
+        gather_train_state, shard_model)
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+    from m3p_tpu_torch.train.steps import mct_draws
+
+    seed, tmp = cfg["seed"] + 1, cfg["tmp"]
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    batch = p19_batch(seed, P19_FP32_WORDS)
+    from m3p_tpu_torch import bench
+
+    one = p19_model(seed)
+    draws = mct_draws(torch.Generator(device="cuda").manual_seed(seed),
+                      {k: torch.as_tensor(v).cuda()
+                       for k, v in batch.items()},
+                      bench.mask_config(one.cfg))
+    ref = p19_step(one, None, "mct", batch, draws) if rank == 0 else None
+    del one
+
+    # (b) fsdp 2 x tensor 2 against one process, then the planted fault
+    mesh = make_mesh(MeshConfig(data=1, fsdp=2, tensor=2), dev)
+    runs = {}
+    for fault in (None, "row_no_reduce"):
+        model = p19_model(seed)
+        shard_model(model, mesh)
+        with contextlib.ExitStack() as stack:
+            if fault:
+                stack.enter_context(patched(
+                    __import__("m3p_tpu_torch.model.layers",
+                               fromlist=["x"]), "reduce_from",
+                    lambda make: (lambda x, m, a: x if a == "tensor"
+                                  else TP.reduce_from(x, m, a))))
+            loss, params, state = p19_step(model, mesh, "mct", batch, draws)
+        runs[fault] = (loss, params)
+        if fault is None:
+            # (d) the sharded state saved, read back by one process
+            path = os.path.join(tmp, "p19_sharded")
+            ckpt.save_checkpoint(path, state, {"epoch": 1})
+            saved = gather_train_state(state)
+        del model, state
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["b"] = {}
+        for fault, (loss, params) in runs.items():
+            gap, name = leaf_gap(params, ref[1])
+            out["b"][str(fault)] = {
+                "loss": loss, "one_process_loss": ref[0],
+                "loss_gap": abs(loss - ref[0]) / abs(ref[0]),
+                "param_gap": gap, "worst_leaf": name}
+    dist.barrier()
+
+    # (d) sharded -> one process -> sharded, bitwise
+    if rank == 0:
+        model = p19_model(seed)
+        tx, _ = build_optimizer(P19_SPEC, clip_grad_norm=CLIP)
+        st = create_train_state(model, tx)
+        st, _ = ckpt.restore_checkpoint(os.path.join(tmp, "p19_sharded"), st)
+        sd = model.state_dict()
+        out["d"] = {"to_one_process_bitwise": all(
+            torch.equal(sd[k], v) for k, v in saved["model"].items()) and all(
+            torch.equal(a, b) for key in ("mu", "nu") for a, b in zip(
+                st.opt_state[key], saved["opt_state"][key]))}
+        # one process's save (`save_checkpoint` is collective in a group)
+        os.makedirs(os.path.join(tmp, "p19_one"))
+        torch.save({"model": model.state_dict(), "opt_state": st.opt_state,
+                    "step": st.step},
+                   os.path.join(tmp, "p19_one", ckpt.STATE_FILE))
+        del model, st
+    dist.barrier()
+    model = p19_model(seed)
+    shard_model(model, mesh)
+    tx, _ = build_optimizer(P19_SPEC, clip_grad_norm=CLIP)
+    st = create_train_state(model, tx, mesh)
+    st, _ = ckpt.restore_checkpoint(os.path.join(tmp, "p19_one"), st)
+    back = gather_train_state(st)
+    blob = torch.load(os.path.join(tmp, "p19_one", "state.pt"),
+                      map_location=dev, weights_only=True)
+    out.setdefault("d", {})["to_sharded_bitwise"] = all(
+        torch.equal(back["model"][k], v) for k, v in blob["model"].items())
+    del model, st, back, blob
+    torch.cuda.empty_cache()
+
+    # tensor 2 alone at dropout 0.1, the fused residual dropout on
+    rate = dict(dropout=RATE, attention_dropout=RATE, use_fused_dropout=True)
+    mesh = make_mesh(MeshConfig(data=2, tensor=2), dev)
+    model = p19_model(seed, **rate)
+    shard_model(model, mesh)
+    zero_launch_counts()
+    loss, params, _ = p19_step(model, mesh, "itm", batch,
+                               gens=Generators.from_seed(seed, "cuda"),
+                               shard_rows=False, reduce=False)
+    counts = launch_counts()
+    del model
+    if rank == 0:
+        one = p19_model(seed, **rate)
+        ref_loss, ref_params, _ = p19_step(
+            one, None, "itm", batch, gens=Generators.from_seed(seed, "cuda"))
+        gap, name = leaf_gap(params, ref_params)
+        out["tensor2_dropout"] = {
+            "loss": loss, "one_process_loss": ref_loss,
+            "loss_gap": abs(loss - ref_loss) / abs(ref_loss),
+            "param_gap": gap, "worst_leaf": name,
+            "launches": {k: counts[k] for k in (
+                "packed_fwd", "packed_bwd", "dropout_fwd", "dropout_bwd")}}
+        del one
+    torch.cuda.empty_cache()
+
+    # (c) MoE on data 2 x expert 2
+    moe = dict(moe_experts=4, moe_interval=2)
+    mesh = make_mesh(MeshConfig(data=2, expert=2), dev)
+    model = p19_model(seed, **moe)
+    shard_model(model, mesh)
+    loss, params, _ = p19_step(model, mesh, "itm", batch)
+    del model
+    if rank == 0:
+        one = p19_model(seed, **moe)
+        ref_loss, ref_params, _ = p19_step(one, None, "itm", batch)
+        gap, name = leaf_gap(params, ref_params)
+        out["c_moe"] = {"loss": loss, "one_process_loss": ref_loss,
+                        "loss_gap": abs(loss - ref_loss) / abs(ref_loss),
+                        "param_gap": gap, "worst_leaf": name}
+        del one
+    torch.cuda.empty_cache()
+    return out
+
+
+def p19_rank(cfg):
+    """A rank of phase 19: (a), then (b)-(d); one JSON per rank."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.parallel.mesh import auto_init_distributed
+
+    auto_init_distributed("cuda")
+    t0 = time.time()
+    out = {"a": p19_preset(cfg)}
+    t1 = time.time()
+    out.update(p19_checks(cfg))
+    out["seconds"] = {"a": t1 - t0, "checks": time.time() - t1}
+    with open(f"{cfg['out']}.{dist.get_rank()}.json", "w") as f:
+        json.dump(out, f)
+
+
+def check_head_offset():
+    """Module 3 on the card: kernels #1-#6 over heads 6-11 of 12
+    (head_base 6, heads_total 12) at rate 0.1 give bitwise the slice of
+    the call over all 12 heads, forward and backward, bf16 and fp32."""
+    import torch
+
+    from m3p_tpu_torch.ops import attention as A
+
+    b, s, h, dh, rate, seed = 4, 68, 12, 64, 0.1, 20260
+    cols = slice(6 * dh, 12 * dh)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        q, k, v, do = (torch.randn(b, s, h * dh, device="cuda", generator=g
+                                   ).to(dtype) for _ in range(4))
+        mask = torch.arange(s, device="cuda")[None] < torch.tensor(
+            [[s], [s - 5], [s], [40]], device="cuda")
+        sc = dh ** -0.5
+        part = [t[..., cols] for t in (q, k, v)]
+        half = dict(head_base=6, heads_total=12)
+        gaps = {}
+        whole = A._launch_fwd(q, k, v, mask, h, False, sc, rate, seed)
+        mine = A._launch_fwd(*part, mask, 6, False, sc, rate, seed, **half)
+        gaps["packed_fwd"] = (whole[..., cols] - mine).abs().max().item()
+        gw = A._launch_bwd(q, k, v, mask, do, h, False, sc, rate, seed)
+        gm = A._launch_bwd(*part, mask, do[..., cols], 6, False, sc, rate,
+                           seed, **half)
+        gaps["packed_bwd"] = max((a[..., cols] - c).abs().max().item()
+                                 for a, c in zip(gw, gm))
+        fo, fs = A._launch_flash_fwd(q, k, v, mask, h, False, sc, rate, seed)
+        mo, ms = A._launch_flash_fwd(*part, mask, 6, False, sc, rate, seed,
+                                     **half)
+        gaps["flash_fwd"] = max((fo[..., cols] - mo).abs().max().item(),
+                                (fs[:, 6:] - ms).abs().max().item())
+        gw = A._launch_flash_bwd(q, k, v, mask, fo, fs, do, h, False, sc,
+                                 rate, seed)
+        gm = A._launch_flash_bwd(*part, mask, mo, ms, do[..., cols], 6,
+                                 False, sc, rate, seed, **half)
+        gaps["flash_bwd"] = max((a[..., cols] - c).abs().max().item()
+                                for a, c in zip(gw, gm))
+        hm = [t.view(b, s, h, dh).transpose(1, 2) for t in (q, k, v, do)]
+        so = A._launch_small_fwd(*hm[:3], mask, False, sc, rate, seed)
+        sm = A._launch_small_fwd(*(t[:, 6:] for t in hm[:3]), mask, False,
+                                 sc, rate, seed, **half)
+        gaps["small_fwd"] = (so[:, 6:] - sm).abs().max().item()
+        gw = A._launch_small_bwd(*hm[:3], mask, hm[3], False, sc, rate, seed)
+        gm = A._launch_small_bwd(*(t[:, 6:] for t in hm[:3]), mask,
+                                 hm[3][:, 6:], False, sc, rate, seed, **half)
+        gaps["small_bwd"] = max((a[:, 6:] - c).abs().max().item()
+                                for a, c in zip(gw, gm))
+        # and a slice drawn as a call of its own draws other masks
+        plain = A._launch_fwd(*part, mask, 6, False, sc, rate, seed)
+        gaps["own_call_differs"] = (whole[..., cols] - plain).abs().max(
+            ).item()
+        out[str(dtype).replace("torch.", "")] = gaps
+    torch.cuda.synchronize()
+    for dt, gaps in out.items():
+        bad = {k: v for k, v in gaps.items()
+               if (v != 0.0) != (k == "own_call_differs")}
+        if bad:
+            fail(f"phase 19: a call over heads 6-11 of 12 did not draw its "
+                 f"slice of the full call's masks ({dt}): {bad}")
+    return out
+
+
+def remat_memory(seed):
+    """The preset's MCT forward and backward in this process, bf16, on one
+    model with remat off and on in turns (off, on, on, off): the peak
+    memory over the parameters' and the ms of each (the optimizer's
+    update, whose temporaries are the same either way, left out)."""
+    import torch
+
+    from m3p_tpu_torch.config import scale_up_config
+    from m3p_tpu_torch.data.masking import MaskingConfig
+    from m3p_tpu_torch.model import build_model
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.train import steps as S
+
+    batch = next(PretrainRows(seed, 250002).epoch_iterator(P19_B // 2))
+    cfg = scale_up_config().model
+    model = build_model(cfg, seed, "cuda")
+    tb = S.expand_compact_batch({k: torch.as_tensor(v).cuda()
+                                 for k, v in batch.items()})
+    mask = MaskingConfig(n_words=cfg.n_words, mask_index=cfg.mask_index)
+    runs = {"plain": [], "remat": []}
+    for remat in (False, True, True, False):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        loss, _ = S.mct_pretrain_loss(model, tb, Generators.from_seed(
+            seed, "cuda"), mask, P19_SAMPLE_N, pack_ratio=0.5)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs["remat" if remat else "plain"].append({
+            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "ms": (time.perf_counter() - t) * 1e3, "loss": float(loss)})
+    del model, tb
+    torch.cuda.empty_cache()
+    plain = min(r["peak_gb"] for r in runs["plain"])
+    remat = max(r["peak_gb"] for r in runs["remat"])
+    if not remat < plain:
+        fail(f"phase 19: remat did not lower the step's peak memory: {runs}")
+    if len({r["loss"] for rs in runs.values() for r in rs}) != 1:
+        fail(f"phase 19: remat changed the loss: {runs}")
+    return {"batch_rows": P19_B // 2 * P19_SAMPLE_N, **runs}
+
+
+def sharding_slice(seed):
+    """Phase 19: (a)-(d) on 4 ranks (`p19_rank`), the head offset on the
+    card, remat's memory.  Its own launch: the ranks of 18(b), going on to
+    this part, took twice as long over it on an H100 80GB HBM3."""
+    t0 = time.time()
+    heads = check_head_offset()
+    sublap("p19_head_offset")
+    with tempfile.TemporaryDirectory() as tmp:
+        secs, ranks = p18_launch("p19", P19_RANKS, {"seed": seed,
+                                                    "tmp": tmp})
+    sublap("p19_ranks")
+    n_layers, refine = 24, 3
+    want = {"packed_fwd": 2 * n_layers + refine,
+            "packed_bwd": 2 * (n_layers + refine)}
+    problems = []
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        if a["n_total_iter"] != 1 + P19_TIMED:
+            problems.append(f"rank {r} took {a['n_total_iter']} steps")
+        if a["local_heads"][0] != 6 or a["local_heads"][2] != 12:
+            problems.append(f"rank {r} heads {a['local_heads']}")
+        for kind, counts in a["steps"]:
+            if {k: counts[k] for k in want} != want:
+                problems.append(f"rank {r} {kind} launches {counts}")
+        if not all(map(math.isfinite, a["losses"])):
+            problems.append(f"rank {r} losses {a['losses']}")
+        for part, (mine, whole) in a["state_bytes"].items():
+            if not 0 < mine <= 0.3 * whole:
+                problems.append(f"rank {r} holds {mine} of {whole} {part} "
+                                "bytes")
+    zero = ranks[0]
+    b = zero["b"]
+    if not (b["None"]["loss_gap"] <= TOL_P19_FP32
+            and b["None"]["param_gap"] <= TOL_P19_FP32):
+        problems.append(f"fsdp 2 x tensor 2 is not the one-process step: "
+                        f"{b['None']}")
+    fault = b["row_no_reduce"]
+    if max(fault["loss_gap"], fault["param_gap"]) <= TOL_P19_FP32:
+        problems.append(f"the planted fault was not seen: {fault}")
+    for key in ("tensor2_dropout", "c_moe"):
+        if not (zero[key]["loss_gap"] <= TOL_P19_FP32
+                and zero[key]["param_gap"] <= TOL_P19_FP32):
+            problems.append(f"{key} is not the one-process step: "
+                            f"{zero[key]}")
+    if zero["tensor2_dropout"]["launches"]["dropout_fwd"] == 0:
+        problems.append("tensor 2 at dropout launched no #7")
+    if not all(r["d"]["to_sharded_bitwise"] for r in ranks) or not zero[
+            "d"]["to_one_process_bitwise"]:
+        problems.append(f"the checkpoint round trip is not bitwise: "
+                        f"{[r['d'] for r in ranks]}")
+    if problems:
+        fail("phase 19: " + "; ".join(problems))
+    remat = remat_memory(seed)
+    sublap("p19_remat_memory")
+    a = zero["a"]
+    out = {"launch_s": secs, "ranks": P19_RANKS, "mesh": a["mesh"],
+           "backend": a["backend"], "rank0_s": zero["seconds"],
+           "preset": {"n_layers": a["n_layers"], "remat": a["remat"],
+                      "dtype": a["dtype"], "local_heads": a["local_heads"],
+                      "batch": [P19_B, P19_SAMPLE_N, P19_TEXT,
+                                P19_REGIONS]},
+           "ms_per_step_per_rank": {r: res["a"]["ms"][1:]
+                                    for r, res in enumerate(ranks)},
+           "warmup_ms_per_rank": {r: res["a"]["ms"][0]
+                                  for r, res in enumerate(ranks)},
+           "losses_rank0": a["losses"],
+           "bytes_per_step_rank0": a["bytes_per_step"],
+           "state_bytes_rank0": a["state_bytes"],
+           "state_share_rank0": {k: v[0] / v[1]
+                                 for k, v in a["state_bytes"].items()},
+           "peak_memory_gb_per_rank": {r: res["a"]["peak_memory_gb"]
+                                       for r, res in enumerate(ranks)},
+           "launches_per_step": want,
+           "launches_per_rank": {r: {k: sum(c[k] for _, c in res["a"][
+               "steps"]) for k in want} for r, res in enumerate(ranks)},
+           "fp32": {"fsdp2_tensor2": b["None"],
+                    "planted_row_no_reduce": fault,
+                    "tensor2_dropout": zero["tensor2_dropout"],
+                    "moe_data2_expert2": zero["c_moe"],
+                    "checkpoint": [r["d"] for r in ranks]},
+           "head_offset_max_abs_diff": heads, "remat": remat,
+           "phase_s": time.time() - t0}
+    log(f"[sharding] phase 19: {json.dumps(out)}")
+    return out
+
+
 def p18_rank(path):
-    """A rank of phase 18 under torchrun (``--p18 <config>``)."""
+    """A rank of phase 18 or 19 under torchrun (``--p18 <config>``)."""
     import torch
 
     from m3p_tpu_torch.parallel.mesh import auto_init_distributed
@@ -8727,6 +9343,8 @@ def p18_rank(path):
     if cfg["part"] == "dp":
         auto_init_distributed("cuda")
         p18_dp_rank(cfg)
+    elif cfg["part"] == "p19":
+        p19_rank(cfg)
     else:
         p18_sp_rank(cfg)
     return 0
@@ -8949,6 +9567,12 @@ def main() -> int:
     p18_packed = {k: sum(c[k] for c in dp_launches.values())
                   for k in ("packed_fwd", "packed_bwd")}
     sp_flash = parallel["sp"]["one_process_launches"]
+    torch.cuda.empty_cache()
+
+    sharding = sharding_slice(args.seed)
+    lap("p19_sharding")
+    p19_packed = {k: sum(c[k] for c in sharding["launches_per_rank"].values())
+                  for k in ("packed_fwd", "packed_bwd")}
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -8965,7 +9589,7 @@ def main() -> int:
                      + sum(r["packed_fwd"] for r in fl_runs.values())
                      + sum(r["packed_fwd"] for r in ev_runs.values())
                      + sum(quant_packed.values()) + sum(p17_fwd.values())
-                     + p18_packed["packed_fwd"]),
+                     + p18_packed["packed_fwd"] + p19_packed["packed_fwd"]),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
@@ -8979,7 +9603,8 @@ def main() -> int:
                              **{p: r["packed_fwd"]
                                 for p, r in ev_runs.items()},
                              **quant_packed, **p17_fwd,
-                             "dp_ranks": p18_packed["packed_fwd"]},
+                             "dp_ranks": p18_packed["packed_fwd"],
+                             "sharded_ranks": p19_packed["packed_fwd"]},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -9024,7 +9649,7 @@ def main() -> int:
                      + sum(ev_runs[p]["packed_bwd"]
                            for p in ("trainer",) + data_runs)
                      + sum(r["packed_bwd"] for r in p17_runs.values())
-                     + p18_packed["packed_bwd"]),
+                     + p18_packed["packed_bwd"] + p19_packed["packed_bwd"]),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
@@ -9037,7 +9662,8 @@ def main() -> int:
                                 for p in ("trainer",) + data_runs},
                              **{p: r["packed_bwd"]
                                 for p, r in p17_runs.items()},
-                             "dp_ranks": p18_packed["packed_bwd"]},
+                             "dp_ranks": p18_packed["packed_bwd"],
+                             "sharded_ranks": p19_packed["packed_bwd"]},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],

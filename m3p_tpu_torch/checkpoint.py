@@ -385,7 +385,10 @@ def save_checkpoint(path: str, state, extra: Optional[Dict[str, Any]] = None
     calls it): rank 0 writes the state (the same on every rank) and
     ``extra.json``, every rank its own ``loader_state.<rank>.json`` into
     the temporary directory, and rank 0 moves it into place; barriers keep
-    the ranks in step."""
+    the ranks in step.  A state over sharded parameters
+    (`parallel.sharding`) is gathered whole first (every rank takes part),
+    so the file is the one-process format, the counterpart of orbax writing
+    the global arrays."""
     path = os.path.abspath(path)
     dist = torch.distributed
     ranks = (dist.is_available() and dist.is_initialized()
@@ -395,6 +398,12 @@ def save_checkpoint(path: str, state, extra: Optional[Dict[str, Any]] = None
     write_extra = bool(extra)
     extra = dict(extra or {})
     loader_state = extra.pop("loader_state", None)
+    from m3p_tpu_torch.parallel.sharding import (
+        gather_train_state, model_is_sharded)
+
+    whole = (gather_train_state(state) if model_is_sharded(state.model)
+             else {"model": state.model.state_dict(),
+                   "opt_state": state.opt_state})
     if rank == 0:
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -402,8 +411,7 @@ def save_checkpoint(path: str, state, extra: Optional[Dict[str, Any]] = None
         dist.barrier()
     try:
         if rank == 0:
-            torch.save({"model": state.model.state_dict(),
-                        "opt_state": state.opt_state, "step": state.step},
+            torch.save(dict(whole, step=state.step),
                        os.path.join(tmp, STATE_FILE))
             if write_extra:
                 with open(os.path.join(tmp, "extra.json"), "w") as f:
@@ -466,13 +474,20 @@ def _describe(x) -> str:
 def restore_checkpoint(path: str, state):
     """Restore ``path`` into ``state`` in place: the weights into its
     model, the optimizer state into its tensors, on their device and in
-    their dtype; returns (state, extra) (`m3p_tpu/checkpoint.py:66-93`)."""
+    their dtype; returns (state, extra) (`m3p_tpu/checkpoint.py:66-93`).
+    Over sharded parameters each rank takes its shards of the whole state,
+    as orbax restores into the state's shardings."""
     where = committed_checkpoint(path)
     if where is None:
         raise FileNotFoundError(f"no checkpoint at {path}")
     device = next(state.model.parameters()).device
     blob = torch.load(os.path.join(where, STATE_FILE), map_location=device,
                       weights_only=True)
+    from m3p_tpu_torch.parallel.sharding import (
+        model_is_sharded, slice_like_state)
+
+    if model_is_sharded(state.model):
+        blob.update(slice_like_state(state, blob))
     state.model.load_state_dict(blob["model"], strict=True)
     state.opt_state = _restore_into(state.opt_state, blob["opt_state"],
                                     "opt_state")

@@ -22,10 +22,13 @@ A caller with datasets of its own passes them as ``data=LoadedData(...)``
     main([...], data=LoadedData(train_datasets={("rel", "coco"): ds}, ...))
 
 Several cards: one process per card under a launcher, each a rank of the
-mesh of ``--mesh_*`` (data and sequence parallelism; `main`'s docstring):
+mesh of ``--mesh_*`` (data, parameter and sequence parallelism; `main`'s
+docstring):
 
     python -m torch.distributed.run --nproc_per_node 2 \
         -m m3p_tpu_torch.cli.train_x ... --mesh_data 2
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m m3p_tpu_torch.cli.train_x ... --mesh_fsdp 2 --mesh_tensor 2
 
 One process that sees several cards and a batch that would shard over
 them raises and names the launcher; with a batch that would not shard, it
@@ -490,11 +493,12 @@ def main(argv=None, data=None):
     `Trainer`.  ``data``: a `LoadedData`; None loads ``--data_path``.
 
     Under a launcher (``python -m torch.distributed.run --nproc_per_node N
-    -m m3p_tpu_torch.cli.train_x ... --mesh_data D --mesh_seq S``) each
-    process is a rank of the mesh: data parallelism over ``data``,
-    sequence parallelism over ``seq``; ``--mesh_fsdp`` / ``--mesh_tensor``
-    / ``--mesh_expert`` / ``--pp_stages`` above 1 raise (items 16b and
-    16c of ROADMAP.md)."""
+    -m m3p_tpu_torch.cli.train_x ... --mesh_data D --mesh_fsdp F
+    --mesh_tensor T``) each process is a rank of the mesh: data
+    parallelism over ``data`` and ``fsdp``, the parameters sharded over
+    ``fsdp``, ``tensor`` and ``expert`` (`parallel.sharding`), sequence
+    parallelism over ``seq``; ``--pp_stages`` above 1 raises (item 16c of
+    ROADMAP.md)."""
     import torch
 
     from m3p_tpu_torch import checkpoint as ckpt

@@ -93,6 +93,7 @@ struct Params {
   float inv;
   uint32_t threshold;
   unsigned long long seed;
+  int head_base, heads_total;  // the Philox tiles' heads (philox_tile)
   // the debug instantiation only (kDump, M3P_SCORE_DUMP): (B, H, Sq, Sk)
   // fp32, the unscaled scores q.k
   float* scores;
@@ -119,6 +120,7 @@ flash_attention_fwd_kernel(Params<T> p) {
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tile = b * gridDim.y + h;
+  const int ptile = m3p::philox_tile(b, h, p.head_base, p.heads_total);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int tx = tid % kSub, ty = tid / kSub;
   const int q_offset = sk - sq;
@@ -183,7 +185,7 @@ flash_attention_fwd_kernel(Params<T> p) {
       if (kDropout) {
         // two lanes share the Philox counter of four columns
         const uint4 bits =
-            m3p::keep_bits(p.seed, tile, q0 + r, k0 / 4 + (lane >> 1));
+            m3p::keep_bits(p.seed, ptile, q0 + r, k0 / 4 + (lane >> 1));
         const int w = 2 * (lane & 1);
         if (m3p::word(bits, w) < p.threshold) e0 = 0.f;
         if (m3p::word(bits, w + 1) < p.threshold) e1 = 0.f;
@@ -309,6 +311,7 @@ flash_attention_fwd_mma_kernel(Params<bf16> p) {
   const int q0 = blockIdx.x * kQTile;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tile = b * gridDim.y + h;
+  const int ptile = m3p::philox_tile(b, h, p.head_base, p.heads_total);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int q_offset = sk - sq;
@@ -450,7 +453,7 @@ flash_attention_fwd_mma_kernel(Params<bf16> p) {
       const int mine = 2 * (t & 1), theirs = 2 - mine;
 #pragma unroll
       for (int j = 0; j < kKeyTiles; ++j) {
-        const uint4 w = m3p::keep_bits(p.seed, tile, row0 + 8 * (t & 1),
+        const uint4 w = m3p::keep_bits(p.seed, ptile, row0 + 8 * (t & 1),
                                        k0 / 4 + 2 * j + (t >> 1));
         const uint32_t own0 = m3p::word(w, mine);
         const uint32_t own1 = m3p::word(w, mine + 1);
@@ -553,8 +556,8 @@ cudaError_t run(const void* q, const void* k, const void* v,
                 const void* kv_mask, void* o, void* stats, int b, int sq,
                 int sk, int h, int dh, const long long* strides, float scale,
                 int causal, float inv, unsigned int threshold,
-                unsigned long long seed, int design, cudaStream_t stream,
-                float* scores = nullptr) {
+                unsigned long long seed, int head_base, int heads_total,
+                int design, cudaStream_t stream, float* scores = nullptr) {
   Params<T> p;
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
@@ -580,6 +583,8 @@ cudaError_t run(const void* q, const void* k, const void* v,
   p.inv = inv;
   p.threshold = threshold;
   p.seed = seed;
+  p.head_base = head_base;
+  p.heads_total = heads_total;
   p.scores = scores;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
 #ifdef M3P_SCORE_DUMP
@@ -606,7 +611,7 @@ extern "C" int m3p_flash_attention_fwd(
     int dh, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, long long o_sb, long long o_ss,
     float scale, int causal, float inv, unsigned int threshold,
-    unsigned long long seed, void* stream) {
+    unsigned long long seed, int head_base, int heads_total, void* stream) {
   const long long strides[8] = {q_sb, q_ss, k_sb, k_ss,
                                 v_sb, v_ss, o_sb, o_ss};
   const void* ptrs[4] = {q, k, v, o};
@@ -617,11 +622,12 @@ extern "C" int m3p_flash_attention_fwd(
   if (dtype == 0)
     return static_cast<int>(run<float>(q, k, v, kv_mask, o, stats, b, sq, sk,
                                        h, dh, strides, scale, causal, inv,
-                                       threshold, seed, design, s));
+                                       threshold, seed, head_base,
+                                       heads_total, design, s));
   if (dtype == 1)
     return static_cast<int>(run<__nv_bfloat16>(
         q, k, v, kv_mask, o, stats, b, sq, sk, h, dh, strides, scale, causal,
-        inv, threshold, seed, design, s));
+        inv, threshold, seed, head_base, heads_total, design, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -645,6 +651,6 @@ extern "C" int m3p_flash_attention_fwd_scores(
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run<__nv_bfloat16>(
       q, k, v, kv_mask, o, stats, b, sq, sk, h, dh, strides, scale, causal,
-      1.f, 0u, 0ull, 1, static_cast<cudaStream_t>(stream), scores));
+      1.f, 0u, 0ull, 0, h, 1, static_cast<cudaStream_t>(stream), scores));
 }
 #endif

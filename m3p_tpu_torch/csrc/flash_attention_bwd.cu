@@ -106,6 +106,7 @@ struct Params {
   float inv;
   uint32_t threshold;
   unsigned long long seed;
+  int head_base, heads_total;  // the Philox tiles' heads (philox_tile)
   // the debug instantiation only (kDump, M3P_SCORE_DUMP): (B, H, Sq, Sk)
   // fp32, the unscaled scores q.k of the dk/dv pass
   float* scores;
@@ -188,6 +189,7 @@ flash_attention_bwd_dkdv_kernel(Params<T> p) {
   const int k0 = blockIdx.x * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tile = b * gridDim.y + h;
+  const int ptile = m3p::philox_tile(b, h, p.head_base, p.heads_total);
   const int tx = threadIdx.x % kSub, ty = threadIdx.x / kSub;
   const int kn = min(kTile, sk - k0);
   const long long hoff = static_cast<long long>(h) * dh;
@@ -211,7 +213,7 @@ flash_attention_bwd_dkdv_kernel(Params<T> p) {
     load_rows(q_s, qb, p.q_ss, q0, rows, dh, ld);
     load_rows(do_s, dob, p.do_ss, q0, rows, dh, ld);
     load_stats(st_s, p, tile, b, h, q0, rows);
-    if (kDropout) fill_keep(keep_s, p.seed, p.threshold, tile, q0, k0);
+    if (kDropout) fill_keep(keep_s, p.seed, p.threshold, ptile, q0, k0);
     __syncthreads();
     float s[kPer][kPer], dp[kPer][kPer], pd[kPer][kPer], ds[kPer][kPer];
     tile_dots(q_s, k_s, ld, dh, s);
@@ -289,6 +291,7 @@ flash_attention_bwd_dq_kernel(Params<T> p) {
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tile = b * gridDim.y + h;
+  const int ptile = m3p::philox_tile(b, h, p.head_base, p.heads_total);
   const int tx = threadIdx.x % kSub, ty = threadIdx.x / kSub;
   const int rows = min(kTile, sq - q0);
   const long long hoff = static_cast<long long>(h) * dh;
@@ -312,7 +315,7 @@ flash_attention_bwd_dq_kernel(Params<T> p) {
     __syncthreads();  // the previous key tile is consumed
     load_rows(k_s, kb, p.k_ss, k0, kn, dh, ld);
     load_rows(v_s, vb, p.v_ss, k0, kn, dh, ld);
-    if (kDropout) fill_keep(keep_s, p.seed, p.threshold, tile, q0, k0);
+    if (kDropout) fill_keep(keep_s, p.seed, p.threshold, ptile, q0, k0);
     __syncthreads();
     float s[kPer][kPer], dp[kPer][kPer], pd[kPer][kPer], ds[kPer][kPer];
     tile_dots(q_s, k_s, ld, dh, s);
@@ -474,6 +477,7 @@ flash_attention_bwd_dkdv_mma_kernel(Params<bf16> p) {
   const int k0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tile = b * gridDim.y + h;
+  const int ptile = m3p::philox_tile(b, h, p.head_base, p.heads_total);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int q_offset = sk - sq;
@@ -521,7 +525,8 @@ flash_attention_bwd_dkdv_mma_kernel(Params<bf16> p) {
     }
     cp_async_commit();
     if (kDropout)
-      fill_keep<kQT, kBlockRows>(keep_s, p.seed, p.threshold, tile, q0, k0);
+      fill_keep<kQT, kBlockRows>(keep_s, p.seed, p.threshold, ptile, q0,
+                                 k0);
     cp_async_wait<1>();
     // the thread that copied a row's l replaces it by 1 / l (its own copy
     // is visible to it after the wait; past Sq, 1 / 0 is never read)
@@ -668,6 +673,7 @@ flash_attention_bwd_dq_mma_kernel(Params<bf16> p) {
   const int q0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tile = b * gridDim.y + h;
+  const int ptile = m3p::philox_tile(b, h, p.head_base, p.heads_total);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int q_offset = sk - sq;
@@ -718,7 +724,7 @@ flash_attention_bwd_dq_mma_kernel(Params<bf16> p) {
     }
     cp_async_commit();
     if (kDropout)
-      fill_keep<kBlockRows, kKTile>(keep_s, p.seed, p.threshold, tile, q0,
+      fill_keep<kBlockRows, kKTile>(keep_s, p.seed, p.threshold, ptile, q0,
                                     k0);
     cp_async_wait<1>();
     __syncthreads();
@@ -854,8 +860,8 @@ template <typename T>
 cudaError_t run(int phase, const void* const* ptrs, int b, int sq, int sk,
                 int h, int dh, const long long* strides, float scale,
                 int causal, float inv, unsigned int threshold,
-                unsigned long long seed, int design, cudaStream_t stream,
-                float* scores = nullptr) {
+                unsigned long long seed, int head_base, int heads_total,
+                int design, cudaStream_t stream, float* scores = nullptr) {
   Params<T> p;
   p.q = static_cast<const T*>(ptrs[0]);
   p.k = static_cast<const T*>(ptrs[1]);
@@ -881,6 +887,8 @@ cudaError_t run(int phase, const void* const* ptrs, int b, int sq, int sk,
   p.inv = inv;
   p.threshold = threshold;
   p.seed = seed;
+  p.head_base = head_base;
+  p.heads_total = heads_total;
   p.scores = scores;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
 #ifdef M3P_SCORE_DUMP
@@ -911,7 +919,8 @@ extern "C" int m3p_flash_attention_bwd(
     long long v_sb, long long v_ss, long long do_sb, long long do_ss,
     long long dq_sb, long long dq_ss, long long dk_sb, long long dk_ss,
     long long dv_sb, long long dv_ss, float scale, int causal, float inv,
-    unsigned int threshold, unsigned long long seed, void* stream) {
+    unsigned int threshold, unsigned long long seed, int head_base,
+    int heads_total, void* stream) {
   const void* ptrs[10] = {q, k, v, kv_mask, dout, stats, di, dq, dk, dv};
   const long long strides[14] = {q_sb,  q_ss,  k_sb,  k_ss,  v_sb,
                                  v_ss,  do_sb, do_ss, dq_sb, dq_ss,
@@ -925,12 +934,12 @@ extern "C" int m3p_flash_attention_bwd(
   if (dtype == 0)
     return static_cast<int>(run<float>(phase, ptrs, b, sq, sk, h, dh, strides,
                                        scale, causal, inv, threshold, seed,
-                                       design, s));
+                                       head_base, heads_total, design, s));
   if (dtype == 1)
     return static_cast<int>(run<__nv_bfloat16>(phase, ptrs, b, sq, sk, h, dh,
                                                strides, scale, causal, inv,
-                                               threshold, seed, design,
-                                               s));
+                                               threshold, seed, head_base,
+                                               heads_total, design, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -959,7 +968,8 @@ extern "C" int m3p_flash_attention_bwd_scores(
       !tc_fits(dh, tc_ptrs, 7, strides, 14))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run<__nv_bfloat16>(
-      phase, ptrs, b, sq, sk, h, dh, strides, scale, causal, 1.f, 0u, 0ull, 1,
+      phase, ptrs, b, sq, sk, h, dh, strides, scale, causal, 1.f, 0u, 0ull, 0,
+      h, 1,
       static_cast<cudaStream_t>(stream), scores));
 }
 #endif

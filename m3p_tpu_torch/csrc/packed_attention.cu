@@ -32,13 +32,14 @@ extern "C" int m3p_packed_attention_fwd(
     long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, long long o_sb, long long o_ss,
     float scale, int causal, float inv, unsigned int threshold,
-    unsigned long long seed, void* stream) {
+    unsigned long long seed, int head_base, int heads_total, void* stream) {
   // the packed layout: head h is the column slice h*Dh:(h+1)*Dh
   const m3p::tile_fwd::Args a{q, k, v, static_cast<const uint8_t*>(kv_mask),
                               o, b, sq, sk, h, dh,
                               q_sb, dh, q_ss, k_sb, dh, k_ss,
                               v_sb, dh, v_ss, o_sb, dh, o_ss,
-                              scale, causal, inv, threshold, seed};
+                              scale, causal, inv, threshold, seed,
+                              head_base, heads_total};
   return static_cast<int>(m3p::tile_fwd::dispatch<false>(
       dtype, design, a, static_cast<cudaStream_t>(stream)));
 }

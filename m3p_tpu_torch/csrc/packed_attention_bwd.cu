@@ -35,7 +35,8 @@ extern "C" int m3p_packed_attention_bwd(
     long long v_sb, long long v_ss, long long do_sb, long long do_ss,
     long long dq_sb, long long dq_ss, long long dk_sb, long long dk_ss,
     long long dv_sb, long long dv_ss, float scale, int causal, float inv,
-    unsigned int threshold, unsigned long long seed, void* stream) {
+    unsigned int threshold, unsigned long long seed, int head_base,
+    int heads_total, void* stream) {
   // the packed layout: head h is the column slice h*Dh:(h+1)*Dh
   const long long st[21] = {q_sb,  dh, q_ss,  k_sb,  dh, k_ss,
                             v_sb,  dh, v_ss,  do_sb, dh, do_ss,
@@ -43,8 +44,8 @@ extern "C" int m3p_packed_attention_bwd(
                             dv_sb, dh, dv_ss};
   return static_cast<int>(m3p::tile_bwd::dispatch<false>(
       dtype, design, phase, q, k, v, kv_mask, dout, dq, dk, dv, stats, bits,
-      b, sq, sk, h, dh, st, scale, causal, inv, threshold, seed,
-      static_cast<cudaStream_t>(stream)));
+      b, sq, sk, h, dh, st, scale, causal, inv, threshold, seed, head_base,
+      heads_total, static_cast<cudaStream_t>(stream)));
 }
 
 #ifdef M3P_SCORE_DUMP

@@ -113,6 +113,7 @@ struct Args {
   float inv;
   uint32_t threshold;
   unsigned long long seed;
+  int head_base, heads_total;  // the Philox tiles' heads (philox_tile)
 };
 
 inline size_t smem_bytes(int sk, int dh) {
@@ -198,7 +199,7 @@ packed_attention_fwd_kernel(Args a) {
     sum = warp_sum(sum);
     if (kDropout) {
       // a lane owns the four columns of one Philox counter
-      const int tile = b * gridDim.y + h;
+      const int tile = philox_tile(b, h, a.head_base, a.heads_total);
       for (int j4 = lane; 4 * j4 < sk; j4 += 32) {
         const uint4 bits = keep_bits(a.seed, tile, q0 + r, j4);
 #pragma unroll
@@ -351,7 +352,7 @@ packed_attention_fwd_mma_kernel(Args a) {
 
   const int q0 = blockIdx.x * kRows;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int tile = b * gridDim.y + h;
+  const int tile = philox_tile(b, h, a.head_base, a.heads_total);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int q_offset = sk - sq;

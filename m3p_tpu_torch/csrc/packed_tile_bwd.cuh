@@ -133,6 +133,7 @@ struct Params {
   float inv;
   uint32_t threshold;
   unsigned long long seed;
+  int head_base, heads_total;  // the Philox tiles' heads (philox_tile)
   // the debug instantiation only (kDump, M3P_SCORE_DUMP): (4, B, H, Sq, Sk)
   // fp32, phase 0's and phase 1's scores q.k, then their p
   float* scores;
@@ -288,7 +289,9 @@ packed_attention_bwd_dq_kernel(Params<T> p) {
     const int kn = min(kKTile, sk - k0);
     __syncthreads();
     load_rows(kv_s, vb, p.v_ss, k0, kn, kKTile, dh, ld);
-    fill_keep<kDropout>(keep_s, p.seed, p.threshold, tile, q0, k0);
+    fill_keep<kDropout>(keep_s, p.seed, p.threshold,
+                        philox_tile(b, h, p.head_base, p.heads_total),
+                        q0, k0);
     __syncthreads();
     float acc[kRowsPerThread];
     strip_dots(do_s, kv_s, ld, dh, acc);
@@ -402,7 +405,9 @@ packed_attention_bwd_dkdv_kernel(Params<T> p) {
     load_rows(do_s, dob, p.do_ss, q0, rows, kQTile, dh, ld);
     for (int i = tid; i < 3 * rows; i += kThreads)
       st_s[i] = stats[q0 * 3 + i];
-    fill_keep<kDropout>(keep_s, p.seed, p.threshold, tile, q0, k0);
+    fill_keep<kDropout>(keep_s, p.seed, p.threshold,
+                        philox_tile(b, h, p.head_base, p.heads_total),
+                        q0, k0);
     __syncthreads();
     float s[kRowsPerThread], dp[kRowsPerThread];
     strip_dots(q_s, k_s, ld, dh, s);
@@ -498,7 +503,8 @@ Params<T> make_params(const void* q, const void* k, const void* v,
                       int sq, int sk, int h, int dh,
                       const long long (&st)[21], float scale, int causal,
                       float inv, unsigned int threshold,
-                      unsigned long long seed) {
+                      unsigned long long seed, int head_base,
+                      int heads_total) {
   return Params<T>{static_cast<const T*>(q), static_cast<const T*>(k),
                    static_cast<const T*>(v),
                    static_cast<const uint8_t*>(kv_mask),
@@ -509,7 +515,8 @@ Params<T> make_params(const void* q, const void* k, const void* v,
                    st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                    st[8], st[9], st[10], st[11], st[12], st[13], st[14],
                    st[15], st[16], st[17], st[18], st[19], st[20],
-                   scale, causal, inv, threshold, seed, nullptr};
+                   scale, causal, inv, threshold, seed, head_base,
+                   heads_total, nullptr};
 }
 
 // ---------------------------------------------------------------------------
@@ -617,7 +624,10 @@ __device__ inline void fill_bits(uint32_t* bits_s, const Params<bf16>& p,
     const int r = i / words, w = i - r * words;
     uint32_t word = 0;
     for (int grp = 0; grp < 8 && 32 * w + 4 * grp < p.sk; ++grp) {
-      const uint4 x = keep_bits(p.seed, tile, q0 + r, 8 * w + grp);
+      const uint4 x = keep_bits(
+          p.seed,
+          philox_tile(tile / p.h, tile % p.h, p.head_base, p.heads_total),
+          q0 + r, 8 * w + grp);
       word |= (static_cast<uint32_t>(x.x >= p.threshold) |
                static_cast<uint32_t>(x.y >= p.threshold) << 1 |
                static_cast<uint32_t>(x.z >= p.threshold) << 2 |
@@ -1176,7 +1186,8 @@ cudaError_t dispatch(int dtype, int design, int phase, const void* q,
                      void* stats, void* bits, int b, int sq, int sk, int h,
                      int dh, const long long (&st)[21], float scale,
                      int causal, float inv, unsigned int threshold,
-                     unsigned long long seed, cudaStream_t stream) {
+                     unsigned long long seed, int head_base, int heads_total,
+                     cudaStream_t stream) {
   if (dh > 128 || dh < 1 || (phase != 0 && phase != 1) ||
       (design != 0 && design != 1))
     return cudaErrorInvalidValue;
@@ -1190,7 +1201,8 @@ cudaError_t dispatch(int dtype, int design, int phase, const void* q,
         phase,
         make_params<__nv_bfloat16>(q, k, v, kv_mask, dout, dq, dk, dv, stats,
                                    bits, b, sq, sk, h, dh, st, scale, causal,
-                                   inv, threshold, seed),
+                                   inv, threshold, seed, head_base,
+                                   heads_total),
         stream);
   }
   if (dtype == 0)
@@ -1198,14 +1210,15 @@ cudaError_t dispatch(int dtype, int design, int phase, const void* q,
         phase,
         make_params<float>(q, k, v, kv_mask, dout, dq, dk, dv, stats, bits,
                            b, sq, sk, h, dh, st, scale, causal, inv,
-                           threshold, seed),
+                           threshold, seed, head_base, heads_total),
         stream);
   if (dtype == 1)
     return launch_for<__nv_bfloat16, kScaleP>(
         phase,
         make_params<__nv_bfloat16>(q, k, v, kv_mask, dout, dq, dk, dv, stats,
                                    bits, b, sq, sk, h, dh, st, scale, causal,
-                                   inv, threshold, seed),
+                                   inv, threshold, seed, head_base,
+                                   heads_total),
         stream);
   return cudaErrorInvalidValue;
 }
@@ -1228,7 +1241,7 @@ cudaError_t dump_scores(int phase, const void* q, const void* k,
     return cudaErrorInvalidValue;
   Params<__nv_bfloat16> p = make_params<__nv_bfloat16>(
       q, k, v, kv_mask, dout, dq, dk, dv, stats, nullptr, b, sq, sk, h, dh,
-      st, scale, causal, 1.f, 0u, 0ull);
+      st, scale, causal, 1.f, 0u, 0ull, 0, h);
   p.scores = scores;
   return tc::launch<false, kScaleP, 64, true, true>(phase, p, stream);
 }

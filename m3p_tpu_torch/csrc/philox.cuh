@@ -29,6 +29,16 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
+// The Philox tile of batch b, local head h of a call over the heads
+// head_base .. head_base + H - 1 of a tensor with heads_total heads (a
+// tensor-parallel rank holds a slice of the heads): b * heads_total +
+// head_base + h, the tile the whole tensor's call gives that head.  A call
+// over every head passes head_base 0 and heads_total H.
+__device__ __forceinline__ int philox_tile(int b, int h, int head_base,
+                                           int heads_total) {
+  return b * heads_total + head_base + h;
+}
+
 // The four words for columns 4 * col4 .. 4 * col4 + 3 of `row` in `tile`.
 __device__ __forceinline__ uint4 keep_bits(unsigned long long seed, int tile,
                                            int row, int col4) {

@@ -42,12 +42,13 @@ extern "C" int m3p_small_attention_fwd(
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss,
     float scale, int causal, float inv, unsigned int threshold,
-    unsigned long long seed, void* stream) {
+    unsigned long long seed, int head_base, int heads_total, void* stream) {
   const m3p::tile_fwd::Args a{q, k, v, static_cast<const uint8_t*>(kv_mask),
                               o, b, sq, sk, h, dh,
                               q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                               v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-                              scale, causal, inv, threshold, seed};
+                              scale, causal, inv, threshold, seed,
+                              head_base, heads_total};
   return static_cast<int>(m3p::tile_fwd::dispatch<true>(
       dtype, design, a, static_cast<cudaStream_t>(stream)));
 }
@@ -65,11 +66,12 @@ extern "C" int m3p_small_attention_bwd(
     const void* v, const void* kv_mask, const void* dout, void* dq, void* dk,
     void* dv, void* stats, void* bits, int b, int sq, int sk, int h, int dh,
     const long long* strides, float scale, int causal, float inv,
-    unsigned int threshold, unsigned long long seed, void* stream) {
+    unsigned int threshold, unsigned long long seed, int head_base,
+    int heads_total, void* stream) {
   long long st[21];
   for (int i = 0; i < 21; ++i) st[i] = strides[i];
   return static_cast<int>(m3p::tile_bwd::dispatch<true>(
       dtype, design, phase, q, k, v, kv_mask, dout, dq, dk, dv, stats, bits,
-      b, sq, sk, h, dh, st, scale, causal, inv, threshold, seed,
-      static_cast<cudaStream_t>(stream)));
+      b, sq, sk, h, dh, st, scale, causal, inv, threshold, seed, head_base,
+      heads_total, static_cast<cudaStream_t>(stream)));
 }

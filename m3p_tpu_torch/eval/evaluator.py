@@ -61,6 +61,22 @@ def _rank_world() -> Tuple[int, int]:
     return 0, 1
 
 
+def _grid_split(model) -> Tuple[int, int, object]:
+    """(index, count, group) of the retrieval grid's chunks: every rank its
+    own share; over a sharded model (`parallel.sharding`) the ranks of one
+    ``data`` coordinate score the same chunks together (their forwards
+    gather from one another), so the chunks split over ``data`` and the
+    partial matrices sum over it."""
+    from m3p_tpu_torch.parallel.mesh import current_mesh
+    from m3p_tpu_torch.parallel.sharding import model_is_sharded
+
+    mesh = current_mesh()
+    if mesh is not None and model_is_sharded(model):
+        return mesh.index("data"), mesh.shape["data"], mesh.group("data")
+    rank, world = _rank_world()
+    return rank, world, None
+
+
 def _host(values: List[torch.Tensor]) -> List[float]:
     """Scalars of a family, brought to the host in one copy."""
     if not values:
@@ -242,14 +258,16 @@ class Evaluator:
                                 img_feats, img_locs, img_len,
                                 chunk_size: int = 512,
                                 prefix: str = "") -> Dict[str, float]:
-        rank, world = _rank_world()
-        # each rank scores every world-th chunk; the partials sum to the
+        rank, _ = _rank_world()
+        index, count, group = _grid_split(self.model)
+        # each rank scores every count-th chunk; the partials sum to the
         # whole matrix, from which alone the metrics come
         part = retrieval_grid_scores(
             self.model, cap_tokens, cap_len, img_feats, img_locs, img_len,
             chunk_size=chunk_size, refine_image=self._refine_image(),
-            process_index=rank, process_count=world)
-        scores = merge_process_scores(part)
+            process_index=index, process_count=count)
+        scores = (merge_process_scores(part, group) if count > 1
+                  else part)
         r = recall_at_k(scores, cap_to_img)
         eval_path = getattr(self.cfg.eval, "eval_path", "")
         if eval_path:

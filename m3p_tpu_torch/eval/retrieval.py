@@ -182,20 +182,21 @@ def retrieval_grid_scores(
     return out
 
 
-def merge_process_scores(scores: np.ndarray) -> np.ndarray:
+def merge_process_scores(scores: np.ndarray, group=None) -> np.ndarray:
     """Merge per-process partial score matrices (unscored entries 0) by
-    summing them over every rank of the process group
+    summing them over every rank of the process group, or of ``group``
     (`m3p_tpu/eval/retrieval.py:168-178`, the reference's per-rank dumps
     merged in process); the identity in one process.  Over NCCL the sum
     runs on this rank's card."""
     dist = torch.distributed
+    on = {} if group is None else {"group": group}
     if not (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
+            and dist.get_world_size(**on) > 1):
         return scores
     t = torch.tensor(scores, dtype=torch.float32)    # a copy
     if dist.get_backend() == "nccl":
         t = t.cuda()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, **on)
     return t.cpu().numpy()
 
 

@@ -111,7 +111,13 @@ def capture_q8(model: M3PModel) -> int:
     These are the tables the JAX `capture_q8` pass writes into its "q8"
     collection (`q8_collection` names them so); the port quantizes the
     weights directly instead of running a dummy pass.  Call it again after
-    the weights change."""
+    the weights change.  Sharded parameters (`parallel.sharding`) raise:
+    the tables would hold one rank's shard."""
+    if any(getattr(p, "shard", None) is not None
+           for p in model.parameters()):
+        raise NotImplementedError(
+            "frozen-weight int8 tables over sharded parameters: quantize "
+            "a model of whole parameters (one process, or data parallelism)")
     cfg = model.cfg
     dt = torch_dtype(cfg.dtype)
     if cfg.ffn_quant == "int8_infer":

@@ -15,23 +15,46 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from m3p_tpu_torch.model.layers import (
     Dense, Generators, LayerNorm, TransformerFFN, attention_dropout_args,
     dropout, quant_dense)
 from m3p_tpu_torch.ops.attention import attention_packed
+from m3p_tpu_torch.parallel.tensor_parallel import (
+    VocabShard, materialize, shard_of, vocab_parallel_lookup)
 
 
 class Embedding(nn.Embedding):
-    """nn.Embedding whose lookups come back in the compute dtype."""
+    """nn.Embedding whose lookups come back in the compute dtype.  With
+    ``vocab`` (the word table under tensor parallelism) the rows are split
+    over ``tensor`` and each rank looks up its own words
+    (`parallel.tensor_parallel.vocab_parallel_lookup`)."""
 
     def __init__(self, num: int, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__(num, dim)
         self.compute_dtype = dtype
+        self.vocab: Optional[VocabShard] = None
+
+    def table(self, dtype: torch.dtype) -> torch.Tensor:
+        """The table in ``dtype`` as computed with: this rank's rows under
+        ``vocab``, whole in every other dimension."""
+        return materialize(self.weight, dtype,
+                           ("tensor",) if self.vocab is not None else ())
+
+    def rows(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Rows ``ids`` of the table in ``dtype`` (a whole table is looked
+        up first and the rows cast, not the table)."""
+        if shard_of(self.weight) is None:
+            return F.embedding(ids, self.weight).to(dtype)
+        table = self.table(dtype)
+        if self.vocab is None:
+            return F.embedding(ids, table)
+        return vocab_parallel_lookup(ids, table, self.vocab)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return super().forward(ids).to(self.compute_dtype)
+        return self.rows(ids, self.compute_dtype)
 
 
 def sinusoidal_table(n_pos: int, dim: int) -> torch.Tensor:

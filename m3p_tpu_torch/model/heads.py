@@ -17,6 +17,7 @@ from m3p_tpu_torch.model.layers import Dense, LayerNorm
 from m3p_tpu_torch.ops.activations import gelu_erf
 from m3p_tpu_torch.ops.quant import (
     Q8Table, int8_matmul, int8_matmul_nt, int8_matmul_nt_pre)
+from m3p_tpu_torch.parallel.tensor_parallel import VocabShard, materialize
 
 
 class AdaptiveSoftmax(nn.Module):
@@ -69,7 +70,10 @@ class PredLayer(nn.Module):
     ``quant="int8_bwd"`` (`:127-139`) routes the GEMM through the dynamic
     int8 GEMMs, forward and backward: tied through `int8_matmul_nt` over
     the (V, D) table, untied through `int8_matmul` over the (D, V)
-    kernel."""
+    kernel.
+
+    Under tensor parallelism (``vocab``) the table's rows and the bias are
+    this rank's words, and so are the logits' columns."""
 
     def __init__(self, n_words: int, dim: int, tied: bool = True,
                  dtype: torch.dtype = torch.float32, quant: str = "none"):
@@ -80,6 +84,7 @@ class PredLayer(nn.Module):
         self.compute_dtype = dtype
         self.quant = quant
         self.q8_emb: Optional[Q8Table] = None
+        self.vocab: Optional[VocabShard] = None
 
     def capture_q8(self, table: torch.Tensor) -> None:
         """Quantize the (n_words, D) table (the tied word embedding or the
@@ -95,16 +100,19 @@ class PredLayer(nn.Module):
             x2d = x.reshape(-1, x.shape[-1]).to(dt)
             logits = int8_matmul_nt_pre(x2d, q8.wq, q8.sw.t())[:, :q8.n]
             return (logits + self.bias.to(dt)).reshape(*x.shape[:-1], q8.n)
-        table = self.weight if embedding is None else embedding
+        keep = ("tensor",) if self.vocab is not None else ()
+        table = (materialize(self.weight, dt, keep) if embedding is None
+                 else embedding.to(dt))
+        bias = materialize(self.bias, dt, keep)
         if self.quant == "int8_bwd":
             x2d = x.reshape(-1, x.shape[-1])
             if embedding is None:
-                logits = int8_matmul(x2d, table.to(dt).t())
+                logits = int8_matmul(x2d, table.t())
             else:
-                logits = int8_matmul_nt(x2d, table.to(dt))
+                logits = int8_matmul_nt(x2d, table)
             n = table.shape[0]
-            return logits.reshape(*x.shape[:-1], n) + self.bias.to(dt)
-        return F.linear(x.to(dt), table.to(dt), self.bias.to(dt))
+            return logits.reshape(*x.shape[:-1], n) + bias
+        return F.linear(x.to(dt), table, bias)
 
 
 class ObjPredLayer(nn.Module):

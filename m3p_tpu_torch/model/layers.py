@@ -22,6 +22,14 @@ Dynamic int8 training (``ffn_quant`` "int8", "int8_bwd", "int8_all"):
 `int8_matmul_qbwd`; under "int8_all" self-attention projects Q, K and V
 as one `int8_matmul_qbwd` GEMM.  `MoEFFN` is the expert-choice
 mixture-of-experts FFN of ``moe_experts``.
+
+Parameter sharding (`parallel.sharding.shard_model`): a parameter may hold
+this rank's shard only; every module reads its parameters through
+`parallel.tensor_parallel.materialize`, which gathers them over the axes
+the module does not compute split (all of them, for a module that is not
+tensor-parallel).  `MultiHeadAttention` and `TransformerFFN` of the blocks
+compute split over ``tensor`` in Megatron's layout (`tensor_parallel`),
+and `MoEFFN` over ``expert`` and ``tensor`` (`parallel`).
 """
 
 from __future__ import annotations
@@ -41,7 +49,10 @@ from m3p_tpu_torch.ops.quant import (
     int8_matmul_qbwd)
 from m3p_tpu_torch.ops.ring_attention import ring_attention
 from m3p_tpu_torch.ops.topk import top_k
-from m3p_tpu_torch.parallel.mesh import bound_seq_axis
+from m3p_tpu_torch.parallel.data_parallel import batch_mesh
+from m3p_tpu_torch.parallel.mesh import Mesh, bound_seq_axis
+from m3p_tpu_torch.parallel.tensor_parallel import (
+    copy_to, gather_rows, materialize, reduce_from)
 
 LN_EPS = 1e-12
 
@@ -149,17 +160,36 @@ class LayerCache:
 
 
 class Dense(nn.Linear):
-    """nn.Linear that computes in ``dtype`` (flax ``nn.Dense(dtype=...)``)."""
+    """nn.Linear that computes in ``dtype`` (flax ``nn.Dense(dtype=...)``).
+
+    Under tensor parallelism (set by the tensor-parallel module that owns
+    it) ``keep`` is ("tensor",): the weight stays this rank's slice.  A
+    column-parallel Dense then gives this rank's output columns (its
+    caller hands it its input through `copy_to`); a row-parallel one
+    (``row_parallel``, the mesh) takes this rank's input columns, and the
+    ranks' partial products are summed before the bias."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        self.keep: tuple = ()
+        self.row_parallel: Optional[Mesh] = None
+
+    def weights(self):
+        """(weight, bias or None) in the compute dtype, as computed with."""
+        dt = self.compute_dtype
+        bias = (None if self.bias is None
+                else materialize(self.bias, dt, self.keep))
+        return materialize(self.weight, dt, self.keep), bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        weight, bias = self.weights()
+        x = x.to(self.compute_dtype)
+        if self.row_parallel is None:
+            return F.linear(x, weight, bias)
+        y = reduce_from(F.linear(x, weight), self.row_parallel, "tensor")
+        return y if bias is None else y + bias
 
 
 class QuantDense(Dense):
@@ -175,14 +205,14 @@ class QuantDense(Dense):
         self.quant_bwd = quant_bwd
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        xc, kernel = x.to(dt), self.weight.to(dt).t()
+        weight, bias = self.weights()
+        xc, kernel = x.to(self.compute_dtype), weight.t()
         if self.quant_bwd:
             y = int8_matmul_qbwd(xc.reshape(-1, xc.shape[-1]), kernel)
             y = y.reshape(*xc.shape[:-1], self.out_features)
         else:
             y = int8_matmul(xc, kernel)
-        return y + self.bias.to(dt)
+        return y + bias
 
 
 def quant_dense(in_features: int, out_features: int, dtype: torch.dtype,
@@ -252,13 +282,22 @@ class MultiHeadAttention(nn.Module):
     sharded along the bound mesh axis, through
     `ops.ring_attention.ring_attention` (`m3p_tpu/model/layers.py:239-246`).
     As there, the ring drops no attention weights, whatever ``dropout``
-    says (divergence 11 of ROADMAP.md)."""
+    says (divergence 11 of ROADMAP.md).
+
+    Tensor parallelism (`tensor_parallel`): this rank holds heads
+    ``head_base`` .. ``head_base + n_heads - 1`` of ``heads_total``, the
+    Q/K/V projections column-parallel (their output columns are those
+    heads) and the output projection row-parallel; the attention kernels
+    draw each head's dropout mask by its index among all the heads."""
 
     def __init__(self, n_heads: int, dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
                  quant: str = "none"):
         super().__init__()
         self.n_heads = n_heads
+        self.head_base = 0
+        self.heads_total = n_heads
+        self.tp: Optional[Mesh] = None
         self.dropout = dropout
         self.quant = quant
         self.q_lin = Dense(dim, dim, dtype)
@@ -267,6 +306,21 @@ class MultiHeadAttention(nn.Module):
         self.out_lin = Dense(dim, dim, dtype)
         self.q8_qkv: Optional[Q8Table] = None
         self.q8_out: Optional[Q8Table] = None
+
+    def tensor_parallel(self, mesh: Mesh) -> None:
+        """Compute this rank's heads of ``mesh``'s ``tensor`` axis (the
+        parameters already hold their slices, `parallel.sharding`)."""
+        n = mesh.shape["tensor"]
+        if self.n_heads % n:
+            raise ValueError(f"{self.n_heads} heads do not split over "
+                             f"tensor={n}")
+        self.heads_total = self.n_heads
+        self.n_heads //= n
+        self.head_base = mesh.index("tensor") * self.n_heads
+        self.tp = mesh
+        for lin in (self.q_lin, self.k_lin, self.v_lin, self.out_lin):
+            lin.keep = ("tensor",)
+        self.out_lin.row_parallel = mesh
 
     def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor],
                 causal: bool = False, deterministic: bool = True,
@@ -279,6 +333,9 @@ class MultiHeadAttention(nn.Module):
         only): for self-attention the buffer written at ``pos`` (the mask
         is then the cache's own), for cross-attention (``kv`` given) the
         source's projected keys and values, which stand in for ``kv``."""
+        x = copy_to(x, self.tp, "tensor")
+        if kv is not None:
+            kv = copy_to(kv, self.tp, "tensor")
         if cache is not None:
             return self._cached(x, kv_mask, kv is not None, cache, pos)
         bound = bound_seq_axis() if kv is None else None
@@ -300,7 +357,9 @@ class MultiHeadAttention(nn.Module):
             src = x if kv is None else kv
             q, k, v = self.q_lin(x), self.k_lin(src), self.v_lin(src)
         ctx = attention(q, k, v, kv_mask, self.n_heads, causal=causal,
-                        dropout_rate=rate, dropout_seed=seed)
+                        dropout_rate=rate, dropout_seed=seed,
+                        head_base=self.head_base,
+                        heads_total=self.heads_total)
         return self._project_out(ctx)
 
     def _ring(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor],
@@ -320,9 +379,10 @@ class MultiHeadAttention(nn.Module):
         concatenation of the three kernels, the activations quantized once
         (`m3p_tpu/model/layers.py:92-109`)."""
         dt = self.q_lin.compute_dtype
-        lins = (self.q_lin, self.k_lin, self.v_lin)
-        kernel = torch.cat([lin.weight for lin in lins]).to(dt).t()
-        bias = torch.cat([lin.bias for lin in lins]).to(dt)
+        weights = [lin.weights() for lin in (self.q_lin, self.k_lin,
+                                              self.v_lin)]
+        kernel = torch.cat([w for w, _ in weights]).t()
+        bias = torch.cat([b for _, b in weights])
         b, s, d = x.shape
         out = int8_matmul_qbwd(x.reshape(-1, d).to(dt), kernel)
         return (out.reshape(b, s, 3 * d) + bias).chunk(3, dim=-1)
@@ -357,6 +417,7 @@ class MultiHeadAttention(nn.Module):
     def project_kv(self, src: torch.Tensor) -> KVCache:
         """The keys and values of ``src`` (B, Ss, D), head-major: a
         cross-attention cache (`m3p_tpu/model/transformer.py:405-410`)."""
+        src = copy_to(src, self.tp, "tensor")
         return KVCache(self._split(self.k_lin(src)),
                        self._split(self.v_lin(src)))
 
@@ -411,8 +472,16 @@ class TransformerFFN(nn.Module):
         self.lin2 = quant_dense(hidden_dim, dim, dtype, quant)
         self.gelu_activation = gelu_activation
         self.dropout = dropout
+        self.tp: Optional[Mesh] = None
         self.q8_lin1: Optional[Q8Table] = None
         self.q8_lin2: Optional[Q8Table] = None
+
+    def tensor_parallel(self, mesh: Mesh) -> None:
+        """Compute this rank's hidden columns of ``mesh``'s ``tensor`` axis:
+        ``lin1`` column-parallel, ``lin2`` row-parallel."""
+        self.tp = mesh
+        self.lin1.keep = self.lin2.keep = ("tensor",)
+        self.lin2.row_parallel = mesh
 
     def capture_q8(self, dtype: torch.dtype) -> None:
         """Quantize both weights into int8 tables."""
@@ -422,6 +491,7 @@ class TransformerFFN(nn.Module):
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[Generators] = None,
                 skip_dropout: bool = False) -> torch.Tensor:
+        x = copy_to(x, self.tp, "tensor")
         h = gated_linear(x, self.q8_lin1, self.lin1, self.lin1.bias)
         h = gelu_erf(h) if self.gelu_activation else F.relu(h)
         h = gated_linear(h, self.q8_lin2, self.lin2, self.lin2.bias)
@@ -443,7 +513,18 @@ class MoEFFN(nn.Module):
     The parameters are the JAX module's raw arrays in its layouts, none
     transposed: ``router`` (D, E) fp32, ``w1`` (E, D, H), ``b1`` (E, H),
     ``w2`` (E, H, D), ``b2`` (E, D).  The expert GEMMs are batched
-    products (`torch.bmm`), the return an `index_add_`."""
+    products (`torch.bmm`), the return an `index_add_`.
+
+    The tokens are those of the global batch, as the JAX step's GSPMD sees
+    them: inside a train step over several batch shards
+    (`parallel.data_parallel.batch_reduction`) each rank gathers every
+    shard's tokens (B rows of the ("data", "fsdp") line, each within the
+    sequence positions it holds), each expert takes its top C of all of
+    them, with C from the global count, and the rank keeps its own rows of
+    the combined output.  Under `parallel` each rank of the ``expert`` axis
+    runs its own experts (the router is whole on every rank) and the
+    combine sums over the axis; ``mlp`` inside the experts is split over
+    ``tensor`` (``w1`` column-, ``w2`` row-parallel)."""
 
     def __init__(self, dim: int, hidden_dim: int, n_experts: int,
                  capacity_factor: float = 2.0, gelu_activation: bool = True,
@@ -460,6 +541,20 @@ class MoEFFN(nn.Module):
         self.b1 = nn.Parameter(torch.zeros(e, hidden_dim))
         self.w2 = nn.Parameter(torch.empty(e, hidden_dim, dim))
         self.b2 = nn.Parameter(torch.zeros(e, dim))
+        self.mesh: Optional[Mesh] = None
+        self.expert_lo, self.n_local = 0, e
+
+    def parallel(self, mesh: Mesh) -> None:
+        """Run this rank's experts of ``mesh``'s ``expert`` axis, their
+        hidden columns split over ``tensor`` (the parameters already hold
+        their slices, `parallel.sharding`)."""
+        n = mesh.shape["expert"]
+        if self.n_experts % n:
+            raise ValueError(f"{self.n_experts} experts do not split over "
+                             f"expert={n}")
+        self.n_local = self.n_experts // n
+        self.expert_lo = mesh.index("expert") * self.n_local
+        self.mesh = mesh
 
     def capacity(self, tokens: int) -> int:
         """C, the tokens each expert takes out of ``tokens``."""
@@ -471,16 +566,31 @@ class MoEFFN(nn.Module):
                 skip_dropout: bool = False) -> torch.Tensor:
         b, s, d = x.shape
         dt = self.compute_dtype
+        mesh = self.mesh
         xt = x.reshape(b * s, d)
-        affinity = torch.softmax(xt.float() @ self.router.float(), dim=-1)
-        gates, idx = top_k(affinity.t(), self.capacity(b * s))   # (E, C)
-        xe = xt[idx]                                              # (E, C, D)
-        h = torch.bmm(xe.to(dt), self.w1.to(dt)) + self.b1[:, None].to(dt)
+        batch = batch_mesh()
+        lo = 0
+        if batch is not None:
+            # every batch shard's tokens: the global batch's expert choice
+            lo = batch.index(("data", "fsdp")) * b * s
+            xt = gather_rows(xt, batch, ("data", "fsdp"))
+        xt = copy_to(xt, mesh, "expert")
+        router = materialize(self.router, torch.float32, sum_over=("expert",))
+        affinity = torch.softmax(xt.float() @ router, dim=-1)
+        gates, idx = top_k(affinity.t(), self.capacity(xt.shape[0]))  # (E, C)
+        mine = slice(self.expert_lo, self.expert_lo + self.n_local)
+        gates, idx = gates[mine], idx[mine]
+        keep = ("expert", "tensor")
+        w1, b1, w2, b2 = (materialize(p, dt, keep) for p in (
+            self.w1, self.b1, self.w2, self.b2))
+        xe = copy_to(xt[idx].to(dt), mesh, "tensor")           # (E, C, D)
+        h = torch.bmm(xe, w1) + b1[:, None]
         h = gelu_erf(h) if self.gelu_activation else F.relu(h)
-        ye = torch.bmm(h, self.w2.to(dt)) + self.b2[:, None].to(dt)
+        ye = reduce_from(torch.bmm(h, w2), mesh, "tensor") + b2[:, None]
         ye = ye * gates[..., None].to(dt)
-        y = xt.new_zeros((b * s, d), dtype=dt).index_add(
-            0, idx.reshape(-1), ye.reshape(-1, d)).reshape(b, s, d)
+        y = xt.new_zeros(xt.shape, dtype=dt).index_add(
+            0, idx.reshape(-1), ye.reshape(-1, d))
+        y = reduce_from(y[lo:lo + b * s], mesh, "expert").reshape(b, s, d)
         if skip_dropout:
             return y
         return dropout(y, self.dropout, deterministic, generator)

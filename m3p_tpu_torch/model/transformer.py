@@ -26,7 +26,12 @@ image fusion ``cross_align`` under ``image_fusion``.  Incremental
 decoding (`model/generation.py`) runs ``encode_text`` with a
 `DecodeCache` (`init_cache`, `init_decode_cache`): per-block
 self-attention keys and values written in place and the source's
-cross-attention keys and values projected once.  The module tree mirrors
+cross-attention keys and values projected once.
+
+``remat`` recomputes each block of the stack in the backward
+(`torch.utils.checkpoint`), with the block's own draws replayed from both
+generators (`_remat_block`), as the JAX model wraps its blocks in
+``nn.remat`` (`m3p_tpu/model/transformer.py:77-80`).  The module tree mirrors
 the JAX parameter tree
 (``text_emb``, ``image_emb``, ``refiner``, ``block_<i>``, the heads), so a
 JAX checkpoint loads strictly.
@@ -34,11 +39,13 @@ JAX checkpoint loads strictly.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from m3p_tpu_torch.config import ModelConfig
 from m3p_tpu_torch.model.embeddings import (
@@ -48,6 +55,10 @@ from m3p_tpu_torch.model.heads import (
 from m3p_tpu_torch.model.layers import (
     EncoderBlock, Generators, KVCache, LayerCache, dropout)
 from m3p_tpu_torch.model.misc import CrossAlignMatrix
+from m3p_tpu_torch.parallel import data_parallel
+from m3p_tpu_torch.parallel import mesh as M
+from m3p_tpu_torch.parallel.tensor_parallel import (
+    VocabShard, copy_to, gather_last, shard_of)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -82,6 +93,47 @@ def _check_generators(what: str, deterministic: bool,
                       generator: Optional[Generators]) -> None:
     if not deterministic and generator is None:
         raise ValueError(f"{what}(deterministic=False) needs generators")
+
+
+def _remat_block(block, x, pad_mask, causal, deterministic, generator,
+                 src_enc, src_mask):
+    """``block`` under `torch.utils.checkpoint`: its activations are not
+    kept, and the backward runs its forward again.  Its randomness lives in
+    the explicit generators (`Generators`), which checkpoint does not
+    replay: their states at the block's entry are kept, put back for the
+    recompute, which then draws the forward's masks and seeds, and the
+    states the forward left are restored after it.  The recompute runs in
+    the backward, after the step's contexts have closed, so it enters again
+    the batch reduction (MoE's global tokens) and the bound sequence axis
+    (the ring) that the forward ran in."""
+    gens = ([] if generator is None or deterministic
+            else [generator.device, generator.host])
+    entry = [g.get_state() for g in gens]
+    batch, bound = data_parallel.batch_mesh(), M.bound_seq_axis()
+    runs = []
+
+    def run(x_, pad_mask_, src_enc_, src_mask_):
+        if runs:                                # the recompute
+            left = [g.get_state() for g in gens]
+            for g, state in zip(gens, entry):
+                g.set_state(state)
+            try:
+                with contextlib.ExitStack() as stack:
+                    stack.enter_context(data_parallel.batch_reduction(batch))
+                    if bound is not None:
+                        stack.enter_context(M.bind_axes(*bound))
+                    return block(x_, pad_mask_, causal, deterministic,
+                                 generator, src_enc=src_enc_,
+                                 src_mask=src_mask_)
+            finally:
+                for g, state in zip(gens, left):
+                    g.set_state(state)
+        runs.append(1)
+        return block(x_, pad_mask_, causal, deterministic, generator,
+                     src_enc=src_enc_, src_mask=src_mask_)
+
+    return checkpoint(run, x, pad_mask, src_enc, src_mask,
+                      use_reentrant=False)
 
 
 def lengths_to_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -234,7 +286,13 @@ class M3PModel(nn.Module):
         layers = cache.layers if cache is not None else [None] * len(
             self.blocks)
         pos = cache.pos if cache is not None else 0
+        remat = (self.cfg.remat and cache is None
+                 and torch.is_grad_enabled())
         for block, layer in zip(self.blocks, layers, strict=True):
+            if remat:
+                x = _remat_block(block, x, pad_mask, causal, deterministic,
+                                 generator, src_enc, src_mask)
+                continue
             x = block(x, pad_mask, causal, deterministic, generator,
                       src_enc=src_enc, src_mask=src_mask, cache=layer,
                       pos=pos)
@@ -357,7 +415,9 @@ class M3PModel(nn.Module):
         cross cache (cross-attention then projects the source at every
         step), ``pos`` 0 (`m3p_tpu/model/transformer.py:376-390`)."""
         cfg = self.cfg
-        shape = (batch_size, cfg.n_heads, max_len, cfg.head_dim)
+        # this rank's heads under tensor parallelism
+        shape = (batch_size, self.blocks[0].attn.n_heads, max_len,
+                 cfg.head_dim)
         dev = self.text_emb.word.weight.device
         dt = torch_dtype(cfg.dtype)
         return DecodeCache([
@@ -384,11 +444,32 @@ class M3PModel(nn.Module):
     def word_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """(..., D) -> (..., n_words) through the tied word table and the
         per-word bias, or under ``asm`` the adaptive softmax's normalized
-        log-probabilities (`m3p_tpu/model/transformer.py:346-353`)."""
+        log-probabilities (`m3p_tpu/model/transformer.py:346-353`).  Under
+        tensor parallelism the ranks' columns are gathered (decoding and
+        evaluation); the training losses take `shard_word_logits`."""
+        logits = self.shard_word_logits(hidden)
+        vocab = self.vocab_shard
+        return logits if vocab is None else gather_last(logits, vocab.mesh)
+
+    @property
+    def vocab_shard(self) -> Optional[VocabShard]:
+        """This rank's words when the word head is split over ``tensor``."""
+        return None if self.cfg.asm else self.pred_layer.vocab
+
+    def shard_word_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """`word_logits` of this rank's words (all of them unless the word
+        head is split over ``tensor``: `vocab_shard`)."""
         if self.cfg.asm:
             return self.pred_layer_asm(hidden)
-        table = (self.text_emb.word.weight if self.cfg.share_inout_emb
-                 else None)
+        vocab = self.vocab_shard
+        table = None
+        if self.cfg.share_inout_emb:
+            # a whole table goes as it is (an int8 head reads its own)
+            word = self.text_emb.word
+            table = (word.weight if shard_of(word.weight) is None
+                     else word.table(torch_dtype(self.cfg.dtype)))
+        if vocab is not None:
+            hidden = copy_to(hidden, vocab.mesh, "tensor")
         return self.pred_layer(hidden, embedding=table)
 
     def obj_logits(self, hidden: torch.Tensor) -> torch.Tensor:

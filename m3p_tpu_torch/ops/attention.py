@@ -47,7 +47,8 @@ from typing import Optional, Tuple
 import torch
 
 from m3p_tpu_torch.ops import _build
-from m3p_tpu_torch.ops.philox import keep_mask_tiles, keep_threshold, seed_key
+from m3p_tpu_torch.ops.philox import (
+    head_tiles, keep_mask_tiles, keep_threshold, seed_key)
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -134,10 +135,13 @@ def _probs(q, k, kv_mask, n_heads, causal, scale):
     return torch.softmax(_masked_scores(scores, kv_mask, causal), dim=-1)
 
 
-def _keep(dropout_seed, dropout_rate, b, n_heads, sq, sk, device):
-    """The kernels' keep mask of every (batch, head) tile: (B, H, Sq, Sk)."""
+def _keep(dropout_seed, dropout_rate, b, n_heads, sq, sk, device,
+          head_base=0, heads_total=None):
+    """The kernels' keep mask of every (batch, head) tile: (B, H, Sq, Sk),
+    the heads those of `head_tiles`."""
+    tiles = head_tiles(b, n_heads, head_base, heads_total, device)
     return keep_mask_tiles(dropout_seed, b * n_heads, sq, sk, dropout_rate,
-                           device).view(b, n_heads, sq, sk)
+                           device, tiles=tiles).view(b, n_heads, sq, sk)
 
 
 def _scale(sm_scale: Optional[float], dh: int) -> float:
@@ -164,12 +168,14 @@ def _flash_scores(q, k, kv_mask, n_heads, causal, scale, r0, r1):
     return s, valid
 
 
-def _flash_keep(dropout_seed, dropout_rate, b, n_heads, r0, r1, sk, device):
+def _flash_keep(dropout_seed, dropout_rate, b, n_heads, r0, r1, sk, device,
+                head_base=0, heads_total=None):
     """The Philox keep mask of rows r0 .. r1 - 1 of every (batch, head)
     tile: (B, H, r1 - r0, Sk), the same bits the packed kernels draw."""
+    tiles = head_tiles(b, n_heads, head_base, heads_total, device)
     return keep_mask_tiles(dropout_seed, b * n_heads, r1 - r0, sk,
-                           dropout_rate, device, first_row=r0).view(
-        b, n_heads, r1 - r0, sk)
+                           dropout_rate, device, first_row=r0,
+                           tiles=tiles).view(b, n_heads, r1 - r0, sk)
 
 
 def attention_flash_reference(q: torch.Tensor, k: torch.Tensor,
@@ -179,13 +185,18 @@ def attention_flash_reference(q: torch.Tensor, k: torch.Tensor,
                               sm_scale: Optional[float] = None,
                               dropout_rate: float = 0.0,
                               dropout_seed: Optional[int] = None,
-                              return_stats: bool = False):
+                              return_stats: bool = False,
+                              head_base: int = 0,
+                              heads_total: Optional[int] = None):
     """Plain version of the flash forward, in the packed layout: q
     (B, Sq, H*Dh), k/v (B, Sk, H*Dh) -> (B, Sq, H*Dh) in v's dtype, any
     lengths.  The math of `mha_reference` (masked scores take the finite
     mask value, so a row without any valid key averages v over Sk) plus
     the Philox keep mask of tile b*H + h over the global (row, col) with
-    the 1/(1 - rate) scale; the weights are rounded to v's dtype before
+    the 1/(1 - rate) scale (of tile b * heads_total + head_base + h when
+    the call holds the heads head_base .. head_base + H - 1 of a tensor of
+    ``heads_total``: a tensor-parallel rank's heads draw what the whole
+    tensor's call draws for them); the weights are rounded to v's dtype before
     P.V, which sums in fp32.  Query rows go in chunks of FLASH_ROW_CHUNK.
 
     ``return_stats`` also returns the per-row softmax statistics (B, H,
@@ -211,7 +222,7 @@ def attention_flash_reference(q: torch.Tensor, k: torch.Tensor,
         p = e / l
         if dropout_rate > 0.0:
             keep = _flash_keep(dropout_seed, dropout_rate, b, n_heads, r0, r1,
-                               sk, q.device)
+                               sk, q.device, head_base, heads_total)
             p = p.masked_fill(~keep, 0.0)
         o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vh) * inv
         out[:, r0:r1] = o.reshape(b, r1 - r0, hd).to(v.dtype)
@@ -232,9 +243,12 @@ def attention_packed_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                    causal: bool = False,
                                    sm_scale: Optional[float] = None,
                                    dropout_rate: float = 0.0,
-                                   dropout_seed: Optional[int] = None
+                                   dropout_seed: Optional[int] = None,
+                                   head_base: int = 0,
+                                   heads_total: Optional[int] = None
                                    ) -> Tuple[torch.Tensor, ...]:
-    """Plain version of the packed backward: (dq, dk, dv) in the layouts and
+    """Plain version of the packed backward (the heads' keep masks as in
+    `attention_flash_reference`): (dq, dk, dv) in the layouts and
     dtypes of q, k, v.  A transcription of `_packed_bwd_kernel`
     (`m3p_tpu/ops/attention.py:1036-1081`): recompute p, then
 
@@ -259,7 +273,8 @@ def attention_packed_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     kh, vh = (t.reshape(b, sk, n_heads, dh).float() for t in (k, v))
     dp = torch.einsum("bqhd,bkhd->bhqk", doh.to(v.dtype).float(), vh)
     if dropout_rate > 0.0:
-        keep = _keep(dropout_seed, dropout_rate, b, n_heads, sq, sk, q.device)
+        keep = _keep(dropout_seed, dropout_rate, b, n_heads, sq, sk, q.device,
+                     head_base, heads_total)
         pd = p.masked_fill(~keep, 0.0)
         dpd = dp.masked_fill(~keep, 0.0)
     else:
@@ -333,28 +348,38 @@ def _check_kernel_args(q, k, v, kv_mask, n_heads, max_seq=MAX_SEQ,
 _FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+                    ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
                  + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 14
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+                    ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p])
 
 
 def _kernel_mask(kv_mask):
     return None if kv_mask is None else kv_mask.to(torch.bool).contiguous()
 
 
-def _dropout_args(dropout_rate, dropout_seed):
-    """(inv, threshold, seed) for the kernels; all zero at rate 0."""
+def _dropout_args(dropout_rate, dropout_seed, n_heads, head_base=0,
+                  heads_total=None):
+    """(inv, threshold, seed, head_base, heads_total) for the kernels:
+    inv, threshold and seed are zero at rate 0; the Philox tile of (b, h)
+    is b * heads_total + head_base + h (`head_tiles`)."""
+    heads_total = n_heads if heads_total is None else int(heads_total)
+    if not 0 <= head_base <= heads_total - n_heads:
+        raise ValueError(f"heads {head_base} .. {head_base + n_heads - 1} "
+                         f"are not heads of a tensor of {heads_total}")
     if dropout_rate <= 0.0:
-        return 1.0, 0, 0
+        return 1.0, 0, 0, int(head_base), heads_total
     seed_key(dropout_seed)      # raises unless a 64-bit unsigned int
     return (1.0 / (1.0 - dropout_rate), keep_threshold(dropout_rate),
-            int(dropout_seed))
+            int(dropout_seed), int(head_base), heads_total)
 
 
 def _launch_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
-                dropout_seed, _design=None) -> torch.Tensor:
+                dropout_seed, _design=None, head_base=0, heads_total=None
+                ) -> torch.Tensor:
     """One launch of the design `_packed_design` names; ``_design``
     "cuda_cores" takes the CUDA-core design instead (for timing the two
     designs on the same tensors; the model path never passes it)."""
@@ -366,7 +391,8 @@ def _launch_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
     design = _checked_design(_packed_design(n_heads, q, k, v, out), _design,
                              "attention_packed")
     mask = _kernel_mask(kv_mask)
-    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    inv, *philox = _dropout_args(dropout_rate, dropout_seed, n_heads,
+                                 head_base, heads_total)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KERNEL_DTYPES[q.dtype], _DESIGNS.index(design),
@@ -375,8 +401,8 @@ def _launch_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
                  out.data_ptr(), b, sq, sk, n_heads, hd // n_heads,
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                  v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-                 float(scale), int(bool(causal)), float(inv), threshold,
-                 seed, stream)
+                 float(scale), int(bool(causal)), float(inv), *philox,
+                 stream)
     if err != 0:
         raise RuntimeError(f"packed_attention kernel ({design}) launch "
                            f"failed: CUDA error {err}")
@@ -426,7 +452,8 @@ def _bwd_scratch(q, sq, sk, n_heads, design, threshold):
 
 
 def _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale, dropout_rate,
-                dropout_seed, _design=None) -> Tuple[torch.Tensor, ...]:
+                dropout_seed, _design=None, head_base=0, heads_total=None
+                ) -> Tuple[torch.Tensor, ...]:
     """Two launches of the design `_packed_design` names: dq (and the
     per-row softmax statistics m, l, r into a (B, H, Sq, 3) fp32
     scratch), then dk/dv, which reads them.  ``_design`` "cuda_cores"
@@ -443,8 +470,9 @@ def _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale, dropout_rate,
                                             dv),
                              _design, "attention_packed backward")
     mask = _kernel_mask(kv_mask)
-    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
-    stats, bits = _bwd_scratch(q, sq, sk, n_heads, design, threshold)
+    inv, *philox = _dropout_args(dropout_rate, dropout_seed, n_heads,
+                                 head_base, heads_total)
+    stats, bits = _bwd_scratch(q, sq, sk, n_heads, design, philox[0])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
@@ -454,7 +482,7 @@ def _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale, dropout_rate,
             v.stride(0), v.stride(1), do.stride(0), do.stride(1),
             dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
             dv.stride(0), dv.stride(1),
-            float(scale), int(bool(causal)), float(inv), threshold, seed)
+            float(scale), int(bool(causal)), float(inv), *philox)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for phase in (0, 1):
@@ -481,34 +509,40 @@ class _PackedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
-                dropout_seed):
+                dropout_seed, heads):
         ctx.save_for_backward(q, k, v, kv_mask)
-        ctx.config = (n_heads, causal, scale, dropout_rate, dropout_seed)
+        ctx.config = (n_heads, causal, scale, dropout_rate, dropout_seed,
+                      *heads)
         if q.device.type == "cpu":
             return attention_packed_reference(q, k, v, kv_mask, n_heads,
                                               causal, scale, dropout_rate,
-                                              dropout_seed)
+                                              dropout_seed, False, *heads)
         return _launch_fwd(q, k, v, kv_mask, n_heads, causal, scale,
-                           dropout_rate, dropout_seed)
+                           dropout_rate, dropout_seed, None, *heads)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, kv_mask = ctx.saved_tensors
         grads = attention_packed_bwd(q, k, v, kv_mask, do, *ctx.config)
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_mask: Optional[torch.Tensor], n_heads: int,
                      causal: bool = False, sm_scale: Optional[float] = None,
                      dropout_rate: float = 0.0,
-                     dropout_seed: Optional[int] = None) -> torch.Tensor:
+                     dropout_seed: Optional[int] = None,
+                     head_base: int = 0,
+                     heads_total: Optional[int] = None) -> torch.Tensor:
     """Packed-layout attention: q (B, Sq, H*Dh), k/v (B, Sk, H*Dh), kv_mask
     (B, Sk) True = attend -> (B, Sq, H*Dh) in q's dtype; differentiable in
     q, k and v.
 
     ``dropout_rate`` > 0 drops attention weights with the Philox mask of
     ``dropout_seed`` (a 64-bit int, required) and scales by 1/(1 - rate).
+    The H heads are heads ``head_base`` .. ``head_base + H - 1`` of a
+    tensor of ``heads_total`` (default H): each draws the mask the whole
+    tensor's call draws for it (`head_tiles`).
     CPU tensors go through the plain forward and backward; CUDA tensors
     launch the hand-written kernels, adding one to
     ``attention_packed.launches`` per forward launch and to
@@ -525,7 +559,8 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_kernel_args(q, k, v, kv_mask, n_heads)
     scale = _scale(sm_scale, q.shape[-1] // n_heads)
     return _PackedAttention.apply(q, k, v, kv_mask, n_heads, bool(causal),
-                                  scale, float(dropout_rate), dropout_seed)
+                                  scale, float(dropout_rate), dropout_seed,
+                                  (head_base, heads_total))
 
 
 def attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -533,7 +568,9 @@ def attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          n_heads: int, causal: bool = False,
                          sm_scale: Optional[float] = None,
                          dropout_rate: float = 0.0,
-                         dropout_seed: Optional[int] = None
+                         dropout_seed: Optional[int] = None,
+                         head_base: int = 0,
+                         heads_total: Optional[int] = None
                          ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of `attention_packed` for the output gradient ``do``:
     the plain backward for CPU tensors, the backward kernel (two launches)
@@ -543,7 +580,8 @@ def attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_packed_bwd_reference(q, k, v, kv_mask, do, n_heads,
                                               causal, scale, dropout_rate,
-                                              dropout_seed)
+                                              dropout_seed, head_base,
+                                              heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"attention_packed_bwd: no kernel for device "
                          f"{q.device}")
@@ -555,7 +593,8 @@ def attention_packed_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if do.stride(2) != 1:
         do = do.contiguous()
     return _launch_bwd(q, k, v, kv_mask, do, n_heads, causal, scale,
-                       dropout_rate, dropout_seed)
+                       dropout_rate, dropout_seed, None, head_base,
+                       heads_total)
 
 
 attention_packed.launches = 0
@@ -586,9 +625,12 @@ def attention_flash_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   causal: bool = False,
                                   sm_scale: Optional[float] = None,
                                   dropout_rate: float = 0.0,
-                                  dropout_seed: Optional[int] = None
+                                  dropout_seed: Optional[int] = None,
+                                  head_base: int = 0,
+                                  heads_total: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, ...]:
-    """Plain version of the flash backward: (dq, dk, dv) in the layouts and
+    """Plain version of the flash backward (the heads' keep masks as in
+    `attention_flash_reference`): (dq, dk, dv) in the layouts and
     dtypes of q, k, v, from the forward's output ``o`` and ``stats``.  The
     math of `_recompute_p_ds` and the dkv/dq kernels
     (`m3p_tpu/ops/attention.py:424-542`), with inv = 1/(1 - rate):
@@ -629,7 +671,7 @@ def attention_flash_bwd_reference(q: torch.Tensor, k: torch.Tensor,
         dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
         if dropout_rate > 0.0:
             keep = _flash_keep(dropout_seed, dropout_rate, b, n_heads, r0, r1,
-                               sk, q.device)
+                               sk, q.device, head_base, heads_total)
             pd = torch.where(keep, p * inv, 0.0)
             dpd = torch.where(keep, dp * inv, 0.0)
         else:
@@ -662,16 +704,18 @@ def _flash_design(n_heads: int, *tensors: torch.Tensor) -> str:
 _FLASH_FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
 _FLASH_BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 14
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
 
 
 def _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
-                      dropout_seed, _design=None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      dropout_seed, _design=None, head_base=0,
+                      heads_total=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the design `_flash_design` names; ``_design``
     "cuda_cores" takes the CUDA-core design instead (for timing the two
     designs on the same tensors; the model path never passes it)."""
@@ -684,7 +728,8 @@ def _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
                         device=q.device)
     design = _design or _flash_design(n_heads, q, k, v, out)
     mask = _kernel_mask(kv_mask)
-    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    inv, *philox = _dropout_args(dropout_rate, dropout_seed, n_heads,
+                                 head_base, heads_total)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KERNEL_DTYPES[q.dtype], _DESIGNS.index(design),
@@ -694,7 +739,7 @@ def _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
                  hd // n_heads, q.stride(0), q.stride(1), k.stride(0),
                  k.stride(1), v.stride(0), v.stride(1), out.stride(0),
                  out.stride(1), float(scale), int(bool(causal)), float(inv),
-                 threshold, seed, stream)
+                 *philox, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel ({design}) launch "
                            f"failed: CUDA error {err}")
@@ -704,8 +749,8 @@ def _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
 
 
 def _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal, scale,
-                      dropout_rate, dropout_seed, _design=None
-                      ) -> Tuple[torch.Tensor, ...]:
+                      dropout_rate, dropout_seed, _design=None, head_base=0,
+                      heads_total=None) -> Tuple[torch.Tensor, ...]:
     """di = rowsum(dO . O) as one torch op, then two launches of the
     design `_flash_design` names (``_design`` as in `_launch_flash_fwd`):
     dk/dv (one block per key tile), then dq (one block per query tile)."""
@@ -719,7 +764,8 @@ def _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal, scale,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     design = _design or _flash_design(n_heads, q, k, v, do, dq, dk, dv)
     mask = _kernel_mask(kv_mask)
-    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    inv, *philox = _dropout_args(dropout_rate, dropout_seed, n_heads,
+                                 head_base, heads_total)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), do.data_ptr(),
             stats.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -728,7 +774,7 @@ def _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal, scale,
             v.stride(0), v.stride(1), do.stride(0), do.stride(1),
             dq.stride(0), dq.stride(1), dk.stride(0), dk.stride(1),
             dv.stride(0), dv.stride(1),
-            float(scale), int(bool(causal)), float(inv), threshold, seed)
+            float(scale), int(bool(causal)), float(inv), *philox)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for phase in (0, 1):
@@ -751,16 +797,18 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
-                dropout_seed):
+                dropout_seed, heads):
         if q.device.type == "cpu":
             out, stats = attention_flash_reference(
                 q, k, v, kv_mask, n_heads, causal, scale, dropout_rate,
-                dropout_seed, return_stats=True)
+                dropout_seed, True, *heads)
         else:
             out, stats = _launch_flash_fwd(q, k, v, kv_mask, n_heads, causal,
-                                           scale, dropout_rate, dropout_seed)
+                                           scale, dropout_rate, dropout_seed,
+                                           None, *heads)
         ctx.save_for_backward(q, k, v, kv_mask, out, stats)
-        ctx.config = (n_heads, causal, scale, dropout_rate, dropout_seed)
+        ctx.config = (n_heads, causal, scale, dropout_rate, dropout_seed,
+                      *heads)
         return out
 
     @staticmethod
@@ -768,18 +816,21 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, kv_mask, out, stats = ctx.saved_tensors
         grads = attention_flash_bwd(q, k, v, kv_mask, out, stats, do,
                                     *ctx.config)
-        return (*grads, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None)
 
 
 def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor], n_heads: int,
                     causal: bool = False, sm_scale: Optional[float] = None,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_seed: Optional[int] = None,
+                    head_base: int = 0,
+                    heads_total: Optional[int] = None) -> torch.Tensor:
     """Flash attention in the packed layout, any lengths: q (B, Sq, H*Dh),
     k/v (B, Sk, H*Dh), kv_mask (B, Sk) True = attend -> (B, Sq, H*Dh);
     differentiable in q, k and v.  ``causal`` aligns the diagonal at the
-    end (key j attends to query i when j <= i + Sk - Sq).
+    end (key j attends to query i when j <= i + Sk - Sq).  ``head_base``
+    and ``heads_total`` as in `attention_packed`.
 
     CPU tensors go through the plain forward and backward; CUDA tensors
     launch `csrc/flash_attention.cu` (replaces the Pallas `_flash_kernel`)
@@ -796,7 +847,8 @@ def attention_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_kernel_args(q, k, v, kv_mask, n_heads, None, "attention_flash")
     scale = _scale(sm_scale, q.shape[-1] // n_heads)
     return _FlashAttention.apply(q, k, v, kv_mask, n_heads, bool(causal),
-                                 scale, float(dropout_rate), dropout_seed)
+                                 scale, float(dropout_rate), dropout_seed,
+                                 (head_base, heads_total))
 
 
 def attention_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -805,7 +857,9 @@ def attention_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False,
                         sm_scale: Optional[float] = None,
                         dropout_rate: float = 0.0,
-                        dropout_seed: Optional[int] = None
+                        dropout_seed: Optional[int] = None,
+                        head_base: int = 0,
+                        heads_total: Optional[int] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of `attention_flash` from its output ``o`` and row
     statistics ``stats``: the plain backward for CPU tensors, the backward
@@ -815,7 +869,8 @@ def attention_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_flash_bwd_reference(q, k, v, kv_mask, o, stats, do,
                                              n_heads, causal, scale,
-                                             dropout_rate, dropout_seed)
+                                             dropout_rate, dropout_seed,
+                                             head_base, heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"attention_flash_bwd: no kernel for device "
                          f"{q.device}")
@@ -832,7 +887,8 @@ def attention_flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if do.stride(2) != 1:
         do = do.contiguous()
     return _launch_flash_bwd(q, k, v, kv_mask, o, stats, do, n_heads, causal,
-                             scale, dropout_rate, dropout_seed)
+                             scale, dropout_rate, dropout_seed, None,
+                             head_base, heads_total)
 
 
 attention_flash.launches = 0
@@ -845,18 +901,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               kv_mask: Optional[torch.Tensor], n_heads: int,
               causal: bool = False, sm_scale: Optional[float] = None,
               dropout_rate: float = 0.0,
-              dropout_seed: Optional[int] = None) -> torch.Tensor:
+              dropout_seed: Optional[int] = None, head_base: int = 0,
+              heads_total: Optional[int] = None) -> torch.Tensor:
     """The model's attention entry in the packed layout, dispatching by
     length as the JAX module does (`m3p_tpu/model/layers.py:266-308`,
     `m3p_tpu/ops/attention.py:934-988`): the packed kernels when Sq and Sk
     are at most MAX_SEQ, the flash kernels above, attention dropout inside
-    either."""
+    either; ``head_base`` / ``heads_total`` as in `attention_packed`."""
     if q.shape[1] <= MAX_SEQ and k.shape[1] <= MAX_SEQ:
         fn = attention_packed
     else:
         fn = attention_flash
     return fn(q, k, v, kv_mask, n_heads, causal, sm_scale, dropout_rate,
-              dropout_seed)
+              dropout_seed, head_base, heads_total)
 
 
 # ---------------------------------------------------------------------------
@@ -883,9 +940,12 @@ def small_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               causal: bool = False,
                               sm_scale: Optional[float] = None,
                               dropout_rate: float = 0.0,
-                              dropout_seed: Optional[int] = None
+                              dropout_seed: Optional[int] = None,
+                              head_base: int = 0,
+                              heads_total: Optional[int] = None
                               ) -> torch.Tensor:
-    """Plain version of the head-major forward: q (B, H, Sq, D), k/v
+    """Plain version of the head-major forward (the heads' keep masks as in
+    `attention_flash_reference`): q (B, H, Sq, D), k/v
     (B, H, Sk, D), kv_mask (B, Sk) True = attend -> (B, H, Sq, D) in q's
     dtype.  Step for step `_small_fwd_kernel` (`m3p_tpu/ops/attention.py:
     696-710`): fp32 softmax weights, then with dropout
@@ -899,7 +959,8 @@ def small_attention_reference(q: torch.Tensor, k: torch.Tensor,
     sk = k.shape[2]
     p = _small_probs(q, k, kv_mask, causal, _scale(sm_scale, d))
     if dropout_rate > 0.0:
-        keep = _keep(dropout_seed, dropout_rate, b, h, sq, sk, q.device)
+        keep = _keep(dropout_seed, dropout_rate, b, h, sq, sk, q.device,
+                     head_base, heads_total)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
@@ -911,9 +972,12 @@ def small_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   do: torch.Tensor, causal: bool = False,
                                   sm_scale: Optional[float] = None,
                                   dropout_rate: float = 0.0,
-                                  dropout_seed: Optional[int] = None
+                                  dropout_seed: Optional[int] = None,
+                                  head_base: int = 0,
+                                  heads_total: Optional[int] = None
                                   ) -> Tuple[torch.Tensor, ...]:
-    """Plain version of the head-major backward: (dq, dk, dv) in the shapes
+    """Plain version of the head-major backward (the heads' keep masks as
+    in `attention_flash_reference`): (dq, dk, dv) in the shapes
     and dtypes of q, k, v.  Step for step `_small_bwd_kernel`
     (`m3p_tpu/ops/attention.py:713-760`), with inv = 1/(1 - rate):
 
@@ -934,7 +998,8 @@ def small_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     dp = torch.einsum("bhqd,bhkd->bhqk", do.to(v.dtype).float(), v.float())
     if dropout_rate > 0.0:
         inv = 1.0 / (1.0 - dropout_rate)
-        keep = _keep(dropout_seed, dropout_rate, b, h, sq, sk, q.device)
+        keep = _keep(dropout_seed, dropout_rate, b, h, sq, sk, q.device,
+                     head_base, heads_total)
         p_dv = torch.where(keep, p * inv, 0.0)
         dp_d = torch.where(keep, dp * inv, 0.0)
     else:
@@ -984,16 +1049,19 @@ def _strides(*tensors):
 _SMALL_FWD_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
 _SMALL_BWD_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
                        + [ctypes.c_int] * 5
                        + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_void_p])
+                          ctypes.c_uint, ctypes.c_ulonglong, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
 
 
 def _launch_small_fwd(q, k, v, kv_mask, causal, scale, dropout_rate,
-                      dropout_seed, _design=None) -> torch.Tensor:
+                      dropout_seed, _design=None, head_base=0,
+                      heads_total=None) -> torch.Tensor:
     """One launch of the design `_small_design` names (``_design`` as in
     `_launch_fwd`)."""
     fn = _build.bind("small_attention", "m3p_small_attention_fwd",
@@ -1003,7 +1071,8 @@ def _launch_small_fwd(q, k, v, kv_mask, causal, scale, dropout_rate,
     design = _checked_design(_small_design(q, k, v, out), _design,
                              "small_attention")
     mask = _kernel_mask(kv_mask)
-    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
+    inv, *philox = _dropout_args(dropout_rate, dropout_seed, h, head_base,
+                                 heads_total)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_KERNEL_DTYPES[q.dtype], _DESIGNS.index(design),
@@ -1011,7 +1080,7 @@ def _launch_small_fwd(q, k, v, kv_mask, causal, scale, dropout_rate,
                  None if mask is None else mask.data_ptr(),
                  out.data_ptr(), b, sq, k.shape[2], h, d,
                  *_strides(q, k, v, out), float(scale), int(bool(causal)),
-                 float(inv), threshold, seed, stream)
+                 float(inv), *philox, stream)
     if err != 0:
         raise RuntimeError(f"small_attention kernel ({design}) launch "
                            f"failed: CUDA error {err}")
@@ -1032,7 +1101,8 @@ def _small_design(*tensors: torch.Tensor) -> str:
 
 
 def _launch_small_bwd(q, k, v, kv_mask, do, causal, scale, dropout_rate,
-                      dropout_seed, _design=None) -> Tuple[torch.Tensor, ...]:
+                      dropout_seed, _design=None, head_base=0,
+                      heads_total=None) -> Tuple[torch.Tensor, ...]:
     """Two launches of the design `_small_design` names (``_design`` as in
     `_launch_bwd`): dq (and the per-row statistics into a (B, H, Sq, 3)
     fp32 scratch), then dk/dv, which reads them."""
@@ -1045,15 +1115,16 @@ def _launch_small_bwd(q, k, v, kv_mask, do, causal, scale, dropout_rate,
     design = _checked_design(_small_design(q, k, v, do, dq, dk, dv),
                              _design, "small_attention backward")
     mask = _kernel_mask(kv_mask)
-    inv, threshold, seed = _dropout_args(dropout_rate, dropout_seed)
-    stats, bits = _bwd_scratch(q, sq, sk, h, design, threshold)
+    inv, *philox = _dropout_args(dropout_rate, dropout_seed, h, head_base,
+                                 heads_total)
+    stats, bits = _bwd_scratch(q, sq, sk, h, design, philox[0])
     strides = (ctypes.c_longlong * 21)(*_strides(q, k, v, do, dq, dk, dv))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
             None if bits is None else bits.data_ptr(),
             b, sq, sk, h, d, strides, float(scale),
-            int(bool(causal)), float(inv), threshold, seed)
+            int(bool(causal)), float(inv), *philox)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         for phase in (0, 1):
@@ -1075,30 +1146,33 @@ class _SmallAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, scale, dropout_rate,
-                dropout_seed):
+                dropout_seed, heads):
         ctx.save_for_backward(q, k, v, kv_mask)
-        ctx.config = (causal, scale, dropout_rate, dropout_seed)
+        ctx.config = (causal, scale, dropout_rate, dropout_seed, *heads)
         if q.device.type == "cpu":
             return small_attention_reference(q, k, v, kv_mask, causal, scale,
-                                             dropout_rate, dropout_seed)
+                                             dropout_rate, dropout_seed,
+                                             *heads)
         return _launch_small_fwd(q, k, v, kv_mask, causal, scale,
-                                 dropout_rate, dropout_seed)
+                                 dropout_rate, dropout_seed, None, *heads)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, kv_mask = ctx.saved_tensors
         grads = small_attention_bwd(q, k, v, kv_mask, do, *ctx.config)
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None,
                     causal: bool = False, sm_scale: Optional[float] = None,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_seed: Optional[int] = None, head_base: int = 0,
+                    heads_total: Optional[int] = None) -> torch.Tensor:
     """Head-major single-tile attention: q (B, H, Sq, D), k/v (B, H, Sk,
     D), Sq, Sk <= MAX_SEQ, kv_mask (B, Sk) True = attend -> (B, H, Sq, D);
-    differentiable in q, k and v.  Any strides with a contiguous last
+    differentiable in q, k and v; ``head_base`` / ``heads_total`` as in
+    `attention_packed`.  Any strides with a contiguous last
     dimension.  CPU tensors go through the plain forward and backward;
     CUDA tensors launch `csrc/small_attention.cu`, adding one to
     ``small_attention.launches`` per forward launch and to
@@ -1114,7 +1188,8 @@ def small_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_small_args(q, k, v, kv_mask)
     scale = _scale(sm_scale, q.shape[-1])
     return _SmallAttention.apply(q, k, v, kv_mask, bool(causal), scale,
-                                 float(dropout_rate), dropout_seed)
+                                 float(dropout_rate), dropout_seed,
+                                 (head_base, heads_total))
 
 
 def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1122,7 +1197,9 @@ def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False,
                         sm_scale: Optional[float] = None,
                         dropout_rate: float = 0.0,
-                        dropout_seed: Optional[int] = None
+                        dropout_seed: Optional[int] = None,
+                        head_base: int = 0,
+                        heads_total: Optional[int] = None
                         ) -> Tuple[torch.Tensor, ...]:
     """(dq, dk, dv) of `small_attention` for the output gradient ``do``:
     the plain backward for CPU tensors, the backward kernel (two launches)
@@ -1132,7 +1209,8 @@ def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return small_attention_bwd_reference(q, k, v, kv_mask, do, causal,
                                              scale, dropout_rate,
-                                             dropout_seed)
+                                             dropout_seed, head_base,
+                                             heads_total)
     if q.device.type != "cuda":
         raise ValueError(f"small_attention_bwd: no kernel for device "
                          f"{q.device}")
@@ -1144,7 +1222,8 @@ def small_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if do.stride(3) != 1:
         do = do.contiguous()
     return _launch_small_bwd(q, k, v, kv_mask, do, causal, scale,
-                             dropout_rate, dropout_seed)
+                             dropout_rate, dropout_seed, None, head_base,
+                             heads_total)
 
 
 small_attention.launches = 0

@@ -9,7 +9,10 @@ random numbers: as easy as 1, 2, 3", the Random123 generator):
     key     = (seed mod 2^32, seed >> 32)
     counter = (col // 4, row, tile, 0);  element (row, col) takes word col % 4
     keep    = bits >= uint32(min(rate * 2^32, 2^32 - 1))   (the JAX rule)
-    tile    = b * H + h
+    tile    = b * H + h, or b * heads_total + head_base + h for a call
+              over the heads head_base .. head_base + H - 1 of a tensor
+              of heads_total (`head_tiles`: a tensor-parallel rank's
+              heads draw what the whole tensor's call draws for them)
 
 The mask is a function of (seed, tile, row, col) alone and never of how
 threads are laid out, so the forward kernel, the backward kernel and the
@@ -32,7 +35,7 @@ intermediate leaves int64.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -89,18 +92,37 @@ def keep_threshold(rate: float) -> int:
     return min(int(rate * (2 ** 32)), 2 ** 32 - 1)
 
 
+def head_tiles(b: int, n_heads: int, head_base: int = 0,
+               heads_total: Optional[int] = None,
+               device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """The Philox tiles of a call's (batch, head) pairs, batch-major: int64
+    (B * H,), tile ``b * heads_total + head_base + h`` for the heads
+    head_base .. head_base + H - 1 of a tensor of ``heads_total`` (default
+    H, the whole tensor: b * H + h).  A tensor-parallel rank holding a slice
+    of the heads draws the masks the whole tensor's call draws for them."""
+    total = n_heads if heads_total is None else heads_total
+    heads = torch.arange(head_base, head_base + n_heads, device=device,
+                         dtype=torch.int64)
+    return (torch.arange(b, device=device, dtype=torch.int64)[:, None] * total
+            + heads[None, :]).reshape(-1)
+
+
 def keep_mask_tiles(seed: int, n_tiles: int, sq: int, sk: int, rate: float,
                     device: Union[str, torch.device] = "cpu",
-                    first_tile: int = 0, first_row: int = 0) -> torch.Tensor:
-    """Keep masks of the tiles first_tile .. first_tile + n_tiles - 1, rows
-    first_row .. first_row + sq - 1: bool (n_tiles, sq, sk)."""
+                    first_tile: int = 0, first_row: int = 0,
+                    tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Keep masks of the tiles first_tile .. first_tile + n_tiles - 1 (or of
+    the ``n_tiles`` tile numbers ``tiles``), rows first_row .. first_row +
+    sq - 1: bool (n_tiles, sq, sk)."""
     k0, k1 = seed_key(seed)
     sk4 = -(-sk // 4)
     col4 = torch.arange(sk4, device=device, dtype=torch.int64)[None, None, :]
     row = torch.arange(first_row, first_row + sq, device=device,
                        dtype=torch.int64)[None, :, None]
-    tile = torch.arange(first_tile, first_tile + n_tiles, device=device,
-                        dtype=torch.int64)[:, None, None]
+    if tiles is None:
+        tiles = torch.arange(first_tile, first_tile + n_tiles, device=device,
+                             dtype=torch.int64)
+    tile = tiles.to(device=device, dtype=torch.int64)[:, None, None]
     words = philox4x32(col4, row, tile, 0, k0, k1)
     bits = torch.stack(words, dim=-1).reshape(n_tiles, sq, 4 * sk4)[..., :sk]
     return bits >= keep_threshold(rate)

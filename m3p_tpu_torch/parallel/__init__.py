@@ -1,9 +1,11 @@
-"""Several processes: the mesh, data parallelism and sequence parallelism
-(counterpart of `m3p_tpu/parallel`).  Exports what
-`m3p_tpu/parallel/__init__.py` exports, for what is ported; the logical
-parameter rules and train-state sharding are item 16b of ROADMAP.md."""
+"""Several processes: the mesh, data parallelism, parameter sharding and
+sequence parallelism (counterpart of `m3p_tpu/parallel`).  Exports what
+`m3p_tpu/parallel/__init__.py` exports (`model_param_specs` for
+`get_param_pspecs`); the pipeline is item 16c of ROADMAP.md."""
 
 from m3p_tpu_torch.parallel.mesh import infer_mesh_shape, make_mesh
-from m3p_tpu_torch.parallel.sharding import batch_sharding
+from m3p_tpu_torch.parallel.sharding import (
+    LOGICAL_RULES, batch_sharding, model_param_specs, shard_train_state)
 
-__all__ = ["batch_sharding", "infer_mesh_shape", "make_mesh"]
+__all__ = ["LOGICAL_RULES", "batch_sharding", "infer_mesh_shape",
+           "make_mesh", "model_param_specs", "shard_train_state"]

@@ -11,15 +11,20 @@ is scaled so that its mean over the batch shards is the global value.
 * A mean over counted slots divides the rank's sum by `shard_denominator`
   of the count: the count summed over the batch shards (detached) over
   their number; outside `batch_reduction` the count itself.
-* `average_over_ranks` averages the gradients over all ranks of the mesh
-  with one all-reduce of a flat fp32 buffer (and the step's metrics with
-  them), before the clip, so the clip and the optimizer see the global
-  gradient.
+* `average_over_ranks` averages each gradient over the axes that split
+  the batch or the sequence, ``data``, ``fsdp`` and ``seq``, with one
+  all-reduce of a flat fp32 buffer per group of leaves (and the step's
+  metrics with them), before the clip, so the clip and the optimizer see
+  the global gradient.  A leaf split over ``fsdp`` arrives reduce-scattered
+  over that axis already (`parallel.tensor_parallel.materialize`) and is
+  reduced over ``data`` and ``seq`` only; a leaf split over ``tensor`` or
+  ``expert`` holds another slice on each rank of those axes and is never
+  summed over them.
 
 Under sequence parallelism the ranks of a ``seq`` line hold the same rows
 and compute the same losses; the stack's gather scales its backward by the
-line's length (`parallel/sp.py`), so the same average over all ranks gives
-the global gradient there too.
+line's length (`parallel/sp.py`), so the same average gives the global
+gradient there too.
 """
 
 from __future__ import annotations
@@ -33,6 +38,10 @@ from m3p_tpu_torch.parallel import mesh as M
 
 # bytes of gradient (and metric) buffer all-reduced per rank
 REDUCED_BYTES = {"gradients": 0, "steps": 0}
+
+# the axes a batch is split over, and those a gradient is averaged over
+BATCH_AXES = ("data", "fsdp")
+GRAD_AXES = ("data", "fsdp", "seq")
 
 _ACTIVE: List[M.Mesh] = []
 
@@ -51,16 +60,17 @@ def batch_reduction(mesh: Optional[M.Mesh]) -> Iterator[None]:
         _ACTIVE.pop()
 
 
-# the batch shards' axis: fsdp is 1 on every mesh the port takes
-# (parallel/sharding.py)
-_BATCH_AXIS = "data"
+def batch_mesh() -> Optional[M.Mesh]:
+    """The mesh whose batch shards `batch_reduction` reduces over, or
+    None outside it (or over one shard)."""
+    return _ACTIVE[-1] if _ACTIVE else None
 
 
 def _global_sum(count: torch.Tensor) -> torch.Tensor:
     """``count`` summed over the batch shards, detached."""
     mesh = _ACTIVE[-1]
     total = M.all_reduce_sum(count.detach().float().reshape(1), mesh,
-                             mesh.group(_BATCH_AXIS))
+                             mesh.group(BATCH_AXES))
     return total.reshape(count.shape).to(count.dtype)
 
 
@@ -89,7 +99,7 @@ def gather_batch(x: torch.Tensor) -> torch.Tensor:
     if not _ACTIVE:
         return x
     mesh = _ACTIVE[-1]
-    return M.all_gather_cat(x.detach().contiguous(), mesh, _BATCH_AXIS)
+    return M.all_gather_cat(x.detach().contiguous(), mesh, BATCH_AXES)
 
 
 def shard_position() -> tuple:
@@ -100,33 +110,48 @@ def shard_position() -> tuple:
     return _ACTIVE[-1].batch_shards
 
 
+def _fsdp_split(p: torch.Tensor) -> bool:
+    spec = getattr(p, "shard", None)
+    return spec is not None and "fsdp" in spec.axes
+
+
 def average_over_ranks(mesh: M.Mesh,
                        params: Sequence[torch.nn.Parameter],
                        metrics: Optional[Dict[str, torch.Tensor]] = None
                        ) -> Optional[Dict[str, torch.Tensor]]:
-    """Replace every ``p.grad`` by its mean over the ranks of ``mesh`` (a
-    missing gradient counts as zeros, as the JAX gradient tree holds them)
-    and return ``metrics`` averaged the same way: one all-reduce of a flat
-    fp32 buffer."""
+    """Replace every ``p.grad`` by its mean over the batch and sequence
+    shards (`GRAD_AXES`; a missing gradient counts as zeros, as the JAX
+    gradient tree holds them) and return ``metrics`` averaged the same way:
+    one all-reduce of a flat fp32 buffer over ``GRAD_AXES`` and, for the
+    leaves split over ``fsdp`` (their sum over it taken already), one over
+    ``data`` and ``seq``."""
     params = list(params)
     names = sorted(metrics or {})
+    n = mesh.count(GRAD_AXES)
     dev = params[0].device
-    parts = [(p.grad if p.grad is not None else torch.zeros_like(p))
-             .reshape(-1).float() for p in params]
-    parts += [metrics[k].detach().float().reshape(1).to(dev) for k in names]
-    flat = torch.cat(parts)
-    REDUCED_BYTES["gradients"] += flat.numel() * 4
     REDUCED_BYTES["steps"] += 1
-    flat = M.all_reduce_sum(flat, mesh) / mesh.size
-    offset = 0
-    for p in params:
-        n = p.numel()
-        p.grad = flat[offset:offset + n].view(p.shape).to(p.dtype)
-        offset += n
-    if metrics is None:
-        return None
-    out = dict(metrics)
-    for k in names:
-        out[k] = flat[offset].to(metrics[k].dtype)
-        offset += 1
+    out = None if metrics is None else dict(metrics)
+    for split in (False, True):
+        leaves = [p for p in params if _fsdp_split(p) == split]
+        axes = ("data", "seq") if split else GRAD_AXES
+        extra = [] if split else names
+        if not leaves and not extra:
+            continue
+        parts = [(p.grad if p.grad is not None else torch.zeros_like(p))
+                 .reshape(-1).float() for p in leaves]
+        parts += [metrics[k].detach().float().reshape(1).to(dev)
+                  for k in extra]
+        flat = torch.cat(parts)
+        if mesh.group(axes) is not None:
+            REDUCED_BYTES["gradients"] += flat.numel() * 4
+            flat = M.all_reduce_sum(flat, mesh, mesh.group(axes))
+        flat = flat / n
+        offset = 0
+        for p in leaves:
+            k = p.numel()
+            p.grad = flat[offset:offset + k].view(p.shape).to(p.dtype)
+            offset += k
+        for k in extra:
+            out[k] = flat[offset].to(metrics[k].dtype)
+            offset += 1
     return out

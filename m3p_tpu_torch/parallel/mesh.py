@@ -20,11 +20,20 @@ joined by `torch.distributed`, as the reference does
   order (as the JAX package reshapes its device list) and makes one process
   group per axis and coordinate of the other axes.  `Mesh.group(axis)` is
   the group of this rank's ``axis``; `Mesh.index(axis)` its coordinate.
-* The collectives (`all_reduce_sum`, `all_gather_cat`, `broadcast_`) take
-  a tensor on any device: NCCL takes only tensors on the card, so under
-  ``nccl`` a host tensor goes to the mesh's card and its result comes back;
-  gloo takes host and CUDA tensors alike.  Gloo's point-to-point takes no
-  CUDA tensor, so `exchange` stages those through pinned host buffers;
+* A group may also span several axes (`GROUPED`): ``mesh.group(("data",
+  "fsdp"))`` is the line of ranks that differ only in those axes, in
+  row-major order of their coordinates (ascending global rank), as a JAX
+  collective over a tuple of axis names spans them.
+* The collectives (`all_reduce_sum`, `all_reduce_max`, `all_gather_cat`,
+  `all_gather_stack`, `reduce_scatter_sum`, `broadcast_`) take a tensor on
+  any device: NCCL takes only tensors on the card, so under ``nccl`` a
+  host tensor goes to the mesh's card and its result comes back; gloo
+  takes host and CUDA tensors alike (torch 2.11's gloo runs all_reduce,
+  all_gather_into_tensor and reduce_scatter_tensor on CUDA tensors in fp32
+  and bf16: `parallel.probe_gloo`).  A collective the backend refuses
+  raises; nothing falls back.  `COLLECTIVE_BYTES` counts the bytes each
+  kind handles.  Gloo's point-to-point takes no CUDA tensor, so
+  `exchange` stages those through pinned host buffers;
   `HOST_STAGED_BYTES` counts the bytes so staged.
 
 `bind_axes` binds the mesh axis a sharded stack runs over for a block of
@@ -51,9 +60,20 @@ logger = logging.getLogger("m3p_tpu_torch")
 
 AXES = ("data", "fsdp", "seq", "tensor", "expert", "pp")
 
+# the axis tuples a group spans (besides each axis alone): the batch shards,
+# the axes a gradient is reduced over, and the axes a parameter is sharded
+# over (`parallel.sharding`)
+GROUPED = (("data", "fsdp"), ("data", "seq"), ("data", "fsdp", "seq"),
+           ("fsdp", "tensor", "expert"), ("tensor", "expert"))
+
 # bytes copied between a card and pinned host memory for gloo's
 # point-to-point (`exchange`)
 HOST_STAGED_BYTES = {"to_host": 0, "to_device": 0}
+
+# bytes each kind of collective handled on this rank: the tensor an
+# all-reduce sums, the whole tensor an all-gather assembles, the whole
+# input a reduce-scatter sums
+COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -181,37 +201,67 @@ class Mesh:
         self.backend = backend
         self.coords = dict(zip(AXES, (int(c) for c in np.unravel_index(
             rank, tuple(sizes)))))
-        self._groups: Dict[str, object] = {}
-        self._ranks: Dict[str, List[int]] = {}
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        self._ranks: Dict[Tuple[str, ...], List[int]] = {}
         grid = np.arange(self.size).reshape(tuple(sizes))
-        for ax_i, axis in enumerate(AXES):
-            if self.shape[axis] == 1:
-                self._ranks[axis] = [rank]
+        for axes in [(a,) for a in AXES] + list(GROUPED):
+            # a tuple's group spans its axes of size > 1 (`_live`)
+            live = tuple(a for a in axes if self.shape[a] > 1)
+            if not live or live in self._ranks:
                 continue
-            # every line of the grid along this axis gets a group; each rank
+            axes = live
+            # every line of the grid over these axes gets a group; each rank
             # makes all of them, in the same order, as new_group requires
-            lines = np.moveaxis(grid, ax_i, -1).reshape(-1, self.shape[axis])
+            idx = [AXES.index(a) for a in axes]
+            n = int(np.prod([self.shape[a] for a in axes]))
+            lines = np.moveaxis(grid, idx, list(range(-len(idx), 0))
+                                ).reshape(-1, n)
             for line in lines:
                 ranks = [int(r) for r in line]
                 group = dist.new_group(ranks, backend=backend)
                 if rank in ranks:
-                    self._groups[axis] = group
-                    self._ranks[axis] = ranks
+                    self._groups[axes] = group
+                    self._ranks[axes] = ranks
 
-    def index(self, axis: str) -> int:
-        return self.coords[axis]
+    def _live(self, axes) -> Tuple[str, ...]:
+        """``axes`` (one name or a tuple) less the axes of size 1."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in axes:
+            if a not in self.shape:
+                raise ValueError(f"unknown mesh axis {a!r}; known: {AXES}")
+        return tuple(a for a in axes if self.shape[a] > 1)
 
-    def group(self, axis: str):
-        """The process group of this rank's ``axis`` line; None at size 1."""
-        return self._groups.get(axis)
+    def index(self, axes) -> int:
+        """This rank's coordinate along ``axes`` (row-major over a tuple)."""
+        out = 0
+        for a in self._live(axes):
+            out = out * self.shape[a] + self.coords[a]
+        return out
 
-    def ranks(self, axis: str) -> List[int]:
-        """The global ranks of this rank's ``axis`` line, by coordinate."""
-        return self._ranks[axis]
+    def count(self, axes) -> int:
+        """The number of ranks of a line over ``axes``."""
+        return int(np.prod([self.shape[a] for a in self._live(axes)]))
+
+    def group(self, axes):
+        """The process group of this rank's line over ``axes`` (one axis or
+        a tuple of `GROUPED`); None when the line is this rank alone."""
+        live = self._live(axes)
+        if not live:
+            return None
+        if live not in self._groups:
+            raise ValueError(f"no group over {live}: a group spans one axis "
+                             f"or the live axes of one of {GROUPED}")
+        return self._groups[live]
+
+    def ranks(self, axes) -> List[int]:
+        """The global ranks of this rank's line over ``axes``, by
+        coordinate."""
+        live = self._live(axes)
+        return self._ranks[live] if live else [self.rank]
 
     def neighbor(self, axis: str, offset: int) -> int:
         """The global rank ``offset`` steps along ``axis`` (cyclic)."""
-        line = self._ranks[axis]
+        line = self.ranks(axis)
         return line[(self.coords[axis] + offset) % len(line)]
 
     @property
@@ -304,24 +354,66 @@ def _for_backend(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def all_reduce_sum(t: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
     """The sum of ``t`` over ``group`` (the whole mesh when None), a new
     tensor on ``t``'s device."""
+    return _all_reduce(t, mesh, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(t: torch.Tensor, mesh: Mesh, group=None) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group``, a new tensor."""
+    return _all_reduce(t, mesh, group, dist.ReduceOp.MAX)
+
+
+def _all_reduce(t, mesh, group, op):
     buf = _for_backend(t, mesh)
     if buf is t:
         buf = t.clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVE_BYTES["all_reduce"] += buf.numel() * buf.element_size()
+    dist.all_reduce(buf, op=op, group=group)
     return buf.to(t.device)
 
 
-def all_gather_cat(t: torch.Tensor, mesh: Mesh, axis: str,
+def all_gather_stack(t: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """``t`` of every rank of this rank's line over ``axes``, stacked along
+    a new leading dimension in coordinate order (one
+    ``all_gather_into_tensor``; every rank's ``t`` has one shape)."""
+    group = mesh.group(axes)
+    if group is None:
+        return t[None]
+    buf = _for_backend(t, mesh)
+    n = mesh.count(axes)
+    # gloo takes the flat form: the ranks' tensors end to end
+    out = torch.empty(n * buf.numel(), dtype=buf.dtype, device=buf.device)
+    COLLECTIVE_BYTES["all_gather"] += out.numel() * out.element_size()
+    dist.all_gather_into_tensor(out, buf.reshape(-1), group=group)
+    return out.view((n,) + tuple(buf.shape)).to(t.device)
+
+
+def all_gather_cat(t: torch.Tensor, mesh: Mesh, axes,
                    dim: int = 0) -> torch.Tensor:
-    """``t`` of every rank of this rank's ``axis`` line, concatenated along
-    ``dim`` in coordinate order (same shape on every rank)."""
-    group = mesh.group(axis)
+    """``t`` of every rank of this rank's line over ``axes``, concatenated
+    along ``dim`` in coordinate order (same shape on every rank)."""
+    group = mesh.group(axes)
     if group is None:
         return t
     buf = _for_backend(t, mesh)
-    parts = [torch.empty_like(buf) for _ in mesh.ranks(axis)]
+    parts = [torch.empty_like(buf) for _ in mesh.ranks(axes)]
+    COLLECTIVE_BYTES["all_gather"] += (len(parts) * buf.numel()
+                                       * buf.element_size())
     dist.all_gather(parts, buf, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+def reduce_scatter_sum(t: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """``t`` (n, ...) with n the line's length over ``axes``: the sum over
+    the line's ranks of their ``t[i]``, on rank i (one
+    ``reduce_scatter_tensor``)."""
+    group = mesh.group(axes)
+    if group is None:
+        return t[0]
+    buf = _for_backend(t, mesh)
+    out = torch.empty(buf[0].numel(), dtype=buf.dtype, device=buf.device)
+    COLLECTIVE_BYTES["reduce_scatter"] += buf.numel() * buf.element_size()
+    dist.reduce_scatter_tensor(out, buf.reshape(-1), group=group)
+    return out.view(tuple(buf.shape[1:])).to(t.device)
 
 
 def broadcast_(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:

@@ -1,0 +1,294 @@
+"""The operators of parameter sharding: FSDP's gathers, Megatron's tensor
+parallelism, the vocabulary-parallel embedding and cross-entropy.
+
+The JAX package shards its parameters by logical axes and lets GSPMD insert
+the collectives (`m3p_tpu/parallel/sharding.py`).  Here each rank holds its
+shard of a parameter as a plain tensor (`parallel.sharding.shard_model`
+slices it and records a `ShardSpec` on it as ``param.shard``), and the
+model calls these operators, each a `torch.autograd.Function` over the
+collectives of `parallel.mesh`:
+
+* `materialize` -- a parameter as the model computes with it: its shard
+  cast to the compute dtype (elementwise, so a bf16 gather is exact and
+  half the bytes), all-gathered over each mesh axis that splits it and that
+  the caller does not keep split.  Over ``fsdp`` (the ranks hold other
+  rows of the batch) the backward reduce-scatters the gradient, summed in
+  fp32 and handed back in the parameter's dtype; over ``tensor`` or
+  ``expert`` the ranks compute alike on the same rows, so the backward
+  takes this rank's slice of the gradient, unless the caller names the
+  axis in ``sum_over`` (each rank then holds a part of the gradient).
+* `copy_to` (identity forward, all-reduce backward) and `reduce_from`
+  (all-reduce forward, identity backward): Megatron's f and g around a
+  column- and a row-parallel product.
+* `gather_rows` -- rows of every rank of a line, concatenated (MoE's global
+  tokens); the backward is this rank's rows of the gradient.
+* `gather_last` -- a vocabulary-parallel tensor gathered along its last
+  dimension (a decoding step's logits); the backward is this rank's slice.
+* `vocab_parallel_ce` / `vocab_parallel_argmax` -- the cross-entropy and
+  the argmax over logits whose vocabulary is split over ``tensor``: a
+  distributed logsumexp and the target's logit from the rank that owns
+  it; the full logits are never gathered.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from m3p_tpu_torch.parallel import mesh as M
+from m3p_tpu_torch.parallel.mesh import Mesh
+
+@dataclass(frozen=True)
+class ShardSpec:
+    """How a parameter is split: ``axes[d]`` is the mesh axis that splits
+    dimension d of the whole parameter (None: not split), ``shape`` the
+    whole parameter's shape."""
+
+    mesh: Mesh
+    axes: Tuple[Optional[str], ...]
+    shape: Tuple[int, ...]
+
+    def split(self) -> Tuple[Tuple[int, str], ...]:
+        """(dimension, axis) of each split dimension."""
+        return tuple((d, a) for d, a in enumerate(self.axes)
+                     if a is not None)
+
+
+def shard_of(p: torch.Tensor) -> Optional[ShardSpec]:
+    return getattr(p, "shard", None)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+class _GatherDim(torch.autograd.Function):
+    """``x`` cast to ``dtype`` and all-gathered along ``dim`` over
+    ``axis``; the backward reduce-scatters (``reduce``) in fp32 or takes
+    this rank's slice, in ``x``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, dtype, reduce):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.reduce = mesh, axis, dim, reduce
+        ctx.in_dtype, ctx.width = x.dtype, x.shape[dim]
+        parts = M.all_gather_stack(x.detach().to(dtype).contiguous(), mesh,
+                                   axis)
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis, dim, w = ctx.mesh, ctx.axis, ctx.dim, ctx.width
+        if not ctx.reduce:
+            i = mesh.index(axis)
+            out = grad.narrow(dim, i * w, w)
+        else:
+            parts = torch.stack(grad.float().split(w, dim=dim))
+            out = M.reduce_scatter_sum(parts, mesh, axis)
+        return out.to(ctx.in_dtype), None, None, None, None, None
+
+
+def materialize(p: torch.Tensor, dtype: torch.dtype,
+                keep: Sequence[str] = (),
+                sum_over: Sequence[str] = ()) -> torch.Tensor:
+    """``p`` in ``dtype`` as the model computes with it: gathered over every
+    axis of its `ShardSpec` but those in ``keep`` (module docstring).  The
+    ``fsdp`` gather comes first, so its backward sums in fp32 and hands the
+    parameter's dtype back.  A parameter without a spec is ``p.to(dtype)``."""
+    spec = shard_of(p)
+    if spec is None:
+        return p.to(dtype)
+    x = p
+    order = sorted(spec.split(), key=lambda da: da[1] != "fsdp")
+    for dim, axis in order:
+        if axis in keep:
+            continue
+        reduce = axis == "fsdp" or axis in sum_over
+        x = _GatherDim.apply(x, spec.mesh, axis, dim, dtype, reduce)
+    return x.to(dtype)
+
+
+@torch.no_grad()
+def gather_whole(t: torch.Tensor, spec: Optional[ShardSpec]) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's shard under ``spec``
+    (a parameter, its gradient or its optimizer state), in ``t``'s dtype."""
+    if spec is None:
+        return t
+    for dim, axis in spec.split():
+        t = torch.cat(M.all_gather_stack(t.contiguous(), spec.mesh,
+                                         axis).unbind(0), dim=dim)
+    return t
+
+
+def local_slice(t: torch.Tensor, spec: Optional[ShardSpec]) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``t`` under ``spec``."""
+    if spec is None:
+        return t
+    for dim, axis in spec.split():
+        n = spec.mesh.shape[axis]
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                             f"split over {axis}={n}")
+        w = t.shape[dim] // n
+        t = t.narrow(dim, spec.mesh.index(axis) * w, w)
+    return t.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# activations
+# ---------------------------------------------------------------------------
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (M.all_reduce_sum(grad, ctx.mesh, ctx.mesh.group(ctx.axes)),
+                None, None)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return M.all_reduce_sum(x, mesh, mesh.group(axes))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def copy_to(x: torch.Tensor, mesh: Optional[Mesh], axes) -> torch.Tensor:
+    """Megatron's f: ``x`` as it is; its gradient summed over ``axes`` (the
+    input of a column-parallel product, replicated over the axis)."""
+    if mesh is None or mesh.group(axes) is None:
+        return x
+    return _CopyTo.apply(x, mesh, axes)
+
+
+def reduce_from(x: torch.Tensor, mesh: Optional[Mesh], axes
+                ) -> torch.Tensor:
+    """Megatron's g: ``x`` summed over ``axes`` (the partial output of a
+    row-parallel product); the gradient as it is."""
+    if mesh is None or mesh.group(axes) is None:
+        return x
+    return _ReduceFrom.apply(x, mesh, axes)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.i, ctx.w, ctx.dim = mesh.index(axes), x.shape[dim], dim
+        return M.all_gather_cat(x.contiguous(), mesh, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.i * ctx.w, ctx.w), None, None, None
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
+                ) -> torch.Tensor:
+    """``x`` of every rank of the line over ``axes``, concatenated along
+    ``dim`` in coordinate order; the gradient of this rank's part only (the
+    caller's loss reads its own rows alone, so the other ranks' parts of the
+    gradient are zeros)."""
+    if mesh.group(axes) is None:
+        return x
+    return _GatherRows.apply(x, mesh, axes, dim)
+
+
+def gather_last(x: torch.Tensor, mesh: Optional[Mesh],
+                axis: str = "tensor") -> torch.Tensor:
+    """A tensor split along its last dimension over ``axis``, whole (every
+    rank computes alike on the whole: the backward takes this rank's
+    slice)."""
+    if mesh is None or mesh.group(axis) is None:
+        return x
+    return _GatherRows.apply(x, mesh, axis, x.dim() - 1)
+
+
+# ---------------------------------------------------------------------------
+# the vocabulary split over ``tensor``
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class VocabShard:
+    """This rank's words ``lo`` .. ``lo + n - 1`` of a vocabulary split over
+    ``mesh``'s ``tensor`` axis."""
+
+    mesh: Mesh
+    lo: int
+    n: int
+
+    def local(self, ids: torch.Tensor):
+        """(ids - lo clamped into range, whether each id is this rank's)."""
+        local = ids.long() - self.lo
+        inside = (local >= 0) & (local < self.n)
+        return local.clamp(0, self.n - 1), inside
+
+
+def vocab_parallel_lookup(ids: torch.Tensor, table: torch.Tensor,
+                          vocab: VocabShard) -> torch.Tensor:
+    """Rows ``ids`` of a table whose rows are split over ``tensor``
+    (``table`` this rank's rows): each rank looks up its own words, zeros
+    the others, and the ranks' parts are summed."""
+    local, inside = vocab.local(ids)
+    rows = torch.nn.functional.embedding(local, table)
+    rows = rows * inside[..., None].to(rows.dtype)
+    return reduce_from(rows, vocab.mesh, "tensor")
+
+
+class _VocabCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, vocab):
+        mesh, group = vocab.mesh, vocab.mesh.group("tensor")
+        x = logits.float()
+        m = M.all_reduce_max(x.max(dim=-1).values, mesh, group)
+        e = torch.exp(x - m[:, None])
+        total = M.all_reduce_sum(e.sum(dim=-1), mesh, group)
+        local, inside = vocab.local(labels)
+        mine = x.gather(1, local[:, None])[:, 0] * inside
+        target = M.all_reduce_sum(mine, mesh, group)
+        ctx.save_for_backward(e, total, local, inside)
+        ctx.dtype = logits.dtype
+        return torch.log(total) + m - target
+
+    @staticmethod
+    def backward(ctx, grad):
+        e, total, local, inside = ctx.saved_tensors
+        p = e / total[:, None]
+        p.scatter_add_(1, local[:, None], -inside.float()[:, None])
+        return (p * grad[:, None]).to(ctx.dtype), None, None
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
+                      vocab: Optional[VocabShard]) -> torch.Tensor:
+    """Per-row cross-entropy in fp32 of logits (N, V) against labels (N,):
+    with ``vocab`` the logits are this rank's (N, V / tensor) columns, and
+    the logsumexp and the target's logit are taken over the ranks."""
+    if vocab is None:
+        return torch.nn.functional.cross_entropy(
+            logits.float(), labels.long(), reduction="none")
+    return _VocabCE.apply(logits, labels.long(), vocab)
+
+
+@torch.no_grad()
+def vocab_parallel_argmax(logits: torch.Tensor,
+                          vocab: Optional[VocabShard]) -> torch.Tensor:
+    """The argmax over the last dimension; with ``vocab`` over every rank's
+    columns, the lowest index among equal maxima, as ``torch.argmax``."""
+    if vocab is None:
+        return logits.argmax(dim=-1)
+    idx = logits.argmax(dim=-1)
+    values = logits.gather(-1, idx[..., None])[..., 0]
+    mesh = vocab.mesh
+    all_v = M.all_gather_stack(values.contiguous(), mesh, "tensor")
+    all_i = M.all_gather_stack((idx + vocab.lo).contiguous(), mesh, "tensor")
+    best = all_v.argmax(dim=0)
+    return all_i.gather(0, best[None])[0]

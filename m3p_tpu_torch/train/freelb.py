@@ -36,7 +36,6 @@ import torch
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel, lengths_to_mask
 from m3p_tpu_torch.parallel.data_parallel import batch_reduction
-from m3p_tpu_torch.train.optim import global_norm
 from m3p_tpu_torch.train.state import TrainState
 from m3p_tpu_torch.train.steps import (
     Batch, Metrics, _next_token_ce, expand_compact_batch, itm_grid_losses,
@@ -214,8 +213,7 @@ def make_freelb_itm_step(model: M3PModel, sample_n: int, adv: FreeLBConfig,
         mean = _free_passes(state, adv, loss_fn, d_text,
                             d_img.to(feats.dtype))
         metrics = state.sync_gradients({"loss": mean})
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = state.grad_norm()
         return state.apply_gradients(), metrics
 
     return step
@@ -298,7 +296,8 @@ def make_freelb_ic_step(model: M3PModel, adv: FreeLBConfig,
                                     causal=True, src_enc=src_enc,
                                     src_mask=img_mask,
                                     token_embeds=token_embeds)
-            loss, _, _ = _next_token_ce(model.word_logits(dec), y, y_mask)
+            loss, _, _ = _next_token_ce(model.shard_word_logits(dec), y,
+                                        y_mask, model.vocab_shard)
             return loss
 
         d_text, d_img = _initial_deltas(

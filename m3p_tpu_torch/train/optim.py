@@ -30,6 +30,9 @@ over an fp32 master copy in the optimizer state; it takes no accumulation,
 weight decay or guard, as in the JAX package.
 
 Every optimizer's ``apply`` returns whether it updated the parameters.
+Its ``norm_fn`` (default: `global_norm`, `optax_global_norm` for
+`FusedAdam`) takes the clip's global norm; over sharded parameters it is
+`parallel.sharding.sharded_global_norm`, which counts each element once.
 """
 
 from __future__ import annotations
@@ -142,14 +145,14 @@ class _Chain:
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],
               grads: Sequence[torch.Tensor], state: Dict[str, Any],
-              step: int) -> bool:
+              step: int, norm_fn: Optional[Callable] = None) -> bool:
         """Update ``params`` and ``state`` in place; ``step`` is the number
         of earlier updates.  Returns True (an update was made)."""
         grads = [g.float() for g in grads]
         if self.guard_nonfinite:
             grads = skip_nonfinite(grads)
         if self.clip_norm and self.clip_norm > 0:
-            norm = global_norm(grads)
+            norm = (norm_fn or global_norm)(grads)
             scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                 self.clip_norm / norm)
             grads = torch._foreach_mul(grads, scale)
@@ -303,7 +306,7 @@ class MultiSteps:
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],
               grads: Sequence[torch.Tensor], state: Dict[str, Any],
-              step: int) -> bool:
+              step: int, norm_fn: Optional[Callable] = None) -> bool:
         """Accumulate ``grads``; on the k-th call of a window update
         ``params``.  Returns whether it did."""
         acc, n = state["acc"], state["mini_step"]
@@ -314,7 +317,7 @@ class MultiSteps:
         if n + 1 < self.every_k:
             state["mini_step"] = n + 1
             return False
-        self.inner.apply(params, acc, state["inner"], step)
+        self.inner.apply(params, acc, state["inner"], step, norm_fn)
         torch._foreach_zero_(acc)
         state["mini_step"] = 0
         return True
@@ -363,7 +366,7 @@ class FusedAdam:
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],
               grads: Sequence[torch.Tensor], state: Dict[str, Any],
-              step: int) -> bool:
+              step: int, norm_fn: Optional[Callable] = None) -> bool:
         """Update ``params``, the moments and the master in place (the
         JAX ``fused_apply``); ``step`` is the number of earlier updates:
         the schedule reads it, bias correction uses t = step + 1.  Returns
@@ -372,7 +375,7 @@ class FusedAdam:
         t = step + 1
         g32 = [g.float() for g in grads]
         if self.clip_norm and self.clip_norm > 0:
-            norm = optax_global_norm(grads)
+            norm = (norm_fn or optax_global_norm)(grads)
             scale = torch.where(norm > self.clip_norm, self.clip_norm / norm,
                                 torch.ones_like(norm))
             g32 = torch._foreach_mul(g32, scale.float())

@@ -14,7 +14,11 @@ inner count of optax's schedule and Adam does.
 Under data or sequence parallelism ``mesh`` is the `parallel.mesh.Mesh`
 the gradients are averaged over (`sync_gradients`, before the clip), and
 the losses' counts reduce over its batch shards
-(`parallel.data_parallel.batch_reduction`)."""
+(`parallel.data_parallel.batch_reduction`).  Under parameter sharding
+(`parallel.sharding.shard_model`) the model's parameters, and so their
+gradients and the optimizer state made from them, are this rank's shards;
+the global norm then sums each element once over the ranks
+(`grad_norm`)."""
 
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from m3p_tpu_torch.train.optim import Optimizer
+from m3p_tpu_torch.train.optim import Optimizer, global_norm
 
 
 @dataclass
@@ -46,6 +50,20 @@ class TrainState:
         return average_over_ranks(self.mesh, self.model.parameters(),
                                   metrics)
 
+    def norm_fn(self):
+        """The global norm over this state's parameters: `global_norm`, or
+        over sharded parameters `parallel.sharding.sharded_global_norm`."""
+        from m3p_tpu_torch.parallel.sharding import sharded_global_norm
+
+        return sharded_global_norm(list(self.model.parameters()))
+
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of the parameters' gradients (missing ones are
+        zeros)."""
+        params = list(self.model.parameters())
+        return self.norm_fn()([p.grad if p.grad is not None
+                               else torch.zeros_like(p) for p in params])
+
     def apply_gradients(self) -> "TrainState":
         """One micro-step of the optimizer from the parameters' ``.grad``
         (an update, unless a `MultiSteps` window is still filling); a
@@ -54,7 +72,9 @@ class TrainState:
         params = list(self.model.parameters())
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        if self.tx.apply(params, grads, self.opt_state, self.step):
+        norm = self.norm_fn()
+        if self.tx.apply(params, grads, self.opt_state, self.step,
+                         None if norm is global_norm else norm):
             self.step += 1
         return self
 

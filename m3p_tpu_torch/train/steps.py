@@ -52,7 +52,8 @@ from m3p_tpu_torch.ops.topk import top_k
 from m3p_tpu_torch.parallel.data_parallel import (
     batch_reduction, gather_batch, shard_denominator, shard_position,
     shard_scale)
-from m3p_tpu_torch.train.optim import global_norm
+from m3p_tpu_torch.parallel.tensor_parallel import (
+    VocabShard, vocab_parallel_argmax, vocab_parallel_ce)
 from m3p_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -126,14 +127,17 @@ def itm_finetune_loss(model: M3PModel, batch: Batch,
 
 
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
-              weights: torch.Tensor) -> torch.Tensor:
+              weights: torch.Tensor, vocab: Optional[VocabShard] = None
+              ) -> torch.Tensor:
     """Mean CE over the weighted slots, in fp32 (the reference's mean over
     masked positions; `m3p_tpu/train/steps.py:78-84`).  Under data
     parallelism the count is the global batch's
-    (`parallel.data_parallel.shard_denominator`)."""
-    ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                         labels.long().clamp_min(0).reshape(-1),
-                         reduction="none").view(labels.shape)
+    (`parallel.data_parallel.shard_denominator`); with ``vocab`` the logits
+    are this rank's vocabulary columns (`M3PModel.shard_word_logits`) and
+    the CE is taken over the ranks' columns."""
+    ce = vocab_parallel_ce(logits.reshape(-1, logits.shape[-1]),
+                           labels.long().clamp_min(0).reshape(-1),
+                           vocab).view(labels.shape)
     return (ce * weights).sum() / shard_denominator(weights.sum())
 
 
@@ -161,26 +165,26 @@ def mlm_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
     hidden = model.encode_text(masked.long(), text_mask, batch.get("langs"),
                                deterministic=deterministic,
                                generator=generator)
-    logits = model.word_logits(_gather_rows(hidden, positions))
-    loss = masked_ce(logits, labels, weights)
+    logits = model.shard_word_logits(_gather_rows(hidden, positions))
+    loss = masked_ce(logits, labels, weights, model.vocab_shard)
     return loss, {"mlm": loss.detach()}
 
 
 def _next_token_ce(logits: torch.Tensor, y: torch.Tensor,
-                   y_mask: torch.Tensor
+                   y_mask: torch.Tensor, vocab: Optional[VocabShard] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(mean CE over the weighted positions in fp32, accuracy of the argmax,
     number of weighted positions) of logits (B, T, V) against labels y
     (B, T).  Under data parallelism the means are over the global batch's
     positions and the number is scaled so that its mean over the batch
-    shards is the global count."""
+    shards is the global count; ``vocab`` as in `masked_ce`."""
     y = y.long()
-    ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                         y.reshape(-1), reduction="none").view(y.shape)
+    ce = vocab_parallel_ce(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1), vocab).view(y.shape)
     n_words = y_mask.sum()
     denom = shard_denominator(n_words)
     loss = (ce * y_mask).sum() / denom
-    hits = (logits.detach().argmax(dim=-1) == y).float()
+    hits = (vocab_parallel_argmax(logits.detach(), vocab) == y).float()
     return loss, (hits * y_mask).sum() / denom, n_words * shard_scale()
 
 
@@ -198,8 +202,9 @@ def seq2seq_ce(model: M3PModel, src_enc: torch.Tensor,
                             None if langs is None else langs[:, :-1].long(),
                             None, deterministic, generator, causal=True,
                             src_enc=src_enc, src_mask=src_mask)
-    loss, acc, n_words = _next_token_ce(model.word_logits(dec), y,
-                                        tgt_mask[:, 1:].float())
+    loss, acc, n_words = _next_token_ce(model.shard_word_logits(dec), y,
+                                        tgt_mask[:, 1:].float(),
+                                        model.vocab_shard)
     return loss, {"ce": loss.detach(), "acc": acc, "n_words": n_words}
 
 
@@ -272,7 +277,8 @@ def clm_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
     hidden = model.encode_text(
         x, text_mask[:, :-1], None if langs is None else langs[:, :-1].long(),
         None, deterministic, generator, causal=True)
-    loss, acc, _ = _next_token_ce(model.word_logits(hidden), y, y_mask)
+    loss, acc, _ = _next_token_ce(model.shard_word_logits(hidden), y,
+                                  y_mask, model.vocab_shard)
     return loss, {"clm": loss.detach(), "acc": acc}
 
 
@@ -335,8 +341,9 @@ def pc_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
         None if positions is None else positions.long(), deterministic,
         generator)
     h0 = hidden[:, 0].float()
-    emb = model.text_emb.word.weight.float()
-    logits = h0 @ emb[clf_ids[0]] + emb[clf_ids[1], 0]
+    rows = model.text_emb.word.rows(
+        torch.tensor(clf_ids, device=h0.device), torch.float32)
+    logits = h0 @ rows[0] + rows[1, 0]
     labels = batch["labels"].float()
     loss = F.binary_cross_entropy_with_logits(logits, labels)
     acc = ((logits.detach() > 0) == (labels > 0)).float().mean()
@@ -363,8 +370,9 @@ def mass_loss(model: M3PModel, batch: Batch, generator: Optional[Generators],
                             batch["dec_pos"].long(), deterministic,
                             generator, causal=True, src_enc=src_enc,
                             src_mask=enc_mask)
-    loss, _, _ = _next_token_ce(model.word_logits(dec), batch["targets"],
-                                tgt_mask)
+    loss, _, _ = _next_token_ce(model.shard_word_logits(dec),
+                                batch["targets"], tgt_mask,
+                                model.vocab_shard)
     return loss, {"mass": loss.detach()}
 
 
@@ -499,8 +507,8 @@ def mct_pretrain_loss(model: M3PModel, batch: Batch,
     pack_w, pack_idx = _global_top_k(
         w_t.reshape(-1), lambda n: max(int(n * pack_ratio), 1))
     g_pack = _pack(_gather_rows(text_out, pos_t), pack_idx)
-    mlm = masked_ce(model.word_logits(g_pack),
-                    _pack(lab_t, pack_idx), pack_w)
+    mlm = masked_ce(model.shard_word_logits(g_pack),
+                    _pack(lab_t, pack_idx), pack_w, model.vocab_shard)
 
     # MC-MRM and MRFR: the same packing with a fixed 0.5 budget
     packr_w, packr_idx = _global_top_k(w_r.reshape(-1),
@@ -563,9 +571,7 @@ def make_train_step(loss_fn: Callable[..., Tuple[torch.Tensor, Metrics]],
         loss.backward()
         metrics = dict(state.sync_gradients(dict(metrics)))
         if with_grad_norm:
-            metrics["grad_norm"] = global_norm(
-                [p.grad for p in state.model.parameters()
-                 if p.grad is not None])
+            metrics["grad_norm"] = state.grad_norm()
         return state.apply_gradients(), metrics
 
     return step

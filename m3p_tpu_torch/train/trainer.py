@@ -26,10 +26,14 @@ every global batch (``batch_size / (data x fsdp)`` rows: the row loader's
 strided slice of the records, or every count-th batch of an iterator seeded
 alike on every rank); its generators fold in the shard index; the gradients
 are averaged over the ranks before the clip (`TrainState.sync_gradients`).
-With ``seq > 1`` the steps run through `parallel.sp.SPModel`.  The save
-decision is collective every ``save_check_every`` steps; rank 0 writes the
-model, every rank its own loader state.  Parameter sharding (fsdp, tensor,
-expert) and the pipeline are items 16b and 16c of ROADMAP.md and raise.
+With ``seq > 1`` the steps run through `parallel.sp.SPModel`.  With
+``fsdp``, ``tensor`` or ``expert`` above 1 the model's parameters are
+sharded after the broadcast (`parallel.sharding.shard_model`, the
+counterpart of `m3p_tpu/train/trainer.py:86-99`), and the optimizer state
+made from them holds shards too.  The save decision is collective every
+``save_check_every`` steps; the state is gathered whole, rank 0 writes
+it, every rank its own loader state.  The pipeline is item 16c of
+ROADMAP.md and raises.
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ from m3p_tpu_torch.data.row_pipeline import (
     make_row_loader, restore_loader_state, save_loader_state, supports_grain)
 from m3p_tpu_torch.model.layers import Generators
 from m3p_tpu_torch.model.transformer import M3PModel
-from m3p_tpu_torch.parallel.sharding import check_mesh_supported
+from m3p_tpu_torch.parallel.sharding import (
+    check_mesh_supported, is_sharded, shard_bytes, shard_model)
 from m3p_tpu_torch.train import steps as S
 from m3p_tpu_torch.train.optim import build_optimizer
 from m3p_tpu_torch.train.state import create_train_state
@@ -79,6 +84,13 @@ class Trainer:
         if self.mesh is not None:
             check_mesh_supported(self.mesh.shape)
             broadcast_parameters(model, self.mesh)
+            if is_sharded(self.mesh.shape):
+                shard_model(model, self.mesh)
+                held = shard_bytes(model)
+                logger.info("parameters sharded over %s: %d of %d bytes on "
+                            "this rank", {a: self.mesh.shape[a] for a in (
+                                "fsdp", "tensor", "expert")},
+                            held["local"], held["whole"])
             if self.mesh.shape["seq"] > 1:
                 from m3p_tpu_torch.parallel.sp import SPModel
 

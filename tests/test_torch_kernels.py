@@ -228,6 +228,60 @@ def test_packed_attention_kernel_bf16_at_serving_shapes(cuda_device, b, h, dh,
     torch.testing.assert_close(got, want, **TOL_BF16)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["packed", "flash", "small"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_a_call_over_some_heads_draws_their_slice_on_the_card(
+        cuda_device, entry, dtype):
+    """The Philox head offset of kernels #1-#6: a call over heads 6-11 of 12
+    (head_base 6, heads_total 12) at rate 0.3 gives bitwise the slice of
+    the call over all 12 heads, its output and its gradients (a tensor-
+    parallel rank's heads draw what one process draws for them), and the
+    kernel agrees with its plain version at those arguments."""
+    b, s, h, dh, rate, seed = 2, 40, 12, 64, 0.3, 4242
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(b, s, h * dh, device="cuda", generator=g
+                               ).to(dtype) for _ in range(4))
+    mask = torch.arange(s, device="cuda")[None] < torch.tensor(
+        [[s], [29]], device="cuda")
+    cols = slice(6 * dh, 12 * dh)
+    half = dict(head_base=6, heads_total=12)
+
+    def run(qq, kk, vv, dd, heads, **kw):
+        qq, kk, vv = (t.detach().requires_grad_() for t in (qq, kk, vv))
+        if entry == "small":
+            split = [t.view(b, s, heads, dh).transpose(1, 2)
+                     for t in (qq, kk, vv, dd)]
+            out = attention_ops.small_attention(
+                *split[:3], mask, dropout_rate=rate, dropout_seed=seed,
+                **kw)
+            out.backward(split[3])
+            out = out.transpose(1, 2).reshape(b, s, heads * dh)
+        else:
+            fn = (attention_ops.attention_packed if entry == "packed"
+                  else attention_ops.attention_flash)
+            out = fn(qq, kk, vv, mask, heads, dropout_rate=rate,
+                     dropout_seed=seed, **kw)
+            out.backward(dd)
+        return [out.detach(), qq.grad, kk.grad, vv.grad]
+
+    whole = run(q, k, v, do, h)
+    part = run(q[..., cols], k[..., cols], v[..., cols], do[..., cols], 6,
+               **half)
+    torch.cuda.synchronize()
+    for a, c in zip(whole, part):
+        assert torch.equal(a[..., cols], c)
+    if entry != "small":
+        plain = (attention_ops.attention_packed_reference
+                 if entry == "packed" else
+                 attention_ops.attention_flash_reference)(
+            q[..., cols], k[..., cols], v[..., cols], mask, 6, False, None,
+            rate, seed, **half)
+        torch.testing.assert_close(part[0], plain,
+                                   **(TOL if dtype == torch.float32
+                                      else TOL_BF16))
+
+
 def _grad_inputs(device, case, dtype):
     b, h, dh, sq, sk, lens, causal = case
     q, k, v, mask = _on(device, packed_inputs(b, h, dh, sq, sk, lens), dtype)

@@ -12,6 +12,7 @@ the results against JAX in the test process.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import subprocess
@@ -59,11 +60,20 @@ class RankPool:
     def run(self, fn: str, **kwargs) -> List[Any]:
         """Every rank's result of ``fn(**kwargs)``; raises with the
         ranks' tracebacks if one failed."""
+        return self.submit(fn, **kwargs)()
+
+    def submit(self, fn: str, **kwargs):
+        """Hand the ranks ``fn(**kwargs)`` and return at once a function
+        that waits for their results (as `run` returns them), so the test
+        process can work meanwhile."""
         i = self.n
         self.n += 1
         tmp = os.path.join(self.dir, f".task_{i}.pt")
         torch.save({"fn": fn, "kwargs": kwargs}, tmp)
         os.replace(tmp, os.path.join(self.dir, f"task_{i}.pt"))
+        return lambda: self._results(i, fn)
+
+    def _results(self, i: int, fn: str) -> List[Any]:
         paths = [os.path.join(self.dir, f"result_{i}_{r}.pt")
                  for r in range(self.world)]
         deadline = time.time() + self.timeout_s
@@ -351,13 +361,20 @@ def record_data(vocab: str, n_groups: int, caption: bool = False):
 def train_main(argv, vocab: str, n_groups: int, caption: bool = False
                ) -> Dict[str, Any]:
     """`cli.train_x.main` on this rank (the process group is the pool's):
-    the trained parameters and the trainer's counters."""
+    the trained parameters (whole, gathered over a sharded mesh) and the
+    trainer's counters."""
     from m3p_tpu_torch.cli import train_x
+
+    from m3p_tpu_torch.parallel.sharding import (
+        gather_train_state, model_is_sharded)
 
     trainer = train_x.main(argv + ["--device", "cpu"],
                            data=record_data(vocab, n_groups, caption))
-    return {"params": {n: p.detach().numpy().copy()
-                       for n, p in trainer.model.named_parameters()},
+    params = (gather_train_state(trainer.state)["model"]
+              if model_is_sharded(trainer.model)
+              else dict(trainer.model.named_parameters()))
+    return {"params": {n: params[n].detach().numpy().copy()
+                       for n, _ in trainer.model.named_parameters()},
             "n_total_iter": trainer.n_total_iter,
             "shards": (trainer.shard_index, trainer.shard_count),
             "mesh": dict(trainer.mesh.shape),
@@ -377,6 +394,169 @@ def merge_scores(n_img: int, n_cap: int) -> np.ndarray:
                     % world == rank, whole, 0).astype(np.float32)
     return merge_process_scores(part)
 
+
+
+def _shard_draws(draws, sh):
+    from m3p_tpu_torch.parallel.sharding import shard_batch
+
+    out = {}
+    for k, v in draws.items():
+        if isinstance(v, (list, tuple)):
+            out[k] = [shard_batch(torch.tensor(a), sh) for a in v]
+        else:
+            out[k] = shard_batch(torch.tensor(v), sh)
+    return out
+
+
+def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
+                 clip=0.0, draws=None, mask_cfg=None, sample_n: int = 2,
+                 seed=None, fault=None, whole=True) -> Dict[str, Any]:
+    """One step of ``kind`` ("itm", "mlm" or "mct") on this rank's shard of
+    the global ``batch`` over a mesh of ``mesh_axes``, the model sharded
+    over its fsdp / tensor / expert axes (`shard_model`, as the trainer
+    does).  ``draws``: the maskings (and MCT's coin) of the global batch,
+    sharded alike; ``seed``: a training forward (dropout on) from
+    generators of that seed with the batch shard folded in, else
+    deterministic.  ``fault`` plants one: "row_no_reduce" skips the
+    row-parallel all-reduce, "local_ce" takes the vocabulary CE rank-local.
+    Returns the loss, the grad norm and the whole updated parameters
+    (gathered), or this rank's shards when not ``whole``."""
+    import contextlib
+
+    from m3p_tpu_torch.data.masking import MaskingConfig
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.parallel import tensor_parallel as TP
+    from m3p_tpu_torch.parallel.sharding import (
+        batch_sharding, gather_train_state, is_sharded, shard_batch,
+        shard_model)
+    from m3p_tpu_torch.train import steps as S
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    model = _model(cfg_dict, state)
+    mesh = _mesh(**mesh_axes)
+    if is_sharded(mesh.shape):
+        shard_model(model, mesh)
+    sh = batch_sharding(mesh)
+    local = shard_batch({k: torch.tensor(v) for k, v in batch.items()}, sh)
+    local_draws = _shard_draws(draws or {}, sh)
+    tx, _ = build_optimizer(spec, clip_grad_norm=clip)
+    st = create_train_state(model, tx, mesh)
+    det = seed is None
+    mcfg = MaskingConfig(**(mask_cfg or {}))
+    handle = model
+    if mesh.shape["seq"] > 1:
+        from m3p_tpu_torch.parallel.sp import SPModel
+
+        handle = SPModel(model, mesh)
+
+    def loss_fn(_m, b, gen):
+        if kind == "mlm":
+            return S.mlm_loss(handle, b, gen, mcfg, deterministic=det,
+                              masking=local_draws.get("masking"))
+        if kind == "itm":
+            return S.itm_finetune_loss(handle, b, gen, sample_n,
+                                       deterministic=det)
+        return S.mct_pretrain_loss(handle, b, gen, mcfg, sample_n,
+                                   deterministic=det, pack_ratio=0.5,
+                                   **local_draws)
+
+    gen = None if det else Generators.from_seed(seed, "cpu",
+                                                 mesh.batch_shards[0])
+    with contextlib.ExitStack() as stack:
+        if fault == "row_no_reduce":
+            stack.enter_context(_patched(
+                "m3p_tpu_torch.model.layers", "reduce_from",
+                lambda x, m, a: x if a == "tensor" else TP.reduce_from(
+                    x, m, a)))
+        elif fault == "local_ce":
+            stack.enter_context(_patched(
+                S, "vocab_parallel_ce",
+                lambda lg, lb, v: TP.vocab_parallel_ce(lg, lb, None)
+                if v is None else torch.nn.functional.cross_entropy(
+                    lg.float(), v.local(lb)[0], reduction="none")))
+        step = S.make_train_step(loss_fn, with_grad_norm=True)
+        _, metrics = step(st, local, gen)
+    params = (gather_train_state(st)["model"] if whole
+              else {n: p.detach() for n, p in model.named_parameters()})
+    return {"loss": float(metrics["loss" if "loss" in metrics else "mlm"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "params": {n: v.detach().numpy().copy()
+                       for n, v in params.items()},
+            "local_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}
+
+
+def sharded_grid(cfg_dict, state, mesh_axes, pool, cap_to_img,
+                 chunk_size: int = 4) -> Dict[str, Any]:
+    """`Evaluator.evaluate_retrieval_test` on a model sharded over a mesh
+    of ``mesh_axes``: its R@k and the merged score matrix it took them
+    from."""
+    from m3p_tpu_torch.config import ModelConfig, TrainConfig
+    from m3p_tpu_torch.eval import evaluator as E
+    from m3p_tpu_torch.parallel.sharding import shard_model
+
+    model = _model(cfg_dict, state)
+    shard_model(model, _mesh(**mesh_axes))
+    seen = {}
+    recall = E.recall_at_k
+
+    def keep(scores, c2i):
+        seen["scores"] = np.asarray(scores)
+        return recall(scores, c2i)
+
+    cap_tokens, cap_len, feats, locs, img_len = pool
+    with _patched(E, "recall_at_k", keep):
+        r = E.Evaluator(model, TrainConfig(model=ModelConfig(**cfg_dict))
+                        ).evaluate_retrieval_test(
+            cap_tokens, cap_len, cap_to_img, feats, locs, img_len,
+            chunk_size=chunk_size)
+    return {"recall": r, "scores": seen["scores"]}
+
+
+@contextlib.contextmanager
+def _patched(owner, name, value):
+    import importlib
+
+    if isinstance(owner, str):
+        owner = importlib.import_module(owner)
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def checkpoint_trip(cfg_dict, state, mesh_axes, path, spec="adam,lr=0.01",
+                    save: bool = True) -> Dict[str, Any]:
+    """A whole train state placed on the mesh (`shard_train_state`), after
+    one Adam update of planted gradients saved to ``path`` (``save``), or
+    restored from it: the whole parameters and optimizer moments this rank
+    sees, gathered."""
+    from m3p_tpu_torch import checkpoint as ckpt
+    from m3p_tpu_torch.parallel.sharding import (
+        gather_train_state, shard_train_state)
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    model = _model(cfg_dict, state)
+    mesh = _mesh(**mesh_axes)
+    tx, _ = build_optimizer(spec)
+    st, specs = shard_train_state(create_train_state(model, tx), mesh)
+    assert len(specs["opt_state"]["mu"]) == len(specs["params"])
+    if save:
+        for i, p in enumerate(model.parameters()):
+            p.grad = torch.full_like(p, 0.01 * (i % 7 + 1))
+        st.apply_gradients()
+        ckpt.save_checkpoint(path, st, {"epoch": 3})
+    else:
+        st, _ = ckpt.restore_checkpoint(path, st)
+    got = gather_train_state(st)
+    return {"step": st.step,
+            "model": {k: v.numpy() for k, v in got["model"].items()},
+            "mu": [t.numpy() for t in got["opt_state"]["mu"]],
+            "nu": [t.numpy() for t in got["opt_state"]["nu"]]}
 
 
 if __name__ == "__main__":

@@ -333,9 +333,10 @@ def test_active_tasks_from_the_step_flags_match_jax():
 
 def test_trainer_refuses_what_item_16_brings(tmp_path):
     """A mesh is taken (one rank here: the trainer runs as without one;
-    `tests/test_torch_parallel.py` runs several); ``seq`` in the config
-    without a mesh runs unsharded, as in JAX; parameter sharding (item 16b)
-    and the pipeline (item 16c) still raise."""
+    `tests/test_torch_parallel.py` and `tests/test_torch_sharding.py` run
+    several); ``seq``, ``fsdp``, ``tensor`` and ``expert`` in the config
+    without a mesh run unsharded, as in JAX; the pipeline (item 16c) still
+    raises."""
     from m3p_tpu_torch.parallel.mesh import make_mesh
 
     cfg = C.small_test_config(dump_path=str(tmp_path))
@@ -345,11 +346,12 @@ def test_trainer_refuses_what_item_16_brings(tmp_path):
     assert (trainer.shard_index, trainer.shard_count) == (0, 1)
     seq = cfg.replace(mesh=dataclasses.replace(cfg.mesh, seq=2))
     assert Trainer(seq, model).loss_model is model
-    for axis, item in (("fsdp", "16b"), ("tensor", "16b"),
-                       ("expert", "16b"), ("pp", "16c")):
-        bad = cfg.replace(mesh=dataclasses.replace(cfg.mesh, **{axis: 2}))
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            Trainer(bad, model)
+    for axis in ("fsdp", "tensor", "expert"):
+        one = cfg.replace(mesh=dataclasses.replace(cfg.mesh, **{axis: 2}))
+        assert Trainer(one, model).mesh is None
+    bad = cfg.replace(mesh=dataclasses.replace(cfg.mesh, pp=2))
+    with pytest.raises(NotImplementedError, match="item 16c"):
+        Trainer(bad, model)
 
 
 def _small_batches(cfg, rng):
