@@ -514,6 +514,28 @@ def sharded_grid(cfg_dict, state, mesh_axes, pool, cap_to_img,
     return {"recall": r, "scores": seen["scores"]}
 
 
+def sharded_decode(cfg_dict, state, mesh_axes, feats, locs, img_len,
+                   max_len: int, beam: int) -> Dict[str, Any]:
+    """Greedy and beam captions of an image batch on a model sharded over a
+    mesh of ``mesh_axes`` (the decode cache holds this rank's heads, a
+    step's logits are gathered over ``tensor``), with the scores of each
+    step's last greedy logits."""
+    from m3p_tpu_torch.model import lengths_to_mask
+    from m3p_tpu_torch.model.generation import beam_search, greedy_generate
+    from m3p_tpu_torch.parallel.sharding import shard_model
+
+    model = _model(cfg_dict, state)
+    shard_model(model, _mesh(**mesh_axes))
+    mask = lengths_to_mask(torch.tensor(img_len), feats.shape[1])
+    with torch.no_grad():
+        enc = model.encode_image(torch.tensor(feats), torch.tensor(locs),
+                                 mask)
+        greedy = greedy_generate(model, enc, mask, max_len)
+        beams = beam_search(model, enc, mask, beam, max_len)
+    return {"greedy": [t.numpy() for t in greedy],
+            "beam": [t.numpy() for t in beams], "enc": enc.numpy()}
+
+
 @contextlib.contextmanager
 def _patched(owner, name, value):
     import importlib

@@ -25,7 +25,8 @@ relative and parameters after a step to 1e-4 of each leaf (`TOL`), as in
 * tensor 2 at dropout 0.1 is the one-process step; planted faults are seen;
 * checkpoints: 4 sharded ranks to one process and back, bitwise;
 * `train_x.main` under --mesh_fsdp 2 --mesh_tensor 2 against one process;
-* the evaluator's retrieval grid on data 2 x tensor 2 against one process;
+* the evaluator's retrieval grid on data 2 x tensor 2, greedy and beam
+  decoding on fsdp 2 x tensor 2, against one process;
 * the mesh's groups over tuples of axes.
 """
 
@@ -641,6 +642,41 @@ def test_retrieval_grid_on_a_sharded_model_is_the_one_process_grid(
     for r in ranks:
         np.testing.assert_allclose(r["scores"], want, rtol=0, atol=2e-5)
         assert r["recall"] == recall
+
+
+def test_decoding_on_a_sharded_model_is_the_one_process_decoding(
+        pools, small):
+    """Greedy and beam-2 captions on fsdp 2 x tensor 2: the decode cache
+    holds each rank's heads, cross-attention projects the source once, a
+    step's logits are gathered over ``tensor``; the image encoding within
+    fp32 summation noise and the tokens and lengths those of one
+    process."""
+    from m3p_tpu_torch.model import lengths_to_mask
+    from m3p_tpu_torch.model.generation import beam_search, greedy_generate
+
+    rng = np.random.RandomState(10)
+    feats = rng.randn(2, REGIONS, 2048).astype(np.float32)
+    locs = rng.rand(2, REGIONS, 5).astype(np.float32)
+    img_len = np.array([REGIONS, 5], np.int64)
+    ranks = pools(4).run("sharded_decode", cfg_dict=small["cfg"],
+                         state=small["state"],
+                         mesh_axes={"fsdp": 2, "tensor": 2}, feats=feats,
+                         locs=locs, img_len=img_len, max_len=6, beam=2)
+    model = build_model(ModelConfig(**small["cfg"]), 0, "cpu")
+    model.load_state_dict({k: torch.tensor(v)
+                           for k, v in small["state"].items()})
+    mask = lengths_to_mask(torch.tensor(img_len), REGIONS)
+    with torch.no_grad():
+        enc = model.encode_image(torch.tensor(feats), torch.tensor(locs),
+                                 mask)
+        greedy = greedy_generate(model, enc, mask, 6)
+        beams = beam_search(model, enc, mask, 2, 6)
+    for r in ranks:
+        np.testing.assert_allclose(r["enc"], enc.numpy(), rtol=0,
+                                   atol=2e-5)
+        for got, want in ((r["greedy"], greedy), (r["beam"], beams)):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w.numpy())
 
 
 def test_mesh_groups_span_tuples_of_axes(monkeypatch):
