@@ -70,6 +70,16 @@ REGIONS = 8
 SPEC = "adam,lr=0.001,eps=0.001"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def quick_jax_compiles():
+    """XLA's optimizations off while this module compiles its JAX
+    references (most of its time): fp32 values at the tolerances here do
+    not move."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    yield
+    jax.config.update("jax_disable_most_optimizations", False)
+
+
 @pytest.fixture(scope="module")
 def pools(tmp_path_factory):
     made = {}
