@@ -6,8 +6,9 @@ The port's ranks are gloo processes (`test_torch_ranks.RankPool`, pools of
 2, 4 and 8 for the module); the JAX side runs the one-process step on the
 global batch in this process.  fp32 throughout: the frameworks, and the
 ranks against one process, sum in other orders, so losses agree to 1e-5
-relative and parameters after a step to 1e-4 of each leaf (`TOL`), as in
-`test_torch_parallel.py`.
+relative and parameters after a step to 1e-4 (`TOL`), as in
+`test_torch_parallel.py`; the sharded port against the port in one
+process to 1e-5 (`TOL_ONE`).
 
 * the logical-axes table against `get_param_pspecs` of the JAX model, leaf
   by leaf, for the small tree, the scale-up tree and a tree with MoE, the
@@ -64,6 +65,9 @@ from test_torch_ranks import RankPool
 torch.set_num_threads(1)
 
 TOL = dict(rtol=1e-4, atol=1e-6)
+# the sharded port against the port in one process: the same kernels and
+# the same arithmetic, summed in other orders over the ranks
+TOL_ONE = dict(rtol=1e-5, atol=1e-7)
 LOSS_RTOL = 1e-5
 SAMPLE_N = 2
 REGIONS = 8
@@ -140,7 +144,7 @@ def _jax_step(built, loss_fn, batch, spec=SPEC, clip=0.0, key=3):
     return params_from_jax(jax.tree.map(np.asarray, state.params)), metrics
 
 
-def _compare(ranks, want, loss, grad_norm=None, where=""):
+def _compare(ranks, want, loss, grad_norm=None, where="", tol=TOL):
     for r in ranks:
         np.testing.assert_allclose(r["loss"], loss, rtol=LOSS_RTOL,
                                    err_msg=where)
@@ -150,7 +154,7 @@ def _compare(ranks, want, loss, grad_norm=None, where=""):
         assert set(r["params"]) == set(want), where
         for name, w in want.items():
             np.testing.assert_allclose(r["params"][name], np.asarray(w),
-                                       **TOL, err_msg=f"{where} {name}")
+                                       **tol, err_msg=f"{where} {name}")
 
 
 def _compare_gradients(ranks, want, before, loss, grad_norm, where=""):
@@ -415,7 +419,7 @@ def test_tensor_two_at_dropout_is_the_one_process_step(pools, small):
                       Generators.from_seed(11, "cpu"))
     want = {n: p.detach().numpy() for n, p in model.named_parameters()}
     _compare(ranks, want, metrics["loss"].item(),
-             metrics["grad_norm"].item(), "dropout")
+             metrics["grad_norm"].item(), "dropout", TOL_ONE)
 
 
 @pytest.mark.parametrize("fault", ["row_no_reduce", "local_ce"])
@@ -610,7 +614,7 @@ def test_train_x_on_fsdp_by_tensor_trains_what_one_process_trains(
     for name, p in one.model.named_parameters():
         for r in ranks:
             np.testing.assert_allclose(r["params"][name],
-                                       p.detach().numpy(), **TOL,
+                                       p.detach().numpy(), **TOL_ONE,
                                        err_msg=name)
     # the checkpoint rank 0 wrote is the one-process format
     saved = torch.load(tmp_path / "sh" / "fsdp_tp" / "r" / "checkpoint" /
