@@ -9119,14 +9119,22 @@ def p19_checks(cfg):
 
 
 def p19_rank(cfg):
-    """A rank of phase 19: (a), then (b)-(d); one JSON per rank."""
+    """A rank of phases 20 and 19 (one launch: a launch costs about 25 s
+    beyond its ranks' work on an H100 80GB HBM3 host): phase 20's part
+    first, in fresh processes, then phase 19's (a), then (b)-(d); one
+    JSON per rank."""
     import torch.distributed as dist
 
     from m3p_tpu_torch.parallel.mesh import auto_init_distributed
 
     auto_init_distributed("cuda")
+    t = time.time()
+    p20 = {"a": p20_full_width(cfg)}
+    t1 = time.time()
+    p20["b"] = p20_checks(cfg)
+    p20["seconds"] = {"a": t1 - t, "b": time.time() - t1}
     t0 = time.time()
-    out = {"a": p19_preset(cfg)}
+    out = {"p20": p20, "a": p19_preset(cfg)}
     t1 = time.time()
     out.update(p19_checks(cfg))
     out["seconds"] = {"a": t1 - t0, "checks": time.time() - t1}
@@ -9246,8 +9254,10 @@ def remat_memory(seed):
 
 def sharding_slice(seed):
     """Phase 19: (a)-(d) on 4 ranks (`p19_rank`), the head offset on the
-    card, remat's memory.  Its own launch: the ranks of 18(b), going on to
-    this part, took twice as long over it on an H100 80GB HBM3."""
+    card, remat's memory.  Its own launch, shared with phase 20 (which
+    runs first on the ranks): the ranks of 18(b), going on to this part,
+    took twice as long over it on an H100 80GB HBM3.  Returns (phase 19's
+    numbers, phase 20's results by rank)."""
     t0 = time.time()
     heads = check_head_offset()
     sublap("p19_head_offset")
@@ -9325,13 +9335,341 @@ def sharding_slice(seed):
                     "moe_data2_expert2": zero["c_moe"],
                     "checkpoint": [r["d"] for r in ranks]},
            "head_offset_max_abs_diff": heads, "remat": remat,
-           "phase_s": time.time() - t0}
+           "phase_s": time.time() - t0 - sum(
+               zero["p20"]["seconds"].values())}
     log(f"[sharding] phase 19: {json.dumps(out)}")
+    return out, [dict(res["p20"], launch_s=secs) for res in ranks]
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the GPipe pipeline over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (a) the flagship (12 x 768, 12 heads, 250,002 words, bf16, dropout and
+# attention dropout 0.1) through `train_x.main` on phase 19's 4 ranks
+# (`p19_rank` runs this part first) as pp 2 x data 2
+# with 4 microbatches: the ITM fine-tune step (refiner on), one warm-up and
+# P20_TIMED timed micro-steps; a data shard's 32 rows (8 groups of 4) at 64
+# tokens and 100 regions make microbatches of 8 rows of 164 positions.
+P20_TIMED = 1
+P20_B, P20_SAMPLE_N, P20_TEXT, P20_REGIONS = 16, 4, 64, 100
+P20_STAGES, P20_M, P20_LAYERS, P20_REFINE = 2, 4, 12, 3
+P20_ARGV = [
+    "--lgs", "en", "--emb_dim", "768", "--n_layers", str(P20_LAYERS),
+    "--n_heads", "12", "--fp16", "True", "--cross_rel_steps", "coco-img",
+    "--refine_image", "True", "--batch_size", str(P20_B),
+    "--sample_n", str(P20_SAMPLE_N), "--max_len", str(P20_TEXT),
+    "--max_region_num", str(P20_REGIONS),
+    "--epoch_size", str(P20_B * (1 + P20_TIMED)), "--max_epoch", "1",
+    "--use_grain", "False", "--optimizer",
+    "adam_inverse_sqrt,lr=0.0001,warmup_updates=100",
+    "--clip_grad_norm", str(CLIP), "--dropout", str(RATE),
+    "--attention_dropout", str(RATE), "--pp_stages", str(P20_STAGES),
+    "--pp_microbatches", str(P20_M), "--mesh_data", "2", "--device", "cuda",
+    "--exp_name", "p20", "--exp_id", "a"]
+# (b) fp32 at depth 4, full width, a 32,002-word vocabulary (as phase 19
+# cuts it): the ITM step on pp 2 x data 2 (2 microbatches of a shard's 4
+# rows) and on pp 2 x fsdp 2 against one process on the same global
+# batch, per leaf at TOL_P19_FP32; the planted fault (``pp`` left out of
+# the gradient reduction) must break it; at dropout 0.1 with the fused
+# residual dropout
+# (#7), the pipelined forward against one process fed the same
+# per-(microbatch, layer) seeds (a one-stage `PPModel`).
+P20_CHECK_LAYERS, P20_CHECK_M = 4, 2
+
+
+class RetrievalRows:
+    """ITM retrieval batches of `data.synthetic.make_retrieval_batch`, a
+    stream seeded alike on every rank (each batch shard takes every
+    count-th batch of it)."""
+
+    def __init__(self, seed, n_words):
+        self.seed, self.n_words = seed, n_words
+
+    def __len__(self):
+        return 1 << 20
+
+    def epoch_iterator(self, batch_size, epoch=0):
+        import numpy as np
+
+        from m3p_tpu_torch.data.synthetic import make_retrieval_batch
+
+        rng = np.random.RandomState(self.seed + epoch)
+        while True:
+            yield make_retrieval_batch(rng, batch_size, P20_SAMPLE_N,
+                                       P20_TEXT, P20_REGIONS, self.n_words)
+
+
+def p20_launches_per_step():
+    """#1 / #2 a rank a step: each of the M microbatches through the
+    stage's n_layers / S blocks, the refiner's 3 on every rank (bubble
+    steps compute nothing); #2 twice that."""
+    fwd = P20_M * P20_LAYERS // P20_STAGES + P20_REFINE
+    return {"packed_fwd": fwd, "packed_bwd": 2 * fwd}
+
+
+def p20_boundary_bytes():
+    """The bytes of one microbatch's activation at a stage boundary:
+    (B / data / M, S, 768) bf16."""
+    rows = P20_B // 2 * P20_SAMPLE_N // P20_M
+    return rows * (P20_TEXT + P20_REGIONS) * 768 * 2
+
+
+def p20_full_width(cfg):
+    """20(a) on one rank: the flagship ITM steps through train_x.main."""
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.data.loader import LoadedData
+    from m3p_tpu_torch.parallel import data_parallel as DP
+    from m3p_tpu_torch.parallel import mesh as PM
+
+    seed, tmp = cfg["seed"], cfg["tmp"]
+    data = LoadedData(train_datasets={("rel", "coco"): RetrievalRows(
+        seed, 250002)}, tokenizer=None)
+    rec = {"losses": [], "batches": [], "ms": [], "steps": []}
+    snaps = []
+
+    def on_step(trainer):
+        snaps.append({"p2p": dict(PM.P2P_BYTES),
+                      "collective": dict(PM.COLLECTIVE_BYTES),
+                      "staged": dict(PM.HOST_STAGED_BYTES),
+                      "reduced": dict(DP.REDUCED_BYTES),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if len(snaps) == 1:           # after the warm-up
+            torch.cuda.reset_peak_memory_stats()
+        rec["batches"].clear()
+
+    zero_launch_counts()
+    trainer, secs = p18_run_main(P20_ARGV + [
+        "--dump_path", os.path.join(tmp, "dump"), "--seed", str(seed)],
+        data, rec, on_step=on_step, save=False)
+    first, timed = snaps[0], snaps[-1]
+
+    def per_step(key):
+        return {k: (timed[key][k] - first[key][k]) / P20_TIMED
+                for k in timed[key]}
+
+    out = {"rank": dist.get_rank(), "seconds": secs,
+           "stage": trainer.mesh.index("pp"),
+           "mesh": {k: v for k, v in trainer.mesh.shape.items() if v > 1},
+           "backend": trainer.mesh.backend,
+           "shard": trainer.shard_index,
+           "loss_model": type(trainer.loss_model).__name__,
+           "n_total_iter": trainer.n_total_iter,
+           "losses": [v for _, v in rec["losses"]],
+           "ms": rec["ms"], "steps": rec["steps"],
+           "p2p_bytes_per_step": per_step("p2p"),
+           "collective_bytes_per_step": per_step("collective"),
+           "staged_bytes_per_step": per_step("staged"),
+           "gradient_bytes_per_step": per_step("reduced")["gradients"],
+           "peak_memory_gb": timed["peak_gb"]}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def p20_model(seed, **kw):
+    from m3p_tpu_torch.config import ModelConfig
+    from m3p_tpu_torch.model import build_model
+
+    cfg = ModelConfig(n_words=P19_FP32_WORDS, mask_index=P19_FP32_WORDS - 1,
+                      n_langs=3, emb_dim=768, n_layers=P20_CHECK_LAYERS,
+                      n_heads=12, max_region_num=P19_REGIONS,
+                      dtype="float32",
+                      **{"dropout": 0.0, "attention_dropout": 0.0, **kw})
+    return build_model(cfg, seed, "cuda")
+
+
+def p20_step(model, mesh, batch, fault=None):
+    """One deterministic ITM step (refiner on) on ``mesh``'s batch shard
+    with the stack pipelined (None: one process); ``fault`` "pp_no_reduce"
+    leaves ``pp`` out of the gradient reduction.  Returns (loss, the
+    parameters after the update)."""
+    import torch
+
+    from m3p_tpu_torch.parallel import data_parallel as DP
+    from m3p_tpu_torch.parallel.pipeline import PPModel
+    from m3p_tpu_torch.parallel.sharding import (
+        batch_sharding, is_sharded, shard_batch, shard_model)
+    from m3p_tpu_torch.parallel.tensor_parallel import gather_whole, shard_of
+    from m3p_tpu_torch.train import steps as S
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    tb = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    handle = model
+    if mesh is not None:
+        if is_sharded(mesh.shape):
+            shard_model(model, mesh)
+        tb = shard_batch(tb, batch_sharding(mesh))
+        handle = PPModel(model, mesh, n_microbatches=P20_CHECK_M)
+    tx, _ = build_optimizer(P19_SPEC, clip_grad_norm=CLIP)
+    state = create_train_state(model, tx, mesh)
+    step = S.make_train_step(lambda m, b, g: S.itm_finetune_loss(
+        handle, b, g, 2, deterministic=True))
+    with contextlib.ExitStack() as stack:
+        if fault == "pp_no_reduce":
+            stack.enter_context(patched(DP, "GRAD_AXES", lambda axes: tuple(
+                a for a in axes if a != "pp")))
+        _, metrics = step(state, tb, None)
+    return float(metrics["loss"]), {
+        n: gather_whole(p.detach(), shard_of(p))
+        for n, p in model.named_parameters()}
+
+
+def p20_checks(cfg):
+    """20(b) on one rank; rank 0 runs the one-process reference."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.config import MeshConfig
+    from m3p_tpu_torch.data.synthetic import make_retrieval_batch
+    from m3p_tpu_torch.model import lengths_to_mask
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from m3p_tpu_torch.parallel.pipeline import PPModel
+    from m3p_tpu_torch.parallel.sharding import batch_sharding, shard_batch
+
+    seed = cfg["seed"] + 2
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = make_retrieval_batch(np.random.RandomState(seed), 4, 2, 24,
+                                 P19_REGIONS, P19_FP32_WORDS)
+    ref = p20_step(p20_model(seed), None, batch) if rank == 0 else None
+    fsdp = make_mesh(MeshConfig(data=1, fsdp=2, pp=P20_STAGES), dev)
+    mesh = make_mesh(MeshConfig(data=2, pp=P20_STAGES), dev)
+    out = {"stage": mesh.index("pp")}
+    for key, m, fault in (("None", mesh, None),
+                          ("pp_no_reduce", mesh, "pp_no_reduce"),
+                          ("fsdp2", fsdp, None)):
+        loss, params = p20_step(p20_model(seed), m, batch, fault)
+        if rank == 0:
+            gap, name = leaf_gap(params, ref[1])
+            out[key] = {"loss": loss, "one_process_loss": ref[0],
+                        "loss_gap": abs(loss - ref[0]) / abs(ref[0]),
+                        "param_gap": gap, "worst_leaf": name}
+        del params
+        torch.cuda.empty_cache()
+    # the training forward at dropout 0.1 (#7 in the blocks) against one
+    # stage fed the same generators
+    model = p20_model(seed, dropout=RATE, attention_dropout=RATE,
+                      use_fused_dropout=True)
+    tb = shard_batch({k: torch.as_tensor(v).cuda() for k, v in
+                      batch.items()}, batch_sharding(mesh))
+    args = (tb["tokens"].long(),
+            lengths_to_mask(tb["text_len"], tb["tokens"].shape[1]),
+            tb["feats"], tb["locs"],
+            lengths_to_mask(tb["img_len"], tb["feats"].shape[1]), True,
+            False)
+    one_stage = Mesh((1,) * 6, 0, dev, None)
+    outs = []
+    zero_launch_counts()
+    with torch.no_grad():
+        for m in (mesh, one_stage):
+            gen = Generators.from_seed(seed, "cuda", mesh.batch_shards[0])
+            outs.append(PPModel(model, m, n_microbatches=P20_CHECK_M)
+                        .encode_joint(*args, gen))
+            if m is mesh:
+                counts = launch_counts()
+    out["dropout"] = {
+        "max_rel": float((outs[0] - outs[1]).abs().max()
+                         / outs[1].abs().max()),
+        "vs_deterministic": float((outs[0] - model.encode_joint(
+            *args[:5], True).detach()).abs().max()),
+        "launches": {k: counts[k] for k in ("packed_fwd", "dropout_fwd")}}
+    del model, outs
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_slice(ranks):
+    """Phase 20: (a) and (b) on the 4 ranks of phase 19's launch, sharing
+    the card (`p19_rank` runs them first): ``ranks`` holds each rank's
+    results.  Their times are gloo's host transport's, not a parallel
+    speed.  The phase's own clock is rank 0's seconds over its part and
+    this check."""
+    t0 = time.time()
+    secs = ranks[0]["launch_s"]
+    ranks = [{"a": r["a"], "b": r["b"], "seconds": r["seconds"]}
+             for r in ranks]
+    want = p20_launches_per_step()
+    boundary = p20_boundary_bytes()
+    problems = []
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        if a["n_total_iter"] != 1 + P20_TIMED:
+            problems.append(f"rank {r} took {a['n_total_iter']} steps")
+        if a["loss_model"] != "PPModel":
+            problems.append(f"rank {r} ran {a['loss_model']}")
+        for kind, counts in a["steps"]:
+            if {k: counts[k] for k in want} != want:
+                problems.append(f"rank {r} {kind} launches {counts}")
+        if not all(map(math.isfinite, a["losses"])):
+            problems.append(f"rank {r} losses {a['losses']}")
+        p2p = a["p2p_bytes_per_step"]
+        if p2p != {"sent": P20_M * boundary, "received": P20_M * boundary}:
+            problems.append(f"rank {r} exchanged {p2p}, not {P20_M} x "
+                            f"{boundary} bytes each way")
+    # the ranks of a pp line compute the same loss
+    for r, res in enumerate(ranks):
+        mate = next(m for m in ranks if m["a"]["shard"] == res["a"]["shard"]
+                    and m is not res)
+        if res["a"]["losses"] != mate["a"]["losses"]:
+            problems.append(f"rank {r}'s losses are not its pp line's")
+    b = ranks[0]["b"]
+    for key in ("None", "fsdp2"):
+        if not (b[key]["loss_gap"] <= TOL_P19_FP32
+                and b[key]["param_gap"] <= TOL_P19_FP32):
+            problems.append(f"pp 2 x {key} is not the one-process step: "
+                            f"{b[key]}")
+    fault = b["pp_no_reduce"]
+    if max(fault["loss_gap"], fault["param_gap"]) <= TOL_P19_FP32:
+        problems.append(f"the planted fault was not seen: {fault}")
+    for r, res in enumerate(ranks):
+        d = res["b"]["dropout"]
+        if d["max_rel"] > TOL_P19_FP32 or d["vs_deterministic"] < 1e-3:
+            problems.append(f"rank {r} dropout: {d}")
+        if d["launches"]["dropout_fwd"] == 0:
+            problems.append(f"rank {r} launched no #7 in its stage")
+    if problems:
+        fail("phase 20: " + "; ".join(problems))
+    a = ranks[0]["a"]
+    out = {"launch_s": secs, "ranks": P19_RANKS, "mesh": a["mesh"],
+           "backend": a["backend"], "rank0_s": ranks[0]["seconds"],
+           "microbatches": P20_M,
+           "batch": [P20_B, P20_SAMPLE_N, P20_TEXT, P20_REGIONS],
+           "stages": {r: res["a"]["stage"] for r, res in enumerate(ranks)},
+           "ms_per_step_per_rank": {r: res["a"]["ms"][1:]
+                                    for r, res in enumerate(ranks)},
+           "warmup_ms_per_rank": {r: res["a"]["ms"][0]
+                                  for r, res in enumerate(ranks)},
+           "losses_rank0": a["losses"],
+           "boundary_bytes": boundary,
+           "p2p_bytes_per_step_rank0": a["p2p_bytes_per_step"],
+           "collective_bytes_per_step_rank0":
+               a["collective_bytes_per_step"],
+           "staged_bytes_per_step_rank0": a["staged_bytes_per_step"],
+           "gradient_bytes_per_step_rank0": a["gradient_bytes_per_step"],
+           "peak_memory_gb_per_rank": {r: res["a"]["peak_memory_gb"]
+                                       for r, res in enumerate(ranks)},
+           "launches_per_step": want,
+           "launches_per_rank": {r: {k: sum(c[k] for _, c in res["a"][
+               "steps"]) for k in want} for r, res in enumerate(ranks)},
+           "fp32": {"pp2_data2": b["None"], "pp2_fsdp2": b["fsdp2"],
+                    "planted_pp_no_reduce": fault,
+                    "dropout": {r: res["b"]["dropout"]
+                                for r, res in enumerate(ranks)}},
+           "phase_s": time.time() - t0 + sum(
+               ranks[0]["seconds"].values())}
+    log(f"[pipeline] phase 20: {json.dumps(out)}")
     return out
 
 
 def p18_rank(path):
-    """A rank of phase 18 or 19 under torchrun (``--p18 <config>``)."""
+    """A rank of phase 18, or 19 and 20, under torchrun (``--p18
+    <config>``)."""
     import torch
 
     from m3p_tpu_torch.parallel.mesh import auto_init_distributed
@@ -9569,9 +9907,15 @@ def main() -> int:
     sp_flash = parallel["sp"]["one_process_launches"]
     torch.cuda.empty_cache()
 
-    sharding = sharding_slice(args.seed)
+    sharding, p20_ranks = sharding_slice(args.seed)
     lap("p19_sharding")
     p19_packed = {k: sum(c[k] for c in sharding["launches_per_rank"].values())
+                  for k in ("packed_fwd", "packed_bwd")}
+    torch.cuda.empty_cache()
+
+    pipeline = pipeline_slice(p20_ranks)
+    lap("p20_pipeline")
+    p20_packed = {k: sum(c[k] for c in pipeline["launches_per_rank"].values())
                   for k in ("packed_fwd", "packed_bwd")}
 
     blocks, refiner = times["blocks"], times["refiner"]
@@ -9589,7 +9933,8 @@ def main() -> int:
                      + sum(r["packed_fwd"] for r in fl_runs.values())
                      + sum(r["packed_fwd"] for r in ev_runs.values())
                      + sum(quant_packed.values()) + sum(p17_fwd.values())
-                     + p18_packed["packed_fwd"] + p19_packed["packed_fwd"]),
+                     + p18_packed["packed_fwd"] + p19_packed["packed_fwd"]
+                     + p20_packed["packed_fwd"]),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
@@ -9604,7 +9949,8 @@ def main() -> int:
                                 for p, r in ev_runs.items()},
                              **quant_packed, **p17_fwd,
                              "dp_ranks": p18_packed["packed_fwd"],
-                             "sharded_ranks": p19_packed["packed_fwd"]},
+                             "sharded_ranks": p19_packed["packed_fwd"],
+                             "pipeline_ranks": p20_packed["packed_fwd"]},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -9649,7 +9995,8 @@ def main() -> int:
                      + sum(ev_runs[p]["packed_bwd"]
                            for p in ("trainer",) + data_runs)
                      + sum(r["packed_bwd"] for r in p17_runs.values())
-                     + p18_packed["packed_bwd"] + p19_packed["packed_bwd"]),
+                     + p18_packed["packed_bwd"] + p19_packed["packed_bwd"]
+                     + p20_packed["packed_bwd"]),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
@@ -9663,7 +10010,8 @@ def main() -> int:
                              **{p: r["packed_bwd"]
                                 for p, r in p17_runs.items()},
                              "dp_ranks": p18_packed["packed_bwd"],
-                             "sharded_ranks": p19_packed["packed_bwd"]},
+                             "sharded_ranks": p19_packed["packed_bwd"],
+                             "pipeline_ranks": p20_packed["packed_bwd"]},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],

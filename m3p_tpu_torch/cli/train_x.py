@@ -497,8 +497,8 @@ def main(argv=None, data=None):
     --mesh_tensor T``) each process is a rank of the mesh: data
     parallelism over ``data`` and ``fsdp``, the parameters sharded over
     ``fsdp``, ``tensor`` and ``expert`` (`parallel.sharding`), sequence
-    parallelism over ``seq``; ``--pp_stages`` above 1 raises (item 16c of
-    ROADMAP.md)."""
+    parallelism over ``seq``, the GPipe pipeline over ``--pp_stages`` with
+    ``--pp_microbatches`` (`parallel.pipeline`; not with ``seq``)."""
     import torch
 
     from m3p_tpu_torch import checkpoint as ckpt

@@ -12,19 +12,23 @@ is scaled so that its mean over the batch shards is the global value.
   of the count: the count summed over the batch shards (detached) over
   their number; outside `batch_reduction` the count itself.
 * `average_over_ranks` averages each gradient over the axes that split
-  the batch or the sequence, ``data``, ``fsdp`` and ``seq``, with one
+  the batch, the sequence or the stack, ``data``, ``fsdp``, ``seq`` and
+  ``pp``, with one
   all-reduce of a flat fp32 buffer per group of leaves (and the step's
   metrics with them), before the clip, so the clip and the optimizer see
   the global gradient.  A leaf split over ``fsdp`` arrives reduce-scattered
   over that axis already (`parallel.tensor_parallel.materialize`) and is
-  reduced over ``data`` and ``seq`` only; a leaf split over ``tensor`` or
+  reduced over the others only; a leaf split over ``tensor`` or
   ``expert`` holds another slice on each rank of those axes and is never
   summed over them.
 
 Under sequence parallelism the ranks of a ``seq`` line hold the same rows
 and compute the same losses; the stack's gather scales its backward by the
 line's length (`parallel/sp.py`), so the same average gives the global
-gradient there too.
+gradient there too.  Under pipeline parallelism the ranks of a ``pp`` line
+hold the same rows too: a block's gradient arises on its stage alone, S
+times over (`parallel/pipeline.py`), and the average over ``pp`` makes it
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ REDUCED_BYTES = {"gradients": 0, "steps": 0}
 
 # the axes a batch is split over, and those a gradient is averaged over
 BATCH_AXES = ("data", "fsdp")
-GRAD_AXES = ("data", "fsdp", "seq")
+GRAD_AXES = ("data", "fsdp", "seq", "pp")
 
 _ACTIVE: List[M.Mesh] = []
 
@@ -124,7 +128,7 @@ def average_over_ranks(mesh: M.Mesh,
     gradient tree holds them) and return ``metrics`` averaged the same way:
     one all-reduce of a flat fp32 buffer over ``GRAD_AXES`` and, for the
     leaves split over ``fsdp`` (their sum over it taken already), one over
-    ``data`` and ``seq``."""
+    the others."""
     params = list(params)
     names = sorted(metrics or {})
     n = mesh.count(GRAD_AXES)
@@ -133,7 +137,8 @@ def average_over_ranks(mesh: M.Mesh,
     out = None if metrics is None else dict(metrics)
     for split in (False, True):
         leaves = [p for p in params if _fsdp_split(p) == split]
-        axes = ("data", "seq") if split else GRAD_AXES
+        axes = (tuple(a for a in GRAD_AXES if a != "fsdp") if split
+                else GRAD_AXES)
         extra = [] if split else names
         if not leaves and not extra:
             continue

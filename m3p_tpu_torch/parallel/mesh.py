@@ -64,16 +64,21 @@ AXES = ("data", "fsdp", "seq", "tensor", "expert", "pp")
 # the axes a gradient is reduced over, and the axes a parameter is sharded
 # over (`parallel.sharding`)
 GROUPED = (("data", "fsdp"), ("data", "seq"), ("data", "fsdp", "seq"),
+           ("data", "pp"), ("data", "fsdp", "pp"),
            ("fsdp", "tensor", "expert"), ("tensor", "expert"))
 
 # bytes copied between a card and pinned host memory for gloo's
 # point-to-point (`exchange`)
 HOST_STAGED_BYTES = {"to_host": 0, "to_device": 0}
 
+# bytes `exchange` sent and received on this rank
+P2P_BYTES = {"sent": 0, "received": 0}
+
 # bytes each kind of collective handled on this rank: the tensor an
 # all-reduce sums, the whole tensor an all-gather assembles, the whole
 # input a reduce-scatter sums
-COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+                    "broadcast": 0}
 
 
 def _env_int(*names: str) -> Optional[int]:
@@ -416,10 +421,13 @@ def reduce_scatter_sum(t: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     return out.view(tuple(buf.shape[1:])).to(t.device)
 
 
-def broadcast_(t: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
-    """Overwrite ``t`` in place with global rank ``src``'s values."""
+def broadcast_(t: torch.Tensor, mesh: Mesh, src: int = 0,
+               group=None) -> torch.Tensor:
+    """Overwrite ``t`` in place with global rank ``src``'s values (over
+    ``group``, the whole mesh when None)."""
     buf = _for_backend(t, mesh)
-    dist.broadcast(buf, src=src)
+    COLLECTIVE_BYTES["broadcast"] += buf.numel() * buf.element_size()
+    dist.broadcast(buf, src=src, group=group)
     if buf is not t:
         t.copy_(buf)
     return t
@@ -467,26 +475,35 @@ class Exchange:
         return out
 
 
-def exchange(tensors: Sequence[torch.Tensor], dst: int, src: int, group,
-             backend: Optional[str], staging: Optional[PinnedBuffers] = None,
+def exchange(tensors: Sequence[torch.Tensor], dst: Optional[int],
+             src: Optional[int], group, backend: Optional[str],
+             staging: Optional[PinnedBuffers] = None,
              key: Tuple = ()) -> Exchange:
     """Send ``tensors`` to global rank ``dst`` and receive as many of the
     same shapes from ``src``, asynchronously (one
-    `torch.distributed.batch_isend_irecv`).  Under gloo a CUDA tensor
-    travels through ``staging``'s pinned buffers, one to send and one to
-    receive per (``key``, position): read the received tensor (`wait`
-    copies it to the card) before the next exchange of that key."""
+    `torch.distributed.batch_isend_irecv`); ``dst`` None sends nothing,
+    ``src`` None receives nothing (the ends of a line), and ``tensors``
+    then only give the shapes.  Under gloo a CUDA tensor travels through
+    ``staging``'s pinned buffers, one to send and one to receive per
+    (``key``, position): read the received tensor (`wait` copies it to the
+    card) before the next exchange of that key."""
     ops, recvs = [], []
     for i, t in enumerate(tensors):
         t = t.contiguous()
-        if backend == "gloo" and t.is_cuda:
-            send = staging.get(key + (i, "send"), t)
-            send.copy_(t)
-            HOST_STAGED_BYTES["to_host"] += t.numel() * t.element_size()
-            recv = staging.get(key + (i, "recv"), t)
-        else:
-            send, recv = t, torch.empty_like(t)
-        ops.append(dist.P2POp(dist.isend, send, dst, group))
-        ops.append(dist.P2POp(dist.irecv, recv, src, group))
-        recvs.append((recv, t))
+        nbytes = t.numel() * t.element_size()
+        staged = backend == "gloo" and t.is_cuda
+        if dst is not None:
+            send = t
+            if staged:
+                send = staging.get(key + (i, "send"), t)
+                send.copy_(t)
+                HOST_STAGED_BYTES["to_host"] += nbytes
+            P2P_BYTES["sent"] += nbytes
+            ops.append(dist.P2POp(dist.isend, send, dst, group))
+        if src is not None:
+            recv = (staging.get(key + (i, "recv"), t) if staged
+                    else torch.empty_like(t))
+            P2P_BYTES["received"] += nbytes
+            ops.append(dist.P2POp(dist.irecv, recv, src, group))
+            recvs.append((recv, t))
     return Exchange(dist.batch_isend_irecv(ops), recvs)

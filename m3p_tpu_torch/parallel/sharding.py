@@ -28,8 +28,8 @@ embedding and head into their tensor- and expert-parallel modes; an
 optimizer state made afterwards holds shards too (`train_state_shardings`
 mirrors the parameters' specs onto it, as `_shard_like` does).
 Checkpoints gather the whole state (`gather_train_state`) and a restore
-slices it again (`slice_like_state`).  The ``pp`` axis is item 16c of
-ROADMAP.md: a mesh that uses it raises.
+slices it again (`slice_like_state`).  The ``pp`` axis splits the stack
+(`parallel.pipeline`), not the parameters: every rank keeps every block.
 """
 
 from __future__ import annotations
@@ -164,25 +164,31 @@ def logical_to_shardings(specs: Dict[str, Tuple[Optional[str], ...]],
 # the mesh the port takes
 # ---------------------------------------------------------------------------
 
-_UNPORTED = {"pp": "16c"}
-
-
 def check_mesh_supported(shape: Dict[str, int]) -> None:
-    """Raise NotImplementedError for a mesh axis the port does not shard
-    over yet: ``pp`` (the pipeline, item 16c of ROADMAP.md)."""
-    for axis, item in _UNPORTED.items():
-        if shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}={shape[axis]}: the pipeline is item "
-                f"{item} of ROADMAP.md; the port shards over data, fsdp, "
-                "seq, tensor and expert")
+    """Raise ValueError for ``seq`` and ``pp`` both above 1, as the JAX
+    trainer asserts: the encoder stack is sharded once."""
+    if shape.get("pp", 1) > 1 and shape.get("seq", 1) > 1:
+        raise ValueError("seq and pp cannot both be above 1: the encoder "
+                         "stack is sharded once")
 
 
 def check_model_supported(cfg, shape: Dict[str, int]) -> None:
     """Raise NotImplementedError for a model feature the port does not
-    split over ``tensor`` (ROADMAP.md, item 16b's remainder): the int8
-    training and inference modes, whose per-row scales of a row-parallel
-    GEMM would need a max over the ranks, and the adaptive softmax."""
+    split over ``tensor`` (ROADMAP.md, item 16d): the int8 training and
+    inference modes, whose per-row scales of a row-parallel GEMM would need
+    a max over the ranks, and the adaptive softmax; and for a block the
+    pipeline's stage does not run under ``pp`` above 1: MoE and the int8
+    FFN (the JAX stage builds its block with neither,
+    `m3p_tpu/parallel/pipeline.py:174-179`)."""
+    if shape.get("pp", 1) > 1:
+        if cfg.moe_experts > 0:
+            raise NotImplementedError("MoE blocks under pp > 1: the "
+                                      "pipeline's stage runs dense blocks, "
+                                      "as the JAX stage does")
+        if cfg.ffn_quant != "none":
+            raise NotImplementedError(
+                f"ffn_quant={cfg.ffn_quant!r} under pp > 1: the pipeline's "
+                "stage runs the float FFN, as the JAX stage does")
     if shape.get("tensor", 1) <= 1:
         return
     if cfg.asm:
@@ -258,18 +264,18 @@ def shard_bytes(model: torch.nn.Module) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 
-def sharded_global_norm(params: Sequence[torch.Tensor]) -> Callable:
-    """The global norm of gradients shaped like ``params``: `global_norm`
-    when none is sharded; else each leaf's sum of squares over its
-    replicas (the ranks of fsdp x tensor x expert that hold the same slice)
-    divided by their number, summed over those ranks (one all-reduce), so
-    each element counts once."""
-    from m3p_tpu_torch.train.optim import global_norm
-
+def replica_sum(params: Sequence[torch.Tensor]) -> Optional[Callable]:
+    """None when no parameter of ``params`` is sharded; else the
+    ``leaf_sum`` of `train.optim`: a function from the (n_leaves,) fp32
+    vector of this rank's per-leaf partial sums to each leaf's sum over
+    the whole tensor.  Each entry is weighted by one over the leaf's
+    replicas (the ranks of fsdp x tensor x expert that hold the same
+    slice) and the vector summed over those axes (one all-reduce), so each
+    element counts once."""
     specs = [shard_of(p) for p in params]
     mesh = next((s.mesh for s in specs if s is not None), None)
     if mesh is None:
-        return global_norm
+        return None
     weights = []
     for s in specs:
         split = set() if s is None else {a for a in s.axes if a}
@@ -277,12 +283,11 @@ def sharded_global_norm(params: Sequence[torch.Tensor]) -> Callable:
             mesh.shape[a] for a in PARAM_AXES_OF_MESH if a not in split])))
     group = mesh.group(PARAM_AXES_OF_MESH)
 
-    def norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        sums = torch.stack([g.float().pow(2).sum() for g in grads])
-        local = (sums * torch.tensor(weights, device=sums.device)).sum()
-        return torch.sqrt(M.all_reduce_sum(local, mesh, group))
+    def leaf_sum(partial: torch.Tensor) -> torch.Tensor:
+        w = torch.tensor(weights, dtype=torch.float32, device=partial.device)
+        return M.all_reduce_sum(partial.float() * w, mesh, group)
 
-    return norm
+    return leaf_sum
 
 
 # ---------------------------------------------------------------------------
@@ -404,5 +409,5 @@ __all__ = ["LOGICAL_RULES", "PARAM_AXES", "BatchSharding", "ShardSpec",
            "gather_train_state", "is_sharded", "logical_axes",
            "logical_to_mesh_axes", "logical_to_shardings",
            "model_param_specs", "shard_batch", "shard_model",
-           "shard_train_state", "sharded_global_norm", "slice_like_state",
+           "shard_train_state", "replica_sum", "slice_like_state",
            "train_state_shardings"]

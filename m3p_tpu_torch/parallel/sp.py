@@ -81,17 +81,18 @@ def seq_parallel_run_blocks(model: M3PModel, x: torch.Tensor,
     return out[:, :s] if pad else out
 
 
-class SPModel:
-    """Sequence-parallel model handle: stands in for an `M3PModel` in the
-    losses; every non-causal encoder stack runs sharded over the mesh's
-    ``axis`` with ring attention (`_blocks`), and attribute access falls
-    through to the wrapped model (`m3p_tpu/parallel/sp.py:99-213`)."""
+class ShardedStackModel:
+    """Stands in for an `M3PModel` in the losses: every non-causal encoder
+    stack (`encode_joint`, the non-causal `encode_text`, `encode_image`)
+    runs through a sharded block runner, `_blocks`, which a subclass gives
+    (`SPModel` here, `parallel.pipeline.PPModel`); causal, cross-attention
+    and cached calls, the embeddings and the heads go to the wrapped
+    model, and attribute access falls through to it
+    (`m3p_tpu/parallel/sp.py:99-181`)."""
 
-    def __init__(self, model: M3PModel, mesh: Mesh, axis: str = "seq"):
+    def __init__(self, model: M3PModel):
         self.model = model
         self.cfg = model.cfg
-        self.mesh = mesh
-        self.axis = axis
 
     def __getattr__(self, name):
         if name == "model":          # guard __init__-time recursion
@@ -99,8 +100,7 @@ class SPModel:
         return getattr(self.model, name)
 
     def _blocks(self, x, mask, deterministic, generator):
-        return seq_parallel_run_blocks(self.model, x, mask, self.mesh,
-                                       self.axis, deterministic, generator)
+        raise NotImplementedError
 
     def encode_joint(self, tokens, text_mask, feats, locs, img_mask,
                      refine_image=False, deterministic=True, generator=None,
@@ -140,6 +140,20 @@ class SPModel:
         if refine_encoder:
             out = self.model.refiner(out, img_mask, deterministic, generator)
         return out
+
+
+class SPModel(ShardedStackModel):
+    """Sequence-parallel model handle: every non-causal encoder stack runs
+    sharded over the mesh's ``axis`` with ring attention."""
+
+    def __init__(self, model: M3PModel, mesh: Mesh, axis: str = "seq"):
+        super().__init__(model)
+        self.mesh = mesh
+        self.axis = axis
+
+    def _blocks(self, x, mask, deterministic, generator):
+        return seq_parallel_run_blocks(self.model, x, mask, self.mesh,
+                                       self.axis, deterministic, generator)
 
 
 def seq_parallel_encode_joint(model: M3PModel, tokens, text_mask, feats,

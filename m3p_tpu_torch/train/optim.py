@@ -30,9 +30,13 @@ over an fp32 master copy in the optimizer state; it takes no accumulation,
 weight decay or guard, as in the JAX package.
 
 Every optimizer's ``apply`` returns whether it updated the parameters.
-Its ``norm_fn`` (default: `global_norm`, `optax_global_norm` for
-`FusedAdam`) takes the clip's global norm; over sharded parameters it is
-`parallel.sharding.sharded_global_norm`, which counts each element once.
+Over sharded parameters it takes ``leaf_sum``
+(`parallel.sharding.replica_sum`): each leaf's partial sums over this
+rank's shard, summed over the ranks that hold the rest of it, so the
+guard and the clip see the whole gradient.  The clip's norm is then
+`optax_global_norm` over the leaves so summed, in the dtype of the
+gradients it is handed (fp32 in the chain, bf16 in `FusedAdam` under
+``master``); the chain keeps `global_norm` in one process.
 """
 
 from __future__ import annotations
@@ -106,10 +110,20 @@ def cosine_schedule(lr: float, warmup_updates: int = 4000,
     return schedule
 
 
-def skip_nonfinite(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+LeafSum = Callable[[torch.Tensor], torch.Tensor]
+
+
+def skip_nonfinite(grads: Sequence[torch.Tensor],
+                   leaf_sum: Optional[LeafSum] = None) -> List[torch.Tensor]:
     """Zero every gradient when any is non-finite: the step is skipped
-    instead of corrupting the moments (`m3p_tpu/train/optim.py:96-111`)."""
-    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    instead of corrupting the moments (`m3p_tpu/train/optim.py:96-111`).
+    With ``leaf_sum`` the leaves' non-finite flags are summed over the
+    ranks that hold their other shards, so every rank decides over the
+    whole gradient, as JAX's guard does."""
+    bad = torch.stack([(~torch.isfinite(g)).any() for g in grads]).float()
+    if leaf_sum is not None:
+        bad = leaf_sum(bad)
+    finite = bad.sum() == 0
     return [torch.where(finite, g, torch.zeros_like(g)) for g in grads]
 
 
@@ -119,15 +133,23 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def optax_global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+def optax_global_norm(grads: Sequence[torch.Tensor],
+                      leaf_sum: Optional[LeafSum] = None) -> torch.Tensor:
     """``optax.global_norm`` in the gradients' own dtype, rounding where it
     rounds: each leaf's squares in its dtype, their sum (taken in fp32)
     rounded back, the leaves' sums added one by one in that dtype, the
     square root in it.  With bf16 gradients this differs from the fp32 norm
-    by up to a bf16 step, which the JAX `FusedAdam` clip inherits."""
+    by up to a bf16 step, which the JAX `FusedAdam` clip inherits.
+
+    ``leaf_sum`` (over sharded parameters) takes the (n_leaves,) fp32
+    vector of this rank's partial sums to each leaf's whole sum before
+    the rounding, so every rank rounds what one process rounds."""
+    sums = torch.stack([(g * g).float().sum() for g in grads])
+    if leaf_sum is not None:
+        sums = leaf_sum(sums)
     total = None
-    for g in grads:
-        leaf = (g * g).float().sum().to(g.dtype)
+    for leaf, g in zip(sums.unbind(), grads):
+        leaf = leaf.to(g.dtype)
         total = leaf if total is None else total + leaf
     return torch.sqrt(total)
 
@@ -145,14 +167,15 @@ class _Chain:
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],
               grads: Sequence[torch.Tensor], state: Dict[str, Any],
-              step: int, norm_fn: Optional[Callable] = None) -> bool:
+              step: int, leaf_sum: Optional[LeafSum] = None) -> bool:
         """Update ``params`` and ``state`` in place; ``step`` is the number
         of earlier updates.  Returns True (an update was made)."""
         grads = [g.float() for g in grads]
         if self.guard_nonfinite:
-            grads = skip_nonfinite(grads)
+            grads = skip_nonfinite(grads, leaf_sum)
         if self.clip_norm and self.clip_norm > 0:
-            norm = (norm_fn or global_norm)(grads)
+            norm = (global_norm(grads) if leaf_sum is None
+                    else optax_global_norm(grads, leaf_sum))
             scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                                 self.clip_norm / norm)
             grads = torch._foreach_mul(grads, scale)
@@ -306,7 +329,7 @@ class MultiSteps:
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],
               grads: Sequence[torch.Tensor], state: Dict[str, Any],
-              step: int, norm_fn: Optional[Callable] = None) -> bool:
+              step: int, leaf_sum: Optional[LeafSum] = None) -> bool:
         """Accumulate ``grads``; on the k-th call of a window update
         ``params``.  Returns whether it did."""
         acc, n = state["acc"], state["mini_step"]
@@ -317,7 +340,7 @@ class MultiSteps:
         if n + 1 < self.every_k:
             state["mini_step"] = n + 1
             return False
-        self.inner.apply(params, acc, state["inner"], step, norm_fn)
+        self.inner.apply(params, acc, state["inner"], step, leaf_sum)
         torch._foreach_zero_(acc)
         state["mini_step"] = 0
         return True
@@ -366,7 +389,7 @@ class FusedAdam:
     @torch.no_grad()
     def apply(self, params: Sequence[torch.Tensor],
               grads: Sequence[torch.Tensor], state: Dict[str, Any],
-              step: int, norm_fn: Optional[Callable] = None) -> bool:
+              step: int, leaf_sum: Optional[LeafSum] = None) -> bool:
         """Update ``params``, the moments and the master in place (the
         JAX ``fused_apply``); ``step`` is the number of earlier updates:
         the schedule reads it, bias correction uses t = step + 1.  Returns
@@ -375,7 +398,7 @@ class FusedAdam:
         t = step + 1
         g32 = [g.float() for g in grads]
         if self.clip_norm and self.clip_norm > 0:
-            norm = (norm_fn or optax_global_norm)(grads)
+            norm = optax_global_norm(grads, leaf_sum)
             scale = torch.where(norm > self.clip_norm, self.clip_norm / norm,
                                 torch.ones_like(norm))
             g32 = torch._foreach_mul(g32, scale.float())

@@ -17,8 +17,8 @@ the losses' counts reduce over its batch shards
 (`parallel.data_parallel.batch_reduction`).  Under parameter sharding
 (`parallel.sharding.shard_model`) the model's parameters, and so their
 gradients and the optimizer state made from them, are this rank's shards;
-the global norm then sums each element once over the ranks
-(`grad_norm`)."""
+the guard and the global norm then take each leaf's sum over the ranks
+(`leaf_sum`)."""
 
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from m3p_tpu_torch.train.optim import Optimizer, global_norm
+from m3p_tpu_torch.train.optim import Optimizer, optax_global_norm
 
 
 @dataclass
@@ -50,19 +50,22 @@ class TrainState:
         return average_over_ranks(self.mesh, self.model.parameters(),
                                   metrics)
 
-    def norm_fn(self):
-        """The global norm over this state's parameters: `global_norm`, or
-        over sharded parameters `parallel.sharding.sharded_global_norm`."""
-        from m3p_tpu_torch.parallel.sharding import sharded_global_norm
+    def leaf_sum(self):
+        """None, or over sharded parameters the sum of each leaf's partial
+        sums over the ranks (`parallel.sharding.replica_sum`), which the
+        optimizer's guard and clip take."""
+        from m3p_tpu_torch.parallel.sharding import replica_sum
 
-        return sharded_global_norm(list(self.model.parameters()))
+        return replica_sum(list(self.model.parameters()))
 
     def grad_norm(self) -> torch.Tensor:
         """The global norm of the parameters' gradients (missing ones are
-        zeros)."""
+        zeros) as `FusedAdam`'s clip takes it: `optax_global_norm` in the
+        gradients' dtype, each leaf summed over its shards."""
         params = list(self.model.parameters())
-        return self.norm_fn()([p.grad if p.grad is not None
-                               else torch.zeros_like(p) for p in params])
+        return optax_global_norm([p.grad if p.grad is not None
+                                  else torch.zeros_like(p) for p in params],
+                                 self.leaf_sum())
 
     def apply_gradients(self) -> "TrainState":
         """One micro-step of the optimizer from the parameters' ``.grad``
@@ -72,9 +75,8 @@ class TrainState:
         params = list(self.model.parameters())
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        norm = self.norm_fn()
         if self.tx.apply(params, grads, self.opt_state, self.step,
-                         None if norm is global_norm else norm):
+                         self.leaf_sum()):
             self.step += 1
         return self
 

@@ -26,14 +26,15 @@ every global batch (``batch_size / (data x fsdp)`` rows: the row loader's
 strided slice of the records, or every count-th batch of an iterator seeded
 alike on every rank); its generators fold in the shard index; the gradients
 are averaged over the ranks before the clip (`TrainState.sync_gradients`).
-With ``seq > 1`` the steps run through `parallel.sp.SPModel`.  With
+With ``seq > 1`` the steps run through `parallel.sp.SPModel`, with
+``pp > 1`` through `parallel.pipeline.PPModel` (the GPipe schedule over
+``cfg.mesh.pp_microbatches`` microbatches).  With
 ``fsdp``, ``tensor`` or ``expert`` above 1 the model's parameters are
 sharded after the broadcast (`parallel.sharding.shard_model`, the
 counterpart of `m3p_tpu/train/trainer.py:86-99`), and the optimizer state
 made from them holds shards too.  The save decision is collective every
 ``save_check_every`` steps; the state is gathered whole, rank 0 writes
-it, every rank its own loader state.  The pipeline is item 16c of
-ROADMAP.md and raises.
+it, every rank its own loader state.
 """
 
 from __future__ import annotations
@@ -97,6 +98,15 @@ class Trainer:
                 self.loss_model = SPModel(model, self.mesh)
                 logger.info("sequence parallelism ON: seq=%d (ring "
                             "attention)", self.mesh.shape["seq"])
+            elif self.mesh.shape["pp"] > 1:
+                from m3p_tpu_torch.parallel.pipeline import PPModel
+
+                self.loss_model = PPModel(
+                    model, self.mesh,
+                    n_microbatches=cfg.mesh.pp_microbatches)
+                logger.info("pipeline parallelism ON: pp=%d stages, %d "
+                            "microbatches", self.mesh.shape["pp"],
+                            cfg.mesh.pp_microbatches)
         self.shard_index, self.shard_count = (
             self.mesh.batch_shards if self.mesh is not None else (0, 1))
 

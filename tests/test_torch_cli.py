@@ -241,15 +241,17 @@ def test_main_refuses_what_is_not_ported(coco, monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_x.main(argv, data=coco["data"])
-    # parameter sharding is taken (one process: no mesh, the whole
-    # parameters); the pipeline is item 16c
-    for flag in ("--mesh_fsdp", "--mesh_tensor", "--mesh_expert"):
-        t = train_x.main(argv + ["--device", "cpu", flag, "2",
+    # parameter sharding and the pipeline are taken (one process: no
+    # mesh, the whole stack); the pipeline with seq raises, as in JAX
+    for flags in (["--mesh_fsdp", "2"], ["--mesh_tensor", "2"],
+                  ["--mesh_expert", "2"], ["--pp_stages", "2"],
+                  ["--pp_stages", "2", "--mesh_fsdp", "2"]):
+        t = train_x.main(argv + ["--device", "cpu", *flags,
                                  "--max_epoch", "0"], data=coco["data"])
-        assert t.mesh is None
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        train_x.main(argv + ["--device", "cpu", "--pp_stages", "2"],
-                     data=coco["data"])
+        assert t.mesh is None and t.loss_model is t.model
+    with pytest.raises(ValueError, match="seq and pp"):
+        train_x.main(argv + ["--device", "cpu", "--pp_stages", "2",
+                             "--mesh_seq", "2"], data=coco["data"])
     # two visible cards and a batch that shards over them, in one process:
     # the port drives a card per process, and the error names the launcher
     import m3p_tpu_torch.model as model_mod

@@ -410,7 +410,8 @@ def _shard_draws(draws, sh):
 
 def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
                  clip=0.0, draws=None, mask_cfg=None, sample_n: int = 2,
-                 seed=None, fault=None, whole=True) -> Dict[str, Any]:
+                 seed=None, fault=None, whole=True, guard=False
+                 ) -> Dict[str, Any]:
     """One step of ``kind`` ("itm", "mlm" or "mct") on this rank's shard of
     the global ``batch`` over a mesh of ``mesh_axes``, the model sharded
     over its fsdp / tensor / expert axes (`shard_model`, as the trainer
@@ -418,9 +419,14 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
     sharded alike; ``seed``: a training forward (dropout on) from
     generators of that seed with the batch shard folded in, else
     deterministic.  ``fault`` plants one: "row_no_reduce" skips the
-    row-parallel all-reduce, "local_ce" takes the vocabulary CE rank-local.
-    Returns the loss, the grad norm and the whole updated parameters
+    row-parallel all-reduce, "local_ce" takes the vocabulary CE rank-local,
+    "inf_grad" puts an inf into rank 0's shard of
+    ``block_0.attn.q_lin.weight``'s gradient after the reduction.
+    ``guard``: the optimizer's non-finite guard.  Returns the loss, the
+    grad norm and its dtype, the whole updated parameters and first moment
     (gathered), or this rank's shards when not ``whole``."""
+    import torch.distributed as dist
+
     import contextlib
 
     from m3p_tpu_torch.data.masking import MaskingConfig
@@ -440,8 +446,18 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
     sh = batch_sharding(mesh)
     local = shard_batch({k: torch.tensor(v) for k, v in batch.items()}, sh)
     local_draws = _shard_draws(draws or {}, sh)
-    tx, _ = build_optimizer(spec, clip_grad_norm=clip)
+    tx, _ = build_optimizer(spec, clip_grad_norm=clip, guard_nonfinite=guard)
     st = create_train_state(model, tx, mesh)
+    if fault == "inf_grad":
+        sync, planted = st.sync_gradients, model.block_0.attn.q_lin.weight
+
+        def sync_then_plant(metrics=None):
+            out = sync(metrics)
+            if dist.get_rank() == 0:
+                planted.grad.view(-1)[0] = float("inf")
+            return out
+
+        st.sync_gradients = sync_then_plant
     det = seed is None
     mcfg = MaskingConfig(**(mask_cfg or {}))
     handle = model
@@ -477,12 +493,25 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
                     lg.float(), v.local(lb)[0], reduction="none")))
         step = S.make_train_step(loss_fn, with_grad_norm=True)
         _, metrics = step(st, local, gen)
-    params = (gather_train_state(st)["model"] if whole
-              else {n: p.detach() for n, p in model.named_parameters()})
+    names = [n for n, _ in model.named_parameters()]
+    grads = None
+    if whole:
+        gathered = gather_train_state(st)
+        params = gathered["model"]
+        mu = gathered["opt_state"].get("mu")
+        grads = {n: TP.gather_whole(p.grad, TP.shard_of(p)).float().numpy()
+                 for n, p in model.named_parameters() if p.grad is not None}
+    else:
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        mu = st.opt_state.get("mu")
     return {"loss": float(metrics["loss" if "loss" in metrics else "mlm"]),
             "grad_norm": float(metrics["grad_norm"]),
-            "params": {n: v.detach().numpy().copy()
+            "grad_norm_dtype": str(metrics["grad_norm"].dtype),
+            "params": {n: v.detach().float().numpy().copy()
                        for n, v in params.items()},
+            "grads": grads,
+            "mu": None if mu is None else {
+                n: t.float().numpy().copy() for n, t in zip(names, mu)},
             "local_bytes": sum(p.numel() * p.element_size()
                                for p in model.parameters())}
 
@@ -579,6 +608,125 @@ def checkpoint_trip(cfg_dict, state, mesh_axes, path, spec="adam,lr=0.01",
             "model": {k: v.numpy() for k, v in got["model"].items()},
             "mu": [t.numpy() for t in got["opt_state"]["mu"]],
             "nu": [t.numpy() for t in got["opt_state"]["nu"]]}
+
+
+def pp_schedule(x, w1, w2, upstream) -> Dict[str, Any]:
+    """`parallel.pipeline.spmd_pipeline` over the world as one ``pp`` line,
+    stage s an MLP block ``h + gelu(h w1[s]) w2[s]`` on x's microbatches,
+    under the upstream gradient ``upstream``: the outputs and this rank's
+    gradients of x and of every stage's weights."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.parallel.pipeline import spmd_pipeline
+
+    mesh = _mesh(pp=dist.get_world_size())
+    s = mesh.index("pp")
+    xs = torch.tensor(x).requires_grad_()
+    ws = [torch.tensor(w).requires_grad_() for w in (w1, w2)]
+
+    def stage_fn(h, m):
+        return h + torch.nn.functional.gelu(h @ ws[0][s]) @ ws[1][s]
+
+    out = spmd_pipeline(stage_fn, xs.unbind(0), mesh, "pp",
+                        params=list(ws))
+    out.backward(torch.tensor(upstream))
+    return {"out": out.detach().numpy(), "dx": xs.grad.numpy(),
+            "dw1": ws[0].grad.numpy(), "dw2": ws[1].grad.numpy()}
+
+
+def pp_encode(cfg_dict, state, batch, n_micro: int) -> Dict[str, Any]:
+    """Over the world as one ``pp`` line: `pipelined_encode_joint` (the
+    refiner on), and `PPModel`'s non-causal ``encode_text`` and
+    ``encode_image`` (with ``refine_encoder``)."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.parallel.pipeline import (PPModel,
+                                                 pipelined_encode_joint)
+
+    model = _model(cfg_dict, state)
+    mesh = _mesh(pp=dist.get_world_size())
+    t = {k: torch.tensor(v) for k, v in batch.items()}
+    handle = PPModel(model, mesh, n_microbatches=n_micro)
+    with torch.no_grad():
+        joint = pipelined_encode_joint(
+            model, t["tokens"], t["text_mask"], t["feats"], t["locs"],
+            t["img_mask"], mesh, n_microbatches=n_micro, refine_image=True)
+        text = handle.encode_text(t["tokens"], t["text_mask"])
+        image = handle.encode_image(t["feats"], t["locs"], t["img_mask"],
+                                    refine_image=True, refine_encoder=True)
+    return {"joint": joint.numpy(), "text": text.numpy(),
+            "image": image.numpy()}
+
+
+def pp_itm_step(cfg_dict, state, batch, mesh_axes, n_micro: int,
+                sample_n: int = 2, spec="sgd,lr=1.0", seed=None,
+                fault=None) -> Dict[str, Any]:
+    """One ITM step on this rank's batch shard over a mesh of ``mesh_axes``
+    with the stack pipelined over ``pp``: `make_pp_itm_train_step`, or
+    with ``seed`` a training forward through `PPModel` (as the trainer
+    swaps it in) from generators of that seed with the batch shard folded
+    in.  ``fault``
+    "pp_no_reduce" leaves ``pp`` out of the gradient reduction.  Returns
+    the loss and every parameter's reduced gradient (gathered whole over
+    a sharded mesh)."""
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.parallel import data_parallel as DP
+    from m3p_tpu_torch.parallel.pipeline import (PPModel,
+                                                 make_pp_itm_train_step)
+    from m3p_tpu_torch.parallel import tensor_parallel as TP
+    from m3p_tpu_torch.parallel.sharding import (
+        batch_sharding, is_sharded, shard_batch, shard_model)
+    from m3p_tpu_torch.train import steps as S
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+
+    model = _model(cfg_dict, state)
+    mesh = _mesh(**mesh_axes)
+    if is_sharded(mesh.shape):
+        shard_model(model, mesh)
+    local = shard_batch({k: torch.tensor(v) for k, v in batch.items()},
+                        batch_sharding(mesh))
+    tx, _ = build_optimizer(spec)
+    st = create_train_state(model, tx)
+    gen = None
+    if seed is None:
+        step = make_pp_itm_train_step(model, mesh, sample_n,
+                                      n_microbatches=n_micro)
+    else:
+        st.mesh = mesh
+        gen = Generators.from_seed(seed, "cpu", mesh.batch_shards[0])
+        handle = PPModel(model, mesh, n_microbatches=n_micro)
+        step = S.make_train_step(lambda _m, b, g: S.itm_finetune_loss(
+            handle, b, g, sample_n, deterministic=False))
+    axes = (tuple(a for a in DP.GRAD_AXES if a != "pp")
+            if fault == "pp_no_reduce" else DP.GRAD_AXES)
+    with _patched(DP, "GRAD_AXES", axes):
+        _, metrics = step(st, local, gen)
+    return {"loss": float(metrics["loss"]),
+            "grads": {n: TP.gather_whole(p.grad, TP.shard_of(p)).numpy()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "stage": mesh.index("pp")}
+
+
+def pp_dropout(cfg_dict, state, x, mask, n_micro: int, seeds
+               ) -> List[np.ndarray]:
+    """`pp_run_blocks` in a training forward over the world as one ``pp``
+    line, once from generators of each of ``seeds``."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.parallel.pipeline import pp_run_blocks
+
+    model = _model(cfg_dict, state)
+    mesh = _mesh(pp=dist.get_world_size())
+    outs = []
+    with torch.no_grad():
+        for seed in seeds:
+            outs.append(pp_run_blocks(
+                model, torch.tensor(x), torch.tensor(mask), mesh, "pp",
+                n_micro, False, Generators.from_seed(seed, "cpu")).numpy())
+    return outs
 
 
 if __name__ == "__main__":

@@ -240,10 +240,13 @@ def test_logical_axes_match_the_jax_pspecs_leaf_by_leaf(which):
 
 
 def test_check_mesh_supported_raises_only_for_pp():
-    for axis in ("data", "fsdp", "seq", "tensor", "expert"):
+    """Every axis is taken alone, and ``pp`` with the parameter axes;
+    ``pp`` with ``seq`` raises, as the JAX trainer asserts."""
+    for axis in ("data", "fsdp", "seq", "tensor", "expert", "pp"):
         SH.check_mesh_supported({axis: 2})
-    with pytest.raises(NotImplementedError, match="16c"):
-        SH.check_mesh_supported({"pp": 2})
+    SH.check_mesh_supported({"pp": 2, "fsdp": 2, "tensor": 2})
+    with pytest.raises(ValueError, match="seq and pp"):
+        SH.check_mesh_supported({"pp": 2, "seq": 2})
 
 
 @pytest.mark.parametrize("change", [
@@ -437,6 +440,112 @@ def test_planted_faults_break_the_equality(pools, small, fault):
               max(float(np.abs(bad["params"][n] - good["params"][n]).max())
                   for n in good["params"]))
     assert off > 1e-3, (fault, off)
+
+
+# ---------------------------------------------------------------------------
+# the guard and the clip over shards (faults 14 and 15)
+# ---------------------------------------------------------------------------
+
+FUSED_MASTER = "adam,fused=1,master=1,lr=0.001,eps=0.001"
+
+
+def test_fused_master_clip_on_fsdp_by_tensor_is_the_one_process_clip(
+        pools, small):
+    """Fault 14: under ``fused=1,master=1`` the gradients are bf16, and the
+    clip's norm over shards is `optax_global_norm`'s value in bf16, the
+    one process's (the parent summed every square in fp32).  The first
+    moment, proportional to the clip's scale, is one process's: that of
+    `FusedAdam` in one process on the gradients the ranks reduced, and the
+    one-process step's wherever those gradients are bitwise its own (the
+    ranks sum in other orders, so a few bf16 roundings fall the other
+    way)."""
+    batch = _retrieval_batch(7)
+    clip = 0.05
+    wait = pools(4).submit("sharded_step", cfg_dict=small["cfg"],
+                           state=small["state"], kind="itm", batch=batch,
+                           mesh_axes={"fsdp": 2, "tensor": 2},
+                           spec=FUSED_MASTER, clip=clip)
+    model = build_model(ModelConfig(**small["cfg"]), 0, "cpu")
+    model.load_state_dict({k: torch.tensor(v)
+                           for k, v in small["state"].items()})
+    tx, _ = optim.build_optimizer(FUSED_MASTER, clip_grad_norm=clip)
+    state = create_train_state(model, tx)
+    step = S.make_train_step(lambda m, b, g: S.itm_finetune_loss(
+        m, b, g, SAMPLE_N, deterministic=True))
+    _, metrics = step(state, {k: torch.tensor(v) for k, v in batch.items()},
+                      None)
+    params = list(model.parameters())
+    assert params[0].grad.dtype == torch.bfloat16
+    norm = optim.optax_global_norm([p.grad if p.grad is not None
+                                    else torch.zeros_like(p)
+                                    for p in params])
+    assert float(norm) > 2 * clip                     # the clip bites
+    names = [n for n, _ in model.named_parameters()]
+    mu = {n: t.float().numpy() for n, t in zip(names, state.opt_state["mu"])}
+    grads = {n: p.grad.float().numpy() for n, p in zip(names, params)
+             if p.grad is not None}
+    ranks = wait()
+    # one process's FusedAdam on the ranks' reduced gradients
+    same = build_model(ModelConfig(**small["cfg"]), 0, "cpu")
+    same.load_state_dict({k: torch.tensor(v)
+                          for k, v in small["state"].items()})
+    one = create_train_state(same, tx)
+    got = ranks[0]["grads"]
+    for n, p in same.named_parameters():
+        p.grad = (torch.tensor(got[n]).to(p.dtype) if n in got else None)
+    one.apply_gradients()
+    mu_same = {n: t.float().numpy() for n, t in zip(names,
+                                                    one.opt_state["mu"])}
+    flipped = total = 0
+    for r in ranks:
+        np.testing.assert_allclose(r["loss"], metrics["loss"].item(),
+                                   rtol=LOSS_RTOL)
+        assert r["grad_norm_dtype"] == "torch.bfloat16"
+        assert r["grad_norm"] == float(norm)
+        for n, want in mu.items():
+            np.testing.assert_allclose(r["mu"][n], mu_same[n], **TOL_ONE,
+                                       err_msg=n)
+            if n not in grads:
+                continue
+            bitwise = r["grads"][n] == grads[n]
+            flipped += int((~bitwise).sum())
+            total += bitwise.size
+            np.testing.assert_allclose(r["mu"][n][bitwise], want[bitwise],
+                                       **TOL_ONE, err_msg=n)
+    # 0.41 % of the elements on the CPU: the sharded backward reduces its
+    # bf16 partial gradients (fsdp's reduce-scatter) before the rounding
+    assert flipped <= 1e-2 * total, (flipped, total)
+
+
+def test_nonfinite_shard_on_one_rank_makes_every_rank_skip(pools, small):
+    """Fault 15: an inf in rank 0's shard of one fsdp-split gradient makes
+    the guard skip the step on every rank (the parent decided per rank:
+    rank 0 skipped, the others updated, and the replicated leaves
+    parted)."""
+    batch = _retrieval_batch(8)
+    ranks = pools(4).run("sharded_step", cfg_dict=small["cfg"],
+                         state=small["state"], kind="itm", batch=batch,
+                         mesh_axes={"fsdp": 2, "tensor": 2}, spec=SPEC,
+                         guard=True, fault="inf_grad", whole=False)
+    assert np.isinf(ranks[0]["grad_norm"])
+    spec = SH.model_param_specs(build_model(ModelConfig(**small["cfg"]), 0,
+                                            "cpu"))
+    assert spec["block_0.attn.q_lin.weight"] == ("qkv", "embed")
+    replicated = [n for n, axes in spec.items() if not any(axes)]
+    assert "block_0.ln1.weight" in replicated
+    for r in ranks:
+        for n in replicated:
+            np.testing.assert_array_equal(r["params"][n], small["state"][n],
+                                          err_msg=n)
+            np.testing.assert_array_equal(r["params"][n],
+                                          ranks[0]["params"][n], err_msg=n)
+    whole = pools(4).run("sharded_step", cfg_dict=small["cfg"],
+                         state=small["state"], kind="itm", batch=batch,
+                         mesh_axes={"fsdp": 2, "tensor": 2}, spec=SPEC,
+                         guard=True, fault="inf_grad")
+    for r in whole:
+        for n, want in small["state"].items():
+            np.testing.assert_array_equal(r["params"][n], want, err_msg=n)
 
 
 # ---------------------------------------------------------------------------

@@ -333,10 +333,10 @@ def test_active_tasks_from_the_step_flags_match_jax():
 
 def test_trainer_refuses_what_item_16_brings(tmp_path):
     """A mesh is taken (one rank here: the trainer runs as without one;
-    `tests/test_torch_parallel.py` and `tests/test_torch_sharding.py` run
-    several); ``seq``, ``fsdp``, ``tensor`` and ``expert`` in the config
-    without a mesh run unsharded, as in JAX; the pipeline (item 16c) still
-    raises."""
+    `tests/test_torch_parallel.py`, `tests/test_torch_sharding.py` and
+    `tests/test_torch_pp.py` run several); ``seq``, ``fsdp``, ``tensor``,
+    ``expert`` and ``pp`` in the config without a mesh run unsharded, as
+    in JAX; ``pp`` with ``seq`` raises, as the JAX trainer asserts."""
     from m3p_tpu_torch.parallel.mesh import make_mesh
 
     cfg = C.small_test_config(dump_path=str(tmp_path))
@@ -346,12 +346,14 @@ def test_trainer_refuses_what_item_16_brings(tmp_path):
     assert (trainer.shard_index, trainer.shard_count) == (0, 1)
     seq = cfg.replace(mesh=dataclasses.replace(cfg.mesh, seq=2))
     assert Trainer(seq, model).loss_model is model
-    for axis in ("fsdp", "tensor", "expert"):
-        one = cfg.replace(mesh=dataclasses.replace(cfg.mesh, **{axis: 2}))
-        assert Trainer(one, model).mesh is None
-    bad = cfg.replace(mesh=dataclasses.replace(cfg.mesh, pp=2))
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        Trainer(bad, model)
+    for axes in ({"fsdp": 2}, {"tensor": 2}, {"expert": 2}, {"pp": 2},
+                 {"pp": 2, "tensor": 2}):
+        one = cfg.replace(mesh=dataclasses.replace(cfg.mesh, **axes))
+        trainer = Trainer(one, model)
+        assert trainer.mesh is None and trainer.loss_model is model
+    both = cfg.replace(mesh=dataclasses.replace(cfg.mesh, pp=2, seq=2))
+    with pytest.raises(ValueError, match="seq and pp"):
+        Trainer(both, model)
 
 
 def _small_batches(cfg, rng):
