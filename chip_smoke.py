@@ -782,12 +782,30 @@ def check_mask_identity(flash=False, dtype=None, causal_t63=False):
     return share
 
 
-def cuda_ms(fn, iters=50, warmup=5):
+# cuda_ms's window without an explicit count: back-to-back calls for about
+# CUDA_MS_WINDOW ms, at least CUDA_MS_MIN_ITERS and at most 50 of them (a
+# call of 2 ms or less gets 50, as every timing once had; a 10-20 ms
+# CUDA-core or plain-version call reads the same mean from 10)
+CUDA_MS_WINDOW, CUDA_MS_MIN_ITERS = 100.0, 10
+
+
+def cuda_ms(fn, iters=None, warmup=5):
+    """ms a call of ``fn``, CUDA events around ``iters`` back-to-back
+    calls after ``warmup``; ``iters`` None sizes the window from the last
+    warm-up call's host time (`CUDA_MS_WINDOW`)."""
     import torch
 
-    for _ in range(warmup):
+    for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    if warmup:
+        fn()
+        torch.cuda.synchronize()
+    if iters is None:
+        once = (time.perf_counter() - t) * 1e3
+        iters = int(min(50, max(CUDA_MS_MIN_ITERS,
+                                CUDA_MS_WINDOW / max(once, 1e-3))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -5164,8 +5182,7 @@ def compare_eval_with_cpu(seed):
     import numpy as np
 
     from m3p_tpu_torch.bench_eval_grid import grid_pool
-    from m3p_tpu_torch.eval.evaluator import Evaluator
-    from m3p_tpu_torch.eval.retrieval import retrieval_grid_scores
+    from m3p_tpu_torch.eval import evaluator as E
     from m3p_tpu_torch.model import build_model
 
     t0 = time.time()
@@ -5189,13 +5206,18 @@ def compare_eval_with_cpu(seed):
     got, evs, secs = {}, {}, {}
     for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
         t1 = time.time()
-        ev = evs[dev] = Evaluator(model, eval_config(
+        ev = evs[dev] = E.Evaluator(model, eval_config(
             cfg, max_gen_len=EVAL_FP32_GEN_LEN))
-        greedy = Evaluator(model, eval_config(
+        greedy = E.Evaluator(model, eval_config(
             cfg, beam_size=1, max_gen_len=EVAL_FP32_GEN_LEN))
-        with cpu_drawn_masking():
+        # the grid's scores as the retrieval test computed them (one pass
+        # of the grid, not two)
+        seen = []
+        with cpu_drawn_masking(), patched(E, "recall_at_k", lambda recall: (
+                lambda scores, c2i: seen.append(np.asarray(scores))
+                or recall(scores, c2i))):
             scores = ev.run_all_evals({**losses, "retrieval_test": test})
-        grid = retrieval_grid_scores(model, *pool, chunk_size=chunk)
+        grid = seen[0]
         hyps = {}
         for name, e in (("beam", ev), ("greedy", greedy)):
             hyps[f"caption_gen_{name}"] = e.generate_captions(
@@ -8013,6 +8035,8 @@ P18_SP_WARMUP, P18_SP_STEPS = 0, 1
 P18_SP_FP32_WORDS = 32002
 TOL_P18_SP_GRAD = 1e-4
 P18_TIMEOUT_S = 600
+# rank 0's fp32 gradients of 18(b), in the launch's temporary directory
+P18_SP_GRADS = "sp.grads.pt"
 
 
 class ShardsAsOne:
@@ -8530,10 +8554,11 @@ def p18_sp_masking(seed, batch, n_words):
             for t in mask_tokens(gen, tokens, mask, cfg)]
 
 
-def p18_sp_rank(cfg):
-    """18(b) on one rank: the bf16 SP step at full width (launches, ring
-    bytes, ms), then the fp32 depth-2 step's loss and gradients (rank 0
-    writes them)."""
+def p18_sp_part(cfg):
+    """18(b) on one rank, the last part of phase 19's launch
+    (`p19_rank`): the bf16 SP step at full width (launches, ring bytes,
+    ms), then the fp32 depth-2 step's loss and gradients (rank 0 writes
+    them to ``cfg["tmp"]``'s `P18_SP_GRADS`)."""
     import torch
     import torch.distributed as dist
 
@@ -8621,14 +8646,17 @@ def p18_sp_rank(cfg):
     out["seconds"] = {"bf16": t1 - t0, "fp32": time.time() - t1}
     if rank == 0:
         torch.save({n: p.grad.cpu() for n, p in model.named_parameters()
-                    if p.grad is not None}, f"{cfg['out']}.grads.pt")
-    with open(f"{cfg['out']}.{rank}.json", "w") as f:
-        json.dump(out, f)
+                    if p.grad is not None},
+                   os.path.join(cfg["tmp"], P18_SP_GRADS))
+    del state, model, sp, batch
+    torch.cuda.empty_cache()
+    return out
 
 
-def sp_slice(seed, tmp):
-    """18(b): the ranks' SP steps (`p18_sp_rank`), then one process's fp32
-    depth-2 step on the same batch and masking (#5/#6)."""
+def sp_slice(seed, secs, ranks, grads):
+    """18(b): the ranks' SP steps (`p18_sp_part`, on phase 19's launch:
+    its ``secs``, each rank's results, rank 0's fp32 gradients), then one
+    process's fp32 depth-2 step on the same batch and masking (#5/#6)."""
     import numpy as np
     import torch
 
@@ -8637,8 +8665,7 @@ def sp_slice(seed, tmp):
     from m3p_tpu_torch.model import build_model
     from m3p_tpu_torch.train.steps import mlm_loss
 
-    cfg = {"seed": seed, "tmp": tmp}
-    secs, ranks = p18_launch("sp", P18_SP_RANKS, cfg)
+    t0 = time.time()
     for r in ranks:
         c = r["bf16"]["launches"]
         if r["backend"] != "gloo" or r["mesh"]["seq"] != P18_SP_RANKS:
@@ -8674,8 +8701,7 @@ def sp_slice(seed, tmp):
     if ref_launches["flash_fwd"] != forwards or \
             ref_launches["flash_bwd"] != 2 * mcfg.n_layers:
         fail(f"phase 18(b): the one-process step launched {ref_launches}")
-    grads = torch.load(os.path.join(tmp, "sp.out.grads.pt"),
-                       map_location="cuda", weights_only=True)
+    grads = {n: g.cuda() for n, g in grads.items()}
     want = {n: p.grad for n, p in model.named_parameters()
             if p.grad is not None}
     got = {n: grads.get(n, torch.zeros_like(w)) for n, w in want.items()}
@@ -8723,20 +8749,21 @@ def sp_slice(seed, tmp):
         "speed_note": ("4 ranks sharing one card over gloo, the ring "
                        "staged through pinned host memory: "
                        "the cost of the path, not a sequence-parallel "
-                       "speed")}
+                       "speed"),
+        "check_s": time.time() - t0}
     log(f"[parallel] 18(b) sequence parallelism: {json.dumps(out)}")
     return out
 
 
 def parallel_slice(seed):
-    """Phase 18: (a) data parallelism through train_x.main over 2 ranks,
-    (b) sequence parallelism with ring attention over 4."""
+    """Phase 18's (a): data parallelism through train_x.main over 2 ranks;
+    (b), sequence parallelism with ring attention over 4, runs on phase
+    19's launch (`sp_slice`)."""
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         out = {"dp": dp_slice(seed, tmp)}
-        out["sp"] = sp_slice(seed, tmp)
     out["phase_s"] = time.time() - t0
-    log(f"[parallel] phase 18 in {out['phase_s']:.1f} s")
+    log(f"[parallel] phase 18(a) in {out['phase_s']:.1f} s")
     return out
 
 
@@ -8948,8 +8975,8 @@ def p19_step(model, mesh, kind, batch, draws=None, gens=None, spec=P19_SPEC,
     import torch
 
     from m3p_tpu_torch import bench
-    from m3p_tpu_torch.parallel.sharding import (
-        batch_sharding, gather_train_state, model_is_sharded, shard_batch)
+    from m3p_tpu_torch.parallel.sharding import batch_sharding, shard_batch
+    from m3p_tpu_torch.parallel.tensor_parallel import gather_whole, shard_of
     from m3p_tpu_torch.train import steps as S
     from m3p_tpu_torch.train.optim import build_optimizer
     from m3p_tpu_torch.train.state import create_train_state
@@ -8974,14 +9001,22 @@ def p19_step(model, mesh, kind, batch, draws=None, gens=None, spec=P19_SPEC,
 
     step = S.make_train_step(loss_fn)
     state, metrics = step(state, tb, gens)
-    params = (gather_train_state(state)["model"]
-              if model_is_sharded(model) else
-              {n: p.detach() for n, p in model.named_parameters()})
+    # the whole parameters alone (gathering the optimizer's moments too
+    # tripled the bytes each check moved)
+    params = {n: gather_whole(p.detach(), shard_of(p))
+              for n, p in model.named_parameters()}
     return float(metrics["loss"]), params, state
 
 
+# the rank of phase 19's launch that runs each check's one-process
+# reference (rank 0 runs the checkpoint's)
+P19_OWNER = {"b": 1, "tensor2_dropout": 2, "c_moe": 3}
+
+
 def p19_checks(cfg):
-    """19(b)-(d) on one rank; rank 0 runs each one-process reference."""
+    """19(b)-(d) on one rank; ranks 1-3 run the one-process references of
+    (b), tensor 2 at dropout and (c), side by side after the sharded
+    steps (`P19_OWNER`), rank 0 (d)'s."""
     import torch
     import torch.distributed as dist
 
@@ -9008,7 +9043,6 @@ def p19_checks(cfg):
                       {k: torch.as_tensor(v).cuda()
                        for k, v in batch.items()},
                       bench.mask_config(one.cfg))
-    ref = p19_step(one, None, "mct", batch, draws) if rank == 0 else None
     del one
 
     # (b) fsdp 2 x tensor 2 against one process, then the planted fault
@@ -9033,14 +9067,8 @@ def p19_checks(cfg):
             saved = gather_train_state(state)
         del model, state
         torch.cuda.empty_cache()
-    if rank == 0:
-        out["b"] = {}
-        for fault, (loss, params) in runs.items():
-            gap, name = leaf_gap(params, ref[1])
-            out["b"][str(fault)] = {
-                "loss": loss, "one_process_loss": ref[0],
-                "loss_gap": abs(loss - ref[0]) / abs(ref[0]),
-                "param_gap": gap, "worst_leaf": name}
+    if rank != P19_OWNER["b"]:
+        del runs
     dist.barrier()
 
     # (d) sharded -> one process -> sharded, bitwise
@@ -9085,18 +9113,9 @@ def p19_checks(cfg):
                                shard_rows=False, reduce=False)
     counts = launch_counts()
     del model
-    if rank == 0:
-        one = p19_model(seed, **rate)
-        ref_loss, ref_params, _ = p19_step(
-            one, None, "itm", batch, gens=Generators.from_seed(seed, "cuda"))
-        gap, name = leaf_gap(params, ref_params)
-        out["tensor2_dropout"] = {
-            "loss": loss, "one_process_loss": ref_loss,
-            "loss_gap": abs(loss - ref_loss) / abs(ref_loss),
-            "param_gap": gap, "worst_leaf": name,
-            "launches": {k: counts[k] for k in (
-                "packed_fwd", "packed_bwd", "dropout_fwd", "dropout_bwd")}}
-        del one
+    dropout_run = (loss, params) if rank == P19_OWNER["tensor2_dropout"] \
+        else None
+    del params
     torch.cuda.empty_cache()
 
     # (c) MoE on data 2 x expert 2
@@ -9106,23 +9125,42 @@ def p19_checks(cfg):
     shard_model(model, mesh)
     loss, params, _ = p19_step(model, mesh, "itm", batch)
     del model
-    if rank == 0:
-        one = p19_model(seed, **moe)
-        ref_loss, ref_params, _ = p19_step(one, None, "itm", batch)
-        gap, name = leaf_gap(params, ref_params)
-        out["c_moe"] = {"loss": loss, "one_process_loss": ref_loss,
-                        "loss_gap": abs(loss - ref_loss) / abs(ref_loss),
-                        "param_gap": gap, "worst_leaf": name}
-        del one
+    moe_run = (loss, params) if rank == P19_OWNER["c_moe"] else None
+    del params
+    torch.cuda.empty_cache()
+
+    # the one-process references, each on its rank
+    def compare(got, ref):
+        gap, name = leaf_gap(got[1], ref[1])
+        return {"loss": got[0], "one_process_loss": ref[0],
+                "loss_gap": abs(got[0] - ref[0]) / abs(ref[0]),
+                "param_gap": gap, "worst_leaf": name}
+
+    if rank == P19_OWNER["b"]:
+        ref = p19_step(p19_model(seed), None, "mct", batch, draws)
+        out["b"] = {str(fault): compare(run, ref)
+                    for fault, run in runs.items()}
+        del runs, ref
+    if dropout_run is not None:
+        ref = p19_step(p19_model(seed, **rate), None, "itm", batch,
+                       gens=Generators.from_seed(seed, "cuda"))
+        out["tensor2_dropout"] = dict(compare(dropout_run, ref), launches={
+            k: counts[k] for k in ("packed_fwd", "packed_bwd",
+                                   "dropout_fwd", "dropout_bwd")})
+        del dropout_run, ref
+    if moe_run is not None:
+        ref = p19_step(p19_model(seed, **moe), None, "itm", batch)
+        out["c_moe"] = compare(moe_run, ref)
+        del moe_run, ref
     torch.cuda.empty_cache()
     return out
 
 
 def p19_rank(cfg):
-    """A rank of phases 20 and 19 (one launch: a launch costs about 25 s
-    beyond its ranks' work on an H100 80GB HBM3 host): phase 20's part
-    first, in fresh processes, then phase 19's (a), then (b)-(d); one
-    JSON per rank."""
+    """A rank of phases 20, 19, 21 and 18(b) (one launch: a launch costs
+    about 20 s beyond its ranks' work on an H100 80GB HBM3 host): phase
+    20's part first, in fresh processes, then phase 19's (a), then
+    (b)-(d), then phase 21's, then 18(b)'s; one JSON per rank."""
     import torch.distributed as dist
 
     from m3p_tpu_torch.parallel.mesh import auto_init_distributed
@@ -9137,7 +9175,14 @@ def p19_rank(cfg):
     out = {"p20": p20, "a": p19_preset(cfg)}
     t1 = time.time()
     out.update(p19_checks(cfg))
-    out["seconds"] = {"a": t1 - t0, "checks": time.time() - t1}
+    t2 = time.time()
+    out["seconds"] = {"a": t1 - t0, "checks": t2 - t1}
+    p21 = {"a": p21_full_width(cfg)}
+    t3 = time.time()
+    p21["b"] = p21_checks(cfg)
+    p21["seconds"] = {"a": t3 - t2, "b": time.time() - t3}
+    out["p21"] = p21
+    out["p18_sp"] = p18_sp_part(cfg)
     with open(f"{cfg['out']}.{dist.get_rank()}.json", "w") as f:
         json.dump(out, f)
 
@@ -9254,16 +9299,22 @@ def remat_memory(seed):
 
 def sharding_slice(seed):
     """Phase 19: (a)-(d) on 4 ranks (`p19_rank`), the head offset on the
-    card, remat's memory.  Its own launch, shared with phase 20 (which
-    runs first on the ranks): the ranks of 18(b), going on to this part,
-    took twice as long over it on an H100 80GB HBM3.  Returns (phase 19's
-    numbers, phase 20's results by rank)."""
+    card, remat's memory.  Its launch is shared with phases 20 (which
+    runs first on the ranks), 21 and 18(b) (last: phase 19's part once
+    took twice as long on ranks that had run 18(b) first).  Returns
+    (phase 19's numbers, the other parts' results: by rank under "p20"
+    and "p21", and 18(b)'s (launch seconds, results by rank, rank 0's
+    fp32 gradients) under "p18_sp")."""
+    import torch
+
     t0 = time.time()
     heads = check_head_offset()
     sublap("p19_head_offset")
     with tempfile.TemporaryDirectory() as tmp:
         secs, ranks = p18_launch("p19", P19_RANKS, {"seed": seed,
                                                     "tmp": tmp})
+        sp_grads = torch.load(os.path.join(tmp, P18_SP_GRADS),
+                              weights_only=True)
     sublap("p19_ranks")
     n_layers, refine = 24, 3
     want = {"packed_fwd": 2 * n_layers + refine,
@@ -9285,7 +9336,9 @@ def sharding_slice(seed):
                 problems.append(f"rank {r} holds {mine} of {whole} {part} "
                                 "bytes")
     zero = ranks[0]
-    b = zero["b"]
+    b = ranks[P19_OWNER["b"]]["b"]
+    checks = {key: ranks[P19_OWNER[key]][key]
+              for key in ("tensor2_dropout", "c_moe")}
     if not (b["None"]["loss_gap"] <= TOL_P19_FP32
             and b["None"]["param_gap"] <= TOL_P19_FP32):
         problems.append(f"fsdp 2 x tensor 2 is not the one-process step: "
@@ -9294,11 +9347,11 @@ def sharding_slice(seed):
     if max(fault["loss_gap"], fault["param_gap"]) <= TOL_P19_FP32:
         problems.append(f"the planted fault was not seen: {fault}")
     for key in ("tensor2_dropout", "c_moe"):
-        if not (zero[key]["loss_gap"] <= TOL_P19_FP32
-                and zero[key]["param_gap"] <= TOL_P19_FP32):
+        if not (checks[key]["loss_gap"] <= TOL_P19_FP32
+                and checks[key]["param_gap"] <= TOL_P19_FP32):
             problems.append(f"{key} is not the one-process step: "
-                            f"{zero[key]}")
-    if zero["tensor2_dropout"]["launches"]["dropout_fwd"] == 0:
+                            f"{checks[key]}")
+    if checks["tensor2_dropout"]["launches"]["dropout_fwd"] == 0:
         problems.append("tensor 2 at dropout launched no #7")
     if not all(r["d"]["to_sharded_bitwise"] for r in ranks) or not zero[
             "d"]["to_one_process_bitwise"]:
@@ -9331,14 +9384,19 @@ def sharding_slice(seed):
                "steps"]) for k in want} for r, res in enumerate(ranks)},
            "fp32": {"fsdp2_tensor2": b["None"],
                     "planted_row_no_reduce": fault,
-                    "tensor2_dropout": zero["tensor2_dropout"],
-                    "moe_data2_expert2": zero["c_moe"],
+                    "tensor2_dropout": checks["tensor2_dropout"],
+                    "moe_data2_expert2": checks["c_moe"],
                     "checkpoint": [r["d"] for r in ranks]},
            "head_offset_max_abs_diff": heads, "remat": remat,
            "phase_s": time.time() - t0 - sum(
-               zero["p20"]["seconds"].values())}
+               zero["p20"]["seconds"].values()) - sum(
+               zero["p21"]["seconds"].values()) - sum(
+               zero["p18_sp"]["seconds"].values())}
     log(f"[sharding] phase 19: {json.dumps(out)}")
-    return out, [dict(res["p20"], launch_s=secs) for res in ranks]
+    shared = {part: [dict(res[part], launch_s=secs) for res in ranks]
+              for part in ("p20", "p21")}
+    shared["p18_sp"] = (secs, [res["p18_sp"] for res in ranks], sp_grads)
+    return out, shared
 
 
 # ---------------------------------------------------------------------------
@@ -9667,6 +9725,522 @@ def pipeline_slice(ranks):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the configurations sharding refused before -- the int8 modes and
+# the adaptive softmax under tensor, int8 tables over sharded parameters,
+# uneven splits
+# ---------------------------------------------------------------------------
+
+# On phase 19's 4 ranks sharing the card over gloo (`p19_rank` runs this
+# part after phase 19's), so the times are the host transport's, not a
+# parallel speed.
+#
+# (a) phase 19(a)'s scale-up preset, batch and mesh (fsdp 2 x tensor 2)
+# with the int8 FFN and head (`P21_QUANT`) through the port's Trainer
+# (`train_x.main` with the modes set on its config: neither train_x has
+# --ffn_quant), one warm-up and P21_TIMED timed micro-steps; #1 / #2 as in
+# phase 19(a).
+P21_TIMED = 1
+P21_QUANT = dict(ffn_quant="int8_bwd", head_quant="int8_bwd")
+P21_ARGV = [("p21" if a == "p19" else a) for a in P19_ARGV]
+# (b) fp32 at depth 2, full width, 32,002 words (phase 19's checks'
+# model), each step against one process (rank 0): the loss, and each
+# parameter leaf relative to its largest entry or P18_PARAM_FLOOR, within
+# TOL_P21_FP32, as phase 19 holds its steps.  An activation an ulp off one
+# process's (the ranks sum in other orders) can cross a rounding boundary
+# of an int8 step, and such a step is held to one int8 step's effect, read
+# in the run: twice the gap between the one-process step and the same step
+# on features scaled by P21_NUDGE (16 ulps of fp32: it moves more
+# roundings than the ranks' sums do), times P21_EFFECT_FACTOR: one nudged
+# step is one draw of that effect (a sharded step has read 0.97x twice
+# its draw on an H100, on a LayerNorm bias one Adam step from 0).
+# A wgrad quantized over each rank's own rows (fault 16's parent), or an
+# amax left rank-local, moves the step by re-rounding too, so a step
+# cannot tell them from that bound: the planted faults are held at the
+# GEMMs, where they read 10x the GEMMs' tolerance or more.
+TOL_P21_FP32 = 1e-5
+P21_NUDGE = 1.0 + 2.0 ** -16
+P21_EFFECT_FACTOR = 4.0
+# the int8 GEMMs alone on the card at full-width shapes, each rank's part
+# against the GEMM on the whole operands: the quantized values are the
+# whole's, so the outputs differ by the fp32 sums of the ranks' parts
+# alone; the planted faults (every amax rank-local; the wgrads' rows
+# rank-local, fault 16's parent) must read 10x this
+TOL_P21_GEMM = 1e-5
+P21_GEMM_SHAPE = (1024, 768, 3072)
+P21_EVAL = dict(images=4, beam=2, max_len=8)
+
+
+def p21_config(make):
+    """`train_x.args_to_config` with `P21_QUANT` on the model."""
+    def to_config(args):
+        cfg = make(args)
+        return dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, **P21_QUANT))
+    return to_config
+
+
+def p21_int8_counts():
+    from m3p_tpu_torch.ops import quant
+
+    return {name: dict(getattr(quant, name).calls_by_route)
+            for name in ("int8_matmul_qbwd", "int8_matmul_nt")}
+
+
+def p21_full_width(cfg):
+    """21(a) on one rank: the preset's int8 MCT steps through
+    train_x.main."""
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.cli import train_x
+    from m3p_tpu_torch.data.loader import LoadedData
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.parallel import data_parallel as DP
+    from m3p_tpu_torch.parallel.mesh import COLLECTIVE_BYTES
+
+    seed, tmp = cfg["seed"], cfg["tmp"]
+    data = LoadedData(train_datasets={("rel", "coco"): PretrainRows(
+        seed, 250002)}, tokenizer=None)
+    rec = {"losses": [], "batches": [], "ms": [], "steps": []}
+    snaps = []
+
+    def on_step(trainer):
+        snaps.append({"collective": dict(COLLECTIVE_BYTES),
+                      "reduced": dict(DP.REDUCED_BYTES),
+                      "amax": dict(quant.AMAX_REDUCED),
+                      "int8": p21_int8_counts(),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if len(snaps) == 1:           # after the warm-up
+            torch.cuda.reset_peak_memory_stats()
+        rec["batches"].clear()
+
+    zero_launch_counts()
+    quant.zero_counts()
+    with patched(train_x, "args_to_config", p21_config):
+        trainer, secs = p18_run_main(P21_ARGV + [
+            "--dump_path", os.path.join(tmp, "dump"), "--seed", str(seed)],
+            data, rec, on_step=on_step, save=False)
+    first, timed = snaps[0], snaps[-1]
+
+    def per_step(key):
+        return {k: (timed[key][k] - first[key][k]) / P21_TIMED
+                for k in timed[key]}
+
+    ffn = trainer.model.blocks[0].ffn
+    out = {"rank": dist.get_rank(), "seconds": secs,
+           "mesh": {k: v for k, v in trainer.mesh.shape.items() if v > 1},
+           "quant": [trainer.cfg.model.ffn_quant,
+                     trainer.cfg.model.head_quant],
+           "ffn_modules": [type(ffn.lin1).__name__,
+                           ffn.lin1.column_parallel is not None,
+                           ffn.lin2.row_parallel is not None],
+           "n_total_iter": trainer.n_total_iter,
+           "losses": [v for _, v in rec["losses"]],
+           "ms": rec["ms"], "steps": rec["steps"],
+           "collective_bytes_per_step": per_step("collective"),
+           "amax_reduced_per_step": per_step("amax"),
+           "gradient_bytes_per_step": per_step("reduced")["gradients"],
+           "int8_gemms_per_step": {
+               name: {r: (timed["int8"][name][r] - first["int8"][name][r])
+                      / P21_TIMED for r in routes}
+               for name, routes in timed["int8"].items()},
+           "peak_memory_gb": timed["peak_gb"]}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def p21_gemm_gap(case, mesh, fault=None):
+    """One int8 training GEMM on the card (P21_GEMM_SHAPE; the vocab head
+    at (512, 768, 32002)) on ``mesh``, this rank's part against the GEMM
+    on the whole operands, which every rank computes: the largest gap of
+    y, dx or dw relative to its largest entry, over the ranks.  ``case``:
+    "rows" / "nt_rows" (`int8_matmul_qbwd` / `_nt` with the rows over the
+    batch shards), "col" / "row" (N / K over ``tensor``), "nt_vocab" (the
+    vocabulary over ``tensor``, padded where it does not divide).
+    ``fault``: "amax_local" (every amax rank-local) or "rows_local" (the
+    wgrads' rows this rank's, fault 16's parent)."""
+    import torch
+
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.parallel import mesh as PM
+    from m3p_tpu_torch.parallel.data_parallel import BATCH_AXES, batch_reduction
+    from m3p_tpu_torch.parallel.tensor_parallel import shard_width
+
+    gen = torch.Generator(device="cuda").manual_seed(2100)
+    nt = case.startswith("nt")
+    m, k, n = (512, 768, 32002) if nt else P21_GEMM_SHAPE
+
+    def draw(rows, cols):
+        return (torch.randn(rows, cols, device="cuda", generator=gen)
+                * torch.rand(rows, 1, device="cuda", generator=gen) * 3)
+
+    x, g = draw(m, k), draw(m, n)
+    w = draw(n, k) if nt else draw(k, n)
+    fn = quant.int8_matmul_nt if nt else quant.int8_matmul_qbwd
+
+    def run(x, w, g, *lines):
+        x = x.detach().clone().requires_grad_()
+        w = w.detach().clone().requires_grad_()
+        y = fn(x, w, *lines)
+        y.backward(g)
+        return y.detach(), x.grad, w.grad
+
+    whole = run(x, w, g)
+    line = (mesh, "tensor")
+    i = mesh.index("tensor")
+    stack = contextlib.ExitStack()
+    with stack:
+        stack.enter_context(batch_reduction(mesh))
+        if fault == "amax_local":
+            stack.enter_context(patched(quant, "_amax", lambda amax: (
+                lambda xf, axis, over: amax(xf, axis, None))))
+        elif fault == "rows_local":
+            stack.enter_context(patched(quant, "batch_line",
+                                        lambda _: (lambda: None)))
+        if case in ("rows", "nt_rows"):
+            b, count = mesh.batch_shards
+            rows = slice(b * m // count, (b + 1) * m // count)
+            part = run(x[rows], w, g[rows])
+            want = [("part", whole[0][rows]), ("part", whole[1][rows]),
+                    ("sum", whole[2], BATCH_AXES)]
+        elif case == "col":
+            c = slice(i * n // 2, (i + 1) * n // 2)
+            part = run(x, w[:, c], g[:, c], None, line)
+            want = [("part", whole[0][:, c]), ("sum", whole[1], "tensor"),
+                    ("part", whole[2][:, c])]
+        elif case == "row":
+            r = slice(i * k // 2, (i + 1) * k // 2)
+            part = run(x[:, r], w[r], g, line)
+            want = [("sum", whole[0], "tensor"), ("part", whole[1][:, r]),
+                    ("part", whole[2][r])]
+        else:
+            c = shard_width(n, mesh.shape["tensor"])
+            v = slice(i * c, min((i + 1) * c, n))
+            part = run(x, w[v], g[:, v], line)
+            want = [("part", whole[0][:, v]), ("sum", whole[1], "tensor"),
+                    ("part", whole[2][v])]
+    gap = 0.0
+    for got, spec in zip(part, want):
+        ref = spec[1]
+        if spec[0] == "sum":
+            got = PM.all_reduce_sum(got, mesh, mesh.group(spec[2]))
+        gap = max(gap, float((got - ref).abs().max() / ref.abs().max()))
+    worst = PM.all_reduce_max(torch.tensor([gap], device="cuda"), mesh)
+    return float(worst[0])
+
+
+def p21_pad_max(state):
+    """The largest |entry| of this rank's parameter, gradient and Adam
+    moment shards in an uneven split's padding."""
+    import torch
+
+    from m3p_tpu_torch.parallel.tensor_parallel import shard_of
+
+    worst = 0.0
+    moments = [v for v in state.opt_state.values()
+               if isinstance(v, list) and v and torch.is_tensor(v[0])]
+    for j, p in enumerate(state.model.parameters()):
+        spec = shard_of(p)
+        if spec is None:
+            continue
+        index = tuple(
+            slice(None) if a is None else slice(max(
+                spec.shape[d] - spec.mesh.index(a) * p.shape[d], 0), None)
+            for d, a in enumerate(spec.axes))
+        for t in [p.detach(), p.grad] + [mo[j] for mo in moments]:
+            if t is not None and t[index].numel():
+                worst = max(worst, float(t[index].abs().max()))
+    return worst
+
+
+class IdsTokenizer:
+    """Decodes a caption's ids as they are, so equal strings are equal
+    tokens."""
+
+    def decode(self, ids):
+        return " ".join(str(int(t)) for t in ids)
+
+
+def p21_eval(seed, mesh, batches):
+    """The evaluator's int8 caption eval (`eval.quant="int8"`: the model's
+    frozen-weight int8 copy, tables captured over its shards) on ``mesh``
+    (None: one process): the hypotheses, each rank's table bytes and its
+    int8 GEMMs."""
+    from m3p_tpu_torch.config import EvalConfig, TrainConfig
+    from m3p_tpu_torch.eval.evaluator import Evaluator
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.parallel.sharding import shard_model
+
+    model = p19_model(seed)
+    if mesh is not None:
+        shard_model(model, mesh)
+    ev = Evaluator(model, TrainConfig(model=model.cfg, eval=EvalConfig(
+        quant="int8", beam_size=P21_EVAL["beam"],
+        max_gen_len=P21_EVAL["max_len"])))
+    quant.zero_counts()
+    hyps = {beam: ev.generate_captions(batches, IdsTokenizer(),
+                                       beam_size=beam)
+            for beam in (1, P21_EVAL["beam"])}
+    tables = sum(t.wq.nbytes + t.sw.nbytes for t in ev.gen_model.modules()
+                 if isinstance(t, quant.Q8Table))
+    return {"hyps": hyps, "table_bytes": tables,
+            "int8_gemms": quant.int8_matmul_pre.calls
+            + quant.int8_matmul_nt_pre.calls}
+
+
+# (case, model kw, mesh, step kind, the batch sharded and reduced): each
+# one-process reference runs on the rank that owns the case (`P21_OWNER`),
+# the ranks' references side by side; rank 0 owns the one-process eval
+P21_CASES = (("int8_bwd_fsdp2_tensor2", P21_QUANT, "fsdp2_tensor2", "mct",
+              True),
+             ("int8_all_tensor2", dict(ffn_quant="int8_all"),
+              "data2_tensor2", "itm", False),
+             ("int8_bwd_data2_fsdp2", P21_QUANT, "data2_fsdp2", "mct", True),
+             ("asm_tensor2", dict(asm=True), "data2_tensor2", "mct", False),
+             ("uneven_tensor4", {}, "tensor4", "mct", True))
+P21_OWNER = {"int8_bwd_fsdp2_tensor2": 1, "int8_all_tensor2": 2,
+             "int8_bwd_data2_fsdp2": 3, "asm_tensor2": 2,
+             "uneven_tensor4": 3}
+
+
+def p21_checks(cfg):
+    """21(b) on one rank: every rank runs each sharded part; the rank that
+    owns a case (`P21_OWNER`) then runs its one-process references and
+    compares, rank 0 the one-process eval and checkpoint read."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch import checkpoint as ckpt
+    from m3p_tpu_torch.config import MeshConfig
+    from m3p_tpu_torch.data.synthetic import make_retrieval_batch
+    from m3p_tpu_torch.parallel.mesh import make_mesh
+    from m3p_tpu_torch.parallel.sharding import (
+        gather_train_state, shard_model)
+    from m3p_tpu_torch.train.optim import build_optimizer
+    from m3p_tpu_torch.train.state import create_train_state
+    from m3p_tpu_torch.train.steps import mct_draws
+
+    seed, tmp = cfg["seed"] + 3, cfg["tmp"]
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = p19_batch(seed, P19_FP32_WORDS)
+    draws = mct_draws(torch.Generator(device="cuda").manual_seed(seed),
+                      {k: torch.as_tensor(v).cuda()
+                       for k, v in batch.items()},
+                      bench.mask_config(p19_model(seed).cfg))
+    meshes = {"fsdp2_tensor2": MeshConfig(data=1, fsdp=2, tensor=2),
+              "data2_tensor2": MeshConfig(data=2, tensor=2),
+              "data2_fsdp2": MeshConfig(data=2, fsdp=2),
+              "tensor4": MeshConfig(data=1, tensor=4)}
+    meshes = {k: make_mesh(v, dev) for k, v in meshes.items()}
+    out = {"fp32": {}, "seconds": {}}
+    kept = {}
+    t = time.time()
+
+    def part(name):
+        nonlocal t
+        out["seconds"][name] = time.time() - t
+        t = time.time()
+
+    for name, kw, mesh_name, kind, split in P21_CASES:
+        model = p19_model(seed, **kw)
+        shard_model(model, meshes[mesh_name])
+        loss, params, state = p19_step(model, meshes[mesh_name], kind,
+                                       batch, draws, shard_rows=split,
+                                       reduce=split)
+        if P21_OWNER[name] == rank:
+            kept[name] = (loss, params)
+        if name == "uneven_tensor4":
+            out["uneven_pad_max"] = p21_pad_max(state)
+            out["uneven_local_rows"] = list(model.text_emb.word.weight.shape)
+            path = os.path.join(tmp, "p21_tensor4")
+            ckpt.save_checkpoint(path, state, {"epoch": 1})
+            saved = gather_train_state(state)
+        del model, state, params
+        torch.cuda.empty_cache()
+    part("steps")
+
+    # the checkpoint of tensor 4 onto fsdp 2 x tensor 2
+    model = p19_model(seed)
+    shard_model(model, meshes["fsdp2_tensor2"])
+    tx, _ = build_optimizer(P19_SPEC, clip_grad_norm=CLIP)
+    st = create_train_state(model, tx, meshes["fsdp2_tensor2"])
+    st, _ = ckpt.restore_checkpoint(os.path.join(tmp, "p21_tensor4"), st)
+    back = gather_train_state(st)
+    out["checkpoint"] = {"to_fsdp2_tensor2_bitwise": all(
+        torch.equal(back["model"][k], v) for k, v in saved["model"].items())
+        and all(torch.equal(a, b) for key in ("mu", "nu") for a, b in zip(
+            back["opt_state"][key], saved["opt_state"][key]))}
+    del model, st, back
+    torch.cuda.empty_cache()
+    part("checkpoint")
+
+    # the int8 GEMMs on their meshes, good and with each planted fault
+    gemms = {}
+    for case, mesh_name, fault in (
+            ("rows", "data2_fsdp2", "rows_local"),
+            ("nt_rows", "data2_fsdp2", "rows_local"),
+            ("col", "fsdp2_tensor2", "amax_local"),
+            ("row", "fsdp2_tensor2", "amax_local"),
+            ("nt_vocab", "tensor4", "amax_local")):
+        mesh = meshes[mesh_name]
+        gemms[f"{case}_{mesh_name}"] = {
+            "gap": p21_gemm_gap(case, mesh),
+            fault: p21_gemm_gap(case, mesh, fault)}
+    out["gemms"] = gemms
+    torch.cuda.empty_cache()
+    part("gemms")
+
+    # the evaluator's int8 caption eval on fsdp 2 x tensor 2
+    rng = np.random.RandomState(seed)
+    batches = [make_retrieval_batch(rng, P21_EVAL["images"], 1, 8,
+                                    P19_REGIONS, P19_FP32_WORDS)]
+    got = p21_eval(seed, meshes["fsdp2_tensor2"], batches)
+    out["eval"] = {"table_bytes": got["table_bytes"],
+                   "int8_gemms": got["int8_gemms"]}
+    torch.cuda.empty_cache()
+    part("eval")
+
+    # one process: each rank its own references, side by side
+    for name, kw, mesh_name, kind, split in P21_CASES:
+        if name not in kept:
+            continue
+        loss, params = kept.pop(name)
+        ref = p19_step(p19_model(seed, **kw), None, kind, batch, draws)
+        gap, leaf = leaf_gap(params, ref[1])
+        res = {"loss": loss, "one_process_loss": ref[0],
+               "loss_gap": abs(loss - ref[0]) / abs(ref[0]),
+               "param_gap": gap, "worst_leaf": leaf, "int8_step_effect": None}
+        if kw.get("ffn_quant"):
+            nudged = dict(batch, feats=batch["feats"] * P21_NUDGE)
+            res["int8_step_effect"] = leaf_gap(p19_step(
+                p19_model(seed, **kw), None, kind, nudged, draws)[1],
+                ref[1])[0]
+        out["fp32"][name] = res
+        del params, ref
+        torch.cuda.empty_cache()
+    if rank == 0:
+        one = p19_model(seed)
+        st = create_train_state(one, tx)
+        st, _ = ckpt.restore_checkpoint(os.path.join(tmp, "p21_tensor4"), st)
+        sd = one.state_dict()
+        out["checkpoint"]["to_one_process_bitwise"] = all(
+            sd[k].shape == v.shape and torch.equal(sd[k], v)
+            for k, v in saved["model"].items())
+        del one, st
+        want = p21_eval(seed, None, batches)
+        out["eval"].update(
+            one_process_table_bytes=want["table_bytes"],
+            tokens_equal={str(b): got["hyps"][b] == want["hyps"][b]
+                          for b in want["hyps"]},
+            hyps=got["hyps"])
+    del saved
+    torch.cuda.empty_cache()
+    part("one_process")
+    return out
+
+
+def sharded_variants_slice(ranks):
+    """Phase 21: (a) and (b) on the 4 ranks of phase 19's launch
+    (`p19_rank` runs them after phase 19's part): ``ranks`` holds each
+    rank's results.  The phase's own clock is rank 0's seconds over its
+    part and this check."""
+    t0 = time.time()
+    secs = ranks[0]["launch_s"]
+    n_layers, refine = 24, 3
+    want = {"packed_fwd": 2 * n_layers + refine,
+            "packed_bwd": 2 * (n_layers + refine)}
+    problems = []
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        if a["n_total_iter"] != 1 + P21_TIMED:
+            problems.append(f"rank {r} took {a['n_total_iter']} steps")
+        if a["quant"] != [P21_QUANT["ffn_quant"], P21_QUANT["head_quant"]] \
+                or a["ffn_modules"] != ["QuantDense", True, True]:
+            problems.append(f"rank {r} ran {a['quant']} {a['ffn_modules']}")
+        for kind, counts in a["steps"]:
+            if {k: counts[k] for k in want} != want:
+                problems.append(f"rank {r} {kind} launches {counts}")
+        if not all(map(math.isfinite, a["losses"])):
+            problems.append(f"rank {r} losses {a['losses']}")
+        int8 = a["int8_gemms_per_step"]
+        if not int8["int8_matmul_qbwd"]["cpu"] == 0 < sum(
+                int8["int8_matmul_qbwd"].values()) or not sum(
+                int8["int8_matmul_nt"].values()) > 0:
+            problems.append(f"rank {r} int8 GEMMs {int8}")
+        if a["amax_reduced_per_step"]["calls"] <= 0:
+            problems.append(f"rank {r} reduced no amax")
+    b = ranks[0]["b"]
+    fp32 = {name: ranks[P21_OWNER[name]]["b"]["fp32"][name]
+            for name, *_ in P21_CASES}
+    bounds = {}
+    for name, res in fp32.items():
+        effect = res["int8_step_effect"]
+        bound = max(TOL_P21_FP32, P21_EFFECT_FACTOR * (effect or 0.0))
+        bounds[name] = bound
+        if not (res["loss_gap"] <= bound and res["param_gap"] <= bound):
+            problems.append(f"{name} is not the one-process step within "
+                            f"{bound}: {res}")
+    for key, res in b["gemms"].items():
+        planted = [v for k, v in res.items() if k != "gap"][0]
+        if not res["gap"] <= TOL_P21_GEMM < 10 * TOL_P21_GEMM <= planted:
+            problems.append(f"int8 GEMM {key}: {res}")
+    if not all(r["b"]["uneven_pad_max"] == 0.0 for r in ranks):
+        problems.append(f"the padding moved: "
+                        f"{[r['b']['uneven_pad_max'] for r in ranks]}")
+    if not (all(r["b"]["checkpoint"]["to_fsdp2_tensor2_bitwise"]
+                for r in ranks)
+            and b["checkpoint"]["to_one_process_bitwise"]):
+        problems.append(f"the uneven checkpoint's round trip is not "
+                        f"bitwise: {[r['b']['checkpoint'] for r in ranks]}")
+    ev = b["eval"]
+    share = max(r["b"]["eval"]["table_bytes"] for r in ranks) / ev[
+        "one_process_table_bytes"]
+    if not all(ev["tokens_equal"].values()):
+        problems.append(f"the int8 caption eval's tokens are not one "
+                        f"process's: {ev}")
+    if not all(r["b"]["eval"]["int8_gemms"] > 0 for r in ranks):
+        problems.append("the int8 caption eval ran no int8 GEMM")
+    if share > 0.51:
+        problems.append(f"a rank holds {share} of one process's table bytes")
+    if problems:
+        fail("phase 21: " + "; ".join(problems))
+    a = ranks[0]["a"]
+    out = {"launch_s": secs, "ranks": len(ranks), "mesh": a["mesh"],
+           "quant": a["quant"], "rank0_s": ranks[0]["seconds"],
+           "ms_per_step_per_rank": {r: res["a"]["ms"][1:]
+                                    for r, res in enumerate(ranks)},
+           "warmup_ms_per_rank": {r: res["a"]["ms"][0]
+                                  for r, res in enumerate(ranks)},
+           "losses_rank0": a["losses"],
+           "collective_bytes_per_step_rank0": a["collective_bytes_per_step"],
+           "amax_reduced_per_step_rank0": a["amax_reduced_per_step"],
+           "gradient_bytes_per_step_rank0": a["gradient_bytes_per_step"],
+           "int8_gemms_per_step_rank0": a["int8_gemms_per_step"],
+           "peak_memory_gb_per_rank": {r: res["a"]["peak_memory_gb"]
+                                       for r, res in enumerate(ranks)},
+           "launches_per_step": want,
+           "launches_per_rank": {r: {k: sum(c[k] for _, c in res["a"][
+               "steps"]) for k in want} for r, res in enumerate(ranks)},
+           "fp32": fp32, "bounds": bounds,
+           "gemms": b["gemms"],
+           "uneven_local_rows": b["uneven_local_rows"],
+           "checkpoint": [r["b"]["checkpoint"] for r in ranks],
+           "b_seconds_rank0": b["seconds"],
+           "eval": {"tokens_equal": ev["tokens_equal"],
+                    "table_bytes_per_rank": [r["b"]["eval"]["table_bytes"]
+                                             for r in ranks],
+                    "one_process_table_bytes": ev["one_process_table_bytes"],
+                    "table_share": share},
+           "check_s": time.time() - t0}
+    log(f"[sharded variants] phase 21: {json.dumps(out)}")
+    return out
+
+
 def p18_rank(path):
     """A rank of phase 18, or 19 and 20, under torchrun (``--p18
     <config>``)."""
@@ -9681,10 +10255,8 @@ def p18_rank(path):
     if cfg["part"] == "dp":
         auto_init_distributed("cuda")
         p18_dp_rank(cfg)
-    elif cfg["part"] == "p19":
-        p19_rank(cfg)
     else:
-        p18_sp_rank(cfg)
+        p19_rank(cfg)
     return 0
 
 
@@ -9715,7 +10287,9 @@ def main() -> int:
 
     card = bench.card()
     log(f"[card] {name} ({card}); torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; host: {os.cpu_count()} CPUs, "
+        f"{len(os.sched_getaffinity(0))} usable, torch threads "
+        f"{torch.get_num_threads()}")
     t_start = CLOCK["t"] = CLOCK["sub"] = time.time()
 
     build_kernels()
@@ -9900,23 +10474,29 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     parallel = parallel_slice(args.seed)
-    lap("p18_parallel")
+    lap("p18a_parallel")
     dp_launches = parallel["dp"]["launches_per_rank"]
     p18_packed = {k: sum(c[k] for c in dp_launches.values())
                   for k in ("packed_fwd", "packed_bwd")}
-    sp_flash = parallel["sp"]["one_process_launches"]
     torch.cuda.empty_cache()
 
-    sharding, p20_ranks = sharding_slice(args.seed)
+    sharding, shared_ranks = sharding_slice(args.seed)
     lap("p19_sharding")
     p19_packed = {k: sum(c[k] for c in sharding["launches_per_rank"].values())
                   for k in ("packed_fwd", "packed_bwd")}
     torch.cuda.empty_cache()
 
-    pipeline = pipeline_slice(p20_ranks)
+    pipeline = pipeline_slice(shared_ranks["p20"])
     lap("p20_pipeline")
     p20_packed = {k: sum(c[k] for c in pipeline["launches_per_rank"].values())
                   for k in ("packed_fwd", "packed_bwd")}
+    variants21 = sharded_variants_slice(shared_ranks["p21"])
+    lap("p21_sharded_variants")
+    parallel["sp"] = sp_slice(args.seed, *shared_ranks["p18_sp"])
+    lap("p18b_sequence_parallel")
+    sp_flash = parallel["sp"]["one_process_launches"]
+    p21_packed = {k: sum(c[k] for c in variants21[
+        "launches_per_rank"].values()) for k in ("packed_fwd", "packed_bwd")}
 
     blocks, refiner = times["blocks"], times["refiner"]
     dself, dcross = (decoder["kernel_times"][k] for k in ("self", "cross"))
@@ -9934,7 +10514,7 @@ def main() -> int:
                      + sum(r["packed_fwd"] for r in ev_runs.values())
                      + sum(quant_packed.values()) + sum(p17_fwd.values())
                      + p18_packed["packed_fwd"] + p19_packed["packed_fwd"]
-                     + p20_packed["packed_fwd"]),
+                     + p20_packed["packed_fwd"] + p21_packed["packed_fwd"]),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
@@ -9950,7 +10530,9 @@ def main() -> int:
                              **quant_packed, **p17_fwd,
                              "dp_ranks": p18_packed["packed_fwd"],
                              "sharded_ranks": p19_packed["packed_fwd"],
-                             "pipeline_ranks": p20_packed["packed_fwd"]},
+                             "pipeline_ranks": p20_packed["packed_fwd"],
+                             "sharded_int8_ranks":
+                                 p21_packed["packed_fwd"]},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -9996,7 +10578,7 @@ def main() -> int:
                            for p in ("trainer",) + data_runs)
                      + sum(r["packed_bwd"] for r in p17_runs.values())
                      + p18_packed["packed_bwd"] + p19_packed["packed_bwd"]
-                     + p20_packed["packed_bwd"]),
+                     + p20_packed["packed_bwd"] + p21_packed["packed_bwd"]),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
@@ -10011,7 +10593,9 @@ def main() -> int:
                                 for p, r in p17_runs.items()},
                              "dp_ranks": p18_packed["packed_bwd"],
                              "sharded_ranks": p19_packed["packed_bwd"],
-                             "pipeline_ranks": p20_packed["packed_bwd"]},
+                             "pipeline_ranks": p20_packed["packed_bwd"],
+                             "sharded_int8_ranks":
+                                 p21_packed["packed_bwd"]},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],

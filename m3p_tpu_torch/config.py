@@ -212,8 +212,8 @@ class EvalConfig:
     # artifact dir: retrieval score-matrix .npy + inference.log R@k lines
     # (`--eval_path`, `xevaluator.py:258-259,1616-1619`); empty = no dumps
     eval_path: str = ""
-    # "int8": frozen-weight int8 generation evals in the JAX package; the
-    # port's `Evaluator` refuses it (item 15 of ROADMAP.md)
+    # "int8": frozen-weight int8 generation evals (`Evaluator`'s int8 copy
+    # of the model, its tables captured over the model's shards)
     quant: str = "none"
     # approximate top-k for the beam search's per-step top-2K in the JAX
     # package; the port's top-k is exact either way (`model/generation.py`)

@@ -21,6 +21,8 @@ from m3p_tpu_torch.model.misc import CrossAlignMatrix
 from m3p_tpu_torch.model.transformer import (
     M3PModel, lengths_to_mask, torch_dtype)
 from m3p_tpu_torch.ops.quant import Q8Table
+from m3p_tpu_torch.parallel.sharding import parallelize
+from m3p_tpu_torch.parallel.tensor_parallel import materialize, shard_of
 
 __all__ = ["M3PModel", "build_model", "capture_q8", "lengths_to_mask",
            "q8_collection", "quantized_inference_model", "resolve_device",
@@ -111,13 +113,10 @@ def capture_q8(model: M3PModel) -> int:
     These are the tables the JAX `capture_q8` pass writes into its "q8"
     collection (`q8_collection` names them so); the port quantizes the
     weights directly instead of running a dummy pass.  Call it again after
-    the weights change.  Sharded parameters (`parallel.sharding`) raise:
-    the tables would hold one rank's shard."""
-    if any(getattr(p, "shard", None) is not None
-           for p in model.parameters()):
-        raise NotImplementedError(
-            "frozen-weight int8 tables over sharded parameters: quantize "
-            "a model of whole parameters (one process, or data parallelism)")
+    the weights change.  Over sharded parameters (`parallel.sharding`)
+    every rank takes part: each table holds this rank's ``tensor`` slice of
+    its weight, gathered over ``fsdp``, with the whole weight's scales
+    (`ops.quant.Q8Table`), as GSPMD quantizes the JAX tables."""
     cfg = model.cfg
     dt = torch_dtype(cfg.dtype)
     if cfg.ffn_quant == "int8_infer":
@@ -127,9 +126,10 @@ def capture_q8(model: M3PModel) -> int:
             if block.ffn is not None:
                 block.ffn.capture_q8(dt)
     if cfg.head_quant == "int8_infer" and not cfg.asm:
-        model.pred_layer.capture_q8(
-            model.text_emb.word.weight if cfg.share_inout_emb
-            else model.pred_layer.weight)
+        head = model.pred_layer
+        keep = ("tensor",) if head.vocab is not None else ()
+        head.capture_q8(model.text_emb.word.table(dt) if cfg.share_inout_emb
+                        else materialize(head.weight, dt, keep))
     return sum(t.wq.nbytes + t.sw.nbytes for t in model.modules()
                if isinstance(t, Q8Table))
 
@@ -138,13 +138,19 @@ def shared_variant(model: M3PModel, **changes) -> M3PModel:
     """A model of ``model``'s configuration with ``changes`` (fields of
     `ModelConfig` that keep the parameter tree, such as ``ffn_quant``)
     that shares ``model``'s parameters and buffers, so it follows every
-    update of them; the parameters come in the same order."""
+    update of them; the parameters come in the same order.  Over sharded
+    parameters its modules compute in the same parallel modes
+    (`parallel.sharding.parallelize`)."""
     with torch.device("meta"):
         variant = M3PModel(dataclasses.replace(model.cfg, **changes))
     source = dict(model.named_modules())
     for name, module in variant.named_modules():
         module._parameters.update(source[name]._parameters)
         module._buffers.update(source[name]._buffers)
+    spec = next((shard_of(p) for p in model.parameters()
+                 if shard_of(p) is not None), None)
+    if spec is not None:
+        parallelize(variant, spec.mesh)
     return variant.train(model.training)
 
 

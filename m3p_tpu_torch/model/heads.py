@@ -17,7 +17,10 @@ from m3p_tpu_torch.model.layers import Dense, LayerNorm
 from m3p_tpu_torch.ops.activations import gelu_erf
 from m3p_tpu_torch.ops.quant import (
     Q8Table, int8_matmul, int8_matmul_nt, int8_matmul_nt_pre)
-from m3p_tpu_torch.parallel.tensor_parallel import VocabShard, materialize
+from m3p_tpu_torch.parallel.mesh import Mesh
+from m3p_tpu_torch.parallel.tensor_parallel import (
+    VocabShard, copy_to, gather_vocab, materialize,
+    vocab_parallel_log_softmax, vocab_shard)
 
 
 class AdaptiveSoftmax(nn.Module):
@@ -27,7 +30,14 @@ class AdaptiveSoftmax(nn.Module):
     (``tail_<i>_proj``) and scores its word range (``tail_<i>_out``).
     Returns the full normalized log-probabilities (..., n_words) in the
     compute dtype: their logsumexp is 0, so they stand in for the word
-    head's logits in the losses and in generation."""
+    head's logits in the losses and in generation.
+
+    Under tensor parallelism (`tensor_parallel`) the head's and the tails'
+    output rows are split over ``tensor`` as JAX splits ``head`` and
+    ``tail_<i>_out`` ("vocab"), each a column-parallel product: each rank
+    normalizes its columns with the max and the sum of exponentials taken
+    over ``tensor`` (`vocab_parallel_log_softmax`), and the log-probs are
+    gathered whole on every rank."""
 
     def __init__(self, n_words: int, dim: int,
                  cutoffs: Tuple[int, ...] = (8000, 20000),
@@ -46,13 +56,37 @@ class AdaptiveSoftmax(nn.Module):
             self.add_module(f"tail_{i}_proj", proj)
             self.add_module(f"tail_{i}_out", out)
             self.tails.append((proj, out))
+        # the words of each scoring Dense (head, then each tail) held on
+        # this rank under tensor parallelism
+        self.vocabs: list = [None] * (n_clusters + 1)
+
+    def tensor_parallel(self, mesh: Mesh) -> None:
+        """Score this rank's rows of the head and of each tail's output
+        over ``mesh``'s ``tensor`` axis (the parameters already hold their
+        slices, `parallel.sharding`)."""
+        outs = [self.head] + [out for _, out in self.tails]
+        for lin in outs:
+            lin.keep = ("tensor",)
+            lin.column_parallel = mesh
+        self.vocabs = [vocab_shard(mesh, lin.out_features) for lin in outs]
+
+    @staticmethod
+    def _log_probs(lin: Dense, x: torch.Tensor,
+                   vocab: Optional[VocabShard]) -> torch.Tensor:
+        """fp32 log-softmax of ``lin(x)``, whole on every rank."""
+        if vocab is not None:
+            x = copy_to(x, vocab.mesh, "tensor")
+            logits = lin(x)[..., :vocab.n]
+        else:
+            logits = lin(x)
+        return gather_vocab(vocab_parallel_log_softmax(logits, vocab), vocab)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        head_lp = torch.log_softmax(self.head(x).float(), dim=-1)
+        head_lp = self._log_probs(self.head, x, self.vocabs[0])
         cut = self.edges[0]
         parts = [head_lp[..., :cut]]
         for i, (proj, out) in enumerate(self.tails):
-            tail_lp = torch.log_softmax(out(proj(x)).float(), dim=-1)
+            tail_lp = self._log_probs(out, proj(x), self.vocabs[i + 1])
             parts.append(head_lp[..., cut + i:cut + i + 1] + tail_lp)
         return torch.cat(parts, dim=-1).to(self.compute_dtype)
 
@@ -73,7 +107,11 @@ class PredLayer(nn.Module):
     kernel.
 
     Under tensor parallelism (``vocab``) the table's rows and the bias are
-    this rank's words, and so are the logits' columns."""
+    this rank's words (in a shard padded where the vocabulary does not
+    divide), and the logits' columns are this rank's real words: the int8
+    quantizers along the vocabulary (the dgrad's per-row scale of g and
+    per-column scale of the table) take their amax over ``tensor``, and an
+    int8 table holds this rank's rows with their whole-weight scales."""
 
     def __init__(self, n_words: int, dim: int, tied: bool = True,
                  dtype: torch.dtype = torch.float32, quant: str = "none"):
@@ -86,9 +124,19 @@ class PredLayer(nn.Module):
         self.q8_emb: Optional[Q8Table] = None
         self.vocab: Optional[VocabShard] = None
 
+    def _real(self, t: torch.Tensor) -> torch.Tensor:
+        """The rows of this rank's real words (all rows without
+        ``vocab``)."""
+        return t if self.vocab is None else t[:self.vocab.n]
+
+    def _bias(self, dtype: torch.dtype) -> torch.Tensor:
+        keep = ("tensor",) if self.vocab is not None else ()
+        return self._real(materialize(self.bias, dtype, keep))
+
     def capture_q8(self, table: torch.Tensor) -> None:
         """Quantize the (n_words, D) table (the tied word embedding or the
-        own weight) into ``q8_emb``."""
+        own weight, this rank's rows under ``vocab``) into ``q8_emb``."""
+        table = self._real(table)
         n = table.shape[0]
         self.q8_emb = Q8Table(table, self.compute_dtype, -(-n // 8) * 8)
 
@@ -99,17 +147,19 @@ class PredLayer(nn.Module):
             q8 = self.q8_emb
             x2d = x.reshape(-1, x.shape[-1]).to(dt)
             logits = int8_matmul_nt_pre(x2d, q8.wq, q8.sw.t())[:, :q8.n]
-            return (logits + self.bias.to(dt)).reshape(*x.shape[:-1], q8.n)
+            return (logits + self._bias(dt)).reshape(*x.shape[:-1], q8.n)
         keep = ("tensor",) if self.vocab is not None else ()
-        table = (materialize(self.weight, dt, keep) if embedding is None
-                 else embedding.to(dt))
-        bias = materialize(self.bias, dt, keep)
+        table = self._real(materialize(self.weight, dt, keep)
+                           if embedding is None else embedding.to(dt))
+        bias = self._bias(dt)
         if self.quant == "int8_bwd":
             x2d = x.reshape(-1, x.shape[-1])
             if embedding is None:
                 logits = int8_matmul(x2d, table.t())
             else:
-                logits = int8_matmul_nt(x2d, table)
+                n_over = (None if self.vocab is None
+                          else (self.vocab.mesh, "tensor"))
+                logits = int8_matmul_nt(x2d, table, n_over)
             n = table.shape[0]
             return logits.reshape(*x.shape[:-1], n) + bias
         return F.linear(x.to(dt), table, bias)

@@ -29,7 +29,10 @@ this rank's shard only; every module reads its parameters through
 the module does not compute split (all of them, for a module that is not
 tensor-parallel).  `MultiHeadAttention` and `TransformerFFN` of the blocks
 compute split over ``tensor`` in Megatron's layout (`tensor_parallel`),
-and `MoEFFN` over ``expert`` and ``tensor`` (`parallel`).
+and `MoEFFN` over ``expert`` and ``tensor`` (`parallel`).  The int8 modes
+compute there too: their quantizers take the whole tensors' scales
+(`ops.quant`: each amax over ``tensor`` where that axis splits it), and a
+row-parallel int8 product is summed over ``tensor`` before its bias.
 """
 
 from __future__ import annotations
@@ -164,24 +167,34 @@ class Dense(nn.Linear):
 
     Under tensor parallelism (set by the tensor-parallel module that owns
     it) ``keep`` is ("tensor",): the weight stays this rank's slice.  A
-    column-parallel Dense then gives this rank's output columns (its
-    caller hands it its input through `copy_to`); a row-parallel one
-    (``row_parallel``, the mesh) takes this rank's input columns, and the
-    ranks' partial products are summed before the bias."""
+    column-parallel Dense (``column_parallel``, the mesh) then gives this
+    rank's output columns (its caller hands it its input through
+    `copy_to`); a row-parallel one (``row_parallel``, the mesh) takes this
+    rank's input columns, and the ranks' partial products are summed
+    before the bias."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
         self.keep: tuple = ()
+        self.column_parallel: Optional[Mesh] = None
         self.row_parallel: Optional[Mesh] = None
+
+    def weight_as(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight in ``dtype`` as computed with (this rank's slice
+        under tensor parallelism)."""
+        return materialize(self.weight, dtype, self.keep)
+
+    def bias_as(self, dtype: torch.dtype) -> torch.Tensor:
+        """The bias in ``dtype`` as computed with."""
+        return materialize(self.bias, dtype, self.keep)
 
     def weights(self):
         """(weight, bias or None) in the compute dtype, as computed with."""
         dt = self.compute_dtype
-        bias = (None if self.bias is None
-                else materialize(self.bias, dt, self.keep))
-        return materialize(self.weight, dt, self.keep), bias
+        bias = None if self.bias is None else self.bias_as(dt)
+        return self.weight_as(dt), bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self.weights()
@@ -197,7 +210,11 @@ class QuantDense(Dense):
     Dense's parameters (`m3p_tpu/model/layers.py:339-394`): ``quant_bwd``
     False is `int8_matmul` (straight-through backward), True
     `int8_matmul_qbwd` over the flattened rows (int8 dgrad and wgrad).
-    The bias is added after the GEMM in the compute dtype."""
+    The bias is added after the GEMM in the compute dtype.  Column- and
+    row-parallel as a `Dense`: the quantizers of the dimension ``tensor``
+    splits (N, or K) take their amax over it, and a row-parallel product's
+    partial results, dequantized with those whole scales, are summed over
+    ``tensor`` before the bias."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, quant_bwd: bool = False):
@@ -207,12 +224,16 @@ class QuantDense(Dense):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self.weights()
         xc, kernel = x.to(self.compute_dtype), weight.t()
+        row, col = self.row_parallel, self.column_parallel
+        k_over = None if row is None else (row, "tensor")
         if self.quant_bwd:
-            y = int8_matmul_qbwd(xc.reshape(-1, xc.shape[-1]), kernel)
-            y = y.reshape(*xc.shape[:-1], self.out_features)
+            n_over = None if col is None else (col, "tensor")
+            y = int8_matmul_qbwd(xc.reshape(-1, xc.shape[-1]), kernel,
+                                 k_over, n_over)
+            y = y.reshape(*xc.shape[:-1], kernel.shape[1])
         else:
-            y = int8_matmul(xc, kernel)
-        return y + bias
+            y = int8_matmul(xc, kernel, k_over)
+        return reduce_from(y, row, "tensor") + bias
 
 
 def quant_dense(in_features: int, out_features: int, dtype: torch.dtype,
@@ -320,6 +341,8 @@ class MultiHeadAttention(nn.Module):
         self.tp = mesh
         for lin in (self.q_lin, self.k_lin, self.v_lin, self.out_lin):
             lin.keep = ("tensor",)
+        for lin in (self.q_lin, self.k_lin, self.v_lin):
+            lin.column_parallel = mesh
         self.out_lin.row_parallel = mesh
 
     def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor],
@@ -348,8 +371,8 @@ class MultiHeadAttention(nn.Module):
             q, k, v = self._fused_int8_qkv(x)
         elif q8 is not None and x.shape[0] * x.shape[1] <= PREQUANT_MAX_M:
             GATE_COUNTS["int8"] += 1
-            bias = torch.cat([self.q_lin.bias, self.k_lin.bias,
-                              self.v_lin.bias]).to(q8.dtype)
+            bias = torch.cat([lin.bias_as(q8.dtype) for lin in (
+                self.q_lin, self.k_lin, self.v_lin)])
             q, k, v = (q8(x) + bias).chunk(3, dim=-1)
         else:
             if q8 is not None:
@@ -377,15 +400,18 @@ class MultiHeadAttention(nn.Module):
     def _fused_int8_qkv(self, x: torch.Tensor):
         """Q, K and V of self-attention as one int8 GEMM against the (D, 3D)
         concatenation of the three kernels, the activations quantized once
-        (`m3p_tpu/model/layers.py:92-109`)."""
+        (`m3p_tpu/model/layers.py:92-109`); under tensor parallelism this
+        rank's heads of each (the backward's per-row scales of g and of
+        the kernel then span every rank's columns)."""
         dt = self.q_lin.compute_dtype
         weights = [lin.weights() for lin in (self.q_lin, self.k_lin,
                                               self.v_lin)]
         kernel = torch.cat([w for w, _ in weights]).t()
         bias = torch.cat([b for _, b in weights])
         b, s, d = x.shape
-        out = int8_matmul_qbwd(x.reshape(-1, d).to(dt), kernel)
-        return (out.reshape(b, s, 3 * d) + bias).chunk(3, dim=-1)
+        n_over = None if self.tp is None else (self.tp, "tensor")
+        out = int8_matmul_qbwd(x.reshape(-1, d).to(dt), kernel, None, n_over)
+        return (out.reshape(b, s, -1) + bias).chunk(3, dim=-1)
 
     def _project_out(self, ctx: torch.Tensor) -> torch.Tensor:
         """The output projection; int8 over ``q8_out`` at up to
@@ -396,12 +422,12 @@ class MultiHeadAttention(nn.Module):
     def capture_q8(self, dtype: torch.dtype, self_attention: bool) -> None:
         """Quantize the output projection's weight (and with
         ``self_attention`` the concatenated Q/K/V weights) into int8
-        tables."""
+        tables: this rank's heads of them under tensor parallelism."""
         if self_attention:
-            self.q8_qkv = Q8Table(torch.cat([
-                self.q_lin.weight, self.k_lin.weight, self.v_lin.weight]),
-                dtype)
-        self.q8_out = Q8Table(self.out_lin.weight, dtype)
+            self.q8_qkv = Q8Table(torch.cat([lin.weight_as(dtype) for lin in (
+                self.q_lin, self.k_lin, self.v_lin)]), dtype)
+        self.q8_out = Q8Table(self.out_lin.weight_as(dtype), dtype,
+                              row_parallel=self.out_lin.row_parallel)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, H*Dh) -> (B, H, S, Dh), a view."""
@@ -481,12 +507,15 @@ class TransformerFFN(nn.Module):
         ``lin1`` column-parallel, ``lin2`` row-parallel."""
         self.tp = mesh
         self.lin1.keep = self.lin2.keep = ("tensor",)
+        self.lin1.column_parallel = mesh
         self.lin2.row_parallel = mesh
 
     def capture_q8(self, dtype: torch.dtype) -> None:
-        """Quantize both weights into int8 tables."""
-        self.q8_lin1 = Q8Table(self.lin1.weight, dtype)
-        self.q8_lin2 = Q8Table(self.lin2.weight, dtype)
+        """Quantize both weights into int8 tables (this rank's hidden
+        columns of each under tensor parallelism)."""
+        self.q8_lin1 = Q8Table(self.lin1.weight_as(dtype), dtype)
+        self.q8_lin2 = Q8Table(self.lin2.weight_as(dtype), dtype,
+                               row_parallel=self.lin2.row_parallel)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[Generators] = None,

@@ -58,7 +58,7 @@ from m3p_tpu_torch.model.misc import CrossAlignMatrix
 from m3p_tpu_torch.parallel import data_parallel
 from m3p_tpu_torch.parallel import mesh as M
 from m3p_tpu_torch.parallel.tensor_parallel import (
-    VocabShard, copy_to, gather_last, shard_of)
+    VocabShard, copy_to, gather_vocab, shard_of)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -447,9 +447,7 @@ class M3PModel(nn.Module):
         log-probabilities (`m3p_tpu/model/transformer.py:346-353`).  Under
         tensor parallelism the ranks' columns are gathered (decoding and
         evaluation); the training losses take `shard_word_logits`."""
-        logits = self.shard_word_logits(hidden)
-        vocab = self.vocab_shard
-        return logits if vocab is None else gather_last(logits, vocab.mesh)
+        return gather_vocab(self.shard_word_logits(hidden), self.vocab_shard)
 
     @property
     def vocab_shard(self) -> Optional[VocabShard]:

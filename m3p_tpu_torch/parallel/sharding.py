@@ -23,8 +23,11 @@ leaf the JAX package leaves unannotated are replicated.
 
 `shard_model` slices each parameter of a whole model (the same on every
 rank) to this rank's shard, records its `ShardSpec` on it (``p.shard``)
-and puts the blocks' attention and FFN, the MoE FFNs and the word
-embedding and head into their tensor- and expert-parallel modes; an
+and puts the blocks' attention and FFN, the MoE FFNs, the word embedding
+and the word head or the adaptive softmax into their tensor- and
+expert-parallel modes (`parallelize`); a dimension that does not divide
+by its axis is held padded, as GSPMD holds it
+(`parallel.tensor_parallel`'s docstring); an
 optimizer state made afterwards holds shards too (`train_state_shardings`
 mirrors the parameters' specs onto it, as `_shard_like` does).
 Checkpoints gather the whole state (`gather_train_state`) and a restore
@@ -44,7 +47,7 @@ import torch
 from m3p_tpu_torch.parallel import mesh as M
 from m3p_tpu_torch.parallel.mesh import Mesh
 from m3p_tpu_torch.parallel.tensor_parallel import (
-    ShardSpec, VocabShard, gather_whole, local_slice, shard_of)
+    ShardSpec, gather_whole, local_slice, shard_of, vocab_shard)
 
 # logical axis -> mesh axis (None = replicate), as the JAX package maps them
 LOGICAL_RULES = (
@@ -173,13 +176,14 @@ def check_mesh_supported(shape: Dict[str, int]) -> None:
 
 
 def check_model_supported(cfg, shape: Dict[str, int]) -> None:
-    """Raise NotImplementedError for a model feature the port does not
-    split over ``tensor`` (ROADMAP.md, item 16d): the int8 training and
-    inference modes, whose per-row scales of a row-parallel GEMM would need
-    a max over the ranks, and the adaptive softmax; and for a block the
-    pipeline's stage does not run under ``pp`` above 1: MoE and the int8
-    FFN (the JAX stage builds its block with neither,
-    `m3p_tpu/parallel/pipeline.py:174-179`)."""
+    """Raise NotImplementedError for what the port does not split, each
+    with its reason: under ``pp`` above 1 the blocks the pipeline's stage
+    does not run, MoE and the int8 FFN (the JAX stage builds its block
+    with neither, `m3p_tpu/parallel/pipeline.py:174-179`); and heads that
+    do not divide by ``tensor`` or experts that do not divide by
+    ``expert`` (ROADMAP.md item 16e: JAX reshards them through GSPMD; the
+    port splits whole heads and whole experts).  Every other dimension
+    that does not divide is held padded."""
     if shape.get("pp", 1) > 1:
         if cfg.moe_experts > 0:
             raise NotImplementedError("MoE blocks under pp > 1: the "
@@ -189,17 +193,15 @@ def check_model_supported(cfg, shape: Dict[str, int]) -> None:
             raise NotImplementedError(
                 f"ffn_quant={cfg.ffn_quant!r} under pp > 1: the pipeline's "
                 "stage runs the float FFN, as the JAX stage does")
-    if shape.get("tensor", 1) <= 1:
-        return
-    if cfg.asm:
-        raise NotImplementedError("the adaptive softmax (asm) under "
-                                  "tensor > 1 is not ported")
-    for name in ("ffn_quant", "head_quant"):
-        if getattr(cfg, name) != "none":
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} under tensor > 1: the int8 "
-                "modes' per-row scales of a row-parallel GEMM need a max "
-                "over the tensor ranks, which is not ported")
+    tensor, expert = shape.get("tensor", 1), shape.get("expert", 1)
+    if cfg.n_heads % tensor:
+        raise NotImplementedError(
+            f"{cfg.n_heads} heads over tensor={tensor}: the port splits "
+            "whole heads (ROADMAP.md item 16e)")
+    if cfg.moe_experts > 0 and cfg.moe_experts % expert:
+        raise NotImplementedError(
+            f"{cfg.moe_experts} experts over expert={expert}: the port "
+            "splits whole experts (ROADMAP.md item 16e)")
 
 
 def is_sharded(shape: Dict[str, int]) -> bool:
@@ -211,12 +213,9 @@ def is_sharded(shape: Dict[str, int]) -> bool:
 def shard_model(model: torch.nn.Module, mesh: Mesh
                 ) -> Dict[str, Optional[ShardSpec]]:
     """Make ``model`` (whole, the same on every rank) hold this rank's
-    shards on ``mesh``: each parameter sliced in place, its `ShardSpec`
-    recorded as ``p.shard``; the blocks' attention and FFN put in their
-    tensor-parallel modes, the MoE FFNs in their expert-parallel mode, the
-    word table and head split by vocabulary.  Returns the specs by name."""
-    from m3p_tpu_torch.model.layers import EncoderBlock
-
+    shards on ``mesh``: each parameter sliced in place (padded where its
+    dimension does not divide), its `ShardSpec` recorded as ``p.shard``;
+    then `parallelize`.  Returns the specs by name."""
     check_mesh_supported(mesh.shape)
     check_model_supported(model.cfg, mesh.shape)
     params = dict(model.named_parameters())
@@ -227,11 +226,21 @@ def shard_model(model: torch.nn.Module, mesh: Mesh
         if spec is None:
             continue
         p = params[name]
-        try:
-            p.data = local_slice(p.data, spec)
-        except ValueError as e:
-            raise ValueError(f"parameter {name}: {e}") from None
+        p.data = local_slice(p.data, spec)
         p.shard = spec
+    parallelize(model, mesh)
+    return specs
+
+
+def parallelize(model: torch.nn.Module, mesh: Mesh) -> None:
+    """Put the modules of ``model``, whose parameters hold their shards on
+    ``mesh``, into their parallel modes: the blocks' attention and FFN
+    over ``tensor``, the MoE FFNs over ``expert``, the word table and the
+    word head (or the adaptive softmax's head and tails) split by
+    vocabulary (`shard_model`; `model.shared_variant` over a sharded
+    model)."""
+    from m3p_tpu_torch.model.layers import EncoderBlock
+
     tp = mesh.shape["tensor"] > 1
     for module in model.modules():
         if isinstance(module, EncoderBlock):
@@ -244,11 +253,12 @@ def shard_model(model: torch.nn.Module, mesh: Mesh
             if module.moe_ffn is not None:
                 module.moe_ffn.parallel(mesh)
     if tp:
-        n = model.cfg.n_words // mesh.shape["tensor"]
-        vocab = VocabShard(mesh, mesh.index("tensor") * n, n)
+        vocab = vocab_shard(mesh, model.cfg.n_words)
         model.text_emb.word.vocab = vocab
-        model.pred_layer.vocab = vocab
-    return specs
+        if model.cfg.asm:
+            model.pred_layer_asm.tensor_parallel(mesh)
+        else:
+            model.pred_layer.vocab = vocab
 
 
 def shard_bytes(model: torch.nn.Module) -> Dict[str, int]:
@@ -406,7 +416,7 @@ def shard_batch(batch: Any, sharding: BatchSharding) -> Any:
 
 __all__ = ["LOGICAL_RULES", "PARAM_AXES", "BatchSharding", "ShardSpec",
            "batch_sharding", "check_mesh_supported", "check_model_supported",
-           "gather_train_state", "is_sharded", "logical_axes",
+           "gather_train_state", "is_sharded", "logical_axes", "parallelize",
            "logical_to_mesh_axes", "logical_to_shardings",
            "model_param_specs", "shard_batch", "shard_model",
            "shard_train_state", "replica_sum", "slice_like_state",

@@ -22,12 +22,25 @@ collectives of `parallel.mesh`:
   column- and a row-parallel product.
 * `gather_rows` -- rows of every rank of a line, concatenated (MoE's global
   tokens); the backward is this rank's rows of the gradient.
-* `gather_last` -- a vocabulary-parallel tensor gathered along its last
-  dimension (a decoding step's logits); the backward is this rank's slice.
 * `vocab_parallel_ce` / `vocab_parallel_argmax` -- the cross-entropy and
   the argmax over logits whose vocabulary is split over ``tensor``: a
   distributed logsumexp and the target's logit from the rank that owns
-  it; the full logits are never gathered.
+  it; the full logits are never gathered.  `vocab_parallel_log_softmax`
+  normalizes such logits (the adaptive softmax's head and tails), and
+  `gather_vocab` assembles them whole.
+
+Uneven splits are held as GSPMD holds them: a dimension of n entries over
+k ranks is cut into shards of ceil(n / k), rank i holding entries i *
+ceil(n / k) onward, and the whole padded with zeros at its end to k
+shards, so the last shards hold the padding (`shard_width`).
+`local_slice` pads and slices, `gather_whole` and `materialize` trim the
+padding off what they assemble, and `materialize`'s backward gives the
+padding a zero gradient, so it stays zero under any optimizer.  A module
+that computes on a kept shard sees its padding: the vocabulary's (a
+`VocabShard` names the real words, and the heads cut their logits to
+them before any logsumexp, argmax or top-k), or the FFN's hidden columns,
+whose zero weights and biases give zero activations (GELU and ReLU of 0
+are 0) and add nothing to the row-parallel sum.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from m3p_tpu_torch.parallel import mesh as M
 from m3p_tpu_torch.parallel.mesh import Mesh
@@ -60,6 +74,22 @@ def shard_of(p: torch.Tensor) -> Optional[ShardSpec]:
     return getattr(p, "shard", None)
 
 
+def shard_width(n: int, k: int) -> int:
+    """The entries of each shard of a dimension of ``n`` split over ``k``
+    ranks: ceil(n / k), the last shards padded (module docstring)."""
+    return -(-n // k)
+
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``t`` padded with zeros at the end of ``dim`` to ``size``."""
+    extra = size - t.shape[dim]
+    if extra <= 0:
+        return t
+    shape = list(t.shape)
+    shape[dim] = extra
+    return torch.cat([t, t.new_zeros(shape)], dim=dim)
+
+
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -67,27 +97,29 @@ def shard_of(p: torch.Tensor) -> Optional[ShardSpec]:
 
 class _GatherDim(torch.autograd.Function):
     """``x`` cast to ``dtype`` and all-gathered along ``dim`` over
-    ``axis``; the backward reduce-scatters (``reduce``) in fp32 or takes
-    this rank's slice, in ``x``'s dtype."""
+    ``axis``, cut to the whole ``size``; the backward pads the gradient
+    back and reduce-scatters it (``reduce``) in fp32 or takes this rank's
+    slice, in ``x``'s dtype."""
 
     @staticmethod
-    def forward(ctx, x, mesh, axis, dim, dtype, reduce):
+    def forward(ctx, x, mesh, axis, dim, dtype, reduce, size):
         ctx.mesh, ctx.axis, ctx.dim, ctx.reduce = mesh, axis, dim, reduce
         ctx.in_dtype, ctx.width = x.dtype, x.shape[dim]
         parts = M.all_gather_stack(x.detach().to(dtype).contiguous(), mesh,
                                    axis)
-        return torch.cat(parts.unbind(0), dim=dim)
+        return torch.cat(parts.unbind(0), dim=dim).narrow(dim, 0, size)
 
     @staticmethod
     def backward(ctx, grad):
         mesh, axis, dim, w = ctx.mesh, ctx.axis, ctx.dim, ctx.width
+        grad = _pad_to(grad, dim, w * mesh.shape[axis])
         if not ctx.reduce:
             i = mesh.index(axis)
             out = grad.narrow(dim, i * w, w)
         else:
             parts = torch.stack(grad.float().split(w, dim=dim))
             out = M.reduce_scatter_sum(parts, mesh, axis)
-        return out.to(ctx.in_dtype), None, None, None, None, None
+        return out.to(ctx.in_dtype), None, None, None, None, None, None
 
 
 def materialize(p: torch.Tensor, dtype: torch.dtype,
@@ -106,7 +138,8 @@ def materialize(p: torch.Tensor, dtype: torch.dtype,
         if axis in keep:
             continue
         reduce = axis == "fsdp" or axis in sum_over
-        x = _GatherDim.apply(x, spec.mesh, axis, dim, dtype, reduce)
+        x = _GatherDim.apply(x, spec.mesh, axis, dim, dtype, reduce,
+                             spec.shape[dim])
     return x.to(dtype)
 
 
@@ -119,20 +152,20 @@ def gather_whole(t: torch.Tensor, spec: Optional[ShardSpec]) -> torch.Tensor:
     for dim, axis in spec.split():
         t = torch.cat(M.all_gather_stack(t.contiguous(), spec.mesh,
                                          axis).unbind(0), dim=dim)
-    return t
+        t = t.narrow(dim, 0, spec.shape[dim])
+    return t.contiguous()
 
 
 def local_slice(t: torch.Tensor, spec: Optional[ShardSpec]) -> torch.Tensor:
-    """This rank's shard of the whole tensor ``t`` under ``spec``."""
+    """This rank's shard of the whole tensor ``t`` under ``spec``: along a
+    dimension that does not divide, ceil(n / k) entries, the padding zeros
+    (module docstring)."""
     if spec is None:
         return t
     for dim, axis in spec.split():
         n = spec.mesh.shape[axis]
-        if t.shape[dim] % n:
-            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
-                             f"split over {axis}={n}")
-        w = t.shape[dim] // n
-        t = t.narrow(dim, spec.mesh.index(axis) * w, w)
+        w = shard_width(t.shape[dim], n)
+        t = _pad_to(t, dim, w * n).narrow(dim, spec.mesh.index(axis) * w, w)
     return t.contiguous()
 
 
@@ -202,16 +235,6 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
     return _GatherRows.apply(x, mesh, axes, dim)
 
 
-def gather_last(x: torch.Tensor, mesh: Optional[Mesh],
-                axis: str = "tensor") -> torch.Tensor:
-    """A tensor split along its last dimension over ``axis``, whole (every
-    rank computes alike on the whole: the backward takes this rank's
-    slice)."""
-    if mesh is None or mesh.group(axis) is None:
-        return x
-    return _GatherRows.apply(x, mesh, axis, x.dim() - 1)
-
-
 # ---------------------------------------------------------------------------
 # the vocabulary split over ``tensor``
 # ---------------------------------------------------------------------------
@@ -219,18 +242,46 @@ def gather_last(x: torch.Tensor, mesh: Optional[Mesh],
 
 @dataclass(frozen=True)
 class VocabShard:
-    """This rank's words ``lo`` .. ``lo + n - 1`` of a vocabulary split over
-    ``mesh``'s ``tensor`` axis."""
+    """This rank's words ``lo`` .. ``lo + n - 1`` of a vocabulary of
+    ``total`` words split over ``mesh``'s ``tensor`` axis, held in a shard
+    of ``width`` rows (``n`` plus the padding of an uneven split)."""
 
     mesh: Mesh
     lo: int
     n: int
+    width: int
+    total: int
 
     def local(self, ids: torch.Tensor):
         """(ids - lo clamped into range, whether each id is this rank's)."""
         local = ids.long() - self.lo
         inside = (local >= 0) & (local < self.n)
         return local.clamp(0, self.n - 1), inside
+
+
+def vocab_shard(mesh: Mesh, total: int) -> VocabShard:
+    """This rank's words of a ``total``-word dimension split over
+    ``tensor`` in the padded layout; raises where a rank would hold
+    padding alone."""
+    k = mesh.shape["tensor"]
+    width = shard_width(total, k)
+    lo = mesh.index("tensor") * width
+    if lo >= total:
+        raise ValueError(f"{total} words over tensor={k} leave rank "
+                         f"{mesh.index('tensor')} of the axis no word")
+    return VocabShard(mesh, lo, min(width, total - lo), width, total)
+
+
+def gather_vocab(x: torch.Tensor, vocab: Optional[VocabShard]
+                 ) -> torch.Tensor:
+    """Logits (..., n) of this rank's words, whole (..., total) on every
+    rank: padded to the shard's width, gathered, the padding (the whole's
+    end) cut off; the backward is this rank's slice."""
+    if vocab is None:
+        return x
+    x = F.pad(x, (0, vocab.width - vocab.n))
+    x = _GatherRows.apply(x, vocab.mesh, "tensor", x.dim() - 1)
+    return x[..., :vocab.total]
 
 
 def vocab_parallel_lookup(ids: torch.Tensor, table: torch.Tensor,
@@ -276,6 +327,37 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
         return torch.nn.functional.cross_entropy(
             logits.float(), labels.long(), reduction="none")
     return _VocabCE.apply(logits, labels.long(), vocab)
+
+
+class _VocabLogSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, vocab):
+        mesh, group = vocab.mesh, vocab.mesh.group("tensor")
+        x = logits.float()
+        m = M.all_reduce_max(x.amax(dim=-1, keepdim=True), mesh, group)
+        e = torch.exp(x - m)
+        total = M.all_reduce_sum(e.sum(dim=-1, keepdim=True), mesh, group)
+        ctx.save_for_backward(e / total)
+        ctx.vocab, ctx.dtype = vocab, logits.dtype
+        return x - m - torch.log(total)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (p,) = ctx.saved_tensors
+        mesh = ctx.vocab.mesh
+        gsum = M.all_reduce_sum(grad.sum(dim=-1, keepdim=True), mesh,
+                                mesh.group("tensor"))
+        return (grad - p * gsum).to(ctx.dtype), None
+
+
+def vocab_parallel_log_softmax(logits: torch.Tensor,
+                               vocab: Optional[VocabShard]) -> torch.Tensor:
+    """``log_softmax`` in fp32 over the last dimension; with ``vocab`` the
+    logits are this rank's columns, and the max and the sum of
+    exponentials are taken over ``tensor``."""
+    if vocab is None:
+        return torch.log_softmax(logits.float(), dim=-1)
+    return _VocabLogSoftmax.apply(logits, vocab)
 
 
 @torch.no_grad()

@@ -421,16 +421,21 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
     deterministic.  ``fault`` plants one: "row_no_reduce" skips the
     row-parallel all-reduce, "local_ce" takes the vocabulary CE rank-local,
     "inf_grad" puts an inf into rank 0's shard of
-    ``block_0.attn.q_lin.weight``'s gradient after the reduction.
-    ``guard``: the optimizer's non-finite guard.  Returns the loss, the
-    grad norm and its dtype, the whole updated parameters and first moment
-    (gathered), or this rank's shards when not ``whole``."""
+    ``block_0.attn.q_lin.weight``'s gradient after the reduction,
+    "amax_local" takes the int8 amaxes rank-local where ``tensor`` splits
+    their axis, "rows_local" the int8 wgrads' amaxes over this rank's rows
+    alone.  ``guard``: the optimizer's non-finite guard.  Returns the loss,
+    the grad norm and its dtype, the whole updated parameters and first
+    moment (gathered), or this rank's shards when not ``whole``, and
+    ``pad_max``: the largest |entry| in the padding of this rank's shards
+    of the parameters, gradients and optimizer moments."""
     import torch.distributed as dist
 
     import contextlib
 
     from m3p_tpu_torch.data.masking import MaskingConfig
     from m3p_tpu_torch.model.layers import Generators
+    from m3p_tpu_torch.ops import quant
     from m3p_tpu_torch.parallel import tensor_parallel as TP
     from m3p_tpu_torch.parallel.sharding import (
         batch_sharding, gather_train_state, is_sharded, shard_batch,
@@ -491,6 +496,14 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
                 lambda lg, lb, v: TP.vocab_parallel_ce(lg, lb, None)
                 if v is None else torch.nn.functional.cross_entropy(
                     lg.float(), v.local(lb)[0], reduction="none")))
+        elif fault == "amax_local":
+            amax = quant._amax
+            stack.enter_context(_patched(
+                quant, "_amax", lambda xf, axis, over: amax(
+                    xf, axis, None if over and over[1] == "tensor"
+                    else over)))
+        elif fault == "rows_local":
+            stack.enter_context(_patched(quant, "batch_line", lambda: None))
         step = S.make_train_step(loss_fn, with_grad_norm=True)
         _, metrics = step(st, local, gen)
     names = [n for n, _ in model.named_parameters()]
@@ -507,6 +520,7 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
     return {"loss": float(metrics["loss" if "loss" in metrics else "mlm"]),
             "grad_norm": float(metrics["grad_norm"]),
             "grad_norm_dtype": str(metrics["grad_norm"].dtype),
+            "pad_max": _pad_max(model, st),
             "params": {n: v.detach().float().numpy().copy()
                        for n, v in params.items()},
             "grads": grads,
@@ -514,6 +528,131 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
                 n: t.float().numpy().copy() for n, t in zip(names, mu)},
             "local_bytes": sum(p.numel() * p.element_size()
                                for p in model.parameters())}
+
+
+def _pad_max(model, st) -> float:
+    """The largest |entry| of this rank's parameter, gradient and optimizer
+    moment shards beyond the whole tensor's end (an uneven split's
+    padding); 0.0 without padding."""
+    from m3p_tpu_torch.parallel.tensor_parallel import shard_of
+
+    worst = 0.0
+    moments = [v for v in st.opt_state.values()
+               if isinstance(v, list) and v and torch.is_tensor(v[0])]
+    for i, p in enumerate(model.parameters()):
+        spec = shard_of(p)
+        if spec is None:
+            continue
+        index = []
+        for d, axis in enumerate(spec.axes):
+            if axis is None:
+                index.append(slice(None))
+                continue
+            lo = spec.mesh.index(axis) * p.shape[d]
+            index.append(slice(max(spec.shape[d] - lo, 0), None))
+        for t in [p.detach(), p.grad] + [m[i] for m in moments]:
+            if t is not None:
+                pad = t[tuple(index)]
+                if pad.numel():
+                    worst = max(worst, float(pad.abs().max()))
+    return worst
+
+
+def sharded_q8(cfg_dict, state, mesh_axes, feats, locs, img_len,
+               max_len: int) -> Dict[str, Any]:
+    """The frozen-weight int8 copy of a model sharded over a mesh of
+    ``mesh_axes`` (`quantized_inference_model`, `capture_q8`, as the
+    evaluator makes it): this rank's tables in the JAX layout, their
+    bytes, this rank's ``tensor`` coordinate, and the greedy captions of an
+    image batch through the int8 copy."""
+    from m3p_tpu_torch.model import (
+        capture_q8, lengths_to_mask, q8_collection,
+        quantized_inference_model)
+    from m3p_tpu_torch.model.generation import greedy_generate
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.parallel.sharding import shard_model
+
+    model = _model(cfg_dict, state)
+    mesh = _mesh(**mesh_axes)
+    shard_model(model, mesh)
+    q = quantized_inference_model(model)
+    nbytes = capture_q8(q)
+    mask = lengths_to_mask(torch.tensor(img_len), feats.shape[1])
+    quant.zero_counts()
+    with torch.no_grad():
+        enc = q.encode_image(torch.tensor(feats), torch.tensor(locs), mask)
+        greedy = greedy_generate(q, enc, mask, max_len)
+    return {"tables": {k: v.numpy() for k, v in q8_collection(q).items()},
+            "bytes": nbytes, "tensor_index": mesh.index("tensor"),
+            "greedy": [t.numpy() for t in greedy],
+            "int8_gemms": quant.int8_matmul_pre.calls
+            + quant.int8_matmul_nt_pre.calls}
+
+
+def int8_ops(case, x, w, g, fault=False) -> Dict[str, np.ndarray]:
+    """This rank's part of one int8 training GEMM, forward and backward,
+    on its part of the whole operands x, w and upstream gradient g (fp32
+    numpy): ``case`` "rows" (`int8_matmul_qbwd` on data 2, each rank half
+    of the rows of x (M, K) and g), "nt_rows" (`int8_matmul_nt`, w (N,
+    K)), "seq" (`int8_matmul_qbwd` on data 2 x seq 2, x (B, S, K) cut by
+    rows over ``data`` and positions over ``seq``), "col" / "row"
+    (`int8_matmul_qbwd` on tensor 2 with N / K split), "st_row"
+    (`int8_matmul` with K split), "nt_vocab" (`int8_matmul_nt` with the
+    vocabulary N split over tensor 2 in the padded layout).  ``fault``
+    takes every amax rank-local.  Returns y, dx and dw as this rank
+    computed them."""
+    import contextlib
+
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.parallel.data_parallel import batch_reduction
+
+    axes = {"rows": {"data": 2}, "nt_rows": {"data": 2},
+            "seq": {"data": 2, "seq": 2}}.get(case, {"tensor": 2})
+    mesh = _mesh(**axes)
+    x, w, g = (torch.tensor(a) for a in (x, w, g))
+    line = (mesh, "tensor")
+    if case in ("rows", "nt_rows"):
+        half = x.shape[0] // 2
+        rows = slice(mesh.index("data") * half, (mesh.index("data") + 1)
+                     * half)
+        x, g = x[rows], g[rows]
+    elif case == "seq":
+        b, s = x.shape[0] // 2, x.shape[1] // 2
+        d, q = mesh.index("data"), mesh.index("seq")
+        x = x[d * b:(d + 1) * b, q * s:(q + 1) * s].reshape(-1, x.shape[-1])
+        g = g[d * b:(d + 1) * b, q * s:(q + 1) * s].reshape(-1, g.shape[-1])
+    t = mesh.index("tensor")
+    if case == "col":
+        n = w.shape[1] // 2
+        w, g = w[:, t * n:(t + 1) * n], g[:, t * n:(t + 1) * n]
+    elif case in ("row", "st_row"):
+        k = w.shape[0] // 2
+        w, x = w[t * k:(t + 1) * k], x[:, t * k:(t + 1) * k]
+    elif case == "nt_vocab":
+        c = -(-w.shape[0] // 2)           # the padded layout's shards
+        lo, hi = t * c, min((t + 1) * c, w.shape[0])
+        w, g = w[lo:hi], g[:, lo:hi]
+    x, w = x.contiguous().requires_grad_(), w.contiguous().requires_grad_()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(batch_reduction(mesh))
+        if fault:
+            amax = quant._amax
+            stack.enter_context(_patched(
+                quant, "_amax", lambda xf, axis, over: amax(xf, axis, None)))
+        if case in ("rows", "seq"):
+            y = quant.int8_matmul_qbwd(x, w)
+        elif case == "nt_rows":
+            y = quant.int8_matmul_nt(x, w)
+        elif case == "nt_vocab":
+            y = quant.int8_matmul_nt(x, w, line)
+        elif case == "st_row":
+            y = quant.int8_matmul(x, w, line)
+        else:
+            y = quant.int8_matmul_qbwd(x, w, line if case == "row" else None,
+                                       line if case == "col" else None)
+        y.backward(g.contiguous())
+    return {"y": y.detach().numpy(), "dx": x.grad.numpy(),
+            "dw": w.grad.numpy()}
 
 
 def sharded_grid(cfg_dict, state, mesh_axes, pool, cap_to_img,
