@@ -9743,31 +9743,50 @@ def pipeline_slice(ranks):
 P21_TIMED = 1
 P21_QUANT = dict(ffn_quant="int8_bwd", head_quant="int8_bwd")
 P21_ARGV = [("p21" if a == "p19" else a) for a in P19_ARGV]
+# the amax all-reduces a step a rank of (a): in each of the 24 blocks
+# under remat, lin1's dgrad (g and w per row over N, split by tensor) 2,
+# lin2's forward (x and w along K, split by tensor) 2 and again in the
+# recompute 2, the two wgrads' x and g along the rows over fsdp 4; the
+# word head's dgrad (g and the table along the vocabulary) 2 and its
+# wgrad's rows 2
+P21_AMAX_PER_STEP = 24 * (2 + 2 + 2 + 4) + 4
 # (b) fp32 at depth 2, full width, 32,002 words (phase 19's checks'
-# model), each step against one process (rank 0): the loss, and each
-# parameter leaf relative to its largest entry or P18_PARAM_FLOOR, within
-# TOL_P21_FP32, as phase 19 holds its steps.  An activation an ulp off one
-# process's (the ranks sum in other orders) can cross a rounding boundary
-# of an int8 step, and such a step is held to one int8 step's effect, read
-# in the run: twice the gap between the one-process step and the same step
-# on features scaled by P21_NUDGE (16 ulps of fp32: it moves more
-# roundings than the ranks' sums do), times P21_EFFECT_FACTOR: one nudged
-# step is one draw of that effect (a sharded step has read 0.97x twice
-# its draw on an H100, on a LayerNorm bias one Adam step from 0).
-# A wgrad quantized over each rank's own rows (fault 16's parent), or an
-# amax left rank-local, moves the step by re-rounding too, so a step
-# cannot tell them from that bound: the planted faults are held at the
-# GEMMs, where they read 10x the GEMMs' tolerance or more.
+# model), each step against one process: the loss, and each parameter
+# leaf relative to its largest entry or P18_PARAM_FLOOR.  The float steps
+# within TOL_P21_FP32, as phase 19 holds its steps.  An activation an ulp
+# off one process's (the ranks sum in other orders) can cross a rounding
+# boundary of an int8 step, so an int8 step is held to one int8 step's
+# effect, as the CPU tests hold it against JAX: the loss within
+# TOL_P21_INT8_LOSS relative and each leaf within TOL_P21_INT8 (a step
+# has read 5.9e-3-1.01e-2 of a leaf on an H100).  A wrong scale moves a
+# step by re-rounding too, so the steps cannot tell one: the scales are
+# held exactly at the GEMMs and at the modules (below), where the planted
+# faults read 10x the tolerance or more.
 TOL_P21_FP32 = 1e-5
-P21_NUDGE = 1.0 + 2.0 ** -16
-P21_EFFECT_FACTOR = 4.0
-# the int8 GEMMs alone on the card at full-width shapes, each rank's part
-# against the GEMM on the whole operands: the quantized values are the
-# whole's, so the outputs differ by the fp32 sums of the ranks' parts
-# alone; the planted faults (every amax rank-local; the wgrads' rows
-# rank-local, fault 16's parent) must read 10x this
+TOL_P21_INT8 = 3e-2
+TOL_P21_INT8_LOSS = 2e-3
+# the int8 GEMMs alone, and each int8 module as the sharded model wires
+# it, on the card at full-width shapes, each rank's part against the same
+# function on the whole operands: the quantized values are the whole's,
+# so the outputs differ by the fp32 sums of the ranks' parts alone; the
+# planted faults (an amax that tensor splits taken rank-local; the
+# wgrads' rows rank-local, fault 16's parent) must read 10x this
 TOL_P21_GEMM = 1e-5
 P21_GEMM_SHAPE = (1024, 768, 3072)
+# (the model's modes, its modules and their planted faults): the first
+# block's FFN GEMMs (column- / row-parallel `QuantDense`s), its fused
+# int8 Q/K/V, the word head over vocabulary shards, lin2's row-parallel
+# frozen-weight table; on data 2 x tensor 2 at P21_MODULE_ROWS rows.  The
+# straight-through "int8" lin1 quantizes along K = embed alone, which no
+# rank splits: no fault can show there.
+P21_MODULES = (
+    (P21_QUANT, (("lin1", ("amax_local", "rows_local")),
+                 ("lin2", ("amax_local", "rows_local")),
+                 ("head", ("amax_local", "rows_local")),
+                 ("q8_lin2", ("amax_local",)))),
+    (dict(ffn_quant="int8"), (("lin1", ()), ("lin2", ("amax_local",)))),
+    (dict(ffn_quant="int8_all"), (("qkv", ("amax_local", "rows_local")),)))
+P21_MODULE_ROWS = 1024
 P21_EVAL = dict(images=4, beam=2, max_len=8)
 
 
@@ -9833,7 +9852,8 @@ def p21_full_width(cfg):
            "quant": [trainer.cfg.model.ffn_quant,
                      trainer.cfg.model.head_quant],
            "ffn_modules": [type(ffn.lin1).__name__,
-                           ffn.lin1.column_parallel is not None,
+                           ffn.lin1.keep == ("tensor",)
+                           and ffn.lin1.row_parallel is None,
                            ffn.lin2.row_parallel is not None],
            "n_total_iter": trainer.n_total_iter,
            "losses": [v for _, v in rec["losses"]],
@@ -9851,6 +9871,30 @@ def p21_full_width(cfg):
     return out
 
 
+@contextlib.contextmanager
+def p21_sharded(mesh, fault=None, every_amax=False):
+    """The block in which a rank runs its part of an int8 GEMM or module:
+    the batch shards of ``mesh`` reduced (`batch_reduction`), and
+    ``fault`` planted: "amax_local" takes the amaxes that ``tensor``
+    splits rank-local (``every_amax``: every amax), "rows_local" the
+    wgrads' amaxes over this rank's rows alone (fault 16's parent)."""
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.parallel.data_parallel import batch_reduction
+
+    def local(amax):
+        return lambda xf, axis, over: amax(xf, axis, None if every_amax or (
+            over and over[1] == "tensor") else over)
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(batch_reduction(mesh))
+        if fault == "amax_local":
+            stack.enter_context(patched(quant, "_amax", local))
+        elif fault == "rows_local":
+            stack.enter_context(patched(quant, "batch_line",
+                                        lambda _: (lambda: None)))
+        yield
+
+
 def p21_gemm_gap(case, mesh, fault=None):
     """One int8 training GEMM on the card (P21_GEMM_SHAPE; the vocab head
     at (512, 768, 32002)) on ``mesh``, this rank's part against the GEMM
@@ -9865,7 +9909,7 @@ def p21_gemm_gap(case, mesh, fault=None):
 
     from m3p_tpu_torch.ops import quant
     from m3p_tpu_torch.parallel import mesh as PM
-    from m3p_tpu_torch.parallel.data_parallel import BATCH_AXES, batch_reduction
+    from m3p_tpu_torch.parallel.data_parallel import BATCH_AXES
     from m3p_tpu_torch.parallel.tensor_parallel import shard_width
 
     gen = torch.Generator(device="cuda").manual_seed(2100)
@@ -9890,15 +9934,7 @@ def p21_gemm_gap(case, mesh, fault=None):
     whole = run(x, w, g)
     line = (mesh, "tensor")
     i = mesh.index("tensor")
-    stack = contextlib.ExitStack()
-    with stack:
-        stack.enter_context(batch_reduction(mesh))
-        if fault == "amax_local":
-            stack.enter_context(patched(quant, "_amax", lambda amax: (
-                lambda xf, axis, over: amax(xf, axis, None))))
-        elif fault == "rows_local":
-            stack.enter_context(patched(quant, "batch_line",
-                                        lambda _: (lambda: None)))
+    with p21_sharded(mesh, fault, every_amax=True):
         if case in ("rows", "nt_rows"):
             b, count = mesh.batch_shards
             rows = slice(b * m // count, (b + 1) * m // count)
@@ -9931,28 +9967,142 @@ def p21_gemm_gap(case, mesh, fault=None):
     return float(worst[0])
 
 
-def p21_pad_max(state):
-    """The largest |entry| of this rank's parameter, gradient and Adam
-    moment shards in an uneven split's padding."""
+def p21_modules(seed, kw, cases, mesh):
+    """The int8 modules ``cases`` ((module, planted faults) of
+    P21_MODULES) of one full-width model (`p19_model` with ``kw``)
+    sharded over ``mesh`` (data 2 x tensor 2), each as the model wires it
+    (the first block's FFN GEMMs "lin1" / "lin2", its fused Q/K/V "qkv",
+    the word head "head", lin2's frozen-weight table of the `capture_q8`
+    copy "q8_lin2", forward only): forward and backward on this rank's
+    part of P21_MODULE_ROWS rows, against the same int8 function on the
+    whole operands, which every rank computes.  Returns for each module
+    the largest gap of y, dx or dw relative to its largest entry over the
+    ranks, and each planted fault's (`p21_sharded`)."""
     import torch
 
-    from m3p_tpu_torch.parallel.tensor_parallel import shard_of
+    from m3p_tpu_torch.model import capture_q8, quantized_inference_model
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.parallel import mesh as PM
+    from m3p_tpu_torch.parallel.sharding import shard_model
 
-    worst = 0.0
-    moments = [v for v in state.opt_state.values()
-               if isinstance(v, list) and v and torch.is_tensor(v[0])]
-    for j, p in enumerate(state.model.parameters()):
-        spec = shard_of(p)
-        if spec is None:
-            continue
-        index = tuple(
-            slice(None) if a is None else slice(max(
-                spec.shape[d] - spec.mesh.index(a) * p.shape[d], 0), None)
-            for d, a in enumerate(spec.axes))
-        for t in [p.detach(), p.grad] + [mo[j] for mo in moments]:
-            if t is not None and t[index].numel():
-                worst = max(worst, float(t[index].abs().max()))
-    return worst
+    model = p19_model(seed, **kw)
+    names = {"lin1": ["ffn.lin1"], "lin2": ["ffn.lin2"],
+             "q8_lin2": ["ffn.lin2"],
+             "qkv": ["attn.q_lin", "attn.k_lin", "attn.v_lin"]}
+    lins, wholes = {}, {}
+    for case, _ in cases:
+        lins[case] = [model.blocks[0].get_submodule(n)
+                      for n in names.get(case, [])]
+        if case == "head":
+            wholes[case] = (model.text_emb.word.weight.detach().clone(),
+                            model.pred_layer.bias.detach().clone())
+        else:
+            wholes[case] = (
+                torch.cat([lin.weight.detach() for lin in lins[case]]).t(),
+                torch.cat([lin.bias.detach() for lin in lins[case]]))
+    shard_model(model, mesh)
+    coords = {"data": mesh.index("data"), "tensor": mesh.index("tensor")}
+    gen = torch.Generator(device="cuda").manual_seed(2102)
+
+    def draw(cols):
+        return (torch.randn(P21_MODULE_ROWS, cols, device="cuda",
+                            generator=gen)
+                * torch.rand(P21_MODULE_ROWS, 1, device="cuda",
+                             generator=gen) * 3)
+
+    def block(a, dim, cut):
+        """This rank's block of ``a`` along ``dim`` under ``cut`` (axis,
+        parts): its half of each of the parts."""
+        return torch.cat([b.chunk(2, dim)[coords[cut[0]]]
+                          for b in a.chunk(cut[1], dim)], dim)
+
+    def whole(case, w, bias, x, g):
+        """y, dx, dw on the whole operands, each with the axis and parts
+        that split each dimension and the axes the ranks' parts sum over;
+        dw in the module's weight layout ((N, K) for a Dense, the fused
+        Q/K/V's three stacked, the head's (V, K) table)."""
+        rows = ("data", 1)
+        if case == "q8_lin2":
+            with torch.no_grad():
+                y = quant.Q8Table(w.t(), torch.float32)(x)
+            return {"y": (y, (rows, None), ())}
+        fn = (quant.int8_matmul_nt if case == "head"
+              else quant.int8_matmul if kw["ffn_quant"] == "int8"
+              else quant.int8_matmul_qbwd)
+        xw, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xw, ww) + bias
+        y.backward(g)
+        dw = ww.grad if case == "head" else ww.grad.t()
+        cut = ("tensor", 3 if case == "qkv" else 1)
+        if case == "lin2":
+            return {"y": (y.detach(), (rows, None), ()),
+                    "dx": (xw.grad, (rows, cut), ()),
+                    "dw": (dw, (None, cut), ("data",))}
+        return {"y": (y.detach(), (rows, cut), ()),
+                "dx": (xw.grad, (rows, None), ("tensor",)),
+                "dw": (dw, (cut, None), ("data",))}
+
+    def run(case, w, x, g, fault):
+        cols = ("tensor", 1)
+        rows, grad = block(x, 0, ("data", 1)), block(g, 0, ("data", 1))
+        with p21_sharded(mesh, fault):
+            if case == "q8_lin2":
+                q = quantized_inference_model(model)
+                capture_q8(q)
+                with torch.no_grad():
+                    return {"y": q.blocks[0].ffn.q8_lin2(
+                        block(rows, 1, cols))}
+            if case == "head":
+                vocab = model.pred_layer.vocab
+                weights = [w[vocab.lo:vocab.lo + vocab.n].clone()
+                           .requires_grad_()]
+            else:
+                weights = [lin.weight for lin in lins[case]]
+                for p in weights:
+                    p.grad = None
+            inp = (block(rows, 1, cols) if case == "lin2"
+                   else rows).clone().requires_grad_()
+            if case == "qkv":
+                ys = [y[0] for y in
+                      model.blocks[0].attn._fused_int8_qkv(inp[None])]
+                grads = [block(c, 1, cols) for c in grad.chunk(3, dim=1)]
+            elif case == "head":
+                ys = [model.pred_layer(inp, embedding=weights[0])]
+                grads = [block(grad, 1, cols)]
+            else:
+                ys = [lins[case][0](inp)]
+                grads = [grad if case == "lin2" else block(grad, 1, cols)]
+            torch.autograd.backward(ys, grads)
+        return {"y": torch.cat(ys, dim=1).detach(), "dx": inp.grad,
+                "dw": torch.cat([p.grad for p in weights])}
+
+    def gap(got, want):
+        worst = 0.0
+        for key, (ref, dims, summed) in want.items():
+            part = got[key]
+            for axis in summed:
+                part = PM.all_reduce_sum(part, mesh, mesh.group(axis))
+            mine = ref
+            for dim, cut in enumerate(dims):
+                if cut is not None:
+                    mine = block(mine, dim, cut)
+            worst = max(worst, float((part - mine).abs().max()
+                                     / ref.abs().max()))
+        out = PM.all_reduce_max(torch.tensor([worst], device="cuda"), mesh)
+        return float(out[0])
+
+    out = {}
+    for case, faults in cases:
+        w, bias = wholes[case]
+        x = draw(w.shape[1] if case == "head" else w.shape[0])
+        g = draw(w.shape[0] if case == "head" else w.shape[1])
+        want = whole(case, w, bias, x, g)
+        res = {"gap": gap(run(case, w, x, g, None), want)}
+        for fault in faults:
+            res[fault] = gap(run(case, w, x, g, fault), want)
+        out[f"{case}_{kw['ffn_quant']}"] = res
+    del model
+    return out
 
 
 class IdsTokenizer:
@@ -10019,7 +10169,7 @@ def p21_checks(cfg):
     from m3p_tpu_torch.data.synthetic import make_retrieval_batch
     from m3p_tpu_torch.parallel.mesh import make_mesh
     from m3p_tpu_torch.parallel.sharding import (
-        gather_train_state, shard_model)
+        gather_train_state, padding_max, shard_model)
     from m3p_tpu_torch.train.optim import build_optimizer
     from m3p_tpu_torch.train.state import create_train_state
     from m3p_tpu_torch.train.steps import mct_draws
@@ -10055,7 +10205,7 @@ def p21_checks(cfg):
         if P21_OWNER[name] == rank:
             kept[name] = (loss, params)
         if name == "uneven_tensor4":
-            out["uneven_pad_max"] = p21_pad_max(state)
+            out["uneven_pad_max"] = padding_max(state)
             out["uneven_local_rows"] = list(model.text_emb.word.weight.shape)
             path = os.path.join(tmp, "p21_tensor4")
             ckpt.save_checkpoint(path, state, {"epoch": 1})
@@ -10095,6 +10245,14 @@ def p21_checks(cfg):
     torch.cuda.empty_cache()
     part("gemms")
 
+    # the int8 modules as the sharded model wires them
+    out["modules"] = {}
+    for kw, cases in P21_MODULES:
+        out["modules"].update(p21_modules(seed, kw, cases,
+                                          meshes["data2_tensor2"]))
+    torch.cuda.empty_cache()
+    part("modules")
+
     # the evaluator's int8 caption eval on fsdp 2 x tensor 2
     rng = np.random.RandomState(seed)
     batches = [make_retrieval_batch(rng, P21_EVAL["images"], 1, 8,
@@ -10114,12 +10272,7 @@ def p21_checks(cfg):
         gap, leaf = leaf_gap(params, ref[1])
         res = {"loss": loss, "one_process_loss": ref[0],
                "loss_gap": abs(loss - ref[0]) / abs(ref[0]),
-               "param_gap": gap, "worst_leaf": leaf, "int8_step_effect": None}
-        if kw.get("ffn_quant"):
-            nudged = dict(batch, feats=batch["feats"] * P21_NUDGE)
-            res["int8_step_effect"] = leaf_gap(p19_step(
-                p19_model(seed, **kw), None, kind, nudged, draws)[1],
-                ref[1])[0]
+               "param_gap": gap, "worst_leaf": leaf}
         out["fp32"][name] = res
         del params, ref
         torch.cuda.empty_cache()
@@ -10172,23 +10325,26 @@ def sharded_variants_slice(ranks):
                 int8["int8_matmul_qbwd"].values()) or not sum(
                 int8["int8_matmul_nt"].values()) > 0:
             problems.append(f"rank {r} int8 GEMMs {int8}")
-        if a["amax_reduced_per_step"]["calls"] <= 0:
-            problems.append(f"rank {r} reduced no amax")
+        if a["amax_reduced_per_step"]["calls"] != P21_AMAX_PER_STEP:
+            problems.append(f"rank {r} reduced {a['amax_reduced_per_step']}"
+                            f" amaxes a step, not {P21_AMAX_PER_STEP}")
     b = ranks[0]["b"]
     fp32 = {name: ranks[P21_OWNER[name]]["b"]["fp32"][name]
             for name, *_ in P21_CASES}
     bounds = {}
-    for name, res in fp32.items():
-        effect = res["int8_step_effect"]
-        bound = max(TOL_P21_FP32, P21_EFFECT_FACTOR * (effect or 0.0))
+    for name, kw, *_ in P21_CASES:
+        res = fp32[name]
+        bound = ((TOL_P21_INT8_LOSS, TOL_P21_INT8) if kw.get("ffn_quant")
+                 else (TOL_P21_FP32, TOL_P21_FP32))
         bounds[name] = bound
-        if not (res["loss_gap"] <= bound and res["param_gap"] <= bound):
+        if not (res["loss_gap"] <= bound[0] and res["param_gap"] <= bound[1]):
             problems.append(f"{name} is not the one-process step within "
                             f"{bound}: {res}")
-    for key, res in b["gemms"].items():
-        planted = [v for k, v in res.items() if k != "gap"][0]
-        if not res["gap"] <= TOL_P21_GEMM < 10 * TOL_P21_GEMM <= planted:
-            problems.append(f"int8 GEMM {key}: {res}")
+    for key, res in list(b["gemms"].items()) + list(b["modules"].items()):
+        planted = [v for k, v in res.items() if k != "gap"]
+        if not (res["gap"] <= TOL_P21_GEMM
+                and all(v >= 10 * TOL_P21_GEMM for v in planted)):
+            problems.append(f"int8 GEMM or module {key}: {res}")
     if not all(r["b"]["uneven_pad_max"] == 0.0 for r in ranks):
         problems.append(f"the padding moved: "
                         f"{[r['b']['uneven_pad_max'] for r in ranks]}")
@@ -10227,7 +10383,7 @@ def sharded_variants_slice(ranks):
            "launches_per_rank": {r: {k: sum(c[k] for _, c in res["a"][
                "steps"]) for k in want} for r, res in enumerate(ranks)},
            "fp32": fp32, "bounds": bounds,
-           "gemms": b["gemms"],
+           "gemms": b["gemms"], "modules": b["modules"],
            "uneven_local_rows": b["uneven_local_rows"],
            "checkpoint": [r["b"]["checkpoint"] for r in ranks],
            "b_seconds_rank0": b["seconds"],

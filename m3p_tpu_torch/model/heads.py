@@ -67,7 +67,6 @@ class AdaptiveSoftmax(nn.Module):
         outs = [self.head] + [out for _, out in self.tails]
         for lin in outs:
             lin.keep = ("tensor",)
-            lin.column_parallel = mesh
         self.vocabs = [vocab_shard(mesh, lin.out_features) for lin in outs]
 
     @staticmethod

@@ -55,7 +55,7 @@ from m3p_tpu_torch.ops.topk import top_k
 from m3p_tpu_torch.parallel.data_parallel import batch_mesh
 from m3p_tpu_torch.parallel.mesh import Mesh, bound_seq_axis
 from m3p_tpu_torch.parallel.tensor_parallel import (
-    copy_to, gather_rows, materialize, reduce_from)
+    copy_to, gather_rows, materialize, reduce_from, shard_of)
 
 LN_EPS = 1e-12
 
@@ -166,19 +166,17 @@ class Dense(nn.Linear):
     """nn.Linear that computes in ``dtype`` (flax ``nn.Dense(dtype=...)``).
 
     Under tensor parallelism (set by the tensor-parallel module that owns
-    it) ``keep`` is ("tensor",): the weight stays this rank's slice.  A
-    column-parallel Dense (``column_parallel``, the mesh) then gives this
-    rank's output columns (its caller hands it its input through
-    `copy_to`); a row-parallel one (``row_parallel``, the mesh) takes this
-    rank's input columns, and the ranks' partial products are summed
-    before the bias."""
+    it) ``keep`` is ("tensor",): the weight stays this rank's slice.  The
+    Dense is then column-parallel, giving this rank's output columns (its
+    caller hands it its input through `copy_to`), unless ``row_parallel``
+    (the mesh) is set: it then takes this rank's input columns, and the
+    ranks' partial products are summed before the bias."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
         self.keep: tuple = ()
-        self.column_parallel: Optional[Mesh] = None
         self.row_parallel: Optional[Mesh] = None
 
     def weight_as(self, dtype: torch.dtype) -> torch.Tensor:
@@ -224,10 +222,14 @@ class QuantDense(Dense):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self.weights()
         xc, kernel = x.to(self.compute_dtype), weight.t()
-        row, col = self.row_parallel, self.column_parallel
-        k_over = None if row is None else (row, "tensor")
+        row = self.row_parallel
+        # the line ``tensor`` splits the product over: K when row-parallel,
+        # else N (a kept slice of the output columns)
+        line = (None if "tensor" not in self.keep
+                else (shard_of(self.weight).mesh, "tensor"))
+        k_over = None if row is None else line
         if self.quant_bwd:
-            n_over = None if col is None else (col, "tensor")
+            n_over = line if row is None else None
             y = int8_matmul_qbwd(xc.reshape(-1, xc.shape[-1]), kernel,
                                  k_over, n_over)
             y = y.reshape(*xc.shape[:-1], kernel.shape[1])
@@ -341,8 +343,6 @@ class MultiHeadAttention(nn.Module):
         self.tp = mesh
         for lin in (self.q_lin, self.k_lin, self.v_lin, self.out_lin):
             lin.keep = ("tensor",)
-        for lin in (self.q_lin, self.k_lin, self.v_lin):
-            lin.column_parallel = mesh
         self.out_lin.row_parallel = mesh
 
     def forward(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor],
@@ -416,8 +416,7 @@ class MultiHeadAttention(nn.Module):
     def _project_out(self, ctx: torch.Tensor) -> torch.Tensor:
         """The output projection; int8 over ``q8_out`` at up to
         `PREQUANT_MAX_M` rows."""
-        return gated_linear(ctx, self.q8_out, self.out_lin,
-                            self.out_lin.bias)
+        return gated_linear(ctx, self.q8_out, self.out_lin)
 
     def capture_q8(self, dtype: torch.dtype, self_attention: bool) -> None:
         """Quantize the output projection's weight (and with
@@ -507,7 +506,6 @@ class TransformerFFN(nn.Module):
         ``lin1`` column-parallel, ``lin2`` row-parallel."""
         self.tp = mesh
         self.lin1.keep = self.lin2.keep = ("tensor",)
-        self.lin1.column_parallel = mesh
         self.lin2.row_parallel = mesh
 
     def capture_q8(self, dtype: torch.dtype) -> None:
@@ -521,9 +519,9 @@ class TransformerFFN(nn.Module):
                 generator: Optional[Generators] = None,
                 skip_dropout: bool = False) -> torch.Tensor:
         x = copy_to(x, self.tp, "tensor")
-        h = gated_linear(x, self.q8_lin1, self.lin1, self.lin1.bias)
+        h = gated_linear(x, self.q8_lin1, self.lin1)
         h = gelu_erf(h) if self.gelu_activation else F.relu(h)
-        h = gated_linear(h, self.q8_lin2, self.lin2, self.lin2.bias)
+        h = gated_linear(h, self.q8_lin2, self.lin2)
         if skip_dropout:
             return h
         return dropout(h, self.dropout, deterministic, generator)

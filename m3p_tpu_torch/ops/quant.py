@@ -66,7 +66,7 @@ from torch import nn
 from m3p_tpu_torch.parallel import mesh as M
 from m3p_tpu_torch.parallel.data_parallel import BATCH_AXES, batch_mesh
 from m3p_tpu_torch.parallel.mesh import Mesh
-from m3p_tpu_torch.parallel.tensor_parallel import materialize, reduce_from
+from m3p_tpu_torch.parallel.tensor_parallel import reduce_from
 
 # Above this many rows the int8_infer modules take the plain GEMM (the
 # JAX package's rule, `m3p_tpu/ops/quant.py:176-186`); the vocab head
@@ -416,11 +416,11 @@ def zero_counts() -> None:
 zero_counts()
 
 
-def gated_linear(x: torch.Tensor, table: Optional["Q8Table"], linear,
-                 bias: torch.Tensor) -> torch.Tensor:
+def gated_linear(x: torch.Tensor, table: Optional["Q8Table"], linear
+                 ) -> torch.Tensor:
     """A module GEMM under the frozen-weight int8 rule: through ``table``
-    plus ``bias`` (the Dense ``linear``'s, in the table's dtype, as
-    ``linear`` computes with it) when there is a table and x has at most
+    plus the Dense ``linear``'s bias (in the table's dtype, as ``linear``
+    computes with it) when there is a table and x has at most
     `PREQUANT_MAX_M` rows; else ``linear(x)``, the module's float GEMM
     (`m3p_tpu/model/layers.py:160-171`, `:386-395`).  Every rank of a
     mesh line holds the same rows of x, so the line decides alike."""
@@ -430,7 +430,7 @@ def gated_linear(x: torch.Tensor, table: Optional["Q8Table"], linear,
         GATE_COUNTS["plain"] += 1
         return linear(x)
     GATE_COUNTS["int8"] += 1
-    return table(x) + materialize(bias, table.dtype, linear.keep)
+    return table(x) + linear.bias_as(table.dtype)
 
 
 class Q8Table(nn.Module):

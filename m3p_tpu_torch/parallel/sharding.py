@@ -47,7 +47,8 @@ import torch
 from m3p_tpu_torch.parallel import mesh as M
 from m3p_tpu_torch.parallel.mesh import Mesh
 from m3p_tpu_torch.parallel.tensor_parallel import (
-    ShardSpec, gather_whole, local_slice, shard_of, vocab_shard)
+    ShardSpec, gather_whole, local_slice, shard_of, shard_padding,
+    vocab_shard)
 
 # logical axis -> mesh axis (None = replicate), as the JAX package maps them
 LOGICAL_RULES = (
@@ -368,6 +369,27 @@ def slice_like_state(state, blob: Dict[str, Any]) -> Dict[str, Any]:
     opt = _map_like(blob["opt_state"], len(specs), lambda ts: [
         local_slice(t, s) for t, s in zip(ts, specs)])
     return {"model": sd, "opt_state": opt}
+
+
+@torch.no_grad()
+def padding_max(state) -> float:
+    """The largest |entry| in the padding of this rank's shards
+    (`tensor_parallel.shard_padding`) of the parameters, their gradients
+    and the optimizer state that mirrors them: an uneven split's padding
+    stays 0.0."""
+    params = list(state.model.parameters())
+    specs = [shard_of(p) for p in params]
+    trees = [[p.detach() for p in params], [p.grad for p in params]]
+    _map_like(state.opt_state, len(specs), trees.append)
+    worst = 0.0
+    for tree in trees:
+        for t, spec in zip(tree, specs):
+            if t is None or spec is None:
+                continue
+            for pad in shard_padding(t, spec):
+                if pad.numel():
+                    worst = max(worst, float(pad.abs().max()))
+    return worst
 
 
 def model_is_sharded(model: torch.nn.Module) -> bool:

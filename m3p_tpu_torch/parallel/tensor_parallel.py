@@ -156,6 +156,19 @@ def gather_whole(t: torch.Tensor, spec: Optional[ShardSpec]) -> torch.Tensor:
     return t.contiguous()
 
 
+def shard_padding(t: torch.Tensor, spec: ShardSpec) -> list:
+    """The entries of this rank's shard ``t`` (a parameter, its gradient or
+    its optimizer state) under ``spec`` that lie beyond the whole tensor's
+    end: an uneven split's padding (module docstring), one view for each
+    split dimension, empty where that dimension has none."""
+    views = []
+    for d, axis in spec.split():
+        w = t.shape[d]
+        real = min(max(spec.shape[d] - spec.mesh.index(axis) * w, 0), w)
+        views.append(t.narrow(d, real, w - real))
+    return views
+
+
 def local_slice(t: torch.Tensor, spec: Optional[ShardSpec]) -> torch.Tensor:
     """This rank's shard of the whole tensor ``t`` under ``spec``: along a
     dimension that does not divide, ceil(n / k) entries, the padding zeros
@@ -295,25 +308,34 @@ def vocab_parallel_lookup(ids: torch.Tensor, table: torch.Tensor,
     return reduce_from(rows, vocab.mesh, "tensor")
 
 
+def _vocab_logsumexp(x: torch.Tensor, vocab: VocabShard):
+    """The parts of the logsumexp of fp32 logits ``x`` (..., n) over every
+    rank's columns: (m, e, total), the max m (..., 1) and the sum of e =
+    exp(x - m) (..., 1) both taken over ``tensor``."""
+    mesh, group = vocab.mesh, vocab.mesh.group("tensor")
+    m = M.all_reduce_max(x.amax(dim=-1, keepdim=True), mesh, group)
+    e = torch.exp(x - m)
+    total = M.all_reduce_sum(e.sum(dim=-1, keepdim=True), mesh, group)
+    return m, e, total
+
+
 class _VocabCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, vocab):
-        mesh, group = vocab.mesh, vocab.mesh.group("tensor")
         x = logits.float()
-        m = M.all_reduce_max(x.max(dim=-1).values, mesh, group)
-        e = torch.exp(x - m[:, None])
-        total = M.all_reduce_sum(e.sum(dim=-1), mesh, group)
+        m, e, total = _vocab_logsumexp(x, vocab)
         local, inside = vocab.local(labels)
         mine = x.gather(1, local[:, None])[:, 0] * inside
-        target = M.all_reduce_sum(mine, mesh, group)
+        target = M.all_reduce_sum(mine, vocab.mesh,
+                                  vocab.mesh.group("tensor"))
         ctx.save_for_backward(e, total, local, inside)
         ctx.dtype = logits.dtype
-        return torch.log(total) + m - target
+        return (torch.log(total) + m)[:, 0] - target
 
     @staticmethod
     def backward(ctx, grad):
         e, total, local, inside = ctx.saved_tensors
-        p = e / total[:, None]
+        p = e / total
         p.scatter_add_(1, local[:, None], -inside.float()[:, None])
         return (p * grad[:, None]).to(ctx.dtype), None, None
 
@@ -332,11 +354,8 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor,
 class _VocabLogSoftmax(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, vocab):
-        mesh, group = vocab.mesh, vocab.mesh.group("tensor")
         x = logits.float()
-        m = M.all_reduce_max(x.amax(dim=-1, keepdim=True), mesh, group)
-        e = torch.exp(x - m)
-        total = M.all_reduce_sum(e.sum(dim=-1, keepdim=True), mesh, group)
+        m, e, total = _vocab_logsumexp(x, vocab)
         ctx.save_for_backward(e / total)
         ctx.vocab, ctx.dtype = vocab, logits.dtype
         return x - m - torch.log(total)

@@ -166,15 +166,15 @@ def test_q8_gate_large_m_falls_back_to_the_plain_gemm():
     quant.zero_counts()
     with torch.no_grad():
         torch.testing.assert_close(
-            quant.gated_linear(x_big, ffn.q8_lin1, lin1, lin1.bias),
+            quant.gated_linear(x_big, ffn.q8_lin1, lin1),
             lin1(x_big), rtol=0, atol=0)
         assert quant.GATE_COUNTS == {"int8": 0, "plain": 1}
-        small = quant.gated_linear(x_small, ffn.q8_lin1, lin1, lin1.bias)
+        small = quant.gated_linear(x_small, ffn.q8_lin1, lin1)
         assert quant.GATE_COUNTS == {"int8": 1, "plain": 1}
         assert float((small - lin1(x_small)).abs().max()) > 1e-6
         # exactly the gate: int8
         at = torch.randn(quant.PREQUANT_MAX_M, 8)
-        quant.gated_linear(at, ffn.q8_lin1, lin1, lin1.bias)
+        quant.gated_linear(at, ffn.q8_lin1, lin1)
         assert quant.GATE_COUNTS["int8"] == 2
         # the FFN takes both GEMMs through the gate
         quant.zero_counts()

@@ -421,10 +421,8 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
     deterministic.  ``fault`` plants one: "row_no_reduce" skips the
     row-parallel all-reduce, "local_ce" takes the vocabulary CE rank-local,
     "inf_grad" puts an inf into rank 0's shard of
-    ``block_0.attn.q_lin.weight``'s gradient after the reduction,
-    "amax_local" takes the int8 amaxes rank-local where ``tensor`` splits
-    their axis, "rows_local" the int8 wgrads' amaxes over this rank's rows
-    alone.  ``guard``: the optimizer's non-finite guard.  Returns the loss,
+    ``block_0.attn.q_lin.weight``'s gradient after the reduction.
+    ``guard``: the optimizer's non-finite guard.  Returns the loss,
     the grad norm and its dtype, the whole updated parameters and first
     moment (gathered), or this rank's shards when not ``whole``, and
     ``pad_max``: the largest |entry| in the padding of this rank's shards
@@ -435,11 +433,10 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
 
     from m3p_tpu_torch.data.masking import MaskingConfig
     from m3p_tpu_torch.model.layers import Generators
-    from m3p_tpu_torch.ops import quant
     from m3p_tpu_torch.parallel import tensor_parallel as TP
     from m3p_tpu_torch.parallel.sharding import (
-        batch_sharding, gather_train_state, is_sharded, shard_batch,
-        shard_model)
+        batch_sharding, gather_train_state, is_sharded, padding_max,
+        shard_batch, shard_model)
     from m3p_tpu_torch.train import steps as S
     from m3p_tpu_torch.train.optim import build_optimizer
     from m3p_tpu_torch.train.state import create_train_state
@@ -496,14 +493,6 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
                 lambda lg, lb, v: TP.vocab_parallel_ce(lg, lb, None)
                 if v is None else torch.nn.functional.cross_entropy(
                     lg.float(), v.local(lb)[0], reduction="none")))
-        elif fault == "amax_local":
-            amax = quant._amax
-            stack.enter_context(_patched(
-                quant, "_amax", lambda xf, axis, over: amax(
-                    xf, axis, None if over and over[1] == "tensor"
-                    else over)))
-        elif fault == "rows_local":
-            stack.enter_context(_patched(quant, "batch_line", lambda: None))
         step = S.make_train_step(loss_fn, with_grad_norm=True)
         _, metrics = step(st, local, gen)
     names = [n for n, _ in model.named_parameters()]
@@ -520,7 +509,7 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
     return {"loss": float(metrics["loss" if "loss" in metrics else "mlm"]),
             "grad_norm": float(metrics["grad_norm"]),
             "grad_norm_dtype": str(metrics["grad_norm"].dtype),
-            "pad_max": _pad_max(model, st),
+            "pad_max": padding_max(st),
             "params": {n: v.detach().float().numpy().copy()
                        for n, v in params.items()},
             "grads": grads,
@@ -528,34 +517,6 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
                 n: t.float().numpy().copy() for n, t in zip(names, mu)},
             "local_bytes": sum(p.numel() * p.element_size()
                                for p in model.parameters())}
-
-
-def _pad_max(model, st) -> float:
-    """The largest |entry| of this rank's parameter, gradient and optimizer
-    moment shards beyond the whole tensor's end (an uneven split's
-    padding); 0.0 without padding."""
-    from m3p_tpu_torch.parallel.tensor_parallel import shard_of
-
-    worst = 0.0
-    moments = [v for v in st.opt_state.values()
-               if isinstance(v, list) and v and torch.is_tensor(v[0])]
-    for i, p in enumerate(model.parameters()):
-        spec = shard_of(p)
-        if spec is None:
-            continue
-        index = []
-        for d, axis in enumerate(spec.axes):
-            if axis is None:
-                index.append(slice(None))
-                continue
-            lo = spec.mesh.index(axis) * p.shape[d]
-            index.append(slice(max(spec.shape[d] - lo, 0), None))
-        for t in [p.detach(), p.grad] + [m[i] for m in moments]:
-            if t is not None:
-                pad = t[tuple(index)]
-                if pad.numel():
-                    worst = max(worst, float(pad.abs().max()))
-    return worst
 
 
 def sharded_q8(cfg_dict, state, mesh_axes, feats, locs, img_len,
@@ -653,6 +614,95 @@ def int8_ops(case, x, w, g, fault=False) -> Dict[str, np.ndarray]:
         y.backward(g.contiguous())
     return {"y": y.detach().numpy(), "dx": x.grad.numpy(),
             "dw": w.grad.numpy()}
+
+
+def int8_modules(cfg_dict, state, case, x, g=None, faults=(None,)
+                 ) -> List[Dict[str, Any]]:
+    """This rank's part of one int8 module of a model sharded over data 2 x
+    tensor 2, as the model wires it, forward and backward on this rank's
+    part of the whole input x (M, K) and upstream gradient g (fp32 numpy;
+    the rows split over ``data``): ``case`` "lin1" / "lin2" (the first
+    block's FFN GEMMs, column- / row-parallel `QuantDense`s in the model's
+    ``ffn_quant``), "qkv" (its fused int8 Q/K/V, ``int8_all``; g (M, 3D)
+    of q, k and v), "head" (the word head under ``head_quant="int8_bwd"``
+    over the vocabulary shards, tied to a table of x's width), "q8_lin2"
+    (lin2's frozen-weight int8 table of the model's `capture_q8` copy, row-
+    parallel; forward only).  Run once for each of ``faults``: None, or a
+    planted one, "amax_local" (the amaxes that ``tensor`` splits taken
+    rank-local) or "rows_local" (the wgrads' amaxes over this rank's rows
+    alone).  Returns for each run this rank's output ``y``, input gradient
+    ``dx`` and weight gradient ``dw`` (the module's own layout: the Dense's
+    (N, K) weights, the fused Q/K/V's three concatenated, the head's
+    table) and its mesh coordinates."""
+    import contextlib
+
+    from m3p_tpu_torch.model import capture_q8, quantized_inference_model
+    from m3p_tpu_torch.ops import quant
+    from m3p_tpu_torch.parallel.data_parallel import batch_reduction
+    from m3p_tpu_torch.parallel.sharding import shard_model
+
+    mesh = _mesh(data=2, tensor=2)
+    model = _model(cfg_dict, state)
+    shard_model(model, mesh)
+    block = model.blocks[0]
+    coords = {"data": mesh.index("data"), "tensor": mesh.index("tensor")}
+    rows = np.array_split(np.arange(len(x)), 2)[coords["data"]]
+    x = torch.tensor(x[rows])
+    g = None if g is None else torch.tensor(g[rows])
+
+    def mine(a, parts=1):
+        """This tensor rank's columns of each of ``parts`` blocks of a."""
+        return torch.cat([c.chunk(2, dim=-1)[coords["tensor"]]
+                          for c in a.chunk(parts, dim=-1)], dim=-1)
+
+    def run():
+        if case == "q8_lin2":
+            q = quantized_inference_model(model)
+            capture_q8(q)
+            with torch.no_grad():
+                y = q.blocks[0].ffn.q8_lin2(mine(x))
+            return {"y": y.numpy(), "coords": coords}
+        inp, grads = (mine(x) if case == "lin2" else x), [mine(g)]
+        if case == "head":
+            vocab = model.pred_layer.vocab
+            table = torch.tensor(state["text_emb.word.weight"])
+            weights = [table[vocab.lo:vocab.lo + vocab.n].requires_grad_()]
+        else:
+            lins = {"lin1": ["ffn.lin1"], "lin2": ["ffn.lin2"],
+                    "qkv": ["attn.q_lin", "attn.k_lin", "attn.v_lin"]}[case]
+            weights = [block.get_submodule(n).weight for n in lins]
+            for w in weights:
+                w.grad = None
+        inp = inp.clone().requires_grad_()
+        if case == "qkv":
+            ys = [y[0] for y in block.attn._fused_int8_qkv(inp[None])]
+            grads = [mine(c) for c in g.chunk(3, dim=-1)]
+        elif case == "head":
+            ys = [model.pred_layer(inp, embedding=weights[0])]
+        else:
+            ys = [block.get_submodule(lins[0])(inp)]
+            grads = [g] if case == "lin2" else grads
+        torch.autograd.backward(ys, grads)
+        return {"y": torch.cat(ys, dim=-1).detach().numpy(),
+                "dx": inp.grad.numpy(),
+                "dw": torch.cat([w.grad for w in weights]).numpy(),
+                "coords": coords}
+
+    out = []
+    for fault in faults:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(batch_reduction(mesh))
+            if fault == "amax_local":
+                amax = quant._amax
+                stack.enter_context(_patched(
+                    quant, "_amax", lambda xf, axis, over: amax(
+                        xf, axis, None if over and over[1] == "tensor"
+                        else over)))
+            elif fault == "rows_local":
+                stack.enter_context(_patched(quant, "batch_line",
+                                             lambda: None))
+            out.append(run())
+    return out
 
 
 def sharded_grid(cfg_dict, state, mesh_axes, pool, cap_to_img,

@@ -19,12 +19,17 @@ effect (`INT8_STEP_TOL`).
   function on each sequence shard's rows: JAX's own sequence-parallel
   step does not run under ``int8_bwd`` (its custom VJP inside the
   `shard_map` returns a wgrad that varies over ``seq`` and raises);
-* each int8 training GEMM on its mesh takes the whole tensors' scales:
-  its outputs are JAX's on the whole operands up to the fp32 sums of the
-  ranks' parts (the steps are held to one int8 step's effect, below);
+* each int8 training GEMM on its mesh, and each int8 module as the
+  sharded model wires it (the FFN's column- and row-parallel GEMMs, the
+  fused Q/K/V, the word head on vocabulary shards, a row-parallel
+  frozen-weight table) on data 2 x tensor 2, takes the whole tensors'
+  scales: its outputs are JAX's on the whole operands up to the fp32 sums
+  of the ranks' parts, and the amaxes taken rank-local (planted faults)
+  break the equality;
 * ``int8_bwd`` FFN + head and ``int8_all`` on fsdp 2 x tensor 2, "int8" on
-  tensor 2, the adaptive softmax on tensor 2; the amaxes taken rank-local
-  (a planted fault) break the equality;
+  tensor 2, the adaptive softmax on tensor 2 (the int8 steps are held to
+  one int8 step's effect, which a wrong scale stays within: the scales are
+  held at the GEMMs and modules above);
 * a 514-word vocabulary over tensor 4 (shards of 129, the last padded):
   the step, the padding's zero parameters, gradients and moments, and a
   checkpoint from tensor 4 read back on fsdp 2 x tensor 2 and in one
@@ -184,6 +189,131 @@ def test_int8_gemm_on_ranks_takes_the_whole_tensors_scales(pools, case):
         whole = _jax_vjp(jquant.int8_matmul_qbwd, x.reshape(-1, 24), w,
                          g.reshape(-1, 36))[2]
         assert _gap(ranks, {"dw": ("sum", whole)}) > 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the int8 modules as the sharded model wires them
+# ---------------------------------------------------------------------------
+
+# (module, the model's modes, the planted faults it must show): each module
+# of the first block (and the word head) of a small model sharded over
+# data 2 x tensor 2; the straight-through "int8" lin1 quantizes along K =
+# embed alone, which no rank splits, so no fault can show there
+MODULE_CASES = (
+    ("lin1", {"ffn_quant": "int8_bwd"}, ("amax_local", "rows_local")),
+    ("lin2", {"ffn_quant": "int8_bwd"}, ("amax_local", "rows_local")),
+    ("lin1", {"ffn_quant": "int8"}, ()),
+    ("lin2", {"ffn_quant": "int8"}, ("amax_local",)),
+    ("qkv", {"ffn_quant": "int8_all"}, ("amax_local", "rows_local")),
+    ("head", {"head_quant": "int8_bwd"}, ("amax_local", "rows_local")),
+    ("q8_lin2", {}, ("amax_local",)))
+_ROWS, _COLS = ("data", 1), ("tensor", 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _module_model(kw):
+    """The port's small model of ``kw`` (seed 0): its config and state."""
+    jcfg = _jax_cfg(**dict(kw))
+    model = build_model(ModelConfig(**dataclasses.asdict(jcfg)), 0, "cpu")
+    return {"cfg": dataclasses.asdict(jcfg),
+            "state": {k: v.numpy() for k, v in model.state_dict().items()}}
+
+
+def _module_want(case, built, x, g):
+    """JAX's function on the whole operands of the module ``case``: for
+    each output, (the whole array, the mesh axis and block count that
+    split each of its dimensions, the axes over which the ranks' parts
+    are summed)."""
+    st = built["state"]
+
+    def kernel(name):
+        return st[f"block_0.{name}.weight"].T
+
+    if case == "q8_lin2":
+        y = jquant.int8_matmul_pre(x, *jquant.prequantize_nn(
+            kernel("ffn.lin2")))
+        return {"y": (np.asarray(y), (_ROWS, None), ())}
+    fn = jquant.int8_matmul_qbwd
+    if case in ("lin1", "lin2"):
+        if built["cfg"]["ffn_quant"] == "int8":
+            fn = jquant.int8_matmul
+        w, bias = kernel(f"ffn.{case}"), st[f"block_0.ffn.{case}.bias"]
+    elif case == "qkv":
+        names = ("attn.q_lin", "attn.k_lin", "attn.v_lin")
+        w = np.concatenate([kernel(n) for n in names], axis=1)
+        bias = np.concatenate([st[f"block_0.{n}.bias"] for n in names])
+    else:
+        fn = jquant.int8_matmul_nt
+        w, bias = st["text_emb.word.weight"], st["pred_layer.bias"]
+    y, dx, dw = _jax_vjp(lambda x, w: fn(x, w) + bias, x, w, g)
+    if case != "head":
+        dw = dw.T                            # the Dense's (N, K) layout
+    split = ("tensor", 3) if case == "qkv" else _COLS
+    if case == "lin2":
+        return {"y": (y, (_ROWS, None), ()), "dx": (dx, (_ROWS, _COLS), ()),
+                "dw": (dw, (None, _COLS), ("data",))}
+    return {"y": (y, (_ROWS, split), ()), "dx": (dx, (_ROWS, None),
+                                               ("tensor",)),
+            "dw": (dw, (split, None), ("data",))}
+
+
+def _module_gap(ranks, want):
+    """The largest difference to JAX of any output, relative to its
+    largest entry: the ranks' parts summed over the axes ``want`` names,
+    each sum against its block of the whole."""
+    worst = 0.0
+    for key, (whole, dims, summed) in want.items():
+        groups = {}
+        for r in ranks:
+            at = tuple((a, i) for a, i in sorted(r["coords"].items())
+                       if a not in summed)
+            groups.setdefault(at, []).append(r[key])
+        for at, parts in groups.items():
+            ref, coords = whole, dict(at)
+            for axis, cut in enumerate(dims):
+                if cut is not None:
+                    ref = np.concatenate([
+                        np.array_split(b, 2, axis=axis)[coords[cut[0]]]
+                        for b in np.split(ref, cut[1], axis=axis)], axis=axis)
+            worst = max(worst, float(np.abs(sum(parts) - ref).max()
+                                     / np.abs(whole).max()))
+    return worst
+
+
+@pytest.mark.parametrize(
+    "case", MODULE_CASES,
+    ids=lambda c: "_".join([c[0]] + list(c[1].values()) or ["int8_infer"]))
+def test_int8_module_on_data_by_tensor_is_jax_on_the_whole(pools, case):
+    """Each int8 module as the sharded model wires it (the FFN's column-
+    and row-parallel `QuantDense`s in "int8_bwd" and "int8", the fused
+    Q/K/V under "int8_all", the word head under ``head_quant="int8_bwd"``
+    on vocabulary shards, lin2's row-parallel frozen-weight table) on
+    data 2 x tensor 2 against JAX's function on the whole operands: every
+    scale is the whole tensor's, so the outputs differ by the fp32 sums of
+    the ranks' parts alone (1e-6 of the largest entry).  Each amax that
+    ``tensor`` splits taken rank-local, and each wgrad's amax over one
+    data rank's rows (fault 16's parent), moves some output by more than
+    1e-3."""
+    name, kw, faults = case
+    built = _module_model(tuple(sorted(kw.items())))
+    rng = np.random.RandomState(22)
+    k = {"lin2": 256, "q8_lin2": 256}.get(name, 64)
+    n = {"lin1": 256, "qkv": 192, "head": 512}.get(name, 64)
+    x = (rng.randn(16, k) * rng.uniform(0.1, 3.0, (16, 1))).astype(
+        np.float32)
+    g = (rng.randn(16, n) * rng.uniform(0.1, 3.0, (16, 1))).astype(
+        np.float32)
+    wait = pools(4).submit("int8_modules", cfg_dict=built["cfg"],
+                           state=built["state"], case=name, x=x,
+                           g=None if name == "q8_lin2" else g,
+                           faults=(None,) + faults)
+    want = _module_want(name, built, x, g)
+    runs = wait()
+    gap = _module_gap([r[0] for r in runs], want)
+    assert gap <= 1e-6, gap
+    for i, fault in enumerate(faults, 1):
+        bad = _module_gap([r[i] for r in runs], want)
+        assert bad > 1e-3, (fault, bad)
 
 
 # ---------------------------------------------------------------------------
