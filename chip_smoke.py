@@ -286,9 +286,22 @@ Phases, each of which fails the run if it fails:
      seen, tensor 2 alone at dropout and attention dropout 0.1 against one
      process; (c) MoE on data 2 x expert 2 against one process; (d) the
      checkpoint round trip sharded -> one process -> sharded, bitwise.  In
-     this process: kernels #1-#6 over heads 6-11 of 12 (the Philox head
-     offset) against the slice of the call over all 12, and the preset's
-     step peak memory with remat against without.
+     this process: kernels #1-#6 over heads 6-11, 9-11 and 10-11 of 12
+     (the Philox head offset of a rank of tensor 2, 5 and 8) against the
+     slice of the call over all 12, and the preset's step peak memory with
+     remat against without.
+ 22. heads that do not divide by ``tensor``, experts that do not divide
+     by ``expert``: (a) one launch of 8 ranks over gloo as in 18, the
+     scale-up preset through `train_x.main` with ``--mesh_tensor 8``
+     (12 heads: 2 on ranks 0-5, none on ranks 6-7, the attention
+     resharded between a rank's padded columns and its heads), one
+     warm-up and one timed MCT step: ms a step per rank, the reshard's
+     bytes beside the collectives', peak memory, #1/#2 launches per rank
+     held to the count from the code; at fp32 and depth 2 the MCT step on
+     tensor 8 against one process at rate 0 and at dropout and attention
+     dropout 0.1 (within 1e-5), every rank calling the kernels at
+     head_base 0 (a planted fault) seen; (b) on phase 19's launch, MoE
+     with 6 experts over expert 4 (none on rank 3) against one process.
 Phases 2 and 3 hold and time the flash kernels too, in both designs (bf16
 on the tensor cores, fp32 and a bf16 Dh of 24 on CUDA cores; rates 0 and
 0.1, causal, Sq != Sk, ragged tiles, a row with no valid key, the xMLM
@@ -9157,10 +9170,11 @@ def p19_checks(cfg):
 
 
 def p19_rank(cfg):
-    """A rank of phases 20, 19, 21 and 18(b) (one launch: a launch costs
-    about 20 s beyond its ranks' work on an H100 80GB HBM3 host): phase
-    20's part first, in fresh processes, then phase 19's (a), then
-    (b)-(d), then phase 21's, then 18(b)'s; one JSON per rank."""
+    """A rank of phases 20, 19, 21, 22(b) and 18(b) (one launch: a launch
+    costs about 20 s beyond its ranks' work on an H100 80GB HBM3 host):
+    phase 20's part first, in fresh processes, then phase 19's (a), then
+    (b)-(d), then phase 21's, then 22(b), then 18(b)'s; one JSON per
+    rank."""
     import torch.distributed as dist
 
     from m3p_tpu_torch.parallel.mesh import auto_init_distributed
@@ -9182,21 +9196,29 @@ def p19_rank(cfg):
     p21["b"] = p21_checks(cfg)
     p21["seconds"] = {"a": t3 - t2, "b": time.time() - t3}
     out["p21"] = p21
+    out["p22_moe"] = p22_moe(cfg)
     out["p18_sp"] = p18_sp_part(cfg)
     with open(f"{cfg['out']}.{dist.get_rank()}.json", "w") as f:
         json.dump(out, f)
 
 
+# the heads a tensor rank holds whose offset phase 19 checks on the card:
+# (head_base, heads) of a rank of tensor 2 (heads 6-11), of tensor 5 in
+# the padded layout (ceil(12 / 5) = 3 a rank: rank 3's 9-11) and of tensor
+# 8 (2 a rank: rank 5's 10-11)
+HEAD_OFFSET_CASES = ((6, 6), (9, 3), (10, 2))
+
+
 def check_head_offset():
-    """Module 3 on the card: kernels #1-#6 over heads 6-11 of 12
-    (head_base 6, heads_total 12) at rate 0.1 give bitwise the slice of
-    the call over all 12 heads, forward and backward, bf16 and fp32."""
+    """Module 3 on the card: kernels #1-#6 over the heads of each of
+    `HEAD_OFFSET_CASES` (heads 6-11, 9-11 and 10-11 of 12: ``head_base``
+    and ``heads_total`` 12) at rate 0.1 give bitwise the slice of the call
+    over all 12 heads, forward and backward, bf16 and fp32."""
     import torch
 
     from m3p_tpu_torch.ops import attention as A
 
     b, s, h, dh, rate, seed = 4, 68, 12, 64, 0.1, 20260
-    cols = slice(6 * dh, 12 * dh)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         g = torch.Generator(device="cuda").manual_seed(7)
@@ -9205,50 +9227,55 @@ def check_head_offset():
         mask = torch.arange(s, device="cuda")[None] < torch.tensor(
             [[s], [s - 5], [s], [40]], device="cuda")
         sc = dh ** -0.5
-        part = [t[..., cols] for t in (q, k, v)]
-        half = dict(head_base=6, heads_total=12)
-        gaps = {}
         whole = A._launch_fwd(q, k, v, mask, h, False, sc, rate, seed)
-        mine = A._launch_fwd(*part, mask, 6, False, sc, rate, seed, **half)
-        gaps["packed_fwd"] = (whole[..., cols] - mine).abs().max().item()
         gw = A._launch_bwd(q, k, v, mask, do, h, False, sc, rate, seed)
-        gm = A._launch_bwd(*part, mask, do[..., cols], 6, False, sc, rate,
-                           seed, **half)
-        gaps["packed_bwd"] = max((a[..., cols] - c).abs().max().item()
-                                 for a, c in zip(gw, gm))
         fo, fs = A._launch_flash_fwd(q, k, v, mask, h, False, sc, rate, seed)
-        mo, ms = A._launch_flash_fwd(*part, mask, 6, False, sc, rate, seed,
-                                     **half)
-        gaps["flash_fwd"] = max((fo[..., cols] - mo).abs().max().item(),
-                                (fs[:, 6:] - ms).abs().max().item())
-        gw = A._launch_flash_bwd(q, k, v, mask, fo, fs, do, h, False, sc,
+        fw = A._launch_flash_bwd(q, k, v, mask, fo, fs, do, h, False, sc,
                                  rate, seed)
-        gm = A._launch_flash_bwd(*part, mask, mo, ms, do[..., cols], 6,
-                                 False, sc, rate, seed, **half)
-        gaps["flash_bwd"] = max((a[..., cols] - c).abs().max().item()
-                                for a, c in zip(gw, gm))
         hm = [t.view(b, s, h, dh).transpose(1, 2) for t in (q, k, v, do)]
         so = A._launch_small_fwd(*hm[:3], mask, False, sc, rate, seed)
-        sm = A._launch_small_fwd(*(t[:, 6:] for t in hm[:3]), mask, False,
-                                 sc, rate, seed, **half)
-        gaps["small_fwd"] = (so[:, 6:] - sm).abs().max().item()
-        gw = A._launch_small_bwd(*hm[:3], mask, hm[3], False, sc, rate, seed)
-        gm = A._launch_small_bwd(*(t[:, 6:] for t in hm[:3]), mask,
-                                 hm[3][:, 6:], False, sc, rate, seed, **half)
-        gaps["small_bwd"] = max((a[:, 6:] - c).abs().max().item()
-                                for a, c in zip(gw, gm))
-        # and a slice drawn as a call of its own draws other masks
-        plain = A._launch_fwd(*part, mask, 6, False, sc, rate, seed)
-        gaps["own_call_differs"] = (whole[..., cols] - plain).abs().max(
-            ).item()
-        out[str(dtype).replace("torch.", "")] = gaps
+        sw = A._launch_small_bwd(*hm[:3], mask, hm[3], False, sc, rate, seed)
+        for base, n in HEAD_OFFSET_CASES:
+            cols = slice(base * dh, (base + n) * dh)
+            heads = slice(base, base + n)
+            part = [t[..., cols] for t in (q, k, v)]
+            mine = dict(head_base=base, heads_total=h)
+            gaps = {}
+            got = A._launch_fwd(*part, mask, n, False, sc, rate, seed, **mine)
+            gaps["packed_fwd"] = (whole[..., cols] - got).abs().max().item()
+            gm = A._launch_bwd(*part, mask, do[..., cols], n, False, sc,
+                               rate, seed, **mine)
+            gaps["packed_bwd"] = max((a[..., cols] - c).abs().max().item()
+                                     for a, c in zip(gw, gm))
+            mo, ms = A._launch_flash_fwd(*part, mask, n, False, sc, rate,
+                                         seed, **mine)
+            gaps["flash_fwd"] = max((fo[..., cols] - mo).abs().max().item(),
+                                    (fs[:, heads] - ms).abs().max().item())
+            gm = A._launch_flash_bwd(*part, mask, mo, ms, do[..., cols], n,
+                                     False, sc, rate, seed, **mine)
+            gaps["flash_bwd"] = max((a[..., cols] - c).abs().max().item()
+                                    for a, c in zip(fw, gm))
+            sm = A._launch_small_fwd(*(t[:, heads] for t in hm[:3]), mask,
+                                     False, sc, rate, seed, **mine)
+            gaps["small_fwd"] = (so[:, heads] - sm).abs().max().item()
+            gm = A._launch_small_bwd(*(t[:, heads] for t in hm[:3]), mask,
+                                     hm[3][:, heads], False, sc, rate, seed,
+                                     **mine)
+            gaps["small_bwd"] = max((a[:, heads] - c).abs().max().item()
+                                    for a, c in zip(sw, gm))
+            # and a slice drawn as a call of its own draws other masks
+            plain = A._launch_fwd(*part, mask, n, False, sc, rate, seed)
+            gaps["own_call_differs"] = (whole[..., cols] - plain).abs().max(
+                ).item()
+            name = str(dtype).replace("torch.", "")
+            out[f"{name}_heads_{base}_{base + n - 1}"] = gaps
     torch.cuda.synchronize()
-    for dt, gaps in out.items():
+    for case, gaps in out.items():
         bad = {k: v for k, v in gaps.items()
                if (v != 0.0) != (k == "own_call_differs")}
         if bad:
-            fail(f"phase 19: a call over heads 6-11 of 12 did not draw its "
-                 f"slice of the full call's masks ({dt}): {bad}")
+            fail(f"phase 19: a call over some heads of 12 did not draw its "
+                 f"slice of the full call's masks ({case}): {bad}")
     return out
 
 
@@ -9391,10 +9418,12 @@ def sharding_slice(seed):
            "phase_s": time.time() - t0 - sum(
                zero["p20"]["seconds"].values()) - sum(
                zero["p21"]["seconds"].values()) - sum(
-               zero["p18_sp"]["seconds"].values())}
+               zero["p18_sp"]["seconds"].values())
+               - zero["p22_moe"]["seconds"]}
     log(f"[sharding] phase 19: {json.dumps(out)}")
     shared = {part: [dict(res[part], launch_s=secs) for res in ranks]
               for part in ("p20", "p21")}
+    shared["p22_moe"] = [res["p22_moe"] for res in ranks]
     shared["p18_sp"] = (secs, [res["p18_sp"] for res in ranks], sp_grads)
     return out, shared
 
@@ -10397,6 +10426,319 @@ def sharded_variants_slice(ranks):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: heads that do not divide by tensor, experts that do not divide
+# by expert
+# ---------------------------------------------------------------------------
+
+# (a) one launch of 8 ranks sharing the card over gloo: the scale-up preset
+# at full width and depth (24 x 768, 12 heads, 3072, 250,002 words, 101
+# languages, bf16, remat) through `train_x.main` with --mesh_tensor 8 at
+# phase 19's batch, one warm-up and P22_TIMED timed MCT steps; 12 heads
+# over 8 ranks in the padded layout: ranks 0-5 hold 2 heads, ranks 6-7
+# none.  Then at fp32 and depth 2 the MCT step on tensor 8 against one
+# process, at rate 0 and at dropout and attention dropout 0.1 (the fused
+# residual dropout on), and a planted fault (every rank calling the
+# kernels at head_base 0) that must break the equality.
+P22_RANKS = 8
+P22_TIMED = 1
+P22_LAYERS = 24
+P22_REFINE = 3
+
+
+def p22_argv():
+    """P19_ARGV on tensor 8 alone, at P22_LAYERS blocks."""
+    argv = [("p22" if a == "p19" else a) for a in P19_ARGV]
+    argv[argv.index("--mesh_fsdp") + 1] = "1"
+    argv[argv.index("--mesh_tensor") + 1] = str(P22_RANKS)
+    argv[argv.index("--n_layers") + 1] = str(P22_LAYERS)
+    return argv
+
+
+def p22_heads(rank, n_heads=12, tensor=P22_RANKS):
+    """(heads, head_base) of a tensor rank in the padded layout."""
+    per = -(-n_heads // tensor)
+    base = min(rank * per, n_heads)
+    return min(per, n_heads - base), base
+
+
+def p22_launches(rank, n_layers=P22_LAYERS, remat=True):
+    """#1 / #2 launches an MCT step on ``rank``, counted from the code: a
+    block's attention launches on a rank that holds heads (twice in the
+    forward under remat: the recompute), the AoA refiner's on every rank
+    (it is not split); #2 counts two launches a backward."""
+    blocks = n_layers if p22_heads(rank)[0] else 0
+    return {"packed_fwd": (2 if remat else 1) * blocks + P22_REFINE,
+            "packed_bwd": 2 * (blocks + P22_REFINE)}
+
+
+def p22_preset(cfg):
+    """22(a) on one rank: the preset's MCT steps through train_x.main on
+    tensor 8."""
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.data.loader import LoadedData
+    from m3p_tpu_torch.parallel.mesh import COLLECTIVE_BYTES
+    from m3p_tpu_torch.parallel.tensor_parallel import RESHARD_BYTES
+
+    seed, tmp = cfg["seed"], cfg["tmp"]
+    data = LoadedData(train_datasets={("rel", "coco"): PretrainRows(
+        seed, 250002)}, tokenizer=None)
+    rec = {"losses": [], "batches": [], "ms": [], "steps": []}
+    snaps = []
+
+    def on_step(trainer):
+        snaps.append({"collective": dict(COLLECTIVE_BYTES),
+                      "reshard": dict(RESHARD_BYTES),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if len(snaps) == 1:           # after the warm-up
+            torch.cuda.reset_peak_memory_stats()
+        rec["batches"].clear()
+
+    zero_launch_counts()
+    COLLECTIVE_BYTES.update(all_reduce=0, all_gather=0, reduce_scatter=0)
+    RESHARD_BYTES.update(all_gather=0, reduce_scatter=0)
+    trainer, secs = p18_run_main(p22_argv() + [
+        "--dump_path", os.path.join(tmp, "dump"), "--seed", str(seed)],
+        data, rec, on_step=on_step, save=False)
+    attn = trainer.model.blocks[0].attn
+    timed, warm = snaps[-1], snaps[0]
+    per_step = {f"{k}": (timed["collective"][k] - warm["collective"][k])
+                / P22_TIMED for k in COLLECTIVE_BYTES}
+    per_step.update({f"reshard_{k}": (timed["reshard"][k]
+                                      - warm["reshard"][k]) / P22_TIMED
+                     for k in RESHARD_BYTES})
+    out = {"rank": dist.get_rank(), "seconds": secs,
+           "mesh": {k: v for k, v in trainer.mesh.shape.items() if v > 1},
+           "backend": trainer.mesh.backend,
+           "n_total_iter": trainer.n_total_iter,
+           "losses": [v for _, v in rec["losses"]],
+           "ms": rec["ms"], "steps": rec["steps"],
+           "bytes_per_step": per_step,
+           "peak_memory_gb": timed["peak_gb"],
+           "local_heads": [attn.n_heads, attn.head_base, attn.heads_total],
+           "n_layers": trainer.cfg.model.n_layers,
+           "remat": trainer.cfg.model.remat,
+           "dtype": trainer.cfg.model.dtype}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_process_gap(got, ref):
+    """A sharded step's (loss, whole parameters) against one process's."""
+    gap, name = leaf_gap(got[1], ref[1])
+    return {"loss": got[0], "one_process_loss": ref[0],
+            "loss_gap": abs(got[0] - ref[0]) / abs(ref[0]),
+            "param_gap": gap, "worst_leaf": name}
+
+
+# the rank of 22(a)'s launch that runs each fp32 check's one-process
+# reference (the fault is held against the dropout step's)
+P22_OWNER = {"rate0": 1, "dropout": 2, "head_base_0": 2}
+
+
+def p22_checks(cfg):
+    """22(a)'s fp32 checks on one rank: every rank runs each step on tensor
+    8; the rank that owns a case (`P22_OWNER`) runs its one-process
+    reference and compares."""
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch import bench
+    from m3p_tpu_torch.config import MeshConfig
+    from m3p_tpu_torch.model.layers import Generators, MultiHeadAttention
+    from m3p_tpu_torch.parallel.mesh import make_mesh
+    from m3p_tpu_torch.parallel.sharding import shard_model
+    from m3p_tpu_torch.train.steps import mct_draws
+
+    seed = cfg["seed"] + 5
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = p19_batch(seed, P19_FP32_WORDS)
+    draws = mct_draws(torch.Generator(device="cuda").manual_seed(seed),
+                      {k: torch.as_tensor(v).cuda()
+                       for k, v in batch.items()},
+                      bench.mask_config(p19_model(seed).cfg))
+    mesh = make_mesh(MeshConfig(data=1, tensor=P22_RANKS), dev)
+    rate = dict(dropout=RATE, attention_dropout=RATE, use_fused_dropout=True)
+    cases = (("rate0", {}), ("dropout", rate), ("head_base_0", rate))
+    runs, launches = {}, {}
+    for name, kw in cases:
+        model = p19_model(seed, **kw)
+        shard_model(model, mesh)
+        if name == "head_base_0":
+            for m in model.modules():
+                if isinstance(m, MultiHeadAttention) and m.tp is not None:
+                    m.head_base = 0
+        zero_launch_counts()
+        gens = Generators.from_seed(seed, "cuda") if kw else None
+        loss, params, _ = p19_step(model, mesh, "mct", batch, draws,
+                                   gens=gens)
+        launches[name] = {k: launch_counts()[k]
+                          for k in ("packed_fwd", "packed_bwd")}
+        runs[name] = (loss, params if rank == P22_OWNER[name] else None)
+        del model, params
+        torch.cuda.empty_cache()
+    out = {"launches": launches}
+    refs = {}
+    for name, kw in cases:
+        if rank != P22_OWNER[name]:
+            continue
+        key = "dropout" if kw else "rate0"
+        if key not in refs:
+            gens = Generators.from_seed(seed, "cuda") if kw else None
+            loss, params, _ = p19_step(p19_model(seed, **kw), None, "mct",
+                                       batch, draws, gens=gens)
+            refs[key] = (loss, params)
+        out[name] = one_process_gap(runs[name], refs[key])
+    del runs, refs
+    torch.cuda.empty_cache()
+    return out
+
+
+def p22_rank(cfg):
+    """A rank of 22(a)'s launch: the preset, then the fp32 checks; one
+    JSON per rank."""
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.parallel.mesh import auto_init_distributed
+
+    auto_init_distributed("cuda")
+    t0 = time.time()
+    out = {"a": p22_preset(cfg)}
+    t1 = time.time()
+    out["checks"] = p22_checks(cfg)
+    out["seconds"] = {"a": t1 - t0, "checks": time.time() - t1}
+    with open(f"{cfg['out']}.{dist.get_rank()}.json", "w") as f:
+        json.dump(out, f)
+
+
+# (b) on phase 19's 4 ranks (`p19_rank`): MoE with 6 experts on every
+# second block, over expert 4 (ceil(6 / 4) = 2 experts a rank: 2, 2, 2
+# and none on rank 3), the ITM step at fp32 and depth 2 against one
+# process, which P22_MOE_OWNER runs
+P22_MOE = dict(moe_experts=6, moe_interval=2)
+P22_MOE_OWNER = 3
+
+
+def p22_moe(cfg):
+    """22(b) on one rank of phase 19's launch."""
+    import torch
+    import torch.distributed as dist
+
+    from m3p_tpu_torch.config import MeshConfig
+    from m3p_tpu_torch.model.layers import MoEFFN
+    from m3p_tpu_torch.parallel.mesh import make_mesh
+    from m3p_tpu_torch.parallel.sharding import shard_model
+
+    t0 = time.time()
+    seed = cfg["seed"] + 6
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = p19_batch(seed, P19_FP32_WORDS)
+    mesh = make_mesh(MeshConfig(data=1, expert=4), dev)
+    model = p19_model(seed, **P22_MOE)
+    shard_model(model, mesh)
+    experts = [[m.expert_lo, m.n_local] for m in model.modules()
+               if isinstance(m, MoEFFN)]
+    got = p19_step(model, mesh, "itm", batch)[:2]
+    del model
+    out = {"experts": experts}
+    if dist.get_rank() == P22_MOE_OWNER:
+        ref = p19_step(p19_model(seed, **P22_MOE), None, "itm", batch)[:2]
+        out["check"] = one_process_gap(got, ref)
+        del ref
+    del got
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def uneven_slice(seed, moe_ranks):
+    """Phase 22: (a) on 8 ranks (`p22_rank`), and (b)'s results from phase
+    19's launch (``moe_ranks``: each rank's `p22_moe`)."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        secs, ranks = p18_launch("p22", P22_RANKS, {"seed": seed,
+                                                    "tmp": tmp})
+    sublap("p22_ranks")
+    problems = []
+    want_fp32 = {r: p22_launches(r, n_layers=2, remat=False)
+                 for r in range(P22_RANKS)}
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        heads, base = p22_heads(r)
+        if a["local_heads"] != [heads, base, 12]:
+            problems.append(f"rank {r} heads {a['local_heads']}")
+        if a["n_total_iter"] != 1 + P22_TIMED:
+            problems.append(f"rank {r} took {a['n_total_iter']} steps")
+        want = p22_launches(r)
+        for kind, counts in a["steps"]:
+            if {k: counts[k] for k in want} != want:
+                problems.append(f"rank {r} {kind} launches {counts}, not "
+                                f"{want}")
+        if not all(map(math.isfinite, a["losses"])):
+            problems.append(f"rank {r} losses {a['losses']}")
+        for case, counts in res["checks"]["launches"].items():
+            if counts != want_fp32[r]:
+                problems.append(f"rank {r} fp32 {case} launches {counts}, "
+                                f"not {want_fp32[r]}")
+    checks = {name: ranks[owner]["checks"][name]
+              for name, owner in P22_OWNER.items()}
+    for name in ("rate0", "dropout"):
+        c = checks[name]
+        if not (c["loss_gap"] <= TOL_P19_FP32
+                and c["param_gap"] <= TOL_P19_FP32):
+            problems.append(f"tensor 8 {name} is not the one-process step: "
+                            f"{c}")
+    fault = checks["head_base_0"]
+    if max(fault["loss_gap"], fault["param_gap"]) <= TOL_P19_FP32:
+        problems.append(f"the planted fault was not seen: {fault}")
+    moe = moe_ranks[P22_MOE_OWNER]["check"]
+    if not (moe["loss_gap"] <= TOL_P19_FP32
+            and moe["param_gap"] <= TOL_P19_FP32):
+        problems.append(f"6 experts over expert 4 are not the one-process "
+                        f"step: {moe}")
+    experts = [r["experts"] for r in moe_ranks]
+    if [e[0] for e in experts] != [[0, 2], [2, 2], [4, 2], [6, 0]]:
+        problems.append(f"experts by rank {experts}")
+    if problems:
+        fail("phase 22: " + "; ".join(problems))
+    zero = ranks[0]["a"]
+    out = {"launch_s": secs, "ranks": P22_RANKS, "mesh": zero["mesh"],
+           "backend": zero["backend"],
+           "rank_s": {r: res["seconds"] for r, res in enumerate(ranks)},
+           "preset": {"n_layers": zero["n_layers"], "remat": zero["remat"],
+                      "dtype": zero["dtype"],
+                      "batch": [P19_B, P19_SAMPLE_N, P19_TEXT,
+                                P19_REGIONS]},
+           "local_heads_per_rank": {r: res["a"]["local_heads"]
+                                    for r, res in enumerate(ranks)},
+           "ms_per_step_per_rank": {r: res["a"]["ms"][1:]
+                                    for r, res in enumerate(ranks)},
+           "warmup_ms_per_rank": {r: res["a"]["ms"][0]
+                                  for r, res in enumerate(ranks)},
+           "losses_rank0": zero["losses"],
+           "bytes_per_step_per_rank": {r: res["a"]["bytes_per_step"]
+                                       for r, res in enumerate(ranks)},
+           "peak_memory_gb_per_rank": {r: res["a"]["peak_memory_gb"]
+                                       for r, res in enumerate(ranks)},
+           "launches_per_step_per_rank": {r: p22_launches(r)
+                                          for r in range(P22_RANKS)},
+           "launches_per_rank": {r: {k: sum(c[k] for _, c in res["a"][
+               "steps"]) for k in ("packed_fwd", "packed_bwd")}
+               for r, res in enumerate(ranks)},
+           "fp32": checks,
+           "fp32_launches_per_rank": {r: res["checks"]["launches"]
+                                      for r, res in enumerate(ranks)},
+           "moe_expert4": {"check": moe, "experts_by_rank": experts,
+                           "rank_s": [r["seconds"] for r in moe_ranks]},
+           "phase_s": time.time() - t0}
+    log(f"[uneven] phase 22: {json.dumps(out)}")
+    return out
+
+
 def p18_rank(path):
     """A rank of phase 18, or 19 and 20, under torchrun (``--p18
     <config>``)."""
@@ -10411,6 +10753,8 @@ def p18_rank(path):
     if cfg["part"] == "dp":
         auto_init_distributed("cuda")
         p18_dp_rank(cfg)
+    elif cfg["part"] == "p22":
+        p22_rank(cfg)
     else:
         p19_rank(cfg)
     return 0
@@ -10650,6 +10994,10 @@ def main() -> int:
     lap("p21_sharded_variants")
     parallel["sp"] = sp_slice(args.seed, *shared_ranks["p18_sp"])
     lap("p18b_sequence_parallel")
+    uneven = uneven_slice(args.seed, shared_ranks["p22_moe"])
+    lap("p22_uneven")
+    p22_packed = {k: sum(c[k] for c in uneven["launches_per_rank"].values())
+                  for k in ("packed_fwd", "packed_bwd")}
     sp_flash = parallel["sp"]["one_process_launches"]
     p21_packed = {k: sum(c[k] for c in variants21[
         "launches_per_rank"].values()) for k in ("packed_fwd", "packed_bwd")}
@@ -10670,7 +11018,8 @@ def main() -> int:
                      + sum(r["packed_fwd"] for r in ev_runs.values())
                      + sum(quant_packed.values()) + sum(p17_fwd.values())
                      + p18_packed["packed_fwd"] + p19_packed["packed_fwd"]
-                     + p20_packed["packed_fwd"] + p21_packed["packed_fwd"]),
+                     + p20_packed["packed_fwd"] + p21_packed["packed_fwd"]
+                     + p22_packed["packed_fwd"]),
         "launches_by_path": {"serving": numbers["launches"],
                              "training": training["launches"]["fwd"],
                              "mct_A": mct_a["packed_fwd"],
@@ -10688,7 +11037,8 @@ def main() -> int:
                              "sharded_ranks": p19_packed["packed_fwd"],
                              "pipeline_ranks": p20_packed["packed_fwd"],
                              "sharded_int8_ranks":
-                                 p21_packed["packed_fwd"]},
+                                 p21_packed["packed_fwd"],
+                             "uneven_ranks": p22_packed["packed_fwd"]},
         "launches_per_forward": numbers["launches_per_forward"],
         "launches_by_design": {
             "serving": numbers["launches_by_design"],
@@ -10734,7 +11084,8 @@ def main() -> int:
                            for p in ("trainer",) + data_runs)
                      + sum(r["packed_bwd"] for r in p17_runs.values())
                      + p18_packed["packed_bwd"] + p19_packed["packed_bwd"]
-                     + p20_packed["packed_bwd"] + p21_packed["packed_bwd"]),
+                     + p20_packed["packed_bwd"] + p21_packed["packed_bwd"]
+                     + p22_packed["packed_bwd"]),
         "launches_by_path": {"training": training["launches"]["bwd"],
                              "mct_A": mct_a["packed_bwd"],
                              "mct_B": mct_b["packed_bwd"],
@@ -10751,7 +11102,8 @@ def main() -> int:
                              "sharded_ranks": p19_packed["packed_bwd"],
                              "pipeline_ranks": p20_packed["packed_bwd"],
                              "sharded_int8_ranks":
-                                 p21_packed["packed_bwd"]},
+                                 p21_packed["packed_bwd"],
+                             "uneven_ranks": p22_packed["packed_bwd"]},
         "launches_per_step": training["launches_per_step"]["bwd"],
         "launches_by_design": {
             "training": training["bwd_launches_by_design"],
@@ -11004,6 +11356,7 @@ def main() -> int:
     log(f"[quant] {json.dumps(quant)} on {card}")
     log(f"[int8 train and variants] {json.dumps(variants)} on {card}")
     log(f"[parallel] {json.dumps(parallel)} on {card}")
+    log(f"[uneven] {json.dumps(uneven)} on {card}")
     log(f"[clock] {json.dumps(CLOCK['laps'])}; in {CLOCK['profiles']} "
         f"profiler windows {CLOCK['profile_s']:.1f} s")
     log(f"[done] {time.time() - t_start:.1f} s")

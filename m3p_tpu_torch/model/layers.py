@@ -55,7 +55,8 @@ from m3p_tpu_torch.ops.topk import top_k
 from m3p_tpu_torch.parallel.data_parallel import batch_mesh
 from m3p_tpu_torch.parallel.mesh import Mesh, bound_seq_axis
 from m3p_tpu_torch.parallel.tensor_parallel import (
-    copy_to, gather_rows, materialize, reduce_from, shard_of)
+    HeadLayout, columns_to_heads, copy_to, gather_rows, head_layout,
+    heads_to_columns, materialize, reduce_from, shard_of, shard_width)
 
 LN_EPS = 1e-12
 
@@ -308,10 +309,17 @@ class MultiHeadAttention(nn.Module):
     says (divergence 11 of ROADMAP.md).
 
     Tensor parallelism (`tensor_parallel`): this rank holds heads
-    ``head_base`` .. ``head_base + n_heads - 1`` of ``heads_total``, the
-    Q/K/V projections column-parallel (their output columns are those
-    heads) and the output projection row-parallel; the attention kernels
-    draw each head's dropout mask by its index among all the heads."""
+    ``head_base`` .. ``head_base + n_heads - 1`` of ``heads_total`` in the
+    padded layout (`parallel.tensor_parallel.head_layout`: ceil(H / t) a
+    rank, the last ranks maybe none), the Q/K/V projections column-parallel
+    and the output projection row-parallel, each over its padded columns
+    as GSPMD holds them; the attention kernels draw each head's dropout
+    mask by its index among all the heads.  Where ``tensor`` divides the
+    heads a rank's columns are its heads.  Elsewhere (``layout`` set) every
+    branch reshards around the kernels: the projections' columns to this
+    rank's heads (`columns_to_heads`) and the context back to columns
+    (`heads_to_columns`); a rank without heads launches no kernel, and its
+    decode caches hold no head."""
 
     def __init__(self, n_heads: int, dim: int,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
@@ -320,7 +328,9 @@ class MultiHeadAttention(nn.Module):
         self.n_heads = n_heads
         self.head_base = 0
         self.heads_total = n_heads
+        self.head_dim = dim // n_heads
         self.tp: Optional[Mesh] = None
+        self.layout: Optional[HeadLayout] = None
         self.dropout = dropout
         self.quant = quant
         self.q_lin = Dense(dim, dim, dtype)
@@ -332,14 +342,11 @@ class MultiHeadAttention(nn.Module):
 
     def tensor_parallel(self, mesh: Mesh) -> None:
         """Compute this rank's heads of ``mesh``'s ``tensor`` axis (the
-        parameters already hold their slices, `parallel.sharding`)."""
-        n = mesh.shape["tensor"]
-        if self.n_heads % n:
-            raise ValueError(f"{self.n_heads} heads do not split over "
-                             f"tensor={n}")
-        self.heads_total = self.n_heads
-        self.n_heads //= n
-        self.head_base = mesh.index("tensor") * self.n_heads
+        parameters already hold their slices, `parallel.sharding`), resharded
+        around the kernels where ``tensor`` does not divide the heads."""
+        layout = head_layout(mesh, self.heads_total, self.head_dim)
+        self.n_heads, self.head_base = layout.n, layout.base
+        self.layout = layout if layout.resharded else None
         self.tp = mesh
         for lin in (self.q_lin, self.k_lin, self.v_lin, self.out_lin):
             lin.keep = ("tensor",)
@@ -379,11 +386,15 @@ class MultiHeadAttention(nn.Module):
                 GATE_COUNTS["plain"] += 1
             src = x if kv is None else kv
             q, k, v = self.q_lin(x), self.k_lin(src), self.v_lin(src)
-        ctx = attention(q, k, v, kv_mask, self.n_heads, causal=causal,
-                        dropout_rate=rate, dropout_seed=seed,
-                        head_base=self.head_base,
-                        heads_total=self.heads_total)
-        return self._project_out(ctx)
+        q, k, v = self._to_heads(q, k, v)
+        if self.n_heads == 0:
+            ctx = q                   # no head on this rank: (B, Sq, 0)
+        else:
+            ctx = attention(q, k, v, kv_mask, self.n_heads, causal=causal,
+                            dropout_rate=rate, dropout_seed=seed,
+                            head_base=self.head_base,
+                            heads_total=self.heads_total)
+        return self._project_out(self._to_columns(ctx))
 
     def _ring(self, x: torch.Tensor, kv_mask: Optional[torch.Tensor],
               causal: bool, mesh, axis: str) -> torch.Tensor:
@@ -393,9 +404,14 @@ class MultiHeadAttention(nn.Module):
             q, k, v = self._fused_int8_qkv(x)
         else:
             q, k, v = self.q_lin(x), self.k_lin(x), self.v_lin(x)
+        q, k, v = self._to_heads(q, k, v)
+        if self.n_heads == 0:
+            # no head on this rank, nor on the ring's other ranks (they
+            # share its tensor coordinate)
+            return self._project_out(self._to_columns(q))
         ctx = ring_attention(self._split(q), self._split(k), self._split(v),
                              kv_mask, mesh, axis, causal=causal)
-        return self._project_out(self._merge(ctx))
+        return self._project_out(self._to_columns(self._merge(ctx)))
 
     def _fused_int8_qkv(self, x: torch.Tensor):
         """Q, K and V of self-attention as one int8 GEMM against the (D, 3D)
@@ -413,6 +429,21 @@ class MultiHeadAttention(nn.Module):
         out = int8_matmul_qbwd(x.reshape(-1, d).to(dt), kernel, None, n_over)
         return (out.reshape(b, s, -1) + bias).chunk(3, dim=-1)
 
+    def _to_heads(self, *xs: torch.Tensor) -> tuple:
+        """The Q/K/V projections' columns as this rank's heads: as they are
+        unless the heads are resharded (`columns_to_heads`, one all-gather
+        for all of ``xs``)."""
+        if self.layout is None:
+            return xs
+        return columns_to_heads(self.layout, *xs)
+
+    def _to_columns(self, ctx: torch.Tensor) -> torch.Tensor:
+        """The context of this rank's heads (B, S, n_heads * Dh) as the
+        output projection's columns (`heads_to_columns` where resharded)."""
+        if self.layout is None:
+            return ctx
+        return heads_to_columns(self.layout, ctx)
+
     def _project_out(self, ctx: torch.Tensor) -> torch.Tensor:
         """The output projection; int8 over ``q8_out`` at up to
         `PREQUANT_MAX_M` rows."""
@@ -429,9 +460,10 @@ class MultiHeadAttention(nn.Module):
                               row_parallel=self.out_lin.row_parallel)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, S, H*Dh) -> (B, H, S, Dh), a view."""
-        b, s, hd = x.shape
-        return x.view(b, s, self.n_heads, hd // self.n_heads).transpose(1, 2)
+        """(B, S, H*Dh) -> (B, H, S, Dh), a view (H = 0 on a rank without
+        heads)."""
+        b, s, _ = x.shape
+        return x.view(b, s, self.n_heads, self.head_dim).transpose(1, 2)
 
     @staticmethod
     def _merge(x: torch.Tensor) -> torch.Tensor:
@@ -443,26 +475,31 @@ class MultiHeadAttention(nn.Module):
         """The keys and values of ``src`` (B, Ss, D), head-major: a
         cross-attention cache (`m3p_tpu/model/transformer.py:405-410`)."""
         src = copy_to(src, self.tp, "tensor")
-        return KVCache(self._split(self.k_lin(src)),
-                       self._split(self.v_lin(src)))
+        k, v = self._to_heads(self.k_lin(src), self.v_lin(src))
+        return KVCache(self._split(k), self._split(v))
 
     def _cached(self, x, kv_mask, cross, cache, pos):
-        q = self._split(self.q_lin(x))
-        b, _, sq, _ = q.shape
         if cross:
+            (q,) = self._to_heads(self.q_lin(x))
+            q = self._split(q)
             k, v = cache.k, cache.v
         else:
-            s_max = cache.k.shape[2]
+            q, k, v = (self._split(t) for t in self._to_heads(
+                self.q_lin(x), self.k_lin(x), self.v_lin(x)))
+            s_max, sq = cache.k.shape[2], q.shape[2]
             if pos + sq > s_max:
                 raise ValueError(f"decode position {pos} + {sq} passes the "
                                  f"cache's {s_max} positions")
-            cache.k[:, :, pos:pos + sq] = self._split(self.k_lin(x))
-            cache.v[:, :, pos:pos + sq] = self._split(self.v_lin(x))
+            cache.k[:, :, pos:pos + sq] = k
+            cache.v[:, :, pos:pos + sq] = v
             k, v = cache.k, cache.v
             # the filled part of the cache; the query pad mask does not
             # apply to keys, and the cache mask already ends at the step
             kv_mask = (torch.arange(s_max, device=x.device)
-                       < pos + sq).expand(b, s_max)
+                       < pos + sq).expand(q.shape[0], s_max)
+        if self.n_heads == 0:         # no head on this rank: (B, Sq, 0)
+            return self._project_out(self._to_columns(self._merge(q)))
+        b, _, sq, _ = q.shape
         fold = b // k.shape[0]
         if fold * k.shape[0] != b:
             raise ValueError(f"{b} query rows over {k.shape[0]} cached rows")
@@ -477,7 +514,7 @@ class MultiHeadAttention(nn.Module):
             bkv, h, _, dh = ctx.shape
             ctx = (ctx.reshape(bkv, h, fold, sq, dh).transpose(1, 2)
                    .reshape(b, h, sq, dh))
-        return self._project_out(self._merge(ctx))
+        return self._project_out(self._to_columns(self._merge(ctx)))
 
 
 class TransformerFFN(nn.Module):
@@ -551,7 +588,10 @@ class MoEFFN(nn.Module):
     the combined output.  Under `parallel` each rank of the ``expert`` axis
     runs its own experts (the router is whole on every rank) and the
     combine sums over the axis; ``mlp`` inside the experts is split over
-    ``tensor`` (``w1`` column-, ``w2`` row-parallel)."""
+    ``tensor`` (``w1`` column-, ``w2`` row-parallel).  Experts that do not
+    divide by ``expert`` are held padded, as GSPMD holds them: a rank holds
+    ceil(E / n) experts' slices, of which ``n_local`` are real (the last
+    ranks may hold none and then add zeros)."""
 
     def __init__(self, dim: int, hidden_dim: int, n_experts: int,
                  capacity_factor: float = 2.0, gelu_activation: bool = True,
@@ -574,13 +614,11 @@ class MoEFFN(nn.Module):
     def parallel(self, mesh: Mesh) -> None:
         """Run this rank's experts of ``mesh``'s ``expert`` axis, their
         hidden columns split over ``tensor`` (the parameters already hold
-        their slices, `parallel.sharding`)."""
-        n = mesh.shape["expert"]
-        if self.n_experts % n:
-            raise ValueError(f"{self.n_experts} experts do not split over "
-                             f"expert={n}")
-        self.n_local = self.n_experts // n
-        self.expert_lo = mesh.index("expert") * self.n_local
+        their slices, `parallel.sharding`, padded where the experts do not
+        divide)."""
+        per = shard_width(self.n_experts, mesh.shape["expert"])
+        self.expert_lo = min(mesh.index("expert") * per, self.n_experts)
+        self.n_local = min(per, self.n_experts - self.expert_lo)
         self.mesh = mesh
 
     def capacity(self, tokens: int) -> int:
@@ -605,10 +643,13 @@ class MoEFFN(nn.Module):
         router = materialize(self.router, torch.float32, sum_over=("expert",))
         affinity = torch.softmax(xt.float() @ router, dim=-1)
         gates, idx = top_k(affinity.t(), self.capacity(xt.shape[0]))  # (E, C)
+        # this rank's real experts: none on a rank that holds padding alone,
+        # which then adds zeros through the same (empty) graph, so its
+        # backward takes part in the router's and the weights' reductions
         mine = slice(self.expert_lo, self.expert_lo + self.n_local)
         gates, idx = gates[mine], idx[mine]
         keep = ("expert", "tensor")
-        w1, b1, w2, b2 = (materialize(p, dt, keep) for p in (
+        w1, b1, w2, b2 = (materialize(p, dt, keep)[:self.n_local] for p in (
             self.w1, self.b1, self.w2, self.b2))
         xe = copy_to(xt[idx].to(dt), mesh, "tensor")           # (E, C, D)
         h = torch.bmm(xe, w1) + b1[:, None]

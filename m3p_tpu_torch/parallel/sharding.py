@@ -177,14 +177,14 @@ def check_mesh_supported(shape: Dict[str, int]) -> None:
 
 
 def check_model_supported(cfg, shape: Dict[str, int]) -> None:
-    """Raise NotImplementedError for what the port does not split, each
-    with its reason: under ``pp`` above 1 the blocks the pipeline's stage
-    does not run, MoE and the int8 FFN (the JAX stage builds its block
-    with neither, `m3p_tpu/parallel/pipeline.py:174-179`); and heads that
-    do not divide by ``tensor`` or experts that do not divide by
-    ``expert`` (ROADMAP.md item 16e: JAX reshards them through GSPMD; the
-    port splits whole heads and whole experts).  Every other dimension
-    that does not divide is held padded."""
+    """Raise NotImplementedError for the blocks the pipeline's stage does
+    not run under ``pp`` above 1, MoE and the int8 FFN, as the JAX stage
+    builds its block with neither (`m3p_tpu/parallel/pipeline.py:174-179`).
+    Those are the JAX stage's limits and the only ones: every dimension
+    that does not divide by its axis is held padded, as GSPMD holds it,
+    heads over ``tensor`` (resharded around the attention kernels,
+    `model.layers.MultiHeadAttention`) and experts over ``expert``
+    (`model.layers.MoEFFN`) too."""
     if shape.get("pp", 1) > 1:
         if cfg.moe_experts > 0:
             raise NotImplementedError("MoE blocks under pp > 1: the "
@@ -194,15 +194,6 @@ def check_model_supported(cfg, shape: Dict[str, int]) -> None:
             raise NotImplementedError(
                 f"ffn_quant={cfg.ffn_quant!r} under pp > 1: the pipeline's "
                 "stage runs the float FFN, as the JAX stage does")
-    tensor, expert = shape.get("tensor", 1), shape.get("expert", 1)
-    if cfg.n_heads % tensor:
-        raise NotImplementedError(
-            f"{cfg.n_heads} heads over tensor={tensor}: the port splits "
-            "whole heads (ROADMAP.md item 16e)")
-    if cfg.moe_experts > 0 and cfg.moe_experts % expert:
-        raise NotImplementedError(
-            f"{cfg.moe_experts} experts over expert={expert}: the port "
-            "splits whole experts (ROADMAP.md item 16e)")
 
 
 def is_sharded(shape: Dict[str, int]) -> bool:

@@ -22,6 +22,11 @@ collectives of `parallel.mesh`:
   column- and a row-parallel product.
 * `gather_rows` -- rows of every rank of a line, concatenated (MoE's global
   tokens); the backward is this rank's rows of the gradient.
+* `columns_to_heads` / `heads_to_columns` -- the reshard of attention
+  whose heads do not divide by ``tensor`` (`HeadLayout`): the Q/K/V
+  projections give a rank its padded columns, the kernels take whole
+  heads, and the output projection takes the columns again.  Each is the
+  other's backward.
 * `vocab_parallel_ce` / `vocab_parallel_argmax` -- the cross-entropy and
   the argmax over logits whose vocabulary is split over ``tensor``: a
   distributed logsumexp and the target's logit from the rank that owns
@@ -41,6 +46,16 @@ that computes on a kept shard sees its padding: the vocabulary's (a
 them before any logsumexp, argmax or top-k), or the FFN's hidden columns,
 whose zero weights and biases give zero activations (GELU and ReLU of 0
 are 0) and add nothing to the row-parallel sum.
+
+Heads follow the same layout, a head being the unit: of H heads over t
+ranks, rank r holds the heads from r * ceil(H / t) up to min(H, (r + 1) *
+ceil(H / t)), so the last ranks may hold none (12 heads over tensor 8: 2,
+2, 2, 2, 2, 2, 0, 0).  Where t divides H a rank's columns are its heads
+and nothing is resharded; elsewhere a rank's columns and its heads
+differ, and `columns_to_heads` all-gathers the columns of every rank and
+keeps this rank's heads, `heads_to_columns` places this rank's heads into
+zeros of the whole width and reduce-scatters them (each column has one
+non-zero part, so the sum is exact).
 """
 
 from __future__ import annotations
@@ -246,6 +261,133 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
     if mesh.group(axes) is None:
         return x
     return _GatherRows.apply(x, mesh, axes, dim)
+
+
+# ---------------------------------------------------------------------------
+# heads over ``tensor``
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class HeadLayout:
+    """This rank's heads ``base`` .. ``base + n - 1`` of ``total`` heads of
+    ``head_dim`` split over ``mesh``'s ``tensor`` axis (module docstring),
+    and the ``width`` of the padded column shard each rank's projections
+    give it."""
+
+    mesh: Mesh
+    total: int
+    head_dim: int
+    base: int
+    n: int
+    width: int
+
+    @property
+    def resharded(self) -> bool:
+        """Whether a rank's columns differ from its heads (``tensor`` does
+        not divide the heads)."""
+        return self.total % self.mesh.shape["tensor"] != 0
+
+    @property
+    def columns(self) -> slice:
+        """This rank's heads' columns in the whole (..., H * head_dim)."""
+        return slice(self.base * self.head_dim,
+                     (self.base + self.n) * self.head_dim)
+
+
+# the bytes the heads reshard handled on this rank (its share of
+# `parallel.mesh.COLLECTIVE_BYTES`): the whole (rows, t * width) each
+# all-gather assembles and each reduce-scatter sums
+RESHARD_BYTES = {"all_gather": 0, "reduce_scatter": 0}
+
+
+def head_layout(mesh: Mesh, total: int, head_dim: int) -> HeadLayout:
+    """This rank's heads of ``total`` heads over ``mesh``'s ``tensor``."""
+    k = mesh.shape["tensor"]
+    per = shard_width(total, k)
+    base = min(mesh.index("tensor") * per, total)
+    return HeadLayout(mesh, total, head_dim, base, min(per, total - base),
+                      shard_width(total * head_dim, k))
+
+
+def _rows(xs, width: int) -> torch.Tensor:
+    """The tensors ``xs`` (..., width) as one (rows, width) block (a width
+    of 0 too: a rank without heads)."""
+    return torch.cat([x.reshape(x.shape[:-1].numel(), width) for x in xs])
+
+
+def _unrows(block: torch.Tensor, shapes) -> tuple:
+    """`_rows` undone: ``block``'s rows split back to ``shapes``' leading
+    dimensions, each with ``block``'s last dimension."""
+    sizes = [s[:-1].numel() for s in shapes]
+    return tuple(part.reshape(*s[:-1], block.shape[-1])
+                 for part, s in zip(block.split(sizes), shapes))
+
+
+def _gather_heads(block: torch.Tensor, layout: HeadLayout) -> torch.Tensor:
+    """(R, width) of this rank's columns -> (R, n * head_dim) of its heads:
+    every rank's columns gathered, this rank's heads kept."""
+    parts = M.all_gather_stack(block.contiguous(), layout.mesh, "tensor")
+    RESHARD_BYTES["all_gather"] += parts.numel() * parts.element_size()
+    whole = parts.transpose(0, 1).reshape(block.shape[0], -1)
+    return whole[:, layout.columns]
+
+
+def _scatter_heads(block: torch.Tensor, layout: HeadLayout) -> torch.Tensor:
+    """(R, n * head_dim) of this rank's heads -> (R, width) of its columns:
+    the heads placed into zeros of every rank's columns and reduce-scattered
+    (one non-zero part a column: exact)."""
+    k = layout.mesh.shape["tensor"]
+    whole = block.new_zeros(block.shape[0], k * layout.width)
+    whole[:, layout.columns] = block
+    parts = whole.view(block.shape[0], k, layout.width).transpose(0, 1)
+    RESHARD_BYTES["reduce_scatter"] += whole.numel() * whole.element_size()
+    return M.reduce_scatter_sum(parts, layout.mesh, "tensor")
+
+
+class _ColumnsToHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, layout, *xs):
+        ctx.layout, ctx.shapes = layout, [x.shape for x in xs]
+        heads = _gather_heads(_rows(xs, layout.width), layout)
+        return _unrows(heads, ctx.shapes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        layout = ctx.layout
+        block = _rows(grads, layout.n * layout.head_dim)
+        return (None,) + _unrows(_scatter_heads(block, layout), ctx.shapes)
+
+
+class _HeadsToColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, layout, x):
+        ctx.layout, ctx.shape = layout, x.shape
+        block = _rows([x], layout.n * layout.head_dim)
+        return _scatter_heads(block, layout).reshape(*x.shape[:-1],
+                                                     layout.width)
+
+    @staticmethod
+    def backward(ctx, grad):
+        layout = ctx.layout
+        block = _gather_heads(grad.reshape(-1, layout.width), layout)
+        return None, block.reshape(ctx.shape)
+
+
+def columns_to_heads(layout: HeadLayout, *xs: torch.Tensor) -> tuple:
+    """Each of ``xs`` (..., width), this rank's padded columns of the Q, K
+    or V projection, as (..., n * head_dim), this rank's heads: one
+    all-gather over ``tensor`` for all of them.  The backward is
+    `heads_to_columns`'s forward."""
+    return _ColumnsToHeads.apply(layout, *xs)
+
+
+def heads_to_columns(layout: HeadLayout, x: torch.Tensor) -> torch.Tensor:
+    """The attention output of this rank's heads (..., n * head_dim) as its
+    padded columns (..., width), the output projection's input: one
+    reduce-scatter over ``tensor``.  The backward is `columns_to_heads`'s
+    forward."""
+    return _HeadsToColumns.apply(layout, x)
 
 
 # ---------------------------------------------------------------------------

@@ -421,7 +421,11 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
     deterministic.  ``fault`` plants one: "row_no_reduce" skips the
     row-parallel all-reduce, "local_ce" takes the vocabulary CE rank-local,
     "inf_grad" puts an inf into rank 0's shard of
-    ``block_0.attn.q_lin.weight``'s gradient after the reduction.
+    ``block_0.attn.q_lin.weight``'s gradient after the reduction,
+    "head_base_0" has every rank call the attention kernels as if its
+    heads were the first ones, "heads_to_columns_local" and
+    "columns_to_heads_local" take the heads reshard's backward from this
+    rank's own part alone (no all-gather, no reduce-scatter).
     ``guard``: the optimizer's non-finite guard.  Returns the loss,
     the grad norm and its dtype, the whole updated parameters and first
     moment (gathered), or this rank's shards when not ``whole``, and
@@ -445,6 +449,10 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
     mesh = _mesh(**mesh_axes)
     if is_sharded(mesh.shape):
         shard_model(model, mesh)
+    if fault == "head_base_0":
+        for m in model.modules():
+            if hasattr(m, "head_base"):
+                m.head_base = 0
     sh = batch_sharding(mesh)
     local = shard_batch({k: torch.tensor(v) for k, v in batch.items()}, sh)
     local_draws = _shard_draws(draws or {}, sh)
@@ -487,6 +495,8 @@ def sharded_step(cfg_dict, state, kind, batch, mesh_axes, spec="sgd,lr=1.0",
                 "m3p_tpu_torch.model.layers", "reduce_from",
                 lambda x, m, a: x if a == "tensor" else TP.reduce_from(
                     x, m, a)))
+        elif fault in ("heads_to_columns_local", "columns_to_heads_local"):
+            stack.enter_context(_local_reshard_backward(TP, fault))
         elif fault == "local_ce":
             stack.enter_context(_patched(
                 S, "vocab_parallel_ce",
@@ -616,24 +626,26 @@ def int8_ops(case, x, w, g, fault=False) -> Dict[str, np.ndarray]:
             "dw": w.grad.numpy()}
 
 
-def int8_modules(cfg_dict, state, case, x, g=None, faults=(None,)
-                 ) -> List[Dict[str, Any]]:
-    """This rank's part of one int8 module of a model sharded over data 2 x
-    tensor 2, as the model wires it, forward and backward on this rank's
-    part of the whole input x (M, K) and upstream gradient g (fp32 numpy;
-    the rows split over ``data``): ``case`` "lin1" / "lin2" (the first
-    block's FFN GEMMs, column- / row-parallel `QuantDense`s in the model's
-    ``ffn_quant``), "qkv" (its fused int8 Q/K/V, ``int8_all``; g (M, 3D)
-    of q, k and v), "head" (the word head under ``head_quant="int8_bwd"``
-    over the vocabulary shards, tied to a table of x's width), "q8_lin2"
-    (lin2's frozen-weight int8 table of the model's `capture_q8` copy, row-
-    parallel; forward only).  Run once for each of ``faults``: None, or a
-    planted one, "amax_local" (the amaxes that ``tensor`` splits taken
-    rank-local) or "rows_local" (the wgrads' amaxes over this rank's rows
-    alone).  Returns for each run this rank's output ``y``, input gradient
-    ``dx`` and weight gradient ``dw`` (the module's own layout: the Dense's
-    (N, K) weights, the fused Q/K/V's three concatenated, the head's
-    table) and its mesh coordinates."""
+def int8_modules(cfg_dict, state, case, x, g=None, faults=(None,),
+                 mesh_axes=None) -> List[Dict[str, Any]]:
+    """This rank's part of one int8 module of a model sharded over
+    ``mesh_axes`` (data 2 x tensor 2 by default), as the model wires it,
+    forward and backward on this rank's part of the whole input x (M, K)
+    and upstream gradient g (fp32 numpy; the rows split over ``data``, the
+    columns over ``tensor`` in the padded layout): ``case`` "lin1" / "lin2"
+    (the first block's FFN GEMMs, column- / row-parallel `QuantDense`s in
+    the model's ``ffn_quant``), "qkv" (its fused int8 Q/K/V, ``int8_all``;
+    g (M, 3D) of q, k and v), "head" (the word head under
+    ``head_quant="int8_bwd"`` over the vocabulary shards, tied to a table
+    of x's width), "q8_lin2" (lin2's frozen-weight int8 table of the
+    model's `capture_q8` copy, row- parallel; forward only), "q8_qkv" (the
+    fused Q/K/V table of that copy, column-parallel; forward only).  Run
+    once for each of ``faults``: None, or a planted one, "amax_local" (the
+    amaxes that ``tensor`` splits taken rank-local) or "rows_local" (the
+    wgrads' amaxes over this rank's rows alone).  Returns for each run this
+    rank's output ``y``, input gradient ``dx`` and weight gradient ``dw``
+    (the module's own layout: the Dense's (N, K) weights, the fused Q/K/V's
+    three concatenated, the head's table) and its mesh coordinates."""
     import contextlib
 
     from m3p_tpu_torch.model import capture_q8, quantized_inference_model
@@ -641,26 +653,36 @@ def int8_modules(cfg_dict, state, case, x, g=None, faults=(None,)
     from m3p_tpu_torch.parallel.data_parallel import batch_reduction
     from m3p_tpu_torch.parallel.sharding import shard_model
 
-    mesh = _mesh(data=2, tensor=2)
+    mesh = _mesh(**(mesh_axes or {"data": 2, "tensor": 2}))
     model = _model(cfg_dict, state)
     shard_model(model, mesh)
     block = model.blocks[0]
     coords = {"data": mesh.index("data"), "tensor": mesh.index("tensor")}
-    rows = np.array_split(np.arange(len(x)), 2)[coords["data"]]
+    rows = np.array_split(np.arange(len(x)), mesh.shape["data"])[
+        coords["data"]]
     x = torch.tensor(x[rows])
     g = None if g is None else torch.tensor(g[rows])
 
     def mine(a, parts=1):
-        """This tensor rank's columns of each of ``parts`` blocks of a."""
-        return torch.cat([c.chunk(2, dim=-1)[coords["tensor"]]
-                          for c in a.chunk(parts, dim=-1)], dim=-1)
+        """This tensor rank's columns of each of ``parts`` blocks of a, in
+        the padded layout (`tensor_parallel.local_slice`)."""
+        k, i = mesh.shape["tensor"], coords["tensor"]
+        out = []
+        for c in a.chunk(parts, dim=-1):
+            w = -(-c.shape[-1] // k)
+            c = torch.nn.functional.pad(c, (0, w * k - c.shape[-1]))
+            out.append(c[..., i * w:(i + 1) * w])
+        return torch.cat(out, dim=-1)
 
     def run():
-        if case == "q8_lin2":
+        if case in ("q8_lin2", "q8_qkv"):
             q = quantized_inference_model(model)
             capture_q8(q)
             with torch.no_grad():
-                y = q.blocks[0].ffn.q8_lin2(mine(x))
+                if case == "q8_lin2":
+                    y = q.blocks[0].ffn.q8_lin2(mine(x))
+                else:
+                    y = q.blocks[0].attn.q8_qkv(x)
             return {"y": y.numpy(), "coords": coords}
         inp, grads = (mine(x) if case == "lin2" else x), [mine(g)]
         if case == "head":
@@ -752,6 +774,46 @@ def sharded_decode(cfg_dict, state, mesh_axes, feats, locs, img_len,
         beams = beam_search(model, enc, mask, beam, max_len)
     return {"greedy": [t.numpy() for t in greedy],
             "beam": [t.numpy() for t in beams], "enc": enc.numpy()}
+
+
+@contextlib.contextmanager
+def _local_reshard_backward(TP, fault):
+    """The heads reshard's backward (``fault``: of `heads_to_columns` or of
+    `columns_to_heads`) without its collective: this rank's own columns
+    or heads alone, the other ranks' parts taken as zeros."""
+    def own_heads(block, layout):           # in place of _gather_heads
+        k = layout.mesh.shape["tensor"]
+        whole = block.new_zeros(block.shape[0], k * layout.width)
+        i = layout.mesh.index("tensor")
+        whole[:, i * layout.width:(i + 1) * layout.width] = block
+        return whole[:, layout.columns]
+
+    def own_columns(block, layout):         # in place of _scatter_heads
+        k = layout.mesh.shape["tensor"]
+        whole = block.new_zeros(block.shape[0], k * layout.width)
+        whole[:, layout.columns] = block
+        i = layout.mesh.index("tensor")
+        return whole[:, i * layout.width:(i + 1) * layout.width]
+
+    def heads_to_columns(ctx, grad):
+        layout = ctx.layout
+        block = own_heads(grad.reshape(-1, layout.width), layout)
+        return None, block.reshape(ctx.shape)
+
+    def columns_to_heads(ctx, *grads):
+        layout = ctx.layout
+        block = TP._rows(grads, layout.n * layout.head_dim)
+        return (None,) + TP._unrows(own_columns(block, layout), ctx.shapes)
+
+    cls, fn = ((TP._HeadsToColumns, heads_to_columns)
+               if fault == "heads_to_columns_local"
+               else (TP._ColumnsToHeads, columns_to_heads))
+    old = vars(cls)["backward"]
+    cls.backward = staticmethod(fn)
+    try:
+        yield
+    finally:
+        cls.backward = old
 
 
 @contextlib.contextmanager

@@ -480,17 +480,17 @@ def test_vocab_that_does_not_divide_over_tensor_four(pools, tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
-def test_check_model_supported_refuses_only_pp_and_item_16e():
+def test_check_model_supported_takes_every_uneven_split():
+    """Every split off ``pp`` runs: the variants, a vocabulary, heads over
+    ``tensor`` and experts over ``expert`` that do not divide."""
     cfg = ModelConfig(**dataclasses.asdict(_jax_cfg()))
     for change in ({"ffn_quant": "int8_all"}, {"head_quant": "int8_infer"},
                    {"asm": True}, {"n_words": 514}):
         SH.check_model_supported(dataclasses.replace(cfg, **change),
                                  {"fsdp": 2, "tensor": 4})
-    with pytest.raises(NotImplementedError, match="16e"):
-        SH.check_model_supported(cfg, {"tensor": 3})
-    with pytest.raises(NotImplementedError, match="16e"):
-        SH.check_model_supported(
-            dataclasses.replace(cfg, moe_experts=3), {"expert": 2})
+    SH.check_model_supported(cfg, {"tensor": 3})
+    SH.check_model_supported(
+        dataclasses.replace(cfg, moe_experts=3), {"expert": 2})
 
 
 # ---------------------------------------------------------------------------

@@ -251,11 +251,12 @@ def test_check_mesh_supported_raises_only_for_pp():
 
 @pytest.mark.parametrize("change", [
     {"ffn_quant": "int8_bwd"}, {"head_quant": "int8_bwd"}, {"asm": True}])
-def test_tensor_parallelism_refuses_what_it_does_not_split(change):
+def test_tensor_parallelism_refuses_only_what_the_jax_stage_refuses(change):
     """The int8 modes and the adaptive softmax split over ``tensor`` (as
-    GSPMD splits them); what stays refused is what JAX refuses: the int8
-    FFN under ``pp`` (the JAX stage's block has none), and heads that do
-    not divide by ``tensor`` (ROADMAP.md item 16e)."""
+    GSPMD splits them), and so do heads that do not divide by ``tensor``
+    (resharded around the kernels); what stays refused is what JAX
+    refuses: the int8 FFN under ``pp`` (the JAX stage's block has
+    none)."""
     cfg = dataclasses.replace(ModelConfig(**dataclasses.asdict(_jax_cfg())),
                               **change)
     SH.check_model_supported(cfg, {"tensor": 2})
@@ -265,8 +266,7 @@ def test_tensor_parallelism_refuses_what_it_does_not_split(change):
             SH.check_model_supported(cfg, {"pp": 2, "tensor": 2})
     else:
         SH.check_model_supported(cfg, {"pp": 2, "tensor": 2})
-    with pytest.raises(NotImplementedError, match="16e"):
-        SH.check_model_supported(cfg, {"tensor": 3})
+    SH.check_model_supported(cfg, {"tensor": 3})
 
 
 # ---------------------------------------------------------------------------
